@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
+``nvcc`` builds it in seconds into ``build/repro_torch/<name>-<hash>.so`` at
+the root of the checkout; the hash covers the sources and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  Every C
+entry point takes its pointers and the stream as ``void*`` and returns
+``cudaGetLastError()`` after its launch.
+
+Nothing is built when a module is imported: the first CUDA call builds what
+it needs, and ``build()`` builds several sources at once (one ``nvcc`` each,
+all started together).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of the CUDA sources under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on
+    ``PATH``, else the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    for part in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, str]:
+    """Compile every named source whose library is missing, all at once.
+
+    Returns the compiler's output per compiled source (``-Xptxas=-v``
+    reports registers, shared memory and spills); raises if any fails."""
+    names = sources() if names is None else names
+    jobs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, so)
+    logs, failed = {}, []
+    for name, (proc, tmp, so) in jobs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

@@ -1,0 +1,201 @@
+"""Model assembly: embeddings → stacked superblocks → head.
+
+Parameters mirror the JAX tree: per pattern position, each layer's tensors
+are stacked along a leading superblock axis (``params["blocks"][pos]``), the
+remainder layers are unstacked (``params["rem"]``).  The forward pass loops
+over the leading axis where the reference scans.
+
+Public entry points:
+
+    init_params(cfg, device=..., dtype=..., generator=...) -> param dict
+    forward_train(params, batch, cfg, dtype=...)        -> (logits, aux)
+    init_cache(cfg, B, max_len, dtype, device=...)      -> decode cache
+    prefill(params, batch, cache, cfg, dtype=...)       -> (last_logits, cache)
+    decode_step(params, tokens, cache, cfg, dtype=...)  -> (logits, cache)
+
+Weights are cast to the serving dtype once, at init or load
+(``bridge.params_from_numpy``), in place of the reference's per-call
+``cast_tree``: the same arithmetic.  The cache is updated in place and
+``cache["t"]`` (tokens already in the cache) is a Python int.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from . import blocks
+from .config import ATTN_KINDS, ModelConfig
+from .layers import embed, rmsnorm, unembed
+from .rope import rope_cos_sin
+
+
+def _check_supported(cfg: ModelConfig):
+    if cfg.num_experts or any(k not in ATTN_KINDS for k in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, SSD and RG-LRU blocks wait for a later slice "
+            "of the port")
+    if cfg.modality != "text" or cfg.pos_type == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE and the modality frontends wait for a later "
+            "slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_block(cfg: ModelConfig, lead: tuple, **init) -> dict:
+    ones = dict(dtype=init["dtype"], device=init["device"])
+    p = {"norm1": torch.ones(lead + (cfg.d_model,), **ones),
+         "mixer": blocks.init_attn(cfg, lead=lead, **init)}
+    if cfg.d_ff:
+        p["norm2"] = torch.ones(lead + (cfg.d_model,), **ones)
+        p["ffn"] = blocks.init_ffn(cfg, cfg.d_ff, lead=lead, **init)
+    return p
+
+
+def init_params(cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
+                generator: torch.Generator | None = None) -> dict:
+    """Random weights: truncated normals (±3σ, std fan_in^-0.5) drawn tensor
+    by tensor in fp32 and cast to ``dtype`` as they go; norms are ones and
+    biases zeros.  ``generator`` (on ``device``) defaults to seed 0."""
+    device = resolve_device(device)
+    _check_supported(cfg)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    init = dict(device=device, dtype=dtype, generator=generator)
+    D, V = cfg.d_model, cfg.vocab_size
+    params = {"embed": blocks.trunc_normal((V, D), D, **init)}
+    params["blocks"] = [_init_block(cfg, (cfg.n_superblocks,), **init)
+                        for _ in cfg.block_pattern]
+    params["rem"] = [_init_block(cfg, (), **init)
+                     for _ in cfg.remainder_pattern]
+    params["final_norm"] = torch.ones(D, dtype=dtype, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = blocks.trunc_normal((D, V), D, **init)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    if kind in ("attn_sliding", "attn_local"):
+        return min(cfg.window, max_len)
+    if kind == "attn_chunked":
+        return min(cfg.chunk_size, max_len)
+    return max_len
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, B: int, max_len: int,
+                      dtype, device, lead: tuple) -> dict:
+    Sc = _cache_len(cfg, kind, max_len)
+    K, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros(lead + (B, Sc, K, dh), dtype=dtype, device=device),
+        "v": torch.zeros(lead + (B, Sc, K, dh), dtype=dtype, device=device),
+        "pos": torch.full(lead + (Sc,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device="cuda") -> dict:
+    device = resolve_device(device)
+    _check_supported(cfg)
+    lead = (cfg.n_superblocks,)
+    return {
+        "blocks": [_init_block_cache(cfg, kind, batch, max_len, dtype, device,
+                                     lead) for kind in cfg.block_pattern],
+        "rem": [_init_block_cache(cfg, kind, batch, max_len, dtype, device, ())
+                for kind in cfg.remainder_pattern],
+        "t": 0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward machinery
+# ---------------------------------------------------------------------------
+
+def _make_ctx(cfg: ModelConfig, positions: torch.Tensor, t: int) -> dict:
+    _check_supported(cfg)
+    if cfg.pos_type == "rope":
+        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
+                                cfg.rope_theta)
+    else:
+        cos = sin = None
+    return {"cfg": cfg, "cos": cos, "sin": sin, "t": t}
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
+    return embed(batch["tokens"], params["embed"], dtype)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, so cache writes land in place)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _run_stack(params, x, cfg: ModelConfig, ctx, cache):
+    """All layers in order: superblocks, then the remainder layers."""
+    for i in range(cfg.n_superblocks):
+        for pos, kind in enumerate(cfg.block_pattern):
+            c = None if cache is None else _layer(cache["blocks"][pos], i)
+            x = blocks.apply_block(kind, _layer(params["blocks"][pos], i),
+                                   x, ctx, c)
+    for j, kind in enumerate(cfg.remainder_pattern):
+        c = None if cache is None else cache["rem"][j]
+        x = blocks.apply_block(kind, params["rem"][j], x, ctx, c)
+    return x
+
+
+def _head(params, x, cfg: ModelConfig):
+    x = rmsnorm(x, params["final_norm"].to(x.dtype), eps=cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return unembed(x, table, tied=cfg.tie_embeddings,
+                   softcap=cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16):
+    """Full-sequence forward; returns (logits (B,S,V), aux_loss)."""
+    x = _embed_inputs(params, batch, cfg, dtype)
+    B, S = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    ctx = _make_ctx(cfg, positions, 0)
+    x = _run_stack(params, x, cfg, ctx, None)
+    return _head(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16):
+    """Process the prompt, fill the cache, return last-position logits only
+    (never materializes (B,S,V))."""
+    x = _embed_inputs(params, batch, cfg, dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    ctx = _make_ctx(cfg, positions, 0)
+    x = _run_stack(params, x, cfg, ctx, cache)
+    cache["t"] = S
+    logits = _head(params, x[:, -1:].contiguous(), cfg)
+    return logits[:, 0], cache
+
+
+def decode_step(params, tokens, cache, cfg: ModelConfig, *,
+                dtype=torch.bfloat16):
+    """One decode step: tokens (B,1) int -> (logits (B,V), cache)."""
+    x = embed(tokens, params["embed"], dtype)
+    B = x.shape[0]
+    t = cache["t"]
+    positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    ctx = _make_ctx(cfg, positions, t)
+    x = _run_stack(params, x, cfg, ctx, cache)
+    cache["t"] = t + 1
+    logits = _head(params, x, cfg)
+    return logits[:, 0], cache
