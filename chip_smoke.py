@@ -7,31 +7,39 @@ Phases, each printed as one JSON line:
 
 1. ``env``: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all at once, into ``build/repro_torch``).
+   per source, all at once, into ``build/repro_torch``), with ptxas's
+   registers and spills.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
-   fp32 (tolerance 2e-5) and bf16 (2e-2), the JAX suite's own tolerances;
-   then kernel, plain and library (``F.rms_norm`` / SDPA) times at the
-   qwen2-7b serving shapes (CUDA events, median of 30 after warm-up) beside
-   the least time the card could take (bytes over 3.35 TB/s or operations
-   over the peak rate of their type).
-3. ``serve_check``: qwen2-7b at full width and 4 layers, fp32, random
+   at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
+   scan 1e-4 in fp32.  Flash attention at every head dim of the config
+   registry.  Then kernel, plain and library (``F.rms_norm`` / SDPA; none
+   computes the RG-LRU scan) times at the serving shapes of qwen2-7b and
+   recurrentgemma-9b (CUDA events, median of 30 after warm-up) beside the
+   least time the card could take (bytes over 3.35 TB/s or operations over
+   the peak rate of their type).
+3. ``serve_check``, once per served arch, at full width, fp32, random
    weights from the seed: the last-position logits of ``prefill`` and 8
    ``decode_step``s against ``forward_train`` on the same tokens, within
-   2e-4 relative.
-4. ``serve``: full qwen2-7b (28 layers, bf16 weights and KV cache) through
-   the ``serve_batch`` wave loop: 12 requests, 3 waves of batch 4, 512-token
-   prompts, 32 greedy new tokens.  Both kernels' launch counters are reset
-   just before and must equal the analytic counts just after.
-5. ``profile``: one more prefill wave and 8 decode steps under
-   ``torch.profiler``: wall time, summed kernel time, the card's idle share
-   and the costliest kernels.
+   2e-4 relative.  qwen2-7b at 4 layers, batch 2, prompt 128;
+   recurrentgemma-9b at 3 layers (one superblock), batch 1, a 2176-token
+   prompt (longer than its 2048-token window, so the ring cache rolls).
+4. ``serve``, once per served arch: the full model (qwen2-7b 28 layers,
+   recurrentgemma-9b 38, bf16 weights and cache) through the
+   ``serve_batch`` wave loop: 12 requests, 3 waves of batch 4, 512-token
+   prompts, 32 greedy new tokens.  Every kernel's launch counter is reset
+   just before and must equal the analytic count just after.
+5. ``profile``, after each serve: one more prefill wave and 8 decode steps
+   under ``torch.profiler``: wall time, summed kernel time, the card's idle
+   share and the costliest kernels.
 
-Then a ``kernels`` summary line, the card's name and power limit as
-``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
-Any failed check exits non-zero; so does a machine without a card.
+Then a ``kernels`` summary line (launches summed over both serve phases,
+and per arch), the card's name and power limit as ``nvidia-smi`` prints
+them, and ``{"ok": true, "device": {...}}`` last.  Any failed check exits
+non-zero; so does a machine without a card.
 """
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -48,7 +56,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SERVE_REL = 2e-4
+ARCHS = ("qwen2-7b", "recurrentgemma-9b")
 
 
 def emit(phase: str, **kw):
@@ -88,12 +98,12 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(got, want, dtype) -> tuple:
+def compare(got, want, dtype, tol=TOL) -> tuple:
     """(max abs error, within tolerance) with |got - want| <= t + t·|want|."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()) and bool(
-        (err <= TOL[dtype] * (1 + want.abs())).all())
+        (err <= tol[dtype] * (1 + want.abs())).all())
     return float(err.max()), ok
 
 
@@ -122,6 +132,8 @@ def phase_env(build):
 def phase_kernels(dev, gen):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
+    from repro_torch.kernels.rglru.ref import rglru_sequential
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -130,19 +142,22 @@ def phase_kernels(dev, gen):
 
     cases, summary = [], {}
 
-    # ---- rmsnorm: qwen2-7b D 3584, decode rows (4) and prefill rows (4·512)
-    D, eps = 3584, 1e-6
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows in (4, 4 * 512):
-            x, s, r = randn(rows, D, dtype=dtype), randn(D, dtype=dtype), \
-                randn(rows, D, dtype=dtype)
-            for res in (None, r):
-                err, ok = compare(rmsnorm_cuda(x, s, eps=eps, residual=res),
-                                  rmsnorm_ref(x, s, eps=eps, residual=res),
-                                  dtype)
-                cases.append(dict(kernel="rmsnorm", dtype=str(dtype),
-                                  rows=rows, D=D, residual=res is not None,
-                                  max_abs_err=err, tol=TOL[dtype], ok=ok))
+    # ---- rmsnorm: D 3584 (qwen2-7b) and 4096 (recurrentgemma-9b), decode
+    # rows (4) and prefill rows (4·512)
+    eps = 1e-6
+    for D in (3584, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in (4, 4 * 512):
+                x, s, r = randn(rows, D, dtype=dtype), randn(D, dtype=dtype), \
+                    randn(rows, D, dtype=dtype)
+                for res in (None, r):
+                    err, ok = compare(
+                        rmsnorm_cuda(x, s, eps=eps, residual=res),
+                        rmsnorm_ref(x, s, eps=eps, residual=res), dtype)
+                    cases.append(dict(kernel="rmsnorm", dtype=str(dtype),
+                                      rows=rows, D=D, residual=res is not None,
+                                      max_abs_err=err, tol=TOL[dtype], ok=ok))
+    D = 3584
     timings = {}
     for rows in (4 * 512, 4):      # prefill rows first: the summary's shape
         x, s = randn(rows, D, dtype=torch.bfloat16), \
@@ -164,16 +179,24 @@ def phase_kernels(dev, gen):
     emit("kernels", kernel="rmsnorm",
          timings={f"rows={r} D={D} bf16": t for r, t in timings.items()})
 
-    # ---- flash attention: qwen2-7b prefill shapes, ragged S, dh 32/64,
-    # window and chunk
+    # ---- flash attention: qwen2-7b prefill shapes, ragged S, every head
+    # dim of the registry (16 smoke, 80 stablelm-3b / hubert, 120
+    # h2o-danube, 160 stablelm-12b, 256 recurrentgemma), window and chunk
     attn_cases = [
         (4, 512, 28, 4, 128, dict(causal=True)),
+        (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
         (1, 200, 28, 4, 128, dict(causal=True)),
         (2, 24, 28, 4, 128, dict(causal=True)),
         (2, 256, 8, 2, 32, dict(causal=True)),
         (2, 256, 8, 2, 64, dict(causal=True)),
         (1, 512, 8, 2, 128, dict(causal=True, window=100)),
         (1, 512, 8, 2, 128, dict(causal=True, chunk=128)),
+        (2, 100, 4, 1, 16, dict(causal=True)),
+        (1, 300, 32, 32, 80, dict(causal=True)),
+        (1, 300, 32, 8, 120, dict(causal=True)),
+        (1, 300, 32, 8, 160, dict(causal=True)),
+        (1, 700, 16, 1, 256, dict(causal=True, window=300)),
+        (1, 130, 4, 1, 256, dict(causal=False)),
     ]
     for B, S, H, K, dh, kw in attn_cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -184,40 +207,84 @@ def phase_kernels(dev, gen):
             cases.append(dict(kernel="flash_attention", dtype=str(dtype),
                               B=B, S=S, H=H, K=K, dh=dh, **kw,
                               max_abs_err=err, tol=TOL[dtype], ok=ok))
-    B, S, H, K, dh = attn_cases[0][:5]
-    q, k, v = randn(B, S, H, dh, dtype=torch.bfloat16), \
-        randn(B, S, K, dh, dtype=torch.bfloat16), \
-        randn(B, S, K, dh, dtype=torch.bfloat16)
-    pos = torch.arange(S, device=dev)
-    pairs = int(attention_mask(pos, pos, causal=True).sum())
-    t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
-                        4 * B * H * dh * pairs, torch.bfloat16)
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    timings = {}
+    for arch, (B, S, H, K, dh, kw) in zip(ARCHS, attn_cases[:2]):
+        q, k, v = randn(B, S, H, dh, dtype=torch.bfloat16), \
+            randn(B, S, K, dh, dtype=torch.bfloat16), \
+            randn(B, S, K, dh, dtype=torch.bfloat16)
+        pos = torch.arange(S, device=dev)
+        pairs = int(attention_mask(pos, pos, **kw).sum())
+        t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
+                            4 * B * H * dh * pairs, torch.bfloat16)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        # SDPA with is_causal: the window of 2048 covers all 512 keys
+        timings[arch] = dict(
+            shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
+                  + " ".join(f"{n}={x}" for n, x in kw.items()),
+            ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+            plain_ms=time_ms(lambda: mha_ref(q, k, v, **kw)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=t_bound, bound_by=by,
+            max_abs_err=compare(flash_attention_cuda(q, k, v, **kw),
+                                mha_ref(q, k, v, **kw), torch.bfloat16)[0])
     summary["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99",
-        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal",
-        ms=time_ms(lambda: flash_attention_cuda(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: mha_ref(q, k, v, causal=True)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound_ms=t_bound, bound_by=by,
-        max_abs_err=compare(flash_attention_cuda(q, k, v, causal=True),
-                            mha_ref(q, k, v, causal=True),
-                            torch.bfloat16)[0])
+        **timings["qwen2-7b"], by_arch=timings)
+    emit("kernels", kernel="flash_attention", timings=timings)
+
+    # ---- RG-LRU scan: recurrentgemma-9b widths (W 4096) and a ragged W,
+    # prefill (S 512), ragged S and decode (S 1), with and without h0
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 37, 512):
+            for W in (4096, 200):
+                la = -F.softplus(randn(4, S, W, dtype=torch.float32)).to(dtype)
+                gx = randn(4, S, W, dtype=dtype)
+                for h0 in (None, randn(4, W, dtype=torch.float32)):
+                    y, h_last = rglru_cuda(la, gx, h0)
+                    want_y, want_h = rglru_sequential(la, gx, h0)
+                    err_y, ok_y = compare(y, want_y, dtype, RGLRU_TOL)
+                    err_h, ok_h = compare(h_last, want_h, torch.float32,
+                                          RGLRU_TOL)
+                    cases.append(dict(kernel="rglru", dtype=str(dtype), B=4,
+                                      S=S, W=W, h0=h0 is not None,
+                                      max_abs_err=max(err_y, err_h),
+                                      tol=RGLRU_TOL[dtype], ok=ok_y and ok_h))
+    B, S, W = 4, 512, 4096
+    la = -F.softplus(randn(B, S, W, dtype=torch.float32))
+    gx, h0 = randn(B, S, W, dtype=torch.float32), \
+        randn(B, W, dtype=torch.float32)
+    # bytes: la, gx and h0 read once, y and h_last written once; about 9
+    # operations an element (2 exp, sqrt, max, sub, 3 mul, add)
+    t_bound, by = bound(la.nbytes + 2 * gx.nbytes + 2 * h0.nbytes,
+                        9 * gx.numel(), torch.float32)
+    summary["rglru"] = dict(
+        name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru/kernel.py:50",
+        shape=f"log_a, gx ({B},{S},{W}) fp32, h0 ({B},{W}) fp32",
+        ms=time_ms(lambda: rglru_cuda(la, gx, h0)),
+        plain_ms=time_ms(lambda: rglru_sequential(la, gx, h0), iters=5),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        max_abs_err=compare(rglru_cuda(la, gx, h0)[0],
+                            rglru_sequential(la, gx, h0)[0], torch.float32,
+                            RGLRU_TOL)[0])
+    emit("kernels", kernel="rglru", timings={
+        summary["rglru"]["shape"]: {k: summary["rglru"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
     emit("kernels", cases=cases)
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return summary
 
 
-def phase_serve_check(dev, gen):
+def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
+                      n_dec: int = 8):
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward_train, init_cache,
                                     init_params, prefill)
-    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=4)
-    B, P, n_dec = 2, 128, 8
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
     toks = torch.randint(0, cfg.vocab_size, (B, P + n_dec), generator=gen,
                          device=dev)
@@ -235,21 +302,24 @@ def phase_serve_check(dev, gen):
     scale = float(full.abs().max())
     rel = float(torch.stack(errs).max()) / scale
     finite = bool(torch.isfinite(full).all())
-    emit("serve_check", arch="qwen2-7b", layers=cfg.num_layers,
-         dtype="float32", batch=B, prompt=P, decode_steps=n_dec,
+    emit("serve_check", arch=arch, layers=cfg.num_layers, dtype="float32",
+         batch=B, prompt=P, window=cfg.window, decode_steps=n_dec,
          max_rel_err=rel, bound=SERVE_REL, finite=finite)
     check(finite and rel < SERVE_REL,
-          f"serve_check: decode vs forward rel err {rel} (bound {SERVE_REL})")
+          f"serve_check {arch}: decode vs forward rel err {rel} "
+          f"(bound {SERVE_REL})")
 
 
-def phase_serve(dev, gen, seed):
+def phase_serve(dev, gen, seed, arch: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.models import init_cache, init_params
+    from repro_torch.models.config import ATTN_KINDS
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(arch)
     batch, requests, prompt_len, max_new = 4, 12, 512, 32
     max_len = prompt_len + max_new + 8
     dtype = torch.bfloat16
@@ -263,10 +333,12 @@ def phase_serve(dev, gen, seed):
              for _ in range(requests)]
     pre = make_prefill_step(cfg, dtype=dtype)
     dec = make_decode_step(cfg, dtype=dtype)
+    kernels = {"rmsnorm": rmsnorm_cuda, "flash_attention": flash_attention_cuda,
+               "rglru": rglru_cuda}
 
     torch.cuda.reset_peak_memory_stats()
-    rmsnorm_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     prefill_ms, decode_s, outs = [], 0.0, []
     with torch.inference_mode():
         finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -290,12 +362,17 @@ def phase_serve(dev, gen, seed):
             torch.cuda.synchronize()
             decode_s += time.monotonic() - t1
             outs.append(torch.cat(new, 1).cpu())
-    launches = {"rmsnorm": rmsnorm_cuda.launches,
-                "flash_attention": flash_attention_cuda.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     waves = len(outs)
     steps = waves * max_new
+    kinds = cfg._layer_kinds()
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    # rmsnorm: norm1 and norm2 of every layer and the final norm, in prefill
+    # and decode; flash attention: prefill only (decode attention over the
+    # cache is mha_ref, as in the JAX package); RG-LRU: prefill and decode
     want = {"rmsnorm": (2 * cfg.num_layers + 1) * (waves + steps),
-            "flash_attention": cfg.num_layers * waves}
+            "flash_attention": n_attn * waves,
+            "rglru": kinds.count("rglru") * (waves + steps)}
     tokens = torch.cat(outs)
     emit("serve", arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
          requests=requests, waves=waves, batch=batch, prompt=prompt_len,
@@ -307,12 +384,12 @@ def phase_serve(dev, gen, seed):
          peak_mem_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, launches_expected=want,
          sample=tokens[0, :10].tolist())
-    check(bool(finite), "serve: non-finite logits")
+    check(bool(finite), f"serve {arch}: non-finite logits")
     check(tokens.shape == (requests, max_new)
           and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
-          f"serve: bad tokens {tuple(tokens.shape)}")
-    check(all(launches.values()) and launches == want,
-          f"serve: launches {launches}, expected {want}")
+          f"serve {arch}: bad tokens {tuple(tokens.shape)}")
+    check(launches == want and all(launches[k] for k, n in want.items() if n),
+          f"serve {arch}: launches {launches}, expected {want}")
     return launches, (cfg, params, pre, dec, toks, max_len)
 
 
@@ -360,7 +437,7 @@ def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
             for _ in range(n_dec):
                 tok, _, _ = dec(params, tok, cache)
 
-        emit("profile", prefill=_profiled(run_prefill),
+        emit("profile", arch=cfg.name, prefill=_profiled(run_prefill),
              decode_steps=n_dec, decode=_profiled(run_decode))
 
 
@@ -386,12 +463,18 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     smi = phase_env(_build)
     summary = phase_kernels(dev, gen)
-    phase_serve_check(dev, gen)
-    torch.cuda.empty_cache()
-    launches, served = phase_serve(dev, gen, args.seed)
-    phase_profile(dev, *served)
+    phase_serve_check(dev, gen, "qwen2-7b", layers=4, B=2, P=128)
+    phase_serve_check(dev, gen, "recurrentgemma-9b", layers=3, B=1, P=2176)
+    launches = {}
+    for arch in ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[arch], served = phase_serve(dev, gen, args.seed, arch)
+        phase_profile(dev, *served)
+        del served          # free this model's weights before the next one
     for name, entry in summary.items():
-        entry["launches"] = launches[name]
+        entry["launches"] = sum(n[name] for n in launches.values())
+        entry["launches_by_arch"] = {a: n[name] for a, n in launches.items()}
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

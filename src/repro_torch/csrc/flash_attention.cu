@@ -23,26 +23,41 @@
 // Two bodies, one per input type:
 //
 //   * bf16 (the serving path): tensor cores through mma.sync m16n8k16 (bf16
-//     in, fp32 accumulate).  Each of the 4 warps owns 16 query rows; its Q
-//     fragments stay in registers for the whole KV loop.  K and V tiles are
-//     staged in shared memory as bf16 (rows padded by 8 elements so the
-//     fragment loads are free of bank conflicts); V's fragments come from
-//     ldmatrix.trans.  The score accumulators are rescaled, exponentiated and
-//     repacked in registers as the A operand of the PV product, so the
-//     probabilities never touch shared memory.  They are rounded to bf16 for
-//     PV, as the reference casts its probabilities to v's type.
+//     in, fp32 accumulate).  Each of the 4 warps owns 16 query rows.  Q, K and
+//     V tiles are staged in shared memory as bf16 with 16-byte loads and
+//     stores (rows padded by 8 elements so the fragment loads are free of
+//     bank conflicts); Q's fragments are read from there one 16-wide k-step
+//     at a time, so only the O accumulator (dh / 2 floats a thread) stays in
+//     registers across the KV loop, and V's fragments come from
+//     ldmatrix.trans.  The score accumulators are
+//     rescaled, exponentiated and repacked in registers as the A operand of
+//     the PV product, so the probabilities never touch shared memory.  They
+//     are rounded to bf16 for PV, as the reference casts its probabilities to
+//     v's type.
 //   * fp32: the same tiling on the fp32 FMA units (no tensor-core type keeps
 //     fp32's 2e-5 agreement), 128 threads as 16 row groups x 8 column lanes,
 //     with Q, K, V and the probability tile staged in shared memory as fp32.
 //
-// What bounds it: at the qwen2-7b prefill shapes (B 4, S 512, H 28, K 4,
-// dh 128, causal, bf16) the least time the card could take is set by bytes
-// (q, k, v read once and o written once: 34 MB over 3.35 TB/s, 10 us) just
-// above the operations (7.5 GFLOP over 989 TFLOP/s, 7.6 us).  Neither body
-// gets near it: mma.sync reaches a fraction of the wgmma rate, the tile
-// loads are plain 2-byte loads that are not overlapped with the products,
-// and a 64-key tile on the causal diagonal computes its masked half anyway.
-// wgmma, TMA with a ring of stages, and warp specialisation are later work.
+// Head dims: every one the model registry uses (16, 32, 64, 80, 120, 128,
+// 160, 256).  Each body is compiled for the head dim rounded up to 16 (the
+// mma k-step); a head dim below that width (120 -> 128) is zero-filled in
+// shared memory as it is loaded and masked when O is stored, so the wrapper
+// makes no padded copy.  Above 128 the tiles shrink so that registers and
+// shared memory still fit: 32-key tiles in the bf16 body (the O accumulator
+// alone is 128 registers a thread at dh 256) and 32-row query tiles in the
+// fp32 body.
+//
+// What bounds it: at the serving prefill shapes, bytes, just above the
+// operations.  qwen2-7b (B 4, S 512, H 28, K 4, dh 128, causal, bf16):
+// q, k, v read once and o written once are 34 MB, 10 us at 3.35 TB/s,
+// against 7.5 GFLOP, 7.6 us at 989 TFLOP/s.  recurrentgemma-9b (H 16, K 1,
+// dh 256, window 2048): 36 MB, 11 us, against 8.6 GFLOP, 8.7 us.  Neither
+// body gets near it: mma.sync reaches a fraction of the wgmma rate, the tile
+// loads are not overlapped with the products, K and V are loaded again for
+// every query tile of a head, and a tile on the causal diagonal computes
+// its masked half anyway.  wgmma, TMA with a ring of stages, and warp
+// specialisation are later work.
+//
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,8 +65,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // keys per KV tile
+constexpr int kBQ = 64;        // query rows per CTA (the fp32 body halves it above dh 128)
+constexpr int kBK = 64;        // keys per KV tile (the bf16 body halves it above dh 128)
 constexpr int kThreads = 128;  // 4 warps
 
 struct Params {
@@ -65,11 +80,12 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   int causal, window, chunk;
   float scale;
+  int dh;  // the real head dim; the body's compiled width is dh rounded up to 16
 };
 
-// Keys [lo, hi) that some query of the tile [q0, q0 + kBQ) can see.
-__device__ __forceinline__ void kv_range(const Params& p, int q0, int* lo, int* hi) {
-  const int q_last = min(q0 + kBQ, p.S) - 1;
+// Keys [lo, hi) that some query of the tile [q0, q0 + bq) can see.
+__device__ __forceinline__ void kv_range(const Params& p, int q0, int bq, int* lo, int* hi) {
+  const int q_last = min(q0 + bq, p.S) - 1;
   *lo = 0;
   *hi = p.S;
   if (p.causal) *hi = min(*hi, q_last + 1);
@@ -86,6 +102,42 @@ __device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
   if (p.window) ok = ok && (qi - kj) < p.window;
   if (p.chunk) ok = ok && (qi / p.chunk) == (kj / p.chunk);
   return ok;
+}
+
+// Stage rows [s0, s0 + rows) of one head, DHP columns wide, into shared
+// memory; rows at or past S and columns at or past dh are zero.  16-byte
+// loads where the head's rows allow them (the model's q, k and v always
+// do), else one element at a time.
+template <int DHP, typename T>
+__device__ __forceinline__ void load_tile(T* dst, int dst_stride, const T* base,
+                                          long long seq_stride, int s0, int rows, int S,
+                                          int dh) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(base) % 16 == 0 && seq_stride % kVec == 0 &&
+                   dh % kVec == 0;
+  if (vec) {
+    constexpr int kChunks = DHP / kVec;
+    const bool vec_dst =
+        (dst_stride * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+    for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = (idx % kChunks) * kVec, s = s0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (s < S && c < dh) v = *reinterpret_cast<const uint4*>(base + s * seq_stride + c);
+      T* d = dst + r * dst_stride + c;
+      if (vec_dst) {
+        *reinterpret_cast<uint4*>(d) = v;
+      } else {
+        const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) d[i] = e[i];
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < rows * DHP; idx += kThreads) {
+    const int r = idx / DHP, c = idx % DHP, s = s0 + r;
+    dst[r * dst_stride + c] = (s < S && c < dh) ? base[s * seq_stride + c] : T(0);
+  }
 }
 
 // One online-softmax step for a row whose scores this thread holds in s[],
@@ -137,18 +189,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int DH>
+// Shared-memory layout of the bf16 body, in bf16 elements.
+template <int DHP>
+struct SmemBf16 {
+  static constexpr int kBKeys = DHP > 128 ? kBK / 2 : kBK;
+  static constexpr int kStride = DHP + 8;  // padded row of the Q, K and V tiles
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kBQ * kStride;
+  static constexpr int kV = kK + kBKeys * kStride;
+  static constexpr size_t kBytes = sizeof(uint16_t) * (kV + kBKeys * kStride);
+};
+
+template <int DHP>
 __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
-  constexpr int kStride = DH + 8;  // padded row of the K and V tiles, in elements
-  constexpr int kKSteps = DH / 16;
-  constexpr int kSTiles = kBK / 8;
-  constexpr int kOTiles = DH / 8;
-  __shared__ __align__(16) uint16_t sK[kBK * kStride];
-  __shared__ __align__(16) uint16_t sV[kBK * kStride];
+  using L = SmemBf16<DHP>;
+  constexpr int BK = L::kBKeys;
+  constexpr int kStride = L::kStride;
+  constexpr int kKSteps = DHP / 16;
+  constexpr int kSTiles = BK / 8;
+  constexpr int kOTiles = DHP / 8;
+  extern __shared__ __align__(16) uint16_t smem16[];
+  uint16_t* sQ = smem16 + L::kQ;
+  uint16_t* sK = smem16 + L::kK;
+  uint16_t* sV = smem16 + L::kV;
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -166,20 +233,11 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
 
   // This thread's query rows: r[0] = g and r[1] = g + 8 of the warp's 16.
   const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  uint32_t qf[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int qi = qrow[f & 1];
-      const int c = kk * 16 + 2 * t + (f >> 1) * 8;
-      const uint16_t* src = qb + qi * p.q_ss + c;
-      qf[kk][f] = qi < S ? pack_raw(src[0], src[1]) : 0u;
-    }
-  }
+  const uint16_t* qfrag = sQ + (warp * 16 + g) * kStride + 2 * t;
+  load_tile<DHP>(sQ, kStride, qb, p.q_ss, q0, kBQ, S, p.dh);
 
   int kv_lo, kv_hi;
-  kv_range(p, q0, &kv_lo, &kv_hi);
+  kv_range(p, q0, kBQ, &kv_lo, &kv_hi);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float oacc[kOTiles][4];
 #pragma unroll
@@ -187,27 +245,27 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
 
-  for (int k0 = (kv_lo / kBK) * kBK; k0 < kv_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kBK * DH; idx += kThreads) {
-      const int r = idx / DH, c = idx % DH, s = k0 + r;
-      sK[r * kStride + c] = s < S ? kb[s * p.k_ss + c] : 0;
-      sV[r * kStride + c] = s < S ? vb[s * p.v_ss + c] : 0;
-    }
+  for (int k0 = (kv_lo / BK) * BK; k0 < kv_hi; k0 += BK) {
+    __syncthreads();  // the previous tile is no longer read (and Q is staged)
+    load_tile<DHP>(sK, kStride, kb, p.k_ss, k0, BK, S, p.dh);
+    load_tile<DHP>(sV, kStride, vb, p.v_ss, k0, BK, S, p.dh);
     __syncthreads();
 
-    // S = Q K^T for the warp's 16 rows x 64 keys: 8 tiles of 16 x 8.
+    // S = Q K^T for the warp's 16 rows x BK keys: BK / 8 tiles of 16 x 8,
+    // one 16-wide k-step of Q's fragments at a time.
     float sacc[kSTiles][4];
 #pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
+    for (int j = 0; j < kSTiles; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-      const uint16_t* krow = sK + (j * 8 + g) * kStride + 2 * t;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(sacc[j], qf[kk], b0, b1);
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      const uint32_t a[4] = {ld32(qfrag + kk * 16), ld32(qfrag + 8 * kStride + kk * 16),
+                             ld32(qfrag + kk * 16 + 8), ld32(qfrag + 8 * kStride + kk * 16 + 8)};
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+        const uint16_t* krow = sK + (j * 8 + g) * kStride + 2 * t + kk * 16;
+        mma_bf16(sacc[j], a, ld32(krow), ld32(krow + 8));
       }
     }
 
@@ -237,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
 
     // O += P V: P's A fragments are the score accumulators, repacked to bf16.
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
                              pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
                              pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
@@ -255,17 +313,21 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
     }
   }
 
+  const int dh = p.dh;
   __nv_bfloat16* ob =
-      static_cast<__nv_bfloat16*>(p.o) + (static_cast<long long>(b) * S * p.H + h) * DH;
+      static_cast<__nv_bfloat16*>(p.o) + (static_cast<long long>(b) * S * p.H + h) * dh;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (qrow[rr] >= S) continue;
     const float inv_l = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
-    __nv_bfloat16* orow = ob + static_cast<long long>(qrow[rr]) * p.H * DH + 2 * t;
+    __nv_bfloat16* orow = ob + static_cast<long long>(qrow[rr]) * p.H * dh;
 #pragma unroll
-    for (int n = 0; n < kOTiles; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
-          oacc[n][2 * rr] * inv_l, oacc[n][2 * rr + 1] * inv_l);
+    for (int n = 0; n < kOTiles; ++n) {
+      const int c = n * 8 + 2 * t;  // dh is even, so c < dh covers c + 1 too
+      if (c < dh)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+            oacc[n][2 * rr] * inv_l, oacc[n][2 * rr + 1] * inv_l);
+    }
   }
 }
 
@@ -273,45 +335,36 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
 // fp32: FMA units
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = kBQ / 16;  // rows per thread
-constexpr int kCols = kBK / 8;   // score columns per thread
+constexpr int kCols = kBK / 8;  // score columns per thread
 
 // Shared-memory layout of the fp32 body, in floats.
-template <int DH>
+template <int DHP>
 struct Smem32 {
-  static constexpr int kQStride = DH + 1;
-  static constexpr int kKStride = DH + 1;
-  static constexpr int kVStride = DH;
+  static constexpr int kBQRows = DHP > 128 ? kBQ / 2 : kBQ;
+  static constexpr int kQStride = DHP + 1;
+  static constexpr int kKStride = DHP + 1;
+  static constexpr int kVStride = DHP;
   static constexpr int kPStride = kBK + 1;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * kQStride;
+  static constexpr int kK = kQ + kBQRows * kQStride;
   static constexpr int kV = kK + kBK * kKStride;
   static constexpr int kP = kV + kBK * kVStride;
-  static constexpr size_t kBytes = sizeof(float) * (kP + kBQ * kPStride);
+  static constexpr size_t kBytes = sizeof(float) * (kP + kBQRows * kPStride);
 };
 
-// Stage rows [s0, s0 + 64) of one head; rows at or past S are zero.
-template <int DH>
-__device__ __forceinline__ void load_tile32(float* dst, int dst_stride, const float* base,
-                                            long long seq_stride, int s0, int S) {
-  static_assert(kBQ == kBK, "one tile height for Q, K and V");
-  for (int idx = threadIdx.x; idx < kBK * DH; idx += kThreads) {
-    const int r = idx / DH, c = idx % DH, s = s0 + r;
-    dst[r * dst_stride + c] = s < S ? base[s * seq_stride + c] : 0.f;
-  }
-}
-
-template <int DH>
+template <int DHP>
 __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
-  using L = Smem32<DH>;
-  constexpr int kOut = DH / 8;
+  using L = Smem32<DHP>;
+  constexpr int BQ = L::kBQRows;
+  constexpr int kRows = BQ / 16;  // rows per thread
+  constexpr int kOut = DHP / 8;
   extern __shared__ float smem[];
   float* sQ = smem + L::kQ;
   float* sK = smem + L::kK;
   float* sV = smem + L::kV;
   float* sP = smem + L::kP;
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.K);
@@ -322,10 +375,10 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
   const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile32<DH>(sQ, L::kQStride, qb, p.q_ss, q0, S);
+  load_tile<DHP>(sQ, L::kQStride, qb, p.q_ss, q0, BQ, S, p.dh);
 
   int kv_lo, kv_hi;
-  kv_range(p, q0, &kv_lo, &kv_hi);
+  kv_range(p, q0, BQ, &kv_lo, &kv_hi);
   float m[kRows], l[kRows], acc[kRows][kOut];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -337,8 +390,8 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 
   for (int k0 = (kv_lo / kBK) * kBK; k0 < kv_hi; k0 += kBK) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile32<DH>(sK, L::kKStride, kb, p.k_ss, k0, S);
-    load_tile32<DH>(sV, L::kVStride, vb, p.v_ss, k0, S);
+    load_tile<DHP>(sK, L::kKStride, kb, p.k_ss, k0, kBK, S, p.dh);
+    load_tile<DHP>(sV, L::kVStride, vb, p.v_ss, k0, kBK, S, p.dh);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -347,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DHP; ++d) {
       float qv[kRows], kv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty + 16 * i) * L::kQStride + d];
@@ -387,15 +440,17 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
     }
   }
 
-  float* ob = static_cast<float*>(p.o) + (static_cast<long long>(b) * S * p.H + h) * DH;
+  const int dh = p.dh;
+  float* ob = static_cast<float*>(p.o) + (static_cast<long long>(b) * S * p.H + h) * dh;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float inv_l = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* orow = ob + static_cast<long long>(qi) * p.H * DH;
+    float* orow = ob + static_cast<long long>(qi) * p.H * dh;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) orow[tx + 8 * j] = acc[i][j] * inv_l;
+    for (int j = 0; j < kOut; ++j)
+      if (tx + 8 * j < dh) orow[tx + 8 * j] = acc[i][j] * inv_l;
   }
 }
 
@@ -403,31 +458,30 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
-dim3 grid_of(const Params& p) { return dim3((p.S + kBQ - 1) / kBQ, p.H, p.B); }
-
-template <int DH>
-int launch_bf16(const Params& p, cudaStream_t stream) {
-  flash_attn_bf16_kernel<DH><<<grid_of(p), kThreads, 0, stream>>>(p);
+template <typename Kernel>
+int launch(Kernel kernel, int bq, size_t smem_bytes, const Params& p, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.S + bq - 1) / bq, p.H, p.B);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
-int launch_f32(const Params& p, cudaStream_t stream) {
-  constexpr size_t bytes = Smem32<DH>::kBytes;
-  auto kernel = flash_attn_f32_kernel<DH>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid_of(p), kThreads, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+template <int DHP>
+int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch(flash_attn_bf16_kernel<DHP>, kBQ, SmemBf16<DHP>::kBytes, p, stream);
+  return launch(flash_attn_f32_kernel<DHP>, Smem32<DHP>::kBQRows, Smem32<DHP>::kBytes, p,
+                stream);
 }
 
 }  // namespace
 
 // q (B,S,H,dh), k/v (B,S,K,dh) given by strides (in elements, last dim
 // contiguous); o (B,S,H,dh) contiguous.  dtype codes: 0 = float32,
-// 1 = bfloat16 (q, k, v and o share it).  head_dim is 32, 64 or 128.
-// Returns cudaGetLastError() after the launch.
+// 1 = bfloat16 (q, k, v and o share it).  head_dim is one of 16, 32, 64, 80,
+// 120, 128, 160, 256.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int K, long long q_sb,
                                    long long q_ss, long long q_sh, long long k_sb,
@@ -435,18 +489,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long v_ss, long long v_sh, int causal, int window,
                                    int chunk, float scale, int head_dim, int dtype,
                                    void* stream) {
-  const Params p{q,    k,    v,    o,    B,      S,      H,     K,
-                 q_sb, q_ss, q_sh, k_sb, k_ss,   k_sh,   v_sb,  v_ss,
-                 v_sh, causal, window, chunk, scale};
+  const Params p{q,    k,    v,    o,      B,      S,     H,    K,     q_sb,    q_ss,
+                 q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,  v_sh, causal, window, chunk,
+                 scale, head_dim};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int key = dtype * 1000 + head_dim;
-  switch (key) {
-    case 32: return launch_f32<32>(p, st);
-    case 64: return launch_f32<64>(p, st);
-    case 128: return launch_f32<128>(p, st);
-    case 1032: return launch_bf16<32>(p, st);
-    case 1064: return launch_bf16<64>(p, st);
-    case 1128: return launch_bf16<128>(p, st);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 16: return launch_dh<16>(p, dtype, st);
+    case 32: return launch_dh<32>(p, dtype, st);
+    case 64: return launch_dh<64>(p, dtype, st);
+    case 80: return launch_dh<80>(p, dtype, st);
+    case 120:
+    case 128: return launch_dh<128>(p, dtype, st);
+    case 160: return launch_dh<160>(p, dtype, st);
+    case 256: return launch_dh<256>(p, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

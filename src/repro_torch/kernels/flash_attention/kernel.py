@@ -14,7 +14,8 @@ import torch
 from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+# every head dim of the config registry (120 is padded to 128 in the kernel)
+HEAD_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
 
 
 def _entry():
@@ -32,9 +33,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          scale: float | None = None) -> torch.Tensor:
     """q (B,S,H,dh); k, v (B,S,K,dh) -> (B,S,H,dh) in ``q.dtype``.
 
-    fp32 or bf16; dh 32, 64 or 128; H a multiple of K; the last dim of each
-    input contiguous (the others are read through strides).  Raises on
-    anything else."""
+    fp32 or bf16; dh one of ``HEAD_DIMS``; H a multiple of K; the last dim
+    of each input contiguous (the others are read through strides).  Raises
+    on anything else."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got "
                          f"{q.device}")

@@ -11,6 +11,8 @@ import torch
 
 from .flash_attention.kernel import flash_attention_cuda
 from .flash_attention.ref import mha_ref
+from .rglru.kernel import rglru_cuda
+from .rglru.ref import rglru_sequential
 from .rmsnorm.kernel import rmsnorm_cuda
 from .rmsnorm.ref import rmsnorm_ref
 
@@ -54,3 +56,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, chunk=0,
     return mha_ref(q, k, v, causal=causal, window=window, chunk=chunk,
                    q_positions=q_positions, k_positions=k_positions,
                    softcap=softcap, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def rglru_scan(log_a, gx, h0=None):
+    """log_a, gx (B,S,W) -> (y (B,S,W) in ``gx.dtype``, h_last (B,W) fp32).
+
+    The kernel computes ``rglru_sequential``'s function at every S, so the
+    card sends prefill and decode (S = 1) alike to it."""
+    if _on_cuda(gx):
+        return rglru_cuda(log_a, gx, h0)
+    return rglru_sequential(log_a, gx, h0)

@@ -1,0 +1,59 @@
+"""Plain PyTorch RG-LRU (Real-Gated Linear Recurrent Unit): the CPU path
+and the oracle for the CUDA scan kernel.
+
+Griffin / RecurrentGemma (arXiv:2402.19427):
+
+    r_t = sigmoid(gate_a(x_t))               recurrence gate
+    i_t = sigmoid(gate_x(x_t))               input gate
+    log a_t = -c * softplus(Λ) * r_t         (c = 8)
+    h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
+
+The gates are block-diagonal linear maps (num_heads blocks), computed by
+``rglru_gates``; the scan takes per-step log-decay ``log_a`` and gated input
+``gx``:
+
+    h_t = exp(log_a_t) ⊙ h_{t-1} + sqrt(1 - exp(2 log_a_t)) ⊙ gx_t
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rglru_sequential(log_a: torch.Tensor, gx: torch.Tensor,
+                     h0: torch.Tensor | None = None):
+    """log_a, gx (B,S,W) -> (y (B,S,W) in ``gx.dtype``, h_S (B,W) fp32).
+
+    fp32 internals, one step at a time."""
+    B, S, W = gx.shape
+    la = log_a.float()
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=1e-12))
+    u = beta * gx.float()
+    a = torch.exp(la)
+    h = (torch.zeros((B, W), dtype=torch.float32, device=gx.device)
+         if h0 is None else h0.float())
+    ys = torch.empty((B, S, W), dtype=torch.float32, device=gx.device)
+    for t in range(S):
+        h = a[:, t] * h + u[:, t]
+        ys[:, t] = h
+    return ys.to(gx.dtype), h
+
+
+def rglru_gates(x: torch.Tensor, p: dict, *, c: float = 8.0):
+    """(log_a, gx), both fp32, from inputs and block-diagonal gate params.
+
+    x (B,S,W); p = {a_gate_w (Hb, bw, bw), a_gate_b (Hb, bw),
+                    x_gate_w, x_gate_b, a_param (W,)} with W = Hb*bw."""
+    B, S, W = x.shape
+    Hb, bw, _ = p["a_gate_w"].shape
+    xb = x.reshape(B, S, Hb, bw).float()
+    ra = torch.sigmoid(torch.einsum("bshi,hij->bshj", xb,
+                                    p["a_gate_w"].float())
+                       + p["a_gate_b"].float())
+    ix = torch.sigmoid(torch.einsum("bshi,hij->bshj", xb,
+                                    p["x_gate_w"].float())
+                       + p["x_gate_b"].float())
+    log_a_base = -c * F.softplus(p["a_param"].float())  # (W,)
+    log_a = ra.reshape(B, S, W) * log_a_base
+    gx = ix.reshape(B, S, W) * x.float()
+    return log_a, gx

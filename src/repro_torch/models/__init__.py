@@ -1,5 +1,5 @@
-"""repro_torch.models — the PyTorch model stack (attention + dense FFN
-families in this slice)."""
+"""repro_torch.models — the PyTorch model stack (attention and RG-LRU
+mixers with dense FFNs, so far)."""
 from .config import ATTN_KINDS, MIXER_KINDS, ModelConfig
 from .model import decode_step, forward_train, init_cache, init_params, prefill
 

@@ -10,19 +10,21 @@ where ``ctx`` carries positions, rotary tables and the config.
 reference returns a new cache; writing the slots in place saves a copy of
 the cache per layer and step).
 
-This slice covers attention kinds with a dense gated FFN.  MoE, SSD,
-RG-LRU and the ring-cache roll for prompts longer than the cache wait for
-later slices and raise ``NotImplementedError``.
+This port covers the attention kinds and the RG-LRU mixer, each with a
+dense gated FFN.  MoE and SSD wait for later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.rglru.ref import rglru_gates
 from .config import ATTN_KINDS, ModelConfig
-from .layers import dense, gated_mlp, rmsnorm
+from .layers import act_fn, dense, gated_mlp, rmsnorm
 from .rope import apply_rotary
 
 
@@ -75,6 +77,65 @@ def init_ffn(cfg: ModelConfig, d_ff: int, *, lead: tuple = (), device, dtype,
     }
 
 
+def init_rglru(cfg: ModelConfig, *, lead: tuple = (), device, dtype,
+               generator: torch.Generator) -> dict:
+    D, W = cfg.d_model, cfg.resolved_lru_width
+    Hb = cfg.num_heads
+    bw = W // Hb
+    init = dict(lead=lead, device=device, dtype=dtype, generator=generator)
+    # a_param so that the decay a lies in (0.9, 0.999) (Griffin appendix):
+    # log a = -8 softplus(a_param) r, r ~ 1  =>  a_param = softplus^-1(-log(u)/8)
+    u = torch.empty(lead + (W,), dtype=torch.float32, device=device)
+    u.uniform_(0.9, 0.999, generator=generator)
+    a_param = torch.log(torch.expm1(-torch.log(u) / 8.0))
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    return {
+        "in_x": trunc_normal((D, W), D, **init),
+        "in_gate": trunc_normal((D, W), D, **init),
+        "a_gate_w": trunc_normal((Hb, bw, bw), bw, **init),
+        "a_gate_b": zeros(Hb, bw),
+        "x_gate_w": trunc_normal((Hb, bw, bw), bw, **init),
+        "x_gate_b": zeros(Hb, bw),
+        "a_param": a_param.to(dtype),
+        "conv_w": trunc_normal((W, cfg.ssm_conv), cfg.ssm_conv, **init),
+        "conv_b": zeros(W),
+        "out": trunc_normal((W, D), W, **init),
+    }
+
+
+def init_mixer(cfg: ModelConfig, kind: str, **init) -> dict:
+    if kind in ATTN_KINDS:
+        return init_attn(cfg, **init)
+    if kind == "rglru":
+        return init_rglru(cfg, **init)
+    raise NotImplementedError(f"{kind} blocks wait for a later slice of the "
+                              "port")
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """x (B,S,C), w (C,K) depthwise, causal -> (out (B,S,C), new_state).
+
+    With ``state`` (B,K-1,C) the conv consumes carried history; ``new_state``
+    is the last K-1 inputs (None for K = 1).  Computed in ``x.dtype``."""
+    K = w.shape[1]
+    if state is not None:
+        x_ext = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        x_ext = F.pad(x, (0, 0, K - 1, 0))
+    out = F.conv1d(x_ext.transpose(1, 2), w.to(x.dtype)[:, None, :],
+                   b.to(x.dtype), groups=x.shape[2]).transpose(1, 2)
+    new_state = x_ext[:, x_ext.shape[1] - (K - 1):] if K > 1 else None
+    return out, new_state
+
+
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
@@ -90,8 +151,9 @@ def _attn_geometry(cfg: ModelConfig, kind: str):
 def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
                  cache: Optional[dict] = None):
     """Attention output; a given cache is written in place: prefill
-    (S > 1, t == 0) fills slots [0, S) and ``pos[:S] = arange(S)``, decode
-    writes slot ``t % Sc`` and ``pos[slot] = t``."""
+    (S > 1, t == 0) fills slots [0, S) and ``pos[:S] = arange(S)`` (a prompt
+    longer than the ring cache keeps its last Sc tokens, each at slot
+    ``p % Sc``), decode writes slot ``t % Sc`` and ``pos[slot] = t``."""
     cfg: ModelConfig = ctx["cfg"]
     B, S, D = x.shape
     H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -111,14 +173,16 @@ def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
         Sc = cache["k"].shape[1]
         t = ctx["t"]  # tokens already in the cache
         if S > 1:      # prefill (t == 0)
-            if S > Sc:
-                raise NotImplementedError(
-                    "prompt longer than the ring cache (roll branch) waits "
-                    "for a later slice of the port")
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
-            cache["pos"][:S] = torch.arange(S, dtype=torch.int32,
-                                            device=x.device)
+            pos = torch.arange(S, dtype=torch.int32, device=x.device)
+            if S <= Sc:
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
+                cache["pos"][:S] = pos
+            else:      # ring cache (sliding / chunked) shorter than the prompt
+                shift = S % Sc
+                cache["k"].copy_(torch.roll(k[:, S - Sc:], shift, dims=1))
+                cache["v"].copy_(torch.roll(v[:, S - Sc:], shift, dims=1))
+                cache["pos"].copy_(torch.roll(pos[S - Sc:], shift))
             out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                        chunk=chunk)
         else:          # decode one token at position t
@@ -138,18 +202,47 @@ def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU block
+# ---------------------------------------------------------------------------
+
+def rglru_forward(p: dict, x: torch.Tensor, ctx: dict,
+                  cache: Optional[dict] = None):
+    """RG-LRU mixer output; a given cache (``conv`` (B,K-1,W), ``h`` (B,W)
+    fp32) is read as the carried state and written in place."""
+    xb = dense(x, p["in_x"])
+    gate = act_fn("gelu")(dense(x, p["in_gate"]))
+    conv_state = cache["conv"] if cache is not None else None
+    xb, new_conv = causal_conv1d(xb, p["conv_w"], p["conv_b"], conv_state)
+    log_a, gx = rglru_gates(xb, p)
+    h0 = cache["h"] if cache is not None else None
+    y, h_last = kops.rglru_scan(log_a, gx, h0)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(h_last)
+    y = y.to(x.dtype) * gate
+    return dense(y, p["out"])
+
+
+# ---------------------------------------------------------------------------
 # block application (pre-norm residual layer)
 # ---------------------------------------------------------------------------
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
                 cache: Optional[dict] = None):
-    """One full layer: attention + dense gated FFN, pre-norm residuals."""
+    """One full layer: mixer + dense gated FFN, pre-norm residuals."""
     cfg: ModelConfig = ctx["cfg"]
-    if kind not in ATTN_KINDS or "moe" in p:
-        raise NotImplementedError(f"{kind} / MoE blocks wait for a later "
-                                  "slice of the port")
+    if "moe" in p:
+        raise NotImplementedError("MoE blocks wait for a later slice of the "
+                                  "port")
     h = rmsnorm(x, p["norm1"], eps=cfg.norm_eps)
-    x = x + attn_forward(p["mixer"], h, kind, ctx, cache)
+    if kind in ATTN_KINDS:
+        mixed = attn_forward(p["mixer"], h, kind, ctx, cache)
+    elif kind == "rglru":
+        mixed = rglru_forward(p["mixer"], h, ctx, cache)
+    else:
+        raise NotImplementedError(f"{kind} blocks wait for a later slice of "
+                                  "the port")
+    x = x + mixed
     if "ffn" in p:
         h = rmsnorm(x, p["norm2"], eps=cfg.norm_eps)
         x = x + gated_mlp(h, p["ffn"], cfg.act)

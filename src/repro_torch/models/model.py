@@ -30,10 +30,11 @@ from .rope import rope_cos_sin
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.num_experts or any(k not in ATTN_KINDS for k in cfg.block_pattern):
+    if cfg.num_experts or any(k not in ATTN_KINDS | {"rglru"}
+                              for k in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: MoE, SSD and RG-LRU blocks wait for a later slice "
-            "of the port")
+            f"{cfg.name}: MoE and SSD blocks wait for a later slice of the "
+            "port")
     if cfg.modality != "text" or cfg.pos_type == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and the modality frontends wait for a later "
@@ -44,10 +45,10 @@ def _check_supported(cfg: ModelConfig):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg: ModelConfig, lead: tuple, **init) -> dict:
+def _init_block(cfg: ModelConfig, kind: str, lead: tuple, **init) -> dict:
     ones = dict(dtype=init["dtype"], device=init["device"])
     p = {"norm1": torch.ones(lead + (cfg.d_model,), **ones),
-         "mixer": blocks.init_attn(cfg, lead=lead, **init)}
+         "mixer": blocks.init_mixer(cfg, kind, lead=lead, **init)}
     if cfg.d_ff:
         p["norm2"] = torch.ones(lead + (cfg.d_model,), **ones)
         p["ffn"] = blocks.init_ffn(cfg, cfg.d_ff, lead=lead, **init)
@@ -66,10 +67,10 @@ def init_params(cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
     init = dict(device=device, dtype=dtype, generator=generator)
     D, V = cfg.d_model, cfg.vocab_size
     params = {"embed": blocks.trunc_normal((V, D), D, **init)}
-    params["blocks"] = [_init_block(cfg, (cfg.n_superblocks,), **init)
-                        for _ in cfg.block_pattern]
-    params["rem"] = [_init_block(cfg, (), **init)
-                     for _ in cfg.remainder_pattern]
+    params["blocks"] = [_init_block(cfg, kind, (cfg.n_superblocks,), **init)
+                        for kind in cfg.block_pattern]
+    params["rem"] = [_init_block(cfg, kind, (), **init)
+                     for kind in cfg.remainder_pattern]
     params["final_norm"] = torch.ones(D, dtype=dtype, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = blocks.trunc_normal((D, V), D, **init)
@@ -90,6 +91,14 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def _init_block_cache(cfg: ModelConfig, kind: str, B: int, max_len: int,
                       dtype, device, lead: tuple) -> dict:
+    if kind == "rglru":
+        W = cfg.resolved_lru_width
+        return {
+            "conv": torch.zeros(lead + (B, cfg.ssm_conv - 1, W), dtype=dtype,
+                                device=device),
+            "h": torch.zeros(lead + (B, W), dtype=torch.float32,
+                             device=device),
+        }
     Sc = _cache_len(cfg, kind, max_len)
     K, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     return {

@@ -1,13 +1,16 @@
 """The port's CUDA kernels on the card (each test skips without one).
 
 Each kernel against its plain PyTorch version on the same inputs, at the
-JAX suite's tolerances (fp32 2e-5, bf16 2e-2), and the serving path on the
-card against the same path on the CPU.  This file imports no JAX, so it
+JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32),
+and the serving path on the card against the same path on the CPU.  This file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 import dataclasses
+import runpy
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -16,11 +19,14 @@ from numpy.testing import assert_allclose
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.rglru.kernel import rglru_cuda
+from repro_torch.kernels.rglru.ref import rglru_sequential
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models import init_cache, init_params
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
+ROOT = Path(__file__).resolve().parents[1]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -67,6 +73,12 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     (2, 256, 4, 2, 128, dict(causal=True, window=100)),
     (1, 256, 4, 2, 64, dict(causal=True, chunk=128)),
     (1, 130, 2, 2, 128, dict(causal=False)),
+    (2, 100, 4, 1, 16, dict(causal=True)),        # every smoke config
+    (1, 130, 4, 2, 80, dict(causal=True)),        # stablelm-3b, hubert
+    (1, 200, 4, 1, 120, dict(causal=True)),       # h2o-danube: padded to 128
+    (1, 96, 2, 1, 160, dict(causal=True)),        # stablelm-12b
+    (2, 300, 4, 1, 256, dict(causal=True, window=128)),   # recurrentgemma
+    (1, 130, 2, 1, 256, dict(causal=False)),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -91,18 +103,61 @@ def test_flash_kernel_reads_strided_inputs(cuda):
                     f32(mha_ref(q, k, v)), **tol(torch.float32))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [80, 256])
+def test_flash_kernel_reads_unaligned_inputs(cuda, dtype, dh):
+    """Views one element off a 16-byte boundary: the tile loads fall back
+    from 16-byte vectors to single elements."""
+    B, S, H, K = 2, 70, 2, 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(B, S, n * dh + 1, generator=g, device=cuda)
+               .to(dtype)[..., 1:].unflatten(-1, (n, dh)) for n in (H, K, K))
+    assert q.data_ptr() % 16
+    assert_allclose(f32(flash_attention_cuda(q, k, v)), f32(mha_ref(q, k, v)),
+                    **tol(dtype))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.ones(4, 256, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm_cuda(x[:, ::2], torch.ones(128, device=cuda))
     with pytest.raises(TypeError):
         rmsnorm_cuda(x.half(), torch.ones(256, device=cuda))
-    q = torch.ones(1, 16, 2, 96, device=cuda)
+    q = torch.ones(1, 16, 2, 264, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_cuda(q, q, q)
     q = torch.ones(1, 16, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="self-attention"):
         flash_attention_cuda(q, q[:, :8], q[:, :8])
+    la = torch.zeros(2, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="h0"):
+        rglru_cuda(la, la, torch.zeros(2, 8, device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_cuda(la.transpose(1, 2), la.transpose(1, 2))
+    with pytest.raises(TypeError):
+        rglru_cuda(la.half(), la.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        rglru_cuda(la, la.bfloat16())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W", [(4, 512, 4096), (2, 37, 200), (3, 1, 130)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_matches_plain(cuda, dtype, B, S, W, with_h0):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, W, generator=g, device=cuda)).to(dtype)
+    gx = torch.randn(B, S, W, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn(B, W, generator=g, device=cuda) if with_h0 else None
+    before = rglru_cuda.launches
+    y, h_last = rglru_cuda(la, gx, h0)
+    torch.cuda.synchronize()
+    assert rglru_cuda.launches == before + 1
+    assert y.dtype == dtype and h_last.dtype == torch.float32
+    want_y, want_h = rglru_sequential(la, gx, h0)
+    t = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert_allclose(f32(y), f32(want_y), rtol=t, atol=t)
+    assert_allclose(f32(h_last), f32(want_h), rtol=1e-4, atol=1e-4)
 
 
 def test_serving_on_card_matches_cpu(cuda):
@@ -130,6 +185,47 @@ def test_serving_on_card_matches_cpu(cuda):
     want = logits["cpu"]
     got = logits[str(cuda)]
     assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-4
+
+
+def test_recurrentgemma_serving_on_card_matches_cpu(cuda):
+    """The smoke recurrentgemma (dh 16, window 16) with a 24-token prompt,
+    so the ring cache rolls: RG-LRU, flash attention and rmsnorm kernels on
+    the card against the plain versions on the CPU, fp32, 2e-4 relative.
+    cuDNN's TF32 is off for the depthwise conv, as fp32 is compared."""
+    cfg = get_smoke_config("recurrentgemma-9b")
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    logits, hs = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in ("cpu", cuda):
+            p = _to(params, dev)
+            cache = init_cache(cfg, 2, 40, torch.float32, device=dev)
+            pre = make_prefill_step(cfg, dtype=torch.float32)
+            dec = make_decode_step(cfg, dtype=torch.float32)
+            last, cache = pre(p, {"tokens": toks.to(dev)}, cache)
+            out = [last]
+            tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+            for _ in range(4):
+                tok, lg, cache = dec(p, tok, cache)
+                out.append(lg)
+            logits[str(dev)] = torch.stack(out).cpu()
+            hs[str(dev)] = cache["rem"][1]["h"].cpu()
+    want, got = logits["cpu"], logits[str(cuda)]
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-4
+    assert_allclose(f32(hs[str(cuda)]), f32(hs["cpu"]), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("argv", [[], ["--arch", "recurrentgemma-9b"]])
+def test_serve_example_runs_on_card(cuda, argv, monkeypatch, capsys):
+    """The example at its defaults (smoke qwen2-7b, dh 16) and on
+    recurrentgemma, on the card."""
+    monkeypatch.setattr(sys, "argv", ["serve_batch_torch.py", *argv,
+                                      "--requests", "3", "--max-new", "3"])
+    runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),
+                   run_name="__main__")
+    assert "decode_throughput=" in capsys.readouterr().out
 
 
 def _to(tree, dev):

@@ -3,7 +3,8 @@
 Identical weights come from the JAX ``init_params`` tree through
 ``bridge.params_from_numpy``; tokens are made with numpy.  Logits are held
 to the JAX suite's decode-vs-forward bound (``tests/test_models.py``):
-2e-4 relative to the largest logit, in fp32.
+2e-4 relative to the largest logit, in fp32; the RG-LRU state in the cache
+to the suite's RG-LRU bound, 1e-4.
 """
 import dataclasses
 import re
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
+from repro.models.blocks import causal_conv1d as jax_causal_conv1d
 from repro.models import decode_step as jax_decode_step
 from repro.models import forward_train as jax_forward_train
 from repro.models import init_cache as jax_init_cache
@@ -27,6 +29,7 @@ from repro.models import prefill as jax_prefill
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import (decode_step, forward_train, init_cache,
                                 init_params, prefill)
+from repro_torch.models.blocks import causal_conv1d
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -41,13 +44,9 @@ def _widened(cfg):
     return dataclasses.replace(cfg, d_model=256, num_heads=2, num_kv_heads=1)
 
 
-@pytest.mark.parametrize("variant", ["smoke", "widened"])
-def test_serving_matches_jax(variant, monkeypatch):
-    cfg_j, cfg_t = jax_smoke("qwen2-7b"), get_smoke_config("qwen2-7b")
-    S, n_dec = 16, 4
-    if variant == "widened":
-        cfg_j, cfg_t, S = _widened(cfg_j), _widened(cfg_t), 256
-        monkeypatch.setenv("REPRO_KERNELS", "interpret")
+def _serving_matches_jax(cfg_j, cfg_t, S: int, n_dec: int = 4):
+    """forward_train, prefill and n_dec greedy decode steps of both packages
+    from the same weights and tokens; returns (params, caches) of both."""
     params_j = jax_init_params(jax.random.PRNGKey(1), cfg_j)
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j),
                                  device="cpu")
@@ -86,10 +85,93 @@ def test_serving_matches_jax(variant, monkeypatch):
         assert err / scale < REL
     assert (tok_t.numpy() == np.asarray(tok_j)).all()
     assert cache_t["t"] == int(cache_j["t"]) == S + n_dec
+    return (params_j, params_t), (cache_j, cache_t)
+
+
+@pytest.mark.parametrize("variant", ["smoke", "widened"])
+def test_serving_matches_jax(variant, monkeypatch):
+    cfg_j, cfg_t = jax_smoke("qwen2-7b"), get_smoke_config("qwen2-7b")
+    S = 16
+    if variant == "widened":
+        cfg_j, cfg_t, S = _widened(cfg_j), _widened(cfg_t), 256
+        monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    _serving_matches_jax(cfg_j, cfg_t, S)
+
+
+def _rg_widened(cfg):
+    """dh 256, D and W 512, one superblock: the JAX side takes all three
+    Pallas kernels (rmsnorm, flash attention at dh 256, RG-LRU) at a
+    256-token prompt."""
+    return dataclasses.replace(cfg, d_model=512, num_heads=2, num_kv_heads=1,
+                               lru_width=512, num_layers=3)
+
+
+def _close(a, b, tol):
+    return np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)).max() \
+        <= tol * (1 + np.abs(np.asarray(b, np.float32)).max())
+
+
+@pytest.mark.parametrize("variant", ["smoke", "widened"])
+def test_recurrentgemma_serving_matches_jax(variant, monkeypatch):
+    """Prompts longer than the 16-token window, so the ring cache rolls;
+    the caches (RG-LRU state and ring) are held too."""
+    arch = "recurrentgemma-9b"
+    cfg_j, cfg_t = jax_smoke(arch), get_smoke_config(arch)
+    S = 24
+    if variant == "widened":
+        cfg_j, cfg_t, S = _rg_widened(cfg_j), _rg_widened(cfg_t), 256
+        monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    assert S > cfg_t.window
+    (params_j, params_t), (cache_j, cache_t) = _serving_matches_jax(
+        cfg_j, cfg_t, S)
+    mixer = params_t["blocks"][0]["mixer"]
+    W, Hb = cfg_t.resolved_lru_width, cfg_t.num_heads
+    n_sb = cfg_t.n_superblocks
+    assert mixer["a_gate_w"].shape == (n_sb, Hb, W // Hb, W // Hb)
+    assert mixer["a_param"].shape == (n_sb, W)
+    assert mixer["conv_w"].shape == (n_sb, W, cfg_t.ssm_conv)
+    assert np.array_equal(mixer["a_param"].numpy(),
+                          np.asarray(params_j["blocks"][0]["mixer"]["a_param"]))
+    for part in ("blocks", "rem"):
+        for c_t, c_j, kind in zip(cache_t[part], cache_j[part],
+                                  cfg_t.block_pattern):
+            keys = ("h", "conv") if kind == "rglru" else ("k", "v", "pos")
+            for key in keys:
+                assert _close(c_t[key].numpy(), c_j[key], 1e-4), (part, key)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv1d_matches_jax(with_state):
+    B, S, C, K = 2, 7, 12, 4
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, S, C)).astype(np.float32)
+    w = rng.standard_normal((C, K)).astype(np.float32)
+    b = rng.standard_normal(C).astype(np.float32)
+    state = rng.standard_normal((B, K - 1, C)).astype(np.float32) \
+        if with_state else None
+    out_j, st_j = jax_causal_conv1d(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+        None if state is None else jnp.asarray(state))
+    out_t, st_t = causal_conv1d(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        None if state is None else torch.from_numpy(state))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(st_t.numpy(), np.asarray(st_j), rtol=2e-5,
+                               atol=2e-5)
+    # decode: one token against the carried state
+    one, st1 = causal_conv1d(torch.from_numpy(x[:, :1]), torch.from_numpy(w),
+                             torch.from_numpy(b), st_t)
+    one_j, st1_j = jax_causal_conv1d(jnp.asarray(x[:, :1]), jnp.asarray(w),
+                                     jnp.asarray(b), st_j)
+    np.testing.assert_allclose(one.numpy(), np.asarray(one_j), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(st1.numpy(), np.asarray(st1_j), rtol=2e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "stablelm-3b", "stablelm-12b",
-                                  "h2o-danube-3-4b"])
+                                  "h2o-danube-3-4b", "recurrentgemma-9b"])
 def test_decode_matches_forward(arch):
     """The port's own prefill + decode against its full forward."""
     cfg = get_smoke_config(arch)
@@ -147,6 +229,46 @@ def test_init_params_tree_dtype_and_statistics(arch, dtype):
         "bq", torch.zeros(1)) == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_recurrentgemma_tree_dtype_and_statistics(dtype):
+    arch = "recurrentgemma-9b"
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, device="cpu", dtype=dtype,
+                         generator=torch.Generator().manual_seed(0))
+    assert _shapes(params) == _shapes(jax_param_specs(jax_smoke(arch)))
+    mixer = params["blocks"][0]["mixer"]
+    assert all(t.dtype == dtype for t in mixer.values())
+    W, bw = cfg.resolved_lru_width, cfg.resolved_lru_width // cfg.num_heads
+    for w, fan_in in ((mixer["in_x"], cfg.d_model), (mixer["a_gate_w"], bw),
+                      (mixer["conv_w"], cfg.ssm_conv), (mixer["out"], W)):
+        w = w.float()
+        want = 0.98658 * fan_in ** -0.5
+        assert abs(float(w.std()) / want - 1) < 0.1
+        assert float(w.abs().max()) <= 3 * fan_in ** -0.5 * 1.01
+    for name in ("a_gate_b", "x_gate_b", "conv_b"):
+        assert bool((mixer[name] == 0).all())
+    a = torch.exp(-8 * torch.nn.functional.softplus(mixer["a_param"].float()))
+    margin = 1e-6 if dtype == torch.float32 else 1e-2   # bf16's 8-bit mantissa
+    assert bool((a > 0.9 - margin).all()) and bool((a < 0.999 + margin).all())
+    assert float(a.max() - a.min()) > 0.05        # spread over the interval
+
+
+def test_full_recurrentgemma_9b_cache_shapes():
+    cfg = get_config("recurrentgemma-9b")
+    Bc = 2
+    for max_len, slots in ((552, 552), (4096, 2048)):
+        cache = init_cache(cfg, Bc, max_len, torch.bfloat16, device="meta")
+        rg, attn = cache["blocks"][0], cache["blocks"][2]
+        assert rg["conv"].shape == (12, Bc, 3, 4096)
+        assert rg["conv"].dtype == torch.bfloat16
+        assert rg["h"].shape == (12, Bc, 4096)
+        assert rg["h"].dtype == torch.float32
+        assert cache["blocks"][1]["conv"].shape == (12, Bc, 3, 4096)
+        assert attn["k"].shape == (12, Bc, slots, 1, 256)
+        assert [c["conv"].shape for c in cache["rem"]] == [(Bc, 3, 4096)] * 2
+        assert [c["h"].dtype for c in cache["rem"]] == [torch.float32] * 2
+
+
 def test_param_count_matches_tree():
     cfg = get_smoke_config("qwen2-7b")
     params = init_params(cfg, device="cpu")
@@ -166,7 +288,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         params_from_numpy({"w": np.ones(3, np.float32)})
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["mamba2-130m", "llama4-scout-17b-a16e",
                                   "moonshot-v1-16b-a3b", "qwen2-vl-2b",
                                   "hubert-xlarge"])
 def test_later_slices_raise(arch):
@@ -188,6 +310,18 @@ def test_serve_example_runs_on_cpu(monkeypatch, capsys):
                    run_name="__main__")
     out = capsys.readouterr().out
     assert "decode_throughput=" in out and "requests=3" in out
+
+
+def test_serve_example_runs_recurrentgemma_on_cpu(monkeypatch, capsys):
+    """A 24-token prompt over the smoke config's 16-token window."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve_batch_torch.py", "--device", "cpu", "--arch",
+        "recurrentgemma-9b", "--requests", "3", "--batch", "2",
+        "--max-new", "3"])
+    runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "arch=recurrentgemma-9b" in out and "decode_throughput=" in out
 
 
 _FORBIDDEN = re.compile(
