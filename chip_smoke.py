@@ -11,20 +11,24 @@ Phases, each printed as one JSON line:
    registers and spills.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
-   scan 1e-4 in fp32.  Flash attention at every head dim of the config
-   registry.  Then kernel, plain and library (``F.rms_norm`` / SDPA; none
-   computes the RG-LRU scan) times at the serving shapes of qwen2-7b and
-   recurrentgemma-9b (CUDA events, median of 30 after warm-up) beside the
-   least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate of their type).
+   scan 1e-4 in fp32, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and the final
+   state).  Flash attention at every head dim of the config registry.  Then
+   kernel, plain and library (``F.rms_norm`` / SDPA; none computes the
+   RG-LRU or the SSD scan) times at the serving shapes of qwen2-7b,
+   recurrentgemma-9b and mamba2-130m (CUDA events, median of 30 after
+   warm-up) beside the least time the card could take (bytes over 3.35 TB/s
+   or operations over the peak rate of their type).
 3. ``serve_check``, once per served arch, at full width, fp32, random
    weights from the seed: the last-position logits of ``prefill`` and 8
    ``decode_step``s against ``forward_train`` on the same tokens, within
    2e-4 relative.  qwen2-7b at 4 layers, batch 2, prompt 128;
    recurrentgemma-9b at 3 layers (one superblock), batch 1, a 2176-token
-   prompt (longer than its 2048-token window, so the ring cache rolls).
+   prompt (longer than its 2048-token window, so the ring cache rolls);
+   mamba2-130m at all 24 layers, batch 2, a 1000-token prompt (not a
+   multiple of the 128-token chunk, so the SSD kernel pads its last chunk
+   and hands its final state to the decode steps).
 4. ``serve``, once per served arch: the full model (qwen2-7b 28 layers,
-   recurrentgemma-9b 38, bf16 weights and cache) through the
+   recurrentgemma-9b 38, mamba2-130m 24, bf16 weights and cache) through the
    ``serve_batch`` wave loop: 12 requests, 3 waves of batch 4, 512-token
    prompts, 32 greedy new tokens.  Every kernel's launch counter is reset
    just before and must equal the analytic count just after.
@@ -32,7 +36,7 @@ Phases, each printed as one JSON line:
    under ``torch.profiler``: wall time, summed kernel time, the card's idle
    share and the costliest kernels.
 
-Then a ``kernels`` summary line (launches summed over both serve phases,
+Then a ``kernels`` summary line (launches summed over the serve phases,
 and per arch), the card's name and power limit as ``nvidia-smi`` prints
 them, and ``{"ok": true, "device": {...}}`` last.  Any failed check exits
 non-zero; so does a machine without a card.
@@ -57,8 +61,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 SERVE_REL = 2e-4
-ARCHS = ("qwen2-7b", "recurrentgemma-9b")
+ARCHS = ("qwen2-7b", "recurrentgemma-9b", "mamba2-130m")
 
 
 def emit(phase: str, **kw):
@@ -96,6 +101,38 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds one SSD scan needs, all fp32: per (b, g, chunk) C·Bᵀ on
+    and below the diagonal; per (b, h, chunk) scores @ x on and below it and
+    Bᵀ @ x in full, and C @ state in every chunk but the first (its incoming
+    state is zero)."""
+    tri, n_chunks = Q * (Q + 1) // 2, -(-S // Q)
+    return B * (n_chunks * (G * tri * N + H * (tri * P + Q * N * P))
+                + (n_chunks - 1) * H * Q * N * P)
+
+
+def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
+    """Least time of one prefill wave: the bf16 matmul FLOPs (every layer's
+    parameters once per token, the attention of ``flops_parts``, the lm_head
+    for the last position only) over the bf16 peak, plus the work the
+    references keep in fp32 over the fp32 peak: the RG-LRU's two
+    block-diagonal gates and the SSD scans."""
+    tokens = batch * prompt
+    lm_head = cfg.vocab_size * cfg.d_model
+    body = cfg.active_param_count() - lm_head * (1 if cfg.tie_embeddings
+                                                 else 2)
+    bf16 = (2 * tokens * body + 2 * batch * lm_head
+            + cfg.flops_parts(tokens, training=False, seq_len=prompt)["attn"])
+    kinds = cfg._layer_kinds()
+    W = cfg.resolved_lru_width
+    fp32 = kinds.count("rglru") * 2 * 2 * tokens * W * (W // cfg.num_heads)
+    fp32 += kinds.count("ssd") * 2 * ssd_macs(
+        batch, prompt, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+        cfg.ssm_state, cfg.ssm_chunk)
+    return (bf16 / PEAK_OPS_PER_S[torch.bfloat16]
+            + fp32 / PEAK_OPS_PER_S[torch.float32]) * 1e3
 
 
 def compare(got, want, dtype, tol=TOL) -> tuple:
@@ -136,6 +173,8 @@ def phase_kernels(dev, gen):
     from repro_torch.kernels.rglru.ref import rglru_sequential
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -208,7 +247,8 @@ def phase_kernels(dev, gen):
                               B=B, S=S, H=H, K=K, dh=dh, **kw,
                               max_abs_err=err, tol=TOL[dtype], ok=ok))
     timings = {}
-    for arch, (B, S, H, K, dh, kw) in zip(ARCHS, attn_cases[:2]):
+    for arch, (B, S, H, K, dh, kw) in zip(("qwen2-7b", "recurrentgemma-9b"),
+                                          attn_cases[:2]):
         q, k, v = randn(B, S, H, dh, dtype=torch.bfloat16), \
             randn(B, S, K, dh, dtype=torch.bfloat16), \
             randn(B, S, K, dh, dtype=torch.bfloat16)
@@ -273,6 +313,55 @@ def phase_kernels(dev, gen):
     emit("kernels", kernel="rglru", timings={
         summary["rglru"]["shape"]: {k: summary["rglru"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
+
+    # ---- SSD scan: mamba2-130m's head and state dims (P 64, N 128), a
+    # ragged S (padded last chunk), two groups, chunk 64 and 128; y and the
+    # fp32 final state against ssd_chunked (S a multiple of the chunk) or
+    # ssd_sequential (ragged S)
+    def ssd_inputs(B, S, H, P, G, N, dtype):
+        return (randn(B, S, H, P, dtype=dtype),
+                F.softplus(randn(B, S, H, dtype=torch.float32)),
+                -torch.exp(randn(H, dtype=torch.float32) * 0.5),
+                randn(B, S, G, N, dtype=torch.float32).mul(0.3).to(dtype),
+                randn(B, S, G, N, dtype=torch.float32).mul(0.3).to(dtype),
+                randn(H, dtype=torch.float32))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, P, G, N, chunk in [(4, 512, 24, 64, 1, 128, 128),
+                                        (2, 1000, 24, 64, 1, 128, 128),
+                                        (2, 256, 8, 64, 2, 128, 64),
+                                        (1, 300, 4, 32, 2, 64, 64)]:
+            args = ssd_inputs(B, S, H, P, G, N, dtype)
+            y, state = ssd_cuda(*args, chunk=chunk)
+            want_y, want_state = (ssd_chunked(*args, chunk=chunk)
+                                  if S % chunk == 0 else ssd_sequential(*args))
+            err_y, ok_y = compare(y, want_y, dtype, SSD_TOL)
+            err_s, ok_s = compare(state, want_state, dtype, SSD_TOL)
+            cases.append(dict(kernel="ssd", dtype=str(dtype), B=B, S=S, H=H,
+                              P=P, G=G, N=N, chunk=chunk,
+                              max_abs_err=max(err_y, err_s),
+                              tol=SSD_TOL[dtype], ok=ok_y and ok_s))
+    B, S, H, P, G, N, Q = 4, 512, 24, 64, 1, 128, 128
+    args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16)
+    x, dt, _, Bm, Cm, _ = args
+    # bytes: x, dt, Bm, Cm, A, D read once, y and the fp32 state written once
+    t_bound, by = bound(2 * x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes
+                        + 2 * 4 * H + B * H * P * N * 4,
+                        2 * ssd_macs(B, S, H, P, G, N, Q), torch.float32)
+    summary["ssd"] = dict(
+        name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:71",
+        shape=f"x ({B},{S},{H},{P}) bf16, dt ({B},{S},{H}) fp32, "
+              f"Bm/Cm ({B},{S},{G},{N}) bf16, chunk {Q}",
+        ms=time_ms(lambda: ssd_cuda(*args, chunk=Q)),
+        plain_ms=time_ms(lambda: ssd_chunked(*args, chunk=Q), iters=10),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        max_abs_err=compare(ssd_cuda(*args, chunk=Q)[0],
+                            ssd_chunked(*args, chunk=Q)[0], torch.bfloat16,
+                            SSD_TOL)[0])
+    emit("kernels", kernel="ssd", timings={
+        summary["ssd"]["shape"]: {k: summary["ssd"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
     emit("kernels", cases=cases)
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -315,6 +404,7 @@ def phase_serve(dev, gen, seed, arch: str):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_cuda
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.config import ATTN_KINDS
     from repro_torch.train.steps import make_decode_step, make_prefill_step
@@ -334,7 +424,7 @@ def phase_serve(dev, gen, seed, arch: str):
     pre = make_prefill_step(cfg, dtype=dtype)
     dec = make_decode_step(cfg, dtype=dtype)
     kernels = {"rmsnorm": rmsnorm_cuda, "flash_attention": flash_attention_cuda,
-               "rglru": rglru_cuda}
+               "rglru": rglru_cuda, "ssd": ssd_cuda}
 
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -367,16 +457,22 @@ def phase_serve(dev, gen, seed, arch: str):
     steps = waves * max_new
     kinds = cfg._layer_kinds()
     n_attn = sum(k in ATTN_KINDS for k in kinds)
-    # rmsnorm: norm1 and norm2 of every layer and the final norm, in prefill
-    # and decode; flash attention: prefill only (decode attention over the
-    # cache is mha_ref, as in the JAX package); RG-LRU: prefill and decode
-    want = {"rmsnorm": (2 * cfg.num_layers + 1) * (waves + steps),
+    # rmsnorm, in prefill and decode: norm1 of every layer, norm2 of every
+    # layer with an FFN, the gated norm of every SSD layer, the final norm;
+    # flash attention: prefill only (decode attention over the cache is
+    # mha_ref, as in the JAX package); RG-LRU: prefill and decode; SSD:
+    # prefill only (decode is ssd_decode_step, as in the JAX package)
+    norms = (len(kinds) + (len(kinds) if cfg.d_ff else 0)
+             + kinds.count("ssd") + 1)
+    want = {"rmsnorm": norms * (waves + steps),
             "flash_attention": n_attn * waves,
-            "rglru": kinds.count("rglru") * (waves + steps)}
+            "rglru": kinds.count("rglru") * (waves + steps),
+            "ssd": kinds.count("ssd") * waves}
     tokens = torch.cat(outs)
     emit("serve", arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
          requests=requests, waves=waves, batch=batch, prompt=prompt_len,
          new_tokens=max_new, init_s=init_s, prefill_ms=prefill_ms,
+         prefill_bound_ms=prefill_bound_ms(cfg, batch, prompt_len),
          decode_tok_per_s=batch * steps / decode_s,
          decode_ms_per_step=decode_s * 1e3 / steps,
          decode_bound_ms_per_step=weight_bytes / HBM_BYTES_PER_S * 1e3,
@@ -465,6 +561,7 @@ def main() -> int:
     summary = phase_kernels(dev, gen)
     phase_serve_check(dev, gen, "qwen2-7b", layers=4, B=2, P=128)
     phase_serve_check(dev, gen, "recurrentgemma-9b", layers=3, B=1, P=2176)
+    phase_serve_check(dev, gen, "mamba2-130m", layers=24, B=2, P=1000)
     launches = {}
     for arch in ARCHS:
         gc.collect()

@@ -15,6 +15,8 @@ from .rglru.kernel import rglru_cuda
 from .rglru.ref import rglru_sequential
 from .rmsnorm.kernel import rmsnorm_cuda
 from .rmsnorm.ref import rmsnorm_ref
+from .ssd.kernel import ssd_cuda
+from .ssd.ref import ssd_chunked, ssd_sequential
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -70,3 +72,22 @@ def rglru_scan(log_a, gx, h0=None):
     if _on_cuda(gx):
         return rglru_cuda(log_a, gx, h0)
     return rglru_sequential(log_a, gx, h0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
+    """x (B,S,H,P), dt (B,S,H), A, D (H,), Bm/Cm (B,S,G,N) ->
+    (y (B,S,H,P) in ``x.dtype``, state (B,H,P,N) fp32 after the last token),
+    from a zero state.
+
+    The kernel takes every S (it pads the ragged last chunk itself); the CPU
+    path is ``ssd_chunked`` when S is a multiple of the chunk and
+    ``ssd_sequential`` otherwise, as the JAX package's CPU path."""
+    if _on_cuda(x):
+        return ssd_cuda(x, dt, A, Bm, Cm, D, chunk=chunk)
+    if x.shape[1] % chunk == 0:
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)
+    return ssd_sequential(x, dt, A, Bm, Cm, D)

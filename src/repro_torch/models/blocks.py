@@ -11,8 +11,8 @@ reference returns a new cache; writing the slots in place saves a copy of
 the cache per layer and step).
 
 This port covers the attention kinds and the RG-LRU mixer, each with a
-dense gated FFN.  MoE and SSD wait for later slices and raise
-``NotImplementedError``.
+dense gated FFN, and the mixer-only Mamba-2 (SSD) layer.  MoE waits for a
+later slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.rglru.ref import rglru_gates
+from repro_torch.kernels.ssd.ref import ssd_decode_step
 from .config import ATTN_KINDS, ModelConfig
 from .layers import act_fn, dense, gated_mlp, rmsnorm
 from .rope import apply_rotary
@@ -106,13 +107,38 @@ def init_rglru(cfg: ModelConfig, *, lead: tuple = (), device, dtype,
     }
 
 
+def init_ssd(cfg: ModelConfig, *, lead: tuple = (), device, dtype,
+             generator: torch.Generator) -> dict:
+    D, di = cfg.d_model, cfg.d_inner
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * G * N
+    init = dict(lead=lead, device=device, dtype=dtype, generator=generator)
+
+    def per_head(v: torch.Tensor) -> torch.Tensor:
+        return v.to(device=device, dtype=dtype).expand(lead + (H,)).clone()
+
+    f32 = torch.float32
+    return {
+        "in_proj": trunc_normal((D, 2 * di + 2 * G * N + H), D, **init),
+        "conv_w": trunc_normal((conv_ch, cfg.ssm_conv), cfg.ssm_conv, **init),
+        "conv_b": torch.zeros(lead + (conv_ch,), dtype=dtype, device=device),
+        "A_log": per_head(torch.log(torch.linspace(1.0, 16.0, H, dtype=f32))),
+        "D": torch.ones(lead + (H,), dtype=dtype, device=device),
+        "dt_bias": per_head(torch.log(torch.expm1(
+            torch.linspace(1e-3, 0.1, H, dtype=f32)))),
+        "norm": torch.ones(lead + (di,), dtype=dtype, device=device),
+        "out_proj": trunc_normal((di, D), di, **init),
+    }
+
+
 def init_mixer(cfg: ModelConfig, kind: str, **init) -> dict:
     if kind in ATTN_KINDS:
         return init_attn(cfg, **init)
     if kind == "rglru":
         return init_rglru(cfg, **init)
-    raise NotImplementedError(f"{kind} blocks wait for a later slice of the "
-                              "port")
+    if kind == "ssd":
+        return init_ssd(cfg, **init)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +250,57 @@ def rglru_forward(p: dict, x: torch.Tensor, ctx: dict,
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def ssd_forward(p: dict, x: torch.Tensor, ctx: dict,
+                cache: Optional[dict] = None):
+    """Mamba-2 mixer output; a given cache (``conv`` (B,K-1,d_inner+2GN),
+    ``state`` (B,H,P,N) fp32) is written in place.  Prefill (S > 1, t == 0)
+    takes the state after the prompt from the scan itself, where the JAX
+    reference folds ``ssd_decode_step`` over the prompt again: the same
+    function, summed in another order.  Decode (S == 1) is
+    ``ssd_decode_step``, on the card too, as in the JAX package."""
+    cfg: ModelConfig = ctx["cfg"]
+    B, S, _ = x.shape
+    di, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+
+    zxbcdt = dense(x, p["in_proj"])
+    z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
+    conv_state = cache["conv"] if cache is not None else None
+    xBC, new_conv = causal_conv1d(xBC, p["conv_w"], p["conv_b"], conv_state)
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, S, H, P).contiguous()
+    Bm = Bm.reshape(B, S, G, N).contiguous()
+    Cm = Cm.reshape(B, S, G, N).contiguous()
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])           # in the parameters' dtype
+
+    if cache is None or S > 1:
+        y, state = kops.ssd_scan(xs, dt, A, Bm, Cm, p["D"],
+                                 chunk=cfg.ssm_chunk)
+    else:
+        state, y = ssd_decode_step(cache["state"], xs[:, 0], dt[:, 0], A,
+                                   Bm[:, 0], Cm[:, 0], p["D"])
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(state)
+
+    y = y.reshape(B, S, di)
+    y = rmsnorm(y * F.silu(z), p["norm"], eps=cfg.norm_eps)
+    return dense(y, p["out_proj"])
+
+
+# ---------------------------------------------------------------------------
 # block application (pre-norm residual layer)
 # ---------------------------------------------------------------------------
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
                 cache: Optional[dict] = None):
-    """One full layer: mixer + dense gated FFN, pre-norm residuals."""
+    """One full layer: mixer + dense gated FFN (none for mixer-only
+    layers), pre-norm residuals."""
     cfg: ModelConfig = ctx["cfg"]
     if "moe" in p:
         raise NotImplementedError("MoE blocks wait for a later slice of the "
@@ -239,9 +310,10 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
         mixed = attn_forward(p["mixer"], h, kind, ctx, cache)
     elif kind == "rglru":
         mixed = rglru_forward(p["mixer"], h, ctx, cache)
+    elif kind == "ssd":
+        mixed = ssd_forward(p["mixer"], h, ctx, cache)
     else:
-        raise NotImplementedError(f"{kind} blocks wait for a later slice of "
-                                  "the port")
+        raise ValueError(kind)
     x = x + mixed
     if "ffn" in p:
         h = rmsnorm(x, p["norm2"], eps=cfg.norm_eps)

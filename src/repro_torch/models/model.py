@@ -24,17 +24,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from . import blocks
-from .config import ATTN_KINDS, ModelConfig
+from .config import ModelConfig
 from .layers import embed, rmsnorm, unembed
 from .rope import rope_cos_sin
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.num_experts or any(k not in ATTN_KINDS | {"rglru"}
-                              for k in cfg.block_pattern):
+    if cfg.num_experts:
         raise NotImplementedError(
-            f"{cfg.name}: MoE and SSD blocks wait for a later slice of the "
-            "port")
+            f"{cfg.name}: MoE blocks wait for a later slice of the port")
     if cfg.modality != "text" or cfg.pos_type == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and the modality frontends wait for a later "
@@ -91,6 +89,15 @@ def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def _init_block_cache(cfg: ModelConfig, kind: str, B: int, max_len: int,
                       dtype, device, lead: tuple) -> dict:
+    if kind == "ssd":
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return {
+            "conv": torch.zeros(lead + (B, cfg.ssm_conv - 1, conv_ch),
+                                dtype=dtype, device=device),
+            "state": torch.zeros(lead + (B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                         cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+        }
     if kind == "rglru":
         W = cfg.resolved_lru_width
         return {

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card (each test skips without one).
 
 Each kernel against its plain PyTorch version on the same inputs, at the
-JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32),
-and the serving path on the card against the same path on the CPU.  This file imports no JAX, so it
+JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32,
+the SSD scan 2e-3 fp32 / 5e-2 bf16), and the serving path on the card against the same path on the CPU.  This file imports no JAX, so it
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -23,6 +23,8 @@ from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import rglru_sequential
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd.kernel import ssd_cuda
+from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
 from repro_torch.models import init_cache, init_params
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -160,6 +162,67 @@ def test_rglru_kernel_matches_plain(cuda, dtype, B, S, W, with_h0):
     assert_allclose(f32(h_last), f32(want_h), rtol=1e-4, atol=1e-4)
 
 
+def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=4):
+    """Inputs as the JAX suite draws them (``tests/test_kernels.py``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    A = -torch.exp(randn(H) * 0.5)
+    Bm, Cm = ((randn(B, S, G, N) * 0.3).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm, randn(H)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 256, 4, 64, 1, 128, 128),     # mamba2-130m's head and state dims
+    (1, 200, 4, 64, 1, 128, 128),     # ragged last chunk
+    (2, 256, 4, 32, 2, 64, 64),       # two groups, chunk 64
+    (1, 37, 2, 16, 1, 16, 16),        # the smoke config, ragged
+    (1, 90, 3, 24, 3, 8, 20),         # chunk not a multiple of 4
+    (1, 64, 2, 128, 1, 32, 32),       # P 128: two blocks over the head dim
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk):
+    args = _ssd_inputs(cuda, B, S, H, P, G, N, dtype)
+    before = ssd_cuda.launches
+    y, state = ssd_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert y.shape == (B, S, H, P) and state.shape == (B, H, P, N)
+    want_y, want_state = (ssd_chunked(*args, chunk=chunk) if S % chunk == 0
+                          else ssd_sequential(*args))
+    t = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    assert_allclose(f32(y), f32(want_y), rtol=t, atol=t)
+    assert_allclose(f32(state), f32(want_state), rtol=t, atol=t)
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    args = list(_ssd_inputs(cuda, 1, 32, 4, 16, 1, 16, torch.float32))
+    x, dt, A, Bm, Cm, D = args
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_cuda(*(t.cpu() for t in args), chunk=16)
+    with pytest.raises(ValueError, match="divide"):
+        ssd_cuda(x, dt, A, *(torch.ones(1, 32, 3, 16, device=cuda)
+                             for _ in range(2)), D, chunk=16)
+    with pytest.raises(ValueError, match="P=136"):
+        ssd_cuda(torch.ones(1, 32, 4, 136, device=cuda), dt, A, Bm, Cm, D,
+                 chunk=16)
+    with pytest.raises(ValueError, match="N=136"):
+        ssd_cuda(x, dt, A, *(torch.ones(1, 32, 1, 136, device=cuda)
+                             for _ in range(2)), D, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm,
+                 Cm, D, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_cuda(x, dt, A, Bm, Cm, D, chunk=256)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_cuda(x, dt, A, Bm.bfloat16(), Cm, D, chunk=16)
+
+
 def test_serving_on_card_matches_cpu(cuda):
     """prefill + greedy decode through both kernels against the same steps
     on the CPU (plain versions), fp32, 2e-4 relative."""
@@ -217,10 +280,42 @@ def test_recurrentgemma_serving_on_card_matches_cpu(cuda):
     assert_allclose(f32(hs[str(cuda)]), f32(hs["cpu"]), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("argv", [[], ["--arch", "recurrentgemma-9b"]])
+def test_mamba2_serving_on_card_matches_cpu(cuda):
+    """The smoke mamba2 (chunk 16) with a 24-token prompt, so the kernel pads
+    its last chunk and hands its final state to the decode steps: the SSD
+    and rmsnorm kernels on the card against the plain versions on the CPU,
+    fp32, 2e-4 relative; the cache state at the SSD scan's 2e-3."""
+    cfg = get_smoke_config("mamba2-130m")
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    logits, states = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in ("cpu", cuda):
+            p = _to(params, dev)
+            cache = init_cache(cfg, 2, 40, torch.float32, device=dev)
+            pre = make_prefill_step(cfg, dtype=torch.float32)
+            dec = make_decode_step(cfg, dtype=torch.float32)
+            last, cache = pre(p, {"tokens": toks.to(dev)}, cache)
+            out = [last]
+            tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+            for _ in range(4):
+                tok, lg, cache = dec(p, tok, cache)
+                out.append(lg)
+            logits[str(dev)] = torch.stack(out).cpu()
+            states[str(dev)] = cache["blocks"][0]["state"].cpu()
+    want, got = logits["cpu"], logits[str(cuda)]
+    assert float((got - want).abs().max()) / float(want.abs().max()) < 2e-4
+    assert_allclose(f32(states[str(cuda)]), f32(states["cpu"]), rtol=2e-3,
+                    atol=2e-3)
+
+
+@pytest.mark.parametrize("argv", [[], ["--arch", "recurrentgemma-9b"],
+                                  ["--arch", "mamba2-130m"]])
 def test_serve_example_runs_on_card(cuda, argv, monkeypatch, capsys):
-    """The example at its defaults (smoke qwen2-7b, dh 16) and on
-    recurrentgemma, on the card."""
+    """The example at its defaults (smoke qwen2-7b, dh 16), on
+    recurrentgemma and on mamba2, on the card."""
     monkeypatch.setattr(sys, "argv", ["serve_batch_torch.py", *argv,
                                       "--requests", "3", "--max-new", "3"])
     runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),

@@ -4,7 +4,8 @@ The plain PyTorch versions (``rmsnorm_ref``, ``mha_ref``,
 ``attention_mask``) against the JAX Pallas kernels run in interpret mode and
 against the JAX references, on the same numpy inputs.  Tolerances are the
 JAX suite's own (``tests/test_kernels.py``): fp32 2e-5, bf16 2e-2, RG-LRU
-scan 1e-4.  The CUDA kernels against their plain versions are in
+scan 1e-4, SSD scan 2e-3 fp32 / 5e-2 bf16 (its final state and decode step
+1e-4).  The CUDA kernels against their plain versions are in
 ``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -21,6 +22,10 @@ from repro.kernels.rglru.ref import rglru_gates as jax_rglru_gates
 from repro.kernels.rglru.ref import rglru_sequential as jax_rglru_sequential
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
+from repro.kernels.ssd.kernel import ssd_pallas
+from repro.kernels.ssd.ref import ssd_chunked as jax_ssd_chunked
+from repro.kernels.ssd.ref import ssd_decode_step as jax_ssd_decode_step
+from repro.kernels.ssd.ref import ssd_sequential as jax_ssd_sequential
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
@@ -28,6 +33,9 @@ from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import rglru_gates, rglru_sequential
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd.kernel import ssd_cuda
+from repro_torch.kernels.ssd.ref import (ssd_chunked, ssd_decode_step,
+                                         ssd_sequential)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -209,6 +217,114 @@ def test_rglru_gates_match_jax():
 
 
 # ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, S, H, P, G, N, seed=5):
+    """x, dt, A, Bm, Cm, D as the JAX suite draws them (fp32 numpy)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P))
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H)))
+    A = -np.exp(rng.standard_normal(H) * 0.5)
+    Bm = rng.standard_normal((B, S, G, N)) * 0.3
+    Cm = rng.standard_normal((B, S, G, N)) * 0.3
+    D = rng.standard_normal(H)
+    return [a.astype(np.float32) for a in (x, dt, A, Bm, Cm, D)]
+
+
+def _ssd_both(arrays, dtype):
+    """The inputs for JAX and torch, x/Bm/Cm in ``dtype``, the rest fp32."""
+    jax_args, torch_args = [], []
+    for i, a in enumerate(arrays):
+        j, t = both(a, dtype if i in (0, 3, 4) else "float32")
+        jax_args.append(j)
+        torch_args.append(t)
+    return jax_args, torch_args
+
+
+def _ssd_tol(dtype):
+    return dict(rtol=5e-2, atol=5e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 128, 2, 64, 1, 64, 64),
+    (2, 256, 3, 64, 1, 128, 128),
+    (1, 256, 4, 32, 2, 64, 128),      # grouped B/C
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_refs_match_jax(B, S, H, P, G, N, chunk, dtype):
+    """``test_ssd_sweep``'s shapes: both torch scans against JAX's scans and
+    ``ssd_pallas`` in interpret mode."""
+    jax_args, torch_args = _ssd_both(_ssd_inputs(B, S, H, P, G, N), dtype)
+    y_seq, state_seq = ssd_sequential(*torch_args)
+    y_chk, state_chk = ssd_chunked(*torch_args, chunk=chunk)
+    for y in (y_seq, y_chk):
+        assert y.dtype == torch_args[0].dtype and y.shape == (B, S, H, P)
+    want_seq = jax_ssd_sequential(*jax_args)
+    for want in (want_seq, jax_ssd_chunked(*jax_args, chunk=chunk),
+                 ssd_pallas(*jax_args, chunk=chunk, interpret=True)):
+        assert_allclose(f32(y_chk), f32(want), **_ssd_tol(dtype))
+    assert_allclose(f32(y_seq), f32(want_seq), **_ssd_tol(dtype))
+    assert state_chk.dtype == torch.float32
+    assert_allclose(f32(state_chk), f32(state_seq), rtol=1e-4, atol=1e-4)
+    y_ops, state_ops = ops.ssd_scan(*torch_args, chunk=chunk)
+    assert torch.equal(y_ops, y_chk) and torch.equal(state_ops, state_chk)
+
+
+@pytest.mark.parametrize("S,chunk", [(50, 16), (37, 128)])
+def test_ssd_ragged_matches_jax_sequential(S, chunk):
+    """S not a multiple of the chunk: the CPU path is ``ssd_sequential``."""
+    arrays = _ssd_inputs(2, S, 4, 16, 2, 8)
+    jax_args, torch_args = _ssd_both(arrays, "float32")
+    y, state = ops.ssd_scan(*torch_args, chunk=chunk)
+    assert_allclose(f32(y), f32(jax_ssd_sequential(*jax_args)),
+                    **_ssd_tol("float32"))
+    y_seq, state_seq = ssd_sequential(*torch_args)
+    assert torch.equal(y, y_seq) and torch.equal(state, state_seq)
+
+
+def _jax_fold(jax_args):
+    """The JAX model's prefill state: ``ssd_decode_step`` folded over S."""
+    x, dt, A, Bm, Cm, D = jax_args
+    B, S, H, P = x.shape
+    state = jnp.zeros((B, H, P, Bm.shape[-1]), jnp.float32)
+    for t in range(S):
+        state, _ = jax_ssd_decode_step(state, x[:, t], dt[:, t], A, Bm[:, t],
+                                       Cm[:, t], D)
+    return state
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (40, 16)])
+def test_ssd_final_state_matches_jax_fold(S, chunk):
+    """The state the scans return is the state the JAX prefill computes by
+    folding its decode step over the prompt."""
+    jax_args, torch_args = _ssd_both(_ssd_inputs(2, S, 4, 16, 2, 16),
+                                     "float32")
+    want = f32(_jax_fold(jax_args))
+    _, state = ops.ssd_scan(*torch_args, chunk=chunk)
+    assert_allclose(f32(state), want, rtol=1e-4, atol=1e-4)
+    assert_allclose(f32(ssd_sequential(*torch_args)[1]), want, rtol=1e-4,
+                    atol=1e-4)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_decode_step_matches_jax(G):
+    B, H, P, N = 2, 4, 16, 8
+    rng = np.random.default_rng(9)
+    state = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    arrays = [a[:, 0] if a.ndim > 1 else a
+              for a in _ssd_inputs(B, 1, H, P, G, N, seed=10)]
+    want_state, want_y = jax_ssd_decode_step(
+        jnp.asarray(state), *(jnp.asarray(a) for a in arrays))
+    got_state, got_y = ssd_decode_step(
+        torch.from_numpy(state), *(torch.from_numpy(a) for a in arrays))
+    assert got_state.dtype == torch.float32 and got_y.shape == (B, H, P)
+    assert_allclose(f32(got_state), f32(want_state), rtol=1e-4, atol=1e-4)
+    assert_allclose(f32(got_y), f32(want_y), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA wrappers refuse what their kernels do not take
 # ---------------------------------------------------------------------------
 
@@ -222,16 +338,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     la = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         rglru_cuda(la, la)
+    x, Bm, h = torch.ones(1, 16, 2, 8), torch.ones(1, 16, 1, 8), torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_cuda(x, torch.ones(1, 16, 2), h, Bm, Bm, h, chunk=16)
 
 
 def test_build_keys_each_library_on_its_sources():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention", "rglru", "rmsnorm"]
+    assert _build.sources() == ["flash_attention", "rglru", "rmsnorm", "ssd"]
     paths = {name: _build.library_path(name) for name in _build.sources()}
     assert paths == {name: _build.library_path(name)
                      for name in _build.sources()}
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

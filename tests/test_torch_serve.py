@@ -4,7 +4,8 @@ Identical weights come from the JAX ``init_params`` tree through
 ``bridge.params_from_numpy``; tokens are made with numpy.  Logits are held
 to the JAX suite's decode-vs-forward bound (``tests/test_models.py``):
 2e-4 relative to the largest logit, in fp32; the RG-LRU state in the cache
-to the suite's RG-LRU bound, 1e-4.
+to the suite's RG-LRU bound, 1e-4; the Mamba-2 cache (conv and SSD state)
+to 2e-4 relative.
 """
 import dataclasses
 import re
@@ -140,6 +141,41 @@ def test_recurrentgemma_serving_matches_jax(variant, monkeypatch):
                 assert _close(c_t[key].numpy(), c_j[key], 1e-4), (part, key)
 
 
+def _mamba2_widened(cfg):
+    """d_model 128 (d_inner 256, so both norms are multiples of 128), P 32,
+    N 32, chunk 32: at a 64-token prompt the JAX side takes the rmsnorm and
+    SSD Pallas kernels."""
+    return dataclasses.replace(cfg, d_model=128, ssm_head_dim=32,
+                               ssm_state=32, ssm_chunk=32)
+
+
+@pytest.mark.parametrize("variant", ["smoke", "widened"])
+def test_mamba2_serving_matches_jax(variant, monkeypatch):
+    """The smoke prompt (24 tokens, chunk 16) is ragged, so the port's CPU
+    prefill runs ``ssd_sequential``; the widened one runs ``ssd_chunked``
+    against the JAX Pallas kernels in interpret mode.  The prefill state
+    comes from the scan here and from the JAX decode-step fold there."""
+    arch = "mamba2-130m"
+    cfg_j, cfg_t = jax_smoke(arch), get_smoke_config(arch)
+    S = 24
+    if variant == "widened":
+        cfg_j, cfg_t, S = _mamba2_widened(cfg_j), _mamba2_widened(cfg_t), 64
+        monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    (params_j, params_t), (cache_j, cache_t) = _serving_matches_jax(
+        cfg_j, cfg_t, S)
+    mixer = params_t["blocks"][0]["mixer"]
+    for name in ("A_log", "D", "dt_bias", "norm", "conv_w", "in_proj"):
+        assert np.array_equal(
+            mixer[name].numpy(),
+            np.asarray(params_j["blocks"][0]["mixer"][name])), name
+    assert cache_t["rem"] == [] and len(cache_t["blocks"]) == 1
+    c_t, c_j = cache_t["blocks"][0], cache_j["blocks"][0]
+    assert c_t["state"].dtype == torch.float32
+    for key in ("conv", "state"):
+        assert c_t[key].shape == c_j[key].shape
+        assert _close(c_t[key].numpy(), c_j[key], REL), key
+
+
 @pytest.mark.parametrize("with_state", [False, True])
 def test_causal_conv1d_matches_jax(with_state):
     B, S, C, K = 2, 7, 12, 4
@@ -171,7 +207,8 @@ def test_causal_conv1d_matches_jax(with_state):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "stablelm-3b", "stablelm-12b",
-                                  "h2o-danube-3-4b", "recurrentgemma-9b"])
+                                  "h2o-danube-3-4b", "recurrentgemma-9b",
+                                  "mamba2-130m"])
 def test_decode_matches_forward(arch):
     """The port's own prefill + decode against its full forward."""
     cfg = get_smoke_config(arch)
@@ -253,6 +290,53 @@ def test_init_recurrentgemma_tree_dtype_and_statistics(dtype):
     assert float(a.max() - a.min()) > 0.05        # spread over the interval
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_mamba2_tree_dtype_and_statistics(dtype):
+    arch = "mamba2-130m"
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, device="cpu", dtype=dtype,
+                         generator=torch.Generator().manual_seed(0))
+    assert _shapes(params) == _shapes(jax_param_specs(jax_smoke(arch)))
+    assert set(params["blocks"][0]) == {"norm1", "mixer"}    # mixer-only
+    mixer = params["blocks"][0]["mixer"]
+    assert all(t.dtype == dtype for t in mixer.values())
+    H, di, n_sb = cfg.ssm_heads, cfg.d_inner, cfg.n_superblocks
+    for w, fan_in in ((mixer["in_proj"], cfg.d_model),
+                      (mixer["conv_w"], cfg.ssm_conv),
+                      (mixer["out_proj"], di)):
+        w = w.float()
+        want = 0.98658 * fan_in ** -0.5
+        assert abs(float(w.std()) / want - 1) < 0.1
+        assert float(w.abs().max()) <= 3 * fan_in ** -0.5 * 1.01
+    f32 = torch.float32
+    per_head = {
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=f32)),
+        "D": torch.ones(H),
+        "dt_bias": torch.log(torch.expm1(torch.linspace(1e-3, 0.1, H,
+                                                        dtype=f32))),
+    }
+    for name, want in per_head.items():
+        assert mixer[name].shape == (n_sb, H)
+        assert torch.equal(mixer[name], want.to(dtype).expand(n_sb, H))
+    assert bool((mixer["norm"] == 1).all()) and mixer["norm"].shape[-1] == di
+    assert bool((mixer["conv_b"] == 0).all())
+    # the decays exp(-exp(A_log)) span (e^-16, e^-1), the step sizes
+    # softplus(dt_bias) span (1e-3, 0.1)
+    dt = torch.nn.functional.softplus(mixer["dt_bias"].float())
+    assert abs(float(dt.min()) - 1e-3) < 1e-4 and abs(float(dt.max()) - 0.1) < 1e-3
+
+
+def test_full_mamba2_130m_cache_shapes():
+    cfg = get_config("mamba2-130m")
+    cache = init_cache(cfg, 4, 552, torch.bfloat16, device="meta")
+    ssd = cache["blocks"][0]
+    assert ssd["conv"].shape == (24, 4, 3, 1536 + 2 * 128)
+    assert ssd["conv"].dtype == torch.bfloat16
+    assert ssd["state"].shape == (24, 4, 24, 64, 128)
+    assert ssd["state"].dtype == torch.float32
+    assert cache["rem"] == []
+
+
 def test_full_recurrentgemma_9b_cache_shapes():
     cfg = get_config("recurrentgemma-9b")
     Bc = 2
@@ -288,7 +372,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         params_from_numpy({"w": np.ones(3, np.float32)})
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "llama4-scout-17b-a16e",
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
                                   "moonshot-v1-16b-a3b", "qwen2-vl-2b",
                                   "hubert-xlarge"])
 def test_later_slices_raise(arch):
@@ -322,6 +406,18 @@ def test_serve_example_runs_recurrentgemma_on_cpu(monkeypatch, capsys):
                    run_name="__main__")
     out = capsys.readouterr().out
     assert "arch=recurrentgemma-9b" in out and "decode_throughput=" in out
+
+
+def test_serve_example_runs_mamba2_on_cpu(monkeypatch, capsys):
+    """The default 24-token prompt over the smoke config's 16-token chunk:
+    a ragged prefill."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve_batch_torch.py", "--device", "cpu", "--arch", "mamba2-130m",
+        "--requests", "3", "--batch", "2", "--max-new", "3"])
+    runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "arch=mamba2-130m" in out and "decode_throughput=" in out
 
 
 _FORBIDDEN = re.compile(
