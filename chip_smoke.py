@@ -8,16 +8,29 @@ Phases, each printed as one JSON line:
 1. ``env``: the card (``nvidia-smi``), torch / CUDA / nvcc versions, and the
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once, into ``build/repro_torch``), with ptxas's
-   registers and spills.
+   registers and spills (kept beside each library, so a library built
+   before is reported too).  Fails if the sm90 flash-attention body spills
+   or ptxas ignored a ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 in fp32, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and the final
-   state).  Flash attention at every head dim of the config registry.  Then
+   state).  Flash attention at every head dim of the config registry, and
+   the sm90 body (bf16, dh 128 and 256) at ragged S, GQA 7:1, MQA 16:1,
+   window and chunk edges, no causal mask and views of a fused projection;
+   rmsnorm's one-read body at D 768, 1536, 3584 and 4096 and the generic
+   body at an odd width.  Each case records the body that ran.  Then
    kernel, plain and library (``F.rms_norm`` / SDPA; none computes the
    RG-LRU or the SSD scan) times at the serving shapes of qwen2-7b,
-   recurrentgemma-9b and mamba2-130m (CUDA events, median of 30 after
-   warm-up) beside the least time the card could take (bytes over 3.35 TB/s
-   or operations over the peak rate of their type).
+   recurrentgemma-9b and mamba2-130m beside the least time the card could
+   take (bytes over 3.35 TB/s or operations over the peak rate of their
+   type).  ``ms``, ``plain_ms`` and ``library_ms`` are device time: the
+   kernels one call runs, summed under ``torch.profiler`` over 20 calls
+   after warm-up, per call; ``event_ms`` and ``library_event_ms`` are the
+   CUDA-event median of 30 calls, which includes the host's launch path
+   when that is longer than the kernel.  ``previous_body_ms`` times, on
+   the same inputs, the body these shapes took before the sm90 and
+   one-read bodies (flash attention's mma body, rmsnorm's generic body),
+   called through the C entry point directly.
 3. ``serve_check``, once per served arch, at full width, fp32, random
    weights from the seed: the last-position logits of ``prefill`` and 8
    ``decode_step``s against ``forward_train`` on the same tokens, within
@@ -31,7 +44,9 @@ Phases, each printed as one JSON line:
    recurrentgemma-9b 38, mamba2-130m 24, bf16 weights and cache) through the
    ``serve_batch`` wave loop: 12 requests, 3 waves of batch 4, 512-token
    prompts, 32 greedy new tokens.  Every kernel's launch counter is reset
-   just before and must equal the analytic count just after.
+   just before and must equal the analytic count just after; every flash
+   launch must have taken the sm90 body and every rmsnorm launch the
+   one-read body.
 5. ``profile``, after each serve: one more prefill wave and 8 decode steps
    under ``torch.profiler``: wall time, summed kernel time, the card's idle
    share and the costliest kernels.
@@ -97,6 +112,36 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: every kernel and copy the call runs on the
+    card, summed under torch.profiler over ``iters`` calls, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    check(total > 0, "the profiler saw no device time")
+    return total / iters / 1e3
+
+
+def ptxas_functions(log: str) -> dict:
+    """{kernel: {"spills": ..., "registers": ...}} from ``-Xptxas=-v``."""
+    out, lines = {}, log.splitlines()
+    for i, line in enumerate(lines[:-2]):
+        if "Function properties for" in line:
+            out[line.split("Function properties for")[-1].strip()] = dict(
+                spills=lines[i + 1].strip(),
+                registers=lines[i + 2].split("info    : ")[-1])
+    return out
+
+
 def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -153,25 +198,39 @@ def phase_env(build):
                "--format=csv,noheader"]).splitlines()[0]
     nvcc_version = run([build.nvcc(), "--version"]).splitlines()[-1]
     t0 = time.monotonic()
-    logs = build.build()
+    built = build.build()
     build_s = time.monotonic() - t0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    logs = {name: build.log_path(name).read_text() for name in build.sources()}
     ptxas = {name: [ln.split("info    : ")[-1] for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
+    sm90 = {name: f for name, f in
+            ptxas_functions(logs["flash_attention"]).items()
+            if "flash_attn_sm90_kernel" in name}
     emit("env", nvidia_smi=smi, python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_version,
-         built=sorted(logs), build_s=build_s, ptxas=ptxas)
+         built=sorted(built), build_s=build_s, ptxas=ptxas, sm90_ptxas=sm90)
+    check(len(sm90) == 2 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
+        for f in sm90.values()), f"sm90 flash body spills: {sm90}")
+    check("C7508" not in logs["flash_attention"],
+          "ptxas ignored setmaxnreg (C7508) in flash_attention.cu")
     return smi
 
 
 def phase_kernels(dev, gen):
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import \
+        select_body as flash_body
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
     from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.rglru.ref import rglru_sequential
+    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.kernel import select_body as rms_body
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd.kernel import ssd_cuda
     from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
@@ -181,42 +240,56 @@ def phase_kernels(dev, gen):
 
     cases, summary = [], {}
 
-    # ---- rmsnorm: D 3584 (qwen2-7b) and 4096 (recurrentgemma-9b), decode
-    # rows (4) and prefill rows (4·512)
+    # ---- rmsnorm: the served widths (mamba2-130m 768 and its gated norm's
+    # 1536, qwen2-7b 3584, recurrentgemma-9b 4096) through the one-read
+    # body, and an odd width (a 260-byte bf16 row) through the generic one;
+    # decode rows (4) and prefill rows (4·512)
     eps = 1e-6
-    for D in (3584, 4096):
+    for D in (768, 1536, 3584, 4096, 130):
         for dtype in (torch.float32, torch.bfloat16):
             for rows in (4, 4 * 512):
                 x, s, r = randn(rows, D, dtype=dtype), randn(D, dtype=dtype), \
                     randn(rows, D, dtype=dtype)
                 for res in (None, r):
+                    body = rms_body(x, s, res)[0]
                     err, ok = compare(
                         rmsnorm_cuda(x, s, eps=eps, residual=res),
                         rmsnorm_ref(x, s, eps=eps, residual=res), dtype)
-                    cases.append(dict(kernel="rmsnorm", dtype=str(dtype),
-                                      rows=rows, D=D, residual=res is not None,
-                                      max_abs_err=err, tol=TOL[dtype], ok=ok))
-    D = 3584
+                    want_body = "generic" if D == 130 else "one_read"
+                    cases.append(dict(kernel="rmsnorm", body=body,
+                                      dtype=str(dtype), rows=rows, D=D,
+                                      residual=res is not None,
+                                      max_abs_err=err, tol=TOL[dtype],
+                                      ok=ok and body == want_body))
     timings = {}
-    for rows in (4 * 512, 4):      # prefill rows first: the summary's shape
+    # prefill rows at D 3584 first: the summary's shape
+    for rows, D in ((4 * 512, 3584), (4, 3584), (4 * 512, 768),
+                    (4 * 512, 1536), (4 * 512, 4096)):
         x, s = randn(rows, D, dtype=torch.bfloat16), \
             randn(D, dtype=torch.bfloat16)
         t_bound, by = bound(2 * x.nbytes + s.nbytes, 4 * x.numel(),
                             torch.float32)
-        timings[rows] = dict(
-            ms=time_ms(lambda: rmsnorm_cuda(x, s, eps=eps)),
-            plain_ms=time_ms(lambda: rmsnorm_ref(x, s, eps=eps)),
-            library_ms=time_ms(lambda: F.rms_norm(x, (D,), s, eps)),
+        kernel = lambda: rmsnorm_cuda(x, s, eps=eps)  # noqa: E731
+        library = lambda: F.rms_norm(x, (D,), s, eps)  # noqa: E731
+        y = torch.empty_like(x)
+        generic = lambda: rms._entry()(  # noqa: E731
+            x.data_ptr(), s.data_ptr(), None, y.data_ptr(), rows, D, eps, 1, 1,
+            0, torch.cuda.current_stream().cuda_stream)
+        timings[f"rows={rows} D={D} bf16"] = dict(
+            body=rms_body(x, s)[0],
+            ms=device_ms(kernel), event_ms=time_ms(kernel),
+            previous_body_ms=device_ms(generic),
+            plain_ms=device_ms(lambda: rmsnorm_ref(x, s, eps=eps)),
+            library_ms=device_ms(library), library_event_ms=time_ms(library),
             bound_ms=t_bound, bound_by=by,
-            max_abs_err=compare(rmsnorm_cuda(x, s, eps=eps),
-                                rmsnorm_ref(x, s, eps=eps),
+            max_abs_err=compare(kernel(), rmsnorm_ref(x, s, eps=eps),
                                 torch.bfloat16)[0])
     summary["rmsnorm"] = dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm/kernel.py:33",
-        shape=f"x (2048, {D}) bf16, scale bf16", **timings[4 * 512])
-    emit("kernels", kernel="rmsnorm",
-         timings={f"rows={r} D={D} bf16": t for r, t in timings.items()})
+        shape="x (2048, 3584) bf16, scale bf16",
+        **timings["rows=2048 D=3584 bf16"])
+    emit("kernels", kernel="rmsnorm", timings=timings)
 
     # ---- flash attention: qwen2-7b prefill shapes, ragged S, every head
     # dim of the registry (16 smoke, 80 stablelm-3b / hubert, 120
@@ -237,15 +310,47 @@ def phase_kernels(dev, gen):
         (1, 700, 16, 1, 256, dict(causal=True, window=300)),
         (1, 130, 4, 1, 256, dict(causal=False)),
     ]
+    # the sm90 body (bf16, dh 128 and 256): ragged S, GQA 7:1 and MQA 16:1,
+    # window and chunk edges inside tiles, no causal mask
+    sm90_cases = [
+        (1, 200, 28, 4, 128, dict(causal=True)),
+        (1, 1000, 28, 4, 128, dict(causal=True)),
+        (1, 200, 16, 1, 256, dict(causal=True)),
+        (1, 1000, 16, 1, 256, dict(causal=True, window=2048)),
+        (2, 512, 28, 4, 128, dict(causal=True, window=100)),
+        (1, 1000, 16, 1, 256, dict(causal=True, window=300)),
+        (1, 512, 28, 4, 128, dict(causal=True, chunk=96)),
+        (1, 1000, 16, 1, 256, dict(causal=True, chunk=128)),
+        (2, 300, 28, 4, 128, dict(causal=False)),
+        (1, 200, 16, 1, 256, dict(causal=False)),
+    ]
+
+    def attn_case(q, k, v, kw, want_body=None, **info):
+        body = flash_body(q, k, v)
+        err, ok = compare(flash_attention_cuda(q, k, v, **kw),
+                          mha_ref(q, k, v, **kw), q.dtype)
+        B, S, H, dh = q.shape
+        cases.append(dict(kernel="flash_attention", body=body,
+                          dtype=str(q.dtype), B=B, S=S, H=H, K=k.shape[2],
+                          dh=dh, **kw, **info, max_abs_err=err,
+                          tol=TOL[q.dtype],
+                          ok=ok and body == (want_body or body)))
+
     for B, S, H, K, dh, kw in attn_cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = randn(B, S, H, dh, dtype=dtype), \
-                randn(B, S, K, dh, dtype=dtype), randn(B, S, K, dh, dtype=dtype)
-            err, ok = compare(flash_attention_cuda(q, k, v, **kw),
-                              mha_ref(q, k, v, **kw), dtype)
-            cases.append(dict(kernel="flash_attention", dtype=str(dtype),
-                              B=B, S=S, H=H, K=K, dh=dh, **kw,
-                              max_abs_err=err, tol=TOL[dtype], ok=ok))
+            attn_case(randn(B, S, H, dh, dtype=dtype),
+                      randn(B, S, K, dh, dtype=dtype),
+                      randn(B, S, K, dh, dtype=dtype), kw)
+    for B, S, H, K, dh, kw in sm90_cases:
+        attn_case(randn(B, S, H, dh, dtype=torch.bfloat16),
+                  randn(B, S, K, dh, dtype=torch.bfloat16),
+                  randn(B, S, K, dh, dtype=torch.bfloat16), kw, "sm90")
+    for H, K, dh in ((28, 4, 128), (16, 1, 256)):
+        # q, k, v as views of one fused projection, read through strides
+        qkv = randn(2, 300, (H + 2 * K) * dh, dtype=torch.bfloat16)
+        q, k, v = (t.unflatten(-1, (-1, dh))
+                   for t in qkv.split([H * dh, K * dh, K * dh], dim=-1))
+        attn_case(q, k, v, dict(causal=True), "sm90", fused_views=True)
     timings = {}
     for arch, (B, S, H, K, dh, kw) in zip(("qwen2-7b", "recurrentgemma-9b"),
                                           attn_cases[:2]):
@@ -257,17 +362,28 @@ def phase_kernels(dev, gen):
         t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
                             4 * B * H * dh * pairs, torch.bfloat16)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        kernel = lambda: flash_attention_cuda(q, k, v, **kw)  # noqa: E731
         # SDPA with is_causal: the window of 2048 covers all 512 keys
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        out = torch.empty_like(q)
+        mma = lambda: flash._entry("flash_attention_fwd", True)(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+            K, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1,
+            kw.get("window", 0), 0, dh ** -0.5, dh, 1,
+            torch.cuda.current_stream().cuda_stream)
         timings[arch] = dict(
             shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
                   + " ".join(f"{n}={x}" for n, x in kw.items()),
-            ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
-            plain_ms=time_ms(lambda: mha_ref(q, k, v, **kw)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            body=flash_body(q, k, v),
+            ms=device_ms(kernel), event_ms=time_ms(kernel),
+            previous_body_ms=device_ms(mma),
+            previous_body_event_ms=time_ms(mma),
+            plain_ms=device_ms(lambda: mha_ref(q, k, v, **kw)),
+            library_ms=device_ms(library), library_event_ms=time_ms(library),
             bound_ms=t_bound, bound_by=by,
-            max_abs_err=compare(flash_attention_cuda(q, k, v, **kw),
-                                mha_ref(q, k, v, **kw), torch.bfloat16)[0])
+            max_abs_err=compare(kernel(), mha_ref(q, k, v, **kw),
+                                torch.bfloat16)[0])
     summary["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -304,15 +420,17 @@ def phase_kernels(dev, gen):
         name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
         replaces="src/repro/kernels/rglru/kernel.py:50",
         shape=f"log_a, gx ({B},{S},{W}) fp32, h0 ({B},{W}) fp32",
-        ms=time_ms(lambda: rglru_cuda(la, gx, h0)),
-        plain_ms=time_ms(lambda: rglru_sequential(la, gx, h0), iters=5),
+        ms=device_ms(lambda: rglru_cuda(la, gx, h0)),
+        event_ms=time_ms(lambda: rglru_cuda(la, gx, h0)),
+        plain_ms=device_ms(lambda: rglru_sequential(la, gx, h0), iters=5),
         library_ms=None, bound_ms=t_bound, bound_by=by,
         max_abs_err=compare(rglru_cuda(la, gx, h0)[0],
                             rglru_sequential(la, gx, h0)[0], torch.float32,
                             RGLRU_TOL)[0])
     emit("kernels", kernel="rglru", timings={
         summary["rglru"]["shape"]: {k: summary["rglru"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
+            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")}})
 
     # ---- SSD scan: mamba2-130m's head and state dims (P 64, N 128), a
     # ragged S (padded last chunk), two groups, chunk 64 and 128; y and the
@@ -353,15 +471,17 @@ def phase_kernels(dev, gen):
         replaces="src/repro/kernels/ssd/kernel.py:71",
         shape=f"x ({B},{S},{H},{P}) bf16, dt ({B},{S},{H}) fp32, "
               f"Bm/Cm ({B},{S},{G},{N}) bf16, chunk {Q}",
-        ms=time_ms(lambda: ssd_cuda(*args, chunk=Q)),
-        plain_ms=time_ms(lambda: ssd_chunked(*args, chunk=Q), iters=10),
+        ms=device_ms(lambda: ssd_cuda(*args, chunk=Q)),
+        event_ms=time_ms(lambda: ssd_cuda(*args, chunk=Q)),
+        plain_ms=device_ms(lambda: ssd_chunked(*args, chunk=Q), iters=10),
         library_ms=None, bound_ms=t_bound, bound_by=by,
         max_abs_err=compare(ssd_cuda(*args, chunk=Q)[0],
                             ssd_chunked(*args, chunk=Q)[0], torch.bfloat16,
                             SSD_TOL)[0])
     emit("kernels", kernel="ssd", timings={
         summary["ssd"]["shape"]: {k: summary["ssd"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}})
+            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")}})
     emit("kernels", cases=cases)
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -401,8 +521,10 @@ def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
 
 def phase_serve(dev, gen, seed, arch: str):
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.rglru.kernel import rglru_cuda
+    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.ssd.kernel import ssd_cuda
     from repro_torch.models import init_cache, init_params
@@ -429,6 +551,8 @@ def phase_serve(dev, gen, seed, arch: str):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    flash.reset_counts()
+    rms.reset_counts()
     prefill_ms, decode_s, outs = [], 0.0, []
     with torch.inference_mode():
         finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -453,6 +577,8 @@ def phase_serve(dev, gen, seed, arch: str):
             decode_s += time.monotonic() - t1
             outs.append(torch.cat(new, 1).cpu())
     launches = {name: fn.launches for name, fn in kernels.items()}
+    by_body = {"rmsnorm": dict(rmsnorm_cuda.launches_by_body),
+               "flash_attention": dict(flash_attention_cuda.launches_by_body)}
     waves = len(outs)
     steps = waves * max_new
     kinds = cfg._layer_kinds()
@@ -479,14 +605,19 @@ def phase_serve(dev, gen, seed, arch: str):
          weight_bytes=weight_bytes,
          peak_mem_bytes=torch.cuda.max_memory_allocated(),
          launches=launches, launches_expected=want,
-         sample=tokens[0, :10].tolist())
+         launches_by_body=by_body, sample=tokens[0, :10].tolist())
     check(bool(finite), f"serve {arch}: non-finite logits")
     check(tokens.shape == (requests, max_new)
           and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
           f"serve {arch}: bad tokens {tuple(tokens.shape)}")
     check(launches == want and all(launches[k] for k, n in want.items() if n),
           f"serve {arch}: launches {launches}, expected {want}")
-    return launches, (cfg, params, pre, dec, toks, max_len)
+    check(by_body["flash_attention"]["sm90"] == want["flash_attention"]
+          and by_body["rmsnorm"]["one_read"] == want["rmsnorm"],
+          f"serve {arch}: launches by body {by_body}: every flash launch "
+          f"must take the sm90 body and every rmsnorm launch the one-read "
+          f"body")
+    return launches, by_body, (cfg, params, pre, dec, toks, max_len)
 
 
 def _profiled(fn) -> dict:
@@ -562,16 +693,21 @@ def main() -> int:
     phase_serve_check(dev, gen, "qwen2-7b", layers=4, B=2, P=128)
     phase_serve_check(dev, gen, "recurrentgemma-9b", layers=3, B=1, P=2176)
     phase_serve_check(dev, gen, "mamba2-130m", layers=24, B=2, P=1000)
-    launches = {}
+    launches, by_body = {}, {}
     for arch in ARCHS:
         gc.collect()
         torch.cuda.empty_cache()
-        launches[arch], served = phase_serve(dev, gen, args.seed, arch)
+        launches[arch], by_body[arch], served = phase_serve(dev, gen,
+                                                            args.seed, arch)
         phase_profile(dev, *served)
         del served          # free this model's weights before the next one
     for name, entry in summary.items():
         entry["launches"] = sum(n[name] for n in launches.values())
         entry["launches_by_arch"] = {a: n[name] for a, n in launches.items()}
+        if name in ("rmsnorm", "flash_attention"):
+            entry["launches_by_body"] = {
+                body: sum(b[name][body] for b in by_body.values())
+                for body in by_body[ARCHS[0]][name]}
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

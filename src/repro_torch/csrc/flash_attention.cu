@@ -8,65 +8,94 @@
 //   * The TPU walks a sequential grid axis over KV blocks and carries the
 //     running max / denominator / accumulator in VMEM scratch between grid
 //     steps.  Here CTAs run in parallel and in no order, so one CTA owns a
-//     64-row query tile of one (batch, head) and loops over 64-key KV tiles
-//     itself, with the running statistics and the accumulator in fp32
-//     registers.  Grid = (q tiles, heads, batch).
+//     query tile of one (batch, head) and loops over KV tiles itself, with
+//     the running statistics and the accumulator in fp32 registers.
 //   * GQA: query head h reads KV head h / (H / K), as the TPU index maps do.
 //   * KV tiles that the mask cannot reach (above the causal diagonal, aged
 //     out of the window, outside the query tile's chunks) are never loaded:
-//     the loop runs over the reachable range only.  Inside a tile the mask is
-//     applied per element, and the ragged tail (S not a multiple of 64) is
-//     masked, so S needs no alignment.  A row that sees no key returns 0.
+//     the loop runs over the reachable range only.  The ragged tail (S not a
+//     multiple of the tile) is masked, so S needs no alignment.  A row that
+//     sees no key returns 0.
 //   * Q, K and V are read in their (B, S, heads, dh) layout through strides,
 //     so the wrapper makes no transposed copy (the TPU wrapper transposes).
 //
-// Two bodies, one per input type:
+// Three bodies; the wrapper picks one from the dtype, the head dim and the
+// alignment of q, k and v (kernels/flash_attention/kernel.py:select_body):
 //
-//   * bf16 (the serving path): tensor cores through mma.sync m16n8k16 (bf16
-//     in, fp32 accumulate).  Each of the 4 warps owns 16 query rows.  Q, K and
-//     V tiles are staged in shared memory as bf16 with 16-byte loads and
-//     stores (rows padded by 8 elements so the fragment loads are free of
-//     bank conflicts); Q's fragments are read from there one 16-wide k-step
-//     at a time, so only the O accumulator (dh / 2 floats a thread) stays in
-//     registers across the KV loop, and V's fragments come from
-//     ldmatrix.trans.  The score accumulators are
-//     rescaled, exponentiated and repacked in registers as the A operand of
-//     the PV product, so the probabilities never touch shared memory.  They
-//     are rounded to bf16 for PV, as the reference casts its probabilities to
-//     v's type.
+//   * sm90 (bf16, dh 128 and 256, 16-byte aligned bases and strides, a
+//     scale > 0: the serving path).  Warp-specialised: one producer warp
+//     issues TMA loads and two consumer warpgroups run wgmma.  The CTAs are
+//     persistent, one an SM, and walk the query tiles latest first (the
+//     longest under a causal mask), so the producer loads the next tile's Q
+//     and K/V while the consumers finish this one.  Q has one buffer,
+//     released as soon as the tile's last Q K^T is done; K and V come
+//     through a ring of 2 stages; every buffer is a TMA tile with full /
+//     empty mbarriers, and the two consumer warpgroups share every K and V
+//     tile.  The tensor maps are 4-D, [dh, heads, S, B] over the given
+//     strides, with a box of one head x rows x a 64-element (128-byte)
+//     column slab and the 128-byte swizzle that wgmma reads; TMA fills rows
+//     past S with zeros.  S = Q K^T is wgmma m64nBKk16 with Q and K both
+//     K-major in shared memory; O += P V is wgmma m64n128k16 with P in
+//     registers (the score accumulators, exponentiated and repacked to bf16
+//     in place: the accumulator layout is the register-A layout) and V
+//     MN-major in shared memory.  The softmax runs in the log2 domain on
+//     the raw scores (scale * log2(e) folded into one FMA before ex2).
+//     Each consumer warpgroup classifies every KV tile against its 64 rows:
+//     a tile that the mask leaves wholly visible skips the mask, one it
+//     leaves wholly hidden skips the products, and only edge tiles are
+//     masked, each row against the one run of keys it sees (two compares
+//     an element).  O leaves through its own shared-memory buffer and a TMA
+//     store that the next tile does not wait for.  Registers bound the
+//     tiling: ptxas gives this kernel 168 a thread (see Sm90::kThreads), so
+//     at dh 128 each warpgroup owns 64 rows of a 128-row tile with BK 128,
+//     and at dh 256 the two warpgroups share 64 rows and split O's columns.
+//   * mma (bf16, any other head dim or unaligned inputs): tensor cores
+//     through mma.sync m16n8k16.  A CTA of 4 warps owns a 64-row query tile;
+//     each warp owns 16 rows.  Q, K and V tiles are staged in shared memory
+//     with 16-byte loads where the inputs allow (rows padded by 8 elements
+//     so the fragment loads are free of bank conflicts), else one element
+//     at a time; V's fragments come from ldmatrix.trans and the scores stay
+//     in registers as the A operand of the PV product.
 //   * fp32: the same tiling on the fp32 FMA units (no tensor-core type keeps
 //     fp32's 2e-5 agreement), 128 threads as 16 row groups x 8 column lanes,
 //     with Q, K, V and the probability tile staged in shared memory as fp32.
 //
-// Head dims: every one the model registry uses (16, 32, 64, 80, 120, 128,
-// 160, 256).  Each body is compiled for the head dim rounded up to 16 (the
-// mma k-step); a head dim below that width (120 -> 128) is zero-filled in
-// shared memory as it is loaded and masked when O is stored, so the wrapper
-// makes no padded copy.  Above 128 the tiles shrink so that registers and
-// shared memory still fit: 32-key tiles in the bf16 body (the O accumulator
-// alone is 128 registers a thread at dh 256) and 32-row query tiles in the
-// fp32 body.
+// Every body rounds the probabilities to v's type for the PV product, as
+// the reference casts its probabilities to v's type.
+//
+// Head dims: the mma and fp32 bodies take every one the model registry uses
+// (16, 32, 64, 80, 120, 128, 160, 256), compiled for the head dim rounded up
+// to 16 (the mma k-step); a head dim below that width (120 -> 128) is
+// zero-filled in shared memory as it is loaded and masked when O is stored.
+// Above 128 their tiles shrink so that registers and shared memory still
+// fit: 32-key tiles in the mma body and 32-row query tiles in the fp32 body.
 //
 // What bounds it: at the serving prefill shapes, bytes, just above the
 // operations.  qwen2-7b (B 4, S 512, H 28, K 4, dh 128, causal, bf16):
 // q, k, v read once and o written once are 34 MB, 10 us at 3.35 TB/s,
 // against 7.5 GFLOP, 7.6 us at 989 TFLOP/s.  recurrentgemma-9b (H 16, K 1,
-// dh 256, window 2048): 36 MB, 11 us, against 8.6 GFLOP, 8.7 us.  Neither
-// body gets near it: mma.sync reaches a fraction of the wgmma rate, the tile
-// loads are not overlapped with the products, K and V are loaded again for
-// every query tile of a head, and a tile on the causal diagonal computes
-// its masked half anyway.  wgmma, TMA with a ring of stages, and warp
-// specialisation are later work.
+// dh 256, window 2048): 36 MB, 11 us, against 8.6 GFLOP, 8.7 us.  The sm90
+// body still reloads K and V for every query tile of a head (from L2,
+// mostly), computes Q K^T and the softmax twice at dh 256 (once in each
+// warpgroup), and a consumer warpgroup waits for its own products before
+// its softmax: overlapping the softmax with the next tile's Q K^T inside a
+// warpgroup, packing a GQA group's heads into one tile, and clusters with
+// TMA multicast are later work.
 //
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <initializer_list>
+
 namespace {
 
+// The mma and fp32 bodies:
 constexpr int kBQ = 64;        // query rows per CTA (the fp32 body halves it above dh 128)
-constexpr int kBK = 64;        // keys per KV tile (the bf16 body halves it above dh 128)
+constexpr int kBK = 64;        // keys per KV tile (the mma body halves it above dh 128)
 constexpr int kThreads = 128;  // 4 warps
 
 struct Params {
@@ -172,7 +201,7 @@ __device__ __forceinline__ float softmax_step(float (&s)[kN], float& m, float& l
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// mma: bf16 through mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -455,25 +484,664 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// sm90: TMA + mbarrier ring, warp-specialised, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Arrive once and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that lasts
+// seconds is a fault of the pipeline: trap (the launch then fails) rather
+// than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > 2000000000ull)
+      __trap();
+  }
+}
+
+// One TMA tile of a 4-D tensor map into shared memory; completion is counted
+// on `bar` in bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets (all in 16-byte units), layout
+// type 1 (SWIZZLE_128B) in bits 62-63.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// A K-major operand: rows of 64 bf16 (128 bytes, one swizzle row), 8-row
+// groups 1024 bytes apart; the leading offset is unused.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return gmma_desc(addr, 16, 1024);
+}
+
+// An MN-major operand (V as B of P V): each k row (key) holds 64 bf16 of the
+// N (head-dim) axis in 128 bytes; 8-key groups are 1024 bytes apart (stride
+// offset) and the next 64 columns lie one slab further (leading offset).
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t slab_bytes) {
+  return gmma_desc(addr, slab_bytes, 1024);
+}
+
+#define WG_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x 128, fp32) += A (64 x 16) * B (16 x 128); A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16) * B (16 x 64); A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 in registers) * B (16 x 128); B
+// MN-major in shared memory (the transpose flag).
+__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_D8
+
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_ss_n128(d, da, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_ss_n64(d, da, db);
+}
+
+// Tile geometry and shared-memory layout (bytes) of the sm90 body.
+//
+// dh 128: each consumer warpgroup owns 64 query rows and all of O's 128
+// columns (64 accumulator registers a thread), so a query tile is 128 rows.
+// dh 256 (kSplitO): O's 256 columns would be 128 registers a thread, and
+// ptxas holds this kernel to 168 (see kThreads), so both warpgroups take the
+// same 64 rows and each owns 128 of O's columns; each computes the rows'
+// scores and softmax itself (the same numbers), which costs a second Q K^T
+// but keeps every register in place.
+template <int DH>
+struct Sm90 {
+  static constexpr bool kSplitO = DH == 256;
+  static constexpr int kBQ = kSplitO ? 64 : 128;    // query rows of a tile
+  static constexpr int kWGRows = kSplitO ? 0 : 64;  // row offset of warpgroup 1
+  static constexpr int kOCols = kSplitO ? 128 : DH; // O columns a warpgroup owns
+  static constexpr int kBK = DH == 128 ? 128 : 64;
+  static constexpr int kStages = 2;
+  static constexpr int kSlabs = DH / 64;      // 64-column (128-byte) slabs of a row
+  static constexpr int kQSlab = kBQ * 128;    // bytes of one slab of the Q tile
+  static constexpr int kKVSlab = kBK * 128;   // bytes of one slab of a K or V tile
+  static constexpr int kQBytes = kSlabs * kQSlab;
+  static constexpr int kKVBytes = kSlabs * kKVSlab;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;                // kStages K tiles
+  static constexpr int kV = kK + kStages * kKVBytes;     // kStages V tiles
+  static constexpr int kO = kV + kStages * kKVBytes;     // O, bf16, as Q's tile
+  static constexpr int kBar = kO + kQBytes;              // Q full / empty, K, V, empty
+  static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;  // + alignment
+  // Consumer warpgroups 0 and 1, and one producer warp.  ptxas allots 168
+  // registers a thread to this kernel (an SM sub-partition holds 3 of its
+  // 9 warps in 16384 registers).  It allotted the same to a whole producer
+  // warpgroup (384 threads), with or without setmaxnreg moving registers
+  // from the producer to the consumers, so one warp loads.
+  static constexpr int kThreads = 288;
+  static_assert(DH == 128 || DH == 256, "sm90 body: dh 128 or 256");
+  static_assert(kBytes <= 232448, "sm90 body: over the 227 KB a block may use");
+};
+
+enum TileClass { kHidden = 0, kEdge = 1, kVisible = 2 };
+
+// How the mask meets the tile of rows [r0, r0 + br) x keys [k0, k0 + bk):
+// wholly hidden (no row sees a key), wholly visible (every row before S sees
+// every key, and no key lies past S), or an edge tile.  Rows past S are
+// never stored, so they do not make a tile an edge tile.
+__device__ __forceinline__ TileClass tile_class(const Params& p, int r0, int br, int k0,
+                                                int bk) {
+  const int r1 = r0 + br - 1, k1 = k0 + bk - 1;
+  if (r0 >= p.S || k0 >= p.S) return kHidden;
+  const int rl = min(r1, p.S - 1), kl = min(k1, p.S - 1);
+  if (p.causal && k0 > rl) return kHidden;
+  if (p.window && r0 - kl >= p.window) return kHidden;
+  if (p.chunk && (kl / p.chunk < r0 / p.chunk || k0 / p.chunk > rl / p.chunk)) return kHidden;
+  bool all = k1 < p.S;
+  if (p.causal) all = all && k1 <= r0;
+  if (p.window) all = all && r1 - k0 < p.window;
+  if (p.chunk)
+    all = all && k0 / p.chunk == k1 / p.chunk && r0 / p.chunk == r1 / p.chunk &&
+          k0 / p.chunk == r0 / p.chunk;
+  return all ? kVisible : kEdge;
+}
+
+// The keys [*lo, *hi] that query row qi sees: every mask of Params leaves
+// one contiguous run of keys (none, lo > hi, for a row at or past S).  Equal
+// to visible(p, qi, kj) for 0 <= kj, so an edge tile costs two compares an
+// element and no division.
+__device__ __forceinline__ void row_keys(const Params& p, int qi, int* lo, int* hi) {
+  *lo = 0;
+  *hi = p.S - 1;
+  if (qi >= p.S) {
+    *lo = 1;
+    *hi = 0;
+    return;
+  }
+  if (p.causal) *hi = min(*hi, qi);
+  if (p.window) *lo = max(*lo, qi - p.window + 1);
+  if (p.chunk) {
+    const int c0 = (qi / p.chunk) * p.chunk;
+    *lo = max(*lo, c0);
+    *hi = min(*hi, c0 + p.chunk - 1);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Barrier `id` over `threads` threads (a multiple of 32); id 0 is __syncthreads.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One TMA tile from shared memory into a 4-D tensor map (clipped at its
+// bounds), as a bulk group of the issuing thread.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One query tile of the grid-stride walk: tiles are numbered latest query
+// tile first (they see the most keys under a causal mask), then by (b, h).
+struct Sm90Tile {
+  int q0, h, b, kvh, kt0, kt1;
+};
+
+template <int DH>
+__device__ __forceinline__ Sm90Tile sm90_tile(const Params& p, int tile) {
+  using C = Sm90<DH>;
+  const int n_qt = (p.S + C::kBQ - 1) / C::kBQ;
+  const int bh = tile % (p.B * p.H);
+  Sm90Tile t;
+  t.q0 = (n_qt - 1 - tile / (p.B * p.H)) * C::kBQ;
+  t.h = bh % p.H;
+  t.b = bh / p.H;
+  t.kvh = t.h / (p.H / p.K);
+  int lo, hi;
+  kv_range(p, t.q0, C::kBQ, &lo, &hi);
+  t.kt0 = lo / C::kBK;
+  t.kt1 = (hi + C::kBK - 1) / C::kBK;
+  return t;
+}
+
+// Persistent: gridDim.x CTAs (at most one an SM) walk the query tiles, so
+// the producer loads the next tile's Q and K/V while the consumers finish
+// this tile's softmax, P V and epilogue.
+template <int DH>
+__global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
+    flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o, const Params p) {
+  using C = Sm90<DH>;
+  constexpr int BK = C::kBK;
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_sm90[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  const uint32_t raw = smem_u32(smem_sm90);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base + C::kQ, sK = base + C::kK, sV = base + C::kV, sO = base + C::kO;
+  const uint32_t bar_q_full = base + C::kBar;
+  const uint32_t bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_full_k = bar_q_empty + 8;             // + 8 * stage
+  const uint32_t bar_full_v = bar_full_k + 8 * kStages;
+  const uint32_t bar_empty = bar_full_v + 8 * kStages;
+  const int n_tiles = (p.S + C::kBQ - 1) / C::kBQ * p.B * p.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full_k + 8 * s, 1);
+      mbar_init(bar_full_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warp: one thread issues every load of the CTA
+    if (threadIdx.x == 256) {
+      int it = 0;  // K/V tiles loaded, over all of this CTA's query tiles
+      for (int tile = blockIdx.x, n = 0; tile < n_tiles; tile += gridDim.x, ++n) {
+        const Sm90Tile t = sm90_tile<DH>(p, tile);
+        if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);  // the last tile's Q K^T is done
+        mbar_expect_tx(bar_q_full, C::kQBytes);
+#pragma unroll
+        for (int c = 0; c < C::kSlabs; ++c)
+          tma_load_4d(sQ + c * C::kQSlab, &tm_q, bar_q_full, c * 64, t.h, t.q0, t.b);
+        for (int kt = t.kt0; kt < t.kt1; ++kt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(bar_empty + 8 * s, ((it / kStages) - 1) & 1);
+          const uint32_t fk = bar_full_k + 8 * s, fv = bar_full_v + 8 * s;
+          mbar_expect_tx(fk, C::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < C::kSlabs; ++c)
+            tma_load_4d(sK + s * C::kKVBytes + c * C::kKVSlab, &tm_k, fk, c * 64, t.kvh,
+                        kt * BK, t.b);
+          mbar_expect_tx(fv, C::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < C::kSlabs; ++c)
+            tma_load_4d(sV + s * C::kKVBytes + c * C::kKVSlab, &tm_v, fv, c * 64, t.kvh,
+                        kt * BK, t.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64) of each
+    // tile and O's columns [64 o_slab, 64 o_slab + kOCols)
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    constexpr int kON = C::kOCols / 128;  // 128-column O accumulators
+    const int o_slab = C::kSplitO ? 2 * wg : 0;  // first 64-column slab of this O
+    const uint32_t q_wg = sQ + C::kWGRows * wg * 128;  // this warpgroup's rows of each slab
+    const uint32_t o_wg = sO + C::kWGRows * wg * 128;
+    const float sl2 = p.scale * 1.4426950408889634f;  // exp(x scale) = 2^(x sl2); scale > 0
+    int it = 0;
+    for (int tile = blockIdx.x, n = 0; tile < n_tiles; tile += gridDim.x, ++n) {
+      const Sm90Tile tl = sm90_tile<DH>(p, tile);
+      const int r0 = tl.q0 + C::kWGRows * wg;
+      float o[kON][64];
+#pragma unroll
+      for (int nn = 0; nn < kON; ++nn)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[nn][i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+      mbar_wait(bar_q_full, n & 1);
+      for (int kt = tl.kt0; kt < tl.kt1; ++kt, ++it) {
+        const int s = it % kStages;
+        const uint32_t ph = (it / kStages) & 1;
+        const int k0 = kt * BK;
+        const TileClass cls = tile_class(p, r0, 64, k0, BK);
+        mbar_wait(bar_full_k + 8 * s, ph);
+        // S = Q K^T (64 x BK, fp32), one 16-wide k-step of the head dim at a
+        // time.  The descriptors are rebuilt from opaque bases every tile:
+        // hoisted out of the loop, the 2 x DH / 16 of them would hold
+        // registers that O needs.
+        if (cls != kHidden) {
+          float sacc[BK / 2];
+#pragma unroll
+          for (int j = 0; j < BK / 2; ++j) sacc[j] = 0.f;
+          uint32_t qa = q_wg, ka = sK + s * C::kKVBytes;
+          asm volatile("" : "+r"(qa), "+r"(ka));
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk) {
+            const uint32_t off = (kk % 4) * 32;
+            wgmma_qk<BK>(sacc, desc_k_major(qa + (kk / 4) * C::kQSlab + off),
+                         desc_k_major(ka + (kk / 4) * C::kKVSlab + off));
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(sacc);
+          if (kt + 1 == tl.kt1) {  // this warp reads Q no more: the next tile's may load
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_q_empty);
+          }
+
+          // Online softmax in the log2 domain, on the raw scores (sl2 > 0,
+          // so their max is the max of the scaled ones): p = 2^(s sl2 - m sl2).
+          // Entry 4j + 2rr + e of the accumulator is row g + 8rr, key
+          // 8j + 2t + e of the tile.
+          if (cls == kEdge) {
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              // this thread's row 16 warp + g + 8 rr sees keys [lo, hi] of the tile, less 2t
+              int lo, hi;
+              row_keys(p, r0 + 16 * warp + g + 8 * rr, &lo, &hi);
+              lo -= k0 + 2 * t;
+              hi -= k0 + 2 * t;
+#pragma unroll
+              for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  if (8 * j + e < lo || 8 * j + e > hi) sacc[4 * j + 2 * rr + e] = -INFINITY;
+            }
+          }
+          float alpha[2];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+              mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * rr], sacc[4 * j + 2 * rr + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[rr], mx);
+            // A row that has seen no key yet: 2^(-inf - 0) keeps p and alpha 0.
+            const float m_use = m_new == -INFINITY ? 0.f : m_new * sl2;
+            alpha[rr] = ex2(m[rr] * sl2 - m_use);
+            float rs = 0.f;
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = sacc[4 * j + 2 * rr + e];
+                x = ex2(fmaf(x, sl2, -m_use));
+                rs += x;
+              }
+            l[rr] = l[rr] * alpha[rr] + rs;  // this lane's columns; summed at the end
+            m[rr] = m_new;
+          }
+#pragma unroll
+          for (int nn = 0; nn < kON; ++nn)
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) o[nn][4 * j + e] *= alpha[e / 2];
+
+          // P as the register A operand of P V: k-step kk covers keys
+          // [16kk, 16kk + 16), i.e. accumulator chunks 2kk and 2kk + 1.
+          uint32_t pa[BK / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              pa[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+
+          // O += P V
+          mbar_wait(bar_full_v + 8 * s, ph);
+          const uint32_t v_tile = sV + s * C::kKVBytes;
+#pragma unroll
+          for (int nn = 0; nn < kON; ++nn) fence_regs(o[nn]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int nn = 0; nn < kON; ++nn)
+              wgmma_rs_n128_mn(
+                  o[nn], pa[kk],
+                  desc_mn_major(v_tile + (o_slab + 2 * nn) * C::kKVSlab + kk * 16 * 128,
+                                C::kKVSlab));
+          wgmma_commit();
+          wgmma_wait_all();
+#pragma unroll
+          for (int nn = 0; nn < kON; ++nn) fence_regs(o[nn]);
+        } else {
+          if (kt + 1 == tl.kt1) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(bar_q_empty);
+          }
+          mbar_wait(bar_full_v + 8 * s, ph);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      }
+
+      // O / l in bf16, staged with the 128-byte swizzle in the O buffer
+      // (this warpgroup's rows and slabs), then stored by TMA one slab at a
+      // time into (B, S, H, dh), without waiting; TMA clips the rows past S.
+      float inv_l[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float lt = l[rr];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        inv_l[rr] = lt > 0.f ? 1.f / lt : 0.f;
+      }
+      if (threadIdx.x % 128 == 0)  // the last tile's store has read the buffer
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      named_bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int nn = 0; nn < kON; ++nn)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int r = 16 * warp + g + 8 * rr;  // r % 8 == g
+            const uint32_t addr = o_wg + (o_slab + 2 * nn + j / 8) * C::kQSlab + r * 128 +
+                                  (((j % 8) ^ g) * 16) + 4 * t;
+            st_shared_u32(addr, pack_bf16(o[nn][4 * j + 2 * rr] * inv_l[rr],
+                                          o[nn][4 * j + 2 * rr + 1] * inv_l[rr]));
+          }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_bar_sync(2 + wg, 128);
+      if (threadIdx.x % 128 == 0 && r0 < p.S) {
+#pragma unroll
+        for (int c = o_slab; c < o_slab + 2 * kON; ++c)
+          tma_store_4d(&tm_o, o_wg + c * C::kQSlab, c * 64, tl.h, r0, tl.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+    if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-int launch(Kernel kernel, int bq, size_t smem_bytes, const Params& p, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+// Raises kKernel's dynamic shared-memory limit to `bytes` once for each
+// device (the attribute belongs to the device's context), not every launch.
+template <auto kKernel>
+cudaError_t allow_smem(size_t bytes) {
+  static std::atomic<uint64_t> done{0};  // one bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <auto kKernel>
+int launch(int bq, size_t smem_bytes, const Params& p, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<kKernel>(smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.S + bq - 1) / bq, p.H, p.B);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(p);
+  kKernel<<<grid, kThreads, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DHP>
 int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 1)
-    return launch(flash_attn_bf16_kernel<DHP>, kBQ, SmemBf16<DHP>::kBytes, p, stream);
-  return launch(flash_attn_f32_kernel<DHP>, Smem32<DHP>::kBQRows, Smem32<DHP>::kBytes, p,
-                stream);
+    return launch<flash_attn_bf16_kernel<DHP>>(kBQ, SmemBf16<DHP>::kBytes, p, stream);
+  return launch<flash_attn_f32_kernel<DHP>>(Smem32<DHP>::kBQRows, Smem32<DHP>::kBytes, p,
+                                            stream);
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so the
+// library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, S, heads, dh) tensor given by its strides (in elements) as a
+// 4-D tensor map [dh, heads, S, B]; the box is one head x `rows` rows x a
+// 64-element slab, 128-byte swizzled.  TMA fills what lies past S with zeros.
+int encode_map(CUtensorMap* map, const void* ptr, int dh, int heads, int S, int B,
+               long long s_h, long long s_s, long long s_b, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_h) * 2,
+                                 static_cast<cuuint64_t>(s_s) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+// The current device's SM count, asked once for each device.
+cudaError_t multiprocessors(int* sms) {
+  static std::atomic<int> counts[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int n = dev < 64 ? counts[dev].load() : 0;
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) counts[dev].store(n);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
+template <int DH>
+int launch_sm90(const Params& p, cudaStream_t stream) {
+  using C = Sm90<DH>;
+  CUtensorMap tq, tk, tv, to;
+  int err = encode_map(&tq, p.q, DH, p.H, p.S, p.B, p.q_sh, p.q_ss, p.q_sb, C::kBQ);
+  if (!err) err = encode_map(&tk, p.k, DH, p.K, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, C::kBK);
+  if (!err) err = encode_map(&tv, p.v, DH, p.K, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, C::kBK);
+  if (!err)
+    err = encode_map(&to, p.o, DH, p.H, p.S, p.B, DH, static_cast<long long>(p.H) * DH,
+                     static_cast<long long>(p.S) * p.H * DH, 64);
+  if (err) return err;
+  const cudaError_t e = allow_smem<flash_attn_sm90_kernel<DH>>(C::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = static_cast<long long>((p.S + C::kBQ - 1) / C::kBQ) * p.H * p.B;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t e2 = multiprocessors(&sms);
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  flash_attn_sm90_kernel<DH><<<blocks, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, to, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -481,7 +1149,8 @@ int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
 // q (B,S,H,dh), k/v (B,S,K,dh) given by strides (in elements, last dim
 // contiguous); o (B,S,H,dh) contiguous.  dtype codes: 0 = float32,
 // 1 = bfloat16 (q, k, v and o share it).  head_dim is one of 16, 32, 64, 80,
-// 120, 128, 160, 256.  Returns cudaGetLastError() after the launch.
+// 120, 128, 160, 256.  The mma (bf16) and fp32 bodies.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int K, long long q_sb,
                                    long long q_ss, long long q_sh, long long k_sb,
@@ -503,6 +1172,35 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 128: return launch_dh<128>(p, dtype, st);
     case 160: return launch_dh<160>(p, dtype, st);
     case 256: return launch_dh<256>(p, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The sm90 body: bf16 q, k, v and o, laid out as for flash_attention_fwd,
+// head_dim 128 or 256; the bases of q, k and v and their batch, sequence and
+// head strides are multiples of 16 bytes (TMA's rule); scale > 0.  Returns
+// cudaErrorInvalidValue on anything else, else cudaGetLastError() after the
+// launch.
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                        int B, int S, int H, int K, long long q_sb,
+                                        long long q_ss, long long q_sh, long long k_sb,
+                                        long long k_ss, long long k_sh, long long v_sb,
+                                        long long v_ss, long long v_sh, int causal,
+                                        int window, int chunk, float scale, int head_dim,
+                                        void* stream) {
+  const Params p{q,    k,    v,    o,      B,      S,     H,    K,     q_sb,    q_ss,
+                 q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,  v_sh, causal, window, chunk,
+                 scale, head_dim};
+  for (const void* ptr : {q, k, v})
+    if (!aligned16(ptr)) return static_cast<int>(cudaErrorInvalidValue);
+  for (long long s : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})
+    if (s <= 0 || s % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || S <= 0 || K <= 0 || H % K || !(scale > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 128: return launch_sm90<128>(p, st);
+    case 256: return launch_sm90<256>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

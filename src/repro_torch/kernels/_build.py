@@ -54,16 +54,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's output for ``library_path(name)``, kept beside it."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names: list[str] | None = None) -> dict[str, str]:
-    """Compile every named source whose library is missing, all at once.
+    """Compile every named source whose library (or its log) is missing,
+    all at once.
 
     Returns the compiler's output per compiled source (``-Xptxas=-v``
-    reports registers, shared memory and spills); raises if any fails."""
+    reports registers, shared memory and spills), and keeps it in
+    ``log_path(name)``; raises if any fails."""
     names = sources() if names is None else names
     jobs = {}
     for name in names:
         so = library_path(name)
-        if so.exists():
+        if so.exists() and log_path(name).exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -78,6 +85,7 @@ def build(names: list[str] | None = None) -> dict[str, str]:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
+            so.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"

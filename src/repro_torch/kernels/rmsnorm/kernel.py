@@ -3,6 +3,17 @@
 The kernel is ``csrc/rmsnorm.cu``; it replaces the TPU kernel
 ``rmsnorm_pallas`` and is bounded by bytes (one read of x and the residual,
 one write of y).  Its plain version is ``ref.rmsnorm_ref``.
+
+Two bodies, chosen by ``select_body`` from the shape, the dtypes and the
+alignment (never by trying one and falling back):
+
+* ``one_read``: rows of 16-byte vectors, at most 32 a lane (bf16 up to D
+  8192, fp32 up to 4096: every served width): a warp per row, the row read
+  once into registers.
+* ``generic``: any other row: a CTA per row, read twice.
+
+``rmsnorm_cuda.launches`` counts every launch and
+``rmsnorm_cuda.launches_by_body`` each body's.
 """
 from __future__ import annotations
 
@@ -13,16 +24,66 @@ import torch
 from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BODIES = ("one_read", "generic")
+# 16-byte vectors a lane of the one-read body (its template instances)
+VECTORS_PER_LANE = (1, 2, 4, 8, 16, 32)
+
+
+_SIZES = {torch.float32: 4, torch.bfloat16: 2}
+_GENERIC = ("generic", 0)
+
+
+_ENTRY = []   # the bound C entry point, once loaded: the launch path is hot
 
 
 def _entry():
-    fn = _build.load("rmsnorm").rmsnorm_fwd
-    if fn.argtypes is None:
+    if not _ENTRY:
+        fn = _build.load("rmsnorm").rmsnorm_fwd
         P = ctypes.c_void_p
         fn.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int, P]
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, P]
         fn.restype = ctypes.c_int
-    return fn
+        _ENTRY.append(fn)
+    return _ENTRY[0]
+
+
+def select_body(x: torch.Tensor, scale: torch.Tensor,
+                residual: torch.Tensor | None = None) -> tuple[str, int]:
+    """(body, vectors a lane) for these inputs: ``("one_read", n)`` with n
+    one of ``VECTORS_PER_LANE``, or ``("generic", 0)``.
+
+    A pure function of dtype, shape and base addresses, on any device.
+    Raises on what no body takes: another dtype, a scale that does not
+    match x's last dim, a residual unlike x, non-contiguous inputs."""
+    x_dtype, s_dtype = x.dtype, scale.dtype
+    if x_dtype not in _DTYPES or s_dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm_cuda takes float32/bfloat16, got x "
+                        f"{x_dtype}, scale {s_dtype}")
+    shape = x.shape
+    if not shape or scale.shape != shape[-1:]:
+        raise ValueError(f"scale {tuple(scale.shape)} does not match x "
+                         f"{tuple(shape)}")
+    device = x.device
+    if scale.device != device or (residual is not None
+                                  and residual.device != device):
+        raise ValueError("rmsnorm_cuda operands must share one device")
+    if residual is not None and (residual.shape != shape
+                                 or residual.dtype != x_dtype):
+        raise ValueError("residual must match x in shape and dtype")
+    if not (x.is_contiguous() and scale.is_contiguous()
+            and (residual is None or residual.is_contiguous())):
+        raise ValueError("rmsnorm_cuda takes contiguous tensors")
+    D = shape[-1]
+    row_bytes = D * _SIZES[x_dtype]
+    # 16-byte vectors of x, scale and the residual, at most 32 a lane
+    if (D == 0 or row_bytes % 16 or D * _SIZES[s_dtype] % 16
+            or row_bytes > 16 * 32 * VECTORS_PER_LANE[-1]
+            or x.data_ptr() % 16 or scale.data_ptr() % 16
+            or (residual is not None and residual.data_ptr() % 16)):
+        return _GENERIC
+    need = (row_bytes + 16 * 32 - 1) // (16 * 32)
+    return "one_read", 1 << (need - 1).bit_length()
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
@@ -33,37 +94,35 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     like x.  Output in ``x.dtype``.  Raises on anything else."""
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_cuda takes CUDA tensors, got {x.device}")
-    if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
-        raise TypeError(f"rmsnorm_cuda takes float32/bfloat16, got x "
-                        f"{x.dtype}, scale {scale.dtype}")
-    if x.ndim < 1 or scale.shape != x.shape[-1:]:
-        raise ValueError(f"scale {tuple(scale.shape)} does not match x "
-                         f"{tuple(x.shape)}")
-    tensors = [x, scale]
-    if residual is not None:
-        if residual.shape != x.shape or residual.dtype != x.dtype:
-            raise ValueError("residual must match x in shape and dtype")
-        tensors.append(residual)
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError("rmsnorm_cuda operands must share one device")
-        if not t.is_contiguous():
-            raise ValueError("rmsnorm_cuda takes contiguous tensors")
+    body, vpl = select_body(x, scale, residual)
     y = torch.empty_like(x)
     D = x.shape[-1]
     rows = x.numel() // D if D else 0
     if rows == 0:
         return y
-    fn = _entry()
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), scale.data_ptr(),
-                 None if residual is None else residual.data_ptr(),
-                 y.data_ptr(), rows, D, eps, _DTYPES[x.dtype],
-                 _DTYPES[scale.dtype], torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), scale.data_ptr(),
+            None if residual is None else residual.data_ptr(), y.data_ptr(),
+            rows, D, eps, _DTYPES[x.dtype], _DTYPES[scale.dtype], vpl)
+    # A decode step launches this some 50 times, each bound by the host's
+    # launch path: enter a device guard only when x is not on the current
+    # device.
+    if x.device.index == torch.cuda.current_device():
+        err = _entry()(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = _entry()(*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"rmsnorm kernel launch failed ({body} body): "
+                           f"CUDA error {err}")
     rmsnorm_cuda.launches += 1
+    rmsnorm_cuda.launches_by_body[body] += 1
     return y
 
 
-rmsnorm_cuda.launches = 0
+def reset_counts() -> None:
+    """Set the launch counts (total and by body) to 0."""
+    rmsnorm_cuda.launches = 0
+    rmsnorm_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+reset_counts()

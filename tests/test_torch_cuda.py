@@ -2,8 +2,11 @@
 
 Each kernel against its plain PyTorch version on the same inputs, at the
 JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32,
-the SSD scan 2e-3 fp32 / 5e-2 bf16), and the serving path on the card against the same path on the CPU.  This file imports no JAX, so it
-runs on a machine that has only PyTorch:
+the SSD scan 2e-3 fp32 / 5e-2 bf16), and the serving path on the card
+against the same path on the CPU.  Each body of a kernel is held on its own
+(flash attention's sm90, mma and fp32 bodies, rmsnorm's one-read and generic
+bodies), and the launch counts by body show which one ran.  This file
+imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -117,6 +120,111 @@ def test_flash_kernel_reads_unaligned_inputs(cuda, dtype, dh):
     assert q.data_ptr() % 16
     assert_allclose(f32(flash_attention_cuda(q, k, v)), f32(mha_ref(q, k, v)),
                     **tol(dtype))
+
+
+# the sm90 body (bf16, dh 128 and 256): ragged S, GQA 7:1 and MQA 16:1,
+# window and chunk edges inside tiles, no causal mask
+SM90_CASES = [
+    (1, 200, 28, 4, 128, dict(causal=True)),
+    (1, 1000, 28, 4, 128, dict(causal=True)),
+    (1, 200, 16, 1, 256, dict(causal=True)),
+    (1, 1000, 16, 1, 256, dict(causal=True, window=2048)),
+    (2, 512, 28, 4, 128, dict(causal=True, window=100)),
+    (1, 1000, 16, 1, 256, dict(causal=True, window=300)),
+    (1, 512, 28, 4, 128, dict(causal=True, chunk=96)),
+    (1, 1000, 16, 1, 256, dict(causal=True, chunk=128)),
+    (2, 300, 28, 4, 128, dict(causal=False)),
+    (1, 200, 16, 1, 256, dict(causal=False)),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", SM90_CASES)
+def test_flash_sm90_body_matches_plain(cuda, B, S, H, K, dh, kw):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(B, S, n, dh, generator=g, device=cuda).bfloat16()
+               for n in (H, K, K))
+    before = flash_attention_cuda.launches_by_body["sm90"]
+    got = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_by_body["sm90"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_allclose(f32(got), f32(mha_ref(q, k, v, **kw)),
+                    **tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("H,K,dh", [(28, 4, 128), (16, 1, 256)])
+def test_flash_sm90_reads_fused_projection_views(cuda, H, K, dh):
+    """bf16 q/k/v as 16-byte aligned views of one fused projection: TMA
+    reads them through their strides."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 300, (H + 2 * K) * dh, generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = (t.unflatten(-1, (-1, dh))
+               for t in qkv.split([H * dh, K * dh, K * dh], dim=-1))
+    assert not q.is_contiguous()
+    before = flash_attention_cuda.launches_by_body["sm90"]
+    got = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_by_body["sm90"] == before + 1
+    assert_allclose(f32(got), f32(mha_ref(q, k, v)), **tol(torch.bfloat16))
+
+
+def test_flash_launches_count_by_body(cuda):
+    """Each input takes the body its dtype, head dim and alignment pick."""
+    def make(dh, dtype, offset=0):
+        t = torch.ones(1, 64, 2 * dh + offset, device=cuda, dtype=dtype)
+        return t[..., offset:].unflatten(-1, (2, dh))
+
+    for q, body in [(make(128, torch.bfloat16), "sm90"),
+                    (make(256, torch.bfloat16), "sm90"),
+                    (make(128, torch.float32), "fp32"),
+                    (make(80, torch.bfloat16), "mma"),
+                    (make(128, torch.bfloat16, offset=1), "mma")]:
+        before = dict(flash_attention_cuda.launches_by_body)
+        total = flash_attention_cuda.launches
+        flash_attention_cuda(q, q, q)
+        torch.cuda.synchronize()
+        after = flash_attention_cuda.launches_by_body
+        assert flash_attention_cuda.launches == total + 1
+        assert {b: after[b] - before[b] for b in after} == {
+            b: int(b == body) for b in after}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [1, 4, 2048])
+@pytest.mark.parametrize("D", [768, 1536, 3584, 4096])
+def test_rmsnorm_one_read_body_matches_plain(cuda, D, rows, dtype):
+    """The served widths (mamba2-130m 768 and its gated norm's 1536,
+    qwen2-7b 3584, recurrentgemma-9b 4096), with and without a residual."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, r = (torch.randn(rows, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    s = torch.randn(D, generator=g, device=cuda).to(dtype)
+    for res in (None, r):
+        before = rmsnorm_cuda.launches_by_body["one_read"]
+        got = rmsnorm_cuda(x, s, residual=res)
+        torch.cuda.synchronize()
+        assert rmsnorm_cuda.launches_by_body["one_read"] == before + 1
+        assert got.dtype == dtype
+        assert_allclose(f32(got), f32(rmsnorm_ref(x, s, residual=res)),
+                        **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [4, 2048])
+def test_rmsnorm_odd_width_takes_generic_body(cuda, dtype, rows):
+    """D 130: a row that is not of 16-byte vectors."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, r = (torch.randn(rows, 130, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    s = torch.randn(130, generator=g, device=cuda).to(dtype)
+    for res in (None, r):
+        before = rmsnorm_cuda.launches_by_body["generic"]
+        got = rmsnorm_cuda(x, s, residual=res)
+        torch.cuda.synchronize()
+        assert rmsnorm_cuda.launches_by_body["generic"] == before + 1
+        assert_allclose(f32(got), f32(rmsnorm_ref(x, s, residual=res)),
+                        **tol(dtype))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -354,3 +354,13 @@ def test_build_keys_each_library_on_its_sources():
         assert path.name.startswith(name + "-") and path.suffix == ".so"
     assert len(set(paths.values())) == 4
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_keeps_each_log_beside_its_library():
+    """The compiler's output (ptxas registers and spills) lives beside the
+    library it built, so a run that finds the library built reads it."""
+    from repro_torch.kernels import _build
+    for name in _build.sources():
+        log = _build.log_path(name)
+        assert log == _build.library_path(name).with_suffix(".log")
+        assert log.parent == _build.BUILD_DIR
