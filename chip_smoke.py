@@ -9,28 +9,42 @@ Phases, each printed as one JSON line:
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once, into ``build/repro_torch``), with ptxas's
    registers and spills (kept beside each library, so a library built
-   before is reported too).  Fails if the sm90 flash-attention body spills
-   or ptxas ignored a ``setmaxnreg`` (C7508).
+   before is reported too).  Fails if the sm90 flash-attention body or a
+   kernel of the SSD mma or RG-LRU segmented bodies spills, or ptxas
+   ignored a ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
-   scan 1e-4 in fp32, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and the final
-   state).  Flash attention at every head dim of the config registry, and
-   the sm90 body (bf16, dh 128 and 256) at ragged S, GQA 7:1, MQA 16:1,
-   window and chunk edges, no causal mask and views of a fused projection;
-   rmsnorm's one-read body at D 768, 1536, 3584 and 4096 and the generic
-   body at an odd width.  Each case records the body that ran.  Then
-   kernel, plain and library (``F.rms_norm`` / SDPA; none computes the
-   RG-LRU or the SSD scan) times at the serving shapes of qwen2-7b,
-   recurrentgemma-9b and mamba2-130m beside the least time the card could
-   take (bytes over 3.35 TB/s or operations over the peak rate of their
-   type).  ``ms``, ``plain_ms`` and ``library_ms`` are device time: the
-   kernels one call runs, summed under ``torch.profiler`` over 20 calls
-   after warm-up, per call; ``event_ms`` and ``library_event_ms`` are the
-   CUDA-event median of 30 calls, which includes the host's launch path
-   when that is longer than the kernel.  ``previous_body_ms`` times, on
-   the same inputs, the body these shapes took before the sm90 and
-   one-read bodies (flash attention's mma body, rmsnorm's generic body),
-   called through the C entry point directly.
+   scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
+   the final state).  Flash attention at every head dim of the config
+   registry, and the sm90 body (bf16, dh 128 and 256) at ragged S, GQA 7:1,
+   MQA 16:1, window and chunk edges, no causal mask and views of a fused
+   projection; rmsnorm's one-read body at D 768, 1536, 3584 and 4096 and
+   the generic body at an odd width; every RG-LRU case (S 1, 37, 512 and
+   2176, W 4096 and 200, with and without h0) on both bodies (segmented
+   against ``rglru_assoc``, serial against ``rglru_sequential``) and every
+   SSD case on each body that takes it (bf16: mma and fma; fp32: fma), with
+   each of the mma body's three phase kernels against its plain phase.
+   Each case records the body that ran.  Then kernel, plain and library
+   (``F.rms_norm`` / SDPA; none computes the RG-LRU or the SSD scan) times
+   at the serving shapes of qwen2-7b, recurrentgemma-9b (and its decode
+   shape for the RG-LRU) and mamba2-130m beside the least time the card
+   could take (bytes over 3.35 TB/s or operations over the peak rate of
+   their type; the SSD row also gives the fp32-operations bound of its fma
+   body).  The mma body's chunk scan is also held, at one bf16 step of y
+   (2^-7), against its plain phase with the fp32 operands split as the
+   kernel splits them (a scan that dropped the lo halves fails there).
+   ``ms``,
+   ``plain_ms`` and ``library_ms`` are device time: the kernels one call
+   runs, summed under ``torch.profiler`` over 20 calls after warm-up, per
+   call; ``event_ms`` and ``library_event_ms`` are the CUDA-event median of
+   30 calls, which includes the host's launch path when that is longer than
+   the kernel.  ``previous_body_ms`` times, on the same inputs, the body
+   these shapes took before this round of redesigns (flash attention's mma
+   body, rmsnorm's generic body, the SSD scan's fma body, the RG-LRU's
+   serial body), called through the C entry point directly; the SSD row
+   times each phase too.  Each kernel's ``profiler_windows`` counts its
+   timings and the profiler windows they took (more windows than timings:
+   the profiler dropped a window, which is then taken again).
 3. ``serve_check``, once per served arch, at full width, fp32, random
    weights from the seed: the last-position logits of ``prefill`` and 8
    ``decode_step``s against ``forward_train`` on the same tokens, within
@@ -40,13 +54,19 @@ Phases, each printed as one JSON line:
    mamba2-130m at all 24 layers, batch 2, a 1000-token prompt (not a
    multiple of the 128-token chunk, so the SSD kernel pads its last chunk
    and hands its final state to the decode steps).
+   Then ``ssd_bodies``: one bf16 mamba2-130m prefill wave (24 layers,
+   batch 4, prompt 512) through the SSD scan's mma body and again with the
+   fma body forced: the logits within ``SSD_BODIES_REL`` of the largest
+   (beside the same wave through the plain phases with the fp32 operands
+   split, and with them rounded to plain bf16).
 4. ``serve``, once per served arch: the full model (qwen2-7b 28 layers,
    recurrentgemma-9b 38, mamba2-130m 24, bf16 weights and cache) through the
    ``serve_batch`` wave loop: 12 requests, 3 waves of batch 4, 512-token
    prompts, 32 greedy new tokens.  Every kernel's launch counter is reset
-   just before and must equal the analytic count just after; every flash
-   launch must have taken the sm90 body and every rmsnorm launch the
-   one-read body.
+   just before and must equal the analytic count just after, by body too:
+   every flash launch on the sm90 body, every rmsnorm launch on the
+   one-read body, every SSD launch on the mma body, RG-LRU prefill on the
+   segmented body and decode on the serial body.
 5. ``profile``, after each serve: one more prefill wave and 8 decode steps
    under ``torch.profiler``: wall time, summed kernel time, the card's idle
    share and the costliest kernels.
@@ -77,6 +97,12 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+BF16_STEP = 2.0 ** -7     # one bf16 step (ulp) relative to the value
+# the bf16 mamba2-130m prefill logits of the SSD mma body against the fma
+# body, relative to the largest logit (phase_ssd_bodies): between the sound
+# mma-vs-fma readings (0.0296-0.0321) and that of the plain phases with
+# plain-bf16 operands (0.0371) on the H100 at seed 0 (PERF.md)
+SSD_BODIES_REL = 0.035
 SERVE_REL = 2e-4
 ARCHS = ("qwen2-7b", "recurrentgemma-9b", "mamba2-130m")
 
@@ -112,23 +138,39 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# the profiler windows each device_ms timing took (1 unless one was dropped)
+PROFILER_WINDOWS = []
+
+
+def window_counts(start: int) -> dict:
+    """Timings and profiler windows since ``PROFILER_WINDOWS[start]``."""
+    w = PROFILER_WINDOWS[start:]
+    return dict(timings=len(w), windows=sum(w))
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
     """Device time of one call: every kernel and copy the call runs on the
-    card, summed under torch.profiler over ``iters`` calls, per call."""
+    card, summed under torch.profiler over ``iters`` calls, per call.  A
+    window in which the profiler recorded no device event at all (it has
+    dropped a whole window now and then) is taken again, up to ``tries``
+    windows; ``PROFILER_WINDOWS`` records how many it took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    check(total > 0, "the profiler saw no device time")
-    return total / iters / 1e3
+    for window in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            PROFILER_WINDOWS.append(window)
+            return total / iters / 1e3
+    check(False, f"the profiler saw no device time in {tries} windows")
 
 
 def ptxas_functions(log: str) -> dict:
@@ -158,12 +200,22 @@ def ssd_macs(B, S, H, P, G, N, Q) -> int:
                 + (n_chunks - 1) * H * Q * N * P)
 
 
+def ssd_split_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds the SSD scan's mma body needs on the bf16 tensor cores:
+    those of ``ssd_macs``, with every product that has an fp32 operand
+    (scores @ x, Bᵀ @ (w∘x), C @ state: all but C·Bᵀ) taken twice, once for
+    the operand's bf16 hi and once for its lo."""
+    cb = B * -(-S // Q) * G * (Q * (Q + 1) // 2) * N
+    return cb + 2 * (ssd_macs(B, S, H, P, G, N, Q) - cb)
+
+
 def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
     """Least time of one prefill wave: the bf16 matmul FLOPs (every layer's
     parameters once per token, the attention of ``flops_parts``, the lm_head
     for the last position only) over the bf16 peak, plus the work the
     references keep in fp32 over the fp32 peak: the RG-LRU's two
-    block-diagonal gates and the SSD scans."""
+    block-diagonal gates; the SSD scans count as the served (mma) body runs
+    them, on the bf16 tensor cores (``ssd_split_macs``)."""
     tokens = batch * prompt
     lm_head = cfg.vocab_size * cfg.d_model
     body = cfg.active_param_count() - lm_head * (1 if cfg.tie_embeddings
@@ -173,7 +225,7 @@ def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
     kinds = cfg._layer_kinds()
     W = cfg.resolved_lru_width
     fp32 = kinds.count("rglru") * 2 * 2 * tokens * W * (W // cfg.num_heads)
-    fp32 += kinds.count("ssd") * 2 * ssd_macs(
+    bf16 += kinds.count("ssd") * 2 * ssd_split_macs(
         batch, prompt, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
         cfg.ssm_state, cfg.ssm_chunk)
     return (bf16 / PEAK_OPS_PER_S[torch.bfloat16]
@@ -217,6 +269,14 @@ def phase_env(build):
         for f in sm90.values()), f"sm90 flash body spills: {sm90}")
     check("C7508" not in logs["flash_attention"],
           "ptxas ignored setmaxnreg (C7508) in flash_attention.cu")
+    scans = {name: f for src in ("ssd", "rglru")
+             for name, f in ptxas_functions(logs[src]).items()
+             if any(k in name for k in ("ssd_chunk_state", "ssd_state_pass",
+                                        "ssd_chunk_scan", "rglru_segmented"))}
+    emit("env", scan_ptxas=scans)
+    check(len(scans) == 6 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
+        for f in scans.values()), f"a scan body spills: {scans}")
     return smi
 
 
@@ -226,14 +286,22 @@ def phase_kernels(dev, gen):
     from repro_torch.kernels.flash_attention.kernel import \
         select_body as flash_body
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.rglru import kernel as lru
     from repro_torch.kernels.rglru.kernel import rglru_cuda
-    from repro_torch.kernels.rglru.ref import rglru_sequential
+    from repro_torch.kernels.rglru.kernel import select_body as lru_body
+    from repro_torch.kernels.rglru.ref import rglru_assoc, rglru_sequential
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.kernel import select_body as rms_body
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd.kernel import select_body as ssd_body
     from repro_torch.kernels.ssd.kernel import ssd_cuda
-    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
+    from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
+                                             ssd_chunk_state, ssd_chunked,
+                                             ssd_sequential,
+                                             ssd_state_passing)
+    f32 = torch.float32
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -261,7 +329,7 @@ def phase_kernels(dev, gen):
                                       residual=res is not None,
                                       max_abs_err=err, tol=TOL[dtype],
                                       ok=ok and body == want_body))
-    timings = {}
+    timings, mark = {}, len(PROFILER_WINDOWS)
     # prefill rows at D 3584 first: the summary's shape
     for rows, D in ((4 * 512, 3584), (4, 3584), (4 * 512, 768),
                     (4 * 512, 1536), (4 * 512, 4096)):
@@ -288,7 +356,8 @@ def phase_kernels(dev, gen):
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm/kernel.py:33",
         shape="x (2048, 3584) bf16, scale bf16",
-        **timings["rows=2048 D=3584 bf16"])
+        **timings["rows=2048 D=3584 bf16"],
+        profiler_windows=window_counts(mark))
     emit("kernels", kernel="rmsnorm", timings=timings)
 
     # ---- flash attention: qwen2-7b prefill shapes, ragged S, every head
@@ -351,7 +420,7 @@ def phase_kernels(dev, gen):
         q, k, v = (t.unflatten(-1, (-1, dh))
                    for t in qkv.split([H * dh, K * dh, K * dh], dim=-1))
         attn_case(q, k, v, dict(causal=True), "sm90", fused_views=True)
-    timings = {}
+    timings, mark = {}, len(PROFILER_WINDOWS)
     for arch, (B, S, H, K, dh, kw) in zip(("qwen2-7b", "recurrentgemma-9b"),
                                           attn_cases[:2]):
         q, k, v = randn(B, S, H, dh, dtype=torch.bfloat16), \
@@ -388,54 +457,74 @@ def phase_kernels(dev, gen):
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99",
-        **timings["qwen2-7b"], by_arch=timings)
+        **timings["qwen2-7b"], by_arch=timings,
+        profiler_windows=window_counts(mark))
     emit("kernels", kernel="flash_attention", timings=timings)
 
     # ---- RG-LRU scan: recurrentgemma-9b widths (W 4096) and a ragged W,
-    # prefill (S 512), ragged S and decode (S 1), with and without h0
+    # prefill (S 512), the serve_check prompt (2176), ragged S and decode
+    # (S 1), with and without h0, on both bodies: the segmented body against
+    # rglru_assoc, the serial body against rglru_sequential
+    plain_lru = {"segmented": rglru_assoc, "serial": rglru_sequential}
     for dtype in (torch.float32, torch.bfloat16):
-        for S in (1, 37, 512):
+        for S in (1, 37, 512, 2176):
             for W in (4096, 200):
                 la = -F.softplus(randn(4, S, W, dtype=torch.float32)).to(dtype)
                 gx = randn(4, S, W, dtype=dtype)
                 for h0 in (None, randn(4, W, dtype=torch.float32)):
-                    y, h_last = rglru_cuda(la, gx, h0)
-                    want_y, want_h = rglru_sequential(la, gx, h0)
-                    err_y, ok_y = compare(y, want_y, dtype, RGLRU_TOL)
-                    err_h, ok_h = compare(h_last, want_h, torch.float32,
-                                          RGLRU_TOL)
-                    cases.append(dict(kernel="rglru", dtype=str(dtype), B=4,
-                                      S=S, W=W, h0=h0 is not None,
-                                      max_abs_err=max(err_y, err_h),
-                                      tol=RGLRU_TOL[dtype], ok=ok_y and ok_h))
-    B, S, W = 4, 512, 4096
-    la = -F.softplus(randn(B, S, W, dtype=torch.float32))
-    gx, h0 = randn(B, S, W, dtype=torch.float32), \
-        randn(B, W, dtype=torch.float32)
-    # bytes: la, gx and h0 read once, y and h_last written once; about 9
-    # operations an element (2 exp, sqrt, max, sub, 3 mul, add)
-    t_bound, by = bound(la.nbytes + 2 * gx.nbytes + 2 * h0.nbytes,
-                        9 * gx.numel(), torch.float32)
+                    for body, plain in plain_lru.items():
+                        y, h_last = rglru_cuda(la, gx, h0, body=body)
+                        want_y, want_h = plain(la, gx, h0)
+                        err_y, ok_y = compare(y, want_y, dtype, RGLRU_TOL)
+                        err_h, ok_h = compare(h_last, want_h, torch.float32,
+                                              RGLRU_TOL)
+                        cases.append(dict(
+                            kernel="rglru", body=body,
+                            selected=lru_body(la, gx, h0), dtype=str(dtype),
+                            B=4, S=S, W=W, h0=h0 is not None,
+                            max_abs_err=max(err_y, err_h),
+                            tol=RGLRU_TOL[dtype], ok=ok_y and ok_h))
+    timings, mark = {}, len(PROFILER_WINDOWS)
+    for S in (512, 1):
+        B, W = 4, 4096
+        la = -F.softplus(randn(B, S, W, dtype=torch.float32))
+        gx, h0 = randn(B, S, W, dtype=torch.float32), \
+            randn(B, W, dtype=torch.float32)
+        # bytes: la, gx and h0 read once, y and h_last written once; about 9
+        # operations an element (2 exp, sqrt, max, sub, 3 mul, add)
+        t_bound, by = bound(la.nbytes + 2 * gx.nbytes + 2 * h0.nbytes,
+                            9 * gx.numel(), torch.float32)
+        y, h_last = torch.empty_like(gx), torch.empty_like(h0)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        serial = lambda: lru._entry("rglru_fwd")(  # noqa: E731
+            la.data_ptr(), gx.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), B, S, W, 0, stream)
+
+        kernel = lambda: rglru_cuda(la, gx, h0)  # noqa: E731
+        body = lru_body(la, gx, h0)
+        t = dict(shape=f"log_a, gx ({B},{S},{W}) fp32, h0 ({B},{W}) fp32",
+                 body=body, ms=device_ms(kernel), event_ms=time_ms(kernel))
+        if body == "segmented":
+            t["previous_body_ms"] = device_ms(serial)
+        plain = plain_lru[body]
+        t.update(plain_ms=device_ms(lambda: plain(la, gx, h0), iters=5),
+                 library_ms=None, bound_ms=t_bound, bound_by=by,
+                 max_abs_err=compare(kernel()[0], plain(la, gx, h0)[0],
+                                     torch.float32, RGLRU_TOL)[0])
+        timings[f"S={S}"] = t
     summary["rglru"] = dict(
         name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
         replaces="src/repro/kernels/rglru/kernel.py:50",
-        shape=f"log_a, gx ({B},{S},{W}) fp32, h0 ({B},{W}) fp32",
-        ms=device_ms(lambda: rglru_cuda(la, gx, h0)),
-        event_ms=time_ms(lambda: rglru_cuda(la, gx, h0)),
-        plain_ms=device_ms(lambda: rglru_sequential(la, gx, h0), iters=5),
-        library_ms=None, bound_ms=t_bound, bound_by=by,
-        max_abs_err=compare(rglru_cuda(la, gx, h0)[0],
-                            rglru_sequential(la, gx, h0)[0], torch.float32,
-                            RGLRU_TOL)[0])
-    emit("kernels", kernel="rglru", timings={
-        summary["rglru"]["shape"]: {k: summary["rglru"][k] for k in (
-            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
-            "max_abs_err")}})
+        **timings["S=512"], decode=timings["S=1"],
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="rglru", timings=timings)
 
     # ---- SSD scan: mamba2-130m's head and state dims (P 64, N 128), a
-    # ragged S (padded last chunk), two groups, chunk 64 and 128; y and the
-    # fp32 final state against ssd_chunked (S a multiple of the chunk) or
-    # ssd_sequential (ragged S)
+    # ragged S (padded last chunk), two groups, chunk 64 and 128, a chunk
+    # that is not a multiple of 16; y and the fp32 final state against
+    # ssd_chunked (S a multiple of the chunk) or ssd_sequential (ragged S),
+    # on each body that takes the inputs (mma: bf16; fma: both)
     def ssd_inputs(B, S, H, P, G, N, dtype):
         return (randn(B, S, H, P, dtype=dtype),
                 F.softplus(randn(B, S, H, dtype=torch.float32)),
@@ -448,40 +537,109 @@ def phase_kernels(dev, gen):
         for B, S, H, P, G, N, chunk in [(4, 512, 24, 64, 1, 128, 128),
                                         (2, 1000, 24, 64, 1, 128, 128),
                                         (2, 256, 8, 64, 2, 128, 64),
-                                        (1, 300, 4, 32, 2, 64, 64)]:
+                                        (1, 300, 4, 32, 2, 64, 64),
+                                        (1, 90, 3, 24, 3, 8, 20),
+                                        (1, 64, 2, 128, 1, 32, 32)]:
             args = ssd_inputs(B, S, H, P, G, N, dtype)
-            y, state = ssd_cuda(*args, chunk=chunk)
             want_y, want_state = (ssd_chunked(*args, chunk=chunk)
                                   if S % chunk == 0 else ssd_sequential(*args))
-            err_y, ok_y = compare(y, want_y, dtype, SSD_TOL)
-            err_s, ok_s = compare(state, want_state, dtype, SSD_TOL)
-            cases.append(dict(kernel="ssd", dtype=str(dtype), B=B, S=S, H=H,
-                              P=P, G=G, N=N, chunk=chunk,
-                              max_abs_err=max(err_y, err_s),
-                              tol=SSD_TOL[dtype], ok=ok_y and ok_s))
+            bodies = ("mma", "fma") if dtype == torch.bfloat16 else ("fma",)
+            for body in bodies:
+                y, state = ssd_cuda(*args, chunk=chunk, body=body)
+                err_y, ok_y = compare(y, want_y, dtype, SSD_TOL)
+                err_s, ok_s = compare(state, want_state, dtype, SSD_TOL)
+                cases.append(dict(kernel="ssd", body=body,
+                                  selected=ssd_body(*args, chunk),
+                                  dtype=str(dtype), B=B, S=S, H=H, P=P, G=G,
+                                  N=N, chunk=chunk,
+                                  max_abs_err=max(err_y, err_s),
+                                  tol=SSD_TOL[dtype], ok=ok_y and ok_s))
     B, S, H, P, G, N, Q = 4, 512, 24, 64, 1, 128, 128
     args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16)
-    x, dt, _, Bm, Cm, _ = args
-    # bytes: x, dt, Bm, Cm, A, D read once, y and the fp32 state written once
-    t_bound, by = bound(2 * x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes
-                        + 2 * 4 * H + B * H * P * N * 4,
-                        2 * ssd_macs(B, S, H, P, G, N, Q), torch.float32)
+    x, dt, A, Bm, Cm, D = args
+    nc = -(-S // Q)
+    stream = torch.cuda.current_stream().cuda_stream
+    y, state = torch.empty_like(x), torch.empty(B, H, P, N, device=dev)
+    states = torch.empty(B, nc, H, P, N, device=dev)
+    cum = torch.empty(B, H, nc * Q, device=dev)
+    ptr = {n: t.data_ptr() for n, t in dict(
+        x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D, y=y, state=state, states=states,
+        cum=cum).items()}
+
+    def phase(name):
+        e = ssd._entry(name)
+        a = {"ssd_chunk_state": ("x", "dt", "A", "Bm", "states", "cum"),
+             "ssd_state_pass": ("states", "cum", "state"),
+             "ssd_chunk_scan": ("x", "dt", "Bm", "Cm", "D", "cum", "states",
+                                "y")}[name]
+        dims = {"ssd_chunk_state": (B, S, H, P, G, N, Q),
+                "ssd_state_pass": (B, S, H, P, N, Q),
+                "ssd_chunk_scan": (B, S, H, P, G, N, Q)}[name]
+        return lambda: check(e(*(ptr[n] for n in a), *dims, stream) == 0,
+                             f"{name} launch failed")
+
+    # each phase kernel against its plain phase, on the kernel's own inputs
+    phase("ssd_chunk_state")()
+    want_states, want_cum = ssd_chunk_state(x, dt, A, Bm, chunk=Q)
+    local_states = states.clone()
+    phase("ssd_state_pass")()
+    want_in, want_state = ssd_state_passing(local_states, cum, chunk=Q)
+    phase("ssd_chunk_scan")()
+    scan_in = states.clone()
+    scan_in[:, 0] = 0   # the state entering chunk 0, which the kernel skips
+    want_y = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, scan_in, chunk=Q)
+    # the same with the fp32 operands (scores, state) split into bf16 hi +
+    # lo as the kernel splits them: y within one bf16 step (2^-7) of it,
+    # which rounding them to plain bf16 exceeds at mamba2's widths
+    # (tests/test_torch_kernels.py::test_ssd_one_bf16_step_tells_split_...)
+    want_y_split = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, scan_in, chunk=Q,
+                                  round_operand=split_bf16)
+    for name, got, want, tol in (
+            ("ssd_chunk_scan split", y, want_y_split, BF16_STEP),
+            ("ssd_chunk_state", local_states, want_states, SSD_TOL[f32]),
+            ("ssd_chunk_state cum", cum, want_cum, SSD_TOL[f32]),
+            # the state entering chunk 0 is zero; the kernel neither writes
+            # nor reads it
+            ("ssd_state_pass", states[:, 1:], want_in[:, 1:], SSD_TOL[f32]),
+            ("ssd_state_pass final", state, want_state, SSD_TOL[f32]),
+            ("ssd_chunk_scan", y, want_y, SSD_TOL[torch.bfloat16])):
+        err, ok = compare(got, want, f32, {f32: tol})
+        cases.append(dict(kernel="ssd", body="mma", phase=name, B=B, S=S,
+                          H=H, P=P, G=G, N=N, chunk=Q, max_abs_err=err,
+                          tol=tol, ok=ok))
+    # bytes: x, dt, Bm, Cm, A, D read once, y and the fp32 state written
+    # once; operations: the mma body's products on the bf16 tensor cores,
+    # the split operands' twice.  The fp32 multiply-adds the function needs
+    # on the FMA units (the fma body's way) are a bound of that body only.
+    n_bytes = (2 * x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes + 2 * 4 * H
+               + B * H * P * N * 4)
+    t_bound, by = bound(n_bytes, 2 * ssd_split_macs(B, S, H, P, G, N, Q),
+                        torch.bfloat16)
+    kernel = lambda: ssd_cuda(*args, chunk=Q)  # noqa: E731
+    mark = len(PROFILER_WINDOWS)
+    fma = lambda: ssd._entry("ssd_fwd")(  # noqa: E731
+        ptr["x"], ptr["dt"], ptr["A"], ptr["Bm"], ptr["Cm"], ptr["D"],
+        ptr["y"], ptr["state"], B, S, H, P, G, N, Q, 1, stream)
     summary["ssd"] = dict(
         name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:71",
         shape=f"x ({B},{S},{H},{P}) bf16, dt ({B},{S},{H}) fp32, "
               f"Bm/Cm ({B},{S},{G},{N}) bf16, chunk {Q}",
-        ms=device_ms(lambda: ssd_cuda(*args, chunk=Q)),
-        event_ms=time_ms(lambda: ssd_cuda(*args, chunk=Q)),
+        body=ssd_body(*args, Q), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), previous_body_ms=device_ms(fma),
+        phase_ms={n: device_ms(phase(n)) for n in (
+            "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")},
         plain_ms=device_ms(lambda: ssd_chunked(*args, chunk=Q), iters=10),
         library_ms=None, bound_ms=t_bound, bound_by=by,
-        max_abs_err=compare(ssd_cuda(*args, chunk=Q)[0],
-                            ssd_chunked(*args, chunk=Q)[0], torch.bfloat16,
-                            SSD_TOL)[0])
+        fma_bound_fp32_ops_ms=2 * ssd_macs(B, S, H, P, G, N, Q)
+        / PEAK_OPS_PER_S[torch.float32] * 1e3,
+        max_abs_err=compare(kernel()[0], ssd_chunked(*args, chunk=Q)[0],
+                            torch.bfloat16, SSD_TOL)[0])
+    summary["ssd"]["profiler_windows"] = window_counts(mark)
     emit("kernels", kernel="ssd", timings={
-        summary["ssd"]["shape"]: {k: summary["ssd"][k] for k in (
-            "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
-            "max_abs_err")}})
+        summary["ssd"]["shape"]: {k: v for k, v in summary["ssd"].items()
+                                  if k not in ("name", "route", "source",
+                                               "replaces", "shape")}})
     emit("kernels", cases=cases)
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -523,9 +681,11 @@ def phase_serve(dev, gen, seed, arch: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rglru import kernel as lru
     from repro_torch.kernels.rglru.kernel import rglru_cuda
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.kernels.ssd.kernel import ssd_cuda
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.config import ATTN_KINDS
@@ -549,10 +709,8 @@ def phase_serve(dev, gen, seed, arch: str):
                "rglru": rglru_cuda, "ssd": ssd_cuda}
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    flash.reset_counts()
-    rms.reset_counts()
+    for module in (flash, rms, lru, ssd):
+        module.reset_counts()
     prefill_ms, decode_s, outs = [], 0.0, []
     with torch.inference_mode():
         finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -577,8 +735,7 @@ def phase_serve(dev, gen, seed, arch: str):
             decode_s += time.monotonic() - t1
             outs.append(torch.cat(new, 1).cpu())
     launches = {name: fn.launches for name, fn in kernels.items()}
-    by_body = {"rmsnorm": dict(rmsnorm_cuda.launches_by_body),
-               "flash_attention": dict(flash_attention_cuda.launches_by_body)}
+    by_body = {name: dict(fn.launches_by_body) for name, fn in kernels.items()}
     waves = len(outs)
     steps = waves * max_new
     kinds = cfg._layer_kinds()
@@ -586,8 +743,9 @@ def phase_serve(dev, gen, seed, arch: str):
     # rmsnorm, in prefill and decode: norm1 of every layer, norm2 of every
     # layer with an FFN, the gated norm of every SSD layer, the final norm;
     # flash attention: prefill only (decode attention over the cache is
-    # mha_ref, as in the JAX package); RG-LRU: prefill and decode; SSD:
-    # prefill only (decode is ssd_decode_step, as in the JAX package)
+    # mha_ref, as in the JAX package); RG-LRU: prefill (the segmented body)
+    # and decode (the serial body); SSD: prefill only, bf16, so the mma body
+    # (decode is ssd_decode_step, as in the JAX package)
     norms = (len(kinds) + (len(kinds) if cfg.d_ff else 0)
              + kinds.count("ssd") + 1)
     want = {"rmsnorm": norms * (waves + steps),
@@ -612,12 +770,99 @@ def phase_serve(dev, gen, seed, arch: str):
           f"serve {arch}: bad tokens {tuple(tokens.shape)}")
     check(launches == want and all(launches[k] for k, n in want.items() if n),
           f"serve {arch}: launches {launches}, expected {want}")
-    check(by_body["flash_attention"]["sm90"] == want["flash_attention"]
-          and by_body["rmsnorm"]["one_read"] == want["rmsnorm"],
-          f"serve {arch}: launches by body {by_body}: every flash launch "
-          f"must take the sm90 body and every rmsnorm launch the one-read "
-          f"body")
+    want_by_body = {
+        "rmsnorm": {"one_read": want["rmsnorm"], "generic": 0},
+        "flash_attention": {"sm90": want["flash_attention"], "mma": 0,
+                            "fp32": 0},
+        "rglru": {"segmented": kinds.count("rglru") * waves,
+                  "serial": kinds.count("rglru") * steps},
+        "ssd": {"mma": want["ssd"], "fma": 0}}
+    check(by_body == want_by_body,
+          f"serve {arch}: launches by body {by_body}, expected "
+          f"{want_by_body}")
     return launches, by_body, (cfg, params, pre, dec, toks, max_len)
+
+
+def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
+    """One bf16 mamba2-130m prefill wave at full depth (24 layers) through
+    the SSD scan's mma body, and again with ``ssd_cuda(..., body="fma")``
+    forced: the last-position logits of the two within ``SSD_BODIES_REL``
+    of the largest logit (``serve_check``'s metric).  Beside them, the same
+    wave with the scan run by its plain phases on the card, once with the
+    fp32 operands split into bf16 hi + lo as the mma body splits them and
+    once with them rounded to plain bf16 (what the limit must tell apart),
+    and in fp32 (the fma body, fp32 weights): how far each bf16 run is."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
+                                             ssd_chunk_state,
+                                             ssd_state_passing)
+    from repro_torch.models import init_cache, init_params, prefill
+
+    def plain(rnd):
+        def scan(x, dt, A, Bm, Cm, D, *, chunk=128):
+            states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk,
+                                          round_operand=rnd)
+            states_in, state = ssd_state_passing(states, cum, chunk=chunk)
+            return ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in,
+                                  chunk=chunk, round_operand=rnd), state
+        return scan
+
+    cfg = get_config("mamba2-130m")
+    params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    scans = {"mma": functools.partial(ssd.ssd_cuda, body="mma"),
+             "fma": functools.partial(ssd.ssd_cuda, body="fma"),
+             "split_plain": plain(split_bf16),
+             "bf16_plain": plain(lambda v: v.bfloat16().float()),
+             "fp32": ssd.ssd_cuda}
+    logits, counts = {}, {}
+    for run, scan in scans.items():
+        dtype = torch.float32 if run == "fp32" else torch.bfloat16
+        ssd.reset_counts()
+        ops.ssd_cuda = scan
+        try:
+            with torch.inference_mode():
+                p = _cast(params, dtype)
+                cache = init_cache(cfg, batch, prompt + 8, dtype, device=dev)
+                logits[run], _ = prefill(p, {"tokens": toks}, cache, cfg,
+                                         dtype=dtype)
+        finally:
+            ops.ssd_cuda = ssd.ssd_cuda
+        counts[run] = dict(ssd.ssd_cuda.launches_by_body)
+
+    def rel(a, b):
+        return float((logits[a].float() - logits[b].float()).abs().max()
+                     / logits[b].float().abs().max())
+
+    errs = {f"{a}_vs_{b}": rel(a, b) for a, b in (
+        ("mma", "fma"), ("split_plain", "fma"), ("bf16_plain", "fma"),
+        ("mma", "fp32"), ("fma", "fp32"))}
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in logits.values())
+    emit("ssd_bodies", arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+         batch=batch, prompt=prompt, max_rel_err=errs, tol=SSD_BODIES_REL,
+         bf16_plain_over_tol=errs["bf16_plain_vs_fma"] >= SSD_BODIES_REL,
+         launches_by_body=counts, finite=finite)
+    body_of = {"mma": "mma", "fma": "fma", "fp32": "fma"}
+    want = {run: {b: cfg.num_layers * (b == body_of.get(run))
+                  for b in ssd.BODIES} for run in scans}
+    check(finite and errs["mma_vs_fma"] < SSD_BODIES_REL and counts == want,
+          f"ssd_bodies: logits rel err {errs}, finite {finite}, launches "
+          f"{counts} (expected {want})")
+    ssd.reset_counts()
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def _profiled(fn) -> dict:
@@ -693,6 +938,7 @@ def main() -> int:
     phase_serve_check(dev, gen, "qwen2-7b", layers=4, B=2, P=128)
     phase_serve_check(dev, gen, "recurrentgemma-9b", layers=3, B=1, P=2176)
     phase_serve_check(dev, gen, "mamba2-130m", layers=24, B=2, P=1000)
+    phase_ssd_bodies(dev, gen)
     launches, by_body = {}, {}
     for arch in ARCHS:
         gc.collect()
@@ -704,10 +950,9 @@ def main() -> int:
     for name, entry in summary.items():
         entry["launches"] = sum(n[name] for n in launches.values())
         entry["launches_by_arch"] = {a: n[name] for a, n in launches.items()}
-        if name in ("rmsnorm", "flash_attention"):
-            entry["launches_by_body"] = {
-                body: sum(b[name][body] for b in by_body.values())
-                for body in by_body[ARCHS[0]][name]}
+        entry["launches_by_body"] = {
+            body: sum(b[name][body] for b in by_body.values())
+            for body in by_body[ARCHS[0]][name]}
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,43 +12,88 @@
 // which is ssd_chunked (src/repro/kernels/ssd/ref.py), and returns y in x's
 // type and the fp32 state after the last token.
 //
-// Replaces the TPU kernel ssd_pallas (src/repro/kernels/ssd/kernel.py, body
-// _ssd_kernel).  What differs from it:
+// Replaces the TPU kernel ssd_pallas (src/repro/kernels/ssd/kernel.py:71,
+// body _ssd_kernel).  Two bodies:
 //
-//   * The TPU kernel walks the chunks on a sequential grid axis and carries
+// * fma (entry ssd_fwd; float32 and bfloat16): one block a (b, h) walks the
+//   chunks in order with the state in shared memory, all products in fp32 on
+//   the FMA units.  What differs from the TPU kernel:
+//   - The TPU kernel walks the chunks on a sequential grid axis and carries
 //     the state in VMEM scratch between grid steps.  Blocks on the card run
 //     in no order, so the chunk axis is a loop inside one block: a block owns
 //     one (b, h) and a slice of PS of the P columns of x, y and the state
 //     (y[:, p] and state[p, :] depend on x[:, p] alone), and keeps its
 //     state slice in shared memory from the first chunk to the last.
-//   * The Pallas wrapper computes dt * A, the within-chunk cumsum, dt * x and
+//   - The Pallas wrapper computes dt * A, the within-chunk cumsum, dt * x and
 //     exp(total - cum) * dt * x outside the kernel with jnp, so fp32
 //     (B, S, H, P) intermediates go through device memory, and it expands B
 //     and C to every head.  Here the block reads x, dt, B and C as they are
 //     (B and C by group, never copied per head) and computes the rest in
 //     shared memory.
-//   * The D skip is added in fp32 before the single rounding to x's type,
+//   - The D skip is added in fp32 before the single rounding to x's type,
 //     as ssd_chunked does; the Pallas wrapper adds it after the kernel, in
 //     x's type (kernel.py:115).
-//   * Any S: the last chunk is padded inside the block with dt = 0, x = B =
+//   - Any S: the last chunk is padded inside the block with dt = 0, x = B =
 //     C = 0 (it neither decays nor contributes) and masked at the store.  The
 //     TPU kernel asks for S % chunk == 0.
-//   * The exponent's argument is masked before the exp, as in both
+//   - The exponent's argument is masked before the exp, as in both
 //     references: exp(cum_i - cum_j) is evaluated only for i >= j, where the
 //     argument is <= 0.
+//   Per (b, h, chunk) its four products are Q*Q*N (C B^T), Q*Q*P (scores @
+//   x), Q*N*P (C @ state) and Q*N*P (B^T @ x) multiply-adds, in 4 x 4 fp32
+//   register tiles.  One block fills one SM (up to 205 KB of shared memory
+//   at Q = N = 128, PS = 64), so at mamba2-130m's serving shape (B 4, H 24)
+//   the card runs B * H * P / PS = 96 blocks, each through every chunk.
 //
-// What bounds it: operations.  Per (b, h, chunk) the four products are
-// Q*Q*N (C B^T), Q*Q*P (scores @ x), Q*N*P (C @ state, skipped for the
-// first chunk, whose incoming state is zero) and Q*N*P (B^T @ x)
-// multiply-adds, all in fp32 on the FMA units (the references accumulate in
-// fp32); the bytes (x, B, C, dt read once, y written once) are far fewer.
-// Each thread owns 4 x 4 output tiles and reads its operands as 16-byte
-// vectors from shared memory; C B^T is computed for the tiles on or below
-// the diagonal only, and scores @ x stops at the diagonal.  One block fills
-// one SM (up to 205 KB of shared memory at Q = N = 128, PS = 64), so at
-// mamba2-130m's serving shape (B 4, H 24) the card runs B * H * P / PS
-// blocks.  Tensor-core products and a chunk-parallel state pass are later
-// work.
+// * mma (bfloat16; the served path): chunk-parallel on the tensor cores, in
+//   the three phases of ssd_chunked, one launch each, every chunk at once:
+//   1. ssd_chunk_state: a block a (chunk, head, batch) computes the chunk's
+//      cum (written to cum (B, H, nc * Q) fp32) and its local end state
+//      S_c = sum_j exp(total - cum_j) dt_j x_j B_j^T, a (P x N) product over
+//      the Q tokens, written in fp32 to states (B, nc, H, P, N).
+//   2. ssd_state_pass: one thread a 4-vector of a (b, h) state walks the
+//      chunks, overwrites states with the state entering each chunk
+//      (s -> exp(total_c) s + S_c; chunk 0's, zero, is neither written nor
+//      read) and writes the final state.
+//   3. ssd_chunk_scan: a block a (chunk, head, batch) computes
+//      y = (C B^T o L o dt_j) x + exp(cum_i) (C state_in^T) + D x, rounded
+//      once at the store.  One head a block: a block that walked several
+//      heads of a group to share C's tile was slower on the card, since it
+//      cost more in blocks an SM than it saved (PERF.md).
+//   Products are mma.sync m16n8k16 (bf16 in, fp32 accumulate), their
+//   fragments read by ldmatrix, the tiles brought in by cp.async with the
+//   padding zero-filled.  x, B and C are bf16 already, so C B^T and every
+//   product with them as the only bf16 operand is exact up to the order of
+//   the sum.  The operands that the references keep in fp32 (w o x, the
+//   scores, the state) are split into hi = bf16(v) and lo = bf16(v - hi)
+//   and each enters two products, which keeps about 16 bits of their
+//   mantissa (the error stays near fp32's; tests/test_torch_kernels.py
+//   measures it beside plain bf16 rounding's).  Masks and padding as in the
+//   fma body; the scores' exponent is taken in base 2 of a pre-scaled cum.
+//
+// What bounds the mma body at mamba2-130m's serving shape (x (4,512,24,64)
+// bf16, N 128, chunk 128): bytes.  x, dt, B and C read once, y and the fp32
+// state written once are 16.97 MB, 0.00507 ms at 3.35 TB/s; its products on
+// the bf16 tensor cores, with every product that has a split operand taken
+// twice (chip_smoke.py:ssd_split_macs), are 3.664 GFLOP, 0.00370 ms at 989
+// TFLOP/s.  (The fma body does the function's 1.849 GFLOP in fp32 on the FMA
+// units, chip_smoke.py:ssd_macs: 0.02760 ms at 67 TFLOP/s.)  Measured on the
+// card (globaltimer stamps per block phase): the scan was bound by instruction
+// issue and by the latency of each block's load -> product -> store chain, not
+// by the tensor cores (removing its products with x saved nothing); the warp
+// with the most 16-column tiles under the diagonal set a block's time, and the
+// 384 blocks run in two rounds of 264.  What the design does: every chunk and
+// head is a block of its own (against the fma body's 96 blocks walking the
+// chunks), the fp32 intermediates (states, cum) stay in L2, a scan block needs
+// 99 KB of shared memory (B's tile and the state's hi and lo share a buffer)
+// and 125 registers, so two share an SM; C B^T is computed one 16-column tile
+// at a time just before its scores (software-pipelined with the previous
+// tile's products with x, never held whole); row tiles 5-7 hand their score
+// tiles from 5 on to the warp that shares their SM sub-partition (a light row
+// tile), which passes the sum back through shared memory, so that no warp
+// carries much more than the mean; every lane's shared addresses are computed
+// once; the chunk states scale and split w o x as each warp reads its A
+// fragments.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -334,18 +379,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Raises ssd_kernel<T>'s shared-memory limit to the largest block's, once
+// Raises Kernel's shared-memory limit to `bytes` (its largest block's), once
 // for each device (the attribute belongs to the device's context).
-template <typename T>
-cudaError_t allow_max_smem() {
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
   static std::atomic<uint64_t> done{0};  // one bit a device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmemBytes);
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
@@ -354,7 +398,7 @@ template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* D, void* y, void* state, int B, int S, int H, int P, int G, int N,
            int Q, cudaStream_t stream) {
-  const cudaError_t err = allow_max_smem<T>();
+  const cudaError_t err = allow_smem<ssd_kernel<T>>(kMaxSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int Qp = (Q + 3) & ~3, PS = cols_per_block(P);
   const int bytes = smem_floats(Qp, N, PS) * static_cast<int>(sizeof(float));
@@ -366,11 +410,560 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// mma: the chunk-parallel body on the tensor cores (bfloat16)
+// ---------------------------------------------------------------------------
+
+constexpr int kStateThreads = 256;  // 8 warps: chunk-state blocks
+constexpr int kScanThreads = 256;   // 8 warps: chunk-scan blocks, a 16-row tile a warp
+constexpr int kPassThreads = 128;   // state-pass blocks
+constexpr int kPassAhead = 8;       // chunks whose states a state-pass thread loads at once
+constexpr int kStateBatch = 8;      // 4-float loads of the state a scan thread has in flight
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kKeep = 5;  // tiles of scores a scan warp's heavy row keeps (of up to 8)
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared without a trip through registers; zero-filled
+// where `valid` is false (nothing is read then).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ldmatrix: four 8 x 8 b16 matrices from shared memory (a 32-bit shared
+// address); lane l gives the address of row l % 8 of matrix l / 8.  Of
+// matrix i, lane l receives in r[i] row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 (ldsm4), or the transpose:
+// rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (ldsm4_t).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Lane l's row address for the m16n8k16 fragments of a tile t with row
+// stride ld (in b16 elements; rows 16-byte aligned), as a shared address:
+//  * a_rows: A (16 x 16 at m0, k0) of a row-major [m][k] tile   (ldsm4)
+//  * a_cols: A of a k-major [k][m] tile                         (ldsm4_t)
+//  * b_rows: B of two n-tiles (16 x 16 at n0, k0) of an [n][k] tile (ldsm4):
+//    r[0], r[1] for n0 .. n0 + 7, r[2], r[3] for n0 + 8 .. n0 + 15
+//  * b_cols: the same of a [k][n] tile                          (ldsm4_t)
+__device__ __forceinline__ uint32_t a_rows(const uint16_t* t, int ld, int m0, int k0, int l) {
+  return smem_u32(t + (m0 + (l & 15)) * ld + k0 + (l >> 4) * 8);
+}
+__device__ __forceinline__ uint32_t a_cols(const uint16_t* t, int ld, int m0, int k0, int l) {
+  return smem_u32(t + (k0 + (l & 7) + (l >> 4) * 8) * ld + m0 + ((l >> 3) & 1) * 8);
+}
+__device__ __forceinline__ uint32_t b_rows(const uint16_t* t, int ld, int n0, int k0, int l) {
+  return smem_u32(t + (n0 + (l & 7) + (l >> 4) * 8) * ld + k0 + ((l >> 3) & 1) * 8);
+}
+__device__ __forceinline__ uint32_t b_cols(const uint16_t* t, int ld, int n0, int k0, int l) {
+  return smem_u32(t + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8);
+}
+
+__device__ __forceinline__ float bf(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as two bf16 pairs: hi = bf16(v) and lo = bf16(v - hi), so that
+// hi + lo keeps about 16 bits of v's mantissa.
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  return {bits(h), bits(__floats2bfloat162_rn(a - hf.x, b - hf.y))};
+}
+
+__host__ __device__ constexpr int round16(int v) { return (v + 15) & ~15; }
+
+// chunk state: cum and w (kMaxQ each), then the tiles of x (Q16 x (P16 + 8))
+// and B (Q16 x (N16 + 8)), bf16
+__host__ __device__ constexpr int state_smem_bytes(int Q, int P, int N) {
+  return 2 * kMaxQ * 4 + round16(Q) * (round16(P) + 8) * 2 + round16(Q) * (round16(N) + 8) * 2;
+}
+
+// chunk scan: cum and dt (kMaxQ each), C's tile (Q16 x (N16 + 8)), x's (Q16 x
+// (P16 + 8)) and one buffer for the state's hi and lo (P16 x (N16 + 8) each),
+// then B's tile (Q16 x (N16 + 8)), bf16; the helpers' sums (8 - kKeep row
+// tiles of 16 x 8 PT fp32)
+__host__ __device__ constexpr int scan_smem_bytes(int Q, int P, int N) {
+  return 2 * kMaxQ * 4 + round16(Q) * (round16(N) + 8) * 2 +
+         round16(Q) * (round16(P) + 8) * 2 +
+         (round16(Q) > 2 * round16(P) ? round16(Q) : 2 * round16(P)) * (round16(N) + 8) * 2 +
+         (8 - kKeep) * 16 * (round16(P) <= 64 ? 64 : 128) * 4;
+}
+
+// Phase 1.  Block (c, h, b): cum over the chunk; w_j = exp(total - cum_j) dt_j;
+// states[b, c, h] = sum_j (w_j x_j) B_j^T, (P x N) over the Q16 tokens, with
+// w_j x_j split into hi and lo as each warp reads its A fragments.  A warp
+// owns 16 rows of P and half of N.  Registers are held to 85 a thread so
+// that three blocks share an SM: the serving shape's 384 blocks then run in
+// one round.
+__global__ void __launch_bounds__(kStateThreads, 3)
+    ssd_chunk_state_kernel(const uint16_t* __restrict__ x, const float* __restrict__ dt,
+                           const float* __restrict__ A, const uint16_t* __restrict__ Bm,
+                           float* __restrict__ states, float* __restrict__ cum_out, int S,
+                           int H, int P, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Q16 = round16(Q), P16 = round16(P), N16 = round16(N);
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  const int LX = P16 + 8, LB = N16 + 8;
+  float* cumv = reinterpret_cast<float*>(smem4);            // kMaxQ
+  float* wv = cumv + kMaxQ;                                  // kMaxQ
+  uint16_t* xs = reinterpret_cast<uint16_t*>(wv + kMaxQ);    // Q16 x LX: x (j, p)
+  uint16_t* bs = xs + Q16 * LX;                              // Q16 x LB: B (j, n)
+
+  const long long x_row = static_cast<long long>(H) * P, b_row = static_cast<long long>(G) * N;
+  const long long row0 = static_cast<long long>(b) * S + s0;
+  const uint16_t* xb = x + row0 * x_row + static_cast<long long>(h) * P;
+  const uint16_t* bb = Bm + row0 * b_row + static_cast<long long>(g) * N;
+  // every tile load in flight at once; padding rows and columns zero-filled
+  for (int e = tid, xv = P16 / 8; e < Q16 * xv; e += kStateThreads) {
+    const int j = e / xv, v = e - j * xv;
+    const bool in = j < rows && v * 8 < P;
+    cp_async16(xs + j * LX + v * 8, in ? xb + j * x_row + v * 8 : xb, in);
+  }
+  for (int e = tid, bv = N16 / 8; e < Q16 * bv; e += kStateThreads) {
+    const int j = e / bv, v = e - j * bv;
+    const bool in = j < rows && v * 8 < N;
+    cp_async16(bs + j * LB + v * 8, in ? bb + j * b_row + v * 8 : bb, in);
+  }
+  const float d = tid < rows ? dt[(static_cast<long long>(b) * S + s0 + tid) * H + h] : 0.f;
+  if (tid < kMaxQ) cumv[tid] = d * A[h];
+  __syncthreads();
+  // inclusive cumsum of dt * A over the chunk (Hillis-Steele); padding adds 0
+  for (int off = 1; off < Q16; off <<= 1) {
+    const float v = tid >= off && tid < Q16 ? cumv[tid - off] : 0.f;
+    __syncthreads();
+    if (tid < Q16) cumv[tid] += v;
+    __syncthreads();
+  }
+  const float total = cumv[Q16 - 1];
+  if (tid < kMaxQ) wv[tid] = tid < Q16 ? expf(total - cumv[tid]) * d : 0.f;
+  if (tid < Q) cum_out[(static_cast<long long>(b) * H + h) * nc * Q + s0 + tid] = cumv[tid];
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int gq = lane >> 2, tq = lane & 3;
+  float* out = states + ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
+  // work item: 16 rows of P (mt) by half of N's 16-column pairs (nh)
+  const int pairs = N16 / 16, half = (pairs + 1) / 2;
+  for (int item = warp; item < P16 / 16 * 2; item += kStateThreads / 32) {
+    const int mt = item >> 1, np0 = (item & 1) * half, np1 = min(pairs, np0 + half);
+    float acc[kMaxN / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    const uint32_t a_b = a_cols(xs, LX, mt * 16, 0, lane);
+    const uint32_t b_b = b_cols(bs, LB, np0 * 16, 0, lane);
+    for (int k0 = 0; k0 < Q16; k0 += 16) {
+      // A (m = p, k = j) = w_j x[j][p] from x's k-major tile: registers 0, 1
+      // hold k = k0 + 2 tq, + 1 and registers 2, 3 those + 8, split into hi
+      // and lo; B (k = j, n)
+      uint32_t ax[4], ahi[4], alo[4];
+      ldsm4_t(ax, a_b + k0 * LX * 2);
+      const float2 w01 = *reinterpret_cast<const float2*>(wv + k0 + 2 * tq);
+      const float2 w89 = *reinterpret_cast<const float2*>(wv + k0 + 8 + 2 * tq);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 w = r < 2 ? w01 : w89;
+        const Split v = split(w.x * bf(static_cast<uint16_t>(ax[r] & 0xffffu)),
+                              w.y * bf(static_cast<uint16_t>(ax[r] >> 16)));
+        ahi[r] = v.hi;
+        alo[r] = v.lo;
+      }
+#pragma unroll
+      for (int u = 0; u < kMaxN / 32; ++u) {
+        if (np0 + u < np1) {
+          uint32_t bf4[4];
+          ldsm4_t(bf4, b_b + k0 * LB * 2 + u * 32);
+          mma_bf16(acc[2 * u], ahi, bf4[0], bf4[1]);
+          mma_bf16(acc[2 * u], alo, bf4[0], bf4[1]);
+          mma_bf16(acc[2 * u + 1], ahi, bf4[2], bf4[3]);
+          mma_bf16(acc[2 * u + 1], alo, bf4[2], bf4[3]);
+        }
+      }
+    }
+    const int p0 = mt * 16 + gq;
+#pragma unroll
+    for (int t = 0; t < kMaxN / 16; ++t) {
+      const int n = np0 * 16 + t * 8 + 2 * tq;
+      if (np0 * 16 + t * 8 < min(N, np1 * 16)) {
+        if (p0 < P)
+          *reinterpret_cast<float2*>(out + static_cast<long long>(p0) * N + n) =
+              make_float2(acc[t][0], acc[t][1]);
+        if (p0 + 8 < P)
+          *reinterpret_cast<float2*>(out + static_cast<long long>(p0 + 8) * N + n) =
+              make_float2(acc[t][2], acc[t][3]);
+      }
+    }
+  }
+}
+
+// Phase 2.  Thread: a 4-vector e of the (P x N) state of (b, h) (grid (.., H, B)).
+// states[b, c, h] <- the state entering chunk c, for c >= 1; state_out[b, h]
+// <- the state after the last chunk.
+__global__ void __launch_bounds__(kPassThreads)
+    ssd_state_pass_kernel(float* __restrict__ states, const float* __restrict__ cum,
+                          float* __restrict__ state_out, int H, int PN, int Q, int nc) {
+  const int e = (blockIdx.x * kPassThreads + threadIdx.x) * 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (e >= PN) return;
+  const float* cb = cum + (static_cast<long long>(b) * H + h) * nc * Q + Q - 1;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += kPassAhead) {
+    // the loads of kPassAhead chunks are issued before any of their stores
+    float4 v[kPassAhead];
+    float decay[kPassAhead];
+#pragma unroll
+    for (int i = 0; i < kPassAhead; ++i) {
+      if (c0 + i < nc) {
+        v[i] = *reinterpret_cast<const float4*>(
+            states + ((static_cast<long long>(b) * nc + c0 + i) * H + h) * PN + e);
+        decay[i] = expf(cb[static_cast<long long>(c0 + i) * Q]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPassAhead; ++i) {
+      if (c0 + i < nc) {
+        // the state entering chunk 0 is zero and never read: not written
+        if (c0 + i > 0)
+          *reinterpret_cast<float4*>(
+              states + ((static_cast<long long>(b) * nc + c0 + i) * H + h) * PN + e) = s;
+        s = make_float4(fmaf(decay[i], s.x, v[i].x), fmaf(decay[i], s.y, v[i].y),
+                        fmaf(decay[i], s.z, v[i].z), fmaf(decay[i], s.w, v[i].w));
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(state_out + (static_cast<long long>(b) * H + h) * PN + e) = s;
+}
+
+// Phase 3.  Block (c, h, b).  A warp owns 16 query rows of the chunk (row
+// tile mt; warps w and w + 4 share an SM sub-partition and take tiles mt and
+// 7 - mt, so that each sub-partition gets the same work, and the light one
+// takes part of the heavy one's scores, see kKeep).  It computes
+// the inter-chunk term exp(cum_i) (C state_in^T) with the state's hi and lo
+// in shared memory, then, with B's tile in the same buffer, walks the
+// 16-column tiles up to its diagonal: C B^T for the tile, the scores
+// C B^T exp(cum_i - cum_j) dt_j split into hi and lo in registers, and their
+// product with x; then y = that + D x, rounded once.  Nothing holds C B^T
+// beyond one tile and C's fragments are read again from shared memory where
+// they are needed, so two blocks share an SM without spilling.
+// PT: the 8-column tiles of P the accumulators hold (P16 <= 8 * PT).
+template <int PT>
+__global__ void __launch_bounds__(kScanThreads, PT <= 8 ? 2 : 1)
+    ssd_chunk_scan_kernel(const uint16_t* __restrict__ x, const float* __restrict__ dt,
+                          const uint16_t* __restrict__ Bm, const uint16_t* __restrict__ Cm,
+                          const float* __restrict__ Dskip, const float* __restrict__ cum,
+                          const float* __restrict__ states, uint16_t* __restrict__ y, int S,
+                          int H, int P, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, b = blockIdx.z, nc = gridDim.x;
+  const int h = blockIdx.y, g = h / (H / G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Q16 = round16(Q), N16 = round16(N), P16 = round16(P);
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  const int LC = N16 + 8, LX = P16 + 8;
+  float* cumv = reinterpret_cast<float*>(smem4);            // kMaxQ
+  float* dtv = cumv + kMaxQ;                                 // kMaxQ
+  uint16_t* cs = reinterpret_cast<uint16_t*>(dtv + kMaxQ);  // Q16 x LC: C (i, n)
+  uint16_t* xs = cs + Q16 * LC;                              // Q16 x LX: x (j, p)
+  uint16_t* sh = xs + Q16 * LX;                              // P16 x LC: hi(state_in) (p, n),
+  uint16_t* sl = sh + P16 * LC;                              // P16 x LC: lo(state_in), then
+  uint16_t* bs = sh;                                         // Q16 x LC: B (j, n)
+  float4* part = reinterpret_cast<float4*>(                  // the helpers' sums
+      sh + (Q16 > 2 * P16 ? Q16 : 2 * P16) * LC);
+
+  const long long x_row = static_cast<long long>(H) * P, b_row = static_cast<long long>(G) * N;
+  const long long row0 = static_cast<long long>(b) * S + s0;
+  const long long bc0 = row0 * b_row + static_cast<long long>(g) * N;
+  const bool inter = c > 0;  // the state entering the first chunk is zero
+  // B's tile (or C's) into t, padding rows and columns zero-filled
+  auto load_bc = [&](uint16_t* t, const uint16_t* m) {
+    for (int e = tid, nv = N16 / 8; e < Q16 * nv; e += kScanThreads) {
+      const int j = e / nv, v = e - j * nv;
+      const bool in = j < rows && v * 8 < N;
+      cp_async16(t + j * LC + v * 8, m + (in ? bc0 + j * b_row + v * 8 : bc0), in);
+    }
+  };
+  load_bc(cs, Cm);
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mt = warp < 4 ? warp : 11 - warp, i0 = mt * 16 + gq, i1 = i0 + 8;
+  const bool active = mt * 16 < Q16;
+  const uint16_t* xb = x + row0 * x_row + static_cast<long long>(h) * P;
+  for (int e = tid, xv = P16 / 8; e < Q16 * xv; e += kScanThreads) {
+    const int j = e / xv, v = e - j * xv;
+    const bool in = j < rows && v * 8 < P;
+    cp_async16(xs + j * LX + v * 8, in ? xb + j * x_row + v * 8 : xb, in);
+  }
+  if (inter) {
+    // state_in split into hi and lo, kStateBatch loads of 4 floats a thread
+    // in flight at once; padding rows and columns zero
+    const float* sb = states + ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
+    const int nv = N16 / 4, total = P16 * nv;
+    for (int e0 = tid; e0 < total; e0 += kStateBatch * kScanThreads) {
+      float4 v[kStateBatch];
+#pragma unroll
+      for (int u = 0; u < kStateBatch; ++u) {
+        const int e = e0 + u * kScanThreads, p = e / nv, q = e - p * nv;
+        v[u] = e < total && p < P && q * 4 < N
+                   ? *reinterpret_cast<const float4*>(sb + static_cast<long long>(p) * N + q * 4)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kStateBatch; ++u) {
+        const int e = e0 + u * kScanThreads, p = e / nv, q = e - p * nv;
+        if (e < total) {
+          const Split s01 = split(v[u].x, v[u].y), s23 = split(v[u].z, v[u].w);
+          *reinterpret_cast<uint2*>(sh + p * LC + q * 4) = make_uint2(s01.hi, s23.hi);
+          *reinterpret_cast<uint2*>(sl + p * LC + q * 4) = make_uint2(s01.lo, s23.lo);
+        }
+      }
+    }
+  } else {
+    load_bc(bs, Bm);
+  }
+  if (tid < Q16) {
+    // cum in log2 units; the tile's rows past Q take the chunk's last cum,
+    // so that no exponent's argument on or below the diagonal is positive
+    const long long t = (static_cast<long long>(b) * H + h) * nc * Q + s0 + min(tid, Q - 1);
+    cumv[tid] = cum[t] * kLog2e;
+    dtv[tid] = tid < rows ? dt[(static_cast<long long>(b) * S + s0 + tid) * H + h] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  float acc[PT][4];
+#pragma unroll
+  for (int pt = 0; pt < PT; ++pt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+  const float ci0 = active ? cumv[i0] : 0.f, ci1 = active ? cumv[i1] : 0.f;
+  const uint32_t ca_b = a_rows(cs, LC, active ? mt * 16 : 0, 0, lane);
+  if (inter) {
+    if (active) {
+      // C (i, n) @ state_in^T (n, p), the state in hi and lo
+#pragma unroll
+      const uint32_t sh_b = b_rows(sh, LC, 0, 0, lane), lo = P16 * LC * 2;
+      for (int ks = 0; ks < kMaxN / 16; ++ks) {
+        if (ks * 16 < N16) {
+          uint32_t ca[4];
+          ldsm4(ca, ca_b + ks * 32);
+#pragma unroll
+          for (int pp = 0; pp < PT / 2; ++pp) {
+            if (pp * 16 < P16) {
+              uint32_t bh[4], bl[4];
+              const uint32_t o = sh_b + pp * 16 * LC * 2 + ks * 32;
+              ldsm4(bh, o);
+              ldsm4(bl, o + lo);
+              mma_bf16(acc[2 * pp], ca, bh[0], bh[1]);
+              mma_bf16(acc[2 * pp], ca, bl[0], bl[1]);
+              mma_bf16(acc[2 * pp + 1], ca, bh[2], bh[3]);
+              mma_bf16(acc[2 * pp + 1], ca, bl[2], bl[3]);
+            }
+          }
+        }
+      }
+      const float e0 = exp2f(ci0), e1 = exp2f(ci1);
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt) {
+        acc[pt][0] *= e0;
+        acc[pt][1] *= e0;
+        acc[pt][2] *= e1;
+        acc[pt][3] *= e1;
+      }
+    }
+    __syncthreads();  // every warp has read the state; B's tile takes its buffer
+    load_bc(bs, Bm);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  // intra-chunk for row tile `row`, over tiles kk0 .. kk1 - 1 of its
+  // scores (16 columns each, up to the diagonal): the scores times x
+  // (j, p) into out, interleaved with C B^T for the next tile (summed over
+  // even and odd k-steps apart, so that no chain of dependent products is
+  // longer than N16 / 32)
+  const uint32_t bs_b = b_rows(bs, LC, 0, 0, lane), xs_b = b_cols(xs, LX, 0, 0, lane);
+  auto intra = [&](int row, int kk0, int kk1, float(&out)[PT][4]) {
+    const int r0 = row * 16 + gq, r1 = r0 + 8;
+    const float c0 = cumv[r0], c1 = cumv[r1];
+    const uint32_t a_b = a_rows(cs, LC, row * 16, 0, lane);
+    float cn[2][2][4];
+    auto cb_step = [&](int kk, int ks) {
+      uint32_t ca[4], bf4[4];
+      ldsm4(ca, a_b + ks * 32);
+      ldsm4(bf4, bs_b + kk * 16 * LC * 2 + ks * 32);
+      mma_bf16(cn[ks & 1][0], ca, bf4[0], bf4[1]);
+      mma_bf16(cn[ks & 1][1], ca, bf4[2], bf4[3]);
+    };
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cn[u][v][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kMaxN / 16; ++ks)
+      if (ks * 16 < N16) cb_step(kk0, ks);
+    for (int kk = kk0; kk < kk1; ++kk) {
+      // scores: C B^T exp2(cum_i - cum_j) dt_j; on the diagonal tile the
+      // argument is masked (j > i) before the exp2
+      float sc[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = kk * 16 + half * 8 + 2 * tq;
+        const float2 cj = *reinterpret_cast<const float2*>(cumv + j);
+        const float2 dj = *reinterpret_cast<const float2*>(dtv + j);
+        float arg[4] = {c0 - cj.x, c0 - cj.y, c1 - cj.x, c1 - cj.y};
+        if (kk == row) {
+          arg[0] = r0 >= j ? arg[0] : -1e30f;
+          arg[1] = r0 >= j + 1 ? arg[1] : -1e30f;
+          arg[2] = r1 >= j ? arg[2] : -1e30f;
+          arg[3] = r1 >= j + 1 ? arg[3] : -1e30f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[half][e] =
+              (cn[0][half][e] + cn[1][half][e]) * exp2f(arg[e]) * (e & 1 ? dj.y : dj.x);
+          cn[0][half][e] = 0.f;
+          cn[1][half][e] = 0.f;
+        }
+      }
+      const Split a0 = split(sc[0][0], sc[0][1]), a1 = split(sc[0][2], sc[0][3]);
+      const Split a2 = split(sc[1][0], sc[1][1]), a3 = split(sc[1][2], sc[1][3]);
+      const uint32_t ahi[4] = {a0.hi, a1.hi, a2.hi, a3.hi};
+      const uint32_t alo[4] = {a0.lo, a1.lo, a2.lo, a3.lo};
+      const bool next = kk + 1 < kk1;
+      const uint32_t xk = xs_b + kk * 16 * LX * 2;
+#pragma unroll
+      for (int u = 0; u < (PT / 2 > kMaxN / 16 ? PT / 2 : kMaxN / 16); ++u) {
+        if (next && u < kMaxN / 16 && u * 16 < N16) cb_step(kk + 1, u);
+        if (u < PT / 2 && u * 16 < P16) {
+          uint32_t bf4[4];
+          ldsm4_t(bf4, xk + u * 32);
+          mma_bf16(out[2 * u], ahi, bf4[0], bf4[1]);
+          mma_bf16(out[2 * u + 1], ahi, bf4[2], bf4[3]);
+          mma_bf16(out[2 * u], alo, bf4[0], bf4[1]);
+          mma_bf16(out[2 * u + 1], alo, bf4[2], bf4[3]);
+        }
+      }
+    }
+  };
+  // y = out + D x for row tile mt, in fp32, one rounding at the store
+  const float d_h = Dskip[h];
+  uint16_t* yb = y + row0 * x_row + static_cast<long long>(h) * P;
+  auto store = [&](const float(&out)[PT][4]) {
+#pragma unroll
+    for (int pt = 0; pt < PT; ++pt) {
+      const int p = pt * 8 + 2 * tq;
+      if (pt * 8 < P) {
+        if (i0 < rows)
+          *reinterpret_cast<__nv_bfloat162*>(yb + i0 * x_row + p) = __floats2bfloat162_rn(
+              fmaf(d_h, bf(xs[i0 * LX + p]), out[pt][0]),
+              fmaf(d_h, bf(xs[i0 * LX + p + 1]), out[pt][1]));
+        if (i1 < rows)
+          *reinterpret_cast<__nv_bfloat162*>(yb + i1 * x_row + p) = __floats2bfloat162_rn(
+              fmaf(d_h, bf(xs[i1 * LX + p]), out[pt][2]),
+              fmaf(d_h, bf(xs[i1 * LX + p + 1]), out[pt][3]));
+      }
+    }
+  };
+  // Row tiles kKeep and up keep their first kKeep tiles of scores; the warp
+  // that shares their SM sub-partition (row tile 7 - mt, light) computes
+  // the rest after its own row and hands the sum over in shared memory, so
+  // that no warp carries more than about kKeep + 4 tiles' work.
+  const bool helped = mt >= kKeep;
+  if (active) {
+    intra(mt, 0, helped ? kKeep : mt + 1, acc);
+    if (!helped) store(acc);
+  }
+  if (Q16 > kKeep * 16) {
+    const int hr = 7 - mt;
+    if (mt < 8 - kKeep && hr * 16 < Q16) {
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+      intra(hr, kKeep, hr + 1, acc);
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt)
+        part[(mt * PT + pt) * 32 + lane] = make_float4(acc[pt][0], acc[pt][1], acc[pt][2],
+                                                       acc[pt][3]);
+    }
+    __syncthreads();
+    if (active && helped) {
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt) {
+        const float4 v = part[((7 - mt) * PT + pt) * 32 + lane];
+        acc[pt][0] += v.x;
+        acc[pt][1] += v.y;
+        acc[pt][2] += v.z;
+        acc[pt][3] += v.w;
+      }
+      store(acc);
+    }
+  }
+}
+
+bool shape_ok(int B, int S, int H, int P, int G, int N, int chunk) {
+  return chunk >= 16 && chunk <= kMaxQ && N > 0 && N % 8 == 0 && N <= kMaxN && P > 0 &&
+         P % 8 == 0 && P <= kMaxP && G > 0 && H > 0 && H % G == 0 && B > 0 && B <= 65535 &&
+         H <= 65535 && S >= 0;
+}
+
+template <int PT>
+int launch_chunk_scan(const void* x, const void* dt, const void* Bm, const void* Cm,
+                      const void* D, const void* cum, const void* states, void* y, int B, int S,
+                      int H, int P, int G, int N, int Q, cudaStream_t stream) {
+  const cudaError_t err =
+      allow_smem<ssd_chunk_scan_kernel<PT>>(scan_smem_bytes(kMaxQ, kMaxP, kMaxN));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + Q - 1) / Q, H, B);
+  ssd_chunk_scan_kernel<PT><<<grid, kScanThreads, scan_smem_bytes(Q, P, N), stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const float*>(dt),
+      static_cast<const uint16_t*>(Bm), static_cast<const uint16_t*>(Cm),
+      static_cast<const float*>(D), static_cast<const float*>(cum),
+      static_cast<const float*>(states), static_cast<uint16_t*>(y), S, H, P, G, N, Q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x, y (B,S,H,P), Bm, Cm (B,S,G,N) contiguous, of one type; dt (B,S,H), A,
-// D (H,) float32; state (B,H,P,N) float32, written with the state after the
-// last token.  chunk 16-128; P and N multiples of 8 up to 128; G divides H.
+// The fma body.  x, y (B,S,H,P), Bm, Cm (B,S,G,N) contiguous, of one type;
+// dt (B,S,H), A, D (H,) float32; state (B,H,P,N) float32, written with the
+// state after the last token.  chunk 16-128; P and N multiples of 8 up to 128; G divides H.
 // dtype codes: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after
 // the launch.
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
@@ -386,4 +979,50 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
       return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, state, B, S, H, P, G, N, chunk, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The mma body, three launches in order on one stream (nc = ceil(S / chunk)):
+// ssd_chunk_state, ssd_state_pass, ssd_chunk_scan.  x, y (B,S,H,P), Bm, Cm
+// (B,S,G,N) contiguous bfloat16 with 16-byte aligned bases; dt (B,S,H), A, D
+// (H,) float32; the workspace states (B,nc,H,P,N) and cum (B,H,nc*chunk)
+// float32; state (B,H,P,N) float32.  chunk 16-128; P and N multiples of 8 up
+// to 128; G divides H.  Each returns
+// cudaGetLastError() after its launch.
+extern "C" int ssd_chunk_state(const void* x, const void* dt, const void* A, const void* Bm,
+                               void* states, void* cum, int B, int S, int H, int P, int G,
+                               int N, int chunk, void* stream) {
+  if (!shape_ok(B, S, H, P, G, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t err =
+      allow_smem<ssd_chunk_state_kernel>(state_smem_bytes(kMaxQ, kMaxP, kMaxN));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + chunk - 1) / chunk, H, B);
+  ssd_chunk_state_kernel<<<grid, kStateThreads, state_smem_bytes(chunk, P, N),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const uint16_t*>(Bm),
+      static_cast<float*>(states), static_cast<float*>(cum), S, H, P, G, N, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssd_state_pass(void* states, const void* cum, void* state, int B, int S, int H,
+                              int P, int N, int chunk, void* stream) {
+  if (!shape_ok(B, S, H, P, 1, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  const int PN = P * N;
+  const dim3 grid((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
+  ssd_state_pass_kernel<<<grid, kPassThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(states), static_cast<const float*>(cum), static_cast<float*>(state), H,
+      PN, chunk, (S + chunk - 1) / chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ssd_chunk_scan(const void* x, const void* dt, const void* Bm, const void* Cm,
+                              const void* D, const void* cum, const void* states, void* y, int B,
+                              int S, int H, int P, int G, int N, int chunk, void* stream) {
+  if (!shape_ok(B, S, H, P, G, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return round16(P) <= 64
+             ? launch_chunk_scan<8>(x, dt, Bm, Cm, D, cum, states, y, B, S, H, P, G, N, chunk, st)
+             : launch_chunk_scan<16>(x, dt, Bm, Cm, D, cum, states, y, B, S, H, P, G, N, chunk, st);
 }

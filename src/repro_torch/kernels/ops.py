@@ -12,7 +12,7 @@ import torch
 from .flash_attention.kernel import flash_attention_cuda
 from .flash_attention.ref import mha_ref
 from .rglru.kernel import rglru_cuda
-from .rglru.ref import rglru_sequential
+from .rglru.ref import rglru_assoc, rglru_sequential
 from .rmsnorm.kernel import rmsnorm_cuda
 from .rmsnorm.ref import rmsnorm_ref
 from .ssd.kernel import ssd_cuda
@@ -67,10 +67,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, chunk=0,
 def rglru_scan(log_a, gx, h0=None):
     """log_a, gx (B,S,W) -> (y (B,S,W) in ``gx.dtype``, h_last (B,W) fp32).
 
-    The kernel computes ``rglru_sequential``'s function at every S, so the
-    card sends prefill and decode (S = 1) alike to it."""
+    The kernel takes every S, so the card sends prefill and decode (S = 1)
+    alike to it; the CPU path is ``rglru_assoc`` from 64 steps on and
+    ``rglru_sequential`` below, as the JAX package's CPU path."""
     if _on_cuda(gx):
         return rglru_cuda(log_a, gx, h0)
+    if gx.shape[1] >= 64:
+        return rglru_assoc(log_a, gx, h0)
     return rglru_sequential(log_a, gx, h0)
 
 

@@ -13,6 +13,11 @@ The gates are block-diagonal linear maps (num_heads blocks), computed by
 ``gx``:
 
     h_t = exp(log_a_t) ⊙ h_{t-1} + sqrt(1 - exp(2 log_a_t)) ⊙ gx_t
+
+Two scans of one function: ``rglru_sequential`` (one step at a time, the
+oracle, and the CPU path below 64 steps) and ``rglru_assoc`` (a log-depth
+associative scan of the (a, u) pairs, the CPU path from 64 steps on, as in
+the JAX package).
 """
 from __future__ import annotations
 
@@ -37,6 +42,32 @@ def rglru_sequential(log_a: torch.Tensor, gx: torch.Tensor,
         h = a[:, t] * h + u[:, t]
         ys[:, t] = h
     return ys.to(gx.dtype), h
+
+
+def rglru_assoc(log_a: torch.Tensor, gx: torch.Tensor,
+                h0: torch.Tensor | None = None):
+    """``rglru_sequential``'s function by a log-depth associative scan of
+    the pairs (a_t, u_t) under (a1, u1) ∘ (a2, u2) = (a1 a2, u1 a2 + u2),
+    with h0 folded in as a virtual step 0 (a = 1, u = h0).
+
+    log_a, gx (B,S,W) -> (y (B,S,W) in ``gx.dtype``, h_S (B,W) fp32)."""
+    la = log_a.float()
+    u = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=1e-12)) \
+        * gx.float()
+    a = torch.exp(la)
+    if h0 is not None:
+        a = torch.cat([torch.ones_like(a[:, :1]), a], 1)
+        u = torch.cat([h0.float()[:, None], u], 1)
+    # Hillis-Steele: after the pass with offset d, step t holds the
+    # composition of steps max(0, t - 2d + 1) .. t
+    d = 1
+    while d < u.shape[1]:
+        u = torch.cat([u[:, :d], u[:, :-d] * a[:, d:] + u[:, d:]], 1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
+        d *= 2
+    if h0 is not None:
+        u = u[:, 1:]
+    return u.to(gx.dtype), u[:, -1]
 
 
 def rglru_gates(x: torch.Tensor, p: dict, *, c: float = 8.0):

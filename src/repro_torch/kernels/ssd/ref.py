@@ -6,7 +6,12 @@ Two scans of one function:
 * ``ssd_sequential``: the exact recurrence, one timestep at a time (the
   ground truth, and the CPU path when S is not a multiple of the chunk).
 * ``ssd_chunked``: the SSD chunked decomposition (intra-chunk quadratic term
-  plus inter-chunk state passing), the algorithm the CUDA kernel implements.
+  plus inter-chunk state passing), the algorithm the CUDA kernel implements,
+  composed of its three phases, each the plain version of one launch of the
+  kernel's mma body: ``ssd_chunk_state`` (each chunk's cumsum and local end
+  state), ``ssd_state_passing`` (the state entering each chunk) and
+  ``ssd_chunk_scan`` (y).  The phases take any S: like the kernel they pad
+  the last chunk with dt = 0 and x = B = C = 0.
 
 Shapes follow Mamba-2 (arXiv:2405.21060):
 
@@ -58,57 +63,105 @@ def ssd_sequential(x, dt, A, Bm, Cm, D):
     return y.to(x.dtype), state
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
-    """The SSD algorithm: O(S·chunk) intra-chunk + O(S/chunk) state pass."""
+def split_bf16(v: torch.Tensor) -> torch.Tensor:
+    """v as the mma body feeds an fp32 operand to the tensor cores: the sum
+    of hi = bf16(v) and lo = bf16(v - hi), about 16 bits of mantissa."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _chunked(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, nc, chunk, ...), the last chunk padded with 0."""
+    B, S = t.shape[:2]
+    nc = -(-S // chunk)
+    pad = torch.zeros((B, nc * chunk - S, *t.shape[2:]), dtype=t.dtype,
+                      device=t.device)
+    return torch.cat([t, pad], 1).reshape(B, nc, chunk, *t.shape[2:])
+
+
+def ssd_chunk_state(x, dt, A, Bm, *, chunk: int = 128, round_operand=None):
+    """Phase 1: (states (B,nc,H,P,N) fp32, cum (B,H,nc·chunk) fp32).
+
+    cum is the within-chunk inclusive cumsum of dt·A; states[:, c] is the
+    state chunk c leaves from a zero state, sum_j exp(total - cum_j) dt_j
+    x_j B_jᵀ.  ``round_operand`` (None: exact fp32) is applied to the fp32
+    operand w∘x, as the kernel rounds it for the tensor cores."""
     B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    assert S % chunk == 0, (S, chunk)
-    nc = S // chunk
     f32 = torch.float32
+    xf = _chunked(x.to(f32), chunk)                         # (B,nc,Q,H,P)
+    dtf = _chunked(dt.to(f32), chunk)                       # (B,nc,Q,H)
+    Bh = _expand_groups(_chunked(Bm.to(f32), chunk).flatten(1, 2), H)
+    Bh = Bh.reshape(*dtf.shape, -1)                         # (B,nc,Q,H,N)
+    cum = torch.cumsum(dtf * A.to(f32), dim=2)              # inclusive
+    w = torch.exp(cum[:, :, -1:] - cum) * dtf               # decay to the end
+    wx = w[..., None] * xf
+    if round_operand is not None:
+        wx = round_operand(wx)
+    states = torch.einsum("bcqhp,bcqhn->bchpn", wx, Bh)
+    return states, cum.permute(0, 3, 1, 2).reshape(B, H, -1)
 
-    xf = x.to(f32).reshape(B, nc, chunk, H, P)
-    dtf = dt.to(f32).reshape(B, nc, chunk, H)
-    Bh = _expand_groups(Bm.to(f32), H).reshape(B, nc, chunk, H, N)
-    Ch = _expand_groups(Cm.to(f32), H).reshape(B, nc, chunk, H, N)
 
-    dA = dtf * A.to(f32)                          # (B,nc,Q,H) log-decay
-    cum = torch.cumsum(dA, dim=2)                 # inclusive cumulative
-    total = cum[:, :, -1:]                        # (B,nc,1,H)
+def ssd_state_passing(states, cum, *, chunk: int = 128):
+    """Phase 2: (states_in (B,nc,H,P,N), final state (B,H,P,N)), both fp32:
+    the state entering each chunk and the state after the last."""
+    B, nc, H, P, N = states.shape
+    total = cum.reshape(B, H, nc, chunk)[..., -1]           # (B,H,nc)
+    state = torch.zeros((B, H, P, N), dtype=torch.float32,
+                        device=states.device)
+    states_in = torch.empty_like(states)
+    for c in range(nc):
+        states_in[:, c] = state
+        state = (state * torch.exp(total[:, :, c])[..., None, None]
+                 + states[:, c])
+    return states_in, state
 
-    # intra-chunk quadratic term: att[i,j] = exp(cum_i - cum_j) for i >= j.
-    # The argument is masked BEFORE the exp: masking the exp's output leaves
-    # exp(+big) = inf on the dead branch, whose gradient is inf * 0 = NaN.
-    li = cum[:, :, :, None, :]                    # (B,nc,Q,1,H)
-    lj = cum[:, :, None, :, :]                    # (B,nc,1,Q,H)
+
+def ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, *, chunk: int = 128,
+                   round_operand=None):
+    """Phase 3: y (B,S,H,P) in ``x.dtype``: the intra-chunk term
+    (C·Bᵀ ∘ L ∘ dt_j)·x, the inter-chunk term exp(cum_i) C·state_in and
+    the D skip, rounded once.  ``round_operand`` (None: exact fp32) is
+    applied to the fp32 operands the kernel rounds for the tensor cores:
+    the scores and the state entering the chunk."""
+    B, S, H, P = x.shape
+    f32 = torch.float32
+    xf = _chunked(x.to(f32), chunk)                         # (B,nc,Q,H,P)
+    dtf = _chunked(dt.to(f32), chunk)                       # (B,nc,Q,H)
+    Bh, Ch = (_expand_groups(_chunked(m.to(f32), chunk).flatten(1, 2), H)
+              .reshape(*dtf.shape, -1) for m in (Bm, Cm))   # (B,nc,Q,H,N)
+    nc = dtf.shape[1]
+    cum = cum.reshape(B, H, nc, chunk).permute(0, 2, 3, 1)  # (B,nc,Q,H)
+
+    # att[i,j] = exp(cum_i - cum_j) for i >= j.  The argument is masked
+    # BEFORE the exp: masking the exp's output leaves exp(+big) = inf on the
+    # dead branch, whose gradient is inf * 0 = NaN.
+    li = cum[:, :, :, None, :]                              # (B,nc,Q,1,H)
+    lj = cum[:, :, None, :, :]                              # (B,nc,1,Q,H)
     idx = torch.arange(chunk, device=x.device)
     causal = idx[:, None] >= idx[None, :]
     arg = torch.where(causal[None, None, :, :, None], li - lj,
                       torch.tensor(-1e30, dtype=f32, device=x.device))
-    att = torch.exp(arg)                          # (B,nc,Q,Q,H)
     cb = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh)
-    y_intra = torch.einsum("bcqsh,bcqsh,bcsh,bcshp->bcqhp",
-                           cb, att, dtf, xf)
-
-    # per-chunk end state: sum_j exp(total - cum_j) * dt_j * B_j x_j
-    decay_to_end = torch.exp(total - cum)         # (B,nc,Q,H)
-    chunk_state = torch.einsum("bcqh,bcqh,bcqhn,bcqhp->bchpn",
-                               decay_to_end, dtf, Bh, xf)
-
-    # inter-chunk recurrence over nc chunks
-    state = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
-    states_in = torch.empty((B, nc, H, P, N), dtype=f32, device=x.device)
-    for c in range(nc):
-        states_in[:, c] = state                   # state entering the chunk
-        state = (state * torch.exp(total[:, c, 0])[..., None, None]
-                 + chunk_state[:, c])
-
-    # inter-chunk contribution: C_i exp(cum_i) state_in
-    y_inter = torch.einsum("bcqh,bcqhn,bchpn->bcqhp",
-                           torch.exp(cum), Ch, states_in)
-
-    y = (y_intra + y_inter).reshape(B, S, H, P)
+    scores = cb * torch.exp(arg) * dtf[:, :, None]          # (B,nc,Q,Q,H)
+    if round_operand is not None:
+        scores = round_operand(scores)
+        states_in = round_operand(states_in)
+    y_intra = torch.einsum("bcqsh,bcshp->bcqhp", scores, xf)
+    y_inter = torch.einsum("bcqh,bcqhn,bchpn->bcqhp", torch.exp(cum), Ch,
+                           states_in)
+    y = (y_intra + y_inter).reshape(B, nc * chunk, H, P)[:, :S]
     y = y + x.to(f32) * D.to(f32)[None, None, :, None]
-    return y.to(x.dtype), state
+    return y.to(x.dtype)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
+    """The SSD algorithm: O(S·chunk) intra-chunk + O(S/chunk) state pass,
+    the three phases in order."""
+    assert x.shape[1] % chunk == 0, (x.shape[1], chunk)
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    states_in, state = ssd_state_passing(states, cum, chunk=chunk)
+    return ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in,
+                          chunk=chunk), state
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm, D):

@@ -5,7 +5,8 @@ JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32,
 the SSD scan 2e-3 fp32 / 5e-2 bf16), and the serving path on the card
 against the same path on the CPU.  Each body of a kernel is held on its own
 (flash attention's sm90, mma and fp32 bodies, rmsnorm's one-read and generic
-bodies), and the launch counts by body show which one ran.  This file
+bodies, the SSD scan's mma and fma bodies, the RG-LRU scan's segmented and
+serial bodies), and the launch counts by body show which one ran.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -23,11 +24,13 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.rglru.kernel import rglru_cuda
-from repro_torch.kernels.rglru.ref import rglru_sequential
+from repro_torch.kernels.rglru.ref import rglru_assoc, rglru_sequential
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd.kernel import ssd_cuda
-from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
+from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
+                                         ssd_chunk_state, ssd_chunked,
+                                         ssd_sequential, ssd_state_passing)
 from repro_torch.models import init_cache, init_params
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -329,6 +332,138 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ssd_cuda(x, dt, A, Bm, Cm, D, chunk=256)
     with pytest.raises(TypeError, match="one dtype"):
         ssd_cuda(x, dt, A, Bm.bfloat16(), Cm, D, chunk=16)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (4, 512, 24, 64, 1, 128, 128),    # mamba2-130m's serving shape
+    (2, 1000, 24, 64, 1, 128, 128),   # ragged last chunk
+    (2, 256, 8, 64, 2, 128, 64),      # two groups, chunk 64
+    (1, 90, 3, 24, 3, 8, 20),         # chunk not a multiple of 16, N 8
+    (1, 64, 2, 128, 1, 32, 32),       # P 128
+    (1, 37, 2, 16, 1, 16, 16),        # the smoke config, ragged
+])
+def test_ssd_mma_body_matches_plain(cuda, B, S, H, P, G, N, chunk):
+    args = _ssd_inputs(cuda, B, S, H, P, G, N, torch.bfloat16)
+    before = ssd_cuda.launches_by_body["mma"]
+    y, state = ssd_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches_by_body["mma"] == before + 1
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    want_y, want_state = (ssd_chunked(*args, chunk=chunk) if S % chunk == 0
+                          else ssd_sequential(*args))
+    assert_allclose(f32(y), f32(want_y), rtol=5e-2, atol=5e-2)
+    assert_allclose(f32(state), f32(want_state), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (4, 512, 24, 64, 1, 128, 128),    # mamba2-130m's serving shape
+    (2, 1000, 24, 64, 1, 128, 128),   # ragged last chunk
+    (2, 256, 8, 64, 2, 128, 64),      # two groups, chunk 64
+])
+def test_ssd_mma_body_keeps_the_split_operands(cuda, B, S, H, P, G, N,
+                                               chunk):
+    """y within one bf16 step (2^-7) of the plain phases run with the fp32
+    operands (w∘x, the scores, the state) split into bf16 hi + lo as the
+    body splits them.  Rounding them to plain bf16 instead puts y further
+    off than that (tests/test_torch_kernels.py), which the bf16 tolerance
+    of 5e-2 against ``ssd_chunked`` does not show."""
+    x, dt, A, Bm, Cm, D = args = _ssd_inputs(cuda, B, S, H, P, G, N,
+                                             torch.bfloat16)
+    y, _ = ssd_cuda(*args, chunk=chunk)
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk,
+                                  round_operand=split_bf16)
+    states_in, _ = ssd_state_passing(states, cum, chunk=chunk)
+    want = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, chunk=chunk,
+                          round_operand=split_bf16)
+    assert_allclose(f32(y), f32(want), rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_ssd_mma_body_reads_unaligned_views(cuda):
+    """x, Bm and Cm one element off a 16-byte boundary: the wrapper hands
+    the body aligned copies."""
+    B, S, H, P, G, N = 1, 200, 4, 32, 1, 64
+    args = list(_ssd_inputs(cuda, B, S, H, P, G, N, torch.bfloat16))
+    for i in (0, 3, 4):
+        t = args[i]
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        args[i] = flat[1:].view(t.shape).copy_(t)
+        assert args[i].data_ptr() % 16 and args[i].is_contiguous()
+    y, state = ssd_cuda(*args, chunk=64)
+    want_y, want_state = ssd_sequential(*args)
+    assert_allclose(f32(y), f32(want_y), rtol=5e-2, atol=5e-2)
+    assert_allclose(f32(state), f32(want_state), rtol=2e-3, atol=2e-3)
+
+
+def test_ssd_fma_body_forced_on_bf16_matches_mma(cuda):
+    """``body="fma"`` runs the fp32-product body on bf16 inputs."""
+    args = _ssd_inputs(cuda, 2, 300, 8, 64, 1, 128, torch.bfloat16)
+    before = dict(ssd_cuda.launches_by_body)
+    y_fma, s_fma = ssd_cuda(*args, body="fma")
+    y_mma, s_mma = ssd_cuda(*args)
+    torch.cuda.synchronize()
+    assert {b: ssd_cuda.launches_by_body[b] - before[b]
+            for b in before} == {"mma": 1, "fma": 1}
+    assert_allclose(f32(y_mma), f32(y_fma), rtol=5e-2, atol=5e-2)
+    assert_allclose(f32(s_mma), f32(s_fma), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W", [(4, 512, 4096), (1, 2176, 4096),
+                                   (2, 1000, 200), (2, 37, 200),
+                                   (3, 64, 130)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_segmented_body_matches_plain(cuda, dtype, B, S, W, with_h0):
+    """The segmented body against both plain scans, at the serving shape,
+    the serve_check prompt (2176), ragged S and W; S 37 forced (it takes
+    every S; ``select_body`` sends it S >= 64)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, W, generator=g, device=cuda)).to(dtype)
+    gx = torch.randn(B, S, W, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn(B, W, generator=g, device=cuda) if with_h0 else None
+    before = rglru_cuda.launches_by_body["segmented"]
+    y, h_last = rglru_cuda(la, gx, h0, body="segmented")
+    torch.cuda.synchronize()
+    assert rglru_cuda.launches_by_body["segmented"] == before + 1
+    assert y.dtype == dtype and h_last.dtype == torch.float32
+    t = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for want_y, want_h in (rglru_sequential(la, gx, h0),
+                           rglru_assoc(la, gx, h0)):
+        assert_allclose(f32(y), f32(want_y), rtol=t, atol=t)
+        assert_allclose(f32(h_last), f32(want_h), rtol=1e-4, atol=1e-4)
+
+
+def test_scan_launches_count_by_body(cuda):
+    """bf16 SSD inputs take the mma body and fp32 the fma body; RG-LRU
+    prefill (S >= 64) takes the segmented body and decode the serial one."""
+    def delta(fn, call):
+        before, total = dict(fn.launches_by_body), fn.launches
+        call()
+        torch.cuda.synchronize()
+        assert fn.launches == total + 1
+        return {b: fn.launches_by_body[b] - before[b] for b in before}
+
+    for dtype, body in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        args = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16, dtype)
+        assert delta(ssd_cuda, lambda: ssd_cuda(*args, chunk=16)) == {
+            b: int(b == body) for b in ("mma", "fma")}
+    for S, body in ((64, "segmented"), (512, "segmented"), (63, "serial"),
+                    (1, "serial")):
+        la = torch.zeros(4, S, 4096, device=cuda)
+        h0 = torch.zeros(4, 4096, device=cuda)
+        assert delta(rglru_cuda, lambda: rglru_cuda(la, la, h0)) == {
+            b: int(b == body) for b in ("segmented", "serial")}
+
+
+def test_scan_wrappers_raise_on_a_body_that_does_not_take_the_inputs(cuda):
+    args = _ssd_inputs(cuda, 1, 32, 2, 16, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="body"):
+        ssd_cuda(*args, chunk=16, body="mma")
+    with pytest.raises(ValueError, match="body"):
+        ssd_cuda(*args, chunk=16, body="wgmma")
+    la = torch.zeros(1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="body"):
+        rglru_cuda(la, la, body="parallel")
 
 
 def test_serving_on_card_matches_cpu(cuda):

@@ -1,16 +1,20 @@
 """The choice of kernel body, on CPU tensors.
 
-``select_body`` of the flash-attention and rmsnorm wrappers is a pure
-function of dtype, shape, base address and strides: these tests hold it
-without a card, including the inputs that no body takes (which raise).  The
-bodies themselves run in ``test_torch_cuda.py``.
+``select_body`` of the flash-attention, rmsnorm, SSD and RG-LRU wrappers is
+a pure function of dtype, shape, base address and strides: these tests hold
+it without a card, including the inputs that no body takes (which raise).
+The bodies themselves run in ``test_torch_cuda.py``.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import select_body as flash_body
 from repro_torch.kernels.flash_attention.kernel import tma_strides
+from repro_torch.kernels.rglru import kernel as rglru
+from repro_torch.kernels.rglru.kernel import select_body as rglru_body
 from repro_torch.kernels.rmsnorm.kernel import select_body as rms_body
+from repro_torch.kernels.ssd import kernel as ssd
+from repro_torch.kernels.ssd.kernel import select_body as ssd_body
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -161,3 +165,103 @@ def test_rmsnorm_misaligned_inputs_take_generic():
 def test_rmsnorm_select_raises_on_what_no_body_takes(make, exc, match):
     with pytest.raises(exc, match=match):
         rms_body(*make())
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def ssd_args(B=2, S=512, H=24, P=64, G=1, N=128, dtype=BF16):
+    return (torch.zeros(B, S, H, P, dtype=dtype), torch.zeros(B, S, H),
+            torch.zeros(H), torch.zeros(B, S, G, N, dtype=dtype),
+            torch.zeros(B, S, G, N, dtype=dtype), torch.zeros(H))
+
+
+@pytest.mark.parametrize("S,chunk", [(512, 128), (1000, 128), (37, 16),
+                                     (256, 64), (1, 128), (0, 128)])
+def test_ssd_bf16_takes_mma_fp32_takes_fma(S, chunk):
+    assert ssd_body(*ssd_args(S=S), chunk=chunk) == "mma"
+    assert ssd_body(*ssd_args(S=S, dtype=F32), chunk=chunk) == "fma"
+
+
+@pytest.mark.parametrize("P,N,G", [(8, 8, 1), (24, 16, 3), (128, 128, 2),
+                                   (64, 128, 24)])
+def test_ssd_mma_takes_every_head_and_state_dim(P, N, G):
+    assert ssd_body(*ssd_args(H=24, P=P, G=G, N=N)) == "mma"
+
+
+@pytest.mark.parametrize("make,exc,match", [
+    (lambda: ssd_args(dtype=torch.float16), TypeError, "float32/bfloat16"),
+    (lambda: (*ssd_args()[:3], ssd_args(dtype=F32)[3], *ssd_args()[4:]),
+     TypeError, "one dtype"),
+    (lambda: ssd_args(H=24, G=5), ValueError, "divide"),
+    (lambda: ssd_args(P=136), ValueError, "P=136"),
+    (lambda: ssd_args(N=12), ValueError, "N=12"),
+    (lambda: (ssd_args()[0][0], *ssd_args()[1:]), ValueError, "expected"),
+    (lambda: (*ssd_args()[:2], torch.zeros(5), *ssd_args()[3:]), ValueError,
+     "agree"),
+    (lambda: (ssd_args()[0].transpose(2, 3).contiguous().transpose(2, 3),
+              *ssd_args()[1:]), ValueError, "contiguous"),
+    (lambda: ssd_args(B=65536, S=0), ValueError, "65535"),
+])
+def test_ssd_select_raises_on_what_no_body_takes(make, exc, match):
+    with pytest.raises(exc, match=match):
+        ssd_body(*make())
+
+
+@pytest.mark.parametrize("chunk", [8, 256])
+def test_ssd_select_raises_on_a_chunk_outside_16_128(chunk):
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_body(*ssd_args(), chunk=chunk)
+
+
+def test_ssd_counts_start_at_zero_by_body():
+    ssd.ssd_cuda.launches = 5
+    ssd.reset_counts()
+    assert ssd.ssd_cuda.launches == 0
+    assert ssd.ssd_cuda.launches_by_body == {"mma": 0, "fma": 0}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def lru_args(B=4, S=512, W=4096, dtype=F32, h0=True):
+    return (torch.zeros(B, S, W, dtype=dtype),
+            torch.zeros(B, S, W, dtype=dtype),
+            torch.zeros(B, W) if h0 else None)
+
+
+@pytest.mark.parametrize("S,want", [(64, "segmented"), (512, "segmented"),
+                                    (2176, "segmented"), (1000, "segmented"),
+                                    (63, "serial"), (37, "serial"),
+                                    (1, "serial"), (0, "serial")])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("h0", [False, True])
+def test_rglru_prefill_takes_segmented_decode_takes_serial(S, want, dtype, h0):
+    assert rglru_body(*lru_args(S=S, W=200, dtype=dtype, h0=h0)) == want
+
+
+@pytest.mark.parametrize("make,exc,match", [
+    (lambda: lru_args(dtype=torch.float16), TypeError, "float32/bfloat16"),
+    (lambda: (lru_args()[0], lru_args(dtype=BF16)[1], None), TypeError,
+     "one dtype"),
+    (lambda: (*lru_args(W=8)[:2], torch.zeros(4, 8, dtype=BF16)), ValueError,
+     "h0"),
+    (lambda: (*lru_args(W=8)[:2], torch.zeros(4, 9)), ValueError, "h0"),
+    (lambda: (lru_args(W=8)[0], lru_args(S=4, W=8)[1], None), ValueError,
+     "one shape"),
+    (lambda: (lru_args(W=8)[0].transpose(1, 2), lru_args(W=8)[1]
+              .transpose(1, 2), None), ValueError, "contiguous"),
+    (lambda: lru_args(B=65536, S=1, W=1), ValueError, "65535"),
+])
+def test_rglru_select_raises_on_what_no_body_takes(make, exc, match):
+    with pytest.raises(exc, match=match):
+        rglru_body(*make())
+
+
+def test_rglru_counts_start_at_zero_by_body():
+    rglru.rglru_cuda.launches = 3
+    rglru.reset_counts()
+    assert rglru.rglru_cuda.launches == 0
+    assert rglru.rglru_cuda.launches_by_body == {"segmented": 0, "serial": 0}

@@ -18,6 +18,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_mask as jax_mask
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
 from repro.kernels.rglru.kernel import rglru_pallas
+from repro.kernels.rglru.ref import rglru_assoc as jax_rglru_assoc
 from repro.kernels.rglru.ref import rglru_gates as jax_rglru_gates
 from repro.kernels.rglru.ref import rglru_sequential as jax_rglru_sequential
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
@@ -30,12 +31,15 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
 from repro_torch.kernels.rglru.kernel import rglru_cuda
-from repro_torch.kernels.rglru.ref import rglru_gates, rglru_sequential
+from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_gates,
+                                           rglru_sequential)
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd.kernel import ssd_cuda
-from repro_torch.kernels.ssd.ref import (ssd_chunked, ssd_decode_step,
-                                         ssd_sequential)
+from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
+                                         ssd_chunk_state, ssd_chunked,
+                                         ssd_decode_step, ssd_sequential,
+                                         ssd_state_passing)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -180,9 +184,53 @@ def test_rglru_sequential_matches_jax(S, W, with_h0):
                          interpret=True)):
         assert_allclose(f32(y), f32(want_y), rtol=1e-4, atol=1e-4)
         assert_allclose(f32(h_last), f32(want_h), rtol=1e-4, atol=1e-4)
+    # from 64 steps on the CPU path is rglru_assoc, as the JAX package's
+    y_ops, h_ops = ops.rglru_scan(torch.from_numpy(la), torch.from_numpy(gx),
+                                  th0)
+    y_assoc, h_assoc = rglru_assoc(torch.from_numpy(la),
+                                   torch.from_numpy(gx), th0)
+    assert torch.equal(y_ops, y_assoc) and torch.equal(h_ops, h_assoc)
+
+
+@pytest.mark.parametrize("S", [64, 200, 384])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_assoc_matches_jax(S, with_h0):
+    """The log-depth scan against JAX's ``rglru_assoc`` and both sequential
+    scans, at 1e-4; ``ops.rglru_scan`` takes it on the CPU from 64 steps."""
+    la, gx, h0 = _rglru_inputs(2, S, 96)
+    h0 = h0 if with_h0 else None
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, h_last = rglru_assoc(torch.from_numpy(la), torch.from_numpy(gx), th0)
+    assert y.dtype == torch.float32 and h_last.dtype == torch.float32
+    assert y.shape == (2, S, 96) and h_last.shape == (2, 96)
+    for want_y, want_h in (
+            jax_rglru_assoc(jnp.asarray(la), jnp.asarray(gx), jh0),
+            jax_rglru_sequential(jnp.asarray(la), jnp.asarray(gx), jh0),
+            rglru_sequential(torch.from_numpy(la), torch.from_numpy(gx), th0)):
+        assert_allclose(f32(y), f32(want_y), rtol=1e-4, atol=1e-4)
+        assert_allclose(f32(h_last), f32(want_h), rtol=1e-4, atol=1e-4)
     y_ops, h_ops = ops.rglru_scan(torch.from_numpy(la), torch.from_numpy(gx),
                                   th0)
     assert torch.equal(y_ops, y) and torch.equal(h_ops, h_last)
+
+
+def test_rglru_cpu_path_below_64_steps_is_sequential():
+    la, gx, h0 = _rglru_inputs(2, 63, 16)
+    args = (torch.from_numpy(la), torch.from_numpy(gx), torch.from_numpy(h0))
+    for got, want in zip(ops.rglru_scan(*args), rglru_sequential(*args)):
+        assert torch.equal(got, want)
+
+
+def test_rglru_assoc_keeps_gx_dtype():
+    la, gx, _ = _rglru_inputs(1, 70, 8)
+    y, h_last = rglru_assoc(torch.from_numpy(la),
+                            torch.from_numpy(gx).bfloat16())
+    assert y.dtype == torch.bfloat16 and h_last.dtype == torch.float32
+    want_y, want_h = jax_rglru_assoc(jnp.asarray(la),
+                                     jnp.asarray(gx).astype(jnp.bfloat16))
+    assert_allclose(f32(y), f32(want_y), **tol("bfloat16"))
+    assert_allclose(f32(h_last), f32(want_h), rtol=1e-4, atol=1e-4)
 
 
 def test_rglru_sequential_keeps_gx_dtype_and_fp32_state():
@@ -322,6 +370,103 @@ def test_ssd_decode_step_matches_jax(G):
     assert got_state.dtype == torch.float32 and got_y.shape == (B, H, P)
     assert_allclose(f32(got_state), f32(want_state), rtol=1e-4, atol=1e-4)
     assert_allclose(f32(got_y), f32(want_y), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(256, 64), (200, 64), (90, 20)])
+def test_ssd_phases_match_jax(S, chunk):
+    """The three phases, composed, at any S (a ragged last chunk padded as
+    the kernel pads it): y and the final state against JAX's sequential
+    scan, and against JAX's chunked scan where S is whole chunks."""
+    arrays = _ssd_inputs(2, S, 4, 24, 2, 16)
+    jax_args, torch_args = _ssd_both(arrays, "float32")
+    x, dt, A, Bm, Cm, D = torch_args
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    nc = -(-S // chunk)
+    assert states.shape == (2, nc, 4, 24, 16)
+    assert cum.shape == (2, 4, nc * chunk)
+    assert states.dtype == cum.dtype == torch.float32
+    states_in, state = ssd_state_passing(states, cum, chunk=chunk)
+    assert torch.equal(states_in[:, 0], torch.zeros_like(states_in[:, 0]))
+    y = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, chunk=chunk)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    assert_allclose(f32(y), f32(jax_ssd_sequential(*jax_args)),
+                    **_ssd_tol("float32"))
+    assert_allclose(f32(state), f32(_jax_fold(jax_args)), rtol=1e-4,
+                    atol=1e-4)
+    if S % chunk == 0:
+        assert_allclose(f32(y), f32(jax_ssd_chunked(*jax_args, chunk=chunk)),
+                        **_ssd_tol("float32"))
+        y_chk, state_chk = ssd_chunked(*torch_args, chunk=chunk)
+        assert torch.equal(y_chk, y) and torch.equal(state_chk, state)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 512, 4, 64, 1, 128, 128),     # mamba2-130m's head, state and chunk
+    (1, 256, 4, 32, 2, 64, 64),       # grouped B/C
+])
+def test_ssd_mma_operand_rounding_holds_bf16_tolerance(B, S, H, P, G, N,
+                                                       chunk, capsys):
+    """The mma body's precision design, in plain torch: bf16 x, B and C (the
+    served inputs, exact on the tensor cores) and the fp32 operands w∘x,
+    the scores and the state split into bf16 hi + lo.  y against JAX's
+    ``ssd_chunked`` at the bf16 tolerance 5e-2 and the final state at the
+    fp32 one 2e-3; the split's error beside plain bf16 rounding's."""
+    jax_args, (x, dt, A, Bm, Cm, D) = _ssd_both(
+        _ssd_inputs(B, S, H, P, G, N), "bfloat16")
+    want_y = f32(jax_ssd_chunked(*jax_args, chunk=chunk))
+    # the exact fp32 function of these (bf16) inputs, before any rounding
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    states_in, exact_state = ssd_state_passing(states, cum, chunk=chunk)
+    exact_y = f32(ssd_chunk_scan(x.float(), dt, Bm, Cm, D, cum, states_in,
+                                 chunk=chunk))
+    errs = {}
+    for name, rnd in (("split", split_bf16),
+                      ("bf16", lambda v: v.bfloat16().float())):
+        states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk,
+                                      round_operand=rnd)
+        states_in, state = ssd_state_passing(states, cum, chunk=chunk)
+        y = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, chunk=chunk,
+                           round_operand=rnd)
+        y_f32 = ssd_chunk_scan(x.float(), dt, Bm, Cm, D, cum, states_in,
+                               chunk=chunk, round_operand=rnd)
+        errs[name] = dict(
+            y_vs_jax=float(np.abs(f32(y) - want_y).max()),
+            y_before_store=float(np.abs(f32(y_f32) - exact_y).max()),
+            state=float((state - exact_state).abs().max()))
+        if name == "split":
+            assert_allclose(f32(y), want_y, **_ssd_tol("bfloat16"))
+            assert_allclose(f32(state), f32(exact_state),
+                            **_ssd_tol("float32"))
+    with capsys.disabled():
+        print(f"\nssd mma operands at {(B, S, H, P, G, N, chunk)}, max abs "
+              f"err: {errs}")
+    # the split keeps the fp32 operands near fp32: far below plain bf16
+    # rounding's error
+    for key in ("y_before_store", "state"):
+        assert errs["split"][key] < 0.05 * errs["bf16"][key]
+
+
+def test_ssd_one_bf16_step_tells_split_from_plain_bf16():
+    """The limit at which the card holds the mma body's chunk scan against
+    its plain phase with split operands (``chip_smoke.py``,
+    ``test_ssd_mma_body_keeps_the_split_operands``): at mamba2-130m's
+    widths, y of the exact fp32 operands lies within one bf16 step
+    (|err| <= 2^-7 (1 + |y|)) of y of the split ones, and y of operands
+    rounded to plain bf16 does not."""
+    x, dt, A, Bm, Cm, D = _ssd_both(_ssd_inputs(1, 512, 24, 64, 1, 128),
+                                    "bfloat16")[1]
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=128)
+    states_in, _ = ssd_state_passing(states, cum, chunk=128)
+
+    def y(rnd):
+        return ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, chunk=128,
+                              round_operand=rnd).float()
+
+    want = y(split_bf16)
+    limit = 2 ** -7 * (1 + want.abs())
+    assert bool(((y(None) - want).abs() <= limit).all())
+    assert not bool(((y(lambda v: v.bfloat16().float()) - want).abs()
+                     <= limit).all())
 
 
 # ---------------------------------------------------------------------------
