@@ -9,9 +9,9 @@ Phases, each printed as one JSON line:
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once, into ``build/repro_torch``), with ptxas's
    registers and spills (kept beside each library, so a library built
-   before is reported too).  Fails if the sm90 flash-attention body or a
-   kernel of the SSD mma or RG-LRU segmented bodies spills, or ptxas
-   ignored a ``setmaxnreg`` (C7508).
+   before is reported too).  Fails if the sm90 flash-attention body, a
+   kernel of the SSD mma or RG-LRU segmented bodies or a backward kernel
+   spills, or ptxas ignored a ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
@@ -24,10 +24,17 @@ Phases, each printed as one JSON line:
    against ``rglru_assoc``, serial against ``rglru_sequential``) and every
    SSD case on each body that takes it (bf16: mma and fma; fp32: fma), with
    each of the mma body's three phase kernels against its plain phase.
-   Each case records the body that ran.  Then kernel, plain and library
+   Each case records the body that ran.  The two backward kernels
+   (RMSNorm: dx and dscale; flash attention: dq, dk, dv, with the forward's
+   log-sum-exp) against autograd of their plain versions in fp32 on the
+   same inputs, fp32 and bf16, at the train widths and head dims 16, 32,
+   64 and 80, causal / window / chunk masks, GQA and ragged S, each called
+   twice (the same bits).  Then kernel, plain and library
    (``F.rms_norm`` / SDPA; none computes the RG-LRU or the SSD scan) times
    at the serving shapes of qwen2-7b, recurrentgemma-9b (and its decode
-   shape for the RG-LRU) and mamba2-130m beside the least time the card
+   shape for the RG-LRU) and mamba2-130m, and the backwards at the 100m
+   preset's training shapes (the library: the backward alone of F.rms_norm
+   and of SDPA, through autograd), beside the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type; the SSD row also gives the fp32-operations bound of its fma
    body).  The mma body's chunk scan is also held, at one bf16 step of y
@@ -70,16 +77,29 @@ Phases, each printed as one JSON line:
 5. ``profile``, after each serve: one more prefill wave and 8 decode steps
    under ``torch.profiler``: wall time, summed kernel time, the card's idle
    share and the costliest kernels.
+6. ``train_check``: one train step of the 100m preset at 2 layers, fp32,
+   on the card against the same step on the CPU (same weights, same
+   ``SyntheticLM`` batch): loss and gradients within ``TRAIN_REL``, the
+   updated parameters as ``phase_train_check`` states.
+7. ``train``: the 100m preset at full width and depth (80.75 M parameters,
+   fp32, TF32 off) through ``examples/train_lm_torch.py``'s Trainer and
+   ``run_with_restarts``, with transactional checkpoints through CannyFS
+   (1 ms simulated storage latency): the loss falls by more than 0.05 and
+   ends below ln V; launches equal 25 RMSNorm and 12 flash a step, each
+   way; a second Trainer restores the last step bit for bit; a run whose
+   step fails restarts from the last commit.  Step time against its FLOP
+   bound, one profiled step, peak memory and each checkpoint's ACK time.
 
-Then a ``kernels`` summary line (launches summed over the serve phases,
-and per arch), the card's name and power limit as ``nvidia-smi`` prints
-them, and ``{"ok": true, "device": {...}}`` last.  Any failed check exits
-non-zero; so does a machine without a card.
+Then a ``kernels`` summary line (launches summed over the serve and train
+phases, and per path), the card's name and power limit as ``nvidia-smi``
+prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
+exits non-zero; so does a machine without a card.
 """
 import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -104,6 +124,10 @@ BF16_STEP = 2.0 ** -7     # one bf16 step (ulp) relative to the value
 # plain-bf16 operands (0.0371) on the H100 at seed 0 (PERF.md)
 SSD_BODIES_REL = 0.035
 SERVE_REL = 2e-4
+# the card's train step against the CPU's: the loss and every gradient leaf,
+# relative to the leaf's largest value (the JAX suite's decode-vs-forward
+# bound, tests/test_models.py)
+TRAIN_REL = 2e-4
 ARCHS = ("qwen2-7b", "recurrentgemma-9b", "mamba2-130m")
 
 
@@ -263,6 +287,8 @@ def phase_env(build):
             if "flash_attn_sm90_kernel" in name}
     emit("env", nvidia_smi=smi, python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_version,
+         tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                   cudnn=torch.backends.cudnn.allow_tf32),
          built=sorted(built), build_s=build_s, ptxas=ptxas, sm90_ptxas=sm90)
     check(len(sm90) == 2 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
@@ -277,10 +303,20 @@ def phase_env(build):
     check(len(scans) == 6 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scans.values()), f"a scan body spills: {scans}")
+    # the backward kernels: flash's delta pre-pass, dK/dV and dQ at 4 head
+    # dims x 2 dtypes (18), rmsnorm's 4 type pairs and 2 dscale sums (6)
+    bwd = {name: f for src in ("flash_attention", "rmsnorm")
+           for name, f in ptxas_functions(logs[src]).items()
+           if any(k in name for k in ("flash_bwd_", "rmsnorm_bwd_kernel",
+                                      "rmsnorm_dscale_kernel"))}
+    emit("env", backward_ptxas=bwd)
+    check(len(bwd) == 24 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
+        for f in bwd.values()), f"a backward kernel spills: {bwd}")
     return smi
 
 
-def phase_kernels(dev, gen):
+def phase_kernels(dev, gen, seed):
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.kernel import \
@@ -439,7 +475,7 @@ def phase_kernels(dev, gen):
         mma = lambda: flash._entry("flash_attention_fwd", True)(  # noqa: E731
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
             K, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1,
-            kw.get("window", 0), 0, dh ** -0.5, dh, 1,
+            kw.get("window", 0), 0, dh ** -0.5, dh, 1, None,
             torch.cuda.current_stream().cuda_stream)
         timings[arch] = dict(
             shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
@@ -640,10 +676,189 @@ def phase_kernels(dev, gen):
         summary["ssd"]["shape"]: {k: v for k, v in summary["ssd"].items()
                                   if k not in ("name", "route", "source",
                                                "replaces", "shape")}})
+    # a generator of its own, so the later phases draw what they drew
+    # before the backward cases existed
+    backward_kernels(dev, torch.Generator(device=dev).manual_seed(seed + 1),
+                     cases, summary)
     emit("kernels", cases=cases)
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return summary
+
+
+def _grad_ms(out, inputs, grad_out):
+    """The backward alone of a recorded graph: a function that computes
+    d(out)/d(inputs) for ``grad_out`` (the graph is kept for the next call)."""
+    return lambda: torch.autograd.grad(out, inputs, grad_out,
+                                       retain_graph=True)
+
+
+def backward_kernels(dev, gen, cases, summary):
+    """The two backward kernels against autograd of their plain versions
+    (rmsnorm_ref, mha_ref) in fp32 on the same inputs (bf16 inputs too:
+    the fp32 plain version then runs on them upcast), at the kernel
+    tolerances; then timed at the 100m preset's training shapes beside the
+    backward alone of the plain version and of the library call (autograd
+    of F.rms_norm / SDPA at the same dtype)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda, select_bwd_body)
+    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.rmsnorm.kernel import (RMSNormFunction,
+                                                    rmsnorm_bwd_cuda)
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    f32 = torch.float32
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def plain_grads(fn, inputs, grad_out, **kw):
+        leaves = [t.float().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*leaves, **kw), leaves, grad_out.float())
+
+    # ---- rmsnorm backward: the train widths (64, 256, 512: smoke, small,
+    # 100m), the served 768 and 3584, an odd width; the 100m step's rows
+    for dtype in (f32, torch.bfloat16):
+        for rows, D in ((4096, 512), (1024, 256), (64, 64), (300, 768),
+                        (8, 3584), (33, 130)):
+            x, dy = (randn(rows, D, dtype=dtype) for _ in range(2))
+            s = randn(D, dtype=dtype)
+            got = rmsnorm_bwd_cuda(x, s, dy)
+            want = plain_grads(rmsnorm_ref, (x, s), dy)
+            errs = [compare(g, w, dtype) for g, w in zip(got, want)]
+            again = rmsnorm_bwd_cuda(x, s, dy)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            cases.append(dict(kernel="rmsnorm_bwd", dtype=str(dtype),
+                              rows=rows, D=D,
+                              max_abs_err=max(e for e, _ in errs),
+                              tol=TOL[dtype], deterministic=same,
+                              ok=all(ok for _, ok in errs) and same))
+    # through the autograd Function with a residual: d_residual is dy
+    x, r, dy = (randn(64, 512, dtype=f32) for _ in range(3))
+    s = randn(512, dtype=f32)
+    xg, rg, sg = (t.clone().requires_grad_() for t in (x, r, s))
+    RMSNormFunction.apply(xg, sg, rg, 1e-6).backward(dy)
+    want = plain_grads(lambda a, b, c: rmsnorm_ref(a, b, residual=c),
+                       (x, s, r), dy)
+    errs = [compare(g, w, f32) for g, w in zip((xg.grad, sg.grad, rg.grad),
+                                               want)]
+    cases.append(dict(kernel="rmsnorm_bwd", dtype="torch.float32", rows=64,
+                      D=512, residual=True,
+                      max_abs_err=max(e for e, _ in errs), tol=TOL[f32],
+                      ok=all(ok for _, ok in errs)))
+
+    x, dy = (randn(4096, 512, dtype=f32) for _ in range(2))
+    s = randn(512, dtype=f32)
+    xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+    plain_out = rmsnorm_ref(xr, sr)
+    lib_out = F.rms_norm(xr, (512,), sr, 1e-6)
+    kernel = lambda: rmsnorm_bwd_cuda(x, s, dy)  # noqa: E731
+    mark = len(PROFILER_WINDOWS)
+    # bytes: x, dy and scale read once, dx and dscale written once; about
+    # 10 operations an element
+    t_bound, by = bound(3 * x.nbytes + 2 * s.nbytes, 10 * x.numel(), f32)
+    summary["rmsnorm_bwd"] = dict(
+        name="rmsnorm_bwd", route="cuda",
+        source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:33 (its gradient: "
+                 "JAX differentiates the jnp reference)",
+        shape="x, dy (4096, 512) fp32, scale fp32 (the 100m step)",
+        ms=device_ms(kernel), event_ms=time_ms(kernel),
+        plain_ms=device_ms(_grad_ms(plain_out, (xr, sr), dy)),
+        library_ms=device_ms(_grad_ms(lib_out, (xr, sr), dy)),
+        library_event_ms=time_ms(_grad_ms(lib_out, (xr, sr), dy)),
+        bound_ms=t_bound, bound_by=by,
+        max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
+            kernel(), plain_grads(rmsnorm_ref, (x, s), dy))),
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="rmsnorm_bwd", timings={
+        summary["rmsnorm_bwd"]["shape"]: summary["rmsnorm_bwd"]})
+
+    # ---- flash-attention backward (and the forward's log-sum-exp): head
+    # dims 16, 32, 64, 80; causal, window, chunk, no mask; GQA; ragged S;
+    # the 100m shapes
+    attn_cases = [
+        (16, 256, 8, 4, 64, dict(causal=True)),
+        (2, 100, 4, 1, 16, dict(causal=True)),
+        (2, 128, 8, 4, 32, dict(causal=True)),
+        (1, 300, 32, 32, 80, dict(causal=True)),
+        (2, 200, 8, 2, 64, dict(causal=True, window=50)),
+        (2, 200, 8, 2, 64, dict(causal=True, chunk=48)),
+        (1, 130, 4, 4, 80, dict(causal=False)),
+        (1, 333, 6, 3, 32, dict(causal=True, window=100)),
+    ]
+    for B, S, H, K, dh, kw in attn_cases:
+        for dtype in (f32, torch.bfloat16):
+            q, do = (randn(B, S, H, dh, dtype=dtype) for _ in range(2))
+            k, v = (randn(B, S, K, dh, dtype=dtype) for _ in range(2))
+            with torch.no_grad():
+                out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            pos = torch.arange(S, device=dev)
+            logits = torch.einsum("bqkgd,bskd->bkgqs",
+                                  q.float().unflatten(2, (K, H // K)),
+                                  k.float()) * dh ** -0.5
+            logits = logits.masked_fill(
+                ~attention_mask(pos, pos, **kw), -torch.inf)
+            err_lse, ok_lse = compare(lse, torch.logsumexp(logits, -1)
+                                      .flatten(1, 2), dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ops.flash_attention(*leaves, **kw).backward(do)
+            got = [t.grad for t in leaves]
+            want = plain_grads(mha_ref, (q, k, v), do, **kw)
+            errs = [compare(g, w, dtype) for g, w in zip(got, want)]
+            again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(
+                flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw), again))
+            cases.append(dict(
+                kernel="flash_attention_bwd", body=select_bwd_body(q, k, v),
+                dtype=str(dtype), B=B, S=S, H=H, K=K, dh=dh, **kw,
+                max_abs_err=max(e for e, _ in errs), lse_err=err_lse,
+                tol=TOL[dtype], deterministic=same,
+                ok=all(ok for _, ok in errs) and ok_lse and same))
+
+    B, S, H, K, dh = attn_cases[0][:5]
+    q, do = (randn(B, S, H, dh, dtype=f32) for _ in range(2))
+    k, v = (randn(B, S, K, dh, dtype=f32) for _ in range(2))
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    pos = torch.arange(S, device=dev)
+    pairs = int(attention_mask(pos, pos, causal=True).sum())
+    # five products of pairs x dh a head (S = Q K^T again, dP = dO V^T,
+    # dV = P^T dO, dQ = dS K, dK = dS^T Q), 2 operations a multiply-add;
+    # bytes: q, k, v, o, dO and lse read, dq, dk and dv written
+    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
+                        + lse.nbytes, 5 * 2 * B * H * pairs * dh, f32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = mha_ref(*leaves)
+    lib_out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves), is_causal=True,
+        enable_gqa=True)
+    kernel = lambda: flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, do, lse)
+    forward = lambda: flash_attention_cuda(  # noqa: E731
+        q, k, v, return_lse=True)
+    mark = len(PROFILER_WINDOWS)
+    summary["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
+                 "gradient: JAX differentiates the jnp reference)",
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal "
+              "(the 100m step)",
+        body=select_bwd_body(q, k, v), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), forward_lse_ms=device_ms(forward),
+        forward_ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
+        plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
+        library_ms=device_ms(_grad_ms(lib_out, leaves, do.transpose(1, 2))),
+        library_event_ms=time_ms(_grad_ms(lib_out, leaves,
+                                          do.transpose(1, 2))),
+        bound_ms=t_bound, bound_by=by,
+        max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
+            kernel(), plain_grads(mha_ref, (q, k, v), do))),
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="flash_attention_bwd", timings={
+        summary["flash_attention_bwd"]["shape"]:
+            summary["flash_attention_bwd"]})
 
 
 def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
@@ -857,6 +1072,275 @@ def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
     ssd.reset_counts()
 
 
+def _lm_example():
+    """The training example (``examples/train_lm_torch.py``): its presets,
+    its engine mount and its step settings."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import train_lm_torch
+    finally:
+        sys.path.pop(0)
+    return train_lm_torch
+
+
+def phase_train_check(dev, seed, layers: int = 2):
+    """One train step of the 100m preset at ``layers`` layers, fp32, on the
+    card (CUDA kernels forward and backward) against the same step of the
+    port on the CPU (plain versions, autograd): the same weights (drawn on
+    the CPU from the seed, copied to both) and the same ``SyntheticLM``
+    batch.  The loss and every gradient leaf within ``TRAIN_REL`` of the
+    leaf's largest value; AdamW on the card applied to the CPU's gradients
+    lands on the CPU's parameters within 1e-6 of the largest; the card's
+    own updated parameters within 2 lr of the CPU's (AdamW's g / (|g| +
+    eps) turns a gradient difference near eps into a whole step), with
+    their largest difference printed."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_update, init_opt_state
+    from repro_torch.train.steps import make_loss_and_grad, make_train_step
+    ex = _lm_example()
+    p = ex.PRESETS["100m"]
+    cfg = ex.preset_config("100m", num_layers=layers)
+    tc = ex.train_config()
+    params = init_params(cfg, device="cpu", dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(seed))
+    batch = next(iter(SyntheticLM(cfg, batch=p["batch"], seq_len=p["seq"],
+                                  seed=seed)))
+    lr = torch.tensor(1e-3)
+    out = {}
+    for d in ("cpu", dev):
+        prm = _to(params, d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        t0 = time.monotonic()
+        total, _, grads = make_loss_and_grad(cfg, tc)(prm, b)
+        new_p, _, _ = make_train_step(cfg, tc)(prm, init_opt_state(prm), b,
+                                               lr)
+        out[str(d)] = dict(loss=float(total), grads=_to(grads, "cpu"),
+                           new=_to(new_p, "cpu"),
+                           s=time.monotonic() - t0)
+    cpu, card = out["cpu"], out[str(dev)]
+    p_card = _to(params, dev)
+    on_cpu_grads, _, _ = adamw_update(_to(cpu["grads"], dev),
+                                      init_opt_state(p_card), p_card, lr)
+
+    def rel(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                   for x, y in zip(_leaves(a), _leaves(b)))
+
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = rel(card["grads"], cpu["grads"])
+    adamw_rel = rel(_to(on_cpu_grads, "cpu"), cpu["new"])
+    param_abs = max(float((x - y).abs().max()) for x, y in
+                    zip(_leaves(card["new"]), _leaves(cpu["new"])))
+    emit("train_check", preset="100m", layers=layers, dtype="float32",
+         batch=p["batch"], seq=p["seq"], loss_cpu=cpu["loss"],
+         loss_card=card["loss"], loss_rel_err=loss_rel,
+         grad_max_rel_err=grad_rel, adamw_on_cpu_grads_rel_err=adamw_rel,
+         param_max_abs_err=param_abs, param_bound=2 * float(lr),
+         param_rel_err=rel(card["new"], cpu["new"]), tol=TRAIN_REL,
+         cpu_s=cpu["s"], card_s=card["s"])
+    check(loss_rel < TRAIN_REL and grad_rel < TRAIN_REL and adamw_rel < 1e-6
+          and param_abs <= 2 * float(lr),
+          f"train_check: loss {loss_rel}, grads {grad_rel}, adamw "
+          f"{adamw_rel}, params {param_abs} (limits {TRAIN_REL}, 1e-6, "
+          f"{2 * float(lr)})")
+
+
+def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
+    """The full 100m preset (12 layers, d_model 512, fp32) through the
+    example's Trainer and ``run_with_restarts``, on CannyFS over a
+    LocalBackend in a directory under ``build/`` behind the example's 1 ms
+    LatencyBackend: the example's documented 100m run, ``steps`` steps, a
+    checkpoint every ``ckpt_every`` (its default).  (60 steps left the loss
+    at 10.549, above ln V = 10.397, on the H100: PERF.md.)
+    Every kernel count is reset just before and read just after: 25
+    RMSNorm and 12 flash launches a step, each way.  Then a second Trainer
+    restores the last step (parameters and moments bit-identical to the
+    saved ones), one more step is profiled, and a run that fails at a
+    step restarts from the last commit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data import Prefetcher, SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as lru
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.train.loop import LoopConfig, Trainer, run_with_restarts
+    ex = _lm_example()
+    p = ex.PRESETS["100m"]
+    cfg = ex.preset_config("100m")
+    (ROOT / "build").mkdir(exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=ROOT / "build")
+    step_ms, trainers = [], []
+
+    class Timed(Trainer):
+        """The example's Trainer; each step's time on the card, from a
+        synchronize before to one after."""
+        def init_state(self, sample_batch):
+            super().init_state(sample_batch)
+            trainers.append(self)
+            step_fn = self.untimed = self.step_fn
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(*args)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            self.step_fn = timed
+
+    def factory(fs, total, every, cls=Timed):
+        data = Prefetcher(iter(SyntheticLM(cfg, batch=p["batch"],
+                                           seq_len=p["seq"], seed=seed)),
+                          depth=2)
+        return cls(cfg, fs, data, tc=ex.train_config(),
+                   lc=LoopConfig(total_steps=total, ckpt_every=every,
+                                 log_every=1, warmup=20, seed=seed),
+                   device=dev)
+
+    try:
+        fs = ex.make_fs(workdir + "/run", 1.0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for module in (flash, rms, lru, ssd):
+            module.reset_counts()
+        t0 = time.monotonic()
+        run_with_restarts(lambda: factory(fs, steps, ckpt_every),
+                          max_restarts=0)
+        wall_s = time.monotonic() - t0
+        launches = {
+            "rmsnorm": (rms.rmsnorm_cuda.launches,
+                        rms.rmsnorm_bwd_cuda.launches),
+            "flash_attention": (flash.flash_attention_cuda.launches,
+                                flash.flash_attention_bwd_cuda.launches),
+            "rglru": (lru.rglru_cuda.launches, 0),
+            "ssd": (ssd.ssd_cuda.launches, 0)}
+        by_body = {"rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
+                   "flash_attention": dict(
+                       flash.flash_attention_cuda.launches_by_body),
+                   "flash_attention_bwd": dict(
+                       flash.flash_attention_bwd_cuda.launches_by_body)}
+        peak = torch.cuda.max_memory_allocated()
+        L = cfg.num_layers
+        want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
+                "flash_attention": (L * steps,) * 2, "rglru": (0, 0),
+                "ssd": (0, 0)}
+        trainer = trainers[0]
+        fs.drain()
+        log = [json.loads(line) for line in
+               fs.read_file("logs/metrics.jsonl").decode().splitlines()]
+        losses = [r["loss"] for r in log if "loss" in r]
+        ack_s = [r["ckpt_ack_s"] for r in log if "ckpt_ack_s" in r]
+        results = trainer.ckpt.results
+        saved = {"params": trainer.state["params"],
+                 "opt": trainer.state["opt"]}
+
+        # a second trainer restores the last commit, bit for bit
+        second = factory(fs, steps, ckpt_every)
+        second.init_state(next(second.data))
+        restored = {"params": second.state["params"],
+                    "opt": second.state["opt"]}
+        identical = second.step == steps and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(_leaves(saved), _leaves(restored)))
+        del trainers[1:], second, restored
+
+        # one more step, profiled
+        batch = trainer.put_batch(next(trainer.data))
+        prof = _profiled(lambda: trainer.untimed(
+            trainer.state["params"], trainer.state["opt"], batch,
+            torch.tensor(1e-3)))
+        fs.close()
+        del trainer, saved, trainers[:]
+
+        # a run whose step fails after the second commit restarts from it
+        crash = {"at": 2 * ckpt_every + ckpt_every // 2, "done": False}
+        resumed = []
+
+        class Failing(Timed):
+            def init_state(self, sample_batch):
+                super().init_state(sample_batch)
+                resumed.append(self.step)
+                step_fn = self.step_fn
+
+                def failing(*args):
+                    if not crash["done"] and self.step == crash["at"]:
+                        crash["done"] = True
+                        self.ckpt.wait_for_save()   # the last COMMIT landed
+                        raise RuntimeError("injected step failure")
+                    return step_fn(*args)
+                self.step_fn = failing
+
+        fs2 = ex.make_fs(workdir + "/crash", 1.0)
+        n_timed = len(step_ms)
+        crash_metrics = run_with_restarts(
+            lambda: factory(fs2, 3 * ckpt_every, ckpt_every, Failing),
+            max_restarts=1)
+        fs2.close()
+        del step_ms[n_timed:], trainers[:]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    warm = step_ms[5:]
+    flops = cfg.model_flops(p["batch"] * p["seq"], training=True,
+                            seq_len=p["seq"])
+    emit("train", preset="100m", layers=cfg.num_layers, d_model=cfg.d_model,
+         params=cfg.param_count(), dtype="float32", batch=p["batch"],
+         seq=p["seq"], steps=steps, ckpt_every=ckpt_every,
+         io_latency_ms=1.0, wall_s=wall_s,
+         loss_first=losses[0], loss_last=losses[-1],
+         loss_every_20=losses[::20],
+         ln_vocab=math.log(cfg.vocab_size),
+         step_ms_median=statistics.median(warm), step_ms_min=min(warm),
+         step_ms_max=max(warm),
+         step_flop_bound_ms=flops / PEAK_OPS_PER_S[torch.float32] * 1e3,
+         step_flops=flops, profile=prof, peak_mem_bytes=peak,
+         ckpt_ack_s=ack_s, ckpt_ok=[r.ok for r in results],
+         ckpt_commit_s=[r.commit_s for r in results],
+         ckpt_bytes=[r.bytes for r in results],
+         restored_bit_identical=identical,
+         launches={k: dict(forward=f, backward=b)
+                   for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want.items()},
+         launches_by_body=by_body, crash_at_step=crash["at"],
+         crash_resumed_at=resumed, crash_final_loss=crash_metrics.get("loss"))
+    check(all(math.isfinite(x) for x in losses) and len(losses) == steps
+          and losses[-1] < losses[0] - 0.05
+          and losses[-1] < math.log(cfg.vocab_size),
+          f"train: loss {losses[0]} -> {losses[-1]} (must fall by 0.05 and "
+          f"end below ln V = {math.log(cfg.vocab_size)})")
+    check(launches == want, f"train: launches {launches}, expected {want}")
+    check(by_body["rmsnorm"]["one_read"] == want["rmsnorm"][0]
+          and by_body["flash_attention"]["fp32"] == want["flash_attention"][0]
+          and by_body["flash_attention_bwd"]["fp32"]
+          == want["flash_attention"][1],
+          f"train: launches by body {by_body}")
+    check(identical, "train: the restored step differs from the saved one")
+    want_saves = sorted({*range(ckpt_every, steps + 1, ckpt_every), steps})
+    check([r.step for r in results] == want_saves
+          and all(r.ok for r in results),
+          f"train: checkpoints {[(r.step, r.ok, r.error) for r in results]}"
+          f", expected steps {want_saves}")
+    check(resumed == [0, 2 * ckpt_every] and crash_metrics
+          and math.isfinite(crash_metrics["loss"]),
+          f"train: the failed run resumed at {resumed}, expected "
+          f"[0, {2 * ckpt_every}]")
+    return {k: f + b for k, (f, b) in launches.items()}, launches
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def _cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -915,7 +1399,7 @@ def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _leaves(v)]
     return [tree]
@@ -934,7 +1418,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     smi = phase_env(_build)
-    summary = phase_kernels(dev, gen)
+    summary = phase_kernels(dev, gen, args.seed)
     phase_serve_check(dev, gen, "qwen2-7b", layers=4, B=2, P=128)
     phase_serve_check(dev, gen, "recurrentgemma-9b", layers=3, B=1, P=2176)
     phase_serve_check(dev, gen, "mamba2-130m", layers=24, B=2, P=1000)
@@ -947,9 +1431,18 @@ def main() -> int:
                                                             args.seed, arch)
         phase_profile(dev, *served)
         del served          # free this model's weights before the next one
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_check(dev, args.seed)
+    _, train_launches = phase_train(dev, args.seed)
     for name, entry in summary.items():
-        entry["launches"] = sum(n[name] for n in launches.values())
-        entry["launches_by_arch"] = {a: n[name] for a, n in launches.items()}
+        if name.endswith("_bwd"):
+            entry["launches"] = train_launches[name[:-len("_bwd")]][1]
+            entry["launches_by_path"] = {"train-100m": entry["launches"]}
+            continue
+        entry["launches_by_path"] = {a: n[name] for a, n in launches.items()}
+        entry["launches_by_path"]["train-100m"] = train_launches[name][0]
+        entry["launches"] = sum(entry["launches_by_path"].values())
         entry["launches_by_body"] = {
             body: sum(b[name][body] for b in by_body.values())
             for body in by_body[ARCHS[0]][name]}

@@ -1,5 +1,6 @@
-// Forward flash attention for Hopper (sm_90a): GQA, causal / sliding-window /
-// chunked masks, fp32 online softmax.
+// Flash attention for Hopper (sm_90a): GQA, causal / sliding-window /
+// chunked masks, fp32 online softmax; the forward and, for training, its
+// backward.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention/kernel.py, body _attn_kernel).  It
@@ -63,6 +64,11 @@
 // Every body rounds the probabilities to v's type for the PV product, as
 // the reference casts its probabilities to v's type.
 //
+// Training: the mma and fp32 bodies also write each row's log-sum-exp when
+// given a pointer for it (Params::lse; serving passes null), and the
+// backward (flash_attention_bwd, further down) recomputes the probabilities
+// from it.  The sm90 body writes none yet.
+//
 // Head dims: the mma and fp32 bodies take every one the model registry uses
 // (16, 32, 64, 80, 120, 128, 160, 256), compiled for the head dim rounded up
 // to 16 (the mma k-step); a head dim below that width (120 -> 128) is
@@ -110,10 +116,17 @@ struct Params {
   int causal, window, chunk;
   float scale;
   int dh;  // the real head dim; the body's compiled width is dh rounded up to 16
+  // (B, H, S) fp32, or null: the log-sum-exp of each row's scaled scores,
+  // which the backward needs (the mma and fp32 bodies write it)
+  float* lse;
 };
 
+// The mask, shared by the forward bodies and the backward: P is Params or
+// BwdParams (S, causal, window and chunk are all they read).
+//
 // Keys [lo, hi) that some query of the tile [q0, q0 + bq) can see.
-__device__ __forceinline__ void kv_range(const Params& p, int q0, int bq, int* lo, int* hi) {
+template <typename P>
+__device__ __forceinline__ void kv_range(const P& p, int q0, int bq, int* lo, int* hi) {
   const int q_last = min(q0 + bq, p.S) - 1;
   *lo = 0;
   *hi = p.S;
@@ -125,7 +138,22 @@ __device__ __forceinline__ void kv_range(const Params& p, int q0, int bq, int* l
   }
 }
 
-__device__ __forceinline__ bool visible(const Params& p, int qi, int kj) {
+// Queries [lo, hi) that can see some key of the tile [k0, k0 + bk).
+template <typename P>
+__device__ __forceinline__ void q_range(const P& p, int k0, int bk, int* lo, int* hi) {
+  const int k_last = min(k0 + bk, p.S) - 1;
+  *lo = 0;
+  *hi = p.S;
+  if (p.causal) *lo = k0;
+  if (p.window) *hi = min(*hi, k_last + p.window);
+  if (p.chunk) {
+    *lo = max(*lo, (k0 / p.chunk) * p.chunk);
+    *hi = min(*hi, (k_last / p.chunk + 1) * p.chunk);
+  }
+}
+
+template <typename P>
+__device__ __forceinline__ bool visible(const P& p, int qi, int kj) {
   bool ok = qi < p.S && kj < p.S;
   if (p.causal) ok = ok && qi >= kj;
   if (p.window) ok = ok && (qi - kj) < p.window;
@@ -198,6 +226,13 @@ __device__ __forceinline__ float softmax_step(float (&s)[kN], float& m, float& l
   l = l * alpha + rs;
   m = m_new;
   return alpha;
+}
+
+// The row's log-sum-exp of its scaled scores, m + log(l), into p.lse; +inf
+// for a row that sees no key, so that the backward's exp(s - lse) is 0.
+__device__ __forceinline__ void write_lse(const Params& p, int b, int h, int qi, float m,
+                                          float l) {
+  p.lse[(static_cast<long long>(b) * p.H + h) * p.S + qi] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -348,6 +383,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (qrow[rr] >= S) continue;
+    if (p.lse != nullptr && t == 0) write_lse(p, b, h, qrow[rr], m[rr], l[rr]);
     const float inv_l = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
     __nv_bfloat16* orow = ob + static_cast<long long>(qrow[rr]) * p.H * dh;
 #pragma unroll
@@ -475,11 +511,344 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
+    if (p.lse != nullptr && tx == 0) write_lse(p, b, h, qi, m[i], l[i]);
     const float inv_l = l[i] > 0.f ? 1.f / l[i] : 0.f;
     float* orow = ob + static_cast<long long>(qi) * p.H * dh;
 #pragma unroll
     for (int j = 0; j < kOut; ++j)
       if (tx + 8 * j < dh) orow[tx + 8 * j] = acc[i][j] * inv_l;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward (FlashAttention-2, deterministic): fp32 on the FMA units, for
+// fp32 and bf16 inputs (bf16 is read into fp32 tiles)
+// ---------------------------------------------------------------------------
+//
+// The TPU kernel has no backward (JAX differentiates the jnp reference), so
+// this computes what that reference's gradient is, from the forward's
+// log-sum-exp (lse) and output O, without the (S, S) probabilities:
+//
+//   P  = exp(scale * Q K^T - lse)      (masked entries 0)
+//   dV = P^T dO          dP = dO V^T
+//   dS = P * (dP - D),   D = rowsum(dO * O)
+//   dQ = scale * dS K    dK = scale * dS^T Q
+//
+// Three launches: a pre-pass computes D (a warp a row); one kernel a
+// (KV tile, KV head, batch) accumulates dK and dV in registers over the
+// query tiles that can see the tile, for every query head of its GQA group
+// in turn; one kernel a (query tile, head, batch) accumulates dQ over the
+// KV tiles its rows can see.  Every sum has one owner and a fixed order: no
+// atomics, so two runs give the same bits.  Both main kernels run 256
+// threads as 16 x 16; in each 64 x 64 score tile a thread owns rows
+// ty + 16 i and columns tx + 16 j (i, j < 4); in the dK / dV (dQ) update it
+// owns keys (queries) ty + 16 i and head-dim columns tx + 16 j.  Tiles are
+// fp32 in shared memory with rows padded by one float (conflict-free column
+// reads).  What bounds it: at the 100m training shapes, operations (five
+// products of S x S x dh per head against reads of q, k, v, o, dO).  It is
+// the simple first kernel: tensor cores for bf16 are later work.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdBQ = 64;
+constexpr int kBwdBK = 64;
+
+struct BwdParams {
+  const void* q;     // (B, S, H, dh), contiguous, like o, dout and dq
+  const void* k;     // (B, S, K, dh), contiguous, like v, dk and dv
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, H, S)
+  float* delta;      // (B, H, S): rowsum(dO * O), written by the pre-pass
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, S, H, K;
+  int causal, window, chunk;
+  float scale;
+  int dh;
+};
+
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// Rows [s0, s0 + rows) of one head (row stride `seq_stride` elements) into
+// an fp32 tile of DHP columns, row stride `dst_stride`; rows at or past S
+// and columns at or past dh are zero.
+template <int DHP, typename T>
+__device__ __forceinline__ void load_tile_f32(float* dst, int dst_stride, const T* base,
+                                              long long seq_stride, int s0, int rows, int S,
+                                              int dh) {
+  for (int idx = threadIdx.x; idx < rows * DHP; idx += kBwdThreads) {
+    const int r = idx / DHP, c = idx % DHP, s = s0 + r;
+    dst[r * dst_stride + c] = (s < S && c < dh) ? ld_f(base + s * seq_stride + c) : 0.f;
+  }
+}
+
+// D = rowsum(dO * O) for every (b, s, h): a warp a row.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_kernel(BwdParams p) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) +
+                        threadIdx.x / 32;
+  const long long rows = static_cast<long long>(p.B) * p.S * p.H;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const T* o = static_cast<const T*>(p.o) + row * p.dh;
+  const T* d = static_cast<const T*>(p.dout) + row * p.dh;
+  float acc = 0.f;
+  for (int c = lane; c < p.dh; c += 32) acc = fmaf(ld_f(o + c), ld_f(d + c), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    // row = (b * S + s) * H + h  ->  delta[(b * H + h) * S + s]
+    const long long h = row % p.H, bs = row / p.H, s = bs % p.S, b = bs / p.S;
+    p.delta[(b * p.H + h) * p.S + s] = acc;
+  }
+}
+
+// Shared-memory layout of the two main kernels, in floats.
+template <int DHP>
+struct SmemBwd {
+  static constexpr int kStride = DHP + 1;
+  static constexpr int kPStride = kBwdBK + 1;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kBwdBQ * kStride;
+  static constexpr int kK = kDO + kBwdBQ * kStride;
+  static constexpr int kV = kK + kBwdBK * kStride;
+  static constexpr int kP = kV + kBwdBK * kStride;
+  static constexpr int kLse = kP + kBwdBQ * kPStride;
+  static constexpr int kDelta = kLse + kBwdBQ;
+  static constexpr size_t kBytes = sizeof(float) * (kDelta + kBwdBQ);
+};
+
+// The scores S and dP = dO V^T of one 64 x 64 tile, this thread's 4 x 4,
+// turned into P (into p_out) and dS = P (dP - D) (into ds_out); q0 / k0
+// are the tile's first query / key.
+template <int DHP>
+__device__ __forceinline__ void bwd_tile_scores(const BwdParams& p, const float* sQ,
+                                                const float* sDO, const float* sK,
+                                                const float* sV, const float* sLse,
+                                                const float* sDelta, int q0, int k0,
+                                                float (&p_out)[4][4], float (&ds_out)[4][4]) {
+  using L = SmemBwd<DHP>;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float sc[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DHP; ++d) {
+    float qv[4], dov[4], kv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = sQ[(ty + 16 * i) * L::kStride + d];
+      dov[i] = sDO[(ty + 16 * i) * L::kStride + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kv[j] = sK[(tx + 16 * j) * L::kStride + d];
+      vv[j] = sV[(tx + 16 * j) * L::kStride + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float pr =
+          visible(p, q0 + r, k0 + tx + 16 * j) ? expf(sc[i][j] * p.scale - sLse[r]) : 0.f;
+      p_out[i][j] = pr;
+      ds_out[i][j] = pr * (dp[i][j] - sDelta[r]);
+    }
+  }
+}
+
+// Stage the query tile at q0 of head h: Q, dO, lse and D (lse +inf and D 0
+// past S, where the mask hides the rows anyway).
+template <int DHP, typename T>
+__device__ __forceinline__ void bwd_load_q(const BwdParams& p, float* smem, int b, int h,
+                                           int q0) {
+  using L = SmemBwd<DHP>;
+  const long long qs = static_cast<long long>(p.H) * p.dh;
+  const long long off = (static_cast<long long>(b) * p.S * p.H + h) * p.dh;
+  load_tile_f32<DHP>(smem + L::kQ, L::kStride, static_cast<const T*>(p.q) + off, qs, q0,
+                     kBwdBQ, p.S, p.dh);
+  load_tile_f32<DHP>(smem + L::kDO, L::kStride, static_cast<const T*>(p.dout) + off, qs, q0,
+                     kBwdBQ, p.S, p.dh);
+  const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+  for (int r = threadIdx.x; r < kBwdBQ; r += kBwdThreads) {
+    const int s = q0 + r;
+    smem[L::kLse + r] = s < p.S ? p.lse[row + s] : INFINITY;
+    smem[L::kDelta + r] = s < p.S ? p.delta[row + s] : 0.f;
+  }
+}
+
+template <int DHP, typename T>
+__device__ __forceinline__ void bwd_load_kv(const BwdParams& p, float* smem, int b, int kvh,
+                                            int k0) {
+  using L = SmemBwd<DHP>;
+  const long long ks = static_cast<long long>(p.K) * p.dh;
+  const long long off = (static_cast<long long>(b) * p.S * p.K + kvh) * p.dh;
+  load_tile_f32<DHP>(smem + L::kK, L::kStride, static_cast<const T*>(p.k) + off, ks, k0,
+                     kBwdBK, p.S, p.dh);
+  load_tile_f32<DHP>(smem + L::kV, L::kStride, static_cast<const T*>(p.v) + off, ks, k0,
+                     kBwdBK, p.S, p.dh);
+}
+
+// dK and dV of one KV tile of one KV head, summed over the query heads of
+// its group and the query tiles that see it.
+template <int DHP, typename T>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(BwdParams p) {
+  using L = SmemBwd<DHP>;
+  constexpr int kCols = DHP / 16;
+  extern __shared__ float smem_bwd[];
+  float* sP = smem_bwd + L::kP;
+  const int k0 = blockIdx.x * kBwdBK, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = p.H / p.K;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  bwd_load_kv<DHP, T>(p, smem_bwd, b, kvh, k0);
+
+  float dk[4][kCols], dv[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  int q_lo, q_hi;
+  q_range(p, k0, kBwdBK, &q_lo, &q_hi);
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int q0 = (q_lo / kBwdBQ) * kBwdBQ; q0 < q_hi; q0 += kBwdBQ) {
+      __syncthreads();  // the previous tile's Q, dO and P are no longer read
+      bwd_load_q<DHP, T>(p, smem_bwd, b, h, q0);
+      __syncthreads();
+      float pr[4][4], ds[4][4];
+      bwd_tile_scores<DHP>(p, smem_bwd + L::kQ, smem_bwd + L::kDO, smem_bwd + L::kK,
+                           smem_bwd + L::kV, smem_bwd + L::kLse, smem_bwd + L::kDelta, q0, k0,
+                           pr, ds);
+      // dV += P^T dO
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = pr[i][j];
+      __syncthreads();
+      const float* sDO = smem_bwd + L::kDO;
+#pragma unroll 4
+      for (int r = 0; r < kBwdBQ; ++r) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const float dov = sDO[r * L::kStride + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dv[i][j] = fmaf(sP[r * L::kPStride + ty + 16 * i], dov, dv[i][j]);
+        }
+      }
+      __syncthreads();
+      // dK += dS^T Q (scaled once at the end)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = ds[i][j];
+      __syncthreads();
+      const float* sQ = smem_bwd + L::kQ;
+#pragma unroll 4
+      for (int r = 0; r < kBwdBQ; ++r) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const float qv = sQ[r * L::kStride + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dk[i][j] = fmaf(sP[r * L::kPStride + ty + 16 * i], qv, dk[i][j]);
+        }
+      }
+    }
+  }
+
+  const long long ks = static_cast<long long>(p.K) * p.dh;
+  const long long off = (static_cast<long long>(b) * p.S * p.K + kvh) * p.dh;
+  T* dkb = static_cast<T*>(p.dk) + off;
+  T* dvb = static_cast<T*>(p.dv) + off;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = k0 + ty + 16 * i;
+    if (s >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = tx + 16 * j;
+      if (c >= p.dh) continue;
+      st_f(dkb + s * ks + c, dk[i][j] * p.scale);
+      st_f(dvb + s * ks + c, dv[i][j]);
+    }
+  }
+}
+
+// dQ of one query tile of one head, summed over the KV tiles it sees.
+template <int DHP, typename T>
+__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(BwdParams p) {
+  using L = SmemBwd<DHP>;
+  constexpr int kCols = DHP / 16;
+  extern __shared__ float smem_bwd[];
+  float* sP = smem_bwd + L::kP;
+  const int q0 = blockIdx.x * kBwdBQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.K);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  bwd_load_q<DHP, T>(p, smem_bwd, b, h, q0);
+
+  float dq[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dq[i][j] = 0.f;
+
+  int kv_lo, kv_hi;
+  kv_range(p, q0, kBwdBQ, &kv_lo, &kv_hi);
+  for (int k0 = (kv_lo / kBwdBK) * kBwdBK; k0 < kv_hi; k0 += kBwdBK) {
+    __syncthreads();  // the previous tile's K, V and dS are no longer read
+    bwd_load_kv<DHP, T>(p, smem_bwd, b, kvh, k0);
+    __syncthreads();
+    float pr[4][4], ds[4][4];
+    bwd_tile_scores<DHP>(p, smem_bwd + L::kQ, smem_bwd + L::kDO, smem_bwd + L::kK,
+                         smem_bwd + L::kV, smem_bwd + L::kLse, smem_bwd + L::kDelta, q0, k0,
+                         pr, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = ds[i][j];
+    __syncthreads();
+    const float* sK = smem_bwd + L::kK;
+#pragma unroll 4
+    for (int c = 0; c < kBwdBK; ++c) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float kv = sK[c * L::kStride + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dq[i][j] = fmaf(sP[(ty + 16 * i) * L::kPStride + c], kv, dq[i][j]);
+      }
+    }
+  }
+
+  const long long qs = static_cast<long long>(p.H) * p.dh;
+  T* dqb = static_cast<T*>(p.dq) + (static_cast<long long>(b) * p.S * p.H + h) * p.dh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty + 16 * i;
+    if (s >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = tx + 16 * j;
+      if (c < p.dh) st_f(dqb + s * qs + c, dq[i][j] * p.scale);
+    }
   }
 }
 
@@ -1057,6 +1426,34 @@ int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
                                             stream);
 }
 
+template <int DHP, typename T>
+int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(p.B) * p.S * p.H;
+  const long long delta_blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+  if (delta_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>(delta_blocks), kBwdThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t kSmem = SmemBwd<DHP>::kBytes;
+  err = allow_smem<flash_bwd_dkdv_kernel<DHP, T>>(kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid((p.S + kBwdBK - 1) / kBwdBK, p.K, p.B);
+  flash_bwd_dkdv_kernel<DHP, T><<<kv_grid, kBwdThreads, kSmem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem<flash_bwd_dq_kernel<DHP, T>>(kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid((p.S + kBwdBQ - 1) / kBwdBQ, p.H, p.B);
+  flash_bwd_dq_kernel<DHP, T><<<q_grid, kBwdThreads, kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DHP>
+int launch_bwd_dtype(const BwdParams& p, int dtype, cudaStream_t stream) {
+  if (dtype == 1) return launch_bwd_dh<DHP, __nv_bfloat16>(p, stream);
+  return launch_bwd_dh<DHP, float>(p, stream);
+}
+
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime so the
 // library links no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1149,18 +1546,19 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
 // q (B,S,H,dh), k/v (B,S,K,dh) given by strides (in elements, last dim
 // contiguous); o (B,S,H,dh) contiguous.  dtype codes: 0 = float32,
 // 1 = bfloat16 (q, k, v and o share it).  head_dim is one of 16, 32, 64, 80,
-// 120, 128, 160, 256.  The mma (bf16) and fp32 bodies.  Returns
-// cudaGetLastError() after the launch.
+// 120, 128, 160, 256.  lse: null, or (B,H,S) fp32 for each row's
+// log-sum-exp (what the backward needs).  The mma (bf16) and fp32 bodies.
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int K, long long q_sb,
                                    long long q_ss, long long q_sh, long long k_sb,
                                    long long k_ss, long long k_sh, long long v_sb,
                                    long long v_ss, long long v_sh, int causal, int window,
                                    int chunk, float scale, int head_dim, int dtype,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   const Params p{q,    k,    v,    o,      B,      S,     H,    K,     q_sb,    q_ss,
                  q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,  v_sh, causal, window, chunk,
-                 scale, head_dim};
+                 scale, head_dim, static_cast<float*>(lse)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
@@ -1201,6 +1599,32 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
   switch (head_dim) {
     case 128: return launch_sm90<128>(p, st);
     case 256: return launch_sm90<256>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward: dq (B,S,H,dh), dk and dv (B,S,K,dh) from q, k, v, the
+// forward's o and lse, and dout (like o); every tensor contiguous, of one
+// dtype (0 = float32, 1 = bfloat16; lse fp32).  delta is (B,H,S) fp32
+// scratch.  head_dim is one of 16, 32, 64, 80.  Three launches; returns
+// the first launch error, else cudaGetLastError() after the last.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, void* delta, void* dq,
+                                   void* dk, void* dv, int B, int S, int H, int K, int causal,
+                                   int window, int chunk, float scale, int head_dim, int dtype,
+                                   void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p{q,  k,  v, o, dout, static_cast<const float*>(lse),
+                    static_cast<float*>(delta), dq, dk, dv, B, S, H, K, causal, window,
+                    chunk, scale, head_dim};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return launch_bwd_dtype<16>(p, dtype, st);
+    case 32: return launch_bwd_dtype<32>(p, dtype, st);
+    case 64: return launch_bwd_dtype<64>(p, dtype, st);
+    case 80: return launch_bwd_dtype<80>(p, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,6 +17,17 @@ layout of q, k and v (never by trying one and falling back):
 
 ``flash_attention_cuda.launches`` counts every launch and
 ``flash_attention_cuda.launches_by_body`` each body's.
+
+Training: ``FlashAttentionFunction`` is the ``torch.autograd.Function``
+whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma
+and fp32 bodies also write each row's log-sum-exp; the sm90 body does not
+yet, so a training call that would take it raises) and whose backward is
+``flash_attention_bwd_cuda``: FlashAttention-2 without atomics, fp32 on the
+FMA units for fp32 and bf16 inputs, at the head dims of ``BWD_HEAD_DIMS``
+(``select_bwd_body`` decides, and raises on the rest).  Its calls are
+counted in ``flash_attention_bwd_cuda.launches`` (and ``launches_by_body``).
+Called outside that Function, ``flash_attention_cuda`` refuses inputs that
+require grad (its output has no ``grad_fn``).
 """
 from __future__ import annotations
 
@@ -25,12 +36,17 @@ import ctypes
 import torch
 
 from .. import _build
+from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # every head dim of the config registry (120 is padded to 128 in the kernel)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
 SM90_HEAD_DIMS = (128, 256)
 BODIES = ("sm90", "mma", "fp32")
+# the backward: the head dims of the smoke configs, the train presets and
+# stablelm-3b (ROADMAP.md Queue 2 lists the rest); one body a dtype
+BWD_HEAD_DIMS = (16, 32, 64, 80)
+BWD_BODIES = ("fp32", "bf16")
 
 
 def _entry(name: str, with_dtype: bool):
@@ -38,8 +54,17 @@ def _entry(name: str, with_dtype: bool):
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
-                       ctypes.c_float, I, *([I] if with_dtype else []), P]
+                       ctypes.c_float, I, *([I, P] if with_dtype else []), P]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_entry():
+    fn = _build.load("flash_attention").flash_attention_bwd
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, P]
+        fn.restype = I
     return fn
 
 
@@ -100,33 +125,66 @@ def select_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return "mma"
 
 
+def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None) -> str:
+    """The backward body for these inputs (one of ``BWD_BODIES``: the
+    dtype's), on any device.  Raises where training cannot run: on what no
+    forward body takes (``select_body``), on inputs the forward would send
+    to the sm90 body (it writes no log-sum-exp yet), and on a head dim
+    outside ``BWD_HEAD_DIMS``; ROADMAP.md Queue 2 lists both."""
+    if select_body(q, k, v, scale) == "sm90":
+        raise NotImplementedError(
+            "training through flash attention on the sm90 body (bf16, head "
+            "dim 128 / 256) waits for its log-sum-exp output (ROADMAP.md "
+            "Queue 2 item 2)")
+    dh = q.shape[3]
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash-attention backward takes head dims "
+                         f"{BWD_HEAD_DIMS}, not {dh} (ROADMAP.md Queue 2 "
+                         "item 2)")
+    return "fp32" if q.dtype == torch.float32 else "bf16"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0, chunk: int = 0,
-                         scale: float | None = None) -> torch.Tensor:
-    """q (B,S,H,dh); k, v (B,S,K,dh) -> (B,S,H,dh) in ``q.dtype``.
+                         scale: float | None = None,
+                         return_lse: bool = False):
+    """q (B,S,H,dh); k, v (B,S,K,dh) -> (B,S,H,dh) in ``q.dtype``, and with
+    ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,H,S)
+    fp32 (the mma and fp32 bodies only).
 
     fp32 or bf16; dh one of ``HEAD_DIMS``; H a multiple of K; the last dim
     of each input contiguous (the others are read through strides).  Raises
-    on anything else."""
+    on anything else, and on inputs that require grad while grad mode is on
+    (``FlashAttentionFunction`` takes those)."""
+    refuse_grad("flash_attention_cuda", (q, k, v),
+                "call kernels.ops.flash_attention, which differentiates it")
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got "
                          f"{q.device}")
     body = select_body(q, k, v, scale)
+    if return_lse and body == "sm90":
+        raise NotImplementedError(
+            "the sm90 body writes no log-sum-exp yet (ROADMAP.md Queue 2 "
+            "item 2)")
     if window < 0 or chunk < 0:
         raise ValueError("window and chunk must be >= 0")
     B, S, H, dh = q.shape
     if B > 65535 or H > 65535:
         raise ValueError("batch and heads are limited to 65535")
     out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     scale = scale if scale is not None else dh ** -0.5
     if body == "sm90":
         fn, strides, tail = _entry("flash_attention_fwd_sm90", False), \
             [s for t in (q, k, v) for s in tma_strides(t)], ()
     else:
         fn, strides, tail = _entry("flash_attention_fwd", True), \
-            [s for t in (q, k, v) for s in t.stride()[:3]], (_DTYPES[q.dtype],)
+            [s for t in (q, k, v) for s in t.stride()[:3]], \
+            (_DTYPES[q.dtype], None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, H, k.shape[2], *strides, int(causal), window, chunk,
@@ -136,13 +194,84 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"body): CUDA error {err}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_body[body] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: int = 0, chunk: int = 0,
+                             scale: float | None = None):
+    """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)``, given its
+    output ``o`` and log-sum-exp ``lse`` (B,H,S) fp32 and ``do`` = dL/do.
+
+    The inputs ``select_bwd_body`` takes; every tensor is made contiguous.
+    Three launches (D = rowsum(dO·O), then dK / dV, then dQ), counted as one
+    call; no atomics, so two runs give the same bits."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
+                         f"{q.device}")
+    body = select_bwd_body(q, k, v, scale)
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} or lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("o and do must have q's dtype, lse float32")
+    if window < 0 or chunk < 0:
+        raise ValueError("window and chunk must be >= 0")
+    if B > 65535 or H > 65535:
+        raise ValueError("batch and heads are limited to 65535")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    scale = scale if scale is not None else dh ** -0.5
+    with torch.cuda.device(q.device):
+        err = _bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, H, K, int(causal), window,
+            chunk, scale, dh, _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed ({body} "
+                           f"body): CUDA error {err}")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_body[body] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention_cuda`` forward (with its log-sum-exp),
+    ``flash_attention_bwd_cuda`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, scale):
+        select_bwd_body(q, k, v, scale)   # raise before the forward runs
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        chunk=chunk, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, chunk=chunk,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                              **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def reset_counts() -> None:
-    """Set the launch counts (total and by body) to 0."""
+    """Set the launch counts (forward and backward, total and by body)
+    to 0."""
     flash_attention_cuda.launches = 0
     flash_attention_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
+    flash_attention_bwd_cuda.launches = 0
+    flash_attention_bwd_cuda.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 
 
 reset_counts()

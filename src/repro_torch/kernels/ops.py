@@ -4,16 +4,24 @@ Dispatch is by the tensor's device and nothing else: a CUDA tensor goes to
 the Hopper kernel (which launches or raises), a CPU tensor to the plain
 PyTorch version.  No environment switch routes the card to the plain
 versions.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On the
+card, a call that needs a gradient (grad mode on and an input that requires
+one) goes through the kernel's ``torch.autograd.Function``, whose backward
+is a kernel too (RMSNorm, flash attention); any other call goes to the raw
+wrapper, as serving always did.  The scans have no backward kernel yet:
+their raw wrappers refuse such a call rather than drop the gradient.
 """
 from __future__ import annotations
 
 import torch
 
-from .flash_attention.kernel import flash_attention_cuda
+from .flash_attention.kernel import (FlashAttentionFunction,
+                                     flash_attention_cuda)
 from .flash_attention.ref import mha_ref
 from .rglru.kernel import rglru_cuda
 from .rglru.ref import rglru_assoc, rglru_sequential
-from .rmsnorm.kernel import rmsnorm_cuda
+from .rmsnorm.kernel import RMSNormFunction, rmsnorm_cuda
 from .rmsnorm.ref import rmsnorm_ref
 from .ssd.kernel import ssd_cuda
 from .ssd.ref import ssd_chunked, ssd_sequential
@@ -27,12 +35,19 @@ def _on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {x.device}")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, *, eps: float = 1e-6, residual=None):
     if _on_cuda(x):
+        if _needs_grad(x, scale, residual):
+            return RMSNormFunction.apply(x, scale, residual, eps)
         return rmsnorm_cuda(x, scale, eps=eps, residual=residual)
     return rmsnorm_ref(x, scale, eps=eps, residual=residual)
 
@@ -53,6 +68,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, chunk=0,
     self_attn = (q_positions is None and k_positions is None
                  and q.shape[1] == k.shape[1] and softcap == 0.0)
     if self_attn and _on_cuda(q):
+        if _needs_grad(q, k, v):
+            return FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                chunk, scale)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     chunk=chunk, scale=scale)
     return mha_ref(q, k, v, causal=causal, window=window, chunk=chunk,

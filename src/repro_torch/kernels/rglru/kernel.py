@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("segmented", "serial")
@@ -79,6 +80,9 @@ def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
     fp32, contiguous, or None for a zero state.  ``body`` (default: the one
     ``select_body`` picks; both take every S) names the body to run.
     Raises on anything else."""
+    refuse_grad("rglru_cuda", (log_a, gx, h0),
+                "training the RG-LRU layers on the card waits for its "
+                "backward kernel (ROADMAP.md Queue 1 item 7)")
     if not gx.is_cuda:
         raise ValueError(f"rglru_cuda takes CUDA tensors, got {gx.device}")
     picked = select_body(log_a, gx, h0)

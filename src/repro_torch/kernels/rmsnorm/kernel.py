@@ -14,6 +14,13 @@ alignment (never by trying one and falling back):
 
 ``rmsnorm_cuda.launches`` counts every launch and
 ``rmsnorm_cuda.launches_by_body`` each body's.
+
+The backward is a kernel too (``rmsnorm_bwd_cuda``: dx and a deterministic
+dscale, the statistics recomputed from x), behind ``RMSNormFunction``, the
+``torch.autograd.Function`` whose forward is ``rmsnorm_cuda``;
+``rmsnorm_bwd_cuda.launches`` counts its calls.  Called outside that
+Function, ``rmsnorm_cuda`` refuses inputs that require grad (its output
+has no ``grad_fn``).
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("one_read", "generic")
@@ -34,6 +42,9 @@ _GENERIC = ("generic", 0)
 
 
 _ENTRY = []   # the bound C entry point, once loaded: the launch path is hot
+# CTAs of the backward at most: each sums its rows' dy * x^ into its own
+# partial row of dscale, which a second kernel adds up in order
+BWD_MAX_BLOCKS = 256
 
 
 def _entry():
@@ -46,6 +57,16 @@ def _entry():
         fn.restype = ctypes.c_int
         _ENTRY.append(fn)
     return _ENTRY[0]
+
+
+def _bwd_entry():
+    fn = _build.load("rmsnorm").rmsnorm_bwd
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P, P, ctypes.c_longlong, I,
+                       ctypes.c_float, I, I, I, P]
+        fn.restype = I
+    return fn
 
 
 def select_body(x: torch.Tensor, scale: torch.Tensor,
@@ -91,7 +112,11 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     """y = x * rsqrt(mean(x²) + eps) * scale (+ residual) on the card.
 
     x (..., D) fp32 or bf16, contiguous; scale (D,) fp32 or bf16; residual
-    like x.  Output in ``x.dtype``.  Raises on anything else."""
+    like x.  Output in ``x.dtype``.  Raises on anything else, and on inputs
+    that require grad while grad mode is on (``RMSNormFunction`` takes
+    those)."""
+    refuse_grad("rmsnorm_cuda", (x, scale, residual),
+                "call kernels.ops.rmsnorm, which differentiates it")
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_cuda takes CUDA tensors, got {x.device}")
     body, vpl = select_body(x, scale, residual)
@@ -119,10 +144,67 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     return y
 
 
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     *, eps: float = 1e-6):
+    """(dx in ``x.dtype``, dscale in ``scale.dtype``) of
+    y = x * rsqrt(mean(x²) + eps) * scale, given dy = dL/dy (like x).
+
+    The inputs ``rmsnorm_cuda`` takes (any row the forward takes: every
+    width, fp32 or bf16, statistics in fp32); dy is made contiguous.  A
+    residual's gradient is dy itself and needs no kernel.  dscale is summed
+    in a fixed order: the same bits on every run."""
+    if not x.is_cuda:
+        raise ValueError(f"rmsnorm_bwd_cuda takes CUDA tensors, got "
+                         f"{x.device}")
+    select_body(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
+                         f"{x.dtype} {tuple(x.shape)}")
+    dy = dy.contiguous()
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return torch.zeros_like(x), torch.zeros_like(scale)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    blocks = min(rows, BWD_MAX_BLOCKS)
+    # each CTA's partial sums of dscale and their compensations
+    partial = torch.empty((2, blocks, D), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        err = _bwd_entry()(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), partial.data_ptr(), rows, D, eps,
+            _DTYPES[x.dtype], _DTYPES[scale.dtype], blocks,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error {err}")
+    rmsnorm_bwd_cuda.launches += 1
+    return dx, dscale
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm_cuda`` forward, ``rmsnorm_bwd_cuda`` backward (the
+    residual's gradient is dy)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, residual, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        ctx.has_residual = residual is not None
+        return rmsnorm_cuda(x, scale, eps=eps, residual=residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, dy if ctx.has_residual else None, None
+
+
 def reset_counts() -> None:
-    """Set the launch counts (total and by body) to 0."""
+    """Set the launch counts (forward total and by body, backward) to 0."""
     rmsnorm_cuda.launches = 0
     rmsnorm_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
+    rmsnorm_bwd_cuda.launches = 0
 
 
 reset_counts()

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("mma", "fma")
@@ -104,6 +105,9 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     multiples of 8 up to 128; G dividing H.  ``body`` (default: the one
     ``select_body`` picks) names the body to run, ``fma`` or, for bfloat16,
     ``mma``.  Raises on anything else."""
+    refuse_grad("ssd_cuda", (x, dt, A, Bm, Cm, D),
+                "training the SSD layers on the card waits for its "
+                "backward kernel (ROADMAP.md Queue 1 item 7)")
     if not x.is_cuda:
         raise ValueError(f"ssd_cuda takes CUDA tensors, got {x.device}")
     picked = select_body(x, dt, A, Bm, Cm, D, chunk)

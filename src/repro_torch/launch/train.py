@@ -1,0 +1,71 @@
+"""Training launcher for the port, on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+        --smoke --steps 50 --workdir /tmp/run1
+
+All host I/O (checkpoints, metrics) flows through the CannyFS
+transactional engine; ``--restarts`` wraps the job in the
+rollback-and-resubmit loop.  The reference's ``--mesh``, ``--remat`` and
+``--act-mode`` wait for the port's sharding and remat (ROADMAP.md Queue 1
+items 11-12).
+"""
+import argparse
+import tempfile
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import (CannyFS, LatencyBackend, LatencyModel,
+                              LocalBackend)
+from repro_torch.data import Prefetcher, SyntheticLM
+from repro_torch.train.loop import LoopConfig, Trainer, run_with_restarts
+from repro_torch.train.steps import TrainConfig
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--restarts", type=int, default=1)
+    ap.add_argument("--io-latency-ms", type=float, default=0.0)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="repro_run_")
+    backend = LocalBackend(workdir)
+    if args.io_latency_ms:
+        backend = LatencyBackend(backend, LatencyModel(
+            meta_ms=args.io_latency_ms, data_ms=args.io_latency_ms))
+    fs = CannyFS(backend, max_inflight=4000, workers=32)
+    print(f"[launch] arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
+          f"device={args.device} workdir={workdir}")
+
+    tc = TrainConfig(dtype=getattr(torch, args.dtype), peak_lr=args.lr)
+    lc = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                    log_every=10, warmup=min(20, args.steps // 5 + 1))
+
+    def factory():
+        data = Prefetcher(iter(SyntheticLM(cfg, batch=args.batch,
+                                           seq_len=args.seq, seed=0)),
+                          depth=2)
+        return Trainer(cfg, fs, data, tc=tc, lc=lc, device=args.device)
+
+    metrics = run_with_restarts(factory, max_restarts=args.restarts)
+    print("[launch] done:", {k: round(float(v), 4)
+                             for k, v in metrics.items()})
+    fs.close()
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,12 @@
-"""repro_torch.models — the PyTorch model stack (attention and RG-LRU
-mixers with dense FFNs, so far)."""
+"""repro_torch.models — the PyTorch model stack (attention, RG-LRU and
+SSD mixers with dense FFNs, so far)."""
 from .config import ATTN_KINDS, MIXER_KINDS, ModelConfig
-from .model import decode_step, forward_train, init_cache, init_params, prefill
+from .layers import cross_entropy
+from .model import (decode_step, forward_train, init_cache, init_params,
+                    param_specs, prefill)
 
 __all__ = [
-    "ATTN_KINDS", "MIXER_KINDS", "ModelConfig", "decode_step",
-    "forward_train", "init_cache", "init_params", "prefill",
+    "ATTN_KINDS", "MIXER_KINDS", "ModelConfig", "cross_entropy",
+    "decode_step", "forward_train", "init_cache", "init_params",
+    "param_specs", "prefill",
 ]

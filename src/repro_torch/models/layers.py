@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, gated MLPs, embeddings.
+"""Shared layer primitives: norms, gated MLPs, embeddings, the loss.
 
 Plain functions over tensors and parameter dicts; the compute dtype is the
 dtype of the activations passed in.
@@ -49,6 +49,34 @@ def unembed(x: torch.Tensor, table_or_head: torch.Tensor, *,
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None, z_loss: float = 0.0,
+                  compute_dtype=torch.float32):
+    """Token-mean CE with fp32 reductions (default) and optional z-loss;
+    returns (loss, denominator).
+
+    logits (..., V) any float dtype; labels (...) int; mask (...) bool.  As
+    in the reference, the max is held out of the gradient and the gold logit
+    is taken by a masked reduction over the vocabulary, not a gather.
+    compute_dtype=bfloat16 skips the fp32 copy of the (B,S,V) logits; the
+    reductions still accumulate in fp32."""
+    logits = logits.to(compute_dtype)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    sumexp = torch.exp(logits - m).sum(dim=-1, dtype=torch.float32)
+    lse = torch.log(sumexp) + m[..., 0].float()
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(
+        dim=-1, dtype=torch.float32)
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    if mask is None:
+        return nll.mean(), nll.numel()
+    mask = mask.float()
+    denom = mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / denom, denom
 
 
 def cast_tree(tree, dtype):

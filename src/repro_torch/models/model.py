@@ -8,6 +8,7 @@ over the leading axis where the reference scans.
 Public entry points:
 
     init_params(cfg, device=..., dtype=..., generator=...) -> param dict
+    param_specs(cfg, dtype=...)                         -> the same on "meta"
     forward_train(params, batch, cfg, dtype=...)        -> (logits, aux)
     init_cache(cfg, B, max_len, dtype, device=...)      -> decode cache
     prefill(params, batch, cache, cfg, dtype=...)       -> (last_logits, cache)
@@ -73,6 +74,13 @@ def init_params(cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
     if not cfg.tie_embeddings:
         params["lm_head"] = blocks.trunc_normal((D, V), D, **init)
     return params
+
+
+def param_specs(cfg: ModelConfig, *, dtype=torch.float32) -> dict:
+    """The parameter tree as "meta" tensors: shapes and dtypes, no storage
+    and no random draws (the reference's ``eval_shape`` of ``init_params``)."""
+    return init_params(cfg, device="meta", dtype=dtype,
+                       generator=torch.Generator())
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""repro_torch.train — the serving steps (training waits for a later
-slice)."""
-from .steps import make_decode_step, make_prefill_step
+"""repro_torch.train — step factories, the training loop and its metrics."""
+from .steps import (TrainConfig, make_decode_step, make_eval_step,
+                    make_loss_and_grad, make_prefill_step, make_train_step)
 
-__all__ = ["make_decode_step", "make_prefill_step"]
+__all__ = ["TrainConfig", "make_decode_step", "make_eval_step",
+           "make_loss_and_grad", "make_prefill_step", "make_train_step"]

@@ -3,7 +3,10 @@
 Each kernel against its plain PyTorch version on the same inputs, at the
 JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32,
 the SSD scan 2e-3 fp32 / 5e-2 bf16), and the serving path on the card
-against the same path on the CPU.  Each body of a kernel is held on its own
+against the same path on the CPU.  The backward kernels (RMSNorm, flash
+attention) against autograd of their plain versions in fp32 on the same
+inputs, and the training step on the card against the same step on the
+CPU.  Each body of a kernel is held on its own
 (flash attention's sm90, mma and fp32 bodies, rmsnorm's one-read and generic
 bodies, the SSD scan's mma and fma bodies, the RG-LRU scan's segmented and
 serial bodies), and the launch counts by body show which one ran.  This file
@@ -21,18 +24,25 @@ import torch
 from numpy.testing import assert_allclose
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
 from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import rglru_assoc, rglru_sequential
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import kernel as rms
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd.kernel import ssd_cuda
 from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
                                          ssd_chunk_state, ssd_chunked,
                                          ssd_sequential, ssd_state_passing)
 from repro_torch.models import init_cache, init_params
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.optim import adamw_update, init_opt_state
+from repro_torch.train.steps import (TrainConfig, make_decode_step,
+                                     make_loss_and_grad, make_prefill_step,
+                                     make_train_step)
 
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = [torch.float32, torch.bfloat16]
@@ -564,6 +574,187 @@ def test_serve_example_runs_on_card(cuda, argv, monkeypatch, capsys):
     runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),
                    run_name="__main__")
     assert "decode_throughput=" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# backward kernels and training
+# ---------------------------------------------------------------------------
+
+def _within(got, want, t):
+    """|got - want| <= t (1 + |want|) everywhere, on finite values."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= t * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,D", [(4096, 512), (300, 256), (7, 64),
+                                    (33, 130), (5, 3584)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, D):
+    """dx and dscale against autograd of rmsnorm_ref in fp32 on the same
+    inputs; (4096, 512) is the 100m preset's step; dscale's order is fixed,
+    so a second call gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dy = (torch.randn(rows, D, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    s = torch.randn(D, generator=g, device=cuda).to(dtype)
+    before = rmsnorm_bwd_cuda.launches
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+    dx2, ds2 = rmsnorm_bwd_cuda(x, s, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd_cuda.launches == before + 2
+    assert dx.dtype == dtype and ds.dtype == dtype
+    xf, sf = x.float().requires_grad_(), s.float().requires_grad_()
+    rmsnorm_ref(xf, sf).backward(dy.float())
+    t = 2e-5 if dtype == torch.float32 else 2e-2
+    assert _within(dx, xf.grad, t) and _within(ds, sf.grad, t)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+FLASH_BWD_CASES = [
+    (16, 256, 8, 4, 64, dict(causal=True)),         # the 100m preset
+    (2, 100, 4, 1, 16, dict(causal=True)),          # smoke, ragged S
+    (2, 128, 8, 4, 32, dict(causal=True)),
+    (1, 300, 32, 32, 80, dict(causal=True)),        # stablelm-3b
+    (1, 200, 4, 2, 64, dict(causal=True, window=50)),
+    (1, 200, 4, 2, 64, dict(causal=True, chunk=48)),
+    (2, 70, 4, 4, 80, dict(causal=False)),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,K,dh,kw", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
+    """dq, dk, dv through FlashAttentionFunction against autograd of
+    mha_ref in fp32 on the same inputs; the forward's log-sum-exp against
+    the plain one; two backward calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, K, dh, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    t = 2e-5 if dtype == torch.float32 else 2e-2
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    pos = torch.arange(S, device=cuda)
+    logits = torch.einsum("bqkgd,bskd->bkgqs",
+                          q.float().unflatten(2, (K, H // K)), k.float())
+    logits = logits * dh ** -0.5
+    logits = logits.masked_fill(~attention_mask(pos, pos, **kw), -torch.inf)
+    assert _within(lse, torch.logsumexp(logits, -1).flatten(1, 2), t)
+    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+    before = flash_attention_bwd_cuda.launches
+    ops.flash_attention(qg, kg, vg, **kw).backward(do)
+    assert flash_attention_bwd_cuda.launches == before + 1
+    qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
+    mha_ref(qf, kf, vf, **kw).backward(do.float())
+    for got, want in ((qg.grad, qf.grad), (kg.grad, kf.grad),
+                      (vg.grad, vf.grad)):
+        assert got.dtype == dtype and _within(got, want, t)
+    again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_raw_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
+    x = torch.ones(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient of its own"):
+        rmsnorm_cuda(x, torch.ones(64, device=cuda))
+    with torch.no_grad():
+        rmsnorm_cuda(x, torch.ones(64, device=cuda))
+
+
+def test_flash_training_on_the_sm90_body_raises(cuda):
+    q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    k = torch.zeros(1, 64, 1, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.flash_attention(q, k, k)
+
+
+def _lm(layers, **kw):
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        from train_lm_torch import preset_config
+    finally:
+        sys.path.pop(0)
+    return preset_config(kw.pop("preset", "small"), num_layers=layers, **kw)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of the small preset at 2 layers, fp32, on the card
+    (CUDA forward and backward kernels) against the same step on the CPU
+    (plain versions, autograd): loss and every gradient leaf within 2e-4
+    of the largest value (the JAX suite's decode-vs-forward bound); AdamW
+    on the card given the CPU's gradients lands on the CPU's parameters
+    within 1e-6.  The card's own updated parameters may differ by up to
+    2 lr where a gradient is near AdamW's eps (g / (|g| + eps) turns tiny
+    differences into whole steps), which bounds them."""
+    cfg = _lm(2)
+    tc = TrainConfig(dtype=torch.float32)
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    rng = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=rng,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    lr = torch.tensor(1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        total, _, grads = make_loss_and_grad(cfg, tc)(p, b)
+        new_p, _, m = make_train_step(cfg, tc)(p, init_opt_state(p), b, lr)
+        out[str(dev)] = (total.cpu(), [g.cpu() for g in _leaves(grads)],
+                         [t.cpu() for t in _leaves(new_p)], grads)
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert abs(float(card[0]) - float(cpu[0])) <= 2e-4 * abs(float(cpu[0]))
+    for got, want in zip(card[1], cpu[1]):
+        assert float((got - want).abs().max()) <= 2e-4 * float(
+            want.abs().max())
+    for got, want in zip(card[2], cpu[2]):
+        assert float((got - want).abs().max()) <= 2 * float(lr)
+    p_card = _to(params, cuda)
+    on_cpu_grads, _, _ = adamw_update(_to(cpu[3], cuda),
+                                      init_opt_state(p_card), p_card, lr)
+    for got, want in zip(_leaves(on_cpu_grads), cpu[2]):
+        assert float((got.cpu() - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+
+
+def test_train_step_launches_each_kernel_both_ways(cuda):
+    """One step of the small preset at 2 layers: 2L + 1 = 5 RMSNorm and
+    L = 2 flash launches forward, the same backward."""
+    cfg = _lm(2)
+    params = init_params(cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for module in (rms, flash):
+        module.reset_counts()
+    make_train_step(cfg, TrainConfig(dtype=torch.float32))(
+        params, init_opt_state(params), batch, torch.tensor(1e-3))
+    torch.cuda.synchronize()
+    assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == (5, 5)
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == (2, 2)
+    assert flash_attention_cuda.launches_by_body["fp32"] == 2
+
+
+def test_train_example_runs_on_card(cuda, monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(sys, "argv", [
+        "train_lm_torch.py", "--preset", "small", "--steps", "20",
+        "--ckpt-every", "10", "--workdir", str(tmp_path)])
+    runpy.run_path(str(ROOT / "examples" / "train_lm_torch.py"),
+                   run_name="__main__")
+    assert "final metrics:" in capsys.readouterr().out
 
 
 def _to(tree, dev):

@@ -3,15 +3,20 @@
 ``select_body`` of the flash-attention, rmsnorm, SSD and RG-LRU wrappers is
 a pure function of dtype, shape, base address and strides: these tests hold
 it without a card, including the inputs that no body takes (which raise).
-The bodies themselves run in ``test_torch_cuda.py``.
+So is ``select_bwd_body``, the flash-attention backward's, and the raw
+wrappers' refusal of inputs that require grad.  The bodies themselves run
+in ``test_torch_cuda.py``.
 """
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.kernel import select_body as flash_body
 from repro_torch.kernels.flash_attention.kernel import tma_strides
 from repro_torch.kernels.rglru import kernel as rglru
 from repro_torch.kernels.rglru.kernel import select_body as rglru_body
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.kernel import select_body as rms_body
 from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.kernels.ssd.kernel import select_body as ssd_body
@@ -265,3 +270,92 @@ def test_rglru_counts_start_at_zero_by_body():
     rglru.reset_counts()
     assert rglru.rglru_cuda.launches == 0
     assert rglru.rglru_cuda.launches_by_body == {"segmented": 0, "serial": 0}
+
+
+# ---------------------------------------------------------------------------
+# the gradient guard and the backward's body
+# ---------------------------------------------------------------------------
+
+def _grad_inputs():
+    """CPU inputs of each raw wrapper, the first one requiring grad."""
+    x = torch.zeros(2, 8, 64, requires_grad=True)
+    q = torch.zeros(1, 16, 2, 64, requires_grad=True)
+    kv = torch.zeros(1, 16, 1, 64)
+    xs = torch.zeros(1, 16, 2, 8, requires_grad=True)
+    dt = torch.zeros(1, 16, 2)
+    bm = torch.zeros(1, 16, 1, 8)
+    la = torch.zeros(1, 16, 32, requires_grad=True)
+    return [
+        (rmsnorm_cuda, (x, torch.ones(64)), {}),
+        (flash_attention_cuda, (q, kv, kv), {}),
+        (ssd.ssd_cuda, (xs, dt, torch.zeros(2), bm, bm, torch.zeros(2)),
+         dict(chunk=16)),
+        (rglru.rglru_cuda, (la, torch.zeros(1, 16, 32)), {}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4),
+                         ids=["rmsnorm", "flash", "ssd", "rglru"])
+def test_raw_wrappers_refuse_inputs_that_require_grad(case):
+    """Outside their autograd.Function a raw wrapper would drop the
+    gradient: with grad mode on it raises, before it looks at the device;
+    under no_grad the device check speaks instead (no card here)."""
+    fn, args, kw = _grad_inputs()[case]
+    with pytest.raises(RuntimeError, match="no gradient of its own"):
+        fn(*args, **kw)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*args, **kw)
+
+
+def test_scan_wrappers_name_the_roadmap_item():
+    for fn, args, kw in _grad_inputs()[2:]:
+        with pytest.raises(RuntimeError, match="Queue 1 item 7"):
+            fn(*args, **kw)
+
+
+@pytest.mark.parametrize("dh", flash.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,want", [(F32, "fp32"), (BF16, "bf16")])
+def test_flash_bwd_body_by_dtype(dh, dtype, want):
+    assert flash.select_bwd_body(*qkv(dh=dh, dtype=dtype)) == want
+
+
+def test_flash_bwd_refuses_the_sm90_body():
+    """bf16 at dh 128, aligned: the forward would take the sm90 body, which
+    writes no log-sum-exp yet."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        flash.select_bwd_body(*qkv(dh=128))
+
+
+@pytest.mark.parametrize("dh,dtype", [(128, F32), (120, BF16), (256, F32),
+                                      (160, BF16)])
+def test_flash_bwd_refuses_other_head_dims(dh, dtype):
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        flash.select_bwd_body(*qkv(dh=dh, dtype=dtype))
+
+
+def test_flash_bwd_body_raises_on_what_no_forward_body_takes():
+    q, k, v = qkv(dh=64, dtype=F32)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash.select_bwd_body(q, torch.zeros(2, 64, 3, 64),
+                              torch.zeros(2, 64, 3, 64))
+
+
+def test_cpu_ops_differentiate_the_plain_versions():
+    """On the CPU the dispatch wrappers take the plain versions, which
+    autograd differentiates."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 64, generator=g, requires_grad=True)
+    s = torch.randn(64, generator=g)
+    ops.rmsnorm(x, s).sum().backward()
+    x2 = x.detach().clone().requires_grad_()
+    rmsnorm_ref(x2, s).sum().backward()
+    assert torch.equal(x.grad, x2.grad)
+    q = torch.randn(1, 8, 2, 16, generator=g, requires_grad=True)
+    k = torch.randn(1, 8, 1, 16, generator=g)
+    ops.flash_attention(q, k, k).sum().backward()
+    q2 = q.detach().clone().requires_grad_()
+    mha_ref(q2, k, k).sum().backward()
+    assert torch.equal(q.grad, q2.grad)

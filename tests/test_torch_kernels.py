@@ -2,12 +2,16 @@
 
 The plain PyTorch versions (``rmsnorm_ref``, ``mha_ref``,
 ``attention_mask``) against the JAX Pallas kernels run in interpret mode and
-against the JAX references, on the same numpy inputs.  Tolerances are the
+against the JAX references, on the same numpy inputs; the gradients of
+``rmsnorm_ref`` and ``mha_ref`` (autograd) against ``jax.grad`` of the JAX
+references, which the backward kernels are held to on the card through
+them.  Tolerances are the
 JAX suite's own (``tests/test_kernels.py``): fp32 2e-5, bf16 2e-2, RG-LRU
 scan 1e-4, SSD scan 2e-3 fp32 / 5e-2 bf16 (its final state and decode step
 1e-4).  The CUDA kernels against their plain versions are in
 ``test_torch_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +89,31 @@ def test_rmsnorm_ref_matches_jax(shape, dtype, with_residual):
     assert torch.equal(ops.rmsnorm(xt, st, residual=rt), got)
 
 
+@pytest.mark.parametrize("shape", [(8, 64), (2, 17, 256), (3, 100, 512)])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_rmsnorm_ref_gradient_matches_jax(shape, with_residual):
+    """dx, dscale (and d_residual) of rmsnorm_ref against jax.grad of the
+    JAX reference, fp32, at the train widths 64, 256 and 512."""
+    rng = np.random.default_rng(4)
+    x, dy, r = (rng.standard_normal(shape).astype(np.float32)
+                for _ in range(3))
+    s = rng.standard_normal(shape[-1:]).astype(np.float32)
+    res = r if with_residual else None
+
+    def loss_j(x, s, r):
+        y = jax_rmsnorm_ref(x, s, residual=r if with_residual else None)
+        return jnp.sum(y * dy)
+
+    want = jax.grad(loss_j, argnums=(0, 1, 2))(x, s, r)
+    xt, st, rt = (torch.from_numpy(a).requires_grad_() for a in (x, s, r))
+    rmsnorm_ref(xt, st, residual=rt if res is not None else None).backward(
+        torch.from_numpy(dy))
+    got = (xt.grad, st.grad, rt.grad if with_residual else None)
+    for g, w in zip(got, want):
+        if g is not None:
+            assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -111,6 +140,29 @@ def test_mha_ref_matches_jax_flash_kernel(B, S, H, K, dh, kw, dtype):
     want = flash_attention_pallas(qj, kj, vj, interpret=True, **kw)
     assert_allclose(f32(got), f32(want), **tol(dtype))
     assert torch.equal(ops.flash_attention(qt, kt, vt, **kw), got)
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (2, 64, 8, 4, 64, dict(causal=True)),          # the 100m preset's heads
+    (2, 37, 4, 1, 16, dict(causal=True)),          # smoke, ragged S
+    (1, 48, 8, 4, 32, dict(causal=True, window=9)),
+    (1, 50, 4, 2, 80, dict(causal=True, chunk=16)),
+    (1, 40, 2, 2, 64, dict(causal=False)),
+])
+def test_mha_ref_gradient_matches_jax(B, S, H, K, dh, kw):
+    """dq, dk, dv of mha_ref against jax.grad of the JAX reference, fp32,
+    at the backward kernel's head dims and masks."""
+    rng = np.random.default_rng(5)
+    q, do = (rng.standard_normal((B, S, H, dh)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, S, K, dh)).astype(np.float32)
+            for _ in range(2))
+    want = jax.grad(lambda q, k, v: jnp.sum(jax_mha_ref(q, k, v, **kw) * do),
+                    argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    mha_ref(*leaves, **kw).backward(torch.from_numpy(do))
+    for g, w in zip(leaves, want):
+        assert_allclose(g.grad.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=5),

@@ -426,7 +426,9 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_batch_torch.py"]
+    files += [ROOT / "chip_smoke.py"]
+    files += [ROOT / "examples" / name
+              for name in ("serve_batch_torch.py", "train_lm_torch.py")]
     assert len(files) > 20
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _FORBIDDEN.finditer(f.read_text())]
