@@ -25,11 +25,13 @@ Phases, each printed as one JSON line:
    SSD case on each body that takes it (bf16: mma and fma; fp32: fma), with
    each of the mma body's three phase kernels against its plain phase.
    Each case records the body that ran.  The two backward kernels
-   (RMSNorm: dx and dscale; flash attention: dq, dk, dv, with the forward's
-   log-sum-exp) against autograd of their plain versions in fp32 on the
-   same inputs, fp32 and bf16, at the train widths and head dims 16, 32,
-   64 and 80, causal / window / chunk masks, GQA and ragged S, each called
-   twice (the same bits).  Then kernel, plain and library
+   (RMSNorm: dx and dscale, on its warp_rows body at the train widths and
+   its generic body at 2048, 3584 and an odd width; flash attention: dq,
+   dk, dv on the tensor cores, with the forward's log-sum-exp) against
+   autograd of their plain versions in fp32 on the same inputs, fp32 and
+   bf16, at head dims 16, 32, 64 and 80, causal / window / chunk masks,
+   GQA groups up to 8 and S that is not a multiple of the 64-row tiles,
+   each called twice (the same bits).  Then kernel, plain and library
    (``F.rms_norm`` / SDPA; none computes the RG-LRU or the SSD scan) times
    at the serving shapes of qwen2-7b, recurrentgemma-9b (and its decode
    shape for the RG-LRU) and mamba2-130m, and the backwards at the 100m
@@ -37,7 +39,9 @@ Phases, each printed as one JSON line:
    and of SDPA, through autograd), beside the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type; the SSD row also gives the fp32-operations bound of its fma
-   body).  The mma body's chunk scan is also held, at one bf16 step of y
+   body, the flash backward's row the bound of its split products at the
+   TF32 rate and ``fma_bound_ms``, its five products at the fp32 FMA rate),
+   and each backward's device time by kernel (``kernel_ms``).  The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
    ``ms``,
@@ -48,8 +52,8 @@ Phases, each printed as one JSON line:
    the kernel.  ``previous_body_ms`` times, on the same inputs, the body
    these shapes took before this round of redesigns (flash attention's mma
    body, rmsnorm's generic body, the SSD scan's fma body, the RG-LRU's
-   serial body), called through the C entry point directly; the SSD row
-   times each phase too.  Each kernel's ``profiler_windows`` counts its
+   serial body, the RMSNorm backward's generic body), called through the C
+   entry point directly; the SSD row times each phase too.  Each kernel's ``profiler_windows`` counts its
    timings and the profiler windows they took (more windows than timings:
    the profiler dropped a window, which is then taken again).
 3. ``serve_check``, once per served arch, at full width, fp32, random
@@ -113,7 +117,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
-                  torch.float32: 67e12}     # fp32 outside the tensor cores
+                  torch.float32: 67e12,     # fp32 outside the tensor cores
+                  "tf32": 494.7e12}         # dense tensor-core TF32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
@@ -197,6 +202,29 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
     check(False, f"the profiler saw no device time in {tries} windows")
 
 
+def kernel_breakdown(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Device time of each kernel one call runs, by kernel name (shortened
+    to its name before the template arguments), per call, under
+    torch.profiler over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split()[-1]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+    return out
+
+
 def ptxas_functions(log: str) -> dict:
     """{kernel: {"spills": ..., "registers": ...}} from ``-Xptxas=-v``."""
     out, lines = {}, log.splitlines()
@@ -231,6 +259,14 @@ def ssd_split_macs(B, S, H, P, G, N, Q) -> int:
     the operand's bf16 hi and once for its lo."""
     cb = B * -(-S // Q) * G * (Q * (Q + 1) // 2) * N
     return cb + 2 * (ssd_macs(B, S, H, P, G, N, Q) - cb)
+
+
+def flash_bwd_split_macs(B: int, H: int, pairs: int, dh: int) -> int:
+    """Multiply-adds the flash-attention backward's fp32 body needs on the
+    TF32 tensor cores: the five products of ``pairs`` (query, key) pairs x
+    dh a head (S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q),
+    each formed from three TF32 products (hi·hi, hi·lo, lo·hi)."""
+    return 3 * 5 * B * H * pairs * dh
 
 
 def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
@@ -303,14 +339,17 @@ def phase_env(build):
     check(len(scans) == 6 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scans.values()), f"a scan body spills: {scans}")
-    # the backward kernels: flash's delta pre-pass, dK/dV and dQ at 4 head
-    # dims x 2 dtypes (18), rmsnorm's 4 type pairs and 2 dscale sums (6)
+    # the backward kernels: flash's dQ and dK/dV at 4 head dims x 2 dtypes
+    # (16); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
+    # 2, 4 and, for fp32 x, 8) and its dscale tree (2), and the generic body
+    # (4 type pairs and 2 dscale sums)
     bwd = {name: f for src in ("flash_attention", "rmsnorm")
            for name, f in ptxas_functions(logs[src]).items()
-           if any(k in name for k in ("flash_bwd_", "rmsnorm_bwd_kernel",
-                                      "rmsnorm_dscale_kernel"))}
+           if any(k in name for k in (
+               "flash_bwd_", "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel",
+               "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 24 and all(
+    check(len(bwd) == 38 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     return smi
@@ -704,6 +743,7 @@ def backward_kernels(dev, gen, cases, summary):
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda, select_bwd_body)
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import (RMSNormFunction,
                                                     rmsnorm_bwd_cuda)
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -717,22 +757,26 @@ def backward_kernels(dev, gen, cases, summary):
         return torch.autograd.grad(fn(*leaves, **kw), leaves, grad_out.float())
 
     # ---- rmsnorm backward: the train widths (64, 256, 512: smoke, small,
-    # 100m), the served 768 and 3584, an odd width; the 100m step's rows
+    # 100m) and the served 768 on the warp_rows body; the served 3584, a
+    # 2048 and an odd width on the generic body; the 100m step's rows
     for dtype in (f32, torch.bfloat16):
         for rows, D in ((4096, 512), (1024, 256), (64, 64), (300, 768),
-                        (8, 3584), (33, 130)):
+                        (8, 3584), (33, 130), (6, 2048)):
             x, dy = (randn(rows, D, dtype=dtype) for _ in range(2))
             s = randn(D, dtype=dtype)
+            body = rms.select_bwd_body(x, s, dy)[0]
             got = rmsnorm_bwd_cuda(x, s, dy)
             want = plain_grads(rmsnorm_ref, (x, s), dy)
             errs = [compare(g, w, dtype) for g, w in zip(got, want)]
             again = rmsnorm_bwd_cuda(x, s, dy)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            cases.append(dict(kernel="rmsnorm_bwd", dtype=str(dtype),
-                              rows=rows, D=D,
+            want_body = "warp_rows" if D <= 768 and D != 130 else "generic"
+            cases.append(dict(kernel="rmsnorm_bwd", body=body,
+                              dtype=str(dtype), rows=rows, D=D,
                               max_abs_err=max(e for e, _ in errs),
                               tol=TOL[dtype], deterministic=same,
-                              ok=all(ok for _, ok in errs) and same))
+                              ok=all(ok for _, ok in errs) and same
+                              and body == want_body))
     # through the autograd Function with a residual: d_residual is dy
     x, r, dy = (randn(64, 512, dtype=f32) for _ in range(3))
     s = randn(512, dtype=f32)
@@ -747,12 +791,20 @@ def backward_kernels(dev, gen, cases, summary):
                       max_abs_err=max(e for e, _ in errs), tol=TOL[f32],
                       ok=all(ok for _, ok in errs)))
 
-    x, dy = (randn(4096, 512, dtype=f32) for _ in range(2))
-    s = randn(512, dtype=f32)
+    rows, D = 4096, 512
+    x, dy = (randn(rows, D, dtype=f32) for _ in range(2))
+    s = randn(D, dtype=f32)
     xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
     plain_out = rmsnorm_ref(xr, sr)
-    lib_out = F.rms_norm(xr, (512,), sr, 1e-6)
+    lib_out = F.rms_norm(xr, (D,), sr, 1e-6)
     kernel = lambda: rmsnorm_bwd_cuda(x, s, dy)  # noqa: E731
+    # PR 16's body (the generic one) on the same inputs, through its entry
+    dx, ds = torch.empty_like(x), torch.empty_like(s)
+    partial = torch.empty((2, rms.BWD_MAX_BLOCKS, D), device=dev)
+    generic = lambda: rms._bwd_entry("generic")(  # noqa: E731
+        x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(), ds.data_ptr(),
+        partial.data_ptr(), rows, D, 1e-6, 0, 0, rms.BWD_MAX_BLOCKS,
+        torch.cuda.current_stream().cuda_stream)
     mark = len(PROFILER_WINDOWS)
     # bytes: x, dy and scale read once, dx and dscale written once; about
     # 10 operations an element
@@ -763,7 +815,11 @@ def backward_kernels(dev, gen, cases, summary):
         replaces="src/repro/kernels/rmsnorm/kernel.py:33 (its gradient: "
                  "JAX differentiates the jnp reference)",
         shape="x, dy (4096, 512) fp32, scale fp32 (the 100m step)",
+        body=rms.select_bwd_body(x, s, dy)[0],
         ms=device_ms(kernel), event_ms=time_ms(kernel),
+        kernel_ms=kernel_breakdown(kernel),
+        previous_body_ms=device_ms(generic),
+        previous_body_event_ms=time_ms(generic),
         plain_ms=device_ms(_grad_ms(plain_out, (xr, sr), dy)),
         library_ms=device_ms(_grad_ms(lib_out, (xr, sr), dy)),
         library_event_ms=time_ms(_grad_ms(lib_out, (xr, sr), dy)),
@@ -786,6 +842,11 @@ def backward_kernels(dev, gen, cases, summary):
         (2, 200, 8, 2, 64, dict(causal=True, chunk=48)),
         (1, 130, 4, 4, 80, dict(causal=False)),
         (1, 333, 6, 3, 32, dict(causal=True, window=100)),
+        # GQA groups of 8 and S not a multiple of the 64-row tiles, at the
+        # head dims 64, 16 and 80
+        (2, 190, 16, 2, 64, dict(causal=True)),
+        (1, 129, 8, 1, 16, dict(causal=True, chunk=40)),
+        (1, 65, 16, 2, 80, dict(causal=True, window=33)),
     ]
     for B, S, H, K, dh, kw in attn_cases:
         for dtype in (f32, torch.bfloat16):
@@ -823,11 +884,15 @@ def backward_kernels(dev, gen, cases, summary):
         out, lse = flash_attention_cuda(q, k, v, return_lse=True)
     pos = torch.arange(S, device=dev)
     pairs = int(attention_mask(pos, pos, causal=True).sum())
-    # five products of pairs x dh a head (S = Q K^T again, dP = dO V^T,
-    # dV = P^T dO, dQ = dS K, dK = dS^T Q), 2 operations a multiply-add;
-    # bytes: q, k, v, o, dO and lse read, dq, dk and dv written
+    # the five products of pairs x dh a head, each three TF32 products on
+    # the tensor cores (flash_bwd_split_macs), 2 operations a multiply-add;
+    # bytes: q, k, v, o, dO and lse read, dq, dk and dv written.  The same
+    # five products once each at the fp32 FMA rate: fma_bound_ms, the bound
+    # of PR 16's body
     t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
-                        + lse.nbytes, 5 * 2 * B * H * pairs * dh, f32)
+                        + lse.nbytes, 2 * flash_bwd_split_macs(B, H, pairs, dh),
+                        "tf32")
+    fma_bound = 5 * 2 * B * H * pairs * dh / PEAK_OPS_PER_S[f32] * 1e3
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_out = mha_ref(*leaves)
     lib_out = F.scaled_dot_product_attention(
@@ -846,13 +911,14 @@ def backward_kernels(dev, gen, cases, summary):
         shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal "
               "(the 100m step)",
         body=select_bwd_body(q, k, v), ms=device_ms(kernel),
-        event_ms=time_ms(kernel), forward_lse_ms=device_ms(forward),
+        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+        forward_lse_ms=device_ms(forward),
         forward_ms=device_ms(lambda: flash_attention_cuda(q, k, v)),
         plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
         library_ms=device_ms(_grad_ms(lib_out, leaves, do.transpose(1, 2))),
         library_event_ms=time_ms(_grad_ms(lib_out, leaves,
                                           do.transpose(1, 2))),
-        bound_ms=t_bound, bound_by=by,
+        bound_ms=t_bound, bound_by=by, fma_bound_ms=fma_bound,
         max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
             kernel(), plain_grads(mha_ref, (q, k, v), do))),
         profiler_windows=window_counts(mark))
@@ -1220,6 +1286,7 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
             "rglru": (lru.rglru_cuda.launches, 0),
             "ssd": (ssd.ssd_cuda.launches, 0)}
         by_body = {"rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
+                   "rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
                    "flash_attention": dict(
                        flash.flash_attention_cuda.launches_by_body),
                    "flash_attention_bwd": dict(
@@ -1316,8 +1383,9 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
           f"end below ln V = {math.log(cfg.vocab_size)})")
     check(launches == want, f"train: launches {launches}, expected {want}")
     check(by_body["rmsnorm"]["one_read"] == want["rmsnorm"][0]
+          and by_body["rmsnorm_bwd"]["warp_rows"] == want["rmsnorm"][1]
           and by_body["flash_attention"]["fp32"] == want["flash_attention"][0]
-          and by_body["flash_attention_bwd"]["fp32"]
+          and by_body["flash_attention_bwd"]["mma_tf32x3"]
           == want["flash_attention"][1],
           f"train: launches by body {by_body}")
     check(identical, "train: the restored step differs from the saved one")

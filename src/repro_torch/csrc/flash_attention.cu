@@ -253,6 +253,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two 8x8 bf16 matrices, transposed, from the rows that lanes 0-15 address.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(row)));
+}
+
 __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -368,10 +379,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_bf16_kernel(Params p) {
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
         uint32_t b0, b1;
-        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(vrow + n * 8));
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1)
-                     : "r"(addr));
+        ldsm_x2_trans(b0, b1, vrow + n * 8);
         mma_bf16(oacc[n], a, b0, b1);
       }
     }
@@ -521,8 +529,8 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// backward (FlashAttention-2, deterministic): fp32 on the FMA units, for
-// fp32 and bf16 inputs (bf16 is read into fp32 tiles)
+// backward (FlashAttention-2, deterministic) on the tensor cores: fp32 by
+// the 3xTF32 split, bf16 as it is
 // ---------------------------------------------------------------------------
 //
 // The TPU kernel has no backward (JAX differentiates the jnp reference), so
@@ -534,23 +542,58 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 //   dS = P * (dP - D),   D = rowsum(dO * O)
 //   dQ = scale * dS K    dK = scale * dS^T Q
 //
-// Three launches: a pre-pass computes D (a warp a row); one kernel a
-// (KV tile, KV head, batch) accumulates dK and dV in registers over the
-// query tiles that can see the tile, for every query head of its GQA group
-// in turn; one kernel a (query tile, head, batch) accumulates dQ over the
-// KV tiles its rows can see.  Every sum has one owner and a fixed order: no
-// atomics, so two runs give the same bits.  Both main kernels run 256
-// threads as 16 x 16; in each 64 x 64 score tile a thread owns rows
-// ty + 16 i and columns tx + 16 j (i, j < 4); in the dK / dV (dQ) update it
-// owns keys (queries) ty + 16 i and head-dim columns tx + 16 j.  Tiles are
-// fp32 in shared memory with rows padded by one float (conflict-free column
-// reads).  What bounds it: at the 100m training shapes, operations (five
-// products of S x S x dh per head against reads of q, k, v, o, dO).  It is
-// the simple first kernel: tensor cores for bf16 are later work.
+// Two launches.  First, one CTA a (query tile, head, batch) computes its
+// rows' D (written to `delta` for the second launch) and accumulates dQ
+// over the KV tiles its rows can see, late query tiles (the longest under
+// a causal mask) first.  Then one CTA a (KV tile, KV head, batch)
+// accumulates dK and dV over every query head of its GQA group and every
+// query tile that can see the tile.  Every sum has one owner and a fixed
+// order: no atomics, so two runs give the same bits.  The dQ launch
+// computes S and dP again: seven products where the gradient needs five.
+// (One launch for both roles after a pre-pass for D measured 4% faster at
+// the 100m shapes on the H100, 0.186 against 0.194 ms (kernels/ab.py), but
+// its dh-80 kernels needed more than 255 registers and spilled.)
+//
+// A CTA is 4 warps; warp w owns rows 16w..16w+15 of the CTA's own 64-row
+// tile (keys in the dK/dV kernel, queries in the dQ kernel), staged once;
+// the other operand's 64-row tiles (Q, dO, lse, D, or K, V) stream through
+// a 2-stage cp.async ring, the next tile loading while this one computes.
+// Every product is mma.sync on the tensor cores, in two shapes
+// (BwdMma::rows, BwdMma::regs):
+//
+//   * rows: C (16 x 64) = A B^T with A the warp's 16 rows and B a streamed
+//     tile, both row-major in shared memory with the head dim contiguous:
+//     S^T = K Q^T and dP^T = V dO^T (dK/dV), S = Q K^T and dP = dO V^T (dQ).
+//   * regs: C (16 x dh) += X B with X (16 x 64) in registers in the
+//     accumulator layout (P^T, dS^T, dS) and B a tile in shared memory:
+//     dV += P^T dO, dK += dS^T Q, dQ += dS K.  Keys own the rows of the
+//     dK/dV kernel, so P^T comes out of S^T = K Q^T already transposed and
+//     neither P nor dS goes through shared memory.
+//
+// fp32 (the training path): mma.sync m16n8k8 tf32, each operand split into
+// hi = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away from
+// zero, as cvt.rna rounds) and each product formed as
+// lo*hi + hi*lo + hi*hi in fp32: about 22 bits of mantissa, which holds
+// the fp32 tolerance 2e-5 (a bf16 hi + lo split, about 16 bits, does not:
+// tests/test_torch_kernels.py, kernels/flash_attention/ref.py:tf32x3).
+// The tf32 accumulator holds columns 2t, 2t+1 where the A operand wants t,
+// t+4: regs feeds them in as k = t and t + 4 and reads B's rows in the same
+// order, so X needs no shuffle.  Operands are split as their fragments are
+// loaded: the shared tiles stay fp32, which keeps two CTAs an SM at dh 64.
+// bf16: mma.sync m16n8k16, one product with fp32 accumulation, X repacked
+// to bf16 in place (the accumulator layout is the A layout) and B's
+// fragments from ldmatrix.trans, as in the forward's mma body; P and dS are
+// rounded to bf16 for their products, as the reference rounds P to v's
+// type.  Tiles are padded by 4 floats / 8 bf16 a row, so every fragment
+// load is free of bank conflicts.  Within a tile the mask is applied only
+// where the tile is not wholly visible.
+//
+// What bounds it: at the 100m training shapes, operations: five products
+// of 32896 pairs x 64 a head, each three TF32 products.
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdBQ = 64;
-constexpr int kBwdBK = 64;
+constexpr int kBwdThreads = 128;  // 4 warps
+constexpr int kBwdTile = 64;      // rows of every tile, the CTA's own and each streamed one
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
   const void* q;     // (B, S, H, dh), contiguous, like o, dout and dq
@@ -559,7 +602,7 @@ struct BwdParams {
   const void* o;
   const void* dout;
   const float* lse;  // (B, H, S)
-  float* delta;      // (B, H, S): rowsum(dO * O), written by the pre-pass
+  float* delta;      // (B, H, S): rowsum(dO * O), written by the dQ launch
   void* dq;
   void* dk;
   void* dv;
@@ -569,285 +612,466 @@ struct BwdParams {
   int dh;
 };
 
-__device__ __forceinline__ float ld_f(const float* p) { return *p; }
-__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Rows [s0, s0 + rows) of one head (row stride `seq_stride` elements) into
-// an fp32 tile of DHP columns, row stride `dst_stride`; rows at or past S
-// and columns at or past dh are zero.
-template <int DHP, typename T>
-__device__ __forceinline__ void load_tile_f32(float* dst, int dst_stride, const T* base,
-                                              long long seq_stride, int s0, int rows, int S,
-                                              int dh) {
-  for (int idx = threadIdx.x; idx < rows * DHP; idx += kBwdThreads) {
-    const int r = idx / DHP, c = idx % DHP, s = s0 + r;
-    dst[r * dst_stride + c] = (s < S && c < dh) ? ld_f(base + s * seq_stride + c) : 0.f;
-  }
+// Every query of [q0, q0 + 64) sees every key of [k0, k0 + 64).
+template <typename P>
+__device__ __forceinline__ bool tile_visible(const P& p, int q0, int k0) {
+  const int q1 = q0 + kBwdTile - 1, k1 = k0 + kBwdTile - 1;
+  return q1 < p.S && k1 < p.S && (!p.causal || k1 <= q0) &&
+         (!p.window || q1 - k0 < p.window) &&
+         (!p.chunk || (q0 / p.chunk == k1 / p.chunk && k0 / p.chunk == q1 / p.chunk));
 }
 
-// D = rowsum(dO * O) for every (b, s, h): a warp a row.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_delta_kernel(BwdParams p) {
-  const long long row = static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) +
-                        threadIdx.x / 32;
-  const long long rows = static_cast<long long>(p.B) * p.S * p.H;
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const T* o = static_cast<const T*>(p.o) + row * p.dh;
-  const T* d = static_cast<const T*>(p.dout) + row * p.dh;
-  float acc = 0.f;
-  for (int c = lane; c < p.dh; c += 32) acc = fmaf(ld_f(o + c), ld_f(d + c), acc);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// hi = tf32(x) and lo = tf32(x - hi), rounded to nearest, ties away from
+// zero (ref.py:split_tf32): the bits cvt.rna.tf32.f32 gives (finite x), by
+// an integer add and mask, which took the backward from 0.245 to 0.194 ms
+// at the 100m shapes on the H100 (kernels/ab.py).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[i] += a b[i] for W independent accumulators from split operands, the
+// two small terms first (ref.py:tf32x3); each pass runs over all W before
+// the next, so no product waits for the one before it.
+template <int W>
+__device__ __forceinline__ void mma_tf32x3(float (*c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[W][2],
+                                           const uint32_t (&blo)[W][2]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    // row = (b * S + s) * H + h  ->  delta[(b * H + h) * S + s]
-    const long long h = row % p.H, bs = row / p.H, s = bs % p.S, b = bs / p.S;
-    p.delta[(b * p.H + h) * p.S + s] = acc;
-  }
+  for (int i = 0; i < W; ++i) mma_tf32(c[i], alo, bhi[i][0], bhi[i][1]);
+#pragma unroll
+  for (int i = 0; i < W; ++i) mma_tf32(c[i], ahi, blo[i][0], blo[i][1]);
+#pragma unroll
+  for (int i = 0; i < W; ++i) mma_tf32(c[i], ahi, bhi[i][0], bhi[i][1]);
 }
 
-// Shared-memory layout of the two main kernels, in floats.
-template <int DHP>
-struct SmemBwd {
-  static constexpr int kStride = DHP + 1;
-  static constexpr int kPStride = kBwdBK + 1;
-  static constexpr int kQ = 0;
-  static constexpr int kDO = kQ + kBwdBQ * kStride;
-  static constexpr int kK = kDO + kBwdBQ * kStride;
-  static constexpr int kV = kK + kBwdBK * kStride;
-  static constexpr int kP = kV + kBwdBK * kStride;
-  static constexpr int kLse = kP + kBwdBQ * kPStride;
-  static constexpr int kDelta = kLse + kBwdBQ;
-  static constexpr size_t kBytes = sizeof(float) * (kDelta + kBwdBQ);
+// The tensor cores' fp32 accumulation truncates: a sum carried through
+// hundreds of mma.sync (dV over the 24 query tiles of 8 heads) drifted by
+// 1.9x the fp32 tolerance on the card.  So `regs` sums each call (one
+// 64-row tile) in a fresh accumulator and adds it to the running sum with an
+// fp32 add that rounds to nearest; for registers, a chunk of 4 column tiles
+// at a time (2 where dh / 8 is not a multiple of 4: dh 16 and 80).
+__host__ __device__ constexpr int bwd_chunk(int tiles) { return tiles % 4 == 0 ? 4 : 2; }
+
+template <int NO, int C>
+__device__ __forceinline__ void add_chunk(float (&acc)[NO][4], const float (&part)[C][4], int n0) {
+#pragma unroll
+  for (int n = 0; n < C; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+}
+
+// The two products of the backward for one element type.  Fragments (g =
+// lane / 4, t = lane % 4): the accumulator c0, c1 at row g, columns 2t and
+// 2t + 1 of each 8-column tile, c2, c3 at row g + 8.
+template <typename T>
+struct BwdMma;
+
+// fp32: m16n8k8 tf32, 3xTF32.  A: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B: b0 (k t, n g), b1 (k t + 4, n g).
+template <>
+struct BwdMma<float> {
+  static constexpr int kPad = 4;  // a row stride of 4 (mod 16) words: no bank conflicts
+
+  // acc (16 x 8NT) += A B^T: A the warp's 16 rows, B 8NT rows, row-major in
+  // shared memory with DH columns and row stride ld.
+  template <int DH, int NT>
+  static __device__ __forceinline__ void rows(float (&acc)[NT][4], const float* a,
+                                              const float* b, int ld) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      const float* ar = a + g * ld + kk * 8 + t;
+      uint32_t ahi[4], alo[4];
+      split_tf32(ar[0], ahi[0], alo[0]);
+      split_tf32(ar[8 * ld], ahi[1], alo[1]);
+      split_tf32(ar[4], ahi[2], alo[2]);
+      split_tf32(ar[8 * ld + 4], ahi[3], alo[3]);
+#pragma unroll
+      for (int j0 = 0; j0 < NT; j0 += 4) {
+        uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* br = b + ((j0 + j) * 8 + g) * ld + kk * 8 + t;
+          split_tf32(br[0], bhi[j][0], blo[j][0]);
+          split_tf32(br[4], bhi[j][1], blo[j][1]);
+        }
+        mma_tf32x3<4>(acc + j0, ahi, alo, bhi, blo);
+      }
+    }
+  }
+
+  // acc (16 x DH) += X B: X (16 x 8NT) in registers in the accumulator
+  // layout, B (8NT x DH) row-major in shared memory.  X's columns 2t and
+  // 2t + 1 go in as k = t and t + 4, and B's rows 2t and 2t + 1 with them.
+  // Each chunk of acc's columns is summed in a fresh accumulator (bwd_chunk).
+  template <int DH, int NT>
+  static __device__ __forceinline__ void regs(float (&acc)[DH / 8][4], const float (&x)[NT][4],
+                                              const float* b, int ld) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    constexpr int kChunk = bwd_chunk(DH / 8);
+#pragma unroll
+    for (int n0 = 0; n0 < DH / 8; n0 += kChunk) {
+      float part[kChunk][4] = {};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t ahi[4], alo[4];
+        split_tf32(x[j][0], ahi[0], alo[0]);
+        split_tf32(x[j][2], ahi[1], alo[1]);
+        split_tf32(x[j][1], ahi[2], alo[2]);
+        split_tf32(x[j][3], ahi[3], alo[3]);
+        const float* br = b + (j * 8 + 2 * t) * ld + g;
+        uint32_t bhi[kChunk][2], blo[kChunk][2];
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+          split_tf32(br[(n0 + n) * 8], bhi[n][0], blo[n][0]);
+          split_tf32(br[ld + (n0 + n) * 8], bhi[n][1], blo[n][1]);
+        }
+        mma_tf32x3<kChunk>(part, ahi, alo, bhi, blo);
+      }
+      add_chunk(acc, part, n0);
+    }
+  }
 };
 
-// The scores S and dP = dO V^T of one 64 x 64 tile, this thread's 4 x 4,
-// turned into P (into p_out) and dS = P (dP - D) (into ds_out); q0 / k0
-// are the tile's first query / key.
-template <int DHP>
-__device__ __forceinline__ void bwd_tile_scores(const BwdParams& p, const float* sQ,
-                                                const float* sDO, const float* sK,
-                                                const float* sV, const float* sLse,
-                                                const float* sDelta, int q0, int k0,
-                                                float (&p_out)[4][4], float (&ds_out)[4][4]) {
-  using L = SmemBwd<DHP>;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float sc[4][4], dp[4][4];
+// bf16: m16n8k16.  A: a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t+8..),
+// a3 (g + 8, 2t+8..); B: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g).
+template <>
+struct BwdMma<__nv_bfloat16> {
+  static constexpr int kPad = 8;  // a row stride of 4 (mod 32) words, 16-byte rows
+
+  template <int DH, int NT>
+  static __device__ __forceinline__ void rows(float (&acc)[NT][4], const __nv_bfloat16* a,
+                                              const __nv_bfloat16* b, int ld) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const uint16_t* a16 = reinterpret_cast<const uint16_t*>(a);
+    const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint16_t* ar = a16 + g * ld + kk * 16 + 2 * t;
+      const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * ld), ld32(ar + 8), ld32(ar + 8 * ld + 8)};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DHP; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = sQ[(ty + 16 * i) * L::kStride + d];
-      dov[i] = sDO[(ty + 16 * i) * L::kStride + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = sK[(tx + 16 * j) * L::kStride + d];
-      vv[j] = sV[(tx + 16 * j) * L::kStride + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      for (int j = 0; j < NT; ++j) {
+        const uint16_t* br = b16 + (j * 8 + g) * ld + kk * 16 + 2 * t;
+        mma_bf16(acc[j], af, ld32(br), ld32(br + 8));
       }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float pr =
-          visible(p, q0 + r, k0 + tx + 16 * j) ? expf(sc[i][j] * p.scale - sLse[r]) : 0.f;
-      p_out[i][j] = pr;
-      ds_out[i][j] = pr * (dp[i][j] - sDelta[r]);
     }
   }
-}
 
-// Stage the query tile at q0 of head h: Q, dO, lse and D (lse +inf and D 0
-// past S, where the mask hides the rows anyway).
-template <int DHP, typename T>
-__device__ __forceinline__ void bwd_load_q(const BwdParams& p, float* smem, int b, int h,
-                                           int q0) {
-  using L = SmemBwd<DHP>;
-  const long long qs = static_cast<long long>(p.H) * p.dh;
-  const long long off = (static_cast<long long>(b) * p.S * p.H + h) * p.dh;
-  load_tile_f32<DHP>(smem + L::kQ, L::kStride, static_cast<const T*>(p.q) + off, qs, q0,
-                     kBwdBQ, p.S, p.dh);
-  load_tile_f32<DHP>(smem + L::kDO, L::kStride, static_cast<const T*>(p.dout) + off, qs, q0,
-                     kBwdBQ, p.S, p.dh);
-  const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
-  for (int r = threadIdx.x; r < kBwdBQ; r += kBwdThreads) {
-    const int s = q0 + r;
-    smem[L::kLse + r] = s < p.S ? p.lse[row + s] : INFINITY;
-    smem[L::kDelta + r] = s < p.S ? p.delta[row + s] : 0.f;
+  template <int DH, int NT>
+  static __device__ __forceinline__ void regs(float (&acc)[DH / 8][4], const float (&x)[NT][4],
+                                              const __nv_bfloat16* b, int ld) {
+    const int lane = threadIdx.x & 31;
+    const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+    constexpr int kChunk = bwd_chunk(DH / 8);
+#pragma unroll
+    for (int n0 = 0; n0 < DH / 8; n0 += kChunk) {
+      float part[kChunk][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                                pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                                pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                                pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+        const uint16_t* br = b16 + (kk * 16 + (lane & 15)) * ld;
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+          uint32_t b0, b1;
+          ldsm_x2_trans(b0, b1, br + (n0 + n) * 8);
+          mma_bf16(part[n], af, b0, b1);
+        }
+      }
+      add_chunk(acc, part, n0);
+    }
+  }
+};
+
+// Shared memory of both kernels: six 64-row tiles of T (the CTA's own two,
+// then a ring of two stages of two streamed tiles), then the streamed lse
+// and D rows (fp32, two stages; the dK/dV kernel's).
+template <int DH, typename T>
+struct BwdSmem {
+  static constexpr int kLd = DH + BwdMma<T>::kPad;  // row stride, elements
+  static constexpr int kTile = kBwdTile * kLd;      // elements a tile
+  static constexpr size_t kRows = sizeof(T) * 6 * kTile;
+  static constexpr size_t kBytes = kRows + sizeof(float) * 2 * 2 * kBwdTile;
+};
+
+// Rows [s0, s0 + 64) of one head (row stride ld_g elements) into a tile of
+// row stride ld by cp.async, 16 bytes a copy; rows at or past S are zero.
+template <int DH, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src, long long ld_g, int s0,
+                                           int S) {
+  constexpr int kVec = 16 / sizeof(T), kChunks = DH / kVec;
+  for (int idx = threadIdx.x; idx < kBwdTile * kChunks; idx += kBwdThreads) {
+    const int r = idx / kChunks, c = (idx % kChunks) * kVec, s = s0 + r;
+    cp_async16(dst + r * ld + c, src + static_cast<long long>(s < S ? s : 0) * ld_g + c, s < S);
   }
 }
 
-template <int DHP, typename T>
-__device__ __forceinline__ void bwd_load_kv(const BwdParams& p, float* smem, int b, int kvh,
-                                            int k0) {
-  using L = SmemBwd<DHP>;
-  const long long ks = static_cast<long long>(p.K) * p.dh;
-  const long long off = (static_cast<long long>(b) * p.S * p.K + kvh) * p.dh;
-  load_tile_f32<DHP>(smem + L::kK, L::kStride, static_cast<const T*>(p.k) + off, ks, k0,
-                     kBwdBK, p.S, p.dh);
-  load_tile_f32<DHP>(smem + L::kV, L::kStride, static_cast<const T*>(p.v) + off, ks, k0,
-                     kBwdBK, p.S, p.dh);
+// 64 floats of one (b, h) row of lse or D from s0 on; zero at or past S
+// (those queries are masked).
+__device__ __forceinline__ void stage_floats(float* dst, const float* src, int s0, int S) {
+  for (int r = threadIdx.x; r < kBwdTile; r += kBwdThreads) {
+    const int s = s0 + r;
+    cp_async4(dst + r, src + (s < S ? s : 0), s < S);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void unpack16(uint4 raw, float (&out)[4]) {
+  const float* e = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = e[i];
+}
+__device__ __forceinline__ void unpack16(uint4 raw, float (&out)[8]) {
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+}
+
+// dQ (and D) of one query tile of one head, summed over the KV tiles it sees.
+template <int DH, typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
+  using L = BwdSmem<DH, T>;
+  using M = BwdMma<T>;
+  constexpr int kLd = L::kLd, NT = kBwdTile / 8, NO = DH / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* tiles = reinterpret_cast<T*>(bwd_smem);
+  const T* sQ = tiles;
+  const T* sDO = tiles + L::kTile;
+  const int n_q = (p.S + kBwdTile - 1) / kBwdTile;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBwdTile;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long qs = static_cast<long long>(p.H) * DH, ks = static_cast<long long>(p.K) * DH;
+  const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * DH;
+  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * DH;
+  const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+  stage_tile<DH>(tiles, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S);
+  stage_tile<DH>(tiles + L::kTile, kLd, static_cast<const T*>(p.dout) + q_off, qs, q0, p.S);
+
+  int kv_lo, kv_hi;
+  kv_range(p, q0, kBwdTile, &kv_lo, &kv_hi);
+  const int kt0 = kv_lo / kBwdTile;
+  const int items = max(0, (kv_hi + kBwdTile - 1) / kBwdTile - kt0);
+  auto stage = [&](int i) {
+    T* st = tiles + (2 + 2 * (i & 1)) * L::kTile;
+    const int k0 = (kt0 + i) * kBwdTile;
+    stage_tile<DH>(st, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S);
+    stage_tile<DH>(st + L::kTile, kLd, static_cast<const T*>(p.v) + kv_off, ks, k0, p.S);
+  };
+  if (items > 0) stage(0);
+  cp_async_commit();
+
+  // D = rowsum(dO * O) of the warp's 16 rows, from device memory while the
+  // tiles load: lanes r and r + 16 take the two halves of row r.
+  float d = 0.f;
+  {
+    constexpr int kVec = 16 / sizeof(T);
+    const int s = q0 + warp * 16 + (lane & 15);
+    if (s < p.S) {
+      const long long off = q_off + s * qs + (lane >> 4) * (DH / 2);
+      const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
+      const uint4* d4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
+#pragma unroll
+      for (int c = 0; c < DH / 2 / kVec; ++c) {
+        float ov[kVec], dv[kVec];
+        unpack16(o4[c], ov);
+        unpack16(d4[c], dv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) d = fmaf(ov[e], dv[e], d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 16);
+    if (lane < 16 && s < p.S) p.delta[row + s] = d;
+  }
+  // this thread's rows g and g + 8: D, and lse in the log2 domain
+  const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
+  const int q_row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float lse2[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    lse2[rr] = q_row[rr] < p.S ? p.lse[row + q_row[rr]] * kLog2e : 0.f;
+  const float scale2 = p.scale * kLog2e;
+
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) stage(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO and tile i have landed
+    __syncthreads();
+    const int k0 = (kt0 + i) * kBwdTile;
+    const T* sK = tiles + (2 + 2 * (i & 1)) * L::kTile;
+    const T* sV = sK + L::kTile;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    M::template rows<DH, NT>(s, sQ + warp * 16 * kLd, sK, kLd);
+    M::template rows<DH, NT>(dp, sDO + warp * 16 * kLd, sV, kLd);
+    const bool full = tile_visible(p, q0, k0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e >> 1, kj = k0 + j * 8 + 2 * t + (e & 1);
+        const float pr = full || visible(p, q_row[rr], kj)
+                             ? exp2f(fmaf(s[j][e], scale2, -lse2[rr]))
+                             : 0.f;
+        s[j][e] = pr * (dp[j][e] - d_row[rr]);  // dS
+      }
+    M::template regs<DH, NT>(dq, s, sK, kLd);
+    __syncthreads();  // this stage is refilled by the copies of tile i + 2
+  }
+  cp_async_wait<0>();
+
+  T* dqb = static_cast<T*>(p.dq) + q_off;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (q_row[rr] >= p.S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(dqb + q_row[rr] * qs + n * 8 + 2 * t, dq[n][2 * rr] * p.scale,
+             dq[n][2 * rr + 1] * p.scale);
+  }
 }
 
 // dK and dV of one KV tile of one KV head, summed over the query heads of
 // its group and the query tiles that see it.
-template <int DHP, typename T>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dkdv_kernel(BwdParams p) {
-  using L = SmemBwd<DHP>;
-  constexpr int kCols = DHP / 16;
-  extern __shared__ float smem_bwd[];
-  float* sP = smem_bwd + L::kP;
-  const int k0 = blockIdx.x * kBwdBK, kvh = blockIdx.y, b = blockIdx.z;
+template <int DH, typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
+  using L = BwdSmem<DH, T>;
+  using M = BwdMma<T>;
+  constexpr int kLd = L::kLd, NT = kBwdTile / 8, NO = DH / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* tiles = reinterpret_cast<T*>(bwd_smem);
+  float* rows = reinterpret_cast<float*>(bwd_smem + L::kRows);
+  const T* sK = tiles;
+  const T* sV = tiles + L::kTile;
+  const int k0 = blockIdx.x * kBwdTile, kvh = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.K;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  bwd_load_kv<DHP, T>(p, smem_bwd, b, kvh, k0);
-
-  float dk[4][kCols], dv[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) dk[i][j] = dv[i][j] = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long qs = static_cast<long long>(p.H) * DH, ks = static_cast<long long>(p.K) * DH;
+  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * DH;
+  stage_tile<DH>(tiles, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S);
+  stage_tile<DH>(tiles + L::kTile, kLd, static_cast<const T*>(p.v) + kv_off, ks, k0, p.S);
 
   int q_lo, q_hi;
-  q_range(p, k0, kBwdBK, &q_lo, &q_hi);
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    for (int q0 = (q_lo / kBwdBQ) * kBwdBQ; q0 < q_hi; q0 += kBwdBQ) {
-      __syncthreads();  // the previous tile's Q, dO and P are no longer read
-      bwd_load_q<DHP, T>(p, smem_bwd, b, h, q0);
-      __syncthreads();
-      float pr[4][4], ds[4][4];
-      bwd_tile_scores<DHP>(p, smem_bwd + L::kQ, smem_bwd + L::kDO, smem_bwd + L::kK,
-                           smem_bwd + L::kV, smem_bwd + L::kLse, smem_bwd + L::kDelta, q0, k0,
-                           pr, ds);
-      // dV += P^T dO
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = pr[i][j];
-      __syncthreads();
-      const float* sDO = smem_bwd + L::kDO;
-#pragma unroll 4
-      for (int r = 0; r < kBwdBQ; ++r) {
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const float dov = sDO[r * L::kStride + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dv[i][j] = fmaf(sP[r * L::kPStride + ty + 16 * i], dov, dv[i][j]);
-        }
-      }
-      __syncthreads();
-      // dK += dS^T Q (scaled once at the end)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = ds[i][j];
-      __syncthreads();
-      const float* sQ = smem_bwd + L::kQ;
-#pragma unroll 4
-      for (int r = 0; r < kBwdBQ; ++r) {
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const float qv = sQ[r * L::kStride + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dk[i][j] = fmaf(sP[r * L::kPStride + ty + 16 * i], qv, dk[i][j]);
-        }
-      }
-    }
-  }
+  q_range(p, k0, kBwdTile, &q_lo, &q_hi);
+  const int qt0 = q_lo / kBwdTile;
+  const int n_qt = max(0, (q_hi + kBwdTile - 1) / kBwdTile - qt0);
+  const int items = G * n_qt;  // item i: head kvh * G + i / n_qt, query tile qt0 + i % n_qt
+  auto stage = [&](int i) {
+    const int h = kvh * G + i / n_qt, q0 = (qt0 + i % n_qt) * kBwdTile;
+    T* st = tiles + (2 + 2 * (i & 1)) * L::kTile;
+    const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * DH;
+    stage_tile<DH>(st, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S);
+    stage_tile<DH>(st + L::kTile, kLd, static_cast<const T*>(p.dout) + q_off, qs, q0, p.S);
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+    float* sr = rows + (i & 1) * 2 * kBwdTile;
+    stage_floats(sr, p.lse + row, q0, p.S);
+    stage_floats(sr + kBwdTile, p.delta + row, q0, p.S);
+  };
+  if (items > 0) stage(0);
+  cp_async_commit();
 
-  const long long ks = static_cast<long long>(p.K) * p.dh;
-  const long long off = (static_cast<long long>(b) * p.S * p.K + kvh) * p.dh;
-  T* dkb = static_cast<T*>(p.dk) + off;
-  T* dvb = static_cast<T*>(p.dv) + off;
+  const int k_row[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float scale2 = p.scale * kLog2e;
+  float dk[NO][4], dv[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty + 16 * i;
-    if (s >= p.S) continue;
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tx + 16 * j;
-      if (c >= p.dh) continue;
-      st_f(dkb + s * ks + c, dk[i][j] * p.scale);
-      st_f(dvb + s * ks + c, dv[i][j]);
-    }
-  }
-}
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-// dQ of one query tile of one head, summed over the KV tiles it sees.
-template <int DHP, typename T>
-__global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(BwdParams p) {
-  using L = SmemBwd<DHP>;
-  constexpr int kCols = DHP / 16;
-  extern __shared__ float smem_bwd[];
-  float* sP = smem_bwd + L::kP;
-  const int q0 = blockIdx.x * kBwdBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.K);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  bwd_load_q<DHP, T>(p, smem_bwd, b, h, q0);
-
-  float dq[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) dq[i][j] = 0.f;
-
-  int kv_lo, kv_hi;
-  kv_range(p, q0, kBwdBQ, &kv_lo, &kv_hi);
-  for (int k0 = (kv_lo / kBwdBK) * kBwdBK; k0 < kv_hi; k0 += kBwdBK) {
-    __syncthreads();  // the previous tile's K, V and dS are no longer read
-    bwd_load_kv<DHP, T>(p, smem_bwd, b, kvh, k0);
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) stage(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // K, V and item i have landed
     __syncthreads();
-    float pr[4][4], ds[4][4];
-    bwd_tile_scores<DHP>(p, smem_bwd + L::kQ, smem_bwd + L::kDO, smem_bwd + L::kK,
-                         smem_bwd + L::kV, smem_bwd + L::kLse, smem_bwd + L::kDelta, q0, k0,
-                         pr, ds);
+    const int q0 = (qt0 + i % n_qt) * kBwdTile;
+    const T* sQ = tiles + (2 + 2 * (i & 1)) * L::kTile;
+    const T* sDO = sQ + L::kTile;
+    const float* sLse = rows + (i & 1) * 2 * kBwdTile;
+    const float* sD = sLse + kBwdTile;
+    float st[NT][4], dpt[NT][4];  // S^T and dP^T: the warp's 16 keys x 64 queries
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty + 16 * i) * L::kPStride + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    const float* sK = smem_bwd + L::kK;
-#pragma unroll 4
-    for (int c = 0; c < kBwdBK; ++c) {
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    M::template rows<DH, NT>(st, sK + warp * 16 * kLd, sQ, kLd);
+    M::template rows<DH, NT>(dpt, sV + warp * 16 * kLd, sDO, kLd);
+    const bool full = tile_visible(p, q0, k0);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float kv = sK[c * L::kStride + tx + 16 * j];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dq[i][j] = fmaf(sP[(ty + 16 * i) * L::kPStride + c], kv, dq[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + 2 * t + (e & 1);
+        const float pr = full || visible(p, q0 + qc, k_row[e >> 1])
+                             ? exp2f(fmaf(st[j][e], scale2, -sLse[qc] * kLog2e))
+                             : 0.f;
+        st[j][e] = pr;                          // P^T
+        dpt[j][e] = pr * (dpt[j][e] - sD[qc]);  // dS^T
       }
-    }
+    M::template regs<DH, NT>(dv, st, sDO, kLd);
+    M::template regs<DH, NT>(dk, dpt, sQ, kLd);
+    __syncthreads();  // this stage is refilled by the copies of item i + 2
   }
+  cp_async_wait<0>();
 
-  const long long qs = static_cast<long long>(p.H) * p.dh;
-  T* dqb = static_cast<T*>(p.dq) + (static_cast<long long>(b) * p.S * p.H + h) * p.dh;
+  T* dkb = static_cast<T*>(p.dk) + kv_off;
+  T* dvb = static_cast<T*>(p.dv) + kv_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= p.S) continue;
+  for (int rr = 0; rr < 2; ++rr) {
+    if (k_row[rr] >= p.S) continue;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tx + 16 * j;
-      if (c < p.dh) st_f(dqb + s * qs + c, dq[i][j] * p.scale);
+    for (int n = 0; n < NO; ++n) {
+      const long long off = k_row[rr] * ks + n * 8 + 2 * t;
+      store2(dkb + off, dk[n][2 * rr] * p.scale, dk[n][2 * rr + 1] * p.scale);
+      store2(dvb + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
     }
   }
 }
@@ -855,10 +1079,6 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(BwdParams p) 
 // ---------------------------------------------------------------------------
 // sm90: TMA + mbarrier ring, warp-specialised, wgmma
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -1426,32 +1646,25 @@ int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
                                             stream);
 }
 
-template <int DHP, typename T>
+template <int DH, typename T>
 int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(p.B) * p.S * p.H;
-  const long long delta_blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
-  if (delta_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>(delta_blocks), kBwdThreads, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  constexpr size_t kSmem = BwdSmem<DH, T>::kBytes;
+  const unsigned tiles = static_cast<unsigned>((p.S + kBwdTile - 1) / kBwdTile);
+  cudaError_t err = allow_smem<flash_bwd_dq_kernel<DH, T>>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr size_t kSmem = SmemBwd<DHP>::kBytes;
-  err = allow_smem<flash_bwd_dkdv_kernel<DHP, T>>(kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kv_grid((p.S + kBwdBK - 1) / kBwdBK, p.K, p.B);
-  flash_bwd_dkdv_kernel<DHP, T><<<kv_grid, kBwdThreads, kSmem, stream>>>(p);
+  flash_bwd_dq_kernel<DH, T><<<dim3(tiles, p.H, p.B), kBwdThreads, kSmem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem<flash_bwd_dq_kernel<DHP, T>>(kSmem);
+  err = allow_smem<flash_bwd_dkdv_kernel<DH, T>>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid((p.S + kBwdBQ - 1) / kBwdBQ, p.H, p.B);
-  flash_bwd_dq_kernel<DHP, T><<<q_grid, kBwdThreads, kSmem, stream>>>(p);
+  flash_bwd_dkdv_kernel<DH, T><<<dim3(tiles, p.K, p.B), kBwdThreads, kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DHP>
+template <int DH>
 int launch_bwd_dtype(const BwdParams& p, int dtype, cudaStream_t stream) {
-  if (dtype == 1) return launch_bwd_dh<DHP, __nv_bfloat16>(p, stream);
-  return launch_bwd_dh<DHP, float>(p, stream);
+  if (dtype == 1) return launch_bwd_dh<DH, __nv_bfloat16>(p, stream);
+  return launch_bwd_dh<DH, float>(p, stream);
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime so the
@@ -1604,10 +1817,11 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
 }
 
 // The backward: dq (B,S,H,dh), dk and dv (B,S,K,dh) from q, k, v, the
-// forward's o and lse, and dout (like o); every tensor contiguous, of one
-// dtype (0 = float32, 1 = bfloat16; lse fp32).  delta is (B,H,S) fp32
-// scratch.  head_dim is one of 16, 32, 64, 80.  Three launches; returns
-// the first launch error, else cudaGetLastError() after the last.
+// forward's o and lse, and dout (like o); every tensor contiguous with a
+// 16-byte aligned base, of one dtype (0 = float32, 1 = bfloat16; lse
+// fp32).  delta is (B,H,S) fp32 scratch.  head_dim is one of 16, 32, 64,
+// 80.  Two launches; returns the first launch error, else
+// cudaGetLastError() after the last.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int S, int H, int K, int causal,
@@ -1616,6 +1830,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
+                          static_cast<const void*>(dv)})
+    if (!aligned16(ptr)) return static_cast<int>(cudaErrorInvalidValue);
   const BwdParams p{q,  k,  v, o, dout, static_cast<const float*>(lse),
                     static_cast<float*>(delta), dq, dk, dv, B, S, H, K, causal, window,
                     chunk, scale, head_dim};

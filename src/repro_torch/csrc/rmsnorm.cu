@@ -29,23 +29,39 @@
 //     row twice (the second read hits L1/L2) and reduces through shared
 //     memory.
 //
-// Backward (rmsnorm_bwd; the TPU kernel has none: JAX differentiates the
-// jnp reference).  With x^ = x * rstd and g = dy * scale:
+// Backward (the TPU kernel has none: JAX differentiates the jnp reference).
+// With x^ = x * rstd and g = dy * scale:
 //
 //   dx     = rstd * (g - x^ * mean(g * x^))
 //   dscale = sum over rows of dy * x^
 //
-// rstd is recomputed from x (the forward stores nothing).  A 256-thread CTA
-// owns a contiguous run of rows: for each it reduces sum(x^2) and sum(g*x)
-// through shared memory, writes the row of dx, and adds dy * x^ into its own
-// row of an fp32 partial-sum buffer, each column owned by one thread.  A
-// second kernel sums the CTAs' partial rows in CTA order, so dscale is
-// deterministic: no atomics, the same bits on every run.  Both sums are
-// compensated (Kahan; the partial buffer keeps each sum's compensation
-// beside it): a plain running sum over 4096 rows erred by 7.5e-5 at |dscale|
-// ~ 190 on the H100, twice the error of PyTorch's tree reduction.  What
-// bounds it: bytes (x and dy read twice, the second read from L1/L2; dx
-// written once).
+// rstd is recomputed from x (the forward stores nothing).  What bounds it:
+// bytes (x and dy read once, dx written once).  Two bodies; the wrapper
+// picks one by shape (kernels/rmsnorm/kernel.py:select_bwd_body):
+//
+//   * warp_rows (rows of 16-byte vectors of at most 1024 elements: every
+//     train width and the smaller served ones).  The forward's one-read
+//     layout: a warp owns a row at a time, its x and dy in registers (VPL
+//     16-byte vectors a lane, all loads issued together), both sums reduced
+//     by shuffles, no barrier in the row loop, `scale` in shared memory
+//     (cp.async, once a CTA), dx written from the registers.  Each warp
+//     owns a run of rows_per_warp rows (the wrapper sizes the grid from the
+//     SM count: about 8 warps an SM) and each lane keeps its columns'
+//     dscale sums in registers across them; at the end the CTA adds its 4
+//     warps' sums as a pairwise tree and writes one partial row.  A second
+//     kernel, one CTA of 32 warps per 32-column slab, sums the partial
+//     rows: warp j takes rows j, j + 32, ... in turn, then a pairwise tree
+//     over the 32 warps.  Every sum has a fixed order (no atomics, the same
+//     bits on every run); the tree keeps dscale within 2e-5 where a plain
+//     running sum over 4096 rows does not (kernels/rmsnorm/ref.py:
+//     rmsnorm_dscale_ordered models the order).
+//   * generic (any other row): a 256-thread CTA owns a contiguous run of
+//     rows: for each it reduces sum(x^2) and sum(g*x) through shared memory,
+//     writes the row of dx, and adds dy * x^ into its own row of an fp32
+//     partial-sum buffer, each column owned by one thread.  A second kernel
+//     sums the CTAs' partial rows in CTA order.  Both sums are compensated
+//     (Kahan; the partial buffer keeps each sum's compensation beside it):
+//     the running sums are long here.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,6 +161,19 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
 // one-read body: a warp per row
 // ---------------------------------------------------------------------------
 
+// 16 bytes from device to shared memory without registers, and the wait for
+// all such copies this thread issued.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 constexpr int kRowWarps = 4;         // rows per CTA, or 1 below kFewRows rows
 constexpr long long kFewRows = 512;  // so that a decode step's rows spread over SMs
 
@@ -187,12 +216,7 @@ rmsnorm_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   // without registers, all of it in flight while the rows load.
   const int n_scale = D * static_cast<int>(sizeof(S)) / 16;
   const uint4* sg = reinterpret_cast<const uint4*>(scale);
-  for (int i = threadIdx.x; i < n_scale; i += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     static_cast<uint32_t>(__cvta_generic_to_shared(s_scale + i))),
-                 "l"(sg + i)
-                 : "memory");
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = threadIdx.x; i < n_scale; i += blockDim.x) cp_async16(s_scale + i, sg + i);
 
   // The row, into registers, all loads issued together.
   const uint4* xr = reinterpret_cast<const uint4*>(x + off);
@@ -215,7 +239,7 @@ rmsnorm_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
   const float inv = rsqrtf(ss / D + eps);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait_all();
   __syncthreads();
   if (!live) return;
 
@@ -401,6 +425,185 @@ int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- warp_rows body
+
+constexpr int kBwdRowWarps = 4;    // warps a CTA of rmsnorm_bwd_rows_kernel
+constexpr int kReduceWarps = 32;   // warps a column slab of rmsnorm_dscale_tree_kernel
+
+// Bytes of shared memory before the warps' dscale sums: scale, rounded up
+// to 16.
+__host__ __device__ __forceinline__ int scale_bytes(int D, int size) {
+  return (D * size + 15) / 16 * 16;
+}
+
+// Rows [w * rows_per_warp, (w + 1) * rows_per_warp) of dx for each warp w
+// of the grid, and this CTA's row of `partial` (D floats): the pairwise sum
+// of its warps' sums of dy * x^ over their rows.
+template <typename T, typename S, int VPL>
+__global__ void __launch_bounds__(kBwdRowWarps * 32)
+rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ partial, long long rows, int D, float eps,
+                        int rows_per_warp) {
+  extern __shared__ uint4 s_bwd[];  // scale (D values of S), then 4 x D floats
+  constexpr int N = Vec<T>::N;
+  const int nvec = D / N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r0 = (static_cast<long long>(blockIdx.x) * kBwdRowWarps + warp) * rows_per_warp;
+  const long long r1 = r0 + rows_per_warp < rows ? r0 + rows_per_warp : rows;
+
+  const int n_scale = D * static_cast<int>(sizeof(S)) / 16;
+  for (int i = threadIdx.x; i < n_scale; i += blockDim.x)
+    cp_async16(s_bwd + i, reinterpret_cast<const uint4*>(scale) + i);
+  cp_async_wait_all();
+  __syncthreads();
+  const S* sc = reinterpret_cast<const S*>(s_bwd);
+
+  float part[VPL][N];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+#pragma unroll
+    for (int e = 0; e < N; ++e) part[i][e] = 0.f;
+
+  for (long long r = r0; r < r1; ++r) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + r * D);
+    const uint4* dyr = reinterpret_cast<const uint4*>(dy + r * D);
+    uint4 xv[VPL], dv[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      const bool in = c < nvec;
+      xv[i] = in ? __ldg(xr + c) : make_uint4(0u, 0u, 0u, 0u);
+      dv[i] = in ? __ldg(dyr + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float ss = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= nvec) break;
+      float xf[N], df[N], s[N];
+      unpack<T>(xv[i], xf);
+      unpack<T>(dv[i], df);
+      load_scale<S, N>(sc + c * N, s);
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        a = fmaf(xf[e], xf[e], a);
+        b = fmaf(df[e] * s[e], xf[e], b);
+      }
+      ss += a;
+      sgx += b;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sgx += __shfl_xor_sync(0xffffffffu, sgx, o);
+    }
+    const float rstd = rsqrtf(ss / D + eps);
+    const float mean_gx = sgx * rstd / D;  // mean(g * x^)
+    uint4* dxr = reinterpret_cast<uint4*>(dx + r * D);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= nvec) break;
+      float xf[N], df[N], s[N], out[N];
+      unpack<T>(xv[i], xf);
+      unpack<T>(dv[i], df);
+      load_scale<S, N>(sc + c * N, s);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xh = xf[e] * rstd;
+        out[e] = rstd * (df[e] * s[e] - xh * mean_gx);
+        part[i][e] = fmaf(df[e], xh, part[i][e]);
+      }
+      dxr[c] = pack<T>(out);
+    }
+  }
+
+  // the CTA's 4 warps' sums, added as a pairwise tree: (w0 + w2) + (w1 + w3)
+  float* s_part = reinterpret_cast<float*>(reinterpret_cast<char*>(s_bwd) +
+                                           scale_bytes(D, sizeof(S)));
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= nvec) break;
+#pragma unroll
+    for (int e = 0; e < N; ++e) s_part[warp * D + c * N + e] = part[i][e];
+  }
+  __syncthreads();
+  float* out = partial + static_cast<long long>(blockIdx.x) * D;
+  for (int c = threadIdx.x; c < D; c += blockDim.x)
+    out[c] = (s_part[c] + s_part[2 * D + c]) + (s_part[D + c] + s_part[3 * D + c]);
+}
+
+// dscale[c] = the sum of the `ctas` partial rows: warp j of the CTA of
+// column slab c / 32 adds rows j, j + 32, ... in turn, then the 32 warps'
+// sums are added as a pairwise tree.
+template <typename S>
+__global__ void __launch_bounds__(kReduceWarps * 32)
+rmsnorm_dscale_tree_kernel(const float* __restrict__ partial, S* __restrict__ dscale, int ctas,
+                           int D) {
+  __shared__ float sums[kReduceWarps][33];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < D)
+    for (int i = warp; i < ctas; i += kReduceWarps) s += partial[static_cast<long long>(i) * D + c];
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0) return;
+  float v[kReduceWarps];
+#pragma unroll
+  for (int w = 0; w < kReduceWarps; ++w) v[w] = sums[w][lane];
+#pragma unroll
+  for (int half = kReduceWarps / 2; half > 0; half >>= 1)
+#pragma unroll
+    for (int w = 0; w < half; ++w) v[w] += v[w + half];
+  if (c < D) dscale[c] = from_f<S>(v[0]);
+}
+
+template <typename T, typename S, int VPL>
+int launch_bwd_rows(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+                    void* partial, long long rows, int D, float eps, int rows_per_warp,
+                    int ctas, cudaStream_t stream) {
+  const size_t smem = scale_bytes(D, sizeof(S)) + sizeof(float) * kBwdRowWarps * D;
+  rmsnorm_bwd_rows_kernel<T, S, VPL><<<ctas, kBwdRowWarps * 32, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<float*>(partial), rows, D, eps, rows_per_warp);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_tree_kernel<S><<<(D + 31) / 32, kReduceWarps * 32, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<S*>(dscale), ctas, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vpl 16-byte vectors a lane, at most 32 floats of dscale sums a lane.
+template <typename T, typename S>
+int launch_bwd_vpl(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+                   void* partial, long long rows, int D, float eps, int vpl, int rows_per_warp,
+                   int ctas, cudaStream_t stream) {
+  const int nvec = D / Vec<T>::N;
+  const bool ok = rows > 0 && D > 0 && (D * sizeof(T)) % 16 == 0 &&
+                  (D * sizeof(S)) % 16 == 0 && (nvec + 31) / 32 <= vpl &&
+                  vpl * Vec<T>::N <= 32 && rows_per_warp > 0 && ctas > 0 &&
+                  static_cast<long long>(ctas) * kBwdRowWarps * rows_per_warp >= rows &&
+                  aligned16(x) && aligned16(dy) && aligned16(dx) && aligned16(scale);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+#define RMS_BWD_ROWS(V)                                                                   \
+  return launch_bwd_rows<T, S, V>(x, scale, dy, dx, dscale, partial, rows, D, eps,       \
+                                  rows_per_warp, ctas, stream)
+  switch (vpl) {
+    case 1: RMS_BWD_ROWS(1);
+    case 2: RMS_BWD_ROWS(2);
+    case 4: RMS_BWD_ROWS(4);
+    case 8:
+      if constexpr (Vec<T>::N * 8 <= 32) RMS_BWD_ROWS(8);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RMS_BWD_ROWS
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  x, residual and y share x_dtype;
@@ -423,10 +626,10 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, const void* residua
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward: dx (like x) and dscale (like scale) from x, scale and dy
-// (like x), all contiguous, rows x D.  `partial` is fp32 scratch of
-// 2 x max_blocks x D; the rows are split over at most max_blocks CTAs.  Returns
-// cudaGetLastError() after the launches.
+// The backward's generic body: dx (like x) and dscale (like scale) from x,
+// scale and dy (like x), all contiguous, rows x D.  `partial` is fp32
+// scratch of 2 x max_blocks x D; the rows are split over at most max_blocks
+// CTAs.  Returns cudaGetLastError() after the launches.
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
                            void* dscale, void* partial, long long rows, int D, float eps,
                            int x_dtype, int scale_dtype, int max_blocks, void* stream) {
@@ -443,5 +646,32 @@ extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, voi
   if (x_dtype == 1 && scale_dtype == 1)
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, dscale, partial, rows,
                                                     D, eps, mb, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's warp_rows body, on the inputs of rmsnorm_bwd: rows of
+// 16-byte vectors of x, dy, dx and scale, vectors_per_lane one of 1, 2, 4, 8
+// (at most 32 floats a lane) covering the row; ctas CTAs of 4 warps, each
+// warp rows_per_warp rows (they must cover the rows).  `partial` is fp32
+// scratch of ctas x D.  Returns cudaErrorInvalidValue on anything else,
+// else cudaGetLastError() after the launches.
+extern "C" int rmsnorm_bwd_rows(const void* x, const void* scale, const void* dy, void* dx,
+                                void* dscale, void* partial, long long rows, int D, float eps,
+                                int x_dtype, int scale_dtype, int vectors_per_lane,
+                                int rows_per_warp, int ctas, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int v = vectors_per_lane, rpw = rows_per_warp;
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch_bwd_vpl<float, float>(x, scale, dy, dx, dscale, partial, rows, D, eps, v,
+                                        rpw, ctas, st);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch_bwd_vpl<float, __nv_bfloat16>(x, scale, dy, dx, dscale, partial, rows, D,
+                                                eps, v, rpw, ctas, st);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch_bwd_vpl<__nv_bfloat16, float>(x, scale, dy, dx, dscale, partial, rows, D,
+                                                eps, v, rpw, ctas, st);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return launch_bwd_vpl<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, dscale, partial,
+                                                        rows, D, eps, v, rpw, ctas, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

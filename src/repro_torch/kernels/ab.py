@@ -1,0 +1,132 @@
+"""Time variants of the flash-attention backward on one card, in turns.
+
+    PYTHONPATH=src python -m repro_torch.kernels.ab A.cu B.cu [...]
+
+Each argument is a copy of ``csrc/flash_attention.cu`` (edited by hand, for
+an A/B of one change).  Each is built with the port's nvcc flags into
+``build/ab/``, loaded with ctypes, and its ``flash_attention_bwd`` run, at
+the 100m preset's training shapes (q (16,256,8,64), k/v (16,256,4,64),
+fp32, causal) and at a GQA group of 8 with a ragged S (q (2,190,16,64),
+k/v (2,190,2,64)): its error against autograd of ``mha_ref`` as a share of
+the fp32 tolerance (``|got - want| / (2e-5 (1 + |want|))``, at most 1 to
+pass), then its device time by kernel under ``torch.profiler``, per call
+over 20 calls, in turns (A, B, ..., then back), beside SDPA's backward on
+the same inputs.  Prints the ptxas registers and spills of each variant's
+fp32 backward kernels and one JSON line per shape and variant; needs a
+card and ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .flash_attention.kernel import flash_attention_cuda
+from .flash_attention.ref import mha_ref
+
+SHAPES = ((16, 256, 8, 4, 64), (2, 190, 16, 2, 64))
+
+
+def _build_variants(sources: list[str]) -> dict:
+    """{name: bound flash_attention_bwd} of each source, built at once."""
+    out = _build.BUILD_DIR.parent / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {Path(src).stem: (subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{Path(src).stem}.so"),
+         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in sources}
+    fns = {}
+    for name, job in jobs.items():
+        log = job.communicate()[0]
+        if job.returncode:
+            raise RuntimeError(f"{name} did not build:\n{log[-4000:]}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines[:-2]):
+            if "Function properties for" in line and "flash_bwd" in line \
+                    and "EfE" in line:
+                print(name, line.split("flash_bwd")[-1][:40],
+                      lines[i + 1].strip(), lines[i + 2].split(": ")[-1])
+        fn = ctypes.CDLL(str(out / f"{name}.so")).flash_attention_bwd
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, P]
+        fn.restype = I
+        fns[name] = fn
+    return fns
+
+
+def _ms_by_kernel(fn, iters: int = 20) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split()[-1]
+            ms[name] = ms.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+    return ms
+
+
+def main(sources: list[str]) -> None:
+    fns = _build_variants(sources)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, S, H, K, dh in SHAPES:
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, do = (torch.randn(B, S, H, dh, generator=g, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, K, dh, generator=g, device=dev)
+                for _ in range(2))
+        with torch.no_grad():
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        mha_ref(*leaves).backward(do)
+        delta = torch.empty(B, H, S, device=dev)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+
+        def call(fn):
+            return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                              delta.data_ptr(),
+                              *(t.data_ptr() for t in grads), B, S, H, K, 1,
+                              0, 0, dh ** -0.5, dh, 0, stream)
+
+        res = {}
+        for name, fn in fns.items():
+            if call(fn)():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            res[name] = dict(share=max(
+                float(((a - w.grad).abs() / (2e-5 * (1 + w.grad.abs()))).max())
+                for a, w in zip(grads, leaves)))
+        order = list(fns) + list(fns)[::-1]
+        for turn, name in enumerate(order):
+            res[name][f"ms_by_kernel_{turn // len(fns)}"] = _ms_by_kernel(
+                call(fns[name]))
+        sdpa = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in leaves), is_causal=True,
+            enable_gqa=True)
+        lib = _ms_by_kernel(lambda: torch.autograd.grad(
+            sdpa, leaves, do.transpose(1, 2), retain_graph=True))
+        for name, r in res.items():
+            print(json.dumps(dict(shape=[B, S, H, K, dh], variant=name,
+                                  sdpa_backward_ms=sum(lib.values()), **r)),
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

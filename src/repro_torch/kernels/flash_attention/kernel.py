@@ -22,10 +22,17 @@ Training: ``FlashAttentionFunction`` is the ``torch.autograd.Function``
 whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma
 and fp32 bodies also write each row's log-sum-exp; the sm90 body does not
 yet, so a training call that would take it raises) and whose backward is
-``flash_attention_bwd_cuda``: FlashAttention-2 without atomics, fp32 on the
-FMA units for fp32 and bf16 inputs, at the head dims of ``BWD_HEAD_DIMS``
-(``select_bwd_body`` decides, and raises on the rest).  Its calls are
-counted in ``flash_attention_bwd_cuda.launches`` (and ``launches_by_body``).
+``flash_attention_bwd_cuda``: FlashAttention-2 without atomics on the
+tensor cores (mma.sync), at the head dims of ``BWD_HEAD_DIMS``, one body a
+dtype (``select_bwd_body`` decides, and raises on the rest):
+
+* ``mma_tf32x3``: float32 (the training path), every operand split into
+  TF32 hi + lo and each product formed from three TF32 products, which
+  holds the fp32 tolerance (``ref.tf32x3`` models it).
+* ``mma_bf16``: bfloat16, one bf16 product with fp32 accumulation.
+
+Its calls are counted in ``flash_attention_bwd_cuda.launches`` (and
+``launches_by_body``).
 Called outside that Function, ``flash_attention_cuda`` refuses inputs that
 require grad (its output has no ``grad_fn``).
 """
@@ -46,7 +53,7 @@ BODIES = ("sm90", "mma", "fp32")
 # the backward: the head dims of the smoke configs, the train presets and
 # stablelm-3b (ROADMAP.md Queue 2 lists the rest); one body a dtype
 BWD_HEAD_DIMS = (16, 32, 64, 80)
-BWD_BODIES = ("fp32", "bf16")
+BWD_BODIES = ("mma_tf32x3", "mma_bf16")
 
 
 def _entry(name: str, with_dtype: bool):
@@ -142,7 +149,7 @@ def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the flash-attention backward takes head dims "
                          f"{BWD_HEAD_DIMS}, not {dh} (ROADMAP.md Queue 2 "
                          "item 2)")
-    return "fp32" if q.dtype == torch.float32 else "bf16"
+    return "mma_tf32x3" if q.dtype == torch.float32 else "mma_bf16"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -203,9 +210,11 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)``, given its
     output ``o`` and log-sum-exp ``lse`` (B,H,S) fp32 and ``do`` = dL/do.
 
-    The inputs ``select_bwd_body`` takes; every tensor is made contiguous.
-    Three launches (D = rowsum(dO·O), then dK / dV, then dQ), counted as one
-    call; no atomics, so two runs give the same bits."""
+    The inputs ``select_bwd_body`` takes; every tensor is made contiguous
+    (the kernel stages tiles by 16-byte copies and raises on a base that is
+    not 16-byte aligned).  Two launches (dQ and D = rowsum(dO·O), then
+    dK / dV), counted as one call; no atomics, so two runs give the same
+    bits."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
                          f"{q.device}")

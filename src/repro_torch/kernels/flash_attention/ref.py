@@ -9,6 +9,10 @@ Mask semantics shared by every attention variant:
 * k positions < 0 mark invalid (unwritten cache slots)
 
 GQA is native: q has H heads, k/v have K heads, H = K * G.
+
+The backward kernel's arithmetic has a plain model here too
+(``mha_grads_by_products`` with ``tf32x3``): the tests hold its precision
+design against JAX; nothing on the CPU path calls it.
 """
 from __future__ import annotations
 
@@ -66,3 +70,65 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def split_tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10
+    explicit mantissa bits, to nearest, ties away from zero (finite
+    values)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_product(a: torch.Tensor, b: torch.Tensor, rnd) -> torch.Tensor:
+    """``a @ b`` in fp32 from split operands: each x as hi = rnd(x) and
+    lo = rnd(x - hi), and the product (lo·hi + hi·lo) + hi·hi, the two
+    small terms first (lo·lo is dropped)."""
+    a, b = a.float(), b.float()
+    a_hi, b_hi = rnd(a), rnd(b)
+    a_lo, b_lo = rnd(a - a_hi), rnd(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the backward kernel's fp32 body forms it on the TF32
+    tensor cores (mma.sync m16n8k8, three products a step): about 22 bits
+    of each operand's mantissa."""
+    return split_product(a, b, split_tf32)
+
+
+def mha_grads_by_products(q, k, v, do, *, causal: bool = True,
+                          window: int = 0, chunk: int = 0,
+                          scale: float | None = None, matmul=torch.matmul):
+    """(dq, dk, dv) of ``mha_ref`` in fp32, formed as the backward kernel
+    forms them: the forward's row log-sum-exp and output exact, P
+    recomputed from the log-sum-exp, D = rowsum(dO·O), and the five
+    products S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dQ = scale·dS K and
+    dK = scale·dSᵀ Q each through ``matmul`` (``tf32x3``: the kernel's fp32
+    body).  q, do (B,S,H,dh); k, v (B,S,K,dh); self-attention."""
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else dh ** -0.5
+
+    def heads(t, n):     # (B,S,n·g,dh) -> (B,n,g,S,dh)
+        return t.float().reshape(B, S, n, -1, dh).permute(0, 2, 3, 1, 4)
+
+    qh, doh = heads(q, K), heads(do, K)
+    kh, vh = heads(k, K), heads(v, K)                 # (B,K,1,S,dh)
+    pos = torch.arange(S, device=q.device)
+    mask = attention_mask(pos, pos, causal=causal, window=window,
+                          chunk=chunk)                # (S,S)
+    exact = (qh @ kh.transpose(-1, -2)) * scale
+    lse = torch.logsumexp(exact.masked_fill(~mask, -torch.inf), -1)
+    lse = torch.where(torch.isfinite(lse), lse, torch.inf)[..., None]
+    o = torch.exp(exact - lse).masked_fill(~mask, 0.0) @ vh
+    delta = (doh * o).sum(-1, keepdim=True)
+    p = torch.exp(matmul(qh, kh.transpose(-1, -2)) * scale - lse)
+    p = p.masked_fill(~mask, 0.0)
+    ds = p * (matmul(doh, vh.transpose(-1, -2)) - delta)
+    dv = matmul(p.transpose(-1, -2), doh).sum(2)      # (B,K,S,dh)
+    dk = matmul(ds.transpose(-1, -2), qh).sum(2) * scale
+    dq = matmul(ds, kh) * scale                       # (B,K,G,S,dh)
+    return (dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh),
+            dk.transpose(1, 2), dv.transpose(1, 2))

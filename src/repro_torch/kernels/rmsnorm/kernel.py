@@ -17,10 +17,19 @@ alignment (never by trying one and falling back):
 
 The backward is a kernel too (``rmsnorm_bwd_cuda``: dx and a deterministic
 dscale, the statistics recomputed from x), behind ``RMSNormFunction``, the
-``torch.autograd.Function`` whose forward is ``rmsnorm_cuda``;
-``rmsnorm_bwd_cuda.launches`` counts its calls.  Called outside that
-Function, ``rmsnorm_cuda`` refuses inputs that require grad (its output
-has no ``grad_fn``).
+``torch.autograd.Function`` whose forward is ``rmsnorm_cuda``.  Two bodies,
+chosen by ``select_bwd_body``:
+
+* ``warp_rows``: rows of 16-byte vectors of at most 1024 elements (every
+  train width): a warp a row, x and dy read once into registers, each
+  lane's dscale sums kept in registers over its warp's rows; the grid comes
+  from the SM count (``bwd_grid``), and a second kernel sums the CTAs'
+  partial rows in a fixed tree.
+* ``generic``: any other row: a CTA walks a run of rows, compensated sums.
+
+``rmsnorm_bwd_cuda.launches`` counts its calls and ``launches_by_body``
+each body's.  Called outside that Function, ``rmsnorm_cuda`` refuses
+inputs that require grad (its output has no ``grad_fn``).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("one_read", "generic")
+BWD_BODIES = ("warp_rows", "generic")
 # 16-byte vectors a lane of the one-read body (its template instances)
 VECTORS_PER_LANE = (1, 2, 4, 8, 16, 32)
 
@@ -42,9 +52,16 @@ _GENERIC = ("generic", 0)
 
 
 _ENTRY = []   # the bound C entry point, once loaded: the launch path is hot
-# CTAs of the backward at most: each sums its rows' dy * x^ into its own
-# partial row of dscale, which a second kernel adds up in order
+# CTAs of the backward's generic body at most: each sums its rows' dy * x^
+# into its own partial row of dscale, which a second kernel adds up in order
 BWD_MAX_BLOCKS = 256
+# the warp_rows body: warps a CTA, warps an SM the grid aims at, and the
+# most floats of dscale sums a lane holds (its row's vectors times their
+# elements)
+BWD_ROW_WARPS = 4
+BWD_WARPS_PER_SM = 8
+BWD_LANE_FLOATS = 32
+_SMS: dict[int, int] = {}
 
 
 def _entry():
@@ -59,14 +76,33 @@ def _entry():
     return _ENTRY[0]
 
 
-def _bwd_entry():
-    fn = _build.load("rmsnorm").rmsnorm_bwd
+def _bwd_entry(body: str):
+    lib = _build.load("rmsnorm")
+    fn = lib.rmsnorm_bwd_rows if body == "warp_rows" else lib.rmsnorm_bwd
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
+        tail = [I, I, I] if body == "warp_rows" else [I]
         fn.argtypes = [P, P, P, P, P, P, ctypes.c_longlong, I,
-                       ctypes.c_float, I, I, I, P]
+                       ctypes.c_float, I, I, *tail, P]
         fn.restype = I
     return fn
+
+
+def bwd_grid(rows: int, sms: int) -> tuple[int, int]:
+    """(rows a warp, CTAs) of the warp_rows body on a card of ``sms`` SMs:
+    about ``BWD_WARPS_PER_SM`` warps an SM, each a run of whole rows."""
+    per_warp = -(-rows // (sms * BWD_WARPS_PER_SM))
+    warps = -(-rows // per_warp)
+    return per_warp, -(-warps // BWD_ROW_WARPS)
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def select_body(x: torch.Tensor, scale: torch.Tensor,
@@ -105,6 +141,23 @@ def select_body(x: torch.Tensor, scale: torch.Tensor,
         return _GENERIC
     need = (row_bytes + 16 * 32 - 1) // (16 * 32)
     return "one_read", 1 << (need - 1).bit_length()
+
+
+def select_bwd_body(x: torch.Tensor, scale: torch.Tensor,
+                    dy: torch.Tensor) -> tuple[str, int]:
+    """(body, vectors a lane) of the backward for these inputs:
+    ``("warp_rows", n)`` or ``("generic", 0)``.
+
+    A pure function of dtype, shape and base addresses, on any device.
+    Raises on what the forward takes no body for, and on a dy unlike x."""
+    body, vpl = select_body(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if (body == "one_read" and dy.is_contiguous() and dy.data_ptr() % 16 == 0
+            and vpl * 16 // _SIZES[x.dtype] <= BWD_LANE_FLOATS):
+        return "warp_rows", vpl
+    return _GENERIC
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
@@ -152,33 +205,42 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     The inputs ``rmsnorm_cuda`` takes (any row the forward takes: every
     width, fp32 or bf16, statistics in fp32); dy is made contiguous.  A
     residual's gradient is dy itself and needs no kernel.  dscale is summed
-    in a fixed order: the same bits on every run."""
+    in a fixed order: the same bits on every run on one card."""
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_bwd_cuda takes CUDA tensors, got "
                          f"{x.device}")
-    select_body(x, scale)
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
-        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
-                         f"{x.dtype} {tuple(x.shape)}")
     dy = dy.contiguous()
+    body, vpl = select_bwd_body(x, scale, dy)
     D = x.shape[-1]
     rows = x.numel() // D if D else 0
     if rows == 0:
         return torch.zeros_like(x), torch.zeros_like(scale)
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
-    blocks = min(rows, BWD_MAX_BLOCKS)
-    # each CTA's partial sums of dscale and their compensations
-    partial = torch.empty((2, blocks, D), dtype=torch.float32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        err = _bwd_entry()(
-            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+    if body == "warp_rows":
+        per_warp, ctas = bwd_grid(rows, _sms(x.device))
+        # each CTA's partial row of dscale
+        partial = torch.empty((ctas, D), dtype=torch.float32, device=x.device)
+        tail = (vpl, per_warp, ctas)
+    else:
+        blocks = min(rows, BWD_MAX_BLOCKS)
+        # each CTA's partial sums of dscale and their compensations
+        partial = torch.empty((2, blocks, D), dtype=torch.float32,
+                              device=x.device)
+        tail = (blocks,)
+    args = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dscale.data_ptr(), partial.data_ptr(), rows, D, eps,
-            _DTYPES[x.dtype], _DTYPES[scale.dtype], blocks,
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPES[x.dtype], _DTYPES[scale.dtype], *tail)
+    if x.device.index == torch.cuda.current_device():
+        err = _bwd_entry(body)(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = _bwd_entry(body)(*args,
+                                   torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"rmsnorm backward launch failed ({body} body): "
+                           f"CUDA error {err}")
     rmsnorm_bwd_cuda.launches += 1
+    rmsnorm_bwd_cuda.launches_by_body[body] += 1
     return dx, dscale
 
 
@@ -201,10 +263,12 @@ class RMSNormFunction(torch.autograd.Function):
 
 
 def reset_counts() -> None:
-    """Set the launch counts (forward total and by body, backward) to 0."""
+    """Set the launch counts (forward and backward, total and by body)
+    to 0."""
     rmsnorm_cuda.launches = 0
     rmsnorm_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
     rmsnorm_bwd_cuda.launches = 0
+    rmsnorm_bwd_cuda.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 
 
 reset_counts()

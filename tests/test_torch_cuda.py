@@ -589,20 +589,23 @@ def _within(got, want, t):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,D", [(4096, 512), (300, 256), (7, 64),
-                                    (33, 130), (5, 3584)])
+                                    (33, 130), (5, 3584), (6, 2048)])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, D):
     """dx and dscale against autograd of rmsnorm_ref in fp32 on the same
-    inputs; (4096, 512) is the 100m preset's step; dscale's order is fixed,
-    so a second call gives the same bits."""
+    inputs; (4096, 512) is the 100m preset's step (the warp_rows body),
+    130, 3584 and 2048 take the generic body; dscale's order is fixed, so a
+    second call gives the same bits."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x, dy = (torch.randn(rows, D, generator=g, device=cuda).to(dtype)
              for _ in range(2))
     s = torch.randn(D, generator=g, device=cuda).to(dtype)
-    before = rmsnorm_bwd_cuda.launches
+    body = rms.select_bwd_body(x, s, dy)[0]
+    assert body == ("warp_rows" if D <= 1024 and D != 130 else "generic")
+    before = dict(rmsnorm_bwd_cuda.launches_by_body)
     dx, ds = rmsnorm_bwd_cuda(x, s, dy)
     dx2, ds2 = rmsnorm_bwd_cuda(x, s, dy)
     torch.cuda.synchronize()
-    assert rmsnorm_bwd_cuda.launches == before + 2
+    assert rmsnorm_bwd_cuda.launches_by_body[body] == before[body] + 2
     assert dx.dtype == dtype and ds.dtype == dtype
     xf, sf = x.float().requires_grad_(), s.float().requires_grad_()
     rmsnorm_ref(xf, sf).backward(dy.float())
@@ -619,6 +622,10 @@ FLASH_BWD_CASES = [
     (1, 200, 4, 2, 64, dict(causal=True, window=50)),
     (1, 200, 4, 2, 64, dict(causal=True, chunk=48)),
     (2, 70, 4, 4, 80, dict(causal=False)),
+    # GQA groups of 8 and S not a multiple of the 64-row tiles
+    (2, 190, 16, 2, 64, dict(causal=True)),
+    (1, 129, 8, 1, 16, dict(causal=True, chunk=40)),
+    (1, 65, 16, 2, 80, dict(causal=True, window=33)),
 ]
 
 
@@ -643,9 +650,10 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     logits = logits.masked_fill(~attention_mask(pos, pos, **kw), -torch.inf)
     assert _within(lse, torch.logsumexp(logits, -1).flatten(1, 2), t)
     qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
-    before = flash_attention_bwd_cuda.launches
+    body = "mma_tf32x3" if dtype == torch.float32 else "mma_bf16"
+    before = flash_attention_bwd_cuda.launches_by_body[body]
     ops.flash_attention(qg, kg, vg, **kw).backward(do)
-    assert flash_attention_bwd_cuda.launches == before + 1
+    assert flash_attention_bwd_cuda.launches_by_body[body] == before + 1
     qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
     mha_ref(qf, kf, vf, **kw).backward(do.float())
     for got, want in ((qg.grad, qf.grad), (kg.grad, kf.grad),
@@ -746,6 +754,8 @@ def test_train_step_launches_each_kernel_both_ways(cuda):
     assert (flash_attention_cuda.launches,
             flash_attention_bwd_cuda.launches) == (2, 2)
     assert flash_attention_cuda.launches_by_body["fp32"] == 2
+    assert rmsnorm_bwd_cuda.launches_by_body["warp_rows"] == 5
+    assert flash_attention_bwd_cuda.launches_by_body["mma_tf32x3"] == 2
 
 
 def test_train_example_runs_on_card(cuda, monkeypatch, capsys, tmp_path):

@@ -3,8 +3,9 @@
 ``select_body`` of the flash-attention, rmsnorm, SSD and RG-LRU wrappers is
 a pure function of dtype, shape, base address and strides: these tests hold
 it without a card, including the inputs that no body takes (which raise).
-So is ``select_bwd_body``, the flash-attention backward's, and the raw
-wrappers' refusal of inputs that require grad.  The bodies themselves run
+So is each backward's ``select_bwd_body`` (flash attention's, rmsnorm's,
+and rmsnorm's grid), and the raw wrappers' refusal of inputs that require
+grad.  The bodies themselves run
 in ``test_torch_cuda.py``.
 """
 import pytest
@@ -16,8 +17,10 @@ from repro_torch.kernels.flash_attention.kernel import select_body as flash_body
 from repro_torch.kernels.flash_attention.kernel import tma_strides
 from repro_torch.kernels.rglru import kernel as rglru
 from repro_torch.kernels.rglru.kernel import select_body as rglru_body
+from repro_torch.kernels.rmsnorm import kernel as rms
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.kernel import select_body as rms_body
+from repro_torch.kernels.rmsnorm.kernel import select_bwd_body as rms_bwd_body
 from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.kernels.ssd.kernel import select_body as ssd_body
 
@@ -155,6 +158,60 @@ def test_rmsnorm_misaligned_inputs_take_generic():
     assert rms_body(s.expand(4, -1).contiguous(), s,
                     residual=x) == ("generic", 0)
     assert rms_body(torch.zeros(4, 3584, dtype=BF16), s) == ("one_read", 16)
+
+
+@pytest.mark.parametrize("D,dtype,vpl", [
+    (64, F32, 1), (256, F32, 2), (512, F32, 4), (1024, F32, 8),
+    (512, BF16, 2), (768, BF16, 4), (1024, BF16, 4),
+])
+def test_rmsnorm_bwd_rows_of_at_most_1024_take_warp_rows(D, dtype, vpl):
+    """The train widths (64 smoke, 256 small, 512 100m) and any row of
+    16-byte vectors whose dscale sums fit 32 floats a lane."""
+    x = torch.zeros(4, D, dtype=dtype)
+    assert rms_bwd_body(x, torch.zeros(D, dtype=dtype),
+                        torch.zeros_like(x)) == ("warp_rows", vpl)
+    assert rms_bwd_body(x, torch.zeros(D, dtype=BF16 if dtype == F32 else F32),
+                        torch.zeros_like(x)) == ("warp_rows", vpl)
+
+
+@pytest.mark.parametrize("D,dtype", [(3584, BF16), (1536, F32), (2048, BF16),
+                                     (130, BF16), (130, F32)])
+def test_rmsnorm_bwd_other_rows_take_generic(D, dtype):
+    """Wider rows (the served 3584) and rows not of 16-byte vectors."""
+    x = torch.zeros(3, D, dtype=dtype)
+    assert rms_bwd_body(x, torch.zeros(D, dtype=dtype),
+                        torch.zeros_like(x)) == ("generic", 0)
+
+
+def test_rmsnorm_bwd_misaligned_dy_takes_generic():
+    x = torch.zeros(4, 512)
+    dy = torch.zeros(4 * 512 + 1)[1:].view(4, 512)
+    assert dy.data_ptr() % 16
+    assert rms_bwd_body(x, torch.zeros(512), dy) == ("generic", 0)
+    with pytest.raises(ValueError, match="does not match"):
+        rms_bwd_body(x, torch.zeros(512), torch.zeros(4, 512, dtype=BF16))
+
+
+@pytest.mark.parametrize("rows,sms,want", [
+    (4096, 132, (4, 256)),      # the 100m step on an H100
+    (4096, 16, (32, 32)),
+    (7, 132, (1, 2)),
+    (1, 132, (1, 1)),
+    (100000, 132, (95, 264)),
+])
+def test_rmsnorm_bwd_grid_from_the_sm_count(rows, sms, want):
+    """About 8 warps an SM, each a run of whole rows, 4 warps a CTA; the
+    warps cover every row and the last CTA has rows to take."""
+    per_warp, ctas = rms.bwd_grid(rows, sms)
+    assert (per_warp, ctas) == want
+    assert ctas * 4 * per_warp >= rows > (ctas - 1) * 4 * per_warp
+
+
+def test_rmsnorm_bwd_counts_start_at_zero_by_body():
+    rms.reset_counts()
+    assert rms.rmsnorm_bwd_cuda.launches == 0
+    assert rms.rmsnorm_bwd_cuda.launches_by_body == {"warp_rows": 0,
+                                                     "generic": 0}
 
 
 @pytest.mark.parametrize("make,exc,match", [
@@ -314,7 +371,8 @@ def test_scan_wrappers_name_the_roadmap_item():
 
 
 @pytest.mark.parametrize("dh", flash.BWD_HEAD_DIMS)
-@pytest.mark.parametrize("dtype,want", [(F32, "fp32"), (BF16, "bf16")])
+@pytest.mark.parametrize("dtype,want", [(F32, "mma_tf32x3"),
+                                       (BF16, "mma_bf16")])
 def test_flash_bwd_body_by_dtype(dh, dtype, want):
     assert flash.select_bwd_body(*qkv(dh=dh, dtype=dtype)) == want
 

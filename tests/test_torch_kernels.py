@@ -33,12 +33,16 @@ from repro.kernels.ssd.ref import ssd_decode_step as jax_ssd_decode_step
 from repro.kernels.ssd.ref import ssd_sequential as jax_ssd_sequential
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     mha_grads_by_products,
+                                                     mha_ref, split_product,
+                                                     split_tf32, tf32x3)
 from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_gates,
                                            rglru_sequential)
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.kernel import bwd_grid, rmsnorm_cuda
+from repro_torch.kernels.rmsnorm.ref import (rmsnorm_dscale_ordered,
+                                             rmsnorm_ref)
 from repro_torch.kernels.ssd.kernel import ssd_cuda
 from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
                                          ssd_chunk_state, ssd_chunked,
@@ -114,6 +118,37 @@ def test_rmsnorm_ref_gradient_matches_jax(shape, with_residual):
             assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("sms", [132, 16])
+def test_rmsnorm_bwd_dscale_order_matches_jax(sms):
+    """dscale summed in the warp-a-row backward kernel's order (per-warp
+    running sums over its rows, a pairwise tree over a CTA's warps, strided
+    running sums over the CTAs, a pairwise tree over those) against
+    jax.grad of the JAX reference at 2e-5, on the 100m step's (4096, 512)
+    where |dscale| reaches about 190: a plain running sum over the 4096
+    rows misses there, so the order is what holds the tolerance.  The grid
+    is the one the wrapper takes on a card of ``sms`` SMs."""
+    rng = np.random.default_rng(4)
+    x, dy = (rng.standard_normal((4096, 512)).astype(np.float32)
+             for _ in range(2))
+    s = rng.standard_normal(512).astype(np.float32)
+    want = np.asarray(jax.grad(
+        lambda s: jnp.sum(jax_rmsnorm_ref(x, s) * dy))(s))
+    assert np.abs(want).max() > 150
+    rows_per_warp, ctas = bwd_grid(4096, sms)
+    assert ctas * 4 * rows_per_warp >= 4096
+    got = rmsnorm_dscale_ordered(torch.from_numpy(x), torch.from_numpy(dy),
+                                 rows_per_warp=rows_per_warp)
+    assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    terms = dyt * (xt * torch.rsqrt(xt.square().mean(-1, keepdim=True)
+                                    + 1e-6))
+    running = torch.zeros(512)
+    for row in terms:
+        running = running + row
+    assert not np.all(np.abs(running.numpy() - want)
+                      <= 2e-5 * (1 + np.abs(want)))
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -163,6 +198,59 @@ def test_mha_ref_gradient_matches_jax(B, S, H, K, dh, kw):
     mha_ref(*leaves, **kw).backward(torch.from_numpy(do))
     for g, w in zip(leaves, want):
         assert_allclose(g.grad.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5)
+
+
+def test_split_tf32_rounds_as_cvt_rna():
+    """10 explicit mantissa bits, to nearest, ties away from zero."""
+    one = 1.0 + 2.0 ** -10                 # the TF32 step above 1
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -11, 3.0e-3])
+    got = split_tf32(v)
+    assert got[:4].tolist() == [1.0, one, 1.0, -one]
+    assert got[4].item() == 1.0 + 2 * 2.0 ** -10
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+    assert torch.equal(split_tf32(got), got)
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (1, 256, 8, 4, 64, dict(causal=True)),         # the 100m step's heads
+    (1, 50, 4, 2, 80, dict(causal=True, window=9)),
+    (1, 50, 4, 2, 80, dict(causal=True, chunk=16)),
+])
+def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
+                                                       capsys):
+    """The fp32 backward body's precision design, in plain torch: the five
+    products (S, dP, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q) with each operand
+    split into TF32 hi + lo and the three-term product, against jax.grad
+    of the JAX reference at 2e-5.  The bf16 hi + lo split (3 products at
+    the bf16 rate) would have been taken at or under half of 2e-5 in every
+    case; it is printed beside and is not (about 16 bits of mantissa), so
+    the kernel takes 3xTF32."""
+    rng = np.random.default_rng(5)
+    q, do = (rng.standard_normal((B, S, H, dh)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, S, K, dh)).astype(np.float32)
+            for _ in range(2))
+    want = jax.grad(lambda q, k, v: jnp.sum(jax_mha_ref(q, k, v, **kw) * do),
+                    argnums=(0, 1, 2))(q, k, v)
+    args = [torch.from_numpy(a) for a in (q, k, v, do)]
+    share = {}     # max |got - want| / (2e-5 (1 + |want|)) over dq, dk, dv
+    for name, matmul in (
+            ("tf32x3", tf32x3),
+            ("bf16x3", lambda a, b: split_product(
+                a, b, lambda t: t.bfloat16().float()))):
+        got = mha_grads_by_products(*args, **kw, matmul=matmul)
+        share[name] = max(float(np.max(
+            np.abs(g.numpy() - np.asarray(w))
+            / (2e-5 * (1 + np.abs(np.asarray(w)))))) for g, w in zip(got, want))
+        if name == "tf32x3":
+            for g, w in zip(got, want):
+                assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                atol=2e-5)
+    with capsys.disabled():
+        print(f"\nflash backward split products at {(B, S, H, K, dh, kw)}, "
+              f"share of the 2e-5 tolerance: {share}")
+    assert share["tf32x3"] <= 0.5 < share["bf16x3"]
 
 
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=5),
