@@ -11,7 +11,7 @@ Phases, each printed as one JSON line:
    registers and spills (kept beside each library, so a library built
    before is reported too).  Fails if the sm90 flash-attention body, a
    kernel of the SSD mma or RG-LRU segmented bodies or a backward kernel
-   spills, or ptxas ignored a ``setmaxnreg`` (C7508).
+   (the scans' too) spills, or ptxas ignored a ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
@@ -24,38 +24,55 @@ Phases, each printed as one JSON line:
    against ``rglru_assoc``, serial against ``rglru_sequential``) and every
    SSD case on each body that takes it (bf16: mma and fma; fp32: fma), with
    each of the mma body's three phase kernels against its plain phase.
+   SSD in fp32 also at mamba2-130m's train shape (x (8,1024,24,64)).
    Each case records the body that ran.  The two backward kernels
    (RMSNorm: dx and dscale, on its warp_rows body at the train widths and
-   its generic body at 2048, 3584 and an odd width; flash attention: dq,
+   its generic body at 2048, 3584 and an odd width, and in fp32 at the
+   recurrent train steps' shapes, (8192, 768) on warp_rows, (8192, 1536)
+   and (2048, 4096) on generic, each asserting its body; flash attention: dq,
    dk, dv on the tensor cores, with the forward's log-sum-exp) against
-   autograd of their plain versions in fp32 on the same inputs, fp32 and
+   autograd of their plain versions on the same inputs (flash attention's
+   in fp32, RMSNorm's in fp64: rmsnorm_ref's own fp32 dscale strays past
+   2e-5 at 8192 rows), fp32 and
    bf16, at head dims 16, 32, 64 and 80, causal / window / chunk masks,
    GQA groups up to 8 and S that is not a multiple of the 64-row tiles,
-   each called twice (the same bits).  Then kernel, plain and library
+   each called twice (the same bits).  The scans' backward kernels (SSD:
+   dx, ddt, dA, dB, dC, dD; RG-LRU: d log_a, d gx, dh0) against their plain
+   backwards (``ssd_chunked_bwd``, ``rglru_bwd``) on the card, fp32 and
+   bf16, at the scans' tolerances, at mamba2-130m's train shape (x
+   (8,1024,24,64), chunk 128), a ragged S = 1000 with a gradient of the
+   final state and grouped B/C; recurrentgemma-9b's (4,512,4096), S 37
+   and a ragged 1000 with h0 and a gradient of h_last; each called twice
+   (the same bits) and once through its autograd Function.  Then kernel,
+   plain and library
    (``F.rms_norm`` / SDPA; none computes the RG-LRU or the SSD scan) times
    at the serving shapes of qwen2-7b, recurrentgemma-9b (and its decode
    shape for the RG-LRU) and mamba2-130m, and the backwards at the 100m
    preset's training shapes (the library: the backward alone of F.rms_norm
-   and of SDPA, through autograd), beside the least time the card
+   and of SDPA, through autograd; the RMSNorm backward's generic body also
+   at (8192, 1536) and (2048, 4096)), beside the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type; the SSD row also gives the fp32-operations bound of its fma
    body, the flash backward's row the bound of its split products at the
    TF32 rate and ``fma_bound_ms``, its five products at the fp32 FMA rate),
-   and each backward's device time by kernel (``kernel_ms``).  The mma body's chunk scan is also held, at one bf16 step of y
+   and each backward's device time by kernel (``kernel_ms``); the scans'
+   backwards at mamba2-130m's and recurrentgemma-9b's train shapes (fp32),
+   bounded by ``ssd_bwd_macs`` at the fp32 rate and by bytes.  The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
    ``ms``,
    ``plain_ms`` and ``library_ms`` are device time: the kernels one call
    runs, summed under ``torch.profiler`` over 20 calls after warm-up, per
-   call; ``event_ms`` and ``library_event_ms`` are the CUDA-event median of
+   call, the median of 3 profiler windows; ``event_ms`` and ``library_event_ms`` are the CUDA-event median of
    30 calls, which includes the host's launch path when that is longer than
    the kernel.  ``previous_body_ms`` times, on the same inputs, the body
    these shapes took before this round of redesigns (flash attention's mma
    body, rmsnorm's generic body, the SSD scan's fma body, the RG-LRU's
    serial body, the RMSNorm backward's generic body), called through the C
-   entry point directly; the SSD row times each phase too.  Each kernel's ``profiler_windows`` counts its
-   timings and the profiler windows they took (more windows than timings:
-   the profiler dropped a window, which is then taken again).
+   entry point directly; the SSD row times each phase too.  Each kernel's
+   ``profiler_windows`` counts its timings and the profiler windows they
+   took (more than 3 a timing: the profiler dropped a window, which is
+   then taken again).
 3. ``serve_check``, once per served arch, at full width, fp32, random
    weights from the seed: the last-position logits of ``prefill`` and 8
    ``decode_step``s against ``forward_train`` on the same tokens, within
@@ -93,9 +110,26 @@ Phases, each printed as one JSON line:
    way; a second Trainer restores the last step bit for bit; a run whose
    step fails restarts from the last commit.  Step time against its FLOP
    bound, one profiled step, peak memory and each checkpoint's ACK time.
+   Before it, ``train_check`` of the two recurrent families, as the
+   100m's (fp32, the same checks and limits): mamba2-130m at 2 layers and
+   full width, recurrentgemma-9b at 2 layers narrowed to
+   ``RGEMMA_CHECK_WIDTH``, both batch 2 x 256.
+8. ``train_mamba2``: mamba2-130m at full width and depth (24 SSD layers,
+   fp32) through the port's launcher, ``python -m repro_torch.launch.train
+   --arch mamba2-130m --steps 100 --batch 8 --seq 1024 --ckpt-every 25
+   --io-latency-ms 1``: the loss falls (mean of the last 10 steps below the
+   first 10's), every step finite, the 4 checkpoints commit, the last step
+   restores bit for bit; 24 SSD and 49 RMSNorm launches a step, each way.
+   Step ms, peak memory, checkpoint ACK s.
+9. ``train_rgemma_2l``: recurrentgemma-9b at full width cut to 2 layers
+   (rglru, rglru; layer 3 is local attention at head dim 256, whose
+   backward is not ported), fp32, batch 4 x 512, 10 steps of
+   ``make_train_step``, no checkpoint: every loss finite, 2 RG-LRU and 5
+   RMSNorm launches a step, each way.  Step ms, peak memory.
 
 Then a ``kernels`` summary line (launches summed over the serve and train
-phases, and per path), the card's name and power limit as ``nvidia-smi``
+phases, and per path: each serve, train-100m, train-mamba2,
+train-rgemma-2l), the card's name and power limit as ``nvidia-smi``
 prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
 exits non-zero; so does a machine without a card.
 """
@@ -167,7 +201,7 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-# the profiler windows each device_ms timing took (1 unless one was dropped)
+# the profiler windows each device_ms timing took (3 unless one was empty)
 PROFILER_WINDOWS = []
 
 
@@ -177,17 +211,20 @@ def window_counts(start: int) -> dict:
     return dict(timings=len(w), windows=sum(w))
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3,
+              tries: int = 6) -> float:
     """Device time of one call: every kernel and copy the call runs on the
-    card, summed under torch.profiler over ``iters`` calls, per call.  A
-    window in which the profiler recorded no device event at all (it has
-    dropped a whole window now and then) is taken again, up to ``tries``
-    windows; ``PROFILER_WINDOWS`` records how many it took."""
+    card, summed under torch.profiler over ``iters`` calls, per call; the
+    median of ``windows`` profiler windows.  The profiler now and then
+    drops a whole window (no device event: taken again, up to ``tries``
+    windows) or part of one (a low total, which the median sets aside);
+    ``PROFILER_WINDOWS`` records how many windows each timing took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    totals = []
     for window in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -197,9 +234,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
         total = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA)
         if total > 0:
+            totals.append(total / iters / 1e3)
+        if len(totals) == windows:
             PROFILER_WINDOWS.append(window)
-            return total / iters / 1e3
-    check(False, f"the profiler saw no device time in {tries} windows")
+            return statistics.median(totals)
+    check(False, f"the profiler saw device time in {len(totals)} of {tries} "
+          f"windows, {windows} needed")
 
 
 def kernel_breakdown(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -261,6 +301,20 @@ def ssd_split_macs(B, S, H, P, G, N, Q) -> int:
     return cb + 2 * (ssd_macs(B, S, H, P, G, N, Q) - cb)
 
 
+def ssd_bwd_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds the SSD backward needs, all fp32: per (b, g, chunk)
+    C·Bᵀ on and below the diagonal (recomputed); per (b, h, chunk) dy·xᵀ,
+    the scores' transpose times dy, d(C·Bᵀ) times B and times C, on and
+    below it, and in full the chunk's local state, its E = Σ exp(cum) dy Cᵀ,
+    B·dSᵀ and x·dS; in every chunk but the first also W = dy·state_in, the
+    inter-chunk term of dC (the state entering the first is zero; d cum's
+    inter-chunk term dy·(C·state_inᵀ) is C·W, Q·N more, not counted)."""
+    tri, n_chunks, qnp = Q * (Q + 1) // 2, -(-S // Q), Q * N * P
+    return B * (n_chunks * (G * tri * N + H * (2 * tri * P + 2 * tri * N
+                                               + 4 * qnp))
+                + (n_chunks - 1) * H * qnp)
+
+
 def flash_bwd_split_macs(B: int, H: int, pairs: int, dh: int) -> int:
     """Multiply-adds the flash-attention backward's fp32 body needs on the
     TF32 tensor cores: the five products of ``pairs`` (query, key) pairs x
@@ -292,9 +346,24 @@ def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
             + fp32 / PEAK_OPS_PER_S[torch.float32]) * 1e3
 
 
+def ssd_inputs(randn, B, S, H, P, G, N, dtype):
+    """(x, dt, A, Bm, Cm, D) of an SSD scan, drawn by ``randn(*shape,
+    dtype=)``: x in ``dtype``, dt = softplus of a normal, A < 0, Bm and Cm
+    of scale 0.3 in ``dtype``, D; dt, A and D fp32."""
+    f32 = torch.float32
+    return (randn(B, S, H, P, dtype=dtype),
+            F.softplus(randn(B, S, H, dtype=f32)),
+            -torch.exp(randn(H, dtype=f32) * 0.5),
+            randn(B, S, G, N, dtype=f32).mul(0.3).to(dtype),
+            randn(B, S, G, N, dtype=f32).mul(0.3).to(dtype),
+            randn(H, dtype=f32))
+
+
 def compare(got, want, dtype, tol=TOL) -> tuple:
-    """(max abs error, within tolerance) with |got - want| <= t + t·|want|."""
-    got, want = got.float(), want.float()
+    """(max abs error, within tolerance) with |got - want| <= t + t·|want|,
+    in fp64 when ``want`` is fp64, else in fp32."""
+    as_dtype = torch.float64 if want.dtype == torch.float64 else torch.float32
+    got, want = got.to(as_dtype), want.to(as_dtype)
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()) and bool(
         (err <= tol[dtype] * (1 + want.abs())).all())
@@ -352,6 +421,17 @@ def phase_env(build):
     check(len(bwd) == 38 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
+    # the scans' backward kernels: the SSD's chunk states, reverse state
+    # pass, chunk gradients, group and parameter sums (8: two dtypes each
+    # but the two passes and the parameter sum) and the RG-LRU's (2)
+    scan_bwd = {name: f for src in ("ssd", "rglru")
+                for name, f in ptxas_functions(logs[src]).items()
+                if "ssd_bwd_" in name or "rglru_bwd_kernel" in name}
+    emit("env", scan_backward_ptxas=scan_bwd)
+    check(len(scan_bwd) == 10 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
+        for f in scan_bwd.values()),
+        f"a scan backward kernel spills: {scan_bwd}")
     return smi
 
 
@@ -600,14 +680,6 @@ def phase_kernels(dev, gen, seed):
     # that is not a multiple of 16; y and the fp32 final state against
     # ssd_chunked (S a multiple of the chunk) or ssd_sequential (ragged S),
     # on each body that takes the inputs (mma: bf16; fma: both)
-    def ssd_inputs(B, S, H, P, G, N, dtype):
-        return (randn(B, S, H, P, dtype=dtype),
-                F.softplus(randn(B, S, H, dtype=torch.float32)),
-                -torch.exp(randn(H, dtype=torch.float32) * 0.5),
-                randn(B, S, G, N, dtype=torch.float32).mul(0.3).to(dtype),
-                randn(B, S, G, N, dtype=torch.float32).mul(0.3).to(dtype),
-                randn(H, dtype=torch.float32))
-
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, H, P, G, N, chunk in [(4, 512, 24, 64, 1, 128, 128),
                                         (2, 1000, 24, 64, 1, 128, 128),
@@ -615,7 +687,7 @@ def phase_kernels(dev, gen, seed):
                                         (1, 300, 4, 32, 2, 64, 64),
                                         (1, 90, 3, 24, 3, 8, 20),
                                         (1, 64, 2, 128, 1, 32, 32)]:
-            args = ssd_inputs(B, S, H, P, G, N, dtype)
+            args = ssd_inputs(randn, B, S, H, P, G, N, dtype)
             want_y, want_state = (ssd_chunked(*args, chunk=chunk)
                                   if S % chunk == 0 else ssd_sequential(*args))
             bodies = ("mma", "fma") if dtype == torch.bfloat16 else ("fma",)
@@ -629,8 +701,25 @@ def phase_kernels(dev, gen, seed):
                                   N=N, chunk=chunk,
                                   max_abs_err=max(err_y, err_s),
                                   tol=SSD_TOL[dtype], ok=ok_y and ok_s))
+    # fp32 at mamba2-130m's train shape (the fma body its train step runs),
+    # drawn from a generator of its own so the later phases draw what they
+    # drew before this case existed
+    g_train = torch.Generator(device=dev).manual_seed(seed + 2)
+    B, S, H, P, G, N, chunk = 8, 1024, 24, 64, 1, 128, 128
+    args = ssd_inputs(lambda *shape, dtype: torch.randn(
+        shape, generator=g_train, device=dev).to(dtype),
+        B, S, H, P, G, N, f32)
+    want_y, want_state = ssd_chunked(*args, chunk=chunk)
+    y, state = ssd_cuda(*args, chunk=chunk)
+    err_y, ok_y = compare(y, want_y, f32, SSD_TOL)
+    err_s, ok_s = compare(state, want_state, f32, SSD_TOL)
+    cases.append(dict(kernel="ssd", body="fma",
+                      selected=ssd_body(*args, chunk), dtype=str(f32), B=B,
+                      S=S, H=H, P=P, G=G, N=N, chunk=chunk,
+                      max_abs_err=max(err_y, err_s), tol=SSD_TOL[f32],
+                      ok=ok_y and ok_s and ssd_body(*args, chunk) == "fma"))
     B, S, H, P, G, N, Q = 4, 512, 24, 64, 1, 128, 128
-    args = ssd_inputs(B, S, H, P, G, N, torch.bfloat16)
+    args = ssd_inputs(randn, B, S, H, P, G, N, torch.bfloat16)
     x, dt, A, Bm, Cm, D = args
     nc = -(-S // Q)
     stream = torch.cuda.current_stream().cuda_stream
@@ -733,12 +822,16 @@ def _grad_ms(out, inputs, grad_out):
 
 
 def backward_kernels(dev, gen, cases, summary):
-    """The two backward kernels against autograd of their plain versions
-    (rmsnorm_ref, mha_ref) in fp32 on the same inputs (bf16 inputs too:
-    the fp32 plain version then runs on them upcast), at the kernel
-    tolerances; then timed at the 100m preset's training shapes beside the
-    backward alone of the plain version and of the library call (autograd
-    of F.rms_norm / SDPA at the same dtype)."""
+    """The backward kernels against their plain versions on the same inputs
+    (bf16 inputs too: the plain versions then compute in fp32 from them),
+    at the kernel tolerances: RMSNorm against autograd of its function in
+    fp64 (``rmsnorm_f64``), flash attention against autograd of mha_ref,
+    the SSD and RG-LRU scans against
+    ssd_chunked_bwd / rglru_bwd; then timed at their training shapes (the
+    100m preset's; mamba2-130m's and recurrentgemma-9b's for the scans)
+    beside the plain version and the library call where there is one
+    (autograd of F.rms_norm / SDPA at the same dtype; none for the
+    scans)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda, select_bwd_body)
@@ -752,21 +845,37 @@ def backward_kernels(dev, gen, cases, summary):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def plain_grads(fn, inputs, grad_out, **kw):
-        leaves = [t.float().requires_grad_() for t in inputs]
-        return torch.autograd.grad(fn(*leaves, **kw), leaves, grad_out.float())
+    def plain_grads(fn, inputs, grad_out, dtype=f32, **kw):
+        leaves = [t.to(dtype).requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*leaves, **kw), leaves,
+                                   grad_out.to(dtype))
+
+    def rmsnorm_f64(x, scale, residual=None):
+        """rmsnorm_ref's function in fp64: the plain version the RMSNorm
+        backward is held against, since rmsnorm_ref's own fp32 dscale
+        strays from the exact sum by up to 1.7x the 2e-5 tolerance at
+        8192 rows."""
+        y = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) * scale
+        return y if residual is None else y + residual
+
+    f64 = torch.float64
 
     # ---- rmsnorm backward: the train widths (64, 256, 512: smoke, small,
     # 100m) and the served 768 on the warp_rows body; the served 3584, a
-    # 2048 and an odd width on the generic body; the 100m step's rows
+    # 2048 and an odd width on the generic body; the 100m step's rows; in
+    # fp32 also the recurrent train steps' shapes: mamba2-130m's norm1
+    # (8192, 768, warp_rows) and gated norm (8192, 1536, generic),
+    # recurrentgemma-9b's (2048, 4096, generic)
+    recurrent_train = ((8192, 768), (8192, 1536), (2048, 4096))
     for dtype in (f32, torch.bfloat16):
         for rows, D in ((4096, 512), (1024, 256), (64, 64), (300, 768),
-                        (8, 3584), (33, 130), (6, 2048)):
+                        (8, 3584), (33, 130), (6, 2048),
+                        *(recurrent_train if dtype == f32 else ())):
             x, dy = (randn(rows, D, dtype=dtype) for _ in range(2))
             s = randn(D, dtype=dtype)
             body = rms.select_bwd_body(x, s, dy)[0]
             got = rmsnorm_bwd_cuda(x, s, dy)
-            want = plain_grads(rmsnorm_ref, (x, s), dy)
+            want = plain_grads(rmsnorm_f64, (x, s), dy, f64)
             errs = [compare(g, w, dtype) for g, w in zip(got, want)]
             again = rmsnorm_bwd_cuda(x, s, dy)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -782,8 +891,7 @@ def backward_kernels(dev, gen, cases, summary):
     s = randn(512, dtype=f32)
     xg, rg, sg = (t.clone().requires_grad_() for t in (x, r, s))
     RMSNormFunction.apply(xg, sg, rg, 1e-6).backward(dy)
-    want = plain_grads(lambda a, b, c: rmsnorm_ref(a, b, residual=c),
-                       (x, s, r), dy)
+    want = plain_grads(rmsnorm_f64, (x, s, r), dy, f64)
     errs = [compare(g, w, f32) for g, w in zip((xg.grad, sg.grad, rg.grad),
                                                want)]
     cases.append(dict(kernel="rmsnorm_bwd", dtype="torch.float32", rows=64,
@@ -825,8 +933,31 @@ def backward_kernels(dev, gen, cases, summary):
         library_event_ms=time_ms(_grad_ms(lib_out, (xr, sr), dy)),
         bound_ms=t_bound, bound_by=by,
         max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
-            kernel(), plain_grads(rmsnorm_ref, (x, s), dy))),
+            kernel(), plain_grads(rmsnorm_f64, (x, s), dy, f64))),
         profiler_windows=window_counts(mark))
+    # the generic body at the recurrent train steps' wider rows, beside
+    # the plain and library backwards
+    for rows, D, name in ((8192, 1536, "mamba2_gated"),
+                          (2048, 4096, "rgemma")):
+        x, dy = (randn(rows, D, dtype=f32) for _ in range(2))
+        s = randn(D, dtype=f32)
+        xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+        plain_out = rmsnorm_ref(xr, sr)
+        lib_out = F.rms_norm(xr, (D,), sr, 1e-6)
+        kernel = lambda: rmsnorm_bwd_cuda(x, s, dy)  # noqa: E731
+        t_bound, by = bound(3 * x.nbytes + 2 * s.nbytes, 10 * x.numel(), f32)
+        summary["rmsnorm_bwd"][name] = dict(
+            shape=f"x, dy ({rows}, {D}) fp32, scale fp32",
+            body=rms.select_bwd_body(x, s, dy)[0],
+            ms=device_ms(kernel), event_ms=time_ms(kernel),
+            kernel_ms=kernel_breakdown(kernel),
+            plain_ms=device_ms(_grad_ms(plain_out, (xr, sr), dy)),
+            library_ms=device_ms(_grad_ms(lib_out, (xr, sr), dy)),
+            library_event_ms=time_ms(_grad_ms(lib_out, (xr, sr), dy)),
+            bound_ms=t_bound, bound_by=by,
+            max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
+                kernel(), plain_grads(rmsnorm_f64, (x, s), dy, f64))))
+    summary["rmsnorm_bwd"]["profiler_windows"] = window_counts(mark)
     emit("kernels", kernel="rmsnorm_bwd", timings={
         summary["rmsnorm_bwd"]["shape"]: summary["rmsnorm_bwd"]})
 
@@ -925,6 +1056,148 @@ def backward_kernels(dev, gen, cases, summary):
     emit("kernels", kernel="flash_attention_bwd", timings={
         summary["flash_attention_bwd"]["shape"]:
             summary["flash_attention_bwd"]})
+    scan_backward_kernels(dev, gen, cases, summary)
+
+
+def scan_backward_kernels(dev, gen, cases, summary):
+    """The SSD and RG-LRU backward kernels against ssd_chunked_bwd /
+    rglru_bwd on the card on the same inputs, fp32 and bf16, at the scans'
+    tolerances (SSD_TOL, RGLRU_TOL), each called twice (the same bits), and
+    once through its autograd Function (ops.ssd_scan / ops.rglru_scan with
+    inputs that require grad); then timed at mamba2-130m's train step (x
+    (8,1024,24,64) fp32, chunk 128) and recurrentgemma-9b's (log_a, gx
+    (4,512,4096) fp32, no h0) beside their plain backwards, with their
+    device time by kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
+    from repro_torch.kernels.rglru.ref import rglru_bwd
+    from repro_torch.kernels.ssd.kernel import ssd_bwd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
+    f32 = torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- SSD backward: mamba2-130m's train shape, a ragged last chunk,
+    # grouped B/C; with and without the final state's gradient
+    for dtype in (f32, torch.bfloat16):
+        for (B, S, H, P, G, N, Q), with_state in (
+                ((8, 1024, 24, 64, 1, 128, 128), False),
+                ((2, 1000, 24, 64, 1, 128, 128), True),
+                ((2, 200, 4, 16, 2, 16, 64), True)):
+            args = ssd_inputs(randn, B, S, H, P, G, N, dtype)
+            dy = randn(B, S, H, P, dtype=dtype)
+            ds = randn(B, H, P, N) if with_state else None
+            got = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
+            again = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
+            want = ssd_chunked_bwd(*args, dy, ds, chunk=Q)
+            errs = [compare(g, w, dtype, SSD_TOL) for g, w in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            cases.append(dict(kernel="ssd_bwd", body="fma", dtype=str(dtype),
+                              B=B, S=S, H=H, P=P, G=G, N=N, chunk=Q,
+                              d_state=with_state,
+                              max_abs_err=max(e for e, _ in errs),
+                              errs=[e for e, _ in errs], tol=SSD_TOL[dtype],
+                              deterministic=same,
+                              ok=all(ok for _, ok in errs) and same))
+    # through SSDFunction: ops.ssd_scan with inputs that require grad
+    args = ssd_inputs(randn, 2, 300, 4, 16, 2, 16, f32)
+    dy = randn(2, 300, 4, 16)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = ssd_bwd_cuda.launches
+    (ops.ssd_scan(*leaves, chunk=64)[0] * dy).sum().backward()
+    errs = [compare(t.grad, w, f32, SSD_TOL) for t, w in zip(
+        leaves, ssd_chunked_bwd(*args, dy, chunk=64))]
+    cases.append(dict(kernel="ssd_bwd", body="fma", through="SSDFunction",
+                      dtype=str(f32), B=2, S=300, H=4, P=16, G=2, N=16,
+                      chunk=64, max_abs_err=max(e for e, _ in errs),
+                      tol=SSD_TOL[f32], ok=all(ok for _, ok in errs)
+                      and ssd_bwd_cuda.launches == before + 1))
+
+    B, S, H, P, G, N, Q = 8, 1024, 24, 64, 1, 128, 128
+    args = ssd_inputs(randn, B, S, H, P, G, N, f32)
+    dy = randn(B, S, H, P)
+    x, dt, _, Bm, Cm, _ = args
+    # bytes: x, dt, Bm, Cm, dy (A, D) read once, dx, ddt, dB, dC (dA, dD)
+    # written once; operations: ssd_bwd_macs on the fp32 FMA units
+    n_bytes = 3 * x.nbytes + 2 * dt.nbytes + 2 * Bm.nbytes + 2 * Cm.nbytes \
+        + 4 * 4 * H
+    t_bound, by = bound(n_bytes, 2 * ssd_bwd_macs(B, S, H, P, G, N, Q), f32)
+    kernel = lambda: ssd_bwd_cuda(*args, dy, chunk=Q)  # noqa: E731
+    mark = len(PROFILER_WINDOWS)
+    summary["ssd_bwd"] = dict(
+        name="ssd_bwd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:71 (its gradient: JAX "
+                 "differentiates the jnp reference)",
+        shape=f"x, dy ({B},{S},{H},{P}) fp32, dt ({B},{S},{H}), Bm/Cm "
+              f"({B},{S},{G},{N}) fp32, chunk {Q} (the mamba2-130m step)",
+        body="fma", ms=device_ms(kernel), event_ms=time_ms(kernel),
+        kernel_ms=kernel_breakdown(kernel),
+        plain_ms=device_ms(lambda: ssd_chunked_bwd(*args, dy, chunk=Q),
+                           iters=5, warmup=1),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        bwd_macs=ssd_bwd_macs(B, S, H, P, G, N, Q),
+        max_abs_err=max(compare(g, w, f32, SSD_TOL)[0] for g, w in zip(
+            kernel(), ssd_chunked_bwd(*args, dy, chunk=Q))),
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="ssd_bwd", timings={
+        summary["ssd_bwd"]["shape"]: summary["ssd_bwd"]})
+
+    # ---- RG-LRU backward: recurrentgemma-9b's shape, a short and a ragged
+    # sequence, with h0 and a gradient of h_last
+    for dtype in (f32, torch.bfloat16):
+        for B, S, W in ((4, 512, 4096), (2, 37, 200), (3, 1000, 130)):
+            la = -F.softplus(randn(B, S, W)).to(dtype)
+            gx, dy = randn(B, S, W, dtype=dtype), randn(B, S, W, dtype=dtype)
+            h0, dh = randn(B, W), randn(B, W)
+            got = rglru_bwd_cuda(la, gx, dy, h0, dh)
+            again = rglru_bwd_cuda(la, gx, dy, h0, dh)
+            want = rglru_bwd(la, gx, dy, h0, dh)
+            errs = [compare(g, w, dtype, RGLRU_TOL)
+                    for g, w in zip(got, want)]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            cases.append(dict(kernel="rglru_bwd", body="serial",
+                              dtype=str(dtype), B=B, S=S, W=W,
+                              max_abs_err=max(e for e, _ in errs),
+                              tol=RGLRU_TOL[dtype], deterministic=same,
+                              ok=all(ok for _, ok in errs) and same))
+    la = -F.softplus(randn(2, 300, 64))
+    gx, dy = randn(2, 300, 64), randn(2, 300, 64)
+    leaves = [la.clone().requires_grad_(), gx.clone().requires_grad_()]
+    before = rglru_bwd_cuda.launches
+    (ops.rglru_scan(*leaves)[0] * dy).sum().backward()
+    errs = [compare(t.grad, w, f32, RGLRU_TOL) for t, w in zip(
+        leaves, rglru_bwd(la, gx, dy))]
+    cases.append(dict(kernel="rglru_bwd", body="serial",
+                      through="RGLRUFunction", dtype=str(f32), B=2, S=300,
+                      W=64, max_abs_err=max(e for e, _ in errs),
+                      tol=RGLRU_TOL[f32], ok=all(ok for _, ok in errs)
+                      and rglru_bwd_cuda.launches == before + 1))
+
+    B, S, W = 4, 512, 4096
+    la = -F.softplus(randn(B, S, W))
+    gx, dy = randn(B, S, W), randn(B, S, W)
+    # bytes: log_a, gx, dy read once, d log_a and d gx written once; about
+    # 30 operations an element (recompute and reverse step)
+    t_bound, by = bound(5 * la.nbytes, 30 * la.numel(), f32)
+    kernel = lambda: rglru_bwd_cuda(la, gx, dy)  # noqa: E731
+    mark = len(PROFILER_WINDOWS)
+    summary["rglru_bwd"] = dict(
+        name="rglru_bwd", route="cuda",
+        source="src/repro_torch/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru/kernel.py:50 (its gradient: JAX "
+                 "differentiates the jnp reference)",
+        shape=f"log_a, gx, dy ({B},{S},{W}) fp32, no h0 (the "
+              "recurrentgemma-9b step)",
+        body="serial", ms=device_ms(kernel), event_ms=time_ms(kernel),
+        plain_ms=device_ms(lambda: rglru_bwd(la, gx, dy), iters=3,
+                           warmup=1),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        max_abs_err=max(compare(g, w, f32, RGLRU_TOL)[0] for g, w in zip(
+            kernel()[:2], rglru_bwd(la, gx, dy)[:2])),
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="rglru_bwd", timings={
+        summary["rglru_bwd"]["shape"]: summary["rglru_bwd"]})
 
 
 def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
@@ -1149,34 +1422,29 @@ def _lm_example():
     return train_lm_torch
 
 
-def phase_train_check(dev, seed, layers: int = 2):
-    """One train step of the 100m preset at ``layers`` layers, fp32, on the
-    card (CUDA kernels forward and backward) against the same step of the
-    port on the CPU (plain versions, autograd): the same weights (drawn on
-    the CPU from the seed, copied to both) and the same ``SyntheticLM``
-    batch.  The loss and every gradient leaf within ``TRAIN_REL`` of the
-    leaf's largest value; AdamW on the card applied to the CPU's gradients
-    lands on the CPU's parameters within 1e-6 of the largest; the card's
-    own updated parameters within 2 lr of the CPU's (AdamW's g / (|g| +
-    eps) turns a gradient difference near eps into a whole step), with
-    their largest difference printed."""
+def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
+    """One train step of ``cfg`` (fp32) on the card (CUDA kernels forward
+    and backward) against the same step of the port on the CPU (plain
+    versions, autograd): the same weights (drawn on the CPU from the seed,
+    copied to both) and the same ``SyntheticLM`` batch.  The loss and every
+    gradient leaf within ``TRAIN_REL`` of the leaf's largest value; AdamW on
+    the card applied to the CPU's gradients lands on the CPU's parameters
+    within 1e-6 of the largest; the card's own updated parameters within 2
+    lr of the CPU's (AdamW's g / (|g| + eps) turns a gradient difference
+    near eps into a whole step), with their largest difference printed.
+    ``label`` goes into the line."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_update, init_opt_state
     from repro_torch.train.steps import make_loss_and_grad, make_train_step
-    ex = _lm_example()
-    p = ex.PRESETS["100m"]
-    cfg = ex.preset_config("100m", num_layers=layers)
-    tc = ex.train_config()
     params = init_params(cfg, device="cpu", dtype=torch.float32,
                          generator=torch.Generator().manual_seed(seed))
-    batch = next(iter(SyntheticLM(cfg, batch=p["batch"], seq_len=p["seq"],
-                                  seed=seed)))
+    data = next(iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed)))
     lr = torch.tensor(1e-3)
     out = {}
     for d in ("cpu", dev):
         prm = _to(params, d)
-        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        b = {k: torch.from_numpy(v).to(d) for k, v in data.items()}
         t0 = time.monotonic()
         total, _, grads = make_loss_and_grad(cfg, tc)(prm, b)
         new_p, _, _ = make_train_step(cfg, tc)(prm, init_opt_state(prm), b,
@@ -1189,28 +1457,55 @@ def phase_train_check(dev, seed, layers: int = 2):
     on_cpu_grads, _, _ = adamw_update(_to(cpu["grads"], dev),
                                       init_opt_state(p_card), p_card, lr)
 
+    # (recurrentgemma at 2 layers stacks no superblock: its leaves are empty)
+    def pairs(a, b):
+        return [(x, y) for x, y in zip(_leaves(a), _leaves(b)) if y.numel()]
+
     def rel(a, b):
         return max(float((x - y).abs().max()) / max(float(y.abs().max()),
                                                      1e-30)
-                   for x, y in zip(_leaves(a), _leaves(b)))
+                   for x, y in pairs(a, b))
 
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     grad_rel = rel(card["grads"], cpu["grads"])
     adamw_rel = rel(_to(on_cpu_grads, "cpu"), cpu["new"])
-    param_abs = max(float((x - y).abs().max()) for x, y in
-                    zip(_leaves(card["new"]), _leaves(cpu["new"])))
-    emit("train_check", preset="100m", layers=layers, dtype="float32",
-         batch=p["batch"], seq=p["seq"], loss_cpu=cpu["loss"],
-         loss_card=card["loss"], loss_rel_err=loss_rel,
+    param_abs = max(float((x - y).abs().max())
+                    for x, y in pairs(card["new"], cpu["new"]))
+    emit("train_check", **label, layers=cfg.num_layers, d_model=cfg.d_model,
+         params=cfg.param_count(), dtype="float32", batch=batch, seq=seq,
+         loss_cpu=cpu["loss"], loss_card=card["loss"], loss_rel_err=loss_rel,
          grad_max_rel_err=grad_rel, adamw_on_cpu_grads_rel_err=adamw_rel,
          param_max_abs_err=param_abs, param_bound=2 * float(lr),
          param_rel_err=rel(card["new"], cpu["new"]), tol=TRAIN_REL,
          cpu_s=cpu["s"], card_s=card["s"])
     check(loss_rel < TRAIN_REL and grad_rel < TRAIN_REL and adamw_rel < 1e-6
           and param_abs <= 2 * float(lr),
-          f"train_check: loss {loss_rel}, grads {grad_rel}, adamw "
+          f"train_check {label}: loss {loss_rel}, grads {grad_rel}, adamw "
           f"{adamw_rel}, params {param_abs} (limits {TRAIN_REL}, 1e-6, "
           f"{2 * float(lr)})")
+
+
+# recurrentgemma-9b's width for the card-against-CPU step: the full-width
+# step (1.45 B parameters) is too slow on the CPU
+RGEMMA_CHECK_WIDTH = dict(d_model=1024, lru_width=1024, d_ff=3072)
+
+
+def train_checks(dev, seed):
+    """``phase_train_check`` of the 100m preset at 2 layers (its own batch,
+    16 x 256, and the example's step settings), and of mamba2-130m (full
+    width) and recurrentgemma-9b (``RGEMMA_CHECK_WIDTH``) at 2 layers,
+    batch 2 x 256 (two 128-token SSD chunks), ``TrainConfig(float32)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.steps import TrainConfig
+    ex = _lm_example()
+    p = ex.PRESETS["100m"]
+    phase_train_check(dev, seed, ex.preset_config("100m", num_layers=2),
+                      ex.train_config(), p["batch"], p["seq"], preset="100m")
+    for arch, narrowed in (("mamba2-130m", {}),
+                           ("recurrentgemma-9b", RGEMMA_CHECK_WIDTH)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, **narrowed)
+        phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
+                          2, 256, arch=arch, narrowed=narrowed)
 
 
 def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
@@ -1230,9 +1525,7 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
 
     from repro_torch.data import Prefetcher, SyntheticLM
     from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.rglru import kernel as lru
     from repro_torch.kernels.rmsnorm import kernel as rms
-    from repro_torch.kernels.ssd import kernel as ssd
     from repro_torch.train.loop import LoopConfig, Trainer, run_with_restarts
     ex = _lm_example()
     p = ex.PRESETS["100m"]
@@ -1272,19 +1565,12 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for module in (flash, rms, lru, ssd):
-            module.reset_counts()
+        _reset_launches()
         t0 = time.monotonic()
         run_with_restarts(lambda: factory(fs, steps, ckpt_every),
                           max_restarts=0)
         wall_s = time.monotonic() - t0
-        launches = {
-            "rmsnorm": (rms.rmsnorm_cuda.launches,
-                        rms.rmsnorm_bwd_cuda.launches),
-            "flash_attention": (flash.flash_attention_cuda.launches,
-                                flash.flash_attention_bwd_cuda.launches),
-            "rglru": (lru.rglru_cuda.launches, 0),
-            "ssd": (ssd.ssd_cuda.launches, 0)}
+        launches = _count_launches()
         by_body = {"rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
                    "rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
                    "flash_attention": dict(
@@ -1398,7 +1684,232 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
           and math.isfinite(crash_metrics["loss"]),
           f"train: the failed run resumed at {resumed}, expected "
           f"[0, {2 * ckpt_every}]")
-    return {k: f + b for k, (f, b) in launches.items()}, launches
+    return launches
+
+
+def _count_launches():
+    """(forward, backward) launches of every kernel, by name."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as lru
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd import kernel as ssd
+    return {"rmsnorm": (rms.rmsnorm_cuda.launches,
+                        rms.rmsnorm_bwd_cuda.launches),
+            "flash_attention": (flash.flash_attention_cuda.launches,
+                                flash.flash_attention_bwd_cuda.launches),
+            "rglru": (lru.rglru_cuda.launches, lru.rglru_bwd_cuda.launches),
+            "ssd": (ssd.ssd_cuda.launches, ssd.ssd_bwd_cuda.launches)}
+
+
+def _reset_launches():
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as lru
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd import kernel as ssd
+    for module in (flash, rms, lru, ssd):
+        module.reset_counts()
+
+
+def train_bounds(cfg, batch: int, seq: int) -> dict:
+    """Least step time and memory of an fp32 train step of ``cfg``: the
+    FLOPs of ``model_flops`` plus the tied unembedding's matmuls, which it
+    leaves out (3 x 2 x tokens x V x d_model), plus the SSD scans
+    (forward ``ssd_macs`` and backward ``ssd_bwd_macs``, 2 FLOPs a
+    multiply-add, each SSD layer) over the fp32 rate; 16 B a parameter
+    (fp32 weights, gradients and both moments)."""
+    tokens = batch * seq
+    flops = cfg.model_flops(tokens, training=True, seq_len=seq)
+    if cfg.tie_embeddings:
+        flops += 6 * tokens * cfg.vocab_size * cfg.d_model
+    shape = (batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+             cfg.ssm_state, cfg.ssm_chunk)
+    n_ssd = cfg._layer_kinds().count("ssd")
+    if n_ssd:
+        flops += n_ssd * 2 * (ssd_macs(*shape) + ssd_bwd_macs(*shape))
+    return dict(step_bound_ms=flops / PEAK_OPS_PER_S[torch.float32] * 1e3,
+                step_flops=flops, peak_mem_bound_bytes=16 * cfg.param_count())
+
+
+def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
+    """mamba2-130m at full width and depth (24 SSD layers, fp32) through the
+    port's launcher, as a user runs it:
+
+        python -m repro_torch.launch.train --arch mamba2-130m --steps 100 \
+            --batch 8 --seq 1024 --ckpt-every 25 --io-latency-ms 1
+
+    in a directory under ``build/`` (removed at the end), its Trainer
+    recording each step's loss and time.  Every kernel count is reset just
+    before and read just after: 24 SSD launches a step each way and 2L + 1
+    = 49 RMSNorm launches (norm1 and the gated norm of each layer, the final
+    norm) each way.  The loss falls (the mean of the last 10 steps below
+    that of the first 10), every step is finite, the 4 checkpoints commit,
+    and a Trainer on the same directory restores the last step bit for
+    bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CannyFS, LocalBackend
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.loop import LoopConfig, Trainer
+    cfg = get_config("mamba2-130m")
+    (ROOT / "build").mkdir(exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mamba2_", dir=ROOT / "build")
+    step_ms, losses, trainers = [], [], []
+
+    class Recorded(Trainer):
+        """The launcher's Trainer; each step's loss, and its time on the
+        card from a synchronize before to one after."""
+        def init_state(self, sample_batch):
+            super().init_state(sample_batch)
+            trainers.append(self)
+            step_fn = self.step_fn
+
+            def recorded(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(*args)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(out[2]["loss"]))
+                return out
+            self.step_fn = recorded
+
+    argv = ["--arch", "mamba2-130m", "--steps", str(steps), "--batch", "8",
+            "--seq", "1024", "--ckpt-every", str(ckpt_every),
+            "--io-latency-ms", "1", "--workdir", workdir, "--device", str(dev)]
+    launcher.Trainer = Recorded
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.monotonic()
+        launcher.main(argv)
+        wall_s = time.monotonic() - t0
+        launches = _count_launches()
+        from repro_torch.kernels.rmsnorm import kernel as rms
+        from repro_torch.kernels.ssd import kernel as ssd
+        by_body = {"ssd": dict(ssd.ssd_cuda.launches_by_body),
+                   "ssd_bwd": dict(ssd.ssd_bwd_cuda.launches_by_body),
+                   "rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
+                   "rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body)}
+        peak = torch.cuda.max_memory_allocated()
+        trainer = trainers[0]
+        results = trainer.ckpt.results
+        saved = {"params": trainer.state["params"],
+                 "opt": trainer.state["opt"]}
+        # a Trainer on the same directory restores the last commit
+        fs = CannyFS(LocalBackend(workdir), max_inflight=4000, workers=32)
+        second = Trainer(cfg, fs, iter(()), lc=LoopConfig(total_steps=steps),
+                         device=dev)
+        second.init_state(None)
+        identical = second.step == steps and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                _leaves(saved), _leaves({"params": second.state["params"],
+                                         "opt": second.state["opt"]})))
+        fs.close()
+        del trainer, saved, second, trainers[:]
+    finally:
+        launcher.Trainer = Trainer
+        shutil.rmtree(workdir, ignore_errors=True)
+    L = cfg.num_layers
+    want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
+            "flash_attention": (0, 0), "rglru": (0, 0),
+            "ssd": (L * steps,) * 2}
+    warm = step_ms[5:]
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    emit("train_mamba2", arch=cfg.name, layers=L, d_model=cfg.d_model,
+         params=cfg.param_count(), dtype="float32", batch=8, seq=1024,
+         steps=steps, ckpt_every=ckpt_every, io_latency_ms=1.0,
+         wall_s=wall_s, loss_first=losses[0], loss_last=losses[-1],
+         loss_mean_first10=first, loss_mean_last10=last,
+         loss_every_10=losses[::10], ln_vocab=math.log(cfg.vocab_size),
+         step_ms_median=statistics.median(warm), step_ms_min=min(warm),
+         step_ms_max=max(warm), peak_mem_bytes=peak,
+         **train_bounds(cfg, 8, 1024),
+         ckpt_ack_s=[r.ack_s for r in results],
+         ckpt_ok=[r.ok for r in results],
+         ckpt_commit_s=[r.commit_s for r in results],
+         ckpt_bytes=[r.bytes for r in results],
+         restored_bit_identical=identical,
+         launches={k: dict(forward=f, backward=b)
+                   for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want.items()},
+         launches_by_body=by_body)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and last < first,
+          f"train_mamba2: {len(losses)} steps, loss mean {first} -> {last}")
+    check(launches == want, f"train_mamba2: launches {launches}, expected "
+          f"{want}")
+    want_saves = list(range(ckpt_every, steps + 1, ckpt_every))
+    check([r.step for r in results] == want_saves
+          and all(r.ok for r in results),
+          f"train_mamba2: checkpoints {[(r.step, r.ok) for r in results]}, "
+          f"expected steps {want_saves}")
+    check(identical, "train_mamba2: the restored step differs from the "
+          "saved one")
+    return launches
+
+
+def phase_train_rgemma_2l(dev, seed, steps: int = 10, batch: int = 4,
+                          seq: int = 512, lr: float = 3e-4):
+    """recurrentgemma-9b at full width (d_model 4096, lru_width 4096, GeGLU
+    d_ff 12288, vocabulary 256000, tied, logit softcap 30) cut to 2 layers,
+    (rglru, rglru): the third layer of its pattern is local attention at head
+    dim 256, whose backward is not ported yet (ROADMAP.md Queue 2 item 2).
+    ``steps`` fp32 steps of ``make_train_step`` on ``SyntheticLM`` batches,
+    no checkpoint: the loss finite at every step, 2 RG-LRU and 2L + 1 = 5
+    RMSNorm launches a step each way."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, TrainConfig(dtype=torch.float32))
+    data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed))
+    losses, step_ms = [], []
+    _reset_launches()
+    for _ in range(steps):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b, torch.tensor(lr))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = _count_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    L = cfg.num_layers
+    want = {"rmsnorm": ((2 * L + 1) * steps,) * 2, "flash_attention": (0, 0),
+            "rglru": (L * steps,) * 2, "ssd": (0, 0)}
+    emit("train_rgemma_2l", arch=cfg.name, layers=L,
+         reduced="num_layers 38 -> 2: layer 3 is attn_local at head dim "
+                 "256, whose backward raises (ROADMAP.md Queue 2 item 2)",
+         d_model=cfg.d_model, lru_width=cfg.resolved_lru_width,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=cfg.param_count(),
+         dtype="float32", batch=batch, seq=seq, steps=steps, lr=lr,
+         losses=losses, step_ms_median=statistics.median(step_ms[2:]),
+         step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+         peak_mem_bytes=peak, **train_bounds(cfg, batch, seq),
+         launches={k: dict(forward=f, backward=b)
+                   for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want.items()})
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"train_rgemma_2l: losses {losses}")
+    check(launches == want, f"train_rgemma_2l: launches {launches}, "
+          f"expected {want}")
+    return launches
 
 
 def _to(tree, dev):
@@ -1501,15 +2012,21 @@ def main() -> int:
         del served          # free this model's weights before the next one
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_check(dev, args.seed)
-    _, train_launches = phase_train(dev, args.seed)
+    train_checks(dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = {"train-100m": phase_train(dev, args.seed)}
+    train["train-mamba2"] = phase_train_mamba2(dev, args.seed)
+    train["train-rgemma-2l"] = phase_train_rgemma_2l(dev, args.seed)
     for name, entry in summary.items():
         if name.endswith("_bwd"):
-            entry["launches"] = train_launches[name[:-len("_bwd")]][1]
-            entry["launches_by_path"] = {"train-100m": entry["launches"]}
+            entry["launches_by_path"] = {
+                path: n[name[:-len("_bwd")]][1] for path, n in train.items()}
+            entry["launches"] = sum(entry["launches_by_path"].values())
             continue
         entry["launches_by_path"] = {a: n[name] for a, n in launches.items()}
-        entry["launches_by_path"]["train-100m"] = train_launches[name][0]
+        entry["launches_by_path"].update(
+            {path: n[name][0] for path, n in train.items()})
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry["launches_by_body"] = {
             body: sum(b[name][body] for b in by_body.values())

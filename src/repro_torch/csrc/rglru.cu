@@ -47,6 +47,24 @@
 // L = kSegmentSteps = 16 (64 registers a thread, two 512-thread blocks an
 // SM) was the fastest of 8, 16 and 32 on the card (PERF.md); at 32 a
 // thread needs 112 registers and one block fills an SM.
+//
+// The backward (entry rglru_bwd; both dtypes, every S): the gradients of y
+// and h_last by the reverse scan
+//
+//   dh_t = dy_t + a_{t+1} dh_{t+1}   (from dh_last, or 0)
+//   d gx_t = beta_t dh_t,   d la_t = dh_t (a_t h_{t-1} - gx_t exp(2 la_t) / beta_t)
+//   dh0 = a_1 dh_1
+//
+// with no gradient through beta where its clamp holds (1 - exp(2 la) below
+// 1e-12), which is rglru_bwd (src/repro_torch/kernels/rglru/ref.py).  The TPU
+// package has no backward kernel: JAX differentiates the jnp reference.  A
+// thread owns one (b, w) channel: it walks the sequence forward once,
+// recomputing h in fp32 with the reference's roundings and saving the state
+// entering every kBwdSegment-step segment (workspace (B, nseg, W) fp32, a
+// sixteenth of the inputs), then walks the segments in reverse: it loads a
+// segment's la, gx and dy at once, recomputes the segment's states from its
+// saved one in registers, and runs the reverse recurrence over them.  So
+// la and gx are read twice, dy once, and d la and d gx written once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -188,6 +206,108 @@ int launch_segmented(const void* la, const void* gx, const void* h0, void* y, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kBwdThreads = 64;   // channels per block of the backward
+constexpr int kBwdSegment = 16;   // steps between the states the backward saves
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    rglru_bwd_kernel(const T* __restrict__ la, const T* __restrict__ gx,
+                     const T* __restrict__ dy, const float* __restrict__ h0,
+                     const float* __restrict__ dh_last, float* h_saved, T* __restrict__ dla,
+                     T* __restrict__ dgx, float* __restrict__ dh0, int S, int W) {
+  constexpr int L = kBwdSegment;
+  const int w = blockIdx.x * kBwdThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  if (w >= W) return;
+  const long long chan = static_cast<long long>(b) * W + w;
+  const long long base = static_cast<long long>(b) * S * W + w;
+  const int nseg = (S + L - 1) / L;
+  float* hs = h_saved + static_cast<long long>(b) * nseg * W + w;  // (B, nseg, W)
+
+  // forward: h from h0, the state entering each segment saved
+  float h = h0 != nullptr ? h0[chan] : 0.f;
+  for (int k = 0; k < nseg; ++k) {
+    hs[static_cast<long long>(k) * W] = h;
+    float a[L], x[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      const int t = k * L + i;
+      a[i] = 0.f;
+      x[i] = 0.f;
+      if (t < S) {
+        const long long o = base + static_cast<long long>(t) * W;
+        a[i] = to_f32(la[o]);
+        x[i] = to_f32(gx[o]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      if (k * L + i < S) {
+        const float beta = sqrtf(fmaxf(1.f - expf(2.f * a[i]), 1e-12f));
+        h = __fadd_rn(__fmul_rn(expf(a[i]), h), __fmul_rn(beta, x[i]));
+      }
+    }
+  }
+
+  // reverse, a segment at a time
+  float carry = dh_last != nullptr ? dh_last[chan] : 0.f;  // a_{t+1} dh_{t+1}
+  for (int k = nseg - 1; k >= 0; --k) {
+    float a[L], x[L], g[L], hp[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      const int t = k * L + i;
+      a[i] = 0.f;
+      x[i] = 0.f;
+      g[i] = 0.f;
+      if (t < S) {
+        const long long o = base + static_cast<long long>(t) * W;
+        a[i] = to_f32(la[o]);
+        x[i] = to_f32(gx[o]);
+        g[i] = to_f32(dy[o]);
+      }
+    }
+    float hh = hs[static_cast<long long>(k) * W];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      hp[i] = hh;  // h_{t-1}
+      if (k * L + i < S) {
+        const float beta = sqrtf(fmaxf(1.f - expf(2.f * a[i]), 1e-12f));
+        hh = __fadd_rn(__fmul_rn(expf(a[i]), hh), __fmul_rn(beta, x[i]));
+      }
+    }
+#pragma unroll
+    for (int i = L - 1; i >= 0; --i) {
+      const int t = k * L + i;
+      if (t < S) {
+        const float e2 = expf(2.f * a[i]);
+        const float v = 1.f - e2;
+        const float beta = sqrtf(fmaxf(v, 1e-12f));
+        const float dbeta = v >= 1e-12f ? -e2 / beta : 0.f;
+        const float at = expf(a[i]);
+        const float gt = g[i] + carry;
+        const long long o = base + static_cast<long long>(t) * W;
+        dgx[o] = from_f32<T>(beta * gt);
+        dla[o] = from_f32<T>(gt * (at * hp[i] + x[i] * dbeta));
+        carry = at * gt;
+      }
+    }
+  }
+  if (dh0 != nullptr) dh0[chan] = carry;
+}
+
+template <typename T>
+int launch_bwd(const void* la, const void* gx, const void* dy, const void* h0,
+               const void* dh_last, void* h_saved, void* dla, void* dgx, void* dh0, int B, int S,
+               int W, cudaStream_t stream) {
+  const dim3 grid((W + kBwdThreads - 1) / kBwdThreads, B);
+  rglru_bwd_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(la), static_cast<const T*>(gx), static_cast<const T*>(dy),
+      static_cast<const float*>(h0), static_cast<const float*>(dh_last),
+      static_cast<float*>(h_saved), static_cast<T*>(dla), static_cast<T*>(dgx),
+      static_cast<float*>(dh0), S, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The serial body.  la, gx and y (B,S,W) contiguous, of one type; h0 (B,W)
@@ -210,6 +330,25 @@ extern "C" int rglru_fwd_segmented(const void* la, const void* gx, const void* h
   switch (dtype) {
     case 0: return launch_segmented<float>(la, gx, h0, y, h_last, B, S, W, st);
     case 1: return launch_segmented<__nv_bfloat16>(la, gx, h0, y, h_last, B, S, W, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward.  la, gx, dy, dla, dgx (B,S,W) contiguous, of one type; h0,
+// dh_last, dh0 (B,W) float32 or null (dh0 is written when given); h_saved
+// the float32 workspace (B, ceil(S / 16), W).  S >= 1.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int rglru_bwd(const void* la, const void* gx, const void* dy, const void* h0,
+                         const void* dh_last, void* h_saved, void* dla, void* dgx, void* dh0,
+                         int B, int S, int W, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || W <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd<float>(la, gx, dy, h0, dh_last, h_saved, dla, dgx, dh0, B, S, W, st);
+    case 1:
+      return launch_bwd<__nv_bfloat16>(la, gx, dy, h0, dh_last, h_saved, dla, dgx, dh0, B, S, W,
+                                       st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

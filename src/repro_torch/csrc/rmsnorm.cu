@@ -52,9 +52,11 @@
 //     kernel, one CTA of 32 warps per 32-column slab, sums the partial
 //     rows: warp j takes rows j, j + 32, ... in turn, then a pairwise tree
 //     over the 32 warps.  Every sum has a fixed order (no atomics, the same
-//     bits on every run); the tree keeps dscale within 2e-5 where a plain
-//     running sum over 4096 rows does not (kernels/rmsnorm/ref.py:
-//     rmsnorm_dscale_ordered models the order).
+//     bits on every run) and is taken in fp64 (each term dy * x^ of two
+//     floats is exact there), rounded once at the end: in fp32 that order
+//     kept dscale within 2e-5 at 4096 rows but not at 8192, the mamba2-130m
+//     step's rows (kernels/rmsnorm/ref.py: rmsnorm_dscale_ordered models
+//     the order).
 //   * generic (any other row): a 256-thread CTA owns a contiguous run of
 //     rows: for each it reduces sum(x^2) and sum(g*x) through shared memory,
 //     writes the row of dx, and adds dy * x^ into its own row of an fp32
@@ -437,15 +439,15 @@ __host__ __device__ __forceinline__ int scale_bytes(int D, int size) {
 }
 
 // Rows [w * rows_per_warp, (w + 1) * rows_per_warp) of dx for each warp w
-// of the grid, and this CTA's row of `partial` (D floats): the pairwise sum
-// of its warps' sums of dy * x^ over their rows.
+// of the grid, and this CTA's row of `partial` (D doubles): the pairwise
+// sum of its warps' sums of dy * x^ over their rows, all in fp64.
 template <typename T, typename S, int VPL>
 __global__ void __launch_bounds__(kBwdRowWarps * 32)
 rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
                         const T* __restrict__ dy, T* __restrict__ dx,
-                        float* __restrict__ partial, long long rows, int D, float eps,
+                        double* __restrict__ partial, long long rows, int D, float eps,
                         int rows_per_warp) {
-  extern __shared__ uint4 s_bwd[];  // scale (D values of S), then 4 x D floats
+  extern __shared__ uint4 s_bwd[];  // scale (D values of S), then 4 x D doubles
   constexpr int N = Vec<T>::N;
   const int nvec = D / N;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -459,11 +461,11 @@ rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   __syncthreads();
   const S* sc = reinterpret_cast<const S*>(s_bwd);
 
-  float part[VPL][N];
+  double part[VPL][N];
 #pragma unroll
   for (int i = 0; i < VPL; ++i)
 #pragma unroll
-    for (int e = 0; e < N; ++e) part[i][e] = 0.f;
+    for (int e = 0; e < N; ++e) part[i][e] = 0.0;
 
   for (long long r = r0; r < r1; ++r) {
     const uint4* xr = reinterpret_cast<const uint4*>(x + r * D);
@@ -514,15 +516,15 @@ rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
       for (int e = 0; e < N; ++e) {
         const float xh = xf[e] * rstd;
         out[e] = rstd * (df[e] * s[e] - xh * mean_gx);
-        part[i][e] = fmaf(df[e], xh, part[i][e]);
+        part[i][e] = fma(static_cast<double>(df[e]), static_cast<double>(xh), part[i][e]);
       }
       dxr[c] = pack<T>(out);
     }
   }
 
   // the CTA's 4 warps' sums, added as a pairwise tree: (w0 + w2) + (w1 + w3)
-  float* s_part = reinterpret_cast<float*>(reinterpret_cast<char*>(s_bwd) +
-                                           scale_bytes(D, sizeof(S)));
+  double* s_part = reinterpret_cast<double*>(reinterpret_cast<char*>(s_bwd) +
+                                             scale_bytes(D, sizeof(S)));
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = lane + 32 * i;
@@ -531,49 +533,47 @@ rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
     for (int e = 0; e < N; ++e) s_part[warp * D + c * N + e] = part[i][e];
   }
   __syncthreads();
-  float* out = partial + static_cast<long long>(blockIdx.x) * D;
+  double* out = partial + static_cast<long long>(blockIdx.x) * D;
   for (int c = threadIdx.x; c < D; c += blockDim.x)
     out[c] = (s_part[c] + s_part[2 * D + c]) + (s_part[D + c] + s_part[3 * D + c]);
 }
 
-// dscale[c] = the sum of the `ctas` partial rows: warp j of the CTA of
-// column slab c / 32 adds rows j, j + 32, ... in turn, then the 32 warps'
-// sums are added as a pairwise tree.
+// dscale[c] = the sum of the `ctas` partial rows, in fp64, rounded once:
+// warp j of the CTA of column slab c / 32 adds rows j, j + 32, ... in turn,
+// then the 32 warps' sums are added as a pairwise tree.
 template <typename S>
 __global__ void __launch_bounds__(kReduceWarps * 32)
-rmsnorm_dscale_tree_kernel(const float* __restrict__ partial, S* __restrict__ dscale, int ctas,
+rmsnorm_dscale_tree_kernel(const double* __restrict__ partial, S* __restrict__ dscale, int ctas,
                            int D) {
-  __shared__ float sums[kReduceWarps][33];
+  __shared__ double sums[kReduceWarps][33];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = blockIdx.x * 32 + lane;
-  float s = 0.f;
+  double s = 0.0;
   if (c < D)
     for (int i = warp; i < ctas; i += kReduceWarps) s += partial[static_cast<long long>(i) * D + c];
   sums[warp][lane] = s;
   __syncthreads();
-  if (warp != 0) return;
-  float v[kReduceWarps];
+  // the tree in shared memory, a level a barrier: sums[w] += sums[w + half]
 #pragma unroll
-  for (int w = 0; w < kReduceWarps; ++w) v[w] = sums[w][lane];
-#pragma unroll
-  for (int half = kReduceWarps / 2; half > 0; half >>= 1)
-#pragma unroll
-    for (int w = 0; w < half; ++w) v[w] += v[w + half];
-  if (c < D) dscale[c] = from_f<S>(v[0]);
+  for (int half = kReduceWarps / 2; half > 0; half >>= 1) {
+    if (warp < half) sums[warp][lane] += sums[warp + half][lane];
+    __syncthreads();
+  }
+  if (warp == 0 && c < D) dscale[c] = from_f<S>(static_cast<float>(sums[0][lane]));
 }
 
 template <typename T, typename S, int VPL>
 int launch_bwd_rows(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
                     void* partial, long long rows, int D, float eps, int rows_per_warp,
                     int ctas, cudaStream_t stream) {
-  const size_t smem = scale_bytes(D, sizeof(S)) + sizeof(float) * kBwdRowWarps * D;
+  const size_t smem = scale_bytes(D, sizeof(S)) + sizeof(double) * kBwdRowWarps * D;
   rmsnorm_bwd_rows_kernel<T, S, VPL><<<ctas, kBwdRowWarps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
-      static_cast<T*>(dx), static_cast<float*>(partial), rows, D, eps, rows_per_warp);
+      static_cast<T*>(dx), static_cast<double*>(partial), rows, D, eps, rows_per_warp);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rmsnorm_dscale_tree_kernel<S><<<(D + 31) / 32, kReduceWarps * 32, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<S*>(dscale), ctas, D);
+      static_cast<const double*>(partial), static_cast<S*>(dscale), ctas, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,7 +652,7 @@ extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, voi
 // The backward's warp_rows body, on the inputs of rmsnorm_bwd: rows of
 // 16-byte vectors of x, dy, dx and scale, vectors_per_lane one of 1, 2, 4, 8
 // (at most 32 floats a lane) covering the row; ctas CTAs of 4 warps, each
-// warp rows_per_warp rows (they must cover the rows).  `partial` is fp32
+// warp rows_per_warp rows (they must cover the rows).  `partial` is fp64
 // scratch of ctas x D.  Returns cudaErrorInvalidValue on anything else,
 // else cudaGetLastError() after the launches.
 extern "C" int rmsnorm_bwd_rows(const void* x, const void* scale, const void* dy, void* dx,

@@ -94,6 +94,49 @@
 // carries much more than the mean; every lane's shared addresses are computed
 // once; the chunk states scale and split w o x as each warp reads its A
 // fragments.
+//
+// The backward (entry ssd_bwd; float32 and bfloat16 inputs, fp32 on the FMA
+// units): the gradients dx, ddt, dA, dB, dC, dD of y and of the final state
+// (ssd_chunked_bwd, src/repro_torch/kernels/ssd/ref.py, in the same phases).
+// The TPU package has no backward kernel: JAX differentiates the jnp
+// reference.  Six launches on one stream through an fp32 workspace
+// (ssd_bwd_workspace_floats):
+//   1. ssd_bwd_state_kernel, a block a (chunk, head, batch): the chunk's cum,
+//      its local end state sum_j exp(total - cum_j) dt_j x_j B_j^T and
+//      E = sum_i exp(cum_i) dy_i C_i^T, the gradient its outputs send to the
+//      state entering it.  The forward writes no workspace, so the backward
+//      recomputes the chunk states here (each is as costly as one of E) rather
+//      than have the forward keep them (12.6 MB a layer at mamba2-130m's train
+//      shape, for every layer until its backward).
+//   2. ssd_state_pass_kernel (the mma body's): the state entering each chunk.
+//   3. ssd_bwd_state_pass_kernel, in reverse: the gradient of each chunk's
+//      local state, G_c+1 with G_nc = d_state (or 0) and
+//      G_c = exp(total_c) G_c+1 + E_c.
+//   4. ssd_bwd_chunk_kernel, a block a (chunk, head, batch): C B^T and dy x^T
+//      on and below the diagonal in 4 x 4 register tiles; the scores M, their
+//      gradient d(C B^T) and R = dM o M to a per-block scratch in device
+//      memory, where the block reads them back (C, B, x and dy fill its
+//      shared memory); then dx, and per head dB and dC, as tiles each one
+//      thread owns; the sums that cross the tiles are kept as per-tile parts
+//      and added in a fixed order.  d(dt A)_t, the reverse cumsum of d cum
+//      plus the gradient of the chunk's total (its decay in the state pass
+//      and the weights exp(total - cum_j) of its local state), is taken in
+//      the form whose large terms do not cancel: sum_{i >= t, j < t} R_ij
+//      + sum_{i >= t} exp(cum_i) dy_i . (C state_in^T)_i + sum_{i < t} w_i dw_i
+//      + exp(total) <dstate, state_in> (ssd_chunk_scan_bwd).  Each chunk's
+//      parts of dA and dD are summed over its tokens as a pairwise tree.
+//   cum is summed in double and rounded once (as the plain version's
+//   torch.cumsum accumulates): its fp32 Hillis-Steele sum cost exp(cum_i -
+//   cum_j) about 1e-5 of relative error at |cum| near 100.
+//   5. ssd_bwd_group_kernel: dB and dC summed over each group's heads in
+//      order, in the inputs' type.
+//   6. ssd_bwd_param_kernel: dA and dD over the batch and the chunks: a lane
+//      sums every 256th chunk in turn, then a pairwise tree over the lanes
+//      (ssd_sum_ordered).
+// No atomics: every sum has one owner and a fixed order, so a second call
+// gives the same bits.  exp(cum_i - cum_j) is evaluated only for i >= j.  The
+// ragged last chunk is padded with dt = x = B = C = dy = 0 and nothing is
+// written past S.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -959,6 +1002,570 @@ int launch_chunk_scan(const void* x, const void* dt, const void* Bm, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// backward: float32 and bfloat16 inputs, fp32 products on the FMA units
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdVecs = 8;                // vectors of kMaxQ floats a chunk block keeps
+constexpr int kBwdMaxSmemBytes = 232448;   // the most a block may have (227 KB)
+constexpr int kBwdLanes = 256;             // lanes of the dA / dD sum over the chunks
+
+// a chunk block's shared memory: C, B (Qp x (N + 4)), x, dy (Qp x (P + 4)) in
+// fp32, kBwdVecs vectors and a kBwdThreads-float reduction buffer
+__host__ __device__ constexpr int bwd_smem_floats(int Qp, int P, int N) {
+  return 2 * Qp * (N + 4) + 2 * Qp * (P + 4) + kBwdVecs * kMaxQ + kBwdThreads;
+}
+
+// a chunk block's scratch in device memory: the scores M, d(C B^T) and
+// R = dM o M (Qp x Qp each, rows i, columns j), the per-tile parts of ddt's
+// column sums ((Qp / 4) x Qp), and the parts of dw and of the inter-chunk
+// term's d cum over the (N / 4) column tiles of N
+__host__ __device__ constexpr long long bwd_scratch_floats(int Qp, int N) {
+  return 3LL * Qp * Qp + 1LL * (Qp / 4) * Qp + 2LL * (N / 4) * Qp;
+}
+
+__host__ __device__ constexpr long long round4(long long v) { return (v + 3) & ~3LL; }
+
+// offsets (floats) of the workspace's parts
+struct BwdWorkspace {
+  long long cum, states, dstates, final_state, dBh, dCh, parts, scratch, total;
+};
+__host__ __device__ inline BwdWorkspace bwd_workspace(int B, int S, int H, int P, int N, int Q) {
+  const int nc = (S + Q - 1) / Q, Qp = (Q + 3) & ~3;
+  BwdWorkspace w;
+  w.cum = 0;
+  w.states = round4(w.cum + static_cast<long long>(B) * H * nc * Q);
+  w.dstates = w.states + static_cast<long long>(B) * nc * H * P * N;
+  w.final_state = w.dstates + static_cast<long long>(B) * nc * H * P * N;
+  w.dBh = w.final_state + static_cast<long long>(B) * H * P * N;
+  w.dCh = w.dBh + static_cast<long long>(B) * S * H * N;
+  w.parts = w.dCh + static_cast<long long>(B) * S * H * N;
+  w.scratch = round4(w.parts + 2LL * B * nc * H);
+  w.total = w.scratch + static_cast<long long>(B) * nc * H * bwd_scratch_floats(Qp, N);
+  return w;
+}
+
+// v[0..n) summed as a pairwise tree (k with k + half), n a power of two up to
+// kBwdThreads; every thread of the block calls it, after v is written
+__device__ float block_tree(float* v, int n) {
+  for (int half = n / 2; half > 0; half >>= 1) {
+    if (static_cast<int>(threadIdx.x) < half) v[threadIdx.x] += v[threadIdx.x + half];
+    __syncthreads();
+  }
+  const float out = v[0];
+  __syncthreads();  // v may be written again
+  return out;
+}
+
+// The chunk's C, B (rows t, columns n), x and dy (rows t, columns p) into
+// shared memory as fp32 and dt into dtv, padding rows (t >= rows) zero.
+template <typename T>
+__device__ void bwd_load_chunk(float* cs, float* bs, float* xs, float* ys, float* dtv,
+                               const T* x, const T* dy, const T* Bm, const T* Cm,
+                               const float* dt, int b, int h, int g, int s0, int rows, int S,
+                               int H, int P, int G, int N, int Qp) {
+  const int tid = threadIdx.x, LDN = N + 4, LDP = P + 4;
+  const long long x_row = static_cast<long long>(H) * P, bc_row = static_cast<long long>(G) * N;
+  const long long row0 = static_cast<long long>(b) * S + s0;
+  const T* xb = x + row0 * x_row + static_cast<long long>(h) * P;
+  const T* yb = dy + row0 * x_row + static_cast<long long>(h) * P;
+  const T* Bb = Bm + row0 * bc_row + static_cast<long long>(g) * N;
+  const T* Cb = Cm + row0 * bc_row + static_cast<long long>(g) * N;
+  for (int e = tid; e < Qp * N; e += kBwdThreads) {
+    const int t = e / N, n = e - t * N;
+    const bool in = t < rows;
+    bs[t * LDN + n] = in ? to_f32(Bb[t * bc_row + n]) : 0.f;
+    cs[t * LDN + n] = in ? to_f32(Cb[t * bc_row + n]) : 0.f;
+  }
+  for (int e = tid; e < Qp * P; e += kBwdThreads) {
+    const int t = e / P, p = e - t * P;
+    const bool in = t < rows;
+    xs[t * LDP + p] = in ? to_f32(xb[t * x_row + p]) : 0.f;
+    ys[t * LDP + p] = in ? to_f32(yb[t * x_row + p]) : 0.f;
+  }
+  if (tid < kMaxQ) dtv[tid] = tid < rows ? dt[(row0 + tid) * H + h] : 0.f;
+}
+
+// Launch 1.  Block (c, h, b): cum (written for the chunk's Q tokens), the
+// chunk's local end state into states and E into dstates, (P x N) each.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ A, const T* __restrict__ Bm,
+                         const T* __restrict__ Cm, const T* __restrict__ dy,
+                         float* __restrict__ cum_out, float* __restrict__ states,
+                         float* __restrict__ dstates, int S, int H, int P, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, g = h / (H / G);
+  const int Qp = (Q + 3) & ~3, LDN = N + 4, LDP = P + 4;
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  float* cs = reinterpret_cast<float*>(smem4);
+  float* bs = cs + Qp * LDN;
+  float* xs = bs + Qp * LDN;
+  float* ys = xs + Qp * LDP;
+  float* dtv = ys + Qp * LDP;
+  float* cum = dtv + kMaxQ;
+  float* wv = cum + kMaxQ;  // exp(total - cum_j) dt_j
+  float* ev = wv + kMaxQ;   // exp(cum_i)
+  double* cd = reinterpret_cast<double*>(ev + kMaxQ);  // kMaxQ doubles
+  bwd_load_chunk<T>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, g, s0, rows, S, H, P, G, N,
+                    Qp);
+  __syncthreads();
+  if (tid < kMaxQ) cd[tid] = static_cast<double>(dtv[tid] * A[h]);
+  __syncthreads();
+  // inclusive cumsum of dt * A over the chunk (Hillis-Steele in double,
+  // rounded once); padding adds 0
+  for (int off = 1; off < Qp; off <<= 1) {
+    const double v = tid >= off && tid < Qp ? cd[tid - off] : 0.0;
+    __syncthreads();
+    if (tid < Qp) cd[tid] += v;
+    __syncthreads();
+  }
+  if (tid < kMaxQ) cum[tid] = static_cast<float>(cd[tid]);
+  __syncthreads();
+  const float total = cum[Qp - 1];
+  if (tid < Qp) {
+    wv[tid] = expf(total - cum[tid]) * dtv[tid];
+    ev[tid] = expf(cum[tid]);
+  }
+  if (tid < Q) cum_out[(static_cast<long long>(b) * H + h) * nc * Q + s0 + tid] = cum[tid];
+  __syncthreads();
+
+  const long long off = ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
+  const int np4 = P / 4, nn4 = N / 4;
+  for (int item = tid; item < np4 * nn4; item += kBwdThreads) {
+    const int p0 = (item / nn4) * 4, n0 = (item - (item / nn4) * nn4) * 4;
+    float st[4][4], e[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = e[i][j] = 0.f;
+    for (int t = 0; t < Qp; ++t) {
+      const float4 xv = ld4(xs + t * LDP + p0), bv = ld4(bs + t * LDN + n0);
+      const float4 yv = ld4(ys + t * LDP + p0), cv = ld4(cs + t * LDN + n0);
+      const float w = wv[t], ec = ev[t];
+      const float xa[4] = {xv.x * w, xv.y * w, xv.z * w, xv.w * w};
+      const float ya[4] = {yv.x * ec, yv.y * ec, yv.z * ec, yv.w * ec};
+      const float ba[4] = {bv.x, bv.y, bv.z, bv.w}, ca[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = fmaf(xa[i], ba[j], st[i][j]);
+          e[i][j] = fmaf(ya[i], ca[j], e[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long o = off + static_cast<long long>(p0 + i) * N + n0;
+      *reinterpret_cast<float4*>(states + o) = make_float4(st[i][0], st[i][1], st[i][2], st[i][3]);
+      *reinterpret_cast<float4*>(dstates + o) = make_float4(e[i][0], e[i][1], e[i][2], e[i][3]);
+    }
+  }
+}
+
+// Launch 3.  Thread: a 4-vector e of the (P x N) state of (b, h), as in
+// ssd_state_pass_kernel.  dstates[b, c, h] holds E_c and is overwritten with
+// the gradient of chunk c's local state, G_c+1.
+__global__ void __launch_bounds__(kPassThreads)
+    ssd_bwd_state_pass_kernel(float* __restrict__ dstates, const float* __restrict__ cum,
+                              const float* __restrict__ d_state, int H, int PN, int Q, int nc) {
+  const int e = (blockIdx.x * kPassThreads + threadIdx.x) * 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (e >= PN) return;
+  const float* cb = cum + (static_cast<long long>(b) * H + h) * nc * Q + Q - 1;
+  float4 g = d_state != nullptr ? *reinterpret_cast<const float4*>(
+                                      d_state + (static_cast<long long>(b) * H + h) * PN + e)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = nc - 1; c >= 0; --c) {
+    float4* p = reinterpret_cast<float4*>(
+        dstates + ((static_cast<long long>(b) * nc + c) * H + h) * PN + e);
+    const float4 ev = *p;
+    const float decay = expf(cb[static_cast<long long>(c) * Q]);
+    *p = g;
+    g = make_float4(fmaf(decay, g.x, ev.x), fmaf(decay, g.y, ev.y), fmaf(decay, g.z, ev.z),
+                    fmaf(decay, g.w, ev.w));
+  }
+}
+
+// Launch 4.  Block (c, h, b): every gradient inside the chunk (see the head
+// of the file).  states[b, c, h] is the state entering the chunk (for c > 0;
+// the first chunk's is zero), dstates[b, c, h] the gradient of its local
+// state.  Writes dx (T), ddt (fp32) and dB, dC per head (fp32) for the
+// chunk's tokens, and the chunk's parts of dA and dD.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ A, const T* __restrict__ Bm,
+                         const T* __restrict__ Cm, const float* __restrict__ Dskip,
+                         const T* __restrict__ dy, const float* __restrict__ cum_in,
+                         const float* __restrict__ states, const float* __restrict__ dstates,
+                         float* scratch, T* __restrict__ dx, float* __restrict__ ddt,
+                         float* __restrict__ dBh, float* __restrict__ dCh,
+                         float* __restrict__ parts, int S, int H, int P, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, g = h / (H / G);
+  const int Qp = (Q + 3) & ~3, LDN = N + 4, LDP = P + 4;
+  const int nq4 = Qp / 4, np4 = P / 4, nn4 = N / 4;
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  float* cs = reinterpret_cast<float*>(smem4);
+  float* bs = cs + Qp * LDN;
+  float* xs = bs + Qp * LDN;
+  float* ys = xs + Qp * LDP;
+  float* dtv = ys + Qp * LDP;
+  float* cum = dtv + kMaxQ;
+  float* ecum = cum + kMaxQ;  // exp(cum_i)
+  float* tend = ecum + kMaxQ; // exp(total - cum_j)
+  float* wv = tend + kMaxQ;   // exp(total - cum_j) dt_j
+  float* suf = wv + kMaxQ;    // the suffix sums of exp(cum_i) dy_i . Z_i
+  float* pre = suf + kMaxQ;   // the prefix sums of w_i dw_i
+  float* red = pre + kMaxQ;   // kMaxQ floats, then the kBwdThreads-float buffer
+  float* red2 = red + kMaxQ;
+
+  bwd_load_chunk<T>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, g, s0, rows, S, H, P, G, N,
+                    Qp);
+  const float* cb_in = cum_in + (static_cast<long long>(b) * H + h) * nc * Q + s0;
+  if (tid < Qp) cum[tid] = cb_in[min(tid, Q - 1)];  // rows past Q: the chunk's total
+  __syncthreads();
+  const float total = cum[Qp - 1];
+  if (tid < Qp) {
+    ecum[tid] = expf(cum[tid]);
+    tend[tid] = expf(total - cum[tid]);
+    wv[tid] = tend[tid] * dtv[tid];
+  }
+  __syncthreads();
+
+  const long long blk = (static_cast<long long>(b) * nc + c) * H + h;
+  float* Mg = scratch + blk * bwd_scratch_floats(Qp, N);
+  float* dCBg = Mg + Qp * Qp;
+  float* Rg = dCBg + Qp * Qp;
+  float* pcolT = Rg + Qp * Qp;        // [I][j]: column sums of dM o K over tile (I, J)
+  float* pdw = pcolT + nq4 * Qp;      // [n tile][j]: parts of dw_j
+  float* pz = pdw + nn4 * Qp;         // [n tile][i]: parts of dy_i . (C state_in^T)_i
+  const bool inter = c > 0;           // the state entering the first chunk is zero
+  const float* Sin = states + blk * P * N;
+  const float* dS = dstates + blk * P * N;
+
+  // ---- A. tiles (I, J), I >= J: K = C B^T o L, M = K dt_j (the scores),
+  // dM = dy x^T, d(C B^T) = dM o L dt_j, R = dM o M to the scratch; the
+  // tile's column sums of dM o K to their parts
+  const int n_tri = nq4 * (nq4 + 1) / 2;
+  for (int item = tid; item < n_tri; item += kBwdThreads) {
+    int I, J;
+    tri_index(item, I, J);
+    float cb[4][4], dm[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cb[i][j] = dm[i][j] = 0.f;
+    dot4x4(cb, cs + I * 4 * LDN, LDN, bs + J * 4 * LDN, LDN, N);
+    dot4x4(dm, ys + I * 4 * LDP, LDP, xs + J * 4 * LDP, LDP, P);
+    float col_t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ii = I * 4 + i;
+      float m[4], d[4], r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = J * 4 + j;
+        // exp only where i >= j: its argument is <= 0 there
+        const float l = ii >= jj ? expf(cum[ii] - cum[jj]) : 0.f;
+        const float k = cb[i][j] * l;
+        m[j] = k * dtv[jj];
+        d[j] = dm[i][j] * l * dtv[jj];
+        r[j] = dm[i][j] * m[j];
+        col_t[j] += dm[i][j] * k;
+      }
+      *reinterpret_cast<float4*>(Mg + ii * Qp + J * 4) = make_float4(m[0], m[1], m[2], m[3]);
+      *reinterpret_cast<float4*>(dCBg + ii * Qp + J * 4) = make_float4(d[0], d[1], d[2], d[3]);
+      *reinterpret_cast<float4*>(Rg + ii * Qp + J * 4) = make_float4(r[0], r[1], r[2], r[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pcolT[I * Qp + J * 4 + j] = col_t[j];
+  }
+  __syncthreads();  // the scratch is written (and visible to the block)
+
+  const long long x_row = static_cast<long long>(H) * P;
+  const long long tok0 = static_cast<long long>(b) * S + s0;
+  const float d_h = Dskip[h];
+  // ---- B1. dx tile (rows j, columns p): sum_{i >= j} M_ij dy_i + w_j U_j
+  // + D dy_j, with U_j = dS B_j (the chunk state's transpose)
+  for (int item = tid; item < nq4 * np4; item += kBwdThreads) {
+    const int j0 = (item / np4) * 4, p0 = (item - (item / np4) * np4) * 4;
+    float acc[4][4], u[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = u[i][j] = 0.f;
+    for (int i = j0; i < Qp; ++i) {
+      const float4 mv = ld4(Mg + i * Qp + j0), yv = ld4(ys + i * LDP + p0);
+      const float ma[4] = {mv.x, mv.y, mv.z, mv.w}, ya[4] = {yv.x, yv.y, yv.z, yv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(ma[a], ya[q], acc[a][q]);
+    }
+    dot4x4(u, bs + j0 * LDN, LDN, dS + p0 * N, N, N);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = j0 + a;
+      if (j < rows) {
+        T* o = dx + (tok0 + j) * x_row + static_cast<long long>(h) * P + p0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          o[q] = from_f32<T>(acc[a][q] + wv[j] * u[a][q] + d_h * ys[j * LDP + p0 + q]);
+      }
+    }
+  }
+  // ---- B2. dB tile (rows j, columns n): sum_{i >= j} d(C B^T)_ij C_i
+  // + w_j V_j, V_j = x_j dS; the tile's part of dw_j = B_j . V_j
+  for (int item = tid; item < nq4 * nn4; item += kBwdThreads) {
+    const int j0 = (item / nn4) * 4, n0 = (item - (item / nn4) * nn4) * 4;
+    float acc[4][4], v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = v[i][j] = 0.f;
+    for (int i = j0; i < Qp; ++i) {
+      const float4 dv = ld4(dCBg + i * Qp + j0), cv = ld4(cs + i * LDN + n0);
+      const float da[4] = {dv.x, dv.y, dv.z, dv.w}, ca[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(da[a], ca[q], acc[a][q]);
+    }
+    for (int p = 0; p < P; ++p) {
+      const float4 sv = ld4(dS + p * N + n0);
+      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float xa = xs[(j0 + a) * LDP + p];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[a][q] = fmaf(xa, sa[q], v[a][q]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = j0 + a;
+      float part = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part = fmaf(bs[j * LDN + n0 + q], v[a][q], part);
+      pdw[(n0 / 4) * Qp + j] = part;
+      if (j < rows) {
+        float* o = dBh + ((tok0 + j) * H + h) * N + n0;
+        *reinterpret_cast<float4*>(o) =
+            make_float4(fmaf(wv[j], v[a][0], acc[a][0]), fmaf(wv[j], v[a][1], acc[a][1]),
+                        fmaf(wv[j], v[a][2], acc[a][2]), fmaf(wv[j], v[a][3], acc[a][3]));
+      }
+    }
+  }
+  // ---- B3. dC tile (rows i, columns n): sum_{j <= i} d(C B^T)_ij B_j
+  // + exp(cum_i) W_i, W_i = dy_i state_in; the tile's part of C_i . W_i
+  for (int item = tid; item < nq4 * nn4; item += kBwdThreads) {
+    const int i0 = (item / nn4) * 4, n0 = (item - (item / nn4) * nn4) * 4;
+    float acc[4][4], wz[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = wz[i][j] = 0.f;
+    for (int j = 0; j < i0 + 4; ++j) {
+      const float4 bv = ld4(bs + j * LDN + n0);
+      const float ba[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float da = dCBg[(i0 + a) * Qp + j];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(da, ba[q], acc[a][q]);
+      }
+    }
+    if (inter) {
+      for (int p = 0; p < P; ++p) {
+        const float4 sv = ld4(Sin + p * N + n0);
+        const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float ya = ys[(i0 + a) * LDP + p];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) wz[a][q] = fmaf(ya, sa[q], wz[a][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = i0 + a;
+      float part = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part = fmaf(cs[i * LDN + n0 + q], wz[a][q], part);
+      pz[(n0 / 4) * Qp + i] = part;
+      if (i < rows) {
+        float* o = dCh + ((tok0 + i) * H + h) * N + n0;
+        *reinterpret_cast<float4*>(o) =
+            make_float4(fmaf(ecum[i], wz[a][0], acc[a][0]), fmaf(ecum[i], wz[a][1], acc[a][1]),
+                        fmaf(ecum[i], wz[a][2], acc[a][2]), fmaf(ecum[i], wz[a][3], acc[a][3]));
+      }
+    }
+  }
+  // <dS, state_in>: a lane's strided run, then a tree over the lanes
+  float ip = 0.f;
+  if (inter)
+    for (int e = tid; e < P * N; e += kBwdThreads) ip = fmaf(dS[e], Sin[e], ip);
+  red2[tid] = ip;
+  __syncthreads();  // the parts are written; red2 is full
+  ip = block_tree(red2, kBwdThreads);
+
+  // ---- C. d(dt A)_t = sum_{i >= t, j < t} R_ij + sum_{i >= t} exp(cum_i)
+  // dy_i . Z_i + sum_{i < t} w_i dw_i + exp(total) <dS, state_in>, and ddt
+  if (tid < Qp) {
+    // column j = tid of R: its sums over i >= t, for t > j, in place
+    float s = 0.f;
+    for (int i = Qp - 1; i > tid; --i) {
+      s += Rg[i * Qp + tid];
+      Rg[i * Qp + tid] = s;
+    }
+  }
+  __syncthreads();
+  float da_r = 0.f, ddt_part = 0.f;
+  if (tid < kMaxQ) {
+    float ez = 0.f, wdw = 0.f;
+    if (tid < Qp) {
+      const int t = tid;
+      float ct = 0.f, dw = 0.f, z = 0.f;
+      for (int j = 0; j < t; ++j) da_r += Rg[t * Qp + j];
+      for (int I = t / 4; I < nq4; ++I) ct += pcolT[I * Qp + t];
+      for (int k = 0; k < nn4; ++k) {
+        dw += pdw[k * Qp + t];
+        z += pz[k * Qp + t];
+      }
+      ez = ecum[t] * z;
+      wdw = wv[t] * dw;
+      ddt_part = ct + tend[t] * dw;
+    }
+    suf[tid] = ez;
+    red[tid] = wdw;
+  }
+  __syncthreads();
+  if (tid < kMaxQ) pre[tid] = tid > 0 && tid < Qp ? red[tid - 1] : 0.f;
+  __syncthreads();
+  // suffix sums of suf and prefix sums of pre over the chunk (Hillis-Steele)
+  for (int off = 1; off < Qp; off <<= 1) {
+    const float vs = tid + off < Qp ? suf[tid + off] : 0.f;
+    const float vp = tid >= off && tid < Qp ? pre[tid - off] : 0.f;
+    __syncthreads();
+    if (tid < Qp) {
+      suf[tid] += vs;
+      pre[tid] += vp;
+    }
+    __syncthreads();
+  }
+  const float a_h = A[h], state_term = expf(total) * ip;
+  float da_term = 0.f, dd_term = 0.f;
+  if (tid < rows) {
+    const float da = da_r + suf[tid] + pre[tid] + state_term;
+    ddt[(tok0 + tid) * H + h] = fmaf(a_h, da, ddt_part);
+    da_term = dtv[tid] * da;
+    for (int p = 0; p < P; ++p) dd_term = fmaf(xs[tid * LDP + p], ys[tid * LDP + p], dd_term);
+  }
+  if (tid < kMaxQ) {
+    red[tid] = da_term;
+    red2[tid] = dd_term;
+  }
+  __syncthreads();
+  const float dA_c = block_tree(red, kMaxQ);
+  const float dD_c = block_tree(red2, kMaxQ);
+  if (tid == 0) {
+    const long long n_parts = static_cast<long long>(gridDim.z) * nc * H;
+    parts[blk] = dA_c;
+    parts[n_parts + blk] = dD_c;
+  }
+}
+
+// Launch 5.  Thread: one (token, group, n) of dB and of dC: the group's
+// heads' parts summed in order, in the inputs' type.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    ssd_bwd_group_kernel(const float* __restrict__ dBh, const float* __restrict__ dCh,
+                         T* __restrict__ dBm, T* __restrict__ dCm, long long n_out, int H, int G,
+                         int N) {
+  const long long e = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (e >= n_out) return;
+  const int hpg = H / G;
+  const long long tok = e / (static_cast<long long>(G) * N);
+  const int rem = static_cast<int>(e - tok * G * N), g = rem / N, n = rem - g * N;
+  const long long base = (tok * H + static_cast<long long>(g) * hpg) * N + n;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < hpg; ++k) {
+    sb += dBh[base + static_cast<long long>(k) * N];
+    sc += dCh[base + static_cast<long long>(k) * N];
+  }
+  dBm[e] = from_f32<T>(sb);
+  dCm[e] = from_f32<T>(sc);
+}
+
+// Launch 6.  Block (h, which): dA (which 0) or dD (which 1) of head h from the
+// chunks' parts (B * nc of them): lane k sums parts k, k + kBwdLanes, ... in
+// turn, then a pairwise tree over the lanes.
+__global__ void __launch_bounds__(kBwdLanes)
+    ssd_bwd_param_kernel(const float* __restrict__ parts, float* __restrict__ dA,
+                         float* __restrict__ dD, int n_chunks, int H) {
+  __shared__ float lanes[kBwdLanes];
+  const int h = blockIdx.x, which = blockIdx.y, k = threadIdx.x;
+  const float* src = parts + static_cast<long long>(which) * n_chunks * H + h;
+  float s = 0.f;
+  for (int i = k; i < n_chunks; i += kBwdLanes) s += src[static_cast<long long>(i) * H];
+  lanes[k] = s;
+  __syncthreads();
+  const float out = block_tree(lanes, kBwdLanes);
+  if (k == 0) (which == 0 ? dA : dD)[h] = out;
+}
+
+bool bwd_shape_ok(int B, int S, int H, int P, int G, int N, int chunk) {
+  return shape_ok(B, S, H, P, G, N, chunk) && S > 0 &&
+         bwd_smem_floats((chunk + 3) & ~3, P, N) * static_cast<int>(sizeof(float)) <=
+             kBwdMaxSmemBytes;
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+               const void* D, const void* dy, const void* d_state, void* dx, void* ddt, void* dA,
+               void* dBm, void* dCm, void* dD, void* ws, int B, int S, int H, int P, int G, int N,
+               int Q, cudaStream_t stream) {
+  cudaError_t err = allow_smem<ssd_bwd_state_kernel<T>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_kernel<T>>(kBwdMaxSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nc = (S + Q - 1) / Q, Qp = (Q + 3) & ~3, PN = P * N;
+  const int smem = bwd_smem_floats(Qp, P, N) * static_cast<int>(sizeof(float));
+  const BwdWorkspace w = bwd_workspace(B, S, H, P, N, Q);
+  float* wsf = static_cast<float*>(ws);
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(Bm);
+  const T* ct = static_cast<const T*>(Cm);
+  const T* yt = static_cast<const T*>(dy);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const dim3 chunks(nc, H, B), pass((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
+  ssd_bwd_state_kernel<T><<<chunks, kBwdThreads, smem, stream>>>(
+      xt, dtf, Af, bt, ct, yt, wsf + w.cum, wsf + w.states, wsf + w.dstates, S, H, P, G, N, Q);
+  ssd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(wsf + w.states, wsf + w.cum,
+                                                           wsf + w.final_state, H, PN, Q, nc);
+  ssd_bwd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(
+      wsf + w.dstates, wsf + w.cum, static_cast<const float*>(d_state), H, PN, Q, nc);
+  ssd_bwd_chunk_kernel<T><<<chunks, kBwdThreads, smem, stream>>>(
+      xt, dtf, Af, bt, ct, static_cast<const float*>(D), yt, wsf + w.cum, wsf + w.states,
+      wsf + w.dstates, wsf + w.scratch, static_cast<T*>(dx), static_cast<float*>(ddt),
+      wsf + w.dBh, wsf + w.dCh, wsf + w.parts, S, H, P, G, N, Q);
+  const long long n_out = static_cast<long long>(B) * S * G * N;
+  ssd_bwd_group_kernel<T><<<static_cast<unsigned>((n_out + kBwdThreads - 1) / kBwdThreads),
+                            kBwdThreads, 0, stream>>>(wsf + w.dBh, wsf + w.dCh,
+                                                      static_cast<T*>(dBm), static_cast<T*>(dCm),
+                                                      n_out, H, G, N);
+  ssd_bwd_param_kernel<<<dim3(H, 2), kBwdLanes, 0, stream>>>(
+      wsf + w.parts, static_cast<float*>(dA), static_cast<float*>(dD), B * nc, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The fma body.  x, y (B,S,H,P), Bm, Cm (B,S,G,N) contiguous, of one type;
@@ -1025,4 +1632,34 @@ extern "C" int ssd_chunk_scan(const void* x, const void* dt, const void* Bm, con
   return round16(P) <= 64
              ? launch_chunk_scan<8>(x, dt, Bm, Cm, D, cum, states, y, B, S, H, P, G, N, chunk, st)
              : launch_chunk_scan<16>(x, dt, Bm, Cm, D, cum, states, y, B, S, H, P, G, N, chunk, st);
+}
+
+// The backward.  x, dy, dx (B,S,H,P) and Bm, Cm, dBm, dCm (B,S,G,N)
+// contiguous, of one type; dt, ddt (B,S,H), A, D, dA, dD (H,) float32;
+// d_state (B,H,P,N) float32 or null (no gradient of the final state); ws a
+// float32 workspace of ssd_bwd_workspace_floats(...) floats, 16-byte
+// aligned.  S >= 1; chunk 16-128; P and N multiples of 8 up to 128 whose
+// chunk block fits in 227 KB of shared memory; G divides H.  Returns
+// cudaGetLastError() after the last launch.
+extern "C" long long ssd_bwd_workspace_floats(int B, int S, int H, int P, int G, int N,
+                                              int chunk) {
+  return bwd_workspace(B, S, H, P, N, chunk).total;
+}
+
+extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void* Bm,
+                       const void* Cm, const void* D, const void* dy, const void* d_state,
+                       void* dx, void* ddt, void* dA, void* dBm, void* dCm, void* dD, void* ws,
+                       int B, int S, int H, int P, int G, int N, int chunk, int dtype,
+                       void* stream) {
+  if (!bwd_shape_ok(B, S, H, P, G, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd<float>(x, dt, A, Bm, Cm, D, dy, d_state, dx, ddt, dA, dBm, dCm, dD, ws,
+                               B, S, H, P, G, N, chunk, st);
+    case 1:
+      return launch_bwd<__nv_bfloat16>(x, dt, A, Bm, Cm, D, dy, d_state, dx, ddt, dA, dBm, dCm,
+                                       dD, ws, B, S, H, P, G, N, chunk, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

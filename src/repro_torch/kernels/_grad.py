@@ -3,9 +3,10 @@
 A wrapper writes into a fresh tensor through ctypes, so its output has no
 ``grad_fn``: called on inputs that require a gradient, with grad mode on,
 it would cut the graph and training would go on with zero gradients below
-it.  So each raw wrapper refuses that call.  RMSNorm and flash attention
-are differentiated through their ``torch.autograd.Function``s (whose
-forwards run with grad mode off); the scans have no backward kernel yet.
+it.  So each raw wrapper refuses that call.  Every kernel is differentiated
+through its ``torch.autograd.Function`` (``RMSNormFunction``,
+``FlashAttentionFunction``, ``RGLRUFunction``, ``SSDFunction``), whose
+forward runs with grad mode off; ``kernels/ops.py`` routes to them.
 """
 from __future__ import annotations
 

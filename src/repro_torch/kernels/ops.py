@@ -8,9 +8,9 @@ versions.
 Gradients: on the CPU autograd differentiates the plain versions.  On the
 card, a call that needs a gradient (grad mode on and an input that requires
 one) goes through the kernel's ``torch.autograd.Function``, whose backward
-is a kernel too (RMSNorm, flash attention); any other call goes to the raw
-wrapper, as serving always did.  The scans have no backward kernel yet:
-their raw wrappers refuse such a call rather than drop the gradient.
+is a kernel too (RMSNorm, flash attention, the RG-LRU and SSD scans); any
+other call goes to the raw wrapper, as serving always did.  Called with such
+inputs, a raw wrapper refuses rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -19,11 +19,11 @@ import torch
 from .flash_attention.kernel import (FlashAttentionFunction,
                                      flash_attention_cuda)
 from .flash_attention.ref import mha_ref
-from .rglru.kernel import rglru_cuda
+from .rglru.kernel import RGLRUFunction, rglru_cuda
 from .rglru.ref import rglru_assoc, rglru_sequential
 from .rmsnorm.kernel import RMSNormFunction, rmsnorm_cuda
 from .rmsnorm.ref import rmsnorm_ref
-from .ssd.kernel import ssd_cuda
+from .ssd.kernel import SSDFunction, ssd_cuda
 from .ssd.ref import ssd_chunked, ssd_sequential
 
 
@@ -89,6 +89,8 @@ def rglru_scan(log_a, gx, h0=None):
     alike to it; the CPU path is ``rglru_assoc`` from 64 steps on and
     ``rglru_sequential`` below, as the JAX package's CPU path."""
     if _on_cuda(gx):
+        if _needs_grad(log_a, gx, h0):
+            return RGLRUFunction.apply(log_a, gx, h0)
         return rglru_cuda(log_a, gx, h0)
     if gx.shape[1] >= 64:
         return rglru_assoc(log_a, gx, h0)
@@ -108,6 +110,8 @@ def ssd_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     path is ``ssd_chunked`` when S is a multiple of the chunk and
     ``ssd_sequential`` otherwise, as the JAX package's CPU path."""
     if _on_cuda(x):
+        if _needs_grad(x, dt, A, Bm, Cm, D):
+            return SSDFunction.apply(x, dt, A, Bm, Cm, D, chunk)
         return ssd_cuda(x, dt, A, Bm, Cm, D, chunk=chunk)
     if x.shape[1] % chunk == 0:
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk)

@@ -16,6 +16,14 @@ falling back):
 
 ``rglru_cuda.launches`` counts every launch and
 ``rglru_cuda.launches_by_body`` each body's.
+
+The backward is a kernel too (``rglru_bwd_cuda``: d log_a, d gx and dh0 of
+y and h_last by the reverse scan, a thread a channel; its plain version is
+``ref.rglru_bwd``), behind ``RGLRUFunction``, the
+``torch.autograd.Function`` whose forward is ``rglru_cuda``.  One body,
+``serial``; ``rglru_bwd_cuda.launches`` counts its calls and
+``launches_by_body`` each body's.  Called outside that Function,
+``rglru_cuda`` refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -28,14 +36,18 @@ from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("segmented", "serial")
+BWD_BODIES = ("serial",)
 MIN_SEGMENTED_STEPS = 64
+# steps between the states the backward saves (csrc/rglru.cu kBwdSegment)
+BWD_SEGMENT_STEPS = 16
 
 
 def _entry(name: str):
     fn = getattr(_build.load("rglru"), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 4 + [P]
+        fn.argtypes = ([P] * 9 if name == "rglru_bwd" else [P] * 5) \
+            + [I] * 4 + [P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,8 +93,8 @@ def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
     ``select_body`` picks; both take every S) names the body to run.
     Raises on anything else."""
     refuse_grad("rglru_cuda", (log_a, gx, h0),
-                "training the RG-LRU layers on the card waits for its "
-                "backward kernel (ROADMAP.md Queue 1 item 7)")
+                "call kernels.ops.rglru_scan, which differentiates it "
+                "through RGLRUFunction (ROADMAP.md Queue 1 item 7)")
     if not gx.is_cuda:
         raise ValueError(f"rglru_cuda takes CUDA tensors, got {gx.device}")
     picked = select_body(log_a, gx, h0)
@@ -109,10 +121,78 @@ def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
     return y, h_last
 
 
+def rglru_bwd_cuda(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
+                   h0: torch.Tensor | None = None,
+                   dh_last: torch.Tensor | None = None):
+    """(d log_a, d gx, dh0) of ``rglru_cuda``'s y and h_last, given dy (like
+    gx) and ``dh_last`` (B,W) or None (h_last unused): d log_a and d gx in
+    their inputs' dtypes, dh0 (B,W) fp32, or None without h0.
+
+    The inputs ``rglru_cuda`` takes, none empty; h is recomputed in fp32.
+    Raises on anything else."""
+    if not gx.is_cuda:
+        raise ValueError(f"rglru_bwd_cuda takes CUDA tensors, got "
+                         f"{gx.device}")
+    select_body(log_a, gx, h0)
+    dy = dy.contiguous()
+    if dy.shape != gx.shape or dy.dtype != gx.dtype or dy.device != gx.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match gx "
+                         f"{gx.dtype} {tuple(gx.shape)}")
+    B, S, W = gx.shape
+    if B * S * W == 0:
+        raise ValueError("rglru_bwd_cuda takes B, S, W >= 1")
+    if dh_last is not None:
+        dh_last = dh_last.to(torch.float32).contiguous()
+        if dh_last.shape != (B, W) or dh_last.device != gx.device:
+            raise ValueError(f"dh_last must be (B, W) = ({B}, {W}); got "
+                             f"{tuple(dh_last.shape)}")
+    dla, dgx = torch.empty_like(log_a), torch.empty_like(gx)
+    dh0 = None if h0 is None else torch.empty((B, W), dtype=torch.float32,
+                                              device=gx.device)
+    saved = torch.empty((B, -(-S // BWD_SEGMENT_STEPS), W),
+                        dtype=torch.float32, device=gx.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(gx.device):
+        err = _entry("rglru_bwd")(
+            log_a.data_ptr(), gx.data_ptr(), dy.data_ptr(), ptr(h0),
+            ptr(dh_last), saved.data_ptr(), dla.data_ptr(), dgx.data_ptr(),
+            ptr(dh0), B, S, W, _DTYPES[gx.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru backward launch failed (serial body): "
+                           f"CUDA error {err}")
+    rglru_bwd_cuda.launches += 1
+    rglru_bwd_cuda.launches_by_body["serial"] += 1
+    return dla, dgx, dh0
+
+
+class RGLRUFunction(torch.autograd.Function):
+    """``rglru_cuda`` forward, ``rglru_bwd_cuda`` backward.  Grads are not
+    materialized: an unused h_last costs no zero tensor."""
+
+    @staticmethod
+    def forward(ctx, log_a, gx, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(log_a, gx, h0)
+        return rglru_cuda(log_a, gx, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if dy is None and dh_last is None:
+            return None, None, None
+        log_a, gx, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(gx)
+        return rglru_bwd_cuda(log_a, gx, dy, h0, dh_last)
+
+
 def reset_counts() -> None:
-    """Set the launch counts (total and by body) to 0."""
+    """Set the launch counts (forward and backward, total and by body)
+    to 0."""
     rglru_cuda.launches = 0
     rglru_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
+    rglru_bwd_cuda.launches = 0
+    rglru_bwd_cuda.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 
 
 reset_counts()

@@ -18,6 +18,9 @@ Two scans of one function: ``rglru_sequential`` (one step at a time, the
 oracle, and the CPU path below 64 steps) and ``rglru_assoc`` (a log-depth
 associative scan of the (a, u) pairs, the CPU path from 64 steps on, as in
 the JAX package).
+
+``rglru_bwd`` is the plain backward of the scan (the oracle for the CUDA
+backward kernel; on the CPU path autograd differentiates the forward).
 """
 from __future__ import annotations
 
@@ -68,6 +71,48 @@ def rglru_assoc(log_a: torch.Tensor, gx: torch.Tensor,
     if h0 is not None:
         u = u[:, 1:]
     return u.to(gx.dtype), u[:, -1]
+
+
+def rglru_bwd(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
+              h0: torch.Tensor | None = None,
+              dh_last: torch.Tensor | None = None):
+    """The gradients (d log_a, d gx, dh0) of the scan's y and h_last, given
+    dy (B,S,W) and ``dh_last`` (B,W) or None (h_last unused); d log_a and
+    d gx in their inputs' dtypes, dh0 fp32 (None without h0).
+
+    h is recomputed in fp32, one step at a time, and walked in reverse:
+    dh_t = dy_t + a_{t+1} dh_{t+1} (from dh_last, or 0), d gx_t = β_t dh_t,
+    d log_a_t = dh_t (a_t h_{t-1} - gx_t exp(2 log_a_t) / β_t), dh0 =
+    a_1 dh_1, with a = exp(log_a) and β = sqrt(max(1 - exp(2 log_a),
+    1e-12)).  Where the clamp holds β at its floor, β has no gradient (as
+    autograd of the forward gives it)."""
+    la = log_a.float()
+    x = gx.float()
+    e2 = torch.exp(2.0 * la)
+    v = 1.0 - e2
+    beta = torch.sqrt(torch.clamp(v, min=1e-12))
+    dbeta = torch.where(v >= 1e-12, -e2 / beta, torch.zeros_like(v))
+    a = torch.exp(la)
+    u = beta * x
+    B, S, W = gx.shape
+    h = (torch.zeros((B, W), dtype=torch.float32, device=gx.device)
+         if h0 is None else h0.float())
+    h_prev = torch.empty((B, S, W), dtype=torch.float32, device=gx.device)
+    for t in range(S):
+        h_prev[:, t] = h
+        h = a[:, t] * h + u[:, t]
+    carry = (torch.zeros((B, W), dtype=torch.float32, device=gx.device)
+             if dh_last is None else dh_last.float())
+    dy = dy.float()
+    dla = torch.empty((B, S, W), dtype=torch.float32, device=gx.device)
+    dgx = torch.empty_like(dla)
+    for t in reversed(range(S)):
+        g = dy[:, t] + carry
+        dgx[:, t] = beta[:, t] * g
+        dla[:, t] = g * (a[:, t] * h_prev[:, t] + x[:, t] * dbeta[:, t])
+        carry = a[:, t] * g
+    return (dla.to(log_a.dtype), dgx.to(gx.dtype),
+            None if h0 is None else carry)
 
 
 def rglru_gates(x: torch.Tensor, p: dict, *, c: float = 8.0):

@@ -24,7 +24,7 @@ chosen by ``select_bwd_body``:
   train width): a warp a row, x and dy read once into registers, each
   lane's dscale sums kept in registers over its warp's rows; the grid comes
   from the SM count (``bwd_grid``), and a second kernel sums the CTAs'
-  partial rows in a fixed tree.
+  partial rows in a fixed tree; every dscale sum in fp64.
 * ``generic``: any other row: a CTA walks a run of rows, compensated sums.
 
 ``rmsnorm_bwd_cuda.launches`` counts its calls and ``launches_by_body``
@@ -218,8 +218,8 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
     if body == "warp_rows":
         per_warp, ctas = bwd_grid(rows, _sms(x.device))
-        # each CTA's partial row of dscale
-        partial = torch.empty((ctas, D), dtype=torch.float32, device=x.device)
+        # each CTA's partial row of dscale, in fp64
+        partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
         tail = (vpl, per_warp, ctas)
     else:
         blocks = min(rows, BWD_MAX_BLOCKS)

@@ -25,8 +25,9 @@ def rmsnorm_dscale_ordered(x: torch.Tensor, dy: torch.Tensor, *,
                            eps: float = 1e-6, rows_per_warp: int,
                            warps_per_cta: int = 4,
                            reduce_warps: int = 32) -> torch.Tensor:
-    """dscale = sum over rows of dy·x̂ (x̂ = x·rsqrt(mean(x²) + eps)) in
-    fp32, summed in the order of the backward kernel's warp-a-row body:
+    """dscale = sum over rows of dy·x̂ (x̂ = x·rsqrt(mean(x²) + eps), in
+    fp32), each term and every sum in fp64 and rounded to fp32 once at the
+    end, summed in the order of the backward kernel's warp-a-row body:
 
     1. warp w sums rows [w·rows_per_warp, (w+1)·rows_per_warp) in turn;
     2. each CTA adds its ``warps_per_cta`` warps' sums as a pairwise tree;
@@ -38,7 +39,7 @@ def rmsnorm_dscale_ordered(x: torch.Tensor, dy: torch.Tensor, *,
     D = x.shape[-1]
     xf, dyf = x.float().reshape(-1, D), dy.float().reshape(-1, D)
     rstd = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    terms = dyf * (xf * rstd)
+    terms = dyf.double() * (xf * rstd).double()
 
     def padded(t, n):     # rows of t, zero-padded to a multiple of n
         pad = -t.shape[0] % n
@@ -60,4 +61,4 @@ def rmsnorm_dscale_ordered(x: torch.Tensor, dy: torch.Tensor, *,
     lane = torch.zeros_like(strided[0])
     for i in range(strided.shape[0]):
         lane = lane + strided[i]
-    return tree(lane)
+    return tree(lane).float()

@@ -18,6 +18,15 @@ falling back):
 
 ``ssd_cuda.launches`` counts every call and ``ssd_cuda.launches_by_body``
 each body's.
+
+The backward is a kernel too (``ssd_bwd_cuda``: dx, ddt, dA, dB, dC and dD
+of y and of the final state, in fp32 on the FMA units for both dtypes, six
+launches through a workspace this wrapper allocates; its plain version is
+``ref.ssd_chunked_bwd``), behind ``SSDFunction``, the
+``torch.autograd.Function`` whose forward is ``ssd_cuda``.  One body,
+``fma``; ``check_bwd_inputs`` checks what it takes.  ``ssd_bwd_cuda.launches``
+counts its calls and ``launches_by_body`` each body's.  Called outside that
+Function, ``ssd_cuda`` refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -30,6 +39,10 @@ from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("mma", "fma")
+BWD_BODIES = ("fma",)
+# the backward's chunk blocks: csrc/ssd.cu's bwd_smem_floats, kBwdVecs,
+# kBwdThreads and kBwdMaxSmemBytes
+BWD_MAX_SMEM_BYTES = 232448
 
 
 def _entry(name: str):
@@ -39,8 +52,11 @@ def _entry(name: str):
         fn.argtypes = {"ssd_fwd": [P] * 8 + [I] * 8 + [P],
                        "ssd_chunk_state": [P] * 6 + [I] * 7 + [P],
                        "ssd_state_pass": [P] * 3 + [I] * 6 + [P],
-                       "ssd_chunk_scan": [P] * 8 + [I] * 7 + [P]}[name]
-        fn.restype = ctypes.c_int
+                       "ssd_chunk_scan": [P] * 8 + [I] * 7 + [P],
+                       "ssd_bwd": [P] * 15 + [I] * 8 + [P],
+                       "ssd_bwd_workspace_floats": [I] * 7}[name]
+        fn.restype = (ctypes.c_longlong if name == "ssd_bwd_workspace_floats"
+                      else ctypes.c_int)
     return fn
 
 
@@ -106,8 +122,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``select_body`` picks) names the body to run, ``fma`` or, for bfloat16,
     ``mma``.  Raises on anything else."""
     refuse_grad("ssd_cuda", (x, dt, A, Bm, Cm, D),
-                "training the SSD layers on the card waits for its "
-                "backward kernel (ROADMAP.md Queue 1 item 7)")
+                "call kernels.ops.ssd_scan, which differentiates it through "
+                "SSDFunction (ROADMAP.md Queue 1 item 7)")
     if not x.is_cuda:
         raise ValueError(f"ssd_cuda takes CUDA tensors, got {x.device}")
     picked = select_body(x, dt, A, Bm, Cm, D, chunk)
@@ -158,10 +174,112 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+def bwd_smem_bytes(chunk: int, P: int, N: int) -> int:
+    """Shared memory of the backward's chunk blocks: C, B, x and dy of a
+    chunk in fp32 with padded rows, 8 vectors of 128 floats and a
+    256-float buffer (``bwd_smem_floats`` in ``csrc/ssd.cu``)."""
+    Qp = (chunk + 3) & ~3
+    return 4 * (2 * Qp * (N + 4) + 2 * Qp * (P + 4) + 8 * 128 + 256)
+
+
+def check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
+                     d_state=None) -> None:
+    """Check what the backward takes, on any device from dtype and shape.
+
+    Raises on what the forward takes no body for, on a dy unlike x or a d_state that is not
+    (B,H,P,N), on empty inputs, and on a chunk whose block would need more than
+    227 KB of shared memory (P = 128 with N = 128 at chunk 128: ROADMAP.md
+    Queue 2 item 3)."""
+    select_body(x, dt, A, Bm, Cm, D, chunk)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
+                         f"{x.dtype} {tuple(x.shape)}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if d_state is not None and (d_state.shape != (B, H, P, N)
+                                or d_state.device != x.device):
+        raise ValueError(f"d_state must be (B, H, P, N) = {(B, H, P, N)}; "
+                         f"got {tuple(d_state.shape)}")
+    if B * S * H == 0:
+        raise ValueError("the SSD backward takes B, S, H >= 1")
+    if bwd_smem_bytes(chunk, P, N) > BWD_MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk}, P={P}, N={N}: the backward's block "
+                         f"would need {bwd_smem_bytes(chunk, P, N)} bytes of "
+                         "shared memory, above 227 KB (ROADMAP.md Queue 2 "
+                         "item 3)")
+
+
+def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                 dy: torch.Tensor, d_state: torch.Tensor | None = None, *,
+                 chunk: int = 128):
+    """(dx, ddt, dA, dBm, dCm, dD), each in its input's dtype, of
+    ``ssd_cuda``'s y and final state, given dy (like x) and ``d_state``
+    (B,H,P,N) or None (the final state unused).
+
+    The inputs ``ssd_cuda`` takes, none empty, and the chunk's block within 227
+    KB of shared memory (``check_bwd_inputs``); computed in fp32 from either
+    dtype.  Every sum has one owner and a fixed order: the same bits on
+    every run on one card."""
+    if not x.is_cuda:
+        raise ValueError(f"ssd_bwd_cuda takes CUDA tensors, got {x.device}")
+    dy = dy.contiguous()
+    if d_state is not None:
+        d_state = d_state.to(torch.float32).contiguous()
+    check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    f32 = torch.float32
+    dtf, Af, Df = (t.to(f32).contiguous() for t in (dt, A, D))
+    dx, dBm, dCm = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty((B, S, H), dtype=f32, device=x.device)
+    dA, dD = (torch.empty(H, dtype=f32, device=x.device) for _ in range(2))
+    with torch.cuda.device(x.device):
+        ws = torch.empty(_entry("ssd_bwd_workspace_floats")(
+            B, S, H, P, G, N, chunk), dtype=f32, device=x.device)
+        err = _entry("ssd_bwd")(
+            x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), Df.data_ptr(), dy.data_ptr(),
+            None if d_state is None else d_state.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+            dD.data_ptr(), ws.data_ptr(), B, S, H, P, G, N, chunk,
+            _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
+    ssd_bwd_cuda.launches += 1
+    ssd_bwd_cuda.launches_by_body["fma"] += 1
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dBm, dCm, dD.to(D.dtype))
+
+
+class SSDFunction(torch.autograd.Function):
+    """``ssd_cuda`` forward, ``ssd_bwd_cuda`` backward.  Grads are not
+    materialized: an unused final state costs no zero tensor."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        return ssd_cuda(x, dt, A, Bm, Cm, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        if dy is None and d_state is None:
+            return (None,) * 7
+        x, dt, A, Bm, Cm, D = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, d_state,
+                              chunk=ctx.chunk), None)
+
+
 def reset_counts() -> None:
-    """Set the launch counts (total and by body) to 0."""
+    """Set the launch counts (forward and backward, total and by body)
+    to 0."""
     ssd_cuda.launches = 0
     ssd_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
+    ssd_bwd_cuda.launches = 0
+    ssd_bwd_cuda.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 
 
 reset_counts()

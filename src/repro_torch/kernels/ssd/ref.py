@@ -29,6 +29,16 @@ Recurrence per head h (group g = h // (H // G)):
 
 Both scans start from a zero state and return ``(y, state)``: y in
 ``x.dtype`` and the fp32 state (B, H, P, N) after the last step.
+
+``ssd_chunked_bwd`` is the plain backward of the chunked scan (the oracle for
+the CUDA backward kernel, which nothing on the CPU path calls: autograd
+differentiates the forward there), in the phases of the kernel's launches:
+``ssd_chunk_state`` and ``ssd_chunk_dstate`` (each chunk's local state and
+the gradient its outputs send to the state entering it), ``ssd_state_passing``
+and ``ssd_state_passing_bwd`` (the states entering the chunks, and the
+gradient of each chunk's local state, run in reverse), ``ssd_chunk_scan_bwd``
+(every gradient inside a chunk) and ``ssd_sum_ordered`` (dA and dD summed over
+the chunks in the kernel's fixed order).
 """
 from __future__ import annotations
 
@@ -162,6 +172,172 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     states_in, state = ssd_state_passing(states, cum, chunk=chunk)
     return ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in,
                           chunk=chunk), state
+
+
+def ssd_chunk_dstate(dy, Cm, cum, *, chunk: int = 128):
+    """The gradient each chunk's outputs send to the state entering it,
+    E (B,nc,H,P,N) fp32: sum_i exp(cum_i) dy_i C_iᵀ over the chunk (the
+    transpose of y's inter-chunk term; padding contributes 0)."""
+    B, S, H, P = dy.shape
+    dyf = _chunked(dy.to(torch.float32), chunk)             # (B,nc,Q,H,P)
+    nc = dyf.shape[1]
+    Ch = _expand_groups(_chunked(Cm.to(torch.float32), chunk).flatten(1, 2),
+                        H).reshape(B, nc, chunk, H, -1)     # (B,nc,Q,H,N)
+    cum = cum.reshape(B, H, nc, chunk).permute(0, 2, 3, 1)  # (B,nc,Q,H)
+    return torch.einsum("bcqh,bcqhp,bcqhn->bchpn", torch.exp(cum), dyf, Ch)
+
+
+def ssd_state_passing_bwd(dstates, cum, d_state=None, *, chunk: int = 128):
+    """The reverse state pass: dstates (B,nc,H,P,N) holds each chunk's E
+    (``ssd_chunk_dstate``); returns the gradient of each chunk's local end
+    state (= of the state leaving it), fp32.  G_nc = ``d_state`` (or 0),
+    G_c = exp(total_c) G_{c+1} + E_c, and chunk c's local state gets
+    G_{c+1}."""
+    B, nc, H, P, N = dstates.shape
+    total = cum.reshape(B, H, nc, chunk)[..., -1]           # (B,H,nc)
+    g = (torch.zeros((B, H, P, N), dtype=torch.float32,
+                     device=dstates.device)
+         if d_state is None else d_state.to(torch.float32))
+    out = torch.empty_like(dstates)
+    for c in reversed(range(nc)):
+        out[:, c] = g
+        g = g * torch.exp(total[:, :, c])[..., None, None] + dstates[:, c]
+    return out
+
+
+def _tree(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a pairwise tree (element k with k + half, the
+    halves folded until one is left), zero-padded to a power of two."""
+    t = t.movedim(dim, 0)
+    n = 1 << max(t.shape[0] - 1, 0).bit_length()
+    t = torch.cat([t, t.new_zeros((n - t.shape[0], *t.shape[1:]))])
+    while t.shape[0] > 1:
+        half = t.shape[0] // 2
+        t = t[:half] + t[half:]
+    return t[0]
+
+
+def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, *,
+                       chunk: int = 128):
+    """Every gradient inside the chunks, fp32, from the forward's cum and
+    states_in (``ssd_chunk_state`` / ``ssd_state_passing``) and the
+    gradients of the chunks' local states (``ssd_state_passing_bwd``).
+
+    Returns (dx (B,S,H,P), ddt (B,S,H), dB and dC per head (B,S,H,N), and
+    each chunk's part of dA and dD (B,nc,H)).  The intra-chunk term's
+    transpose, the inter-chunk term's, the chunk state's and the D skip's,
+    then d(dt·A): the reverse cumsum of d cum within the chunk plus the
+    gradient of the chunk's total (through its decay in the state pass and
+    in the weights exp(total - cum_j) of its local state), taken in the form
+    whose large terms do not cancel (the scores' d cum is a row sum minus a
+    column sum of R = dM ∘ M, and the weights' is cancelled by the total's):
+
+        d(dt·A)_t = sum_{i >= t, j < t} R_ij
+                    + sum_{i >= t} exp(cum_i) dy_i·Z_i
+                    + sum_{i < t} w_i dw_i + exp(total) <dstate, state_in>
+
+    A chunk's dA and dD are summed over its tokens as a pairwise tree
+    (``_tree``), as the kernel sums them."""
+    B, S, H, P = x.shape
+    f32 = torch.float32
+    xf, dyf = (_chunked(t.to(f32), chunk) for t in (x, dy))  # (B,nc,Q,H,P)
+    dtf = _chunked(dt.to(f32), chunk)                        # (B,nc,Q,H)
+    nc = dtf.shape[1]
+    Bh, Ch = (_expand_groups(_chunked(m.to(f32), chunk).flatten(1, 2), H)
+              .reshape(B, nc, chunk, H, -1) for m in (Bm, Cm))
+    cum = cum.reshape(B, H, nc, chunk).permute(0, 2, 3, 1)   # (B,nc,Q,H)
+    total = cum[:, :, -1:]                                   # (B,nc,1,H)
+    ecum = torch.exp(cum)
+    to_end = torch.exp(total - cum)
+    w = to_end * dtf                                         # (B,nc,Q,H)
+
+    # L[i, j] = exp(cum_i - cum_j) for i >= j, the argument masked before
+    # the exp (nothing above the diagonal is ever exp'ed to inf)
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    arg = torch.where(causal, cum[:, :, :, None] - cum[:, :, None],
+                      torch.tensor(-1e30, dtype=f32, device=x.device))
+    L = torch.exp(arg)                                       # (B,nc,Q,Q,H)
+    K = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh) * L       # C·Bᵀ ∘ L
+    M = K * dtf[:, :, None]                                  # the scores
+    dM = torch.einsum("bcqhp,bcshp->bcqsh", dyf, xf)         # dy xᵀ
+    dCB = dM * L * dtf[:, :, None]
+    R = dM * M
+    # sum_{i >= t, j < t} R_ij: R's suffix sums over i, then row t's j < t
+    da = (R.flip(2).cumsum(2).flip(2)
+          * (idx[None, :] < idx[:, None])[None, None, :, :, None]).sum(3)
+    ddt = (dM * K).sum(2)
+    dx = torch.einsum("bcqsh,bcqhp->bcshp", M, dyf)
+    # the chunk's local state sum_j w_j x_j B_jᵀ, whose gradient is dstates
+    U = torch.einsum("bcshn,bchpn->bcshp", Bh, dstates)
+    dx = dx + w[..., None] * U + D.to(f32)[:, None] * dyf
+    dw = (xf * U).sum(-1)
+    ddt = ddt + to_end * dw
+    wdw = w * dw
+    da = da + torch.cat([torch.zeros_like(wdw[:, :, :1]),
+                         wdw.cumsum(2)[:, :, :-1]], 2)
+    da = da + (torch.exp(total[:, :, 0]) * (dstates * states_in).sum(
+        (-1, -2)))[:, :, None]
+    # the inter-chunk term exp(cum_i) C_i · state_in
+    Z = torch.einsum("bcqhn,bchpn->bcqhp", Ch, states_in)
+    ez = ecum * (dyf * Z).sum(-1)
+    da = da + ez.flip(2).cumsum(2).flip(2)
+    dC = (torch.einsum("bcqsh,bcshn->bcqhn", dCB, Bh)
+          + ecum[..., None] * torch.einsum("bcqhp,bchpn->bcqhn", dyf,
+                                           states_in))
+    dB = (torch.einsum("bcqsh,bcqhn->bcshn", dCB, Ch)
+          + w[..., None] * torch.einsum("bcshp,bchpn->bcshn", xf, dstates))
+    ddt = ddt + A.to(f32) * da
+    dA_parts = _tree(dtf * da, 2)
+    dD_parts = _tree((xf * dyf).sum(-1), 2)
+
+    def unchunk(t):
+        return t.reshape(B, nc * chunk, *t.shape[3:])[:, :S]
+    return (unchunk(dx), unchunk(ddt), unchunk(dB), unchunk(dC), dA_parts,
+            dD_parts)
+
+
+def ssd_sum_ordered(parts: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """(B,nc,H) per-chunk parts -> (H,) in the backward kernel's order:
+    lane k of ``threads`` sums parts k, k + threads, ... (over the flat
+    b·nc + c index) in turn, then a pairwise tree over the lanes."""
+    B, nc, H = parts.shape
+    flat = parts.reshape(B * nc, H)
+    pad = -flat.shape[0] % threads
+    flat = torch.cat([flat, flat.new_zeros((pad, H))]).reshape(-1, threads,
+                                                                H)
+    lanes = torch.zeros_like(flat[0])
+    for row in flat:
+        lanes = lanes + row
+    return _tree(lanes, 0)
+
+
+def ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, d_state=None, *,
+                    chunk: int = 128):
+    """The gradients (dx, ddt, dA, dBm, dCm, dD) of ``ssd_chunked``'s y and
+    final state, given dy (like x) and ``d_state`` (B,H,P,N) or None (the
+    final state unused), each in its input's dtype, computed in fp32.  Any S
+    (the last chunk padded, as the kernel pads it).  dB and dC are summed
+    over each group's heads in order; dA and dD over the chunks by
+    ``ssd_sum_ordered``."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    states_in, _ = ssd_state_passing(states, cum, chunk=chunk)
+    dstates = ssd_state_passing_bwd(ssd_chunk_dstate(dy, Cm, cum, chunk=chunk),
+                                    cum, d_state, chunk=chunk)
+    dx, ddt, dBh, dCh, dA_parts, dD_parts = ssd_chunk_scan_bwd(
+        x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, chunk=chunk)
+
+    def by_group(t):      # (B,S,H,N) -> (B,S,G,N), each group's heads in order
+        t = t.reshape(B, S, G, H // G, N)
+        out = t[:, :, :, 0]
+        for k in range(1, H // G):
+            out = out + t[:, :, :, k]
+        return out
+    return (dx.to(x.dtype), ddt.to(dt.dtype),
+            ssd_sum_ordered(dA_parts).to(A.dtype), by_group(dBh).to(Bm.dtype),
+            by_group(dCh).to(Cm.dtype), ssd_sum_ordered(dD_parts).to(D.dtype))
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm, D):

@@ -45,15 +45,17 @@ def adamw_update(grads, opt, params, lr, cfg: AdamWConfig = AdamWConfig()):
     bc2 = 1.0 - cfg.b2 ** c
 
     def upd(g, m, v, p):
+        # the reference's operations in its order; each temporary is freed
+        # (or written in place) as soon as it is used, since a leaf may be
+        # gigabytes (recurrentgemma-9b's tied 256000-word embedding: 4.2 GB)
         g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g.square()
-        mh = m / bc1
-        vh = v / bc2
-        step = mh / (vh.sqrt() + cfg.eps)
+        m = (cfg.b1 * m).add_((1 - cfg.b1) * g)
+        v = (cfg.b2 * v).add_(g.square().mul_(1 - cfg.b2))
+        del g
+        step = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
         if p.ndim >= 2:  # decay matrices only (norms/bias exempt)
-            step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype), m, v
+            step.add_(cfg.weight_decay * p.float())
+        return (p.float() - step.mul_(lr)).to(p.dtype), m, v
 
     out = tree_map(upd, grads, opt["m"], opt["v"], params)
     pick = lambda i: tree_map(lambda o: o[i], out,  # noqa: E731

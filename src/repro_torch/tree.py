@@ -16,24 +16,26 @@ def _children(node) -> Optional[list]:
     return None
 
 
+def _walk(node, path: tuple, is_leaf: Optional[Callable], out: list) -> None:
+    if node is None:
+        return
+    kids = None if is_leaf is not None and is_leaf(node) else _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for key, child in kids:
+        _walk(child, path + (key,), is_leaf, out)
+
+
 def tree_flatten_with_path(tree, is_leaf: Optional[Callable] = None
                            ) -> list[tuple[tuple, Any]]:
     """[(path, leaf)] in the reference's order; a path is the tuple of dict
-    keys and sequence indices from the root."""
-    out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = None if is_leaf is not None and is_leaf(node) else \
-            _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for key, child in kids:
-            walk(child, path + (key,))
-
-    walk(tree, ())
+    keys and sequence indices from the root.  (A module-level walk: a nested
+    one that calls itself through its closure makes a reference cycle,
+    which would keep the returned leaves alive until the cycle collector
+    runs, gigabytes of gradients in a train step.)"""
+    out: list = []
+    _walk(tree, (), is_leaf, out)
     return out
 
 

@@ -3,10 +3,11 @@
 Each kernel against its plain PyTorch version on the same inputs, at the
 JAX suite's tolerances (fp32 2e-5, bf16 2e-2, the RG-LRU scan 1e-4 in fp32,
 the SSD scan 2e-3 fp32 / 5e-2 bf16), and the serving path on the card
-against the same path on the CPU.  The backward kernels (RMSNorm, flash
-attention) against autograd of their plain versions in fp32 on the same
-inputs, and the training step on the card against the same step on the
-CPU.  Each body of a kernel is held on its own
+against the same path on the CPU.  The backward kernels against their plain
+versions on the same inputs (RMSNorm and flash attention: autograd of the
+forward in fp32; the scans: ``ssd_chunked_bwd`` and ``rglru_bwd``), and the
+training step on the card against the same step on the CPU, for the dense
+LM and the SSD and RG-LRU families.  Each body of a kernel is held on its own
 (flash attention's sm90, mma and fp32 bodies, rmsnorm's one-read and generic
 bodies, the SSD scan's mma and fma bodies, the RG-LRU scan's segmented and
 serial bodies), and the launch counts by body show which one ran.  This file
@@ -29,15 +30,19 @@ from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
-from repro_torch.kernels.rglru.kernel import rglru_cuda
-from repro_torch.kernels.rglru.ref import rglru_assoc, rglru_sequential
+from repro_torch.kernels.rglru import kernel as lru
+from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda, rglru_cuda
+from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
+                                           rglru_sequential)
 from repro_torch.kernels.rmsnorm import kernel as rms
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.kernels.ssd.kernel import ssd_cuda
+from repro_torch.kernels.ssd import kernel as ssd
+from repro_torch.kernels.ssd.kernel import ssd_bwd_cuda, ssd_cuda
 from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
                                          ssd_chunk_state, ssd_chunked,
-                                         ssd_sequential, ssd_state_passing)
+                                         ssd_chunked_bwd, ssd_sequential,
+                                         ssd_state_passing)
 from repro_torch.models import init_cache, init_params
 from repro_torch.optim import adamw_update, init_opt_state
 from repro_torch.train.steps import (TrainConfig, make_decode_step,
@@ -614,6 +619,30 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, D):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
+@pytest.mark.parametrize("rows,D", [(8192, 768), (8192, 1536), (2048, 4096)])
+def test_rmsnorm_bwd_holds_at_the_recurrent_train_shapes(cuda, rows, D):
+    """fp32 dx and dscale at mamba2-130m's norm1 (warp_rows) and gated norm
+    (generic) and recurrentgemma-9b's norm (generic) against a float64
+    evaluation at 2e-5: at 8192 rows rmsnorm_ref's own fp32 dscale strays
+    from the exact sum by more than that, so the kernel is held against
+    the exact one."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dy = (torch.randn(rows, D, generator=g, device=cuda)
+             for _ in range(2))
+    s = torch.randn(D, generator=g, device=cuda)
+    body = rms.select_bwd_body(x, s, dy)[0]
+    assert body == ("warp_rows" if D <= 1024 else "generic")
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy)
+    xd, sd, gd = x.double(), s.double(), dy.double()
+    rstd = torch.rsqrt(xd.square().mean(-1, keepdim=True) + 1e-6)
+    xh, gs = xd * rstd, gd * sd
+    want_dx = rstd * (gs - xh * (gs * xh).mean(-1, keepdim=True))
+    want_ds = (gd * xh).sum(0)
+    for got, want in ((dx, want_dx), (ds, want_ds)):
+        err = (got.double() - want).abs()
+        assert bool((err <= 2e-5 * (1 + want.abs())).all())
+
+
 FLASH_BWD_CASES = [
     (16, 256, 8, 4, 64, dict(causal=True)),         # the 100m preset
     (2, 100, 4, 1, 16, dict(causal=True)),          # smoke, ragged S
@@ -678,6 +707,96 @@ def test_flash_training_on_the_sm90_body_raises(cuda):
     k = torch.zeros(1, 64, 1, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.flash_attention(q, k, k)
+
+
+SSD_BWD_CASES = [
+    (8, 1024, 24, 64, 1, 128, 128),   # mamba2-130m's train step
+    (2, 1000, 24, 64, 1, 128, 128),   # a ragged last chunk
+    (2, 200, 4, 16, 2, 16, 64),       # grouped B/C, ragged
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_BWD_CASES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk,
+                                      with_state):
+    """dx, ddt, dA, dB, dC, dD through ``SSDFunction`` (``ops.ssd_scan`` with
+    inputs that require grad) against ``ssd_chunked_bwd`` on the same inputs,
+    at the SSD tolerances (2e-3 fp32, 5e-2 bf16), with and without a
+    gradient of the final state; two backward calls give the same bits."""
+    x, dt, A, Bm, Cm, D = _ssd_inputs(cuda, B, S, H, P, G, N, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dy = torch.randn(B, S, H, P, generator=g, device=cuda).to(dtype)
+    ds = (torch.randn(B, H, P, N, generator=g, device=cuda) if with_state
+          else None)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    before = (ssd_cuda.launches, ssd_bwd_cuda.launches_by_body["fma"])
+    y, state = ops.ssd_scan(*leaves, chunk=chunk)
+    loss = (y.float() * dy.float()).sum()
+    if ds is not None:
+        loss = loss + (state * ds).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (ssd_cuda.launches, ssd_bwd_cuda.launches_by_body["fma"]) == (
+        before[0] + 1, before[1] + 1)
+    want = ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, ds, chunk=chunk)
+    t = 2e-3 if dtype == torch.float32 else 5e-2
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype and _within(leaf.grad, w, t)
+    first = ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, ds, chunk=chunk)
+    again = ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, ds, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W", [(4, 512, 4096), (2, 37, 200),
+                                   (3, 1000, 130)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_bwd_kernel_matches_plain(cuda, dtype, B, S, W, with_h0):
+    """d log_a, d gx and dh0 through ``RGLRUFunction`` (``ops.rglru_scan``
+    with inputs that require grad) against ``rglru_bwd`` on the same inputs,
+    with gradients of y and h_last, at 1e-4 fp32 / 2e-2 bf16; two backward
+    calls give the same bits.  (4, 512, 4096) is recurrentgemma-9b's."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, W, generator=g, device=cuda)).to(dtype)
+    gx, dy = (torch.randn(B, S, W, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    h0 = torch.randn(B, W, generator=g, device=cuda) if with_h0 else None
+    dh = torch.randn(B, W, generator=g, device=cuda)
+    leaves = [la.clone().requires_grad_(), gx.clone().requires_grad_()]
+    if with_h0:
+        leaves.append(h0.clone().requires_grad_())
+    before = rglru_bwd_cuda.launches_by_body["serial"]
+    y, h_last = ops.rglru_scan(*leaves[:2], leaves[2] if with_h0 else None)
+    ((y.float() * dy.float()).sum() + (h_last * dh).sum()).backward()
+    torch.cuda.synchronize()
+    assert rglru_bwd_cuda.launches_by_body["serial"] == before + 1
+    want = rglru_bwd(la, gx, dy, h0, dh)
+    t = 1e-4 if dtype == torch.float32 else 2e-2
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype and _within(leaf.grad, w, t)
+    first = rglru_bwd_cuda(la, gx, dy, h0, dh)
+    again = rglru_bwd_cuda(la, gx, dy, h0, dh)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(first, again))
+
+
+def test_scan_raw_wrappers_still_refuse_inputs_that_require_grad(cuda):
+    """Grad mode on, an input that requires grad: the raw wrappers raise
+    and name the Function that ``kernels.ops`` takes; under no_grad they
+    run."""
+    args = _ssd_inputs(cuda, 1, 32, 2, 16, 1, 16, torch.float32)
+    x = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="SSDFunction"):
+        ssd_cuda(x, *args[1:], chunk=16)
+    la = torch.zeros(1, 8, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="RGLRUFunction"):
+        rglru_cuda(la, la)
+    with torch.no_grad():
+        ssd_cuda(x, *args[1:], chunk=16)
+        rglru_cuda(la, la)
 
 
 def _lm(layers, **kw):
@@ -756,6 +875,44 @@ def test_train_step_launches_each_kernel_both_ways(cuda):
     assert flash_attention_cuda.launches_by_body["fp32"] == 2
     assert rmsnorm_bwd_cuda.launches_by_body["warp_rows"] == 5
     assert flash_attention_bwd_cuda.launches_by_body["mma_tf32x3"] == 2
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("mamba2-130m", {"ssd": 2, "rmsnorm": 5}),
+    ("recurrentgemma-9b", {"rglru": 4, "rmsnorm": 11, "flash": 1})])
+def test_family_train_step_on_card_matches_cpu(cuda, arch, launches):
+    """One fp32 train step of the SSD and RG-LRU families' smoke configs on
+    the card against the CPU: loss and every gradient leaf within 2e-4 of
+    the leaf's largest value; each kernel launched as many times backward
+    as forward (mamba2: 2 SSD layers, 2L + 1 RMSNorms; recurrentgemma: 4
+    RG-LRU layers and one local-attention layer, 2L + 1 RMSNorms)."""
+    cfg = get_smoke_config(arch)
+    tc = TrainConfig(dtype=torch.float32)
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for module in (rms, flash, lru, ssd):
+        module.reset_counts()
+    for dev in ("cpu", cuda):
+        total, _, grads = make_loss_and_grad(cfg, tc)(
+            _to(params, dev), {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (total.cpu(), [g.cpu() for g in _leaves(grads)])
+    torch.cuda.synchronize()
+    counts = {"ssd": (ssd_cuda.launches, ssd_bwd_cuda.launches),
+              "rglru": (rglru_cuda.launches, rglru_bwd_cuda.launches),
+              "rmsnorm": (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches),
+              "flash": (flash_attention_cuda.launches,
+                        flash_attention_bwd_cuda.launches)}
+    assert counts == {k: (launches.get(k, 0),) * 2 for k in counts}
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert abs(float(card[0]) - float(cpu[0])) <= 2e-4 * abs(float(cpu[0]))
+    for got, want in zip(card[1], cpu[1]):
+        assert float((got - want).abs().max()) <= 2e-4 * float(
+            want.abs().max())
 
 
 def test_train_example_runs_on_card(cuda, monkeypatch, capsys, tmp_path):

@@ -3,9 +3,9 @@
 ``select_body`` of the flash-attention, rmsnorm, SSD and RG-LRU wrappers is
 a pure function of dtype, shape, base address and strides: these tests hold
 it without a card, including the inputs that no body takes (which raise).
-So is each backward's ``select_bwd_body`` (flash attention's, rmsnorm's,
-and rmsnorm's grid), and the raw wrappers' refusal of inputs that require
-grad.  The bodies themselves run
+So is each backward's ``select_bwd_body`` (flash attention's, rmsnorm's
+and the SSD scan's, and rmsnorm's grid), and the raw wrappers' refusal of
+inputs that require grad.  The bodies themselves run
 in ``test_torch_cuda.py``.
 """
 import pytest
@@ -279,9 +279,44 @@ def test_ssd_select_raises_on_a_chunk_outside_16_128(chunk):
 
 def test_ssd_counts_start_at_zero_by_body():
     ssd.ssd_cuda.launches = 5
+    ssd.ssd_bwd_cuda.launches = 2
     ssd.reset_counts()
     assert ssd.ssd_cuda.launches == 0
     assert ssd.ssd_cuda.launches_by_body == {"mma": 0, "fma": 0}
+    assert ssd.ssd_bwd_cuda.launches == 0
+    assert ssd.ssd_bwd_cuda.launches_by_body == {"fma": 0}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("S,P,N,chunk", [
+    (1024, 64, 128, 128), (1000, 64, 128, 128), (37, 16, 16, 16),
+    (200, 128, 128, 64)])
+def test_ssd_bwd_takes_both_dtypes(dtype, S, P, N, chunk):
+    args = ssd_args(S=S, P=P, N=N, dtype=dtype)
+    assert ssd.check_bwd_inputs(*args, torch.zeros_like(args[0]), chunk,
+                                torch.zeros(2, 24, P, N)) is None
+
+
+def test_ssd_bwd_block_fits_227_kb_at_mamba2s_shape():
+    """mamba2-130m's chunk 128, head dim 64 and state 128 fit; head dim 128
+    at state 128 and chunk 128 does not."""
+    assert ssd.bwd_smem_bytes(128, 64, 128) == 209920
+    assert ssd.bwd_smem_bytes(128, 128, 128) > ssd.BWD_MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda a: (*a, torch.zeros_like(a[0]), 128, None), "227 KB"),
+    (lambda a: (*a, torch.zeros_like(a[0], dtype=F32), 64, None), "dy"),
+    (lambda a: (*a, torch.zeros_like(a[0]), 64, torch.zeros(2, 24, 128)),
+     "d_state"),
+])
+def test_ssd_bwd_check_raises_on_what_it_does_not_take(make, match):
+    args = ssd_args(P=128, N=128)
+    with pytest.raises(ValueError, match=match):
+        ssd.check_bwd_inputs(*make(args))
+    with pytest.raises(ValueError, match="B, S, H >= 1"):
+        a = ssd_args(S=0)
+        ssd.check_bwd_inputs(*a, torch.zeros_like(a[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -324,9 +359,12 @@ def test_rglru_select_raises_on_what_no_body_takes(make, exc, match):
 
 def test_rglru_counts_start_at_zero_by_body():
     rglru.rglru_cuda.launches = 3
+    rglru.rglru_bwd_cuda.launches = 4
     rglru.reset_counts()
     assert rglru.rglru_cuda.launches == 0
     assert rglru.rglru_cuda.launches_by_body == {"segmented": 0, "serial": 0}
+    assert rglru.rglru_bwd_cuda.launches == 0
+    assert rglru.rglru_bwd_cuda.launches_by_body == {"serial": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -417,3 +455,34 @@ def test_cpu_ops_differentiate_the_plain_versions():
     q2 = q.detach().clone().requires_grad_()
     mha_ref(q2, k, k).sum().backward()
     assert torch.equal(q.grad, q2.grad)
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    args = ssd_args(S=16, H=2, P=8, N=8, dtype=F32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd.ssd_bwd_cuda(*args, torch.zeros_like(args[0]), chunk=16)
+    la = torch.zeros(1, 16, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rglru.rglru_bwd_cuda(la, la, la)
+
+
+def test_cpu_ops_differentiate_the_plain_scans():
+    """On the CPU the scans' dispatch takes the plain versions, which
+    autograd differentiates (their Functions are for the card)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rglru.ref import rglru_sequential
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    g = torch.Generator().manual_seed(0)
+    la = -torch.rand(2, 8, 16, generator=g)
+    gx = torch.randn(2, 8, 16, generator=g, requires_grad=True)
+    ops.rglru_scan(la, gx)[0].sum().backward()
+    gx2 = gx.detach().clone().requires_grad_()
+    rglru_sequential(la, gx2)[0].sum().backward()
+    assert torch.equal(gx.grad, gx2.grad)
+    x = torch.randn(1, 32, 2, 8, generator=g, requires_grad=True)
+    dt, A = torch.rand(1, 32, 2, generator=g), -torch.rand(2, generator=g)
+    bm = torch.randn(1, 32, 1, 8, generator=g)
+    ops.ssd_scan(x, dt, A, bm, bm, torch.ones(2), chunk=16)[0].sum().backward()
+    x2 = x.detach().clone().requires_grad_()
+    ssd_chunked(x2, dt, A, bm, bm, torch.ones(2), chunk=16)[0].sum().backward()
+    assert torch.equal(x.grad, x2.grad)

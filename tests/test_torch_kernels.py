@@ -3,7 +3,8 @@
 The plain PyTorch versions (``rmsnorm_ref``, ``mha_ref``,
 ``attention_mask``) against the JAX Pallas kernels run in interpret mode and
 against the JAX references, on the same numpy inputs; the gradients of
-``rmsnorm_ref`` and ``mha_ref`` (autograd) against ``jax.grad`` of the JAX
+``rmsnorm_ref`` and ``mha_ref`` (autograd) and the plain backwards of the
+scans (``ssd_chunked_bwd``, ``rglru_bwd``) against ``jax.grad`` of the JAX
 references, which the backward kernels are held to on the card through
 them.  Tolerances are the
 JAX suite's own (``tests/test_kernels.py``): fp32 2e-5, bf16 2e-2, RG-LRU
@@ -38,16 +39,17 @@ from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                      mha_ref, split_product,
                                                      split_tf32, tf32x3)
 from repro_torch.kernels.rglru.kernel import rglru_cuda
-from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_gates,
-                                           rglru_sequential)
+from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
+                                           rglru_gates, rglru_sequential)
 from repro_torch.kernels.rmsnorm.kernel import bwd_grid, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_dscale_ordered,
                                              rmsnorm_ref)
 from repro_torch.kernels.ssd.kernel import ssd_cuda
-from repro_torch.kernels.ssd.ref import (split_bf16, ssd_chunk_scan,
+from repro_torch.kernels.ssd.ref import (_tree, split_bf16, ssd_chunk_scan,
                                          ssd_chunk_state, ssd_chunked,
-                                         ssd_decode_step, ssd_sequential,
-                                         ssd_state_passing)
+                                         ssd_chunked_bwd, ssd_decode_step,
+                                         ssd_sequential, ssd_state_passing,
+                                         ssd_sum_ordered)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -147,6 +149,24 @@ def test_rmsnorm_bwd_dscale_order_matches_jax(sms):
         running = running + row
     assert not np.all(np.abs(running.numpy() - want)
                       <= 2e-5 * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("rows,D", [(8192, 768), (8192, 512)])
+def test_rmsnorm_bwd_dscale_order_holds_at_8192_rows(rows, D):
+    """The warp-a-row kernel's dscale order (its sums in fp64) at the
+    mamba2-130m train step's rows, against a float64 evaluation at 2e-5:
+    the same order in fp32 missed there on the card."""
+    rng = np.random.default_rng(5)
+    x, dy = (rng.standard_normal((rows, D)).astype(np.float32)
+             for _ in range(2))
+    xd = x.astype(np.float64)
+    want = (dy.astype(np.float64) * xd
+            / np.sqrt(np.mean(xd * xd, -1, keepdims=True) + 1e-6)).sum(0)
+    rows_per_warp, _ = bwd_grid(rows, 132)
+    got = rmsnorm_dscale_ordered(torch.from_numpy(x), torch.from_numpy(dy),
+                                 rows_per_warp=rows_per_warp)
+    assert got.dtype == torch.float32
+    assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +627,216 @@ def test_ssd_one_bf16_step_tells_split_from_plain_bf16():
     assert bool(((y(None) - want).abs() <= limit).all())
     assert not bool(((y(lambda v: v.bfloat16().float()) - want).abs()
                      <= limit).all())
+
+
+# ---------------------------------------------------------------------------
+# the scans' plain backwards (the oracles of the backward kernels)
+# ---------------------------------------------------------------------------
+
+def _ssd_grad_inputs(B, S, H, P, G, N, seed=5):
+    arrays = _ssd_inputs(B, S, H, P, G, N, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    d_state = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    return arrays, dy, d_state
+
+
+@pytest.mark.parametrize("S", [256, 200])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_ref_matches_jax_grad(S, G, dtype):
+    """dx, ddt, dA, dB, dC, dD of ``ssd_chunked_bwd`` against ``jax.grad`` of
+    JAX's chunked scan (its sequential scan at the ragged S = 200, where the
+    plain backward pads the last chunk as the kernel does) and against
+    autograd of the port's own scan, at the SSD tolerances (2e-3 fp32, 5e-2
+    bf16); x, Bm, Cm and dy in ``dtype``, dt, A, D fp32."""
+    B, H, P, N, chunk = 2, 4, 16, 16, 64
+    arrays, dy, _ = _ssd_grad_inputs(B, S, H, P, G, N)
+    jax_args, torch_args = _ssd_both(arrays, dtype)
+    jdy, tdy = both(dy, dtype)
+    if S % chunk == 0:
+        def loss(*a):
+            return jnp.sum(jax_ssd_chunked(*a, chunk=chunk).astype(jnp.float32)
+                           * jdy.astype(jnp.float32))
+    else:
+        def loss(*a):
+            return jnp.sum(jax_ssd_sequential(*a).astype(jnp.float32)
+                           * jdy.astype(jnp.float32))
+    want = jax.jit(jax.grad(loss, argnums=range(6)))(*jax_args)
+    got = ssd_chunked_bwd(*torch_args, tdy, chunk=chunk)
+    for g, w, t in zip(got, want, torch_args):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert_allclose(f32(g), f32(w), **_ssd_tol(dtype))
+    leaves = [t.clone().requires_grad_() for t in torch_args]
+    y, _ = (ssd_chunked(*leaves, chunk=chunk) if S % chunk == 0
+            else ssd_sequential(*leaves))
+    (y.float() * tdy.float()).sum().backward()
+    for g, leaf in zip(got, leaves):
+        assert_allclose(f32(g), f32(leaf.grad), **_ssd_tol(dtype))
+
+
+@pytest.mark.parametrize("S", [256, 200])
+def test_ssd_bwd_ref_takes_the_final_state_gradient(S):
+    """With a gradient of the final state too: against ``jax.grad`` of JAX's
+    decode step folded over the sequence (its y and its state) and autograd
+    of the port's scan, fp32, 2e-3."""
+    B, H, P, G, N, chunk = 2, 4, 16, 2, 16, 64
+    arrays, dy, d_state = _ssd_grad_inputs(B, S, H, P, G, N, seed=8)
+    jax_args, torch_args = _ssd_both(arrays, "float32")
+
+    def loss(x, dt, A, Bm, Cm, D):
+        def step(state, inp):
+            xt, dtt, bt, ct, dyt = inp
+            state, y = jax_ssd_decode_step(state, xt, dtt, A, bt, ct, D)
+            return state, jnp.sum(y * dyt)
+
+        state, terms = jax.lax.scan(
+            step, jnp.zeros((B, H, P, N), jnp.float32),
+            tuple(jnp.moveaxis(a, 1, 0) for a in (x, dt, Bm, Cm, dy)))
+        return jnp.sum(terms) + jnp.sum(state * d_state)
+
+    want = jax.jit(jax.grad(loss, argnums=range(6)))(*jax_args)
+    got = ssd_chunked_bwd(*torch_args, torch.from_numpy(dy),
+                          torch.from_numpy(d_state), chunk=chunk)
+    leaves = [t.clone().requires_grad_() for t in torch_args]
+    y, state = (ssd_chunked(*leaves, chunk=chunk) if S % chunk == 0
+                else ssd_sequential(*leaves))
+    ((y * torch.from_numpy(dy)).sum()
+     + (state * torch.from_numpy(d_state)).sum()).backward()
+    for g, w, leaf in zip(got, want, leaves):
+        assert_allclose(f32(g), f32(w), **_ssd_tol("float32"))
+        assert_allclose(f32(g), f32(leaf.grad), **_ssd_tol("float32"))
+
+
+def test_ssd_bwd_dD_over_8192_tokens_matches_jax():
+    """dD = sum of x·dy over B·S = 8192 tokens a head, summed as the kernel
+    sums it (a pairwise tree over each chunk's tokens, then
+    ``ssd_sum_ordered`` over the chunks), against ``jax.grad`` at 2e-5."""
+    B, S, H, P, G, N, chunk = 8, 1024, 2, 16, 1, 16, 128
+    arrays, dy, _ = _ssd_grad_inputs(B, S, H, P, G, N, seed=0)
+    want = jax.jit(jax.grad(
+        lambda *a: jnp.sum(jax_ssd_chunked(*a, chunk=chunk) * dy),
+        argnums=5))(*(jnp.asarray(a) for a in arrays))
+    got = ssd_chunked_bwd(*(torch.from_numpy(a) for a in arrays),
+                          torch.from_numpy(dy), chunk=chunk)[5]
+    assert np.abs(np.asarray(want)).max() > 100
+    assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,chunk", [(8, 1024, 128), (2, 4096, 64)])
+def test_ssd_bwd_dA_order_holds_2e_5_on_8192_terms(B, S, chunk):
+    """dA = the sum over B·S = 8192 tokens of dt·d(dt·A): fp32 terms whose
+    running sums wander far from the total (the first half of the tokens
+    drifts up, the second down) summed in the kernel's order (a pairwise
+    tree over each chunk's tokens, then ``ssd_sum_ordered``) hold 2e-5
+    against their float64 sum and JAX's ``jnp.sum`` of them, where a plain
+    running sum misses.  (``jax.grad`` of the whole scan cannot be the
+    reference at 2e-5: its own fp32 dA strays from the float64 value by up
+    to 4.3e-5 at B·S = 8192, since the terms come out of the chunk's
+    cancelling reverse cumsum.)"""
+    H = 4
+    rng = np.random.default_rng(1)
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H)))
+    drift = np.where(np.arange(B * S).reshape(B, S, 1) < B * S // 2, 1.0,
+                     -1.0)
+    terms = (dt * (rng.standard_normal((B, S, H)) * 4 + drift)).astype(
+        np.float32)
+    exact = terms.astype(np.float64).sum((0, 1))
+    got = ssd_sum_ordered(_tree(torch.from_numpy(terms).reshape(
+        B, S // chunk, chunk, H), 2))
+    assert_allclose(f32(got), exact, rtol=2e-5, atol=2e-5)
+    assert_allclose(f32(got), f32(jnp.sum(jnp.asarray(terms), axis=(0, 1))),
+                    rtol=2e-5, atol=2e-5)
+    running = np.zeros(H, np.float32)
+    for row in terms.reshape(-1, H):
+        running = running + row
+    assert not np.all(np.abs(running - exact) <= 2e-5 * (1 + np.abs(exact)))
+
+
+def test_ssd_sum_ordered_is_the_lanes_then_a_tree():
+    parts = torch.arange(600 * 2, dtype=torch.float32).reshape(2, 300, 2)
+    flat = parts.reshape(600, 2)
+    lanes = torch.stack([flat[k::256].sum(0) for k in range(256)])
+    assert torch.equal(ssd_sum_ordered(parts), _tree(lanes, 0))
+    assert torch.equal(_tree(torch.arange(5.0), 0), torch.tensor(10.0))
+
+
+def _rglru_grad_inputs(B, S, W, seed=11):
+    la, gx, h0 = _rglru_inputs(B, S, W, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    dy = rng.standard_normal((B, S, W)).astype(np.float32)
+    dh = rng.standard_normal((B, W)).astype(np.float32)
+    return la, gx, h0, dy, dh
+
+
+def _jax_rglru_grads(la, gx, h0, dy, dh, dtype):
+    """jax.grad of JAX's scan (sequential below 64 steps, associative from
+    64, as its CPU path) for y·dy (+ h_last·dh)."""
+    scan = jax_rglru_sequential if la.shape[1] < 64 else jax_rglru_assoc
+    jd = DTYPES[dtype][0]
+
+    def loss(la, gx, h0):
+        y, h_last = scan(la, gx, h0)
+        out = jnp.sum(y.astype(jnp.float32) * dy)
+        return out if dh is None else out + jnp.sum(h_last * dh)
+
+    args = (jnp.asarray(la).astype(jd), jnp.asarray(gx).astype(jd),
+            None if h0 is None else jnp.asarray(h0))
+    if h0 is None:
+        return (*jax.jit(jax.grad(lambda a, b: loss(a, b, None),
+                                  argnums=(0, 1)))(*args[:2]), None)
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*args)
+
+
+@pytest.mark.parametrize("S", [37, 200])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_bwd_ref_matches_jax_grad(S, with_h0, with_dh, dtype):
+    """d log_a, d gx (and dh0) of ``rglru_bwd`` against ``jax.grad`` of JAX's
+    scan and autograd of the port's, with and without h0 and a gradient of
+    h_last, at 1e-4 fp32 / 2e-2 bf16; W 64."""
+    la, gx, h0, dy, dh = _rglru_grad_inputs(2, S, 64)
+    h0 = h0 if with_h0 else None
+    dh = dh if with_dh else None
+    t = dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=1e-4)
+    want = _jax_rglru_grads(la, gx, h0, dy, dh, dtype)
+    td = DTYPES[dtype][1]
+    la_t, gx_t = (torch.from_numpy(a).to(td) for a in (la, gx))
+    h0_t = None if h0 is None else torch.from_numpy(h0)
+    dh_t = None if dh is None else torch.from_numpy(dh)
+    got = rglru_bwd(la_t, gx_t, torch.from_numpy(dy).to(td), h0_t, dh_t)
+    assert got[0].dtype == got[1].dtype == td
+    assert (got[2] is None) == (h0 is None)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert_allclose(f32(g), f32(w), **t)
+    leaves = [la_t.clone().requires_grad_(), gx_t.clone().requires_grad_()]
+    if h0_t is not None:
+        leaves.append(h0_t.clone().requires_grad_())
+    scan = rglru_sequential if S < 64 else rglru_assoc
+    y, h_last = scan(*leaves[:2], h0=leaves[2] if h0_t is not None else None)
+    loss = (y.float() * torch.from_numpy(dy)).sum()
+    if dh_t is not None:
+        loss = loss + (h_last * dh_t).sum()
+    loss.backward()
+    for g, leaf in zip(got, leaves):
+        assert_allclose(f32(g), f32(leaf.grad), **t)
+
+
+@pytest.mark.parametrize("edge", [0.0, -1e-7, -1e-3])
+def test_rglru_bwd_ref_at_the_clamp_edge(edge):
+    """log_a at 0 (1 - a² = 0: the clamp holds β at 1e-6 and passes no
+    gradient), -1e-7 (1/β near 2000) and -1e-3, every third step, against
+    ``jax.grad`` at 1e-4."""
+    la, gx, h0, dy, dh = _rglru_grad_inputs(2, 37, 64, seed=3)
+    la[:, ::3] = edge
+    want = _jax_rglru_grads(la, gx, h0, dy, dh, "float32")
+    got = rglru_bwd(*(torch.from_numpy(a) for a in (la, gx, dy, h0, dh)))
+    for g, w in zip(got, want):
+        assert np.all(np.isfinite(f32(g)))
+        assert_allclose(f32(g), f32(w), rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
