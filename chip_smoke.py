@@ -26,10 +26,11 @@ Phases, each printed as one JSON line:
    each of the mma body's three phase kernels against its plain phase.
    SSD in fp32 also at mamba2-130m's train shape (x (8,1024,24,64)).
    Each case records the body that ran.  The two backward kernels
-   (RMSNorm: dx and dscale, on its warp_rows body at the train widths and
-   its generic body at 2048, 3584 and an odd width, and in fp32 at the
-   recurrent train steps' shapes, (8192, 768) on warp_rows, (8192, 1536)
-   and (2048, 4096) on generic, each asserting its body; flash attention: dq,
+   (RMSNorm: dx and dscale, on its warp_rows body at the train widths, its
+   cta_rows body at 2048 and 3584 and its generic body at an odd width,
+   and in fp32 at the recurrent train steps' shapes, (8192, 768) on
+   warp_rows, (8192, 1536) and (2048, 4096) on cta_rows, each asserting its
+   body; flash attention: dq,
    dk, dv on the tensor cores, with the forward's log-sum-exp) against
    autograd of their plain versions on the same inputs (flash attention's
    in fp32, RMSNorm's in fp64: rmsnorm_ref's own fp32 dscale strays past
@@ -37,7 +38,8 @@ Phases, each printed as one JSON line:
    bf16, at head dims 16, 32, 64 and 80, causal / window / chunk masks,
    GQA groups up to 8 and S that is not a multiple of the 64-row tiles,
    each called twice (the same bits).  The scans' backward kernels (SSD:
-   dx, ddt, dA, dB, dC, dD; RG-LRU: d log_a, d gx, dh0) against their plain
+   dx, ddt, dA, dB, dC, dD, on its mma body (asserted) and on the fma body
+   forced beside it; RG-LRU: d log_a, d gx, dh0) against their plain
    backwards (``ssd_chunked_bwd``, ``rglru_bwd``) on the card, fp32 and
    bf16, at the scans' tolerances, at mamba2-130m's train shape (x
    (8,1024,24,64), chunk 128), a ragged S = 1000 with a gradient of the
@@ -49,7 +51,7 @@ Phases, each printed as one JSON line:
    at the serving shapes of qwen2-7b, recurrentgemma-9b (and its decode
    shape for the RG-LRU) and mamba2-130m, and the backwards at the 100m
    preset's training shapes (the library: the backward alone of F.rms_norm
-   and of SDPA, through autograd; the RMSNorm backward's generic body also
+   and of SDPA, through autograd; the RMSNorm backward's cta_rows body also
    at (8192, 1536) and (2048, 4096)), beside the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type; the SSD row also gives the fp32-operations bound of its fma
@@ -57,7 +59,9 @@ Phases, each printed as one JSON line:
    TF32 rate and ``fma_bound_ms``, its five products at the fp32 FMA rate),
    and each backward's device time by kernel (``kernel_ms``); the scans'
    backwards at mamba2-130m's and recurrentgemma-9b's train shapes (fp32),
-   bounded by ``ssd_bwd_macs`` at the fp32 rate and by bytes.  The mma body's chunk scan is also held, at one bf16 step of y
+   the SSD's mma body bounded by ``ssd_bwd_split_macs`` at the TF32 rate
+   and by bytes (``fma_bound_ms``: ``ssd_bwd_macs`` at the fp32 rate, the
+   fma body's).  The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
    ``ms``,
@@ -68,8 +72,9 @@ Phases, each printed as one JSON line:
    the kernel.  ``previous_body_ms`` times, on the same inputs, the body
    these shapes took before this round of redesigns (flash attention's mma
    body, rmsnorm's generic body, the SSD scan's fma body, the RG-LRU's
-   serial body, the RMSNorm backward's generic body), called through the C
-   entry point directly; the SSD row times each phase too.  Each kernel's
+   serial body, the RMSNorm backward's generic body, the SSD backward's fma
+   body), called through the C entry point or the wrapper's ``body=``; the
+   SSD row times each phase too.  Each kernel's
    ``profiler_windows`` counts its timings and the profiler windows they
    took (more than 3 a timing: the profiler dropped a window, which is
    then taken again).
@@ -119,13 +124,16 @@ Phases, each printed as one JSON line:
    --arch mamba2-130m --steps 100 --batch 8 --seq 1024 --ckpt-every 25
    --io-latency-ms 1``: the loss falls (mean of the last 10 steps below the
    first 10's), every step finite, the 4 checkpoints commit, the last step
-   restores bit for bit; 24 SSD and 49 RMSNorm launches a step, each way.
-   Step ms, peak memory, checkpoint ACK s.
+   restores bit for bit; 24 SSD and 49 RMSNorm launches a step, each way,
+   every SSD backward on its mma body and the gated norms' 24 RMSNorm
+   backwards a step on cta_rows (the other 25 on warp_rows).  Step ms, peak
+   memory, checkpoint ACK s.
 9. ``train_rgemma_2l``: recurrentgemma-9b at full width cut to 2 layers
    (rglru, rglru; layer 3 is local attention at head dim 256, whose
    backward is not ported), fp32, batch 4 x 512, 10 steps of
    ``make_train_step``, no checkpoint: every loss finite, 2 RG-LRU and 5
-   RMSNorm launches a step, each way.  Step ms, peak memory.
+   RMSNorm launches a step, each way, every RMSNorm backward on cta_rows.
+   Step ms, peak memory.
 
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve, train-100m, train-mamba2,
@@ -315,6 +323,13 @@ def ssd_bwd_macs(B, S, H, P, G, N, Q) -> int:
                 + (n_chunks - 1) * H * qnp)
 
 
+def ssd_bwd_split_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds the SSD backward's mma body needs on the TF32 tensor
+    cores: those of ``ssd_bwd_macs`` (all its products have an fp32
+    operand), each formed from three TF32 products (hi·hi, hi·lo, lo·hi)."""
+    return 3 * ssd_bwd_macs(B, S, H, P, G, N, Q)
+
+
 def flash_bwd_split_macs(B: int, H: int, pairs: int, dh: int) -> int:
     """Multiply-adds the flash-attention backward's fp32 body needs on the
     TF32 tensor cores: the five products of ``pairs`` (query, key) pairs x
@@ -410,25 +425,30 @@ def phase_env(build):
         for f in scans.values()), f"a scan body spills: {scans}")
     # the backward kernels: flash's dQ and dK/dV at 4 head dims x 2 dtypes
     # (16); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
-    # 2, 4 and, for fp32 x, 8) and its dscale tree (2), and the generic body
-    # (4 type pairs and 2 dscale sums)
+    # 2, 4 and, for fp32 x, 8) and its dscale tree (2), its cta_rows body
+    # (12: 2 scale types x vectors a lane 5-8 for fp32 x and 3-4 for bf16),
+    # and the generic body (4 type pairs and 2 dscale sums)
     bwd = {name: f for src in ("flash_attention", "rmsnorm")
            for name, f in ptxas_functions(logs[src]).items()
            if any(k in name for k in (
                "flash_bwd_", "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel",
-               "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel"))}
+               "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel",
+               "rmsnorm_bwd_cta_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 38 and all(
+    check(len(bwd) == 50 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     # the scans' backward kernels: the SSD's chunk states, reverse state
     # pass, chunk gradients, group and parameter sums (8: two dtypes each
-    # but the two passes and the parameter sum) and the RG-LRU's (2)
+    # but the two passes and the parameter sum), the mma body's chunk
+    # states, C B^T and chunk gradients (8: two dtypes each, the chunk
+    # gradients at mamba2-130m's tile counts and at any) and the RG-LRU's
+    # (2)
     scan_bwd = {name: f for src in ("ssd", "rglru")
                 for name, f in ptxas_functions(logs[src]).items()
                 if "ssd_bwd_" in name or "rglru_bwd_kernel" in name}
     emit("env", scan_backward_ptxas=scan_bwd)
-    check(len(scan_bwd) == 10 and all(
+    check(len(scan_bwd) == 18 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scan_bwd.values()),
         f"a scan backward kernel spills: {scan_bwd}")
@@ -861,11 +881,11 @@ def backward_kernels(dev, gen, cases, summary):
     f64 = torch.float64
 
     # ---- rmsnorm backward: the train widths (64, 256, 512: smoke, small,
-    # 100m) and the served 768 on the warp_rows body; the served 3584, a
-    # 2048 and an odd width on the generic body; the 100m step's rows; in
-    # fp32 also the recurrent train steps' shapes: mamba2-130m's norm1
-    # (8192, 768, warp_rows) and gated norm (8192, 1536, generic),
-    # recurrentgemma-9b's (2048, 4096, generic)
+    # 100m) and the served 768 on the warp_rows body; the served 3584 and a
+    # 2048 on the cta_rows body, an odd width on the generic body; the 100m
+    # step's rows; in fp32 also the recurrent train steps' shapes:
+    # mamba2-130m's norm1 (8192, 768, warp_rows) and gated norm (8192,
+    # 1536, cta_rows), recurrentgemma-9b's (2048, 4096, cta_rows)
     recurrent_train = ((8192, 768), (8192, 1536), (2048, 4096))
     for dtype in (f32, torch.bfloat16):
         for rows, D in ((4096, 512), (1024, 256), (64, 64), (300, 768),
@@ -879,7 +899,8 @@ def backward_kernels(dev, gen, cases, summary):
             errs = [compare(g, w, dtype) for g, w in zip(got, want)]
             again = rmsnorm_bwd_cuda(x, s, dy)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            want_body = "warp_rows" if D <= 768 and D != 130 else "generic"
+            want_body = ("generic" if D == 130 else "warp_rows" if D <= 1024
+                         else "cta_rows")
             cases.append(dict(kernel="rmsnorm_bwd", body=body,
                               dtype=str(dtype), rows=rows, D=D,
                               max_abs_err=max(e for e, _ in errs),
@@ -935,8 +956,9 @@ def backward_kernels(dev, gen, cases, summary):
         max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
             kernel(), plain_grads(rmsnorm_f64, (x, s), dy, f64))),
         profiler_windows=window_counts(mark))
-    # the generic body at the recurrent train steps' wider rows, beside
-    # the plain and library backwards
+    # the cta_rows body at the recurrent train steps' wider rows, beside
+    # the generic body (the previous body there, through its entry), the
+    # plain and the library backwards
     for rows, D, name in ((8192, 1536, "mamba2_gated"),
                           (2048, 4096, "rgemma")):
         x, dy = (randn(rows, D, dtype=f32) for _ in range(2))
@@ -945,12 +967,23 @@ def backward_kernels(dev, gen, cases, summary):
         plain_out = rmsnorm_ref(xr, sr)
         lib_out = F.rms_norm(xr, (D,), sr, 1e-6)
         kernel = lambda: rmsnorm_bwd_cuda(x, s, dy)  # noqa: E731
+        dx, ds = torch.empty_like(x), torch.empty_like(s)
+        partial = torch.empty((2, rms.BWD_MAX_BLOCKS, D), device=dev)
+        generic = lambda: rms._bwd_entry("generic")(  # noqa: E731
+            x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            ds.data_ptr(), partial.data_ptr(), rows, D, 1e-6, 0, 0,
+            rms.BWD_MAX_BLOCKS, torch.cuda.current_stream().cuda_stream)
         t_bound, by = bound(3 * x.nbytes + 2 * s.nbytes, 10 * x.numel(), f32)
+        body = rms.select_bwd_body(x, s, dy)
+        check(body[0] == "cta_rows", f"rmsnorm_bwd ({rows}, {D}): {body}")
         summary["rmsnorm_bwd"][name] = dict(
             shape=f"x, dy ({rows}, {D}) fp32, scale fp32",
-            body=rms.select_bwd_body(x, s, dy)[0],
+            body=body[0], vectors_per_lane=body[1],
+            warps=rms.cta_shape(D, f32)[0],
             ms=device_ms(kernel), event_ms=time_ms(kernel),
             kernel_ms=kernel_breakdown(kernel),
+            previous_body_ms=device_ms(generic),
+            previous_body_event_ms=time_ms(generic),
             plain_ms=device_ms(_grad_ms(plain_out, (xr, sr), dy)),
             library_ms=device_ms(_grad_ms(lib_out, (xr, sr), dy)),
             library_event_ms=time_ms(_grad_ms(lib_out, (xr, sr), dy)),
@@ -1071,7 +1104,7 @@ def scan_backward_kernels(dev, gen, cases, summary):
     from repro_torch.kernels import ops
     from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
     from repro_torch.kernels.rglru.ref import rglru_bwd
-    from repro_torch.kernels.ssd.kernel import ssd_bwd_cuda
+    from repro_torch.kernels.ssd.kernel import select_bwd_body, ssd_bwd_cuda
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
     f32 = torch.float32
 
@@ -1088,42 +1121,57 @@ def scan_backward_kernels(dev, gen, cases, summary):
             args = ssd_inputs(randn, B, S, H, P, G, N, dtype)
             dy = randn(B, S, H, P, dtype=dtype)
             ds = randn(B, H, P, N) if with_state else None
+            body = select_bwd_body(*args, dy, Q, ds)
             got = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
             again = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
+            fma = ssd_bwd_cuda(*args, dy, ds, chunk=Q, body="fma")
             want = ssd_chunked_bwd(*args, dy, ds, chunk=Q)
             errs = [compare(g, w, dtype, SSD_TOL) for g, w in zip(got, want)]
+            fma_errs = [compare(g, w, dtype, SSD_TOL) for g, w in zip(fma,
+                                                                     want)]
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            cases.append(dict(kernel="ssd_bwd", body="fma", dtype=str(dtype),
+            cases.append(dict(kernel="ssd_bwd", body=body, dtype=str(dtype),
                               B=B, S=S, H=H, P=P, G=G, N=N, chunk=Q,
                               d_state=with_state,
                               max_abs_err=max(e for e, _ in errs),
-                              errs=[e for e, _ in errs], tol=SSD_TOL[dtype],
-                              deterministic=same,
-                              ok=all(ok for _, ok in errs) and same))
+                              errs=[e for e, _ in errs],
+                              fma_errs=[e for e, _ in fma_errs],
+                              tol=SSD_TOL[dtype], deterministic=same,
+                              ok=all(ok for _, ok in errs + fma_errs) and same
+                              and body == "mma"))
     # through SSDFunction: ops.ssd_scan with inputs that require grad
     args = ssd_inputs(randn, 2, 300, 4, 16, 2, 16, f32)
     dy = randn(2, 300, 4, 16)
     leaves = [t.clone().requires_grad_() for t in args]
-    before = ssd_bwd_cuda.launches
+    before = ssd_bwd_cuda.launches_by_body["mma"]
     (ops.ssd_scan(*leaves, chunk=64)[0] * dy).sum().backward()
     errs = [compare(t.grad, w, f32, SSD_TOL) for t, w in zip(
         leaves, ssd_chunked_bwd(*args, dy, chunk=64))]
-    cases.append(dict(kernel="ssd_bwd", body="fma", through="SSDFunction",
+    cases.append(dict(kernel="ssd_bwd", body="mma", through="SSDFunction",
                       dtype=str(f32), B=2, S=300, H=4, P=16, G=2, N=16,
                       chunk=64, max_abs_err=max(e for e, _ in errs),
                       tol=SSD_TOL[f32], ok=all(ok for _, ok in errs)
-                      and ssd_bwd_cuda.launches == before + 1))
+                      and ssd_bwd_cuda.launches_by_body["mma"] == before + 1))
 
     B, S, H, P, G, N, Q = 8, 1024, 24, 64, 1, 128, 128
     args = ssd_inputs(randn, B, S, H, P, G, N, f32)
     dy = randn(B, S, H, P)
     x, dt, _, Bm, Cm, _ = args
     # bytes: x, dt, Bm, Cm, dy (A, D) read once, dx, ddt, dB, dC (dA, dD)
-    # written once; operations: ssd_bwd_macs on the fp32 FMA units
+    # written once; operations: the mma body's, ssd_bwd_split_macs on the
+    # TF32 tensor cores; fma_bound_ms, ssd_bwd_macs on the fp32 FMA units,
+    # bounds the fma body (the previous body)
     n_bytes = 3 * x.nbytes + 2 * dt.nbytes + 2 * Bm.nbytes + 2 * Cm.nbytes \
         + 4 * 4 * H
-    t_bound, by = bound(n_bytes, 2 * ssd_bwd_macs(B, S, H, P, G, N, Q), f32)
+    t_bound, by = bound(n_bytes, 2 * ssd_bwd_split_macs(B, S, H, P, G, N, Q),
+                        "tf32")
+    fma_bound, fma_by = bound(n_bytes, 2 * ssd_bwd_macs(B, S, H, P, G, N, Q),
+                              f32)
+    body = select_bwd_body(*args, dy, Q)
+    check(body == "mma", f"ssd_bwd at the mamba2-130m step: body {body}")
     kernel = lambda: ssd_bwd_cuda(*args, dy, chunk=Q)  # noqa: E731
+    previous = lambda: ssd_bwd_cuda(*args, dy, chunk=Q,  # noqa: E731
+                                    body="fma")
     mark = len(PROFILER_WINDOWS)
     summary["ssd_bwd"] = dict(
         name="ssd_bwd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
@@ -1131,12 +1179,17 @@ def scan_backward_kernels(dev, gen, cases, summary):
                  "differentiates the jnp reference)",
         shape=f"x, dy ({B},{S},{H},{P}) fp32, dt ({B},{S},{H}), Bm/Cm "
               f"({B},{S},{G},{N}) fp32, chunk {Q} (the mamba2-130m step)",
-        body="fma", ms=device_ms(kernel), event_ms=time_ms(kernel),
+        body=body, ms=device_ms(kernel), event_ms=time_ms(kernel),
         kernel_ms=kernel_breakdown(kernel),
+        previous_body_ms=device_ms(previous),
+        previous_body_event_ms=time_ms(previous),
+        previous_body_kernel_ms=kernel_breakdown(previous),
         plain_ms=device_ms(lambda: ssd_chunked_bwd(*args, dy, chunk=Q),
                            iters=5, warmup=1),
         library_ms=None, bound_ms=t_bound, bound_by=by,
+        fma_bound_ms=fma_bound, fma_bound_by=fma_by,
         bwd_macs=ssd_bwd_macs(B, S, H, P, G, N, Q),
+        bwd_split_macs=ssd_bwd_split_macs(B, S, H, P, G, N, Q),
         max_abs_err=max(compare(g, w, f32, SSD_TOL)[0] for g, w in zip(
             kernel(), ssd_chunked_bwd(*args, dy, chunk=Q))),
         profiler_windows=window_counts(mark))
@@ -1684,7 +1737,7 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
           and math.isfinite(crash_metrics["loss"]),
           f"train: the failed run resumed at {resumed}, expected "
           f"[0, {2 * ckpt_every}]")
-    return launches
+    return launches, by_body
 
 
 def _count_launches():
@@ -1817,6 +1870,11 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
     want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
             "flash_attention": (0, 0), "rglru": (0, 0),
             "ssd": (L * steps,) * 2}
+    # the SSD backward on its mma body; RMSNorm's backward on warp_rows at
+    # norm1 and the final norm (768) and cta_rows at the gated norm (1536)
+    want_by_body = {"ssd_bwd": {"mma": L * steps, "fma": 0},
+                    "rmsnorm_bwd": {"warp_rows": (L + 1) * steps,
+                                    "cta_rows": L * steps, "generic": 0}}
     warm = step_ms[5:]
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
     emit("train_mamba2", arch=cfg.name, layers=L, d_model=cfg.d_model,
@@ -1837,12 +1895,15 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
                    for k, (f, b) in launches.items()},
          launches_expected={k: dict(forward=f, backward=b)
                             for k, (f, b) in want.items()},
-         launches_by_body=by_body)
+         launches_by_body=by_body, launches_by_body_expected=want_by_body)
     check(len(losses) == steps and all(math.isfinite(x) for x in losses)
           and last < first,
           f"train_mamba2: {len(losses)} steps, loss mean {first} -> {last}")
     check(launches == want, f"train_mamba2: launches {launches}, expected "
           f"{want}")
+    check({k: by_body[k] for k in want_by_body} == want_by_body,
+          f"train_mamba2: launches by body {by_body}, expected "
+          f"{want_by_body}")
     want_saves = list(range(ckpt_every, steps + 1, ckpt_every))
     check([r.step for r in results] == want_saves
           and all(r.ok for r in results),
@@ -1850,7 +1911,7 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
           f"expected steps {want_saves}")
     check(identical, "train_mamba2: the restored step differs from the "
           "saved one")
-    return launches
+    return launches, by_body
 
 
 def phase_train_rgemma_2l(dev, seed, steps: int = 10, batch: int = 4,
@@ -1887,11 +1948,20 @@ def phase_train_rgemma_2l(dev, seed, steps: int = 10, batch: int = 4,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     launches = _count_launches()
+    from repro_torch.kernels.rglru import kernel as lru
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    by_body = {"rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
+               "rglru_bwd": dict(lru.rglru_bwd_cuda.launches_by_body)}
     peak = torch.cuda.max_memory_allocated()
     del params, opt
     L = cfg.num_layers
     want = {"rmsnorm": ((2 * L + 1) * steps,) * 2, "flash_attention": (0, 0),
             "rglru": (L * steps,) * 2, "ssd": (0, 0)}
+    # every norm is 4096 wide: the cta_rows backward
+    want_by_body = {"rmsnorm_bwd": {"warp_rows": 0,
+                                    "cta_rows": (2 * L + 1) * steps,
+                                    "generic": 0},
+                    "rglru_bwd": {"serial": L * steps}}
     emit("train_rgemma_2l", arch=cfg.name, layers=L,
          reduced="num_layers 38 -> 2: layer 3 is attn_local at head dim "
                  "256, whose backward raises (ROADMAP.md Queue 2 item 2)",
@@ -1904,12 +1974,15 @@ def phase_train_rgemma_2l(dev, seed, steps: int = 10, batch: int = 4,
          launches={k: dict(forward=f, backward=b)
                    for k, (f, b) in launches.items()},
          launches_expected={k: dict(forward=f, backward=b)
-                            for k, (f, b) in want.items()})
+                            for k, (f, b) in want.items()},
+         launches_by_body=by_body, launches_by_body_expected=want_by_body)
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
           f"train_rgemma_2l: losses {losses}")
     check(launches == want, f"train_rgemma_2l: launches {launches}, "
           f"expected {want}")
-    return launches
+    check(by_body == want_by_body, f"train_rgemma_2l: launches by body "
+          f"{by_body}, expected {want_by_body}")
+    return launches, by_body
 
 
 def _to(tree, dev):
@@ -2015,14 +2088,19 @@ def main() -> int:
     train_checks(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    train = {"train-100m": phase_train(dev, args.seed)}
-    train["train-mamba2"] = phase_train_mamba2(dev, args.seed)
-    train["train-rgemma-2l"] = phase_train_rgemma_2l(dev, args.seed)
+    train, train_by_body = {}, {}
+    for path, phase in (("train-100m", phase_train),
+                        ("train-mamba2", phase_train_mamba2),
+                        ("train-rgemma-2l", phase_train_rgemma_2l)):
+        train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():
         if name.endswith("_bwd"):
             entry["launches_by_path"] = {
                 path: n[name[:-len("_bwd")]][1] for path, n in train.items()}
             entry["launches"] = sum(entry["launches_by_path"].values())
+            entry["launches_by_body"] = {
+                path: b[name] for path, b in train_by_body.items()
+                if name in b}
             continue
         entry["launches_by_path"] = {a: n[name] for a, n in launches.items()}
         entry["launches_by_path"].update(

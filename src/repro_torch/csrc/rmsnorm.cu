@@ -36,7 +36,7 @@
 //   dscale = sum over rows of dy * x^
 //
 // rstd is recomputed from x (the forward stores nothing).  What bounds it:
-// bytes (x and dy read once, dx written once).  Two bodies; the wrapper
+// bytes (x and dy read once, dx written once).  Three bodies; the wrapper
 // picks one by shape (kernels/rmsnorm/kernel.py:select_bwd_body):
 //
 //   * warp_rows (rows of 16-byte vectors of at most 1024 elements: every
@@ -57,6 +57,21 @@
 //     kept dscale within 2e-5 at 4096 rows but not at 8192, the mamba2-130m
 //     step's rows (kernels/rmsnorm/ref.py: rmsnorm_dscale_ordered models
 //     the order).
+//   * cta_rows (rows of 16-byte vectors of 1025 to 8192 elements, fp32 and
+//     bf16: the wider train widths, 1280-5120).  warp_rows generalised from
+//     a warp to a CTA of 1-8 warps a row, as many as keep a lane at 32
+//     floats of x and of dy: the CTA walks a run of rows (the wrapper sizes
+//     the grid from the SM count), x and dy read once into registers, the
+//     row's two sums reduced by shuffles and then across the warps through
+//     shared memory with one barrier a row (two buffers in turn), dx
+//     written once.  Each thread owns the columns of its vectors and keeps
+//     their dscale sums in fp64 registers over the CTA's rows, so the CTA's
+//     partial row needs no tree; rmsnorm_dscale_tree_kernel then sums the
+//     partial rows in its fixed order (ref.py:rmsnorm_dscale_ordered with
+//     one warp a CTA).  No atomics.  The generic body, which it replaces at
+//     these widths, read each row twice, took two barriers a row and
+//     read-modify-wrote two fp32 partial rows for every row in device
+//     memory; at (8192, 1536) fp32 it lost to F.rms_norm's backward.
 //   * generic (any other row): a 256-thread CTA owns a contiguous run of
 //     rows: for each it reduces sum(x^2) and sum(g*x) through shared memory,
 //     writes the row of dx, and adds dy * x^ into its own row of an fp32
@@ -604,6 +619,172 @@ int launch_bwd_vpl(const void* x, const void* scale, const void* dy, void* dx, v
 #undef RMS_BWD_ROWS
 }
 
+// ---- cta_rows body
+
+constexpr int kBwdCtaMaxWarps = 8;  // warps a row of rmsnorm_bwd_cta_kernel at most
+
+// Rows [blockIdx.x * rows_per_cta, +rows_per_cta) of dx, the CTA's warps on
+// one row at a time, and this CTA's row of `partial` (D doubles): each
+// thread owns the columns of its vectors and sums dy * x^ over the rows in
+// fp64.  Thread k's vectors of a row are k, k + blockDim.x, ... (VPL of
+// them), x and dy read once into registers; the row's two sums are reduced
+// by shuffles in each warp and across the warps through shared memory, one
+// barrier a row (the warps' sums alternate between two buffers).
+template <typename T, typename S, int VPL>
+__global__ void __launch_bounds__(kBwdCtaMaxWarps * 32)
+rmsnorm_bwd_cta_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       double* __restrict__ partial, long long rows, int D, float eps,
+                       int rows_per_cta) {
+  extern __shared__ uint4 s_bwd[];  // scale (D values of S), then 2 x warps float2
+  constexpr int N = Vec<T>::N;
+  const int nvec = D / N, nt = blockDim.x, warps = nt / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_cta;
+  const long long r1 = r0 + rows_per_cta < rows ? r0 + rows_per_cta : rows;
+
+  const int n_scale = D * static_cast<int>(sizeof(S)) / 16;
+  for (int i = threadIdx.x; i < n_scale; i += nt)
+    cp_async16(s_bwd + i, reinterpret_cast<const uint4*>(scale) + i);
+  cp_async_wait_all();
+  __syncthreads();
+  const S* sc = reinterpret_cast<const S*>(s_bwd);
+  float2* sums = reinterpret_cast<float2*>(reinterpret_cast<char*>(s_bwd) +
+                                           scale_bytes(D, sizeof(S)));
+
+  double part[VPL][N];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+#pragma unroll
+    for (int e = 0; e < N; ++e) part[i][e] = 0.0;
+
+  int buf = 0;
+  for (long long r = r0; r < r1; ++r, buf ^= 1) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + r * D);
+    const uint4* dyr = reinterpret_cast<const uint4*>(dy + r * D);
+    uint4 xv[VPL], dv[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = threadIdx.x + nt * i;
+      const bool in = c < nvec;
+      xv[i] = in ? __ldg(xr + c) : make_uint4(0u, 0u, 0u, 0u);
+      dv[i] = in ? __ldg(dyr + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float ss = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = threadIdx.x + nt * i;
+      if (c >= nvec) break;
+      float xf[N], df[N], s[N];
+      unpack<T>(xv[i], xf);
+      unpack<T>(dv[i], df);
+      load_scale<S, N>(sc + c * N, s);
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        a = fmaf(xf[e], xf[e], a);
+        b = fmaf(df[e] * s[e], xf[e], b);
+      }
+      ss += a;
+      sgx += b;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sgx += __shfl_xor_sync(0xffffffffu, sgx, o);
+    }
+    if (lane == 0) sums[buf * kBwdCtaMaxWarps + warp] = make_float2(ss, sgx);
+    __syncthreads();
+    // the warps' sums in warp order: every thread gets the same bits
+    ss = 0.f;
+    sgx = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      const float2 v = sums[buf * kBwdCtaMaxWarps + w];
+      ss += v.x;
+      sgx += v.y;
+    }
+    const float rstd = rsqrtf(ss / D + eps);
+    const float mean_gx = sgx * rstd / D;  // mean(g * x^)
+    uint4* dxr = reinterpret_cast<uint4*>(dx + r * D);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = threadIdx.x + nt * i;
+      if (c >= nvec) break;
+      float xf[N], df[N], s[N], out[N];
+      unpack<T>(xv[i], xf);
+      unpack<T>(dv[i], df);
+      load_scale<S, N>(sc + c * N, s);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xh = xf[e] * rstd;
+        out[e] = rstd * (df[e] * s[e] - xh * mean_gx);
+        part[i][e] = fma(static_cast<double>(df[e]), static_cast<double>(xh), part[i][e]);
+      }
+      dxr[c] = pack<T>(out);
+    }
+  }
+
+  // each column has one owner: the CTA's partial row needs no tree
+  double* out = partial + static_cast<long long>(blockIdx.x) * D;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = threadIdx.x + nt * i;
+    if (c >= nvec) break;
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[c * N + e] = part[i][e];
+  }
+}
+
+template <typename T, typename S, int VPL>
+int launch_bwd_cta(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+                   void* partial, long long rows, int D, float eps, int warps,
+                   int rows_per_cta, int ctas, cudaStream_t stream) {
+  const size_t smem = scale_bytes(D, sizeof(S)) + sizeof(float2) * 2 * kBwdCtaMaxWarps;
+  rmsnorm_bwd_cta_kernel<T, S, VPL><<<ctas, warps * 32, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), static_cast<double*>(partial), rows, D, eps, rows_per_cta);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_tree_kernel<S><<<(D + 31) / 32, kReduceWarps * 32, 0, stream>>>(
+      static_cast<const double*>(partial), static_cast<S*>(dscale), ctas, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vpl 16-byte vectors a lane over `warps` warps covering the row, at most
+// 32 floats a lane: the instances are the ones rows of 1025 to 8192
+// elements take (fp32 5-8 vectors a lane, bf16 3-4).
+template <typename T, typename S>
+int launch_bwd_cta_vpl(const void* x, const void* scale, const void* dy, void* dx,
+                       void* dscale, void* partial, long long rows, int D, float eps, int vpl,
+                       int warps, int rows_per_cta, int ctas, cudaStream_t stream) {
+  const int nvec = D / Vec<T>::N;
+  const bool ok = rows > 0 && D > 0 && (D * sizeof(T)) % 16 == 0 &&
+                  (D * sizeof(S)) % 16 == 0 && warps >= 1 && warps <= kBwdCtaMaxWarps &&
+                  warps * 32 * vpl >= nvec && vpl * Vec<T>::N <= 32 && rows_per_cta > 0 &&
+                  ctas > 0 && static_cast<long long>(ctas) * rows_per_cta >= rows &&
+                  aligned16(x) && aligned16(dy) && aligned16(dx) && aligned16(scale);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+#define RMS_BWD_CTA(V)                                                                    \
+  return launch_bwd_cta<T, S, V>(x, scale, dy, dx, dscale, partial, rows, D, eps, warps, \
+                                 rows_per_cta, ctas, stream)
+  if constexpr (Vec<T>::N == 4) {
+    switch (vpl) {
+      case 5: RMS_BWD_CTA(5);
+      case 6: RMS_BWD_CTA(6);
+      case 7: RMS_BWD_CTA(7);
+      case 8: RMS_BWD_CTA(8);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (vpl) {
+      case 3: RMS_BWD_CTA(3);
+      case 4: RMS_BWD_CTA(4);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#undef RMS_BWD_CTA
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  x, residual and y share x_dtype;
@@ -673,5 +854,33 @@ extern "C" int rmsnorm_bwd_rows(const void* x, const void* scale, const void* dy
   if (x_dtype == 1 && scale_dtype == 1)
     return launch_bwd_vpl<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, dscale, partial,
                                                         rows, D, eps, v, rpw, ctas, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's cta_rows body, on the inputs of rmsnorm_bwd: rows of
+// 16-byte vectors of x, dy, dx and scale, a row over `warps` warps (1-8)
+// with vectors_per_lane vectors a lane (fp32 5-8, bf16 3-4: at most 32
+// floats) covering it; ctas CTAs, each rows_per_cta rows (they must cover the
+// rows).  `partial` is fp64 scratch of ctas x D.  Returns
+// cudaErrorInvalidValue on anything else, else cudaGetLastError() after the
+// launches.
+extern "C" int rmsnorm_bwd_cta(const void* x, const void* scale, const void* dy, void* dx,
+                               void* dscale, void* partial, long long rows, int D, float eps,
+                               int x_dtype, int scale_dtype, int vectors_per_lane, int warps,
+                               int rows_per_cta, int ctas, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int v = vectors_per_lane, w = warps, rpc = rows_per_cta;
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch_bwd_cta_vpl<float, float>(x, scale, dy, dx, dscale, partial, rows, D, eps, v,
+                                            w, rpc, ctas, st);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch_bwd_cta_vpl<float, __nv_bfloat16>(x, scale, dy, dx, dscale, partial, rows, D,
+                                                    eps, v, w, rpc, ctas, st);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch_bwd_cta_vpl<__nv_bfloat16, float>(x, scale, dy, dx, dscale, partial, rows, D,
+                                                    eps, v, w, rpc, ctas, st);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return launch_bwd_cta_vpl<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, dscale, partial,
+                                                            rows, D, eps, v, w, rpc, ctas, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

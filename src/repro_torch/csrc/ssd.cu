@@ -136,7 +136,29 @@
 // No atomics: every sum has one owner and a fixed order, so a second call
 // gives the same bits.  exp(cum_i - cum_j) is evaluated only for i >= j.  The
 // ragged last chunk is padded with dt = x = B = C = dy = 0 and nothing is
-// written past S.
+// written past S.  That is the fma body (entry ssd_bwd).
+//
+// The backward's mma body (entry ssd_bwd_mma; P up to 64, any N, chunk and
+// S, float32 and bfloat16 inputs): the same phases with every product on the
+// TF32 tensor cores, mma.sync m16n8k8, each fp32 operand split into hi + lo
+// and three products summed small terms first (3xTF32, the flash backward's
+// scheme, with truncating splits; ref.py:split_einsum and truncate_tf32
+// model it).  Launches 2, 3, 5 and 6 are the fma body's; 1 (chunk states
+// and E, a warp a 16-row strip of P) and 4 (chunk gradients) are its own,
+// and 1b forms C B^T once for a group's heads (mamba2-130m's 24 heads share
+// one group) into the workspace, where the fma body kept a 377 MB scratch
+// of every head's scores.  In launch 4 a warp owns a 16-token strip; the Q x
+// Q scores, d(C B^T) and R stay in its registers (see the kernel).  What
+// bounds it at mamba2-130m's train shape (x, dy (8,1024,24,64) fp32, chunk
+// 128): its products, 3 x ssd_bwd_macs = 38.4 G multiply-adds at the TF32
+// rate, 0.155 ms (chip_smoke.py:ssd_bwd_split_macs); measured, instruction
+// issue: the operands' splits, fragment loads and addresses outnumber the
+// HMMAs about 10 to 1 in the compiled chunk kernel (kernels/ab_ssd.py),
+// whose block holds the chunk's C, B, x and dy in fp32 (225 KB of shared
+// memory, one block of 8 warps an SM).  What the design does about it:
+// every tile load in flight at once (cp.async), compile-time shared-memory
+// strides and tile counts (a specialisation at N 128, P 64), C B^T a group,
+// and 3-operation splits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1521,6 +1543,830 @@ __global__ void __launch_bounds__(kBwdLanes)
   if (k == 0) (which == 0 ? dA : dD)[h] = out;
 }
 
+// ---------------------------------------------------------------------------
+// backward, mma body: the products on the TF32 tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaP = 64;             // the mma body's largest P (its dx accumulators)
+constexpr int kStrips = kMaxQ / 16;   // 16-token strips of a chunk: a warp each
+
+// Row strides (floats) of the tiles in shared memory: C and B (N columns)
+// kLdN, x and dy (P columns) kLdP, whatever N and P; columns past N or P
+// are zero.  Compile-time strides make every fragment's offset an
+// immediate of its load: with strides read at run time, integer address
+// arithmetic took most of the chunk kernel's instructions (an A/B on the
+// H100, PERF.md).  128 + 4 and 64 + 4 are 4 (mod 32), which keeps every
+// fragment read below free of bank conflicts.
+constexpr int kLdN = kMaxN + 4;
+constexpr int kLdP = kMmaP + 4;
+
+// chunk states and E: C, B (Q16 x kLdN) and x, dy (Q16 x kLdP) in fp32, dt,
+// cum, w and exp(cum) (kMaxQ each), then cum in double (kMaxQ)
+__host__ __device__ constexpr int bwd_mma_state_smem_bytes(int Q) {
+  return 4 * (2 * round16(Q) * kLdN + 2 * round16(Q) * kLdP + 4 * kMaxQ) + 8 * kMaxQ;
+}
+
+// chunk gradients: the four tiles as above, 11 vectors of kMaxQ, two
+// kBwdThreads-float reduction buffers, the strips' row sums of R (kStrips x
+// kMaxQ), then one region for two 8-row slabs of a state (8 x kLdN each)
+// and, after them, the strips' diagonal tiles of R (kStrips x 16 x 16)
+__host__ __device__ constexpr int bwd_mma_smem_bytes(int Q) {
+  return 4 * (2 * round16(Q) * kLdN + 2 * round16(Q) * kLdP + 11 * kMaxQ + 2 * kBwdThreads +
+              kStrips * kMaxQ + (kStrips * 256 > 16 * kLdN ? kStrips * 256 : 16 * kLdN));
+}
+
+// hi = x and lo = x - hi, each truncated to TF32 (its low 13 bits cleared;
+// ref.py:truncate_tf32): x - hi - lo stays below 2^-20 |x|.  The flash
+// backward rounds both to nearest (two integer ops more a split); here the
+// splits are most of the instructions, and truncating them took the
+// backward from 1.73 to 1.49 ms at mamba2-130m's shape (NVIDIA H100 80GB
+// HBM3, 700.00 W; kernels/ab_ssd.py, PERF.md) with the same errors.
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[i] += a b[i] for W accumulators from split operands, the two small terms
+// first (ref.py:split_einsum); each pass runs over all W before the next, so
+// no product waits for the one before it.
+template <int W>
+__device__ __forceinline__ void mma_tf32x3(float (*c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[W][2],
+                                           const uint32_t (&blo)[W][2]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) mma_tf32(c[i], alo, bhi[i][0], bhi[i][1]);
+#pragma unroll
+  for (int i = 0; i < W; ++i) mma_tf32(c[i], ahi, blo[i][0], blo[i][1]);
+#pragma unroll
+  for (int i = 0; i < W; ++i) mma_tf32(c[i], ahi, bhi[i][0], bhi[i][1]);
+}
+
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A a0 (g, t), a1 (g + 8,
+// t), a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g), b1 (k t + 4, n g);
+// the accumulator c0, c1 at row g, columns 2t, 2t + 1, c2, c3 at row g + 8.
+
+// A (16 x 8 at column k0) of a row-major fp32 tile, split.
+__device__ __forceinline__ void a_split(const float* a, int ld, int k0, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* p = a + (lane >> 2) * ld + k0 + (lane & 3);
+  split_trunc(p[0], hi[0], lo[0]);
+  split_trunc(p[8 * ld], hi[1], lo[1]);
+  split_trunc(p[4], hi[2], lo[2]);
+  split_trunc(p[8 * ld + 4], hi[3], lo[3]);
+}
+
+// acc (16 x 8W) += A B^T over K (a multiple of 8): A the 16 rows at a, B the
+// 8W rows at b, both row-major with k along the row.
+template <int W>
+__device__ __forceinline__ void mma_abt(float (&acc)[W][4], const float* a, int lda,
+                                        const float* b, int ldb, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ahi[4], alo[4], bhi[W][2], blo[W][2];
+    a_split(a, lda, k0, ahi, alo);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float* br = b + (j * 8 + g) * ldb + k0 + t;
+      split_trunc(br[0], bhi[j][0], blo[j][0]);
+      split_trunc(br[4], bhi[j][1], blo[j][1]);
+    }
+    mma_tf32x3<W>(acc, ahi, alo, bhi, blo);
+  }
+}
+
+// acc (16 x 8 ntiles) += X B: X (16 x 16) in registers in the accumulator
+// layout (two 8-column tiles), B (16 x 8 ntiles) row-major at b.  X's
+// columns 2t and 2t + 1 of tile j go in as k = t and t + 4 of k-step j, B's
+// rows 2t and 2t + 1 with them.  The tensor cores' fp32 accumulation
+// truncates (as the flash backward found, csrc/flash_attention.cu), so each
+// chunk of 4 output tiles is summed in a fresh accumulator and added to acc
+// in fp32.
+template <int NO>
+__device__ __forceinline__ void mma_xb(float (&acc)[NO][4], const float (&x)[2][4],
+                                       const float* b, int ldb, int ntiles) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    split_trunc(x[j][0], ahi[j][0], alo[j][0]);
+    split_trunc(x[j][2], ahi[j][1], alo[j][1]);
+    split_trunc(x[j][1], ahi[j][2], alo[j][2]);
+    split_trunc(x[j][3], ahi[j][3], alo[j][3]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < NO; n0 += 4) {
+    if (n0 < ntiles) {
+      float part[4][4] = {};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* br = b + (j * 8 + 2 * t) * ldb + g;
+        uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const bool in = n0 + n < ntiles;
+          split_trunc(in ? br[(n0 + n) * 8] : 0.f, bhi[n][0], blo[n][0]);
+          split_trunc(in ? br[ldb + (n0 + n) * 8] : 0.f, bhi[n][1], blo[n][1]);
+        }
+        mma_tf32x3<4>(part, ahi[j], alo[j], bhi, blo);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        if (n0 + n < ntiles)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
+    }
+  }
+}
+
+// acc (16 x 8 ntiles) += A B for one k-step: A (16 x 8 at column k0) of a
+// row-major tile, B (8 x 8 ntiles) row-major at b.
+template <int NO>
+__device__ __forceinline__ void mma_ab_step(float (&acc)[NO][4], const float* a, int lda, int k0,
+                                            const float* b, int ldb, int ntiles) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ahi[4], alo[4];
+  a_split(a, lda, k0, ahi, alo);
+#pragma unroll
+  for (int n0 = 0; n0 < NO; n0 += 4) {
+    if (n0 < ntiles) {
+      uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const bool in = n0 + n < ntiles;
+        split_trunc(in ? b[t * ldb + (n0 + n) * 8 + g] : 0.f, bhi[n][0], blo[n][0]);
+        split_trunc(in ? b[(t + 4) * ldb + (n0 + n) * 8 + g] : 0.f, bhi[n][1], blo[n][1]);
+      }
+      mma_tf32x3<4>(acc + n0, ahi, alo, bhi, blo);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows [0, Q16) of a tile of `cols` columns into dst (row stride ld floats,
+// ld - 4 a multiple of 8 and at least cols) as fp32, rows >= rows and
+// columns >= cols zero; src
+// rows src_row elements apart, 16-byte aligned.  fp32: every 16-byte vector
+// in flight at once by cp.async (the caller waits); bf16: kLoadAhead vectors
+// of 8 a thread in flight, widened in registers.
+constexpr int kLoadAhead = 8;
+template <typename T>
+__device__ __forceinline__ void mma_load_tile(float* dst, int ld, const T* src, long long src_row,
+                                              int rows, int cols, int Q16) {
+  const int tid = threadIdx.x;
+  if constexpr (sizeof(T) == 4) {
+    const int nv = ld / 4;
+    for (int e = tid; e < Q16 * nv; e += kBwdThreads) {
+      const int t = e / nv, v = e - t * nv;
+      const bool in = t < rows && 4 * v < cols;
+      cp_async16(dst + t * ld + 4 * v, in ? src + t * src_row + 4 * v : src, in);
+    }
+  } else {
+    const int nv = (ld - 4) / 8, total = Q16 * nv;  // the last 4 columns: zero
+    for (int e0 = tid; e0 < total; e0 += kLoadAhead * kBwdThreads) {
+      uint4 raw[kLoadAhead];
+#pragma unroll
+      for (int u = 0; u < kLoadAhead; ++u) {
+        const int e = e0 + u * kBwdThreads, t = e / nv, v = e - t * nv;
+        raw[u] = e < total && t < rows && 8 * v < cols
+                     ? *reinterpret_cast<const uint4*>(src + t * src_row + 8 * v)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadAhead; ++u) {
+        const int e = e0 + u * kBwdThreads, t = e / nv, v = e - t * nv;
+        if (e < total) {
+          const T* hv = reinterpret_cast<const T*>(&raw[u]);
+          float4* d = reinterpret_cast<float4*>(dst + t * ld + 8 * v);
+          d[0] = make_float4(to_f32(hv[0]), to_f32(hv[1]), to_f32(hv[2]), to_f32(hv[3]));
+          d[1] = make_float4(to_f32(hv[4]), to_f32(hv[5]), to_f32(hv[6]), to_f32(hv[7]));
+        }
+      }
+    }
+    for (int t = tid; t < Q16; t += kBwdThreads)
+      *reinterpret_cast<float4*>(dst + t * ld + ld - 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The chunk's C, B (rows t, columns n), x and dy (rows t, columns p) into
+// shared memory as fp32 with row strides kLdN and kLdP (padding
+// rows and columns zero; for fp32 the caller waits for the cp.async copies),
+// and dt into dtv.
+template <typename T>
+__device__ void mma_load_chunk(float* cs, float* bs, float* xs, float* ys, float* dtv,
+                               const T* x, const T* dy, const T* Bm, const T* Cm,
+                               const float* dt, int b, int h, int g, int s0, int rows, int S,
+                               int H, int P, int G, int N, int Q16) {
+  const long long x_row = static_cast<long long>(H) * P, bc_row = static_cast<long long>(G) * N;
+  const long long row0 = static_cast<long long>(b) * S + s0;
+  const long long xo = row0 * x_row + static_cast<long long>(h) * P;
+  const long long bo = row0 * bc_row + static_cast<long long>(g) * N;
+  mma_load_tile<T>(cs, kLdN, Cm + bo, bc_row, rows, N, Q16);
+  mma_load_tile<T>(bs, kLdN, Bm + bo, bc_row, rows, N, Q16);
+  mma_load_tile<T>(xs, kLdP, x + xo, x_row, rows, P, Q16);
+  mma_load_tile<T>(ys, kLdP, dy + xo, x_row, rows, P, Q16);
+  const int t = threadIdx.x;
+  if (t < kMaxQ) dtv[t] = t < rows ? dt[(row0 + t) * H + h] : 0.f;
+}
+
+// Launch 1 of the mma body.  Block (c, h, b): cum (as ssd_bwd_state_kernel),
+// the chunk's local end state sum_t (w_t x_t) B_t^T into states and E =
+// sum_t (exp(cum_t) dy_t) C_t^T into dstates, (P x N) each: a warp a (product,
+// 16 rows of P) item, the 16 x N tile summed over the chunk's tokens in one
+// accumulator (A read down the token-major tiles).
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_state_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                             const float* __restrict__ A, const T* __restrict__ Bm,
+                             const T* __restrict__ Cm, const T* __restrict__ dy,
+                             float* __restrict__ cum_out, float* __restrict__ states,
+                             float* __restrict__ dstates, int S, int H, int P, int G, int N,
+                             int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int gh = h / (H / G);
+  const int Q16 = round16(Q);
+  constexpr int LN = kLdN, LP = kLdP;
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  float* cs = reinterpret_cast<float*>(smem4);
+  float* bs = cs + Q16 * LN;
+  float* xs = bs + Q16 * LN;
+  float* ys = xs + Q16 * LP;
+  float* dtv = ys + Q16 * LP;
+  float* cum = dtv + kMaxQ;
+  float* wv = cum + kMaxQ;  // exp(total - cum_t) dt_t
+  float* ev = wv + kMaxQ;   // exp(cum_t)
+  double* cd = reinterpret_cast<double*>(ev + kMaxQ);
+  mma_load_chunk<T>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, gh, s0, rows, S, H, P, G, N,
+                    Q16);
+  cp_async_wait_all();
+  __syncthreads();
+  if (tid < kMaxQ) cd[tid] = static_cast<double>(dtv[tid] * A[h]);
+  __syncthreads();
+  // inclusive cumsum of dt * A (Hillis-Steele in double, rounded once)
+  for (int off = 1; off < Q16; off <<= 1) {
+    const double v = tid >= off && tid < Q16 ? cd[tid - off] : 0.0;
+    __syncthreads();
+    if (tid < Q16) cd[tid] += v;
+    __syncthreads();
+  }
+  if (tid < kMaxQ) cum[tid] = static_cast<float>(cd[tid]);
+  __syncthreads();
+  const float total = cum[Q16 - 1];
+  if (tid < Q16) {
+    wv[tid] = expf(total - cum[tid]) * dtv[tid];
+    ev[tid] = expf(cum[tid]);
+  }
+  if (tid < Q) cum_out[(static_cast<long long>(b) * H + h) * nc * Q + s0 + tid] = cum[tid];
+  __syncthreads();
+
+  const long long off = ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
+  const int strips = round16(P) / 16, ntiles = N / 8;
+  for (int item = warp; item < 2 * strips; item += kBwdThreads / 32) {
+    const bool e_side = item >= strips;  // E = (exp(cum) dy)^T C, else (w x)^T B
+    const int p0 = (e_side ? item - strips : item) * 16;
+    const float* as = e_side ? ys : xs;
+    const float* bt = e_side ? cs : bs;
+    const float* sv = e_side ? ev : wv;
+    float acc[kMaxN / 8][4] = {};
+    for (int k0 = 0; k0 < Q16; k0 += 8) {
+      // A (p, k = token): the token-major tile read down its columns, each
+      // token's row scaled by its weight
+      const float s_lo = sv[k0 + t], s_hi = sv[k0 + t + 4];
+      const float* ap = as + (k0 + t) * LP + p0 + g;
+      uint32_t ahi[4], alo[4];
+      split_trunc(ap[0] * s_lo, ahi[0], alo[0]);
+      split_trunc(ap[8] * s_lo, ahi[1], alo[1]);
+      split_trunc(ap[4 * LP] * s_hi, ahi[2], alo[2]);
+      split_trunc(ap[4 * LP + 8] * s_hi, ahi[3], alo[3]);
+      const float* bp = bt + (k0 + t) * LN + g;
+#pragma unroll
+      for (int n0 = 0; n0 < kMaxN / 8; n0 += 4) {
+        if (n0 < ntiles) {
+          uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const bool in = n0 + n < ntiles;
+            split_trunc(in ? bp[(n0 + n) * 8] : 0.f, bhi[n][0], blo[n][0]);
+            split_trunc(in ? bp[4 * LN + (n0 + n) * 8] : 0.f, bhi[n][1], blo[n][1]);
+          }
+          mma_tf32x3<4>(acc + n0, ahi, alo, bhi, blo);
+        }
+      }
+    }
+    float* out = (e_side ? dstates : states) + off;
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      if (nt < ntiles) {
+        const int n = nt * 8 + 2 * t;
+        if (p0 + g < P)
+          store2(out + static_cast<long long>(p0 + g) * N + n, acc[nt][0], acc[nt][1]);
+        if (p0 + g + 8 < P)
+          store2(out + static_cast<long long>(p0 + g + 8) * N + n, acc[nt][2], acc[nt][3]);
+      }
+    }
+  }
+}
+
+// The mma body's workspace holds the fma body's parts before `scratch`,
+// then, from `scratch` on, C B^T of each (b, chunk, group) and its
+// transpose, Q16 x Q16 floats each (the tiles above the diagonal unused).
+__host__ __device__ constexpr long long bwd_mma_cb_floats(int Q) {
+  return 2LL * round16(Q) * round16(Q);
+}
+
+// Launch 1b of the mma body.  Block (c, g, b): C B^T of the chunk's tokens,
+// the 16 x 16 tiles on and below the diagonal (a warp a tile in turn), as
+// the chunk-gradient blocks would form it (mma_abt, one fresh accumulator
+// over N), once for the group's heads rather than in each head's block;
+// written row-major and transposed.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    ssd_bwd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cbw,
+                      int S, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, gh = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int Q16 = round16(Q), ns = Q16 / 16;
+  constexpr int LN = kLdN;
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  float* cs = reinterpret_cast<float*>(smem4);
+  float* bs = cs + Q16 * LN;
+  const long long bc_row = static_cast<long long>(G) * N;
+  const long long bo =
+      (static_cast<long long>(b) * S + s0) * bc_row + static_cast<long long>(gh) * N;
+  mma_load_tile<T>(cs, LN, Cm + bo, bc_row, rows, N, Q16);
+  mma_load_tile<T>(bs, LN, Bm + bo, bc_row, rows, N, Q16);
+  cp_async_wait_all();
+  __syncthreads();
+  float* cb = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * bwd_mma_cb_floats(Q);
+  float* cbt = cb + Q16 * Q16;
+  for (int item = warp; item < ns * (ns + 1) / 2; item += kBwdThreads / 32) {
+    int I, J;
+    tri_index(item, I, J);
+    float acc[2][4] = {};
+    mma_abt<2>(acc, cs + I * 16 * LN, LN, bs + J * 16 * LN, LN, N);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = I * 16 + g + 8 * h, j = J * 16 + nt * 8 + 2 * t4;
+        store2(cb + i * Q16 + j, acc[nt][2 * h], acc[nt][2 * h + 1]);
+        cbt[j * Q16 + i] = acc[nt][2 * h];
+        cbt[(j + 1) * Q16 + i] = acc[nt][2 * h + 1];
+      }
+  }
+}
+
+// Launch 4 of the mma body.  Block (c, h, b), a warp a 16-token strip w of
+// the chunk, in four phases on the TF32 tensor cores (3xTF32):
+//   1. rows i of strip w, the inter-chunk term (c > 0): W_i = dy_i state_in
+//      (the state through shared memory in 8-row slabs of P, double
+//      buffered with cp.async); dC_i <- exp(cum_i) W_i, z_i = C_i . W_i.
+//   2. rows i of strip w, tiles J <= w: C B^T (launch 1b's, read from the
+//      workspace) and dy x^T (16 x 16, in a fresh accumulator), d(C B^T) =
+//      dy x^T o L dt_j in registers, and dC_i += d(C B^T) B_j; dC_i is
+//      stored.
+//   3. rows j of strip w, the chunk state's term: U_j = B_j dS^T (an 8-column
+//      tile a slab of dS), dx_j <- w_j U_j + D dy_j, dw_j = x_j . U_j,
+//      dB_j <- w_j (x_j dS).
+//   4. rows j of strip w, tiles I >= w: (C B^T)^T (launch 1b's) and
+//      (dy x^T)^T, then
+//      M^T, d(C B^T)^T and R = dM o M in registers; dx_j += M^T dy_I, dB_j
+//      += d(C B^T)^T C_I; the column sums sum_i dM_ij K_ij for ddt; R's
+//      sums that d(dt A) needs (below).  dx and dB are stored.
+// Strip w takes w + 1 tiles in phase 2 and ns - w in phase 4: every warp
+// the same number.  Nothing of the Q x Q scores leaves the registers but
+// R's sums: d(dt A)_t's term sum_{i >= t, j < t} R_ij is, for t in strip
+// tau, sum_{i >= t} sum_{J < tau} r_i(J) + sum_{j in tau, j < t} c_j +
+// (the diagonal tile's part), with r_i(J) the row sums of strip J's tiles
+// below its diagonal (rsum), c_j the column sums of those tiles (csv), and
+// strip tau's diagonal tile of R in shared memory; every sum in a fixed
+// order.  Then as ssd_bwd_chunk_kernel: ddt, and the chunk's parts of dA
+// and dD.  NTN and NTP: N / 8 and P / 8 when known at compile time
+// (mamba2-130m's 16 and 8: every guard and k-loop bound then a constant),
+// else 0 (read from N and P).
+template <typename T, int NTN, int NTP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_bwd_chunk_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                             const float* __restrict__ A, const T* __restrict__ Bm,
+                             const T* __restrict__ Cm, const float* __restrict__ Dskip,
+                             const T* __restrict__ dy, const float* __restrict__ cum_in,
+                             const float* __restrict__ states, const float* __restrict__ dstates,
+                             const float* __restrict__ cbw, T* __restrict__ dx,
+                             float* __restrict__ ddt, float* __restrict__ dBh,
+                             float* __restrict__ dCh, float* __restrict__ parts, int S, int H,
+                             int P, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int gh = h / (H / G);
+  const int Q16 = round16(Q), ns = Q16 / 16;
+  constexpr int LN = kLdN, LP = kLdP;
+  const int ntn = NTN > 0 ? NTN : N / 8, ntp = NTP > 0 ? NTP : P / 8;
+  const int Kn = 8 * ntn, Kp = 8 * ntp;  // N and P
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  float* cs = reinterpret_cast<float*>(smem4);  // Q16 x LN: C (i, n)
+  float* bs = cs + Q16 * LN;                     // Q16 x LN: B (j, n)
+  float* xs = bs + Q16 * LN;                     // Q16 x LP: x (j, p)
+  float* ys = xs + Q16 * LP;                     // Q16 x LP: dy (i, p)
+  float* dtv = ys + Q16 * LP;
+  float* cum = dtv + kMaxQ;
+  float* ecum = cum + kMaxQ;  // exp(cum_i)
+  float* tend = ecum + kMaxQ; // exp(total - cum_j)
+  float* wv = tend + kMaxQ;   // exp(total - cum_j) dt_j
+  float* ctv = wv + kMaxQ;    // sum_{i >= j} dM_ij K_ij
+  float* dwv = ctv + kMaxQ;   // dw_j = x_j . U_j
+  float* zv = dwv + kMaxQ;    // z_i = C_i . W_i
+  float* csv = zv + kMaxQ;    // c_j
+  float* suf = csv + kMaxQ;   // suffix sums of exp(cum_i) z_i
+  float* pre = suf + kMaxQ;   // prefix sums of w_i dw_i
+  float* red = pre + kMaxQ;   // kBwdThreads floats each
+  float* red2 = red + kBwdThreads;
+  float* rsum = red2 + kBwdThreads;     // kStrips x kMaxQ: r_i(J), then prefix sums over J
+  float* slab = rsum + kStrips * kMaxQ; // two 8 x LN slabs; after phase 3 the diagonal tiles
+  float* diag = slab;                   // kStrips x 16 x 16: R (j, i) of strip tiles (w, w)
+
+  mma_load_chunk<T>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, gh, s0, rows, S, H, P, G, N,
+                    Q16);
+  const float* cb_in = cum_in + (static_cast<long long>(b) * H + h) * nc * Q + s0;
+  if (tid < Q16) cum[tid] = cb_in[min(tid, Q - 1)];  // rows past Q: the chunk's total
+  for (int e = tid; e < kStrips * kMaxQ; e += kBwdThreads) rsum[e] = 0.f;
+  const long long blk = (static_cast<long long>(b) * nc + c) * H + h;
+  const bool inter = c > 0;  // the state entering the first chunk is zero
+  const float* Sin = states + blk * P * N;
+  const float* dS = dstates + blk * P * N;
+  // C B^T of the chunk's group (launch 1b), and its transpose
+  const float* cbm = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * bwd_mma_cb_floats(Q);
+  const float* cbtm = cbm + Q16 * Q16;
+  // <dS, state_in> while the tiles load: a thread's 4-vectors in turn (a
+  // tree over the threads at the end)
+  float ip = 0.f;
+  if (inter) {
+#pragma unroll 4
+    for (int e = tid; e < P * N / 4; e += kBwdThreads) {
+      const float4 u = reinterpret_cast<const float4*>(dS)[e];
+      const float4 v = reinterpret_cast<const float4*>(Sin)[e];
+      ip = fmaf(u.x, v.x, ip);
+      ip = fmaf(u.y, v.y, ip);
+      ip = fmaf(u.z, v.z, ip);
+      ip = fmaf(u.w, v.w, ip);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const float total = cum[Q16 - 1];
+  if (tid < Q16) {
+    ecum[tid] = expf(cum[tid]);
+    tend[tid] = expf(total - cum[tid]);
+    wv[tid] = tend[tid] * dtv[tid];
+  }
+  __syncthreads();
+
+  const bool own = warp < ns;                  // the warp's strip lies in the chunk
+  const int w16 = warp * 16, r0 = w16 + g, r1 = r0 + 8;  // the thread's two rows
+  const long long x_row = static_cast<long long>(H) * P;
+  const long long tok0 = static_cast<long long>(b) * S + s0;
+  const float d_h = Dskip[h];
+  // slab s (rows 8s .. 8s + 7) of a (P x N) state into buffer s % 2
+  auto stage = [&](const float* st, int s) {
+    float* dst = slab + (s & 1) * 8 * LN;
+    const int nv = N / 4;
+    for (int e = tid; e < 8 * nv; e += kBwdThreads) {
+      const int r = e / nv, v = e - r * nv;
+      cp_async16(dst + r * LN + v * 4, st + static_cast<long long>(8 * s + r) * N + v * 4, true);
+    }
+    cp_async_commit();
+  };
+
+  // ---- 1. W_i = dy_i state_in over the slabs of state_in; dC_i <- exp(cum_i) W_i
+  float acc[kMaxN / 8][4];  // W, then dC (rows i of the strip)
+#pragma unroll
+  for (int nt = 0; nt < kMaxN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  if (inter) {
+    stage(Sin, 0);
+#pragma unroll
+    for (int s = 0; s < kMmaP / 8; ++s) {
+      if (s < ntp) {
+        if (s + 1 < ntp) {
+          stage(Sin, s + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (own) mma_ab_step<kMaxN / 8>(acc, ys + w16 * LP, LP, 8 * s, slab + (s & 1) * 8 * LN,
+                                        LN, ntn);
+        __syncthreads();  // the buffer is staged again two slabs on
+      }
+    }
+  }
+  if (own) {
+    float z[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      if (nt < ntn) {
+        const int n = nt * 8 + 2 * t4;
+        z[0] = fmaf(cs[r0 * LN + n], acc[nt][0], z[0]);
+        z[0] = fmaf(cs[r0 * LN + n + 1], acc[nt][1], z[0]);
+        z[1] = fmaf(cs[r1 * LN + n], acc[nt][2], z[1]);
+        z[1] = fmaf(cs[r1 * LN + n + 1], acc[nt][3], z[1]);
+        acc[nt][0] *= ecum[r0];
+        acc[nt][1] *= ecum[r0];
+        acc[nt][2] *= ecum[r1];
+        acc[nt][3] *= ecum[r1];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      z[q] += __shfl_xor_sync(0xffffffffu, z[q], 1);
+      z[q] += __shfl_xor_sync(0xffffffffu, z[q], 2);
+    }
+    if (t4 == 0) {
+      zv[r0] = z[0];
+      zv[r1] = z[1];
+    }
+
+    // ---- 2. tiles (w, J <= w): dC_i += d(C B^T)_ij B_j
+    const float c0 = cum[r0], c1 = cum[r1];
+    for (int J = 0; J <= warp; ++J) {
+      float cb[2][4], dm[2][4] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(
+              cbm + (r0 + 8 * h) * Q16 + J * 16 + nt * 8 + 2 * t4));
+          cb[nt][2 * h] = v.x;
+          cb[nt][2 * h + 1] = v.y;
+        }
+      mma_abt<2>(dm, ys + w16 * LP, LP, xs + J * 16 * LP, LP, Kp);
+      float dcb[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? r0 : r1, j = J * 16 + nt * 8 + 2 * t4 + (e & 1);
+          // exp only where i >= j: its argument is <= 0 there
+          const float l = i >= j ? expf((e < 2 ? c0 : c1) - cum[j]) : 0.f;
+          dcb[nt][e] = dm[nt][e] * l * dtv[j];
+        }
+      mma_xb<kMaxN / 8>(acc, dcb, bs + J * 16 * LN, LN, ntn);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      if (nt < ntn) {
+        const int n = nt * 8 + 2 * t4;
+        if (r0 < rows) store2(dCh + ((tok0 + r0) * H + h) * N + n, acc[nt][0], acc[nt][1]);
+        if (r1 < rows) store2(dCh + ((tok0 + r1) * H + h) * N + n, acc[nt][2], acc[nt][3]);
+      }
+    }
+  }
+
+  // ---- 3. U_j = B_j dS^T, a slab (8 columns of U) at a time: dx_j <- w_j U_j
+  // + D dy_j, dw_j = x_j . U_j; V_j = x_j dS over the slabs, dB_j <- w_j V_j
+  float dxa[kMmaP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kMaxN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float dw[2] = {0.f, 0.f};
+  stage(dS, 0);
+#pragma unroll
+  for (int s = 0; s < kMmaP / 8; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxa[s][e] = 0.f;
+    if (s < ntp) {
+      if (s + 1 < ntp) {
+        stage(dS, s + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* sl = slab + (s & 1) * 8 * LN;
+      if (own) {
+        float u[1][4] = {};
+        mma_abt<1>(u, bs + w16 * LN, LN, sl, LN, Kn);
+        const int p = 8 * s + 2 * t4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e < 2 ? r0 : r1, pp = p + (e & 1);
+          dxa[s][e] = fmaf(wv[j], u[0][e], d_h * ys[j * LP + pp]);
+          dw[e >> 1] = fmaf(xs[j * LP + pp], u[0][e], dw[e >> 1]);
+        }
+        mma_ab_step<kMaxN / 8>(acc, xs + w16 * LP, LP, 8 * s, sl, LN, ntn);
+      }
+      __syncthreads();  // the buffer is staged again two slabs on; the last
+                        // one frees the region for the diagonal tiles
+    }
+  }
+
+  if (own) {
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      acc[nt][0] *= wv[r0];
+      acc[nt][1] *= wv[r0];
+      acc[nt][2] *= wv[r1];
+      acc[nt][3] *= wv[r1];
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      dw[q] += __shfl_xor_sync(0xffffffffu, dw[q], 1);
+      dw[q] += __shfl_xor_sync(0xffffffffu, dw[q], 2);
+    }
+    if (t4 == 0) {
+      dwv[r0] = dw[0];
+      dwv[r1] = dw[1];
+    }
+
+    // ---- 4. tiles (I >= w, w), transposed: rows j, columns i
+    const float dt0 = dtv[r0], dt1 = dtv[r1], c0 = cum[r0], c1 = cum[r1];
+    float ct[2] = {0.f, 0.f}, cr[2] = {0.f, 0.f};
+    for (int I = warp; I < ns; ++I) {
+      float cbt[2][4], dmt[2][4] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(
+              cbtm + (r0 + 8 * h) * Q16 + I * 16 + nt * 8 + 2 * t4));
+          cbt[nt][2 * h] = v.x;
+          cbt[nt][2 * h + 1] = v.y;
+        }
+      mma_abt<2>(dmt, xs + w16 * LP, LP, ys + I * 16 * LP, LP, Kp);
+      float mt[2][4], dct[2][4], rc[2][2] = {};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jl = g + (e >> 1) * 8, il = nt * 8 + 2 * t4 + (e & 1), i = I * 16 + il;
+          const float l = I > warp || il >= jl ? expf(cum[i] - (e < 2 ? c0 : c1)) : 0.f;
+          const float k = cbt[nt][e] * l, dtj = e < 2 ? dt0 : dt1;
+          const float m = k * dtj, r = dmt[nt][e] * m;
+          mt[nt][e] = m;
+          dct[nt][e] = dmt[nt][e] * l * dtj;
+          ct[e >> 1] = fmaf(dmt[nt][e], k, ct[e >> 1]);
+          if (I > warp) {
+            cr[e >> 1] += r;
+            rc[nt][e & 1] += r;
+          } else {
+            diag[warp * 256 + jl * 16 + il] = r;
+          }
+        }
+      if (I > warp) {
+        // column sums over the strip's 16 rows: the row pairs by shuffles
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float v = rc[nt][q];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (g == 0) rsum[warp * kMaxQ + I * 16 + nt * 8 + 2 * t4 + q] = v;
+          }
+      }
+      mma_xb<kMmaP / 8>(dxa, mt, ys + I * 16 * LP, LP, ntp);
+      mma_xb<kMaxN / 8>(acc, dct, cs + I * 16 * LN, LN, ntn);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      ct[q] += __shfl_xor_sync(0xffffffffu, ct[q], 1);
+      ct[q] += __shfl_xor_sync(0xffffffffu, ct[q], 2);
+      cr[q] += __shfl_xor_sync(0xffffffffu, cr[q], 1);
+      cr[q] += __shfl_xor_sync(0xffffffffu, cr[q], 2);
+    }
+    if (t4 == 0) {
+      ctv[r0] = ct[0];
+      ctv[r1] = ct[1];
+      csv[r0] = cr[0];
+      csv[r1] = cr[1];
+    }
+    T* dxb = dx + tok0 * x_row + static_cast<long long>(h) * P;
+#pragma unroll
+    for (int nt = 0; nt < kMmaP / 8; ++nt) {
+      if (nt < ntp) {
+        const int p = nt * 8 + 2 * t4;
+        if (r0 < rows) store2(dxb + r0 * x_row + p, dxa[nt][0], dxa[nt][1]);
+        if (r1 < rows) store2(dxb + r1 * x_row + p, dxa[nt][2], dxa[nt][3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      if (nt < ntn) {
+        const int n = nt * 8 + 2 * t4;
+        if (r0 < rows) store2(dBh + ((tok0 + r0) * H + h) * N + n, acc[nt][0], acc[nt][1]);
+        if (r1 < rows) store2(dBh + ((tok0 + r1) * H + h) * N + n, acc[nt][2], acc[nt][3]);
+      }
+    }
+  }
+
+  red2[tid] = ip;
+  __syncthreads();  // shared memory holds every strip's sums and tiles
+  ip = block_tree(red2, kBwdThreads);
+  // rsum[J][i] <- sum_{J' <= J} rsum[J'][i]
+  if (tid < Q16)
+    for (int J = 1; J + 1 < ns; ++J) rsum[J * kMaxQ + tid] += rsum[(J - 1) * kMaxQ + tid];
+  __syncthreads();
+
+  // ---- d(dt A)_t = sum_{i >= t, j < t} R_ij + sum_{i >= t} exp(cum_i) z_i
+  // + sum_{i < t} w_i dw_i + exp(total) <dS, state_in>, and ddt
+  float da_r = 0.f, ddt_part = 0.f;
+  if (tid < kMaxQ) {
+    float ez = 0.f, wdw = 0.f;
+    if (tid < Q16) {
+      const int t = tid, tau = t / 16, tl = t - tau * 16;
+      // sum_{i >= t} sum_{J < tau} r_i(J): four running sums, then a tree
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      if (tau > 0) {
+        const float* pj = rsum + (tau - 1) * kMaxQ;
+        int i = t;
+        for (; i + 3 < Q16; i += 4) {
+          a0 += pj[i];
+          a1 += pj[i + 1];
+          a2 += pj[i + 2];
+          a3 += pj[i + 3];
+        }
+        for (; i < Q16; ++i) a0 += pj[i];
+      }
+      // sum_{j in tau, j < t} c_j, and the diagonal tile: j < t <= i
+      float cj = 0.f, dg = 0.f;
+      for (int j = tau * 16; j < t; ++j) cj += csv[j];
+      const float* dtile = diag + tau * 256;
+      for (int jl = 0; jl < tl; ++jl)
+        for (int il = tl; il < 16; ++il) dg += dtile[jl * 16 + il];
+      da_r = ((a0 + a1) + (a2 + a3)) + (cj + dg);
+      ez = ecum[t] * zv[t];
+      wdw = wv[t] * dwv[t];
+      ddt_part = ctv[t] + tend[t] * dwv[t];
+    }
+    suf[tid] = ez;
+    red[tid] = wdw;
+  }
+  __syncthreads();
+  if (tid < kMaxQ) pre[tid] = tid > 0 && tid < Q16 ? red[tid - 1] : 0.f;
+  __syncthreads();
+  // suffix sums of suf and prefix sums of pre over the chunk (Hillis-Steele)
+  for (int off = 1; off < Q16; off <<= 1) {
+    const float vs = tid + off < Q16 ? suf[tid + off] : 0.f;
+    const float vp = tid >= off && tid < Q16 ? pre[tid - off] : 0.f;
+    __syncthreads();
+    if (tid < Q16) {
+      suf[tid] += vs;
+      pre[tid] += vp;
+    }
+    __syncthreads();
+  }
+  const float a_h = A[h], state_term = expf(total) * ip;
+  float da_term = 0.f, dd_term = 0.f;
+  if (tid < rows) {
+    const float da = da_r + suf[tid] + pre[tid] + state_term;
+    ddt[(tok0 + tid) * H + h] = fmaf(a_h, da, ddt_part);
+    da_term = dtv[tid] * da;
+    for (int p = 0; p < P; ++p) dd_term = fmaf(xs[tid * LP + p], ys[tid * LP + p], dd_term);
+  }
+  if (tid < kMaxQ) {
+    red[tid] = da_term;
+    red2[tid] = dd_term;
+  }
+  __syncthreads();
+  const float dA_c = block_tree(red, kMaxQ);
+  const float dD_c = block_tree(red2, kMaxQ);
+  if (tid == 0) {
+    const long long n_parts = static_cast<long long>(gridDim.z) * nc * H;
+    parts[blk] = dA_c;
+    parts[n_parts + blk] = dD_c;
+  }
+}
+
 bool bwd_shape_ok(int B, int S, int H, int P, int G, int N, int chunk) {
   return shape_ok(B, S, H, P, G, N, chunk) && S > 0 &&
          bwd_smem_floats((chunk + 3) & ~3, P, N) * static_cast<int>(sizeof(float)) <=
@@ -1553,6 +2399,60 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm, con
   ssd_bwd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(
       wsf + w.dstates, wsf + w.cum, static_cast<const float*>(d_state), H, PN, Q, nc);
   ssd_bwd_chunk_kernel<T><<<chunks, kBwdThreads, smem, stream>>>(
+      xt, dtf, Af, bt, ct, static_cast<const float*>(D), yt, wsf + w.cum, wsf + w.states,
+      wsf + w.dstates, wsf + w.scratch, static_cast<T*>(dx), static_cast<float*>(ddt),
+      wsf + w.dBh, wsf + w.dCh, wsf + w.parts, S, H, P, G, N, Q);
+  const long long n_out = static_cast<long long>(B) * S * G * N;
+  ssd_bwd_group_kernel<T><<<static_cast<unsigned>((n_out + kBwdThreads - 1) / kBwdThreads),
+                            kBwdThreads, 0, stream>>>(wsf + w.dBh, wsf + w.dCh,
+                                                      static_cast<T*>(dBm), static_cast<T*>(dCm),
+                                                      n_out, H, G, N);
+  ssd_bwd_param_kernel<<<dim3(H, 2), kBwdLanes, 0, stream>>>(
+      wsf + w.parts, static_cast<float*>(dA), static_cast<float*>(dD), B * nc, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bwd_mma_shape_ok(int B, int S, int H, int P, int G, int N, int chunk) {
+  return shape_ok(B, S, H, P, G, N, chunk) && S > 0 && P <= kMmaP &&
+         bwd_mma_smem_bytes(chunk) <= kBwdMaxSmemBytes;
+}
+
+// The mma body: launches 2, 3, 5 and 6 are the fma body's; 1, 1b (C B^T
+// per group) and 4 its own.  Its workspace is the fma body's with C B^T and
+// its transpose for each (b, chunk, group) in place of the chunk blocks'
+// scratch.
+template <typename T>
+int launch_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+                   const void* D, const void* dy, const void* d_state, void* dx, void* ddt,
+                   void* dA, void* dBm, void* dCm, void* dD, void* ws, int B, int S, int H, int P,
+                   int G, int N, int Q, cudaStream_t stream) {
+  cudaError_t err = allow_smem<ssd_bwd_state_mma_kernel<T>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess) err = allow_smem<ssd_bwd_cb_kernel<T>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 16, 8>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 0, 0>>(kBwdMaxSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nc = (S + Q - 1) / Q, PN = P * N;
+  const BwdWorkspace w = bwd_workspace(B, S, H, P, N, Q);
+  float* wsf = static_cast<float*>(ws);
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(Bm);
+  const T* ct = static_cast<const T*>(Cm);
+  const T* yt = static_cast<const T*>(dy);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const dim3 chunks(nc, H, B), pass((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
+  ssd_bwd_state_mma_kernel<T><<<chunks, kBwdThreads, bwd_mma_state_smem_bytes(Q), stream>>>(
+      xt, dtf, Af, bt, ct, yt, wsf + w.cum, wsf + w.states, wsf + w.dstates, S, H, P, G, N, Q);
+  ssd_bwd_cb_kernel<T><<<dim3(nc, G, B), kBwdThreads, 8 * round16(Q) * kLdN, stream>>>(
+      bt, ct, wsf + w.scratch, S, G, N, Q);
+  ssd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(wsf + w.states, wsf + w.cum,
+                                                           wsf + w.final_state, H, PN, Q, nc);
+  ssd_bwd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(
+      wsf + w.dstates, wsf + w.cum, static_cast<const float*>(d_state), H, PN, Q, nc);
+  // N 128 and P 64 (mamba2-130m's) with their tile counts at compile time
+  auto chunk_kernel = N == 128 && P == 64 ? ssd_bwd_chunk_mma_kernel<T, 16, 8>
+                                          : ssd_bwd_chunk_mma_kernel<T, 0, 0>;
+  chunk_kernel<<<chunks, kBwdThreads, bwd_mma_smem_bytes(Q), stream>>>(
       xt, dtf, Af, bt, ct, static_cast<const float*>(D), yt, wsf + w.cum, wsf + w.states,
       wsf + w.dstates, wsf + w.scratch, static_cast<T*>(dx), static_cast<float*>(ddt),
       wsf + w.dBh, wsf + w.dCh, wsf + w.parts, S, H, P, G, N, Q);
@@ -1660,6 +2560,35 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
     case 1:
       return launch_bwd<__nv_bfloat16>(x, dt, A, Bm, Cm, D, dy, d_state, dx, ddt, dA, dBm, dCm,
                                        dD, ws, B, S, H, P, G, N, chunk, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward's mma body, on the inputs of ssd_bwd, with P at most 64 (a
+// chunk block of bwd_mma_smem_bytes: 225 KB at chunk 128); ws a
+// float32 workspace of ssd_bwd_mma_workspace_floats(...) floats, 16-byte
+// aligned.  Returns cudaErrorInvalidValue on anything else, else
+// cudaGetLastError() after the last launch.
+extern "C" long long ssd_bwd_mma_workspace_floats(int B, int S, int H, int P, int G, int N,
+                                                  int chunk) {
+  return bwd_workspace(B, S, H, P, N, chunk).scratch +
+         static_cast<long long>(B) * ((S + chunk - 1) / chunk) * G * bwd_mma_cb_floats(chunk);
+}
+
+extern "C" int ssd_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,
+                           const void* Cm, const void* D, const void* dy, const void* d_state,
+                           void* dx, void* ddt, void* dA, void* dBm, void* dCm, void* dD,
+                           void* ws, int B, int S, int H, int P, int G, int N, int chunk,
+                           int dtype, void* stream) {
+  if (!bwd_mma_shape_ok(B, S, H, P, G, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd_mma<float>(x, dt, A, Bm, Cm, D, dy, d_state, dx, ddt, dA, dBm, dCm, dD,
+                                   ws, B, S, H, P, G, N, chunk, st);
+    case 1:
+      return launch_bwd_mma<__nv_bfloat16>(x, dt, A, Bm, Cm, D, dy, d_state, dx, ddt, dA, dBm,
+                                           dCm, dD, ws, B, S, H, P, G, N, chunk, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

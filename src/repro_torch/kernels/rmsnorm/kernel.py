@@ -17,7 +17,7 @@ alignment (never by trying one and falling back):
 
 The backward is a kernel too (``rmsnorm_bwd_cuda``: dx and a deterministic
 dscale, the statistics recomputed from x), behind ``RMSNormFunction``, the
-``torch.autograd.Function`` whose forward is ``rmsnorm_cuda``.  Two bodies,
+``torch.autograd.Function`` whose forward is ``rmsnorm_cuda``.  Three bodies,
 chosen by ``select_bwd_body``:
 
 * ``warp_rows``: rows of 16-byte vectors of at most 1024 elements (every
@@ -25,6 +25,11 @@ chosen by ``select_bwd_body``:
   lane's dscale sums kept in registers over its warp's rows; the grid comes
   from the SM count (``bwd_grid``), and a second kernel sums the CTAs'
   partial rows in a fixed tree; every dscale sum in fp64.
+* ``cta_rows``: rows of 16-byte vectors of 1025 to 8192 elements (the wider
+  train widths, 1280-5120, fp32 and bf16): the same design with a CTA of
+  1-8 warps on a row (``cta_shape``), the row's sums reduced across the
+  warps through shared memory with one barrier a row; the grid from the SM
+  count (``cta_grid``).
 * ``generic``: any other row: a CTA walks a run of rows, compensated sums.
 
 ``rmsnorm_bwd_cuda.launches`` counts its calls and ``launches_by_body``
@@ -42,7 +47,7 @@ from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("one_read", "generic")
-BWD_BODIES = ("warp_rows", "generic")
+BWD_BODIES = ("warp_rows", "cta_rows", "generic")
 # 16-byte vectors a lane of the one-read body (its template instances)
 VECTORS_PER_LANE = (1, 2, 4, 8, 16, 32)
 
@@ -61,6 +66,10 @@ BWD_MAX_BLOCKS = 256
 BWD_ROW_WARPS = 4
 BWD_WARPS_PER_SM = 8
 BWD_LANE_FLOATS = 32
+# the cta_rows body: warps a row at most (so rows up to 8192 elements) and
+# warps an SM the grid aims at
+BWD_CTA_MAX_WARPS = 8
+BWD_CTA_WARPS_PER_SM = 16
 _SMS: dict[int, int] = {}
 
 
@@ -78,10 +87,12 @@ def _entry():
 
 def _bwd_entry(body: str):
     lib = _build.load("rmsnorm")
-    fn = lib.rmsnorm_bwd_rows if body == "warp_rows" else lib.rmsnorm_bwd
+    fn = {"warp_rows": lib.rmsnorm_bwd_rows, "cta_rows": lib.rmsnorm_bwd_cta,
+          "generic": lib.rmsnorm_bwd}[body]
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        tail = [I, I, I] if body == "warp_rows" else [I]
+        tail = {"warp_rows": [I, I, I], "cta_rows": [I, I, I, I],
+                "generic": [I]}[body]
         fn.argtypes = [P, P, P, P, P, P, ctypes.c_longlong, I,
                        ctypes.c_float, I, I, *tail, P]
         fn.restype = I
@@ -94,6 +105,25 @@ def bwd_grid(rows: int, sms: int) -> tuple[int, int]:
     per_warp = -(-rows // (sms * BWD_WARPS_PER_SM))
     warps = -(-rows // per_warp)
     return per_warp, -(-warps // BWD_ROW_WARPS)
+
+
+def cta_shape(D: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(warps a row, 16-byte vectors a lane) of the cta_rows body for rows
+    of D elements of ``dtype``: the fewest warps that keep a lane at
+    ``BWD_LANE_FLOATS`` floats, then the fewest vectors a lane that cover
+    the row over them."""
+    nvec = D * _SIZES[dtype] // 16
+    most = BWD_LANE_FLOATS * _SIZES[dtype] // 16
+    warps = -(-nvec // (32 * most))
+    return warps, -(-nvec // (32 * warps))
+
+
+def cta_grid(rows: int, sms: int, warps: int) -> tuple[int, int]:
+    """(rows a CTA, CTAs) of the cta_rows body on a card of ``sms`` SMs,
+    its CTAs of ``warps`` warps: about ``BWD_CTA_WARPS_PER_SM`` warps an
+    SM, each CTA a run of whole rows."""
+    per_cta = -(-rows // (sms * max(1, BWD_CTA_WARPS_PER_SM // warps)))
+    return per_cta, -(-rows // per_cta)
 
 
 def _sms(device: torch.device) -> int:
@@ -146,7 +176,9 @@ def select_body(x: torch.Tensor, scale: torch.Tensor,
 def select_bwd_body(x: torch.Tensor, scale: torch.Tensor,
                     dy: torch.Tensor) -> tuple[str, int]:
     """(body, vectors a lane) of the backward for these inputs:
-    ``("warp_rows", n)`` or ``("generic", 0)``.
+    ``("warp_rows", n)`` (rows of 16-byte vectors up to 1024 elements),
+    ``("cta_rows", n)`` (such rows of 1025 to 8192 elements) or
+    ``("generic", 0)``.
 
     A pure function of dtype, shape and base addresses, on any device.
     Raises on what the forward takes no body for, and on a dy unlike x."""
@@ -154,9 +186,20 @@ def select_bwd_body(x: torch.Tensor, scale: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
                          f"{x.dtype} {tuple(x.shape)}")
-    if (body == "one_read" and dy.is_contiguous() and dy.data_ptr() % 16 == 0
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        return _GENERIC
+    if (body == "one_read"
             and vpl * 16 // _SIZES[x.dtype] <= BWD_LANE_FLOATS):
         return "warp_rows", vpl
+    # rows of 16-byte vectors of x, dy and scale past a warp's reach; the
+    # forward's limits on one_read do not apply
+    D = x.shape[-1]
+    if (D * _SIZES[x.dtype] % 16 or D * _SIZES[scale.dtype] % 16
+            or x.data_ptr() % 16 or scale.data_ptr() % 16):
+        return _GENERIC
+    warps, vpl = cta_shape(D, x.dtype)
+    if 1 < warps <= BWD_CTA_MAX_WARPS:
+        return "cta_rows", vpl
     return _GENERIC
 
 
@@ -221,6 +264,11 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         # each CTA's partial row of dscale, in fp64
         partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
         tail = (vpl, per_warp, ctas)
+    elif body == "cta_rows":
+        warps = cta_shape(D, x.dtype)[0]
+        per_cta, ctas = cta_grid(rows, _sms(x.device), warps)
+        partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
+        tail = (vpl, warps, per_cta, ctas)
     else:
         blocks = min(rows, BWD_MAX_BLOCKS)
         # each CTA's partial sums of dscale and their compensations

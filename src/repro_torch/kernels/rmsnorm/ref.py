@@ -1,8 +1,8 @@
 """Plain PyTorch RMSNorm: the CPU path and the oracle for the CUDA kernel.
 
 ``rmsnorm_dscale_ordered`` models the order in which the backward kernel's
-warp-a-row body sums dscale; the tests hold it against JAX, nothing on the
-CPU path calls it."""
+warp_rows and cta_rows bodies sum dscale; the tests hold it against JAX,
+nothing on the CPU path calls it."""
 from __future__ import annotations
 
 import torch
@@ -27,7 +27,10 @@ def rmsnorm_dscale_ordered(x: torch.Tensor, dy: torch.Tensor, *,
                            reduce_warps: int = 32) -> torch.Tensor:
     """dscale = sum over rows of dy·x̂ (x̂ = x·rsqrt(mean(x²) + eps), in
     fp32), each term and every sum in fp64 and rounded to fp32 once at the
-    end, summed in the order of the backward kernel's warp-a-row body:
+    end, summed in the order of the backward kernel's warp_rows body (and
+    of its cta_rows body with ``rows_per_warp`` the rows a CTA and
+    ``warps_per_cta=1``: a CTA's thread owns its columns over all its
+    rows):
 
     1. warp w sums rows [w·rows_per_warp, (w+1)·rows_per_warp) in turn;
     2. each CTA adds its ``warps_per_cta`` warps' sums as a pairwise tree;

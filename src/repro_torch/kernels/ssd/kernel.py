@@ -20,11 +20,20 @@ falling back):
 each body's.
 
 The backward is a kernel too (``ssd_bwd_cuda``: dx, ddt, dA, dB, dC and dD
-of y and of the final state, in fp32 on the FMA units for both dtypes, six
-launches through a workspace this wrapper allocates; its plain version is
+of y and of the final state, computed in fp32 for both dtypes, six launches
+through a workspace this wrapper allocates; its plain version is
 ``ref.ssd_chunked_bwd``), behind ``SSDFunction``, the
-``torch.autograd.Function`` whose forward is ``ssd_cuda``.  One body,
-``fma``; ``check_bwd_inputs`` checks what it takes.  ``ssd_bwd_cuda.launches``
+``torch.autograd.Function`` whose forward is ``ssd_cuda``.  Two bodies,
+chosen by ``select_bwd_body`` from the shape (never by trying one and
+falling back):
+
+* ``mma``: P up to 64 (mamba2-130m's train shape): the chunk states and
+  the chunk gradients on the TF32 tensor cores, every fp32 operand split
+  into hi + lo (3xTF32), the Q x Q scores kept in registers.
+* ``fma``: any other shape whose block fits (``bwd_smem_bytes``): the
+  products in fp32 on the FMA units, the scores through a device scratch.
+
+``check_bwd_inputs`` refuses what neither takes.  ``ssd_bwd_cuda.launches``
 counts its calls and ``launches_by_body`` each body's.  Called outside that
 Function, ``ssd_cuda`` refuses inputs that require grad.
 """
@@ -39,10 +48,11 @@ from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("mma", "fma")
-BWD_BODIES = ("fma",)
+BWD_BODIES = ("mma", "fma")
 # the backward's chunk blocks: csrc/ssd.cu's bwd_smem_floats, kBwdVecs,
-# kBwdThreads and kBwdMaxSmemBytes
+# kBwdThreads and kBwdMaxSmemBytes; the mma body's largest P (kMmaP)
 BWD_MAX_SMEM_BYTES = 232448
+BWD_MMA_MAX_P = 64
 
 
 def _entry(name: str):
@@ -54,8 +64,10 @@ def _entry(name: str):
                        "ssd_state_pass": [P] * 3 + [I] * 6 + [P],
                        "ssd_chunk_scan": [P] * 8 + [I] * 7 + [P],
                        "ssd_bwd": [P] * 15 + [I] * 8 + [P],
-                       "ssd_bwd_workspace_floats": [I] * 7}[name]
-        fn.restype = (ctypes.c_longlong if name == "ssd_bwd_workspace_floats"
+                       "ssd_bwd_mma": [P] * 15 + [I] * 8 + [P],
+                       "ssd_bwd_workspace_floats": [I] * 7,
+                       "ssd_bwd_mma_workspace_floats": [I] * 7}[name]
+        fn.restype = (ctypes.c_longlong if name.endswith("_workspace_floats")
                       else ctypes.c_int)
     return fn
 
@@ -182,14 +194,25 @@ def bwd_smem_bytes(chunk: int, P: int, N: int) -> int:
     return 4 * (2 * Qp * (N + 4) + 2 * Qp * (P + 4) + 8 * 128 + 256)
 
 
+def select_bwd_body(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
+                    d_state=None) -> str:
+    """The backward body for these inputs, one of ``BWD_BODIES``: ``mma``
+    where P <= ``BWD_MMA_MAX_P`` (its chunk block, with the strides of P 64
+    and N 128, fits 227 KB of shared memory at every chunk: 225 KB at
+    128), else ``fma`` (``check_bwd_inputs`` raises where that body's block
+    does not fit).  A pure function of dtype and shape, on any device."""
+    check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
+    return "mma" if x.shape[-1] <= BWD_MMA_MAX_P else "fma"
+
+
 def check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
                      d_state=None) -> None:
     """Check what the backward takes, on any device from dtype and shape.
 
     Raises on what the forward takes no body for, on a dy unlike x or a d_state that is not
     (B,H,P,N), on empty inputs, and on a chunk whose block would need more than
-    227 KB of shared memory (P = 128 with N = 128 at chunk 128: ROADMAP.md
-    Queue 2 item 3)."""
+    227 KB of shared memory on both bodies (P = 128 with N = 128 at chunk
+    128: ROADMAP.md Queue 2 item 3)."""
     select_body(x, dt, A, Bm, Cm, D, chunk)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
@@ -212,21 +235,31 @@ def check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
 def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
                  dy: torch.Tensor, d_state: torch.Tensor | None = None, *,
-                 chunk: int = 128):
+                 chunk: int = 128, body: str | None = None):
     """(dx, ddt, dA, dBm, dCm, dD), each in its input's dtype, of
     ``ssd_cuda``'s y and final state, given dy (like x) and ``d_state``
     (B,H,P,N) or None (the final state unused).
 
     The inputs ``ssd_cuda`` takes, none empty, and the chunk's block within 227
     KB of shared memory (``check_bwd_inputs``); computed in fp32 from either
-    dtype.  Every sum has one owner and a fixed order: the same bits on
-    every run on one card."""
+    dtype.  ``body`` (default: the one ``select_bwd_body`` picks) names the
+    body to run, ``fma`` or, where it takes the shape, ``mma``.  Every sum
+    has one owner and a fixed order: the same bits on every run on one
+    card."""
     if not x.is_cuda:
         raise ValueError(f"ssd_bwd_cuda takes CUDA tensors, got {x.device}")
     dy = dy.contiguous()
     if d_state is not None:
         d_state = d_state.to(torch.float32).contiguous()
-    check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
+    picked = select_bwd_body(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
+    body = picked if body is None else body
+    if body not in BWD_BODIES or (body == "mma" and picked != "mma"):
+        raise ValueError(f"backward body {body!r} does not take P={x.shape[-1]}"
+                         f", N={Bm.shape[-1]}, chunk {chunk} (bodies: "
+                         f"{BWD_BODIES})")
+    entry = "ssd_bwd_mma" if body == "mma" else "ssd_bwd"
+    if body == "mma":   # it reads x, dy, Bm and Cm as 16-byte vectors
+        x, Bm, Cm, dy = (_aligned(t) for t in (x, Bm, Cm, dy))
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
     f32 = torch.float32
@@ -235,9 +268,9 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ddt = torch.empty((B, S, H), dtype=f32, device=x.device)
     dA, dD = (torch.empty(H, dtype=f32, device=x.device) for _ in range(2))
     with torch.cuda.device(x.device):
-        ws = torch.empty(_entry("ssd_bwd_workspace_floats")(
+        ws = torch.empty(_entry(entry + "_workspace_floats")(
             B, S, H, P, G, N, chunk), dtype=f32, device=x.device)
-        err = _entry("ssd_bwd")(
+        err = _entry(entry)(
             x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), Df.data_ptr(), dy.data_ptr(),
             None if d_state is None else d_state.data_ptr(), dx.data_ptr(),
@@ -245,9 +278,10 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dD.data_ptr(), ws.data_ptr(), B, S, H, P, G, N, chunk,
             _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd backward launch failed ({body} body): CUDA "
+                           f"error {err}")
     ssd_bwd_cuda.launches += 1
-    ssd_bwd_cuda.launches_by_body["fma"] += 1
+    ssd_bwd_cuda.launches_by_body[body] += 1
     return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dBm, dCm, dD.to(D.dtype))
 
 

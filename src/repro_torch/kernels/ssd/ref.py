@@ -80,6 +80,27 @@ def split_bf16(v: torch.Tensor) -> torch.Tensor:
     return hi + (v - hi).to(torch.bfloat16).float()
 
 
+def truncate_tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` truncated to TF32 (its low 13 bits cleared), as the
+    backward's mma body splits its operands: hi = truncate_tf32(v), lo =
+    truncate_tf32(v - hi)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, rnd):
+    """``torch.einsum(eq, a, b)`` from split operands, as the backward's mma
+    body forms its products on the tensor cores: each operand as hi =
+    rnd(v) and lo = rnd(v - hi), and the product (lo·hi + hi·lo) + hi·hi,
+    the two small terms first (lo·lo is dropped;
+    ``flash_attention.ref.split_product`` for a matmul)."""
+    a, b = a.float(), b.float()
+    a_hi, b_hi = rnd(a), rnd(b)
+    a_lo, b_lo = rnd(a - a_hi), rnd(b - b_hi)
+    return ((torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo))
+            + torch.einsum(eq, a_hi, b_hi))
+
+
 def _chunked(t: torch.Tensor, chunk: int) -> torch.Tensor:
     """(B, S, ...) -> (B, nc, chunk, ...), the last chunk padded with 0."""
     B, S = t.shape[:2]
@@ -89,13 +110,16 @@ def _chunked(t: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.cat([t, pad], 1).reshape(B, nc, chunk, *t.shape[2:])
 
 
-def ssd_chunk_state(x, dt, A, Bm, *, chunk: int = 128, round_operand=None):
+def ssd_chunk_state(x, dt, A, Bm, *, chunk: int = 128, round_operand=None,
+                    product=torch.einsum):
     """Phase 1: (states (B,nc,H,P,N) fp32, cum (B,H,nc·chunk) fp32).
 
     cum is the within-chunk inclusive cumsum of dt·A; states[:, c] is the
     state chunk c leaves from a zero state, sum_j exp(total - cum_j) dt_j
     x_j B_jᵀ.  ``round_operand`` (None: exact fp32) is applied to the fp32
-    operand w∘x, as the kernel rounds it for the tensor cores."""
+    operand w∘x, as the kernel rounds it for the tensor cores; ``product``
+    (an einsum of two operands) forms the product (``split_einsum``: as
+    the backward's mma body forms it)."""
     B, S, H, P = x.shape
     f32 = torch.float32
     xf = _chunked(x.to(f32), chunk)                         # (B,nc,Q,H,P)
@@ -107,7 +131,7 @@ def ssd_chunk_state(x, dt, A, Bm, *, chunk: int = 128, round_operand=None):
     wx = w[..., None] * xf
     if round_operand is not None:
         wx = round_operand(wx)
-    states = torch.einsum("bcqhp,bcqhn->bchpn", wx, Bh)
+    states = product("bcqhp,bcqhn->bchpn", wx, Bh)
     return states, cum.permute(0, 3, 1, 2).reshape(B, H, -1)
 
 
@@ -174,17 +198,18 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
                           chunk=chunk), state
 
 
-def ssd_chunk_dstate(dy, Cm, cum, *, chunk: int = 128):
+def ssd_chunk_dstate(dy, Cm, cum, *, chunk: int = 128, product=torch.einsum):
     """The gradient each chunk's outputs send to the state entering it,
-    E (B,nc,H,P,N) fp32: sum_i exp(cum_i) dy_i C_iᵀ over the chunk (the
-    transpose of y's inter-chunk term; padding contributes 0)."""
+    E (B,nc,H,P,N) fp32: sum_i (exp(cum_i) dy_i) C_iᵀ over the chunk (the
+    transpose of y's inter-chunk term; padding contributes 0), the product
+    formed by ``product``."""
     B, S, H, P = dy.shape
     dyf = _chunked(dy.to(torch.float32), chunk)             # (B,nc,Q,H,P)
     nc = dyf.shape[1]
     Ch = _expand_groups(_chunked(Cm.to(torch.float32), chunk).flatten(1, 2),
                         H).reshape(B, nc, chunk, H, -1)     # (B,nc,Q,H,N)
     cum = cum.reshape(B, H, nc, chunk).permute(0, 2, 3, 1)  # (B,nc,Q,H)
-    return torch.einsum("bcqh,bcqhp,bcqhn->bchpn", torch.exp(cum), dyf, Ch)
+    return product("bcqhp,bcqhn->bchpn", torch.exp(cum)[..., None] * dyf, Ch)
 
 
 def ssd_state_passing_bwd(dstates, cum, d_state=None, *, chunk: int = 128):
@@ -218,7 +243,7 @@ def _tree(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, *,
-                       chunk: int = 128):
+                       chunk: int = 128, product=torch.einsum):
     """Every gradient inside the chunks, fp32, from the forward's cum and
     states_in (``ssd_chunk_state`` / ``ssd_state_passing``) and the
     gradients of the chunks' local states (``ssd_state_passing_bwd``).
@@ -236,8 +261,10 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, *,
                     + sum_{i >= t} exp(cum_i) dy_i·Z_i
                     + sum_{i < t} w_i dw_i + exp(total) <dstate, state_in>
 
-    A chunk's dA and dD are summed over its tokens as a pairwise tree
-    (``_tree``), as the kernel sums them."""
+    with W = dy_i state_in (dC's inter-chunk term) giving the second term's
+    dy_i·Z_i as C_i·W_i.  A chunk's dA and dD are summed over its tokens as
+    a pairwise tree (``_tree``), as the kernel sums them.  ``product`` (an
+    einsum of two operands) forms every product of two tensors."""
     B, S, H, P = x.shape
     f32 = torch.float32
     xf, dyf = (_chunked(t.to(f32), chunk) for t in (x, dy))  # (B,nc,Q,H,P)
@@ -258,18 +285,18 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, *,
     arg = torch.where(causal, cum[:, :, :, None] - cum[:, :, None],
                       torch.tensor(-1e30, dtype=f32, device=x.device))
     L = torch.exp(arg)                                       # (B,nc,Q,Q,H)
-    K = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh) * L       # C·Bᵀ ∘ L
+    K = product("bcqhn,bcshn->bcqsh", Ch, Bh) * L       # C·Bᵀ ∘ L
     M = K * dtf[:, :, None]                                  # the scores
-    dM = torch.einsum("bcqhp,bcshp->bcqsh", dyf, xf)         # dy xᵀ
+    dM = product("bcqhp,bcshp->bcqsh", dyf, xf)         # dy xᵀ
     dCB = dM * L * dtf[:, :, None]
     R = dM * M
     # sum_{i >= t, j < t} R_ij: R's suffix sums over i, then row t's j < t
     da = (R.flip(2).cumsum(2).flip(2)
           * (idx[None, :] < idx[:, None])[None, None, :, :, None]).sum(3)
     ddt = (dM * K).sum(2)
-    dx = torch.einsum("bcqsh,bcqhp->bcshp", M, dyf)
+    dx = product("bcqsh,bcqhp->bcshp", M, dyf)
     # the chunk's local state sum_j w_j x_j B_jᵀ, whose gradient is dstates
-    U = torch.einsum("bcshn,bchpn->bcshp", Bh, dstates)
+    U = product("bcshn,bchpn->bcshp", Bh, dstates)
     dx = dx + w[..., None] * U + D.to(f32)[:, None] * dyf
     dw = (xf * U).sum(-1)
     ddt = ddt + to_end * dw
@@ -278,15 +305,14 @@ def ssd_chunk_scan_bwd(x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, *,
                          wdw.cumsum(2)[:, :, :-1]], 2)
     da = da + (torch.exp(total[:, :, 0]) * (dstates * states_in).sum(
         (-1, -2)))[:, :, None]
-    # the inter-chunk term exp(cum_i) C_i · state_in
-    Z = torch.einsum("bcqhn,bchpn->bcqhp", Ch, states_in)
-    ez = ecum * (dyf * Z).sum(-1)
+    # the inter-chunk term exp(cum_i) C_i · state_in: W = dy state_in, and
+    # dy_i · (C_i state_inᵀ) = C_i · W_i
+    W = product("bcqhp,bchpn->bcqhn", dyf, states_in)
+    ez = ecum * (Ch * W).sum(-1)
     da = da + ez.flip(2).cumsum(2).flip(2)
-    dC = (torch.einsum("bcqsh,bcshn->bcqhn", dCB, Bh)
-          + ecum[..., None] * torch.einsum("bcqhp,bchpn->bcqhn", dyf,
-                                           states_in))
-    dB = (torch.einsum("bcqsh,bcqhn->bcshn", dCB, Ch)
-          + w[..., None] * torch.einsum("bcshp,bchpn->bcshn", xf, dstates))
+    dC = (product("bcqsh,bcshn->bcqhn", dCB, Bh) + ecum[..., None] * W)
+    dB = (product("bcqsh,bcqhn->bcshn", dCB, Ch)
+          + w[..., None] * product("bcshp,bchpn->bcshn", xf, dstates))
     ddt = ddt + A.to(f32) * da
     dA_parts = _tree(dtf * da, 2)
     dD_parts = _tree((xf * dyf).sum(-1), 2)
@@ -313,21 +339,25 @@ def ssd_sum_ordered(parts: torch.Tensor, threads: int = 256) -> torch.Tensor:
 
 
 def ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, d_state=None, *,
-                    chunk: int = 128):
+                    chunk: int = 128, product=torch.einsum):
     """The gradients (dx, ddt, dA, dBm, dCm, dD) of ``ssd_chunked``'s y and
     final state, given dy (like x) and ``d_state`` (B,H,P,N) or None (the
     final state unused), each in its input's dtype, computed in fp32.  Any S
     (the last chunk padded, as the kernel pads it).  dB and dC are summed
     over each group's heads in order; dA and dD over the chunks by
-    ``ssd_sum_ordered``."""
+    ``ssd_sum_ordered``.  ``product`` (an einsum of two operands) forms
+    every product of two tensors: ``split_einsum`` with ``truncate_tf32``
+    models the mma body's 3xTF32 products."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
-    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk, product=product)
     states_in, _ = ssd_state_passing(states, cum, chunk=chunk)
-    dstates = ssd_state_passing_bwd(ssd_chunk_dstate(dy, Cm, cum, chunk=chunk),
-                                    cum, d_state, chunk=chunk)
+    dstates = ssd_state_passing_bwd(
+        ssd_chunk_dstate(dy, Cm, cum, chunk=chunk, product=product), cum,
+        d_state, chunk=chunk)
     dx, ddt, dBh, dCh, dA_parts, dD_parts = ssd_chunk_scan_bwd(
-        x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, chunk=chunk)
+        x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, chunk=chunk,
+        product=product)
 
     def by_group(t):      # (B,S,H,N) -> (B,S,G,N), each group's heads in order
         t = t.reshape(B, S, G, H // G, N)

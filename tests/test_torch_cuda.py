@@ -9,8 +9,9 @@ forward in fp32; the scans: ``ssd_chunked_bwd`` and ``rglru_bwd``), and the
 training step on the card against the same step on the CPU, for the dense
 LM and the SSD and RG-LRU families.  Each body of a kernel is held on its own
 (flash attention's sm90, mma and fp32 bodies, rmsnorm's one-read and generic
-bodies, the SSD scan's mma and fma bodies, the RG-LRU scan's segmented and
-serial bodies), and the launch counts by body show which one ran.  This file
+bodies and its backward's warp_rows, cta_rows and generic bodies, the SSD
+scan's mma and fma bodies both ways, the RG-LRU scan's segmented and serial
+bodies), and the launch counts by body show which one ran.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -598,14 +599,15 @@ def _within(got, want, t):
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, D):
     """dx and dscale against autograd of rmsnorm_ref in fp32 on the same
     inputs; (4096, 512) is the 100m preset's step (the warp_rows body),
-    130, 3584 and 2048 take the generic body; dscale's order is fixed, so a
-    second call gives the same bits."""
+    3584 and 2048 take the cta_rows body and 130 the generic body;
+    dscale's order is fixed, so a second call gives the same bits."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x, dy = (torch.randn(rows, D, generator=g, device=cuda).to(dtype)
              for _ in range(2))
     s = torch.randn(D, generator=g, device=cuda).to(dtype)
     body = rms.select_bwd_body(x, s, dy)[0]
-    assert body == ("warp_rows" if D <= 1024 and D != 130 else "generic")
+    assert body == ("generic" if D == 130 else "warp_rows" if D <= 1024
+                    else "cta_rows")
     before = dict(rmsnorm_bwd_cuda.launches_by_body)
     dx, ds = rmsnorm_bwd_cuda(x, s, dy)
     dx2, ds2 = rmsnorm_bwd_cuda(x, s, dy)
@@ -622,7 +624,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, D):
 @pytest.mark.parametrize("rows,D", [(8192, 768), (8192, 1536), (2048, 4096)])
 def test_rmsnorm_bwd_holds_at_the_recurrent_train_shapes(cuda, rows, D):
     """fp32 dx and dscale at mamba2-130m's norm1 (warp_rows) and gated norm
-    (generic) and recurrentgemma-9b's norm (generic) against a float64
+    (cta_rows) and recurrentgemma-9b's norm (cta_rows) against a float64
     evaluation at 2e-5: at 8192 rows rmsnorm_ref's own fp32 dscale strays
     from the exact sum by more than that, so the kernel is held against
     the exact one."""
@@ -631,7 +633,7 @@ def test_rmsnorm_bwd_holds_at_the_recurrent_train_shapes(cuda, rows, D):
              for _ in range(2))
     s = torch.randn(D, generator=g, device=cuda)
     body = rms.select_bwd_body(x, s, dy)[0]
-    assert body == ("warp_rows" if D <= 1024 else "generic")
+    assert body == ("warp_rows" if D <= 1024 else "cta_rows")
     dx, ds = rmsnorm_bwd_cuda(x, s, dy)
     xd, sd, gd = x.double(), s.double(), dy.double()
     rstd = torch.rsqrt(xd.square().mean(-1, keepdim=True) + 1e-6)
@@ -641,6 +643,56 @@ def test_rmsnorm_bwd_holds_at_the_recurrent_train_shapes(cuda, rows, D):
     for got, want in ((dx, want_dx), (ds, want_ds)):
         err = (got.double() - want).abs()
         assert bool((err <= 2e-5 * (1 + want.abs())).all())
+
+
+def _rmsnorm_f64_grads(x, s, dy):
+    """(dx, dscale) of rmsnorm_ref's function evaluated in float64."""
+    xd, sd, gd = x.double(), s.double(), dy.double()
+    rstd = torch.rsqrt(xd.square().mean(-1, keepdim=True) + 1e-6)
+    xh, gs = xd * rstd, gd * sd
+    return (rstd * (gs - xh * (gs * xh).mean(-1, keepdim=True)),
+            (gd * xh).sum(0))
+
+
+@pytest.mark.parametrize("rows,D,dtype", [
+    (8192, 1536, torch.float32), (2048, 4096, torch.float32),
+    (300, 5120, torch.float32), (64, 8192, torch.float32),
+    (2048, 4096, torch.bfloat16), (37, 2560, torch.bfloat16)])
+def test_rmsnorm_cta_rows_body_holds_and_repeats(cuda, rows, D, dtype):
+    """The cta_rows body (rows of 1025-8192 elements) against a float64
+    evaluation at 2e-5 fp32 / 2e-2 bf16, the same bits on a second call;
+    the counts by body show it ran.  Beside it, an 8200-element fp32 row
+    (past 8 warps of 32 floats a lane) on the generic body."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    t = 2e-5 if dtype == torch.float32 else 2e-2
+    for D_, body in ((D, "cta_rows"), (8200, "generic")):
+        x, dy = (torch.randn(rows if D_ == D else 16, D_, generator=g,
+                             device=cuda).to(dtype) for _ in range(2))
+        s = torch.randn(D_, generator=g, device=cuda).to(dtype)
+        assert rms.select_bwd_body(x, s, dy)[0] == body
+        before = rmsnorm_bwd_cuda.launches_by_body[body]
+        got = rmsnorm_bwd_cuda(x, s, dy)
+        again = rmsnorm_bwd_cuda(x, s, dy)
+        torch.cuda.synchronize()
+        assert rmsnorm_bwd_cuda.launches_by_body[body] == before + 2
+        for a, b, want in zip(got, again, _rmsnorm_f64_grads(x, s, dy)):
+            assert a.dtype == dtype and torch.equal(a, b)
+            err = (a.double() - want).abs()
+            assert bool((err <= t * (1 + want.abs())).all())
+
+
+def test_rmsnorm_function_routes_wide_rows_to_cta_rows(cuda):
+    """RMSNormFunction (ops.rmsnorm with inputs that require grad) at
+    mamba2-130m's gated norm width runs the cta_rows backward."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(512, 1536, generator=g, device=cuda, requires_grad=True)
+    s = torch.randn(1536, generator=g, device=cuda, requires_grad=True)
+    before = dict(rmsnorm_bwd_cuda.launches_by_body)
+    ops.rmsnorm(x, s).square().sum().backward()
+    torch.cuda.synchronize()
+    after = rmsnorm_bwd_cuda.launches_by_body
+    assert {b: after[b] - before[b] for b in before} == {
+        "warp_rows": 0, "cta_rows": 1, "generic": 0}
 
 
 FLASH_BWD_CASES = [
@@ -731,14 +783,16 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk,
     ds = (torch.randn(B, H, P, N, generator=g, device=cuda) if with_state
           else None)
     leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
-    before = (ssd_cuda.launches, ssd_bwd_cuda.launches_by_body["fma"])
+    body = ssd.select_bwd_body(x, dt, A, Bm, Cm, D, dy, chunk, ds)
+    assert body == "mma"
+    before = (ssd_cuda.launches, ssd_bwd_cuda.launches_by_body[body])
     y, state = ops.ssd_scan(*leaves, chunk=chunk)
     loss = (y.float() * dy.float()).sum()
     if ds is not None:
         loss = loss + (state * ds).sum()
     loss.backward()
     torch.cuda.synchronize()
-    assert (ssd_cuda.launches, ssd_bwd_cuda.launches_by_body["fma"]) == (
+    assert (ssd_cuda.launches, ssd_bwd_cuda.launches_by_body[body]) == (
         before[0] + 1, before[1] + 1)
     want = ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, ds, chunk=chunk)
     t = 2e-3 if dtype == torch.float32 else 5e-2
@@ -747,6 +801,35 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk,
     first = ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, ds, chunk=chunk)
     again = ssd_bwd_cuda(x, dt, A, Bm, Cm, D, dy, ds, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_BWD_CASES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_bwd_mma_body_matches_fma_body(cuda, dtype, B, S, H, P, G, N,
+                                           chunk, with_state):
+    """The mma body (3xTF32 tensor cores) and the fma body forced on the
+    same inputs, each against ``ssd_chunked_bwd`` at the SSD tolerances and
+    the two against each other at the same tolerances; each gives the same
+    bits on a second call."""
+    args = _ssd_inputs(cuda, B, S, H, P, G, N, dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(B, S, H, P, generator=g, device=cuda).to(dtype)
+    ds = (torch.randn(B, H, P, N, generator=g, device=cuda) if with_state
+          else None)
+    before = dict(ssd_bwd_cuda.launches_by_body)
+    mma = ssd_bwd_cuda(*args, dy, ds, chunk=chunk, body="mma")
+    mma2 = ssd_bwd_cuda(*args, dy, ds, chunk=chunk)
+    fma = ssd_bwd_cuda(*args, dy, ds, chunk=chunk, body="fma")
+    fma2 = ssd_bwd_cuda(*args, dy, ds, chunk=chunk, body="fma")
+    torch.cuda.synchronize()
+    assert {b: ssd_bwd_cuda.launches_by_body[b] - before[b]
+            for b in before} == {"mma": 2, "fma": 2}
+    want = ssd_chunked_bwd(*args, dy, ds, chunk=chunk)
+    t = 2e-3 if dtype == torch.float32 else 5e-2
+    for a, a2, f, f2, w in zip(mma, mma2, fma, fma2, want):
+        assert torch.equal(a, a2) and torch.equal(f, f2)
+        assert _within(a, w, t) and _within(f, w, t) and _within(a, f, t)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -174,13 +174,82 @@ def test_rmsnorm_bwd_rows_of_at_most_1024_take_warp_rows(D, dtype, vpl):
                         torch.zeros_like(x)) == ("warp_rows", vpl)
 
 
-@pytest.mark.parametrize("D,dtype", [(3584, BF16), (1536, F32), (2048, BF16),
+@pytest.mark.parametrize("D,dtype", [(8200, F32), (8208, BF16), (1030, F32),
                                      (130, BF16), (130, F32)])
 def test_rmsnorm_bwd_other_rows_take_generic(D, dtype):
-    """Wider rows (the served 3584) and rows not of 16-byte vectors."""
+    """Rows wider than 8 warps of 32 floats a lane (past 8192 elements) and
+    rows not of 16-byte vectors."""
     x = torch.zeros(3, D, dtype=dtype)
     assert rms_bwd_body(x, torch.zeros(D, dtype=dtype),
                         torch.zeros_like(x)) == ("generic", 0)
+
+
+# every registry width above 1024 (d_model; mamba2-130m's gated norm is
+# 1536 wide) with the (warps, vectors a lane) of the cta_rows body
+CTA_ROWS = {F32: {1280: (2, 5), 1536: (2, 6), 2048: (2, 8), 2560: (3, 7),
+                  3584: (4, 7), 3840: (4, 8), 4096: (4, 8), 5120: (5, 8)},
+            BF16: {1280: (2, 3), 1536: (2, 3), 2048: (2, 4), 2560: (3, 4),
+                   3584: (4, 4), 3840: (4, 4), 4096: (4, 4), 5120: (5, 4)}}
+
+
+def test_rmsnorm_cta_rows_widths_are_the_registrys_past_1024():
+    from repro_torch.configs import ARCH_IDS, get_config
+    wide = {get_config(a).d_model for a in ARCH_IDS} - set(range(1025))
+    mamba2 = get_config("mamba2-130m")
+    assert mamba2.ssm_heads * mamba2.ssm_head_dim == 1536
+    assert set(CTA_ROWS[F32]) == set(CTA_ROWS[BF16]) == wide | {1536}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("D", sorted(CTA_ROWS[F32]))
+def test_rmsnorm_bwd_wide_rows_take_cta_rows(D, dtype):
+    """Rows of 16-byte vectors of 1025-8192 elements take the cta_rows body
+    with at most 32 floats a lane, in either scale dtype; the forward's
+    one_read limits do not decide (fp32 5120 is past them)."""
+    warps, vpl = CTA_ROWS[dtype][D]
+    assert rms.cta_shape(D, dtype) == (warps, vpl)
+    assert vpl * 16 // (4 if dtype == F32 else 2) <= rms.BWD_LANE_FLOATS
+    assert warps * 32 * vpl * 16 >= D * (4 if dtype == F32 else 2)
+    x = torch.zeros(3, D, dtype=dtype)
+    for s_dtype in (F32, BF16):
+        assert rms_bwd_body(x, torch.zeros(D, dtype=s_dtype),
+                            torch.zeros_like(x)) == ("cta_rows", vpl)
+
+
+@pytest.mark.parametrize("dtype,D,want", [(F32, 8192, (8, 8)),
+                                          (BF16, 8192, (8, 4)),
+                                          (F32, 1028, (2, 5)),
+                                          (BF16, 1032, (2, 3))])
+def test_rmsnorm_cta_rows_spans_1025_to_8192(dtype, D, want):
+    x = torch.zeros(2, D, dtype=dtype)
+    assert rms.cta_shape(D, dtype) == want
+    assert rms_bwd_body(x, torch.zeros(D), torch.zeros_like(x)) == (
+        "cta_rows", want[1])
+
+
+def test_rmsnorm_bwd_misaligned_wide_rows_take_generic():
+    x = torch.zeros(4, 1536)
+    dy = torch.zeros(4 * 1536 + 1)[1:].view(4, 1536)
+    xm = torch.zeros(4 * 1536 + 2)[2:].view(4, 1536)
+    s = torch.zeros(1536)
+    assert rms_bwd_body(x, s, dy) == ("generic", 0)
+    assert rms_bwd_body(xm, s, torch.zeros_like(x)) == ("generic", 0)
+    assert rms_bwd_body(x, torch.zeros(1537)[1:], torch.zeros_like(x)) == (
+        "generic", 0)
+
+
+@pytest.mark.parametrize("rows,sms,warps,want", [
+    (8192, 132, 2, (8, 1024)),    # mamba2-130m's gated norm on an H100
+    (2048, 132, 4, (4, 512)),     # recurrentgemma-9b's norm
+    (7, 132, 8, (1, 7)),
+    (100000, 16, 5, (2084, 48)),
+])
+def test_rmsnorm_cta_grid_from_the_sm_count(rows, sms, warps, want):
+    """About 16 warps an SM, each CTA a run of whole rows; the CTAs cover
+    every row and the last one has rows to take."""
+    per_cta, ctas = rms.cta_grid(rows, sms, warps)
+    assert (per_cta, ctas) == want
+    assert ctas * per_cta >= rows > (ctas - 1) * per_cta
 
 
 def test_rmsnorm_bwd_misaligned_dy_takes_generic():
@@ -211,6 +280,7 @@ def test_rmsnorm_bwd_counts_start_at_zero_by_body():
     rms.reset_counts()
     assert rms.rmsnorm_bwd_cuda.launches == 0
     assert rms.rmsnorm_bwd_cuda.launches_by_body == {"warp_rows": 0,
+                                                     "cta_rows": 0,
                                                      "generic": 0}
 
 
@@ -284,7 +354,7 @@ def test_ssd_counts_start_at_zero_by_body():
     assert ssd.ssd_cuda.launches == 0
     assert ssd.ssd_cuda.launches_by_body == {"mma": 0, "fma": 0}
     assert ssd.ssd_bwd_cuda.launches == 0
-    assert ssd.ssd_bwd_cuda.launches_by_body == {"fma": 0}
+    assert ssd.ssd_bwd_cuda.launches_by_body == {"mma": 0, "fma": 0}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -302,6 +372,32 @@ def test_ssd_bwd_block_fits_227_kb_at_mamba2s_shape():
     at state 128 and chunk 128 does not."""
     assert ssd.bwd_smem_bytes(128, 64, 128) == 209920
     assert ssd.bwd_smem_bytes(128, 128, 128) > ssd.BWD_MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,d_state", [
+    (8, 1024, 24, 64, 1, 128, 128, False),   # mamba2-130m's train step
+    (2, 1000, 24, 64, 1, 128, 128, True),    # the chip_smoke.py cases
+    (2, 200, 4, 16, 2, 16, 64, True),
+    (2, 37, 4, 8, 1, 8, 16, False),
+])
+def test_ssd_bwd_takes_mma_where_its_tiles_fit(dtype, B, S, H, P, G, N,
+                                              chunk, d_state):
+    args = ssd_args(B=B, S=S, H=H, P=P, G=G, N=N, dtype=dtype)
+    ds = torch.zeros(B, H, P, N) if d_state else None
+    assert ssd.select_bwd_body(*args, torch.zeros_like(args[0]), chunk,
+                               ds) == "mma"
+
+
+@pytest.mark.parametrize("P,N,chunk", [(72, 128, 128), (128, 128, 64),
+                                       (128, 64, 128), (96, 16, 32)])
+def test_ssd_bwd_takes_fma_where_the_mma_tiles_do_not_fit(P, N, chunk):
+    """Head dims past the mma body's 64 (its dx accumulators) take the fma
+    body where that body's block fits."""
+    args = ssd_args(S=256, P=P, N=N, dtype=F32)
+    assert ssd.bwd_smem_bytes(chunk, P, N) <= ssd.BWD_MAX_SMEM_BYTES
+    assert ssd.select_bwd_body(*args, torch.zeros_like(args[0]),
+                               chunk) == "fma"
 
 
 @pytest.mark.parametrize("make,match", [

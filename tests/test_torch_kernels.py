@@ -41,15 +41,17 @@ from repro_torch.kernels.flash_attention.ref import (attention_mask,
 from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
                                            rglru_gates, rglru_sequential)
-from repro_torch.kernels.rmsnorm.kernel import bwd_grid, rmsnorm_cuda
+from repro_torch.kernels.rmsnorm.kernel import (bwd_grid, cta_grid,
+                                                cta_shape, rmsnorm_cuda)
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_dscale_ordered,
                                              rmsnorm_ref)
 from repro_torch.kernels.ssd.kernel import ssd_cuda
-from repro_torch.kernels.ssd.ref import (_tree, split_bf16, ssd_chunk_scan,
+from repro_torch.kernels.ssd.ref import (_tree, split_bf16, split_einsum,
+                                         ssd_chunk_scan,
                                          ssd_chunk_state, ssd_chunked,
                                          ssd_chunked_bwd, ssd_decode_step,
                                          ssd_sequential, ssd_state_passing,
-                                         ssd_sum_ordered)
+                                         ssd_sum_ordered, truncate_tf32)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -165,6 +167,55 @@ def test_rmsnorm_bwd_dscale_order_holds_at_8192_rows(rows, D):
     rows_per_warp, _ = bwd_grid(rows, 132)
     got = rmsnorm_dscale_ordered(torch.from_numpy(x), torch.from_numpy(dy),
                                  rows_per_warp=rows_per_warp)
+    assert got.dtype == torch.float32
+    assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+def test_rmsnorm_cta_rows_dscale_order_matches_jax(sms):
+    """dscale summed in the cta_rows body's order (each CTA's thread a
+    running fp64 sum of its columns over the CTA's rows, then the partial
+    rows' strided sums and pairwise tree) against jax.grad of the JAX
+    reference at 2e-5, at recurrentgemma-9b's step (2048, 4096), where a
+    plain running sum over the rows misses.  The grid is the wrapper's on
+    a card of ``sms`` SMs."""
+    rng = np.random.default_rng(6)
+    x, dy = (rng.standard_normal((2048, 4096)).astype(np.float32)
+             for _ in range(2))
+    s = rng.standard_normal(4096).astype(np.float32)
+    want = np.asarray(jax.grad(
+        lambda s: jnp.sum(jax_rmsnorm_ref(x, s) * dy))(s))
+    warps = cta_shape(4096, torch.float32)[0]
+    per_cta, ctas = cta_grid(2048, sms, warps)
+    assert ctas * per_cta >= 2048
+    got = rmsnorm_dscale_ordered(torch.from_numpy(x), torch.from_numpy(dy),
+                                 rows_per_warp=per_cta, warps_per_cta=1)
+    assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    terms = dyt * (xt * torch.rsqrt(xt.square().mean(-1, keepdim=True)
+                                    + 1e-6))
+    running = torch.zeros(4096)
+    for row in terms:
+        running = running + row
+    assert not np.all(np.abs(running.numpy() - want)
+                      <= 2e-5 * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+def test_rmsnorm_cta_rows_dscale_order_holds_at_8192_rows(sms):
+    """The cta_rows body's dscale order at mamba2-130m's gated norm (8192,
+    1536), against a float64 evaluation at 2e-5.  (jax.grad of the JAX
+    reference cannot be the reference there: its own fp32 dscale strays
+    from the float64 value by 1.07x that tolerance at these inputs.)"""
+    rng = np.random.default_rng(6)
+    x, dy = (rng.standard_normal((8192, 1536)).astype(np.float32)
+             for _ in range(2))
+    xd = x.astype(np.float64)
+    want = (dy.astype(np.float64) * xd
+            / np.sqrt(np.mean(xd * xd, -1, keepdims=True) + 1e-6)).sum(0)
+    per_cta, _ = cta_grid(8192, sms, cta_shape(1536, torch.float32)[0])
+    got = rmsnorm_dscale_ordered(torch.from_numpy(x), torch.from_numpy(dy),
+                                 rows_per_warp=per_cta, warps_per_cta=1)
     assert got.dtype == torch.float32
     assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
@@ -673,6 +724,43 @@ def test_ssd_bwd_ref_matches_jax_grad(S, G, dtype):
     (y.float() * tdy.float()).sum().backward()
     for g, leaf in zip(got, leaves):
         assert_allclose(f32(g), f32(leaf.grad), **_ssd_tol(dtype))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_ssd_bwd_split_products_hold_the_ssd_tolerance(B):
+    """``ssd_chunked_bwd`` with every product of two tensors formed as the
+    backward's mma body forms it on the TF32 tensor cores (hi + lo splits
+    by truncation, three products: ``split_einsum`` with
+    ``truncate_tf32``; the flash backward's round-to-nearest split
+    ``split_tf32`` too) against ``jax.grad`` of JAX's chunked scan at
+    mamba2-130m's widths (P 64, N 128, chunk 128) at the fp32 SSD
+    tolerance, 2e-3; the same products from operands cut once to TF32 (the
+    tensor cores' reading of an unsplit fp32 operand) miss it."""
+    H, S, P, G, N, chunk = 4, 256, 64, 1, 128, 128
+    arrays, dy, _ = _ssd_grad_inputs(B, S, H, P, G, N)
+    jax_args, torch_args = _ssd_both(arrays, "float32")
+    want = jax.jit(jax.grad(
+        lambda *a: jnp.sum(jax_ssd_chunked(*a, chunk=chunk) * dy),
+        argnums=range(6)))(*jax_args)
+
+    def split(eq, a, b):
+        return split_einsum(eq, a, b, truncate_tf32)
+
+    def split_rna(eq, a, b):
+        return split_einsum(eq, a, b, split_tf32)
+
+    def plain(eq, a, b):
+        return torch.einsum(eq, truncate_tf32(a), truncate_tf32(b))
+
+    def within(product):
+        got = ssd_chunked_bwd(*torch_args, torch.from_numpy(dy), chunk=chunk,
+                              product=product)
+        return [bool(np.all(np.abs(f32(g) - f32(w))
+                            <= 2e-3 * (1 + np.abs(f32(w)))))
+                for g, w in zip(got, want)]
+
+    assert all(within(split)) and all(within(split_rna))
+    assert not all(within(plain))
 
 
 @pytest.mark.parametrize("S", [256, 200])
