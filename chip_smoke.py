@@ -9,9 +9,10 @@ Phases, each printed as one JSON line:
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once, into ``build/repro_torch``), with ptxas's
    registers and spills (kept beside each library, so a library built
-   before is reported too).  Fails if the sm90 flash-attention body, a
-   kernel of the SSD mma or RG-LRU segmented bodies or a backward kernel
-   (the scans' too) spills, or ptxas ignored a ``setmaxnreg`` (C7508).
+   before is reported too).  Fails if the sm90 flash-attention body, its
+   fp32 mma_tf32x3 body, a kernel of the SSD mma, mma_tf32x3 or RG-LRU
+   segmented bodies or a backward kernel (the scans' too) spills, or ptxas
+   ignored a ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
@@ -22,9 +23,19 @@ Phases, each printed as one JSON line:
    the generic body at an odd width; every RG-LRU case (S 1, 37, 512 and
    2176, W 4096 and 200, with and without h0) on both bodies (segmented
    against ``rglru_assoc``, serial against ``rglru_sequential``) and every
-   SSD case on each body that takes it (bf16: mma and fma; fp32: fma), with
-   each of the mma body's three phase kernels against its plain phase.
-   SSD in fp32 also at mamba2-130m's train shape (x (8,1024,24,64)).
+   SSD case on each body that takes it (bf16: mma and fma; fp32:
+   mma_tf32x3 and fma), with each of the mma body's three phase kernels
+   against its plain phase.  The fp32 forwards on the TF32 tensor cores
+   (the train paths' mma_tf32x3 bodies): SSD at mamba2-130m's train shape
+   (x (8,1024,24,64)) on both fp32 bodies and its chunk scan against the
+   plain phases with every product split as the kernel splits it
+   (``ssd_fp32_kernels``); flash attention at the 100m step's shape, its
+   window / chunk masks, GQA 8 and ragged S at every head dim the body
+   takes, o and the log-sum-exp against ``mha_ref`` and the fp32 body
+   forced (``flash_fp32_kernels``); each then timed against its previous
+   body (fma / fp32), its plain version, SDPA's fp32 forward (flash) and
+   its bounds (3xTF32 operations at the TF32 rate, bytes; the fp32-FMA
+   bound beside).
    Each case records the body that ran.  The two backward kernels
    (RMSNorm: dx and dscale, on its warp_rows body at the train widths, its
    cta_rows body at 2048 and 3584 and its generic body at an odd width,
@@ -112,7 +123,8 @@ Phases, each printed as one JSON line:
    ``run_with_restarts``, with transactional checkpoints through CannyFS
    (1 ms simulated storage latency): the loss falls by more than 0.05 and
    ends below ln V; launches equal 25 RMSNorm and 12 flash a step, each
-   way; a second Trainer restores the last step bit for bit; a run whose
+   way, every flash forward on the mma_tf32x3 body; a second Trainer
+   restores the last step bit for bit; a run whose
    step fails restarts from the last commit.  Step time against its FLOP
    bound, one profiled step, peak memory and each checkpoint's ACK time.
    Before it, ``train_check`` of the two recurrent families, as the
@@ -125,9 +137,12 @@ Phases, each printed as one JSON line:
    --io-latency-ms 1``: the loss falls (mean of the last 10 steps below the
    first 10's), every step finite, the 4 checkpoints commit, the last step
    restores bit for bit; 24 SSD and 49 RMSNorm launches a step, each way,
-   every SSD backward on its mma body and the gated norms' 24 RMSNorm
-   backwards a step on cta_rows (the other 25 on warp_rows).  Step ms, peak
-   memory, checkpoint ACK s.
+   every SSD forward on its mma_tf32x3 body, every SSD backward on its mma
+   body and the gated norms' 24 RMSNorm backwards a step on cta_rows (the
+   other 25 on warp_rows).  Step ms, peak memory, checkpoint ACK s, and one
+   more step profiled with each kernel family's device ms and share of the
+   step (the SSD forward's own launches, the state pass both ways share,
+   the SSD backward's, RMSNorm's).
 9. ``train_rgemma_2l``: recurrentgemma-9b at full width cut to 2 layers
    (rglru, rglru; layer 3 is local attention at head dim 256, whose
    backward is not ported), fp32, batch 4 x 512, 10 steps of
@@ -415,12 +430,15 @@ def phase_env(build):
         for f in sm90.values()), f"sm90 flash body spills: {sm90}")
     check("C7508" not in logs["flash_attention"],
           "ptxas ignored setmaxnreg (C7508) in flash_attention.cu")
+    # the bf16 mma body's three kernels, the fp32 mma_tf32x3 body's chunk
+    # scan (2: P up to 64 and up to 128; its chunk-state and C B^T kernels
+    # are the backward's, below) and the RG-LRU segmented body's (2)
     scans = {name: f for src in ("ssd", "rglru")
              for name, f in ptxas_functions(logs[src]).items()
              if any(k in name for k in ("ssd_chunk_state", "ssd_state_pass",
                                         "ssd_chunk_scan", "rglru_segmented"))}
     emit("env", scan_ptxas=scans)
-    check(len(scans) == 6 and all(
+    check(len(scans) == 8 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scans.values()), f"a scan body spills: {scans}")
     # the backward kernels: flash's dQ and dK/dV at 4 head dims x 2 dtypes
@@ -438,17 +456,30 @@ def phase_env(build):
     check(len(bwd) == 50 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
+    # the fp32 forward's mma_tf32x3 flash kernels, one a compiled head dim
+    # (16, 32, 64, 80, 128)
+    tf32 = {name: f for name, f in
+            ptxas_functions(logs["flash_attention"]).items()
+            if "flash_attn_tf32_kernel" in name}
+    emit("env", tf32_ptxas=tf32)
+    check(len(tf32) == 5 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
+        for f in tf32.values()), f"an mma_tf32x3 flash kernel spills: {tf32}")
     # the scans' backward kernels: the SSD's chunk states, reverse state
     # pass, chunk gradients, group and parameter sums (8: two dtypes each
     # but the two passes and the parameter sum), the mma body's chunk
-    # states, C B^T and chunk gradients (8: two dtypes each, the chunk
-    # gradients at mamba2-130m's tile counts and at any) and the RG-LRU's
+    # states and C B^T (ssd_state_mma_kernel and ssd_cb_kernel, which the
+    # fp32 forward's mma_tf32x3 body shares: 4 and 3, two dtypes for the
+    # backward, the forward's one at each x stride) and chunk gradients (4:
+    # two dtypes, at mamba2-130m's tile counts and at any) and the RG-LRU's
     # (2)
     scan_bwd = {name: f for src in ("ssd", "rglru")
                 for name, f in ptxas_functions(logs[src]).items()
-                if "ssd_bwd_" in name or "rglru_bwd_kernel" in name}
+                if any(k in name for k in ("ssd_bwd_", "ssd_state_mma_kernel",
+                                           "ssd_cb_kernel",
+                                           "rglru_bwd_kernel"))}
     emit("env", scan_backward_ptxas=scan_bwd)
-    check(len(scan_bwd) == 18 and all(
+    check(len(scan_bwd) == 21 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scan_bwd.values()),
         f"a scan backward kernel spills: {scan_bwd}")
@@ -611,7 +642,7 @@ def phase_kernels(dev, gen, seed):
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
         out = torch.empty_like(q)
-        mma = lambda: flash._entry("flash_attention_fwd", True)(  # noqa: E731
+        mma = lambda: flash._entry("flash_attention_fwd")(  # noqa: E731
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
             K, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1,
             kw.get("window", 0), 0, dh ** -0.5, dh, 1, None,
@@ -635,6 +666,10 @@ def phase_kernels(dev, gen, seed):
         **timings["qwen2-7b"], by_arch=timings,
         profiler_windows=window_counts(mark))
     emit("kernels", kernel="flash_attention", timings=timings)
+    # the fp32 forward (the train path's body, mma_tf32x3), from a
+    # generator of its own
+    flash_fp32_kernels(dev, torch.Generator(device=dev).manual_seed(seed + 3),
+                       cases, summary)
 
     # ---- RG-LRU scan: recurrentgemma-9b widths (W 4096) and a ragged W,
     # prefill (S 512), the serve_check prompt (2176), ragged S and decode
@@ -699,7 +734,8 @@ def phase_kernels(dev, gen, seed):
     # ragged S (padded last chunk), two groups, chunk 64 and 128, a chunk
     # that is not a multiple of 16; y and the fp32 final state against
     # ssd_chunked (S a multiple of the chunk) or ssd_sequential (ragged S),
-    # on each body that takes the inputs (mma: bf16; fma: both)
+    # on each body that takes the inputs (mma: bf16; mma_tf32x3: fp32;
+    # fma: both)
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, H, P, G, N, chunk in [(4, 512, 24, 64, 1, 128, 128),
                                         (2, 1000, 24, 64, 1, 128, 128),
@@ -710,7 +746,7 @@ def phase_kernels(dev, gen, seed):
             args = ssd_inputs(randn, B, S, H, P, G, N, dtype)
             want_y, want_state = (ssd_chunked(*args, chunk=chunk)
                                   if S % chunk == 0 else ssd_sequential(*args))
-            bodies = ("mma", "fma") if dtype == torch.bfloat16 else ("fma",)
+            bodies = ssd.bodies_for(*args, chunk)
             for body in bodies:
                 y, state = ssd_cuda(*args, chunk=chunk, body=body)
                 err_y, ok_y = compare(y, want_y, dtype, SSD_TOL)
@@ -721,23 +757,28 @@ def phase_kernels(dev, gen, seed):
                                   N=N, chunk=chunk,
                                   max_abs_err=max(err_y, err_s),
                                   tol=SSD_TOL[dtype], ok=ok_y and ok_s))
-    # fp32 at mamba2-130m's train shape (the fma body its train step runs),
-    # drawn from a generator of its own so the later phases draw what they
-    # drew before this case existed
+    # fp32 at mamba2-130m's train shape (the body its train step runs:
+    # mma_tf32x3, and the fma body forced, its previous one), drawn from a
+    # generator of its own so the later phases draw what they drew before
+    # this case existed; then the fp32 forward timed there
     g_train = torch.Generator(device=dev).manual_seed(seed + 2)
     B, S, H, P, G, N, chunk = 8, 1024, 24, 64, 1, 128, 128
-    args = ssd_inputs(lambda *shape, dtype: torch.randn(
+    train_args = ssd_inputs(lambda *shape, dtype: torch.randn(
         shape, generator=g_train, device=dev).to(dtype),
         B, S, H, P, G, N, f32)
-    want_y, want_state = ssd_chunked(*args, chunk=chunk)
-    y, state = ssd_cuda(*args, chunk=chunk)
-    err_y, ok_y = compare(y, want_y, f32, SSD_TOL)
-    err_s, ok_s = compare(state, want_state, f32, SSD_TOL)
-    cases.append(dict(kernel="ssd", body="fma",
-                      selected=ssd_body(*args, chunk), dtype=str(f32), B=B,
-                      S=S, H=H, P=P, G=G, N=N, chunk=chunk,
-                      max_abs_err=max(err_y, err_s), tol=SSD_TOL[f32],
-                      ok=ok_y and ok_s and ssd_body(*args, chunk) == "fma"))
+    want_y, want_state = ssd_chunked(*train_args, chunk=chunk)
+    for body in ssd.bodies_for(*train_args, chunk):
+        y, state = ssd_cuda(*train_args, chunk=chunk, body=body)
+        err_y, ok_y = compare(y, want_y, f32, SSD_TOL)
+        err_s, ok_s = compare(state, want_state, f32, SSD_TOL)
+        cases.append(dict(kernel="ssd", body=body,
+                          selected=ssd_body(*train_args, chunk),
+                          dtype=str(f32), B=B, S=S, H=H, P=P, G=G, N=N,
+                          chunk=chunk, max_abs_err=max(err_y, err_s),
+                          tol=SSD_TOL[f32], ok=ok_y and ok_s and ssd_body(
+                              *train_args, chunk) == "mma_tf32x3"))
+    ssd_fp32_kernels(dev, train_args, chunk, cases, summary)
+    del train_args, want_y, want_state, y, state
     B, S, H, P, G, N, Q = 4, 512, 24, 64, 1, 128, 128
     args = ssd_inputs(randn, B, S, H, P, G, N, torch.bfloat16)
     x, dt, A, Bm, Cm, D = args
@@ -832,6 +873,164 @@ def phase_kernels(dev, gen, seed):
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
     return summary
+
+
+def ssd_fp32_kernels(dev, args, Q, cases, summary):
+    """The fp32 SSD forward at mamba2-130m's train shape (``args``, x
+    (8,1024,24,64), chunk ``Q``): the mma_tf32x3 body's chunk scan against
+    the plain phases with every product formed as it forms them
+    (``product=split_einsum(..., truncate_tf32)``) and against the exact
+    fp32 phases (both from the split chunk states), at the SSD tolerance;
+    then its device
+    time (and by kernel) beside the fma body's (its previous body), the
+    plain scan's and its bounds: operations, ``ssd_macs`` each three TF32
+    products at the TF32 rate (``fma_bound_ms``: the same once each at the
+    fp32 FMA rate, the fma body's), bytes."""
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd.ref import (split_einsum, ssd_chunk_scan,
+                                             ssd_chunk_state, ssd_chunked,
+                                             ssd_state_passing,
+                                             truncate_tf32)
+    f32 = torch.float32
+    x, dt, A, Bm, Cm, D = args
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+
+    def split(eq, a, b):
+        return split_einsum(eq, a, b, truncate_tf32)
+
+    y, _ = ssd.ssd_cuda(*args, chunk=Q)
+    states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=Q, product=split)
+    states_in, _ = ssd_state_passing(states, cum, chunk=Q)
+    for name, product in (("split products", split),
+                          ("exact fp32", torch.einsum)):
+        want = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, chunk=Q,
+                              product=product)
+        err, ok = compare(y, want, f32, SSD_TOL)
+        cases.append(dict(kernel="ssd", body="mma_tf32x3",
+                          phase=f"chunk scan vs plain phases, {name}", B=B,
+                          S=S, H=H, P=P, G=G, N=N, chunk=Q, max_abs_err=err,
+                          tol=SSD_TOL[f32], ok=ok))
+    del states, cum, states_in, want
+    macs = ssd_macs(B, S, H, P, G, N, Q)
+    # bytes: x, dt, Bm, Cm (A, D) read once, y and the fp32 state written once
+    n_bytes = 2 * x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes + 2 * 4 * H \
+        + B * H * P * N * 4
+    t_bound, by = bound(n_bytes, 2 * 3 * macs, "tf32")
+    fma_bound, fma_by = bound(n_bytes, 2 * macs, f32)
+    kernel = lambda: ssd.ssd_cuda(*args, chunk=Q)  # noqa: E731
+    previous = lambda: ssd.ssd_cuda(*args, chunk=Q,  # noqa: E731
+                                    body="fma")
+    mark = len(PROFILER_WINDOWS)
+    summary["ssd_fwd_fp32"] = dict(
+        name="ssd_fwd_fp32", route="cuda",
+        source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:71",
+        shape=f"x ({B},{S},{H},{P}) fp32, dt ({B},{S},{H}), Bm/Cm "
+              f"({B},{S},{G},{N}) fp32, chunk {Q} (the mamba2-130m step)",
+        counted_as=("ssd", "mma_tf32x3"),
+        body=ssd.select_body(*args, Q), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+        previous_body="fma", previous_body_ms=device_ms(previous),
+        previous_body_event_ms=time_ms(previous),
+        plain_ms=device_ms(lambda: ssd_chunked(*args, chunk=Q), iters=5,
+                           warmup=1),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        fma_bound_ms=fma_bound, fma_bound_by=fma_by, macs=macs,
+        max_abs_err=compare(kernel()[0], ssd_chunked(*args, chunk=Q)[0], f32,
+                            SSD_TOL)[0],
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="ssd_fwd_fp32", timings={
+        summary["ssd_fwd_fp32"]["shape"]: summary["ssd_fwd_fp32"]})
+
+
+def flash_fp32_kernels(dev, gen, cases, summary):
+    """The fp32 flash-attention forward's mma_tf32x3 body against
+    ``mha_ref`` and the fp32 FMA body forced on the same inputs (o and the
+    log-sum-exp, 2e-5) at the 100m step's shape and at window / chunk
+    masks, GQA 8 and ragged S at every head dim it takes; then its device
+    time with the log-sum-exp (the train path's call) at the 100m shape
+    beside the fp32 body's (its previous body), the plain version's and
+    SDPA's fp32 forward (TF32 off), and its bounds: bytes (q, k, v read, o
+    and lse written) or operations, the two products of the visible pairs
+    each three TF32 products at the TF32 rate (``fma_bound_ms``: once each
+    at the fp32 FMA rate)."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         mha_ref)
+    f32 = torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for B, S, H, K, dh, kw in [
+            (16, 256, 8, 4, 64, dict(causal=True)),
+            (16, 256, 8, 4, 64, dict(causal=True, window=50)),
+            (16, 256, 8, 4, 64, dict(causal=True, chunk=48)),
+            (2, 100, 4, 1, 16, dict(causal=True)),
+            (2, 128, 8, 4, 32, dict(causal=True, window=33)),
+            (1, 300, 32, 32, 80, dict(causal=True)),
+            (2, 190, 16, 2, 80, dict(causal=True, chunk=40)),
+            (1, 200, 8, 1, 120, dict(causal=True)),
+            (1, 333, 8, 2, 128, dict(causal=True, window=100)),
+            (1, 130, 4, 4, 128, dict(causal=False))]:
+        q, k, v = randn(B, S, H, dh), randn(B, S, K, dh), randn(B, S, K, dh)
+        body = flash.select_body(q, k, v)
+        out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        prev, prev_lse = flash.flash_attention_cuda(
+            q, k, v, return_lse=True, body="fp32", **kw)
+        pos = torch.arange(S, device=dev)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", q.unflatten(2, (K, H // K)),
+                              k) * dh ** -0.5
+        want_lse = torch.logsumexp(logits.masked_fill(
+            ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
+        errs = [compare(out, mha_ref(q, k, v, **kw), f32),
+                compare(lse, want_lse, f32), compare(out, prev, f32),
+                compare(lse, prev_lse, f32)]
+        cases.append(dict(kernel="flash_attention", body=body,
+                          dtype=str(f32), B=B, S=S, H=H, K=K, dh=dh, **kw,
+                          max_abs_err=max(e for e, _ in errs),
+                          errs=[e for e, _ in errs], tol=TOL[f32],
+                          ok=all(ok for _, ok in errs)
+                          and body == "mma_tf32x3"))
+    B, S, H, K, dh = 16, 256, 8, 4, 64
+    q, k, v = randn(B, S, H, dh), randn(B, S, K, dh), randn(B, S, K, dh)
+    pos = torch.arange(S, device=dev)
+    pairs = int(attention_mask(pos, pos, causal=True).sum())
+    n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes + B * H * S * 4
+    t_bound, by = bound(n_bytes, 2 * 3 * 2 * B * H * pairs * dh, "tf32")
+    fma_bound, fma_by = bound(n_bytes, 2 * 2 * B * H * pairs * dh, f32)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    kernel = lambda: flash.flash_attention_cuda(  # noqa: E731
+        q, k, v, return_lse=True)
+    previous = lambda: flash.flash_attention_cuda(  # noqa: E731
+        q, k, v, return_lse=True, body="fp32")
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    mark = len(PROFILER_WINDOWS)
+    summary["flash_attention_fwd_fp32"] = dict(
+        name="flash_attention_fwd_fp32", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal, "
+              "with lse (the 100m step)",
+        counted_as=("flash_attention", "mma_tf32x3"),
+        body=flash.select_body(q, k, v), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), previous_body="fp32",
+        previous_body_ms=device_ms(previous),
+        previous_body_event_ms=time_ms(previous),
+        plain_ms=device_ms(lambda: mha_ref(q, k, v)),
+        library="F.scaled_dot_product_attention fp32, TF32 off",
+        library_ms=device_ms(library), library_event_ms=time_ms(library),
+        bound_ms=t_bound, bound_by=by, fma_bound_ms=fma_bound,
+        fma_bound_by=fma_by,
+        max_abs_err=compare(kernel()[0], mha_ref(q, k, v), f32)[0],
+        library_max_abs_err=compare(library().transpose(1, 2),
+                                    mha_ref(q, k, v), f32)[0],
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="flash_attention_fwd_fp32", timings={
+        summary["flash_attention_fwd_fp32"]["shape"]:
+            summary["flash_attention_fwd_fp32"]})
 
 
 def _grad_ms(out, inputs, grad_out):
@@ -1380,10 +1579,10 @@ def phase_serve(dev, gen, seed, arch: str):
     want_by_body = {
         "rmsnorm": {"one_read": want["rmsnorm"], "generic": 0},
         "flash_attention": {"sm90": want["flash_attention"], "mma": 0,
-                            "fp32": 0},
+                            "mma_tf32x3": 0, "fp32": 0},
         "rglru": {"segmented": kinds.count("rglru") * waves,
                   "serial": kinds.count("rglru") * steps},
-        "ssd": {"mma": want["ssd"], "fma": 0}}
+        "ssd": {"mma": want["ssd"], "mma_tf32x3": 0, "fma": 0}}
     check(by_body == want_by_body,
           f"serve {arch}: launches by body {by_body}, expected "
           f"{want_by_body}")
@@ -1398,7 +1597,8 @@ def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
     wave with the scan run by its plain phases on the card, once with the
     fp32 operands split into bf16 hi + lo as the mma body splits them and
     once with them rounded to plain bf16 (what the limit must tell apart),
-    and in fp32 (the fma body, fp32 weights): how far each bf16 run is."""
+    and in fp32 (the mma_tf32x3 body, fp32 weights): how far each bf16 run
+    is."""
     import functools
 
     from repro_torch.configs import get_config
@@ -1455,7 +1655,7 @@ def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
          batch=batch, prompt=prompt, max_rel_err=errs, tol=SSD_BODIES_REL,
          bf16_plain_over_tol=errs["bf16_plain_vs_fma"] >= SSD_BODIES_REL,
          launches_by_body=counts, finite=finite)
-    body_of = {"mma": "mma", "fma": "fma", "fp32": "fma"}
+    body_of = {"mma": "mma", "fma": "fma", "fp32": "mma_tf32x3"}
     want = {run: {b: cfg.num_layers * (b == body_of.get(run))
                   for b in ssd.BODIES} for run in scans}
     check(finite and errs["mma_vs_fma"] < SSD_BODIES_REL and counts == want,
@@ -1723,7 +1923,9 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
     check(launches == want, f"train: launches {launches}, expected {want}")
     check(by_body["rmsnorm"]["one_read"] == want["rmsnorm"][0]
           and by_body["rmsnorm_bwd"]["warp_rows"] == want["rmsnorm"][1]
-          and by_body["flash_attention"]["fp32"] == want["flash_attention"][0]
+          and by_body["flash_attention"]["mma_tf32x3"]
+          == want["flash_attention"][0]
+          and by_body["flash_attention"]["fp32"] == 0
           and by_body["flash_attention_bwd"]["mma_tf32x3"]
           == want["flash_attention"][1],
           f"train: launches by body {by_body}")
@@ -1816,7 +2018,7 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
         def init_state(self, sample_batch):
             super().init_state(sample_batch)
             trainers.append(self)
-            step_fn = self.step_fn
+            step_fn = self.untimed = self.step_fn
 
             def recorded(*args):
                 torch.cuda.synchronize()
@@ -1850,6 +2052,13 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
         peak = torch.cuda.max_memory_allocated()
         trainer = trainers[0]
         results = trainer.ckpt.results
+        # one more step, profiled (after the counts were read): the SSD
+        # forward's share of the step
+        batch = trainer.put_batch(next(trainer.data))
+        prof = _profiled(lambda: trainer.untimed(
+            trainer.state["params"], trainer.state["opt"], batch,
+            torch.tensor(1e-3)), groups=MAMBA2_GROUPS)
+        del batch
         saved = {"params": trainer.state["params"],
                  "opt": trainer.state["opt"]}
         # a Trainer on the same directory restores the last commit
@@ -1870,9 +2079,11 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
     want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
             "flash_attention": (0, 0), "rglru": (0, 0),
             "ssd": (L * steps,) * 2}
-    # the SSD backward on its mma body; RMSNorm's backward on warp_rows at
-    # norm1 and the final norm (768) and cta_rows at the gated norm (1536)
-    want_by_body = {"ssd_bwd": {"mma": L * steps, "fma": 0},
+    # the SSD forward on its mma_tf32x3 body and backward on its mma body;
+    # RMSNorm's backward on warp_rows at norm1 and the final norm (768) and
+    # cta_rows at the gated norm (1536)
+    want_by_body = {"ssd": {"mma": 0, "mma_tf32x3": L * steps, "fma": 0},
+                    "ssd_bwd": {"mma": L * steps, "fma": 0},
                     "rmsnorm_bwd": {"warp_rows": (L + 1) * steps,
                                     "cta_rows": L * steps, "generic": 0}}
     warm = step_ms[5:]
@@ -1885,7 +2096,7 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
          loss_every_10=losses[::10], ln_vocab=math.log(cfg.vocab_size),
          step_ms_median=statistics.median(warm), step_ms_min=min(warm),
          step_ms_max=max(warm), peak_mem_bytes=peak,
-         **train_bounds(cfg, 8, 1024),
+         **train_bounds(cfg, 8, 1024), profile=prof,
          ckpt_ack_s=[r.ack_s for r in results],
          ckpt_ok=[r.ok for r in results],
          ckpt_commit_s=[r.commit_s for r in results],
@@ -2001,10 +2212,24 @@ def _cast(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def _profiled(fn) -> dict:
+# kernel families of the mamba2-130m train step, by the kernel's name with
+# its spaces removed: the SSD forward's own launches (its state pass is the
+# backward's too, and is given apart), the SSD backward's, RMSNorm's
+MAMBA2_GROUPS = {
+    "ssd_forward": ("ssd_state_mma_kernel<float,false",
+                    "ssd_cb_kernel<float,false>", "ssd_chunk_scan_tf32_kernel"),
+    "ssd_state_pass": ("ssd_state_pass_kernel",),
+    "ssd_backward": ("ssd_bwd_", "ssd_state_mma_kernel<float,true>",
+                     "ssd_cb_kernel<float,true>"),
+    "rmsnorm": ("rmsnorm",),
+}
+
+
+def _profiled(fn, groups=None) -> dict:
     """Wall time, summed kernel time, idle share and the costliest kernels
     of one call, from torch.profiler (device time "not measured" if the
-    trace holds no kernel)."""
+    trace holds no kernel); with ``groups`` ({label: name parts}), each
+    group's device ms, launches and share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2021,10 +2246,19 @@ def _profiled(fn) -> dict:
     if not kernels:
         return dict(wall_ms=wall_ms, device_ms="not measured")
     device_ms = sum(k[0] for k in kernels)
-    return dict(wall_ms=wall_ms, device_ms=device_ms,
-                idle_share=1 - device_ms / wall_ms,
-                top=[dict(ms=ms, count=n, kernel=name[:80])
-                     for ms, n, name in kernels[:8]])
+    out = dict(wall_ms=wall_ms, device_ms=device_ms,
+               idle_share=1 - device_ms / wall_ms,
+               top=[dict(ms=ms, count=n, kernel=name[:80])
+                    for ms, n, name in kernels[:8]])
+    if groups:
+        out["groups"] = {}
+        for label, parts in groups.items():
+            hit = [(ms, n) for ms, n, name in kernels
+                   if any(q in name.replace(" ", "") for q in parts)]
+            ms = sum(h[0] for h in hit)
+            out["groups"][label] = dict(ms=ms, launches=sum(h[1] for h in hit),
+                                        share_of_wall=ms / wall_ms)
+    return out
 
 
 def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
@@ -2094,6 +2328,13 @@ def main() -> int:
                         ("train-rgemma-2l", phase_train_rgemma_2l)):
         train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():
+        if "counted_as" in entry:     # one body of a kernel: its launches
+            kernel, body = entry["counted_as"]
+            entry["launches_by_path"] = {
+                path: b[kernel][body] for path, b in
+                [*by_body.items(), *train_by_body.items()] if kernel in b}
+            entry["launches"] = sum(entry["launches_by_path"].values())
+            continue
         if name.endswith("_bwd"):
             entry["launches_by_path"] = {
                 path: n[name[:-len("_bwd")]][1] for path, n in train.items()}

@@ -20,7 +20,7 @@
 //   * Q, K and V are read in their (B, S, heads, dh) layout through strides,
 //     so the wrapper makes no transposed copy (the TPU wrapper transposes).
 //
-// Three bodies; the wrapper picks one from the dtype, the head dim and the
+// Four bodies; the wrapper picks one from the dtype, the head dim and the
 // alignment of q, k and v (kernels/flash_attention/kernel.py:select_body):
 //
 //   * sm90 (bf16, dh 128 and 256, 16-byte aligned bases and strides, a
@@ -57,15 +57,20 @@
 //     so the fragment loads are free of bank conflicts), else one element
 //     at a time; V's fragments come from ldmatrix.trans and the scores stay
 //     in registers as the A operand of the PV product.
-//   * fp32: the same tiling on the fp32 FMA units (no tensor-core type keeps
-//     fp32's 2e-5 agreement), 128 threads as 16 row groups x 8 column lanes,
-//     with Q, K, V and the probability tile staged in shared memory as fp32.
+//   * mma_tf32x3 (fp32 at head dims up to 128: the training path): the
+//     tensor cores through mma.sync m16n8k8 TF32, each product from hi + lo
+//     splits in three TF32 products (the backward's BwdMma<float>), which
+//     keeps fp32's 2e-5 agreement; described with its kernel below.
+//   * fp32 (fp32 at dh 160 and 256, and forced as the previous body): the same
+//     tiling as mma on the fp32 FMA units, 128 threads as 16 row groups x 8
+//     column lanes, with Q, K, V and the probability tile staged in shared
+//     memory as fp32.
 //
 // Every body rounds the probabilities to v's type for the PV product, as
 // the reference casts its probabilities to v's type.
 //
-// Training: the mma and fp32 bodies also write each row's log-sum-exp when
-// given a pointer for it (Params::lse; serving passes null), and the
+// Training: the mma, mma_tf32x3 and fp32 bodies also write each row's
+// log-sum-exp when given a pointer for it (Params::lse; serving passes null), and the
 // backward (flash_attention_bwd, further down) recomputes the probabilities
 // from it.  The sm90 body writes none yet.
 //
@@ -200,8 +205,9 @@ __device__ __forceinline__ void load_tile(T* dst, int dst_stride, const T* base,
 // One online-softmax step for a row whose scores this thread holds in s[],
 // shared with the other lanes of its group (xor offsets below kLanes).
 // Masked scores are -inf.  Returns alpha, the factor for the old
-// accumulator; s[] becomes exp(s - m_new).
-template <int kN, int kLanes>
+// accumulator; s[] becomes exp(s - m_new), or 2^(s - m_new) where kExp2
+// (scores, and so m, in the log2 domain).
+template <int kN, int kLanes, bool kExp2 = false>
 __device__ __forceinline__ float softmax_step(float (&s)[kN], float& m, float& l) {
   float mx = -INFINITY;
 #pragma unroll
@@ -214,10 +220,10 @@ __device__ __forceinline__ float softmax_step(float (&s)[kN], float& m, float& l
 #pragma unroll
     for (int j = 0; j < kN; ++j) s[j] = 0.f;
   } else {
-    alpha = expf(m - m_new);
+    alpha = kExp2 ? exp2f(m - m_new) : expf(m - m_new);
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
-      s[j] = expf(s[j] - m_new);
+      s[j] = kExp2 ? exp2f(s[j] - m_new) : expf(s[j] - m_new);
       rs += s[j];
     }
   }
@@ -594,6 +600,7 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 constexpr int kBwdThreads = 128;  // 4 warps
 constexpr int kBwdTile = 64;      // rows of every tile, the CTA's own and each streamed one
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct BwdParams {
   const void* q;     // (B, S, H, dh), contiguous, like o, dout and dq
@@ -652,6 +659,23 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
+// hi = x and lo = x - hi, each truncated to TF32 (the low 13 bits cleared,
+// ref.py:split_product with ssd's truncate_tf32): x - hi - lo stays below
+// 2^-20 |x|, in 3 operations where split_tf32 takes 5.  The forward's
+// mma_tf32x3 body splits so (its products hold 0.05 of the fp32 tolerance
+// either way, tests/test_torch_kernels.py); the backward keeps split_tf32.
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+template <bool kTrunc>
+__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kTrunc)
+    split_trunc(x, hi, lo);
+  else
+    split_tf32(x, hi, lo);
+}
+
 // Not volatile: the compiler may interleave independent products.
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -705,8 +729,9 @@ struct BwdMma<float> {
   static constexpr int kPad = 4;  // a row stride of 4 (mod 16) words: no bank conflicts
 
   // acc (16 x 8NT) += A B^T: A the warp's 16 rows, B 8NT rows, row-major in
-  // shared memory with DH columns and row stride ld.
-  template <int DH, int NT>
+  // shared memory with DH columns and row stride ld.  kTrunc: truncating
+  // splits (split_op).
+  template <int DH, int NT, bool kTrunc = false>
   static __device__ __forceinline__ void rows(float (&acc)[NT][4], const float* a,
                                               const float* b, int ld) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -714,18 +739,18 @@ struct BwdMma<float> {
     for (int kk = 0; kk < DH / 8; ++kk) {
       const float* ar = a + g * ld + kk * 8 + t;
       uint32_t ahi[4], alo[4];
-      split_tf32(ar[0], ahi[0], alo[0]);
-      split_tf32(ar[8 * ld], ahi[1], alo[1]);
-      split_tf32(ar[4], ahi[2], alo[2]);
-      split_tf32(ar[8 * ld + 4], ahi[3], alo[3]);
+      split_op<kTrunc>(ar[0], ahi[0], alo[0]);
+      split_op<kTrunc>(ar[8 * ld], ahi[1], alo[1]);
+      split_op<kTrunc>(ar[4], ahi[2], alo[2]);
+      split_op<kTrunc>(ar[8 * ld + 4], ahi[3], alo[3]);
 #pragma unroll
       for (int j0 = 0; j0 < NT; j0 += 4) {
         uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float* br = b + ((j0 + j) * 8 + g) * ld + kk * 8 + t;
-          split_tf32(br[0], bhi[j][0], blo[j][0]);
-          split_tf32(br[4], bhi[j][1], blo[j][1]);
+          split_op<kTrunc>(br[0], bhi[j][0], blo[j][0]);
+          split_op<kTrunc>(br[4], bhi[j][1], blo[j][1]);
         }
         mma_tf32x3<4>(acc + j0, ahi, alo, bhi, blo);
       }
@@ -736,7 +761,7 @@ struct BwdMma<float> {
   // layout, B (8NT x DH) row-major in shared memory.  X's columns 2t and
   // 2t + 1 go in as k = t and t + 4, and B's rows 2t and 2t + 1 with them.
   // Each chunk of acc's columns is summed in a fresh accumulator (bwd_chunk).
-  template <int DH, int NT>
+  template <int DH, int NT, bool kTrunc = false>
   static __device__ __forceinline__ void regs(float (&acc)[DH / 8][4], const float (&x)[NT][4],
                                               const float* b, int ld) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -747,16 +772,16 @@ struct BwdMma<float> {
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t ahi[4], alo[4];
-        split_tf32(x[j][0], ahi[0], alo[0]);
-        split_tf32(x[j][2], ahi[1], alo[1]);
-        split_tf32(x[j][1], ahi[2], alo[2]);
-        split_tf32(x[j][3], ahi[3], alo[3]);
+        split_op<kTrunc>(x[j][0], ahi[0], alo[0]);
+        split_op<kTrunc>(x[j][2], ahi[1], alo[1]);
+        split_op<kTrunc>(x[j][1], ahi[2], alo[2]);
+        split_op<kTrunc>(x[j][3], ahi[3], alo[3]);
         const float* br = b + (j * 8 + 2 * t) * ld + g;
         uint32_t bhi[kChunk][2], blo[kChunk][2];
 #pragma unroll
         for (int n = 0; n < kChunk; ++n) {
-          split_tf32(br[(n0 + n) * 8], bhi[n][0], blo[n][0]);
-          split_tf32(br[ld + (n0 + n) * 8], bhi[n][1], blo[n][1]);
+          split_op<kTrunc>(br[(n0 + n) * 8], bhi[n][0], blo[n][0]);
+          split_op<kTrunc>(br[ld + (n0 + n) * 8], bhi[n][1], blo[n][1]);
         }
         mma_tf32x3<kChunk>(part, ahi, alo, bhi, blo);
       }
@@ -1072,6 +1097,184 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParam
       const long long off = k_row[rr] * ks + n * 8 + 2 * t;
       store2(dkb + off, dk[n][2 * rr] * p.scale, dk[n][2 * rr + 1] * p.scale);
       store2(dvb + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, mma_tf32x3: fp32 on the TF32 tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// FlashAttention-2's forward on mma.sync m16n8k8 TF32, with the backward's
+// products (BwdMma<float>, truncating splits): a CTA of 4 warps owns a
+// 64-row query tile (late tiles first, the longest under a causal mask), a
+// warp 16 of its rows; K and V stream through a 2-stage cp.async ring of
+// 32- or 64-key tiles (Tf32Cfg).  S = Q K^T (rows) and O += P V (regs,
+// with P, the exponentiated score accumulators, in registers as X) are
+// each three TF32 products from hi + lo splits, which holds fp32's 2e-5
+// (ref.py:mha_fwd_by_products); the online softmax runs in fp32 registers
+// in the log2 domain, a row's four lanes reducing by shuffles; O is
+// rescaled in registers and each tile's P V summed in a fresh accumulator
+// (the tensor cores truncate their accumulation).  The masks, GQA and the
+// row log-sum-exp are the other bodies'.  Head dims up to 128 (120 padded
+// to 128): O's DHP / 2 accumulators a thread fit the registers there (239
+// at 128, no spill; at 160 ptxas spilled with 255 on the H100, so dh 160
+// and 256 stay on the FMA body).
+//
+// What bounds it at the 100m training shape (q (16,256,8,64), k/v
+// (16,256,4,64) fp32, causal): bytes, q, k, v, o and lse moved once, 7.5 us
+// at 3.35 TB/s, just above its operations, the two products of 32896 pairs
+// x 64 a head, each three TF32 products (6.5 us at 494.7 TFLOP/s).
+// Measured, latency: a warp's split -> mma -> softmax chain, with 8 warps
+// an SM, left the tensor cores idle most of the time; truncating splits
+// and the log2 domain took 0.0685 to 0.0603 ms, a third CTA an SM to
+// 0.0516 (kernels/ab.py --forward, PERF.md).
+
+// The tiling at head dim DHP: keys a K/V tile (kBK; two stages of K and V
+// in a cp.async ring, the next tile loading while this one computes) and
+// the CTAs an SM the registers are held to (kMinBlocks).  Up to dh 80,
+// 32-key tiles (52 KB of shared memory at dh 64) and at most 170 registers
+// let three CTAs share an SM: 0.0516 ms at the 100m shape against 0.0603
+// with 64-key tiles and two CTAs an SM (NVIDIA H100 80GB HBM3, 700.00 W;
+// kernels/ab.py --forward, PERF.md); a fourth CTA (128 registers) gained
+// nothing.
+template <int DHP>
+struct Tf32Cfg {
+  static constexpr int kBK = DHP <= 80 ? 32 : 64;
+  static constexpr int kMinBlocks = DHP <= 80 ? 3 : 1;
+  static constexpr int kLd = DHP + BwdMma<float>::kPad;  // row stride, floats
+  static constexpr size_t kBytes = sizeof(float) * kLd * (kBwdTile + 4 * kBK);
+};
+
+// Rows [s0, s0 + R) of one head (row stride ld_g floats) into a tile of
+// DHP columns and row stride ld by cp.async, 16 bytes a copy where the
+// head's rows are 16-byte aligned (vec), else 4; rows at or past S and
+// columns at or past dh (a multiple of 8) are zero.
+template <int DHP, int R>
+__device__ __forceinline__ void stage_rows_f32(float* dst, int ld, const float* src,
+                                               long long ld_g, int s0, int S, int dh, bool vec) {
+  constexpr int kChunks = DHP / 4;
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 4, s = s0 + r;
+    const bool in = s < S && c < dh;
+    const float* from = in ? src + static_cast<long long>(s) * ld_g + c : src;
+    if (vec) {
+      cp_async16(dst + r * ld + c, from, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(dst + r * ld + c + e, in ? from + e : src, in);
+    }
+  }
+}
+
+__device__ __forceinline__ bool rows_aligned16(const float* base, long long seq_stride) {
+  return (reinterpret_cast<uintptr_t>(base) & 15) == 0 && seq_stride % 4 == 0;
+}
+
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
+    flash_attn_tf32_kernel(Params p) {
+  using C = Tf32Cfg<DHP>;
+  using M = BwdMma<float>;
+  constexpr int kLd = C::kLd, BK = C::kBK, NT = BK / 8, NO = DHP / 8;
+  constexpr int kKV = BK * kLd;  // floats of a K or V buffer
+  extern __shared__ __align__(16) float tf32_smem[];
+  const float* sQ = tf32_smem;
+  float* kv = tf32_smem + kBwdTile * kLd;  // stage i % 2: K, then V
+  const int n_q = (p.S + kBwdTile - 1) / kBwdTile;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBwdTile;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const bool k_vec = rows_aligned16(kb, p.k_ss), v_vec = rows_aligned16(vb, p.v_ss);
+  stage_rows_f32<DHP, kBwdTile>(tf32_smem, kLd, qb, p.q_ss, q0, p.S, p.dh,
+                                rows_aligned16(qb, p.q_ss));
+
+  int kv_lo, kv_hi;
+  kv_range(p, q0, kBwdTile, &kv_lo, &kv_hi);
+  const int kt0 = kv_lo / BK;
+  const int items = max(0, (kv_hi + BK - 1) / BK - kt0);
+  auto stage = [&](int i) {
+    float* st = kv + (i & 1) * 2 * kKV;
+    const int k0 = (kt0 + i) * BK;
+    stage_rows_f32<DHP, BK>(st, kLd, kb, p.k_ss, k0, p.S, p.dh, k_vec);
+    stage_rows_f32<DHP, BK>(st + kKV, kLd, vb, p.v_ss, k0, p.S, p.dh, v_vec);
+  };
+  // every query of the tile sees every key of [k0, k0 + BK)
+  auto full_tile = [&](int k0) {
+    const int q1 = q0 + kBwdTile - 1, k1 = k0 + BK - 1;
+    return q1 < p.S && k1 < p.S && (!p.causal || k1 <= q0) &&
+           (!p.window || q1 - k0 < p.window) &&
+           (!p.chunk || (q0 / p.chunk == k1 / p.chunk && k0 / p.chunk == q1 / p.chunk));
+  };
+  if (items > 0) stage(0);
+  cp_async_commit();
+
+  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float scale2 = p.scale * kLog2e;  // the softmax runs in the log2 domain
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) stage(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and tile i have landed
+    __syncthreads();
+    const int k0 = (kt0 + i) * BK;
+    const float* sK = kv + (i & 1) * 2 * kKV;
+    const float* sV = sK + kKV;
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    M::template rows<DHP, NT, true>(s, sQ + warp * 16 * kLd, sK, kLd);
+    const bool full = full_tile(k0);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float sr[2 * NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + j * 8 + 2 * t + e;
+          const float v = s[j][2 * rr + e] * scale2;
+          sr[2 * j + e] = full || visible(p, qrow[rr], kj) ? v : -INFINITY;
+        }
+      const float alpha = softmax_step<2 * NT, 4, true>(sr, m[rr], l[rr]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) s[j][2 * rr + e] = sr[2 * j + e];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][2 * rr] *= alpha;
+        o[n][2 * rr + 1] *= alpha;
+      }
+    }
+    M::template regs<DHP, NT, true>(o, s, sV, kLd);
+    __syncthreads();  // this stage is refilled by the copies of tile i + 2
+  }
+  cp_async_wait<0>();
+
+  const int dh = p.dh;
+  float* ob = static_cast<float*>(p.o) + (static_cast<long long>(b) * p.S * p.H + h) * dh;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (qrow[rr] >= p.S) continue;
+    if (p.lse != nullptr && t == 0) write_lse(p, b, h, qrow[rr], m[rr] * kLn2, l[rr]);
+    const float inv_l = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
+    float* orow = ob + static_cast<long long>(qrow[rr]) * p.H * dh;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * t;  // dh is a multiple of 8, so c < dh covers c + 1
+      if (c < dh) store2(orow + c, o[n][2 * rr] * inv_l, o[n][2 * rr + 1] * inv_l);
     }
   }
 }
@@ -1646,6 +1849,11 @@ int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
                                             stream);
 }
 
+template <int DHP>
+int launch_tf32(const Params& p, cudaStream_t stream) {
+  return launch<flash_attn_tf32_kernel<DHP>>(kBwdTile, Tf32Cfg<DHP>::kBytes, p, stream);
+}
+
 template <int DH, typename T>
 int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
   constexpr size_t kSmem = BwdSmem<DH, T>::kBytes;
@@ -1842,6 +2050,34 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     case 32: return launch_bwd_dtype<32>(p, dtype, st);
     case 64: return launch_bwd_dtype<64>(p, dtype, st);
     case 80: return launch_bwd_dtype<80>(p, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The mma_tf32x3 body: float32 q, k, v and o, laid out as for
+// flash_attention_fwd; head_dim one of 16, 32, 64, 80, 120, 128; lse
+// null or (B,H,S) fp32.  Returns cudaErrorInvalidValue on anything else,
+// else cudaGetLastError() after the launch.
+extern "C" int flash_attention_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                                        int B, int S, int H, int K, long long q_sb,
+                                        long long q_ss, long long q_sh, long long k_sb,
+                                        long long k_ss, long long k_sh, long long v_sb,
+                                        long long v_ss, long long v_sh, int causal,
+                                        int window, int chunk, float scale, int head_dim,
+                                        void* lse, void* stream) {
+  const Params p{q,    k,    v,    o,      B,      S,     H,    K,     q_sb,    q_ss,
+                 q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,  v_sh, causal, window, chunk,
+                 scale, head_dim, static_cast<float*>(lse)};
+  if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return launch_tf32<16>(p, st);
+    case 32: return launch_tf32<32>(p, st);
+    case 64: return launch_tf32<64>(p, st);
+    case 80: return launch_tf32<80>(p, st);
+    case 120:
+    case 128: return launch_tf32<128>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

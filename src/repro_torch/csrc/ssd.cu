@@ -13,7 +13,8 @@
 // type and the fp32 state after the last token.
 //
 // Replaces the TPU kernel ssd_pallas (src/repro/kernels/ssd/kernel.py:71,
-// body _ssd_kernel).  Two bodies:
+// body _ssd_kernel).  Three bodies (mma_tf32x3 is described after the
+// backward's, whose kernels it shares):
 //
 // * fma (entry ssd_fwd; float32 and bfloat16): one block a (b, h) walks the
 //   chunks in order with the state in shared memory, all products in fp32 on
@@ -159,6 +160,35 @@
 // every tile load in flight at once (cp.async), compile-time shared-memory
 // strides and tile counts (a specialisation at N 128, P 64), C B^T a group,
 // and 3-operation splits.
+//
+// * mma_tf32x3 (entry ssd_fwd_mma_tf32; float32, the training path's
+//   forward, every shape the fma body takes): chunk-parallel on the TF32
+//   tensor cores with the backward mma body's products (mma_tf32x3,
+//   truncating splits: ref.py:split_einsum with truncate_tf32 models it),
+//   four launches through an fp32 workspace (ssd_fwd_mma_tf32_workspace_floats):
+//   1. ssd_state_mma_kernel without E: cum (in double, rounded once) and
+//      each chunk's local end state, as the backward's launch 1; the block
+//      holds only B and x, two blocks an SM at P 64.
+//   2. ssd_cb_kernel: C B^T once a (b, chunk, group), as the backward's
+//      launch 1b without the transpose (mamba2-130m's 24 heads share it).
+//   3. ssd_state_pass_kernel (the bf16 body's).
+//   4. ssd_chunk_scan_tf32_kernel: a block a (chunk, head, batch), a warp
+//      a 16-row strip: exp(cum_i) C_i state_in^T (the state split into hi
+//      and lo once, into shared memory) + the strip's tiles of scores
+//      (C B^T o L o dt_j, masked before the exp) times x + D x, rounded
+//      once at the store; every group of output tiles summed in a fresh
+//      accumulator (mma_xb), as the tensor cores truncate their sums.
+//   What bounds it at mamba2-130m's train shape (x (8,1024,24,64) fp32,
+//   chunk 128): its products, 3 x ssd_macs = 11.7 G multiply-adds at the
+//   TF32 rate, 0.0473 ms (chip_smoke.py:ssd_fp32_kernels); the bytes (x,
+//   dt, B and C read, y and the state written) 0.017 ms.  Like the
+//   backward's mma body it is expected to be bound by instruction issue
+//   (splits, fragment loads, addresses) before the tensor cores; what the
+//   design does: the state split once a block rather than once a warp,
+//   C B^T once a group, C's fragments read once by the one warp that needs
+//   them (from device memory, which leaves 103 KB of shared memory a block
+//   and so two blocks an SM), and heavy and light strips paired on each SM
+//   sub-partition.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1561,9 +1591,14 @@ constexpr int kLdN = kMaxN + 4;
 constexpr int kLdP = kMmaP + 4;
 
 // chunk states and E: C, B (Q16 x kLdN) and x, dy (Q16 x kLdP) in fp32, dt,
-// cum, w and exp(cum) (kMaxQ each), then cum in double (kMaxQ)
+// cum, w and exp(cum) (kMaxQ each), then cum in double (kMaxQ); without E
+// (the forward's) B and x only
 __host__ __device__ constexpr int bwd_mma_state_smem_bytes(int Q) {
   return 4 * (2 * round16(Q) * kLdN + 2 * round16(Q) * kLdP + 4 * kMaxQ) + 8 * kMaxQ;
+}
+template <int LP>
+__host__ __device__ constexpr int fwd_state_smem_bytes(int Q) {
+  return 4 * (round16(Q) * kLdN + round16(Q) * LP + 4 * kMaxQ) + 8 * kMaxQ;
 }
 
 // chunk gradients: the four tiles as above, 11 vectors of kMaxQ, two
@@ -1775,8 +1810,9 @@ __device__ __forceinline__ void mma_load_tile(float* dst, int ld, const T* src, 
 // The chunk's C, B (rows t, columns n), x and dy (rows t, columns p) into
 // shared memory as fp32 with row strides kLdN and kLdP (padding
 // rows and columns zero; for fp32 the caller waits for the cp.async copies),
-// and dt into dtv.
-template <typename T>
+// and dt into dtv.  C and dy are skipped where cs and ys are null (the
+// forward's chunk states read neither); LP: x's and dy's row stride.
+template <typename T, int LP = kLdP>
 __device__ void mma_load_chunk(float* cs, float* bs, float* xs, float* ys, float* dtv,
                                const T* x, const T* dy, const T* Bm, const T* Cm,
                                const float* dt, int b, int h, int g, int s0, int rows, int S,
@@ -1785,45 +1821,49 @@ __device__ void mma_load_chunk(float* cs, float* bs, float* xs, float* ys, float
   const long long row0 = static_cast<long long>(b) * S + s0;
   const long long xo = row0 * x_row + static_cast<long long>(h) * P;
   const long long bo = row0 * bc_row + static_cast<long long>(g) * N;
-  mma_load_tile<T>(cs, kLdN, Cm + bo, bc_row, rows, N, Q16);
+  if (cs != nullptr) mma_load_tile<T>(cs, kLdN, Cm + bo, bc_row, rows, N, Q16);
   mma_load_tile<T>(bs, kLdN, Bm + bo, bc_row, rows, N, Q16);
-  mma_load_tile<T>(xs, kLdP, x + xo, x_row, rows, P, Q16);
-  mma_load_tile<T>(ys, kLdP, dy + xo, x_row, rows, P, Q16);
+  mma_load_tile<T>(xs, LP, x + xo, x_row, rows, P, Q16);
+  if (ys != nullptr) mma_load_tile<T>(ys, LP, dy + xo, x_row, rows, P, Q16);
   const int t = threadIdx.x;
   if (t < kMaxQ) dtv[t] = t < rows ? dt[(row0 + t) * H + h] : 0.f;
 }
 
-// Launch 1 of the mma body.  Block (c, h, b): cum (as ssd_bwd_state_kernel),
-// the chunk's local end state sum_t (w_t x_t) B_t^T into states and E =
-// sum_t (exp(cum_t) dy_t) C_t^T into dstates, (P x N) each: a warp a (product,
-// 16 rows of P) item, the 16 x N tile summed over the chunk's tokens in one
-// accumulator (A read down the token-major tiles).
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    ssd_bwd_state_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                             const float* __restrict__ A, const T* __restrict__ Bm,
-                             const T* __restrict__ Cm, const T* __restrict__ dy,
-                             float* __restrict__ cum_out, float* __restrict__ states,
-                             float* __restrict__ dstates, int S, int H, int P, int G, int N,
-                             int Q) {
+// Launch 1 of the backward's mma body (kE) and of the forward's mma_tf32x3
+// body (!kE).  Block (c, h, b): cum (as ssd_bwd_state_kernel), the chunk's
+// local end state sum_t (w_t x_t) B_t^T into states and, for the backward,
+// E = sum_t (exp(cum_t) dy_t) C_t^T into dstates, (P x N) each: a warp a
+// (product, 16 rows of P) item, the 16 x N tile summed over the chunk's
+// tokens in one accumulator (A read down the token-major tiles).  Without
+// E the block holds only B and x (103 KB at chunk 128 and P 64: two blocks
+// an SM), and an item is half of N, so that the 8 warps have 8 items at P
+// 64.  LP: x's (and dy's) row stride in shared memory, kLdP for P up to 64.
+template <typename T, bool kE, int LP = kLdP>
+__global__ void __launch_bounds__(kBwdThreads, kE ? 1 : 2)
+    ssd_state_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ A, const T* __restrict__ Bm,
+                         const T* __restrict__ Cm, const T* __restrict__ dy,
+                         float* __restrict__ cum_out, float* __restrict__ states,
+                         float* __restrict__ dstates, int S, int H, int P, int G, int N, int Q) {
   extern __shared__ float4 smem4[];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int gh = h / (H / G);
   const int Q16 = round16(Q);
-  constexpr int LN = kLdN, LP = kLdP;
+  constexpr int LN = kLdN;
   const int s0 = c * Q, rows = min(Q, S - s0);
-  float* cs = reinterpret_cast<float*>(smem4);
-  float* bs = cs + Q16 * LN;
+  float* base = reinterpret_cast<float*>(smem4);
+  float* cs = kE ? base : nullptr;
+  float* bs = kE ? base + Q16 * LN : base;
   float* xs = bs + Q16 * LN;
-  float* ys = xs + Q16 * LP;
-  float* dtv = ys + Q16 * LP;
+  float* ys = kE ? xs + Q16 * LP : nullptr;
+  float* dtv = kE ? ys + Q16 * LP : xs + Q16 * LP;
   float* cum = dtv + kMaxQ;
   float* wv = cum + kMaxQ;  // exp(total - cum_t) dt_t
   float* ev = wv + kMaxQ;   // exp(cum_t)
   double* cd = reinterpret_cast<double*>(ev + kMaxQ);
-  mma_load_chunk<T>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, gh, s0, rows, S, H, P, G, N,
-                    Q16);
+  mma_load_chunk<T, LP>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, gh, s0, rows, S, H, P, G,
+                        N, Q16);
   cp_async_wait_all();
   __syncthreads();
   if (tid < kMaxQ) cd[tid] = static_cast<double>(dtv[tid] * A[h]);
@@ -1847,13 +1887,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
   const long long off = ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
   const int strips = round16(P) / 16, ntiles = N / 8;
-  for (int item = warp; item < 2 * strips; item += kBwdThreads / 32) {
-    const bool e_side = item >= strips;  // E = (exp(cum) dy)^T C, else (w x)^T B
-    const int p0 = (e_side ? item - strips : item) * 16;
+  // an item is (side, strip of P, part of N): the backward's parts are the
+  // whole of N, the forward's halves of it
+  constexpr int kParts = kE ? 1 : 2, NT = kMaxN / 8 / kParts;
+  const int per = (ntiles + kParts - 1) / kParts;
+  for (int item = warp; item < (kE ? 2 : 1) * strips * kParts; item += kBwdThreads / 32) {
+    const bool e_side = kE && item >= strips;  // E = (exp(cum) dy)^T C, else (w x)^T B
+    const int rest = e_side ? item - strips : item;
+    const int p0 = rest / kParts * 16;
+    const int nb = kE ? 0 : rest % kParts * per;  // the item's first 8-column tile
+    const int nts = kE ? ntiles : min(per, ntiles - nb);
     const float* as = e_side ? ys : xs;
     const float* bt = e_side ? cs : bs;
     const float* sv = e_side ? ev : wv;
-    float acc[kMaxN / 8][4] = {};
+    float acc[NT][4] = {};
     for (int k0 = 0; k0 < Q16; k0 += 8) {
       // A (p, k = token): the token-major tile read down its columns, each
       // token's row scaled by its weight
@@ -1864,14 +1911,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       split_trunc(ap[8] * s_lo, ahi[1], alo[1]);
       split_trunc(ap[4 * LP] * s_hi, ahi[2], alo[2]);
       split_trunc(ap[4 * LP + 8] * s_hi, ahi[3], alo[3]);
-      const float* bp = bt + (k0 + t) * LN + g;
+      const float* bp = bt + (k0 + t) * LN + nb * 8 + g;
 #pragma unroll
-      for (int n0 = 0; n0 < kMaxN / 8; n0 += 4) {
-        if (n0 < ntiles) {
+      for (int n0 = 0; n0 < NT; n0 += 4) {
+        if (n0 < nts) {
           uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
           for (int n = 0; n < 4; ++n) {
-            const bool in = n0 + n < ntiles;
+            const bool in = n0 + n < nts;
             split_trunc(in ? bp[(n0 + n) * 8] : 0.f, bhi[n][0], blo[n][0]);
             split_trunc(in ? bp[4 * LN + (n0 + n) * 8] : 0.f, bhi[n][1], blo[n][1]);
           }
@@ -1881,9 +1928,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     }
     float* out = (e_side ? dstates : states) + off;
 #pragma unroll
-    for (int nt = 0; nt < kMaxN / 8; ++nt) {
-      if (nt < ntiles) {
-        const int n = nt * 8 + 2 * t;
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < nts) {
+        const int n = (nb + nt) * 8 + 2 * t;
         if (p0 + g < P)
           store2(out + static_cast<long long>(p0 + g) * N + n, acc[nt][0], acc[nt][1]);
         if (p0 + g + 8 < P)
@@ -1893,22 +1940,25 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-// The mma body's workspace holds the fma body's parts before `scratch`,
-// then, from `scratch` on, C B^T of each (b, chunk, group) and its
-// transpose, Q16 x Q16 floats each (the tiles above the diagonal unused).
-__host__ __device__ constexpr long long bwd_mma_cb_floats(int Q) {
-  return 2LL * round16(Q) * round16(Q);
+// The floats of C B^T for one (b, chunk, group): Q16 x Q16 (the tiles
+// above the diagonal unused), and its transpose after it where kT (the
+// backward reads both, the forward only C B^T).  The backward's mma body
+// keeps them in its workspace from `scratch` on, after the fma body's parts.
+template <bool kT>
+__host__ __device__ constexpr long long cb_floats(int Q) {
+  return (kT ? 2LL : 1LL) * round16(Q) * round16(Q);
 }
 
-// Launch 1b of the mma body.  Block (c, g, b): C B^T of the chunk's tokens,
-// the 16 x 16 tiles on and below the diagonal (a warp a tile in turn), as
-// the chunk-gradient blocks would form it (mma_abt, one fresh accumulator
-// over N), once for the group's heads rather than in each head's block;
-// written row-major and transposed.
-template <typename T>
+// Launch 1b of the backward's mma body and launch 2 of the forward's
+// mma_tf32x3 body.  Block (c, g, b): C B^T of the chunk's tokens, the
+// 16 x 16 tiles on and below the diagonal (a warp a tile in turn), as the
+// chunk blocks would form it (mma_abt, one fresh accumulator over N), once
+// for the group's heads rather than in each head's block; written
+// row-major and, where kT, transposed.
+template <typename T, bool kT>
 __global__ void __launch_bounds__(kBwdThreads)
-    ssd_bwd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cbw,
-                      int S, int G, int N, int Q) {
+    ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cbw,
+                  int S, int G, int N, int Q) {
   extern __shared__ float4 smem4[];
   const int c = blockIdx.x, gh = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
@@ -1924,7 +1974,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   mma_load_tile<T>(bs, LN, Bm + bo, bc_row, rows, N, Q16);
   cp_async_wait_all();
   __syncthreads();
-  float* cb = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * bwd_mma_cb_floats(Q);
+  float* cb = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * cb_floats<kT>(Q);
   float* cbt = cb + Q16 * Q16;
   for (int item = warp; item < ns * (ns + 1) / 2; item += kBwdThreads / 32) {
     int I, J;
@@ -1937,8 +1987,10 @@ __global__ void __launch_bounds__(kBwdThreads)
       for (int h = 0; h < 2; ++h) {
         const int i = I * 16 + g + 8 * h, j = J * 16 + nt * 8 + 2 * t4;
         store2(cb + i * Q16 + j, acc[nt][2 * h], acc[nt][2 * h + 1]);
-        cbt[j * Q16 + i] = acc[nt][2 * h];
-        cbt[(j + 1) * Q16 + i] = acc[nt][2 * h + 1];
+        if (kT) {
+          cbt[j * Q16 + i] = acc[nt][2 * h];
+          cbt[(j + 1) * Q16 + i] = acc[nt][2 * h + 1];
+        }
       }
   }
 }
@@ -2022,7 +2074,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const float* Sin = states + blk * P * N;
   const float* dS = dstates + blk * P * N;
   // C B^T of the chunk's group (launch 1b), and its transpose
-  const float* cbm = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * bwd_mma_cb_floats(Q);
+  const float* cbm = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * cb_floats<true>(Q);
   const float* cbtm = cbm + Q16 * Q16;
   // <dS, state_in> while the tiles load: a thread's 4-vectors in turn (a
   // tree over the threads at the end)
@@ -2367,6 +2419,229 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward, mma_tf32x3 body: float32 on the TF32 tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+
+// chunk scan: x (Q16 rows of 8 NP + 4 floats), the state entering the chunk
+// as (hi, lo) pairs (8 NP rows of kLdN), cum and dt (kMaxQ each)
+template <int NP>
+__host__ __device__ constexpr int scan_tf32_smem_bytes(int Q) {
+  return 4 * round16(Q) * (8 * NP + 4) + 8 * (8 * NP) * kLdN + 8 * kMaxQ;
+}
+
+// Launch 4 of the mma_tf32x3 body.  Block (c, h, b); a warp owns a 16-row
+// strip of the chunk (warps w and w + 4 share an SM sub-partition and take
+// strips w and 7 - w, so that every sub-partition gets the same work):
+//   y_i = exp(cum_i) (C_i state_in^T) + sum_{J <= strip} (C B^T o L o dt_j)_iJ x_J + D x_i
+// The state entering the chunk is split into hi and lo once, into shared
+// memory, where every warp reads it; C's rows come from device memory (each
+// warp reads only its own, split as it reads them), C B^T from launch 2
+// (one a group), x from shared memory.  The inter-chunk term sums its 16
+// k-steps in a fresh accumulator, each tile of scores times x is summed in
+// a fresh one and added in fp32 (mma_xb): the tensor cores truncate their
+// fp32 accumulation.  One rounding at the store.  NP: 8-column tiles of P
+// the accumulators hold (P <= 8 NP): 8 holds mamba2-130m's P 64 with two
+// blocks an SM (103 KB each), 16 P up to 128 with one (200 KB).
+template <int NP>
+__global__ void __launch_bounds__(kBwdThreads, NP <= 8 ? 2 : 1)
+    ssd_chunk_scan_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                               const float* __restrict__ Cm, const float* __restrict__ Dskip,
+                               const float* __restrict__ cum_in,
+                               const float* __restrict__ states, const float* __restrict__ cbw,
+                               float* __restrict__ y, int S, int H, int P, int G, int N, int Q) {
+  extern __shared__ float4 smem4[];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int gh = h / (H / G);
+  const int Q16 = round16(Q), ntp = P / 8;
+  constexpr int LX = 8 * NP + 4, LS = kLdN;
+  const int s0 = c * Q, rows = min(Q, S - s0);
+  float* xs = reinterpret_cast<float*>(smem4);               // Q16 x LX: x (j, p)
+  uint2* ss = reinterpret_cast<uint2*>(xs + Q16 * LX);        // 8 NP x LS: state_in (p, n)
+  float* cumv = reinterpret_cast<float*>(ss + 8 * NP * LS);   // kMaxQ
+  float* dtv = cumv + kMaxQ;                                  // kMaxQ
+
+  const long long x_row = static_cast<long long>(H) * P;
+  const long long tok0 = static_cast<long long>(b) * S + s0;
+  mma_load_tile<float>(xs, LX, x + tok0 * x_row + static_cast<long long>(h) * P, x_row, rows, P,
+                       Q16);
+  const bool inter = c > 0;  // the state entering the first chunk is zero
+  if (inter) {
+    // state_in split into (hi, lo), kStateBatch 4-float loads a thread in
+    // flight at once
+    const float* sb = states + ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
+    const int nv = N / 4, total = P * nv;
+    for (int e0 = tid; e0 < total; e0 += kStateBatch * kBwdThreads) {
+      float4 v[kStateBatch];
+#pragma unroll
+      for (int u = 0; u < kStateBatch; ++u) {
+        const int e = e0 + u * kBwdThreads;
+        v[u] = e < total ? reinterpret_cast<const float4*>(sb)[e] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kStateBatch; ++u) {
+        const int e = e0 + u * kBwdThreads, p = e / nv, q = e - p * nv;
+        if (e < total) {
+          uint32_t hi[4], lo[4];
+          split_trunc(v[u].x, hi[0], lo[0]);
+          split_trunc(v[u].y, hi[1], lo[1]);
+          split_trunc(v[u].z, hi[2], lo[2]);
+          split_trunc(v[u].w, hi[3], lo[3]);
+          uint4* d = reinterpret_cast<uint4*>(ss + p * LS + 4 * q);
+          d[0] = make_uint4(hi[0], lo[0], hi[1], lo[1]);
+          d[1] = make_uint4(hi[2], lo[2], hi[3], lo[3]);
+        }
+      }
+    }
+  }
+  if (tid < Q16) {
+    // the tile's rows past Q take the chunk's last cum (their dt is 0)
+    cumv[tid] = cum_in[(static_cast<long long>(b) * H + h) * nc * Q + s0 + min(tid, Q - 1)];
+    dtv[tid] = tid < rows ? dt[(tok0 + tid) * H + h] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int mt = warp < 4 ? warp : 11 - warp, w16 = mt * 16;
+  if (w16 >= rows) return;  // no row of the strip lies in the sequence
+  const int r0 = w16 + g, r1 = r0 + 8;
+  const float c0 = cumv[r0], c1 = cumv[r1];
+  float acc[NP][4];
+#pragma unroll
+  for (int pt = 0; pt < NP; ++pt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[pt][e] = 0.f;
+  if (inter) {
+    // C (rows i, k = n) @ state_in^T (n, p); rows past the sequence read
+    // its last row (their y is not stored)
+    const long long bc_row = static_cast<long long>(G) * N, co = static_cast<long long>(gh) * N;
+    const float* ca = Cm + (tok0 + min(r0, rows - 1)) * bc_row + co + t4;
+    const float* cb = Cm + (tok0 + min(r1, rows - 1)) * bc_row + co + t4;
+#pragma unroll 4
+    for (int k0 = 0; k0 < N; k0 += 8) {
+      uint32_t ahi[4], alo[4];
+      split_trunc(__ldg(ca + k0), ahi[0], alo[0]);
+      split_trunc(__ldg(cb + k0), ahi[1], alo[1]);
+      split_trunc(__ldg(ca + k0 + 4), ahi[2], alo[2]);
+      split_trunc(__ldg(cb + k0 + 4), ahi[3], alo[3]);
+      const uint2* bp = ss + g * LS + k0 + t4;
+#pragma unroll
+      for (int n0 = 0; n0 < NP; n0 += 4) {
+        if (n0 < ntp) {
+          uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const bool in = n0 + n < ntp;
+            const uint2 v0 = in ? bp[(n0 + n) * 8 * LS] : make_uint2(0u, 0u);
+            const uint2 v1 = in ? bp[(n0 + n) * 8 * LS + 4] : make_uint2(0u, 0u);
+            bhi[n][0] = v0.x;
+            blo[n][0] = v0.y;
+            bhi[n][1] = v1.x;
+            blo[n][1] = v1.y;
+          }
+          mma_tf32x3<4>(acc + n0, ahi, alo, bhi, blo);
+        }
+      }
+    }
+    const float e0 = expf(c0), e1 = expf(c1);
+#pragma unroll
+    for (int pt = 0; pt < NP; ++pt) {
+      acc[pt][0] *= e0;
+      acc[pt][1] *= e0;
+      acc[pt][2] *= e1;
+      acc[pt][3] *= e1;
+    }
+  }
+  // tiles (strip, J <= strip): the scores C B^T exp(cum_i - cum_j) dt_j,
+  // masked on the diagonal tile before the exp, times x_J
+  const float* cbm = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * cb_floats<false>(Q);
+  for (int J = 0; J <= mt; ++J) {
+    float sc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(
+            cbm + (r0 + 8 * hh) * Q16 + J * 16 + nt * 8 + 2 * t4));
+        sc[nt][2 * hh] = v.x;
+        sc[nt][2 * hh + 1] = v.y;
+      }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? r0 : r1, j = J * 16 + nt * 8 + 2 * t4 + (e & 1);
+        // exp only where i >= j: its argument is <= 0 there
+        sc[nt][e] = i >= j ? sc[nt][e] * expf((e < 2 ? c0 : c1) - cumv[j]) * dtv[j] : 0.f;
+      }
+    mma_xb<NP>(acc, sc, xs + J * 16 * LX, LX, ntp);
+  }
+  // y = acc + D x, one rounding at the store
+  const float d_h = Dskip[h];
+  float* yb = y + tok0 * x_row + static_cast<long long>(h) * P;
+#pragma unroll
+  for (int pt = 0; pt < NP; ++pt) {
+    if (pt < ntp) {
+      const int p = pt * 8 + 2 * t4;
+      if (r0 < rows)
+        store2(yb + r0 * x_row + p, fmaf(d_h, xs[r0 * LX + p], acc[pt][0]),
+               fmaf(d_h, xs[r0 * LX + p + 1], acc[pt][1]));
+      if (r1 < rows)
+        store2(yb + r1 * x_row + p, fmaf(d_h, xs[r1 * LX + p], acc[pt][2]),
+               fmaf(d_h, xs[r1 * LX + p + 1], acc[pt][3]));
+    }
+  }
+}
+
+// offsets (floats) of the mma_tf32x3 body's workspace: the chunk states
+// (B, nc, H, P, N), cum (B, H, nc * Q) and C B^T a (b, chunk, group)
+struct FwdWorkspace {
+  long long states, cum, cb, total;
+};
+__host__ __device__ inline FwdWorkspace fwd_workspace(int B, int S, int H, int P, int G, int N,
+                                                      int Q) {
+  const int nc = (S + Q - 1) / Q;
+  FwdWorkspace w;
+  w.states = 0;
+  w.cum = round4(static_cast<long long>(B) * nc * H * P * N);
+  w.cb = round4(w.cum + static_cast<long long>(B) * H * nc * Q);
+  w.total = w.cb + static_cast<long long>(B) * nc * G * cb_floats<false>(Q);
+  return w;
+}
+
+// The mma_tf32x3 body's four launches: chunk states and cum, C B^T a group,
+// the state pass (the bf16 mma body's), the chunk scan.
+template <int NP>
+int launch_fwd_tf32(const float* x, const float* dt, const float* A, const float* Bm,
+                    const float* Cm, const float* D, float* y, float* state, float* ws, int B,
+                    int S, int H, int P, int G, int N, int Q, cudaStream_t stream) {
+  constexpr int LX = 8 * NP + 4;  // x's row stride in shared memory
+  cudaError_t err =
+      allow_smem<ssd_state_mma_kernel<float, false, LX>>(fwd_state_smem_bytes<LX>(kMaxQ));
+  if (err == cudaSuccess) err = allow_smem<ssd_cb_kernel<float, false>>(8 * kMaxQ * kLdN);
+  if (err == cudaSuccess)
+    err = allow_smem<ssd_chunk_scan_tf32_kernel<NP>>(scan_tf32_smem_bytes<NP>(kMaxQ));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nc = (S + Q - 1) / Q, PN = P * N;
+  const FwdWorkspace w = fwd_workspace(B, S, H, P, G, N, Q);
+  const dim3 chunks(nc, H, B), pass((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
+  if (nc > 0) {
+    ssd_state_mma_kernel<float, false, LX>
+        <<<chunks, kBwdThreads, fwd_state_smem_bytes<LX>(Q), stream>>>(
+            x, dt, A, Bm, nullptr, nullptr, ws + w.cum, ws + w.states, nullptr, S, H, P, G, N, Q);
+    ssd_cb_kernel<float, false><<<dim3(nc, G, B), kBwdThreads, 8 * round16(Q) * kLdN, stream>>>(
+        Bm, Cm, ws + w.cb, S, G, N, Q);
+  }
+  // S = 0: the final state is zero, which the pass writes over no chunk
+  ssd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(ws + w.states, ws + w.cum, state, H,
+                                                           PN, Q, nc);
+  if (nc > 0)
+    ssd_chunk_scan_tf32_kernel<NP><<<chunks, kBwdThreads, scan_tf32_smem_bytes<NP>(Q), stream>>>(
+        x, dt, Cm, D, ws + w.cum, ws + w.states, ws + w.cb, y, S, H, P, G, N, Q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bwd_shape_ok(int B, int S, int H, int P, int G, int N, int chunk) {
   return shape_ok(B, S, H, P, G, N, chunk) && S > 0 &&
          bwd_smem_floats((chunk + 3) & ~3, P, N) * static_cast<int>(sizeof(float)) <=
@@ -2426,8 +2701,8 @@ int launch_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,
                    const void* D, const void* dy, const void* d_state, void* dx, void* ddt,
                    void* dA, void* dBm, void* dCm, void* dD, void* ws, int B, int S, int H, int P,
                    int G, int N, int Q, cudaStream_t stream) {
-  cudaError_t err = allow_smem<ssd_bwd_state_mma_kernel<T>>(kBwdMaxSmemBytes);
-  if (err == cudaSuccess) err = allow_smem<ssd_bwd_cb_kernel<T>>(kBwdMaxSmemBytes);
+  cudaError_t err = allow_smem<ssd_state_mma_kernel<T, true>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess) err = allow_smem<ssd_cb_kernel<T, true>>(kBwdMaxSmemBytes);
   if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 16, 8>>(kBwdMaxSmemBytes);
   if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 0, 0>>(kBwdMaxSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -2441,9 +2716,9 @@ int launch_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   const dim3 chunks(nc, H, B), pass((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
-  ssd_bwd_state_mma_kernel<T><<<chunks, kBwdThreads, bwd_mma_state_smem_bytes(Q), stream>>>(
+  ssd_state_mma_kernel<T, true><<<chunks, kBwdThreads, bwd_mma_state_smem_bytes(Q), stream>>>(
       xt, dtf, Af, bt, ct, yt, wsf + w.cum, wsf + w.states, wsf + w.dstates, S, H, P, G, N, Q);
-  ssd_bwd_cb_kernel<T><<<dim3(nc, G, B), kBwdThreads, 8 * round16(Q) * kLdN, stream>>>(
+  ssd_cb_kernel<T, true><<<dim3(nc, G, B), kBwdThreads, 8 * round16(Q) * kLdN, stream>>>(
       bt, ct, wsf + w.scratch, S, G, N, Q);
   ssd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(wsf + w.states, wsf + w.cum,
                                                            wsf + w.final_state, H, PN, Q, nc);
@@ -2572,7 +2847,7 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
 extern "C" long long ssd_bwd_mma_workspace_floats(int B, int S, int H, int P, int G, int N,
                                                   int chunk) {
   return bwd_workspace(B, S, H, P, N, chunk).scratch +
-         static_cast<long long>(B) * ((S + chunk - 1) / chunk) * G * bwd_mma_cb_floats(chunk);
+         static_cast<long long>(B) * ((S + chunk - 1) / chunk) * G * cb_floats<true>(chunk);
 }
 
 extern "C" int ssd_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,
@@ -2591,4 +2866,39 @@ extern "C" int ssd_bwd_mma(const void* x, const void* dt, const void* A, const v
                                            dCm, dD, ws, B, S, H, P, G, N, chunk, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The forward's mma_tf32x3 body (float32), four launches in order on one
+// stream: chunk states and cum, C B^T a group, the state pass, the chunk
+// scan.  x, y (B,S,H,P), Bm, Cm (B,S,G,N) contiguous float32 with 16-byte
+// aligned bases; dt (B,S,H), A, D (H,) float32; state (B,H,P,N) float32,
+// written with the state after the last token; ws a float32 workspace of
+// ssd_fwd_mma_tf32_workspace_floats(...) floats, 16-byte aligned.  chunk
+// 16-128; P and N multiples of 8 up to 128; G divides H.  Returns
+// cudaErrorInvalidValue on anything else, else cudaGetLastError() after the
+// last launch.
+extern "C" long long ssd_fwd_mma_tf32_workspace_floats(int B, int S, int H, int P, int G, int N,
+                                                       int chunk) {
+  return fwd_workspace(B, S, H, P, G, N, chunk).total;
+}
+
+extern "C" int ssd_fwd_mma_tf32(const void* x, const void* dt, const void* A, const void* Bm,
+                                const void* Cm, const void* D, void* y, void* state, void* ws,
+                                int B, int S, int H, int P, int G, int N, int chunk,
+                                void* stream) {
+  if (!shape_ok(B, S, H, P, G, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const float* bf = static_cast<const float*>(Bm);
+  const float* cf = static_cast<const float*>(Cm);
+  const float* df = static_cast<const float*>(D);
+  float* yf = static_cast<float*>(y);
+  float* sf = static_cast<float*>(state);
+  float* wf = static_cast<float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return P <= 64 ? launch_fwd_tf32<8>(xf, dtf, Af, bf, cf, df, yf, sf, wf, B, S, H, P, G, N,
+                                      chunk, st)
+                 : launch_fwd_tf32<16>(xf, dtf, Af, bf, cf, df, yf, sf, wf, B, S, H, P, G, N,
+                                       chunk, st);
 }

@@ -1,6 +1,8 @@
-"""Time variants of the flash-attention backward on one card, in turns.
+"""Time variants of the flash-attention backward (or, with ``--forward``,
+of the fp32 forward's mma_tf32x3 body) on one card, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab A.cu B.cu [...]
+    PYTHONPATH=src python -m repro_torch.kernels.ab --forward A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` (edited by hand, for
 an A/B of one change).  Each is built with the port's nvcc flags into
@@ -13,7 +15,10 @@ pass), then its device time by kernel under ``torch.profiler``, per call
 over 20 calls, in turns (A, B, ..., then back), beside SDPA's backward on
 the same inputs.  Prints the ptxas registers and spills of each variant's
 fp32 backward kernels and one JSON line per shape and variant; needs a
-card and ``nvcc``.
+card and ``nvcc``.  ``--forward`` does the same for
+``flash_attention_fwd_tf32`` with the log-sum-exp: o against ``mha_ref``
+and lse against a float64 evaluation as shares of the fp32 tolerance,
+beside SDPA's fp32 forward.
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ from .flash_attention.ref import mha_ref
 SHAPES = ((16, 256, 8, 4, 64), (2, 190, 16, 2, 64))
 
 
-def _build_variants(sources: list[str]) -> dict:
-    """{name: bound flash_attention_bwd} of each source, built at once."""
+def _build_variants(sources: list[str], forward: bool = False) -> dict:
+    """{name: bound flash_attention_bwd (or flash_attention_fwd_tf32)} of
+    each source, built at once."""
     out = _build.BUILD_DIR.parent / "ab"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {Path(src).stem: (subprocess.Popen(
@@ -47,13 +53,22 @@ def _build_variants(sources: list[str]) -> dict:
         if job.returncode:
             raise RuntimeError(f"{name} did not build:\n{log[-4000:]}")
         lines = log.splitlines()
+        key = "flash_attn_tf32" if forward else "flash_bwd"
         for i, line in enumerate(lines[:-2]):
-            if "Function properties for" in line and "flash_bwd" in line \
-                    and "EfE" in line:
-                print(name, line.split("flash_bwd")[-1][:40],
+            if "Function properties for" in line and key in line \
+                    and (forward or "EfE" in line):
+                print(name, line.split(key)[-1][:40],
                       lines[i + 1].strip(), lines[i + 2].split(": ")[-1])
-        fn = ctypes.CDLL(str(out / f"{name}.so")).flash_attention_bwd
-        P, I = ctypes.c_void_p, ctypes.c_int
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if forward:
+            fn = lib.flash_attention_fwd_tf32
+            fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
+                           ctypes.c_float, I, P, P]
+            fn.restype = I
+            fns[name] = fn
+            continue
+        fn = lib.flash_attention_bwd
         fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, P]
         fn.restype = I
         fns[name] = fn
@@ -80,7 +95,56 @@ def _ms_by_kernel(fn, iters: int = 20) -> dict:
     return ms
 
 
+def main_forward(sources: list[str]) -> None:
+    fns = _build_variants(sources, forward=True)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, S, H, K, dh in SHAPES:
+        g = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn(B, S, H, dh, generator=g, device=dev)
+        k, v = (torch.randn(B, S, K, dh, generator=g, device=dev)
+                for _ in range(2))
+        want = mha_ref(q, k, v)
+        logits = torch.einsum("bqkgd,bskd->bkgqs",
+                              q.double().unflatten(2, (K, H // K)),
+                              k.double()) * dh ** -0.5
+        pos = torch.arange(S, device=dev)
+        want_lse = torch.logsumexp(logits.masked_fill(
+            pos[None, :] > pos[:, None], -torch.inf), -1).flatten(1, 2)
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, S, device=dev)
+
+        def call(fn):
+            return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              o.data_ptr(), B, S, H, K, *q.stride()[:3],
+                              *k.stride()[:3], *v.stride()[:3], 1, 0, 0,
+                              dh ** -0.5, dh, lse.data_ptr(), stream)
+
+        res = {}
+        for name, fn in fns.items():
+            if call(fn)():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            res[name] = dict(share=max(
+                float(((got - w).abs() / (2e-5 * (1 + w.abs()))).max())
+                for got, w in ((o, want), (lse.double(), want_lse))))
+        order = list(fns) + list(fns)[::-1]
+        for turn, name in enumerate(order):
+            res[name][f"ms_by_kernel_{turn // len(fns)}"] = _ms_by_kernel(
+                call(fns[name]))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = _ms_by_kernel(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        for name, r in res.items():
+            print(json.dumps(dict(shape=[B, S, H, K, dh], variant=name,
+                                  sdpa_forward_ms=sum(lib.values()), **r)),
+                  flush=True)
+
+
 def main(sources: list[str]) -> None:
+    if sources and sources[0] == "--forward":
+        return main_forward(sources[1:])
     fns = _build_variants(sources)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

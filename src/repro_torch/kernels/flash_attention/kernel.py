@@ -5,7 +5,7 @@ The kernel is ``csrc/flash_attention.cu``; it replaces the TPU kernel
 prefill: Sq == Sk, default positions, no softcap) at any S.  Its plain
 version is ``ref.mha_ref``.
 
-Three bodies, chosen by ``select_body`` from the dtype, the head dim and the
+Four bodies, chosen by ``select_body`` from the dtype, the head dim and the
 layout of q, k and v (never by trying one and falling back):
 
 * ``sm90``: bf16 at dh 128 or 256 (the served archs) with 16-byte aligned
@@ -13,18 +13,25 @@ layout of q, k and v (never by trying one and falling back):
   scale > 0: wgmma, TMA and warp specialisation.
 * ``mma``: every other bf16 input (the registry's other head dims, unaligned
   views): mma.sync tiles.
-* ``fp32``: float32, on the FMA units.
+* ``mma_tf32x3``: float32 at the head dims of ``TF32_HEAD_DIMS`` (the
+  training path): FlashAttention-2 on mma.sync m16n8k8 TF32, Q·Kᵀ and P·V
+  each three TF32 products from hi + lo splits by truncation
+  (``ref.mha_fwd_by_products`` with ``tf32x3_trunc`` models it).
+* ``fp32``: float32 at dh 160 and 256, where the mma_tf32x3 body's
+  accumulators do not fit the registers (at 160 ptxas spilled), on the FMA
+  units; the previous body of every float32 input, still forced by
+  ``body="fp32"``.
 
 ``flash_attention_cuda.launches`` counts every launch and
 ``flash_attention_cuda.launches_by_body`` each body's.
 
 Training: ``FlashAttentionFunction`` is the ``torch.autograd.Function``
-whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma
-and fp32 bodies also write each row's log-sum-exp; the sm90 body does not
-yet, so a training call that would take it raises) and whose backward is
-``flash_attention_bwd_cuda``: FlashAttention-2 without atomics on the
-tensor cores (mma.sync), at the head dims of ``BWD_HEAD_DIMS``, one body a
-dtype (``select_bwd_body`` decides, and raises on the rest):
+whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma,
+mma_tf32x3 and fp32 bodies also write each row's log-sum-exp; the sm90 body
+does not yet, so a training call that would take it raises) and whose
+backward is ``flash_attention_bwd_cuda``: FlashAttention-2 without atomics
+on the tensor cores (mma.sync), at the head dims of ``BWD_HEAD_DIMS``, one
+body a dtype (``select_bwd_body`` decides, and raises on the rest):
 
 * ``mma_tf32x3``: float32 (the training path), every operand split into
   TF32 hi + lo and each product formed from three TF32 products, which
@@ -49,19 +56,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # every head dim of the config registry (120 is padded to 128 in the kernel)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
 SM90_HEAD_DIMS = (128, 256)
-BODIES = ("sm90", "mma", "fp32")
+BODIES = ("sm90", "mma", "mma_tf32x3", "fp32")
+# the float32 head dims the mma_tf32x3 body takes (120 padded to 128)
+TF32_HEAD_DIMS = (16, 32, 64, 80, 120, 128)
 # the backward: the head dims of the smoke configs, the train presets and
 # stablelm-3b (ROADMAP.md Queue 2 lists the rest); one body a dtype
 BWD_HEAD_DIMS = (16, 32, 64, 80)
 BWD_BODIES = ("mma_tf32x3", "mma_bf16")
 
 
-def _entry(name: str, with_dtype: bool):
+def _entry(name: str):
+    """A forward entry point: flash_attention_fwd (the mma and fp32 bodies:
+    a dtype code and the lse pointer last), flash_attention_fwd_tf32 (the
+    lse pointer) or flash_attention_fwd_sm90."""
     fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        tail = {"flash_attention_fwd": [I, P], "flash_attention_fwd_tf32": [P],
+                "flash_attention_fwd_sm90": []}[name]
         fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
-                       ctypes.c_float, I, *([I, P] if with_dtype else []), P]
+                       ctypes.c_float, I, *tail, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -96,13 +110,23 @@ def _tma_ok(t: torch.Tensor) -> bool:
 def select_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float | None = None) -> str:
     """The body that takes q (B,S,H,dh), k, v (B,S,K,dh) and the softmax
-    scale (None: dh ** -0.5), one of ``BODIES``.
+    scale (None: dh ** -0.5), one of ``BODIES``: the first of
+    ``bodies_for``.
 
     A pure function of dtype, shape, base address, strides and the sign of
     the scale (the sm90 body takes the row max of the raw scores, which is
     the max of the scaled ones for a scale > 0), on any device.  Raises on
     what no body takes: another dtype, a head dim outside ``HEAD_DIMS``, H
     not a multiple of K, Sq != Sk, a last dim that is not contiguous."""
+    return bodies_for(q, k, v, scale)[0]
+
+
+def bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float | None = None) -> tuple[str, ...]:
+    """The bodies that take these inputs, the one ``select_body`` picks
+    first: bfloat16 takes ``sm90`` (dh 128 / 256, TMA-aligned, scale > 0)
+    and ``mma``; float32 takes ``mma_tf32x3`` (dh in ``TF32_HEAD_DIMS``)
+    and ``fp32``.  Raises as ``select_body``."""
     qs, ks = q.shape, k.shape
     if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError(f"expected q (B,S,H,dh), k/v (B,S,K,dh); got "
@@ -125,11 +149,11 @@ def select_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention_cuda needs a contiguous last dim")
     if dtype == torch.float32:
-        return "fp32"
+        return ("mma_tf32x3", "fp32") if dh in TF32_HEAD_DIMS else ("fp32",)
     if (dh in SM90_HEAD_DIMS and (scale is None or scale > 0) and _tma_ok(q)
             and _tma_ok(k) and _tma_ok(v)):
-        return "sm90"
-    return "mma"
+        return ("sm90", "mma")
+    return ("mma",)
 
 
 def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,21 +179,27 @@ def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0, chunk: int = 0,
                          scale: float | None = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False, body: str | None = None):
     """q (B,S,H,dh); k, v (B,S,K,dh) -> (B,S,H,dh) in ``q.dtype``, and with
     ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,H,S)
-    fp32 (the mma and fp32 bodies only).
+    fp32 (every body but sm90).
 
     fp32 or bf16; dh one of ``HEAD_DIMS``; H a multiple of K; the last dim
-    of each input contiguous (the others are read through strides).  Raises
-    on anything else, and on inputs that require grad while grad mode is on
-    (``FlashAttentionFunction`` takes those)."""
+    of each input contiguous (the others are read through strides).
+    ``body`` (default: the one ``select_body`` picks) names one of
+    ``bodies_for`` these inputs.  Raises on anything else, and on inputs
+    that require grad while grad mode is on (``FlashAttentionFunction``
+    takes those)."""
     refuse_grad("flash_attention_cuda", (q, k, v),
                 "call kernels.ops.flash_attention, which differentiates it")
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got "
                          f"{q.device}")
-    body = select_body(q, k, v, scale)
+    takes = bodies_for(q, k, v, scale)
+    body = takes[0] if body is None else body
+    if body not in takes:
+        raise ValueError(f"body {body!r} does not take these inputs ({q.dtype}"
+                         f", head dim {q.shape[3]}: {takes})")
     if return_lse and body == "sm90":
         raise NotImplementedError(
             "the sm90 body writes no log-sum-exp yet (ROADMAP.md Queue 2 "
@@ -185,13 +215,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     scale = scale if scale is not None else dh ** -0.5
+    lse_ptr = None if lse is None else lse.data_ptr()
     if body == "sm90":
-        fn, strides, tail = _entry("flash_attention_fwd_sm90", False), \
+        fn, strides, tail = _entry("flash_attention_fwd_sm90"), \
             [s for t in (q, k, v) for s in tma_strides(t)], ()
+    elif body == "mma_tf32x3":
+        fn, strides, tail = _entry("flash_attention_fwd_tf32"), \
+            [s for t in (q, k, v) for s in t.stride()[:3]], (lse_ptr,)
     else:
-        fn, strides, tail = _entry("flash_attention_fwd", True), \
+        fn, strides, tail = _entry("flash_attention_fwd"), \
             [s for t in (q, k, v) for s in t.stride()[:3]], \
-            (_DTYPES[q.dtype], None if lse is None else lse.data_ptr())
+            (_DTYPES[q.dtype], lse_ptr)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, H, k.shape[2], *strides, int(causal), window, chunk,

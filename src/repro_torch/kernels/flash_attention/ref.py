@@ -10,9 +10,12 @@ Mask semantics shared by every attention variant:
 
 GQA is native: q has H heads, k/v have K heads, H = K * G.
 
-The backward kernel's arithmetic has a plain model here too
-(``mha_grads_by_products`` with ``tf32x3``): the tests hold its precision
-design against JAX; nothing on the CPU path calls it.
+The fp32 kernels' arithmetic has plain models here too
+(``mha_fwd_by_products`` with ``tf32x3_trunc`` for the forward's
+mma_tf32x3 body, ``mha_grads_by_products`` with ``tf32x3`` for the
+backward): the
+tests hold their precision design against JAX; nothing on the CPU path
+calls them.
 """
 from __future__ import annotations
 
@@ -80,6 +83,14 @@ def split_tf32(v: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def truncate_tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` truncated to TF32 (its low 13 bits cleared), as the SSD
+    backward's and the fp32 forwards' mma bodies split their operands: hi
+    = truncate_tf32(v), lo = truncate_tf32(v - hi)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
 def split_product(a: torch.Tensor, b: torch.Tensor, rnd) -> torch.Tensor:
     """``a @ b`` in fp32 from split operands: each x as hi = rnd(x) and
     lo = rnd(x - hi), and the product (lo·hi + hi·lo) + hi·hi, the two
@@ -95,6 +106,54 @@ def tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     tensor cores (mma.sync m16n8k8, three products a step): about 22 bits
     of each operand's mantissa."""
     return split_product(a, b, split_tf32)
+
+
+def tf32x3_trunc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the forward's mma_tf32x3 body forms it: ``tf32x3`` with
+    truncating splits (``truncate_tf32``: 3 operations a split where
+    rounding takes 5)."""
+    return split_product(a, b, truncate_tf32)
+
+
+def mha_fwd_by_products(q, k, v, *, causal: bool = True, window: int = 0,
+                        chunk: int = 0, scale: float | None = None,
+                        matmul=torch.matmul, block: int = 64):
+    """(o, lse) of ``mha_ref`` in fp32, formed as the forward's mma_tf32x3
+    body forms them: S = Q·Kᵀ a ``block``-key tile at a time through
+    ``matmul`` (``tf32x3_trunc``: three TF32 products), the masked softmax
+    online over the tiles in fp32 (running max, rescaled sum and output), each
+    tile's P·V through ``matmul`` and added to the rescaled output in fp32.
+    q (B,S,H,dh); k, v (B,S,K,dh); self-attention.  o (B,S,H,dh), lse
+    (B,H,S) with +inf for a row that sees no key."""
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+
+    def heads(t, n):     # (B,S,n·g,dh) -> (B,n,g,S,dh)
+        return t.float().reshape(B, S, n, -1, dh).permute(0, 2, 3, 1, 4)
+
+    qh, kh, vh = heads(q, K), heads(k, K), heads(v, K)
+    pos = torch.arange(S, device=q.device)
+    mask = attention_mask(pos, pos, causal=causal, window=window,
+                          chunk=chunk)                # (S,S)
+    m = torch.full((B, K, H // K, S, 1), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((B, K, H // K, S, dh), device=q.device)
+    for k0 in range(0, S, block):
+        ks = slice(k0, k0 + block)
+        s = matmul(qh, kh[..., ks, :].transpose(-1, -2)) * scale
+        s = s.masked_fill(~mask[:, ks], -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        seen = torch.isfinite(m_new)
+        alpha = torch.where(seen, torch.exp(m - m_new), 1.0)
+        p = torch.where(seen, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + matmul(p, vh[..., ks, :])
+        m = m_new
+    out = torch.where(l > 0, o / l, 0.0)
+    lse = torch.where(l > 0, m + torch.log(l), torch.inf)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh),
+            lse.reshape(B, H, S))
 
 
 def mha_grads_by_products(q, k, v, do, *, causal: bool = True,

@@ -6,14 +6,21 @@ any S (the ragged last chunk is padded inside the kernel), computes
 token beside y.  Its plain versions are ``ref.ssd_chunked`` (and its three
 phases) and ``ref.ssd_sequential``.
 
-Two bodies, chosen by ``select_body`` from the dtype (never by trying one and
-falling back):
+Three bodies, chosen by ``select_body`` from the dtype (never by trying one
+and falling back):
 
 * ``mma``: bfloat16 (the served path): chunk-parallel on the tensor cores,
   three launches (``ref.ssd_chunk_state``, ``ref.ssd_state_passing``,
   ``ref.ssd_chunk_scan``) through a workspace of chunk states and cumsums
   that this wrapper allocates on the current stream.
-* ``fma``: float32: one block a (batch, head) walks the chunks in order, the
+* ``mma_tf32x3``: float32 (the training path), every shape the fma body
+  takes: chunk-parallel on the TF32 tensor cores, every product from hi +
+  lo operands split by truncation (3xTF32, as the backward's mma body; the
+  plain phases with ``product=`` and ``split_einsum(..., truncate_tf32)``
+  model it), four launches (chunk states, C·Bᵀ once a group, the state
+  pass, the chunk scan) through a workspace this wrapper allocates.
+* ``fma``: the previous float32 body, taking either dtype when forced
+  (``body="fma"``): one block a (batch, head) walks the chunks in order, the
   products in fp32 on the FMA units.
 
 ``ssd_cuda.launches`` counts every call and ``ssd_cuda.launches_by_body``
@@ -47,7 +54,7 @@ from .. import _build
 from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BODIES = ("mma", "fma")
+BODIES = ("mma", "mma_tf32x3", "fma")
 BWD_BODIES = ("mma", "fma")
 # the backward's chunk blocks: csrc/ssd.cu's bwd_smem_floats, kBwdVecs,
 # kBwdThreads and kBwdMaxSmemBytes; the mma body's largest P (kMmaP)
@@ -60,6 +67,8 @@ def _entry(name: str):
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {"ssd_fwd": [P] * 8 + [I] * 8 + [P],
+                       "ssd_fwd_mma_tf32": [P] * 9 + [I] * 7 + [P],
+                       "ssd_fwd_mma_tf32_workspace_floats": [I] * 7,
                        "ssd_chunk_state": [P] * 6 + [I] * 7 + [P],
                        "ssd_state_pass": [P] * 3 + [I] * 6 + [P],
                        "ssd_chunk_scan": [P] * 8 + [I] * 7 + [P],
@@ -76,7 +85,9 @@ def select_body(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
                 chunk: int = 128) -> str:
     """The body that takes these inputs, one of ``BODIES``: ``mma`` for
-    bfloat16, ``fma`` for float32.
+    bfloat16, ``mma_tf32x3`` for float32 (its blocks fit every shape below:
+    no float32 shape is left to ``fma``, which stays the body forced by
+    ``body="fma"``).
 
     A pure function of dtype and shape, on any device.  Raises on what no
     body takes: shapes that do not agree, another dtype, G not dividing H,
@@ -113,7 +124,14 @@ def select_body(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for t in (x, Bm, Cm):
         if not t.is_contiguous():
             raise ValueError("ssd_cuda takes contiguous x, Bm and Cm")
-    return "mma" if x.dtype == torch.bfloat16 else "fma"
+    return "mma" if x.dtype == torch.bfloat16 else "mma_tf32x3"
+
+
+def bodies_for(x, dt, A, Bm, Cm, D, chunk: int = 128) -> tuple[str, ...]:
+    """The bodies that take these inputs, the one ``select_body`` picks
+    first: ``mma`` (bfloat16) or ``mma_tf32x3`` (float32), then ``fma``,
+    which takes either dtype when forced.  Raises as ``select_body``."""
+    return (select_body(x, dt, A, Bm, Cm, D, chunk), "fma")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -131,16 +149,16 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, Bm and Cm contiguous, all float32 or all bfloat16; dt, A and D any
     float type (cast to float32 here).  Any S; chunk 16-128; P and N
     multiples of 8 up to 128; G dividing H.  ``body`` (default: the one
-    ``select_body`` picks) names the body to run, ``fma`` or, for bfloat16,
-    ``mma``.  Raises on anything else."""
+    ``select_body`` picks) names one of ``bodies_for`` these inputs.
+    Raises on anything else."""
     refuse_grad("ssd_cuda", (x, dt, A, Bm, Cm, D),
                 "call kernels.ops.ssd_scan, which differentiates it through "
                 "SSDFunction (ROADMAP.md Queue 1 item 7)")
     if not x.is_cuda:
         raise ValueError(f"ssd_cuda takes CUDA tensors, got {x.device}")
-    picked = select_body(x, dt, A, Bm, Cm, D, chunk)
-    body = picked if body is None else body
-    if body not in BODIES or (body == "mma" and picked != "mma"):
+    takes = bodies_for(x, dt, A, Bm, Cm, D, chunk)
+    body = takes[0] if body is None else body
+    if body not in takes:
         raise ValueError(f"body {body!r} does not take {x.dtype} inputs "
                          f"(bodies: {BODIES})")
     B, S, H, P = x.shape
@@ -157,6 +175,14 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
                 B, S, H, P, G, N, chunk, _DTYPES[x.dtype]))]
+        elif body == "mma_tf32x3":
+            x, Bm, Cm = (_aligned(t) for t in (x, Bm, Cm))
+            ws = torch.empty(_entry("ssd_fwd_mma_tf32_workspace_floats")(
+                B, S, H, P, G, N, chunk), dtype=torch.float32, device=x.device)
+            calls = [("ssd_fwd_mma_tf32", (
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), D.data_ptr(), y.data_ptr(), state.data_ptr(),
+                ws.data_ptr(), B, S, H, P, G, N, chunk))]
         else:
             x, Bm, Cm = (_aligned(t) for t in (x, Bm, Cm))
             nc = -(-S // chunk)

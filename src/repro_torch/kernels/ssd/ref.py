@@ -44,6 +44,9 @@ from __future__ import annotations
 
 import torch
 
+# the TF32 split that split_einsum models the mma bodies with
+from ..flash_attention.ref import truncate_tf32  # noqa: F401
+
 
 def _expand_groups(Bm: torch.Tensor, H: int) -> torch.Tensor:
     """(B,S,G,N) -> (B,S,H,N) by repeating each group over its heads."""
@@ -78,14 +81,6 @@ def split_bf16(v: torch.Tensor) -> torch.Tensor:
     of hi = bf16(v) and lo = bf16(v - hi), about 16 bits of mantissa."""
     hi = v.to(torch.bfloat16).float()
     return hi + (v - hi).to(torch.bfloat16).float()
-
-
-def truncate_tf32(v: torch.Tensor) -> torch.Tensor:
-    """fp32 ``v`` truncated to TF32 (its low 13 bits cleared), as the
-    backward's mma body splits its operands: hi = truncate_tf32(v), lo =
-    truncate_tf32(v - hi)."""
-    bits = v.float().contiguous().view(torch.int32)
-    return (bits & -0x2000).view(torch.float32)
 
 
 def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, rnd):
@@ -151,12 +146,15 @@ def ssd_state_passing(states, cum, *, chunk: int = 128):
 
 
 def ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, *, chunk: int = 128,
-                   round_operand=None):
+                   round_operand=None, product=torch.einsum):
     """Phase 3: y (B,S,H,P) in ``x.dtype``: the intra-chunk term
-    (C·Bᵀ ∘ L ∘ dt_j)·x, the inter-chunk term exp(cum_i) C·state_in and
-    the D skip, rounded once.  ``round_operand`` (None: exact fp32) is
+    (C·Bᵀ ∘ L ∘ dt_j)·x, the inter-chunk term exp(cum_i) (C·state_in)
+    and the D skip, rounded once.  ``round_operand`` (None: exact fp32) is
     applied to the fp32 operands the kernel rounds for the tensor cores:
-    the scores and the state entering the chunk."""
+    the scores and the state entering the chunk.  ``product`` (an einsum of
+    two operands) forms the three products C·Bᵀ, scores·x and C·state_in
+    (``split_einsum`` with ``truncate_tf32``: as the forward's mma_tf32x3
+    body forms them)."""
     B, S, H, P = x.shape
     f32 = torch.float32
     xf = _chunked(x.to(f32), chunk)                         # (B,nc,Q,H,P)
@@ -175,14 +173,14 @@ def ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, *, chunk: int = 128,
     causal = idx[:, None] >= idx[None, :]
     arg = torch.where(causal[None, None, :, :, None], li - lj,
                       torch.tensor(-1e30, dtype=f32, device=x.device))
-    cb = torch.einsum("bcqhn,bcshn->bcqsh", Ch, Bh)
+    cb = product("bcqhn,bcshn->bcqsh", Ch, Bh)
     scores = cb * torch.exp(arg) * dtf[:, :, None]          # (B,nc,Q,Q,H)
     if round_operand is not None:
         scores = round_operand(scores)
         states_in = round_operand(states_in)
-    y_intra = torch.einsum("bcqsh,bcshp->bcqhp", scores, xf)
-    y_inter = torch.einsum("bcqh,bcqhn,bchpn->bcqhp", torch.exp(cum), Ch,
-                           states_in)
+    y_intra = product("bcqsh,bcshp->bcqhp", scores, xf)
+    y_inter = (torch.exp(cum)[..., None]
+               * product("bcqhn,bchpn->bcqhp", Ch, states_in))
     y = (y_intra + y_inter).reshape(B, nc * chunk, H, P)[:, :S]
     y = y + x.to(f32) * D.to(f32)[None, None, :, None]
     return y.to(x.dtype)

@@ -8,10 +8,11 @@ versions on the same inputs (RMSNorm and flash attention: autograd of the
 forward in fp32; the scans: ``ssd_chunked_bwd`` and ``rglru_bwd``), and the
 training step on the card against the same step on the CPU, for the dense
 LM and the SSD and RG-LRU families.  Each body of a kernel is held on its own
-(flash attention's sm90, mma and fp32 bodies, rmsnorm's one-read and generic
-bodies and its backward's warp_rows, cta_rows and generic bodies, the SSD
-scan's mma and fma bodies both ways, the RG-LRU scan's segmented and serial
-bodies), and the launch counts by body show which one ran.  This file
+(flash attention's sm90, mma, mma_tf32x3 and fp32 bodies, rmsnorm's one-read
+and generic bodies and its backward's warp_rows, cta_rows and generic
+bodies, the SSD scan's mma, mma_tf32x3 and fma bodies both ways, the RG-LRU
+scan's segmented and serial bodies), and the launch counts by body show
+which one ran.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -196,7 +197,9 @@ def test_flash_launches_count_by_body(cuda):
 
     for q, body in [(make(128, torch.bfloat16), "sm90"),
                     (make(256, torch.bfloat16), "sm90"),
-                    (make(128, torch.float32), "fp32"),
+                    (make(128, torch.float32), "mma_tf32x3"),
+                    (make(64, torch.float32, offset=1), "mma_tf32x3"),
+                    (make(256, torch.float32), "fp32"),
                     (make(80, torch.bfloat16), "mma"),
                     (make(128, torch.bfloat16, offset=1), "mma")]:
         before = dict(flash_attention_cuda.launches_by_body)
@@ -418,9 +421,110 @@ def test_ssd_fma_body_forced_on_bf16_matches_mma(cuda):
     y_mma, s_mma = ssd_cuda(*args)
     torch.cuda.synchronize()
     assert {b: ssd_cuda.launches_by_body[b] - before[b]
-            for b in before} == {"mma": 1, "fma": 1}
+            for b in before} == {"mma": 1, "mma_tf32x3": 0, "fma": 1}
     assert_allclose(f32(y_mma), f32(y_fma), rtol=5e-2, atol=5e-2)
     assert_allclose(f32(s_mma), f32(s_fma), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (8, 1024, 24, 64, 1, 128, 128),   # mamba2-130m's train step
+    (2, 1000, 24, 64, 1, 128, 128),   # ragged last chunk
+    (2, 256, 8, 64, 2, 128, 64),      # two groups, chunk 64
+    (1, 90, 3, 24, 3, 8, 20),         # chunk not a multiple of 16, N 8
+    (1, 384, 2, 128, 1, 128, 128),    # P, N and chunk 128: the largest blocks
+    (1, 130, 2, 120, 2, 24, 16),
+    (1, 37, 2, 16, 1, 16, 16),        # the smoke config, ragged
+])
+def test_ssd_mma_tf32x3_body_matches_plain(cuda, B, S, H, P, G, N, chunk):
+    """The fp32 forward on the TF32 tensor cores against the plain scan and
+    against the fma body forced on the same inputs, at 2e-3; two calls give
+    the same bits."""
+    args = _ssd_inputs(cuda, B, S, H, P, G, N, torch.float32)
+    before = dict(ssd_cuda.launches_by_body)
+    y, state = ssd_cuda(*args, chunk=chunk)
+    y2, state2 = ssd_cuda(*args, chunk=chunk)
+    y_fma, state_fma = ssd_cuda(*args, chunk=chunk, body="fma")
+    torch.cuda.synchronize()
+    assert {b: ssd_cuda.launches_by_body[b] - before[b] for b in before} \
+        == {"mma": 0, "mma_tf32x3": 2, "fma": 1}
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+    want_y, want_state = (ssd_chunked(*args, chunk=chunk) if S % chunk == 0
+                          else ssd_sequential(*args))
+    for got, want in ((y, want_y), (state, want_state), (y, y_fma),
+                      (state, state_fma)):
+        assert_allclose(f32(got), f32(want), rtol=2e-3, atol=2e-3)
+
+
+FLASH_TF32_CASES = [
+    (16, 256, 8, 4, 64, dict(causal=True)),        # the 100m step
+    (2, 100, 4, 1, 16, dict(causal=True)),
+    (2, 128, 8, 4, 32, dict(causal=True)),
+    (1, 300, 32, 32, 80, dict(causal=True)),
+    (2, 200, 8, 2, 64, dict(causal=True, window=50)),
+    (2, 200, 8, 2, 64, dict(causal=True, chunk=48)),
+    (1, 130, 4, 4, 80, dict(causal=False)),
+    (2, 190, 16, 2, 64, dict(causal=True)),        # GQA 8, ragged S
+    (1, 200, 4, 1, 120, dict(causal=True)),
+    (1, 512, 8, 2, 128, dict(causal=True, window=100)),
+    (1, 130, 4, 4, 128, dict(causal=False)),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", FLASH_TF32_CASES)
+def test_flash_mma_tf32x3_body_matches_plain(cuda, B, S, H, K, dh, kw):
+    """The fp32 forward on the TF32 tensor cores at every head dim it
+    takes, masks, GQA and ragged S: o against ``mha_ref`` and the fp32 FMA
+    body forced on the same inputs, and its log-sum-exp, at 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(B, S, n, dh, generator=g, device=cuda)
+               for n in (H, K, K))
+    before = dict(flash_attention_cuda.launches_by_body)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    prev, prev_lse = flash_attention_cuda(q, k, v, return_lse=True,
+                                          body="fp32", **kw)
+    torch.cuda.synchronize()
+    after = flash_attention_cuda.launches_by_body
+    assert {b: after[b] - before[b] for b in after} == {
+        "sm90": 0, "mma": 0, "mma_tf32x3": 1, "fp32": 1}
+    pos = torch.arange(S, device=cuda)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.unflatten(2, (K, H // K)),
+                          k) * dh ** -0.5
+    want_lse = torch.logsumexp(logits.masked_fill(
+        ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
+    for got, want in ((out, mha_ref(q, k, v, **kw)), (out, prev),
+                      (lse, want_lse), (lse, prev_lse)):
+        assert_allclose(f32(got), f32(want), **tol(torch.float32))
+
+
+@pytest.mark.parametrize("which", ["ssd", "flash"])
+def test_new_fp32_bodies_raise_rather_than_fall_back(cuda, which,
+                                                     monkeypatch):
+    """A failed launch of the mma_tf32x3 bodies raises and counts nothing;
+    a failed build raises too: no other body runs in their place."""
+    from repro_torch.kernels import _build
+    if which == "ssd":
+        args = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16, torch.float32)
+        module, fn = ssd, lambda: ssd_cuda(*args, chunk=16)
+    else:
+        q = torch.randn(1, 64, 2, 64, device=cuda)
+        module, fn = flash, lambda: flash_attention_cuda(q, q, q)
+    wrapper = ssd_cuda if which == "ssd" else flash_attention_cuda
+    real = module._entry
+    monkeypatch.setattr(module, "_entry", lambda name, *a: (
+        (lambda *args: 700) if "tf32" in name else real(name, *a)))
+    before = dict(wrapper.launches_by_body)
+    with pytest.raises(RuntimeError, match="mma_tf32x3"):
+        fn()
+    assert wrapper.launches_by_body == before
+    monkeypatch.setattr(module, "_entry", real)
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fn()
+    assert wrapper.launches_by_body == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -450,8 +554,9 @@ def test_rglru_segmented_body_matches_plain(cuda, dtype, B, S, W, with_h0):
 
 
 def test_scan_launches_count_by_body(cuda):
-    """bf16 SSD inputs take the mma body and fp32 the fma body; RG-LRU
-    prefill (S >= 64) takes the segmented body and decode the serial one."""
+    """bf16 SSD inputs take the mma body and fp32 the mma_tf32x3 body;
+    RG-LRU prefill (S >= 64) takes the segmented body and decode the serial
+    one."""
     def delta(fn, call):
         before, total = dict(fn.launches_by_body), fn.launches
         call()
@@ -459,10 +564,11 @@ def test_scan_launches_count_by_body(cuda):
         assert fn.launches == total + 1
         return {b: fn.launches_by_body[b] - before[b] for b in before}
 
-    for dtype, body in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+    for dtype, body in ((torch.bfloat16, "mma"),
+                        (torch.float32, "mma_tf32x3")):
         args = _ssd_inputs(cuda, 1, 64, 2, 16, 1, 16, dtype)
         assert delta(ssd_cuda, lambda: ssd_cuda(*args, chunk=16)) == {
-            b: int(b == body) for b in ("mma", "fma")}
+            b: int(b == body) for b in ssd.BODIES}
     for S, body in ((64, "segmented"), (512, "segmented"), (63, "serial"),
                     (1, "serial")):
         la = torch.zeros(4, S, 4096, device=cuda)
@@ -955,7 +1061,7 @@ def test_train_step_launches_each_kernel_both_ways(cuda):
     assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == (5, 5)
     assert (flash_attention_cuda.launches,
             flash_attention_bwd_cuda.launches) == (2, 2)
-    assert flash_attention_cuda.launches_by_body["fp32"] == 2
+    assert flash_attention_cuda.launches_by_body["mma_tf32x3"] == 2
     assert rmsnorm_bwd_cuda.launches_by_body["warp_rows"] == 5
     assert flash_attention_bwd_cuda.launches_by_body["mma_tf32x3"] == 2
 

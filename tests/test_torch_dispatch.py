@@ -61,9 +61,41 @@ def test_flash_other_head_dims_take_mma(dh):
     assert flash_body(*qkv(dh=dh)) == "mma"
 
 
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 120, 128, 160, 256])
 def test_flash_fp32_takes_fp32(dh):
-    assert flash_body(*qkv(dh=dh, dtype=F32)) == "fp32"
+    """float32, at every head dim of the registry, takes the TF32 tensor
+    cores' body (mma_tf32x3) where its accumulators fit the registers (the
+    training head dims 16-80 among them) and the FMA body (``fp32``) at 160
+    and 256; fp32 stays reachable (``body="fp32"``) at every one."""
+    assert flash.TF32_HEAD_DIMS == (16, 32, 64, 80, 120, 128)
+    assert set(flash.BWD_HEAD_DIMS) <= set(flash.TF32_HEAD_DIMS)
+    want = ("mma_tf32x3", "fp32") if dh <= 128 else ("fp32",)
+    assert flash.bodies_for(*qkv(dh=dh, dtype=F32)) == want
+    assert flash_body(*qkv(dh=dh, dtype=F32)) == want[0]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh", [(16, 256, 8, 4, 64), (2, 37, 4, 1, 16),
+                                        (1, 300, 32, 32, 80)])
+def test_flash_fp32_train_shapes_take_mma_tf32x3(B, S, H, K, dh):
+    """The train paths' fp32 shapes (the 100m preset, the smoke config, dh
+    80), contiguous or as views of one fused projection (any stride: the
+    body stages unaligned rows 4 bytes a copy)."""
+    assert flash_body(*qkv(B=B, S=S, H=H, K=K, dh=dh, dtype=F32)) \
+        == "mma_tf32x3"
+    assert flash_body(*fused(H, K, dh, extra=1, dtype=F32)) == "mma_tf32x3"
+
+
+def test_flash_bf16_bodies_are_unchanged():
+    assert flash.bodies_for(*qkv(dh=128)) == ("sm90", "mma")
+    assert flash.bodies_for(*qkv(dh=64)) == ("mma",)
+
+
+def test_flash_counts_start_at_zero_by_body():
+    flash.flash_attention_cuda.launches = 3
+    flash.reset_counts()
+    assert flash.flash_attention_cuda.launches == 0
+    assert flash.flash_attention_cuda.launches_by_body == {
+        "sm90": 0, "mma": 0, "mma_tf32x3": 0, "fp32": 0}
 
 
 def test_flash_misaligned_base_takes_mma():
@@ -312,8 +344,36 @@ def ssd_args(B=2, S=512, H=24, P=64, G=1, N=128, dtype=BF16):
 @pytest.mark.parametrize("S,chunk", [(512, 128), (1000, 128), (37, 16),
                                      (256, 64), (1, 128), (0, 128)])
 def test_ssd_bf16_takes_mma_fp32_takes_fma(S, chunk):
+    """bf16 takes the mma body and float32 the TF32 tensor cores' body
+    (mma_tf32x3, in place of the fma body, which stays forceable)."""
     assert ssd_body(*ssd_args(S=S), chunk=chunk) == "mma"
-    assert ssd_body(*ssd_args(S=S, dtype=F32), chunk=chunk) == "fma"
+    assert ssd_body(*ssd_args(S=S, dtype=F32), chunk=chunk) == "mma_tf32x3"
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (8, 1024, 24, 64, 1, 128, 128),   # mamba2-130m's train step
+    (2, 256, 24, 64, 1, 128, 128),    # its train_check
+    (2, 1000, 24, 64, 1, 128, 128),   # a ragged last chunk
+    (2, 256, 8, 64, 2, 128, 64),
+    (1, 90, 3, 24, 3, 8, 20),
+    (1, 64, 2, 128, 1, 128, 128),     # the largest blocks: P, N, chunk 128
+    (1, 37, 2, 8, 1, 8, 16),
+])
+def test_ssd_fp32_takes_mma_tf32x3_at_every_shape(B, S, H, P, G, N, chunk):
+    """Its blocks fit every shape the fma body takes (P and N up to 128,
+    chunk 16-128), so no float32 shape is left to fma by shape."""
+    args = ssd_args(B=B, S=S, H=H, P=P, G=G, N=N, dtype=F32)
+    assert ssd_body(*args, chunk=chunk) == "mma_tf32x3"
+    assert ssd.bodies_for(*args, chunk=chunk) == ("mma_tf32x3", "fma")
+
+
+@pytest.mark.parametrize("dtype,want", [(BF16, ("mma", "fma")),
+                                        (F32, ("mma_tf32x3", "fma"))])
+def test_ssd_fma_stays_a_body_of_both_dtypes(dtype, want):
+    """``body="fma"`` stays valid for bf16 (``phase_ssd_bodies`` forces it
+    as the mma body's reference) and for float32 (the previous body)."""
+    assert ssd.BODIES == ("mma", "mma_tf32x3", "fma")
+    assert ssd.bodies_for(*ssd_args(dtype=dtype)) == want
 
 
 @pytest.mark.parametrize("P,N,G", [(8, 8, 1), (24, 16, 3), (128, 128, 2),
@@ -352,7 +412,8 @@ def test_ssd_counts_start_at_zero_by_body():
     ssd.ssd_bwd_cuda.launches = 2
     ssd.reset_counts()
     assert ssd.ssd_cuda.launches == 0
-    assert ssd.ssd_cuda.launches_by_body == {"mma": 0, "fma": 0}
+    assert ssd.ssd_cuda.launches_by_body == {"mma": 0, "mma_tf32x3": 0,
+                                             "fma": 0}
     assert ssd.ssd_bwd_cuda.launches == 0
     assert ssd.ssd_bwd_cuda.launches_by_body == {"mma": 0, "fma": 0}
 
@@ -582,3 +643,35 @@ def test_cpu_ops_differentiate_the_plain_scans():
     x2 = x.detach().clone().requires_grad_()
     ssd_chunked(x2, dt, A, bm, bm, torch.ones(2), chunk=16)[0].sum().backward()
     assert torch.equal(x.grad, x2.grad)
+
+
+def test_cpu_ops_run_the_plain_versions_in_fp32(monkeypatch):
+    """On the CPU, fp32 attention and SSD calls go to ``mha_ref`` and
+    ``ssd_chunked`` (``ssd_sequential`` at a ragged S) and never reach a
+    kernel wrapper, whatever body the card would take."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called on the CPU")
+
+    for name in ("flash_attention_cuda", "ssd_cuda"):
+        monkeypatch.setattr(ops, name, refuse)
+    monkeypatch.setattr(ops.FlashAttentionFunction, "apply", refuse)
+    monkeypatch.setattr(ops.SSDFunction, "apply", refuse)
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(2, 70, 8, 64, generator=g)
+    k, v = (torch.randn(2, 70, 4, 64, generator=g) for _ in range(2))
+    assert flash_body(q, k, v) == "mma_tf32x3"
+    assert torch.equal(ops.flash_attention(q, k, v), mha_ref(q, k, v))
+    for S in (64, 50):
+        x = torch.randn(1, S, 2, 8, generator=g)
+        dt, A = torch.rand(1, S, 2, generator=g), -torch.rand(2, generator=g)
+        bm = torch.randn(1, S, 1, 8, generator=g)
+        args = (x, dt, A, bm, bm, torch.ones(2))
+        assert ssd_body(*args, chunk=16) == "mma_tf32x3"
+        want = ssd_chunked(*args, chunk=16) if S % 16 == 0 \
+            else ssd_sequential(*args)
+        for got, w in zip(ops.ssd_scan(*args, chunk=16), want):
+            assert torch.equal(got, w)

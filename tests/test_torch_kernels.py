@@ -35,9 +35,11 @@ from repro.kernels.ssd.ref import ssd_sequential as jax_ssd_sequential
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     mha_fwd_by_products,
                                                      mha_grads_by_products,
                                                      mha_ref, split_product,
-                                                     split_tf32, tf32x3)
+                                                     split_tf32, tf32x3,
+                                                     tf32x3_trunc)
 from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
                                            rglru_gates, rglru_sequential)
@@ -322,6 +324,57 @@ def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
         print(f"\nflash backward split products at {(B, S, H, K, dh, kw)}, "
               f"share of the 2e-5 tolerance: {share}")
     assert share["tf32x3"] <= 0.5 < share["bf16x3"]
+
+
+def _share(got, want, t):
+    """max |got - want| / (t (1 + |want|)): the share of the tolerance t."""
+    got, want = f32(got).astype(np.float64), f32(want).astype(np.float64)
+    return float(np.max(np.abs(got - want) / (t * (1 + np.abs(want)))))
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (2, 256, 8, 4, 64, dict(causal=True)),         # the 100m step's heads
+    (1, 100, 4, 1, 16, dict(causal=True)),         # smoke, ragged S
+    (1, 130, 4, 2, 80, dict(causal=True, window=9)),
+    (1, 130, 4, 2, 80, dict(causal=True, chunk=16)),
+    (1, 70, 2, 2, 128, dict(causal=False)),
+])
+def test_flash_fwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
+                                                       capsys):
+    """The fp32 forward's mma_tf32x3 body in plain torch
+    (``mha_fwd_by_products`` with ``tf32x3_trunc``: Q·Kᵀ and P·V each from
+    TF32 hi + lo splits by truncation and three products, the softmax
+    online over 32-key tiles in fp32, as the kernel runs dh <= 80)
+    against the JAX flash kernel in interpret mode and JAX's ``mha_ref`` at
+    2e-5 (the Pallas kernel where its 64-row blocks divide S), and its
+    log-sum-exp against a float64 evaluation; the same with operands cut
+    once to TF32 (1xTF32, printed beside) misses."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, K, dh)).astype(np.float32)
+            for _ in range(2))
+    want = [f32(jax_mha_ref(q, k, v, **kw))]
+    if S % 64 == 0:     # the Pallas kernel's blocks divide S
+        want.append(f32(flash_attention_pallas(
+            *map(jnp.asarray, (q, k, v)), interpret=True, block_q=64,
+            block_k=64, **kw)))
+    pos = torch.arange(S)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", torch.from_numpy(q).double()
+                          .unflatten(2, (K, H // K)),
+                          torch.from_numpy(k).double()) * dh ** -0.5
+    want_lse = torch.logsumexp(logits.masked_fill(
+        ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    share = {}
+    for name, matmul in (("tf32x3", tf32x3_trunc),
+                         ("tf32", lambda a, b: split_tf32(a) @ split_tf32(b))):
+        o, lse = mha_fwd_by_products(*args, **kw, matmul=matmul, block=32)
+        share[name] = max([_share(o, w, 2e-5) for w in want]
+                          + [_share(lse, want_lse, 2e-5)])
+    with capsys.disabled():
+        print(f"\nflash forward split products at {(B, S, H, K, dh, kw)}, "
+              f"share of the 2e-5 tolerance: {share}")
+    assert share["tf32x3"] <= 1.0 < share["tf32"]
 
 
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=5),
@@ -655,6 +708,44 @@ def test_ssd_mma_operand_rounding_holds_bf16_tolerance(B, S, H, P, G, N,
     # rounding's error
     for key in ("y_before_store", "state"):
         assert errs["split"][key] < 0.05 * errs["bf16"][key]
+
+
+@pytest.mark.parametrize("S", [256, 384, 200])
+def test_ssd_fwd_split_products_hold_the_ssd_tolerance(S, capsys):
+    """The fp32 forward's mma_tf32x3 body in plain torch: the three phases
+    with every product of two tensors formed on the TF32 tensor cores' way
+    (hi + lo splits by truncation, three products: ``split_einsum`` with
+    ``truncate_tf32``) against JAX's ``ssd_chunked`` (its sequential scan at
+    the ragged S = 200) at mamba2-130m's widths (H 24, P 64, N 128, one
+    group, chunk 128) at the fp32 SSD tolerance 2e-3 (1 + |want|), and the
+    final state against JAX's decode step folded over S at 1e-4; the same
+    products from operands cut once to TF32 (1xTF32, printed beside) miss
+    both."""
+    H, P, G, N, chunk = 24, 64, 1, 128, 128
+    jax_args, torch_args = _ssd_both(_ssd_inputs(1, S, H, P, G, N),
+                                     "float32")
+    x, dt, A, Bm, Cm, D = torch_args
+    want_y = f32(jax_ssd_chunked(*jax_args, chunk=chunk) if S % chunk == 0
+                 else jax_ssd_sequential(*jax_args))
+    want_state = _jax_fold(jax_args)
+    products = {
+        "tf32x3": lambda eq, a, b: split_einsum(eq, a, b, truncate_tf32),
+        "tf32": lambda eq, a, b: torch.einsum(eq, truncate_tf32(a),
+                                              truncate_tf32(b))}
+    share = {}
+    for name, product in products.items():
+        states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk,
+                                      product=product)
+        states_in, state = ssd_state_passing(states, cum, chunk=chunk)
+        y = ssd_chunk_scan(x, dt, Bm, Cm, D, cum, states_in, chunk=chunk,
+                           product=product)
+        share[name] = dict(y=_share(y, want_y, 2e-3),
+                           state=_share(state, want_state, 1e-4))
+    with capsys.disabled():
+        print(f"\nssd forward split products at S={S}, share of the "
+              f"tolerance (y 2e-3, state 1e-4): {share}")
+    assert share["tf32x3"]["y"] <= 1.0 and share["tf32x3"]["state"] <= 1.0
+    assert share["tf32"]["y"] > 1.0 and share["tf32"]["state"] > 1.0
 
 
 def test_ssd_one_bf16_step_tells_split_from_plain_bf16():
