@@ -46,17 +46,23 @@ Phases, each printed as one JSON line:
    autograd of their plain versions on the same inputs (flash attention's
    in fp32, RMSNorm's in fp64: rmsnorm_ref's own fp32 dscale strays past
    2e-5 at 8192 rows), fp32 and
-   bf16, at head dims 16, 32, 64 and 80, causal / window / chunk masks,
-   GQA groups up to 8 and S that is not a multiple of the 64-row tiles,
-   each called twice (the same bits).  The scans' backward kernels (SSD:
+   bf16, at every head dim of the registry (16-80, and 120, 128, 160 and
+   256, whose backward is new: bf16 at 128 and 256 as views of a fused
+   projection that the forward's mma body takes, since the sm90 body
+   writes no log-sum-exp), causal / window / chunk masks (a window of
+   2048 that bites at S 2200, dh 256), GQA groups up to 8, MQA and S that
+   is not a multiple of the 64-row tiles, each called twice (the same
+   bits).  The scans' backward kernels (SSD:
    dx, ddt, dA, dB, dC, dD, on its mma body (asserted) and on the fma body
    forced beside it; RG-LRU: d log_a, d gx, dh0) against their plain
    backwards (``ssd_chunked_bwd``, ``rglru_bwd``) on the card, fp32 and
    bf16, at the scans' tolerances, at mamba2-130m's train shape (x
    (8,1024,24,64), chunk 128), a ragged S = 1000 with a gradient of the
    final state and grouped B/C; recurrentgemma-9b's (4,512,4096), S 37
-   and a ragged 1000 with h0 and a gradient of h_last; each called twice
-   (the same bits) and once through its autograd Function.  Then kernel,
+   and ragged S of one, two and three 512-step windows with h0 and a
+   gradient of h_last, on the RG-LRU backward's segmented body (S >= 64)
+   and the serial body forced beside it; each called twice (the same
+   bits) and once through its autograd Function.  Then kernel,
    plain and library
    (``F.rms_norm`` / SDPA; none computes the RG-LRU or the SSD scan) times
    at the serving shapes of qwen2-7b, recurrentgemma-9b (and its decode
@@ -72,7 +78,10 @@ Phases, each printed as one JSON line:
    backwards at mamba2-130m's and recurrentgemma-9b's train shapes (fp32),
    the SSD's mma body bounded by ``ssd_bwd_split_macs`` at the TF32 rate
    and by bytes (``fma_bound_ms``: ``ssd_bwd_macs`` at the fp32 rate, the
-   fma body's).  The mma body's chunk scan is also held, at one bf16 step of y
+   fma body's); the RG-LRU's segmented body beside its serial body.  Flash
+   attention at recurrentgemma-9b's train step (q (4,512,16,256), k/v
+   (4,512,1,256) fp32, window 2048): the backward by kernel beside SDPA's
+   fp32 backward and the fp32 forward body (``flash_rgemma_kernels``).  The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
    ``ms``,
@@ -127,10 +136,12 @@ Phases, each printed as one JSON line:
    restores the last step bit for bit; a run whose
    step fails restarts from the last commit.  Step time against its FLOP
    bound, one profiled step, peak memory and each checkpoint's ACK time.
-   Before it, ``train_check`` of the two recurrent families, as the
-   100m's (fp32, the same checks and limits): mamba2-130m at 2 layers and
-   full width, recurrentgemma-9b at 2 layers narrowed to
-   ``RGEMMA_CHECK_WIDTH``, both batch 2 x 256.
+   Before it, ``train_check`` of the two recurrent families and of
+   qwen2-7b, as the 100m's (fp32, the same checks and limits): mamba2-130m
+   at 2 layers and full width, recurrentgemma-9b at 3 layers (its first
+   superblock, attention at head dim 256) narrowed to
+   ``RGEMMA_CHECK_WIDTH`` and qwen2-7b at 2 layers (head dim 128) narrowed
+   to ``QWEN2_CHECK_WIDTH``, all batch 2 x 256.
 8. ``train_mamba2``: mamba2-130m at full width and depth (24 SSD layers,
    fp32) through the port's launcher, ``python -m repro_torch.launch.train
    --arch mamba2-130m --steps 100 --batch 8 --seq 1024 --ckpt-every 25
@@ -143,16 +154,18 @@ Phases, each printed as one JSON line:
    more step profiled with each kernel family's device ms and share of the
    step (the SSD forward's own launches, the state pass both ways share,
    the SSD backward's, RMSNorm's).
-9. ``train_rgemma_2l``: recurrentgemma-9b at full width cut to 2 layers
-   (rglru, rglru; layer 3 is local attention at head dim 256, whose
-   backward is not ported), fp32, batch 4 x 512, 10 steps of
-   ``make_train_step``, no checkpoint: every loss finite, 2 RG-LRU and 5
-   RMSNorm launches a step, each way, every RMSNorm backward on cta_rows.
-   Step ms, peak memory.
+9. ``train_rgemma_3l``: recurrentgemma-9b at full width cut to 3 layers,
+   its first superblock (rglru, rglru, attn_local at head dim 256, MQA,
+   window 2048), fp32, batch 4 x 512, 10 steps of ``make_train_step``, no
+   checkpoint: every loss finite, 2 RG-LRU, 1 flash and 7 RMSNorm launches
+   a step, each way, the RG-LRU on its segmented bodies both ways, flash
+   forward on the fp32 body and backward on mma_tf32x3, every RMSNorm
+   backward on cta_rows.  Step ms, peak memory, its bounds, one more step
+   profiled by kernel family.
 
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve, train-100m, train-mamba2,
-train-rgemma-2l), the card's name and power limit as ``nvidia-smi``
+train-rgemma-3l), the card's name and power limit as ``nvidia-smi``
 prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
 exits non-zero; so does a machine without a card.
 """
@@ -441,8 +454,9 @@ def phase_env(build):
     check(len(scans) == 8 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scans.values()), f"a scan body spills: {scans}")
-    # the backward kernels: flash's dQ and dK/dV at 4 head dims x 2 dtypes
-    # (16); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
+    # the backward kernels: flash's dQ and dK/dV at 7 compiled head dims
+    # (16, 32, 64, 80, 128 (120 too), 160, 256) x 2 dtypes (28) and its
+    # sum of the dK/dV head split's partials (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
     # 2, 4 and, for fp32 x, 8) and its dscale tree (2), its cta_rows body
     # (12: 2 scale types x vectors a lane 5-8 for fp32 x and 3-4 for bf16),
     # and the generic body (4 type pairs and 2 dscale sums)
@@ -453,7 +467,7 @@ def phase_env(build):
                "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel",
                "rmsnorm_bwd_cta_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 50 and all(
+    check(len(bwd) == 64 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     # the fp32 forward's mma_tf32x3 flash kernels, one a compiled head dim
@@ -472,14 +486,15 @@ def phase_env(build):
     # fp32 forward's mma_tf32x3 body shares: 4 and 3, two dtypes for the
     # backward, the forward's one at each x stride) and chunk gradients (4:
     # two dtypes, at mamba2-130m's tile counts and at any) and the RG-LRU's
-    # (2)
+    # serial and segmented bodies (2 dtypes each)
     scan_bwd = {name: f for src in ("ssd", "rglru")
                 for name, f in ptxas_functions(logs[src]).items()
                 if any(k in name for k in ("ssd_bwd_", "ssd_state_mma_kernel",
                                            "ssd_cb_kernel",
-                                           "rglru_bwd_kernel"))}
+                                           "rglru_bwd_kernel",
+                                           "rglru_bwd_segmented_kernel"))}
     emit("env", scan_backward_ptxas=scan_bwd)
-    check(len(scan_bwd) == 21 and all(
+    check(len(scan_bwd) == 23 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scan_bwd.values()),
         f"a scan backward kernel spills: {scan_bwd}")
@@ -1053,7 +1068,8 @@ def backward_kernels(dev, gen, cases, summary):
     scans)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda, select_bwd_body)
+        SM90_HEAD_DIMS as SM90_DH, flash_attention_bwd_cuda,
+        flash_attention_cuda, select_bwd_body)
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import (RMSNormFunction,
@@ -1210,11 +1226,35 @@ def backward_kernels(dev, gen, cases, summary):
         (2, 190, 16, 2, 64, dict(causal=True)),
         (1, 129, 8, 1, 16, dict(causal=True, chunk=40)),
         (1, 65, 16, 2, 80, dict(causal=True, window=33)),
+        # the head dims above 80: 120 (padded to 128), 128, 160 and 256
+        # (MQA; recurrentgemma-9b's train step; a window of 2048 that bites
+        # past S 2048)
+        (1, 150, 8, 2, 120, dict(causal=True)),
+        (2, 190, 8, 2, 128, dict(causal=True, window=70)),
+        (1, 130, 4, 4, 160, dict(causal=True, chunk=48)),
+        (1, 100, 4, 4, 160, dict(causal=False)),
+        (2, 200, 16, 1, 256, dict(causal=True)),
+        (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
+        (1, 2200, 4, 1, 256, dict(causal=True, window=2048)),
     ]
     for B, S, H, K, dh, kw in attn_cases:
+        def heads(t):
+            """q, k, v as views of a fused projection one element wider
+            than its heads: the forward's mma body, which writes the
+            log-sum-exp (aligned bf16 inputs at dh 128 / 256 take sm90,
+            which does not)."""
+            return [x.unflatten(-1, (-1, dh)) for x in t[..., :-1].split(
+                [H * dh, K * dh, K * dh], -1)]
+
         for dtype in (f32, torch.bfloat16):
-            q, do = (randn(B, S, H, dh, dtype=dtype) for _ in range(2))
-            k, v = (randn(B, S, K, dh, dtype=dtype) for _ in range(2))
+            fused = dtype == torch.bfloat16 and dh in SM90_DH
+            if fused:
+                qkv = randn(B, S, (H + 2 * K) * dh + 1, dtype=dtype)
+                q, k, v = heads(qkv)
+                do = randn(B, S, H, dh, dtype=dtype)
+            else:
+                q, do = (randn(B, S, H, dh, dtype=dtype) for _ in range(2))
+                k, v = (randn(B, S, K, dh, dtype=dtype) for _ in range(2))
             with torch.no_grad():
                 out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
             pos = torch.arange(S, device=dev)
@@ -1225,9 +1265,14 @@ def backward_kernels(dev, gen, cases, summary):
                 ~attention_mask(pos, pos, **kw), -torch.inf)
             err_lse, ok_lse = compare(lse, torch.logsumexp(logits, -1)
                                       .flatten(1, 2), dtype)
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            ops.flash_attention(*leaves, **kw).backward(do)
-            got = [t.grad for t in leaves]
+            if fused:
+                base = qkv.clone().requires_grad_()
+                ops.flash_attention(*heads(base), **kw).backward(do)
+                got = heads(base.grad)
+            else:
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                ops.flash_attention(*leaves, **kw).backward(do)
+                got = [t.grad for t in leaves]
             want = plain_grads(mha_ref, (q, k, v), do, **kw)
             errs = [compare(g, w, dtype) for g, w in zip(got, want)]
             again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
@@ -1285,10 +1330,102 @@ def backward_kernels(dev, gen, cases, summary):
         max_abs_err=max(compare(g, w, f32)[0] for g, w in zip(
             kernel(), plain_grads(mha_ref, (q, k, v), do))),
         profiler_windows=window_counts(mark))
+    flash_rgemma_kernels(dev, gen, summary)
     emit("kernels", kernel="flash_attention_bwd", timings={
         summary["flash_attention_bwd"]["shape"]:
             summary["flash_attention_bwd"]})
     scan_backward_kernels(dev, gen, cases, summary)
+
+
+def flash_rgemma_kernels(dev, gen, summary):
+    """Flash attention at recurrentgemma-9b's train step (q (4,512,16,256),
+    k/v (4,512,1,256) fp32, causal, window 2048), the shape whose backward
+    this slice ports: the backward (mma_tf32x3 body, head-dim slices) beside
+    autograd of ``mha_ref`` and SDPA's fp32 backward (TF32 off), by kernel,
+    into ``summary["flash_attention_bwd"]["rgemma"]``, beside the same
+    backward with its dK/dV heads unsplit (``unsplit_ms``); and the forward with
+    its log-sum-exp on the fp32 FMA body (the train path's body at dh 256,
+    ``flash_attention_fwd_fp32_rgemma``) beside ``mha_ref`` and SDPA's fp32
+    forward.  Bounds: bytes, or the products of the visible pairs (five
+    backward, two forward) each three TF32 products at the TF32 rate
+    (``fma_bound_ms``: once each at the fp32 FMA rate)."""
+    from repro_torch.device import multiprocessors
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda, select_body,
+        select_bwd_body)
+    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    f32 = torch.float32
+    B, S, H, K, dh = 4, 512, 16, 1, 256
+    kw = dict(causal=True, window=2048)
+    q, do = (torch.randn(B, S, H, dh, generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, K, dh, generator=gen, device=dev)
+            for _ in range(2))
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    pos = torch.arange(S, device=dev)
+    pairs = int(attention_mask(pos, pos, **kw).sum())
+    shape = (f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal "
+             "window=2048 (the recurrentgemma-9b step)")
+    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
+                        + lse.nbytes, 2 * flash_bwd_split_macs(B, H, pairs, dh),
+                        "tf32")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = mha_ref(*leaves, **kw)
+    # SDPA with is_causal: the window of 2048 covers all 512 keys
+    lib_out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
+    kernel = lambda: flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, do, lse, **kw)
+    unsplit = lambda: flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, do, lse, head_split=1, **kw)
+    want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
+    mark = len(PROFILER_WINDOWS)
+    summary["flash_attention_bwd"]["rgemma"] = dict(
+        shape=shape, body=select_bwd_body(q, k, v),
+        head_split=flash.bwd_head_split(B, S, H, K, dh,
+                                        multiprocessors(dev)),
+        ms=device_ms(kernel), event_ms=time_ms(kernel),
+        kernel_ms=kernel_breakdown(kernel),
+        unsplit_ms=device_ms(unsplit), unsplit_kernel_ms=kernel_breakdown(
+            unsplit),
+        plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
+        library="SDPA's fp32 backward, TF32 off",
+        library_ms=device_ms(_grad_ms(lib_out, leaves, do.transpose(1, 2))),
+        library_event_ms=time_ms(_grad_ms(lib_out, leaves,
+                                          do.transpose(1, 2))),
+        bound_ms=t_bound, bound_by=by,
+        fma_bound_ms=5 * 2 * B * H * pairs * dh / PEAK_OPS_PER_S[f32] * 1e3,
+        pairs=pairs, max_abs_err=max(compare(g, w, f32)[0]
+                                     for g, w in zip(kernel(), want)),
+        profiler_windows=window_counts(mark))
+    del plain_out, lib_out, want, leaves
+    n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes
+    t_bound, by = bound(n_bytes, 2 * 3 * 2 * B * H * pairs * dh, "tf32")
+    fma_bound, fma_by = bound(n_bytes, 2 * 2 * B * H * pairs * dh, f32)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    forward = lambda: flash_attention_cuda(  # noqa: E731
+        q, k, v, return_lse=True, **kw)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    mark = len(PROFILER_WINDOWS)
+    summary["flash_attention_fwd_fp32_rgemma"] = dict(
+        name="flash_attention_fwd_fp32_rgemma", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        shape=shape + ", with lse", counted_as=("flash_attention", "fp32"),
+        body=select_body(q, k, v), ms=device_ms(forward),
+        event_ms=time_ms(forward), plain_ms=device_ms(
+            lambda: mha_ref(q, k, v, **kw)),
+        library="F.scaled_dot_product_attention fp32, TF32 off",
+        library_ms=device_ms(library), library_event_ms=time_ms(library),
+        bound_ms=t_bound, bound_by=by, fma_bound_ms=fma_bound,
+        fma_bound_by=fma_by,
+        max_abs_err=compare(forward()[0], mha_ref(q, k, v, **kw), f32)[0],
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="flash_attention_fwd_fp32_rgemma", timings={
+        shape: summary["flash_attention_fwd_fp32_rgemma"]})
 
 
 def scan_backward_kernels(dev, gen, cases, summary):
@@ -1299,9 +1436,14 @@ def scan_backward_kernels(dev, gen, cases, summary):
     inputs that require grad); then timed at mamba2-130m's train step (x
     (8,1024,24,64) fp32, chunk 128) and recurrentgemma-9b's (log_a, gx
     (4,512,4096) fp32, no h0) beside their plain backwards, with their
-    device time by kernel."""
+    device time by kernel.  The RG-LRU backward runs the body
+    ``select_bwd_body`` picks (segmented from 64 steps) and the serial body
+    forced beside it, and is timed beside the serial body (its previous
+    one)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
+    from repro_torch.kernels.rglru.kernel import \
+        select_bwd_body as rglru_select_bwd
     from repro_torch.kernels.rglru.ref import rglru_bwd
     from repro_torch.kernels.ssd.kernel import select_bwd_body, ssd_bwd_cuda
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
@@ -1395,36 +1537,44 @@ def scan_backward_kernels(dev, gen, cases, summary):
     emit("kernels", kernel="ssd_bwd", timings={
         summary["ssd_bwd"]["shape"]: summary["ssd_bwd"]})
 
-    # ---- RG-LRU backward: recurrentgemma-9b's shape, a short and a ragged
-    # sequence, with h0 and a gradient of h_last
+    # ---- RG-LRU backward: recurrentgemma-9b's shape, a short sequence
+    # (serial), ragged ones of one, two and three 512-step windows
+    # (segmented, and the serial body forced beside it), with h0 and a
+    # gradient of h_last
     for dtype in (f32, torch.bfloat16):
-        for B, S, W in ((4, 512, 4096), (2, 37, 200), (3, 1000, 130)):
+        for B, S, W in ((4, 512, 4096), (2, 37, 200), (3, 1000, 130),
+                        (2, 300, 33), (1, 1100, 4096)):
             la = -F.softplus(randn(B, S, W)).to(dtype)
             gx, dy = randn(B, S, W, dtype=dtype), randn(B, S, W, dtype=dtype)
             h0, dh = randn(B, W), randn(B, W)
-            got = rglru_bwd_cuda(la, gx, dy, h0, dh)
-            again = rglru_bwd_cuda(la, gx, dy, h0, dh)
+            body = rglru_select_bwd(la, gx, h0)
             want = rglru_bwd(la, gx, dy, h0, dh)
-            errs = [compare(g, w, dtype, RGLRU_TOL)
-                    for g, w in zip(got, want)]
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            cases.append(dict(kernel="rglru_bwd", body="serial",
-                              dtype=str(dtype), B=B, S=S, W=W,
-                              max_abs_err=max(e for e, _ in errs),
-                              tol=RGLRU_TOL[dtype], deterministic=same,
-                              ok=all(ok for _, ok in errs) and same))
+            for run_body in dict.fromkeys((body, "serial")):
+                got = rglru_bwd_cuda(la, gx, dy, h0, dh, body=run_body)
+                again = rglru_bwd_cuda(la, gx, dy, h0, dh, body=run_body)
+                errs = [compare(g, w, dtype, RGLRU_TOL)
+                        for g, w in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                cases.append(dict(
+                    kernel="rglru_bwd", body=run_body, selected=body,
+                    dtype=str(dtype), B=B, S=S, W=W,
+                    max_abs_err=max(e for e, _ in errs),
+                    tol=RGLRU_TOL[dtype], deterministic=same,
+                    ok=all(ok for _, ok in errs) and same
+                    and body == ("segmented" if S >= 64 else "serial")))
     la = -F.softplus(randn(2, 300, 64))
     gx, dy = randn(2, 300, 64), randn(2, 300, 64)
     leaves = [la.clone().requires_grad_(), gx.clone().requires_grad_()]
-    before = rglru_bwd_cuda.launches
+    before = rglru_bwd_cuda.launches_by_body["segmented"]
     (ops.rglru_scan(*leaves)[0] * dy).sum().backward()
     errs = [compare(t.grad, w, f32, RGLRU_TOL) for t, w in zip(
         leaves, rglru_bwd(la, gx, dy))]
-    cases.append(dict(kernel="rglru_bwd", body="serial",
+    cases.append(dict(kernel="rglru_bwd", body="segmented",
                       through="RGLRUFunction", dtype=str(f32), B=2, S=300,
                       W=64, max_abs_err=max(e for e, _ in errs),
                       tol=RGLRU_TOL[f32], ok=all(ok for _, ok in errs)
-                      and rglru_bwd_cuda.launches == before + 1))
+                      and rglru_bwd_cuda.launches_by_body["segmented"]
+                      == before + 1))
 
     B, S, W = 4, 512, 4096
     la = -F.softplus(randn(B, S, W))
@@ -1433,6 +1583,7 @@ def scan_backward_kernels(dev, gen, cases, summary):
     # 30 operations an element (recompute and reverse step)
     t_bound, by = bound(5 * la.nbytes, 30 * la.numel(), f32)
     kernel = lambda: rglru_bwd_cuda(la, gx, dy)  # noqa: E731
+    serial = lambda: rglru_bwd_cuda(la, gx, dy, body="serial")  # noqa: E731
     mark = len(PROFILER_WINDOWS)
     summary["rglru_bwd"] = dict(
         name="rglru_bwd", route="cuda",
@@ -1441,7 +1592,10 @@ def scan_backward_kernels(dev, gen, cases, summary):
                  "differentiates the jnp reference)",
         shape=f"log_a, gx, dy ({B},{S},{W}) fp32, no h0 (the "
               "recurrentgemma-9b step)",
-        body="serial", ms=device_ms(kernel), event_ms=time_ms(kernel),
+        body=rglru_select_bwd(la, gx), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), previous_body="serial",
+        previous_body_ms=device_ms(serial),
+        previous_body_event_ms=time_ms(serial),
         plain_ms=device_ms(lambda: rglru_bwd(la, gx, dy), iters=3,
                            warmup=1),
         library_ms=None, bound_ms=t_bound, bound_by=by,
@@ -1738,25 +1892,35 @@ def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
           f"{2 * float(lr)})")
 
 
-# recurrentgemma-9b's width for the card-against-CPU step: the full-width
-# step (1.45 B parameters) is too slow on the CPU
-RGEMMA_CHECK_WIDTH = dict(d_model=1024, lru_width=1024, d_ff=3072)
+# the widths of the card-against-CPU steps of recurrentgemma-9b and
+# qwen2-7b: the full-width steps (1.45 B and 1.2 B parameters at 3 and 2
+# layers) are too slow on the CPU; the head dims stay the published ones
+# (256 with 16 query heads and MQA; 128 with 28 and 4 KV heads), so the
+# flash backward runs at them
+RGEMMA_CHECK_WIDTH = dict(d_model=1024, lru_width=1024, d_ff=3072,
+                          head_dim=256)
+QWEN2_CHECK_WIDTH = dict(d_model=1024, d_ff=3072, head_dim=128)
 
 
 def train_checks(dev, seed):
     """``phase_train_check`` of the 100m preset at 2 layers (its own batch,
     16 x 256, and the example's step settings), and of mamba2-130m (full
-    width) and recurrentgemma-9b (``RGEMMA_CHECK_WIDTH``) at 2 layers,
-    batch 2 x 256 (two 128-token SSD chunks), ``TrainConfig(float32)``."""
+    width) at 2 layers, recurrentgemma-9b (``RGEMMA_CHECK_WIDTH``) at 3
+    layers (rglru, rglru, attn_local: one superblock) and qwen2-7b
+    (``QWEN2_CHECK_WIDTH``) at 2 layers, batch 2 x 256 (two 128-token SSD
+    chunks), ``TrainConfig(float32)``."""
     from repro_torch.configs import get_config
     from repro_torch.train.steps import TrainConfig
     ex = _lm_example()
     p = ex.PRESETS["100m"]
     phase_train_check(dev, seed, ex.preset_config("100m", num_layers=2),
                       ex.train_config(), p["batch"], p["seq"], preset="100m")
-    for arch, narrowed in (("mamba2-130m", {}),
-                           ("recurrentgemma-9b", RGEMMA_CHECK_WIDTH)):
-        cfg = dataclasses.replace(get_config(arch), num_layers=2, **narrowed)
+    for arch, layers, narrowed in (
+            ("mamba2-130m", 2, {}),
+            ("recurrentgemma-9b", 3, RGEMMA_CHECK_WIDTH),
+            ("qwen2-7b", 2, QWEN2_CHECK_WIDTH)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  **narrowed)
         phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
                           2, 256, arch=arch, narrowed=narrowed)
 
@@ -1966,23 +2130,37 @@ def _reset_launches():
 
 
 def train_bounds(cfg, batch: int, seq: int) -> dict:
-    """Least step time and memory of an fp32 train step of ``cfg``: the
-    FLOPs of ``model_flops`` plus the tied unembedding's matmuls, which it
-    leaves out (3 x 2 x tokens x V x d_model), plus the SSD scans
+    """Least step time and memory of an fp32 train step of ``cfg``, at the
+    rate of the units each part runs on: the projections of
+    ``flops_parts`` plus the tied unembedding's matmuls, which it leaves
+    out (3 x 2 x tokens x V x d_model), over the fp32 rate; the SSD scans
     (forward ``ssd_macs`` and backward ``ssd_bwd_macs``, 2 FLOPs a
-    multiply-add, each SSD layer) over the fp32 rate; 16 B a parameter
+    multiply-add, each SSD layer) and the attention of ``flops_parts``
+    (the backward's, and the forward's where its body is mma_tf32x3: dh
+    <= 128) as three TF32 products each at the TF32 rate, the forward at dh
+    160 / 256 (the fp32 FMA body) over the fp32 rate; 16 B a parameter
     (fp32 weights, gradients and both moments)."""
     tokens = batch * seq
-    flops = cfg.model_flops(tokens, training=True, seq_len=seq)
+    parts = cfg.flops_parts(tokens, training=True, seq_len=seq)
+    fp32, tf32 = parts["base"], 0.0
     if cfg.tie_embeddings:
-        flops += 6 * tokens * cfg.vocab_size * cfg.d_model
+        fp32 += 6 * tokens * cfg.vocab_size * cfg.d_model
     shape = (batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
              cfg.ssm_state, cfg.ssm_chunk)
     n_ssd = cfg._layer_kinds().count("ssd")
     if n_ssd:
-        flops += n_ssd * 2 * (ssd_macs(*shape) + ssd_bwd_macs(*shape))
-    return dict(step_bound_ms=flops / PEAK_OPS_PER_S[torch.float32] * 1e3,
-                step_flops=flops, peak_mem_bound_bytes=16 * cfg.param_count())
+        tf32 += 3 * n_ssd * 2 * (ssd_macs(*shape) + ssd_bwd_macs(*shape))
+    forward = parts["attn"] / 3      # 4 of flops_parts' 12 units a pair
+    if cfg.resolved_head_dim <= 128:
+        tf32 += 3 * parts["attn"]
+    else:
+        fp32 += forward
+        tf32 += 3 * (parts["attn"] - forward)
+    return dict(step_bound_ms=(fp32 / PEAK_OPS_PER_S[torch.float32]
+                               + tf32 / PEAK_OPS_PER_S["tf32"]) * 1e3,
+                step_flops=fp32 + tf32 / 3, step_fp32_flops=fp32,
+                step_tf32_split_flops=tf32,
+                peak_mem_bound_bytes=16 * cfg.param_count())
 
 
 def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
@@ -2125,21 +2303,26 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
     return launches, by_body
 
 
-def phase_train_rgemma_2l(dev, seed, steps: int = 10, batch: int = 4,
+def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
                           seq: int = 512, lr: float = 3e-4):
     """recurrentgemma-9b at full width (d_model 4096, lru_width 4096, GeGLU
-    d_ff 12288, vocabulary 256000, tied, logit softcap 30) cut to 2 layers,
-    (rglru, rglru): the third layer of its pattern is local attention at head
-    dim 256, whose backward is not ported yet (ROADMAP.md Queue 2 item 2).
-    ``steps`` fp32 steps of ``make_train_step`` on ``SyntheticLM`` batches,
-    no checkpoint: the loss finite at every step, 2 RG-LRU and 2L + 1 = 5
-    RMSNorm launches a step each way."""
+    d_ff 12288, vocabulary 256000, tied, logit softcap 30) cut to 3 layers,
+    its first full superblock (rglru, rglru, attn_local: local attention at
+    head dim 256, 16 query heads, MQA, window 2048).  ``steps`` fp32 steps
+    of ``make_train_step`` on ``SyntheticLM`` batches, no checkpoint: the
+    loss finite at every step; 2 RG-LRU, 1 flash and 2L + 1 = 7 RMSNorm
+    launches a step, each way, by body: the RG-LRU on its segmented bodies
+    both ways, flash forward on the fp32 (FMA) body and backward on
+    mma_tf32x3, every RMSNorm backward on cta_rows."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as lru
+    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.models import init_params
     from repro_torch.optim import init_opt_state
     from repro_torch.train.steps import TrainConfig, make_train_step
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=2)
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2159,39 +2342,59 @@ def phase_train_rgemma_2l(dev, seed, steps: int = 10, batch: int = 4,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     launches = _count_launches()
-    from repro_torch.kernels.rglru import kernel as lru
-    from repro_torch.kernels.rmsnorm import kernel as rms
     by_body = {"rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
-               "rglru_bwd": dict(lru.rglru_bwd_cuda.launches_by_body)}
+               "rglru": dict(lru.rglru_cuda.launches_by_body),
+               "rglru_bwd": dict(lru.rglru_bwd_cuda.launches_by_body),
+               "flash_attention": dict(
+                   flash.flash_attention_cuda.launches_by_body),
+               "flash_attention_bwd": dict(
+                   flash.flash_attention_bwd_cuda.launches_by_body)}
     peak = torch.cuda.max_memory_allocated()
-    del params, opt
-    L = cfg.num_layers
-    want = {"rmsnorm": ((2 * L + 1) * steps,) * 2, "flash_attention": (0, 0),
-            "rglru": (L * steps,) * 2, "ssd": (0, 0)}
-    # every norm is 4096 wide: the cta_rows backward
-    want_by_body = {"rmsnorm_bwd": {"warp_rows": 0,
-                                    "cta_rows": (2 * L + 1) * steps,
-                                    "generic": 0},
-                    "rglru_bwd": {"serial": L * steps}}
-    emit("train_rgemma_2l", arch=cfg.name, layers=L,
-         reduced="num_layers 38 -> 2: layer 3 is attn_local at head dim "
-                 "256, whose backward raises (ROADMAP.md Queue 2 item 2)",
+    # one more step, profiled (after the counts were read): each kernel
+    # family's device ms and share of the step
+    b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+    prof = _profiled(lambda: step(params, opt, b, torch.tensor(lr)),
+                     groups=RGEMMA_GROUPS)
+    del params, opt, b
+    kinds = cfg._layer_kinds()
+    L, n_lru, n_attn = len(kinds), kinds.count("rglru"), kinds.count(
+        "attn_local")
+    want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
+            "flash_attention": (n_attn * steps,) * 2,
+            "rglru": (n_lru * steps,) * 2, "ssd": (0, 0)}
+    # every norm is 4096 wide: the cta_rows backward; attention at dh 256
+    # in fp32: the FMA forward body and the 3xTF32 backward
+    want_by_body = {
+        "rmsnorm_bwd": {"warp_rows": 0, "cta_rows": (2 * L + 1) * steps,
+                        "generic": 0},
+        "rglru": {"segmented": n_lru * steps, "serial": 0},
+        "rglru_bwd": {"segmented": n_lru * steps, "serial": 0},
+        "flash_attention": {"sm90": 0, "mma": 0, "mma_tf32x3": 0,
+                            "fp32": n_attn * steps},
+        "flash_attention_bwd": {"mma_tf32x3": n_attn * steps,
+                                "mma_bf16": 0}}
+    emit("train_rgemma_3l", arch=cfg.name, layers=L, layer_kinds=kinds,
+         reduced="num_layers 38 -> 3 (one superblock): 38 layers of fp32 "
+                 "weights, gradients and AdamW moments are about 144 GB",
          d_model=cfg.d_model, lru_width=cfg.resolved_lru_width,
-         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=cfg.param_count(),
+         d_ff=cfg.d_ff, head_dim=cfg.resolved_head_dim,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, window=cfg.window,
+         vocab=cfg.vocab_size, params=cfg.param_count(),
          dtype="float32", batch=batch, seq=seq, steps=steps, lr=lr,
          losses=losses, step_ms_median=statistics.median(step_ms[2:]),
          step_ms_min=min(step_ms), step_ms_max=max(step_ms),
-         peak_mem_bytes=peak, **train_bounds(cfg, batch, seq),
+         step_ms_all=step_ms, peak_mem_bytes=peak,
+         **train_bounds(cfg, batch, seq), profile=prof,
          launches={k: dict(forward=f, backward=b)
                    for k, (f, b) in launches.items()},
          launches_expected={k: dict(forward=f, backward=b)
                             for k, (f, b) in want.items()},
          launches_by_body=by_body, launches_by_body_expected=want_by_body)
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
-          f"train_rgemma_2l: losses {losses}")
-    check(launches == want, f"train_rgemma_2l: launches {launches}, "
+          f"train_rgemma_3l: losses {losses}")
+    check(launches == want, f"train_rgemma_3l: launches {launches}, "
           f"expected {want}")
-    check(by_body == want_by_body, f"train_rgemma_2l: launches by body "
+    check(by_body == want_by_body, f"train_rgemma_3l: launches by body "
           f"{by_body}, expected {want_by_body}")
     return launches, by_body
 
@@ -2210,6 +2413,17 @@ def _cast(tree, dtype):
     if isinstance(tree, (list, tuple)):
         return [_cast(v, dtype) for v in tree]
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+# kernel families of the recurrentgemma-9b train step (3 layers), by the
+# kernel's name with its spaces removed
+RGEMMA_GROUPS = {
+    "rglru_forward": ("rglru_segmented_kernel",),
+    "rglru_backward": ("rglru_bwd_",),
+    "flash_forward": ("flash_attn_",),
+    "flash_backward": ("flash_bwd_",),
+    "rmsnorm": ("rmsnorm",),
+}
 
 
 # kernel families of the mamba2-130m train step, by the kernel's name with
@@ -2325,7 +2539,7 @@ def main() -> int:
     train, train_by_body = {}, {}
     for path, phase in (("train-100m", phase_train),
                         ("train-mamba2", phase_train_mamba2),
-                        ("train-rgemma-2l", phase_train_rgemma_2l)):
+                        ("train-rgemma-3l", phase_train_rgemma_3l)):
         train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():
         if "counted_as" in entry:     # one body of a kernel: its launches

@@ -562,8 +562,14 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 //
 // A CTA is 4 warps; warp w owns rows 16w..16w+15 of the CTA's own 64-row
 // tile (keys in the dK/dV kernel, queries in the dQ kernel), staged once;
-// the other operand's 64-row tiles (Q, dO, lse, D, or K, V) stream through
-// a 2-stage cp.async ring, the next tile loading while this one computes.
+// the other operand's tiles (Q, dO, lse, D, or K, V) stream through a
+// cp.async ring, the next tile loading while this one computes (BwdCfg:
+// 64-row tiles in two stages up to DH 64, 32-row ones from DH 80, one
+// stage for fp32 at DH 256).  Every head dim
+// of the registry is compiled (120 runs as 128, its last 8 columns zero in
+// shared memory and never stored); above DH 80 a CTA accumulates a slice
+// of dK and dV's columns, above DH 128 of dQ's, so that the accumulators
+// fit the registers.
 // Every product is mma.sync on the tensor cores, in two shapes
 // (BwdMma::rows, BwdMma::regs):
 //
@@ -595,10 +601,18 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // where the tile is not wholly visible.
 //
 // What bounds it: at the 100m training shapes, operations: five products
-// of 32896 pairs x 64 a head, each three TF32 products.
+// of 32896 pairs x 64 a head, each three TF32 products; at recurrentgemma-9b's
+// (q (4,512,16,256), k/v (4,512,1,256) fp32, causal) the same five products
+// of 131328 pairs x 256 a head, 0.130 ms at the TF32 rate.  The column
+// slices recompute S and dP: at DH 256 each dK/dV CTA forms the two over
+// the whole head dim for 64 of its columns, 4 times in all, and each dQ
+// CTA twice (the price of 64 accumulators a thread); in exchange the MQA
+// dK/dV grid there is (8 tiles, 4 slices, 4 batches), 128 CTAs where one
+// slice would leave 100 of the 132 SMs idle, and the head split
+// (kernels/flash_attention/kernel.py:bwd_head_split) makes it 512.
 
 constexpr int kBwdThreads = 128;  // 4 warps
-constexpr int kBwdTile = 64;      // rows of every tile, the CTA's own and each streamed one
+constexpr int kBwdTile = 64;      // rows of the CTA's own tiles (and of a streamed one: BwdCfg)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -617,12 +631,17 @@ struct BwdParams {
   int causal, window, chunk;
   float scale;
   int dh;
+  // the dK/dV kernel's split of each GQA group's heads over head_split
+  // CTAs; above 1 each writes its sums to its slice of `partial` (2,
+  // head_split, B, S, K, dh) fp32, unscaled, and a third launch adds them
+  int head_split;
+  float* partial;
 };
 
-// Every query of [q0, q0 + 64) sees every key of [k0, k0 + 64).
+// Every query of [q0, q0 + bq) sees every key of [k0, k0 + bk).
 template <typename P>
-__device__ __forceinline__ bool tile_visible(const P& p, int q0, int k0) {
-  const int q1 = q0 + kBwdTile - 1, k1 = k0 + kBwdTile - 1;
+__device__ __forceinline__ bool tile_visible(const P& p, int q0, int bq, int k0, int bk) {
+  const int q1 = q0 + bq - 1, k1 = k0 + bk - 1;
   return q1 < p.S && k1 < p.S && (!p.causal || k1 <= q0) &&
          (!p.window || q1 - k0 < p.window) &&
          (!p.chunk || (q0 / p.chunk == k1 / p.chunk && k0 / p.chunk == q1 / p.chunk));
@@ -731,12 +750,29 @@ struct BwdMma<float> {
   // acc (16 x 8NT) += A B^T: A the warp's 16 rows, B 8NT rows, row-major in
   // shared memory with DH columns and row stride ld.  kTrunc: truncating
   // splits (split_op).
-  template <int DH, int NT, bool kTrunc = false>
+  template <int DH, int NT, bool kTrunc = false, int kKc = DH / 8>
   static __device__ __forceinline__ void rows(float (&acc)[NT][4], const float* a,
                                               const float* b, int ld) {
+    if constexpr (kKc < DH / 8) {
+      // each kKc-step run of the reduction in a fresh accumulator (bwd_chunk)
+#pragma unroll
+      for (int k0 = 0; k0 < DH / 8; k0 += kKc) {
+        float part[NT][4] = {};
+        steps<NT, kTrunc, kKc>(part, a + k0 * 8, b + k0 * 8, ld);
+        add_chunk(acc, part, 0);
+      }
+    } else {
+      steps<NT, kTrunc, DH / 8>(acc, a, b, ld);
+    }
+  }
+
+  // acc += the products of KK reduction steps (8 columns each)
+  template <int NT, bool kTrunc, int KK>
+  static __device__ __forceinline__ void steps(float (&acc)[NT][4], const float* a,
+                                               const float* b, int ld) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int kk = 0; kk < DH / 8; ++kk) {
+    for (int kk = 0; kk < KK; ++kk) {
       const float* ar = a + g * ld + kk * 8 + t;
       uint32_t ahi[4], alo[4];
       split_op<kTrunc>(ar[0], ahi[0], alo[0]);
@@ -761,7 +797,8 @@ struct BwdMma<float> {
   // layout, B (8NT x DH) row-major in shared memory.  X's columns 2t and
   // 2t + 1 go in as k = t and t + 4, and B's rows 2t and 2t + 1 with them.
   // Each chunk of acc's columns is summed in a fresh accumulator (bwd_chunk).
-  template <int DH, int NT, bool kTrunc = false>
+  // (kSplitX is the bf16 body's: fp32 splits every operand)
+  template <int DH, int NT, bool kTrunc = false, bool kSplitX = false>
   static __device__ __forceinline__ void regs(float (&acc)[DH / 8][4], const float (&x)[NT][4],
                                               const float* b, int ld) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -790,13 +827,21 @@ struct BwdMma<float> {
   }
 };
 
+// hi = bf16(a, b) packed, and lo = bf16 of what hi leaves of each, packed.
+__device__ __forceinline__ void pack_split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
 // bf16: m16n8k16.  A: a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t+8..),
 // a3 (g + 8, 2t+8..); B: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g).
 template <>
 struct BwdMma<__nv_bfloat16> {
   static constexpr int kPad = 8;  // a row stride of 4 (mod 32) words, 16-byte rows
 
-  template <int DH, int NT>
+  // (kTrunc and kKc are the fp32 body's; bf16's 2e-2 needs no chunked sum)
+  template <int DH, int NT, bool kTrunc = false, int kKc = DH / 8>
   static __device__ __forceinline__ void rows(float (&acc)[NT][4], const __nv_bfloat16* a,
                                               const __nv_bfloat16* b, int ld) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -814,7 +859,15 @@ struct BwdMma<__nv_bfloat16> {
     }
   }
 
-  template <int DH, int NT>
+  // kSplitX: X in two bf16 products, hi = bf16(x) and lo = bf16(x - hi),
+  // the lo one first (about 16 bits of X where one product keeps 8): P for
+  // dV and dS for dK and dQ above DH 80 (BwdCfg::kSplitBf16).  At
+  // recurrentgemma-9b's MQA shape (B 4, S 512, 16 heads, dh 256; a key's
+  // dV and dK sum 8192 (head, query) terms) one product each left the
+  // gradient outside the bf16 tolerance of the fp32 one on the H100
+  // (chip_smoke.py's backward cases), the rounding of P and dS to bf16
+  // being what a plain model of the body's roundings showed to set it.
+  template <int DH, int NT, bool kTrunc = false, bool kSplitX = false>
   static __device__ __forceinline__ void regs(float (&acc)[DH / 8][4], const float (&x)[NT][4],
                                               const __nv_bfloat16* b, int ld) {
     const int lane = threadIdx.x & 31;
@@ -825,15 +878,17 @@ struct BwdMma<__nv_bfloat16> {
       float part[kChunk][4] = {};
 #pragma unroll
       for (int kk = 0; kk < NT / 2; ++kk) {
-        const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                                pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                                pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                                pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+        uint32_t af[4], al[4];
+        pack_split_bf16(x[2 * kk][0], x[2 * kk][1], af[0], al[0]);
+        pack_split_bf16(x[2 * kk][2], x[2 * kk][3], af[1], al[1]);
+        pack_split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], af[2], al[2]);
+        pack_split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], af[3], al[3]);
         const uint16_t* br = b16 + (kk * 16 + (lane & 15)) * ld;
 #pragma unroll
         for (int n = 0; n < kChunk; ++n) {
           uint32_t b0, b1;
           ldsm_x2_trans(b0, b1, br + (n0 + n) * 8);
+          if constexpr (kSplitX) mma_bf16(part[n], al, b0, b1);
           mma_bf16(part[n], af, b0, b1);
         }
       }
@@ -842,33 +897,76 @@ struct BwdMma<__nv_bfloat16> {
   }
 };
 
-// Shared memory of both kernels: six 64-row tiles of T (the CTA's own two,
-// then a ring of two stages of two streamed tiles), then the streamed lse
-// and D rows (fp32, two stages; the dK/dV kernel's).
+// The tiling of both kernels at the compiled head dim DH (dh rounded up: 120
+// runs as 128) and element type T.  The CTA's own tiles have kBwdTile = 64
+// rows (4 warps x 16); the other operand streams through a ring of kStages
+// stages of kStream-row tiles, with the streamed lse and D rows (fp32).
+// From DH 80 the streamed tiles have 32 rows, which halves the S and dP
+// tiles a thread holds (with 64-row ones the dK/dV kernel spilled at DH 80
+// in both dtypes, 128 in fp32 and 160 in bf16) and keeps the fp32 tiles
+// (rows of DH + 4 floats) within the 227 KB a block may have: 135 and 168
+// KB at DH 128 and 160, and 200 KB at DH 256 with one stage (two would
+// take 266).
+//
+// A CTA accumulates kDqCols columns of dQ (the dQ kernel) or kKvCols of dK
+// and of dV (the dK/dV kernel), at most 80 accumulators a thread, as the
+// dK/dV kernel holds at DH 80 without a spill: above DH 128 (dQ: halves)
+// and DH 80 (dK and dV: 64 columns, 80 at DH 160) the columns are split
+// over CTAs (grid y = heads x slices), each computing the rows products S
+// and dP over the whole head dim again.
+//
+// kKc: the 3xTF32 rows products sum each run of kKc reduction steps (8
+// columns a step) in a fresh accumulator: 64 columns, or 80 at DH 160, as
+// DH 64 sums them, so the tensor cores' truncating accumulation drifts no
+// further at DH 256 than there (bwd_chunk): a CPU emulation of the kernel
+// that truncates as the tensor cores do put unchunked products several
+// times further from the fp32 gradient at dh 256.
+//
+// kHeadSplit: above DH 80 the dK/dV kernel may split a GQA group's heads
+// over CTAs (BwdParams::head_split); at and below it, none is compiled.
 template <int DH, typename T>
-struct BwdSmem {
+struct BwdCfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kStream = DH >= 80 ? 32 : kBwdTile;
+  static constexpr int kStages = kF32 && DH >= 256 ? 1 : 2;
+  static constexpr int kDqCols = DH <= 128 ? DH : DH / 2;
+  static constexpr int kKvCols = DH <= 80 ? DH : DH % 64 == 0 ? 64 : DH / 2;
+  static constexpr int kKc = DH <= 80 ? DH / 8 : (DH / 8) % 8 == 0 ? 8 : 10;
+  static constexpr bool kHeadSplit = DH > 80;
+  // bf16: P and dS in two products each (for dV, and dK and dQ) above DH
+  // 80 (BwdMma::regs)
+  static constexpr bool kSplitBf16 = DH > 80;
   static constexpr int kLd = DH + BwdMma<T>::kPad;  // row stride, elements
-  static constexpr int kTile = kBwdTile * kLd;      // elements a tile
-  static constexpr size_t kRows = sizeof(T) * 6 * kTile;
-  static constexpr size_t kBytes = kRows + sizeof(float) * 2 * 2 * kBwdTile;
+  static constexpr int kOwn = kBwdTile * kLd;       // elements of an own tile
+  static constexpr int kStr = kStream * kLd;        // elements of a streamed tile
+  static constexpr size_t kRows = sizeof(T) * (2 * kOwn + 2 * kStages * kStr);
+  static constexpr size_t kBytes = kRows + sizeof(float) * 2 * kStages * kStream;
+  // the head dim: DH itself, but at DH 128, which also runs 120 padded
+  static __device__ __forceinline__ int dh(const BwdParams& p) { return DH == 128 ? p.dh : DH; }
+  static_assert(DH % kDqCols == 0 && DH % kKvCols == 0 && (DH / 8) % kKc == 0, "tiling");
+  static_assert(kBytes <= 232448, "a block has at most 227 KB of shared memory");
 };
 
-// Rows [s0, s0 + 64) of one head (row stride ld_g elements) into a tile of
-// row stride ld by cp.async, 16 bytes a copy; rows at or past S are zero.
-template <int DH, typename T>
+// Rows [s0, s0 + R) of one head (row stride ld_g elements) into a tile of
+// DH columns and row stride ld by cp.async, 16 bytes a copy; rows at or past
+// S and columns at or past dh are zero (dh < DH only at DH 128: dh 120).
+template <int DH, int R, typename T>
 __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src, long long ld_g, int s0,
-                                           int S) {
+                                           int S, int dh) {
   constexpr int kVec = 16 / sizeof(T), kChunks = DH / kVec;
-  for (int idx = threadIdx.x; idx < kBwdTile * kChunks; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += kBwdThreads) {
     const int r = idx / kChunks, c = (idx % kChunks) * kVec, s = s0 + r;
-    cp_async16(dst + r * ld + c, src + static_cast<long long>(s < S ? s : 0) * ld_g + c, s < S);
+    const bool col = DH != 128 || c < dh;
+    cp_async16(dst + r * ld + c, src + static_cast<long long>(s < S ? s : 0) * ld_g + (col ? c : 0),
+               s < S && col);
   }
 }
 
-// 64 floats of one (b, h) row of lse or D from s0 on; zero at or past S
+// R floats of one (b, h) row of lse or D from s0 on; zero at or past S
 // (those queries are masked).
+template <int R>
 __device__ __forceinline__ void stage_floats(float* dst, const float* src, int s0, int S) {
-  for (int r = threadIdx.x; r < kBwdTile; r += kBwdThreads) {
+  for (int r = threadIdx.x; r < R; r += kBwdThreads) {
     const int s = s0 + r;
     cp_async4(dst + r, src + (s < S ? s : 0), s < S);
   }
@@ -892,52 +990,86 @@ __device__ __forceinline__ void unpack16(uint4 raw, float (&out)[8]) {
   for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
 }
 
-// dQ (and D) of one query tile of one head, summed over the KV tiles it sees.
+// The ring stage of streamed item i.
+template <int kStages>
+__device__ __forceinline__ int stage_of(int i) {
+  return kStages == 2 ? (i & 1) : 0;
+}
+
+// Wait for streamed item i (the CTA's own tiles came with item 0) after
+// issuing the copies of item i + 1 into the other stage, or, with one stage,
+// after issuing item i's own copies into the stage the last item freed.
+template <int kStages, typename F>
+__device__ __forceinline__ void next_item(int i, int items, F&& stage) {
+  if constexpr (kStages == 2) {
+    if (i + 1 < items) stage(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    if (i > 0) {
+      stage(i);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+}
+
+// dQ (and D) of one query tile of one head, summed over the KV tiles it
+// sees; columns [c0, c0 + kDqCols) of dQ.
 template <int DH, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
-  using L = BwdSmem<DH, T>;
+  using C = BwdCfg<DH, T>;
   using M = BwdMma<T>;
-  constexpr int kLd = L::kLd, NT = kBwdTile / 8, NO = DH / 8;
+  constexpr int kLd = C::kLd, kBK = C::kStream, NT = kBK / 8, NO = C::kDqCols / 8;
+  constexpr int kSplits = DH / C::kDqCols;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   T* tiles = reinterpret_cast<T*>(bwd_smem);
   const T* sQ = tiles;
-  const T* sDO = tiles + L::kTile;
+  const T* sDO = tiles + C::kOwn;
+  T* ring = tiles + 2 * C::kOwn;
   const int n_q = (p.S + kBwdTile - 1) / kBwdTile;
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBwdTile;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.K);
+  const int h = blockIdx.y / kSplits, c0 = (blockIdx.y % kSplits) * C::kDqCols;
+  const int b = blockIdx.z, kvh = h / (p.H / p.K), dh = C::dh(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long qs = static_cast<long long>(p.H) * DH, ks = static_cast<long long>(p.K) * DH;
-  const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * DH;
-  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * DH;
+  const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
+  const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
+  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * dh;
   const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
-  stage_tile<DH>(tiles, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S);
-  stage_tile<DH>(tiles + L::kTile, kLd, static_cast<const T*>(p.dout) + q_off, qs, q0, p.S);
+  stage_tile<DH, kBwdTile>(tiles, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S, dh);
+  stage_tile<DH, kBwdTile>(tiles + C::kOwn, kLd, static_cast<const T*>(p.dout) + q_off, qs, q0,
+                           p.S, dh);
 
   int kv_lo, kv_hi;
   kv_range(p, q0, kBwdTile, &kv_lo, &kv_hi);
-  const int kt0 = kv_lo / kBwdTile;
-  const int items = max(0, (kv_hi + kBwdTile - 1) / kBwdTile - kt0);
+  const int kt0 = kv_lo / kBK;
+  const int items = max(0, (kv_hi + kBK - 1) / kBK - kt0);
   auto stage = [&](int i) {
-    T* st = tiles + (2 + 2 * (i & 1)) * L::kTile;
-    const int k0 = (kt0 + i) * kBwdTile;
-    stage_tile<DH>(st, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S);
-    stage_tile<DH>(st + L::kTile, kLd, static_cast<const T*>(p.v) + kv_off, ks, k0, p.S);
+    T* st = ring + 2 * stage_of<C::kStages>(i) * C::kStr;
+    const int k0 = (kt0 + i) * kBK;
+    stage_tile<DH, kBK>(st, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S, dh);
+    stage_tile<DH, kBK>(st + C::kStr, kLd, static_cast<const T*>(p.v) + kv_off, ks, k0, p.S,
+                        dh);
   };
   if (items > 0) stage(0);
   cp_async_commit();
 
   // D = rowsum(dO * O) of the warp's 16 rows, from device memory while the
-  // tiles load: lanes r and r + 16 take the two halves of row r.
+  // tiles load: lanes r and r + 16 take the two halves of row r's 16-byte
+  // chunks.
   float d = 0.f;
   {
     constexpr int kVec = 16 / sizeof(T);
     const int s = q0 + warp * 16 + (lane & 15);
     if (s < p.S) {
-      const long long off = q_off + s * qs + (lane >> 4) * (DH / 2);
+      const int chunks = dh / kVec, half = chunks / 2;
+      const int n = lane < 16 ? half : chunks - half;  // half, but at dh 120 in bf16
+      const long long off = q_off + s * qs + (lane >> 4) * half * kVec;
       const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
       const uint4* d4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
 #pragma unroll
-      for (int c = 0; c < DH / 2 / kVec; ++c) {
+      for (int c = 0; c < n; ++c) {
         float ov[kVec], dv[kVec];
         unpack16(o4[c], ov);
         unpack16(d4[c], dv);
@@ -946,7 +1078,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
       }
     }
     d += __shfl_xor_sync(0xffffffffu, d, 16);
-    if (lane < 16 && s < p.S) p.delta[row + s] = d;
+    if (c0 == 0 && lane < 16 && s < p.S) p.delta[row + s] = d;
   }
   // this thread's rows g and g + 8: D, and lse in the log2 domain
   const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
@@ -964,21 +1096,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
   for (int i = 0; i < items; ++i) {
-    if (i + 1 < items) stage(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and tile i have landed
-    __syncthreads();
-    const int k0 = (kt0 + i) * kBwdTile;
-    const T* sK = tiles + (2 + 2 * (i & 1)) * L::kTile;
-    const T* sV = sK + L::kTile;
+    next_item<C::kStages>(i, items, stage);  // Q, dO and tile i have landed
+    const int k0 = (kt0 + i) * kBK;
+    const T* sK = ring + 2 * stage_of<C::kStages>(i) * C::kStr;
+    const T* sV = sK + C::kStr;
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    M::template rows<DH, NT>(s, sQ + warp * 16 * kLd, sK, kLd);
-    M::template rows<DH, NT>(dp, sDO + warp * 16 * kLd, sV, kLd);
-    const bool full = tile_visible(p, q0, k0);
+    M::template rows<DH, NT, false, C::kKc>(s, sQ + warp * 16 * kLd, sK, kLd);
+    M::template rows<DH, NT, false, C::kKc>(dp, sDO + warp * 16 * kLd, sV, kLd);
+    const bool full = tile_visible(p, q0, kBwdTile, k0, kBK);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -989,8 +1118,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
                              : 0.f;
         s[j][e] = pr * (dp[j][e] - d_row[rr]);  // dS
       }
-    M::template regs<DH, NT>(dq, s, sK, kLd);
-    __syncthreads();  // this stage is refilled by the copies of tile i + 2
+    M::template regs<C::kDqCols, NT, false, C::kSplitBf16>(dq, s, sK + c0, kLd);
+    __syncthreads();  // this stage is refilled by the copies of a later tile
   }
   cp_async_wait<0>();
 
@@ -999,47 +1128,56 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
   for (int rr = 0; rr < 2; ++rr) {
     if (q_row[rr] >= p.S) continue;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(dqb + q_row[rr] * qs + n * 8 + 2 * t, dq[n][2 * rr] * p.scale,
-             dq[n][2 * rr + 1] * p.scale);
+    for (int n = 0; n < NO; ++n) {
+      const int c = c0 + n * 8 + 2 * t;  // dh is a multiple of 8, so c < dh covers c + 1
+      if (DH != 128 || c < dh)
+        store2(dqb + q_row[rr] * qs + c, dq[n][2 * rr] * p.scale, dq[n][2 * rr + 1] * p.scale);
+    }
   }
 }
 
 // dK and dV of one KV tile of one KV head, summed over the query heads of
-// its group and the query tiles that see it.
+// its group (or its share of them: head_split) and the query tiles that
+// see it; columns [c0, c0 + kKvCols).
 template <int DH, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
-  using L = BwdSmem<DH, T>;
+  using C = BwdCfg<DH, T>;
   using M = BwdMma<T>;
-  constexpr int kLd = L::kLd, NT = kBwdTile / 8, NO = DH / 8;
+  constexpr int kLd = C::kLd, kBQ = C::kStream, NT = kBQ / 8, NO = C::kKvCols / 8;
+  constexpr int kSplits = DH / C::kKvCols;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   T* tiles = reinterpret_cast<T*>(bwd_smem);
-  float* rows = reinterpret_cast<float*>(bwd_smem + L::kRows);
+  float* rows = reinterpret_cast<float*>(bwd_smem + C::kRows);
   const T* sK = tiles;
-  const T* sV = tiles + L::kTile;
-  const int k0 = blockIdx.x * kBwdTile, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = p.H / p.K;
+  const T* sV = tiles + C::kOwn;
+  T* ring = tiles + 2 * C::kOwn;
+  const int k0 = blockIdx.x * kBwdTile, b = blockIdx.z;
+  const int HS = C::kHeadSplit ? p.head_split : 1, c0 = (blockIdx.y % kSplits) * C::kKvCols;
+  const int kvh = blockIdx.y / (kSplits * HS), hs = blockIdx.y / kSplits % HS;
+  const int G = p.H / p.K / HS, h0 = (kvh * HS + hs) * G, dh = C::dh(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long qs = static_cast<long long>(p.H) * DH, ks = static_cast<long long>(p.K) * DH;
-  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * DH;
-  stage_tile<DH>(tiles, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S);
-  stage_tile<DH>(tiles + L::kTile, kLd, static_cast<const T*>(p.v) + kv_off, ks, k0, p.S);
+  const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
+  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * dh;
+  stage_tile<DH, kBwdTile>(tiles, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S, dh);
+  stage_tile<DH, kBwdTile>(tiles + C::kOwn, kLd, static_cast<const T*>(p.v) + kv_off, ks, k0,
+                           p.S, dh);
 
   int q_lo, q_hi;
   q_range(p, k0, kBwdTile, &q_lo, &q_hi);
-  const int qt0 = q_lo / kBwdTile;
-  const int n_qt = max(0, (q_hi + kBwdTile - 1) / kBwdTile - qt0);
-  const int items = G * n_qt;  // item i: head kvh * G + i / n_qt, query tile qt0 + i % n_qt
+  const int qt0 = q_lo / kBQ;
+  const int n_qt = max(0, (q_hi + kBQ - 1) / kBQ - qt0);
+  const int items = G * n_qt;  // item i: head h0 + i / n_qt, query tile qt0 + i % n_qt
   auto stage = [&](int i) {
-    const int h = kvh * G + i / n_qt, q0 = (qt0 + i % n_qt) * kBwdTile;
-    T* st = tiles + (2 + 2 * (i & 1)) * L::kTile;
-    const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * DH;
-    stage_tile<DH>(st, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S);
-    stage_tile<DH>(st + L::kTile, kLd, static_cast<const T*>(p.dout) + q_off, qs, q0, p.S);
+    const int h = h0 + i / n_qt, q0 = (qt0 + i % n_qt) * kBQ;
+    T* st = ring + 2 * stage_of<C::kStages>(i) * C::kStr;
+    const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
+    stage_tile<DH, kBQ>(st, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S, dh);
+    stage_tile<DH, kBQ>(st + C::kStr, kLd, static_cast<const T*>(p.dout) + q_off, qs, q0, p.S,
+                        dh);
     const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
-    float* sr = rows + (i & 1) * 2 * kBwdTile;
-    stage_floats(sr, p.lse + row, q0, p.S);
-    stage_floats(sr + kBwdTile, p.delta + row, q0, p.S);
+    float* sr = rows + stage_of<C::kStages>(i) * 2 * kBQ;
+    stage_floats<kBQ>(sr, p.lse + row, q0, p.S);
+    stage_floats<kBQ>(sr + kBQ, p.delta + row, q0, p.S);
   };
   if (items > 0) stage(0);
   cp_async_commit();
@@ -1053,23 +1191,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParam
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
   for (int i = 0; i < items; ++i) {
-    if (i + 1 < items) stage(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and item i have landed
-    __syncthreads();
-    const int q0 = (qt0 + i % n_qt) * kBwdTile;
-    const T* sQ = tiles + (2 + 2 * (i & 1)) * L::kTile;
-    const T* sDO = sQ + L::kTile;
-    const float* sLse = rows + (i & 1) * 2 * kBwdTile;
-    const float* sD = sLse + kBwdTile;
-    float st[NT][4], dpt[NT][4];  // S^T and dP^T: the warp's 16 keys x 64 queries
+    next_item<C::kStages>(i, items, stage);  // K, V and item i have landed
+    const int q0 = (qt0 + i % n_qt) * kBQ;
+    const T* sQ = ring + 2 * stage_of<C::kStages>(i) * C::kStr;
+    const T* sDO = sQ + C::kStr;
+    const float* sLse = rows + stage_of<C::kStages>(i) * 2 * kBQ;
+    const float* sD = sLse + kBQ;
+    float st[NT][4], dpt[NT][4];  // S^T and dP^T: the warp's 16 keys x kBQ queries
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    M::template rows<DH, NT>(st, sK + warp * 16 * kLd, sQ, kLd);
-    M::template rows<DH, NT>(dpt, sV + warp * 16 * kLd, sDO, kLd);
-    const bool full = tile_visible(p, q0, k0);
+    M::template rows<DH, NT, false, C::kKc>(st, sK + warp * 16 * kLd, sQ, kLd);
+    M::template rows<DH, NT, false, C::kKc>(dpt, sV + warp * 16 * kLd, sDO, kLd);
+    const bool full = tile_visible(p, q0, kBQ, k0, kBwdTile);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -1081,24 +1216,56 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParam
         st[j][e] = pr;                          // P^T
         dpt[j][e] = pr * (dpt[j][e] - sD[qc]);  // dS^T
       }
-    M::template regs<DH, NT>(dv, st, sDO, kLd);
-    M::template regs<DH, NT>(dk, dpt, sQ, kLd);
-    __syncthreads();  // this stage is refilled by the copies of item i + 2
+    M::template regs<C::kKvCols, NT, false, C::kSplitBf16>(dv, st, sDO + c0, kLd);
+    M::template regs<C::kKvCols, NT, false, C::kSplitBf16>(dk, dpt, sQ + c0, kLd);
+    __syncthreads();  // this stage is refilled by the copies of a later item
   }
   cp_async_wait<0>();
 
+  const long long n_kv = static_cast<long long>(p.B) * p.S * p.K * dh;
   T* dkb = static_cast<T*>(p.dk) + kv_off;
   T* dvb = static_cast<T*>(p.dv) + kv_off;
+  float* pk = p.partial + hs * n_kv + kv_off;  // used when HS > 1
+  float* pv = pk + HS * n_kv;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (k_row[rr] >= p.S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const long long off = k_row[rr] * ks + n * 8 + 2 * t;
-      store2(dkb + off, dk[n][2 * rr] * p.scale, dk[n][2 * rr + 1] * p.scale);
-      store2(dvb + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
+      const int c = c0 + n * 8 + 2 * t;
+      if (DH == 128 && c >= dh) continue;
+      const long long off = k_row[rr] * ks + c;
+      if (HS > 1) {
+        store2(pk + off, dk[n][2 * rr], dk[n][2 * rr + 1]);
+        store2(pv + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
+      } else {
+        store2(dkb + off, dk[n][2 * rr] * p.scale, dk[n][2 * rr + 1] * p.scale);
+        store2(dvb + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
+      }
     }
   }
+}
+
+// dK = scale * sum and dV = sum of the head_split partial sums, in the
+// order of the split (the same bits every run), 4 elements a thread.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_dkdv_sum_kernel(BwdParams p) {
+  const long long n = static_cast<long long>(p.B) * p.S * p.K * p.dh;
+  const long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;  // dh is a multiple of 8, so n of 4
+  float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
+  for (int hs = 0; hs < p.head_split; ++hs) {
+    const float4 a = *reinterpret_cast<const float4*>(p.partial + hs * n + i);
+    const float4 c = *reinterpret_cast<const float4*>(p.partial + (p.head_split + hs) * n + i);
+    k4.x += a.x, k4.y += a.y, k4.z += a.z, k4.w += a.w;
+    v4.x += c.x, v4.y += c.y, v4.z += c.z, v4.w += c.w;
+  }
+  T* dk = static_cast<T*>(p.dk) + i;
+  T* dv = static_cast<T*>(p.dv) + i;
+  store2(dk, k4.x * p.scale, k4.y * p.scale);
+  store2(dk + 2, k4.z * p.scale, k4.w * p.scale);
+  store2(dv, v4.x, v4.y);
+  store2(dv + 2, v4.z, v4.w);
 }
 
 // ---------------------------------------------------------------------------
@@ -1856,16 +2023,28 @@ int launch_tf32(const Params& p, cudaStream_t stream) {
 
 template <int DH, typename T>
 int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
-  constexpr size_t kSmem = BwdSmem<DH, T>::kBytes;
+  using C = BwdCfg<DH, T>;
+  constexpr size_t kSmem = C::kBytes;
+  constexpr int kQSplits = DH / C::kDqCols, kKvSplits = DH / C::kKvCols;
+  if (p.H > 65535 / kQSplits || p.K * p.head_split > 65535 / kKvSplits ||
+      (!C::kHeadSplit && p.head_split != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const unsigned tiles = static_cast<unsigned>((p.S + kBwdTile - 1) / kBwdTile);
   cudaError_t err = allow_smem<flash_bwd_dq_kernel<DH, T>>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<DH, T><<<dim3(tiles, p.H, p.B), kBwdThreads, kSmem, stream>>>(p);
+  flash_bwd_dq_kernel<DH, T>
+      <<<dim3(tiles, p.H * kQSplits, p.B), kBwdThreads, kSmem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem<flash_bwd_dkdv_kernel<DH, T>>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<DH, T><<<dim3(tiles, p.K, p.B), kBwdThreads, kSmem, stream>>>(p);
+  flash_bwd_dkdv_kernel<DH, T>
+      <<<dim3(tiles, p.K * kKvSplits * p.head_split, p.B), kBwdThreads, kSmem, stream>>>(p);
+  if (p.head_split == 1) return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n4 = static_cast<long long>(p.B) * p.S * p.K * p.dh / 4;
+  flash_bwd_dkdv_sum_kernel<T><<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2028,28 +2207,36 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
 // forward's o and lse, and dout (like o); every tensor contiguous with a
 // 16-byte aligned base, of one dtype (0 = float32, 1 = bfloat16; lse
 // fp32).  delta is (B,H,S) fp32 scratch.  head_dim is one of 16, 32, 64,
-// 80.  Two launches; returns the first launch error, else
-// cudaGetLastError() after the last.
+// 80, 120, 128, 160, 256.  head_split divides H / K: the dK/dV kernel's
+// CTAs a KV head's group of query heads is split over; above 1, partial
+// is fp32 scratch of 2 * head_split * B * S * K * head_dim floats and a
+// third launch sums it.  Two or three launches; returns the first launch
+// error, else cudaGetLastError() after the last.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int B, int S, int H, int K, int causal,
                                    int window, int chunk, float scale, int head_dim, int dtype,
-                                   void* stream) {
+                                   int head_split, void* partial, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || head_split < 1 || (H / K) % head_split ||
+      (head_split > 1 && (partial == nullptr || !aligned16(partial))))
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
                           static_cast<const void*>(dv)})
     if (!aligned16(ptr)) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdParams p{q,  k,  v, o, dout, static_cast<const float*>(lse),
+  const BwdParams p{q,      k,      v,     o,       dout, static_cast<const float*>(lse),
                     static_cast<float*>(delta), dq, dk, dv, B, S, H, K, causal, window,
-                    chunk, scale, head_dim};
+                    chunk, scale, head_dim, head_split, static_cast<float*>(partial)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16: return launch_bwd_dtype<16>(p, dtype, st);
     case 32: return launch_bwd_dtype<32>(p, dtype, st);
     case 64: return launch_bwd_dtype<64>(p, dtype, st);
     case 80: return launch_bwd_dtype<80>(p, dtype, st);
+    case 120:
+    case 128: return launch_bwd_dtype<128>(p, dtype, st);
+    case 160: return launch_bwd_dtype<160>(p, dtype, st);
+    case 256: return launch_bwd_dtype<256>(p, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

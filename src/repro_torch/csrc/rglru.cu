@@ -48,8 +48,7 @@
 // SM) was the fastest of 8, 16 and 32 on the card (PERF.md); at 32 a
 // thread needs 112 registers and one block fills an SM.
 //
-// The backward (entry rglru_bwd; both dtypes, every S): the gradients of y
-// and h_last by the reverse scan
+// The backward: the gradients of y and h_last by the reverse scan
 //
 //   dh_t = dy_t + a_{t+1} dh_{t+1}   (from dh_last, or 0)
 //   d gx_t = beta_t dh_t,   d la_t = dh_t (a_t h_{t-1} - gx_t exp(2 la_t) / beta_t)
@@ -57,14 +56,48 @@
 //
 // with no gradient through beta where its clamp holds (1 - exp(2 la) below
 // 1e-12), which is rglru_bwd (src/repro_torch/kernels/rglru/ref.py).  The TPU
-// package has no backward kernel: JAX differentiates the jnp reference.  A
-// thread owns one (b, w) channel: it walks the sequence forward once,
-// recomputing h in fp32 with the reference's roundings and saving the state
-// entering every kBwdSegment-step segment (workspace (B, nseg, W) fp32, a
-// sixteenth of the inputs), then walks the segments in reverse: it loads a
-// segment's la, gx and dy at once, recomputes the segment's states from its
-// saved one in registers, and runs the reverse recurrence over them.  So
-// la and gx are read twice, dy once, and d la and d gx written once.
+// package has no backward kernel: JAX differentiates the jnp reference.  Two
+// bodies, both dtypes:
+//
+// * segmented (entry rglru_bwd_segmented; S >= 64, where the forward is
+//   segmented): the reverse carry c_t = a_{t+1} (dy_{t+1} + c_{t+1}) is
+//   affine in c, as h is in h_{t-1}, so the forward body's segmentation
+//   carries over.  A block owns 32 channels and walks time in windows of
+//   kBwdSegments * kBwdSteps = 512 steps, last window first; warp k owns
+//   the kBwdSteps = 32 steps k L .. k L + L - 1 of the window, loaded once
+//   into shared memory (192 KB a block: in registers they spilled).  Each
+//   thread composes its segment both ways: forward into (A = prod a, U = h
+//   from 0) and backward into (A, V = the carry leaving its first step from
+//   0, sum_t (prod_{s <= t} a_s) dy_t), and writes the pairs to shared
+//   memory.  Then it composes the segments before its own onto the state
+//   entering the window (h0, or the state pass 1 saved) and the segments
+//   after its own, last first, onto the carry entering the window from the
+//   right (dh_last, or the carry the later window left); walks its steps
+//   forward to form q_t = a_t h_{t-1} + gx_t dbeta_t in place of gx_t, and
+//   back to write d gx and d la.  Warp 0's carry leaves the window; after
+//   the first window it is dh0.  With S <= 512 there is one window and
+//   la, gx and dy are read once, d la and d gx written once: the bytes
+//   bound.  Past 512 steps a first pass walks the windows but the last
+//   forward (la and gx once more) to save the state entering each in the
+//   workspace h_win (B, windows, W) fp32.  It computes rglru_bwd's
+//   function in another rounding order (kernels/rglru/ref.py
+//   rglru_bwd_segmented models it), within the JAX suite's 1e-4.
+//
+// * serial (entry rglru_bwd; every S, the previous body): a thread owns one
+//   (b, w) channel: it walks the sequence forward once, recomputing h in
+//   fp32 with the reference's roundings and saving the state entering every
+//   kBwdSegment-step segment (workspace (B, nseg, W) fp32, a sixteenth of
+//   the inputs), then walks the segments in reverse: it loads a segment's
+//   la, gx and dy at once, recomputes the segment's states from its saved
+//   one in registers, and runs the reverse recurrence over them.  So la and
+//   gx are read twice, dy once, and d la and d gx written once; B * W
+//   threads (16,384 at recurrentgemma-9b's train step) keep too few bytes
+//   in flight.
+//
+// What bounds the backward: bytes.  At recurrentgemma-9b's train step (B 4,
+// S 512, W 4096, fp32) la, gx and dy read once and d la and d gx written
+// once are 167.8 MB, 0.05008 ms at 3.35 TB/s, against about 30 operations an
+// element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -308,6 +341,172 @@ int launch_bwd(const void* la, const void* gx, const void* dy, const void* h0,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+constexpr int kBwdSegments = 16;  // segments (warps) of a segmented backward block
+constexpr int kBwdSteps = 32;     // L: the steps of a backward segment
+constexpr int kBwdWindow = kBwdSegments * kBwdSteps;
+constexpr int kBwdSegThreads = kBwdSegments * 32;
+// la, gx (then q) and dy of every thread's steps, fp32: 192 KB
+constexpr size_t kBwdSegSmem = sizeof(float) * 3 * kBwdSteps * kBwdSegThreads;
+
+// beta = sqrt(max(1 - exp(2 la), 1e-12)) and its derivative in la, 0 where
+// the clamp holds (rglru_bwd's)
+__device__ __forceinline__ void beta_dbeta(float la, float* beta, float* dbeta) {
+  const float e2 = expf(2.f * la);
+  const float v = 1.f - e2;
+  *beta = sqrtf(fmaxf(v, 1e-12f));
+  *dbeta = v >= 1e-12f ? -e2 / *beta : 0.f;
+}
+
+// Each thread's steps live in shared memory, step-major ([step][thread]:
+// conflict-free), not in registers: la, gx and dy of 32 steps and what the
+// walks derive from them took 128 registers and spilled at 512 threads a
+// block.  A thread reads only what it wrote, so the staging needs no
+// barrier; __syncwarp between the walks keeps the compiler from holding a
+// walk's values in registers for the next.
+template <typename T>
+__global__ void __launch_bounds__(kBwdSegThreads, 1)
+    rglru_bwd_segmented_kernel(const T* __restrict__ la, const T* __restrict__ gx,
+                               const T* __restrict__ dy, const float* __restrict__ h0,
+                               const float* __restrict__ dh_last, float* __restrict__ h_win,
+                               T* __restrict__ dla, T* __restrict__ dgx,
+                               float* __restrict__ dh0, int S, int W) {
+  constexpr int L = kBwdSteps, N = kBwdSegThreads, kChunk = 8;
+  extern __shared__ __align__(16) float lru_smem[];
+  float* sl = lru_smem + threadIdx.x;  // la of step i at sl[i * N]
+  float* sq = sl + L * N;              // gx, then q_t = a_t h_{t-1} + gx_t dbeta_t
+  float* sg = sq + L * N;              // dy
+  __shared__ float seg_a[kBwdSegments][32], seg_u[kBwdSegments][32], seg_c[kBwdSegments][32];
+  __shared__ float h_in[32], c_in[32];  // the window's entry state and right-hand carry
+  const int lane = threadIdx.x & 31, k = threadIdx.x >> 5;
+  const int w = blockIdx.x * 32 + lane, b = blockIdx.y;
+  const bool live = w < W;
+  const long long chan = static_cast<long long>(b) * W + w;
+  const long long base = static_cast<long long>(b) * S * W + w;
+  const int nwin = (S + kBwdWindow - 1) / kBwdWindow;
+  float* hw = h_win + static_cast<long long>(b) * nwin * W + w;  // (B, nwin, W)
+  if (k == 0) {
+    h_in[lane] = live && h0 != nullptr ? h0[chan] : 0.f;
+    c_in[lane] = live && dh_last != nullptr ? dh_last[chan] : 0.f;
+  }
+
+  // pass 1 (S past one window): the state entering each window but the
+  // last saved, the last one's left in h_in
+  for (int win = 0; win + 1 < nwin; ++win) {
+    const int ts = win * kBwdWindow + k * L;
+    float A = 1.f, U = 0.f;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      float l = 0.f, x = 0.f;
+      if (live && ts + i < S) {
+        const long long o = base + static_cast<long long>(ts + i) * W;
+        l = to_f32(la[o]);
+        x = to_f32(gx[o]);
+      }
+      const float a = expf(l), beta = sqrtf(fmaxf(1.f - expf(2.f * l), 1e-12f));
+      U = __fadd_rn(__fmul_rn(a, U), __fmul_rn(beta, x));
+      A = __fmul_rn(A, a);
+    }
+    seg_a[k][lane] = A;
+    seg_u[k][lane] = U;
+    __syncthreads();
+    if (k == 0) {
+      float h = h_in[lane];
+      if (live) hw[static_cast<long long>(win) * W] = h;
+      for (int j = 0; j < kBwdSegments; ++j)
+        h = __fadd_rn(__fmul_rn(seg_a[j][lane], h), seg_u[j][lane]);
+      h_in[lane] = h;
+    }
+    __syncthreads();
+  }
+
+  // pass 2: the windows last first
+  for (int win = nwin - 1; win >= 0; --win) {
+    const int ts = win * kBwdWindow + k * L;  // this segment's first step
+    if (k == 0 && win < nwin - 1) h_in[lane] = live ? hw[static_cast<long long>(win) * W] : 0.f;
+    // the steps into shared memory, kChunk at a time, and the segment's
+    // pairs from 0: forward (A = prod a, U = h) and backward (V = the carry
+    // leaving its first step, sum_t (prod_{s <= t} a_s) dy_t)
+    float A = 1.f, U = 0.f, V = 0.f;
+#pragma unroll
+    for (int i0 = 0; i0 < L; i0 += kChunk) {
+      float l[kChunk], x[kChunk], g[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        l[i] = x[i] = g[i] = 0.f;  // steps past S are identity steps
+        if (live && ts + i0 + i < S) {
+          const long long o = base + static_cast<long long>(ts + i0 + i) * W;
+          l[i] = to_f32(la[o]);
+          x[i] = to_f32(gx[o]);
+          g[i] = to_f32(dy[o]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        sl[(i0 + i) * N] = l[i];
+        sq[(i0 + i) * N] = x[i];
+        sg[(i0 + i) * N] = g[i];
+        const float a = expf(l[i]), beta = sqrtf(fmaxf(1.f - expf(2.f * l[i]), 1e-12f));
+        U = __fadd_rn(__fmul_rn(a, U), __fmul_rn(beta, x[i]));
+        A = __fmul_rn(A, a);
+        V = __fadd_rn(V, __fmul_rn(A, g[i]));
+      }
+    }
+    seg_a[k][lane] = A;
+    seg_u[k][lane] = U;
+    seg_c[k][lane] = V;
+    __syncthreads();
+    float h = h_in[lane];
+    for (int j = 0; j < k; ++j) h = __fadd_rn(__fmul_rn(seg_a[j][lane], h), seg_u[j][lane]);
+    float c = c_in[lane];
+    for (int j = kBwdSegments - 1; j > k; --j)
+      c = __fadd_rn(__fmul_rn(seg_a[j][lane], c), seg_c[j][lane]);
+#pragma unroll 8
+    for (int i = 0; i < L; ++i) {
+      float beta, dbeta;
+      const float l = sl[i * N], x = sq[i * N];
+      beta_dbeta(l, &beta, &dbeta);
+      const float a = expf(l);
+      sq[i * N] = a * h + x * dbeta;  // d la_t / dh_t
+      h = __fadd_rn(__fmul_rn(a, h), __fmul_rn(beta, x));
+    }
+    __syncwarp();
+#pragma unroll 8
+    for (int i = L - 1; i >= 0; --i) {
+      const float l = sl[i * N];
+      const float beta = sqrtf(fmaxf(1.f - expf(2.f * l), 1e-12f));
+      const float gt = sg[i * N] + c;
+      if (live && ts + i < S) {
+        const long long o = base + static_cast<long long>(ts + i) * W;
+        dgx[o] = from_f32<T>(beta * gt);
+        dla[o] = from_f32<T>(gt * sq[i * N]);
+      }
+      c = expf(l) * gt;
+    }
+    __syncthreads();  // every thread has read the carries and the segments
+    if (k == 0) c_in[lane] = c;  // the carry leaving the window's first step
+    __syncthreads();
+  }
+  if (k == 0 && live && dh0 != nullptr) dh0[chan] = c_in[lane];
+}
+
+template <typename T>
+int launch_bwd_segmented(const void* la, const void* gx, const void* dy, const void* h0,
+                         const void* dh_last, void* h_win, void* dla, void* dgx, void* dh0,
+                         int B, int S, int W, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      rglru_bwd_segmented_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kBwdSegSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W + 31) / 32, B);
+  rglru_bwd_segmented_kernel<T><<<grid, kBwdSegThreads, kBwdSegSmem, stream>>>(
+      static_cast<const T*>(la), static_cast<const T*>(gx), static_cast<const T*>(dy),
+      static_cast<const float*>(h0), static_cast<const float*>(dh_last),
+      static_cast<float*>(h_win), static_cast<T*>(dla), static_cast<T*>(dgx),
+      static_cast<float*>(dh0), S, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The serial body.  la, gx and y (B,S,W) contiguous, of one type; h0 (B,W)
@@ -349,6 +548,27 @@ extern "C" int rglru_bwd(const void* la, const void* gx, const void* dy, const v
     case 1:
       return launch_bwd<__nv_bfloat16>(la, gx, dy, h0, dh_last, h_saved, dla, dgx, dh0, B, S, W,
                                        st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The segmented backward: arguments as rglru_bwd's, but h_win, the float32
+// workspace (B, ceil(S / 512), W), is used only past 512 steps and may be
+// null up to there.
+extern "C" int rglru_bwd_segmented(const void* la, const void* gx, const void* dy,
+                                   const void* h0, const void* dh_last, void* h_win, void* dla,
+                                   void* dgx, void* dh0, int B, int S, int W, int dtype,
+                                   void* stream) {
+  if (B <= 0 || S <= 0 || W <= 0 || B > 65535 || (S > kBwdWindow && h_win == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_bwd_segmented<float>(la, gx, dy, h0, dh_last, h_win, dla, dgx, dh0, B, S,
+                                         W, st);
+    case 1:
+      return launch_bwd_segmented<__nv_bfloat16>(la, gx, dy, h0, dh_last, h_win, dla, dgx, dh0,
+                                                 B, S, W, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

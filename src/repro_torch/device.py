@@ -12,3 +12,17 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return device
+
+
+_SMS: dict[int, int] = {}
+
+
+def multiprocessors(device: torch.device) -> int:
+    """The SM count of CUDA ``device``, asked once for each card (the
+    kernels' wrappers size their grids by it)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]

@@ -30,8 +30,10 @@ whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma,
 mma_tf32x3 and fp32 bodies also write each row's log-sum-exp; the sm90 body
 does not yet, so a training call that would take it raises) and whose
 backward is ``flash_attention_bwd_cuda``: FlashAttention-2 without atomics
-on the tensor cores (mma.sync), at the head dims of ``BWD_HEAD_DIMS``, one
-body a dtype (``select_bwd_body`` decides, and raises on the rest):
+on the tensor cores (mma.sync), at every head dim of ``HEAD_DIMS`` (120
+padded to 128; above 80 each CTA accumulates a slice of the gradient's
+columns), one body a dtype (``select_bwd_body`` decides, and raises on the
+rest):
 
 * ``mma_tf32x3``: float32 (the training path), every operand split into
   TF32 hi + lo and each product formed from three TF32 products, which
@@ -49,6 +51,7 @@ import ctypes
 
 import torch
 
+from ...device import multiprocessors
 from .. import _build
 from .._grad import refuse_grad
 
@@ -59,10 +62,18 @@ SM90_HEAD_DIMS = (128, 256)
 BODIES = ("sm90", "mma", "mma_tf32x3", "fp32")
 # the float32 head dims the mma_tf32x3 body takes (120 padded to 128)
 TF32_HEAD_DIMS = (16, 32, 64, 80, 120, 128)
-# the backward: the head dims of the smoke configs, the train presets and
-# stablelm-3b (ROADMAP.md Queue 2 lists the rest); one body a dtype
-BWD_HEAD_DIMS = (16, 32, 64, 80)
+# the backward: every head dim the forward takes; one body a dtype
+BWD_HEAD_DIMS = HEAD_DIMS
 BWD_BODIES = ("mma_tf32x3", "mma_bf16")
+# the backward's dK/dV CTAs: one a (64-key tile, slice of the head dim, KV
+# head, batch), the slices as csrc/flash_attention.cu BwdCfg::kKvCols cuts
+# them (64 columns above dh 80, 80 at dh 160)
+BWD_KV_SLICES = {16: 1, 32: 1, 64: 1, 80: 1, 120: 2, 128: 2, 160: 2, 256: 4}
+# where the dK/dV launch has fewer CTAs than the card has SMs, it splits
+# each KV head's group of query heads over CTAs until it has this many CTAs
+# an SM (bwd_head_split): 3 gives recurrentgemma-9b's step 4 splits, the
+# fastest of 1, 2, 4, 8 and 16 on the H100 (PERF.md)
+BWD_FILL = 3
 
 
 def _entry(name: str):
@@ -84,9 +95,28 @@ def _bwd_entry():
     fn = _build.load("flash_attention").flash_attention_bwd
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, P]
+        fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, I, P, P]
         fn.restype = I
     return fn
+
+
+def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int) -> int:
+    """The CTAs the backward's dK/dV launch splits each KV head's group of
+    H / K query heads over, on a card of ``sms`` SMs: 1 at head dims up to
+    80 (those kernels have no split: their registers are at ptxas's limit)
+    and where the launch has a CTA for every SM, else the fewest, doubling,
+    that reach ``BWD_FILL`` CTAs an SM while they divide the group.  recurrentgemma-9b's MQA step (B 4, S 512, 16 heads, one KV
+    head, dh 256) has 8 x 4 x 4 = 128 CTAs, each walking 16 heads, and the
+    key tile at the diagonal's start sees 8 times the query tiles of the
+    last: 4 splits, 512 CTAs of 4 heads."""
+    ctas = -(-S // 64) * K * BWD_KV_SLICES[dh] * B
+    G, split = H // K, 1
+    if dh <= 80 or ctas >= sms:
+        return split
+    while ctas * split < BWD_FILL * sms and G % (2 * split) == 0:
+        split *= 2
+    return split
+
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -160,19 +190,14 @@ def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> str:
     """The backward body for these inputs (one of ``BWD_BODIES``: the
     dtype's), on any device.  Raises where training cannot run: on what no
-    forward body takes (``select_body``), on inputs the forward would send
-    to the sm90 body (it writes no log-sum-exp yet), and on a head dim
-    outside ``BWD_HEAD_DIMS``; ROADMAP.md Queue 2 lists both."""
+    forward body takes (``select_body``: a head dim outside ``HEAD_DIMS``
+    among them) and on inputs the forward would send to the sm90 body (it
+    writes no log-sum-exp yet, ROADMAP.md Queue 2 item 2)."""
     if select_body(q, k, v, scale) == "sm90":
         raise NotImplementedError(
             "training through flash attention on the sm90 body (bf16, head "
             "dim 128 / 256) waits for its log-sum-exp output (ROADMAP.md "
             "Queue 2 item 2)")
-    dh = q.shape[3]
-    if dh not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash-attention backward takes head dims "
-                         f"{BWD_HEAD_DIMS}, not {dh} (ROADMAP.md Queue 2 "
-                         "item 2)")
     return "mma_tf32x3" if q.dtype == torch.float32 else "mma_bf16"
 
 
@@ -240,15 +265,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                              window: int = 0, chunk: int = 0,
-                             scale: float | None = None):
+                             scale: float | None = None,
+                             head_split: int | None = None):
     """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)``, given its
     output ``o`` and log-sum-exp ``lse`` (B,H,S) fp32 and ``do`` = dL/do.
 
     The inputs ``select_bwd_body`` takes; every tensor is made contiguous
     (the kernel stages tiles by 16-byte copies and raises on a base that is
     not 16-byte aligned).  Two launches (dQ and D = rowsum(dO·O), then
-    dK / dV), counted as one call; no atomics, so two runs give the same
-    bits."""
+    dK / dV), and a third that sums the dK / dV launch's partial sums in
+    a fixed order where ``head_split`` (default ``bwd_head_split``'s; a
+    divisor of H / K) splits its heads, counted as one call; no atomics,
+    so two runs give the same bits."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
                          f"{q.device}")
@@ -270,12 +298,22 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
         return dq, dk, dv
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else dh ** -0.5
+    if head_split is None:
+        head_split = bwd_head_split(B, S, H, K, dh, multiprocessors(q.device))
+    if head_split < 1 or (H // K) % head_split or (dh <= 80
+                                                    and head_split > 1):
+        raise ValueError(f"head_split {head_split} does not divide the "
+                         f"{H // K} query heads of a KV head, or head dim "
+                         f"{dh} is at most 80 (no split there)")
+    partial = (torch.empty((2, head_split, B, S, K, dh), dtype=torch.float32,
+                           device=q.device) if head_split > 1 else None)
     with torch.cuda.device(q.device):
         err = _bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, H, K, int(causal), window,
-            chunk, scale, dh, _DTYPES[q.dtype],
+            chunk, scale, dh, _DTYPES[q.dtype], head_split,
+            None if partial is None else partial.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention backward launch failed ({body} "

@@ -18,12 +18,21 @@ falling back):
 ``rglru_cuda.launches_by_body`` each body's.
 
 The backward is a kernel too (``rglru_bwd_cuda``: d log_a, d gx and dh0 of
-y and h_last by the reverse scan, a thread a channel; its plain version is
-``ref.rglru_bwd``), behind ``RGLRUFunction``, the
-``torch.autograd.Function`` whose forward is ``rglru_cuda``.  One body,
-``serial``; ``rglru_bwd_cuda.launches`` counts its calls and
-``launches_by_body`` each body's.  Called outside that Function,
-``rglru_cuda`` refuses inputs that require grad.
+y and h_last by the reverse scan; its plain version is ``ref.rglru_bwd``),
+behind ``RGLRUFunction``, the ``torch.autograd.Function`` whose forward is
+``rglru_cuda``.  Two bodies, chosen by ``select_bwd_body`` from S as the
+forward's are:
+
+* ``segmented``: S >= 64, where the forward is segmented: the reverse carry
+  composed by segments as the forward composes h, in windows of 512 steps
+  (``BWD_WINDOW``), the inputs read once up to there;
+  ``ref.rglru_bwd_segmented`` models its rounding order.
+* ``serial``: S < 64, and the previous body of every S (``body="serial"``):
+  a thread a channel, h recomputed from states saved every 16 steps.
+
+``rglru_bwd_cuda.launches`` counts its calls and ``launches_by_body`` each
+body's.  Called outside that Function, ``rglru_cuda`` refuses inputs that
+require grad.
 """
 from __future__ import annotations
 
@@ -36,17 +45,21 @@ from .._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("segmented", "serial")
-BWD_BODIES = ("serial",)
+BWD_BODIES = ("segmented", "serial")
 MIN_SEGMENTED_STEPS = 64
-# steps between the states the backward saves (csrc/rglru.cu kBwdSegment)
+# steps between the states the serial backward saves (csrc/rglru.cu
+# kBwdSegment)
 BWD_SEGMENT_STEPS = 16
+# the segmented backward's window: 16 segments of 32 steps (csrc/rglru.cu
+# kBwdSegments x kBwdSteps); past one window it saves the state entering each
+BWD_WINDOW = 512
 
 
 def _entry(name: str):
     fn = getattr(_build.load("rglru"), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([P] * 9 if name == "rglru_bwd" else [P] * 5) \
+        fn.argtypes = ([P] * 9 if name.startswith("rglru_bwd") else [P] * 5) \
             + [I] * 4 + [P]
         fn.restype = ctypes.c_int
     return fn
@@ -121,19 +134,32 @@ def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
     return y, h_last
 
 
+def select_bwd_body(log_a: torch.Tensor, gx: torch.Tensor,
+                    h0: torch.Tensor | None = None) -> str:
+    """The backward body for these inputs, one of ``BWD_BODIES``: the body
+    ``select_body`` picks for the forward (``segmented`` for S >= 64,
+    ``serial`` below), on any device; raises as it does."""
+    return select_body(log_a, gx, h0)
+
+
 def rglru_bwd_cuda(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
                    h0: torch.Tensor | None = None,
-                   dh_last: torch.Tensor | None = None):
+                   dh_last: torch.Tensor | None = None, *,
+                   body: str | None = None):
     """(d log_a, d gx, dh0) of ``rglru_cuda``'s y and h_last, given dy (like
     gx) and ``dh_last`` (B,W) or None (h_last unused): d log_a and d gx in
     their inputs' dtypes, dh0 (B,W) fp32, or None without h0.
 
     The inputs ``rglru_cuda`` takes, none empty; h is recomputed in fp32.
-    Raises on anything else."""
+    ``body`` (default: ``select_bwd_body``'s; both take every S) names the
+    body to run.  Raises on anything else."""
     if not gx.is_cuda:
         raise ValueError(f"rglru_bwd_cuda takes CUDA tensors, got "
                          f"{gx.device}")
-    select_body(log_a, gx, h0)
+    picked = select_bwd_body(log_a, gx, h0)
+    body = picked if body is None else body
+    if body not in BWD_BODIES:
+        raise ValueError(f"no backward body {body!r} (bodies: {BWD_BODIES})")
     dy = dy.contiguous()
     if dy.shape != gx.shape or dy.dtype != gx.dtype or dy.device != gx.device:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match gx "
@@ -149,20 +175,27 @@ def rglru_bwd_cuda(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
     dla, dgx = torch.empty_like(log_a), torch.empty_like(gx)
     dh0 = None if h0 is None else torch.empty((B, W), dtype=torch.float32,
                                               device=gx.device)
-    saved = torch.empty((B, -(-S // BWD_SEGMENT_STEPS), W),
-                        dtype=torch.float32, device=gx.device)
+    # the workspace of saved states: the serial body's every 16 steps, the
+    # segmented body's at each 512-step window (none within one window)
+    if body == "serial":
+        saved = torch.empty((B, -(-S // BWD_SEGMENT_STEPS), W),
+                            dtype=torch.float32, device=gx.device)
+    else:
+        saved = (torch.empty((B, -(-S // BWD_WINDOW), W), dtype=torch.float32,
+                             device=gx.device) if S > BWD_WINDOW else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    name = "rglru_bwd_segmented" if body == "segmented" else "rglru_bwd"
     with torch.cuda.device(gx.device):
-        err = _entry("rglru_bwd")(
+        err = _entry(name)(
             log_a.data_ptr(), gx.data_ptr(), dy.data_ptr(), ptr(h0),
-            ptr(dh_last), saved.data_ptr(), dla.data_ptr(), dgx.data_ptr(),
+            ptr(dh_last), ptr(saved), dla.data_ptr(), dgx.data_ptr(),
             ptr(dh0), B, S, W, _DTYPES[gx.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"rglru backward launch failed (serial body): "
+        raise RuntimeError(f"rglru backward launch failed ({body} body): "
                            f"CUDA error {err}")
     rglru_bwd_cuda.launches += 1
-    rglru_bwd_cuda.launches_by_body["serial"] += 1
+    rglru_bwd_cuda.launches_by_body[body] += 1
     return dla, dgx, dh0
 
 

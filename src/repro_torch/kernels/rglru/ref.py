@@ -20,7 +20,9 @@ associative scan of the (a, u) pairs, the CPU path from 64 steps on, as in
 the JAX package).
 
 ``rglru_bwd`` is the plain backward of the scan (the oracle for the CUDA
-backward kernel; on the CPU path autograd differentiates the forward).
+backward kernel; on the CPU path autograd differentiates the forward), and
+``rglru_bwd_segmented`` the same function in the segmented backward body's
+order of composition (its model, held against JAX in the tests).
 """
 from __future__ import annotations
 
@@ -113,6 +115,76 @@ def rglru_bwd(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
         carry = a[:, t] * g
     return (dla.to(log_a.dtype), dgx.to(gx.dtype),
             None if h0 is None else carry)
+
+
+def rglru_bwd_segmented(log_a: torch.Tensor, gx: torch.Tensor,
+                        dy: torch.Tensor, h0: torch.Tensor | None = None,
+                        dh_last: torch.Tensor | None = None, *,
+                        steps: int = 32, segments: int = 16):
+    """``rglru_bwd``'s function, composed as the CUDA backward's segmented
+    body composes it (csrc/rglru.cu): time in windows of ``segments`` x
+    ``steps`` steps (identity steps past S), each segment composed forward
+    into (A = prod a, U = h from 0) and backward into (A, V = the carry
+    c_{t-1} = a_t (dy_t + c_t) leaving its first step from 0, summed
+    forward as sum_t (prod_{s <= t} a_s) dy_t).  The states
+    entering the windows come from a forward walk over the windows' pairs;
+    then the windows, last first: each segment's entry state from the pairs
+    before it, its carry from the pairs after it (last first, from dh_last or
+    the later window's carry), a forward walk for a_t h_{t-1} + gx_t dβ_t and
+    a reverse walk for d gx and d log_a.  Returns what ``rglru_bwd``
+    returns."""
+    B, S, W = gx.shape
+    win = steps * segments
+    nwin = -(-S // win)
+    pad = nwin * win - S
+    la, x, g = (F.pad(t.float(), (0, 0, 0, pad)).view(B, nwin, segments,
+                                                      steps, W)
+                for t in (log_a, gx, dy))
+    e2 = torch.exp(2.0 * la)
+    v = 1.0 - e2
+    beta = torch.sqrt(torch.clamp(v, min=1e-12))
+    dbeta = torch.where(v >= 1e-12, -e2 / beta, torch.zeros_like(v))
+    a = torch.exp(la)
+    u = beta * x
+    A = torch.ones_like(a[..., 0, :])           # (B, nwin, segments, W)
+    U, V = torch.zeros_like(A), torch.zeros_like(A)
+    for i in range(steps):
+        U = a[..., i, :] * U + u[..., i, :]
+        A = A * a[..., i, :]
+        V = V + A * g[..., i, :]
+    h = (torch.zeros((B, W), dtype=torch.float32, device=gx.device)
+         if h0 is None else h0.float())
+    h_win = []
+    for w in range(nwin):
+        h_win.append(h)
+        for j in range(segments):
+            h = A[:, w, j] * h + U[:, w, j]
+    c = (torch.zeros((B, W), dtype=torch.float32, device=gx.device)
+         if dh_last is None else dh_last.float())
+    dla, dgx = torch.empty_like(a), torch.empty_like(a)
+    for w in reversed(range(nwin)):
+        hs, h = [], h_win[w]
+        for j in range(segments):
+            hs.append(h)
+            h = A[:, w, j] * h + U[:, w, j]
+        cs = [None] * segments
+        for j in reversed(range(segments)):
+            cs[j] = c
+            c = A[:, w, j] * c + V[:, w, j]
+        h, c = torch.stack(hs, 1), torch.stack(cs, 1)   # (B, segments, W)
+        q = torch.empty_like(a[:, w])
+        for i in range(steps):
+            q[..., i, :] = a[:, w, :, i] * h + x[:, w, :, i] * dbeta[:, w, :, i]
+            h = a[:, w, :, i] * h + u[:, w, :, i]
+        for i in reversed(range(steps)):
+            gt = g[:, w, :, i] + c
+            dgx[:, w, :, i] = beta[:, w, :, i] * gt
+            dla[:, w, :, i] = gt * q[..., i, :]
+            c = a[:, w, :, i] * gt
+        c = c[:, 0]          # the carry leaving the window's first step
+    dla, dgx = (t.reshape(B, nwin * win, W)[:, :S] for t in (dla, dgx))
+    return (dla.to(log_a.dtype), dgx.to(gx.dtype),
+            None if h0 is None else c)
 
 
 def rglru_gates(x: torch.Tensor, p: dict, *, c: float = 8.0):

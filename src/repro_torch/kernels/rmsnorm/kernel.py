@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from ...device import multiprocessors
 from .. import _build
 from .._grad import refuse_grad
 
@@ -70,7 +71,6 @@ BWD_LANE_FLOATS = 32
 # warps an SM the grid aims at
 BWD_CTA_MAX_WARPS = 8
 BWD_CTA_WARPS_PER_SM = 16
-_SMS: dict[int, int] = {}
 
 
 def _entry():
@@ -124,15 +124,6 @@ def cta_grid(rows: int, sms: int, warps: int) -> tuple[int, int]:
     SM, each CTA a run of whole rows."""
     per_cta = -(-rows // (sms * max(1, BWD_CTA_WARPS_PER_SM // warps)))
     return per_cta, -(-rows // per_cta)
-
-
-def _sms(device: torch.device) -> int:
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SMS[index]
 
 
 def select_body(x: torch.Tensor, scale: torch.Tensor,
@@ -260,13 +251,13 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         return torch.zeros_like(x), torch.zeros_like(scale)
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
     if body == "warp_rows":
-        per_warp, ctas = bwd_grid(rows, _sms(x.device))
+        per_warp, ctas = bwd_grid(rows, multiprocessors(x.device))
         # each CTA's partial row of dscale, in fp64
         partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
         tail = (vpl, per_warp, ctas)
     elif body == "cta_rows":
         warps = cta_shape(D, x.dtype)[0]
-        per_cta, ctas = cta_grid(rows, _sms(x.device), warps)
+        per_cta, ctas = cta_grid(rows, multiprocessors(x.device), warps)
         partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
         tail = (vpl, warps, per_cta, ctas)
     else:

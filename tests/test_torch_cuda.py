@@ -813,7 +813,43 @@ FLASH_BWD_CASES = [
     (2, 190, 16, 2, 64, dict(causal=True)),
     (1, 129, 8, 1, 16, dict(causal=True, chunk=40)),
     (1, 65, 16, 2, 80, dict(causal=True, window=33)),
+    # the head dims above 80: h2o-danube-3-4b's 120 (padded to 128),
+    # qwen2-7b's 128, stablelm-12b's 160, recurrentgemma-9b's 256 (MQA,
+    # and a window of 2048 that bites at S 2200)
+    (1, 150, 8, 2, 120, dict(causal=True)),
+    (2, 190, 8, 2, 128, dict(causal=True, window=70)),
+    (1, 130, 4, 4, 160, dict(causal=True, chunk=48)),
+    (1, 100, 4, 4, 160, dict(causal=False)),
+    (2, 200, 16, 1, 256, dict(causal=True)),
+    (1, 2200, 4, 1, 256, dict(causal=True, window=2048)),
 ]
+
+
+def _flash_bwd_inputs(cuda, B, S, H, K, dh, dtype):
+    """q, k, v, do from one seed, and a function that gives q, k and v as
+    tensors that require grad and one that reads their gradients.  bf16 q,
+    k and v at dh 128 and 256 are views of a fused projection one element
+    wider than the heads (strides TMA cannot read), which the forward sends
+    to its mma body: the sm90 body writes no log-sum-exp, so training on it
+    raises."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if dtype == torch.bfloat16 and dh in flash.SM90_HEAD_DIMS:
+        def heads(t):
+            return [x.unflatten(-1, (-1, dh)) for x in t[..., :-1].split(
+                [H * dh, K * dh, K * dh], -1)]
+        qkv = torch.randn(B, S, (H + 2 * K) * dh + 1, generator=g,
+                          device=cuda).to(dtype)
+        q, k, v = heads(qkv)
+        base = qkv.clone().requires_grad_()
+        leaves, grads = (lambda: heads(base)), (lambda: heads(base.grad))
+    else:
+        q = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+        k, v = (torch.randn(B, S, K, dh, generator=g, device=cuda).to(dtype)
+                for _ in range(2))
+        ts = [a.clone().requires_grad_() for a in (q, k, v)]
+        leaves, grads = (lambda: ts), (lambda: [a.grad for a in ts])
+    do = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    return q, k, v, do, leaves, grads
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -822,11 +858,8 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     """dq, dk, dv through FlashAttentionFunction against autograd of
     mha_ref in fp32 on the same inputs; the forward's log-sum-exp against
     the plain one; two backward calls give the same bits."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn(B, S, K, dh, generator=g, device=cuda).to(dtype)
-            for _ in range(2))
-    do = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    q, k, v, do, leaves, grads = _flash_bwd_inputs(cuda, B, S, H, K, dh,
+                                                   dtype)
     t = 2e-5 if dtype == torch.float32 else 2e-2
     with torch.no_grad():
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -836,19 +869,47 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     logits = logits * dh ** -0.5
     logits = logits.masked_fill(~attention_mask(pos, pos, **kw), -torch.inf)
     assert _within(lse, torch.logsumexp(logits, -1).flatten(1, 2), t)
-    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
     body = "mma_tf32x3" if dtype == torch.float32 else "mma_bf16"
     before = flash_attention_bwd_cuda.launches_by_body[body]
-    ops.flash_attention(qg, kg, vg, **kw).backward(do)
+    ops.flash_attention(*leaves(), **kw).backward(do)
     assert flash_attention_bwd_cuda.launches_by_body[body] == before + 1
     qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
     mha_ref(qf, kf, vf, **kw).backward(do.float())
-    for got, want in ((qg.grad, qf.grad), (kg.grad, kf.grad),
-                      (vg.grad, vf.grad)):
+    for got, want in zip(grads(), (qf.grad, kf.grad, vf.grad)):
         assert got.dtype == dtype and _within(got, want, t)
     again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     first = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (2, 300, 8, 1, 256, dict(causal=True, window=100)),
+    (1, 190, 8, 2, 128, dict(causal=True)),
+    (1, 130, 4, 2, 120, dict(causal=False))])
+def test_flash_bwd_head_splits_agree(cuda, dtype, B, S, H, K, dh, kw):
+    """The dK/dV launch with each KV head's query heads split over 1, 2
+    and all of its group's CTAs (partial sums added in a fixed order by a
+    third launch): each against autograd of ``mha_ref`` at the kernel
+    tolerance, dq the same bits whatever the split, two calls the same
+    bits."""
+    q, k, v, do, _, _ = _flash_bwd_inputs(cuda, B, S, H, K, dh, dtype)
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
+    mha_ref(qf, kf, vf, **kw).backward(do.float())
+    t = 2e-5 if dtype == torch.float32 else 2e-2
+    runs = {}
+    for split in (1, 2, H // K):
+        got = flash_attention_bwd_cuda(q, k, v, out, do, lse, head_split=split,
+                                       **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                         head_split=split, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for g, w in zip(got, (qf.grad, kf.grad, vf.grad)):
+            assert _within(g, w, t)
+        runs[split] = got
+    assert all(torch.equal(r[0], runs[1][0]) for r in runs.values())
 
 
 def test_raw_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
@@ -938,15 +999,20 @@ def test_ssd_bwd_mma_body_matches_fma_body(cuda, dtype, B, S, H, P, G, N,
         assert _within(a, w, t) and _within(f, w, t) and _within(a, f, t)
 
 
+RGLRU_BWD_CASES = [(4, 512, 4096), (2, 37, 200), (3, 1000, 130),
+                   (2, 64, 33), (1, 1100, 4096)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,W", [(4, 512, 4096), (2, 37, 200),
-                                   (3, 1000, 130)])
+@pytest.mark.parametrize("B,S,W", RGLRU_BWD_CASES)
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_bwd_kernel_matches_plain(cuda, dtype, B, S, W, with_h0):
     """d log_a, d gx and dh0 through ``RGLRUFunction`` (``ops.rglru_scan``
     with inputs that require grad) against ``rglru_bwd`` on the same inputs,
-    with gradients of y and h_last, at 1e-4 fp32 / 2e-2 bf16; two backward
-    calls give the same bits.  (4, 512, 4096) is recurrentgemma-9b's."""
+    with gradients of y and h_last, at 1e-4 fp32 / 2e-2 bf16, on the body
+    ``select_bwd_body`` picks (segmented from 64 steps: one 512-step window,
+    or three at S 1100); two backward calls give the same bits.  (4, 512,
+    4096) is recurrentgemma-9b's."""
     g = torch.Generator(device=cuda).manual_seed(0)
     la = -torch.nn.functional.softplus(
         torch.randn(B, S, W, generator=g, device=cuda)).to(dtype)
@@ -957,11 +1023,13 @@ def test_rglru_bwd_kernel_matches_plain(cuda, dtype, B, S, W, with_h0):
     leaves = [la.clone().requires_grad_(), gx.clone().requires_grad_()]
     if with_h0:
         leaves.append(h0.clone().requires_grad_())
-    before = rglru_bwd_cuda.launches_by_body["serial"]
+    body = lru.select_bwd_body(la, gx, h0)
+    assert body == ("segmented" if S >= 64 else "serial")
+    before = rglru_bwd_cuda.launches_by_body[body]
     y, h_last = ops.rglru_scan(*leaves[:2], leaves[2] if with_h0 else None)
     ((y.float() * dy.float()).sum() + (h_last * dh).sum()).backward()
     torch.cuda.synchronize()
-    assert rglru_bwd_cuda.launches_by_body["serial"] == before + 1
+    assert rglru_bwd_cuda.launches_by_body[body] == before + 1
     want = rglru_bwd(la, gx, dy, h0, dh)
     t = 1e-4 if dtype == torch.float32 else 2e-2
     for leaf, w in zip(leaves, want):
@@ -970,6 +1038,32 @@ def test_rglru_bwd_kernel_matches_plain(cuda, dtype, B, S, W, with_h0):
     again = rglru_bwd_cuda(la, gx, dy, h0, dh)
     assert all(a is None and b is None or torch.equal(a, b)
                for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W", [(4, 512, 4096), (3, 1000, 130)])
+def test_rglru_bwd_segmented_body_matches_serial(cuda, dtype, B, S, W):
+    """The segmented body and the serial body forced on the same inputs
+    (h0 and a gradient of h_last), each against ``rglru_bwd`` at the scan's
+    tolerance and each giving the same bits on a second call."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, W, generator=g, device=cuda)).to(dtype)
+    gx, dy = (torch.randn(B, S, W, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    h0, dh = (torch.randn(B, W, generator=g, device=cuda) for _ in range(2))
+    before = dict(rglru_bwd_cuda.launches_by_body)
+    seg = [rglru_bwd_cuda(la, gx, dy, h0, dh) for _ in range(2)]
+    ser = [rglru_bwd_cuda(la, gx, dy, h0, dh, body="serial")
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {b: rglru_bwd_cuda.launches_by_body[b] - before[b]
+            for b in before} == {"segmented": 2, "serial": 2}
+    want = rglru_bwd(la, gx, dy, h0, dh)
+    t = 1e-4 if dtype == torch.float32 else 2e-2
+    for runs in (seg, ser):
+        for a, a2, w in zip(*runs, want):
+            assert torch.equal(a, a2) and _within(a, w, t)
 
 
 def test_scan_raw_wrappers_still_refuse_inputs_that_require_grad(cuda):

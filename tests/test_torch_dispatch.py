@@ -66,9 +66,10 @@ def test_flash_fp32_takes_fp32(dh):
     """float32, at every head dim of the registry, takes the TF32 tensor
     cores' body (mma_tf32x3) where its accumulators fit the registers (the
     training head dims 16-80 among them) and the FMA body (``fp32``) at 160
-    and 256; fp32 stays reachable (``body="fp32"``) at every one."""
+    and 256; fp32 stays reachable (``body="fp32"``) at every one.  The
+    backward takes every head dim the forward takes."""
     assert flash.TF32_HEAD_DIMS == (16, 32, 64, 80, 120, 128)
-    assert set(flash.BWD_HEAD_DIMS) <= set(flash.TF32_HEAD_DIMS)
+    assert flash.BWD_HEAD_DIMS == flash.HEAD_DIMS
     want = ("mma_tf32x3", "fp32") if dh <= 128 else ("fp32",)
     assert flash.bodies_for(*qkv(dh=dh, dtype=F32)) == want
     assert flash_body(*qkv(dh=dh, dtype=F32)) == want[0]
@@ -514,6 +515,31 @@ def test_rglru_select_raises_on_what_no_body_takes(make, exc, match):
         rglru_body(*make())
 
 
+@pytest.mark.parametrize("S,want", [(64, "segmented"), (512, "segmented"),
+                                    (513, "segmented"), (1000, "segmented"),
+                                    (63, "serial"), (37, "serial"),
+                                    (1, "serial")])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("h0", [False, True])
+def test_rglru_bwd_body_follows_the_forward(S, want, dtype, h0):
+    """The backward takes the body the forward took: segmented from 64
+    steps (one window up to 512, more past it), serial below."""
+    args = lru_args(S=S, W=200, dtype=dtype, h0=h0)
+    assert rglru.select_bwd_body(*args) == rglru_body(*args) == want
+    assert want in rglru.BWD_BODIES
+
+
+@pytest.mark.parametrize("make,exc,match", [
+    (lambda: lru_args(dtype=torch.float16), TypeError, "float32/bfloat16"),
+    (lambda: (*lru_args(W=8)[:2], torch.zeros(4, 9)), ValueError, "h0"),
+    (lambda: (lru_args(W=8)[0].transpose(1, 2), lru_args(W=8)[1]
+              .transpose(1, 2), None), ValueError, "contiguous"),
+])
+def test_rglru_bwd_select_raises_on_what_no_body_takes(make, exc, match):
+    with pytest.raises(exc, match=match):
+        rglru.select_bwd_body(*make())
+
+
 def test_rglru_counts_start_at_zero_by_body():
     rglru.rglru_cuda.launches = 3
     rglru.rglru_bwd_cuda.launches = 4
@@ -521,7 +547,8 @@ def test_rglru_counts_start_at_zero_by_body():
     assert rglru.rglru_cuda.launches == 0
     assert rglru.rglru_cuda.launches_by_body == {"segmented": 0, "serial": 0}
     assert rglru.rglru_bwd_cuda.launches == 0
-    assert rglru.rglru_bwd_cuda.launches_by_body == {"serial": 0}
+    assert rglru.rglru_bwd_cuda.launches_by_body == {"segmented": 0,
+                                                      "serial": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -569,20 +596,54 @@ def test_scan_wrappers_name_the_roadmap_item():
 @pytest.mark.parametrize("dtype,want", [(F32, "mma_tf32x3"),
                                        (BF16, "mma_bf16")])
 def test_flash_bwd_body_by_dtype(dh, dtype, want):
-    assert flash.select_bwd_body(*qkv(dh=dh, dtype=dtype)) == want
+    """Every head dim of the registry, both dtypes; bf16 at dh 128 and 256
+    as views whose strides TMA cannot read, which the forward sends to its
+    mma body (aligned ones take sm90, below)."""
+    args = (fused(4, 2, dh, extra=1) if dtype == BF16
+            and dh in flash.SM90_HEAD_DIMS else qkv(dh=dh, dtype=dtype))
+    assert flash_body(*args) in ("mma", "mma_tf32x3", "fp32")
+    assert flash.select_bwd_body(*args) == want
 
 
-def test_flash_bwd_refuses_the_sm90_body():
-    """bf16 at dh 128, aligned: the forward would take the sm90 body, which
-    writes no log-sum-exp yet."""
+@pytest.mark.parametrize("B,S,H,K,dh,sms,want", [
+    (4, 512, 16, 1, 256, 132, 4),    # recurrentgemma-9b's step: 128 CTAs
+    (16, 256, 8, 4, 64, 132, 1),     # the 100m step: 256 CTAs
+    (2, 256, 28, 4, 128, 132, 1),    # qwen2-7b's check: 4 x 4 x 2 x 2
+    (2, 256, 16, 1, 256, 132, 16),   # 4 x 4 x 2 = 32 CTAs: all 16 heads
+    (1, 65, 16, 2, 80, 132, 1),      # dh 80: no split below dh 120
+    (1, 65, 16, 2, 120, 132, 8),     # the whole group of 8
+    (1, 300, 32, 32, 128, 132, 1),   # MHA: nothing to split
+    (4, 512, 16, 1, 256, 16, 1),     # a card of 16 SMs is full
+    (2, 200, 6, 1, 160, 132, 2),     # a group of 6 halves, no further
+])
+def test_flash_bwd_head_split_fills_the_card(B, S, H, K, dh, sms, want):
+    """The dK/dV launch splits a KV head's query heads over CTAs only above
+    head dim 80 and where it has fewer CTAs than SMs, doubling while the
+    split divides the group, up to ``BWD_FILL`` CTAs an SM."""
+    split = flash.bwd_head_split(B, S, H, K, dh, sms)
+    assert split == want and (H // K) % split == 0
+
+
+def test_flash_bwd_kv_slices_are_the_kernels():
+    """The dK/dV slices of the head dim, as csrc/flash_attention.cu's
+    BwdCfg cuts them: whole up to dh 80, then 64 columns (80 at 160)."""
+    assert set(flash.BWD_KV_SLICES) == set(flash.HEAD_DIMS)
+    assert [flash.BWD_KV_SLICES[d] for d in flash.HEAD_DIMS] == [
+        1, 1, 1, 1, 2, 2, 2, 4]
+
+
+@pytest.mark.parametrize("dh", flash.SM90_HEAD_DIMS)
+def test_flash_bwd_refuses_the_sm90_body(dh):
+    """bf16 at dh 128 and 256, aligned: the forward would take the sm90
+    body, which writes no log-sum-exp yet."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flash.select_bwd_body(*qkv(dh=128))
+        flash.select_bwd_body(*qkv(dh=dh))
 
 
-@pytest.mark.parametrize("dh,dtype", [(128, F32), (120, BF16), (256, F32),
-                                      (160, BF16)])
-def test_flash_bwd_refuses_other_head_dims(dh, dtype):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+@pytest.mark.parametrize("dh", [48, 96, 192, 512])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_flash_bwd_refuses_head_dims_no_forward_takes(dh, dtype):
+    with pytest.raises(ValueError, match="head_dim"):
         flash.select_bwd_body(*qkv(dh=dh, dtype=dtype))
 
 

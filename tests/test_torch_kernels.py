@@ -42,7 +42,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                      tf32x3_trunc)
 from repro_torch.kernels.rglru.kernel import rglru_cuda
 from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
-                                           rglru_gates, rglru_sequential)
+                                           rglru_bwd_segmented, rglru_gates,
+                                           rglru_sequential)
 from repro_torch.kernels.rmsnorm.kernel import (bwd_grid, cta_grid,
                                                 cta_shape, rmsnorm_cuda)
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_dscale_ordered,
@@ -256,10 +257,16 @@ def test_mha_ref_matches_jax_flash_kernel(B, S, H, K, dh, kw, dtype):
     (1, 48, 8, 4, 32, dict(causal=True, window=9)),
     (1, 50, 4, 2, 80, dict(causal=True, chunk=16)),
     (1, 40, 2, 2, 64, dict(causal=False)),
+    (1, 45, 4, 2, 120, dict(causal=True)),             # h2o-danube-3-4b
+    (1, 40, 4, 1, 128, dict(causal=True, chunk=16)),   # qwen2-7b's width
+    (1, 37, 4, 2, 160, dict(causal=False)),            # stablelm-12b
+    (1, 50, 4, 1, 256, dict(causal=True)),             # recurrentgemma-9b
+    (1, 70, 4, 1, 256, dict(causal=True, window=24)),  # MQA, a window
 ])
 def test_mha_ref_gradient_matches_jax(B, S, H, K, dh, kw):
     """dq, dk, dv of mha_ref against jax.grad of the JAX reference, fp32,
-    at the backward kernel's head dims and masks."""
+    at the backward kernel's head dims (every one of the registry) and
+    masks."""
     rng = np.random.default_rng(5)
     q, do = (rng.standard_normal((B, S, H, dh)).astype(np.float32)
              for _ in range(2))
@@ -289,6 +296,8 @@ def test_split_tf32_rounds_as_cvt_rna():
     (1, 256, 8, 4, 64, dict(causal=True)),         # the 100m step's heads
     (1, 50, 4, 2, 80, dict(causal=True, window=9)),
     (1, 50, 4, 2, 80, dict(causal=True, chunk=16)),
+    (1, 200, 4, 2, 128, dict(causal=True)),        # 128 terms a product
+    (1, 100, 4, 1, 256, dict(causal=True, window=40)),   # 256, MQA
 ])
 def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
                                                        capsys):
@@ -1002,6 +1011,51 @@ def test_rglru_bwd_ref_matches_jax_grad(S, with_h0, with_dh, dtype):
     loss.backward()
     for g, leaf in zip(got, leaves):
         assert_allclose(f32(g), f32(leaf.grad), **t)
+
+
+# the segmented backward's windows: the kernel's (16 segments of 32 steps,
+# one partial window at these S) and small ones (4 segments of 8 steps: S
+# 200 crosses 7 windows), so that every composition runs
+RGLRU_BWD_WINDOWS = [dict(), dict(steps=8, segments=4)]
+
+
+@pytest.mark.parametrize("S", [37, 200])
+@pytest.mark.parametrize("with_h0,with_dh", [(False, False), (True, True),
+                                             (True, False), (False, True)])
+@pytest.mark.parametrize("windows", RGLRU_BWD_WINDOWS,
+                         ids=["kernel", "small"])
+def test_rglru_bwd_segmented_matches_jax_grad(S, with_h0, with_dh, windows):
+    """``rglru_bwd_segmented``, the plain model of the segmented backward
+    body's composition order, against ``jax.grad`` of JAX's scan at 1e-4,
+    fp32, with and without h0 and a gradient of h_last; W 64."""
+    la, gx, h0, dy, dh = _rglru_grad_inputs(2, S, 64)
+    h0 = h0 if with_h0 else None
+    dh = dh if with_dh else None
+    want = _jax_rglru_grads(la, gx, h0, dy, dh, "float32")
+    got = rglru_bwd_segmented(
+        *(None if a is None else torch.from_numpy(a)
+          for a in (la, gx, dy, h0, dh)), **windows)
+    assert (got[2] is None) == (h0 is None)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert_allclose(f32(g), f32(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("edge", [0.0, -1e-7, -1e-3])
+@pytest.mark.parametrize("windows", RGLRU_BWD_WINDOWS,
+                         ids=["kernel", "small"])
+def test_rglru_bwd_segmented_at_the_clamp_edge(edge, windows):
+    """The segmented model where β's clamp holds (log_a 0), where 1/β is
+    near 2000 (-1e-7) and at -1e-3, every third step, against ``jax.grad``
+    at 1e-4, as ``rglru_bwd`` is held there."""
+    la, gx, h0, dy, dh = _rglru_grad_inputs(2, 37, 64, seed=3)
+    la[:, ::3] = edge
+    want = _jax_rglru_grads(la, gx, h0, dy, dh, "float32")
+    got = rglru_bwd_segmented(*(torch.from_numpy(a)
+                                for a in (la, gx, dy, h0, dh)), **windows)
+    for g, w in zip(got, want):
+        assert np.all(np.isfinite(f32(g)))
+        assert_allclose(f32(g), f32(w), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("edge", [0.0, -1e-7, -1e-3])
