@@ -10,9 +10,11 @@ Phases, each printed as one JSON line:
    per source, all at once, into ``build/repro_torch``), with ptxas's
    registers and spills (kept beside each library, so a library built
    before is reported too).  Fails if the sm90 flash-attention body, its
-   fp32 mma_tf32x3 body, a kernel of the SSD mma, mma_tf32x3 or RG-LRU
-   segmented bodies or a backward kernel (the scans' too) spills, or ptxas
-   ignored a ``setmaxnreg`` (C7508).
+   fp32 mma_tf32x3 body (every head dim, 8 warps a CTA at 160 and 256), a
+   kernel of the SSD mma, mma_tf32x3 or RG-LRU segmented bodies or a
+   backward kernel (the scans' too; flash's pair kernels above dh 80 and
+   the sliced ones kept beside them) spills, or ptxas ignored a
+   ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
@@ -30,9 +32,9 @@ Phases, each printed as one JSON line:
    (x (8,1024,24,64)) on both fp32 bodies and its chunk scan against the
    plain phases with every product split as the kernel splits it
    (``ssd_fp32_kernels``); flash attention at the 100m step's shape, its
-   window / chunk masks, GQA 8 and ragged S at every head dim the body
-   takes, o and the log-sum-exp against ``mha_ref`` and the fp32 body
-   forced (``flash_fp32_kernels``); each then timed against its previous
+   window / chunk masks, GQA 8, MQA and ragged S at every head dim, o and
+   the log-sum-exp against ``mha_ref`` and the fp32 body forced
+   (``flash_fp32_kernels``); each then timed against its previous
    body (fma / fp32), its plain version, SDPA's fp32 forward (flash) and
    its bounds (3xTF32 operations at the TF32 rate, bytes; the fp32-FMA
    bound beside).
@@ -79,9 +81,14 @@ Phases, each printed as one JSON line:
    the SSD's mma body bounded by ``ssd_bwd_split_macs`` at the TF32 rate
    and by bytes (``fma_bound_ms``: ``ssd_bwd_macs`` at the fp32 rate, the
    fma body's); the RG-LRU's segmented body beside its serial body.  Flash
-   attention at recurrentgemma-9b's train step (q (4,512,16,256), k/v
-   (4,512,1,256) fp32, window 2048): the backward by kernel beside SDPA's
-   fp32 backward and the fp32 forward body (``flash_rgemma_kernels``).  The mma body's chunk scan is also held, at one bf16 step of y
+   attention in fp32 at recurrentgemma-9b's train step (q (4,512,16,256),
+   k/v (4,512,1,256), window 2048) and at stablelm-12b's heads (q
+   (4,512,32,160), k/v (4,512,8,160)): the mma_tf32x3 forward beside the
+   FMA body, the pair backward by kernel beside the sliced body, its head
+   splits one by one, each beside SDPA's fp32 call and the plain version,
+   and its bf16 kernels beside SDPA's bf16 backward and the plain version
+   (``flash_rgemma_kernels``; ``ms_windows``: each profiler window's total
+   beside the median).  The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
    ``ms``,
@@ -159,9 +166,9 @@ Phases, each printed as one JSON line:
    window 2048), fp32, batch 4 x 512, 10 steps of ``make_train_step``, no
    checkpoint: every loss finite, 2 RG-LRU, 1 flash and 7 RMSNorm launches
    a step, each way, the RG-LRU on its segmented bodies both ways, flash
-   forward on the fp32 body and backward on mma_tf32x3, every RMSNorm
-   backward on cta_rows.  Step ms, peak memory, its bounds, one more step
-   profiled by kernel family.
+   forward and backward on mma_tf32x3, every RMSNorm backward on cta_rows.
+   Step ms, peak memory, its bounds, one more step profiled by kernel
+   family.
 
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve, train-100m, train-mamba2,
@@ -237,8 +244,10 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-# the profiler windows each device_ms timing took (3 unless one was empty)
+# the profiler windows each device_ms timing took (3 unless one was empty),
+# and each timing's window totals, ms a call
 PROFILER_WINDOWS = []
+WINDOW_MS = []
 
 
 def window_counts(start: int) -> dict:
@@ -254,7 +263,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3,
     median of ``windows`` profiler windows.  The profiler now and then
     drops a whole window (no device event: taken again, up to ``tries``
     windows) or part of one (a low total, which the median sets aside);
-    ``PROFILER_WINDOWS`` records how many windows each timing took."""
+    ``PROFILER_WINDOWS`` records how many windows each timing took,
+    ``WINDOW_MS`` their totals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -273,6 +283,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3,
             totals.append(total / iters / 1e3)
         if len(totals) == windows:
             PROFILER_WINDOWS.append(window)
+            WINDOW_MS.append(totals)
             return statistics.median(totals)
     check(False, f"the profiler saw device time in {len(totals)} of {tries} "
           f"windows, {windows} needed")
@@ -454,9 +465,11 @@ def phase_env(build):
     check(len(scans) == 8 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in scans.values()), f"a scan body spills: {scans}")
-    # the backward kernels: flash's dQ and dK/dV at 7 compiled head dims
-    # (16, 32, 64, 80, 128 (120 too), 160, 256) x 2 dtypes (28) and its
-    # sum of the dK/dV head split's partials (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
+    # the backward kernels: flash's dQ and dK/dV at 4 compiled head dims up
+    # to 80 (16, 32, 64, 80) and their pair kernels at 3 above (128 (120
+    # too), 160, 256) x 2 dtypes (28), the sliced kernels kept to be timed
+    # beside the pair kernels (fp32 at 128, 160, 256: 6) and the sum of the
+    # dK/dV head split's partials (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
     # 2, 4 and, for fp32 x, 8) and its dscale tree (2), its cta_rows body
     # (12: 2 scale types x vectors a lane 5-8 for fp32 x and 3-4 for bf16),
     # and the generic body (4 type pairs and 2 dscale sums)
@@ -467,16 +480,16 @@ def phase_env(build):
                "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel",
                "rmsnorm_bwd_cta_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 64 and all(
+    check(len(bwd) == 70 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     # the fp32 forward's mma_tf32x3 flash kernels, one a compiled head dim
-    # (16, 32, 64, 80, 128)
+    # (16, 32, 64, 80, 128 and, 8 warps a CTA, 160 and 256)
     tf32 = {name: f for name, f in
             ptxas_functions(logs["flash_attention"]).items()
             if "flash_attn_tf32_kernel" in name}
     emit("env", tf32_ptxas=tf32)
-    check(len(tf32) == 5 and all(
+    check(len(tf32) == 7 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in tf32.values()), f"an mma_tf32x3 flash kernel spills: {tf32}")
     # the scans' backward kernels: the SSD's chunk states, reverse state
@@ -963,7 +976,8 @@ def flash_fp32_kernels(dev, gen, cases, summary):
     """The fp32 flash-attention forward's mma_tf32x3 body against
     ``mha_ref`` and the fp32 FMA body forced on the same inputs (o and the
     log-sum-exp, 2e-5) at the 100m step's shape and at window / chunk
-    masks, GQA 8 and ragged S at every head dim it takes; then its device
+    masks, GQA 8, MQA and ragged S at every head dim (8 warps a CTA at 160
+    and 256); then its device
     time with the log-sum-exp (the train path's call) at the 100m shape
     beside the fp32 body's (its previous body), the plain version's and
     SDPA's fp32 forward (TF32 off), and its bounds: bytes (q, k, v read, o
@@ -988,7 +1002,12 @@ def flash_fp32_kernels(dev, gen, cases, summary):
             (2, 190, 16, 2, 80, dict(causal=True, chunk=40)),
             (1, 200, 8, 1, 120, dict(causal=True)),
             (1, 333, 8, 2, 128, dict(causal=True, window=100)),
-            (1, 130, 4, 4, 128, dict(causal=False))]:
+            (1, 130, 4, 4, 128, dict(causal=False)),
+            # 8 warps a CTA: GQA, MQA, window, chunk, ragged S
+            (1, 200, 8, 2, 160, dict(causal=True)),
+            (1, 130, 4, 4, 160, dict(causal=True, chunk=48)),
+            (2, 300, 8, 1, 256, dict(causal=True, window=100)),
+            (1, 100, 4, 1, 256, dict(causal=False))]:
         q, k, v = randn(B, S, H, dh), randn(B, S, K, dh), randn(B, S, K, dh)
         body = flash.select_body(q, k, v)
         out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -1029,7 +1048,7 @@ def flash_fp32_kernels(dev, gen, cases, summary):
         replaces="src/repro/kernels/flash_attention/kernel.py:99",
         shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal, "
               "with lse (the 100m step)",
-        counted_as=("flash_attention", "mma_tf32x3"),
+        counted_as=("flash_attention", "mma_tf32x3", (dh,)),
         body=flash.select_body(q, k, v), ms=device_ms(kernel),
         event_ms=time_ms(kernel), previous_body="fp32",
         previous_body_ms=device_ms(previous),
@@ -1233,6 +1252,8 @@ def backward_kernels(dev, gen, cases, summary):
         (2, 190, 8, 2, 128, dict(causal=True, window=70)),
         (1, 130, 4, 4, 160, dict(causal=True, chunk=48)),
         (1, 100, 4, 4, 160, dict(causal=False)),
+        (2, 190, 8, 2, 160, dict(causal=True, window=70)),
+        (1, 129, 8, 1, 120, dict(causal=True, chunk=40)),
         (2, 200, 16, 1, 256, dict(causal=True)),
         (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
         (1, 2200, 4, 1, 256, dict(causal=True, window=2048)),
@@ -1337,95 +1358,269 @@ def backward_kernels(dev, gen, cases, summary):
     scan_backward_kernels(dev, gen, cases, summary)
 
 
-def flash_rgemma_kernels(dev, gen, summary):
-    """Flash attention at recurrentgemma-9b's train step (q (4,512,16,256),
-    k/v (4,512,1,256) fp32, causal, window 2048), the shape whose backward
-    this slice ports: the backward (mma_tf32x3 body, head-dim slices) beside
-    autograd of ``mha_ref`` and SDPA's fp32 backward (TF32 off), by kernel,
-    into ``summary["flash_attention_bwd"]["rgemma"]``, beside the same
-    backward with its dK/dV heads unsplit (``unsplit_ms``); and the forward with
-    its log-sum-exp on the fp32 FMA body (the train path's body at dh 256,
-    ``flash_attention_fwd_fp32_rgemma``) beside ``mha_ref`` and SDPA's fp32
-    forward.  Bounds: bytes, or the products of the visible pairs (five
-    backward, two forward) each three TF32 products at the TF32 rate
-    (``fma_bound_ms``: once each at the fp32 FMA rate)."""
+# recurrentgemma-9b's train step and stablelm-12b's heads at the same batch:
+# the two shapes whose fp32 bodies run 8 warps a CTA (dh 256 and 160); last,
+# the head split the sliced backward ran with there (its dK/dV launch had
+# 128 and 512 CTAs: 4 splits, the fastest of 1-16 for that body, and none)
+FLASH_WIDE_SHAPES = {
+    "rgemma": (4, 512, 16, 1, 256, dict(causal=True, window=2048),
+               "the recurrentgemma-9b step", 4),
+    "stablelm": (4, 512, 32, 8, 160, dict(causal=True), "stablelm-12b's heads",
+                 1),
+}
+
+
+def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label, prev_split):
+    """(forward, backward, bf16 backward) timings of flash attention in
+    fp32 at one train shape whose bodies run 8 warps a CTA: the mma_tf32x3
+    forward with its log-sum-exp beside the FMA body it replaced
+    (``body="fp32"``), and the pair backward beside the sliced body it
+    replaced (``flash_attention_bwd_sliced``, with ``prev_split``, the head
+    split it ran with),
+    each beside the plain version (``mha_ref``, its autograd) and SDPA's
+    fp32 call (TF32 off), by kernel; the dK/dV launch's head splits timed
+    one by one (``head_split_ms``); the bf16 backward's pair kernels on the
+    same values (the forward's mma body for o and lse) beside the plain
+    version's and SDPA's bf16 backward.  Bounds: bytes, or the products of
+    the visible pairs (five backward, two forward) each three TF32 products
+    at the TF32 rate (``fma_bound_ms``: once each at the fp32 FMA rate); in
+    bf16 the five products once each at the bf16 rate."""
     from repro_torch.device import multiprocessors
     from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda, select_body,
-        select_bwd_body)
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
-    f32 = torch.float32
-    B, S, H, K, dh = 4, 512, 16, 1, 256
-    kw = dict(causal=True, window=2048)
+    f32, bf16 = torch.float32, torch.bfloat16
+    check(kw.get("window", 0) in (0,) or kw["window"] >= S,
+          "SDPA's is_causal call stands for the mask only where the window "
+          "does not bite")
     q, do = (torch.randn(B, S, H, dh, generator=gen, device=dev)
              for _ in range(2))
     k, v = (torch.randn(B, S, K, dh, generator=gen, device=dev)
             for _ in range(2))
     with torch.no_grad():
-        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     pos = torch.arange(S, device=dev)
     pairs = int(attention_mask(pos, pos, **kw).sum())
-    shape = (f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal "
-             "window=2048 (the recurrentgemma-9b step)")
+    shape = (f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal"
+             + (f" window={kw['window']}" if kw.get("window") else "")
+             + f" ({label})")
+    sms = multiprocessors(dev)
+
+    # ---- backward
     t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
                         + lse.nbytes, 2 * flash_bwd_split_macs(B, H, pairs, dh),
                         "tf32")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_out = mha_ref(*leaves, **kw)
-    # SDPA with is_causal: the window of 2048 covers all 512 keys
     lib_out = F.scaled_dot_product_attention(
         *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
-    kernel = lambda: flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, out, do, lse, **kw)
-    unsplit = lambda: flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, out, do, lse, head_split=1, **kw)
     want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
+    kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, do, lse, **kw)
+    entry = flash._bwd_entry("flash_attention_bwd_sliced")
+    delta = torch.empty(B, H, S, device=dev)
+    prev_grads = [torch.empty_like(t) for t in (q, k, v)]
+    partial = torch.empty((2, prev_split, B, S, K, dh), device=dev)
+
+    def previous():
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    *(t.data_ptr() for t in prev_grads), B, S, H, K,
+                    int(kw.get("causal", True)), kw.get("window", 0),
+                    kw.get("chunk", 0), dh ** -0.5, dh, 0, prev_split,
+                    partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"flash_attention_bwd_sliced: CUDA error {err}")
+        return prev_grads
+
+    splits = [s for s in (1, 2, 4, 8, 16) if (H // K) % s == 0]
     mark = len(PROFILER_WINDOWS)
-    summary["flash_attention_bwd"]["rgemma"] = dict(
-        shape=shape, body=select_bwd_body(q, k, v),
-        head_split=flash.bwd_head_split(B, S, H, K, dh,
-                                        multiprocessors(dev)),
-        ms=device_ms(kernel), event_ms=time_ms(kernel),
+    bwd = dict(
+        shape=shape, body=flash.select_bwd_body(q, k, v),
+        # S, dP and dQ in the dQ launch; S^T, dP^T, dK and dV in the dK/dV
+        # launch, each once a pair of tiles
+        full_width_products=7,
+        head_split=flash.bwd_head_split(B, S, H, K, dh, sms),
+        # each timing's three window totals beside its median
+        ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
+        event_ms=time_ms(kernel),
         kernel_ms=kernel_breakdown(kernel),
-        unsplit_ms=device_ms(unsplit), unsplit_kernel_ms=kernel_breakdown(
-            unsplit),
+        head_split_ms={s: device_ms(lambda s=s: flash.flash_attention_bwd_cuda(
+            q, k, v, out, do, lse, head_split=s, **kw)) for s in splits},
+        previous_body="sliced (4 warps a CTA, the gradient's columns sliced "
+                      "over CTAs)", previous_head_split=prev_split,
+        # the sliced body: S and dP for each of its dQ slices (2 above dh
+        # 128) and dK/dV slices (4 at 256, 2 at 120-160), dQ, dK and dV
+        previous_full_width_products=2 * (2 if dh > 128 else 1) + 1
+        + 2 * (4 if dh == 256 else 2) + 2,
+        previous_body_ms=device_ms(previous),
+        previous_body_ms_windows=WINDOW_MS[-1],
+        previous_body_event_ms=time_ms(previous),
+        previous_kernel_ms=kernel_breakdown(previous),
         plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
         library="SDPA's fp32 backward, TF32 off",
         library_ms=device_ms(_grad_ms(lib_out, leaves, do.transpose(1, 2))),
+        library_ms_windows=WINDOW_MS[-1],
         library_event_ms=time_ms(_grad_ms(lib_out, leaves,
                                           do.transpose(1, 2))),
         bound_ms=t_bound, bound_by=by,
         fma_bound_ms=5 * 2 * B * H * pairs * dh / PEAK_OPS_PER_S[f32] * 1e3,
         pairs=pairs, max_abs_err=max(compare(g, w, f32)[0]
                                      for g, w in zip(kernel(), want)),
-        profiler_windows=window_counts(mark))
-    del plain_out, lib_out, want, leaves
+        previous_max_abs_err=max(compare(g, w, f32)[0]
+                                 for g, w in zip(previous(), want)))
+    check(all(compare(g, w, f32)[1] for g, w in zip(kernel(), want)),
+          f"flash backward at {shape}: max error {bwd['max_abs_err']}")
+    del plain_out, lib_out, leaves, partial
+
+    # ---- the bf16 backward's pair kernels on the same values
+    qb, kb, vb, dob = (t.to(bf16) for t in (q, k, v, do))
+    with torch.no_grad():
+        ob, lseb = flash.flash_attention_cuda(qb, kb, vb, return_lse=True,
+                                              body="mma", **kw)
+    split = flash.bwd_head_split(B, S, H, K, dh, sms)
+    gb = [torch.empty_like(t) for t in (qb, kb, vb)]
+    partial = torch.empty((2, split, B, S, K, dh), device=dev) \
+        if split > 1 else None
+    bf16_entry = flash._bwd_entry()
+
+    def bf16_kernel():
+        err = bf16_entry(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ob.data_ptr(),
+            dob.data_ptr(), lseb.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in gb), B, S, H, K,
+            int(kw.get("causal", True)), kw.get("window", 0),
+            kw.get("chunk", 0), dh ** -0.5, dh, 1, split,
+            None if partial is None else partial.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"flash_attention_bwd bf16: CUDA error {err}")
+        return gb
+
+    leaves = [t.float().requires_grad_() for t in (qb, kb, vb)]
+    want_bf16 = torch.autograd.grad(mha_ref(*leaves, **kw), leaves,
+                                    dob.float())
+    errs = [compare(g, w, bf16) for g, w in zip(bf16_kernel(), want_bf16)]
+    check(all(ok for _, ok in errs), f"bf16 flash backward at {shape}: "
+          f"errors {[e for e, _ in errs]}")
+    # bytes: q, k, v, o, dO (bf16) and lse read, dq, dk, dv written; the
+    # five products of the visible pairs once each at the bf16 rate (P's
+    # and dS's hi + lo products are the body's cost, not the function's)
+    t_bound, by = bound(2 * (qb.nbytes + kb.nbytes + vb.nbytes)
+                        + 2 * qb.nbytes + lseb.nbytes,
+                        5 * 2 * B * H * pairs * dh, bf16)
+    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
+    plain_out = mha_ref(*leaves, **kw)
+    lib_out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
+    library = _grad_ms(lib_out, leaves, dob.transpose(1, 2))
+    bwd["bf16"] = dict(ms=device_ms(bf16_kernel), ms_windows=WINDOW_MS[-1],
+                       event_ms=time_ms(bf16_kernel),
+                       kernel_ms=kernel_breakdown(bf16_kernel),
+                       plain_ms=device_ms(_grad_ms(plain_out, leaves, dob)),
+                       library="SDPA's bf16 backward",
+                       library_ms=device_ms(library),
+                       library_ms_windows=WINDOW_MS[-1],
+                       library_event_ms=time_ms(library),
+                       bound_ms=t_bound, bound_by=by,
+                       head_split=split, tol=TOL[bf16],
+                       max_abs_err=max(e for e, _ in errs),
+                       library_max_abs_err=max(
+                           compare(g, w, bf16)[0] for g, w in zip(
+                               library(), want_bf16)))
+    bwd["profiler_windows"] = window_counts(mark)
+    del leaves, want_bf16, gb, qb, kb, vb, dob, ob, lseb, partial, \
+        plain_out, lib_out
+
+    # ---- forward, with the log-sum-exp (the train path's call)
     n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes
     t_bound, by = bound(n_bytes, 2 * 3 * 2 * B * H * pairs * dh, "tf32")
     fma_bound, fma_by = bound(n_bytes, 2 * 2 * B * H * pairs * dh, f32)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    forward = lambda: flash_attention_cuda(  # noqa: E731
+    forward = lambda: flash.flash_attention_cuda(  # noqa: E731
         q, k, v, return_lse=True, **kw)
+    previous = lambda: flash.flash_attention_cuda(  # noqa: E731
+        q, k, v, return_lse=True, body="fp32", **kw)
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
+    want = mha_ref(q, k, v, **kw)
+    err, ok = compare(forward()[0], want, f32)
+    check(ok, f"flash mma_tf32x3 forward at {shape}: max error {err}")
     mark = len(PROFILER_WINDOWS)
-    summary["flash_attention_fwd_fp32_rgemma"] = dict(
-        name="flash_attention_fwd_fp32_rgemma", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:99",
-        shape=shape + ", with lse", counted_as=("flash_attention", "fp32"),
-        body=select_body(q, k, v), ms=device_ms(forward),
-        event_ms=time_ms(forward), plain_ms=device_ms(
-            lambda: mha_ref(q, k, v, **kw)),
+    fwd = dict(
+        shape=shape + ", with lse", body=flash.select_body(q, k, v),
+        ms=device_ms(forward), event_ms=time_ms(forward),
+        previous_body="fp32", previous_body_ms=device_ms(previous),
+        previous_body_event_ms=time_ms(previous),
+        plain_ms=device_ms(lambda: mha_ref(q, k, v, **kw)),
         library="F.scaled_dot_product_attention fp32, TF32 off",
         library_ms=device_ms(library), library_event_ms=time_ms(library),
         bound_ms=t_bound, bound_by=by, fma_bound_ms=fma_bound,
-        fma_bound_by=fma_by,
-        max_abs_err=compare(forward()[0], mha_ref(q, k, v, **kw), f32)[0],
+        fma_bound_by=fma_by, max_abs_err=err,
+        previous_max_abs_err=compare(previous()[0], want, f32)[0],
         profiler_windows=window_counts(mark))
-    emit("kernels", kernel="flash_attention_fwd_fp32_rgemma", timings={
-        shape: summary["flash_attention_fwd_fp32_rgemma"]})
+    return fwd, bwd
+
+
+def flash_rgemma_kernels(dev, gen, summary):
+    """Flash attention in fp32 at recurrentgemma-9b's train step (q
+    (4,512,16,256), k/v (4,512,1,256), causal, window 2048) and at
+    stablelm-12b's heads (q (4,512,32,160), k/v (4,512,8,160), causal):
+    ``flash_wide_timings`` at each, the backward into
+    ``summary["flash_attention_bwd"]["rgemma" / "stablelm"]``, the forward
+    into ``summary["flash_attention_fwd_fp32_wide"]``, the mma_tf32x3
+    body at the head dims where its CTA has 8 warps (160 and 256): the
+    recurrentgemma-9b shape's timings at the top, whose head dim the train
+    path runs, stablelm's under ``"stablelm"``; its launches are those at
+    dh 160 and 256 (``launches_by_head_dim``)."""
+    for name, shape in FLASH_WIDE_SHAPES.items():
+        fwd, bwd = flash_wide_timings(dev, gen, *shape)
+        summary["flash_attention_bwd"][name] = bwd
+        if name == "rgemma":
+            summary["flash_attention_fwd_fp32_wide"] = dict(
+                name="flash_attention_fwd_fp32_wide", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:99",
+                counted_as=("flash_attention", "mma_tf32x3", (160, 256)),
+                **fwd)
+        else:
+            summary["flash_attention_fwd_fp32_wide"][name] = fwd
+        emit("kernels", kernel="flash_attention_wide", timings={
+            bwd["shape"]: dict(forward=fwd, backward=bwd)})
+    summary["flash_attention_bwd"]["head_split_gqa"] = splits = \
+        flash_split_timings(dev, gen)
+    emit("kernels", kernel="flash_attention_bwd_head_split", timings=splits)
+
+
+# GQA heads above dh 80 whose dK/dV launch bwd_head_split splits, at the
+# train batch of the shapes above: qwen2-vl-2b's (12 over 2, dh 128) and
+# h2o-danube-3-4b's (32 over 8, dh 120)
+FLASH_SPLIT_SHAPES = {"qwen2-vl-2b": (4, 512, 12, 2, 128),
+                      "h2o-danube-3-4b": (4, 512, 32, 8, 120)}
+
+
+def flash_split_timings(dev, gen):
+    """The fp32 backward at ``FLASH_SPLIT_SHAPES``, causal, at every head
+    split of powers of two that divides the group (1 is none), beside the
+    split ``bwd_head_split`` picks and the fp32 partial buffer it
+    allocates."""
+    from repro_torch.device import multiprocessors
+    from repro_torch.kernels.flash_attention import kernel as flash
+    out = {}
+    for name, (B, S, H, K, dh) in FLASH_SPLIT_SHAPES.items():
+        q, do = (torch.randn(B, S, H, dh, generator=gen, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, K, dh, generator=gen, device=dev)
+                for _ in range(2))
+        with torch.no_grad():
+            o, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
+        split = flash.bwd_head_split(B, S, H, K, dh, multiprocessors(dev))
+        out[name] = dict(
+            shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) fp32 causal",
+            head_split=split, partial_bytes=2 * split * k.nbytes
+            if split > 1 else 0,
+            head_split_ms={s: device_ms(
+                lambda s=s: flash.flash_attention_bwd_cuda(
+                    q, k, v, o, do, lse, head_split=s))
+                for s in (1, 2, 4, 8, 16) if (H // K) % s == 0})
+    return out
 
 
 def scan_backward_kernels(dev, gen, cases, summary):
@@ -1993,7 +2188,8 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
                    "flash_attention": dict(
                        flash.flash_attention_cuda.launches_by_body),
                    "flash_attention_bwd": dict(
-                       flash.flash_attention_bwd_cuda.launches_by_body)}
+                       flash.flash_attention_bwd_cuda.launches_by_body),
+                   "flash_attention_by_head_dim": _flash_by_head_dim()}
         peak = torch.cuda.max_memory_allocated()
         L = cfg.num_layers
         want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
@@ -2090,6 +2286,8 @@ def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
           and by_body["flash_attention"]["mma_tf32x3"]
           == want["flash_attention"][0]
           and by_body["flash_attention"]["fp32"] == 0
+          and by_body["flash_attention_by_head_dim"] == {"mma_tf32x3": {
+              cfg.resolved_head_dim: want["flash_attention"][0]}}
           and by_body["flash_attention_bwd"]["mma_tf32x3"]
           == want["flash_attention"][1],
           f"train: launches by body {by_body}")
@@ -2120,6 +2318,14 @@ def _count_launches():
             "ssd": (ssd.ssd_cuda.launches, ssd.ssd_bwd_cuda.launches)}
 
 
+def _flash_by_head_dim():
+    """The flash forward's launches by body and head dim, the bodies that
+    launched only."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    return {body: dict(by_dh) for body, by_dh in
+            flash.flash_attention_cuda.launches_by_head_dim.items() if by_dh}
+
+
 def _reset_launches():
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as lru
@@ -2136,10 +2342,9 @@ def train_bounds(cfg, batch: int, seq: int) -> dict:
     out (3 x 2 x tokens x V x d_model), over the fp32 rate; the SSD scans
     (forward ``ssd_macs`` and backward ``ssd_bwd_macs``, 2 FLOPs a
     multiply-add, each SSD layer) and the attention of ``flops_parts``
-    (the backward's, and the forward's where its body is mma_tf32x3: dh
-    <= 128) as three TF32 products each at the TF32 rate, the forward at dh
-    160 / 256 (the fp32 FMA body) over the fp32 rate; 16 B a parameter
-    (fp32 weights, gradients and both moments)."""
+    (forward and backward: the mma_tf32x3 bodies at every head dim) as
+    three TF32 products each at the TF32 rate; 16 B a parameter (fp32
+    weights, gradients and both moments)."""
     tokens = batch * seq
     parts = cfg.flops_parts(tokens, training=True, seq_len=seq)
     fp32, tf32 = parts["base"], 0.0
@@ -2150,12 +2355,7 @@ def train_bounds(cfg, batch: int, seq: int) -> dict:
     n_ssd = cfg._layer_kinds().count("ssd")
     if n_ssd:
         tf32 += 3 * n_ssd * 2 * (ssd_macs(*shape) + ssd_bwd_macs(*shape))
-    forward = parts["attn"] / 3      # 4 of flops_parts' 12 units a pair
-    if cfg.resolved_head_dim <= 128:
-        tf32 += 3 * parts["attn"]
-    else:
-        fp32 += forward
-        tf32 += 3 * (parts["attn"] - forward)
+    tf32 += 3 * parts["attn"]
     return dict(step_bound_ms=(fp32 / PEAK_OPS_PER_S[torch.float32]
                                + tf32 / PEAK_OPS_PER_S["tf32"]) * 1e3,
                 step_flops=fp32 + tf32 / 3, step_fp32_flops=fp32,
@@ -2312,8 +2512,8 @@ def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
     of ``make_train_step`` on ``SyntheticLM`` batches, no checkpoint: the
     loss finite at every step; 2 RG-LRU, 1 flash and 2L + 1 = 7 RMSNorm
     launches a step, each way, by body: the RG-LRU on its segmented bodies
-    both ways, flash forward on the fp32 (FMA) body and backward on
-    mma_tf32x3, every RMSNorm backward on cta_rows."""
+    both ways, flash forward and backward on mma_tf32x3 (8 warps a CTA at
+    dh 256), every RMSNorm backward on cta_rows."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -2348,7 +2548,8 @@ def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
                "flash_attention": dict(
                    flash.flash_attention_cuda.launches_by_body),
                "flash_attention_bwd": dict(
-                   flash.flash_attention_bwd_cuda.launches_by_body)}
+                   flash.flash_attention_bwd_cuda.launches_by_body),
+               "flash_attention_by_head_dim": _flash_by_head_dim()}
     peak = torch.cuda.max_memory_allocated()
     # one more step, profiled (after the counts were read): each kernel
     # family's device ms and share of the step
@@ -2363,16 +2564,18 @@ def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
             "flash_attention": (n_attn * steps,) * 2,
             "rglru": (n_lru * steps,) * 2, "ssd": (0, 0)}
     # every norm is 4096 wide: the cta_rows backward; attention at dh 256
-    # in fp32: the FMA forward body and the 3xTF32 backward
+    # in fp32: the 3xTF32 forward and backward
     want_by_body = {
         "rmsnorm_bwd": {"warp_rows": 0, "cta_rows": (2 * L + 1) * steps,
                         "generic": 0},
         "rglru": {"segmented": n_lru * steps, "serial": 0},
         "rglru_bwd": {"segmented": n_lru * steps, "serial": 0},
-        "flash_attention": {"sm90": 0, "mma": 0, "mma_tf32x3": 0,
-                            "fp32": n_attn * steps},
+        "flash_attention": {"sm90": 0, "mma": 0,
+                            "mma_tf32x3": n_attn * steps, "fp32": 0},
         "flash_attention_bwd": {"mma_tf32x3": n_attn * steps,
-                                "mma_bf16": 0}}
+                                "mma_bf16": 0},
+        "flash_attention_by_head_dim": {"mma_tf32x3": {
+            cfg.resolved_head_dim: n_attn * steps}}}
     emit("train_rgemma_3l", arch=cfg.name, layers=L, layer_kinds=kinds,
          reduced="num_layers 38 -> 3 (one superblock): 38 layers of fp32 "
                  "weights, gradients and AdamW moments are about 144 GB",
@@ -2542,12 +2745,22 @@ def main() -> int:
                         ("train-rgemma-3l", phase_train_rgemma_3l)):
         train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():
-        if "counted_as" in entry:     # one body of a kernel: its launches
-            kernel, body = entry["counted_as"]
+        # one body of a kernel, at the head dims given if any: its launches
+        if "counted_as" in entry:
+            kernel, body, *dims = entry["counted_as"]
+            paths = [*by_body.items(), *train_by_body.items()]
             entry["launches_by_path"] = {
-                path: b[kernel][body] for path, b in
-                [*by_body.items(), *train_by_body.items()] if kernel in b}
+                path: b[kernel][body] for path, b in paths if kernel in b
+            } if not dims else {
+                path: sum(b[kernel + "_by_head_dim"].get(body, {}).get(d, 0)
+                          for d in dims[0])
+                for path, b in paths if kernel + "_by_head_dim" in b}
             entry["launches"] = sum(entry["launches_by_path"].values())
+            if dims:
+                entry["launches_by_head_dim"] = {d: sum(
+                    b[kernel + "_by_head_dim"].get(body, {}).get(d, 0)
+                    for _, b in paths if kernel + "_by_head_dim" in b)
+                    for d in dims[0]}
             continue
         if name.endswith("_bwd"):
             entry["launches_by_path"] = {

@@ -57,29 +57,33 @@
 //     so the fragment loads are free of bank conflicts), else one element
 //     at a time; V's fragments come from ldmatrix.trans and the scores stay
 //     in registers as the A operand of the PV product.
-//   * mma_tf32x3 (fp32 at head dims up to 128: the training path): the
-//     tensor cores through mma.sync m16n8k8 TF32, each product from hi + lo
-//     splits in three TF32 products (the backward's BwdMma<float>), which
-//     keeps fp32's 2e-5 agreement; described with its kernel below.
-//   * fp32 (fp32 at dh 160 and 256, and forced as the previous body): the same
-//     tiling as mma on the fp32 FMA units, 128 threads as 16 row groups x 8
-//     column lanes, with Q, K, V and the probability tile staged in shared
-//     memory as fp32.
+//   * mma_tf32x3 (fp32 at every head dim: the training path): the tensor
+//     cores through mma.sync m16n8k8 TF32, each product from hi + lo splits
+//     in three TF32 products (the backward's BwdMma<float>), which keeps
+//     fp32's 2e-5 agreement; 4 warps a CTA up to dh 128, 8 at 160 and 256
+//     (two to each row group, each holding half of O's columns); described
+//     with its kernel below.
+//   * fp32 (forced as the previous body of fp32 inputs): the same tiling as
+//     mma on the fp32 FMA units, 128 threads as 16 row groups x 8 column
+//     lanes, with Q, K, V and the probability tile staged in shared memory
+//     as fp32.
 //
 // Every body rounds the probabilities to v's type for the PV product, as
 // the reference casts its probabilities to v's type.
 //
 // Training: the mma, mma_tf32x3 and fp32 bodies also write each row's
 // log-sum-exp when given a pointer for it (Params::lse; serving passes null), and the
-// backward (flash_attention_bwd, further down) recomputes the probabilities
-// from it.  The sm90 body writes none yet.
+// backward (flash_attention_bwd, further down: 4 warps a CTA up to dh 80,
+// the pair kernels of 8 above) recomputes the probabilities from it.  The
+// sm90 body writes none yet.
 //
-// Head dims: the mma and fp32 bodies take every one the model registry uses
-// (16, 32, 64, 80, 120, 128, 160, 256), compiled for the head dim rounded up
-// to 16 (the mma k-step); a head dim below that width (120 -> 128) is
-// zero-filled in shared memory as it is loaded and masked when O is stored.
-// Above 128 their tiles shrink so that registers and shared memory still
-// fit: 32-key tiles in the mma body and 32-row query tiles in the fp32 body.
+// Head dims: the mma, mma_tf32x3 and fp32 bodies take every one the model
+// registry uses (16, 32, 64, 80, 120, 128, 160, 256), compiled for the head
+// dim rounded up to 16 (the mma k-step); a head dim below that width (120
+// -> 128) is zero-filled in shared memory as it is loaded and masked when O
+// is stored.  Above 128 their tiles shrink so that registers and shared
+// memory still fit: 32-key tiles in the mma and mma_tf32x3 bodies (the
+// latter's CTA doubled to 8 warps) and 32-row query tiles in the fp32 body.
 //
 // What bounds it: at the serving prefill shapes, bytes, just above the
 // operations.  qwen2-7b (B 4, S 512, H 28, K 4, dh 128, causal, bf16):
@@ -560,16 +564,19 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // the 100m shapes on the H100, 0.186 against 0.194 ms (kernels/ab.py), but
 // its dh-80 kernels needed more than 255 registers and spilled.)
 //
-// A CTA is 4 warps; warp w owns rows 16w..16w+15 of the CTA's own 64-row
-// tile (keys in the dK/dV kernel, queries in the dQ kernel), staged once;
-// the other operand's tiles (Q, dO, lse, D, or K, V) stream through a
-// cp.async ring, the next tile loading while this one computes (BwdCfg:
-// 64-row tiles in two stages up to DH 64, 32-row ones from DH 80, one
-// stage for fp32 at DH 256).  Every head dim
-// of the registry is compiled (120 runs as 128, its last 8 columns zero in
-// shared memory and never stored); above DH 80 a CTA accumulates a slice
-// of dK and dV's columns, above DH 128 of dQ's, so that the accumulators
-// fit the registers.
+// Up to DH 80 a CTA is 4 warps; warp w owns rows 16w..16w+15 of the CTA's
+// own 64-row tile (keys in the dK/dV kernel, queries in the dQ kernel),
+// staged once; the other operand's tiles (Q, dO, lse, D, or K, V) stream
+// through a cp.async ring, the next tile loading while this one computes
+// (BwdCfg: 64-row tiles in two stages up to DH 64, 32-row ones from DH 80,
+// one stage for fp32 at DH 256).  Every head dim of the registry is
+// compiled (120 runs as 128, its last 8 columns zero in shared memory and
+// never stored).  Above DH 80 the pair kernels (further down) take over: 8
+// warps a CTA, two to each 16-row group splitting the forming of S and dP.
+// BwdCfg's kernels above DH 80 slice the gradient's columns over CTAs of 4
+// warps (dK and dV's above 80, dQ's above 128) so that the accumulators fit
+// the registers; only flash_attention_bwd_sliced, kept to be timed beside
+// the pair kernels, launches them there.
 // Every product is mma.sync on the tensor cores, in two shapes
 // (BwdMma::rows, BwdMma::regs):
 //
@@ -603,13 +610,14 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // What bounds it: at the 100m training shapes, operations: five products
 // of 32896 pairs x 64 a head, each three TF32 products; at recurrentgemma-9b's
 // (q (4,512,16,256), k/v (4,512,1,256) fp32, causal) the same five products
-// of 131328 pairs x 256 a head, 0.130 ms at the TF32 rate.  The column
-// slices recompute S and dP: at DH 256 each dK/dV CTA forms the two over
+// of 131328 pairs x 256 a head, 0.130 ms at the TF32 rate.  The sliced
+// kernels recompute S and dP: at DH 256 each dK/dV CTA forms the two over
 // the whole head dim for 64 of its columns, 4 times in all, and each dQ
-// CTA twice (the price of 64 accumulators a thread); in exchange the MQA
-// dK/dV grid there is (8 tiles, 4 slices, 4 batches), 128 CTAs where one
-// slice would leave 100 of the 132 SMs idle, and the head split
-// (kernels/flash_attention/kernel.py:bwd_head_split) makes it 512.
+// CTA twice (the price of 64 accumulators a thread of 4 warps); the pair
+// kernels form them once a launch (twice in the dK/dV launch at DH 256).
+// The MQA dK/dV grid at DH 256 is small (8 tiles, 2 slices, 4 batches on
+// the pair kernels: 64 CTAs for 132 SMs), so a GQA group's heads are split
+// over CTAs (kernels/flash_attention/kernel.py:bwd_head_split).
 
 constexpr int kBwdThreads = 128;  // 4 warps
 constexpr int kBwdTile = 64;      // rows of the CTA's own tiles (and of a streamed one: BwdCfg)
@@ -766,10 +774,13 @@ struct BwdMma<float> {
     }
   }
 
-  // acc += the products of KK reduction steps (8 columns each)
+  // acc += the products of KK reduction steps (8 columns each), W = 4 of
+  // the NT tiles a pass (all of them below 4)
   template <int NT, bool kTrunc, int KK>
   static __device__ __forceinline__ void steps(float (&acc)[NT][4], const float* a,
                                                const float* b, int ld) {
+    constexpr int W = NT < 4 ? NT : 4;
+    static_assert(NT % W == 0, "tiles");
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
@@ -780,15 +791,15 @@ struct BwdMma<float> {
       split_op<kTrunc>(ar[4], ahi[2], alo[2]);
       split_op<kTrunc>(ar[8 * ld + 4], ahi[3], alo[3]);
 #pragma unroll
-      for (int j0 = 0; j0 < NT; j0 += 4) {
-        uint32_t bhi[4][2], blo[4][2];
+      for (int j0 = 0; j0 < NT; j0 += W) {
+        uint32_t bhi[W][2], blo[W][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < W; ++j) {
           const float* br = b + ((j0 + j) * 8 + g) * ld + kk * 8 + t;
           split_op<kTrunc>(br[0], bhi[j][0], blo[j][0]);
           split_op<kTrunc>(br[4], bhi[j][1], blo[j][1]);
         }
-        mma_tf32x3<4>(acc + j0, ahi, alo, bhi, blo);
+        mma_tf32x3<W>(acc + j0, ahi, alo, bhi, blo);
       }
     }
   }
@@ -913,7 +924,10 @@ struct BwdMma<__nv_bfloat16> {
 // dK/dV kernel holds at DH 80 without a spill: above DH 128 (dQ: halves)
 // and DH 80 (dK and dV: 64 columns, 80 at DH 160) the columns are split
 // over CTAs (grid y = heads x slices), each computing the rows products S
-// and dP over the whole head dim again.
+// and dP over the whole head dim again.  That is the sliced body, which
+// only flash_attention_bwd_sliced launches (fp32), kept to be timed beside
+// the pair kernels (BwdPairCfg) that run the backward above DH 80; kKc,
+// kSplitBf16 and the head split below are theirs too.
 //
 // kKc: the 3xTF32 rows products sum each run of kKc reduction steps (8
 // columns a step) in a fresh accumulator: 64 columns, or 80 at DH 160, as
@@ -948,13 +962,14 @@ struct BwdCfg {
 };
 
 // Rows [s0, s0 + R) of one head (row stride ld_g elements) into a tile of
-// DH columns and row stride ld by cp.async, 16 bytes a copy; rows at or past
-// S and columns at or past dh are zero (dh < DH only at DH 128: dh 120).
-template <int DH, int R, typename T>
+// DH columns and row stride ld by cp.async, 16 bytes a copy, by kN threads;
+// rows at or past S and columns at or past dh are zero (dh < DH only at DH
+// 128: dh 120).
+template <int DH, int R, int kN = kBwdThreads, typename T>
 __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src, long long ld_g, int s0,
                                            int S, int dh) {
   constexpr int kVec = 16 / sizeof(T), kChunks = DH / kVec;
-  for (int idx = threadIdx.x; idx < R * kChunks; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += kN) {
     const int r = idx / kChunks, c = (idx % kChunks) * kVec, s = s0 + r;
     const bool col = DH != 128 || c < dh;
     cp_async16(dst + r * ld + c, src + static_cast<long long>(s < S ? s : 0) * ld_g + (col ? c : 0),
@@ -964,9 +979,9 @@ __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src, long lo
 
 // R floats of one (b, h) row of lse or D from s0 on; zero at or past S
 // (those queries are masked).
-template <int R>
+template <int R, int kN = kBwdThreads>
 __device__ __forceinline__ void stage_floats(float* dst, const float* src, int s0, int S) {
-  for (int r = threadIdx.x; r < R; r += kBwdThreads) {
+  for (int r = threadIdx.x; r < R; r += kN) {
     const int s = s0 + r;
     cp_async4(dst + r, src + (s < S ? s : 0), s < S);
   }
@@ -1269,24 +1284,417 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_sum_kernel(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// backward above DH 80: warps sharing each 16-row group, S and dP formed once
+// ---------------------------------------------------------------------------
+//
+// BwdCfg's kernels slice the gradient's columns over CTAs at DH 120-256
+// (their accumulators would not fit 4 warps' registers), and each slice
+// forms S and dP again over the whole head dim: 15 full-width products a
+// (query tile, key tile) at DH 256, 11 at 160, 9 at 120 / 128, where the
+// gradient needs 7 without atomics (S and dP in each launch, dQ, dK, dV);
+// and a CTA of 4 warps with 135-200 KB of shared memory holds an SM alone,
+// 4 warps to keep the mma.sync chains fed.  These kernels give a CTA 8
+// warps, and the warps that share a 16-row group of the CTA's own tile
+// split the forming of S and dP, each element formed once over the whole
+// head dim in the kKc-chunked order of BwdCfg's kernels (summed as there:
+// ref.py:mha_grads_by_products with tf32x3 still models it, and the
+// gradient comes out in the same bits as the sliced body's), then meet in
+// shared memory (float4 exchanges, [row group][warp][tile][lane]):
+//
+//   * dQ: 4 row groups of 64 query rows, two warps each: half 0 forms S and
+//     P, half 1 dP; both form dS = P (dP - D) on the full tile (the same
+//     bits) and each accumulates half of dQ's columns (64 a thread at DH
+//     256).  3 products: S, dP, dQ.  (32 query rows in groups of 4 warps at
+//     DH 256, which fits 2 stages, measured 5% slower: 0.525 against 0.50
+//     ms at recurrentgemma-9b's train shape, NVIDIA H100 80GB HBM3, 700.00
+//     W, kernels/ab.py --shape rgemma; its warps form 2 score tiles each,
+//     half the independent mma chains.)
+//   * dK/dV: a tile of kKvRows keys; up to DH 160, 64 keys in 4 row groups
+//     of 2 warps: one forms S^T, turns it into P^T and accumulates dV, the
+//     other forms dP^T, reads P^T, forms dS^T and accumulates dK, each over
+//     all DH columns (80 accumulators a thread at 160, 64 at 120 / 128); at
+//     DH 256, 32 keys in 2 row groups of 4 warps: two form S^T (16 of the
+//     32 streamed queries each), two dP^T, and each accumulates half of dV's
+//     or dK's 256 columns (64 a thread).  4 products: S^T, dP^T, dK, dV.
+//     (64 keys with the columns in two CTA slices, each forming S^T and
+//     dP^T, 6 products, took 0.80 ms against 0.567 at recurrentgemma-9b's
+//     train shape; kernels/ab.py --shape rgemma, as above.)
+//
+// Full-width products a (query tile, key tile): 7 at every head dim.  The
+// streamed tiles keep 32 rows; K and V stream through 2 stages in the dQ
+// kernel (one at DH 256 in fp32: own Q and dO 133 KB, a stage 66.5 KB, the
+// exchanges 16 KB, 211 KB), Q, dO, lse and D through 2 in the dK/dV kernel
+// (own K and V 66.5 KB at DH 256, the stages 133 KB, 204 KB).  bf16 keeps
+// the P and dS hi + lo products (BwdCfg::kSplitBf16) and the head split of
+// the dK/dV launch (BwdParams::head_split, bwd_head_split) is BwdCfg's.
+
+constexpr int kPairThreads = 256;  // 8 warps
+
+template <int DH, typename T>
+struct BwdPairCfg {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kStream = 32;        // rows of a streamed tile
+  static constexpr int kKc = (DH / 8) % 8 == 0 ? 8 : 10;
+  static constexpr int kLd = DH + BwdMma<T>::kPad;
+  static constexpr int kStr = kStream * kLd;
+  // one exchange of the dQ kernel: 4 row groups x kStream / 8 tiles x 32
+  // lanes x 4 floats
+  static constexpr int kX = 4 * kStream * 16;
+  // dQ: own Q and dO tiles of 64 rows, a warp of each pair half of dQ's
+  // columns; K and V stream in 2 stages, one in fp32 at DH 256
+  static constexpr int kDqCols = DH / 2;
+  static constexpr int kDqStages = kF32 && DH >= 256 ? 1 : 2;
+  static constexpr size_t kDqTiles = sizeof(T) * kLd * (2 * kBwdTile + 2 * kDqStages * kStream);
+  static constexpr size_t kDqBytes = kDqTiles + sizeof(float) * 2 * kX;
+  // dK/dV: own K and V tiles of kKvRows keys in kGroups row groups of
+  // kRowWarps warps: kForm of them form S^T (a share of the streamed rows
+  // each) and accumulate dV, as many form dP^T and accumulate dK, each over
+  // kKvCols columns; 64 keys and pairs up to DH 160, 32 keys and groups of 4
+  // at 256 (all 256 columns in halves: 64 accumulators a thread).  Q, dO,
+  // lse and D stream in 2 stages.
+  static constexpr int kKvRows = DH >= 256 ? 32 : kBwdTile;
+  static constexpr int kGroups = kKvRows / 16;
+  static constexpr int kRowWarps = 8 / kGroups;
+  static constexpr int kForm = kRowWarps / 2;
+  static constexpr int kKvCols = DH / kForm;
+  static constexpr int kKvStages = 2;
+  static constexpr size_t kKvTiles = sizeof(T) * kLd * (2 * kKvRows + 2 * kKvStages * kStream);
+  static constexpr size_t kKvFloats = 2 * kKvStages * kStream;  // streamed lse and D
+  static constexpr int kKvX = 8 * (kStream / 8 / kForm) * 32 * 4;  // every warp's formed tiles
+  static constexpr size_t kKvBytes = kKvTiles + sizeof(float) * (kKvFloats + kKvX);
+  static __device__ __forceinline__ int dh(const BwdParams& p) { return DH == 128 ? p.dh : DH; }
+  static_assert(DH > 80 && (DH / 8) % kKc == 0 && DH % kForm == 0, "tiling");
+  static_assert(kDqTiles % 16 == 0 && kKvTiles % 16 == 0, "the exchanges are float4");
+  static_assert(kDqBytes <= 232448 && kKvBytes <= 232448,
+                "a block has at most 227 KB of shared memory");
+};
+
+// dQ (and D) of one query tile of one head, summed over the KV tiles it
+// sees; warp half h accumulates columns [h, h + 1) * kDqCols.
+template <int DH, typename T>
+__global__ void __launch_bounds__(kPairThreads, 1) flash_bwd_dq_pair_kernel(BwdParams p) {
+  using C = BwdPairCfg<DH, T>;
+  using M = BwdMma<T>;
+  constexpr int kLd = C::kLd, kBK = C::kStream, NT = kBK / 8, NO = C::kDqCols / 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  constexpr int kOwn = kBwdTile * kLd;
+  T* tiles = reinterpret_cast<T*>(bwd_smem);
+  const T* sQ = tiles;
+  const T* sDO = tiles + kOwn;
+  T* ring = tiles + 2 * kOwn;
+  // [half][row group][tile][lane]: P from half 0, dP from half 1
+  float4* sX = reinterpret_cast<float4*>(bwd_smem + C::kDqTiles);
+  const int n_q = (p.S + kBwdTile - 1) / kBwdTile;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBwdTile;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.K), dh = C::dh(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, half = warp >> 2;
+  const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
+  const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
+  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * dh;
+  const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+  stage_tile<DH, kBwdTile, kPairThreads>(tiles, kLd, static_cast<const T*>(p.q) + q_off, qs, q0,
+                                         p.S, dh);
+  stage_tile<DH, kBwdTile, kPairThreads>(tiles + kOwn, kLd,
+                                         static_cast<const T*>(p.dout) + q_off, qs, q0, p.S, dh);
+
+  int kv_lo, kv_hi;
+  kv_range(p, q0, kBwdTile, &kv_lo, &kv_hi);
+  const int kt0 = kv_lo / kBK;
+  const int items = max(0, (kv_hi + kBK - 1) / kBK - kt0);
+  auto stage = [&](int i) {
+    T* st = ring + 2 * stage_of<C::kDqStages>(i) * C::kStr;
+    const int k0 = (kt0 + i) * kBK;
+    stage_tile<DH, kBK, kPairThreads>(st, kLd, static_cast<const T*>(p.k) + kv_off, ks, k0, p.S,
+                                      dh);
+    stage_tile<DH, kBK, kPairThreads>(st + C::kStr, kLd, static_cast<const T*>(p.v) + kv_off, ks,
+                                      k0, p.S, dh);
+  };
+  if (items > 0) stage(0);
+  cp_async_commit();
+
+  // D = rowsum(dO * O) of the row group's 16 rows (both warps of the pair),
+  // from device memory while the tiles load: lanes r and r + 16 take the two
+  // halves of row r's 16-byte chunks.
+  float d = 0.f;
+  {
+    constexpr int kVec = 16 / sizeof(T);
+    const int s = q0 + rg * 16 + (lane & 15);
+    if (s < p.S) {
+      const int chunks = dh / kVec, hc = chunks / 2;
+      const int n = lane < 16 ? hc : chunks - hc;  // hc, but at dh 120 in bf16
+      const long long off = q_off + s * qs + (lane >> 4) * hc * kVec;
+      const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
+      const uint4* d4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
+#pragma unroll 4
+      for (int c = 0; c < n; ++c) {
+        float ov[kVec], dv[kVec];
+        unpack16(o4[c], ov);
+        unpack16(d4[c], dv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) d = fmaf(ov[e], dv[e], d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 16);
+    if (half == 0 && lane < 16 && s < p.S) p.delta[row + s] = d;
+  }
+  // this thread's rows g and g + 8: D, and lse in the log2 domain
+  const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
+  const int q_row[2] = {q0 + rg * 16 + g, q0 + rg * 16 + g + 8};
+  float lse2[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    lse2[rr] = q_row[rr] < p.S ? p.lse[row + q_row[rr]] * kLog2e : 0.f;
+  const float scale2 = p.scale * kLog2e;
+  const T* own = (half ? sDO : sQ) + rg * 16 * kLd;  // S = Q K^T (half 0), dP = dO V^T (1)
+
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int i = 0; i < items; ++i) {
+    next_item<C::kDqStages>(i, items, stage);  // Q, dO and tile i have landed
+    const int k0 = (kt0 + i) * kBK;
+    const T* sK = ring + 2 * stage_of<C::kDqStages>(i) * C::kStr;
+    const T* sV = sK + C::kStr;
+    float x[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+    M::template rows<DH, NT, false, C::kKc>(x, own, half ? sV : sK, kLd);
+    if (half == 0) {  // P
+      const bool full = tile_visible(p, q0, kBwdTile, k0, kBK);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1, kj = k0 + j * 8 + 2 * t + (e & 1);
+          x[j][e] = full || visible(p, q_row[rr], kj) ? exp2f(fmaf(x[j][e], scale2, -lse2[rr]))
+                                                      : 0.f;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      sX[((half * 4 + rg) * NT + j) * 32 + lane] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 y4 = sX[(((1 - half) * 4 + rg) * NT + j) * 32 + lane];
+      const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = half ? y[e] : x[j][e], dp = half ? x[j][e] : y[e];
+        x[j][e] = pr * (dp - d_row[e >> 1]);  // dS
+      }
+    }
+    M::template regs<C::kDqCols, NT, false, true>(dq, x, sK + half * C::kDqCols, kLd);
+    __syncthreads();  // this stage and the exchanges are refilled for a later tile
+  }
+  cp_async_wait<0>();
+
+  T* dqb = static_cast<T*>(p.dq) + q_off;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (q_row[rr] >= p.S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = half * C::kDqCols + n * 8 + 2 * t;  // dh % 8 == 0: c < dh covers c + 1
+      if (DH != 128 || c < dh)
+        store2(dqb + q_row[rr] * qs + c, dq[n][2 * rr] * p.scale, dq[n][2 * rr + 1] * p.scale);
+    }
+  }
+}
+
+// dK and dV of one tile of kKvRows keys of one KV head, summed over the
+// query heads of its group (or its share of them: head_split) and the query
+// tiles that see it.
+template <int DH, typename T>
+__global__ void __launch_bounds__(kPairThreads, 1) flash_bwd_dkdv_pair_kernel(BwdParams p) {
+  using C = BwdPairCfg<DH, T>;
+  using M = BwdMma<T>;
+  constexpr int kLd = C::kLd, kBQ = C::kStream, NT = kBQ / 8, NO = C::kKvCols / 8;
+  constexpr int NF = NT / C::kForm;  // the streamed row tiles a warp forms
+  constexpr int kOwn = C::kKvRows * kLd;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  T* tiles = reinterpret_cast<T*>(bwd_smem);
+  float* rows = reinterpret_cast<float*>(bwd_smem + C::kKvTiles);
+  // [row group][warp of the group][tile][lane]: S^T's share turned into
+  // P^T, and dP^T's
+  float4* sX = reinterpret_cast<float4*>(rows + C::kKvFloats);
+  const T* sK = tiles;
+  const T* sV = tiles + kOwn;
+  T* ring = tiles + 2 * kOwn;
+  const int k0 = blockIdx.x * C::kKvRows, b = blockIdx.z;
+  const int HS = p.head_split, kvh = blockIdx.y / HS, hs = blockIdx.y % HS;
+  const int G = p.H / p.K / HS, h0 = (kvh * HS + hs) * G, dh = C::dh(p);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp % C::kGroups, r = warp / C::kGroups;  // row group, warp in it
+  const bool dk = r >= C::kForm;  // forms dP^T and accumulates dK (else S^T, dV)
+  const int part = dk ? r - C::kForm : r;  // its streamed rows and its columns
+  const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
+  const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * dh;
+  stage_tile<DH, C::kKvRows, kPairThreads>(tiles, kLd, static_cast<const T*>(p.k) + kv_off, ks,
+                                           k0, p.S, dh);
+  stage_tile<DH, C::kKvRows, kPairThreads>(tiles + kOwn, kLd,
+                                           static_cast<const T*>(p.v) + kv_off, ks, k0, p.S, dh);
+
+  int q_lo, q_hi;
+  q_range(p, k0, C::kKvRows, &q_lo, &q_hi);
+  const int qt0 = q_lo / kBQ;
+  const int n_qt = max(0, (q_hi + kBQ - 1) / kBQ - qt0);
+  const int items = G * n_qt;  // item i: head h0 + i / n_qt, query tile qt0 + i % n_qt
+  auto stage = [&](int i) {
+    const int h = h0 + i / n_qt, q0 = (qt0 + i % n_qt) * kBQ;
+    T* st = ring + 2 * stage_of<C::kKvStages>(i) * C::kStr;
+    const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
+    stage_tile<DH, kBQ, kPairThreads>(st, kLd, static_cast<const T*>(p.q) + q_off, qs, q0, p.S,
+                                      dh);
+    stage_tile<DH, kBQ, kPairThreads>(st + C::kStr, kLd, static_cast<const T*>(p.dout) + q_off,
+                                      qs, q0, p.S, dh);
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+    float* sr = rows + stage_of<C::kKvStages>(i) * 2 * kBQ;
+    stage_floats<kBQ, kPairThreads>(sr, p.lse + row, q0, p.S);
+    stage_floats<kBQ, kPairThreads>(sr + kBQ, p.delta + row, q0, p.S);
+  };
+  if (items > 0) stage(0);
+  cp_async_commit();
+
+  const int k_row[2] = {k0 + rg * 16 + g, k0 + rg * 16 + g + 8};
+  const float scale2 = p.scale * kLog2e;
+  const T* own = (dk ? sV : sK) + rg * 16 * kLd;  // S^T = K Q^T, dP^T = V dO^T
+  float acc[NO][4];                               // dK or dV
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < items; ++i) {
+    next_item<C::kKvStages>(i, items, stage);  // K, V and item i have landed
+    const int q0 = (qt0 + i % n_qt) * kBQ;
+    const T* sQ = ring + 2 * stage_of<C::kKvStages>(i) * C::kStr;
+    const T* sDO = sQ + C::kStr;
+    const float* sLse = rows + stage_of<C::kKvStages>(i) * 2 * kBQ;
+    const float* sD = sLse + kBQ;
+    float x[NF][4];  // the row group's 16 keys x this warp's NF * 8 queries
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+    M::template rows<DH, NF, false, C::kKc>(x, own, (dk ? sDO : sQ) + part * NF * 8 * kLd, kLd);
+    if (!dk) {  // P^T
+      const bool full = tile_visible(p, q0, kBQ, k0, C::kKvRows);
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = (part * NF + j) * 8 + 2 * t + (e & 1);
+          x[j][e] = full || visible(p, q0 + qc, k_row[e >> 1])
+                        ? exp2f(fmaf(x[j][e], scale2, -sLse[qc] * kLog2e))
+                        : 0.f;
+        }
+    }
+    if constexpr (C::kForm == 1) {
+      // a pair: the dV warp passes P^T and keeps it, the dK warp forms dS^T
+      // in place
+      if (!dk) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          sX[(rg * 2 * NT + j) * 32 + lane] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      }
+      __syncthreads();
+      if (dk) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float4 p4 = sX[(rg * 2 * NT + j) * 32 + lane];
+          const float pt[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[j][e] = pt[e] * (x[j][e] - sD[j * 8 + 2 * t + (e & 1)]);
+        }
+      }
+      M::template regs<C::kKvCols, NT, false, true>(acc, x, dk ? sQ : sDO, kLd);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+        sX[((rg * C::kRowWarps + r) * NF + j) * 32 + lane] =
+            make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      __syncthreads();
+      float y[NT][4];  // P^T, or dS^T = P^T (dP^T - D), over the streamed tile
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int w = rg * C::kRowWarps + j / NF;  // the warp that formed its S^T
+        const float4 p4 = sX[(w * NF + j % NF) * 32 + lane];
+        const float4 d4 = sX[((w + C::kForm) * NF + j % NF) * 32 + lane];
+        const float pt[4] = {p4.x, p4.y, p4.z, p4.w}, dpt[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[j][e] = dk ? pt[e] * (dpt[e] - sD[j * 8 + 2 * t + (e & 1)]) : pt[e];
+      }
+      M::template regs<C::kKvCols, NT, false, true>(acc, y,
+                                                    (dk ? sQ : sDO) + part * C::kKvCols, kLd);
+    }
+    __syncthreads();  // this stage and the exchange are refilled for a later item
+  }
+  cp_async_wait<0>();
+
+  const long long n_kv = static_cast<long long>(p.B) * p.S * p.K * dh;
+  T* out = static_cast<T*>(dk ? p.dk : p.dv) + kv_off;
+  // partial (2, HS, B, S, K, dh): dK's sums first, then dV's (used when HS > 1)
+  float* sums = p.partial + ((dk ? 0 : HS) + hs) * n_kv + kv_off;
+  const float sc = dk ? p.scale : 1.f;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (k_row[rr] >= p.S) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = part * C::kKvCols + n * 8 + 2 * t;
+      if (DH == 128 && c >= dh) continue;
+      const long long off = k_row[rr] * ks + c;
+      if (HS > 1)
+        store2(sums + off, acc[n][2 * rr], acc[n][2 * rr + 1]);
+      else
+        store2(out + off, acc[n][2 * rr] * sc, acc[n][2 * rr + 1] * sc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // forward, mma_tf32x3: fp32 on the TF32 tensor cores (3xTF32)
 // ---------------------------------------------------------------------------
 //
 // FlashAttention-2's forward on mma.sync m16n8k8 TF32, with the backward's
-// products (BwdMma<float>, truncating splits): a CTA of 4 warps owns a
-// 64-row query tile (late tiles first, the longest under a causal mask), a
-// warp 16 of its rows; K and V stream through a 2-stage cp.async ring of
-// 32- or 64-key tiles (Tf32Cfg).  S = Q K^T (rows) and O += P V (regs,
-// with P, the exponentiated score accumulators, in registers as X) are
-// each three TF32 products from hi + lo splits, which holds fp32's 2e-5
+// products (BwdMma<float>, truncating splits): a CTA owns a 64-row query
+// tile (late tiles first, the longest under a causal mask) in 4 row groups
+// of 16; K and V stream through a 2-stage cp.async ring of 32- or 64-key
+// tiles (Tf32Cfg).  S = Q K^T (rows) and O += P V (regs, with P, the
+// exponentiated score accumulators, in registers as X) are each three TF32
+// products from hi + lo splits, which holds fp32's 2e-5
 // (ref.py:mha_fwd_by_products); the online softmax runs in fp32 registers
 // in the log2 domain, a row's four lanes reducing by shuffles; O is
 // rescaled in registers and each tile's P V summed in a fresh accumulator
 // (the tensor cores truncate their accumulation).  The masks, GQA and the
-// row log-sum-exp are the other bodies'.  Head dims up to 128 (120 padded
-// to 128): O's DHP / 2 accumulators a thread fit the registers there (239
-// at 128, no spill; at 160 ptxas spilled with 255 on the H100, so dh 160
-// and 256 stay on the FMA body).
+// row log-sum-exp are the other bodies'.
+//
+// Up to head dim 128 (120 padded to 128) a CTA has 4 warps, one to each row
+// group, each holding all of O's DHP / 2 accumulators a thread (239
+// registers at 128, no spill).  At 160 and 256 that spilled (255 registers
+// at 160), so there a CTA has 8 warps, two to each row group: each warp of
+// a pair forms S for half of the tile's 32 keys over the whole head dim,
+// the halves meet in shared memory (8 KB), both warps run the same online
+// softmax on the full row (so their m and l are the same bits) and each
+// accumulates P V into its half of O's columns: 64 accumulators a thread
+// at 256, 40 at 160.  S sums each 64-column run (80 at 160) of its
+// reduction in a fresh accumulator (Tf32Cfg::kKc), as the backward does:
+// summed in one, the tensor cores' truncating accumulation over 256
+// columns biased S (o at 0.23 of the fp32 tolerance, lse 0.12), and the
+// backward fed with that o and lse left dV at 1.16 of the tolerance at
+// recurrentgemma-9b's train shape; chunked, o 0.12, lse 0.04, dV 0.47,
+// under the FMA body's o and lse (0.62), and no slower (NVIDIA H100 80GB
+// HBM3, 700.00 W; PERF.md).  Shared memory at 256: Q 66.6 KB, K and V at
+// 32-key tiles in 2 stages 133 KB, the exchange 8 KB: 208 KB, one CTA (8
+// warps) an SM; 64-key tiles would take 266.
 //
 // What bounds it at the 100m training shape (q (16,256,8,64), k/v
 // (16,256,4,64) fp32, causal): bytes, q, k, v, o and lse moved once, 7.5 us
@@ -1295,33 +1703,44 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_sum_kernel(BwdParams p) {
 // Measured, latency: a warp's split -> mma -> softmax chain, with 8 warps
 // an SM, left the tensor cores idle most of the time; truncating splits
 // and the log2 domain took 0.0685 to 0.0603 ms, a third CTA an SM to
-// 0.0516 (kernels/ab.py --forward, PERF.md).
+// 0.0516 (kernels/ab.py --forward, PERF.md).  At recurrentgemma-9b's
+// (q (4,512,16,256), k/v (4,512,1,256), window 2048): operations, 0.0522
+// ms at the TF32 rate, against 0.0125 ms of bytes.
 
-// The tiling at head dim DHP: keys a K/V tile (kBK; two stages of K and V
-// in a cp.async ring, the next tile loading while this one computes) and
-// the CTAs an SM the registers are held to (kMinBlocks).  Up to dh 80,
-// 32-key tiles (52 KB of shared memory at dh 64) and at most 170 registers
-// let three CTAs share an SM: 0.0516 ms at the 100m shape against 0.0603
-// with 64-key tiles and two CTAs an SM (NVIDIA H100 80GB HBM3, 700.00 W;
-// kernels/ab.py --forward, PERF.md); a fourth CTA (128 registers) gained
-// nothing.
+// The tiling at head dim DHP: the warps to each 16-row group (kPair), keys
+// a K/V tile (kBK; two stages of K and V in a cp.async ring, the next tile
+// loading while this one computes) and the CTAs an SM the registers are
+// held to (kMinBlocks).  Up to dh 80, 32-key tiles (52 KB of shared memory
+// at dh 64) and at most 170 registers let three CTAs share an SM: 0.0516
+// ms at the 100m shape against 0.0603 with 64-key tiles and two CTAs an SM
+// (NVIDIA H100 80GB HBM3, 700.00 W; kernels/ab.py --forward, PERF.md); a
+// fourth CTA (128 registers) gained nothing.
 template <int DHP>
 struct Tf32Cfg {
-  static constexpr int kBK = DHP <= 80 ? 32 : 64;
+  static constexpr int kPair = DHP > 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * kPair;
+  static constexpr int kBK = DHP <= 80 || DHP > 128 ? 32 : 64;
   static constexpr int kMinBlocks = DHP <= 80 ? 3 : 1;
+  static constexpr int kCols = DHP / kPair;  // O's columns a warp accumulates
+  // S's reduction steps (8 columns each) a fresh accumulator: all up to
+  // 128, 64 columns (80 at 160) above, as the backward sums (BwdCfg::kKc)
+  static constexpr int kKc = DHP <= 128 ? DHP / 8 : (DHP / 8) % 8 == 0 ? 8 : 10;
   static constexpr int kLd = DHP + BwdMma<float>::kPad;  // row stride, floats
-  static constexpr size_t kBytes = sizeof(float) * kLd * (kBwdTile + 4 * kBK);
+  // the score exchange of a pair: 4 row groups x kBK / 8 tiles x 32 lanes x 4
+  static constexpr int kX = kPair == 2 ? 4 * kBK * 16 : 0;
+  static constexpr size_t kBytes = sizeof(float) * (kLd * (kBwdTile + 4 * kBK) + kX);
+  static_assert(kBytes <= 232448, "a block has at most 227 KB of shared memory");
 };
 
 // Rows [s0, s0 + R) of one head (row stride ld_g floats) into a tile of
 // DHP columns and row stride ld by cp.async, 16 bytes a copy where the
 // head's rows are 16-byte aligned (vec), else 4; rows at or past S and
-// columns at or past dh (a multiple of 8) are zero.
-template <int DHP, int R>
+// columns at or past dh (a multiple of 8) are zero.  kN threads copy.
+template <int DHP, int R, int kN = kThreads>
 __device__ __forceinline__ void stage_rows_f32(float* dst, int ld, const float* src,
                                                long long ld_g, int s0, int S, int dh, bool vec) {
   constexpr int kChunks = DHP / 4;
-  for (int idx = threadIdx.x; idx < R * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * kChunks; idx += kN) {
     const int r = idx / kChunks, c = (idx % kChunks) * 4, s = s0 + r;
     const bool in = s < S && c < dh;
     const float* from = in ? src + static_cast<long long>(s) * ld_g + c : src;
@@ -1339,25 +1758,29 @@ __device__ __forceinline__ bool rows_aligned16(const float* base, long long seq_
 }
 
 template <int DHP>
-__global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
+__global__ void __launch_bounds__(Tf32Cfg<DHP>::kThreads, Tf32Cfg<DHP>::kMinBlocks)
     flash_attn_tf32_kernel(Params p) {
   using C = Tf32Cfg<DHP>;
   using M = BwdMma<float>;
-  constexpr int kLd = C::kLd, BK = C::kBK, NT = BK / 8, NO = DHP / 8;
-  constexpr int kKV = BK * kLd;  // floats of a K or V buffer
+  constexpr int kLd = C::kLd, BK = C::kBK, NT = BK / 8, NO = C::kCols / 8;
+  constexpr int NH = NT / C::kPair;  // the score tiles a warp forms
+  constexpr int kKV = BK * kLd;      // floats of a K or V buffer
   extern __shared__ __align__(16) float tf32_smem[];
   const float* sQ = tf32_smem;
   float* kv = tf32_smem + kBwdTile * kLd;  // stage i % 2: K, then V
+  // [row group][score tile][lane] (kPair 2)
+  float4* sX = reinterpret_cast<float4*>(kv + 4 * kKV);
   const int n_q = (p.S + kBwdTile - 1) / kBwdTile;
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBwdTile;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, half = warp >> 2;  // row group, and which of its pair
   const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const bool k_vec = rows_aligned16(kb, p.k_ss), v_vec = rows_aligned16(vb, p.v_ss);
-  stage_rows_f32<DHP, kBwdTile>(tf32_smem, kLd, qb, p.q_ss, q0, p.S, p.dh,
-                                rows_aligned16(qb, p.q_ss));
+  stage_rows_f32<DHP, kBwdTile, C::kThreads>(tf32_smem, kLd, qb, p.q_ss, q0, p.S, p.dh,
+                                             rows_aligned16(qb, p.q_ss));
 
   int kv_lo, kv_hi;
   kv_range(p, q0, kBwdTile, &kv_lo, &kv_hi);
@@ -1366,8 +1789,8 @@ __global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
   auto stage = [&](int i) {
     float* st = kv + (i & 1) * 2 * kKV;
     const int k0 = (kt0 + i) * BK;
-    stage_rows_f32<DHP, BK>(st, kLd, kb, p.k_ss, k0, p.S, p.dh, k_vec);
-    stage_rows_f32<DHP, BK>(st + kKV, kLd, vb, p.v_ss, k0, p.S, p.dh, v_vec);
+    stage_rows_f32<DHP, BK, C::kThreads>(st, kLd, kb, p.k_ss, k0, p.S, p.dh, k_vec);
+    stage_rows_f32<DHP, BK, C::kThreads>(st + kKV, kLd, vb, p.v_ss, k0, p.S, p.dh, v_vec);
   };
   // every query of the tile sees every key of [k0, k0 + BK)
   auto full_tile = [&](int k0) {
@@ -1379,7 +1802,7 @@ __global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
   if (items > 0) stage(0);
   cp_async_commit();
 
-  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int qrow[2] = {q0 + rg * 16 + g, q0 + rg * 16 + g + 8};
   const float scale2 = p.scale * kLog2e;  // the softmax runs in the log2 domain
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float o[NO][4];
@@ -1397,11 +1820,32 @@ __global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
     const float* sK = kv + (i & 1) * 2 * kKV;
     const float* sV = sK + kKV;
     float s[NT][4];
+    if constexpr (C::kPair == 1) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    M::template rows<DHP, NT, true>(s, sQ + warp * 16 * kLd, sK, kLd);
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      M::template rows<DHP, NT, true, C::kKc>(s, sQ + rg * 16 * kLd, sK, kLd);
+    } else {
+      // this warp's half of the keys; both halves through shared memory
+      float sh[NH][4];
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sh[j][e] = 0.f;
+      M::template rows<DHP, NH, true, C::kKc>(sh, sQ + rg * 16 * kLd,
+                                                   sK + half * NH * 8 * kLd, kLd);
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+        sX[(rg * NT + half * NH + j) * 32 + lane] = make_float4(sh[j][0], sh[j][1], sh[j][2],
+                                                                sh[j][3]);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 x = sX[(rg * NT + j) * 32 + lane];
+        s[j][0] = x.x, s[j][1] = x.y, s[j][2] = x.z, s[j][3] = x.w;
+      }
+    }
     const bool full = full_tile(k0);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -1425,8 +1869,8 @@ __global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
         o[n][2 * rr + 1] *= alpha;
       }
     }
-    M::template regs<DHP, NT, true>(o, s, sV, kLd);
-    __syncthreads();  // this stage is refilled by the copies of tile i + 2
+    M::template regs<C::kCols, NT, true>(o, s, sV + half * C::kCols, kLd);
+    __syncthreads();  // this stage (and the exchange) is refilled for a later tile
   }
   cp_async_wait<0>();
 
@@ -1435,12 +1879,13 @@ __global__ void __launch_bounds__(kThreads, Tf32Cfg<DHP>::kMinBlocks)
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (qrow[rr] >= p.S) continue;
-    if (p.lse != nullptr && t == 0) write_lse(p, b, h, qrow[rr], m[rr] * kLn2, l[rr]);
+    if (p.lse != nullptr && t == 0 && half == 0)
+      write_lse(p, b, h, qrow[rr], m[rr] * kLn2, l[rr]);
     const float inv_l = l[rr] > 0.f ? 1.f / l[rr] : 0.f;
     float* orow = ob + static_cast<long long>(qrow[rr]) * p.H * dh;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int c = n * 8 + 2 * t;  // dh is a multiple of 8, so c < dh covers c + 1
+      const int c = half * C::kCols + n * 8 + 2 * t;  // dh is a multiple of 8: c < dh covers c + 1
       if (c < dh) store2(orow + c, o[n][2 * rr] * inv_l, o[n][2 * rr + 1] * inv_l);
     }
   }
@@ -2000,11 +2445,12 @@ cudaError_t allow_smem(size_t bytes) {
 }
 
 template <auto kKernel>
-int launch(int bq, size_t smem_bytes, const Params& p, cudaStream_t stream) {
+int launch(int bq, size_t smem_bytes, const Params& p, cudaStream_t stream,
+           int threads = kThreads) {
   const cudaError_t err = allow_smem<kKernel>(smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.S + bq - 1) / bq, p.H, p.B);
-  kKernel<<<grid, kThreads, smem_bytes, stream>>>(p);
+  kKernel<<<grid, threads, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2018,9 +2464,24 @@ int launch_dh(const Params& p, int dtype, cudaStream_t stream) {
 
 template <int DHP>
 int launch_tf32(const Params& p, cudaStream_t stream) {
-  return launch<flash_attn_tf32_kernel<DHP>>(kBwdTile, Tf32Cfg<DHP>::kBytes, p, stream);
+  using C = Tf32Cfg<DHP>;
+  return launch<flash_attn_tf32_kernel<DHP>>(kBwdTile, C::kBytes, p, stream, C::kThreads);
 }
 
+// After a dK/dV launch: its error, or with head_split > 1 the launch that
+// sums the partial sums.
+template <typename T>
+int launch_dkdv_sum(const BwdParams& p, cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.head_split == 1) return static_cast<int>(err);
+  const long long n4 = static_cast<long long>(p.B) * p.S * p.K * p.dh / 4;
+  flash_bwd_dkdv_sum_kernel<T><<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// BwdCfg's kernels, 4 warps a CTA: the backward up to DH 80, and above it
+// the sliced body (the gradient's columns sliced over CTAs), which only
+// flash_attention_bwd_sliced launches.
 template <int DH, typename T>
 int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
   using C = BwdCfg<DH, T>;
@@ -2040,18 +2501,38 @@ int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkdv_kernel<DH, T>
       <<<dim3(tiles, p.K * kKvSplits * p.head_split, p.B), kBwdThreads, kSmem, stream>>>(p);
-  if (p.head_split == 1) return static_cast<int>(cudaGetLastError());
+  return launch_dkdv_sum<T>(p, stream);
+}
+
+// The backward above DH 80: the pair kernels.
+template <int DH, typename T>
+int launch_bwd_pair(const BwdParams& p, cudaStream_t stream) {
+  using C = BwdPairCfg<DH, T>;
+  if (p.K * p.head_split > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem<flash_bwd_dq_pair_kernel<DH, T>>(C::kDqBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned q_tiles = static_cast<unsigned>((p.S + kBwdTile - 1) / kBwdTile);
+  flash_bwd_dq_pair_kernel<DH, T>
+      <<<dim3(q_tiles, p.H, p.B), kPairThreads, C::kDqBytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n4 = static_cast<long long>(p.B) * p.S * p.K * p.dh / 4;
-  flash_bwd_dkdv_sum_kernel<T><<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  err = allow_smem<flash_bwd_dkdv_pair_kernel<DH, T>>(C::kKvBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned kv_tiles = static_cast<unsigned>((p.S + C::kKvRows - 1) / C::kKvRows);
+  flash_bwd_dkdv_pair_kernel<DH, T>
+      <<<dim3(kv_tiles, p.K * p.head_split, p.B), kPairThreads, C::kKvBytes, stream>>>(p);
+  return launch_dkdv_sum<T>(p, stream);
 }
 
 template <int DH>
 int launch_bwd_dtype(const BwdParams& p, int dtype, cudaStream_t stream) {
-  if (dtype == 1) return launch_bwd_dh<DH, __nv_bfloat16>(p, stream);
-  return launch_bwd_dh<DH, float>(p, stream);
+  if constexpr (DH > 80) {
+    if (dtype == 1) return launch_bwd_pair<DH, __nv_bfloat16>(p, stream);
+    return launch_bwd_pair<DH, float>(p, stream);
+  } else {
+    if (dtype == 1) return launch_bwd_dh<DH, __nv_bfloat16>(p, stream);
+    return launch_bwd_dh<DH, float>(p, stream);
+  }
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime so the
@@ -2241,8 +2722,38 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   }
 }
 
+// The sliced backward (BwdCfg's kernels above DH 80: the gradient's columns
+// sliced over CTAs of 4 warps, each slice forming S and dP again), the body
+// the pair kernels replaced, kept to be timed beside them: as
+// flash_attention_bwd, float32 only, head_dim one of 120, 128, 160, 256.
+extern "C" int flash_attention_bwd_sliced(const void* q, const void* k, const void* v,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* delta, void* dq, void* dk, void* dv, int B, int S,
+                                          int H, int K, int causal, int window, int chunk,
+                                          float scale, int head_dim, int dtype, int head_split,
+                                          void* partial, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 || dtype != 0 ||
+      head_split < 1 || (H / K) % head_split ||
+      (head_split > 1 && (partial == nullptr || !aligned16(partial))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
+                          static_cast<const void*>(dv)})
+    if (!aligned16(ptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p{q,      k,      v,     o,       dout, static_cast<const float*>(lse),
+                    static_cast<float*>(delta), dq, dk, dv, B, S, H, K, causal, window,
+                    chunk, scale, head_dim, head_split, static_cast<float*>(partial)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 120:
+    case 128: return launch_bwd_dh<128, float>(p, st);
+    case 160: return launch_bwd_dh<160, float>(p, st);
+    case 256: return launch_bwd_dh<256, float>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // The mma_tf32x3 body: float32 q, k, v and o, laid out as for
-// flash_attention_fwd; head_dim one of 16, 32, 64, 80, 120, 128; lse
+// flash_attention_fwd; head_dim one of 16, 32, 64, 80, 120, 128, 160, 256; lse
 // null or (B,H,S) fp32.  Returns cudaErrorInvalidValue on anything else,
 // else cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_tf32(const void* q, const void* k, const void* v, void* o,
@@ -2265,6 +2776,8 @@ extern "C" int flash_attention_fwd_tf32(const void* q, const void* k, const void
     case 80: return launch_tf32<80>(p, st);
     case 120:
     case 128: return launch_tf32<128>(p, st);
+    case 160: return launch_tf32<160>(p, st);
+    case 256: return launch_tf32<256>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

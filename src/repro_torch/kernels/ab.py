@@ -1,15 +1,19 @@
 """Time variants of the flash-attention backward (or, with ``--forward``,
 of the fp32 forward's mma_tf32x3 body) on one card, in turns.
 
-    PYTHONPATH=src python -m repro_torch.kernels.ab A.cu B.cu [...]
-    PYTHONPATH=src python -m repro_torch.kernels.ab --forward A.cu B.cu [...]
+    PYTHONPATH=src python -m repro_torch.kernels.ab [--forward] \
+        [--shape 100m|rgemma|stablelm] A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` (edited by hand, for
 an A/B of one change).  Each is built with the port's nvcc flags into
-``build/ab/``, loaded with ctypes, and its ``flash_attention_bwd`` run, at
-the 100m preset's training shapes (q (16,256,8,64), k/v (16,256,4,64),
-fp32, causal) and at a GQA group of 8 with a ragged S (q (2,190,16,64),
-k/v (2,190,2,64)): its error against autograd of ``mha_ref`` as a share of
+``build/ab/``, loaded with ctypes, and its ``flash_attention_bwd`` run (with
+``bwd_head_split``'s split), at the shapes of ``--shape`` (``SHAPES``):
+``100m`` (the default), the 100m preset's training shapes (q (16,256,8,64),
+k/v (16,256,4,64), fp32, causal) and a GQA group of 8 with a ragged S (q
+(2,190,16,64), k/v (2,190,2,64)); ``rgemma``, recurrentgemma-9b's train
+step (q (4,512,16,256), k/v (4,512,1,256), causal, window 2048: MQA at dh
+256); ``stablelm``, stablelm-12b's heads at that batch (q (4,512,32,160),
+k/v (4,512,8,160), causal): its error against autograd of ``mha_ref`` as a share of
 the fp32 tolerance (``|got - want| / (2e-5 (1 + |want|))``, at most 1 to
 pass), then its device time by kernel under ``torch.profiler``, per call
 over 20 calls, in turns (A, B, ..., then back), beside SDPA's backward on
@@ -22,6 +26,7 @@ beside SDPA's fp32 forward.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -32,10 +37,17 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .flash_attention.kernel import flash_attention_cuda
-from .flash_attention.ref import mha_ref
+from ..device import multiprocessors
+from .flash_attention.kernel import bwd_head_split, flash_attention_cuda
+from .flash_attention.ref import attention_mask, mha_ref
 
-SHAPES = ((16, 256, 8, 4, 64), (2, 190, 16, 2, 64))
+# (B, S, H, K, dh, mask) by --shape
+SHAPES = {
+    "100m": ((16, 256, 8, 4, 64, dict(causal=True)),
+             (2, 190, 16, 2, 64, dict(causal=True))),
+    "rgemma": ((4, 512, 16, 1, 256, dict(causal=True, window=2048)),),
+    "stablelm": ((4, 512, 32, 8, 160, dict(causal=True)),),
+}
 
 
 def _build_variants(sources: list[str], forward: bool = False) -> dict:
@@ -69,7 +81,7 @@ def _build_variants(sources: list[str], forward: bool = False) -> dict:
             fns[name] = fn
             continue
         fn = lib.flash_attention_bwd
-        fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, P]
+        fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, I, P, P]
         fn.restype = I
         fns[name] = fn
     return fns
@@ -95,31 +107,41 @@ def _ms_by_kernel(fn, iters: int = 20) -> dict:
     return ms
 
 
-def main_forward(sources: list[str]) -> None:
+def _sdpa_mask(S: int, kw: dict) -> dict:
+    """SDPA's is_causal stands for the mask where the window does not
+    bite (every shape of ``SHAPES``)."""
+    if not kw["causal"] or kw.get("chunk") or 0 < kw.get("window", 0) < S:
+        raise ValueError(f"no SDPA call for the mask {kw}")
+    return dict(is_causal=True, enable_gqa=True)
+
+
+def main_forward(sources: list[str], shapes) -> None:
     fns = _build_variants(sources, forward=True)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     stream = torch.cuda.current_stream().cuda_stream
-    for B, S, H, K, dh in SHAPES:
+    for B, S, H, K, dh, kw in shapes:
         g = torch.Generator(device=dev).manual_seed(0)
         q = torch.randn(B, S, H, dh, generator=g, device=dev)
         k, v = (torch.randn(B, S, K, dh, generator=g, device=dev)
                 for _ in range(2))
-        want = mha_ref(q, k, v)
+        want = mha_ref(q, k, v, **kw)
         logits = torch.einsum("bqkgd,bskd->bkgqs",
                               q.double().unflatten(2, (K, H // K)),
                               k.double()) * dh ** -0.5
         pos = torch.arange(S, device=dev)
         want_lse = torch.logsumexp(logits.masked_fill(
-            pos[None, :] > pos[:, None], -torch.inf), -1).flatten(1, 2)
+            ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
         o = torch.empty_like(q)
         lse = torch.empty(B, H, S, device=dev)
 
         def call(fn):
             return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               o.data_ptr(), B, S, H, K, *q.stride()[:3],
-                              *k.stride()[:3], *v.stride()[:3], 1, 0, 0,
-                              dh ** -0.5, dh, lse.data_ptr(), stream)
+                              *k.stride()[:3], *v.stride()[:3],
+                              int(kw["causal"]), kw.get("window", 0),
+                              kw.get("chunk", 0), dh ** -0.5, dh,
+                              lse.data_ptr(), stream)
 
         res = {}
         for name, fn in fns.items():
@@ -135,39 +157,49 @@ def main_forward(sources: list[str]) -> None:
                 call(fns[name]))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = _ms_by_kernel(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+            qt, kt, vt, **_sdpa_mask(S, kw)))
         for name, r in res.items():
-            print(json.dumps(dict(shape=[B, S, H, K, dh], variant=name,
+            print(json.dumps(dict(shape=[B, S, H, K, dh], mask=kw,
+                                  variant=name,
                                   sdpa_forward_ms=sum(lib.values()), **r)),
                   flush=True)
 
 
-def main(sources: list[str]) -> None:
-    if sources and sources[0] == "--forward":
-        return main_forward(sources[1:])
-    fns = _build_variants(sources)
+def main(argv: list[str]) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="100m")
+    ap.add_argument("sources", nargs="+")
+    args = ap.parse_args(argv)
+    if args.forward:
+        return main_forward(args.sources, SHAPES[args.shape])
+    fns = _build_variants(args.sources)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     stream = torch.cuda.current_stream().cuda_stream
-    for B, S, H, K, dh in SHAPES:
+    for B, S, H, K, dh, kw in SHAPES[args.shape]:
         g = torch.Generator(device=dev).manual_seed(0)
         q, do = (torch.randn(B, S, H, dh, generator=g, device=dev)
                  for _ in range(2))
         k, v = (torch.randn(B, S, K, dh, generator=g, device=dev)
                 for _ in range(2))
         with torch.no_grad():
-            o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        mha_ref(*leaves).backward(do)
+        mha_ref(*leaves, **kw).backward(do)
         delta = torch.empty(B, H, S, device=dev)
         grads = [torch.empty_like(t) for t in (q, k, v)]
+        split = bwd_head_split(B, S, H, K, dh, multiprocessors(dev))
+        partial = torch.empty((2, split, B, S, K, dh), device=dev)
 
         def call(fn):
             return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                               delta.data_ptr(),
-                              *(t.data_ptr() for t in grads), B, S, H, K, 1,
-                              0, 0, dh ** -0.5, dh, 0, stream)
+                              *(t.data_ptr() for t in grads), B, S, H, K,
+                              int(kw["causal"]), kw.get("window", 0),
+                              kw.get("chunk", 0), dh ** -0.5, dh, 0, split,
+                              partial.data_ptr(), stream)
 
         res = {}
         for name, fn in fns.items():
@@ -182,12 +214,12 @@ def main(sources: list[str]) -> None:
             res[name][f"ms_by_kernel_{turn // len(fns)}"] = _ms_by_kernel(
                 call(fns[name]))
         sdpa = F.scaled_dot_product_attention(
-            *(t.transpose(1, 2) for t in leaves), is_causal=True,
-            enable_gqa=True)
+            *(t.transpose(1, 2) for t in leaves), **_sdpa_mask(S, kw))
         lib = _ms_by_kernel(lambda: torch.autograd.grad(
             sdpa, leaves, do.transpose(1, 2), retain_graph=True))
         for name, r in res.items():
-            print(json.dumps(dict(shape=[B, S, H, K, dh], variant=name,
+            print(json.dumps(dict(shape=[B, S, H, K, dh], mask=kw,
+                                  variant=name, head_split=split,
                                   sdpa_backward_ms=sum(lib.values()), **r)),
                   flush=True)
 

@@ -13,17 +13,18 @@ layout of q, k and v (never by trying one and falling back):
   scale > 0: wgmma, TMA and warp specialisation.
 * ``mma``: every other bf16 input (the registry's other head dims, unaligned
   views): mma.sync tiles.
-* ``mma_tf32x3``: float32 at the head dims of ``TF32_HEAD_DIMS`` (the
+* ``mma_tf32x3``: float32 at every head dim (``TF32_HEAD_DIMS``, the
   training path): FlashAttention-2 on mma.sync m16n8k8 TF32, Q·Kᵀ and P·V
   each three TF32 products from hi + lo splits by truncation
-  (``ref.mha_fwd_by_products`` with ``tf32x3_trunc`` models it).
-* ``fp32``: float32 at dh 160 and 256, where the mma_tf32x3 body's
-  accumulators do not fit the registers (at 160 ptxas spilled), on the FMA
-  units; the previous body of every float32 input, still forced by
-  ``body="fp32"``.
+  (``ref.mha_fwd_by_products`` with ``tf32x3_trunc`` models it); at dh 160
+  and 256 a CTA has 8 warps, two to each 16-row group, each forming half
+  of a tile's scores and accumulating half of O's columns.
+* ``fp32``: float32 on the FMA units, the previous body of every float32
+  input, forced by ``body="fp32"``.
 
-``flash_attention_cuda.launches`` counts every launch and
-``flash_attention_cuda.launches_by_body`` each body's.
+``flash_attention_cuda.launches`` counts every launch,
+``flash_attention_cuda.launches_by_body`` each body's and
+``flash_attention_cuda.launches_by_head_dim`` each body's by head dim.
 
 Training: ``FlashAttentionFunction`` is the ``torch.autograd.Function``
 whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma,
@@ -31,9 +32,10 @@ mma_tf32x3 and fp32 bodies also write each row's log-sum-exp; the sm90 body
 does not yet, so a training call that would take it raises) and whose
 backward is ``flash_attention_bwd_cuda``: FlashAttention-2 without atomics
 on the tensor cores (mma.sync), at every head dim of ``HEAD_DIMS`` (120
-padded to 128; above 80 each CTA accumulates a slice of the gradient's
-columns), one body a dtype (``select_bwd_body`` decides, and raises on the
-rest):
+padded to 128; above 80 CTAs of 8 warps, two (four at 256) to each 16-row
+group splitting the forming of S and dP, so that each full-width product is
+formed once a pair of tiles: 7), one body a dtype (``select_bwd_body``
+decides, and raises on the rest):
 
 * ``mma_tf32x3``: float32 (the training path), every operand split into
   TF32 hi + lo and each product formed from three TF32 products, which
@@ -60,20 +62,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
 SM90_HEAD_DIMS = (128, 256)
 BODIES = ("sm90", "mma", "mma_tf32x3", "fp32")
-# the float32 head dims the mma_tf32x3 body takes (120 padded to 128)
-TF32_HEAD_DIMS = (16, 32, 64, 80, 120, 128)
+# the float32 head dims the mma_tf32x3 body takes (120 padded to 128): all
+TF32_HEAD_DIMS = HEAD_DIMS
 # the backward: every head dim the forward takes; one body a dtype
 BWD_HEAD_DIMS = HEAD_DIMS
 BWD_BODIES = ("mma_tf32x3", "mma_bf16")
-# the backward's dK/dV CTAs: one a (64-key tile, slice of the head dim, KV
-# head, batch), the slices as csrc/flash_attention.cu BwdCfg::kKvCols cuts
-# them (64 columns above dh 80, 80 at dh 160)
-BWD_KV_SLICES = {16: 1, 32: 1, 64: 1, 80: 1, 120: 2, 128: 2, 160: 2, 256: 4}
-# where the dK/dV launch has fewer CTAs than the card has SMs, it splits
-# each KV head's group of query heads over CTAs until it has this many CTAs
-# an SM (bwd_head_split): 3 gives recurrentgemma-9b's step 4 splits, the
-# fastest of 1, 2, 4, 8 and 16 on the H100 (PERF.md)
-BWD_FILL = 3
+# the backward's dK/dV CTAs: one a (tile of keys, KV head, batch), every
+# column of dK and dV, the tiles as csrc/flash_attention.cu cuts the keys
+# (BwdCfg up to dh 80, BwdPairCfg::kKvRows above)
+BWD_KV_TILE = {16: 64, 32: 64, 64: 64, 80: 64, 120: 64, 128: 64, 160: 64, 256: 32}
+# the dK/dV launch splits each KV head's group of query heads over CTAs
+# until it has this many CTAs an SM (bwd_head_split): 6 gives
+# recurrentgemma-9b's step 16 splits and stablelm-12b's heads 4, the
+# fastest of the splits each group allows on the H100 (PERF.md)
+BWD_FILL = 6
 
 
 def _entry(name: str):
@@ -91,8 +93,11 @@ def _entry(name: str):
     return fn
 
 
-def _bwd_entry():
-    fn = _build.load("flash_attention").flash_attention_bwd
+def _bwd_entry(name: str = "flash_attention_bwd"):
+    """A backward entry point: flash_attention_bwd, or
+    flash_attention_bwd_sliced (fp32 at dh 120-256: the body before the pair
+    kernels, which only timing launches)."""
+    fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I, I, P, P]
@@ -103,15 +108,17 @@ def _bwd_entry():
 def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int) -> int:
     """The CTAs the backward's dK/dV launch splits each KV head's group of
     H / K query heads over, on a card of ``sms`` SMs: 1 at head dims up to
-    80 (those kernels have no split: their registers are at ptxas's limit)
-    and where the launch has a CTA for every SM, else the fewest, doubling,
-    that reach ``BWD_FILL`` CTAs an SM while they divide the group.  recurrentgemma-9b's MQA step (B 4, S 512, 16 heads, one KV
-    head, dh 256) has 8 x 4 x 4 = 128 CTAs, each walking 16 heads, and the
-    key tile at the diagonal's start sees 8 times the query tiles of the
-    last: 4 splits, 512 CTAs of 4 heads."""
-    ctas = -(-S // 64) * K * BWD_KV_SLICES[dh] * B
+    80 (those kernels have no split: their registers are at ptxas's limit),
+    else the fewest, doubling, that reach ``BWD_FILL`` CTAs an SM while
+    they divide the group.  recurrentgemma-9b's MQA step (B 4, S 512, 16
+    heads, one KV head, dh 256) has 16 x 4 = 64 CTAs of 32 keys, each
+    walking 16 heads, and the key tile at the diagonal's start sees 16
+    times the query tiles of the last: 16 splits, 1024 CTAs of one head;
+    stablelm-12b's heads (32 over 8 KV heads, dh 160) 256 CTAs of 4 heads,
+    split 4 ways."""
+    ctas = -(-S // BWD_KV_TILE[dh]) * K * B
     G, split = H // K, 1
-    if dh <= 80 or ctas >= sms:
+    if dh <= 80:
         return split
     while ctas * split < BWD_FILL * sms and G % (2 * split) == 0:
         split *= 2
@@ -260,6 +267,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"body): CUDA error {err}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_body[body] += 1
+    by_dh = flash_attention_cuda.launches_by_head_dim[body]
+    by_dh[dh] = by_dh.get(dh, 0) + 1
     return (out, lse) if return_lse else out
 
 
@@ -347,10 +356,11 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def reset_counts() -> None:
-    """Set the launch counts (forward and backward, total and by body)
-    to 0."""
+    """Set the launch counts (forward and backward, total and by body;
+    the forward's also by head dim) to 0."""
     flash_attention_cuda.launches = 0
     flash_attention_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
+    flash_attention_cuda.launches_by_head_dim = {b: {} for b in BODIES}
     flash_attention_bwd_cuda.launches = 0
     flash_attention_bwd_cuda.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
 

@@ -199,7 +199,7 @@ def test_flash_launches_count_by_body(cuda):
                     (make(256, torch.bfloat16), "sm90"),
                     (make(128, torch.float32), "mma_tf32x3"),
                     (make(64, torch.float32, offset=1), "mma_tf32x3"),
-                    (make(256, torch.float32), "fp32"),
+                    (make(256, torch.float32), "mma_tf32x3"),
                     (make(80, torch.bfloat16), "mma"),
                     (make(128, torch.bfloat16, offset=1), "mma")]:
         before = dict(flash_attention_cuda.launches_by_body)
@@ -467,6 +467,14 @@ FLASH_TF32_CASES = [
     (1, 200, 4, 1, 120, dict(causal=True)),
     (1, 512, 8, 2, 128, dict(causal=True, window=100)),
     (1, 130, 4, 4, 128, dict(causal=False)),
+    # 8 warps a CTA: stablelm-12b's 160 and recurrentgemma-9b's 256, GQA,
+    # MQA, window and chunk masks, ragged S
+    (2, 190, 8, 2, 160, dict(causal=True, window=70)),
+    (1, 130, 4, 4, 160, dict(causal=True, chunk=48)),
+    (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
+    (2, 300, 8, 1, 256, dict(causal=True, window=100)),
+    (1, 200, 4, 2, 256, dict(causal=True, chunk=64)),
+    (1, 100, 4, 1, 256, dict(causal=False)),
 ]
 
 
@@ -479,6 +487,8 @@ def test_flash_mma_tf32x3_body_matches_plain(cuda, B, S, H, K, dh, kw):
     q, k, v = (torch.randn(B, S, n, dh, generator=g, device=cuda)
                for n in (H, K, K))
     before = dict(flash_attention_cuda.launches_by_body)
+    by_dh = flash_attention_cuda.launches_by_head_dim["mma_tf32x3"]
+    before_dh = by_dh.get(dh, 0)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     prev, prev_lse = flash_attention_cuda(q, k, v, return_lse=True,
                                           body="fp32", **kw)
@@ -486,6 +496,7 @@ def test_flash_mma_tf32x3_body_matches_plain(cuda, B, S, H, K, dh, kw):
     after = flash_attention_cuda.launches_by_body
     assert {b: after[b] - before[b] for b in after} == {
         "sm90": 0, "mma": 0, "mma_tf32x3": 1, "fp32": 1}
+    assert by_dh[dh] == before_dh + 1
     pos = torch.arange(S, device=cuda)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q.unflatten(2, (K, H // K)),
                           k) * dh ** -0.5
@@ -822,6 +833,10 @@ FLASH_BWD_CASES = [
     (1, 100, 4, 4, 160, dict(causal=False)),
     (2, 200, 16, 1, 256, dict(causal=True)),
     (1, 2200, 4, 1, 256, dict(causal=True, window=2048)),
+    # the pair kernels' GQA with a window and MQA with a chunk, ragged S
+    (2, 190, 8, 2, 160, dict(causal=True, window=70)),
+    (1, 129, 8, 1, 120, dict(causal=True, chunk=40)),
+    (1, 200, 8, 2, 256, dict(causal=True, chunk=64)),
 ]
 
 
@@ -910,6 +925,42 @@ def test_flash_bwd_head_splits_agree(cuda, dtype, B, S, H, K, dh, kw):
             assert _within(g, w, t)
         runs[split] = got
     assert all(torch.equal(r[0], runs[1][0]) for r in runs.values())
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw,split", [
+    (2, 300, 8, 1, 256, dict(causal=True, window=100), 1),
+    (2, 300, 8, 1, 256, dict(causal=True, window=100), 4),
+    (2, 190, 8, 2, 160, dict(causal=True), 2),
+    (1, 130, 4, 4, 160, dict(causal=False), 1),
+    (1, 190, 8, 2, 128, dict(causal=True, chunk=48), 1),
+    (1, 150, 8, 2, 120, dict(causal=True), 4)])
+def test_flash_bwd_pair_body_matches_sliced_bits(cuda, B, S, H, K, dh, kw,
+                                                 split):
+    """The fp32 pair kernels (above dh 80) form every element of S and dP
+    once, in the order the sliced body forms it in each of its column
+    slices, and sum every gradient element in that body's order: the same
+    bits as ``flash_attention_bwd_sliced`` at the same head split, both
+    within the fp32 tolerance of autograd of ``mha_ref``."""
+    q, k, v, do, _, _ = _flash_bwd_inputs(cuda, B, S, H, K, dh, torch.float32)
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, out, do, lse, head_split=split,
+                                   **kw)
+    prev = [torch.empty_like(t) for t in (q, k, v)]
+    delta = torch.empty(B, H, S, device=cuda)
+    partial = torch.empty((2, split, B, S, K, dh), device=cuda)
+    err = flash._bwd_entry("flash_attention_bwd_sliced")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in prev), B, S, H, K, int(kw["causal"]),
+        kw.get("window", 0), kw.get("chunk", 0), dh ** -0.5, dh, 0, split,
+        partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    qf, kf, vf = (a.clone().requires_grad_() for a in (q, k, v))
+    mha_ref(qf, kf, vf, **kw).backward(do)
+    for g, pg, w in zip(got, prev, (qf.grad, kf.grad, vf.grad)):
+        assert _within(g, w, 2e-5) and _within(pg, w, 2e-5)
+        assert torch.equal(g, pg)
 
 
 def test_raw_wrappers_refuse_inputs_that_require_grad_on_card(cuda):

@@ -64,13 +64,12 @@ def test_flash_other_head_dims_take_mma(dh):
 @pytest.mark.parametrize("dh", [16, 32, 64, 80, 120, 128, 160, 256])
 def test_flash_fp32_takes_fp32(dh):
     """float32, at every head dim of the registry, takes the TF32 tensor
-    cores' body (mma_tf32x3) where its accumulators fit the registers (the
-    training head dims 16-80 among them) and the FMA body (``fp32``) at 160
-    and 256; fp32 stays reachable (``body="fp32"``) at every one.  The
-    backward takes every head dim the forward takes."""
-    assert flash.TF32_HEAD_DIMS == (16, 32, 64, 80, 120, 128)
+    cores' body (mma_tf32x3: 4 warps a CTA up to 128, 8 at 160 and 256);
+    the FMA body (``fp32``) stays reachable (``body="fp32"``) at every one.
+    The backward takes every head dim the forward takes."""
+    assert flash.TF32_HEAD_DIMS == (16, 32, 64, 80, 120, 128, 160, 256)
     assert flash.BWD_HEAD_DIMS == flash.HEAD_DIMS
-    want = ("mma_tf32x3", "fp32") if dh <= 128 else ("fp32",)
+    want = ("mma_tf32x3", "fp32")
     assert flash.bodies_for(*qkv(dh=dh, dtype=F32)) == want
     assert flash_body(*qkv(dh=dh, dtype=F32)) == want[0]
 
@@ -97,6 +96,10 @@ def test_flash_counts_start_at_zero_by_body():
     assert flash.flash_attention_cuda.launches == 0
     assert flash.flash_attention_cuda.launches_by_body == {
         "sm90": 0, "mma": 0, "mma_tf32x3": 0, "fp32": 0}
+    flash.flash_attention_cuda.launches_by_head_dim["mma_tf32x3"][256] = 2
+    flash.reset_counts()
+    assert flash.flash_attention_cuda.launches_by_head_dim == {
+        "sm90": {}, "mma": {}, "mma_tf32x3": {}, "fp32": {}}
 
 
 def test_flash_misaligned_base_takes_mma():
@@ -606,30 +609,54 @@ def test_flash_bwd_body_by_dtype(dh, dtype, want):
 
 
 @pytest.mark.parametrize("B,S,H,K,dh,sms,want", [
-    (4, 512, 16, 1, 256, 132, 4),    # recurrentgemma-9b's step: 128 CTAs
+    (4, 512, 16, 1, 256, 132, 16),   # recurrentgemma-9b's step: 64 CTAs
     (16, 256, 8, 4, 64, 132, 1),     # the 100m step: 256 CTAs
-    (2, 256, 28, 4, 128, 132, 1),    # qwen2-7b's check: 4 x 4 x 2 x 2
-    (2, 256, 16, 1, 256, 132, 16),   # 4 x 4 x 2 = 32 CTAs: all 16 heads
+    (2, 256, 28, 4, 128, 132, 1),    # qwen2-7b's check: 4 x 4 x 1 x 2
+    (2, 256, 16, 1, 256, 132, 16),   # 8 x 2 = 16 CTAs: all 16 heads
     (1, 65, 16, 2, 80, 132, 1),      # dh 80: no split below dh 120
     (1, 65, 16, 2, 120, 132, 8),     # the whole group of 8
     (1, 300, 32, 32, 128, 132, 1),   # MHA: nothing to split
-    (4, 512, 16, 1, 256, 16, 1),     # a card of 16 SMs is full
+    (4, 512, 16, 1, 256, 16, 2),     # a card of 16 SMs: 128 CTAs fill it
+    (4, 512, 32, 8, 160, 132, 4),    # stablelm-12b: 256 CTAs, 2 an SM
     (2, 200, 6, 1, 160, 132, 2),     # a group of 6 halves, no further
 ])
 def test_flash_bwd_head_split_fills_the_card(B, S, H, K, dh, sms, want):
     """The dK/dV launch splits a KV head's query heads over CTAs only above
-    head dim 80 and where it has fewer CTAs than SMs, doubling while the
-    split divides the group, up to ``BWD_FILL`` CTAs an SM."""
+    head dim 80, doubling while the split divides the group, up to
+    ``BWD_FILL`` CTAs an SM."""
     split = flash.bwd_head_split(B, S, H, K, dh, sms)
     assert split == want and (H // K) % split == 0
 
 
 def test_flash_bwd_kv_slices_are_the_kernels():
-    """The dK/dV slices of the head dim, as csrc/flash_attention.cu's
-    BwdCfg cuts them: whole up to dh 80, then 64 columns (80 at 160)."""
-    assert set(flash.BWD_KV_SLICES) == set(flash.HEAD_DIMS)
-    assert [flash.BWD_KV_SLICES[d] for d in flash.HEAD_DIMS] == [
-        1, 1, 1, 1, 2, 2, 2, 4]
+    """The dK/dV launch's slices as csrc/flash_attention.cu cuts them:
+    of the keys only (BwdCfg up to dh 80, BwdPairCfg::kKvRows above), every
+    CTA accumulating every column of dK and dV, so that each full-width
+    product is formed once a pair of tiles (7, where the sliced body cut
+    the columns too and formed 9 at 120 / 128, 11 at 160 and 15 at 256)."""
+    assert set(flash.BWD_KV_TILE) == set(flash.HEAD_DIMS)
+    assert all(t in (32, 64) for t in flash.BWD_KV_TILE.values())
+
+
+@pytest.mark.parametrize("dh,want", [(16, 64), (32, 64), (64, 64), (80, 64),
+                                     (120, 64), (128, 64), (160, 64),
+                                     (256, 32)])
+def test_flash_bwd_kv_tile_by_head_dim(dh, want):
+    """64 keys a dK/dV CTA, 32 at dh 256, where 4 warps share each
+    16-key group to hold all 256 columns of dK and dV."""
+    assert flash.BWD_KV_TILE[dh] == want
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,want_ctas", [
+    (4, 512, 16, 1, 256, 1024),    # recurrentgemma-9b's step: 16 x 16 x 4
+    (4, 512, 32, 8, 160, 1024),    # stablelm-12b's heads: 8 x 8 x 4 x 4
+    (2, 256, 28, 4, 128, 32),      # qwen2-7b's check: a group of 7, no split
+])
+def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
+    """The dK/dV launch's CTAs on the pair kernels' grid: key tiles x KV
+    heads x head splits x batch, on a card of 132 SMs."""
+    split = flash.bwd_head_split(B, S, H, K, dh, 132)
+    assert -(-S // flash.BWD_KV_TILE[dh]) * K * split * B == want_ctas
 
 
 @pytest.mark.parametrize("dh", flash.SM90_HEAD_DIMS)

@@ -298,6 +298,8 @@ def test_split_tf32_rounds_as_cvt_rna():
     (1, 50, 4, 2, 80, dict(causal=True, chunk=16)),
     (1, 200, 4, 2, 128, dict(causal=True)),        # 128 terms a product
     (1, 100, 4, 1, 256, dict(causal=True, window=40)),   # 256, MQA
+    (1, 150, 8, 2, 120, dict(causal=True)),        # h2o-danube-3-4b, GQA 4
+    (1, 130, 4, 4, 160, dict(causal=True, chunk=48)),    # stablelm-12b
 ])
 def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
                                                        capsys):
@@ -347,13 +349,17 @@ def _share(got, want, t):
     (1, 130, 4, 2, 80, dict(causal=True, window=9)),
     (1, 130, 4, 2, 80, dict(causal=True, chunk=16)),
     (1, 70, 2, 2, 128, dict(causal=False)),
+    (1, 128, 8, 2, 160, dict(causal=True)),             # stablelm-12b, GQA
+    (1, 128, 4, 1, 256, dict(causal=True, window=40)),  # MQA, a window
+    (1, 90, 4, 1, 256, dict(causal=True)),              # ragged S
 ])
 def test_flash_fwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
                                                        capsys):
     """The fp32 forward's mma_tf32x3 body in plain torch
     (``mha_fwd_by_products`` with ``tf32x3_trunc``: Q·Kᵀ and P·V each from
     TF32 hi + lo splits by truncation and three products, the softmax
-    online over 32-key tiles in fp32, as the kernel runs dh <= 80)
+    online over 32-key tiles in fp32, as the kernel runs dh <= 80 and
+    160 / 256, where a pair of warps forms each tile's scores)
     against the JAX flash kernel in interpret mode and JAX's ``mha_ref`` at
     2e-5 (the Pallas kernel where its 64-row blocks divide S), and its
     log-sum-exp against a float64 evaluation; the same with operands cut
