@@ -20,9 +20,13 @@ Phases, each printed as one JSON line:
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
    the final state).  Flash attention at every head dim of the config
    registry, and the sm90 body (bf16, dh 128 and 256) at ragged S, GQA 7:1,
-   MQA 16:1, window and chunk edges, no causal mask and views of a fused
-   projection; rmsnorm's one-read body at D 768, 1536, 3584 and 4096 and
-   the generic body at an odd width; every RG-LRU case (S 1, 37, 512 and
+   MQA 16:1, window and chunk edges, no causal mask, views of a fused
+   projection and the MoE serves' prefill shapes (moonshot-v1-16b-a3b's
+   MHA 16/16, llama4-scout-17b-a16e's GQA 40/8 with its chunk of 8192 and
+   without), each at S 512 and a ragged 300; rmsnorm's one-read body at D
+   768, 1536, 2048, 3584, 4096 and 5120 (bf16; fp32 up to 4096) and the
+   generic body at an odd width and an fp32 row of 5120 (the MoE shapes
+   from a generator of their own); every RG-LRU case (S 1, 37, 512 and
    2176, W 4096 and 200, with and without h0) on both bodies (segmented
    against ``rglru_assoc``, serial against ``rglru_sequential``) and every
    SSD case on each body that takes it (bf16: mma and fma; fp32:
@@ -113,23 +117,35 @@ Phases, each printed as one JSON line:
    prompt (longer than its 2048-token window, so the ring cache rolls);
    mamba2-130m at all 24 layers, batch 2, a 1000-token prompt (not a
    multiple of the 128-token chunk, so the SSD kernel pads its last chunk
-   and hands its final state to the decode steps).
+   and hands its final state to the decode steps); moonshot-v1-16b-a3b at 4
+   layers, batch 2, prompt 128, and llama4-scout-17b-a16e at 4 layers (its
+   first superblock: 3 chunked-attention layers, 1 global NoPE one; 43.5
+   GB of fp32 weights, alone on the card), batch 1, prompt 512, both at a
+   capacity factor of ``num_experts`` (no capacity drops, which differ
+   between a forward pass and decode by design), each printing the
+   smallest top-k routing margin it met and the (token, layer) routes that
+   differ between the forward and the served tokens.
    Then ``ssd_bodies``: one bf16 mamba2-130m prefill wave (24 layers,
    batch 4, prompt 512) through the SSD scan's mma body and again with the
    fma body forced: the logits within ``SSD_BODIES_REL`` of the largest
    (beside the same wave through the plain phases with the fp32 operands
    split, and with them rounded to plain bf16).
 4. ``serve``, once per served arch: the full model (qwen2-7b 28 layers,
-   recurrentgemma-9b 38, mamba2-130m 24, bf16 weights and cache) through the
-   ``serve_batch`` wave loop: 12 requests, 3 waves of batch 4, 512-token
-   prompts, 32 greedy new tokens.  Every kernel's launch counter is reset
-   just before and must equal the analytic count just after, by body too:
-   every flash launch on the sm90 body, every rmsnorm launch on the
-   one-read body, every SSD launch on the mma body, RG-LRU prefill on the
-   segmented body and decode on the serial body.
+   recurrentgemma-9b 38, mamba2-130m 24, moonshot-v1-16b-a3b 48; bf16
+   weights and cache), and llama4-scout-17b-a16e cut to 4 layers (its line
+   says so in ``reduced``), through the ``serve_batch`` wave loop: 12
+   requests, 3 waves of batch 4, 512-token prompts, 32 greedy new tokens.
+   Every kernel's launch counter is reset just before and must equal the
+   analytic count just after, by body too: every flash launch on the sm90
+   body, every rmsnorm launch on the one-read body, every SSD launch on
+   the mma body, RG-LRU prefill on the segmented body and decode on the
+   serial body.
 5. ``profile``, after each serve: one more prefill wave and 8 decode steps
    under ``torch.profiler``: wall time, summed kernel time, the card's idle
-   share and the costliest kernels.
+   share and the costliest kernels; for the MoE models split into the
+   routing bookkeeping, the router's product, the expert products, the
+   experts' elementwise ops (activation, g·u, the trash slot's pad), the
+   shared expert, flash attention, rmsnorm and the host gap.
 6. ``train_check``: one train step of the 100m preset at 2 layers, fp32,
    on the card against the same step on the CPU (same weights, same
    ``SyntheticLM`` batch): loss and gradients within ``TRAIN_REL``, the
@@ -147,8 +163,10 @@ Phases, each printed as one JSON line:
    qwen2-7b, as the 100m's (fp32, the same checks and limits): mamba2-130m
    at 2 layers and full width, recurrentgemma-9b at 3 layers (its first
    superblock, attention at head dim 256) narrowed to
-   ``RGEMMA_CHECK_WIDTH`` and qwen2-7b at 2 layers (head dim 128) narrowed
-   to ``QWEN2_CHECK_WIDTH``, all batch 2 x 256.
+   ``RGEMMA_CHECK_WIDTH``, qwen2-7b at 2 layers (head dim 128) narrowed
+   to ``QWEN2_CHECK_WIDTH`` and moonshot-v1-16b-a3b at 2 layers narrowed to
+   ``MOONSHOT_CHECK_WIDTH`` (64 experts, top-6, printing its routing margin
+   and flipped routes), all batch 2 x 256.
 8. ``train_mamba2``: mamba2-130m at full width and depth (24 SSD layers,
    fp32) through the port's launcher, ``python -m repro_torch.launch.train
    --arch mamba2-130m --steps 100 --batch 8 --seq 1024 --ckpt-every 25
@@ -171,9 +189,9 @@ Phases, each printed as one JSON line:
    family.
 
 Then a ``kernels`` summary line (launches summed over the serve and train
-phases, and per path: each serve, train-100m, train-mamba2,
-train-rgemma-3l), the card's name and power limit as ``nvidia-smi``
-prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
+phases, and per path: each serve (the two MoE configs too), train-100m,
+train-mamba2, train-rgemma-3l), the card's name and power limit as
+``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
 exits non-zero; so does a machine without a card.
 """
 import argparse
@@ -210,7 +228,17 @@ SERVE_REL = 2e-4
 # relative to the leaf's largest value (the JAX suite's decode-vs-forward
 # bound, tests/test_models.py)
 TRAIN_REL = 2e-4
-ARCHS = ("qwen2-7b", "recurrentgemma-9b", "mamba2-130m")
+# the serve phase's models, each (arch, layers, the cut): the dense and
+# recurrent ones whole, then the MoE configs, moonshot-v1-16b-a3b whole
+# (57.78 GB of bf16 weights) and llama4-scout-17b-a16e cut to its first
+# superblock (3 chunked-attention layers and 1 global NoPE one)
+SERVES = (
+    ("qwen2-7b", None, None),
+    ("recurrentgemma-9b", None, None),
+    ("mamba2-130m", None, None),
+    ("moonshot-v1-16b-a3b", None, None),
+    ("llama4-scout-17b-a16e", 4,
+     "num_layers 48→4: 215.5 GB of bf16 weights exceed one 80 GB card"))
 
 
 def emit(phase: str, **kw):
@@ -383,7 +411,13 @@ def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
     for the last position only) over the bf16 peak, plus the work the
     references keep in fp32 over the fp32 peak: the RG-LRU's two
     block-diagonal gates; the SSD scans count as the served (mma) body runs
-    them, on the bf16 tensor cores (``ssd_split_macs``)."""
+    them, on the bf16 tensor cores (``ssd_split_macs``).  An MoE layer
+    counts its active parameters (the router, the top-k experts of each
+    token, the shared expert): the stacked expert products also run the
+    capacity buffers' empty slots (E x C slots a row at a capacity factor
+    of 1.25, so up to 1.25x the routed pairs), which lie above this bound,
+    as the decode step's E x 1 slots lie above the weights-read bound of
+    decode."""
     tokens = batch * prompt
     lm_head = cfg.vocab_size * cfg.d_model
     body = cfg.active_param_count() - lm_head * (1 if cfg.tie_embeddings
@@ -547,22 +581,28 @@ def phase_kernels(dev, gen, seed):
     # body, and an odd width (a 260-byte bf16 row) through the generic one;
     # decode rows (4) and prefill rows (4·512)
     eps = 1e-6
-    for D in (768, 1536, 3584, 4096, 130):
+
+    def rms_cases(D, rnd):
         for dtype in (torch.float32, torch.bfloat16):
             for rows in (4, 4 * 512):
-                x, s, r = randn(rows, D, dtype=dtype), randn(D, dtype=dtype), \
-                    randn(rows, D, dtype=dtype)
+                x, s, r = rnd(rows, D, dtype=dtype), rnd(D, dtype=dtype), \
+                    rnd(rows, D, dtype=dtype)
                 for res in (None, r):
                     body = rms_body(x, s, res)[0]
                     err, ok = compare(
                         rmsnorm_cuda(x, s, eps=eps, residual=res),
                         rmsnorm_ref(x, s, eps=eps, residual=res), dtype)
-                    want_body = "generic" if D == 130 else "one_read"
+                    want_body = ("generic" if D == 130 or D * x.itemsize
+                                 > 16 * 32 * rms.VECTORS_PER_LANE[-1]
+                                 else "one_read")
                     cases.append(dict(kernel="rmsnorm", body=body,
                                       dtype=str(dtype), rows=rows, D=D,
                                       residual=res is not None,
                                       max_abs_err=err, tol=TOL[dtype],
                                       ok=ok and body == want_body))
+
+    for D in (768, 1536, 3584, 4096, 130):
+        rms_cases(D, randn)
     timings, mark = {}, len(PROFILER_WINDOWS)
     # prefill rows at D 3584 first: the summary's shape
     for rows, D in ((4 * 512, 3584), (4, 3584), (4 * 512, 768),
@@ -644,16 +684,45 @@ def phase_kernels(dev, gen, seed):
             attn_case(randn(B, S, H, dh, dtype=dtype),
                       randn(B, S, K, dh, dtype=dtype),
                       randn(B, S, K, dh, dtype=dtype), kw)
+
+    def sm90_case(B, S, H, K, dh, kw, rnd, **info):
+        attn_case(rnd(B, S, H, dh, dtype=torch.bfloat16),
+                  rnd(B, S, K, dh, dtype=torch.bfloat16),
+                  rnd(B, S, K, dh, dtype=torch.bfloat16), kw, "sm90", **info)
+
     for B, S, H, K, dh, kw in sm90_cases:
-        attn_case(randn(B, S, H, dh, dtype=torch.bfloat16),
-                  randn(B, S, K, dh, dtype=torch.bfloat16),
-                  randn(B, S, K, dh, dtype=torch.bfloat16), kw, "sm90")
+        sm90_case(B, S, H, K, dh, kw, randn)
     for H, K, dh in ((28, 4, 128), (16, 1, 256)):
         # q, k, v as views of one fused projection, read through strides
         qkv = randn(2, 300, (H + 2 * K) * dh, dtype=torch.bfloat16)
         q, k, v = (t.unflatten(-1, (-1, dh))
                    for t in qkv.split([H * dh, K * dh, K * dh], dim=-1))
         attn_case(q, k, v, dict(causal=True), "sm90", fused_views=True)
+    # the MoE serves' shapes, from a generator of their own so the later
+    # phases draw what they drew before: rmsnorm at moonshot-v1-16b-a3b's D
+    # 2048 and llama4-scout-17b-a16e's 5120 (bf16: one-read, 20 of its 32
+    # vectors a lane in use; an fp32 row of 5120, 20 KB, is past the
+    # body's 16 KB and takes the generic one); the sm90 body at their
+    # prefill shapes and a ragged S of each: moonshot's MHA 16/16,
+    # llama4's GQA 40/8 in its chunked layers (chunk 8192) and its global
+    # NoPE one
+    moe_gen = torch.Generator(device=dev).manual_seed(seed + 4)
+
+    def moe_randn(*shape, dtype):
+        return torch.randn(shape, generator=moe_gen, device=dev).to(dtype)
+
+    for D in (2048, 5120):
+        rms_cases(D, moe_randn)
+    for arch, (B, S, H, K, dh, kw) in (
+            ("moonshot-v1-16b-a3b", (4, 512, 16, 16, 128, dict(causal=True))),
+            ("moonshot-v1-16b-a3b", (1, 300, 16, 16, 128, dict(causal=True))),
+            ("llama4-scout-17b-a16e",
+             (4, 512, 40, 8, 128, dict(causal=True, chunk=8192))),
+            ("llama4-scout-17b-a16e",
+             (1, 300, 40, 8, 128, dict(causal=True, chunk=8192))),
+            ("llama4-scout-17b-a16e",
+             (4, 512, 40, 8, 128, dict(causal=True)))):
+        sm90_case(B, S, H, K, dh, kw, moe_randn, arch=arch)
     timings, mark = {}, len(PROFILER_WINDOWS)
     for arch, (B, S, H, K, dh, kw) in zip(("qwen2-7b", "recurrentgemma-9b"),
                                           attn_cases[:2]):
@@ -1801,16 +1870,33 @@ def scan_backward_kernels(dev, gen, cases, summary):
         summary["rglru_bwd"]["shape"]: summary["rglru_bwd"]})
 
 
+def route_stats(pairs, records, k: int) -> dict:
+    """The smallest top-k margin p_(k) - p_(k+1) over ``records`` ((probs,
+    sel) of every MoE call) and the (token, layer) routes that differ
+    between the two runs of each pair of ``sel``: a route that flips at a
+    near-tie changes the expert, and the error then looks like a fault."""
+    from repro_torch.models.blocks import routes_differ, topk_margin
+    return dict(route_margin=min(topk_margin(p, k) for p, _ in records),
+                routes_differ=sum(routes_differ(a, b) for a, b in pairs))
+
+
 def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
                       n_dec: int = 8):
+    """Decode against forward at full width, fp32.  An MoE config runs at a
+    capacity factor of ``num_experts`` (no drops: capacity drops differ
+    between a forward pass and decode by design, as in the JAX suite's
+    test) and prints its routing margin and flipped routes."""
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward_train, init_cache,
                                     init_params, prefill)
+    from repro_torch.models.blocks import record_routes, routes_by_layer
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
     params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
     toks = torch.randint(0, cfg.vocab_size, (B, P + n_dec), generator=gen,
                          device=dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), record_routes() as routes:
         full, _ = forward_train(params, {"tokens": toks}, cfg,
                                 dtype=torch.float32)
         cache = init_cache(cfg, B, P + n_dec + 8, torch.float32, device=dev)
@@ -1824,15 +1910,20 @@ def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
     scale = float(full.abs().max())
     rel = float(torch.stack(errs).max()) / scale
     finite = bool(torch.isfinite(full).all())
+    moe = route_stats(routes_by_layer(routes, n_dec + 2), routes,
+                      cfg.experts_per_token) if routes else {}
     emit("serve_check", arch=arch, layers=cfg.num_layers, dtype="float32",
          batch=B, prompt=P, window=cfg.window, decode_steps=n_dec,
-         max_rel_err=rel, bound=SERVE_REL, finite=finite)
+         max_rel_err=rel, bound=SERVE_REL, finite=finite, **moe)
     check(finite and rel < SERVE_REL,
           f"serve_check {arch}: decode vs forward rel err {rel} "
-          f"(bound {SERVE_REL})")
+          f"(bound {SERVE_REL}) {moe}")
 
 
-def phase_serve(dev, gen, seed, arch: str):
+def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
+                reduced: str | None = None):
+    """The full model (or cut to ``layers``, the cut said in ``reduced``)
+    in bf16 through the wave loop; launches against their analytic count."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -1847,6 +1938,8 @@ def phase_serve(dev, gen, seed, arch: str):
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     batch, requests, prompt_len, max_new = 4, 12, 512, 32
     max_len = prompt_len + max_new + 8
     dtype = torch.bfloat16
@@ -1896,19 +1989,22 @@ def phase_serve(dev, gen, seed, arch: str):
     kinds = cfg._layer_kinds()
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     # rmsnorm, in prefill and decode: norm1 of every layer, norm2 of every
-    # layer with an FFN, the gated norm of every SSD layer, the final norm;
+    # layer with an FFN or an MoE, the gated norm of every SSD layer, the
+    # final norm;
     # flash attention: prefill only (decode attention over the cache is
     # mha_ref, as in the JAX package); RG-LRU: prefill (the segmented body)
     # and decode (the serial body); SSD: prefill only, bf16, so the mma body
     # (decode is ssd_decode_step, as in the JAX package)
-    norms = (len(kinds) + (len(kinds) if cfg.d_ff else 0)
-             + kinds.count("ssd") + 1)
+    norm2 = sum(bool(cfg.d_ff or (cfg.num_experts and i >= cfg.first_k_dense))
+                for i in range(len(kinds)))
+    norms = len(kinds) + norm2 + kinds.count("ssd") + 1
     want = {"rmsnorm": norms * (waves + steps),
             "flash_attention": n_attn * waves,
             "rglru": kinds.count("rglru") * (waves + steps),
             "ssd": kinds.count("ssd") * waves}
     tokens = torch.cat(outs)
-    emit("serve", arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+    emit("serve", arch=cfg.name, layers=cfg.num_layers,
+         **({"reduced": reduced} if reduced else {}), dtype="bfloat16",
          requests=requests, waves=waves, batch=batch, prompt=prompt_len,
          new_tokens=max_new, init_s=init_s, prefill_ms=prefill_ms,
          prefill_bound_ms=prefill_bound_ms(cfg, batch, prompt_len),
@@ -2034,21 +2130,25 @@ def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
     within 1e-6 of the largest; the card's own updated parameters within 2
     lr of the CPU's (AdamW's g / (|g| + eps) turns a gradient difference
     near eps into a whole step), with their largest difference printed.
-    ``label`` goes into the line."""
+    An MoE config also prints the smallest top-k margin of either run and
+    the (token, layer) routes that differ between them.  ``label`` goes
+    into the line."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_params
+    from repro_torch.models.blocks import record_routes
     from repro_torch.optim import adamw_update, init_opt_state
     from repro_torch.train.steps import make_loss_and_grad, make_train_step
     params = init_params(cfg, device="cpu", dtype=torch.float32,
                          generator=torch.Generator().manual_seed(seed))
     data = next(iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed)))
     lr = torch.tensor(1e-3)
-    out = {}
+    out, routes = {}, {}
     for d in ("cpu", dev):
         prm = _to(params, d)
         b = {k: torch.from_numpy(v).to(d) for k, v in data.items()}
         t0 = time.monotonic()
-        total, _, grads = make_loss_and_grad(cfg, tc)(prm, b)
+        with record_routes() as routes[str(d)]:
+            total, _, grads = make_loss_and_grad(cfg, tc)(prm, b)
         new_p, _, _ = make_train_step(cfg, tc)(prm, init_opt_state(prm), b,
                                                lr)
         out[str(d)] = dict(loss=float(total), grads=_to(grads, "cpu"),
@@ -2073,18 +2173,22 @@ def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
     adamw_rel = rel(_to(on_cpu_grads, "cpu"), cpu["new"])
     param_abs = max(float((x - y).abs().max())
                     for x, y in pairs(card["new"], cpu["new"]))
+    on_cpu, on_card = routes["cpu"], routes[str(dev)]
+    moe = route_stats([(a[1], b[1]) for a, b in zip(on_cpu, on_card)],
+                      on_cpu + on_card, cfg.experts_per_token) \
+        if on_cpu else {}
     emit("train_check", **label, layers=cfg.num_layers, d_model=cfg.d_model,
          params=cfg.param_count(), dtype="float32", batch=batch, seq=seq,
          loss_cpu=cpu["loss"], loss_card=card["loss"], loss_rel_err=loss_rel,
          grad_max_rel_err=grad_rel, adamw_on_cpu_grads_rel_err=adamw_rel,
          param_max_abs_err=param_abs, param_bound=2 * float(lr),
          param_rel_err=rel(card["new"], cpu["new"]), tol=TRAIN_REL,
-         cpu_s=cpu["s"], card_s=card["s"])
+         cpu_s=cpu["s"], card_s=card["s"], **moe)
     check(loss_rel < TRAIN_REL and grad_rel < TRAIN_REL and adamw_rel < 1e-6
           and param_abs <= 2 * float(lr),
           f"train_check {label}: loss {loss_rel}, grads {grad_rel}, adamw "
           f"{adamw_rel}, params {param_abs} (limits {TRAIN_REL}, 1e-6, "
-          f"{2 * float(lr)})")
+          f"{2 * float(lr)}) {moe}")
 
 
 # the widths of the card-against-CPU steps of recurrentgemma-9b and
@@ -2095,14 +2199,21 @@ def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
 RGEMMA_CHECK_WIDTH = dict(d_model=1024, lru_width=1024, d_ff=3072,
                           head_dim=256)
 QWEN2_CHECK_WIDTH = dict(d_model=1024, d_ff=3072, head_dim=128)
+# moonshot-v1-16b-a3b's step at 2 layers is 1.85 B parameters at full
+# width; narrowed like qwen2-7b's (head dim 128), its experts kept whole:
+# 64 of them, top-6, expert d_ff 1408, the shared expert's 2816
+MOONSHOT_CHECK_WIDTH = dict(d_model=1024, num_heads=8, num_kv_heads=8,
+                            head_dim=128)
 
 
 def train_checks(dev, seed):
     """``phase_train_check`` of the 100m preset at 2 layers (its own batch,
     16 x 256, and the example's step settings), and of mamba2-130m (full
     width) at 2 layers, recurrentgemma-9b (``RGEMMA_CHECK_WIDTH``) at 3
-    layers (rglru, rglru, attn_local: one superblock) and qwen2-7b
-    (``QWEN2_CHECK_WIDTH``) at 2 layers, batch 2 x 256 (two 128-token SSD
+    layers (rglru, rglru, attn_local: one superblock), qwen2-7b
+    (``QWEN2_CHECK_WIDTH``) and moonshot-v1-16b-a3b
+    (``MOONSHOT_CHECK_WIDTH``: the gradient through the MoE's scatter,
+    gather and aux loss) at 2 layers, batch 2 x 256 (two 128-token SSD
     chunks), ``TrainConfig(float32)``."""
     from repro_torch.configs import get_config
     from repro_torch.train.steps import TrainConfig
@@ -2113,7 +2224,8 @@ def train_checks(dev, seed):
     for arch, layers, narrowed in (
             ("mamba2-130m", 2, {}),
             ("recurrentgemma-9b", 3, RGEMMA_CHECK_WIDTH),
-            ("qwen2-7b", 2, QWEN2_CHECK_WIDTH)):
+            ("qwen2-7b", 2, QWEN2_CHECK_WIDTH),
+            ("moonshot-v1-16b-a3b", 2, MOONSHOT_CHECK_WIDTH)):
         cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   **narrowed)
         phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
@@ -2642,11 +2754,88 @@ MAMBA2_GROUPS = {
 }
 
 
-def _profiled(fn, groups=None) -> dict:
+# the serve profile of an MoE model: the port's kernels by name; the MoE
+# block's kernels by the profiler ranges ``_moe_span`` puts around it and
+# around its experts and shared expert (see ``_span_split``)
+MOE_GROUPS = {"flash_attention": ("flash_attn_",), "rmsnorm": ("rmsnorm",)}
+MOE_SPAN = "moe_forward"
+# the ranges inside ``MOE_SPAN``: the functions of ``repro_torch.models.
+# blocks`` that ``moe_forward`` calls, by range
+MOE_RANGES = {"moe_experts": "expert_ffn", "moe_shared_expert": "gated_mlp"}
+
+
+def _span_split(prof, span: str) -> dict:
+    """Device ms and launches of the kernels launched inside the profiler
+    range ``span``, by the range and the outermost aten op under ``span``
+    that launched them: inside ``moe_experts`` the expert products
+    (``aten::einsum``) and the experts' elementwise ops (the activation,
+    g·u, the pad that restores the trash slot); inside ``moe_shared_expert``
+    the shared expert (its products and elementwise ops); outside both the
+    router's product (``aten::matmul``) and the rest, the routing
+    bookkeeping (softmax, topk, the stable sort, searchsorted, the
+    gathers, scatters and ``index_put_``, the dispatch buffer's zero fill,
+    the combine's weighting and sum over k, the aux loss)."""
+    from torch.autograd import DeviceType
+    out = {k: dict(ms=0.0, launches=0) for k in (
+        "expert_products", "expert_elementwise", "shared_expert",
+        "router_product", "router_bookkeeping")}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, parent = [], e
+        while parent is not None:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        if span not in chain:
+            continue
+        inner = chain[:chain.index(span)]
+        below = [n for n in inner if n.startswith("aten::")]
+        top = below[-1] if below else ""
+        part = ("shared_expert" if "moe_shared_expert" in inner else
+                ("expert_products" if top == "aten::einsum" else
+                 "expert_elementwise") if "moe_experts" in inner else
+                "router_product" if top == "aten::matmul" else
+                "router_bookkeeping")
+        out[part]["ms"] += sum(k.duration for k in e.kernels) / 1e3
+        out[part]["launches"] += len(e.kernels)
+    return out
+
+
+def _moe_span(fn):
+    """``fn`` with every ``moe_forward`` call inside the profiler range
+    ``MOE_SPAN``, and the functions of ``MOE_RANGES`` inside theirs (module
+    attributes that ``apply_block`` and ``moe_forward`` call, swapped for
+    the call and put back; ``gated_mlp``'s range outside ``MOE_SPAN``, the
+    dense layers', is not read)."""
+    from repro_torch.models import blocks
+    names = {MOE_SPAN: "moe_forward", **MOE_RANGES}
+    inner = {fname: getattr(blocks, fname) for fname in names.values()}
+
+    def traced(label, f):
+        def call(*args, **kw):
+            with torch.profiler.record_function(label):
+                return f(*args, **kw)
+        return call
+
+    def run():
+        for label, fname in names.items():
+            setattr(blocks, fname, traced(label, inner[fname]))
+        try:
+            return fn()
+        finally:
+            for fname, f in inner.items():
+                setattr(blocks, fname, f)
+
+    return run
+
+
+def _profiled(fn, groups=None, span=None) -> dict:
     """Wall time, summed kernel time, idle share and the costliest kernels
     of one call, from torch.profiler (device time "not measured" if the
     trace holds no kernel); with ``groups`` ({label: name parts}), each
-    group's device ms, launches and share of the wall time."""
+    group's device ms, launches and share of the wall time; with ``span``
+    (a profiler range in ``fn``), ``_span_split`` of it; ``host_gap_ms``
+    is the wall time the card was idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2656,15 +2845,21 @@ def _profiled(fn, groups=None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    # the ranges show on the card's timeline too (as user annotations
+    # spanning their kernels): not kernels, so not counted
+    ranges = {span, *MOE_RANGES} if span else set()
     kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)
+                      and e.self_device_time_total > 0
+                      and e.key not in ranges),
+                     reverse=True)
     if not kernels:
         return dict(wall_ms=wall_ms, device_ms="not measured")
     device_ms = sum(k[0] for k in kernels)
     out = dict(wall_ms=wall_ms, device_ms=device_ms,
                idle_share=1 - device_ms / wall_ms,
+               host_gap_ms=wall_ms - device_ms,
                top=[dict(ms=ms, count=n, kernel=name[:80])
                     for ms, n, name in kernels[:8]])
     if groups:
@@ -2675,13 +2870,20 @@ def _profiled(fn, groups=None) -> dict:
             ms = sum(h[0] for h in hit)
             out["groups"][label] = dict(ms=ms, launches=sum(h[1] for h in hit),
                                         share_of_wall=ms / wall_ms)
+    if span:
+        for label, part in _span_split(prof, span).items():
+            out.setdefault("groups", {})[label] = dict(
+                part, share_of_wall=part["ms"] / wall_ms)
     return out
 
 
 def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
     """Where the serve phase's time goes: one prefill wave and ``n_dec``
     decode steps again, under the profiler (after the launch counts were
-    read, so they do not count)."""
+    read, so they do not count).  An MoE model's are split into the
+    routing bookkeeping, the router's product, the expert products, the
+    experts' elementwise ops, the shared expert, flash attention, rmsnorm
+    and the host gap."""
     from repro_torch.models import init_cache
     with torch.inference_mode():
         cache = init_cache(cfg, toks.shape[0], max_len, torch.bfloat16,
@@ -2696,8 +2898,14 @@ def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
             for _ in range(n_dec):
                 tok, _, _ = dec(params, tok, cache)
 
-        emit("profile", arch=cfg.name, prefill=_profiled(run_prefill),
-             decode_steps=n_dec, decode=_profiled(run_decode))
+        if cfg.num_experts:
+            split = dict(groups=MOE_GROUPS, span=MOE_SPAN)
+            run_prefill, run_decode = (_moe_span(run_prefill),
+                                       _moe_span(run_decode))
+        else:
+            split = {}
+        emit("profile", arch=cfg.name, prefill=_profiled(run_prefill, **split),
+             decode_steps=n_dec, decode=_profiled(run_decode, **split))
 
 
 def _leaves(tree):
@@ -2725,13 +2933,21 @@ def main() -> int:
     phase_serve_check(dev, gen, "qwen2-7b", layers=4, B=2, P=128)
     phase_serve_check(dev, gen, "recurrentgemma-9b", layers=3, B=1, P=2176)
     phase_serve_check(dev, gen, "mamba2-130m", layers=24, B=2, P=1000)
+    phase_serve_check(dev, gen, "moonshot-v1-16b-a3b", layers=4, B=2, P=128)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 43.5 GB of fp32 weights: nothing else resident
+    phase_serve_check(dev, gen, "llama4-scout-17b-a16e", layers=4, B=1,
+                      P=512)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_ssd_bodies(dev, gen)
     launches, by_body = {}, {}
-    for arch in ARCHS:
+    for arch, layers, reduced in SERVES:
         gc.collect()
         torch.cuda.empty_cache()
-        launches[arch], by_body[arch], served = phase_serve(dev, gen,
-                                                            args.seed, arch)
+        launches[arch], by_body[arch], served = phase_serve(
+            dev, gen, args.seed, arch, layers, reduced)
         phase_profile(dev, *served)
         del served          # free this model's weights before the next one
     gc.collect()
@@ -2776,7 +2992,7 @@ def main() -> int:
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry["launches_by_body"] = {
             body: sum(b[name][body] for b in by_body.values())
-            for body in by_body[ARCHS[0]][name]}
+            for body in by_body[SERVES[0][0]][name]}
     print(json.dumps({"kernels": list(summary.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Block contract:
 
-    apply_block(kind, params, x, ctx, cache) -> x_out
+    apply_block(kind, params, x, ctx, cache) -> (x_out, aux_loss)
 
 where ``ctx`` carries positions, rotary tables and the config.
 ``cache=None`` means a full-sequence forward with no state; otherwise
@@ -11,11 +11,13 @@ reference returns a new cache; writing the slots in place saves a copy of
 the cache per layer and step).
 
 This port covers the attention kinds and the RG-LRU mixer, each with a
-dense gated FFN, and the mixer-only Mamba-2 (SSD) layer.  MoE waits for a
-later slice and raises ``NotImplementedError``.
+dense gated FFN or a routed mixture of experts, and the mixer-only Mamba-2
+(SSD) layer.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -76,6 +78,22 @@ def init_ffn(cfg: ModelConfig, d_ff: int, *, lead: tuple = (), device, dtype,
         "up": trunc_normal((D, d_ff), D, **init),
         "down": trunc_normal((d_ff, D), d_ff, **init),
     }
+
+
+def init_moe(cfg: ModelConfig, *, lead: tuple = (), device, dtype,
+             generator: torch.Generator) -> dict:
+    D, E = cfg.d_model, cfg.num_experts
+    dff = cfg.moe_dff or cfg.d_ff
+    init = dict(lead=lead, device=device, dtype=dtype, generator=generator)
+    p = {
+        "router": trunc_normal((D, E), D, **init),
+        "w_gate": trunc_normal((E, D, dff), D, **init),
+        "w_up": trunc_normal((E, D, dff), D, **init),
+        "w_down": trunc_normal((E, dff, D), dff, **init),
+    }
+    if cfg.shared_expert_dff:
+        p["shared"] = init_ffn(cfg, cfg.shared_expert_dff, **init)
+    return p
 
 
 def init_rglru(cfg: ModelConfig, *, lead: tuple = (), device, dtype,
@@ -228,6 +246,125 @@ def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
 
 
 # ---------------------------------------------------------------------------
+# MoE block (scatter-based dispatch with a capacity per expert)
+# ---------------------------------------------------------------------------
+
+_ROUTES: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Collect ``(probs (B,S,E) fp32, sel (B,S,k))`` of every ``moe_forward``
+    call inside the block, in call order (layer by layer), detached."""
+    global _ROUTES
+    outer, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = outer
+
+
+def topk_margin(probs: torch.Tensor, k: int) -> float:
+    """The smallest p_(k) - p_(k+1) over all tokens: how near the k-th and
+    the (k+1)-th expert come to swapping places."""
+    top = torch.topk(probs.float(), k + 1, dim=-1)[0]
+    return float((top[..., k - 1] - top[..., k]).min())
+
+
+def routes_differ(sel_a: torch.Tensor, sel_b: torch.Tensor) -> int:
+    """Tokens whose sets of chosen experts differ (order within a token is
+    not compared)."""
+    a = torch.sort(sel_a.cpu(), dim=-1)[0]
+    b = torch.sort(sel_b.cpu(), dim=-1)[0]
+    return int((a != b).any(-1).sum())
+
+
+def routes_by_layer(routes: list, n_runs: int) -> list:
+    """``record_routes``' records of one forward pass, then of a prefill and
+    its decode steps (``n_runs`` passes in all, each over the MoE layers in
+    order), as (the forward's sel, the served sel joined along the
+    sequence) for each MoE layer: the pairs to hand to ``routes_differ``."""
+    n_moe = len(routes) // n_runs
+    fwd, served = routes[:n_moe], routes[n_moe:]
+    return [(fwd[i][1], torch.cat([r[1] for r in served[i::n_moe]], dim=1))
+            for i in range(n_moe)]
+
+
+def expert_ffn(p: dict, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """The stacked experts' gated FFN over a dispatch buffer (B,E,C+1,D):
+    the C slots of every expert through three products over all E experts;
+    the trash slot C comes back as zeros."""
+    h = buf[:, :, :-1]                                             # (B,E,C,D)
+    g = act_fn(act)(torch.einsum("becd,edf->becf", h,
+                                 p["w_gate"].to(buf.dtype)))
+    u = torch.einsum("becd,edf->becf", h, p["w_up"].to(buf.dtype))
+    y = torch.einsum("becf,efd->becd", g * u, p["w_down"].to(buf.dtype))
+    return F.pad(y, (0, 0, 0, 1))                      # restore slot C
+
+
+def moe_forward(p: dict, x: torch.Tensor, ctx: dict):
+    """x (B,S,D) -> (y (B,S,D), aux_loss fp32).  Each batch row is a
+    dispatch group; capacity bounds each expert's buffer, and a (token,
+    expert) pair past it is dropped (the reference's function, step for
+    step).  ``torch.topk`` leaves the order of exactly tied probabilities
+    unspecified where ``jax.lax.top_k`` takes the lower index first; random
+    fp32 weights give no exact ties, and no tie-breaking is added here that
+    the reference lacks."""
+    cfg: ModelConfig = ctx["cfg"]
+    B, S, D = x.shape
+    E, kk = cfg.num_experts, cfg.experts_per_token
+    T = S * kk
+    C = max(min(math.ceil(T * cfg.capacity_factor / E), T), 1)
+    dev = x.device
+
+    # the router in x's dtype, then fp32, as the reference computes it
+    probs = torch.softmax(dense(x, p["router"]).float(), dim=-1)  # (B,S,E)
+    w, sel = torch.topk(probs, kk, dim=-1)                         # (B,S,k)
+    w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    if _ROUTES is not None:
+        _ROUTES.append((probs.detach(), sel.detach()))
+
+    # ---- slot bookkeeping: the rank of each (token, k) within its expert,
+    # from a stable sort of the expert ids (so ranks follow token order)
+    e_flat = sel.reshape(B, T)
+    order = torch.argsort(e_flat, dim=1, stable=True)
+    e_sorted = torch.gather(e_flat, 1, order)
+    experts = torch.arange(E, device=dev).expand(B, E).contiguous()
+    seg_start = torch.searchsorted(e_sorted, experts)              # (B,E)
+    ranks_sorted = (torch.arange(T, device=dev)[None]
+                    - torch.gather(seg_start, 1, e_sorted))
+    ranks = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
+    keep = ranks < C
+    pos = torch.where(keep, ranks, C)                  # overflow -> slot C
+
+    # ---- dispatch: buf (B,E,C+1,D); slot C is the overflow trash slot.
+    # Pairs dropped into it share one index, which index_put_ writes in no
+    # set order on the card; the slot is never read, so y does not depend
+    # on it (and its gradient there is zero)
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, T)
+    buf = x.new_zeros(B, E, C + 1, D)
+    buf.index_put_((bidx, e_flat, pos), x.repeat_interleave(kk, dim=1))
+
+    y_e = expert_ffn(p, buf, cfg.act)
+
+    # ---- combine
+    gathered = y_e[bidx, e_flat, pos]                              # (B,T,D)
+    wk = (w.reshape(B, T) * keep).to(x.dtype)
+    y = (gathered * wk[..., None]).reshape(B, S, kk, D).sum(2)
+
+    if "shared" in p:
+        y = y + gated_mlp(x, p["shared"], cfg.act)
+
+    # ---- Switch-style load-balance aux loss (top-k picks distinct
+    # experts, so the one-hot of sel has no count above one per token)
+    chosen = torch.zeros(B, S, E, device=dev).scatter_(2, sel, 1.0)
+    frac_tokens = chosen.mean((0, 1))
+    frac_probs = probs.mean((0, 1))
+    aux = E * (frac_tokens * frac_probs).sum()
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
 # RG-LRU block
 # ---------------------------------------------------------------------------
 
@@ -299,12 +436,12 @@ def ssd_forward(p: dict, x: torch.Tensor, ctx: dict,
 
 def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
                 cache: Optional[dict] = None):
-    """One full layer: mixer + dense gated FFN (none for mixer-only
-    layers), pre-norm residuals."""
+    """One full layer: mixer + dense gated FFN or MoE (neither for
+    mixer-only layers), pre-norm residuals.  Returns (x, aux_loss): the
+    MoE's load-balance loss (fp32), the number 0.0 for a layer without one
+    (no tensor made on the card per layer)."""
     cfg: ModelConfig = ctx["cfg"]
-    if "moe" in p:
-        raise NotImplementedError("MoE blocks wait for a later slice of the "
-                                  "port")
+    aux = 0.0
     h = rmsnorm(x, p["norm1"], eps=cfg.norm_eps)
     if kind in ATTN_KINDS:
         mixed = attn_forward(p["mixer"], h, kind, ctx, cache)
@@ -315,7 +452,11 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
     else:
         raise ValueError(kind)
     x = x + mixed
-    if "ffn" in p:
+    if "moe" in p or "ffn" in p:
         h = rmsnorm(x, p["norm2"], eps=cfg.norm_eps)
-        x = x + gated_mlp(h, p["ffn"], cfg.act)
-    return x
+        if "moe" in p:
+            y, aux = moe_forward(p["moe"], h, ctx)
+        else:
+            y = gated_mlp(h, p["ffn"], cfg.act)
+        x = x + y
+    return x, aux

@@ -17,7 +17,9 @@ Public entry points:
 Weights are cast to the serving dtype once, at init or load
 (``bridge.params_from_numpy``), in place of the reference's per-call
 ``cast_tree``: the same arithmetic.  The cache is updated in place and
-``cache["t"]`` (tokens already in the cache) is a Python int.
+``cache["t"]`` (tokens already in the cache) is a Python int.  ``aux`` is
+the MoE load-balance loss summed over the layers in fp32 (0 for a model
+without MoE); prefill and decode discard it, as the reference does.
 """
 from __future__ import annotations
 
@@ -31,9 +33,6 @@ from .rope import rope_cos_sin
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks wait for a later slice of the port")
     if cfg.modality != "text" or cfg.pos_type == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and the modality frontends wait for a later "
@@ -44,11 +43,23 @@ def _check_supported(cfg: ModelConfig):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg: ModelConfig, kind: str, lead: tuple, **init) -> dict:
+def _init_block(cfg: ModelConfig, kind: str, layers: range, lead: tuple,
+                **init) -> dict:
+    """The tree of ``layers`` (their indices in the stack), stacked along
+    ``lead``: an MoE from layer ``first_k_dense`` on, else a dense FFN if
+    ``d_ff``.  The layers stacked together must agree, as the reference's
+    stacking of their trees requires."""
+    moe = {bool(cfg.num_experts) and i >= cfg.first_k_dense for i in layers}
+    if len(moe) != 1:
+        raise ValueError(f"{cfg.name}: first_k_dense={cfg.first_k_dense} "
+                         "splits the layers of one pattern position")
     ones = dict(dtype=init["dtype"], device=init["device"])
     p = {"norm1": torch.ones(lead + (cfg.d_model,), **ones),
          "mixer": blocks.init_mixer(cfg, kind, lead=lead, **init)}
-    if cfg.d_ff:
+    if moe.pop():
+        p["norm2"] = torch.ones(lead + (cfg.d_model,), **ones)
+        p["moe"] = blocks.init_moe(cfg, lead=lead, **init)
+    elif cfg.d_ff:
         p["norm2"] = torch.ones(lead + (cfg.d_model,), **ones)
         p["ffn"] = blocks.init_ffn(cfg, cfg.d_ff, lead=lead, **init)
     return p
@@ -66,10 +77,14 @@ def init_params(cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
     init = dict(device=device, dtype=dtype, generator=generator)
     D, V = cfg.d_model, cfg.vocab_size
     params = {"embed": blocks.trunc_normal((V, D), D, **init)}
-    params["blocks"] = [_init_block(cfg, kind, (cfg.n_superblocks,), **init)
-                        for kind in cfg.block_pattern]
-    params["rem"] = [_init_block(cfg, kind, (), **init)
-                     for kind in cfg.remainder_pattern]
+    n_pat, n_sb = len(cfg.block_pattern), cfg.n_superblocks
+    params["blocks"] = [
+        _init_block(cfg, kind, range(pos, n_sb * n_pat, n_pat), (n_sb,),
+                    **init) for pos, kind in enumerate(cfg.block_pattern)]
+    base = n_sb * n_pat
+    params["rem"] = [_init_block(cfg, kind, range(base + j, base + j + 1), (),
+                                 **init)
+                     for j, kind in enumerate(cfg.remainder_pattern)]
     params["final_norm"] = torch.ones(D, dtype=dtype, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = blocks.trunc_normal((D, V), D, **init)
@@ -162,16 +177,21 @@ def _layer(tree, i: int):
 
 
 def _run_stack(params, x, cfg: ModelConfig, ctx, cache):
-    """All layers in order: superblocks, then the remainder layers."""
+    """All layers in order: superblocks, then the remainder layers; returns
+    (x, the aux losses summed over the layers in fp32: the number 0.0 where
+    no layer has one)."""
+    aux = 0.0
     for i in range(cfg.n_superblocks):
         for pos, kind in enumerate(cfg.block_pattern):
             c = None if cache is None else _layer(cache["blocks"][pos], i)
-            x = blocks.apply_block(kind, _layer(params["blocks"][pos], i),
-                                   x, ctx, c)
+            x, a = blocks.apply_block(kind, _layer(params["blocks"][pos], i),
+                                      x, ctx, c)
+            aux = aux + a
     for j, kind in enumerate(cfg.remainder_pattern):
         c = None if cache is None else cache["rem"][j]
-        x = blocks.apply_block(kind, params["rem"][j], x, ctx, c)
-    return x
+        x, a = blocks.apply_block(kind, params["rem"][j], x, ctx, c)
+        aux = aux + a
+    return x, aux
 
 
 def _head(params, x, cfg: ModelConfig):
@@ -194,8 +214,9 @@ def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     ctx = _make_ctx(cfg, positions, 0)
-    x = _run_stack(params, x, cfg, ctx, None)
-    return _head(params, x, cfg), torch.zeros((), device=x.device)
+    x, aux = _run_stack(params, x, cfg, ctx, None)
+    return _head(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32,
+                                                  device=x.device)
 
 
 def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16):
@@ -205,7 +226,7 @@ def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16):
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     ctx = _make_ctx(cfg, positions, 0)
-    x = _run_stack(params, x, cfg, ctx, cache)
+    x, _ = _run_stack(params, x, cfg, ctx, cache)
     cache["t"] = S
     logits = _head(params, x[:, -1:].contiguous(), cfg)
     return logits[:, 0], cache
@@ -219,7 +240,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, *,
     t = cache["t"]
     positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
     ctx = _make_ctx(cfg, positions, t)
-    x = _run_stack(params, x, cfg, ctx, cache)
+    x, _ = _run_stack(params, x, cfg, ctx, cache)
     cache["t"] = t + 1
     logits = _head(params, x, cfg)
     return logits[:, 0], cache

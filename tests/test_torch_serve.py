@@ -54,13 +54,16 @@ def _serving_matches_jax(cfg_j, cfg_t, S: int, n_dec: int = 4):
     toks = np.random.default_rng(0).integers(
         0, cfg_j.vocab_size, (B, S)).astype(np.int32)
 
-    full_j, _ = jax_forward_train(params_j, {"tokens": jnp.asarray(toks)},
-                                  cfg_j, dtype=jnp.float32)
+    full_j, aux_j = jax_forward_train(params_j,
+                                      {"tokens": jnp.asarray(toks)}, cfg_j,
+                                      dtype=jnp.float32)
     full_t, aux = forward_train(params_t, {"tokens": torch.from_numpy(toks)},
                                 cfg_t, dtype=torch.float32)
     full_j = np.asarray(full_j)
     scale = float(np.abs(full_j).max())
-    assert full_t.shape == full_j.shape and float(aux) == 0.0
+    assert full_t.shape == full_j.shape
+    # the MoE load-balance loss; 0 exactly in both where no layer has one
+    assert abs(float(aux) - float(aux_j)) <= 2e-5 * abs(float(aux_j))
     assert np.abs(full_t.numpy() - full_j).max() / scale < REL
 
     max_len = S + n_dec + 8
@@ -372,9 +375,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         params_from_numpy({"w": np.ones(3, np.float32)})
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
-                                  "moonshot-v1-16b-a3b", "qwen2-vl-2b",
-                                  "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "hubert-xlarge"])
 def test_later_slices_raise(arch):
     with pytest.raises(NotImplementedError):
         init_params(get_smoke_config(arch), device="cpu")
