@@ -53,9 +53,9 @@ Phases, each printed as one JSON line:
    in fp32, RMSNorm's in fp64: rmsnorm_ref's own fp32 dscale strays past
    2e-5 at 8192 rows), fp32 and
    bf16, at every head dim of the registry (16-80, and 120, 128, 160 and
-   256, whose backward is new: bf16 at 128 and 256 as views of a fused
-   projection that the forward's mma body takes, since the sm90 body
-   writes no log-sum-exp), causal / window / chunk masks (a window of
+   256: bf16 at 128 and 256 as views of a fused projection that the
+   forward's mma body takes, its log-sum-exp feeding the backward),
+   causal / window / chunk masks (a window of
    2048 that bites at S 2200, dh 256), GQA groups up to 8, MQA and S that
    is not a multiple of the 64-row tiles, each called twice (the same
    bits).  The scans' backward kernels (SSD:
@@ -188,9 +188,45 @@ Phases, each printed as one JSON line:
    Step ms, peak memory, its bounds, one more step profiled by kernel
    family.
 
+10. ``train_qwen2vl_bf16``: qwen2-vl-2b at full width and depth (28
+   layers, 1.544 B parameters), bf16 (fp32 weights, gradients and
+   moments), batch 4 x 1024 with 512 patch embeddings a row, 10 steps of
+   ``make_train_step``, no checkpoint: every loss finite, the first
+   batch's loss lower after the steps; 28 flash forwards on the sm90 body
+   (with its log-sum-exp) and 28 mma_bf16 backwards a step, 57 RMSNorm
+   launches each way (the backwards on cta_rows).  Step ms, peak memory,
+   the bf16 step bound, one more step profiled by kernel family.
+11. ``encode_hubert``: hubert-xlarge at full width and depth (48 layers),
+   bf16, one 32768-frame sequence through ``make_encode_step`` (the
+   dry-run's prefill_32k, its batch of 32 cut to 1): logits finite, 48
+   flash forwards on the mma body at dh 80 with no causal mask and 97
+   RMSNorm forwards; ms an encode, peak memory, its bound.
+
+This slice also adds, to ``kernels``, the sm90 body's log-sum-exp
+(``sm90_lse_kernels``: at the prefill shapes of qwen2-7b,
+recurrentgemma-9b, moonshot-v1-16b-a3b and llama4-scout-17b-a16e, S 300,
+window, chunk, no mask and qwen2-vl-2b's train shape: the lse against
+the plain one in fp32 within 2e-5 (1 + |lse|), O bit-equal with and
+without it, and the gradients of the sm90 forward and the mma_bf16 pair
+backward against autograd of mha_ref in fp32 within 2e-2 (1 + |x|); the
+sm90 time with and without lse, and at qwen2-vl-2b's train shape the
+forward and backward beside SDPA's bf16 ones and their bounds), and the
+kernels at this slice's own shapes (``modality_kernels``: rmsnorm at
+hubert-xlarge's D 1280, its bf16 cta_rows backward at qwen2-vl-2b's step,
+the flash mma body at hubert's 32k encode against mha_ref on its first
+and last query rows, timed beside SDPA's bf16 call); to
+``serve_check`` and ``serve`` qwen2-vl-2b (4 layers fp32, also held
+against the CPU; 28 layers bf16; a 16 x 16 image block in every prompt
+of the serve, 8 x 8 in the check); to ``train_check`` qwen2-vl-2b and
+hubert-xlarge at full width cut to 2 layers in fp32 (hubert's backward
+non-causal at dh 80 on mma_tf32x3) and qwen2-vl-2b's step in bf16 against
+the port's CPU step in bf16 (loss within 2e-2 relative, every gradient
+leaf within 5e-2 in relative L2 norm).
+
 Then a ``kernels`` summary line (launches summed over the serve and train
-phases, and per path: each serve (the two MoE configs too), train-100m,
-train-mamba2, train-rgemma-3l), the card's name and power limit as
+phases, and per path: each serve (the two MoE configs and qwen2-vl-2b
+too), train-100m, train-mamba2, train-rgemma-3l, train-qwen2vl-bf16,
+encode-hubert), the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
 exits non-zero; so does a machine without a card.
 """
@@ -231,14 +267,17 @@ TRAIN_REL = 2e-4
 # the serve phase's models, each (arch, layers, the cut): the dense and
 # recurrent ones whole, then the MoE configs, moonshot-v1-16b-a3b whole
 # (57.78 GB of bf16 weights) and llama4-scout-17b-a16e cut to its first
-# superblock (3 chunked-attention layers and 1 global NoPE one)
+# superblock (3 chunked-attention layers and 1 global NoPE one), then
+# qwen2-vl-2b whole, its prompts holding an image block (last, so that the
+# others draw the weights they drew before it)
 SERVES = (
     ("qwen2-7b", None, None),
     ("recurrentgemma-9b", None, None),
     ("mamba2-130m", None, None),
     ("moonshot-v1-16b-a3b", None, None),
     ("llama4-scout-17b-a16e", 4,
-     "num_layers 48→4: 215.5 GB of bf16 weights exceed one 80 GB card"))
+     "num_layers 48→4: 215.5 GB of bf16 weights exceed one 80 GB card"),
+    ("qwen2-vl-2b", None, None))
 
 
 def emit(phase: str, **kw):
@@ -272,49 +311,86 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-# the profiler windows each device_ms timing took (3 unless one was empty),
-# and each timing's window totals, ms a call
+# the profiler windows each device_ms timing took (3 unless one was
+# refused), each timing's sound windows' totals, ms a call, and how each
+# timing was read: "windows", "launch_means" or "events"
 PROFILER_WINDOWS = []
 WINDOW_MS = []
+TIMED_BY = []
 
 
 def window_counts(start: int) -> dict:
-    """Timings and profiler windows since ``PROFILER_WINDOWS[start]``."""
-    w = PROFILER_WINDOWS[start:]
-    return dict(timings=len(w), windows=sum(w))
+    """Timings and profiler windows since ``PROFILER_WINDOWS[start]``, and
+    how many of those timings were read otherwise than from whole windows."""
+    w, by = PROFILER_WINDOWS[start:], TIMED_BY[start:]
+    return dict(timings=len(w), windows=sum(w),
+                by_launch_means=by.count("launch_means"),
+                by_events=by.count("events"))
+
+
+def _profiled_window(fn, calls: int) -> dict:
+    """{name: (launches, device us)} of every kernel and copy ``calls``
+    calls of ``fn`` ran on the card, under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            n, t = out.get(e.key, (0, 0.0))
+            out[e.key] = (n + e.count, t + e.self_device_time_total)
+    return out
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3,
-              tries: int = 6) -> float:
+              tries: int = 10) -> float:
     """Device time of one call: every kernel and copy the call runs on the
     card, summed under torch.profiler over ``iters`` calls, per call; the
     median of ``windows`` profiler windows.  The profiler now and then
-    drops a whole window (no device event: taken again, up to ``tries``
-    windows) or part of one (a low total, which the median sets aside);
-    ``PROFILER_WINDOWS`` records how many windows each timing took,
-    ``WINDOW_MS`` their totals."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
+    keeps only part of a window's launches (6 of 20 SDPA calls once; one
+    in three of the hubert-xlarge encode's attention, which it read at a
+    third of its time) or none.  So the last warmup call, profiled alone
+    (never the first call, which may run one-time kernels: cuDNN's SDPA
+    ran 4 where later calls ran 2), counts each kernel's launches a call
+    (or a window does, where that call lost some), and a window that holds
+    other than ``iters`` times that of any kernel is refused and taken
+    again, up to ``tries`` windows; the median of the whole ones is taken.
+    Where none is whole, each kernel's mean time over the launches the
+    windows kept, times its launches a call; where a kernel was never
+    kept, ``time_ms``'s CUDA-event time.  Never a window known to be short.
+    ``TIMED_BY`` records which, ``PROFILER_WINDOWS`` the windows each
+    timing took, ``WINDOW_MS`` the whole windows' totals."""
+    for _ in range(max(warmup - 1, 1)):
         fn()
     torch.cuda.synchronize()
-    totals = []
+    per_call = {k: n for k, (n, _) in _profiled_window(fn, 1).items()}
+    taken, totals = [], []
     for window in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
-            totals.append(total / iters / 1e3)
+        taken.append(_profiled_window(fn, iters))
+        for k, (n, _) in taken[-1].items():
+            per_call[k] = max(per_call.get(k, 0), round(n / iters))
+        calls = {k: m for k, m in per_call.items() if m}
+        totals = [sum(w[k][1] for k in calls) / iters / 1e3 for w in taken
+                  if calls and all(w.get(k, (0,))[0] == iters * m
+                                   for k, m in calls.items())]
         if len(totals) == windows:
-            PROFILER_WINDOWS.append(window)
-            WINDOW_MS.append(totals)
-            return statistics.median(totals)
-    check(False, f"the profiler saw device time in {len(totals)} of {tries} "
-          f"windows, {windows} needed")
+            break
+    PROFILER_WINDOWS.append(window)
+    WINDOW_MS.append(totals)
+    kept = {k: (sum(w[k][0] for w in taken if k in w),
+                sum(w[k][1] for w in taken if k in w)) for k in calls}
+    if totals:
+        TIMED_BY.append("windows")
+        return statistics.median(totals)
+    if calls and all(n for n, _ in kept.values()):
+        TIMED_BY.append("launch_means")
+        return sum(t / n * calls[k] for k, (n, t) in kept.items()) / 1e3
+    TIMED_BY.append("events")
+    return time_ms(fn, iters=iters, warmup=0)
 
 
 def kernel_breakdown(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -966,6 +1042,10 @@ def phase_kernels(dev, gen, seed):
     # before the backward cases existed
     backward_kernels(dev, torch.Generator(device=dev).manual_seed(seed + 1),
                      cases, summary)
+    sm90_lse_kernels(dev, torch.Generator(device=dev).manual_seed(seed + 5),
+                     cases, summary)
+    modality_kernels(dev, torch.Generator(device=dev).manual_seed(seed + 6),
+                     cases, summary)
     emit("kernels", cases=cases)
     bad = [c for c in cases if not c["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
@@ -1055,7 +1135,7 @@ def flash_fp32_kernels(dev, gen, cases, summary):
     at the fp32 FMA rate)."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
-                                                         mha_ref)
+                                                         lse_ref, mha_ref)
     f32 = torch.float32
 
     def randn(*shape):
@@ -1082,14 +1162,9 @@ def flash_fp32_kernels(dev, gen, cases, summary):
         out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         prev, prev_lse = flash.flash_attention_cuda(
             q, k, v, return_lse=True, body="fp32", **kw)
-        pos = torch.arange(S, device=dev)
-        logits = torch.einsum("bqkgd,bskd->bkgqs", q.unflatten(2, (K, H // K)),
-                              k) * dh ** -0.5
-        want_lse = torch.logsumexp(logits.masked_fill(
-            ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
         errs = [compare(out, mha_ref(q, k, v, **kw), f32),
-                compare(lse, want_lse, f32), compare(out, prev, f32),
-                compare(lse, prev_lse, f32)]
+                compare(lse, lse_ref(q, k, **kw), f32),
+                compare(out, prev, f32), compare(lse, prev_lse, f32)]
         cases.append(dict(kernel="flash_attention", body=body,
                           dtype=str(f32), B=B, S=S, H=H, K=K, dh=dh, **kw,
                           max_abs_err=max(e for e, _ in errs),
@@ -1158,7 +1233,8 @@ def backward_kernels(dev, gen, cases, summary):
     from repro_torch.kernels.flash_attention.kernel import (
         SM90_HEAD_DIMS as SM90_DH, flash_attention_bwd_cuda,
         flash_attention_cuda, select_bwd_body)
-    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         lse_ref, mha_ref)
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.kernel import (RMSNormFunction,
                                                     rmsnorm_bwd_cuda)
@@ -1347,14 +1423,7 @@ def backward_kernels(dev, gen, cases, summary):
                 k, v = (randn(B, S, K, dh, dtype=dtype) for _ in range(2))
             with torch.no_grad():
                 out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-            pos = torch.arange(S, device=dev)
-            logits = torch.einsum("bqkgd,bskd->bkgqs",
-                                  q.float().unflatten(2, (K, H // K)),
-                                  k.float()) * dh ** -0.5
-            logits = logits.masked_fill(
-                ~attention_mask(pos, pos, **kw), -torch.inf)
-            err_lse, ok_lse = compare(lse, torch.logsumexp(logits, -1)
-                                      .flatten(1, 2), dtype)
+            err_lse, ok_lse = compare(lse, lse_ref(q, k, **kw), dtype)
             if fused:
                 base = qkv.clone().requires_grad_()
                 ops.flash_attention(*heads(base), **kw).backward(do)
@@ -1425,6 +1494,285 @@ def backward_kernels(dev, gen, cases, summary):
         summary["flash_attention_bwd"]["shape"]:
             summary["flash_attention_bwd"]})
     scan_backward_kernels(dev, gen, cases, summary)
+
+
+# the sm90 body's cases with its log-sum-exp (bf16, dh 128 and 256): the
+# prefill shapes of qwen2-7b, recurrentgemma-9b, moonshot-v1-16b-a3b and
+# llama4-scout-17b-a16e (chunk 8192), S 300 (a ragged last tile), window,
+# chunk and no mask, and last qwen2-vl-2b's train step (batch 4 x 1024)
+SM90_LSE_CASES = [
+    ("qwen2-7b", 4, 512, 28, 4, 128, dict(causal=True)),
+    ("recurrentgemma-9b", 4, 512, 16, 1, 256, dict(causal=True, window=2048)),
+    ("moonshot-v1-16b-a3b", 4, 512, 16, 16, 128, dict(causal=True)),
+    ("llama4-scout-17b-a16e", 4, 512, 40, 8, 128,
+     dict(causal=True, chunk=8192)),
+    ("ragged", 1, 300, 28, 4, 128, dict(causal=True)),
+    ("ragged", 1, 300, 16, 1, 256, dict(causal=True)),
+    ("window", 2, 512, 28, 4, 128, dict(causal=True, window=100)),
+    ("window", 1, 1000, 16, 1, 256, dict(causal=True, window=300)),
+    ("chunk", 1, 512, 28, 4, 128, dict(causal=True, chunk=96)),
+    ("chunk", 1, 1000, 16, 1, 256, dict(causal=True, chunk=128)),
+    ("no mask", 2, 300, 28, 4, 128, dict(causal=False)),
+    ("no mask", 1, 200, 16, 1, 256, dict(causal=False)),
+    ("qwen2-vl-2b", 4, 1024, 12, 2, 128, dict(causal=True)),
+]
+# the lse's limit: the fp32 kernel tolerance, 2e-5 (1 + |lse|), against
+# the plain lse in fp32 from the same bf16 inputs
+LSE_TOL = {torch.bfloat16: 2e-5}
+
+
+def sm90_lse_kernels(dev, gen, cases, summary):
+    """The sm90 body with its log-sum-exp, at ``SM90_LSE_CASES``: the lse
+    against ``lse_ref`` within ``LSE_TOL``, O bit-equal to the call
+    without lse, and (dq, dk, dv) of ``FlashAttentionFunction`` (the sm90
+    forward, the mma_bf16 pair backward) against autograd of mha_ref in
+    fp32 on the same bf16 inputs within 2e-2 (1 + |x|).  Then the sm90
+    device time with and without lse at qwen2-7b's prefill shape and at
+    qwen2-vl-2b's train shape, and there the forward (with lse) and the
+    backward beside SDPA's bf16 forward and backward, the plain versions
+    and their bounds (``summary["flash_attention_sm90_lse"]`` and
+    ``summary["flash_attention_bwd_bf16"]``)."""
+    from repro_torch.device import multiprocessors
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         lse_ref, mha_ref)
+    bf16 = torch.bfloat16
+    inputs = {}
+    for label, B, S, H, K, dh, kw in SM90_LSE_CASES:
+        q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
+                                   device=dev).to(bf16)
+                       for n in (H, K, K, H))
+        with torch.no_grad():
+            out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+            plain_o = flash.flash_attention_cuda(q, k, v, **kw)
+        lse_err, lse_ok = compare(lse, lse_ref(q, k, **kw), bf16, LSE_TOL)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*leaves, **kw).backward(do)
+        fl = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
+        errs = [compare(t.grad, w, bf16) for t, w in zip(leaves, want)]
+        cases.append(dict(
+            kernel="flash_attention_sm90_lse", case=label,
+            body=flash.select_body(q, k, v),
+            bwd_body=flash.select_bwd_body(q, k, v), dtype=str(bf16), B=B,
+            S=S, H=H, K=K, dh=dh, **kw, lse_err=lse_err,
+            lse_tol=LSE_TOL[bf16], o_bit_equal=torch.equal(out, plain_o),
+            max_abs_err=max(e for e, _ in errs), tol=TOL[bf16],
+            ok=lse_ok and torch.equal(out, plain_o)
+            and all(ok for _, ok in errs)
+            and flash.select_body(q, k, v) == "sm90"))
+        if label in ("qwen2-7b", "qwen2-vl-2b"):
+            inputs[label] = (q, k, v, do, kw)
+        del leaves, fl, want
+    mark = len(PROFILER_WINDOWS)
+    timings = {}
+    for label, (q, k, v, do, kw) in inputs.items():
+        B, S, H, dh = q.shape
+        K = k.shape[2]
+        pos = torch.arange(S, device=dev)
+        pairs = int(attention_mask(pos, pos, **kw).sum())
+        with_lse = lambda: flash.flash_attention_cuda(  # noqa: E731
+            q, k, v, return_lse=True, **kw)
+        without = lambda: flash.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+        out, lse = with_lse()
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes,
+                            4 * B * H * dh * pairs, bf16)
+        timings[label] = dict(
+            shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
+                  "with lse", body=flash.select_body(q, k, v),
+            ms=device_ms(with_lse), ms_windows=WINDOW_MS[-1],
+            no_lse_ms=device_ms(without), no_lse_ms_windows=WINDOW_MS[-1],
+            event_ms=time_ms(with_lse), no_lse_event_ms=time_ms(without),
+            plain_ms=device_ms(lambda: mha_ref(q, k, v, **kw)),
+            library="F.scaled_dot_product_attention bf16",
+            library_ms=device_ms(library), bound_ms=t_bound, bound_by=by,
+            lse_bytes=lse.nbytes,
+            max_abs_err=compare(out, mha_ref(q, k, v, **kw), bf16)[0],
+            lse_err=compare(lse, lse_ref(q, k, **kw), bf16, LSE_TOL)[0])
+    summary["flash_attention_sm90_lse"] = dict(
+        name="flash_attention_sm90_lse", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        counted_as=("flash_attention", "sm90", (128, 256)),
+        **timings["qwen2-vl-2b"], qwen2_7b_prefill=timings["qwen2-7b"],
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="flash_attention_sm90_lse", timings=timings)
+
+    # the bf16 pair backward at qwen2-vl-2b's train shape, on the sm90
+    # forward's o and lse, beside SDPA's bf16 backward and the plain one
+    q, k, v, do, kw = inputs["qwen2-vl-2b"]
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    pos = torch.arange(S, device=dev)
+    pairs = int(attention_mask(pos, pos, **kw).sum())
+    with torch.no_grad():
+        out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, do, lse, **kw)
+    fl = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
+    del fl
+    # bytes: q, k, v, o, dO (bf16) and lse read, dq, dk, dv written; the
+    # five products of the visible pairs once each at the bf16 rate
+    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
+                        + lse.nbytes, 5 * 2 * B * H * pairs * dh, bf16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = mha_ref(*leaves, **kw)
+    lib_out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
+    library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
+    mark = len(PROFILER_WINDOWS)
+    summary["flash_attention_bwd_bf16"] = dict(
+        name="flash_attention_bwd_bf16", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
+                 "gradient: JAX differentiates the jnp reference)",
+        counted_as=("flash_attention_bwd", "mma_bf16"),
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
+              "on the sm90 forward's o and lse (the qwen2-vl-2b step)",
+        body=flash.select_bwd_body(q, k, v),
+        head_split=flash.bwd_head_split(B, S, H, K, dh, multiprocessors(dev)),
+        ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
+        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+        forward_ms=summary["flash_attention_sm90_lse"]["ms"],
+        plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
+        library="SDPA's bf16 backward", library_ms=device_ms(library),
+        library_ms_windows=WINDOW_MS[-1], library_event_ms=time_ms(library),
+        library_forward_ms=summary["flash_attention_sm90_lse"]["library_ms"],
+        bound_ms=t_bound, bound_by=by, pairs=pairs, tol=TOL[bf16],
+        max_abs_err=max(compare(g, w, bf16)[0]
+                        for g, w in zip(kernel(), want)),
+        library_max_abs_err=max(compare(g, w, bf16)[0]
+                                for g, w in zip(library(), want)),
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="flash_attention_bwd_bf16", timings={
+        summary["flash_attention_bwd_bf16"]["shape"]:
+            summary["flash_attention_bwd_bf16"]})
+
+
+# hubert-xlarge's encode (prefill_32k on one card): one layer's attention,
+# and the query rows the plain version is held on (its logits over all
+# 32768 keys, in fp32, are 2 GB for every 1024 query rows).  q is drawn at
+# HUBERT_Q_SCALE: unit-normal scores over 32768 keys spread the softmax so
+# flat that |O| is near 0.01 and 2e-2 (1 + |O|) cannot see a wrong kernel;
+# at std 4 a few keys carry each row, |O| is O(1) (mean 0.24), and a kernel
+# that drops one 64-key tile of 512 or is 10% off fails (a CPU model of the
+# body read 0.25 of the limit there)
+HUBERT_ATTN = (1, 32768, 16, 16, 80)
+HUBERT_ROWS = 256
+HUBERT_Q_SCALE = 4.0
+
+
+def modality_kernels(dev, gen, cases, summary):
+    """The kernels of this slice's paths at their own shapes: rmsnorm's
+    one-read body at hubert-xlarge's D 1280 (bf16 and fp32) and the
+    cta_rows backward in bf16 at qwen2-vl-2b's train step ((4096, 1536):
+    the bf16 backward on a path for the first time) and fp32 at hubert's
+    train_check ((512, 1280)), against their plain versions (the backward
+    against fp64 autograd, as ``backward_kernels`` holds it); the flash
+    mma body at hubert's encode shape (``HUBERT_ATTN``, bf16, no causal
+    mask, q drawn at ``HUBERT_Q_SCALE``) against mha_ref on the first and
+    last ``HUBERT_ROWS`` query rows (rows are independent without a mask),
+    with |O|'s largest and mean printed beside the limit, then timed
+    beside SDPA's bf16 call, the plain version walked over all rows by
+    1024-row chunks and its bound (``summary["flash_attention_bidir"]``)."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for dtype, rows in ((f32, 4), (f32, 4 * 512), (bf16, 4), (bf16, 4 * 512),
+                        (bf16, HUBERT_ATTN[1])):
+        x, s = randn(rows, 1280, dtype=dtype), randn(1280, dtype=dtype)
+        body = rms.select_body(x, s)[0]
+        err, ok = compare(rms.rmsnorm_cuda(x, s, eps=1e-6),
+                          rmsnorm_ref(x, s, eps=1e-6), dtype)
+        cases.append(dict(kernel="rmsnorm", body=body, dtype=str(dtype),
+                          rows=rows, D=1280, arch="hubert-xlarge",
+                          max_abs_err=err, tol=TOL[dtype],
+                          ok=ok and body == "one_read"))
+    for dtype, rows, D, arch in ((bf16, 4096, 1536, "qwen2-vl-2b"),
+                                 (f32, 512, 1280, "hubert-xlarge")):
+        x, dy = (randn(rows, D, dtype=dtype) for _ in range(2))
+        s = randn(D, dtype=dtype)
+        body = rms.select_bwd_body(x, s, dy)[0]
+        got = rms.rmsnorm_bwd_cuda(x, s, dy)
+        leaves = [t.to(f64).requires_grad_() for t in (x, s)]
+        y = leaves[0] * torch.rsqrt(leaves[0].square().mean(-1, keepdim=True)
+                                    + 1e-6) * leaves[1]
+        want = torch.autograd.grad(y, leaves, dy.to(f64))
+        errs = [compare(g, w, dtype) for g, w in zip(got, want)]
+        cases.append(dict(kernel="rmsnorm_bwd", body=body, dtype=str(dtype),
+                          rows=rows, D=D, arch=arch,
+                          max_abs_err=max(e for e, _ in errs), tol=TOL[dtype],
+                          ok=all(ok for _, ok in errs) and body == "cta_rows"))
+
+    B, S, H, K, dh = HUBERT_ATTN
+    q = (HUBERT_Q_SCALE * randn(B, S, H, dh, dtype=f32)).to(bf16)
+    k, v = (randn(B, S, K, dh, dtype=bf16) for _ in range(2))
+    kernel = lambda: flash.flash_attention_cuda(  # noqa: E731
+        q, k, v, causal=False)
+    out = kernel()
+    n = HUBERT_ROWS
+    held = [(out[:, rows], mha_ref(q[:, rows], k, v, causal=False))
+            for rows in (slice(0, n), slice(S - n, S))]
+    errs = [compare(got, want, bf16) for got, want in held]
+    # the largest |got - want| / (tol (1 + |want|)): 1 is the limit
+    share = max(float(((got.float() - want.float()).abs() / (
+        TOL[bf16] * (1 + want.float().abs()))).max()) for got, want in held)
+    del held
+    body = flash.select_body(q, k, v)
+    cases.append(dict(kernel="flash_attention", body=body, dtype=str(bf16),
+                      B=B, S=S, H=H, K=K, dh=dh, causal=False,
+                      arch="hubert-xlarge", rows_held=f"first and last {n}",
+                      q_scale=HUBERT_Q_SCALE,
+                      max_abs_out=float(out.float().abs().max()),
+                      mean_abs_out=float(out.float().abs().mean()),
+                      max_abs_err=max(e for e, _ in errs), tol=TOL[bf16],
+                      limit_share=share,
+                      ok=all(ok for _, ok in errs) and body == "mma"))
+
+    def plain():
+        for r0 in range(0, S, 1024):
+            mha_ref(q[:, r0:r0 + 1024], k, v, causal=False)
+
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=False)
+    t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
+                        4 * B * H * dh * S * S, bf16)
+    mark = len(PROFILER_WINDOWS)
+    summary["flash_attention_bidir"] = dict(
+        name="flash_attention_bidir", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        counted_as=("flash_attention", "mma", (dh,)),
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16, no mask "
+              "(one hubert-xlarge layer of the 32k encode)",
+        body=body, ms=device_ms(kernel, iters=3, warmup=1),
+        event_ms=time_ms(kernel, iters=3, warmup=1),
+        plain="mha_ref by 1024-row query chunks",
+        plain_ms=device_ms(plain, iters=1, warmup=1),
+        library="F.scaled_dot_product_attention bf16",
+        library_ms=device_ms(library, iters=3, warmup=1),
+        bound_ms=t_bound, bound_by=by,
+        max_abs_err=max(e for e, _ in errs),
+        library_max_abs_err=compare(
+            library().transpose(1, 2)[:, :n],
+            mha_ref(q[:, :n], k, v, causal=False), bf16)[0],
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="flash_attention_bidir", timings={
+        summary["flash_attention_bidir"]["shape"]:
+            summary["flash_attention_bidir"]})
 
 
 # recurrentgemma-9b's train step and stablelm-12b's heads at the same batch:
@@ -1880,12 +2228,47 @@ def route_stats(pairs, records, k: int) -> dict:
                 routes_differ=sum(routes_differ(a, b) for a, b in pairs))
 
 
+def vision_prompt(cfg, B: int, P: int, grid: int, offset: int, gen, dev,
+                  dtype) -> dict:
+    """The image inputs of a qwen2-vl-2b prompt of P tokens (test data made
+    here, not a feature of the port): a grid x grid block of patch
+    embeddings (random normals) at positions [offset, offset + grid^2),
+    ``vision_mask`` True there, and 3-D positions: the text before counts
+    0 .. offset - 1 on all three axes, the block has t = offset, h = offset
+    + its row and w = offset + its column, the text after continues from
+    the largest id + 1."""
+    n = grid * grid
+    mask = torch.zeros(B, P, dtype=torch.bool, device=dev)
+    mask[:, offset:offset + n] = True
+    rows = torch.arange(n, device=dev) // grid
+    cols = torch.arange(n, device=dev) % grid
+    after = torch.arange(P - offset - n, device=dev) + offset + grid
+    before = torch.arange(offset, device=dev)
+    p3 = torch.stack([
+        torch.cat([before, torch.full((n,), offset, device=dev), after]),
+        torch.cat([before, offset + rows, after]),
+        torch.cat([before, offset + cols, after])]).to(torch.int32)
+    return {"vision_embeds": torch.randn(B, n, cfg.d_model, generator=gen,
+                                         device=dev).to(dtype),
+            "vision_mask": mask,
+            "positions3": p3[:, None].expand(3, B, P).contiguous()}
+
+
+# the image block of the qwen2-vl-2b prompts: a 16 x 16 patch grid after 16
+# text tokens in the serve phase, 8 x 8 in its serve_check (prompt 128)
+VISION_GRID = {"serve": (16, 16), "serve_check": (8, 16)}
+
+
 def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
                       n_dec: int = 8):
     """Decode against forward at full width, fp32.  An MoE config runs at a
     capacity factor of ``num_experts`` (no drops: capacity drops differ
     between a forward pass and decode by design, as in the JAX suite's
-    test) and prints its routing margin and flipped routes."""
+    test) and prints its routing margin and flipped routes.  qwen2-vl-2b's
+    prompt holds an image block (``vision_prompt``); decode runs at text
+    positions, as the reference decodes, so the forward's positions for
+    the decoded tokens are their indices; its card forward is also held
+    against the CPU's on the same weights, within the same bound."""
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward_train, init_cache,
                                     init_params, prefill)
@@ -1896,11 +2279,20 @@ def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
     params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
     toks = torch.randint(0, cfg.vocab_size, (B, P + n_dec), generator=gen,
                          device=dev)
+    prompt, whole = {"tokens": toks[:, :P]}, {"tokens": toks}
+    if cfg.modality == "vision_stub":
+        prompt.update(vision_prompt(cfg, B, P, *VISION_GRID["serve_check"],
+                                    gen, dev, torch.float32))
+        whole = dict(prompt, tokens=toks, vision_mask=torch.cat(
+            [prompt["vision_mask"], torch.zeros(B, n_dec, dtype=torch.bool,
+                                                device=dev)], 1))
+        dec_pos = torch.arange(P, P + n_dec, dtype=torch.int32, device=dev)
+        whole["positions3"] = torch.cat(
+            [prompt["positions3"], dec_pos.expand(3, B, n_dec)], 2)
     with torch.inference_mode(), record_routes() as routes:
-        full, _ = forward_train(params, {"tokens": toks}, cfg,
-                                dtype=torch.float32)
+        full, _ = forward_train(params, whole, cfg, dtype=torch.float32)
         cache = init_cache(cfg, B, P + n_dec + 8, torch.float32, device=dev)
-        last, cache = prefill(params, {"tokens": toks[:, :P]}, cache, cfg,
+        last, cache = prefill(params, prompt, cache, cfg,
                               dtype=torch.float32)
         errs = [(last - full[:, P - 1]).abs().max()]
         for t in range(P, P + n_dec):
@@ -1912,12 +2304,23 @@ def phase_serve_check(dev, gen, arch: str, layers: int, B: int, P: int,
     finite = bool(torch.isfinite(full).all())
     moe = route_stats(routes_by_layer(routes, n_dec + 2), routes,
                       cfg.experts_per_token) if routes else {}
+    cpu = {}
+    if cfg.modality == "vision_stub":
+        with torch.inference_mode():
+            on_cpu, _ = forward_train(_to(params, "cpu"), _to(whole, "cpu"),
+                                      cfg, dtype=torch.float32)
+        cpu = dict(card_vs_cpu_rel_err=float(
+            (full.cpu() - on_cpu).abs().max() / on_cpu.abs().max()),
+            image=dict(grid=VISION_GRID["serve_check"][0],
+                       offset=VISION_GRID["serve_check"][1]))
+        del on_cpu
     emit("serve_check", arch=arch, layers=cfg.num_layers, dtype="float32",
          batch=B, prompt=P, window=cfg.window, decode_steps=n_dec,
-         max_rel_err=rel, bound=SERVE_REL, finite=finite, **moe)
-    check(finite and rel < SERVE_REL,
+         max_rel_err=rel, bound=SERVE_REL, finite=finite, **moe, **cpu)
+    check(finite and rel < SERVE_REL
+          and cpu.get("card_vs_cpu_rel_err", 0.0) < SERVE_REL,
           f"serve_check {arch}: decode vs forward rel err {rel} "
-          f"(bound {SERVE_REL}) {moe}")
+          f"(bound {SERVE_REL}) {moe} {cpu}")
 
 
 def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
@@ -1953,6 +2356,9 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
              for _ in range(requests)]
     pre = make_prefill_step(cfg, dtype=dtype)
     dec = make_decode_step(cfg, dtype=dtype)
+    # qwen2-vl-2b's prompts hold an image block (one for every wave)
+    image = vision_prompt(cfg, batch, prompt_len, *VISION_GRID["serve"], gen,
+                          dev, dtype) if cfg.modality == "vision_stub" else {}
     kernels = {"rmsnorm": rmsnorm_cuda, "flash_attention": flash_attention_cuda,
                "rglru": rglru_cuda, "ssd": ssd_cuda}
 
@@ -1968,7 +2374,7 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
             cache = init_cache(cfg, batch, max_len, dtype, device=dev)
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            last, cache = pre(params, {"tokens": toks}, cache)
+            last, cache = pre(params, {"tokens": toks, **image}, cache)
             torch.cuda.synchronize()
             t1 = time.monotonic()
             prefill_ms.append((t1 - t0) * 1e3)
@@ -2005,6 +2411,8 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
     tokens = torch.cat(outs)
     emit("serve", arch=cfg.name, layers=cfg.num_layers,
          **({"reduced": reduced} if reduced else {}), dtype="bfloat16",
+         **({"image": dict(grid=VISION_GRID["serve"][0],
+                           offset=VISION_GRID["serve"][1])} if image else {}),
          requests=requests, waves=waves, batch=batch, prompt=prompt_len,
          new_tokens=max_new, init_s=init_s, prefill_ms=prefill_ms,
          prefill_bound_ms=prefill_bound_ms(cfg, batch, prompt_len),
@@ -2031,7 +2439,8 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
     check(by_body == want_by_body,
           f"serve {arch}: launches by body {by_body}, expected "
           f"{want_by_body}")
-    return launches, by_body, (cfg, params, pre, dec, toks, max_len)
+    return launches, by_body, (cfg, params, pre, dec,
+                               {"tokens": toks, **image}, max_len)
 
 
 def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
@@ -2120,24 +2529,42 @@ def _lm_example():
     return train_lm_torch
 
 
-def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
-    """One train step of ``cfg`` (fp32) on the card (CUDA kernels forward
-    and backward) against the same step of the port on the CPU (plain
-    versions, autograd): the same weights (drawn on the CPU from the seed,
-    copied to both) and the same ``SyntheticLM`` batch.  The loss and every
-    gradient leaf within ``TRAIN_REL`` of the leaf's largest value; AdamW on
-    the card applied to the CPU's gradients lands on the CPU's parameters
-    within 1e-6 of the largest; the card's own updated parameters within 2
-    lr of the CPU's (AdamW's g / (|g| + eps) turns a gradient difference
-    near eps into a whole step), with their largest difference printed.
-    An MoE config also prints the smallest top-k margin of either run and
-    the (token, layer) routes that differ between them.  ``label`` goes
-    into the line."""
+# the card-against-CPU step's limits by the step's dtype: the loss,
+# relative, and each gradient leaf, by its largest difference over its
+# largest value (fp32) or in relative L2 norm (bf16: a bf16 step's single
+# elements differ by whole bf16 steps between two orders of summation)
+TRAIN_CHECK_LIMITS = {torch.float32: dict(loss=TRAIN_REL, grad=TRAIN_REL,
+                                          grad_metric="max"),
+                      torch.bfloat16: dict(loss=2e-2, grad=5e-2,
+                                           grad_metric="l2")}
+
+
+def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int,
+                      want_flash: dict | None = None, **label):
+    """One train step of ``cfg`` in ``tc.dtype`` on the card (CUDA kernels
+    forward and backward) against the same step of the port on the CPU
+    (plain versions, autograd) in the same dtype: the same weights (fp32,
+    drawn on the CPU from the seed, copied to both) and the same
+    ``SyntheticLM`` batch.  The loss and every gradient leaf within
+    ``TRAIN_CHECK_LIMITS[tc.dtype]``, the largest reading and its leaf
+    printed beside each limit.  In fp32 also: AdamW on the card applied to
+    the CPU's gradients lands on the CPU's parameters within 1e-6 of the
+    largest; the card's own updated parameters within 2 lr of the CPU's
+    (AdamW's g / (|g| + eps) turns a gradient difference near eps into a
+    whole step), with their largest difference printed (the optimizer
+    runs on fp32 state in either dtype, so the bf16 step skips them).  An
+    MoE config also prints the smallest top-k margin of either run and the
+    (token, layer) routes that differ between them.  ``want_flash``,
+    where given, is the flash launches of the card's loss-and-gradient
+    call (forward by body and head dim, backward by body), which must
+    match.  ``label`` goes into the line."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_params
     from repro_torch.models.blocks import record_routes
     from repro_torch.optim import adamw_update, init_opt_state
     from repro_torch.train.steps import make_loss_and_grad, make_train_step
+    limits = TRAIN_CHECK_LIMITS[tc.dtype]
+    fp32 = tc.dtype == torch.float32
     params = init_params(cfg, device="cpu", dtype=torch.float32,
                          generator=torch.Generator().manual_seed(seed))
     data = next(iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed)))
@@ -2147,17 +2574,16 @@ def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
         prm = _to(params, d)
         b = {k: torch.from_numpy(v).to(d) for k, v in data.items()}
         t0 = time.monotonic()
+        _reset_launches()
         with record_routes() as routes[str(d)]:
             total, _, grads = make_loss_and_grad(cfg, tc)(prm, b)
-        new_p, _, _ = make_train_step(cfg, tc)(prm, init_opt_state(prm), b,
-                                               lr)
+        flash = _flash_launches()
+        new_p = make_train_step(cfg, tc)(prm, init_opt_state(prm), b,
+                                         lr)[0] if fp32 else None
         out[str(d)] = dict(loss=float(total), grads=_to(grads, "cpu"),
-                           new=_to(new_p, "cpu"),
+                           new=_to(new_p, "cpu") if fp32 else None,
                            s=time.monotonic() - t0)
     cpu, card = out["cpu"], out[str(dev)]
-    p_card = _to(params, dev)
-    on_cpu_grads, _, _ = adamw_update(_to(cpu["grads"], dev),
-                                      init_opt_state(p_card), p_card, lr)
 
     # (recurrentgemma at 2 layers stacks no superblock: its leaves are empty)
     def pairs(a, b):
@@ -2168,27 +2594,62 @@ def phase_train_check(dev, seed, cfg, tc, batch: int, seq: int, **label):
                                                      1e-30)
                    for x, y in pairs(a, b))
 
+    def rel_l2(x, y):
+        return float((x.float() - y.float()).norm()
+                     / max(float(y.float().norm()), 1e-30))
+
+    def rel_max(x, y):
+        return rel([x], [y])
+
+    metric = rel_max if limits["grad_metric"] == "max" else rel_l2
+    readings = [(metric(x, y), i) for i, (x, y) in
+                enumerate(pairs(card["grads"], cpu["grads"]))]
+    grad_rel, leaf = max(readings)
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    grad_rel = rel(card["grads"], cpu["grads"])
-    adamw_rel = rel(_to(on_cpu_grads, "cpu"), cpu["new"])
-    param_abs = max(float((x - y).abs().max())
-                    for x, y in pairs(card["new"], cpu["new"]))
+    finite = all(bool(torch.isfinite(g).all()) for g in _leaves(card["grads"]))
+    ok = finite and loss_rel < limits["loss"] and grad_rel < limits["grad"]
+    step = {}
+    if fp32:
+        p_card = _to(params, dev)
+        on_cpu_grads, _, _ = adamw_update(_to(cpu["grads"], dev),
+                                          init_opt_state(p_card), p_card, lr)
+        step = dict(adamw_on_cpu_grads_rel_err=rel(_to(on_cpu_grads, "cpu"),
+                                                   cpu["new"]),
+                    param_max_abs_err=max(float((x - y).abs().max())
+                                          for x, y in pairs(card["new"],
+                                                            cpu["new"])),
+                    param_bound=2 * float(lr),
+                    param_rel_err=rel(card["new"], cpu["new"]))
+        ok = ok and step["adamw_on_cpu_grads_rel_err"] < 1e-6 \
+            and step["param_max_abs_err"] <= 2 * float(lr)
     on_cpu, on_card = routes["cpu"], routes[str(dev)]
     moe = route_stats([(a[1], b[1]) for a, b in zip(on_cpu, on_card)],
                       on_cpu + on_card, cfg.experts_per_token) \
         if on_cpu else {}
     emit("train_check", **label, layers=cfg.num_layers, d_model=cfg.d_model,
-         params=cfg.param_count(), dtype="float32", batch=batch, seq=seq,
-         loss_cpu=cpu["loss"], loss_card=card["loss"], loss_rel_err=loss_rel,
-         grad_max_rel_err=grad_rel, adamw_on_cpu_grads_rel_err=adamw_rel,
-         param_max_abs_err=param_abs, param_bound=2 * float(lr),
-         param_rel_err=rel(card["new"], cpu["new"]), tol=TRAIN_REL,
-         cpu_s=cpu["s"], card_s=card["s"], **moe)
-    check(loss_rel < TRAIN_REL and grad_rel < TRAIN_REL and adamw_rel < 1e-6
-          and param_abs <= 2 * float(lr),
-          f"train_check {label}: loss {loss_rel}, grads {grad_rel}, adamw "
-          f"{adamw_rel}, params {param_abs} (limits {TRAIN_REL}, 1e-6, "
-          f"{2 * float(lr)}) {moe}")
+         params=cfg.param_count(), dtype=str(tc.dtype).split(".")[-1],
+         batch=batch, seq=seq, loss_cpu=cpu["loss"], loss_card=card["loss"],
+         loss_rel_err=loss_rel, loss_tol=limits["loss"],
+         grad_metric=limits["grad_metric"], grad_rel_err=grad_rel,
+         grad_leaf=leaf, grad_rel_median=statistics.median(
+             r for r, _ in readings), grad_tol=limits["grad"], finite=finite,
+         **step, cpu_s=cpu["s"], card_s=card["s"], flash_launches=flash,
+         flash_launches_expected=want_flash, **moe)
+    check(ok, f"train_check {label} {tc.dtype}: loss {loss_rel}, grads "
+          f"{grad_rel} at leaf {leaf} (limits {limits}), finite {finite}, "
+          f"{step} {moe}")
+    check(want_flash is None or flash == want_flash,
+          f"train_check {label}: flash launches {flash}, expected "
+          f"{want_flash}")
+
+
+def _flash_launches() -> dict:
+    """The flash launches since the counts were reset: the forward's by
+    body and head dim, the backward's by body (the bodies that launched)."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    return dict(forward=_flash_by_head_dim(), backward={
+        b: n for b, n in flash.flash_attention_bwd_cuda.launches_by_body.items()
+        if n})
 
 
 # the widths of the card-against-CPU steps of recurrentgemma-9b and
@@ -2214,7 +2675,13 @@ def train_checks(dev, seed):
     (``QWEN2_CHECK_WIDTH``) and moonshot-v1-16b-a3b
     (``MOONSHOT_CHECK_WIDTH``: the gradient through the MoE's scatter,
     gather and aux loss) at 2 layers, batch 2 x 256 (two 128-token SSD
-    chunks), ``TrainConfig(float32)``."""
+    chunks), ``TrainConfig(float32)``.  Then the modality stubs at full
+    width cut to 2 layers, batch 2 x 256 (``SyntheticLM``'s inputs:
+    qwen2-vl-2b's 128 patch embeddings a row and 3-D positions, hubert's
+    frame features and loss mask): qwen2-vl-2b in fp32 and in bf16
+    (against the CPU's bf16 step; the sm90 forward with its
+    log-sum-exp and the mma_bf16 backward at dh 128), hubert-xlarge in
+    fp32 (no causal mask, dh 80 on mma_tf32x3 both ways)."""
     from repro_torch.configs import get_config
     from repro_torch.train.steps import TrainConfig
     ex = _lm_example()
@@ -2230,6 +2697,20 @@ def train_checks(dev, seed):
                                   **narrowed)
         phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
                           2, 256, arch=arch, narrowed=narrowed)
+    for arch in ("qwen2-vl-2b", "hubert-xlarge"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        dh = cfg.resolved_head_dim
+        phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
+                          2, 256, want_flash=dict(
+                              forward={"mma_tf32x3": {dh: 2}},
+                              backward={"mma_tf32x3": 2}),
+                          arch=arch, causal=cfg.causal)
+        if arch == "qwen2-vl-2b":
+            phase_train_check(dev, seed, cfg,
+                              TrainConfig(dtype=torch.bfloat16), 2, 256,
+                              want_flash=dict(forward={"sm90": {dh: 2}},
+                                              backward={"mma_bf16": 2}),
+                              arch=arch)
 
 
 def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
@@ -2447,31 +2928,35 @@ def _reset_launches():
         module.reset_counts()
 
 
-def train_bounds(cfg, batch: int, seq: int) -> dict:
-    """Least step time and memory of an fp32 train step of ``cfg``, at the
-    rate of the units each part runs on: the projections of
+def train_bounds(cfg, batch: int, seq: int, dtype=torch.float32) -> dict:
+    """Least step time and memory of a train step of ``cfg`` in ``dtype``,
+    at the rate of the units each part runs on: the projections of
     ``flops_parts`` plus the tied unembedding's matmuls, which it leaves
-    out (3 x 2 x tokens x V x d_model), over the fp32 rate; the SSD scans
+    out (3 x 2 x tokens x V x d_model), at ``dtype``'s rate; the SSD scans
     (forward ``ssd_macs`` and backward ``ssd_bwd_macs``, 2 FLOPs a
     multiply-add, each SSD layer) and the attention of ``flops_parts``
-    (forward and backward: the mma_tf32x3 bodies at every head dim) as
-    three TF32 products each at the TF32 rate; 16 B a parameter (fp32
-    weights, gradients and both moments)."""
+    (forward and backward), in fp32 as three TF32 products each (the
+    mma_tf32x3 bodies at every head dim) at the TF32 rate, in bf16 once at
+    the bf16 rate; 16 B a parameter (fp32 weights, gradients and both
+    moments, whatever the step's dtype)."""
     tokens = batch * seq
     parts = cfg.flops_parts(tokens, training=True, seq_len=seq)
-    fp32, tf32 = parts["base"], 0.0
-    if cfg.tie_embeddings:
-        fp32 += 6 * tokens * cfg.vocab_size * cfg.d_model
+    tied = 6 * tokens * cfg.vocab_size * cfg.d_model \
+        if cfg.tie_embeddings else 0
     shape = (batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
              cfg.ssm_state, cfg.ssm_chunk)
     n_ssd = cfg._layer_kinds().count("ssd")
-    if n_ssd:
-        tf32 += 3 * n_ssd * 2 * (ssd_macs(*shape) + ssd_bwd_macs(*shape))
-    tf32 += 3 * parts["attn"]
-    return dict(step_bound_ms=(fp32 / PEAK_OPS_PER_S[torch.float32]
-                               + tf32 / PEAK_OPS_PER_S["tf32"]) * 1e3,
-                step_flops=fp32 + tf32 / 3, step_fp32_flops=fp32,
-                step_tf32_split_flops=tf32,
+    scans = parts["attn"] + (n_ssd * 2 * (ssd_macs(*shape) + ssd_bwd_macs(
+        *shape)) if n_ssd else 0)
+    if dtype == torch.float32:
+        seconds = (parts["base"] + tied) / PEAK_OPS_PER_S[torch.float32] \
+            + 3 * scans / PEAK_OPS_PER_S["tf32"]
+    else:
+        seconds = (parts["base"] + tied + scans) / PEAK_OPS_PER_S[dtype]
+    return dict(step_bound_ms=seconds * 1e3,
+                step_flops=parts["base"] + tied + scans,
+                model_flops=parts["base"] + parts["attn"],
+                tied_unembed_flops=tied, scan_flops=scans,
                 peak_mem_bound_bytes=16 * cfg.param_count())
 
 
@@ -2714,6 +3199,206 @@ def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
     return launches, by_body
 
 
+# kernel families of the bf16 phases (the qwen2-vl-2b train step, the
+# hubert-xlarge encode), by the kernel's name with its spaces removed
+# (cuBLAS's Hopper GEMMs are nvjet / sm90_xmma ones)
+BF16_GROUPS = {
+    "flash_forward": ("flash_attn_",),
+    "flash_backward": ("flash_bwd_",),
+    "rmsnorm": ("rmsnorm",),
+    "gemm": ("nvjet", "gemm", "xmma", "cutlass"),
+    "elementwise": ("elementwise", "foreach"),
+    "reduce": ("reduce_kernel",),
+}
+
+
+def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
+                             seq: int = 1024, lr: float = 3e-4):
+    """qwen2-vl-2b at full width and depth (28 layers, 1.544 B parameters,
+    nothing cut), bf16 (``TrainConfig(bfloat16)``, fp32 weights, gradients
+    and moments: 24.7 GB), ``steps`` steps of ``make_train_step`` on
+    ``SyntheticLM`` batches (512 patch embeddings a row at positions 1-512,
+    3-D positions), no checkpoint (one would hold 24.7 GB): every loss
+    finite, and the loss on the first step's batch (``make_eval_step``:
+    cross-entropy, no z-loss) lower after the ``steps`` steps than before
+    them (the losses of ten different batches spread by about as much as
+    ten steps move them); a step launches 28 flash
+    forwards on the sm90 body (with the log-sum-exp) and 28 mma_bf16
+    backwards, 2L + 1 = 57 RMSNorm forwards and 57 cta_rows backwards
+    (rows of 1536).  Step ms, peak memory, ``train_bounds``, one more
+    step profiled by kernel family."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train.steps import (TrainConfig, make_eval_step,
+                                         make_train_step)
+    cfg = get_config("qwen2-vl-2b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
+    opt = init_opt_state(params)
+    tc = TrainConfig(dtype=torch.bfloat16)
+    step, evaluate = make_train_step(cfg, tc), make_eval_step(cfg, tc)
+    data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed))
+    first = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+    eval_before = float(evaluate(params, first)["loss"])
+    losses, step_ms = [], []
+    _reset_launches()
+    for i in range(steps):
+        b = first if i == 0 else {k: torch.from_numpy(v).to(dev)
+                                  for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b, torch.tensor(lr))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = _count_launches()
+    by_body = {"rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
+               "flash_attention": dict(
+                   flash.flash_attention_cuda.launches_by_body),
+               "flash_attention_bwd": dict(
+                   flash.flash_attention_bwd_cuda.launches_by_body),
+               "flash_attention_by_head_dim": _flash_by_head_dim()}
+    peak = torch.cuda.max_memory_allocated()
+    eval_after = float(evaluate(params, first)["loss"])
+    b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+    prof = _profiled(lambda: step(params, opt, b, torch.tensor(lr)),
+                     groups=BF16_GROUPS)
+    n_img = int(b["vision_mask"][0].sum())
+    del params, opt, b, first
+    L = cfg.num_layers
+    want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
+            "flash_attention": (L * steps,) * 2,
+            "rglru": (0, 0), "ssd": (0, 0)}
+    want_by_body = {
+        "rmsnorm_bwd": {"warp_rows": 0, "cta_rows": (2 * L + 1) * steps,
+                        "generic": 0},
+        "flash_attention": {"sm90": L * steps, "mma": 0, "mma_tf32x3": 0,
+                            "fp32": 0},
+        "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": L * steps},
+        "flash_attention_by_head_dim": {"sm90": {
+            cfg.resolved_head_dim: L * steps}}}
+    emit("train_qwen2vl_bf16", arch=cfg.name, layers=L, reduced=None,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=cfg.resolved_head_dim,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         vocab=cfg.vocab_size, params=cfg.param_count(), dtype="bfloat16",
+         batch=batch, seq=seq, image_positions=n_img, steps=steps, lr=lr,
+         losses=losses, first_batch_loss_before=eval_before,
+         first_batch_loss_after=eval_after,
+         step_ms_median=statistics.median(step_ms[2:]),
+         step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+         step_ms_all=step_ms, peak_mem_bytes=peak,
+         **train_bounds(cfg, batch, seq, torch.bfloat16), profile=prof,
+         launches={k: dict(forward=f, backward=b)
+                   for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want.items()},
+         launches_by_body=by_body, launches_by_body_expected=want_by_body)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and eval_after < eval_before,
+          f"train_qwen2vl_bf16: losses {losses}, first batch's loss "
+          f"{eval_before} -> {eval_after}")
+    check(launches == want, f"train_qwen2vl_bf16: launches {launches}, "
+          f"expected {want}")
+    check(by_body == want_by_body, f"train_qwen2vl_bf16: launches by body "
+          f"{by_body}, expected {want_by_body}")
+    return launches, by_body
+
+
+def phase_encode_hubert(dev, seed, batch: int = 1, seq: int = 32768,
+                        repeats: int = 3):
+    """hubert-xlarge at full width and depth (48 layers, bidirectional
+    attention at head dim 80, GELU FFN, the audio stub frontend), bf16,
+    through ``make_encode_step`` on random frame features (batch x seq x
+    512): the dry-run's prefill_32k sequence, its global batch of 32 over a
+    pod cut to ``batch`` on one card.  Logits finite; one encode launches
+    48 flash forwards on the mma body at dh 80 (no causal mask) and 2L + 1
+    = 97 RMSNorm forwards.  ms an encode (the median of ``repeats`` after
+    the counted one), peak memory and the bound: the projections and the
+    frontend (2 x tokens x parameters) and the attention of
+    ``flops_parts`` (no mask: every pair) over 989 TFLOP/s; one more encode
+    profiled by kernel family."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.models import init_params
+    from repro_torch.train import make_encode_step
+    cfg = get_config("hubert-xlarge")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, device=dev, dtype=torch.bfloat16, generator=gen)
+    feats = torch.randn(batch, seq, 512, generator=gen, device=dev).to(
+        torch.bfloat16)
+    encode = make_encode_step(cfg, dtype=torch.bfloat16)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = encode(params, {"features": feats})
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = _count_launches()
+    by_body = {"flash_attention": dict(
+                   flash.flash_attention_cuda.launches_by_body),
+               "flash_attention_by_head_dim": _flash_by_head_dim(),
+               "rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body)}
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    ms = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(params, {"features": feats})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profiled(lambda: encode(params, {"features": feats}),
+                     groups=BF16_GROUPS)
+    tokens = batch * seq
+    parts = cfg.flops_parts(tokens, training=False, seq_len=seq)
+    frontend = 2 * tokens * 512 * cfg.d_model
+    flops = parts["base"] + parts["attn"] + frontend
+    del params, feats
+    L = cfg.num_layers
+    want = {"rmsnorm": (2 * L + 1, 0), "flash_attention": (L, 0),
+            "rglru": (0, 0), "ssd": (0, 0)}
+    want_by_body = {
+        "flash_attention": {"sm90": 0, "mma": L, "mma_tf32x3": 0, "fp32": 0},
+        "flash_attention_by_head_dim": {"mma": {cfg.resolved_head_dim: L}},
+        "rmsnorm": {"one_read": 2 * L + 1, "generic": 0}}
+    emit("encode_hubert", arch=cfg.name, layers=L,
+         reduced="global batch 32 (the dry-run's prefill_32k over a pod) -> "
+                 f"{batch} on one card; sequence {seq} kept",
+         d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=cfg.resolved_head_dim,
+         heads=cfg.num_heads, causal=cfg.causal, act=cfg.act,
+         params=cfg.param_count(), dtype="bfloat16", batch=batch, seq=seq,
+         logits_shape=shape, finite=finite, first_ms=first_ms,
+         encode_ms_median=statistics.median(ms), encode_ms_all=ms,
+         bound_ms=flops / PEAK_OPS_PER_S[torch.bfloat16] * 1e3,
+         flops=flops, attn_flops=parts["attn"], peak_mem_bytes=peak,
+         profile=prof,
+         launches={k: dict(forward=f, backward=b)
+                   for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want.items()},
+         launches_by_body=by_body, launches_by_body_expected=want_by_body)
+    check(finite and shape == (batch, seq, cfg.vocab_size),
+          f"encode_hubert: logits {shape}, finite {finite}")
+    check(not cfg.causal and launches == want,
+          f"encode_hubert: launches {launches}, expected {want}")
+    check(by_body == want_by_body, f"encode_hubert: launches by body "
+          f"{by_body}, expected {want_by_body}")
+    return launches, by_body
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -2877,7 +3562,8 @@ def _profiled(fn, groups=None, span=None) -> dict:
     return out
 
 
-def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
+def phase_profile(dev, cfg, params, pre, dec, prompt, max_len,
+                  n_dec: int = 8):
     """Where the serve phase's time goes: one prefill wave and ``n_dec``
     decode steps again, under the profiler (after the launch counts were
     read, so they do not count).  An MoE model's are split into the
@@ -2886,12 +3572,12 @@ def phase_profile(dev, cfg, params, pre, dec, toks, max_len, n_dec: int = 8):
     and the host gap."""
     from repro_torch.models import init_cache
     with torch.inference_mode():
-        cache = init_cache(cfg, toks.shape[0], max_len, torch.bfloat16,
-                           device=dev)
+        cache = init_cache(cfg, prompt["tokens"].shape[0], max_len,
+                           torch.bfloat16, device=dev)
         state = {}
 
         def run_prefill():
-            state["last"], _ = pre(params, {"tokens": toks}, cache)
+            state["last"], _ = pre(params, prompt, cache)
 
         def run_decode():
             tok = torch.argmax(state["last"], -1)[:, None].to(torch.int32)
@@ -2942,6 +3628,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_ssd_bodies(dev, gen)
+    # after ssd_bodies, whose limit was set on the weights it draws
+    phase_serve_check(dev, gen, "qwen2-vl-2b", layers=4, B=2, P=128)
     launches, by_body = {}, {}
     for arch, layers, reduced in SERVES:
         gc.collect()
@@ -2958,7 +3646,9 @@ def main() -> int:
     train, train_by_body = {}, {}
     for path, phase in (("train-100m", phase_train),
                         ("train-mamba2", phase_train_mamba2),
-                        ("train-rgemma-3l", phase_train_rgemma_3l)):
+                        ("train-rgemma-3l", phase_train_rgemma_3l),
+                        ("train-qwen2vl-bf16", phase_train_qwen2vl_bf16),
+                        ("encode-hubert", phase_encode_hubert)):
         train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():
         # one body of a kernel, at the head dims given if any: its launches

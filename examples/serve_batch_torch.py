@@ -4,12 +4,13 @@ then greedy decode, wave by wave (the twin of ``serve_batch.py``).
     PYTHONPATH=src python examples/serve_batch_torch.py --arch qwen2-7b --requests 12
 
 The port serves the attention archs with dense FFNs (qwen2-7b, stablelm-3b,
-stablelm-12b, h2o-danube-3-4b), the MoE archs moonshot-v1-16b-a3b and
-llama4-scout-17b-a16e (chunked and global NoPE attention),
-recurrentgemma-9b (RG-LRU and local attention) and mamba2-130m (Mamba-2
-SSD), each at its smoke size here; qwen2-vl-2b (M-RoPE) raises
-``NotImplementedError`` and hubert-xlarge is encoder-only.  Runs on the card by default; ``--device cpu`` runs
-the plain PyTorch versions of the kernels on the CPU.
+stablelm-12b, h2o-danube-3-4b), qwen2-vl-2b (M-RoPE; text prompts, on
+which it degenerates to RoPE, as the reference's example serves it), the
+MoE archs moonshot-v1-16b-a3b and llama4-scout-17b-a16e (chunked and
+global NoPE attention), recurrentgemma-9b (RG-LRU and local attention) and
+mamba2-130m (Mamba-2 SSD), each at its smoke size here; hubert-xlarge is
+encoder-only and refused.  Runs on the card by default; ``--device cpu``
+runs the plain PyTorch versions of the kernels on the CPU.
 """
 import argparse
 import sys

@@ -71,11 +71,11 @@
 // Every body rounds the probabilities to v's type for the PV product, as
 // the reference casts its probabilities to v's type.
 //
-// Training: the mma, mma_tf32x3 and fp32 bodies also write each row's
-// log-sum-exp when given a pointer for it (Params::lse; serving passes null), and the
-// backward (flash_attention_bwd, further down: 4 warps a CTA up to dh 80,
-// the pair kernels of 8 above) recomputes the probabilities from it.  The
-// sm90 body writes none yet.
+// Training: every body also writes each row's log-sum-exp when given a
+// pointer for it (Params::lse; serving passes null), and the backward
+// (flash_attention_bwd, further down: 4 warps a CTA up to dh 80, the pair
+// kernels of 8 above) recomputes the probabilities from it.  The sm90 body
+// writes it in its epilogue, from one lane a row, leaving O as it was.
 //
 // Head dims: the mma, mma_tf32x3 and fp32 bodies take every one the model
 // registry uses (16, 32, 64, 80, 120, 128, 160, 256), compiled for the head
@@ -126,8 +126,11 @@ struct Params {
   float scale;
   int dh;  // the real head dim; the body's compiled width is dh rounded up to 16
   // (B, H, S) fp32, or null: the log-sum-exp of each row's scaled scores,
-  // which the backward needs (the mma and fp32 bodies write it)
+  // which the backward needs (every body writes it)
   float* lse;
+  // the sm90 body: the query tiles its CTAs walk (set by launch_sm90), read
+  // from the kernel's parameters rather than held in a register
+  int tiles = 0;
 };
 
 // The mask, shared by the forward bodies and the backward: P is Params or
@@ -2200,7 +2203,6 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
   const uint32_t bar_full_k = bar_q_empty + 8;             // + 8 * stage
   const uint32_t bar_full_v = bar_full_k + 8 * kStages;
   const uint32_t bar_empty = bar_full_v + 8 * kStages;
-  const int n_tiles = (p.S + C::kBQ - 1) / C::kBQ * p.B * p.H;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q_full, 1);
@@ -2219,8 +2221,9 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
     // ---- producer warp: one thread issues every load of the CTA
     if (threadIdx.x == 256) {
       int it = 0;  // K/V tiles loaded, over all of this CTA's query tiles
-      for (int tile = blockIdx.x, n = 0; tile < n_tiles; tile += gridDim.x, ++n) {
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
         const Sm90Tile t = sm90_tile<DH>(p, tile);
+        const int n = (tile - blockIdx.x) / gridDim.x;  // this CTA's tiles before it
         if (n > 0) mbar_wait(bar_q_empty, (n - 1) & 1);  // the last tile's Q K^T is done
         mbar_expect_tx(bar_q_full, C::kQBytes);
 #pragma unroll
@@ -2254,8 +2257,9 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
     const uint32_t o_wg = sO + C::kWGRows * wg * 128;
     const float sl2 = p.scale * 1.4426950408889634f;  // exp(x scale) = 2^(x sl2); scale > 0
     int it = 0;
-    for (int tile = blockIdx.x, n = 0; tile < n_tiles; tile += gridDim.x, ++n) {
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const Sm90Tile tl = sm90_tile<DH>(p, tile);
+      const int n = (tile - blockIdx.x) / gridDim.x;
       const int r0 = tl.q0 + C::kWGRows * wg;
       float o[kON][64];
 #pragma unroll
@@ -2395,6 +2399,18 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
         lt += __shfl_xor_sync(0xffffffffu, lt, 1);
         lt += __shfl_xor_sync(0xffffffffu, lt, 2);
         inv_l[rr] = lt > 0.f ? 1.f / lt : 0.f;
+        // The row's log-sum-exp of its scaled scores, the mma body's
+        // convention (write_lse): l sums 2^((s - m) sl2) = e^((s - m) scale)
+        // over raw scores s, so lse = m scale + ln l.  One lane of the quad
+        // writes it; at dh 256 both warpgroups hold the same rows, and
+        // warpgroup 0 writes them.  Rows past S are skipped: TMA zero-filled
+        // them, and nothing clips this store.  (ptxas holds this kernel at
+        // 168 registers, with none to spare at dh 128: the tile count comes
+        // from the parameters, Params::tiles, so that this fits unspilled.)
+        const int qi = r0 + 16 * warp + g + 8 * rr;
+        if (p.lse && t == 0 && qi < p.S && (!C::kSplitO || wg == 0))
+          p.lse[(static_cast<long long>(tl.b) * p.H + tl.h) * p.S + qi] =
+              lt > 0.f ? fmaf(m[rr], p.scale, logf(lt)) : INFINITY;
       }
       if (threadIdx.x % 128 == 0)  // the last tile's store has read the buffer
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -2618,7 +2634,9 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
   const cudaError_t e2 = multiprocessors(&sms);
   if (e2 != cudaSuccess) return static_cast<int>(e2);
   const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  flash_attn_sm90_kernel<DH><<<blocks, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, to, p);
+  Params pt = p;
+  pt.tiles = static_cast<int>(tiles);
+  flash_attn_sm90_kernel<DH><<<blocks, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, to, pt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2657,7 +2675,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 
 // The sm90 body: bf16 q, k, v and o, laid out as for flash_attention_fwd,
 // head_dim 128 or 256; the bases of q, k and v and their batch, sequence and
-// head strides are multiples of 16 bytes (TMA's rule); scale > 0.  Returns
+// head strides are multiples of 16 bytes (TMA's rule); scale > 0.  lse: null,
+// or (B,H,S) fp32 for each row's log-sum-exp, as flash_attention_fwd writes
+// it (O is the same with or without it).  Returns
 // cudaErrorInvalidValue on anything else, else cudaGetLastError() after the
 // launch.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
@@ -2666,10 +2686,10 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
                                         long long k_ss, long long k_sh, long long v_sb,
                                         long long v_ss, long long v_sh, int causal,
                                         int window, int chunk, float scale, int head_dim,
-                                        void* stream) {
+                                        void* lse, void* stream) {
   const Params p{q,    k,    v,    o,      B,      S,     H,    K,     q_sb,    q_ss,
                  q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,  v_sh, causal, window, chunk,
-                 scale, head_dim};
+                 scale, head_dim, static_cast<float*>(lse)};
   for (const void* ptr : {q, k, v})
     if (!aligned16(ptr)) return static_cast<int>(cudaErrorInvalidValue);
   for (long long s : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})

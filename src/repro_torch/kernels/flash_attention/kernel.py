@@ -27,11 +27,11 @@ layout of q, k and v (never by trying one and falling back):
 ``flash_attention_cuda.launches_by_head_dim`` each body's by head dim.
 
 Training: ``FlashAttentionFunction`` is the ``torch.autograd.Function``
-whose forward is ``flash_attention_cuda(..., return_lse=True)`` (the mma,
-mma_tf32x3 and fp32 bodies also write each row's log-sum-exp; the sm90 body
-does not yet, so a training call that would take it raises) and whose
-backward is ``flash_attention_bwd_cuda``: FlashAttention-2 without atomics
-on the tensor cores (mma.sync), at every head dim of ``HEAD_DIMS`` (120
+whose forward is ``flash_attention_cuda(..., return_lse=True)`` (every
+body also writes each row's log-sum-exp; the sm90 body from its epilogue,
+O unchanged) and whose backward is ``flash_attention_bwd_cuda``:
+FlashAttention-2 without atomics on the tensor cores (mma.sync), at every
+head dim of ``HEAD_DIMS`` (120
 padded to 128; above 80 CTAs of 8 warps, two (four at 256) to each 16-row
 group splitting the forming of S and dP, so that each full-width product is
 formed once a pair of tiles: 7), one body a dtype (``select_bwd_body``
@@ -80,13 +80,13 @@ BWD_FILL = 6
 
 def _entry(name: str):
     """A forward entry point: flash_attention_fwd (the mma and fp32 bodies:
-    a dtype code and the lse pointer last), flash_attention_fwd_tf32 (the
-    lse pointer) or flash_attention_fwd_sm90."""
+    a dtype code and the lse pointer last), flash_attention_fwd_tf32 or
+    flash_attention_fwd_sm90 (the lse pointer last)."""
     fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         tail = {"flash_attention_fwd": [I, P], "flash_attention_fwd_tf32": [P],
-                "flash_attention_fwd_sm90": []}[name]
+                "flash_attention_fwd_sm90": [P]}[name]
         fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
                        ctypes.c_float, I, *tail, P]
         fn.restype = ctypes.c_int
@@ -196,15 +196,11 @@ def bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> str:
     """The backward body for these inputs (one of ``BWD_BODIES``: the
-    dtype's), on any device.  Raises where training cannot run: on what no
+    dtype's), on any device, whichever forward body wrote the log-sum-exp
+    (bf16 at dh 128 / 256 on the sm90 body too).  Raises on what no
     forward body takes (``select_body``: a head dim outside ``HEAD_DIMS``
-    among them) and on inputs the forward would send to the sm90 body (it
-    writes no log-sum-exp yet, ROADMAP.md Queue 2 item 2)."""
-    if select_body(q, k, v, scale) == "sm90":
-        raise NotImplementedError(
-            "training through flash attention on the sm90 body (bf16, head "
-            "dim 128 / 256) waits for its log-sum-exp output (ROADMAP.md "
-            "Queue 2 item 2)")
+    among them)."""
+    select_body(q, k, v, scale)
     return "mma_tf32x3" if q.dtype == torch.float32 else "mma_bf16"
 
 
@@ -214,7 +210,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          return_lse: bool = False, body: str | None = None):
     """q (B,S,H,dh); k, v (B,S,K,dh) -> (B,S,H,dh) in ``q.dtype``, and with
     ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,H,S)
-    fp32 (every body but sm90).
+    fp32 (every body writes it; O is the same with it or without).
 
     fp32 or bf16; dh one of ``HEAD_DIMS``; H a multiple of K; the last dim
     of each input contiguous (the others are read through strides).
@@ -232,10 +228,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if body not in takes:
         raise ValueError(f"body {body!r} does not take these inputs ({q.dtype}"
                          f", head dim {q.shape[3]}: {takes})")
-    if return_lse and body == "sm90":
-        raise NotImplementedError(
-            "the sm90 body writes no log-sum-exp yet (ROADMAP.md Queue 2 "
-            "item 2)")
     if window < 0 or chunk < 0:
         raise ValueError("window and chunk must be >= 0")
     B, S, H, dh = q.shape
@@ -250,7 +242,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse_ptr = None if lse is None else lse.data_ptr()
     if body == "sm90":
         fn, strides, tail = _entry("flash_attention_fwd_sm90"), \
-            [s for t in (q, k, v) for s in tma_strides(t)], ()
+            [s for t in (q, k, v) for s in tma_strides(t)], (lse_ptr,)
     elif body == "mma_tf32x3":
         fn, strides, tail = _entry("flash_attention_fwd_tf32"), \
             [s for t in (q, k, v) for s in t.stride()[:3]], (lse_ptr,)

@@ -75,6 +75,22 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, dh).to(q.dtype)
 
 
+def lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            window: int = 0, chunk: int = 0) -> torch.Tensor:
+    """q (B,S,H,dh); k (B,S,K,dh) -> (B,H,S) fp32: each row's log-sum-exp
+    of its scaled scores, in fp32 from q and k: the log-sum-exp the flash
+    kernels write for their backward."""
+    B, S, H, dh = q.shape
+    K = k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    logits = torch.einsum("bqkgd,bskd->bkgqs",
+                          q.float().unflatten(2, (K, H // K)), k.float())
+    logits = (logits * dh ** -0.5).masked_fill(
+        ~attention_mask(pos, pos, causal=causal, window=window, chunk=chunk),
+        -torch.inf)
+    return torch.logsumexp(logits, -1).flatten(1, 2)
+
+
 def split_tf32(v: torch.Tensor) -> torch.Tensor:
     """fp32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10
     explicit mantissa bits, to nearest, ties away from zero (finite

@@ -29,14 +29,10 @@ from repro_torch.device import resolve_device
 from . import blocks
 from .config import ModelConfig
 from .layers import embed, rmsnorm, unembed
-from .rope import rope_cos_sin
+from .rope import mrope_cos_sin, rope_cos_sin, text_positions3
 
-
-def _check_supported(cfg: ModelConfig):
-    if cfg.modality != "text" or cfg.pos_type == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and the modality frontends wait for a later "
-            "slice of the port")
+# the audio stub's precomputed frame features (B, S, 512)
+AUDIO_FEATURES = 512
 
 
 # ---------------------------------------------------------------------------
@@ -71,12 +67,14 @@ def init_params(cfg: ModelConfig, *, device="cuda", dtype=torch.float32,
     by tensor in fp32 and cast to ``dtype`` as they go; norms are ones and
     biases zeros.  ``generator`` (on ``device``) defaults to seed 0."""
     device = resolve_device(device)
-    _check_supported(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init = dict(device=device, dtype=dtype, generator=generator)
     D, V = cfg.d_model, cfg.vocab_size
     params = {"embed": blocks.trunc_normal((V, D), D, **init)}
+    if cfg.modality == "audio_stub":
+        params["frontend_proj"] = blocks.trunc_normal((AUDIO_FEATURES, D),
+                                                      AUDIO_FEATURES, **init)
     n_pat, n_sb = len(cfg.block_pattern), cfg.n_superblocks
     params["blocks"] = [
         _init_block(cfg, kind, range(pos, n_sb * n_pat, n_pat), (n_sb,),
@@ -141,7 +139,6 @@ def _init_block_cache(cfg: ModelConfig, kind: str, B: int, max_len: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
     device = resolve_device(device)
-    _check_supported(cfg)
     lead = (cfg.n_superblocks,)
     return {
         "blocks": [_init_block_cache(cfg, kind, batch, max_len, dtype, device,
@@ -156,18 +153,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # forward machinery
 # ---------------------------------------------------------------------------
 
-def _make_ctx(cfg: ModelConfig, positions: torch.Tensor, t: int) -> dict:
-    _check_supported(cfg)
-    if cfg.pos_type == "rope":
-        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim,
-                                cfg.rope_theta)
+def _make_ctx(cfg: ModelConfig, positions: torch.Tensor,
+              positions3: torch.Tensor | None, t: int) -> dict:
+    """cos / sin of the positions: M-RoPE takes ``positions3`` (3, B, S),
+    or the text ids of ``positions`` where it is None."""
+    dh = cfg.resolved_head_dim
+    if cfg.pos_type == "mrope":
+        p3 = positions3 if positions3 is not None else \
+            text_positions3(positions)
+        cos, sin = mrope_cos_sin(p3, dh, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.pos_type == "rope":
+        cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
     else:
         cos = sin = None
     return {"cfg": cfg, "cos": cos, "sin": sin, "t": t}
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
-    return embed(batch["tokens"], params["embed"], dtype)
+    """The token embeddings, or the stub frontends' inputs: the audio stub
+    projects precomputed frame features (B, S, 512) to d_model; the vision
+    stub scatters precomputed patch embeddings (B, n_img, D) over the
+    positions where ``vision_mask`` (B, S) is True (early fusion)."""
+    if cfg.modality == "audio_stub":
+        return batch["features"].to(dtype) @ params["frontend_proj"].to(dtype)
+    x = embed(batch["tokens"], params["embed"], dtype)
+    if cfg.modality == "vision_stub" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(dtype)            # (B, n_img, D)
+        mask = batch["vision_mask"].bool()               # (B, S)
+        n_img = ve.shape[1]
+        # the j-th True position of each row is patch j's target; a row with
+        # fewer Trues than n_img sends its last patches to False positions,
+        # which keep their token embedding
+        idx = torch.argsort((~mask).to(torch.int8), dim=1,
+                            stable=True)[:, :n_img]      # (B, n_img)
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        keep = torch.gather(mask, 1, idx)[..., None]
+        x = x.index_put((rows, idx), torch.where(keep, ve, x[rows, idx]))
+    return x
 
 
 def _layer(tree, i: int):
@@ -213,7 +235,7 @@ def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16):
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    ctx = _make_ctx(cfg, positions, 0)
+    ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0)
     x, aux = _run_stack(params, x, cfg, ctx, None)
     return _head(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32,
                                                   device=x.device)
@@ -225,7 +247,7 @@ def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16):
     x = _embed_inputs(params, batch, cfg, dtype)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    ctx = _make_ctx(cfg, positions, 0)
+    ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0)
     x, _ = _run_stack(params, x, cfg, ctx, cache)
     cache["t"] = S
     logits = _head(params, x[:, -1:].contiguous(), cfg)
@@ -239,7 +261,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, *,
     B = x.shape[0]
     t = cache["t"]
     positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    ctx = _make_ctx(cfg, positions, t)
+    ctx = _make_ctx(cfg, positions, None, t)     # text ids, as the reference
     x, _ = _run_stack(params, x, cfg, ctx, cache)
     cache["t"] = t + 1
     logits = _head(params, x, cfg)

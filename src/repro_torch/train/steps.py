@@ -98,6 +98,20 @@ def make_eval_step(cfg: ModelConfig,
     return eval_step
 
 
+def make_encode_step(cfg: ModelConfig, *, dtype=torch.bfloat16) -> Callable:
+    """Encoder-only forward (hubert's prefill_32k): ``encode(params, batch)
+    -> logits`` (B, S, V), under ``no_grad``; the weights cast to ``dtype``
+    as the reference casts them per call (a no-op on weights already in
+    it)."""
+    def encode_step(params, batch):
+        with torch.no_grad():
+            logits, _ = forward_train(cast_tree(params, dtype), batch, cfg,
+                                      dtype=dtype)
+        return logits
+
+    return encode_step
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda, flash_attention_cuda)
-from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+from repro_torch.kernels.flash_attention.ref import (attention_mask, lse_ref,
+                                                    mha_ref)
 from repro_torch.kernels.rglru import kernel as lru
 from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda, rglru_cuda
 from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
@@ -501,13 +502,8 @@ def test_flash_mma_tf32x3_body_matches_plain(cuda, B, S, H, K, dh, kw):
     assert {b: after[b] - before[b] for b in after} == {
         "sm90": 0, "mma": 0, "mma_tf32x3": 1, "fp32": 1}
     assert by_dh[dh] == before_dh + 1
-    pos = torch.arange(S, device=cuda)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", q.unflatten(2, (K, H // K)),
-                          k) * dh ** -0.5
-    want_lse = torch.logsumexp(logits.masked_fill(
-        ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
     for got, want in ((out, mha_ref(q, k, v, **kw)), (out, prev),
-                      (lse, want_lse), (lse, prev_lse)):
+                      (lse, lse_ref(q, k, **kw)), (lse, prev_lse)):
         assert_allclose(f32(got), f32(want), **tol(torch.float32))
 
 
@@ -849,8 +845,8 @@ def _flash_bwd_inputs(cuda, B, S, H, K, dh, dtype):
     tensors that require grad and one that reads their gradients.  bf16 q,
     k and v at dh 128 and 256 are views of a fused projection one element
     wider than the heads (strides TMA cannot read), which the forward sends
-    to its mma body: the sm90 body writes no log-sum-exp, so training on it
-    raises."""
+    to its mma body, so that body's log-sum-exp feeds the backward here
+    (the sm90 body's: ``test_flash_sm90_training_matches_plain``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     if dtype == torch.bfloat16 and dh in flash.SM90_HEAD_DIMS:
         def heads(t):
@@ -882,12 +878,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     t = 2e-5 if dtype == torch.float32 else 2e-2
     with torch.no_grad():
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    pos = torch.arange(S, device=cuda)
-    logits = torch.einsum("bqkgd,bskd->bkgqs",
-                          q.float().unflatten(2, (K, H // K)), k.float())
-    logits = logits * dh ** -0.5
-    logits = logits.masked_fill(~attention_mask(pos, pos, **kw), -torch.inf)
-    assert _within(lse, torch.logsumexp(logits, -1).flatten(1, 2), t)
+    assert _within(lse, lse_ref(q, k, **kw), t)
     body = "mma_tf32x3" if dtype == torch.float32 else "mma_bf16"
     before = flash_attention_bwd_cuda.launches_by_body[body]
     ops.flash_attention(*leaves(), **kw).backward(do)
@@ -975,12 +966,55 @@ def test_raw_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
         rmsnorm_cuda(x, torch.ones(64, device=cuda))
 
 
-def test_flash_training_on_the_sm90_body_raises(cuda):
-    q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=cuda,
-                    requires_grad=True)
-    k = torch.zeros(1, 64, 1, 128, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.flash_attention(q, k, k)
+# qwen2-vl-2b's train step (batch 4 x 1024, 12 heads over 2, dh 128)
+SM90_TRAIN_CASE = (4, 1024, 12, 2, 128, dict(causal=True))
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [*SM90_CASES, SM90_TRAIN_CASE])
+def test_flash_sm90_lse_matches_plain(cuda, B, S, H, K, dh, kw):
+    """The sm90 body's log-sum-exp against the plain one in fp32 from the
+    same bf16 inputs, within 2e-5 (1 + |lse|) (+inf where a row sees no
+    key); O bit for bit the same with and without it."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(B, S, n, dh, generator=g, device=cuda).bfloat16()
+               for n in (H, K, K))
+    before = flash_attention_cuda.launches_by_body["sm90"]
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    plain = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_by_body["sm90"] == before + 2
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert torch.equal(out, plain)
+    assert _within(lse, lse_ref(q, k, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    SM90_TRAIN_CASE,
+    (1, 300, 28, 4, 128, dict(causal=True, chunk=96)),
+    (2, 512, 16, 1, 256, dict(causal=True, window=2048)),
+    (1, 1000, 16, 1, 256, dict(causal=True, window=300)),
+    (1, 200, 16, 1, 256, dict(causal=False)),
+])
+def test_flash_sm90_training_matches_plain(cuda, B, S, H, K, dh, kw):
+    """bf16 training at dh 128 and 256 on TMA-aligned inputs: the sm90
+    forward (its log-sum-exp) and the bf16 pair backward through
+    ``ops.flash_attention``; dq, dk, dv against autograd of mha_ref in fp32
+    on the same bf16 inputs, within 2e-2 (1 + |x|)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(B, S, n, dh, generator=g,
+                               device=cuda).bfloat16() for n in (H, K, K, H))
+    assert flash.select_body(q, k, v) == "sm90"
+    fwd = flash_attention_cuda.launches_by_body["sm90"]
+    bwd = flash_attention_bwd_cuda.launches_by_body["mma_bf16"]
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    ops.flash_attention(*leaves, **kw).backward(do)
+    assert flash_attention_cuda.launches_by_body["sm90"] == fwd + 1
+    assert flash_attention_bwd_cuda.launches_by_body["mma_bf16"] == bwd + 1
+    qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
+    mha_ref(qf, kf, vf, **kw).backward(do.float())
+    for got, want in zip(leaves, (qf, kf, vf)):
+        assert got.grad.dtype == torch.bfloat16
+        assert _within(got.grad, want.grad, 2e-2)
 
 
 SSD_BWD_CASES = [

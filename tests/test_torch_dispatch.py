@@ -660,11 +660,13 @@ def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
 
 
 @pytest.mark.parametrize("dh", flash.SM90_HEAD_DIMS)
-def test_flash_bwd_refuses_the_sm90_body(dh):
-    """bf16 at dh 128 and 256, aligned: the forward would take the sm90
-    body, which writes no log-sum-exp yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flash.select_bwd_body(*qkv(dh=dh))
+def test_flash_bwd_takes_the_sm90_forward_to_mma_bf16(dh):
+    """bf16 at dh 128 and 256, aligned: the forward takes the sm90 body,
+    which writes the log-sum-exp, and the backward the bf16 pair kernels
+    (the body of bf16 training at these head dims)."""
+    q, k, v = qkv(dh=dh)
+    assert flash.select_body(q, k, v) == "sm90"
+    assert flash.select_bwd_body(q, k, v) == "mma_bf16"
 
 
 @pytest.mark.parametrize("dh", [48, 96, 192, 512])

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models.blocks import causal_conv1d as jax_causal_conv1d
 from repro.models import decode_step as jax_decode_step
@@ -29,7 +30,7 @@ from repro.models import param_specs as jax_param_specs
 from repro.models import prefill as jax_prefill
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import (decode_step, forward_train, init_cache,
-                                init_params, prefill)
+                                init_params, param_specs, prefill)
 from repro_torch.models.blocks import causal_conv1d
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.train.steps import make_decode_step, make_prefill_step
@@ -376,9 +377,24 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "hubert-xlarge"])
-def test_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError):
-        init_params(get_smoke_config(arch), device="cpu")
+def test_modality_configs_init_with_the_references_tree(arch):
+    """The vision and audio stub configs initialise: the smoke config's
+    weights and the published config's shapes (on "meta") have the
+    reference's keys and shapes, hubert's ``frontend_proj`` (512, d_model)
+    among them, drawn at std 512^-0.5."""
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    assert _shapes(params) == _shapes(jax_param_specs(jax_smoke(arch)))
+    full = get_config(arch)
+    assert _shapes(param_specs(full)) == _shapes(jax_param_specs(
+        jax_config(arch)))
+    if cfg.modality == "audio_stub":
+        w = params["frontend_proj"]
+        assert w.shape == (512, cfg.d_model)
+        assert abs(float(w.std()) / (0.98658 * 512 ** -0.5) - 1) < 0.05
+    else:
+        assert "frontend_proj" not in params
 
 
 def test_full_qwen2_7b_is_supported():
@@ -419,6 +435,25 @@ def test_serve_example_runs_mamba2_on_cpu(monkeypatch, capsys):
                    run_name="__main__")
     out = capsys.readouterr().out
     assert "arch=mamba2-130m" in out and "decode_throughput=" in out
+
+
+def test_serve_example_serves_qwen2_vl_and_refuses_hubert(monkeypatch,
+                                                          capsys):
+    """qwen2-vl-2b's text prompts (M-RoPE at text positions); hubert is
+    encoder-only and refused, as the reference's example refuses it."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve_batch_torch.py", "--device", "cpu", "--arch", "qwen2-vl-2b",
+        "--requests", "3", "--batch", "2", "--max-new", "3"])
+    runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),
+                   run_name="__main__")
+    out = capsys.readouterr().out
+    assert "arch=qwen2-vl-2b" in out and "decode_throughput=" in out
+    monkeypatch.setattr(sys, "argv", [
+        "serve_batch_torch.py", "--device", "cpu", "--arch",
+        "hubert-xlarge"])
+    with pytest.raises(SystemExit, match="encoder-only"):
+        runpy.run_path(str(ROOT / "examples" / "serve_batch_torch.py"),
+                       run_name="__main__")
 
 
 _FORBIDDEN = re.compile(

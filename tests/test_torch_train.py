@@ -241,19 +241,23 @@ def test_train_step_loss_and_grads_match_jax(make_cfg):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_smoke_train_step(arch):
     """Twin of the JAX suite's test: one fwd + bwd + update on the CPU for
-    every arch the port runs (the others raise NotImplementedError): loss
-    and grad norm finite, parameters moved."""
+    every arch, its batch built by modality as the suite's ``make_batch``
+    builds it: loss and grad norm finite, parameters moved."""
     cfg = get_smoke_config(arch)
-    try:
-        params = init_params(cfg, device="cpu")
-    except NotImplementedError:
-        pytest.skip(f"{arch}: not in the port yet")
-    toks = torch.randint(0, cfg.vocab_size, (2, 32),
-                         generator=torch.Generator().manual_seed(0))
+    params = init_params(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.modality == "audio_stub":
+        batch["features"] = torch.randn(2, 32, 512, generator=g)
+        batch["loss_mask"] = torch.ones(2, 32, dtype=torch.bool)
+    if cfg.modality == "vision_stub":
+        batch["vision_embeds"] = torch.randn(2, 4, cfg.d_model, generator=g)
+        batch["vision_mask"] = torch.zeros(2, 32, dtype=torch.bool)
+        batch["vision_mask"][:, 2:6] = True
     step = make_train_step(cfg, TrainConfig(dtype=torch.float32))
     new_params, new_opt, metrics = step(
-        params, init_opt_state(params), {"tokens": toks, "labels": toks},
-        torch.tensor(1e-3))
+        params, init_opt_state(params), batch, torch.tensor(1e-3))
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["grad_norm"]))
     assert int(new_opt["count"]) == 1
