@@ -19,9 +19,9 @@ Phases, each printed as one JSON line:
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
    the final state).  Flash attention at every head dim of the config
-   registry, and the sm90 body (bf16, dh 128 and 256) at ragged S, GQA 7:1,
-   MQA 16:1, window and chunk edges, no causal mask, views of a fused
-   projection and the MoE serves' prefill shapes (moonshot-v1-16b-a3b's
+   registry, and the sm90 body (bf16, dh 80, 120, 128 and 256) at ragged S,
+   GQA 7:1, MQA 16:1, window and chunk edges, no causal mask, views of a
+   fused projection and the MoE serves' prefill shapes (moonshot-v1-16b-a3b's
    MHA 16/16, llama4-scout-17b-a16e's GQA 40/8 with its chunk of 8192 and
    without), each at S 512 and a ragged 300; rmsnorm's one-read body at D
    768, 1536, 2048, 3584, 4096 and 5120 (bf16; fp32 up to 4096) and the
@@ -199,7 +199,7 @@ Phases, each printed as one JSON line:
 11. ``encode_hubert``: hubert-xlarge at full width and depth (48 layers),
    bf16, one 32768-frame sequence through ``make_encode_step`` (the
    dry-run's prefill_32k, its batch of 32 cut to 1): logits finite, 48
-   flash forwards on the mma body at dh 80 with no causal mask and 97
+   flash forwards on the sm90 body at dh 80 with no causal mask and 97
    RMSNorm forwards; ms an encode, peak memory, its bound.
 
 This slice also adds, to ``kernels``, the sm90 body's log-sum-exp
@@ -213,8 +213,10 @@ sm90 time with and without lse, and at qwen2-vl-2b's train shape the
 forward and backward beside SDPA's bf16 ones and their bounds), and the
 kernels at this slice's own shapes (``modality_kernels``: rmsnorm at
 hubert-xlarge's D 1280, its bf16 cta_rows backward at qwen2-vl-2b's step,
-the flash mma body at hubert's 32k encode against mha_ref on its first
-and last query rows, timed beside SDPA's bf16 call); to
+the flash sm90 body at hubert's 32k encode against mha_ref on its first
+and last query rows, timed beside the mma body and SDPA's bf16 call, and
+at dh 80 and 120 against mha_ref and timed at stablelm-3b's and
+h2o-danube-3-4b's causal prefill); to
 ``serve_check`` and ``serve`` qwen2-vl-2b (4 layers fp32, also held
 against the CPU; 28 layers bf16; a 16 x 16 image block in every prompt
 of the serve, 8 x 8 in the check); to ``train_check`` qwen2-vl-2b and
@@ -559,7 +561,7 @@ def phase_env(build):
          tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                    cudnn=torch.backends.cudnn.allow_tf32),
          built=sorted(built), build_s=build_s, ptxas=ptxas, sm90_ptxas=sm90)
-    check(len(sm90) == 2 and all(
+    check(len(sm90) == 3 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in sm90.values()), f"sm90 flash body spills: {sm90}")
     check("C7508" not in logs["flash_attention"],
@@ -729,8 +731,9 @@ def phase_kernels(dev, gen, seed):
         (1, 700, 16, 1, 256, dict(causal=True, window=300)),
         (1, 130, 4, 1, 256, dict(causal=False)),
     ]
-    # the sm90 body (bf16, dh 128 and 256): ragged S, GQA 7:1 and MQA 16:1,
-    # window and chunk edges inside tiles, no causal mask
+    # the sm90 body (bf16, dh 128 and 256; dh 80 and 120 in
+    # modality_kernels): ragged S, GQA 7:1 and MQA 16:1, window and chunk
+    # edges inside tiles, no causal mask
     sm90_cases = [
         (1, 200, 28, 4, 128, dict(causal=True)),
         (1, 1000, 28, 4, 128, dict(causal=True)),
@@ -1407,8 +1410,8 @@ def backward_kernels(dev, gen, cases, summary):
         def heads(t):
             """q, k, v as views of a fused projection one element wider
             than its heads: the forward's mma body, which writes the
-            log-sum-exp (aligned bf16 inputs at dh 128 / 256 take sm90,
-            which does not)."""
+            log-sum-exp (aligned bf16 inputs at ``SM90_HEAD_DIMS`` take
+            sm90, whose log-sum-exp ``sm90_lse_kernels`` holds)."""
             return [x.unflatten(-1, (-1, dh)) for x in t[..., :-1].split(
                 [H * dh, K * dh, K * dh], -1)]
 
@@ -1496,11 +1499,17 @@ def backward_kernels(dev, gen, cases, summary):
     scan_backward_kernels(dev, gen, cases, summary)
 
 
-# the sm90 body's cases with its log-sum-exp (bf16, dh 128 and 256): the
-# prefill shapes of qwen2-7b, recurrentgemma-9b, moonshot-v1-16b-a3b and
-# llama4-scout-17b-a16e (chunk 8192), S 300 (a ragged last tile), window,
-# chunk and no mask, and last qwen2-vl-2b's train step (batch 4 x 1024)
+# the sm90 body's cases with its log-sum-exp (bf16, dh 80, 120, 128 and
+# 256): the prefill shapes of qwen2-7b, recurrentgemma-9b,
+# moonshot-v1-16b-a3b, llama4-scout-17b-a16e (chunk 8192), stablelm-3b and
+# h2o-danube-3-4b, hubert-xlarge's heads at S 2048 (no mask), S 300 (a
+# ragged last tile), window, chunk and no mask, and last qwen2-vl-2b's
+# train step (batch 4 x 1024)
 SM90_LSE_CASES = [
+    ("stablelm-3b", 4, 512, 32, 32, 80, dict(causal=True)),
+    ("hubert-xlarge", 1, 2048, 16, 16, 80, dict(causal=False)),
+    ("h2o-danube-3-4b", 4, 512, 32, 8, 120, dict(causal=True)),
+    ("ragged", 1, 300, 28, 4, 80, dict(causal=True)),
     ("qwen2-7b", 4, 512, 28, 4, 128, dict(causal=True)),
     ("recurrentgemma-9b", 4, 512, 16, 1, 256, dict(causal=True, window=2048)),
     ("moonshot-v1-16b-a3b", 4, 512, 16, 16, 128, dict(causal=True)),
@@ -1666,6 +1675,26 @@ def sm90_lse_kernels(dev, gen, cases, summary):
 HUBERT_ATTN = (1, 32768, 16, 16, 80)
 HUBERT_ROWS = 256
 HUBERT_Q_SCALE = 4.0
+# the sm90 body at dh 80 and 120 (tiles of 128 columns, the columns past dh
+# zero-filled by TMA): ragged S, MHA (hubert-xlarge, stablelm-3b), GQA 7:1
+# and 4:1 (h2o-danube-3-4b), MQA, window, chunk and no mask
+SM90_NARROW_CASES = [
+    (1, 200, 16, 16, 80, dict(causal=True)),
+    (1, 1000, 28, 4, 80, dict(causal=True)),
+    (2, 512, 16, 2, 80, dict(causal=True, window=100)),
+    (1, 512, 16, 4, 80, dict(causal=True, chunk=96)),
+    (2, 300, 16, 16, 80, dict(causal=False)),
+    (1, 700, 16, 1, 80, dict(causal=False)),
+    (1, 200, 32, 8, 120, dict(causal=True)),
+    (1, 1000, 28, 4, 120, dict(causal=True, window=300)),
+    (1, 512, 32, 8, 120, dict(causal=True, chunk=96)),
+    (2, 300, 16, 16, 120, dict(causal=False)),
+]
+# their causal prefill at batch 4 x 512, timed beside the mma body and SDPA
+SM90_NARROW_SHAPES = {
+    "stablelm-3b": (4, 512, 32, 32, 80, dict(causal=True)),
+    "h2o-danube-3-4b": (4, 512, 32, 8, 120, dict(causal=True)),
+}
 
 
 def modality_kernels(dev, gen, cases, summary):
@@ -1675,14 +1704,19 @@ def modality_kernels(dev, gen, cases, summary):
     the bf16 backward on a path for the first time) and fp32 at hubert's
     train_check ((512, 1280)), against their plain versions (the backward
     against fp64 autograd, as ``backward_kernels`` holds it); the flash
-    mma body at hubert's encode shape (``HUBERT_ATTN``, bf16, no causal
-    mask, q drawn at ``HUBERT_Q_SCALE``) against mha_ref on the first and
-    last ``HUBERT_ROWS`` query rows (rows are independent without a mask),
-    with |O|'s largest and mean printed beside the limit, then timed
-    beside SDPA's bf16 call, the plain version walked over all rows by
-    1024-row chunks and its bound (``summary["flash_attention_bidir"]``)."""
+    sm90 body at dh 80 and 120 (``SM90_NARROW_CASES``, and views of a
+    fused projection) against mha_ref; at hubert's encode shape
+    (``HUBERT_ATTN``, bf16, no causal mask, q drawn at ``HUBERT_Q_SCALE``)
+    against mha_ref on the first and last ``HUBERT_ROWS`` query rows (rows
+    are independent without a mask), with |O|'s largest and mean printed
+    beside the limit, then timed beside the mma body (``body="mma"``, the
+    previous body), SDPA's bf16 call, the plain version walked over all
+    rows by 1024-row chunks and its bound
+    (``summary["flash_attention_bidir"]``); last at ``SM90_NARROW_SHAPES``
+    beside the mma body, SDPA, the plain version and the bound
+    (``summary["flash_attention"]["by_arch"]``)."""
     from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
@@ -1716,6 +1750,24 @@ def modality_kernels(dev, gen, cases, summary):
                           max_abs_err=max(e for e, _ in errs), tol=TOL[dtype],
                           ok=all(ok for _, ok in errs) and body == "cta_rows"))
 
+    def attn_case(q, k, v, kw, **info):
+        body = flash.select_body(q, k, v)
+        err, ok = compare(flash.flash_attention_cuda(q, k, v, **kw),
+                          mha_ref(q, k, v, **kw), bf16)
+        B, S, H, dh = q.shape
+        cases.append(dict(kernel="flash_attention", body=body,
+                          dtype=str(bf16), B=B, S=S, H=H, K=k.shape[2], dh=dh,
+                          **kw, **info, max_abs_err=err, tol=TOL[bf16],
+                          ok=ok and body == "sm90"))
+
+    for B, S, H, K, dh, kw in SM90_NARROW_CASES:
+        attn_case(*(randn(B, S, n, dh, dtype=bf16) for n in (H, K, K)), kw)
+    for H, K, dh in ((16, 16, 80), (32, 8, 120)):
+        qkv = randn(2, 300, (H + 2 * K) * dh, dtype=bf16)
+        attn_case(*(t.unflatten(-1, (-1, dh)) for t in qkv.split(
+            [H * dh, K * dh, K * dh], dim=-1)), dict(causal=True),
+            fused_views=True)
+
     B, S, H, K, dh = HUBERT_ATTN
     q = (HUBERT_Q_SCALE * randn(B, S, H, dh, dtype=f32)).to(bf16)
     k, v = (randn(B, S, K, dh, dtype=bf16) for _ in range(2))
@@ -1739,7 +1791,7 @@ def modality_kernels(dev, gen, cases, summary):
                       mean_abs_out=float(out.float().abs().mean()),
                       max_abs_err=max(e for e, _ in errs), tol=TOL[bf16],
                       limit_share=share,
-                      ok=all(ok for _, ok in errs) and body == "mma"))
+                      ok=all(ok for _, ok in errs) and body == "sm90"))
 
     def plain():
         for r0 in range(0, S, 1024):
@@ -1748,6 +1800,8 @@ def modality_kernels(dev, gen, cases, summary):
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=False)
+    mma = lambda: flash.flash_attention_cuda(  # noqa: E731
+        q, k, v, causal=False, body="mma")
     t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
                         4 * B * H * dh * S * S, bf16)
     mark = len(PROFILER_WINDOWS)
@@ -1755,11 +1809,14 @@ def modality_kernels(dev, gen, cases, summary):
         name="flash_attention_bidir", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99",
-        counted_as=("flash_attention", "mma", (dh,)),
+        counted_as=("flash_attention", "sm90", (dh,)),
         shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16, no mask "
               "(one hubert-xlarge layer of the 32k encode)",
         body=body, ms=device_ms(kernel, iters=3, warmup=1),
         event_ms=time_ms(kernel, iters=3, warmup=1),
+        previous_body="mma", previous_body_ms=device_ms(mma, iters=3,
+                                                        warmup=1),
+        previous_body_event_ms=time_ms(mma, iters=3, warmup=1),
         plain="mha_ref by 1024-row query chunks",
         plain_ms=device_ms(plain, iters=1, warmup=1),
         library="F.scaled_dot_product_attention bf16",
@@ -1773,6 +1830,36 @@ def modality_kernels(dev, gen, cases, summary):
     emit("kernels", kernel="flash_attention_bidir", timings={
         summary["flash_attention_bidir"]["shape"]:
             summary["flash_attention_bidir"]})
+    del q, k, v, out, qt, kt, vt
+
+    timings, mark = {}, len(PROFILER_WINDOWS)
+    for arch, (B, S, H, K, dh, kw) in SM90_NARROW_SHAPES.items():
+        q, k, v = (randn(B, S, n, dh, dtype=bf16) for n in (H, K, K))
+        pos = torch.arange(S, device=dev)
+        pairs = int(attention_mask(pos, pos, **kw).sum())
+        t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
+                            4 * B * H * dh * pairs, bf16)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        kernel = lambda: flash.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+        mma = lambda: flash.flash_attention_cuda(  # noqa: E731
+            q, k, v, body="mma", **kw)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        timings[arch] = dict(
+            shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
+                  + " ".join(f"{n}={x}" for n, x in kw.items()),
+            body=flash.select_body(q, k, v),
+            ms=device_ms(kernel), event_ms=time_ms(kernel),
+            previous_body="mma", previous_body_ms=device_ms(mma),
+            previous_body_event_ms=time_ms(mma),
+            plain_ms=device_ms(lambda: mha_ref(q, k, v, **kw)),
+            library="F.scaled_dot_product_attention bf16",
+            library_ms=device_ms(library), library_event_ms=time_ms(library),
+            bound_ms=t_bound, bound_by=by,
+            max_abs_err=compare(kernel(), mha_ref(q, k, v, **kw), bf16)[0])
+    summary["flash_attention"]["by_arch"].update(timings)
+    summary["flash_attention"]["narrow_profiler_windows"] = window_counts(mark)
+    emit("kernels", kernel="flash_attention", timings=timings)
 
 
 # recurrentgemma-9b's train step and stablelm-12b's heads at the same batch:
@@ -3318,7 +3405,7 @@ def phase_encode_hubert(dev, seed, batch: int = 1, seq: int = 32768,
     through ``make_encode_step`` on random frame features (batch x seq x
     512): the dry-run's prefill_32k sequence, its global batch of 32 over a
     pod cut to ``batch`` on one card.  Logits finite; one encode launches
-    48 flash forwards on the mma body at dh 80 (no causal mask) and 2L + 1
+    48 flash forwards on the sm90 body at dh 80 (no causal mask) and 2L + 1
     = 97 RMSNorm forwards.  ms an encode (the median of ``repeats`` after
     the counted one), peak memory and the bound: the projections and the
     frontend (2 x tokens x parameters) and the attention of
@@ -3371,8 +3458,8 @@ def phase_encode_hubert(dev, seed, batch: int = 1, seq: int = 32768,
     want = {"rmsnorm": (2 * L + 1, 0), "flash_attention": (L, 0),
             "rglru": (0, 0), "ssd": (0, 0)}
     want_by_body = {
-        "flash_attention": {"sm90": 0, "mma": L, "mma_tf32x3": 0, "fp32": 0},
-        "flash_attention_by_head_dim": {"mma": {cfg.resolved_head_dim: L}},
+        "flash_attention": {"sm90": L, "mma": 0, "mma_tf32x3": 0, "fp32": 0},
+        "flash_attention_by_head_dim": {"sm90": {cfg.resolved_head_dim: L}},
         "rmsnorm": {"one_read": 2 * L + 1, "generic": 0}}
     emit("encode_hubert", arch=cfg.name, layers=L,
          reduced="global batch 32 (the dry-run's prefill_32k over a pod) -> "

@@ -23,20 +23,23 @@
 // Four bodies; the wrapper picks one from the dtype, the head dim and the
 // alignment of q, k and v (kernels/flash_attention/kernel.py:select_body):
 //
-//   * sm90 (bf16, dh 128 and 256, 16-byte aligned bases and strides, a
-//     scale > 0: the serving path).  Warp-specialised: one producer warp
-//     issues TMA loads and two consumer warpgroups run wgmma.  The CTAs are
-//     persistent, one an SM, and walk the query tiles latest first (the
-//     longest under a causal mask), so the producer loads the next tile's Q
-//     and K/V while the consumers finish this one.  Q has one buffer,
+//   * sm90 (bf16, dh 80, 120, 128 and 256, 16-byte aligned bases and
+//     strides, a scale > 0: the serving path and hubert-xlarge's encode).
+//     Warp-specialised: one producer warp issues TMA loads and two consumer
+//     warpgroups run wgmma.  The CTAs are persistent, one an SM, and walk
+//     the query tiles (under a causal mask latest first, the longest; else
+//     head by head, so that the CTAs in flight share a head's K and V in
+//     L2), so the producer loads the next tile's Q and K/V while the
+//     consumers finish this one.  Q has one buffer,
 //     released as soon as the tile's last Q K^T is done; K and V come
 //     through a ring of 2 stages; every buffer is a TMA tile with full /
 //     empty mbarriers, and the two consumer warpgroups share every K and V
 //     tile.  The tensor maps are 4-D, [dh, heads, S, B] over the given
 //     strides, with a box of one head x rows x a 64-element (128-byte)
 //     column slab and the 128-byte swizzle that wgmma reads; TMA fills rows
-//     past S with zeros.  S = Q K^T is wgmma m64nBKk16 with Q and K both
-//     K-major in shared memory; O += P V is wgmma m64n128k16 with P in
+//     past S and columns past dh with zeros.  S = Q K^T is wgmma m64nBKk16
+//     with Q and K both K-major in shared memory, over the k16 steps that
+//     hold dh; O += P V is wgmma m64n128k16 (m64n80k16 at dh 80) with P in
 //     registers (the score accumulators, exponentiated and repacked to bf16
 //     in place: the accumulator layout is the register-A layout) and V
 //     MN-major in shared memory.  The softmax runs in the log2 domain on
@@ -48,14 +51,15 @@
 //     an element).  O leaves through its own shared-memory buffer and a TMA
 //     store that the next tile does not wait for.  Registers bound the
 //     tiling: ptxas gives this kernel 168 a thread (see Sm90::kThreads), so
-//     at dh 128 each warpgroup owns 64 rows of a 128-row tile with BK 128,
+//     at dh 80 and 128 each warpgroup owns 64 rows of a 128-row tile with
+//     BK 128 (dh 120 runs on the 128 body, its last 8 columns zero-filled),
 //     and at dh 256 the two warpgroups share 64 rows and split O's columns.
-//   * mma (bf16, any other head dim or unaligned inputs): tensor cores
-//     through mma.sync m16n8k16.  A CTA of 4 warps owns a 64-row query tile;
-//     each warp owns 16 rows.  Q, K and V tiles are staged in shared memory
-//     with 16-byte loads where the inputs allow (rows padded by 8 elements
-//     so the fragment loads are free of bank conflicts), else one element
-//     at a time; V's fragments come from ldmatrix.trans and the scores stay
+//   * mma (bf16, dh 16, 32, 64 and 160, unaligned inputs, a scale <= 0):
+//     tensor cores through mma.sync m16n8k16.  A CTA of 4 warps owns a
+//     64-row query tile; each warp owns 16 rows.  Q, K and V tiles are
+//     staged in shared memory with 16-byte loads where the inputs allow
+//     (rows padded by 8 elements so the fragment loads are free of bank
+//     conflicts), else one element at a time; V's fragments come from ldmatrix.trans and the scores stay
 //     in registers as the A operand of the PV product.
 //   * mma_tf32x3 (fp32 at every head dim: the training path): the tensor
 //     cores through mma.sync m16n8k8 TF32, each product from hi + lo splits
@@ -2037,6 +2041,23 @@ __device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, fp32) += A (64 x 16, bf16 in registers) * B (16 x 80); B
+// MN-major in shared memory: columns 0-63 in one 128-byte swizzled slab,
+// 64-79 at the start of the next (the leading offset apart).
+__device__ __forceinline__ void wgmma_rs_n80_mn(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef WG_D8
 
 template <int BK>
@@ -2050,10 +2071,32 @@ __device__ __forceinline__ void wgmma_qk<64>(float (&d)[32], uint64_t da, uint64
   wgmma_ss_n64(d, da, db);
 }
 
-// Tile geometry and shared-memory layout (bytes) of the sm90 body.
+// O += P V over one 16-key step, N = the O columns a warpgroup owns.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128_mn(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<80>(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n80_mn(d, a, db);
+}
+
+// Tile geometry and shared-memory layout (bytes) of the sm90 body, compiled
+// for head dim DH (80, 128 or 256).  A row of Q, K, V or O is held as
+// 64-column (128-byte) slabs; the tensor maps' extent is the real head dim,
+// so TMA zero-fills the columns past it and clips O's store there (dh 80:
+// columns 80-127 of the second slab; dh 120, on the DH 128 body: 120-127).
 //
 // dh 128: each consumer warpgroup owns 64 query rows and all of O's 128
 // columns (64 accumulator registers a thread), so a query tile is 128 rows.
+// dh 80: the same tiles, Q K^T over the 5 k16 steps that hold the 80
+// columns and P V at N 80 (40 accumulator registers a thread): no product
+// touches the zero-filled columns.
 // dh 256 (kSplitO): O's 256 columns would be 128 registers a thread, and
 // ptxas holds this kernel to 168 (see kThreads), so both warpgroups take the
 // same 64 rows and each owns 128 of O's columns; each computes the rows'
@@ -2065,9 +2108,11 @@ struct Sm90 {
   static constexpr int kBQ = kSplitO ? 64 : 128;    // query rows of a tile
   static constexpr int kWGRows = kSplitO ? 0 : 64;  // row offset of warpgroup 1
   static constexpr int kOCols = kSplitO ? 128 : DH; // O columns a warpgroup owns
-  static constexpr int kBK = DH == 128 ? 128 : 64;
+  static constexpr int kBK = kSplitO ? 64 : 128;
   static constexpr int kStages = 2;
-  static constexpr int kSlabs = DH / 64;      // 64-column (128-byte) slabs of a row
+  static constexpr int kKSteps = DH / 16;            // k16 steps of Q K^T
+  static constexpr int kSlabs = (DH + 63) / 64;      // 64-column (128-byte) slabs of a row
+  static constexpr int kOSlabs = (kOCols + 63) / 64; // slabs of the O a warpgroup owns
   static constexpr int kQSlab = kBQ * 128;    // bytes of one slab of the Q tile
   static constexpr int kKVSlab = kBK * 128;   // bytes of one slab of a K or V tile
   static constexpr int kQBytes = kSlabs * kQSlab;
@@ -2084,7 +2129,7 @@ struct Sm90 {
   // warpgroup (384 threads), with or without setmaxnreg moving registers
   // from the producer to the consumers, so one warp loads.
   static constexpr int kThreads = 288;
-  static_assert(DH == 128 || DH == 256, "sm90 body: dh 128 or 256");
+  static_assert(DH == 80 || DH == 128 || DH == 256, "sm90 body: dh 80, 128 or 256");
   static_assert(kBytes <= 232448, "sm90 body: over the 227 KB a block may use");
 };
 
@@ -2158,8 +2203,12 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
-// One query tile of the grid-stride walk: tiles are numbered latest query
-// tile first (they see the most keys under a causal mask), then by (b, h).
+// One query tile of the grid-stride walk.  Under a causal mask tiles are
+// numbered latest query tile first (they see the most keys), then by (b,
+// h).  Without one every tile sees the same keys, and they are numbered
+// head-major, (b, h) first: the CTAs in flight then share one head's K and
+// V in L2 (hubert-xlarge's encode, 16 heads of 32768 keys, reads 10.5 MB of
+// K and V a head against a 50 MB L2).
 struct Sm90Tile {
   int q0, h, b, kvh, kt0, kt1;
 };
@@ -2168,9 +2217,10 @@ template <int DH>
 __device__ __forceinline__ Sm90Tile sm90_tile(const Params& p, int tile) {
   using C = Sm90<DH>;
   const int n_qt = (p.S + C::kBQ - 1) / C::kBQ;
-  const int bh = tile % (p.B * p.H);
+  const int bh = p.causal ? tile % (p.B * p.H) : tile / n_qt;
+  const int qt = p.causal ? n_qt - 1 - tile / (p.B * p.H) : tile % n_qt;
   Sm90Tile t;
-  t.q0 = (n_qt - 1 - tile / (p.B * p.H)) * C::kBQ;
+  t.q0 = qt * C::kBQ;
   t.h = bh % p.H;
   t.b = bh / p.H;
   t.kvh = t.h / (p.H / p.K);
@@ -2251,7 +2301,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
     // tile and O's columns [64 o_slab, 64 o_slab + kOCols)
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
-    constexpr int kON = C::kOCols / 128;  // 128-column O accumulators
+    constexpr int kOCols = C::kOCols;
     const int o_slab = C::kSplitO ? 2 * wg : 0;  // first 64-column slab of this O
     const uint32_t q_wg = sQ + C::kWGRows * wg * 128;  // this warpgroup's rows of each slab
     const uint32_t o_wg = sO + C::kWGRows * wg * 128;
@@ -2261,11 +2311,9 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
       const Sm90Tile tl = sm90_tile<DH>(p, tile);
       const int n = (tile - blockIdx.x) / gridDim.x;
       const int r0 = tl.q0 + C::kWGRows * wg;
-      float o[kON][64];
+      float o[kOCols / 2];
 #pragma unroll
-      for (int nn = 0; nn < kON; ++nn)
-#pragma unroll
-        for (int i = 0; i < 64; ++i) o[nn][i] = 0.f;
+      for (int i = 0; i < kOCols / 2; ++i) o[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
       mbar_wait(bar_q_full, n & 1);
@@ -2276,9 +2324,9 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
         const TileClass cls = tile_class(p, r0, 64, k0, BK);
         mbar_wait(bar_full_k + 8 * s, ph);
         // S = Q K^T (64 x BK, fp32), one 16-wide k-step of the head dim at a
-        // time.  The descriptors are rebuilt from opaque bases every tile:
-        // hoisted out of the loop, the 2 x DH / 16 of them would hold
-        // registers that O needs.
+        // time (kKSteps: the steps that hold the head dim).  The descriptors
+        // are rebuilt from opaque bases every tile: hoisted out of the loop,
+        // the 2 x kKSteps of them would hold registers that O needs.
         if (cls != kHidden) {
           float sacc[BK / 2];
 #pragma unroll
@@ -2287,7 +2335,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
           asm volatile("" : "+r"(qa), "+r"(ka));
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < DH / 16; ++kk) {
+          for (int kk = 0; kk < C::kKSteps; ++kk) {
             const uint32_t off = (kk % 4) * 32;
             wgmma_qk<BK>(sacc, desc_k_major(qa + (kk / 4) * C::kQSlab + off),
                          desc_k_major(ka + (kk / 4) * C::kKVSlab + off));
@@ -2345,11 +2393,9 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
             m[rr] = m_new;
           }
 #pragma unroll
-          for (int nn = 0; nn < kON; ++nn)
+          for (int j = 0; j < kOCols / 8; ++j)
 #pragma unroll
-            for (int j = 0; j < 16; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) o[nn][4 * j + e] *= alpha[e / 2];
+            for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
 
           // P as the register A operand of P V: k-step kk covers keys
           // [16kk, 16kk + 16), i.e. accumulator chunks 2kk and 2kk + 1.
@@ -2363,21 +2409,16 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
           // O += P V
           mbar_wait(bar_full_v + 8 * s, ph);
           const uint32_t v_tile = sV + s * C::kKVBytes;
-#pragma unroll
-          for (int nn = 0; nn < kON; ++nn) fence_regs(o[nn]);
+          fence_regs(o);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-            for (int nn = 0; nn < kON; ++nn)
-              wgmma_rs_n128_mn(
-                  o[nn], pa[kk],
-                  desc_mn_major(v_tile + (o_slab + 2 * nn) * C::kKVSlab + kk * 16 * 128,
-                                C::kKVSlab));
+            wgmma_pv<kOCols>(
+                o, pa[kk],
+                desc_mn_major(v_tile + o_slab * C::kKVSlab + kk * 16 * 128, C::kKVSlab));
           wgmma_commit();
           wgmma_wait_all();
-#pragma unroll
-          for (int nn = 0; nn < kON; ++nn) fence_regs(o[nn]);
+          fence_regs(o);
         } else {
           if (kt + 1 == tl.kt1) {
             __syncwarp();
@@ -2416,22 +2457,20 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       named_bar_sync(2 + wg, 128);
 #pragma unroll
-      for (int nn = 0; nn < kON; ++nn)
+      for (int j = 0; j < kOCols / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int r = 16 * warp + g + 8 * rr;  // r % 8 == g
-            const uint32_t addr = o_wg + (o_slab + 2 * nn + j / 8) * C::kQSlab + r * 128 +
-                                  (((j % 8) ^ g) * 16) + 4 * t;
-            st_shared_u32(addr, pack_bf16(o[nn][4 * j + 2 * rr] * inv_l[rr],
-                                          o[nn][4 * j + 2 * rr + 1] * inv_l[rr]));
-          }
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = 16 * warp + g + 8 * rr;  // r % 8 == g
+          const uint32_t addr = o_wg + (o_slab + j / 8) * C::kQSlab + r * 128 +
+                                (((j % 8) ^ g) * 16) + 4 * t;
+          st_shared_u32(addr, pack_bf16(o[4 * j + 2 * rr] * inv_l[rr],
+                                        o[4 * j + 2 * rr + 1] * inv_l[rr]));
+        }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_bar_sync(2 + wg, 128);
       if (threadIdx.x % 128 == 0 && r0 < p.S) {
 #pragma unroll
-        for (int c = o_slab; c < o_slab + 2 * kON; ++c)
+        for (int c = o_slab; c < o_slab + C::kOSlabs; ++c)
           tma_store_4d(&tm_o, o_wg + c * C::kQSlab, c * 64, tl.h, r0, tl.b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
@@ -2578,7 +2617,8 @@ EncodeTiled encode_tiled() {
 
 // A bf16 (B, S, heads, dh) tensor given by its strides (in elements) as a
 // 4-D tensor map [dh, heads, S, B]; the box is one head x `rows` rows x a
-// 64-element slab, 128-byte swizzled.  TMA fills what lies past S with zeros.
+// 64-element slab, 128-byte swizzled.  TMA fills what lies past S or past dh
+// with zeros, and clips a store there.
 int encode_map(CUtensorMap* map, const void* ptr, int dh, int heads, int S, int B,
                long long s_h, long long s_s, long long s_b, int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -2618,13 +2658,14 @@ cudaError_t multiprocessors(int* sms) {
 template <int DH>
 int launch_sm90(const Params& p, cudaStream_t stream) {
   using C = Sm90<DH>;
+  const int dh = p.dh;  // DH, or 120 on the DH 128 body
   CUtensorMap tq, tk, tv, to;
-  int err = encode_map(&tq, p.q, DH, p.H, p.S, p.B, p.q_sh, p.q_ss, p.q_sb, C::kBQ);
-  if (!err) err = encode_map(&tk, p.k, DH, p.K, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, C::kBK);
-  if (!err) err = encode_map(&tv, p.v, DH, p.K, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, C::kBK);
+  int err = encode_map(&tq, p.q, dh, p.H, p.S, p.B, p.q_sh, p.q_ss, p.q_sb, C::kBQ);
+  if (!err) err = encode_map(&tk, p.k, dh, p.K, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, C::kBK);
+  if (!err) err = encode_map(&tv, p.v, dh, p.K, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, C::kBK);
   if (!err)
-    err = encode_map(&to, p.o, DH, p.H, p.S, p.B, DH, static_cast<long long>(p.H) * DH,
-                     static_cast<long long>(p.S) * p.H * DH, 64);
+    err = encode_map(&to, p.o, dh, p.H, p.S, p.B, dh, static_cast<long long>(p.H) * dh,
+                     static_cast<long long>(p.S) * p.H * dh, 64);
   if (err) return err;
   const cudaError_t e = allow_smem<flash_attn_sm90_kernel<DH>>(C::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -2674,12 +2715,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The sm90 body: bf16 q, k, v and o, laid out as for flash_attention_fwd,
-// head_dim 128 or 256; the bases of q, k and v and their batch, sequence and
-// head strides are multiples of 16 bytes (TMA's rule); scale > 0.  lse: null,
-// or (B,H,S) fp32 for each row's log-sum-exp, as flash_attention_fwd writes
-// it (O is the same with or without it).  Returns
-// cudaErrorInvalidValue on anything else, else cudaGetLastError() after the
-// launch.
+// head_dim 80, 120 (on the 128 body), 128 or 256; the bases of q, k and v
+// and their batch, sequence and head strides are multiples of 16 bytes
+// (TMA's rule); scale > 0.  lse: null, or (B,H,S) fp32 for each row's
+// log-sum-exp, as flash_attention_fwd writes it (O is the same with or
+// without it).  Returns cudaErrorInvalidValue on anything else, else
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                         int B, int S, int H, int K, long long q_sb,
                                         long long q_ss, long long q_sh, long long k_sb,
@@ -2698,6 +2739,8 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 80: return launch_sm90<80>(p, st);
+    case 120:
     case 128: return launch_sm90<128>(p, st);
     case 256: return launch_sm90<256>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

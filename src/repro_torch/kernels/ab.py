@@ -1,7 +1,8 @@
 """Time variants of the flash-attention backward (or, with ``--forward``,
-of the fp32 forward's mma_tf32x3 body) on one card, in turns.
+of the fp32 forward's mma_tf32x3 body; with ``--sm90``, of the bf16
+forward's sm90 body) on one card, in turns.
 
-    PYTHONPATH=src python -m repro_torch.kernels.ab [--forward] \
+    PYTHONPATH=src python -m repro_torch.kernels.ab [--forward | --sm90] \
         [--shape 100m|rgemma|stablelm] A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` (edited by hand, for
@@ -23,6 +24,16 @@ card and ``nvcc``.  ``--forward`` does the same for
 ``flash_attention_fwd_tf32`` with the log-sum-exp: o against ``mha_ref``
 and lse against a float64 evaluation as shares of the fp32 tolerance,
 beside SDPA's fp32 forward.
+
+``--sm90`` does it for the bf16 forward's sm90 body
+(``flash_attention_fwd_sm90`` with the log-sum-exp) at each of its head
+dims (``SM90_CHECKS``: dh 80, 120, 128 and 256, ragged S, GQA, MHA and
+MQA, causal, window, chunk and no mask; o as a share of the bf16
+tolerance 2e-2 (1 + |o|), lse of 2e-5 (1 + |lse|), both against the plain
+versions in fp32; then hubert-xlarge's encode layer, q drawn at std 4, on
+its first and last 256 rows), then times it at ``SM90_SHAPES`` in turns
+beside the mma body of the first source (``flash_attention_fwd``) and
+SDPA's bf16 call, by the profiler and by CUDA events.
 """
 from __future__ import annotations
 
@@ -50,9 +61,31 @@ SHAPES = {
 }
 
 
-def _build_variants(sources: list[str], forward: bool = False) -> dict:
-    """{name: bound flash_attention_bwd (or flash_attention_fwd_tf32)} of
-    each source, built at once."""
+# --sm90: hubert-xlarge's encode layer (no mask), then the causal prefill
+# at batch 4 x 512 of stablelm-3b, h2o-danube-3-4b, qwen2-7b and
+# recurrentgemma-9b (window 2048)
+SM90_SHAPES = {
+    "hubert-xlarge": (1, 32768, 16, 16, 80, dict(causal=False)),
+    "stablelm-3b": (4, 512, 32, 32, 80, dict(causal=True)),
+    "h2o-danube-3-4b": (4, 512, 32, 8, 120, dict(causal=True)),
+    "qwen2-7b": (4, 512, 28, 4, 128, dict(causal=True)),
+    "recurrentgemma-9b": (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
+}
+SM90_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 256)
+               for B, S, H, K, kw in (
+    (1, 200, 16, 16, dict(causal=True)),
+    (1, 1000, 28, 4, dict(causal=True)),
+    (2, 512, 16, 2, dict(causal=True, window=100)),
+    (1, 512, 16, 2, dict(causal=True, chunk=96)),
+    (2, 300, 16, 16, dict(causal=False)),
+    (1, 700, 16, 1, dict(causal=False)))]
+
+
+def _build_variants(sources: list[str], forward: bool = False,
+                    sm90: bool = False) -> dict:
+    """{name: bound flash_attention_bwd (or flash_attention_fwd_tf32, or
+    (flash_attention_fwd_sm90, flash_attention_fwd))} of each source, built
+    at once."""
     out = _build.BUILD_DIR.parent / "ab"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {Path(src).stem: (subprocess.Popen(
@@ -65,14 +98,23 @@ def _build_variants(sources: list[str], forward: bool = False) -> dict:
         if job.returncode:
             raise RuntimeError(f"{name} did not build:\n{log[-4000:]}")
         lines = log.splitlines()
-        key = "flash_attn_tf32" if forward else "flash_bwd"
+        key = ("flash_attn_sm90" if sm90 else "flash_attn_tf32" if forward
+               else "flash_bwd")
         for i, line in enumerate(lines[:-2]):
             if "Function properties for" in line and key in line \
-                    and (forward or "EfE" in line):
+                    and (forward or sm90 or "EfE" in line):
                 print(name, line.split(key)[-1][:40],
                       lines[i + 1].strip(), lines[i + 2].split(": ")[-1])
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if sm90:
+            fn, mma = lib.flash_attention_fwd_sm90, lib.flash_attention_fwd
+            fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
+                           ctypes.c_float, I, P, P]
+            mma.argtypes = [*fn.argtypes[:-2], I, P, P]
+            fn.restype = mma.restype = I
+            fns[name] = (fn, mma)
+            continue
         if forward:
             fn = lib.flash_attention_fwd_tf32
             fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
@@ -165,14 +207,107 @@ def main_forward(sources: list[str], shapes) -> None:
                   flush=True)
 
 
+def _event_ms(fn, iters: int = 20) -> float:
+    """CUDA-event time of one call, over ``iters`` calls after 3."""
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _share(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol (1 + |want|)), +inf matching +inf."""
+    got, want = got.double(), want.double()
+    same = (got == want) & torch.isinf(want)
+    err = torch.where(same, 0.0, (got - want).abs())
+    return float((err / (tol * (1 + want.abs().nan_to_num(posinf=0))))
+                 .nan_to_num(nan=float("inf")).max())
+
+
+def main_sm90(sources: list[str]) -> None:
+    from .flash_attention.ref import lse_ref
+    fns = _build_variants(sources, sm90=True)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    bf16 = torch.bfloat16
+
+    def bind(fn, q, k, v, o, lse, kw, dtype_code=()):
+        B, S, H, dh = q.shape
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), B, S, H, k.shape[2], *q.stride()[:3],
+                          *k.stride()[:3], *v.stride()[:3],
+                          int(kw["causal"]), kw.get("window", 0),
+                          kw.get("chunk", 0), dh ** -0.5, dh, *dtype_code,
+                          None if lse is None else lse.data_ptr(), stream)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for B, S, H, K, dh, kw in SM90_CHECKS:
+        q, k, v = (torch.randn(B, S, n, dh, generator=g, device=dev).to(bf16)
+                   for n in (H, K, K))
+        want, want_lse = mha_ref(q, k, v, **kw), lse_ref(q, k, **kw)
+        for name, (fn, _) in fns.items():
+            o, lse = torch.empty_like(q), torch.empty(B, H, S, device=dev)
+            if bind(fn, q, k, v, o, lse, kw)():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            print(json.dumps(dict(check=[B, S, H, K, dh], mask=kw,
+                                  variant=name,
+                                  o_share=_share(o, want, 2e-2),
+                                  lse_share=_share(lse, want_lse, 2e-5))),
+                  flush=True)
+    for label, (B, S, H, K, dh, kw) in SM90_SHAPES.items():
+        q = (torch.randn(B, S, H, dh, generator=g, device=dev)
+             * (4.0 if S > 4096 else 1.0)).to(bf16)
+        k, v = (torch.randn(B, S, K, dh, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        rows = ([slice(0, 256), slice(S - 256, S)] if S > 4096
+                else [slice(0, S)])
+        wants = [mha_ref(q[:, r], k, v, **kw) for r in rows]
+        o = torch.empty_like(q)
+        res = {}
+        for name, (fn, _) in fns.items():
+            if bind(fn, q, k, v, o, None, kw)():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            res[name] = dict(o_share=max(_share(o[:, r], w, 2e-2)
+                                         for r, w in zip(rows, wants)))
+        del wants
+        order = list(fns) + list(fns)[::-1]
+        for turn, name in enumerate(order):
+            call = bind(fns[name][0], q, k, v, o, None, kw)
+            res[name][f"ms_{turn // len(fns)}"] = sum(
+                _ms_by_kernel(call).values())
+            res[name][f"event_ms_{turn // len(fns)}"] = _event_ms(call)
+        mma = bind(next(iter(fns.values()))[1], q, k, v, o, None, kw, (1,))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+        base = dict(mma_ms=sum(_ms_by_kernel(mma).values()),
+                    mma_event_ms=_event_ms(mma),
+                    sdpa_ms=sum(_ms_by_kernel(sdpa).values()),
+                    sdpa_event_ms=_event_ms(sdpa))
+        for name, r in res.items():
+            print(json.dumps(dict(shape=label, dims=[B, S, H, K, dh],
+                                  mask=kw, variant=name, **r, **base)),
+                  flush=True)
+
+
 def main(argv: list[str]) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--sm90", action="store_true")
     ap.add_argument("--shape", choices=sorted(SHAPES), default="100m")
     ap.add_argument("sources", nargs="+")
     args = ap.parse_args(argv)
     if args.forward:
         return main_forward(args.sources, SHAPES[args.shape])
+    if args.sm90:
+        return main_sm90(args.sources)
     fns = _build_variants(args.sources)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

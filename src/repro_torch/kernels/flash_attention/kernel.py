@@ -8,11 +8,14 @@ version is ``ref.mha_ref``.
 Four bodies, chosen by ``select_body`` from the dtype, the head dim and the
 layout of q, k and v (never by trying one and falling back):
 
-* ``sm90``: bf16 at dh 128 or 256 (the served archs) with 16-byte aligned
-  bases and batch / sequence / head strides, as TMA needs, and a softmax
-  scale > 0: wgmma, TMA and warp specialisation.
-* ``mma``: every other bf16 input (the registry's other head dims, unaligned
-  views): mma.sync tiles.
+* ``sm90``: bf16 at dh 80, 120, 128 or 256 (``SM90_HEAD_DIMS``: the served
+  archs, hubert-xlarge's encode, stablelm-3b, h2o-danube-3-4b) with 16-byte
+  aligned bases and batch / sequence / head strides, as TMA needs, and a
+  softmax scale > 0: wgmma, TMA and warp specialisation (dh 80 and 120 on
+  tiles of 128 columns, TMA zero-filling the columns past dh).
+* ``mma``: every other bf16 input (dh 16, 32, 64 and 160, unaligned views,
+  a scale <= 0): mma.sync tiles; the sm90 body's previous body, forced by
+  ``body="mma"``.
 * ``mma_tf32x3``: float32 at every head dim (``TF32_HEAD_DIMS``, the
   training path): FlashAttention-2 on mma.sync m16n8k8 TF32, Q·Kᵀ and P·V
   each three TF32 products from hi + lo splits by truncation
@@ -60,7 +63,7 @@ from .._grad import refuse_grad
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # every head dim of the config registry (120 is padded to 128 in the kernel)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
-SM90_HEAD_DIMS = (128, 256)
+SM90_HEAD_DIMS = (80, 120, 128, 256)
 BODIES = ("sm90", "mma", "mma_tf32x3", "fp32")
 # the float32 head dims the mma_tf32x3 body takes (120 padded to 128): all
 TF32_HEAD_DIMS = HEAD_DIMS
@@ -161,9 +164,9 @@ def select_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                scale: float | None = None) -> tuple[str, ...]:
     """The bodies that take these inputs, the one ``select_body`` picks
-    first: bfloat16 takes ``sm90`` (dh 128 / 256, TMA-aligned, scale > 0)
-    and ``mma``; float32 takes ``mma_tf32x3`` (dh in ``TF32_HEAD_DIMS``)
-    and ``fp32``.  Raises as ``select_body``."""
+    first: bfloat16 takes ``sm90`` (dh in ``SM90_HEAD_DIMS``, TMA-aligned,
+    scale > 0) and ``mma``; float32 takes ``mma_tf32x3`` (dh in
+    ``TF32_HEAD_DIMS``) and ``fp32``.  Raises as ``select_body``."""
     qs, ks = q.shape, k.shape
     if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError(f"expected q (B,S,H,dh), k/v (B,S,K,dh); got "
@@ -197,7 +200,7 @@ def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> str:
     """The backward body for these inputs (one of ``BWD_BODIES``: the
     dtype's), on any device, whichever forward body wrote the log-sum-exp
-    (bf16 at dh 128 / 256 on the sm90 body too).  Raises on what no
+    (bf16 at ``SM90_HEAD_DIMS`` on the sm90 body too).  Raises on what no
     forward body takes (``select_body``: a head dim outside ``HEAD_DIMS``
     among them)."""
     select_body(q, k, v, scale)

@@ -147,9 +147,21 @@ def test_flash_kernel_reads_unaligned_inputs(cuda, dtype, dh):
                     **tol(dtype))
 
 
-# the sm90 body (bf16, dh 128 and 256): ragged S, GQA 7:1 and MQA 16:1,
-# window and chunk edges inside tiles, no causal mask
+# the sm90 body (bf16, dh 80, 120, 128 and 256): ragged S, GQA 7:1 and MQA
+# 16:1, window and chunk edges inside tiles, no causal mask; at dh 80 and
+# 120 (tiles of 128 columns, the columns past dh zero-filled) MHA (hubert-
+# xlarge, stablelm-3b) and GQA 4:1 (h2o-danube-3-4b) too
 SM90_CASES = [
+    (1, 200, 16, 16, 80, dict(causal=True)),
+    (1, 1000, 28, 4, 80, dict(causal=True)),
+    (2, 512, 16, 2, 80, dict(causal=True, window=100)),
+    (1, 512, 16, 4, 80, dict(causal=True, chunk=96)),
+    (2, 300, 16, 16, 80, dict(causal=False)),
+    (1, 700, 16, 1, 80, dict(causal=False)),
+    (1, 200, 32, 8, 120, dict(causal=True)),
+    (1, 1000, 28, 4, 120, dict(causal=True, window=300)),
+    (1, 512, 32, 8, 120, dict(causal=True, chunk=96)),
+    (2, 300, 16, 16, 120, dict(causal=False)),
     (1, 200, 28, 4, 128, dict(causal=True)),
     (1, 1000, 28, 4, 128, dict(causal=True)),
     (1, 200, 16, 1, 256, dict(causal=True)),
@@ -177,7 +189,8 @@ def test_flash_sm90_body_matches_plain(cuda, B, S, H, K, dh, kw):
                     **tol(torch.bfloat16))
 
 
-@pytest.mark.parametrize("H,K,dh", [(28, 4, 128), (16, 1, 256)])
+@pytest.mark.parametrize("H,K,dh", [(28, 4, 128), (16, 1, 256), (16, 16, 80),
+                                    (32, 8, 120)])
 def test_flash_sm90_reads_fused_projection_views(cuda, H, K, dh):
     """bf16 q/k/v as 16-byte aligned views of one fused projection: TMA
     reads them through their strides."""
@@ -202,10 +215,11 @@ def test_flash_launches_count_by_body(cuda):
 
     for q, body in [(make(128, torch.bfloat16), "sm90"),
                     (make(256, torch.bfloat16), "sm90"),
+                    (make(80, torch.bfloat16), "sm90"),
                     (make(128, torch.float32), "mma_tf32x3"),
                     (make(64, torch.float32, offset=1), "mma_tf32x3"),
                     (make(256, torch.float32), "mma_tf32x3"),
-                    (make(80, torch.bfloat16), "mma"),
+                    (make(64, torch.bfloat16), "mma"),
                     (make(128, torch.bfloat16, offset=1), "mma")]:
         before = dict(flash_attention_cuda.launches_by_body)
         total = flash_attention_cuda.launches
@@ -843,10 +857,11 @@ FLASH_BWD_CASES = [
 def _flash_bwd_inputs(cuda, B, S, H, K, dh, dtype):
     """q, k, v, do from one seed, and a function that gives q, k and v as
     tensors that require grad and one that reads their gradients.  bf16 q,
-    k and v at dh 128 and 256 are views of a fused projection one element
-    wider than the heads (strides TMA cannot read), which the forward sends
-    to its mma body, so that body's log-sum-exp feeds the backward here
-    (the sm90 body's: ``test_flash_sm90_training_matches_plain``)."""
+    k and v at the sm90 head dims are views of a fused projection one
+    element wider than the heads (strides TMA cannot read), which the
+    forward sends to its mma body, so that body's log-sum-exp feeds the
+    backward here (the sm90 body's:
+    ``test_flash_sm90_training_matches_plain``)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     if dtype == torch.bfloat16 and dh in flash.SM90_HEAD_DIMS:
         def heads(t):
@@ -990,16 +1005,19 @@ def test_flash_sm90_lse_matches_plain(cuda, B, S, H, K, dh, kw):
 
 @pytest.mark.parametrize("B,S,H,K,dh,kw", [
     SM90_TRAIN_CASE,
+    (2, 512, 32, 32, 80, dict(causal=True)),       # stablelm-3b's heads
+    (1, 300, 16, 16, 80, dict(causal=False)),      # hubert-xlarge's
     (1, 300, 28, 4, 128, dict(causal=True, chunk=96)),
     (2, 512, 16, 1, 256, dict(causal=True, window=2048)),
     (1, 1000, 16, 1, 256, dict(causal=True, window=300)),
     (1, 200, 16, 1, 256, dict(causal=False)),
 ])
 def test_flash_sm90_training_matches_plain(cuda, B, S, H, K, dh, kw):
-    """bf16 training at dh 128 and 256 on TMA-aligned inputs: the sm90
-    forward (its log-sum-exp) and the bf16 pair backward through
-    ``ops.flash_attention``; dq, dk, dv against autograd of mha_ref in fp32
-    on the same bf16 inputs, within 2e-2 (1 + |x|)."""
+    """bf16 training at dh 80, 128 and 256 on TMA-aligned inputs: the sm90
+    forward (its log-sum-exp) and the mma_bf16 backward (the pair kernels
+    above dh 80) through ``ops.flash_attention``; dq, dk, dv against
+    autograd of mha_ref in fp32 on the same bf16 inputs, within 2e-2 (1 +
+    |x|)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = (torch.randn(B, S, n, dh, generator=g,
                                device=cuda).bfloat16() for n in (H, K, K, H))

@@ -44,8 +44,9 @@ def fused(H, K, dh, extra=0, dtype=BF16):
 # flash attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dh", [80, 120, 128, 256])
 def test_flash_bf16_aligned_takes_sm90(dh):
+    assert flash.SM90_HEAD_DIMS == (80, 120, 128, 256)
     assert flash_body(*qkv(dh=dh)) == "sm90"
 
 
@@ -56,7 +57,24 @@ def test_flash_fused_projection_views_take_sm90(H, K):
     assert flash_body(q, k, v) == "sm90"
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 80, 120, 160])
+@pytest.mark.parametrize("H,K", [(16, 16), (32, 8)])
+def test_flash_fused_projection_views_take_sm90_at_dh_80(H, K):
+    """hubert-xlarge's MHA layout (q's 16 heads of 80 and k's and v's 32
+    in one projection: 160-byte heads, multiples of 16) and a GQA one."""
+    q, k, v = fused(H, K, 80)
+    assert not q.is_contiguous() and q.stride(1) == (H + 2 * K) * 80
+    assert flash_body(q, k, v) == "sm90"
+
+
+@pytest.mark.parametrize("H,K", [(16, 16), (32, 8)])
+def test_flash_fused_views_8_bytes_off_take_mma_at_dh_80(H, K):
+    """A sequence stride of (H + 2K) 80 + 4 elements: 8 bytes off."""
+    q, k, v = fused(H, K, 80, extra=4)
+    assert q.stride(1) % 8 and q.data_ptr() % 16 == 0
+    assert flash_body(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 160])
 def test_flash_other_head_dims_take_mma(dh):
     assert flash_body(*qkv(dh=dh)) == "mma"
 
@@ -87,6 +105,7 @@ def test_flash_fp32_train_shapes_take_mma_tf32x3(B, S, H, K, dh):
 
 def test_flash_bf16_bodies_are_unchanged():
     assert flash.bodies_for(*qkv(dh=128)) == ("sm90", "mma")
+    assert flash.bodies_for(*qkv(dh=80)) == ("sm90", "mma")
     assert flash.bodies_for(*qkv(dh=64)) == ("mma",)
 
 
@@ -599,8 +618,8 @@ def test_scan_wrappers_name_the_roadmap_item():
 @pytest.mark.parametrize("dtype,want", [(F32, "mma_tf32x3"),
                                        (BF16, "mma_bf16")])
 def test_flash_bwd_body_by_dtype(dh, dtype, want):
-    """Every head dim of the registry, both dtypes; bf16 at dh 128 and 256
-    as views whose strides TMA cannot read, which the forward sends to its
+    """Every head dim of the registry, both dtypes; bf16 at the sm90 head
+    dims as views whose strides TMA cannot read, which the forward sends to its
     mma body (aligned ones take sm90, below)."""
     args = (fused(4, 2, dh, extra=1) if dtype == BF16
             and dh in flash.SM90_HEAD_DIMS else qkv(dh=dh, dtype=dtype))
@@ -661,9 +680,10 @@ def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
 
 @pytest.mark.parametrize("dh", flash.SM90_HEAD_DIMS)
 def test_flash_bwd_takes_the_sm90_forward_to_mma_bf16(dh):
-    """bf16 at dh 128 and 256, aligned: the forward takes the sm90 body,
-    which writes the log-sum-exp, and the backward the bf16 pair kernels
-    (the body of bf16 training at these head dims)."""
+    """bf16 at dh 80, 120, 128 and 256, aligned: the forward takes the sm90
+    body, which writes the log-sum-exp, and the backward mma_bf16 (the
+    pair kernels above dh 80): the body of bf16 training at these head
+    dims."""
     q, k, v = qkv(dh=dh)
     assert flash.select_body(q, k, v) == "sm90"
     assert flash.select_bwd_body(q, k, v) == "mma_bf16"
