@@ -13,7 +13,7 @@ Phases, each printed as one JSON line:
    fp32 mma_tf32x3 body (every head dim, 8 warps a CTA at 160 and 256), a
    kernel of the SSD mma, mma_tf32x3 or RG-LRU segmented bodies or a
    backward kernel (the scans' too; flash's pair kernels above dh 80 and
-   the sliced ones kept beside them) spills, or ptxas ignored a
+   its bf16 sm90 backward at dh 128) spills, or ptxas ignored a
    ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
@@ -88,8 +88,8 @@ Phases, each printed as one JSON line:
    attention in fp32 at recurrentgemma-9b's train step (q (4,512,16,256),
    k/v (4,512,1,256), window 2048) and at stablelm-12b's heads (q
    (4,512,32,160), k/v (4,512,8,160)): the mma_tf32x3 forward beside the
-   FMA body, the pair backward by kernel beside the sliced body, its head
-   splits one by one, each beside SDPA's fp32 call and the plain version,
+   FMA body, the pair backward by kernel, its head splits one by one, each
+   beside SDPA's fp32 call and the plain version,
    and its bf16 kernels beside SDPA's bf16 backward and the plain version
    (``flash_rgemma_kernels``; ``ms_windows``: each profiler window's total
    beside the median).  The mma body's chunk scan is also held, at one bf16 step of y
@@ -193,7 +193,7 @@ Phases, each printed as one JSON line:
    moments), batch 4 x 1024 with 512 patch embeddings a row, 10 steps of
    ``make_train_step``, no checkpoint: every loss finite, the first
    batch's loss lower after the steps; 28 flash forwards on the sm90 body
-   (with its log-sum-exp) and 28 mma_bf16 backwards a step, 57 RMSNorm
+   (with its log-sum-exp) and 28 sm90 backwards a step, 57 RMSNorm
    launches each way (the backwards on cta_rows).  Step ms, peak memory,
    the bf16 step bound, one more step profiled by kernel family.
 11. ``encode_hubert``: hubert-xlarge at full width and depth (48 layers),
@@ -207,10 +207,15 @@ This slice also adds, to ``kernels``, the sm90 body's log-sum-exp
 recurrentgemma-9b, moonshot-v1-16b-a3b and llama4-scout-17b-a16e, S 300,
 window, chunk, no mask and qwen2-vl-2b's train shape: the lse against
 the plain one in fp32 within 2e-5 (1 + |lse|), O bit-equal with and
-without it, and the gradients of the sm90 forward and the mma_bf16 pair
-backward against autograd of mha_ref in fp32 within 2e-2 (1 + |x|); the
+without it, and the gradients of the sm90 forward and the backward
+(the sm90 backward body at dh 120 / 128, which each such case must take)
+against autograd of mha_ref in fp32 within 2e-2 (1 + |x|); the
 sm90 time with and without lse, and at qwen2-vl-2b's train shape the
-forward and backward beside SDPA's bf16 ones and their bounds), and the
+forward and the sm90 backward (by kernel, at each head split of its dK/dV
+launch, two runs bit for bit, beside the pair kernels forced as its
+previous body) beside SDPA's bf16 ones (``library_ok``: whether SDPA's
+own gradient holds the same tolerance) and their bounds, and the bf16
+backward at dh 80 (mma_bf16) at stablelm-3b's heads), and the
 kernels at this slice's own shapes (``modality_kernels``: rmsnorm at
 hubert-xlarge's D 1280, its bf16 cta_rows backward at qwen2-vl-2b's step,
 the flash sm90 body at hubert's 32k encode against mha_ref on its first
@@ -579,9 +584,9 @@ def phase_env(build):
         for f in scans.values()), f"a scan body spills: {scans}")
     # the backward kernels: flash's dQ and dK/dV at 4 compiled head dims up
     # to 80 (16, 32, 64, 80) and their pair kernels at 3 above (128 (120
-    # too), 160, 256) x 2 dtypes (28), the sliced kernels kept to be timed
-    # beside the pair kernels (fp32 at 128, 160, 256: 6) and the sum of the
-    # dK/dV head split's partials (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
+    # too), 160, 256) x 2 dtypes (28), the bf16 sm90 body's dQ and dK/dV
+    # kernels at 128 (2) and the sum of the dK/dV head split's partials
+    # (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
     # 2, 4 and, for fp32 x, 8) and its dscale tree (2), its cta_rows body
     # (12: 2 scale types x vectors a lane 5-8 for fp32 x and 3-4 for bf16),
     # and the generic body (4 type pairs and 2 dscale sums)
@@ -592,7 +597,7 @@ def phase_env(build):
                "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel",
                "rmsnorm_bwd_cta_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 70 and all(
+    check(len(bwd) == 66 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     # the fp32 forward's mma_tf32x3 flash kernels, one a compiled head dim
@@ -1440,12 +1445,16 @@ def backward_kernels(dev, gen, cases, summary):
             again = flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
             same = all(torch.equal(a, b) for a, b in zip(
                 flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw), again))
+            body = select_bwd_body(q, k, v)
+            want_body = ("mma_tf32x3" if dtype == f32 else "sm90"
+                         if dh in (120, 128) else "mma_bf16")
             cases.append(dict(
-                kernel="flash_attention_bwd", body=select_bwd_body(q, k, v),
+                kernel="flash_attention_bwd", body=body,
                 dtype=str(dtype), B=B, S=S, H=H, K=K, dh=dh, **kw,
                 max_abs_err=max(e for e, _ in errs), lse_err=err_lse,
                 tol=TOL[dtype], deterministic=same,
-                ok=all(ok for _, ok in errs) and ok_lse and same))
+                ok=all(ok for _, ok in errs) and ok_lse and same
+                and body == want_body))
 
     B, S, H, K, dh = attn_cases[0][:5]
     q, do = (randn(B, S, H, dh, dtype=f32) for _ in range(2))
@@ -1534,12 +1543,17 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     """The sm90 body with its log-sum-exp, at ``SM90_LSE_CASES``: the lse
     against ``lse_ref`` within ``LSE_TOL``, O bit-equal to the call
     without lse, and (dq, dk, dv) of ``FlashAttentionFunction`` (the sm90
-    forward, the mma_bf16 pair backward) against autograd of mha_ref in
-    fp32 on the same bf16 inputs within 2e-2 (1 + |x|).  Then the sm90
-    device time with and without lse at qwen2-7b's prefill shape and at
-    qwen2-vl-2b's train shape, and there the forward (with lse) and the
-    backward beside SDPA's bf16 forward and backward, the plain versions
-    and their bounds (``summary["flash_attention_sm90_lse"]`` and
+    forward, the backward the inputs take: sm90 at dh 120 and 128, else
+    mma_bf16) against autograd of mha_ref in fp32 on the same bf16 inputs
+    within 2e-2 (1 + |x|).  Then the sm90 device time with and without lse
+    at qwen2-7b's prefill shape and at qwen2-vl-2b's train shape, and there
+    the forward (with lse) and the backward (sm90, at every head split of
+    its dK/dV launch, beside the pair kernels forced as its previous body,
+    by kernel, and two runs bit for bit) beside SDPA's bf16 forward and
+    backward (whether SDPA's own gradient holds the tolerance:
+    ``library_ok``), the plain versions and their bounds; and the bf16
+    backward at dh 80 (mma_bf16) at stablelm-3b's heads
+    (``summary["flash_attention_sm90_lse"]`` and
     ``summary["flash_attention_bwd_bf16"]``)."""
     from repro_torch.device import multiprocessors
     from repro_torch.kernels import ops
@@ -1562,16 +1576,18 @@ def sm90_lse_kernels(dev, gen, cases, summary):
         fl = [t.float().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
         errs = [compare(t.grad, w, bf16) for t, w in zip(leaves, want)]
+        bwd_body = flash.select_bwd_body(q, k, v)
         cases.append(dict(
             kernel="flash_attention_sm90_lse", case=label,
-            body=flash.select_body(q, k, v),
-            bwd_body=flash.select_bwd_body(q, k, v), dtype=str(bf16), B=B,
-            S=S, H=H, K=K, dh=dh, **kw, lse_err=lse_err,
-            lse_tol=LSE_TOL[bf16], o_bit_equal=torch.equal(out, plain_o),
+            body=flash.select_body(q, k, v), bwd_body=bwd_body,
+            dtype=str(bf16), B=B, S=S, H=H, K=K, dh=dh, **kw,
+            lse_err=lse_err, lse_tol=LSE_TOL[bf16],
+            o_bit_equal=torch.equal(out, plain_o),
             max_abs_err=max(e for e, _ in errs), tol=TOL[bf16],
             ok=lse_ok and torch.equal(out, plain_o)
             and all(ok for _, ok in errs)
-            and flash.select_body(q, k, v) == "sm90"))
+            and flash.select_body(q, k, v) == "sm90"
+            and bwd_body == ("sm90" if dh in (120, 128) else "mma_bf16")))
         if label in ("qwen2-7b", "qwen2-vl-2b"):
             inputs[label] = (q, k, v, do, kw)
         del leaves, fl, want
@@ -1612,22 +1628,29 @@ def sm90_lse_kernels(dev, gen, cases, summary):
         profiler_windows=window_counts(mark))
     emit("kernels", kernel="flash_attention_sm90_lse", timings=timings)
 
-    # the bf16 pair backward at qwen2-vl-2b's train shape, on the sm90
-    # forward's o and lse, beside SDPA's bf16 backward and the plain one
+    # the bf16 backward at qwen2-vl-2b's train shape, on the sm90 forward's
+    # o and lse: the sm90 body (its dK/dV launch at every head split the
+    # group of 6 allows) beside the pair kernels it replaced
+    # (body="mma_bf16"), SDPA's bf16 backward and the plain one
     q, k, v, do, kw = inputs["qwen2-vl-2b"]
     B, S, H, dh = q.shape
     K = k.shape[2]
+    sms = multiprocessors(dev)
     pos = torch.arange(S, device=dev)
     pairs = int(attention_mask(pos, pos, **kw).sum())
     with torch.no_grad():
         out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, out, do, lse, **kw)
+
+    def bwd(**force):
+        return lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, out, do, lse, **kw, **force)
+    kernel, previous = bwd(), bwd(body="mma_bf16")
     fl = [t.float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
     del fl
     # bytes: q, k, v, o, dO (bf16) and lse read, dq, dk, dv written; the
-    # five products of the visible pairs once each at the bf16 rate
+    # five products of the visible pairs once each at the bf16 rate (the
+    # body forms seven: S and dP in each launch)
     t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
                         + lse.nbytes, 5 * 2 * B * H * pairs * dh, bf16)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1635,33 +1658,93 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     lib_out = F.scaled_dot_product_attention(
         *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
     library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
+    got, again = kernel(), kernel()
+    errs = [compare(g, w, bf16) for g, w in zip(got, want)]
+    lib_errs = [compare(g, w, bf16) for g, w in zip(library(), want)]
+    splits = [d for d in range(1, H // K + 1) if (H // K) % d == 0]
     mark = len(PROFILER_WINDOWS)
     summary["flash_attention_bwd_bf16"] = dict(
         name="flash_attention_bwd_bf16", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
                  "gradient: JAX differentiates the jnp reference)",
-        counted_as=("flash_attention_bwd", "mma_bf16"),
+        counted_as=("flash_attention_bwd", "sm90"),
         shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
               "on the sm90 forward's o and lse (the qwen2-vl-2b step)",
         body=flash.select_bwd_body(q, k, v),
-        head_split=flash.bwd_head_split(B, S, H, K, dh, multiprocessors(dev)),
+        head_split=flash.bwd_head_split(B, S, H, K, dh, sms, "sm90"),
         ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
         event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+        head_split_ms={d: device_ms(bwd(head_split=d)) for d in splits},
+        previous_body="mma_bf16 (the pair kernels: mma.sync, P and dS in "
+                      "hi + lo bf16 products)",
+        previous_body_head_split=flash.bwd_head_split(B, S, H, K, dh, sms),
+        previous_body_ms=device_ms(previous),
+        previous_body_ms_windows=WINDOW_MS[-1],
+        previous_kernel_ms=kernel_breakdown(previous),
         forward_ms=summary["flash_attention_sm90_lse"]["ms"],
         plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
         library="SDPA's bf16 backward", library_ms=device_ms(library),
         library_ms_windows=WINDOW_MS[-1], library_event_ms=time_ms(library),
         library_forward_ms=summary["flash_attention_sm90_lse"]["library_ms"],
-        bound_ms=t_bound, bound_by=by, pairs=pairs, tol=TOL[bf16],
-        max_abs_err=max(compare(g, w, bf16)[0]
-                        for g, w in zip(kernel(), want)),
+        bound_ms=t_bound, bound_by=by,
+        seven_products_bound_ms=7 * 2 * B * H * pairs * dh
+        / PEAK_OPS_PER_S[bf16] * 1e3,
+        pairs=pairs, tol=TOL[bf16],
+        max_abs_err=max(e for e, _ in errs),
+        deterministic=all(torch.equal(a, b) for a, b in zip(got, again)),
+        previous_max_abs_err=max(compare(g, w, bf16)[0]
+                                 for g, w in zip(previous(), want)),
+        library_max_abs_err=max(e for e, _ in lib_errs),
+        library_ok=all(ok for _, ok in lib_errs),
+        profiler_windows=window_counts(mark))
+    entry = summary["flash_attention_bwd_bf16"]
+    check(entry["body"] == "sm90" and all(ok for _, ok in errs)
+          and entry["deterministic"],
+          f"flash bf16 backward at {entry['shape']}: body {entry['body']}, "
+          f"max error {entry['max_abs_err']}, deterministic "
+          f"{entry['deterministic']}")
+    del got, again, want, leaves, plain_out, lib_out, library
+
+    # the bf16 backward at dh 80 (mma_bf16: BwdCfg's 4-warp kernels) at
+    # stablelm-3b's heads, beside SDPA's bf16 backward and the plain one
+    B, S, H, K, dh = 4, 512, 32, 32, 80
+    q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
+                               device=dev).to(bf16) for n in (H, K, K, H))
+    with torch.no_grad():
+        out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
+    kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, do, lse)
+    pos = torch.arange(S, device=dev)
+    pairs = int(attention_mask(pos, pos, causal=True).sum())
+    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
+                        + lse.nbytes, 5 * 2 * B * H * pairs * dh, bf16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fl = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_ref(*fl), fl, do.float())
+    plain_out = mha_ref(*leaves)
+    lib_out = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
+    library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
+    errs = [compare(g, w, bf16) for g, w in zip(kernel(), want)]
+    mark = len(PROFILER_WINDOWS)
+    entry["stablelm-3b"] = dict(
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal "
+              "(stablelm-3b's heads)", body=flash.select_bwd_body(q, k, v),
+        ms=device_ms(kernel), event_ms=time_ms(kernel),
+        kernel_ms=kernel_breakdown(kernel),
+        plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
+        library="SDPA's bf16 backward", library_ms=device_ms(library),
+        library_event_ms=time_ms(library), bound_ms=t_bound, bound_by=by,
+        max_abs_err=max(e for e, _ in errs),
         library_max_abs_err=max(compare(g, w, bf16)[0]
                                 for g, w in zip(library(), want)),
         profiler_windows=window_counts(mark))
+    check(all(ok for _, ok in errs), f"flash bf16 backward at dh 80: "
+          f"errors {[e for e, _ in errs]}")
+    del want, fl, leaves, plain_out, lib_out, library
     emit("kernels", kernel="flash_attention_bwd_bf16", timings={
-        summary["flash_attention_bwd_bf16"]["shape"]:
-            summary["flash_attention_bwd_bf16"]})
+        entry["shape"]: entry})
 
 
 # hubert-xlarge's encode (prefill_32k on one card): one layer's attention,
@@ -1863,24 +1946,19 @@ def modality_kernels(dev, gen, cases, summary):
 
 
 # recurrentgemma-9b's train step and stablelm-12b's heads at the same batch:
-# the two shapes whose fp32 bodies run 8 warps a CTA (dh 256 and 160); last,
-# the head split the sliced backward ran with there (its dK/dV launch had
-# 128 and 512 CTAs: 4 splits, the fastest of 1-16 for that body, and none)
+# the two shapes whose fp32 bodies run 8 warps a CTA (dh 256 and 160)
 FLASH_WIDE_SHAPES = {
     "rgemma": (4, 512, 16, 1, 256, dict(causal=True, window=2048),
-               "the recurrentgemma-9b step", 4),
-    "stablelm": (4, 512, 32, 8, 160, dict(causal=True), "stablelm-12b's heads",
-                 1),
+               "the recurrentgemma-9b step"),
+    "stablelm": (4, 512, 32, 8, 160, dict(causal=True), "stablelm-12b's heads"),
 }
 
 
-def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label, prev_split):
+def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
     """(forward, backward, bf16 backward) timings of flash attention in
     fp32 at one train shape whose bodies run 8 warps a CTA: the mma_tf32x3
     forward with its log-sum-exp beside the FMA body it replaced
-    (``body="fp32"``), and the pair backward beside the sliced body it
-    replaced (``flash_attention_bwd_sliced``, with ``prev_split``, the head
-    split it ran with),
+    (``body="fp32"``), and the pair backward, by kernel,
     each beside the plain version (``mha_ref``, its autograd) and SDPA's
     fp32 call (TF32 off), by kernel; the dK/dV launch's head splits timed
     one by one (``head_split_ms``); the bf16 backward's pair kernels on the
@@ -1920,21 +1998,7 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label, prev_split):
     want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
     kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
         q, k, v, out, do, lse, **kw)
-    entry = flash._bwd_entry("flash_attention_bwd_sliced")
     delta = torch.empty(B, H, S, device=dev)
-    prev_grads = [torch.empty_like(t) for t in (q, k, v)]
-    partial = torch.empty((2, prev_split, B, S, K, dh), device=dev)
-
-    def previous():
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    *(t.data_ptr() for t in prev_grads), B, S, H, K,
-                    int(kw.get("causal", True)), kw.get("window", 0),
-                    kw.get("chunk", 0), dh ** -0.5, dh, 0, prev_split,
-                    partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"flash_attention_bwd_sliced: CUDA error {err}")
-        return prev_grads
-
     splits = [s for s in (1, 2, 4, 8, 16) if (H // K) % s == 0]
     mark = len(PROFILER_WINDOWS)
     bwd = dict(
@@ -1949,16 +2013,6 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label, prev_split):
         kernel_ms=kernel_breakdown(kernel),
         head_split_ms={s: device_ms(lambda s=s: flash.flash_attention_bwd_cuda(
             q, k, v, out, do, lse, head_split=s, **kw)) for s in splits},
-        previous_body="sliced (4 warps a CTA, the gradient's columns sliced "
-                      "over CTAs)", previous_head_split=prev_split,
-        # the sliced body: S and dP for each of its dQ slices (2 above dh
-        # 128) and dK/dV slices (4 at 256, 2 at 120-160), dQ, dK and dV
-        previous_full_width_products=2 * (2 if dh > 128 else 1) + 1
-        + 2 * (4 if dh == 256 else 2) + 2,
-        previous_body_ms=device_ms(previous),
-        previous_body_ms_windows=WINDOW_MS[-1],
-        previous_body_event_ms=time_ms(previous),
-        previous_kernel_ms=kernel_breakdown(previous),
         plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
         library="SDPA's fp32 backward, TF32 off",
         library_ms=device_ms(_grad_ms(lib_out, leaves, do.transpose(1, 2))),
@@ -1968,12 +2022,10 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label, prev_split):
         bound_ms=t_bound, bound_by=by,
         fma_bound_ms=5 * 2 * B * H * pairs * dh / PEAK_OPS_PER_S[f32] * 1e3,
         pairs=pairs, max_abs_err=max(compare(g, w, f32)[0]
-                                     for g, w in zip(kernel(), want)),
-        previous_max_abs_err=max(compare(g, w, f32)[0]
-                                 for g, w in zip(previous(), want)))
+                                     for g, w in zip(kernel(), want)))
     check(all(compare(g, w, f32)[1] for g, w in zip(kernel(), want)),
           f"flash backward at {shape}: max error {bwd['max_abs_err']}")
-    del plain_out, lib_out, leaves, partial
+    del plain_out, lib_out, leaves
 
     # ---- the bf16 backward's pair kernels on the same values
     qb, kb, vb, dob = (t.to(bf16) for t in (q, k, v, do))
@@ -1984,7 +2036,7 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label, prev_split):
     gb = [torch.empty_like(t) for t in (qb, kb, vb)]
     partial = torch.empty((2, split, B, S, K, dh), device=dev) \
         if split > 1 else None
-    bf16_entry = flash._bwd_entry()
+    bf16_entry = flash._bwd_entry("mma_bf16")
 
     def bf16_kernel():
         err = bf16_entry(
@@ -2796,7 +2848,7 @@ def train_checks(dev, seed):
             phase_train_check(dev, seed, cfg,
                               TrainConfig(dtype=torch.bfloat16), 2, 256,
                               want_flash=dict(forward={"sm90": {dh: 2}},
-                                              backward={"mma_bf16": 2}),
+                                              backward={"sm90": 2}),
                               arch=arch)
 
 
@@ -3257,7 +3309,7 @@ def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
         "flash_attention": {"sm90": 0, "mma": 0,
                             "mma_tf32x3": n_attn * steps, "fp32": 0},
         "flash_attention_bwd": {"mma_tf32x3": n_attn * steps,
-                                "mma_bf16": 0},
+                                "mma_bf16": 0, "sm90": 0},
         "flash_attention_by_head_dim": {"mma_tf32x3": {
             cfg.resolved_head_dim: n_attn * steps}}}
     emit("train_rgemma_3l", arch=cfg.name, layers=L, layer_kinds=kinds,
@@ -3310,7 +3362,7 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
     cross-entropy, no z-loss) lower after the ``steps`` steps than before
     them (the losses of ten different batches spread by about as much as
     ten steps move them); a step launches 28 flash
-    forwards on the sm90 body (with the log-sum-exp) and 28 mma_bf16
+    forwards on the sm90 body (with the log-sum-exp) and 28 sm90
     backwards, 2L + 1 = 57 RMSNorm forwards and 57 cta_rows backwards
     (rows of 1536).  Step ms, peak memory, ``train_bounds``, one more
     step profiled by kernel family."""
@@ -3368,7 +3420,8 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
                         "generic": 0},
         "flash_attention": {"sm90": L * steps, "mma": 0, "mma_tf32x3": 0,
                             "fp32": 0},
-        "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": L * steps},
+        "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": 0,
+                                "sm90": L * steps},
         "flash_attention_by_head_dim": {"sm90": {
             cfg.resolved_head_dim: L * steps}}}
     emit("train_qwen2vl_bf16", arch=cfg.name, layers=L, reduced=None,

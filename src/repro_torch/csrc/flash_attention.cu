@@ -77,9 +77,11 @@
 //
 // Training: every body also writes each row's log-sum-exp when given a
 // pointer for it (Params::lse; serving passes null), and the backward
-// (flash_attention_bwd, further down: 4 warps a CTA up to dh 80, the pair
-// kernels of 8 above) recomputes the probabilities from it.  The sm90 body
-// writes it in its epilogue, from one lane a row, leaving O as it was.
+// recomputes the probabilities from it (flash_attention_bwd, further down:
+// 4 warps a CTA up to dh 80, the pair kernels of 8 above; and for bf16 at
+// dh 120 and 128, flash_attention_bwd_sm90: wgmma and TMA, after the sm90
+// forward).  The sm90 body writes it in its epilogue, from one lane a row,
+// leaving O as it was.
 //
 // Head dims: the mma, mma_tf32x3 and fp32 bodies take every one the model
 // registry uses (16, 32, 64, 80, 120, 128, 160, 256), compiled for the head
@@ -575,15 +577,12 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // own 64-row tile (keys in the dK/dV kernel, queries in the dQ kernel),
 // staged once; the other operand's tiles (Q, dO, lse, D, or K, V) stream
 // through a cp.async ring, the next tile loading while this one computes
-// (BwdCfg: 64-row tiles in two stages up to DH 64, 32-row ones from DH 80,
-// one stage for fp32 at DH 256).  Every head dim of the registry is
-// compiled (120 runs as 128, its last 8 columns zero in shared memory and
-// never stored).  Above DH 80 the pair kernels (further down) take over: 8
-// warps a CTA, two to each 16-row group splitting the forming of S and dP.
-// BwdCfg's kernels above DH 80 slice the gradient's columns over CTAs of 4
-// warps (dK and dV's above 80, dQ's above 128) so that the accumulators fit
-// the registers; only flash_attention_bwd_sliced, kept to be timed beside
-// the pair kernels, launches them there.
+// (BwdCfg: 64-row tiles in two stages up to DH 64, 32-row ones at DH 80).
+// Above DH 80 the pair kernels (further down) take over at every head dim
+// of the registry (120 runs as 128, its last 8 columns zero in shared
+// memory and never stored): 8 warps a CTA, two to each 16-row group
+// splitting the forming of S and dP; for bf16 at DH 120 and 128, the sm90
+// body (after the sm90 forward: wgmma and TMA) instead.
 // Every product is mma.sync on the tensor cores, in two shapes
 // (BwdMma::rows, BwdMma::regs):
 //
@@ -617,14 +616,11 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // What bounds it: at the 100m training shapes, operations: five products
 // of 32896 pairs x 64 a head, each three TF32 products; at recurrentgemma-9b's
 // (q (4,512,16,256), k/v (4,512,1,256) fp32, causal) the same five products
-// of 131328 pairs x 256 a head, 0.130 ms at the TF32 rate.  The sliced
-// kernels recompute S and dP: at DH 256 each dK/dV CTA forms the two over
-// the whole head dim for 64 of its columns, 4 times in all, and each dQ
-// CTA twice (the price of 64 accumulators a thread of 4 warps); the pair
-// kernels form them once a launch (twice in the dK/dV launch at DH 256).
-// The MQA dK/dV grid at DH 256 is small (8 tiles, 2 slices, 4 batches on
-// the pair kernels: 64 CTAs for 132 SMs), so a GQA group's heads are split
-// over CTAs (kernels/flash_attention/kernel.py:bwd_head_split).
+// of 131328 pairs x 256 a head, 0.130 ms at the TF32 rate.  The pair
+// kernels form S and dP once a launch (twice in the dK/dV launch at DH
+// 256).  The MQA dK/dV grid at DH 256 is small (16 tiles of 32 keys, 4
+// batches: 64 CTAs for 132 SMs), so a GQA group's heads are split over
+// CTAs (kernels/flash_attention/kernel.py:bwd_head_split).
 
 constexpr int kBwdThreads = 128;  // 4 warps
 constexpr int kBwdTile = 64;      // rows of the CTA's own tiles (and of a streamed one: BwdCfg)
@@ -651,6 +647,11 @@ struct BwdParams {
   // head_split, B, S, K, dh) fp32, unscaled, and a third launch adds them
   int head_split;
   float* partial;
+  // the sm90 body: delta is (2, B, H, s_pad) fp32, lse log2(e) then D, with
+  // s_pad = S rounded up to 128; split: P and dS in hi + lo bf16 products
+  // (both set by launch_bwd_sm90)
+  int s_pad = 0;
+  int split = 0;
 };
 
 // Every query of [q0, q0 + bq) sees every key of [k0, k0 + bk).
@@ -879,7 +880,7 @@ struct BwdMma<__nv_bfloat16> {
 
   // kSplitX: X in two bf16 products, hi = bf16(x) and lo = bf16(x - hi),
   // the lo one first (about 16 bits of X where one product keeps 8): P for
-  // dV and dS for dK and dQ above DH 80 (BwdCfg::kSplitBf16).  At
+  // dV and dS for dK and dQ in the pair kernels.  At
   // recurrentgemma-9b's MQA shape (B 4, S 512, 16 heads, dh 256; a key's
   // dV and dK sum 8192 (head, query) terms) one product each left the
   // gradient outside the bf16 tolerance of the fp32 one on the H100
@@ -915,56 +916,25 @@ struct BwdMma<__nv_bfloat16> {
   }
 };
 
-// The tiling of both kernels at the compiled head dim DH (dh rounded up: 120
-// runs as 128) and element type T.  The CTA's own tiles have kBwdTile = 64
-// rows (4 warps x 16); the other operand streams through a ring of kStages
-// stages of kStream-row tiles, with the streamed lse and D rows (fp32).
-// From DH 80 the streamed tiles have 32 rows, which halves the S and dP
-// tiles a thread holds (with 64-row ones the dK/dV kernel spilled at DH 80
-// in both dtypes, 128 in fp32 and 160 in bf16) and keeps the fp32 tiles
-// (rows of DH + 4 floats) within the 227 KB a block may have: 135 and 168
-// KB at DH 128 and 160, and 200 KB at DH 256 with one stage (two would
-// take 266).
-//
-// A CTA accumulates kDqCols columns of dQ (the dQ kernel) or kKvCols of dK
-// and of dV (the dK/dV kernel), at most 80 accumulators a thread, as the
-// dK/dV kernel holds at DH 80 without a spill: above DH 128 (dQ: halves)
-// and DH 80 (dK and dV: 64 columns, 80 at DH 160) the columns are split
-// over CTAs (grid y = heads x slices), each computing the rows products S
-// and dP over the whole head dim again.  That is the sliced body, which
-// only flash_attention_bwd_sliced launches (fp32), kept to be timed beside
-// the pair kernels (BwdPairCfg) that run the backward above DH 80; kKc,
-// kSplitBf16 and the head split below are theirs too.
-//
-// kKc: the 3xTF32 rows products sum each run of kKc reduction steps (8
-// columns a step) in a fresh accumulator: 64 columns, or 80 at DH 160, as
-// DH 64 sums them, so the tensor cores' truncating accumulation drifts no
-// further at DH 256 than there (bwd_chunk): a CPU emulation of the kernel
-// that truncates as the tensor cores do put unchunked products several
-// times further from the fp32 gradient at dh 256.
-//
-// kHeadSplit: above DH 80 the dK/dV kernel may split a GQA group's heads
-// over CTAs (BwdParams::head_split); at and below it, none is compiled.
+// The tiling of both kernels at head dim DH (16, 32, 64 or 80) and element
+// type T.  The CTA's own tiles have kBwdTile = 64 rows (4 warps x 16); the
+// other operand streams through a ring of 2 stages of kStream-row tiles,
+// with the streamed lse and D rows (fp32).  At DH 80 the streamed tiles
+// have 32 rows, which halves the S and dP tiles a thread holds: with 64-row
+// ones the dK/dV kernel spilled at DH 80 in both dtypes.  A CTA accumulates
+// every column of dQ, or of dK and dV (80 accumulators a thread at DH 80,
+// as the dK/dV kernel holds without a spill); above DH 80 the pair kernels
+// (BwdPairCfg) and, for bf16 at 120 and 128, the sm90 body take over.
 template <int DH, typename T>
 struct BwdCfg {
-  static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int kStream = DH >= 80 ? 32 : kBwdTile;
-  static constexpr int kStages = kF32 && DH >= 256 ? 1 : 2;
-  static constexpr int kDqCols = DH <= 128 ? DH : DH / 2;
-  static constexpr int kKvCols = DH <= 80 ? DH : DH % 64 == 0 ? 64 : DH / 2;
-  static constexpr int kKc = DH <= 80 ? DH / 8 : (DH / 8) % 8 == 0 ? 8 : 10;
-  static constexpr bool kHeadSplit = DH > 80;
-  // bf16: P and dS in two products each (for dV, and dK and dQ) above DH
-  // 80 (BwdMma::regs)
-  static constexpr bool kSplitBf16 = DH > 80;
+  static constexpr int kStages = 2;
   static constexpr int kLd = DH + BwdMma<T>::kPad;  // row stride, elements
   static constexpr int kOwn = kBwdTile * kLd;       // elements of an own tile
   static constexpr int kStr = kStream * kLd;        // elements of a streamed tile
   static constexpr size_t kRows = sizeof(T) * (2 * kOwn + 2 * kStages * kStr);
   static constexpr size_t kBytes = kRows + sizeof(float) * 2 * kStages * kStream;
-  // the head dim: DH itself, but at DH 128, which also runs 120 padded
-  static __device__ __forceinline__ int dh(const BwdParams& p) { return DH == 128 ? p.dh : DH; }
-  static_assert(DH % kDqCols == 0 && DH % kKvCols == 0 && (DH / 8) % kKc == 0, "tiling");
+  static_assert(DH <= 80 && DH % 16 == 0, "BwdCfg: dh 16, 32, 64 or 80");
   static_assert(kBytes <= 232448, "a block has at most 227 KB of shared memory");
 };
 
@@ -1038,13 +1008,12 @@ __device__ __forceinline__ void next_item(int i, int items, F&& stage) {
 }
 
 // dQ (and D) of one query tile of one head, summed over the KV tiles it
-// sees; columns [c0, c0 + kDqCols) of dQ.
+// sees.
 template <int DH, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
   using C = BwdCfg<DH, T>;
   using M = BwdMma<T>;
-  constexpr int kLd = C::kLd, kBK = C::kStream, NT = kBK / 8, NO = C::kDqCols / 8;
-  constexpr int kSplits = DH / C::kDqCols;
+  constexpr int kLd = C::kLd, kBK = C::kStream, NT = kBK / 8, NO = DH / 8, dh = DH;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   T* tiles = reinterpret_cast<T*>(bwd_smem);
   const T* sQ = tiles;
@@ -1052,8 +1021,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
   T* ring = tiles + 2 * C::kOwn;
   const int n_q = (p.S + kBwdTile - 1) / kBwdTile;
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBwdTile;
-  const int h = blockIdx.y / kSplits, c0 = (blockIdx.y % kSplits) * C::kDqCols;
-  const int b = blockIdx.z, kvh = h / (p.H / p.K), dh = C::dh(p);
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (p.H / p.K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
   const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
@@ -1085,13 +1053,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
     constexpr int kVec = 16 / sizeof(T);
     const int s = q0 + warp * 16 + (lane & 15);
     if (s < p.S) {
-      const int chunks = dh / kVec, half = chunks / 2;
-      const int n = lane < 16 ? half : chunks - half;  // half, but at dh 120 in bf16
-      const long long off = q_off + s * qs + (lane >> 4) * half * kVec;
+      constexpr int kHalf = dh / kVec / 2;
+      const long long off = q_off + s * qs + (lane >> 4) * kHalf * kVec;
       const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
       const uint4* d4 = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
 #pragma unroll
-      for (int c = 0; c < n; ++c) {
+      for (int c = 0; c < kHalf; ++c) {
         float ov[kVec], dv[kVec];
         unpack16(o4[c], ov);
         unpack16(d4[c], dv);
@@ -1100,7 +1067,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
       }
     }
     d += __shfl_xor_sync(0xffffffffu, d, 16);
-    if (c0 == 0 && lane < 16 && s < p.S) p.delta[row + s] = d;
+    if (lane < 16 && s < p.S) p.delta[row + s] = d;
   }
   // this thread's rows g and g + 8: D, and lse in the log2 domain
   const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
@@ -1127,8 +1094,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    M::template rows<DH, NT, false, C::kKc>(s, sQ + warp * 16 * kLd, sK, kLd);
-    M::template rows<DH, NT, false, C::kKc>(dp, sDO + warp * 16 * kLd, sV, kLd);
+    M::template rows<DH, NT>(s, sQ + warp * 16 * kLd, sK, kLd);
+    M::template rows<DH, NT>(dp, sDO + warp * 16 * kLd, sV, kLd);
     const bool full = tile_visible(p, q0, kBwdTile, k0, kBK);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -1140,7 +1107,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
                              : 0.f;
         s[j][e] = pr * (dp[j][e] - d_row[rr]);  // dS
       }
-    M::template regs<C::kDqCols, NT, false, C::kSplitBf16>(dq, s, sK + c0, kLd);
+    M::template regs<DH, NT>(dq, s, sK, kLd);
     __syncthreads();  // this stage is refilled by the copies of a later tile
   }
   cp_async_wait<0>();
@@ -1151,32 +1118,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(BwdParams 
     if (q_row[rr] >= p.S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int c = c0 + n * 8 + 2 * t;  // dh is a multiple of 8, so c < dh covers c + 1
-      if (DH != 128 || c < dh)
-        store2(dqb + q_row[rr] * qs + c, dq[n][2 * rr] * p.scale, dq[n][2 * rr + 1] * p.scale);
+      const int c = n * 8 + 2 * t;
+      store2(dqb + q_row[rr] * qs + c, dq[n][2 * rr] * p.scale, dq[n][2 * rr + 1] * p.scale);
     }
   }
 }
 
 // dK and dV of one KV tile of one KV head, summed over the query heads of
-// its group (or its share of them: head_split) and the query tiles that
-// see it; columns [c0, c0 + kKvCols).
+// its group and the query tiles that see it.
 template <int DH, typename T>
 __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
   using C = BwdCfg<DH, T>;
   using M = BwdMma<T>;
-  constexpr int kLd = C::kLd, kBQ = C::kStream, NT = kBQ / 8, NO = C::kKvCols / 8;
-  constexpr int kSplits = DH / C::kKvCols;
+  constexpr int kLd = C::kLd, kBQ = C::kStream, NT = kBQ / 8, NO = DH / 8, dh = DH;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   T* tiles = reinterpret_cast<T*>(bwd_smem);
   float* rows = reinterpret_cast<float*>(bwd_smem + C::kRows);
   const T* sK = tiles;
   const T* sV = tiles + C::kOwn;
   T* ring = tiles + 2 * C::kOwn;
-  const int k0 = blockIdx.x * kBwdTile, b = blockIdx.z;
-  const int HS = C::kHeadSplit ? p.head_split : 1, c0 = (blockIdx.y % kSplits) * C::kKvCols;
-  const int kvh = blockIdx.y / (kSplits * HS), hs = blockIdx.y / kSplits % HS;
-  const int G = p.H / p.K / HS, h0 = (kvh * HS + hs) * G, dh = C::dh(p);
+  const int k0 = blockIdx.x * kBwdTile, b = blockIdx.z, kvh = blockIdx.y;
+  const int G = p.H / p.K, h0 = kvh * G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
   const long long kv_off = (static_cast<long long>(b) * p.S * p.K + kvh) * dh;
@@ -1224,8 +1186,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParam
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    M::template rows<DH, NT, false, C::kKc>(st, sK + warp * 16 * kLd, sQ, kLd);
-    M::template rows<DH, NT, false, C::kKc>(dpt, sV + warp * 16 * kLd, sDO, kLd);
+    M::template rows<DH, NT>(st, sK + warp * 16 * kLd, sQ, kLd);
+    M::template rows<DH, NT>(dpt, sV + warp * 16 * kLd, sDO, kLd);
     const bool full = tile_visible(p, q0, kBQ, k0, kBwdTile);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -1238,32 +1200,22 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(BwdParam
         st[j][e] = pr;                          // P^T
         dpt[j][e] = pr * (dpt[j][e] - sD[qc]);  // dS^T
       }
-    M::template regs<C::kKvCols, NT, false, C::kSplitBf16>(dv, st, sDO + c0, kLd);
-    M::template regs<C::kKvCols, NT, false, C::kSplitBf16>(dk, dpt, sQ + c0, kLd);
+    M::template regs<DH, NT>(dv, st, sDO, kLd);
+    M::template regs<DH, NT>(dk, dpt, sQ, kLd);
     __syncthreads();  // this stage is refilled by the copies of a later item
   }
   cp_async_wait<0>();
 
-  const long long n_kv = static_cast<long long>(p.B) * p.S * p.K * dh;
   T* dkb = static_cast<T*>(p.dk) + kv_off;
   T* dvb = static_cast<T*>(p.dv) + kv_off;
-  float* pk = p.partial + hs * n_kv + kv_off;  // used when HS > 1
-  float* pv = pk + HS * n_kv;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (k_row[rr] >= p.S) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int c = c0 + n * 8 + 2 * t;
-      if (DH == 128 && c >= dh) continue;
-      const long long off = k_row[rr] * ks + c;
-      if (HS > 1) {
-        store2(pk + off, dk[n][2 * rr], dk[n][2 * rr + 1]);
-        store2(pv + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
-      } else {
-        store2(dkb + off, dk[n][2 * rr] * p.scale, dk[n][2 * rr + 1] * p.scale);
-        store2(dvb + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
-      }
+      const long long off = k_row[rr] * ks + n * 8 + 2 * t;
+      store2(dkb + off, dk[n][2 * rr] * p.scale, dk[n][2 * rr + 1] * p.scale);
+      store2(dvb + off, dv[n][2 * rr], dv[n][2 * rr + 1]);
     }
   }
 }
@@ -1294,19 +1246,16 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_sum_kernel(BwdParams p) {
 // backward above DH 80: warps sharing each 16-row group, S and dP formed once
 // ---------------------------------------------------------------------------
 //
-// BwdCfg's kernels slice the gradient's columns over CTAs at DH 120-256
-// (their accumulators would not fit 4 warps' registers), and each slice
-// forms S and dP again over the whole head dim: 15 full-width products a
-// (query tile, key tile) at DH 256, 11 at 160, 9 at 120 / 128, where the
-// gradient needs 7 without atomics (S and dP in each launch, dQ, dK, dV);
-// and a CTA of 4 warps with 135-200 KB of shared memory holds an SM alone,
-// 4 warps to keep the mma.sync chains fed.  These kernels give a CTA 8
-// warps, and the warps that share a 16-row group of the CTA's own tile
-// split the forming of S and dP, each element formed once over the whole
-// head dim in the kKc-chunked order of BwdCfg's kernels (summed as there:
-// ref.py:mha_grads_by_products with tf32x3 still models it, and the
-// gradient comes out in the same bits as the sliced body's), then meet in
-// shared memory (float4 exchanges, [row group][warp][tile][lane]):
+// Above DH 80 the accumulators of every column would not fit 4 warps'
+// registers.  These kernels give a CTA 8 warps, and the warps that share a
+// 16-row group of the CTA's own tile split the forming of S and dP, each
+// element formed once over the whole head dim, each run of kKc reduction
+// steps summed in a fresh accumulator (ref.py:mha_grads_by_products with
+// tf32x3 models it), then meet in shared memory (float4 exchanges, [row
+// group][warp][tile][lane]).  The gradient needs 7 full-width products a
+// (query tile, key tile) without atomics (S and dP in each launch, dQ, dK,
+// dV); the column-sliced kernels these replaced formed 9 at DH 128 and 15
+// at 256:
 //
 //   * dQ: 4 row groups of 64 query rows, two warps each: half 0 forms S and
 //     P, half 1 dP; both form dS = P (dP - D) on the full tile (the same
@@ -1331,9 +1280,10 @@ __global__ void __launch_bounds__(256) flash_bwd_dkdv_sum_kernel(BwdParams p) {
 // streamed tiles keep 32 rows; K and V stream through 2 stages in the dQ
 // kernel (one at DH 256 in fp32: own Q and dO 133 KB, a stage 66.5 KB, the
 // exchanges 16 KB, 211 KB), Q, dO, lse and D through 2 in the dK/dV kernel
-// (own K and V 66.5 KB at DH 256, the stages 133 KB, 204 KB).  bf16 keeps
-// the P and dS hi + lo products (BwdCfg::kSplitBf16) and the head split of
-// the dK/dV launch (BwdParams::head_split, bwd_head_split) is BwdCfg's.
+// (own K and V 66.5 KB at DH 256, the stages 133 KB, 204 KB).  bf16 forms
+// P and dS in hi + lo products (BwdMma::regs' kSplitX), and the dK/dV
+// launch may split a GQA group's heads over CTAs (BwdParams::head_split,
+// bwd_head_split).
 
 constexpr int kPairThreads = 256;  // 8 warps
 
@@ -1958,8 +1908,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N of this warpgroup's committed wgmma groups are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of wgmma accumulators
@@ -2138,9 +2091,10 @@ enum TileClass { kHidden = 0, kEdge = 1, kVisible = 2 };
 // How the mask meets the tile of rows [r0, r0 + br) x keys [k0, k0 + bk):
 // wholly hidden (no row sees a key), wholly visible (every row before S sees
 // every key, and no key lies past S), or an edge tile.  Rows past S are
-// never stored, so they do not make a tile an edge tile.
-__device__ __forceinline__ TileClass tile_class(const Params& p, int r0, int br, int k0,
-                                                int bk) {
+// never stored, so they do not make a tile an edge tile.  P is Params or
+// BwdParams.
+template <typename P>
+__device__ __forceinline__ TileClass tile_class(const P& p, int r0, int br, int k0, int bk) {
   const int r1 = r0 + br - 1, k1 = k0 + bk - 1;
   if (r0 >= p.S || k0 >= p.S) return kHidden;
   const int rl = min(r1, p.S - 1), kl = min(k1, p.S - 1);
@@ -2160,7 +2114,8 @@ __device__ __forceinline__ TileClass tile_class(const Params& p, int r0, int br,
 // one contiguous run of keys (none, lo > hi, for a row at or past S).  Equal
 // to visible(p, qi, kj) for 0 <= kj, so an edge tile costs two compares an
 // element and no division.
-__device__ __forceinline__ void row_keys(const Params& p, int qi, int* lo, int* hi) {
+template <typename P>
+__device__ __forceinline__ void row_keys(const P& p, int qi, int* lo, int* hi) {
   *lo = 0;
   *hi = p.S - 1;
   if (qi >= p.S) {
@@ -2341,7 +2296,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
                          desc_k_major(ka + (kk / 4) * C::kKVSlab + off));
           }
           wgmma_commit();
-          wgmma_wait_all();
+          wgmma_wait<0>();
           fence_regs(sacc);
           if (kt + 1 == tl.kt1) {  // this warp reads Q no more: the next tile's may load
             __syncwarp();
@@ -2417,7 +2372,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
                 o, pa[kk],
                 desc_mn_major(v_tile + o_slab * C::kKVSlab + kk * 16 * 128, C::kKVSlab));
           wgmma_commit();
-          wgmma_wait_all();
+          wgmma_wait<0>();
           fence_regs(o);
         } else {
           if (kt + 1 == tl.kt1) {
@@ -2480,6 +2435,587 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// backward, sm90: bf16 at dh 120 and 128 on wgmma and TMA, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// The gradient of the forward above (FlashAttention-2's backward, without
+// atomics, as flash_attention_bwd computes it) for bf16 at dh 128, and at
+// dh 120 on the same instance: the tensor maps' extent is the real head dim,
+// so TMA zero-fills the columns past 120 (they add nothing to a product)
+// and clips the stores there.  The train path's shape is qwen2-vl-2b's step,
+// q (4,1024,12,128), k/v (4,1024,2,128), causal: five products of its
+// 524800 visible pairs x 128 a head are 0.0326 ms at the bf16 rate, the
+// seven this body forms 0.0456.
+//
+// Two launches, as the mma bodies run them, each a CTA of two consumer
+// warpgroups and one producer warp (288 threads), as the forward's.  One
+// thread of the producer issues every TMA load through a ring of kStages
+// stages with full / empty mbarriers.  ptxas holds such a CTA to 168
+// registers a thread, and held the consumer code there with setmaxnreg too
+// (a producer warpgroup giving 144 of its 168 to the consumers spilled the
+// same 500-1000 bytes on the H100's nvcc 12.9, with the warpgroup index
+// proven warp-uniform, with __maxnreg__ and with -maxrregcount), so each
+// consumer warpgroup holds one 64 x 128 fp32 accumulator.  Tiles are TMA
+// boxes of 64 rows x a 64-column (128-byte) slab, 128-byte swizzled, as the
+// forward's.  Every product is a bf16 wgmma chain with fp32 accumulation;
+// P goes to dV as one bf16 register operand, as SDPA rounds it, and dS to
+// dK and dQ as bf16 hi + lo in two chains (about 16 bits): at qwen2-vl-2b's
+// step one bf16 dS left the gradient at 0.72-0.98 of the bf16 tolerance on
+// the H100 (SDPA's own at 0.81-0.92), hi + lo at 0.54-0.79 (kernels/ab.py
+// --sm90-bwd).  Above kSm90SplitGroup query heads a KV head P goes as hi +
+// lo too.  The two launches:
+//
+//   * dQ (flash_bwd_dq_sm90_kernel): one CTA a 128-row query tile of one
+//     head, late tiles first; each consumer warpgroup owns 64 rows, with Q
+//     and dO loaded once and 64-key K and V tiles streamed.  It computes D
+//     = rowsum(dO O) of its rows from device memory and writes it, with
+//     lse log2(e), to the `delta` scratch (2, B, H, s_pad), rows past S
+//     too (D 0, lse +inf), so that the dK/dV launch loads both per query
+//     tile by one bulk copy each.  Per key tile: S = Q K^T and dP = dO V^T
+//     (m64n64k16, both operands K-major in shared memory), P and dS in
+//     registers, dQ += dS K (m64n128k16, dS the register operand, K
+//     MN-major).  (64 rows a CTA with the roles split as in dK/dV below
+//     took 0.109 ms against 0.071 at qwen2-vl-2b's step: K and V stream
+//     twice as often, and an exchange a tile.)
+//   * dK/dV (flash_bwd_dkdv_sm90_kernel): one CTA a 64-key tile of one KV
+//     head (and a share of its group's query heads: head_split), early
+//     tiles first, K and V loaded once; Q, dO, lse and D stream in 64-query
+//     tiles over every query head of the share.  Warpgroup 0 forms S^T = K
+//     Q^T and P^T = exp(S^T scale - lse) and accumulates dV += P^T dO;
+//     warpgroup 1 forms dP^T = V dO^T, reads P^T (fp32) from warpgroup 0
+//     through a shared-memory exchange (two buffers, one named barrier a
+//     tile), forms dS^T = P^T (dP^T - D) and accumulates dK += dS^T Q.  Keys
+//     own the accumulator rows, so P^T and dS^T come out of the products
+//     already transposed, as the register A operands of dV and dK.
+//
+// Each CTA classifies each 64 x 64 tile against the mask (tile_class,
+// key_tile_class): hidden tiles skip the products, visible ones the mask.
+// The accumulators leave through shared memory and TMA stores (rows past S
+// and columns past dh clipped), so no accumulator is read under a
+// per-thread condition: reads there made ptxas serialise the wgmma (C7518).
+// Every sum has one owner and a fixed order: two runs give the same bits.
+// What bounds it: operations (0.0456 ms of the seven products against
+// 0.0121 ms of bytes at qwen2-vl-2b's step).
+
+struct Sm90Bwd {
+  static constexpr int kTile = 64;             // rows of a box, a warpgroup and a streamed tile
+  static constexpr int kSlab = kTile * 128;    // bytes of a 64-row slab
+  static constexpr int kTileBytes = 2 * kSlab; // a 64-row tile of both slabs (16 KB)
+  // 3 stages: 0.1554 ms against 2's 0.1588 at qwen2-vl-2b's step (H100,
+  // kernels/ab.py --sm90-bwd)
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 288;         // consumer warpgroups 0, 1; a producer warp
+  // dQ: own Q and dO of 128 rows (slabs of 128 rows), a ring of (K, V) tiles
+  static constexpr int kOwnSlab = 2 * kSlab;
+  static constexpr int kOwnBytes = 2 * kOwnSlab;
+  static constexpr int kDqRing = 2 * kOwnBytes;
+  static constexpr int kDqBar = kDqRing + kStages * 2 * kTileBytes;
+  static constexpr int kDqBytes = kDqBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment
+  // dK/dV: own K and V of 64 rows, a ring of (Q, dO) tiles, two P^T
+  // exchange buffers (64 x 64 fp32), a ring of (lse, D) rows
+  static constexpr int kKvRing = 2 * kTileBytes;
+  static constexpr int kKvX = kKvRing + kStages * 2 * kTileBytes;
+  static constexpr int kXBytes = kTile * kTile * 4;
+  static constexpr int kKvRows = kKvX + 2 * kXBytes;
+  static constexpr int kKvBar = kKvRows + kStages * 2 * kTile * 4;
+  static constexpr int kKvBytes = kKvBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kKvBytes <= 232448 && kDqBytes <= 232448, "over the 227 KB a block may use");
+};
+
+// `bytes` (a multiple of 16) from a 16-byte aligned global address into
+// shared memory; completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c),
+               "f"(d)
+               : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The queries [*lo, *hi] that see key kj (none, lo > hi, for a key at or past
+// S): row_keys with the roles of rows and keys exchanged.
+__device__ __forceinline__ void key_queries(const BwdParams& p, int kj, int* lo, int* hi) {
+  *lo = p.causal ? kj : 0;
+  *hi = p.S - 1;
+  if (kj >= p.S) {
+    *lo = 1;
+    *hi = 0;
+    return;
+  }
+  if (p.window) *hi = min(*hi, kj + p.window - 1);
+  if (p.chunk) {
+    const int c0 = (kj / p.chunk) * p.chunk;
+    *lo = max(*lo, c0);
+    *hi = min(*hi, c0 + p.chunk - 1);
+  }
+}
+
+// tile_class of the tile of keys [k0, k0 + bk) (the accumulator's rows) x
+// queries [q0, q0 + bq).  Keys past S are never stored and queries past S
+// add nothing (their Q and dO rows are zero, their lse +inf), so neither
+// makes a tile an edge tile.
+__device__ __forceinline__ TileClass key_tile_class(const BwdParams& p, int k0, int bk, int q0,
+                                                    int bq) {
+  if (k0 >= p.S || q0 >= p.S) return kHidden;
+  const int kl = min(k0 + bk, p.S) - 1, ql = min(q0 + bq, p.S) - 1;
+  if (p.causal && ql < k0) return kHidden;
+  if (p.window && q0 - kl >= p.window) return kHidden;
+  if (p.chunk && (ql / p.chunk < k0 / p.chunk || q0 / p.chunk > kl / p.chunk)) return kHidden;
+  bool all = true;
+  if (p.causal) all = q0 >= kl;
+  if (p.window) all = all && ql - k0 < p.window;
+  if (p.chunk)
+    all = all && k0 / p.chunk == kl / p.chunk && q0 / p.chunk == ql / p.chunk &&
+          k0 / p.chunk == q0 / p.chunk;
+  return all ? kVisible : kEdge;
+}
+
+// D (64 x 64) = A B^T over the head dim's 8 k16 steps, as one commit group:
+// A rows at `a` (a tile of a_slab bytes a slab), B rows at `b` (64 rows),
+// both K-major.
+__device__ __forceinline__ void wgmma_rows_n64(float (&d)[32], uint32_t a, uint32_t a_slab,
+                                               uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) d[j] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n64(d, desc_k_major(a + (kk / 4) * a_slab + off),
+                 desc_k_major(b + (kk / 4) * Sm90Bwd::kSlab + off));
+  }
+  wgmma_commit();
+}
+
+// bf16 pairs of a 64 x 64 accumulator as the register A operand: k-step kk
+// covers columns [16kk, 16kk + 16), accumulator chunks 2kk and 2kk + 1;
+// with kLo what bf16 leaves of each value (pack_split_bf16's lo).
+template <bool kLo = false>
+__device__ __forceinline__ void pack_a(uint32_t (&x)[4][4], const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = acc[8 * kk + 2 * r], b = acc[8 * kk + 2 * r + 1];
+      if constexpr (kLo) {
+        uint32_t hi;
+        pack_split_bf16(a, b, hi, x[kk][r]);
+      } else {
+        x[kk][r] = pack_bf16(a, b);
+      }
+    }
+}
+
+// D (64 x 128) += X B over 64 rows of B, one chain to its end: X (64 x 64)
+// in registers (a 64 x 64 accumulator, packed as bf16, or with kLo its
+// bf16 remainder), B a 64-row tile MN-major.
+template <bool kLo = false>
+__device__ __forceinline__ void wgmma_regs_n128(float (&d)[64], const float (&x)[32], uint32_t b) {
+  uint32_t a[4][4];
+  pack_a<kLo>(a, x);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n128_mn(d, a[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd::kSlab));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+}
+
+// A 64 x 128 accumulator out through shared memory: bf16 (times `scale`)
+// into a 64-row tile of two 128-byte swizzled slabs at `tile`, `slab` bytes
+// apart, or fp32 into four 32-column slabs with kF32, as a tensor map's box
+// lays them; every thread writes, under no condition.
+template <bool kF32>
+__device__ __forceinline__ void stage_acc(uint32_t tile, uint32_t slab, const float (&d)[64],
+                                          float scale) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = 16 * warp + g + 8 * rr;  // r % 8 == g
+      const float a = d[4 * j + 2 * rr] * scale, b = d[4 * j + 2 * rr + 1] * scale;
+      if constexpr (kF32) {
+        const int chunk = 2 * (j % 4) + t / 2;  // the 16-byte chunk of 8j + 2t in its slab
+        st_shared_v2(tile + (j / 4) * slab + r * 128 + ((chunk ^ g) * 16) + (t % 2) * 8, a, b);
+      } else {
+        st_shared_u32(tile + (j / 8) * slab + r * 128 + (((j % 8) ^ g) * 16) + 4 * t,
+                      pack_bf16(a, b));
+      }
+    }
+}
+
+// After stage_acc by every thread of warpgroup wg: one thread stores the
+// slabs (`cols` columns each, `slab` bytes apart) through `map` (rows r0..,
+// head h, outer index o), and waits until the store has read them.
+__device__ __forceinline__ void store_acc(const CUtensorMap* map, uint32_t tile, uint32_t slab,
+                                          int slabs, int cols, int wg, int h, int r0, int o) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_bar_sync(2 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int c = 0; c < slabs; ++c) tma_store_4d(map, tile + c * slab, c * cols, h, r0, o);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// Groups of more than this many query heads a KV head take P in hi + lo
+// bf16 products too (BwdParams::split): a key's dV sums that many times S
+// terms, and the plain model of one bf16 P (mha_grads_by_products with
+// bf16_operands, the forward's O in bf16) read up to 0.64 of the bf16
+// tolerance at 8 heads, 0.95 at 16 (MQA), where the body read 1.06 on the
+// H100 at S 300, dh 120.
+constexpr int kSm90SplitGroup = 8;
+
+__global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const __grid_constant__ CUtensorMap tm_dq, const BwdParams p) {
+  using C = Sm90Bwd;
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_bwd90[];
+  const uint32_t base = (smem_u32(smem_bwd90) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sDO = base + C::kOwnBytes, ring = base + C::kDqRing;
+  const uint32_t bar_own = base + C::kDqBar, bar_full = bar_own + 8,
+                 bar_empty = bar_full + 8 * kStages;
+  // late tiles first (the longest under a causal mask: the grid's slowest
+  // axis is the tile)
+  const int n_q = (p.S + 127) / 128;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.z)) * 128;
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (p.H / p.K);
+  int kv_lo, kv_hi;
+  kv_range(p, q0, 128, &kv_lo, &kv_hi);
+  const int kt0 = kv_lo / C::kTile;
+  const int items = max(0, (kv_hi + C::kTile - 1) / C::kTile - kt0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it (and
+  // every branch on it) as warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    // ---- producer warp: one thread issues every load
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_own, 2 * C::kOwnBytes);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t off = c * C::kOwnSlab + r * C::kSlab;
+          tma_load_4d(sQ + off, &tm_q, bar_own, c * 64, h, q0 + r * 64, b);
+          tma_load_4d(sDO + off, &tm_do, bar_own, c * 64, h, q0 + r * 64, b);
+        }
+      uint32_t s = 0, ph = 0;  // the stage and its round's parity
+      for (int i = 0; i < items; ++i) {
+        const int k0 = (kt0 + i) * C::kTile;
+        if (i >= kStages) mbar_wait(bar_empty + 8 * s, ph ^ 1);  // the last round's
+        const uint32_t full = bar_full + 8 * s, st = ring + s * 2 * C::kTileBytes;
+        mbar_expect_tx(full, 2 * C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          tma_load_4d(st + c * C::kSlab, &tm_k, full, c * 64, kvh, k0, b);
+          tma_load_4d(st + C::kTileBytes + c * C::kSlab, &tm_v, full, c * 64, kvh, k0, b);
+        }
+        if (++s == kStages) s = 0, ph ^= 1;
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64)
+    const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32 % 4, 0);
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4, r0 = q0 + 64 * wg, dh = p.dh;
+    const long long qs = static_cast<long long>(p.H) * dh;
+    const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
+    // D = rowsum(dO * O) of row 16 warp + (lane & 15), lanes r and r + 16
+    // taking the two halves of its 16-byte chunks, from device memory while
+    // the tiles load; it and lse log2(e) go to the scratch for the dK/dV
+    // launch (rows past S: 0 and +inf)
+    float d = 0.f;
+    {
+      const int s = r0 + 16 * warp + (lane & 15);
+      if (s < p.S) {
+        const int chunks = dh / 8, hc = chunks / 2;
+        const int n = lane < 16 ? hc : chunks - hc;  // hc, but at dh 120
+        const long long off = q_off + s * qs + (lane >> 4) * hc * 8;
+        const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.o) + off);
+        const uint4* d4 =
+            reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) + off);
+#pragma unroll 4
+        for (int c = 0; c < n; ++c) {
+          float ov[8], dv[8];
+          unpack16(o4[c], ov);
+          unpack16(d4[c], dv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d = fmaf(ov[e], dv[e], d);
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 16);
+      if (lane < 16) {
+        const long long srow = (static_cast<long long>(b) * p.H + h) * p.s_pad + s;
+        p.delta[srow] = s < p.S ? p.lse[row + s] * kLog2e : INFINITY;
+        p.delta[static_cast<long long>(p.B) * p.H * p.s_pad + srow] = d;
+      }
+    }
+    // this thread's rows g and g + 8: D, lse in the log2 domain, the keys
+    // each sees
+    const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
+    float lse2[2];
+    int lo[2], hi[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qi = r0 + 16 * warp + g + 8 * rr;
+      lse2[rr] = qi < p.S ? p.lse[row + qi] * kLog2e : INFINITY;
+      row_keys(p, qi, &lo[rr], &hi[rr]);
+    }
+    const float sl2 = p.scale * kLog2e;
+    const uint32_t q_wg = sQ + wg * C::kSlab, do_wg = sDO + wg * C::kSlab;
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+    mbar_wait(bar_own, 0);
+    uint32_t s = 0, ph = 0;
+    for (int i = 0; i < items; ++i) {
+      const int k0 = (kt0 + i) * C::kTile;
+      const TileClass cls = tile_class(p, r0, 64, k0, C::kTile);
+      mbar_wait(bar_full + 8 * s, ph);
+      if (cls != kHidden) {
+        uint32_t st = ring + s * 2 * C::kTileBytes;
+        asm volatile("" : "+r"(st));
+        float sacc[32], dp[32];
+        wgmma_rows_n64(sacc, q_wg, C::kOwnSlab, st);                // S = Q K^T
+        wgmma_rows_n64(dp, do_wg, C::kOwnSlab, st + C::kTileBytes);  // dP = dO V^T
+        wgmma_wait<1>();
+        fence_regs(sacc);
+        // P = exp(S scale - lse); entry 4j + 2rr + e: row g + 8rr, key 8j + 2t + e
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int klo = lo[rr] - k0 - 2 * t, khi = hi[rr] - k0 - 2 * t;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sacc[4 * j + 2 * rr + e];
+              const float pr = ex2(fmaf(x, sl2, -lse2[rr]));
+              x = cls == kEdge && (8 * j + e < klo || 8 * j + e > khi) ? 0.f : pr;
+            }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sacc[j] *= dp[j] - d_row[(j >> 1) & 1];  // dS
+        wgmma_regs_n128<true>(dq, sacc, st);  // dQ += dS K: dS's bf16 remainder first,
+        wgmma_regs_n128(dq, sacc, st);        // then dS in bf16
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      if (++s == kStages) s = 0, ph ^= 1;
+    }
+
+    // dQ = scale * the sum in bf16, through this warpgroup's Q rows (its
+    // products are done with them); TMA clips rows past S and columns past dh
+    stage_acc<false>(q_wg, C::kOwnSlab, dq, p.scale);
+    store_acc(&tm_dq, q_wg, C::kOwnSlab, 2, 64, wg, h, r0, b);
+  }
+}
+
+__global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
+    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_dk,
+                               const __grid_constant__ CUtensorMap tm_dv,
+                               const __grid_constant__ CUtensorMap tm_part, const BwdParams p) {
+  using C = Sm90Bwd;
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_bwd90[];
+  const uint32_t base = (smem_u32(smem_bwd90) + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + C::kTileBytes, ring = base + C::kKvRing;
+  const uint32_t xch = base + C::kKvX;      // [buffer][warp][j][lane] float4: P^T
+  const uint32_t rows = base + C::kKvRows;  // [stage][lse log2(e), D][64] fp32
+  const uint32_t bar_own = base + C::kKvBar, bar_full = bar_own + 8,
+                 bar_empty = bar_full + 8 * kStages;
+  // early key tiles first (the longest under a causal mask: the grid's
+  // slowest axis is the tile)
+  const int k0 = blockIdx.z * C::kTile, b = blockIdx.y;
+  const int HS = p.head_split, kvh = blockIdx.x / HS, hs = blockIdx.x % HS;
+  const int G = p.H / p.K / HS, h0 = (kvh * HS + hs) * G;
+  int q_lo, q_hi;
+  q_range(p, k0, C::kTile, &q_lo, &q_hi);
+  const int qt0 = q_lo / C::kTile;
+  const int n_qt = max(0, (q_hi + C::kTile - 1) / C::kTile - qt0);
+  const int items = G * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_own, 2 * C::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        tma_load_4d(sK + c * C::kSlab, &tm_k, bar_own, c * 64, kvh, k0, b);
+        tma_load_4d(sV + c * C::kSlab, &tm_v, bar_own, c * 64, kvh, k0, b);
+      }
+      // lse log2(e) of head h's rows, and its D n_rows further
+      const float* lrow = p.delta + (static_cast<long long>(b) * p.H + h0) * p.s_pad;
+      const long long n_rows = static_cast<long long>(p.B) * p.H * p.s_pad;
+      uint32_t s = 0, ph = 0;  // the stage and its round's parity
+      int i = 0;
+      for (int h = h0; h < h0 + G; ++h, lrow += p.s_pad)
+        for (int qt = qt0; qt < qt0 + n_qt; ++qt, ++i) {
+          if (i >= kStages) mbar_wait(bar_empty + 8 * s, ph ^ 1);  // the last round's
+          const uint32_t full = bar_full + 8 * s, st = ring + s * 2 * C::kTileBytes;
+          mbar_expect_tx(full, 2 * C::kTileBytes + 2 * C::kTile * 4);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tma_load_4d(st + c * C::kSlab, &tm_q, full, c * 64, h, qt * C::kTile, b);
+            tma_load_4d(st + C::kTileBytes + c * C::kSlab, &tm_do, full, c * 64, h,
+                        qt * C::kTile, b);
+          }
+          const uint32_t sr = rows + s * 2 * C::kTile * 4;
+          bulk_load(sr, lrow + qt * C::kTile, C::kTile * 4, full);
+          bulk_load(sr + C::kTile * 4, lrow + n_rows + qt * C::kTile, C::kTile * 4, full);
+          if (++s == kStages) s = 0, ph ^= 1;
+        }
+    }
+  } else {
+    // ---- consumers: both warpgroups take the CTA's 64 keys; warpgroup 0
+    // accumulates dV, warpgroup 1 dK
+    const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32 % 4, 0);
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float* srows = reinterpret_cast<const float*>(smem_bwd90 + (rows - smem_u32(smem_bwd90)));
+    // the queries this thread's keys (rows g and g + 8) see
+    int lo[2], hi[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) key_queries(p, k0 + 16 * warp + g + 8 * rr, &lo[rr], &hi[rr]);
+    const float sl2 = p.scale * kLog2e;
+    const uint32_t own = wg == 0 ? sK : sV;  // S^T = K Q^T, dP^T = V dO^T
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    mbar_wait(bar_own, 0);
+    uint32_t s = 0, ph = 0, nx = 0;  // nx: the P^T exchanges so far
+    int qt = qt0;  // item i: head h0 + i / n_qt, query tile qt0 + i % n_qt
+    for (int i = 0; i < items; ++i) {
+      const int q0 = qt * C::kTile;
+      if (++qt == qt0 + n_qt) qt = qt0;
+      const TileClass cls = key_tile_class(p, k0, C::kTile, q0, C::kTile);
+      mbar_wait(bar_full + 8 * s, ph);
+      if (cls != kHidden) {
+        uint32_t sq = ring + s * 2 * C::kTileBytes;
+        asm volatile("" : "+r"(sq));
+        const uint32_t sdo = sq + C::kTileBytes;
+        // this thread's 32 values of P^T in the exchange, as 8 float4
+        const uint32_t xb = xch + (nx & 1) * C::kXBytes + (warp * 8 * 32 + lane) * 16;
+        float x[32];
+        wgmma_rows_n64(x, own, C::kSlab, wg == 0 ? sq : sdo);
+        wgmma_wait<0>();
+        fence_regs(x);
+        if (wg == 0) {
+          // P^T = exp(S^T scale - lse); entry 4j + 2rr + e: key g + 8rr, query 8j + 2t + e
+          const float* lse2 = srows + s * 2 * C::kTile;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& v = x[4 * j + 2 * rr + e];
+                const float pr = ex2(fmaf(v, sl2, -(e ? l2.y : l2.x)));
+                const int qc = q0 + 8 * j + 2 * t + e;
+                v = cls == kEdge && (qc < lo[rr] || qc > hi[rr]) ? 0.f : pr;
+              }
+            st_shared_v4(xb + j * 32 * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+          }
+          named_bar_sync(1, 256);  // P^T is in the exchange
+          if (p.split) wgmma_regs_n128<true>(acc, x, sdo);  // P^T's remainder first
+          wgmma_regs_n128(acc, x, sdo);  // dV += P^T dO
+        } else {
+          named_bar_sync(1, 256);
+          // dS^T = P^T (dP^T - D), D by query
+          const float* dd = srows + s * 2 * C::kTile + C::kTile;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 pt = ld_shared_v4(xb + j * 32 * 16);
+            const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * t);
+            x[4 * j] = pt.x * (x[4 * j] - d2.x);
+            x[4 * j + 1] = pt.y * (x[4 * j + 1] - d2.y);
+            x[4 * j + 2] = pt.z * (x[4 * j + 2] - d2.x);
+            x[4 * j + 3] = pt.w * (x[4 * j + 3] - d2.y);
+          }
+          wgmma_regs_n128<true>(acc, x, sq);  // dK += dS^T Q: dS^T's remainder first,
+          wgmma_regs_n128(acc, x, sq);        // then dS^T in bf16
+        }
+        ++nx;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      if (++s == kStages) s = 0, ph ^= 1;
+    }
+
+    // Both warpgroups are done with K, V and the exchange: dK (scaled) and
+    // dV leave through them and TMA stores, in bf16; or with head_split > 1
+    // unscaled in fp32 through this split's slice of `partial` (2, HS, B, S,
+    // K, dh), a third launch summing the slices.  TMA clips keys past S and
+    // columns past dh.
+    named_bar_sync(1, 256);
+    if (HS == 1) {
+      const uint32_t tile = wg == 0 ? sV : sK;
+      stage_acc<false>(tile, C::kSlab, acc, wg == 0 ? 1.f : p.scale);
+      store_acc(wg == 0 ? &tm_dv : &tm_dk, tile, C::kSlab, 2, 64, wg, kvh, k0, b);
+    } else {
+      const uint32_t tile = wg == 0 ? xch : sK;  // 32 KB each
+      stage_acc<true>(tile, C::kSlab, acc, 1.f);
+      store_acc(&tm_part, tile, C::kSlab, 4, 32, wg, kvh, k0, ((wg == 0 ? HS : 0) + hs) * p.B + b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -2534,29 +3070,21 @@ int launch_dkdv_sum(const BwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// BwdCfg's kernels, 4 warps a CTA: the backward up to DH 80, and above it
-// the sliced body (the gradient's columns sliced over CTAs), which only
-// flash_attention_bwd_sliced launches.
+// BwdCfg's kernels, 4 warps a CTA: the backward up to DH 80 (no head split).
 template <int DH, typename T>
 int launch_bwd_dh(const BwdParams& p, cudaStream_t stream) {
-  using C = BwdCfg<DH, T>;
-  constexpr size_t kSmem = C::kBytes;
-  constexpr int kQSplits = DH / C::kDqCols, kKvSplits = DH / C::kKvCols;
-  if (p.H > 65535 / kQSplits || p.K * p.head_split > 65535 / kKvSplits ||
-      (!C::kHeadSplit && p.head_split != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t kSmem = BwdCfg<DH, T>::kBytes;
+  if (p.head_split != 1) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned tiles = static_cast<unsigned>((p.S + kBwdTile - 1) / kBwdTile);
   cudaError_t err = allow_smem<flash_bwd_dq_kernel<DH, T>>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<DH, T>
-      <<<dim3(tiles, p.H * kQSplits, p.B), kBwdThreads, kSmem, stream>>>(p);
+  flash_bwd_dq_kernel<DH, T><<<dim3(tiles, p.H, p.B), kBwdThreads, kSmem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem<flash_bwd_dkdv_kernel<DH, T>>(kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<DH, T>
-      <<<dim3(tiles, p.K * kKvSplits * p.head_split, p.B), kBwdThreads, kSmem, stream>>>(p);
-  return launch_dkdv_sum<T>(p, stream);
+  flash_bwd_dkdv_kernel<DH, T><<<dim3(tiles, p.K, p.B), kBwdThreads, kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The backward above DH 80: the pair kernels.
@@ -2617,20 +3145,23 @@ EncodeTiled encode_tiled() {
 
 // A bf16 (B, S, heads, dh) tensor given by its strides (in elements) as a
 // 4-D tensor map [dh, heads, S, B]; the box is one head x `rows` rows x a
-// 64-element slab, 128-byte swizzled.  TMA fills what lies past S or past dh
-// with zeros, and clips a store there.
+// 64-element slab, 128-byte swizzled (with f32: an fp32 tensor, 32-element
+// slabs).  TMA fills what lies past S or past dh with zeros, and clips a
+// store there.
 int encode_map(CUtensorMap* map, const void* ptr, int dh, int heads, int S, int B,
-               long long s_h, long long s_s, long long s_b, int rows) {
+               long long s_h, long long s_s, long long s_b, int rows, bool f32 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_h) * 2,
-                                 static_cast<cuuint64_t>(s_s) * 2,
-                                 static_cast<cuuint64_t>(s_b) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_h) * size,
+                                 static_cast<cuuint64_t>(s_s) * size,
+                                 static_cast<cuuint64_t>(s_b) * size};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            4, const_cast<void*>(ptr),
                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -2679,6 +3210,41 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
   pt.tiles = static_cast<int>(tiles);
   flash_attn_sm90_kernel<DH><<<blocks, C::kThreads, C::kBytes, stream>>>(tq, tk, tv, to, pt);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sm90 backward: the dQ launch (which also writes lse log2(e) and D into
+// the delta scratch), the dK/dV launch and, with head_split > 1, the sum.
+int launch_bwd_sm90(const BwdParams& p, cudaStream_t stream) {
+  using C = Sm90Bwd;
+  const int dh = p.dh;  // 128, or 120 on the same instance
+  const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
+  CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv, tpart{};
+  int err = encode_map(&tq, p.q, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
+  if (!err) err = encode_map(&tk, p.k, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
+  if (!err) err = encode_map(&tv, p.v, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
+  if (!err) err = encode_map(&tdo, p.dout, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
+  if (!err) err = encode_map(&tdq, p.dq, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
+  if (!err) err = encode_map(&tdk, p.dk, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
+  if (!err) err = encode_map(&tdv, p.dv, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
+  // partial (2, head_split, B, S, K, dh) fp32 as [dh, K, S, 2 head_split B]
+  if (!err && p.head_split > 1)
+    err = encode_map(&tpart, p.partial, dh, p.K, p.S, 2 * p.head_split * p.B, dh, ks, ks * p.S,
+                     C::kTile, true);
+  if (err) return err;
+  const long long q_tiles = (p.S + 127) / 128, kv_tiles = (p.S + C::kTile - 1) / C::kTile;
+  if (kv_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_smem<flash_bwd_dq_sm90_kernel>(C::kDqBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_sm90_kernel<<<dim3(p.H, p.B, static_cast<unsigned>(q_tiles)), C::kThreads,
+                             C::kDqBytes, stream>>>(tq, tk, tv, tdo, tdq, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = allow_smem<flash_bwd_dkdv_sm90_kernel>(C::kKvBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_sm90_kernel<<<dim3(p.K * p.head_split, p.B, static_cast<unsigned>(kv_tiles)),
+                               C::kThreads, C::kKvBytes, stream>>>(tq, tk, tv, tdo, tdk, tdv,
+                                                                   tpart, p);
+  return launch_dkdv_sum<__nv_bfloat16>(p, stream);
 }
 
 }  // namespace
@@ -2785,34 +3351,32 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   }
 }
 
-// The sliced backward (BwdCfg's kernels above DH 80: the gradient's columns
-// sliced over CTAs of 4 warps, each slice forming S and dP again), the body
-// the pair kernels replaced, kept to be timed beside them: as
-// flash_attention_bwd, float32 only, head_dim one of 120, 128, 160, 256.
-extern "C" int flash_attention_bwd_sliced(const void* q, const void* k, const void* v,
-                                          const void* o, const void* dout, const void* lse,
-                                          void* delta, void* dq, void* dk, void* dv, int B, int S,
-                                          int H, int K, int causal, int window, int chunk,
-                                          float scale, int head_dim, int dtype, int head_split,
-                                          void* partial, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 || dtype != 0 ||
-      head_split < 1 || (H / K) % head_split ||
+// The sm90 backward body: as flash_attention_bwd, bfloat16 only (dtype 1),
+// head_dim 120 or 128, scale > 0; delta is fp32 scratch of 2 * B * H * s_pad
+// floats, s_pad = S rounded up to 128 (lse log2(e) and D, written by the dQ
+// launch for the dK/dV launch), 16-byte aligned.  Returns
+// cudaErrorInvalidValue on anything else, else the first launch error or
+// cudaGetLastError() after the last launch.
+extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dout, const void* lse,
+                                        void* delta, void* dq, void* dk, void* dv, int B, int S,
+                                        int H, int K, int causal, int window, int chunk,
+                                        float scale, int head_dim, int dtype, int head_split,
+                                        void* partial, void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 || dtype != 1 ||
+      (head_dim != 120 && head_dim != 128) || !(scale > 0.f) || head_split < 1 ||
+      (H / K) % head_split || K * head_split > 65535 ||
       (head_split > 1 && (partial == nullptr || !aligned16(partial))))
     return static_cast<int>(cudaErrorInvalidValue);
-  for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
+  for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(delta),
+                          static_cast<const void*>(dq), static_cast<const void*>(dk),
                           static_cast<const void*>(dv)})
     if (!aligned16(ptr)) return static_cast<int>(cudaErrorInvalidValue);
   const BwdParams p{q,      k,      v,     o,       dout, static_cast<const float*>(lse),
                     static_cast<float*>(delta), dq, dk, dv, B, S, H, K, causal, window,
-                    chunk, scale, head_dim, head_split, static_cast<float*>(partial)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 120:
-    case 128: return launch_bwd_dh<128, float>(p, st);
-    case 160: return launch_bwd_dh<160, float>(p, st);
-    case 256: return launch_bwd_dh<256, float>(p, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                    chunk, scale, head_dim, head_split, static_cast<float*>(partial),
+                    (S + 127) / 128 * 128, H / K > kSm90SplitGroup};
+  return launch_bwd_sm90(p, static_cast<cudaStream_t>(stream));
 }
 
 // The mma_tf32x3 body: float32 q, k, v and o, laid out as for

@@ -2,12 +2,13 @@
 of the fp32 forward's mma_tf32x3 body; with ``--sm90``, of the bf16
 forward's sm90 body) on one card, in turns.
 
-    PYTHONPATH=src python -m repro_torch.kernels.ab [--forward | --sm90] \
+    PYTHONPATH=src python -m repro_torch.kernels.ab [--forward | --sm90 | --sm90-bwd] \
         [--shape 100m|rgemma|stablelm] A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` (edited by hand, for
 an A/B of one change).  Each is built with the port's nvcc flags into
-``build/ab/``, loaded with ctypes, and its ``flash_attention_bwd`` run (with
+``build/ab/`` (the compiler's output kept there as ``<name>.log``), loaded
+with ctypes, and its ``flash_attention_bwd`` run (with
 ``bwd_head_split``'s split), at the shapes of ``--shape`` (``SHAPES``):
 ``100m`` (the default), the 100m preset's training shapes (q (16,256,8,64),
 k/v (16,256,4,64), fp32, causal) and a GQA group of 8 with a ragged S (q
@@ -34,6 +35,19 @@ versions in fp32; then hubert-xlarge's encode layer, q drawn at std 4, on
 its first and last 256 rows), then times it at ``SM90_SHAPES`` in turns
 beside the mma body of the first source (``flash_attention_fwd``) and
 SDPA's bf16 call, by the profiler and by CUDA events.
+
+``--sm90-bwd`` does it for the bf16 backward's sm90 body
+(``flash_attention_bwd_sm90``), on o and lse from the plain versions: at
+``SM90_BWD_CHECKS`` (dh 120 and 128, ragged S, MHA, GQA, MQA, causal,
+window, chunk and no mask) dq, dk and dv as shares of the bf16 tolerance
+2e-2 (1 + |x|) against autograd of ``mha_ref`` in fp32, and whether two
+runs give the same bits; then at ``SM90_BWD_SHAPES`` (qwen2-vl-2b's train
+step, h2o-danube-3-4b's heads) its device time by kernel at every head
+split the group allows, in turns, beside the first source's mma_bf16 body
+(``flash_attention_bwd``, the pair kernels at ``bwd_head_split``'s split)
+and SDPA's bf16 backward.  It prints the ptxas lines of each variant's
+sm90 backward kernels and exits non-zero on a failed check (after the
+timings).
 """
 from __future__ import annotations
 
@@ -81,8 +95,25 @@ SM90_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 256)
     (1, 700, 16, 1, dict(causal=False)))]
 
 
+# --sm90-bwd: the checks, then the timed shapes
+SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (120, 128)
+                   for B, S, H, K, kw in (
+    (1, 200, 12, 2, dict(causal=True)),
+    (2, 333, 8, 8, dict(causal=True)),
+    (1, 300, 16, 1, dict(causal=True)),     # a group of 16: hi + lo
+    (2, 512, 12, 2, dict(causal=True, window=100)),
+    (1, 512, 12, 4, dict(causal=True, chunk=96)),
+    (2, 190, 6, 2, dict(causal=False)),
+    (4, 1024, 12, 2, dict(causal=True)),    # qwen2-vl-2b's step, two draws
+    (4, 1024, 12, 2, dict(causal=True)))]
+SM90_BWD_SHAPES = {
+    "qwen2-vl-2b": (4, 1024, 12, 2, 128, dict(causal=True)),
+    "h2o-danube-3-4b": (4, 512, 32, 8, 120, dict(causal=True)),
+}
+
+
 def _build_variants(sources: list[str], forward: bool = False,
-                    sm90: bool = False) -> dict:
+                    sm90: bool = False, sm90_bwd: bool = False) -> dict:
     """{name: bound flash_attention_bwd (or flash_attention_fwd_tf32, or
     (flash_attention_fwd_sm90, flash_attention_fwd))} of each source, built
     at once."""
@@ -95,18 +126,28 @@ def _build_variants(sources: list[str], forward: bool = False,
     fns = {}
     for name, job in jobs.items():
         log = job.communicate()[0]
+        (out / f"{name}.log").write_text(log)  # ptxas's lines, kept beside the .so
         if job.returncode:
             raise RuntimeError(f"{name} did not build:\n{log[-4000:]}")
         lines = log.splitlines()
         key = ("flash_attn_sm90" if sm90 else "flash_attn_tf32" if forward
-               else "flash_bwd")
+               else "_sm90_kernel" if sm90_bwd else "flash_bwd")
         for i, line in enumerate(lines[:-2]):
             if "Function properties for" in line and key in line \
-                    and (forward or sm90 or "EfE" in line):
-                print(name, line.split(key)[-1][:40],
+                    and (forward or sm90 or sm90_bwd or "EfE" in line):
+                print(name, line.split("Function properties for")[-1][:60],
                       lines[i + 1].strip(), lines[i + 2].split(": ")[-1])
+        if sm90_bwd and "C7508" in log:
+            raise RuntimeError(f"{name}: ptxas ignored setmaxnreg (C7508)")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if sm90_bwd:
+            fns[name] = (lib.flash_attention_bwd_sm90, lib.flash_attention_bwd)
+            for fn in fns[name]:
+                fn.argtypes = [*([P] * 10), *([I] * 7), ctypes.c_float, I, I,
+                               I, P, P]
+                fn.restype = I
+            continue
         if sm90:
             fn, mma = lib.flash_attention_fwd_sm90, lib.flash_attention_fwd
             fn.argtypes = [P, P, P, P, I, I, I, I, *([LL] * 9), I, I, I,
@@ -297,10 +338,120 @@ def main_sm90(sources: list[str]) -> None:
                   flush=True)
 
 
+def main_sm90_bwd(sources: list[str]) -> None:
+    from .flash_attention.ref import lse_ref
+    fns = _build_variants(sources, sm90_bwd=True)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    bf16 = torch.bfloat16
+    sms = multiprocessors(dev)
+
+    def setup(B, S, H, K, dh, kw, g):
+        q, do = (torch.randn(B, S, H, dh, generator=g, device=dev).to(bf16)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, K, dh, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        o, lse = mha_ref(q, k, v, **kw).contiguous(), lse_ref(q, k, **kw)
+        return q, k, v, o, do, lse
+
+    def bind(fn, t, kw, split, sm90=True):
+        q, k, v, o, do, lse = t
+        B, S, H, dh = q.shape
+        K = k.shape[2]
+        delta = torch.empty((2, B, H, -(-S // 128) * 128) if sm90
+                            else (B, H, S), device=dev)
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        partial = (torch.empty((2, split, B, S, K, dh), device=dev)
+                   if split > 1 else None)
+
+        def call():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     *(x.data_ptr() for x in grads), B, S, H, K,
+                     int(kw["causal"]), kw.get("window", 0), kw.get("chunk", 0),
+                     dh ** -0.5, dh, 1, split,
+                     None if partial is None else partial.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return grads
+        return call
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    failed = []
+    for B, S, H, K, dh, kw in SM90_BWD_CHECKS:
+        t = setup(B, S, H, K, dh, kw, g)
+        leaves = [x.float().requires_grad_() for x in t[:3]]
+        want = torch.autograd.grad(mha_ref(*leaves, **kw), leaves,
+                                   t[4].float())
+        splits = [s for s in (1, H // K) if (H // K) % s == 0]
+        if kw == dict(causal=True):  # SDPA's own bf16 gradient, same inputs
+            lv = [x.clone().requires_grad_() for x in t[:3]]
+            lib = torch.autograd.grad(F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in lv), is_causal=True,
+                enable_gqa=True), lv, t[4].transpose(1, 2))
+            print(json.dumps(dict(check=[B, S, H, K, dh], mask=kw,
+                                  variant="sdpa", shares=[
+                                      _share(a, w, 2e-2) for a, w in zip(lib, want)],
+                                  abs_err=[float((a.float() - w).abs().max())
+                                           for a, w in zip(lib, want)])),
+                  flush=True)
+        for name, (fn, _) in fns.items():
+            for split in sorted(set(splits)):
+                call = bind(fn, t, kw, split)
+                got = [x.clone() for x in call()]
+                again = call()
+                torch.cuda.synchronize()
+                shares = [_share(a, w, 2e-2) for a, w in zip(got, want)]
+                share = max(shares)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                # where the largest share of each gradient lies (b, s, head)
+                where = [list(divmod(int(((a.double() - w.double()).abs() / (
+                    1 + w.double().abs())).amax(-1).argmax()), S * a.shape[2]))
+                    for a, w in zip(got, want)]
+                print(json.dumps(dict(check=[B, S, H, K, dh], mask=kw,
+                                      variant=name, head_split=split,
+                                      share=share, shares=shares,
+                                      abs_err=[float((a.float() - w).abs().max())
+                                               for a, w in zip(got, want)],
+                                      worst_at=where, deterministic=same)),
+                      flush=True)
+                if not (share <= 1 and same):
+                    failed.append((name, B, S, H, K, dh, kw, split))
+    for label, (B, S, H, K, dh, kw) in SM90_BWD_SHAPES.items():
+        t = setup(B, S, H, K, dh, kw, g)
+        G = H // K
+        res = {}
+        order = list(fns) + list(fns)[::-1]
+        for turn, name in enumerate(order):
+            for split in (d for d in range(1, G + 1) if G % d == 0):
+                call = bind(fns[name][0], t, kw, split)
+                r = res.setdefault(f"{name} split {split}", {})
+                r[f"ms_by_kernel_{turn // len(fns)}"] = _ms_by_kernel(call)
+                r[f"event_ms_{turn // len(fns)}"] = _event_ms(call)
+        split = bwd_head_split(B, S, H, K, dh, sms)
+        mma = bind(next(iter(fns.values()))[1], t, kw, split, sm90=False)
+        leaves = [x.clone().requires_grad_() for x in t[:3]]
+        out = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in leaves), **_sdpa_mask(S, kw))
+        dout = t[4].transpose(1, 2)
+
+        def sdpa():
+            return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        base = dict(mma_bf16_split=split, mma_bf16_ms_by_kernel=_ms_by_kernel(mma),
+                    mma_bf16_event_ms=_event_ms(mma),
+                    sdpa_bwd_ms_by_kernel=_ms_by_kernel(sdpa),
+                    sdpa_bwd_event_ms=_event_ms(sdpa))
+        print(json.dumps(dict(shape=label, dims=[B, S, H, K, dh], mask=kw,
+                              variants=res, **base)), flush=True)
+    if failed:
+        raise SystemExit(f"sm90 backward checks failed: {failed}")
+
+
 def main(argv: list[str]) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--sm90", action="store_true")
+    ap.add_argument("--sm90-bwd", action="store_true")
     ap.add_argument("--shape", choices=sorted(SHAPES), default="100m")
     ap.add_argument("sources", nargs="+")
     args = ap.parse_args(argv)
@@ -308,6 +459,8 @@ def main(argv: list[str]) -> None:
         return main_forward(args.sources, SHAPES[args.shape])
     if args.sm90:
         return main_sm90(args.sources)
+    if args.sm90_bwd:
+        return main_sm90_bwd(args.sources)
     fns = _build_variants(args.sources)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

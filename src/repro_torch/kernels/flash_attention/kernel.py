@@ -33,20 +33,31 @@ Training: ``FlashAttentionFunction`` is the ``torch.autograd.Function``
 whose forward is ``flash_attention_cuda(..., return_lse=True)`` (every
 body also writes each row's log-sum-exp; the sm90 body from its epilogue,
 O unchanged) and whose backward is ``flash_attention_bwd_cuda``:
-FlashAttention-2 without atomics on the tensor cores (mma.sync), at every
-head dim of ``HEAD_DIMS`` (120
-padded to 128; above 80 CTAs of 8 warps, two (four at 256) to each 16-row
-group splitting the forming of S and dP, so that each full-width product is
-formed once a pair of tiles: 7), one body a dtype (``select_bwd_body``
-decides, and raises on the rest):
+FlashAttention-2 without atomics on the tensor cores, at every head dim of
+``HEAD_DIMS``, each full-width product formed once a pair of tiles (7),
+in one of three bodies (``select_bwd_body`` decides from the dtype, the
+head dim and the sign of the scale, and raises on the rest):
 
+* ``sm90``: bfloat16 at dh 120 and 128 (``SM90_BWD_HEAD_DIMS``: qwen2-vl-2b's
+  bf16 train step, h2o-danube-3-4b's heads) with a scale > 0: wgmma, TMA
+  and warp specialisation, P rounded to bf16 once for dV and dS as bf16
+  hi + lo for dK and dQ (``ref.mha_grads_by_products`` with
+  ``bf16_operands`` and ``ds_matmul=bf16_hilo`` models it), P as hi + lo
+  too where a KV head has more than ``SM90_BWD_SPLIT_GROUP`` query heads;
+  the dK/dV launch's CTAs take 64 keys (``SM90_BWD_KV_TILE``), one
+  warpgroup accumulating dV, the other dK.
+* ``mma_bf16``: every other bfloat16 input (dh 16-80, 160, 256, a scale <=
+  0), mma.sync with fp32 accumulation, above dh 80 P and dS in hi + lo
+  bf16 products; the sm90 body's previous body, forced by
+  ``body="mma_bf16"``.
 * ``mma_tf32x3``: float32 (the training path), every operand split into
   TF32 hi + lo and each product formed from three TF32 products, which
   holds the fp32 tolerance (``ref.tf32x3`` models it).
-* ``mma_bf16``: bfloat16, one bf16 product with fp32 accumulation.
 
-Its calls are counted in ``flash_attention_bwd_cuda.launches`` (and
-``launches_by_body``).
+The mma bodies run 4 warps a CTA up to dh 80 and above it CTAs of 8 warps
+(120 padded to 128), two (four at 256) to each 16-row group splitting the
+forming of S and dP.  Its calls are counted in
+``flash_attention_bwd_cuda.launches`` (and ``launches_by_body``).
 Called outside that Function, ``flash_attention_cuda`` refuses inputs that
 require grad (its output has no ``grad_fn``).
 """
@@ -67,18 +78,29 @@ SM90_HEAD_DIMS = (80, 120, 128, 256)
 BODIES = ("sm90", "mma", "mma_tf32x3", "fp32")
 # the float32 head dims the mma_tf32x3 body takes (120 padded to 128): all
 TF32_HEAD_DIMS = HEAD_DIMS
-# the backward: every head dim the forward takes; one body a dtype
+# the backward: every head dim the forward takes
 BWD_HEAD_DIMS = HEAD_DIMS
-BWD_BODIES = ("mma_tf32x3", "mma_bf16")
-# the backward's dK/dV CTAs: one a (tile of keys, KV head, batch), every
+BWD_BODIES = ("mma_tf32x3", "mma_bf16", "sm90")
+SM90_BWD_HEAD_DIMS = (120, 128)
+# the mma bodies' dK/dV CTAs: one a (tile of keys, KV head, batch), every
 # column of dK and dV, the tiles as csrc/flash_attention.cu cuts the keys
 # (BwdCfg up to dh 80, BwdPairCfg::kKvRows above)
 BWD_KV_TILE = {16: 64, 32: 64, 64: 64, 80: 64, 120: 64, 128: 64, 160: 64, 256: 32}
+# the sm90 body's: 64 keys, one warpgroup accumulating dV, one dK (Sm90Bwd)
+SM90_BWD_KV_TILE = 64
+# above this many query heads a KV head the sm90 body forms P in hi + lo
+# bf16 products too (csrc/flash_attention.cu: kSm90SplitGroup)
+SM90_BWD_SPLIT_GROUP = 8
 # the dK/dV launch splits each KV head's group of query heads over CTAs
 # until it has this many CTAs an SM (bwd_head_split): 6 gives
 # recurrentgemma-9b's step 16 splits and stablelm-12b's heads 4, the
 # fastest of the splits each group allows on the H100 (PERF.md)
 BWD_FILL = 6
+# the sm90 body's dK/dV launch: the smallest divisor of the group that
+# reaches this many CTAs an SM: qwen2-vl-2b's step (128 CTAs unsplit) takes
+# 2, h2o-danube-3-4b's heads (256) none, the fastest of each's splits on the
+# H100 (kernels/ab.py --sm90-bwd, PERF.md)
+SM90_BWD_FILL = 1.5
 
 
 def _entry(name: str):
@@ -96,10 +118,12 @@ def _entry(name: str):
     return fn
 
 
-def _bwd_entry(name: str = "flash_attention_bwd"):
-    """A backward entry point: flash_attention_bwd, or
-    flash_attention_bwd_sliced (fp32 at dh 120-256: the body before the pair
-    kernels, which only timing launches)."""
+def _bwd_entry(body: str):
+    """The backward entry point of ``body``: flash_attention_bwd (the mma
+    bodies; a dtype code picks one) or flash_attention_bwd_sm90, with the
+    same arguments."""
+    name = "flash_attention_bwd_sm90" if body == "sm90" else \
+        "flash_attention_bwd"
     fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -108,19 +132,27 @@ def _bwd_entry(name: str = "flash_attention_bwd"):
     return fn
 
 
-def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int) -> int:
+def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int,
+                   body: str = "mma_bf16") -> int:
     """The CTAs the backward's dK/dV launch splits each KV head's group of
-    H / K query heads over, on a card of ``sms`` SMs: 1 at head dims up to
-    80 (those kernels have no split: their registers are at ptxas's limit),
-    else the fewest, doubling, that reach ``BWD_FILL`` CTAs an SM while
-    they divide the group.  recurrentgemma-9b's MQA step (B 4, S 512, 16
+    H / K query heads over, on a card of ``sms`` SMs.  On the mma bodies:
+    1 at head dims up to 80 (those kernels have no split: their registers
+    are at ptxas's limit), else the fewest, doubling, that reach
+    ``BWD_FILL`` CTAs an SM while they divide the group.  On ``sm90``: the
+    smallest divisor of the group (any, 3 and 6 too) that reaches
+    ``SM90_BWD_FILL`` CTAs an SM, else the whole group.  recurrentgemma-9b's MQA step (B 4, S 512, 16
     heads, one KV head, dh 256) has 16 x 4 = 64 CTAs of 32 keys, each
     walking 16 heads, and the key tile at the diagonal's start sees 16
     times the query tiles of the last: 16 splits, 1024 CTAs of one head;
     stablelm-12b's heads (32 over 8 KV heads, dh 160) 256 CTAs of 4 heads,
     split 4 ways."""
-    ctas = -(-S // BWD_KV_TILE[dh]) * K * B
     G, split = H // K, 1
+    if body == "sm90":
+        ctas = -(-S // SM90_BWD_KV_TILE) * K * B
+        return next(d for d in range(1, G + 1)
+                    if G % d == 0 and (ctas * d >= SM90_BWD_FILL * sms
+                                       or d == G))
+    ctas = -(-S // BWD_KV_TILE[dh]) * K * B
     if dh <= 80:
         return split
     while ctas * split < BWD_FILL * sms and G % (2 * split) == 0:
@@ -198,13 +230,27 @@ def bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> str:
-    """The backward body for these inputs (one of ``BWD_BODIES``: the
-    dtype's), on any device, whichever forward body wrote the log-sum-exp
-    (bf16 at ``SM90_HEAD_DIMS`` on the sm90 body too).  Raises on what no
-    forward body takes (``select_body``: a head dim outside ``HEAD_DIMS``
-    among them)."""
+    """The backward body for these inputs, one of ``BWD_BODIES``: the first
+    of ``bwd_bodies_for``, on any device, whichever forward body wrote the
+    log-sum-exp."""
+    return bwd_bodies_for(q, k, v, scale)[0]
+
+
+def bwd_bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float | None = None) -> tuple[str, ...]:
+    """The backward bodies that take these inputs, the one
+    ``select_bwd_body`` picks first: float32 ``mma_tf32x3``; bfloat16
+    ``sm90`` (dh in ``SM90_BWD_HEAD_DIMS``, scale > 0) and ``mma_bf16``.  A
+    pure function of dtype, head dim and the sign of the scale: the wrapper
+    makes every operand contiguous before the launch, so views and strides
+    do not count.  Raises on what no forward body takes (``select_body``:
+    a head dim outside ``HEAD_DIMS`` among them)."""
     select_body(q, k, v, scale)
-    return "mma_tf32x3" if q.dtype == torch.float32 else "mma_bf16"
+    if q.dtype == torch.float32:
+        return ("mma_tf32x3",)
+    if q.shape[3] in SM90_BWD_HEAD_DIMS and (scale is None or scale > 0):
+        return ("sm90", "mma_bf16")
+    return ("mma_bf16",)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -270,21 +316,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                              window: int = 0, chunk: int = 0,
                              scale: float | None = None,
-                             head_split: int | None = None):
+                             head_split: int | None = None,
+                             body: str | None = None):
     """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)``, given its
     output ``o`` and log-sum-exp ``lse`` (B,H,S) fp32 and ``do`` = dL/do.
 
-    The inputs ``select_bwd_body`` takes; every tensor is made contiguous
-    (the kernel stages tiles by 16-byte copies and raises on a base that is
-    not 16-byte aligned).  Two launches (dQ and D = rowsum(dO·O), then
-    dK / dV), and a third that sums the dK / dV launch's partial sums in
-    a fixed order where ``head_split`` (default ``bwd_head_split``'s; a
+    The inputs ``select_bwd_body`` takes; ``body`` (default: the one it
+    picks) names one of ``bwd_bodies_for`` these inputs, and raises on
+    another.  Every tensor is made contiguous (the kernels load tiles by
+    16-byte copies or TMA and raise on a base that is not 16-byte
+    aligned).  Two launches (dQ and D = rowsum(dO·O), then dK / dV), and a
+    third that sums the dK / dV launch's partial sums in a fixed order
+    where ``head_split`` (default ``bwd_head_split``'s for the body; a
     divisor of H / K) splits its heads, counted as one call; no atomics,
     so two runs give the same bits."""
+    takes = bwd_bodies_for(q, k, v, scale)
+    body = takes[0] if body is None else body
+    if body not in takes:
+        raise ValueError(f"backward body {body!r} does not take these inputs "
+                         f"({q.dtype}, head dim {q.shape[3]}: {takes})")
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
                          f"{q.device}")
-    body = select_bwd_body(q, k, v, scale)
     B, S, H, dh = q.shape
     K = k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
@@ -300,10 +353,15 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # D = rowsum(dO·O), written by the dQ launch for the dK/dV launch; the
+    # sm90 body's holds lse·log2(e) too, rows padded to 128 for its bulk
+    # copies
+    delta = torch.empty((2, B, H, -(-S // 128) * 128) if body == "sm90"
+                        else (B, H, S), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else dh ** -0.5
     if head_split is None:
-        head_split = bwd_head_split(B, S, H, K, dh, multiprocessors(q.device))
+        head_split = bwd_head_split(B, S, H, K, dh, multiprocessors(q.device),
+                                    body)
     if head_split < 1 or (H // K) % head_split or (dh <= 80
                                                     and head_split > 1):
         raise ValueError(f"head_split {head_split} does not divide the "
@@ -312,7 +370,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     partial = (torch.empty((2, head_split, B, S, K, dh), dtype=torch.float32,
                            device=q.device) if head_split > 1 else None)
     with torch.cuda.device(q.device):
-        err = _bwd_entry()(
+        err = _bwd_entry(body)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, H, K, int(causal), window,

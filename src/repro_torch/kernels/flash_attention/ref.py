@@ -10,9 +10,10 @@ Mask semantics shared by every attention variant:
 
 GQA is native: q has H heads, k/v have K heads, H = K * G.
 
-The fp32 kernels' arithmetic has plain models here too
+The kernels' arithmetic has plain models here too
 (``mha_fwd_by_products`` with ``tf32x3_trunc`` for the forward's
-mma_tf32x3 body, ``mha_grads_by_products`` with ``tf32x3`` for the
+mma_tf32x3 body, ``mha_grads_by_products`` with ``tf32x3`` for the fp32
+backward, with ``bf16_operands`` and ``bf16_hilo`` for the bf16 sm90
 backward): the
 tests hold their precision design against JAX; nothing on the CPU path
 calls them.
@@ -131,6 +132,21 @@ def tf32x3_trunc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return split_product(a, b, truncate_tf32)
 
 
+def bf16_operands(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with each operand rounded to bf16 once and the products
+    summed in fp32: the bf16 backward's sm90 body forms dV = Pᵀ dO so, P
+    going to wgmma as a bf16 register operand (q, k, v and dO are bf16
+    already)."""
+    return a.bfloat16().float() @ b.bfloat16().float()
+
+
+def bf16_hilo(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with each operand as bf16 hi + lo (``split_product``): the
+    sm90 body's dK = dSᵀ Q and dQ = dS K (dS in two wgmma chains), and its
+    dV above 8 query heads a KV head; about 16 bits of the fp32 operand."""
+    return split_product(a, b, lambda t: t.bfloat16().float())
+
+
 def mha_fwd_by_products(q, k, v, *, causal: bool = True, window: int = 0,
                         chunk: int = 0, scale: float | None = None,
                         matmul=torch.matmul, block: int = 64):
@@ -174,13 +190,15 @@ def mha_fwd_by_products(q, k, v, *, causal: bool = True, window: int = 0,
 
 def mha_grads_by_products(q, k, v, do, *, causal: bool = True,
                           window: int = 0, chunk: int = 0,
-                          scale: float | None = None, matmul=torch.matmul):
+                          scale: float | None = None, matmul=torch.matmul,
+                          ds_matmul=None):
     """(dq, dk, dv) of ``mha_ref`` in fp32, formed as the backward kernel
     forms them: the forward's row log-sum-exp and output exact, P
     recomputed from the log-sum-exp, D = rowsum(dO·O), and the five
     products S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dQ = scale·dS K and
     dK = scale·dSᵀ Q each through ``matmul`` (``tf32x3``: the kernel's fp32
-    body).  q, do (B,S,H,dh); k, v (B,S,K,dh); self-attention."""
+    body), dQ and dK through ``ds_matmul`` where it is given.  q, do
+    (B,S,H,dh); k, v (B,S,K,dh); self-attention."""
     B, S, H, dh = q.shape
     K = k.shape[2]
     G = H // K
@@ -202,8 +220,9 @@ def mha_grads_by_products(q, k, v, do, *, causal: bool = True,
     p = torch.exp(matmul(qh, kh.transpose(-1, -2)) * scale - lse)
     p = p.masked_fill(~mask, 0.0)
     ds = p * (matmul(doh, vh.transpose(-1, -2)) - delta)
+    ds_matmul = matmul if ds_matmul is None else ds_matmul
     dv = matmul(p.transpose(-1, -2), doh).sum(2)      # (B,K,S,dh)
-    dk = matmul(ds.transpose(-1, -2), qh).sum(2) * scale
-    dq = matmul(ds, kh) * scale                       # (B,K,G,S,dh)
+    dk = ds_matmul(ds.transpose(-1, -2), qh).sum(2) * scale
+    dq = ds_matmul(ds, kh) * scale                    # (B,K,G,S,dh)
     return (dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh),
             dk.transpose(1, 2), dv.transpose(1, 2))

@@ -8,7 +8,8 @@ versions on the same inputs (RMSNorm and flash attention: autograd of the
 forward in fp32; the scans: ``ssd_chunked_bwd`` and ``rglru_bwd``), and the
 training step on the card against the same step on the CPU, for the dense
 LM and the SSD and RG-LRU families.  Each body of a kernel is held on its own
-(flash attention's sm90, mma, mma_tf32x3 and fp32 bodies, rmsnorm's one-read
+(flash attention's sm90, mma, mma_tf32x3 and fp32 bodies and its
+backward's sm90, mma_bf16 and mma_tf32x3 bodies, rmsnorm's one-read
 and generic bodies and its backward's warp_rows, cta_rows and generic
 bodies, the SSD scan's mma, mma_tf32x3 and fma bodies both ways, the RG-LRU
 scan's segmented and serial bodies), and the launch counts by body show
@@ -32,7 +33,8 @@ from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import (attention_mask, lse_ref,
-                                                    mha_ref)
+                                                    mha_grads_by_products,
+                                                    mha_ref, tf32x3)
 from repro_torch.kernels.rglru import kernel as lru
 from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda, rglru_cuda
 from repro_torch.kernels.rglru.ref import (rglru_assoc, rglru_bwd,
@@ -851,6 +853,10 @@ FLASH_BWD_CASES = [
     (2, 190, 8, 2, 160, dict(causal=True, window=70)),
     (1, 129, 8, 1, 120, dict(causal=True, chunk=40)),
     (1, 200, 8, 2, 256, dict(causal=True, chunk=64)),
+    # bf16 at dh 128 on the sm90 body: qwen2-vl-2b's group of 6, MHA, no
+    # mask, a ragged S past two 128-key tiles
+    (1, 300, 12, 2, 128, dict(causal=True)),
+    (2, 257, 4, 4, 128, dict(causal=False)),
 ]
 
 
@@ -894,7 +900,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     with torch.no_grad():
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     assert _within(lse, lse_ref(q, k, **kw), t)
-    body = "mma_tf32x3" if dtype == torch.float32 else "mma_bf16"
+    body = flash.select_bwd_body(q, k, v)
+    assert body == ("mma_tf32x3" if dtype == torch.float32 else "sm90"
+                    if dh in flash.SM90_BWD_HEAD_DIMS else "mma_bf16")
     before = flash_attention_bwd_cuda.launches_by_body[body]
     ops.flash_attention(*leaves(), **kw).backward(do)
     assert flash_attention_bwd_cuda.launches_by_body[body] == before + 1
@@ -944,33 +952,61 @@ def test_flash_bwd_head_splits_agree(cuda, dtype, B, S, H, K, dh, kw):
     (1, 130, 4, 4, 160, dict(causal=False), 1),
     (1, 190, 8, 2, 128, dict(causal=True, chunk=48), 1),
     (1, 150, 8, 2, 120, dict(causal=True), 4)])
-def test_flash_bwd_pair_body_matches_sliced_bits(cuda, B, S, H, K, dh, kw,
-                                                 split):
-    """The fp32 pair kernels (above dh 80) form every element of S and dP
-    once, in the order the sliced body forms it in each of its column
-    slices, and sum every gradient element in that body's order: the same
-    bits as ``flash_attention_bwd_sliced`` at the same head split, both
-    within the fp32 tolerance of autograd of ``mha_ref``."""
+def test_flash_bwd_pair_body_matches_split_products(cuda, B, S, H, K, dh, kw,
+                                                    split):
+    """The fp32 pair kernels (above dh 80), at a head split, against the
+    plain model of their products (``mha_grads_by_products`` with
+    ``tf32x3``: every operand split into TF32 hi + lo, three products a
+    step) and against autograd of ``mha_ref``, both within the fp32
+    tolerance."""
     q, k, v, do, _, _ = _flash_bwd_inputs(cuda, B, S, H, K, dh, torch.float32)
     with torch.no_grad():
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     got = flash_attention_bwd_cuda(q, k, v, out, do, lse, head_split=split,
                                    **kw)
-    prev = [torch.empty_like(t) for t in (q, k, v)]
-    delta = torch.empty(B, H, S, device=cuda)
-    partial = torch.empty((2, split, B, S, K, dh), device=cuda)
-    err = flash._bwd_entry("flash_attention_bwd_sliced")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        *(t.data_ptr() for t in prev), B, S, H, K, int(kw["causal"]),
-        kw.get("window", 0), kw.get("chunk", 0), dh ** -0.5, dh, 0, split,
-        partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    assert err == 0
+    model = mha_grads_by_products(q, k, v, do, **kw, matmul=tf32x3)
     qf, kf, vf = (a.clone().requires_grad_() for a in (q, k, v))
     mha_ref(qf, kf, vf, **kw).backward(do)
-    for g, pg, w in zip(got, prev, (qf.grad, kf.grad, vf.grad)):
-        assert _within(g, w, 2e-5) and _within(pg, w, 2e-5)
-        assert torch.equal(g, pg)
+    for g, m, w in zip(got, model, (qf.grad, kf.grad, vf.grad)):
+        assert _within(g, w, 2e-5) and _within(g, m, 2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (1, 300, 12, 2, 128, dict(causal=True)),        # qwen2-vl-2b's group
+    (2, 200, 12, 4, 120, dict(causal=True, window=70)),
+    (1, 257, 6, 1, 128, dict(causal=True, chunk=96)),
+    (2, 190, 6, 2, 120, dict(causal=False))])
+def test_flash_bwd_sm90_head_splits_agree(cuda, B, S, H, K, dh, kw):
+    """The sm90 body's dK/dV launch at every head split its group allows
+    (any divisor: 3 and 6 too), on TMA-aligned bf16 inputs: each within
+    2e-2 (1 + |x|) of autograd of ``mha_ref`` in fp32, dq the same bits at
+    every split, two calls the same bits; the pair kernels forced beside
+    it hold the same tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(B, S, n, dh, generator=g,
+                               device=cuda).bfloat16() for n in (H, K, K, H))
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
+    mha_ref(qf, kf, vf, **kw).backward(do.float())
+    want = (qf.grad, kf.grad, vf.grad)
+    before = flash_attention_bwd_cuda.launches_by_body["sm90"]
+    splits = [d for d in range(1, H // K + 1) if (H // K) % d == 0]
+    runs = {}
+    for split in splits:
+        got = flash_attention_bwd_cuda(q, k, v, out, do, lse, head_split=split,
+                                       **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                         head_split=split, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(_within(a, w, 2e-2) for a, w in zip(got, want))
+        runs[split] = got
+    assert flash_attention_bwd_cuda.launches_by_body["sm90"] == \
+        before + 2 * len(splits)
+    assert all(torch.equal(r[0], runs[1][0]) for r in runs.values())
+    pair = flash_attention_bwd_cuda(q, k, v, out, do, lse, body="mma_bf16",
+                                    **kw)
+    assert all(_within(a, w, 2e-2) for a, w in zip(pair, want))
 
 
 def test_raw_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
@@ -1014,20 +1050,22 @@ def test_flash_sm90_lse_matches_plain(cuda, B, S, H, K, dh, kw):
 ])
 def test_flash_sm90_training_matches_plain(cuda, B, S, H, K, dh, kw):
     """bf16 training at dh 80, 128 and 256 on TMA-aligned inputs: the sm90
-    forward (its log-sum-exp) and the mma_bf16 backward (the pair kernels
-    above dh 80) through ``ops.flash_attention``; dq, dk, dv against
-    autograd of mha_ref in fp32 on the same bf16 inputs, within 2e-2 (1 +
-    |x|)."""
+    forward (its log-sum-exp) and the backward (sm90 at dh 128, mma_bf16's
+    pair kernels at 256, its 4-warp kernels at 80) through
+    ``ops.flash_attention``; dq, dk, dv against autograd of mha_ref in fp32
+    on the same bf16 inputs, within 2e-2 (1 + |x|)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = (torch.randn(B, S, n, dh, generator=g,
                                device=cuda).bfloat16() for n in (H, K, K, H))
     assert flash.select_body(q, k, v) == "sm90"
+    body = "sm90" if dh in flash.SM90_BWD_HEAD_DIMS else "mma_bf16"
+    assert flash.select_bwd_body(q, k, v) == body
     fwd = flash_attention_cuda.launches_by_body["sm90"]
-    bwd = flash_attention_bwd_cuda.launches_by_body["mma_bf16"]
+    bwd = flash_attention_bwd_cuda.launches_by_body[body]
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
     ops.flash_attention(*leaves, **kw).backward(do)
     assert flash_attention_cuda.launches_by_body["sm90"] == fwd + 1
-    assert flash_attention_bwd_cuda.launches_by_body["mma_bf16"] == bwd + 1
+    assert flash_attention_bwd_cuda.launches_by_body[body] == bwd + 1
     qf, kf, vf = (a.float().requires_grad_() for a in (q, k, v))
     mha_ref(qf, kf, vf, **kw).backward(do.float())
     for got, want in zip(leaves, (qf, kf, vf)):

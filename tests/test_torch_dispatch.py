@@ -619,11 +619,15 @@ def test_scan_wrappers_name_the_roadmap_item():
                                        (BF16, "mma_bf16")])
 def test_flash_bwd_body_by_dtype(dh, dtype, want):
     """Every head dim of the registry, both dtypes; bf16 at the sm90 head
-    dims as views whose strides TMA cannot read, which the forward sends to its
-    mma body (aligned ones take sm90, below)."""
+    dims as views whose strides TMA cannot read, which the forward sends to
+    its mma body (aligned ones take sm90, below).  The backward's choice
+    does not look at strides (its wrapper makes every operand contiguous):
+    bf16 at dh 120 and 128 takes its sm90 body from any view."""
     args = (fused(4, 2, dh, extra=1) if dtype == BF16
             and dh in flash.SM90_HEAD_DIMS else qkv(dh=dh, dtype=dtype))
     assert flash_body(*args) in ("mma", "mma_tf32x3", "fp32")
+    if dtype == BF16 and dh in flash.SM90_BWD_HEAD_DIMS:
+        want = "sm90"
     assert flash.select_bwd_body(*args) == want
 
 
@@ -647,14 +651,36 @@ def test_flash_bwd_head_split_fills_the_card(B, S, H, K, dh, sms, want):
     assert split == want and (H // K) % split == 0
 
 
+@pytest.mark.parametrize("B,S,H,K,dh,sms,want", [
+    (4, 1024, 12, 2, 128, 132, 2),   # qwen2-vl-2b's step: 128 CTAs -> 256
+    (4, 512, 32, 8, 120, 132, 1),    # h2o-danube-3-4b's heads: 256 CTAs
+    (1, 300, 12, 2, 128, 132, 6),    # 5 x 2 x 1: the whole group of 6
+    (2, 512, 12, 2, 128, 132, 6),    # 8 x 2 x 2 = 32 CTAs: 6 give 192
+    (4, 1024, 12, 2, 128, 16, 1),    # a card of 16 SMs: 128 CTAs fill it
+    (1, 512, 28, 4, 128, 132, 7),    # qwen2-7b's group of 7: 7 or nothing
+])
+def test_flash_bwd_sm90_head_split_takes_any_divisor(B, S, H, K, dh, sms,
+                                                     want):
+    """The sm90 body's dK/dV launch (64 keys a CTA) splits a KV head's
+    query heads by the smallest divisor of the group, any divisor, that
+    reaches ``SM90_BWD_FILL`` CTAs an SM, else by the whole group; the pair
+    kernels keep their doubling rule (above)."""
+    split = flash.bwd_head_split(B, S, H, K, dh, sms, "sm90")
+    assert split == want and (H // K) % split == 0
+    ctas = -(-S // flash.SM90_BWD_KV_TILE) * K * B
+    assert ctas * split >= flash.SM90_BWD_FILL * sms or split == H // K
+    assert all(ctas * d < flash.SM90_BWD_FILL * sms
+               for d in range(1, split) if (H // K) % d == 0)
+
+
 def test_flash_bwd_kv_slices_are_the_kernels():
     """The dK/dV launch's slices as csrc/flash_attention.cu cuts them:
-    of the keys only (BwdCfg up to dh 80, BwdPairCfg::kKvRows above), every
-    CTA accumulating every column of dK and dV, so that each full-width
-    product is formed once a pair of tiles (7, where the sliced body cut
-    the columns too and formed 9 at 120 / 128, 11 at 160 and 15 at 256)."""
+    of the keys only (BwdCfg up to dh 80, BwdPairCfg::kKvRows above, 64
+    in the sm90 body), every CTA accumulating every column of dK and dV, so
+    that each full-width product is formed once a pair of tiles (7)."""
     assert set(flash.BWD_KV_TILE) == set(flash.HEAD_DIMS)
     assert all(t in (32, 64) for t in flash.BWD_KV_TILE.values())
+    assert flash.SM90_BWD_KV_TILE == 64
 
 
 @pytest.mark.parametrize("dh,want", [(16, 64), (32, 64), (64, 64), (80, 64),
@@ -678,15 +704,82 @@ def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
     assert -(-S // flash.BWD_KV_TILE[dh]) * K * split * B == want_ctas
 
 
-@pytest.mark.parametrize("dh", flash.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("dh", [80, 256])
 def test_flash_bwd_takes_the_sm90_forward_to_mma_bf16(dh):
-    """bf16 at dh 80, 120, 128 and 256, aligned: the forward takes the sm90
-    body, which writes the log-sum-exp, and the backward mma_bf16 (the
-    pair kernels above dh 80): the body of bf16 training at these head
-    dims."""
+    """bf16 at dh 80 and 256, aligned: the forward takes the sm90 body,
+    which writes the log-sum-exp, and the backward mma_bf16 (the pair
+    kernels at 256): the body of bf16 training at these head dims."""
     q, k, v = qkv(dh=dh)
     assert flash.select_body(q, k, v) == "sm90"
     assert flash.select_bwd_body(q, k, v) == "mma_bf16"
+
+
+@pytest.mark.parametrize("dh", [120, 128])
+def test_flash_bwd_takes_the_sm90_forward_to_sm90(dh):
+    """bf16 at dh 120 and 128, aligned (qwen2-vl-2b's bf16 train step,
+    h2o-danube-3-4b's heads): both ways on sm90, the backward's wgmma and
+    TMA body, with the pair kernels still forcible as its previous body."""
+    q, k, v = qkv(dh=dh)
+    assert flash.select_body(q, k, v) == "sm90"
+    assert flash.select_bwd_body(q, k, v) == "sm90"
+    assert flash.bwd_bodies_for(q, k, v) == ("sm90", "mma_bf16")
+
+
+@pytest.mark.parametrize("dh", flash.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("scale", [None, 0.1, 0.0, -0.1])
+def test_flash_bwd_sm90_only_bf16_at_120_128_scale_above_0(dh, dtype, scale):
+    """sm90 takes bf16 at dh 120 and 128 with a scale > 0 (its softmax
+    exponent folds the scale, as the sm90 forward's does); bf16 at every
+    other head dim or scale keeps mma_bf16, float32 mma_tf32x3."""
+    takes = flash.bwd_bodies_for(*qkv(dh=dh, dtype=dtype), scale)
+    if dtype == F32:
+        assert takes == ("mma_tf32x3",)
+    elif dh in (120, 128) and (scale is None or scale > 0):
+        assert takes == ("sm90", "mma_bf16")
+    else:
+        assert takes == ("mma_bf16",)
+
+
+@pytest.mark.parametrize("dh,dtype,body,scale", [
+    (128, F32, "sm90", None),
+    (128, F32, "mma_bf16", None),
+    (80, BF16, "sm90", None),
+    (256, BF16, "sm90", None),
+    (128, BF16, "mma_tf32x3", None),
+    (128, BF16, "sm90", -0.1),
+    (120, BF16, "sliced", None),
+])
+def test_flash_bwd_forcing_a_body_that_does_not_take_raises(dh, dtype, body,
+                                                            scale):
+    """``body=`` names one of ``bwd_bodies_for`` the inputs, or the
+    wrapper raises before it looks at the device."""
+    q, k, v = qkv(dh=dh, dtype=dtype)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    with pytest.raises(ValueError, match="does not take"):
+        flash.flash_attention_bwd_cuda(q, k, v, q, q, lse, scale=scale,
+                                       body=body)
+
+
+@pytest.mark.parametrize("body", ["sm90", "mma_bf16", None])
+def test_flash_bwd_forced_bodies_reach_the_device_check(body):
+    """bf16 at dh 128 takes either bf16 body when forced (the pair kernels
+    stay reachable as the previous body); without a card the device check
+    then speaks."""
+    q, k, v = qkv(dh=128)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash.flash_attention_bwd_cuda(q, k, v, q, q, lse, body=body)
+
+
+def test_flash_bwd_counts_by_body_start_at_zero():
+    """``reset_counts`` zeroes the backward's count of every body, sm90's
+    among them, in ``BWD_BODIES``' order."""
+    flash.reset_counts()
+    assert flash.BWD_BODIES == ("mma_tf32x3", "mma_bf16", "sm90")
+    assert flash.flash_attention_bwd_cuda.launches == 0
+    assert flash.flash_attention_bwd_cuda.launches_by_body == {
+        "mma_tf32x3": 0, "mma_bf16": 0, "sm90": 0}
 
 
 @pytest.mark.parametrize("dh", [48, 96, 192, 512])

@@ -33,8 +33,10 @@ from repro.kernels.ssd.ref import ssd_chunked as jax_ssd_chunked
 from repro.kernels.ssd.ref import ssd_decode_step as jax_ssd_decode_step
 from repro.kernels.ssd.ref import ssd_sequential as jax_ssd_sequential
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (SM90_BWD_SPLIT_GROUP,
+                                                       flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                     bf16_hilo, bf16_operands,
                                                      mha_fwd_by_products,
                                                      mha_grads_by_products,
                                                      mha_ref, split_product,
@@ -335,6 +337,43 @@ def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
         print(f"\nflash backward split products at {(B, S, H, K, dh, kw)}, "
               f"share of the 2e-5 tolerance: {share}")
     assert share["tf32x3"] <= 0.5 < share["bf16x3"]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (1, 1024, 12, 2, 128, dict(causal=True)),          # qwen2-vl-2b's heads
+    (1, 256, 32, 8, 120, dict(causal=True)),           # h2o-danube-3-4b's
+    (1, 300, 12, 2, 128, dict(causal=True, window=100)),
+    (1, 300, 16, 4, 120, dict(causal=True, chunk=96)),
+    (1, 300, 16, 1, 120, dict(causal=True)),           # MQA: hi + lo
+])
+def test_flash_bwd_sm90_bf16_products_hold_bf16_tolerance(B, S, H, K, dh,
+                                                          kw, capsys):
+    """The bf16 sm90 backward body's precision design, in plain torch: the
+    five products with fp32 sums (q, k, v and dO bf16 already), P rounded
+    to bf16 once for dV = Pᵀ dO (one wgmma chain, as SDPA's backward rounds
+    it) and dS as bf16 hi + lo for dK and dQ (two chains), against jax.grad
+    of the JAX reference in fp32 on the same bf16-valued inputs at 2e-2 (1
+    + |x|).  Above ``SM90_BWD_SPLIT_GROUP`` query heads a KV head (MQA's 16
+    here) the body forms P as hi + lo too, and the model with it."""
+    rng = np.random.default_rng(7)
+
+    def bf16_valued(shape):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return x.bfloat16().float().numpy()
+
+    q, do = bf16_valued((B, S, H, dh)), bf16_valued((B, S, H, dh))
+    k, v = bf16_valued((B, S, K, dh)), bf16_valued((B, S, K, dh))
+    want = jax.grad(lambda q, k, v: jnp.sum(jax_mha_ref(q, k, v, **kw) * do),
+                    argnums=(0, 1, 2))(q, k, v)
+    matmul = bf16_operands if H // K <= SM90_BWD_SPLIT_GROUP else bf16_hilo
+    got = mha_grads_by_products(*(torch.from_numpy(a) for a in (q, k, v, do)),
+                                **kw, matmul=matmul, ds_matmul=bf16_hilo)
+    share = max(_share(g, w, 2e-2) for g, w in zip(got, want))
+    with capsys.disabled():
+        print(f"\nflash sm90 backward's bf16 products at {(B, S, H, K, dh, kw)}"
+              f", share of the 2e-2 tolerance: {share:.3f}")
+    for g, w in zip(got, want):
+        assert_allclose(g.numpy(), np.asarray(w), rtol=2e-2, atol=2e-2)
 
 
 def _share(got, want, t):
