@@ -201,6 +201,28 @@ Phases, each printed as one JSON line:
    dry-run's prefill_32k, its batch of 32 cut to 1): logits finite, 48
    flash forwards on the sm90 body at dh 80 with no causal mask and 97
    RMSNorm forwards; ms an encode, peak memory, its bound.
+12. (run after 10, before 11) ``train_qwen2vl_remat``: qwen2-vl-2b as
+   in 10, 3 steps under each of the four remat policies
+   (``parallel.POLICIES``) from the same weights and batches: the first
+   batch's gradients the ``none`` call's bits (or
+   within ``TRAIN_CHECK_LIMITS[bfloat16]``), the peak memory of that call
+   and of a whole step, step ms, the launches a step by body (flash
+   forwards L or 2L, RMSNorm forwards 2L + 1 or 4L + 1: the backward
+   reruns each superblock's kernels under every policy but ``none``).
+13. (then) ``train_stablelm3b_bf16``: stablelm-3b at full width and
+   depth (32 layers, 2.80 B parameters, dh 80), ``TrainConfig()``'s (bf16,
+   ``dots_no_batch``), batch 4 x 1024, 10 steps: losses finite, the first
+   batch's loss falling; 64 sm90 flash forwards at dh 80, 32 mma_bf16
+   backwards, 129 RMSNorm forwards and 65 cta_rows backwards a step.  Step
+   ms, peak memory beside 16 B and 28 B a parameter, the
+   loss-and-gradient call's peak, one more step profiled.
+
+Every train phase before 12 runs ``remat_policy="none"``, as it did before
+the port had remat, so its counts, step times and peaks stay comparable;
+``train_check`` adds stablelm-3b at full width cut to 2 layers in bf16
+under ``dots_no_batch``, and ``kernels`` holds rmsnorm at rows of 2560 both
+ways, the sm90 forward with its lse and the mma_bf16 backward at
+stablelm-3b's train shape (q, k, v (4, 1024, 32, 80)).
 
 This slice also adds, to ``kernels``, the sm90 body's log-sum-exp
 (``sm90_lse_kernels``: at the prefill shapes of qwen2-7b,
@@ -233,11 +255,13 @@ leaf within 5e-2 in relative L2 norm).
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve (the two MoE configs and qwen2-vl-2b
 too), train-100m, train-mamba2, train-rgemma-3l, train-qwen2vl-bf16,
-encode-hubert), the card's name and power limit as
-``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.  Any failed check
-exits non-zero; so does a machine without a card.
+train-qwen2vl-remat, train-stablelm3b-bf16, encode-hubert), the card's
+name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
+"device": {...}}`` last.  Any failed check exits non-zero; so does a
+machine without a card.
 """
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -246,6 +270,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1707,8 +1732,9 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     del got, again, want, leaves, plain_out, lib_out, library
 
     # the bf16 backward at dh 80 (mma_bf16: BwdCfg's 4-warp kernels) at
-    # stablelm-3b's heads, beside SDPA's bf16 backward and the plain one
-    B, S, H, K, dh = 4, 512, 32, 32, 80
+    # stablelm-3b's train step, beside SDPA's bf16 backward and the plain
+    # one (at S 512 until PR 26)
+    B, S, H, K, dh = STABLELM_TRAIN_ATTN
     q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
                                device=dev).to(bf16) for n in (H, K, K, H))
     with torch.no_grad():
@@ -1728,9 +1754,14 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
     errs = [compare(g, w, bf16) for g, w in zip(kernel(), want)]
     mark = len(PROFILER_WINDOWS)
-    entry["stablelm-3b"] = dict(
+    summary["flash_attention_bwd_bf16_dh80"] = dh80 = dict(
+        name="flash_attention_bwd_bf16_dh80", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
+                 "gradient: JAX differentiates the jnp reference)",
+        counted_as=("flash_attention_bwd", "mma_bf16"),
         shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal "
-              "(stablelm-3b's heads)", body=flash.select_bwd_body(q, k, v),
+              "(the stablelm-3b step)", body=flash.select_bwd_body(q, k, v),
         ms=device_ms(kernel), event_ms=time_ms(kernel),
         kernel_ms=kernel_breakdown(kernel),
         plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
@@ -1740,11 +1771,12 @@ def sm90_lse_kernels(dev, gen, cases, summary):
         library_max_abs_err=max(compare(g, w, bf16)[0]
                                 for g, w in zip(library(), want)),
         profiler_windows=window_counts(mark))
-    check(all(ok for _, ok in errs), f"flash bf16 backward at dh 80: "
-          f"errors {[e for e, _ in errs]}")
+    check(all(ok for _, ok in errs) and dh80["body"] == "mma_bf16",
+          f"flash bf16 backward at dh 80: body {dh80['body']}, errors "
+          f"{[e for e, _ in errs]}")
     del want, fl, leaves, plain_out, lib_out, library
     emit("kernels", kernel="flash_attention_bwd_bf16", timings={
-        entry["shape"]: entry})
+        entry["shape"]: entry, dh80["shape"]: dh80})
 
 
 # hubert-xlarge's encode (prefill_32k on one card): one layer's attention,
@@ -1780,6 +1812,11 @@ SM90_NARROW_SHAPES = {
 }
 
 
+# stablelm-3b's attention in its train step (batch 4 x 1024, MHA 32 / 32
+# at head dim 80)
+STABLELM_TRAIN_ATTN = (4, 1024, 32, 32, 80)
+
+
 def modality_kernels(dev, gen, cases, summary):
     """The kernels of this slice's paths at their own shapes: rmsnorm's
     one-read body at hubert-xlarge's D 1280 (bf16 and fp32) and the
@@ -1799,7 +1836,8 @@ def modality_kernels(dev, gen, cases, summary):
     beside the mma body, SDPA, the plain version and the bound
     (``summary["flash_attention"]["by_arch"]``)."""
     from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         lse_ref, mha_ref)
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
@@ -1817,7 +1855,17 @@ def modality_kernels(dev, gen, cases, summary):
                           rows=rows, D=1280, arch="hubert-xlarge",
                           max_abs_err=err, tol=TOL[dtype],
                           ok=ok and body == "one_read"))
+    # stablelm-3b's train step: rows of 2560 both ways (one_read forward)
+    x, s = randn(4096, 2560, dtype=bf16), randn(2560, dtype=bf16)
+    body = rms.select_body(x, s)[0]
+    err, ok = compare(rms.rmsnorm_cuda(x, s, eps=1e-6),
+                      rmsnorm_ref(x, s, eps=1e-6), bf16)
+    cases.append(dict(kernel="rmsnorm", body=body, dtype=str(bf16),
+                      rows=4096, D=2560, arch="stablelm-3b",
+                      max_abs_err=err, tol=TOL[bf16],
+                      ok=ok and body == "one_read"))
     for dtype, rows, D, arch in ((bf16, 4096, 1536, "qwen2-vl-2b"),
+                                 (bf16, 4096, 2560, "stablelm-3b"),
                                  (f32, 512, 1280, "hubert-xlarge")):
         x, dy = (randn(rows, D, dtype=dtype) for _ in range(2))
         s = randn(D, dtype=dtype)
@@ -1943,6 +1991,39 @@ def modality_kernels(dev, gen, cases, summary):
     summary["flash_attention"]["by_arch"].update(timings)
     summary["flash_attention"]["narrow_profiler_windows"] = window_counts(mark)
     emit("kernels", kernel="flash_attention", timings=timings)
+
+    # stablelm-3b's training forward: sm90 at dh 80, causal, with the
+    # log-sum-exp its backward reads (from this slice on most of the dh-80
+    # row's launches), against mha_ref and lse_ref, beside SDPA's bf16 call
+    B, S, H, K, dh = STABLELM_TRAIN_ATTN
+    q, k, v = (randn(B, S, n, dh, dtype=bf16) for n in (H, K, K))
+    pos = torch.arange(S, device=dev)
+    pairs = int(attention_mask(pos, pos, causal=True).sum())
+    kernel = lambda: flash.flash_attention_cuda(  # noqa: E731
+        q, k, v, return_lse=True)
+    out, lse = kernel()
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes,
+                        4 * B * H * dh * pairs, bf16)
+    err, ok = compare(out, mha_ref(q, k, v), bf16)
+    lse_err, lse_ok = compare(lse, lse_ref(q, k), bf16, LSE_TOL)
+    mark = len(PROFILER_WINDOWS)
+    train = summary["flash_attention_bidir"]["stablelm-3b_train"] = dict(
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
+              "with lse (the stablelm-3b step)",
+        body=flash.select_body(q, k, v), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), plain_ms=device_ms(lambda: mha_ref(q, k, v)),
+        library="F.scaled_dot_product_attention bf16",
+        library_ms=device_ms(library), library_event_ms=time_ms(library),
+        bound_ms=t_bound, bound_by=by, max_abs_err=err, lse_err=lse_err,
+        profiler_windows=window_counts(mark))
+    check(ok and lse_ok and train["body"] == "sm90",
+          f"flash sm90 forward at {train['shape']}: body {train['body']}, "
+          f"error {err}, lse error {lse_err}")
+    emit("kernels", kernel="flash_attention_bidir", timings={
+        train["shape"]: train})
 
 
 # recurrentgemma-9b's train step and stablelm-12b's heads at the same batch:
@@ -2834,22 +2915,34 @@ def train_checks(dev, seed):
             ("moonshot-v1-16b-a3b", 2, MOONSHOT_CHECK_WIDTH)):
         cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                                   **narrowed)
-        phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
-                          2, 256, arch=arch, narrowed=narrowed)
+        phase_train_check(dev, seed, cfg, TrainConfig(
+            dtype=torch.float32, remat_policy="none"), 2, 256, arch=arch,
+            narrowed=narrowed)
     for arch in ("qwen2-vl-2b", "hubert-xlarge"):
         cfg = dataclasses.replace(get_config(arch), num_layers=2)
         dh = cfg.resolved_head_dim
-        phase_train_check(dev, seed, cfg, TrainConfig(dtype=torch.float32),
+        phase_train_check(dev, seed, cfg, TrainConfig(
+                              dtype=torch.float32, remat_policy="none"),
                           2, 256, want_flash=dict(
                               forward={"mma_tf32x3": {dh: 2}},
                               backward={"mma_tf32x3": 2}),
                           arch=arch, causal=cfg.causal)
         if arch == "qwen2-vl-2b":
             phase_train_check(dev, seed, cfg,
-                              TrainConfig(dtype=torch.bfloat16), 2, 256,
+                              TrainConfig(dtype=torch.bfloat16,
+                                          remat_policy="none"), 2, 256,
                               want_flash=dict(forward={"sm90": {dh: 2}},
                                               backward={"sm90": 2}),
                               arch=arch)
+    # stablelm-3b at full width cut to 2 layers, under TrainConfig()'s
+    # defaults (bf16, dots_no_batch: each layer's attention runs again in
+    # the backward), against the CPU's step under the same policy
+    cfg = dataclasses.replace(get_config("stablelm-3b"), num_layers=2)
+    tc = TrainConfig()
+    phase_train_check(dev, seed, cfg, tc, 2, 256, want_flash=dict(
+        forward={"sm90": {cfg.resolved_head_dim: 4}},
+        backward={"mma_bf16": 2}), arch=cfg.name,
+        remat_policy=tc.remat_policy)
 
 
 def phase_train(dev, seed, steps: int = 300, ckpt_every: int = 40):
@@ -3146,7 +3239,8 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
 
     argv = ["--arch", "mamba2-130m", "--steps", str(steps), "--batch", "8",
             "--seq", "1024", "--ckpt-every", str(ckpt_every),
-            "--io-latency-ms", "1", "--workdir", workdir, "--device", str(dev)]
+            "--io-latency-ms", "1", "--remat", "none", "--workdir", workdir,
+            "--device", str(dev)]
     launcher.Trainer = Recorded
     try:
         gc.collect()
@@ -3265,7 +3359,8 @@ def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
     opt = init_opt_state(params)
-    step = make_train_step(cfg, TrainConfig(dtype=torch.float32))
+    step = make_train_step(cfg, TrainConfig(dtype=torch.float32,
+                                            remat_policy="none"))
     data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed))
     losses, step_ms = [], []
     _reset_launches()
@@ -3368,8 +3463,6 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
     step profiled by kernel family."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.models import init_params
     from repro_torch.optim import init_opt_state
     from repro_torch.train.steps import (TrainConfig, make_eval_step,
@@ -3381,7 +3474,7 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
     opt = init_opt_state(params)
-    tc = TrainConfig(dtype=torch.bfloat16)
+    tc = TrainConfig(dtype=torch.bfloat16, remat_policy="none")
     step, evaluate = make_train_step(cfg, tc), make_eval_step(cfg, tc)
     data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed))
     first = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
@@ -3397,13 +3490,7 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
-    launches = _count_launches()
-    by_body = {"rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
-               "flash_attention": dict(
-                   flash.flash_attention_cuda.launches_by_body),
-               "flash_attention_bwd": dict(
-                   flash.flash_attention_bwd_cuda.launches_by_body),
-               "flash_attention_by_head_dim": _flash_by_head_dim()}
+    launches, by_body = _count_launches(), _bf16_by_body()
     peak = torch.cuda.max_memory_allocated()
     eval_after = float(evaluate(params, first)["loss"])
     b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
@@ -3412,18 +3499,8 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
     n_img = int(b["vision_mask"][0].sum())
     del params, opt, b, first
     L = cfg.num_layers
-    want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
-            "flash_attention": (L * steps,) * 2,
-            "rglru": (0, 0), "ssd": (0, 0)}
-    want_by_body = {
-        "rmsnorm_bwd": {"warp_rows": 0, "cta_rows": (2 * L + 1) * steps,
-                        "generic": 0},
-        "flash_attention": {"sm90": L * steps, "mma": 0, "mma_tf32x3": 0,
-                            "fp32": 0},
-        "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": 0,
-                                "sm90": L * steps},
-        "flash_attention_by_head_dim": {"sm90": {
-            cfg.resolved_head_dim: L * steps}}}
+    want, want_by_body = _bf16_remat_launches(
+        L, cfg.resolved_head_dim, steps, tc.remat_policy, "sm90")
     emit("train_qwen2vl_bf16", arch=cfg.name, layers=L, reduced=None,
          d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=cfg.resolved_head_dim,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
@@ -3448,6 +3525,290 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
           f"expected {want}")
     check(by_body == want_by_body, f"train_qwen2vl_bf16: launches by body "
           f"{by_body}, expected {want_by_body}")
+    return launches, by_body
+
+
+def _bf16_by_body() -> dict:
+    """The launches by body of the bf16 train phases that remat: RMSNorm
+    and flash attention, each way, and the flash forward by head dim."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    return {"rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
+            "rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
+            "flash_attention": dict(
+                flash.flash_attention_cuda.launches_by_body),
+            "flash_attention_bwd": dict(
+                flash.flash_attention_bwd_cuda.launches_by_body),
+            "flash_attention_by_head_dim": _flash_by_head_dim()}
+
+
+def _bf16_remat_launches(L: int, dh: int, steps: int, policy: str,
+                         bwd_body: str) -> tuple:
+    """(launches, launches by body) of ``steps`` bf16 steps of an
+    attention-only stack of L layers at head dim ``dh``: the backward
+    reruns each superblock's forward under every policy but ``none``, and
+    with it its kernels (opaque to the policy: their autograd Functions
+    launch through ctypes), so the forwards double: flash L → 2L, RMSNorm
+    2L + 1 → 4L + 1 (the final norm outside the stack); the backwards stay
+    L and 2L + 1.  The forwards on sm90 and one_read, the RMSNorm
+    backwards on cta_rows (rows past 1024 elements)."""
+    again = 1 if policy == "none" else 2
+    fwd_flash, fwd_rms = again * L * steps, (again * 2 * L + 1) * steps
+    want = {"rmsnorm": (fwd_rms, (2 * L + 1) * steps),
+            "flash_attention": (fwd_flash, L * steps),
+            "rglru": (0, 0), "ssd": (0, 0)}
+    by_body = {
+        "rmsnorm": {"one_read": fwd_rms, "generic": 0},
+        "rmsnorm_bwd": {"warp_rows": 0, "cta_rows": (2 * L + 1) * steps,
+                        "generic": 0},
+        "flash_attention": {"sm90": fwd_flash, "mma": 0, "mma_tf32x3": 0,
+                            "fp32": 0},
+        "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": 0, "sm90": 0,
+                                bwd_body: L * steps},
+        "flash_attention_by_head_dim": {"sm90": {dh: fwd_flash}}}
+    return want, by_body
+
+
+def _summed(a, b):
+    """Two launch records (dicts of counts or tuples of counts) added."""
+    if isinstance(a, dict):
+        return {k: _summed(a[k], b[k]) if k in a and k in b else
+                a.get(k, b.get(k)) for k in {**a, **b}}
+    if isinstance(a, tuple):
+        return tuple(x + y for x, y in zip(a, b))
+    return a + b
+
+
+def phase_train_qwen2vl_remat(dev, seed, steps: int = 3, batch: int = 4,
+                              seq: int = 1024, lr: float = 3e-4):
+    """qwen2-vl-2b at full width and depth in bf16, as
+    ``train_qwen2vl_bf16`` (fp32 weights, gradients and moments, batch 4 x
+    1024 from ``SyntheticLM``), under each of the four remat policies
+    (``parallel.POLICIES``), each from the same weights (drawn on the card
+    from the seed) and the same batches.  For each policy: the first
+    batch's loss and gradients alone (``make_loss_and_grad``, beside fp32
+    moments as in a step) with that call's peak memory, every gradient leaf
+    held against the ``none`` call's, kept on the card and left out of the
+    peaks (the same bits, or the largest relative L2 printed and held
+    within ``TRAIN_CHECK_LIMITS[bfloat16]``);
+    then ``steps`` steps of ``make_train_step``: step ms, the whole step's
+    peak memory (AdamW's functional update holds the old and the new
+    weights and moments at its end: 28 B a parameter) beside
+    ``train_bounds``' 16 B a parameter, and the launches a step by body
+    (``_bf16_remat_launches``).  Launches are counted over the steps only;
+    returns their sum over the four policies."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel import POLICIES
+    from repro_torch.train.steps import (TrainConfig, make_loss_and_grad,
+                                         make_train_step)
+    cfg = get_config("qwen2-vl-2b")
+    L, dh = cfg.num_layers, cfg.resolved_head_dim
+    limits = TRAIN_CHECK_LIMITS[torch.bfloat16]
+    data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed))
+    host_batches = [next(data) for _ in range(steps)]
+    ref, kept, rows, total_launches, total_by_body = None, 0, {}, None, None
+    for policy in POLICIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_policy = time.monotonic()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, device=dev, dtype=torch.float32,
+                             generator=gen)
+        opt = init_opt_state(params)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
+                   for hb in host_batches]
+        tc = TrainConfig(dtype=torch.bfloat16, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        total, _, grads = make_loss_and_grad(cfg, tc)(params, batches[0])
+        torch.cuda.synchronize()
+        grad_ms = (time.perf_counter() - t0) * 1e3
+        # the peaks leave out the none call's gradients, kept on the card
+        # to hold the others against
+        grad_peak = torch.cuda.max_memory_allocated() - kept
+        leaves = _leaves(grads)
+        del grads
+        if ref is None:
+            ref = dict(loss=float(total), leaves=leaves)
+            kept = sum(t.nbytes for t in leaves)
+            held = dict(same_bits=True, grad_rel_l2=0.0)
+        else:
+            same = float(total) == ref["loss"] and all(
+                torch.equal(a, b) for a, b in zip(leaves, ref["leaves"]))
+            rel = 0.0 if same else max(
+                float((a.float() - b.float()).norm()
+                      / max(float(b.float().norm()), 1e-30))
+                for a, b in zip(leaves, ref["leaves"]))
+            held = dict(same_bits=same, grad_rel_l2=rel,
+                        loss_rel_err=abs(float(total) - ref["loss"])
+                        / abs(ref["loss"]))
+        del leaves
+        step = make_train_step(cfg, tc)
+        step_ms = []
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b, torch.tensor(lr))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, by_body = _count_launches(), _bf16_by_body()
+        peak = torch.cuda.max_memory_allocated() - kept
+        del params, opt, batches, m
+        want, want_by_body = _bf16_remat_launches(L, dh, steps, policy,
+                                                  "sm90")
+        rows[policy] = dict(
+            loss=float(total), **held, grad_call_ms=grad_ms,
+            grad_peak_mem_bytes=grad_peak, step_ms_all=step_ms,
+            step_ms_median=statistics.median(step_ms[1:]),
+            step_ms_min=min(step_ms), peak_mem_bytes=peak,
+            launches_per_step={k: dict(forward=f / steps, backward=b / steps)
+                               for k, (f, b) in launches.items() if f or b},
+            launches_by_body=by_body, launches_ok=launches == want,
+            launches_by_body_ok=by_body == want_by_body,
+            launches_by_body_expected=want_by_body,
+            seconds=time.monotonic() - t_policy)
+        total_launches = launches if total_launches is None else _summed(
+            total_launches, launches)
+        total_by_body = by_body if total_by_body is None else _summed(
+            total_by_body, by_body)
+        row = rows[policy]
+        check(math.isfinite(row["loss"]) and row["launches_ok"]
+              and row["launches_by_body_ok"]
+              and (row["same_bits"] or (row["grad_rel_l2"] < limits["grad"]
+                                        and row["loss_rel_err"]
+                                        < limits["loss"])),
+              f"train_qwen2vl_remat {policy}: {row}")
+    del ref
+    bounds = train_bounds(cfg, batch, seq, torch.bfloat16)
+    emit("train_qwen2vl_remat", arch=cfg.name, layers=L, reduced=None,
+         dtype="bfloat16", batch=batch, seq=seq, steps=steps, lr=lr,
+         params=cfg.param_count(), step_bound_ms=bounds["step_bound_ms"],
+         peak_mem_bound_bytes=bounds["peak_mem_bound_bytes"],
+         adamw_end_bytes=28 * cfg.param_count(), grad_limits=limits,
+         reference_grad_bytes_left_out=kept, policies=rows)
+    return total_launches, total_by_body
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """The caching allocator growing its segments in place inside the
+    block (every cached segment released at both ends), fixed segments,
+    the default, after it."""
+    def settings(value: str):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.cuda.memory._set_allocator_settings(
+                f"expandable_segments:{value}")
+    settings("True")
+    try:
+        yield
+    finally:
+        settings("False")
+
+
+def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
+                                seq: int = 1024, lr: float = 3e-4):
+    """stablelm-3b at full width and depth, nothing cut (32 layers, 2.80 B
+    parameters, MHA 32 / 32 at head dim 80, untied 50304-word vocabulary),
+    under ``TrainConfig()``'s defaults: bf16 and the reference's remat
+    policy ``dots_no_batch`` (each layer checkpointed, its products without
+    batch dims kept).  ``steps`` steps of ``make_train_step`` on
+    ``SyntheticLM`` batches, no checkpoint (one would hold 44.7 GB): every
+    loss finite, and the first batch's loss (``make_eval_step``) lower
+    after the steps than before them; a step launches 2L = 64 flash
+    forwards on the sm90 body at dh 80 (the backward reruns each layer's),
+    L = 32 flash backwards on mma_bf16, 4L + 1 = 129 RMSNorm forwards on
+    one_read and 2L + 1 = 65 backwards on cta_rows.  Step ms, peak memory
+    beside ``train_bounds`` (16 B a parameter: 44.74 GB) and AdamW's 28 B a
+    parameter at the end of its functional update (78.27 GB), the peak of
+    one loss-and-gradient call alone before the steps (where remat acts),
+    one more step profiled by kernel family.  The phase grows the
+    allocator's segments in place (``expandable_segments``) and puts the
+    default back after: with fixed segments, AdamW's end failed for want
+    of 2.11 GiB with 5.58 GiB reserved but unallocated (PERF.md, PR 27)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train.steps import (TrainConfig, make_eval_step,
+                                         make_loss_and_grad, make_train_step)
+    cfg, tc = get_config("stablelm-3b"), TrainConfig()
+    with _expandable_segments():
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, device=dev, dtype=torch.float32,
+                             generator=gen)
+        opt = init_opt_state(params)
+        step, evaluate = make_train_step(cfg, tc), make_eval_step(cfg, tc)
+        data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=seed))
+        first = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(data).items()}
+        eval_before = float(evaluate(params, first)["loss"])
+        # the loss-and-gradient call alone, beside the weights and moments
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        make_loss_and_grad(cfg, tc)(params, first)
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        _reset_launches()
+        for i in range(steps):
+            b = first if i == 0 else {k: torch.from_numpy(v).to(dev)
+                                      for k, v in next(data).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b, torch.tensor(lr))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches, by_body = _count_launches(), _bf16_by_body()
+        peak = torch.cuda.max_memory_allocated()
+        eval_after = float(evaluate(params, first)["loss"])
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        prof = _profiled(lambda: step(params, opt, b, torch.tensor(lr)),
+                         groups=BF16_GROUPS)
+        del params, opt, b, first, m
+    L, dh = cfg.num_layers, cfg.resolved_head_dim
+    want, want_by_body = _bf16_remat_launches(L, dh, steps, tc.remat_policy,
+                                              "mma_bf16")
+    emit("train_stablelm3b_bf16", arch=cfg.name, layers=L, reduced=None,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=dh,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         vocab=cfg.vocab_size, params=cfg.param_count(), dtype="bfloat16",
+         remat_policy=tc.remat_policy, batch=batch, seq=seq, steps=steps,
+         lr=lr, losses=losses, first_batch_loss_before=eval_before,
+         first_batch_loss_after=eval_after,
+         step_ms_median=statistics.median(step_ms[2:]),
+         step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+         step_ms_all=step_ms, resident_bytes_before=resident,
+         grad_peak_mem_bytes=grad_peak, peak_mem_bytes=peak,
+         adamw_end_bytes=28 * cfg.param_count(),
+         allocator="expandable_segments:True",
+         card_bytes=torch.cuda.get_device_properties(dev).total_memory,
+         **train_bounds(cfg, batch, seq, torch.bfloat16), profile=prof,
+         launches={k: dict(forward=f, backward=b)
+                   for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want.items()},
+         launches_by_body=by_body, launches_by_body_expected=want_by_body)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and eval_after < eval_before,
+          f"train_stablelm3b_bf16: losses {losses}, first batch's loss "
+          f"{eval_before} -> {eval_after}")
+    check(launches == want, f"train_stablelm3b_bf16: launches {launches}, "
+          f"expected {want}")
+    check(by_body == want_by_body, f"train_stablelm3b_bf16: launches by "
+          f"body {by_body}, expected {want_by_body}")
     return launches, by_body
 
 
@@ -3788,6 +4149,9 @@ def main() -> int:
                         ("train-mamba2", phase_train_mamba2),
                         ("train-rgemma-3l", phase_train_rgemma_3l),
                         ("train-qwen2vl-bf16", phase_train_qwen2vl_bf16),
+                        ("train-qwen2vl-remat", phase_train_qwen2vl_remat),
+                        ("train-stablelm3b-bf16",
+                         phase_train_stablelm3b_bf16),
                         ("encode-hubert", phase_encode_hubert)):
         train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():

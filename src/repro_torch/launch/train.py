@@ -5,9 +5,10 @@
 
 All host I/O (checkpoints, metrics) flows through the CannyFS
 transactional engine; ``--restarts`` wraps the job in the
-rollback-and-resubmit loop.  The reference's ``--mesh``, ``--remat`` and
-``--act-mode`` wait for the port's sharding and remat (ROADMAP.md Queue 1
-items 11-12).
+rollback-and-resubmit loop.  ``--remat`` picks the activation-checkpoint
+policy (default ``none``, as the reference's launcher).  The reference's
+``--mesh`` and ``--act-mode`` wait for the port's sharding (ROADMAP.md
+Queue 1).
 """
 import argparse
 import tempfile
@@ -18,6 +19,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import (CannyFS, LatencyBackend, LatencyModel,
                               LocalBackend)
 from repro_torch.data import Prefetcher, SyntheticLM
+from repro_torch.parallel import POLICIES
 from repro_torch.train.loop import LoopConfig, Trainer, run_with_restarts
 from repro_torch.train.steps import TrainConfig
 
@@ -32,6 +34,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--workdir", default=None)
+    ap.add_argument("--remat", default="none", choices=POLICIES)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--restarts", type=int, default=1)
     ap.add_argument("--io-latency-ms", type=float, default=0.0)
@@ -50,7 +53,8 @@ def main(argv=None) -> dict:
     print(f"[launch] arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"device={args.device} workdir={workdir}")
 
-    tc = TrainConfig(dtype=getattr(torch, args.dtype), peak_lr=args.lr)
+    tc = TrainConfig(dtype=getattr(torch, args.dtype),
+                     remat_policy=args.remat, peak_lr=args.lr)
     lc = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                     log_every=10, warmup=min(20, args.steps // 5 + 1))
 

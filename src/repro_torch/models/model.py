@@ -9,7 +9,8 @@ Public entry points:
 
     init_params(cfg, device=..., dtype=..., generator=...) -> param dict
     param_specs(cfg, dtype=...)                         -> the same on "meta"
-    forward_train(params, batch, cfg, dtype=...)        -> (logits, aux)
+    forward_train(params, batch, cfg, dtype=..., remat_policy=...)
+                                                        -> (logits, aux)
     init_cache(cfg, B, max_len, dtype, device=...)      -> decode cache
     prefill(params, batch, cache, cfg, dtype=...)       -> (last_logits, cache)
     decode_step(params, tokens, cache, cfg, dtype=...)  -> (logits, cache)
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import wrap_remat
 from . import blocks
 from .config import ModelConfig
 from .layers import embed, rmsnorm, unembed
@@ -198,20 +200,38 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
-def _run_stack(params, x, cfg: ModelConfig, ctx, cache):
-    """All layers in order: superblocks, then the remainder layers; returns
-    (x, the aux losses summed over the layers in fp32: the number 0.0 where
-    no layer has one)."""
+def _run_stack(params, x, cfg: ModelConfig, ctx, cache,
+               remat_policy: str | None = None):
+    """All layers in order: superblocks (one layer of each kind of
+    ``cfg.block_pattern``), then the remainder layers; returns (x, the aux
+    losses summed in fp32, superblock by superblock as the reference sums
+    them: the number 0.0 where no layer has one).
+
+    Under ``remat_policy`` each superblock, and each remainder layer, runs
+    as one function under ``wrap_remat``: one checkpoint each, as the
+    reference scans its superblocks.  Only the training forward wraps: with
+    a cache, or with grad mode off, the stack runs unwrapped."""
+    wrap = remat_policy if cache is None and torch.is_grad_enabled() else None
+
+    def superblock(x, layers):
+        """``layers``: (kind, params, cache) of each layer, in order."""
+        aux = 0.0
+        for kind, p, c in layers:
+            x, a = blocks.apply_block(kind, p, x, ctx, c)
+            aux = aux + a
+        return x, aux
+
+    run = wrap_remat(superblock, wrap)
     aux = 0.0
     for i in range(cfg.n_superblocks):
-        for pos, kind in enumerate(cfg.block_pattern):
-            c = None if cache is None else _layer(cache["blocks"][pos], i)
-            x, a = blocks.apply_block(kind, _layer(params["blocks"][pos], i),
-                                      x, ctx, c)
-            aux = aux + a
+        x, a = run(x, [(kind, _layer(params["blocks"][pos], i),
+                        None if cache is None else
+                        _layer(cache["blocks"][pos], i))
+                       for pos, kind in enumerate(cfg.block_pattern)])
+        aux = aux + a
     for j, kind in enumerate(cfg.remainder_pattern):
-        c = None if cache is None else cache["rem"][j]
-        x, a = blocks.apply_block(kind, params["rem"][j], x, ctx, c)
+        x, a = run(x, [(kind, params["rem"][j],
+                        None if cache is None else cache["rem"][j])])
         aux = aux + a
     return x, aux
 
@@ -227,8 +247,11 @@ def _head(params, x, cfg: ModelConfig):
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16):
-    """Full-sequence forward; returns (logits (B,S,V), aux_loss)."""
+def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
+                  remat_policy: str | None = None):
+    """Full-sequence forward; returns (logits (B,S,V), aux_loss).
+    ``remat_policy`` (one of ``parallel.POLICIES``) checkpoints each
+    superblock when grad mode is on."""
     x = _embed_inputs(params, batch, cfg, dtype)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -236,7 +259,7 @@ def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0)
-    x, aux = _run_stack(params, x, cfg, ctx, None)
+    x, aux = _run_stack(params, x, cfg, ctx, None, remat_policy)
     return _head(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32,
                                                   device=x.device)
 

@@ -16,26 +16,23 @@ import torch
 from repro_torch.models import ModelConfig, decode_step, forward_train, prefill
 from repro_torch.models.layers import cast_tree, cross_entropy
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.parallel import POLICIES
 from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     dtype: Any = torch.bfloat16
-    # the reference defaults to "dots_no_batch"; the port has no remat yet
-    # (ROADMAP.md Queue 1 item 11) and takes "none" only
-    remat_policy: str = "none"
+    remat_policy: str = "dots_no_batch"     # one of parallel.POLICIES
     z_loss: float = 1e-4
     peak_lr: float = 3e-4
     adamw: AdamWConfig = field(default_factory=AdamWConfig)
     loss_dtype: Any = torch.float32      # bfloat16: skip fp32 logits pass
 
     def __post_init__(self):
-        if self.remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r}: the port takes 'none' "
-                "only until parallel/remat.py is ported (ROADMAP.md Queue 1 "
-                "item 11)")
+        if self.remat_policy not in POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat_policy!r}; "
+                             f"options {POLICIES}")
 
 
 def make_loss_and_grad(cfg: ModelConfig,
@@ -45,14 +42,16 @@ def make_loss_and_grad(cfg: ModelConfig,
     CE (with z-loss) + ``router_aux_coef`` · aux, and ``grads`` has the
     structure of ``params``.  The cast to ``tc.dtype`` (the reference's
     per-call ``cast_tree``) sits inside the graph, so the gradients reach
-    the fp32 leaves; in fp32 it is the identity."""
+    the fp32 leaves; in fp32 it is the identity.  The forward checkpoints
+    each superblock under ``tc.remat_policy``."""
     def loss_and_grad(params, batch):
         leaves = {id(t): t.detach().requires_grad_()
                   for t in tree_leaves(params)}
         p = tree_map(lambda t: leaves[id(t)], params)
         with torch.enable_grad():
             logits, aux = forward_train(cast_tree(p, tc.dtype), batch, cfg,
-                                        dtype=tc.dtype)
+                                        dtype=tc.dtype,
+                                        remat_policy=tc.remat_policy)
             loss, _ = cross_entropy(logits, batch["labels"],
                                     batch.get("loss_mask"), z_loss=tc.z_loss,
                                     compute_dtype=tc.loss_dtype)

@@ -7,7 +7,8 @@ against the same path on the CPU.  The backward kernels against their plain
 versions on the same inputs (RMSNorm and flash attention: autograd of the
 forward in fp32; the scans: ``ssd_chunked_bwd`` and ``rglru_bwd``), and the
 training step on the card against the same step on the CPU, for the dense
-LM and the SSD and RG-LRU families.  Each body of a kernel is held on its own
+LM and the SSD and RG-LRU families; the remat policies' bf16 step against
+the same step with no remat.  Each body of a kernel is held on its own
 (flash attention's sm90, mma, mma_tf32x3 and fp32 bodies and its
 backward's sm90, mma_bf16 and mma_tf32x3 bodies, rmsnorm's one-read
 and generic bodies and its backward's warp_rows, cta_rows and generic
@@ -1286,15 +1287,16 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 
 def test_train_step_launches_each_kernel_both_ways(cuda):
-    """One step of the small preset at 2 layers: 2L + 1 = 5 RMSNorm and
-    L = 2 flash launches forward, the same backward."""
+    """One step of the small preset at 2 layers with no remat: 2L + 1 = 5
+    RMSNorm and L = 2 flash launches forward, the same backward."""
     cfg = _lm(2)
     params = init_params(cfg, device=cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     for module in (rms, flash):
         module.reset_counts()
-    make_train_step(cfg, TrainConfig(dtype=torch.float32))(
+    make_train_step(cfg, TrainConfig(dtype=torch.float32,
+                                     remat_policy="none"))(
         params, init_opt_state(params), batch, torch.tensor(1e-3))
     torch.cuda.synchronize()
     assert (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches) == (5, 5)
@@ -1313,9 +1315,10 @@ def test_family_train_step_on_card_matches_cpu(cuda, arch, launches):
     the card against the CPU: loss and every gradient leaf within 2e-4 of
     the leaf's largest value; each kernel launched as many times backward
     as forward (mamba2: 2 SSD layers, 2L + 1 RMSNorms; recurrentgemma: 4
-    RG-LRU layers and one local-attention layer, 2L + 1 RMSNorms)."""
+    RG-LRU layers and one local-attention layer, 2L + 1 RMSNorms), with no
+    remat (under a policy the backward reruns the forward's kernels)."""
     cfg = get_smoke_config(arch)
-    tc = TrainConfig(dtype=torch.float32)
+    tc = TrainConfig(dtype=torch.float32, remat_policy="none")
     params = init_params(cfg, device="cpu",
                          generator=torch.Generator().manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (2, 65),
@@ -1380,6 +1383,43 @@ def test_moonshot_moe_layer_on_card_matches_cpu(cuda):
     err = float((y_card - y_cpu).abs().max())
     assert err <= 2e-5 * (1 + float(y_cpu.abs().max())), (err, why)
     assert abs(aux_card - aux_cpu) <= 2e-5, (aux_card, aux_cpu, why)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_remat_on_card_gives_the_none_gradients(cuda, policy):
+    """One bf16 step of qwen2-vl-2b at full width cut to 2 layers (sm90
+    flash at dh 128 both ways, rmsnorm rows of 1536), batch 2 x 256, under
+    each remat policy against the same step under ``none``: the same loss
+    and gradient bits (every kernel on the path is deterministic, and the
+    backward's graph is the forward's), and the launches: the backward
+    reruns each layer's forward through the kernels' autograd Functions,
+    so flash forwards 2L and RMSNorm forwards 4L + 1, the backwards L and
+    2L + 1 as under ``none``."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b"), num_layers=2)
+    L, dh = cfg.num_layers, cfg.resolved_head_dim
+    params = init_params(cfg, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for p in ("none", policy):
+        for module in (rms, flash):
+            module.reset_counts()
+        total, _, grads = make_loss_and_grad(cfg, TrainConfig(
+            remat_policy=p))(params, batch)
+        torch.cuda.synchronize()
+        out[p] = (total, _leaves(grads), (
+            rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches,
+            flash_attention_cuda.launches, flash_attention_bwd_cuda.launches,
+            dict(flash_attention_cuda.launches_by_head_dim["sm90"]),
+            flash_attention_bwd_cuda.launches_by_body["sm90"]))
+    assert out["none"][2] == (2 * L + 1, 2 * L + 1, L, L, {dh: L}, L)
+    assert out[policy][2] == (4 * L + 1, 2 * L + 1, 2 * L, L, {dh: 2 * L},
+                              L)
+    assert torch.equal(out[policy][0], out["none"][0])
+    for g, g0 in zip(out[policy][1], out["none"][1]):
+        assert torch.equal(g, g0)
 
 
 def test_train_example_runs_on_card(cuda, monkeypatch, capsys, tmp_path):

@@ -317,11 +317,6 @@ def test_eval_step_is_the_plain_cross_entropy():
     assert float(loss) == float(cross_entropy(logits, toks)[0])
 
 
-def test_train_config_takes_remat_none_only():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        TrainConfig(remat_policy="dots_no_batch")
-
-
 # ---------------------------------------------------------------------------
 # data and the engine copy
 # ---------------------------------------------------------------------------
