@@ -13,7 +13,7 @@ Phases, each printed as one JSON line:
    fp32 mma_tf32x3 body (every head dim, 8 warps a CTA at 160 and 256), a
    kernel of the SSD mma, mma_tf32x3 or RG-LRU segmented bodies or a
    backward kernel (the scans' too; flash's pair kernels above dh 80 and
-   its bf16 sm90 backward at dh 128) spills, or ptxas ignored a
+   its bf16 sm90 backward at dh 80 and 128) spills, or ptxas ignored a
    ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
@@ -212,17 +212,19 @@ Phases, each printed as one JSON line:
 13. (then) ``train_stablelm3b_bf16``: stablelm-3b at full width and
    depth (32 layers, 2.80 B parameters, dh 80), ``TrainConfig()``'s (bf16,
    ``dots_no_batch``), batch 4 x 1024, 10 steps: losses finite, the first
-   batch's loss falling; 64 sm90 flash forwards at dh 80, 32 mma_bf16
-   backwards, 129 RMSNorm forwards and 65 cta_rows backwards a step.  Step
-   ms, peak memory beside 16 B and 28 B a parameter, the
+   batch's loss falling; 64 sm90 flash forwards at dh 80, 32 sm90
+   backwards at dh 80, 129 RMSNorm forwards and 65 cta_rows backwards a
+   step.  Step ms, peak memory beside 16 B and 28 B a parameter, the
    loss-and-gradient call's peak, one more step profiled.
 
 Every train phase before 12 runs ``remat_policy="none"``, as it did before
 the port had remat, so its counts, step times and peaks stay comparable;
 ``train_check`` adds stablelm-3b at full width cut to 2 layers in bf16
 under ``dots_no_batch``, and ``kernels`` holds rmsnorm at rows of 2560 both
-ways, the sm90 forward with its lse and the mma_bf16 backward at
-stablelm-3b's train shape (q, k, v (4, 1024, 32, 80)).
+ways, the sm90 forward with its lse and the bf16 backward at
+stablelm-3b's train shape (q, k, v (4, 1024, 32, 80)): the sm90 body's
+dh-80 instance (``Sm90Bwd<80>``), by kernel and two runs bit for bit,
+beside mma_bf16's 4-warp kernels forced as its previous body.
 
 This slice also adds, to ``kernels``, the sm90 body's log-sum-exp
 (``sm90_lse_kernels``: at the prefill shapes of qwen2-7b,
@@ -230,14 +232,14 @@ recurrentgemma-9b, moonshot-v1-16b-a3b and llama4-scout-17b-a16e, S 300,
 window, chunk, no mask and qwen2-vl-2b's train shape: the lse against
 the plain one in fp32 within 2e-5 (1 + |lse|), O bit-equal with and
 without it, and the gradients of the sm90 forward and the backward
-(the sm90 backward body at dh 120 / 128, which each such case must take)
-against autograd of mha_ref in fp32 within 2e-2 (1 + |x|); the
+(the sm90 backward body at dh 80 / 120 / 128, which each such case
+must take) against autograd of mha_ref in fp32 within 2e-2 (1 + |x|); the
 sm90 time with and without lse, and at qwen2-vl-2b's train shape the
 forward and the sm90 backward (by kernel, at each head split of its dK/dV
 launch, two runs bit for bit, beside the pair kernels forced as its
 previous body) beside SDPA's bf16 ones (``library_ok``: whether SDPA's
 own gradient holds the same tolerance) and their bounds, and the bf16
-backward at dh 80 (mma_bf16) at stablelm-3b's heads), and the
+backward at dh 80 at stablelm-3b's heads), and the
 kernels at this slice's own shapes (``modality_kernels``: rmsnorm at
 hubert-xlarge's D 1280, its bf16 cta_rows backward at qwen2-vl-2b's step,
 the flash sm90 body at hubert's 32k encode against mha_ref on its first
@@ -427,24 +429,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3,
 
 def kernel_breakdown(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Device time of each kernel one call runs, by kernel name (shortened
-    to its name before the template arguments), per call, under
-    torch.profiler over ``iters`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
+    to its name before the template arguments), per call: its mean over
+    the launches a profiled window of ``iters`` calls kept, times its
+    launches in the last warmup call, profiled alone.  The profiler drops
+    launches from a window now and then (``device_ms``): a window's sum
+    over ``iters`` read the sm90 backward's kernels 15-23% under
+    ``device_ms`` (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    for _ in range(max(warmup - 1, 1)):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    per_call = {k: n for k, (n, _) in _profiled_window(fn, 1).items()}
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
+    for key, (n, t) in _profiled_window(fn, iters).items():
+        if n and t > 0:
+            name = key.replace("(anonymous namespace)::", "")
             name = name.split("<")[0].split("(")[0].split()[-1]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+            calls = per_call.get(key) or max(1, round(n / iters))
+            out[name] = out.get(name, 0.0) + t / n * calls / 1e3
     return out
 
 
@@ -610,8 +611,8 @@ def phase_env(build):
     # the backward kernels: flash's dQ and dK/dV at 4 compiled head dims up
     # to 80 (16, 32, 64, 80) and their pair kernels at 3 above (128 (120
     # too), 160, 256) x 2 dtypes (28), the bf16 sm90 body's dQ and dK/dV
-    # kernels at 128 (2) and the sum of the dK/dV head split's partials
-    # (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
+    # kernels at 80 and 128 (120 too) (4) and the sum of the dK/dV head
+    # split's partials (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
     # 2, 4 and, for fp32 x, 8) and its dscale tree (2), its cta_rows body
     # (12: 2 scale types x vectors a lane 5-8 for fp32 x and 3-4 for bf16),
     # and the generic body (4 type pairs and 2 dscale sums)
@@ -622,7 +623,7 @@ def phase_env(build):
                "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel",
                "rmsnorm_bwd_cta_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 66 and all(
+    check(len(bwd) == 68 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     # the fp32 forward's mma_tf32x3 flash kernels, one a compiled head dim
@@ -1264,8 +1265,8 @@ def backward_kernels(dev, gen, cases, summary):
     scans)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention.kernel import (
-        SM90_HEAD_DIMS as SM90_DH, flash_attention_bwd_cuda,
-        flash_attention_cuda, select_bwd_body)
+        SM90_BWD_HEAD_DIMS, SM90_HEAD_DIMS as SM90_DH,
+        flash_attention_bwd_cuda, flash_attention_cuda, select_bwd_body)
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                          lse_ref, mha_ref)
     from repro_torch.kernels.rmsnorm import kernel as rms
@@ -1472,7 +1473,7 @@ def backward_kernels(dev, gen, cases, summary):
                 flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw), again))
             body = select_bwd_body(q, k, v)
             want_body = ("mma_tf32x3" if dtype == f32 else "sm90"
-                         if dh in (120, 128) else "mma_bf16")
+                         if dh in SM90_BWD_HEAD_DIMS else "mma_bf16")
             cases.append(dict(
                 kernel="flash_attention_bwd", body=body,
                 dtype=str(dtype), B=B, S=S, H=H, K=K, dh=dh, **kw,
@@ -1568,8 +1569,8 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     """The sm90 body with its log-sum-exp, at ``SM90_LSE_CASES``: the lse
     against ``lse_ref`` within ``LSE_TOL``, O bit-equal to the call
     without lse, and (dq, dk, dv) of ``FlashAttentionFunction`` (the sm90
-    forward, the backward the inputs take: sm90 at dh 120 and 128, else
-    mma_bf16) against autograd of mha_ref in fp32 on the same bf16 inputs
+    forward, the backward the inputs take: sm90 at dh 80, 120 and 128,
+    else mma_bf16) against autograd of mha_ref in fp32 on the same bf16 inputs
     within 2e-2 (1 + |x|).  Then the sm90 device time with and without lse
     at qwen2-7b's prefill shape and at qwen2-vl-2b's train shape, and there
     the forward (with lse) and the backward (sm90, at every head split of
@@ -1577,9 +1578,12 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     by kernel, and two runs bit for bit) beside SDPA's bf16 forward and
     backward (whether SDPA's own gradient holds the tolerance:
     ``library_ok``), the plain versions and their bounds; and the bf16
-    backward at dh 80 (mma_bf16) at stablelm-3b's heads
-    (``summary["flash_attention_sm90_lse"]`` and
-    ``summary["flash_attention_bwd_bf16"]``)."""
+    backward at dh 80 at stablelm-3b's train shape, the same way (sm90 by
+    kernel and two runs bit for bit, beside mma_bf16's 4-warp kernels
+    forced as its previous body)
+    (``summary["flash_attention_sm90_lse"]``,
+    ``summary["flash_attention_bwd_bf16"]`` and
+    ``summary["flash_attention_bwd_bf16_dh80"]``)."""
     from repro_torch.device import multiprocessors
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -1612,7 +1616,8 @@ def sm90_lse_kernels(dev, gen, cases, summary):
             ok=lse_ok and torch.equal(out, plain_o)
             and all(ok for _, ok in errs)
             and flash.select_body(q, k, v) == "sm90"
-            and bwd_body == ("sm90" if dh in (120, 128) else "mma_bf16")))
+            and bwd_body == ("sm90" if dh in flash.SM90_BWD_HEAD_DIMS
+                             else "mma_bf16")))
         if label in ("qwen2-7b", "qwen2-vl-2b"):
             inputs[label] = (q, k, v, do, kw)
         del leaves, fl, want
@@ -1693,7 +1698,7 @@ def sm90_lse_kernels(dev, gen, cases, summary):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
                  "gradient: JAX differentiates the jnp reference)",
-        counted_as=("flash_attention_bwd", "sm90"),
+        counted_as=("flash_attention_bwd", "sm90", (120, 128)),
         shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
               "on the sm90 forward's o and lse (the qwen2-vl-2b step)",
         body=flash.select_bwd_body(q, k, v),
@@ -1731,16 +1736,20 @@ def sm90_lse_kernels(dev, gen, cases, summary):
           f"{entry['deterministic']}")
     del got, again, want, leaves, plain_out, lib_out, library
 
-    # the bf16 backward at dh 80 (mma_bf16: BwdCfg's 4-warp kernels) at
-    # stablelm-3b's train step, beside SDPA's bf16 backward and the plain
-    # one (at S 512 until PR 26)
+    # the bf16 backward at dh 80 at stablelm-3b's train step, on the sm90
+    # forward's o and lse: the sm90 body (Sm90Bwd<80>; MHA, nothing to
+    # split) beside mma_bf16's 4-warp kernels (BwdCfg) it replaced,
+    # SDPA's bf16 backward and the plain one
     B, S, H, K, dh = STABLELM_TRAIN_ATTN
     q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
                                device=dev).to(bf16) for n in (H, K, K, H))
     with torch.no_grad():
         out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
-    kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, out, do, lse)
+
+    def bwd80(**force):
+        return lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, out, do, lse, **force)
+    kernel, previous = bwd80(), bwd80(body="mma_bf16")
     pos = torch.arange(S, device=dev)
     pairs = int(attention_mask(pos, pos, causal=True).sum())
     t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
@@ -1748,33 +1757,51 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fl = [t.float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(mha_ref(*fl), fl, do.float())
+    del fl
     plain_out = mha_ref(*leaves)
     lib_out = F.scaled_dot_product_attention(
         *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
     library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
-    errs = [compare(g, w, bf16) for g, w in zip(kernel(), want)]
+    got, again = kernel(), kernel()
+    errs = [compare(g, w, bf16) for g, w in zip(got, want)]
     mark = len(PROFILER_WINDOWS)
     summary["flash_attention_bwd_bf16_dh80"] = dh80 = dict(
         name="flash_attention_bwd_bf16_dh80", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
                  "gradient: JAX differentiates the jnp reference)",
-        counted_as=("flash_attention_bwd", "mma_bf16"),
-        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal "
-              "(the stablelm-3b step)", body=flash.select_bwd_body(q, k, v),
-        ms=device_ms(kernel), event_ms=time_ms(kernel),
-        kernel_ms=kernel_breakdown(kernel),
+        counted_as=("flash_attention_bwd", "sm90", (80,)),
+        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
+              "on the sm90 forward's o and lse (the stablelm-3b step)",
+        body=flash.select_bwd_body(q, k, v),
+        head_split=flash.bwd_head_split(B, S, H, K, dh, sms, "sm90"),
+        ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
+        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+        previous_body="mma_bf16 (BwdCfg's 4-warp kernels: mma.sync, "
+                      "32-row streamed tiles)",
+        previous_body_ms=device_ms(previous),
+        previous_body_ms_windows=WINDOW_MS[-1],
+        previous_kernel_ms=kernel_breakdown(previous),
         plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
         library="SDPA's bf16 backward", library_ms=device_ms(library),
-        library_event_ms=time_ms(library), bound_ms=t_bound, bound_by=by,
+        library_ms_windows=WINDOW_MS[-1], library_event_ms=time_ms(library),
+        bound_ms=t_bound, bound_by=by,
+        seven_products_bound_ms=7 * 2 * B * H * pairs * dh
+        / PEAK_OPS_PER_S[bf16] * 1e3,
+        pairs=pairs, tol=TOL[bf16],
         max_abs_err=max(e for e, _ in errs),
+        deterministic=all(torch.equal(a, b) for a, b in zip(got, again)),
+        previous_max_abs_err=max(compare(g, w, bf16)[0]
+                                 for g, w in zip(previous(), want)),
         library_max_abs_err=max(compare(g, w, bf16)[0]
                                 for g, w in zip(library(), want)),
         profiler_windows=window_counts(mark))
-    check(all(ok for _, ok in errs) and dh80["body"] == "mma_bf16",
-          f"flash bf16 backward at dh 80: body {dh80['body']}, errors "
-          f"{[e for e, _ in errs]}")
-    del want, fl, leaves, plain_out, lib_out, library
+    check(dh80["body"] == "sm90" and all(ok for _, ok in errs)
+          and dh80["deterministic"],
+          f"flash bf16 backward at {dh80['shape']}: body {dh80['body']}, "
+          f"errors {[e for e, _ in errs]}, deterministic "
+          f"{dh80['deterministic']}")
+    del got, again, want, leaves, plain_out, lib_out, library
     emit("kernels", kernel="flash_attention_bwd_bf16", timings={
         entry["shape"]: entry, dh80["shape"]: dh80})
 
@@ -2900,8 +2927,10 @@ def train_checks(dev, seed):
     qwen2-vl-2b's 128 patch embeddings a row and 3-D positions, hubert's
     frame features and loss mask): qwen2-vl-2b in fp32 and in bf16
     (against the CPU's bf16 step; the sm90 forward with its
-    log-sum-exp and the mma_bf16 backward at dh 128), hubert-xlarge in
-    fp32 (no causal mask, dh 80 on mma_tf32x3 both ways)."""
+    log-sum-exp and the sm90 backward at dh 128), hubert-xlarge in
+    fp32 (no causal mask, dh 80 on mma_tf32x3 both ways); and stablelm-3b
+    at full width cut to 2 layers in bf16 under ``TrainConfig()``'s
+    ``dots_no_batch`` (the sm90 forward and backward at dh 80)."""
     from repro_torch.configs import get_config
     from repro_torch.train.steps import TrainConfig
     ex = _lm_example()
@@ -2941,7 +2970,7 @@ def train_checks(dev, seed):
     tc = TrainConfig()
     phase_train_check(dev, seed, cfg, tc, 2, 256, want_flash=dict(
         forward={"sm90": {cfg.resolved_head_dim: 4}},
-        backward={"mma_bf16": 2}), arch=cfg.name,
+        backward={"sm90": 2}), arch=cfg.name,
         remat_policy=tc.remat_policy)
 
 
@@ -3143,12 +3172,14 @@ def _count_launches():
             "ssd": (ssd.ssd_cuda.launches, ssd.ssd_bwd_cuda.launches)}
 
 
-def _flash_by_head_dim():
-    """The flash forward's launches by body and head dim, the bodies that
-    launched only."""
+def _flash_by_head_dim(backward: bool = False):
+    """The flash forward's (with ``backward``, the backward's) launches by
+    body and head dim, the bodies that launched only."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    fn = flash.flash_attention_bwd_cuda if backward else \
+        flash.flash_attention_cuda
     return {body: dict(by_dh) for body, by_dh in
-            flash.flash_attention_cuda.launches_by_head_dim.items() if by_dh}
+            fn.launches_by_head_dim.items() if by_dh}
 
 
 def _reset_launches():
@@ -3530,7 +3561,8 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
 
 def _bf16_by_body() -> dict:
     """The launches by body of the bf16 train phases that remat: RMSNorm
-    and flash attention, each way, and the flash forward by head dim."""
+    and flash attention, each way, and flash attention by head dim, each
+    way."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rmsnorm import kernel as rms
     return {"rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
@@ -3539,7 +3571,8 @@ def _bf16_by_body() -> dict:
                 flash.flash_attention_cuda.launches_by_body),
             "flash_attention_bwd": dict(
                 flash.flash_attention_bwd_cuda.launches_by_body),
-            "flash_attention_by_head_dim": _flash_by_head_dim()}
+            "flash_attention_by_head_dim": _flash_by_head_dim(),
+            "flash_attention_bwd_by_head_dim": _flash_by_head_dim(True)}
 
 
 def _bf16_remat_launches(L: int, dh: int, steps: int, policy: str,
@@ -3565,7 +3598,8 @@ def _bf16_remat_launches(L: int, dh: int, steps: int, policy: str,
                             "fp32": 0},
         "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": 0, "sm90": 0,
                                 bwd_body: L * steps},
-        "flash_attention_by_head_dim": {"sm90": {dh: fwd_flash}}}
+        "flash_attention_by_head_dim": {"sm90": {dh: fwd_flash}},
+        "flash_attention_bwd_by_head_dim": {bwd_body: {dh: L * steps}}}
     return want, by_body
 
 
@@ -3725,7 +3759,7 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
     loss finite, and the first batch's loss (``make_eval_step``) lower
     after the steps than before them; a step launches 2L = 64 flash
     forwards on the sm90 body at dh 80 (the backward reruns each layer's),
-    L = 32 flash backwards on mma_bf16, 4L + 1 = 129 RMSNorm forwards on
+    L = 32 flash backwards on sm90 at dh 80, 4L + 1 = 129 RMSNorm forwards on
     one_read and 2L + 1 = 65 backwards on cta_rows.  Step ms, peak memory
     beside ``train_bounds`` (16 B a parameter: 44.74 GB) and AdamW's 28 B a
     parameter at the end of its functional update (78.27 GB), the peak of
@@ -3780,7 +3814,7 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
         del params, opt, b, first, m
     L, dh = cfg.num_layers, cfg.resolved_head_dim
     want, want_by_body = _bf16_remat_launches(L, dh, steps, tc.remat_policy,
-                                              "mma_bf16")
+                                              "sm90")
     emit("train_stablelm3b_bf16", arch=cfg.name, layers=L, reduced=None,
          d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=dh,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,

@@ -79,8 +79,8 @@
 // pointer for it (Params::lse; serving passes null), and the backward
 // recomputes the probabilities from it (flash_attention_bwd, further down:
 // 4 warps a CTA up to dh 80, the pair kernels of 8 above; and for bf16 at
-// dh 120 and 128, flash_attention_bwd_sm90: wgmma and TMA, after the sm90
-// forward).  The sm90 body writes it in its epilogue, from one lane a row,
+// dh 80, 120 and 128, flash_attention_bwd_sm90: wgmma and TMA, after the
+// sm90 forward).  The sm90 body writes it in its epilogue, from one lane a row,
 // leaving O as it was.
 //
 // Head dims: the mma, mma_tf32x3 and fp32 bodies take every one the model
@@ -581,8 +581,10 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(Params p) {
 // Above DH 80 the pair kernels (further down) take over at every head dim
 // of the registry (120 runs as 128, its last 8 columns zero in shared
 // memory and never stored): 8 warps a CTA, two to each 16-row group
-// splitting the forming of S and dP; for bf16 at DH 120 and 128, the sm90
-// body (after the sm90 forward: wgmma and TMA) instead.
+// splitting the forming of S and dP.  For bf16 at DH 80, 120 and 128 with a
+// scale > 0 the sm90 body (after the sm90 forward: wgmma and TMA) runs
+// instead; the 4-warp kernels keep bf16 at DH 80 only as its previous body
+// (forced) and for a scale <= 0.
 // Every product is mma.sync on the tensor cores, in two shapes
 // (BwdMma::rows, BwdMma::regs):
 //
@@ -924,7 +926,7 @@ struct BwdMma<__nv_bfloat16> {
 // ones the dK/dV kernel spilled at DH 80 in both dtypes.  A CTA accumulates
 // every column of dQ, or of dK and dV (80 accumulators a thread at DH 80,
 // as the dK/dV kernel holds without a spill); above DH 80 the pair kernels
-// (BwdPairCfg) and, for bf16 at 120 and 128, the sm90 body take over.
+// (BwdPairCfg) and, for bf16 at 80, 120 and 128, the sm90 body take over.
 template <int DH, typename T>
 struct BwdCfg {
   static constexpr int kStream = DH >= 80 ? 32 : kBwdTile;
@@ -2024,7 +2026,8 @@ __device__ __forceinline__ void wgmma_qk<64>(float (&d)[32], uint64_t da, uint64
   wgmma_ss_n64(d, da, db);
 }
 
-// O += P V over one 16-key step, N = the O columns a warpgroup owns.
+// O += P V over one 16-key step, N = the O columns a warpgroup owns (and
+// the backward's sums at N = DH: wgmma_regs).
 template <int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db);
@@ -2435,17 +2438,24 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// backward, sm90: bf16 at dh 120 and 128 on wgmma and TMA, warp-specialised
+// backward, sm90: bf16 at dh 80, 120 and 128 on wgmma and TMA, warp-specialised
 // ---------------------------------------------------------------------------
 //
 // The gradient of the forward above (FlashAttention-2's backward, without
-// atomics, as flash_attention_bwd computes it) for bf16 at dh 128, and at
-// dh 120 on the same instance: the tensor maps' extent is the real head dim,
-// so TMA zero-fills the columns past 120 (they add nothing to a product)
-// and clips the stores there.  The train path's shape is qwen2-vl-2b's step,
-// q (4,1024,12,128), k/v (4,1024,2,128), causal: five products of its
-// 524800 visible pairs x 128 a head are 0.0326 ms at the bf16 rate, the
-// seven this body forms 0.0456.
+// atomics, as flash_attention_bwd computes it) for bf16, compiled for head
+// dim DH (Sm90Bwd<DH>): 128, with dh 120 on the same instance (the tensor
+// maps' extent is the real head dim, so TMA zero-fills the columns past 120,
+// which add nothing to a product, and clips the stores there), and 80.  At
+// DH 80 the tiles keep their two 64-column slabs, as the forward's Sm90<80>
+// does: TMA zero-fills columns 80-127 of the second, S and dP run over the
+// 5 k16 steps that hold the 80 columns, and dQ, dK and dV accumulate at N
+// 80 (40 fp32 registers a thread where DH 128 holds 64), so no product
+// reads the zero-filled columns.  The train paths' shapes: qwen2-vl-2b's
+// step, q (4,1024,12,128), k/v (4,1024,2,128), causal: five products of
+// its 524800 visible pairs x 128 a head are 0.0326 ms at the bf16 rate, the
+// seven this body forms 0.0456; stablelm-3b's, q, k, v (4,1024,32,80),
+// causal: five products of 524800 pairs x 80 over 128 heads 0.0543 ms, the
+// seven 0.0761.
 //
 // Two launches, as the mma bodies run them, each a CTA of two consumer
 // warpgroups and one producer warp (288 threads), as the forward's.  One
@@ -2455,11 +2465,12 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 // (a producer warpgroup giving 144 of its 168 to the consumers spilled the
 // same 500-1000 bytes on the H100's nvcc 12.9, with the warpgroup index
 // proven warp-uniform, with __maxnreg__ and with -maxrregcount), so each
-// consumer warpgroup holds one 64 x 128 fp32 accumulator.  Tiles are TMA
+// consumer warpgroup holds one 64 x DH fp32 accumulator.  Tiles are TMA
 // boxes of 64 rows x a 64-column (128-byte) slab, 128-byte swizzled, as the
 // forward's.  Every product is a bf16 wgmma chain with fp32 accumulation;
 // P goes to dV as one bf16 register operand, as SDPA rounds it, and dS to
-// dK and dQ as bf16 hi + lo in two chains (about 16 bits): at qwen2-vl-2b's
+// dK and dQ as bf16 hi + lo, two chains in one commit group (about 16
+// bits, wgmma_regs): at qwen2-vl-2b's
 // step one bf16 dS left the gradient at 0.72-0.98 of the bf16 tolerance on
 // the H100 (SDPA's own at 0.81-0.92), hi + lo at 0.54-0.79 (kernels/ab.py
 // --sm90-bwd).  Above kSm90SplitGroup query heads a KV head P goes as hi +
@@ -2473,10 +2484,10 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 //     too (D 0, lse +inf), so that the dK/dV launch loads both per query
 //     tile by one bulk copy each.  Per key tile: S = Q K^T and dP = dO V^T
 //     (m64n64k16, both operands K-major in shared memory), P and dS in
-//     registers, dQ += dS K (m64n128k16, dS the register operand, K
-//     MN-major).  (64 rows a CTA with the roles split as in dK/dV below
-//     took 0.109 ms against 0.071 at qwen2-vl-2b's step: K and V stream
-//     twice as often, and an exchange a tile.)
+//     registers, dQ += dS K (m64n128k16, or m64n80k16 at DH 80; dS the
+//     register operand, K MN-major).  (64 rows a CTA with the roles split
+//     as in dK/dV below took 0.109 ms against 0.071 at qwen2-vl-2b's step:
+//     K and V stream twice as often, and an exchange a tile.)
 //   * dK/dV (flash_bwd_dkdv_sm90_kernel): one CTA a 64-key tile of one KV
 //     head (and a share of its group's query heads: head_split), early
 //     tiles first, K and V loaded once; Q, dO, lse and D stream in 64-query
@@ -2495,14 +2506,34 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 // per-thread condition: reads there made ptxas serialise the wgmma (C7518).
 // Every sum has one owner and a fixed order: two runs give the same bits.
 // What bounds it: operations (0.0456 ms of the seven products against
-// 0.0121 ms of bytes at qwen2-vl-2b's step).
+// 0.0121 ms of bytes at qwen2-vl-2b's step; 0.0761 against 0.0501 at
+// stablelm-3b's, whose MHA reads K and V once a query head).  The tile
+// geometry and shared-memory sizes are the same at both head dims.  What
+// holds it back is each consumer warpgroup's chain (products, waits,
+// exponentials, the P^T exchange, one after another; two warpgroups an SM):
+// at stablelm-3b's step (H100, kernels/ab.py --sm90-bwd, variants that
+// only time) the dK/dV launch took 0.174 ms without the exponentials
+// against 0.199, dQ 0.126 with one bf16 dS chain against 0.142 and 0.126
+// without D's reads of O and dO; launching the CTAs head-major, one head's
+// tiles together in L2, took 0.361 against 0.337 (bytes do not bound it),
+// and a fourth stage 0.349 against 0.340.  Waiting for each tile's dK or
+// dV products only after issuing the next tile's S^T or dP^T took the
+// dK/dV launch to 0.220 against 0.198, and the same in the dQ launch to
+// 0.164 against 0.138: ptxas serialised the wgmma there (C7514) and
+// injected waits (C7517).
 
+template <int DH>
 struct Sm90Bwd {
+  static_assert(DH == 80 || DH == 128, "sm90 backward: dh 80 or 128 (120 on 128)");
+  static constexpr int kKSteps = DH / 16;      // k16 steps of S and dP over the head dim
+  static constexpr int kAcc = DH / 2;          // fp32 registers a thread of a 64 x DH sum
+  static constexpr int kSlabs = (DH + 63) / 64;   // 64-column slabs of a bf16 row
+  static constexpr int kF32Slabs = (DH + 31) / 32;  // 32-column slabs of an fp32 row
   static constexpr int kTile = 64;             // rows of a box, a warpgroup and a streamed tile
   static constexpr int kSlab = kTile * 128;    // bytes of a 64-row slab
   static constexpr int kTileBytes = 2 * kSlab; // a 64-row tile of both slabs (16 KB)
   // 3 stages: 0.1554 ms against 2's 0.1588 at qwen2-vl-2b's step (H100,
-  // kernels/ab.py --sm90-bwd)
+  // kernels/ab.py --sm90-bwd); 4 at dh 80 moved nothing (above)
   static constexpr int kStages = 3;
   static constexpr int kThreads = 288;         // consumer warpgroups 0, 1; a producer warp
   // dQ: own Q and dO of 128 rows (slabs of 128 rows), a ring of (K, V) tiles
@@ -2588,69 +2619,74 @@ __device__ __forceinline__ TileClass key_tile_class(const BwdParams& p, int k0, 
   return all ? kVisible : kEdge;
 }
 
-// D (64 x 64) = A B^T over the head dim's 8 k16 steps, as one commit group:
-// A rows at `a` (a tile of a_slab bytes a slab), B rows at `b` (64 rows),
-// both K-major.
+// D (64 x 64) = A B^T over the k16 steps that hold the head dim DH (8, or
+// 5 at DH 80: the zero-filled columns 80-127 are never read), as one commit
+// group: A rows at `a` (a tile of a_slab bytes a slab), B rows at `b` (64
+// rows), both K-major.
+template <int DH>
 __device__ __forceinline__ void wgmma_rows_n64(float (&d)[32], uint32_t a, uint32_t a_slab,
                                                uint32_t b) {
 #pragma unroll
   for (int j = 0; j < 32; ++j) d[j] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < Sm90Bwd<DH>::kKSteps; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss_n64(d, desc_k_major(a + (kk / 4) * a_slab + off),
-                 desc_k_major(b + (kk / 4) * Sm90Bwd::kSlab + off));
+                 desc_k_major(b + (kk / 4) * Sm90Bwd<DH>::kSlab + off));
   }
   wgmma_commit();
 }
 
-// bf16 pairs of a 64 x 64 accumulator as the register A operand: k-step kk
-// covers columns [16kk, 16kk + 16), accumulator chunks 2kk and 2kk + 1;
-// with kLo what bf16 leaves of each value (pack_split_bf16's lo).
-template <bool kLo = false>
-__device__ __forceinline__ void pack_a(uint32_t (&x)[4][4], const float (&acc)[32]) {
+// D (64 x DH) += X B over 64 rows of B, one commit group to its end: X (64
+// x 64, an accumulator) in registers as bf16, the register A operand (k-step
+// kk covers columns [16kk, 16kk + 16), accumulator chunks 2kk and 2kk + 1),
+// B a 64-row tile MN-major (at DH 80 the wgmma's N is 80: columns 0-63 of
+// the first slab and 64-79 of the second).  With kSplit X goes as bf16 hi
+// + lo (pack_split_bf16): the chain of lo, then the chain of hi, into D, in
+// one group with one wait (two groups, one wait each, took 0.3471 ms
+// against 0.3402 at stablelm-3b's step and 0.1569 against 0.1534 at
+// qwen2-vl-2b's, the means of two turns, H100, kernels/ab.py --sm90-bwd;
+// the same products in the same order, so the same bits).
+template <int DH, bool kSplit = false>
+__device__ __forceinline__ void wgmma_regs(float (&d)[DH / 2], const float (&x)[32], uint32_t b) {
+  uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float a = acc[8 * kk + 2 * r], b = acc[8 * kk + 2 * r + 1];
-      if constexpr (kLo) {
-        uint32_t hi;
-        pack_split_bf16(a, b, hi, x[kk][r]);
-      } else {
-        x[kk][r] = pack_bf16(a, b);
-      }
+      const float u = x[8 * kk + 2 * r], v = x[8 * kk + 2 * r + 1];
+      if constexpr (kSplit)
+        pack_split_bf16(u, v, hi[kk][r], lo[kk][r]);
+      else
+        hi[kk][r] = pack_bf16(u, v);
     }
-}
-
-// D (64 x 128) += X B over 64 rows of B, one chain to its end: X (64 x 64)
-// in registers (a 64 x 64 accumulator, packed as bf16, or with kLo its
-// bf16 remainder), B a 64-row tile MN-major.
-template <bool kLo = false>
-__device__ __forceinline__ void wgmma_regs_n128(float (&d)[64], const float (&x)[32], uint32_t b) {
-  uint32_t a[4][4];
-  pack_a<kLo>(a, x);
   fence_regs(d);
   wgmma_fence();
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<DH>(d, lo[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd<DH>::kSlab));
+  }
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_n128_mn(d, a[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd::kSlab));
+    wgmma_pv<DH>(d, hi[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd<DH>::kSlab));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
 }
 
-// A 64 x 128 accumulator out through shared memory: bf16 (times `scale`)
-// into a 64-row tile of two 128-byte swizzled slabs at `tile`, `slab` bytes
-// apart, or fp32 into four 32-column slabs with kF32, as a tensor map's box
-// lays them; every thread writes, under no condition.
-template <bool kF32>
-__device__ __forceinline__ void stage_acc(uint32_t tile, uint32_t slab, const float (&d)[64],
+// A 64 x DH accumulator out through shared memory: bf16 (times `scale`)
+// into a 64-row tile of 128-byte swizzled 64-column slabs at `tile`, `slab`
+// bytes apart, or fp32 into 32-column slabs with kF32, as a tensor map's
+// box lays them (at DH 80 the last slab's columns past 80 are left as they
+// are: the store clips them); every thread writes, under no condition.
+template <bool kF32, int DH>
+__device__ __forceinline__ void stage_acc(uint32_t tile, uint32_t slab, const float (&d)[DH / 2],
                                           float scale) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int r = 16 * warp + g + 8 * rr;  // r % 8 == g
@@ -2687,13 +2723,14 @@ __device__ __forceinline__ void store_acc(const CUtensorMap* map, uint32_t tile,
 // H100 at S 300, dh 120.
 constexpr int kSm90SplitGroup = 8;
 
-__global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
+template <int DH>
+__global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              const __grid_constant__ CUtensorMap tm_do,
                              const __grid_constant__ CUtensorMap tm_dq, const BwdParams p) {
-  using C = Sm90Bwd;
+  using C = Sm90Bwd<DH>;
   constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_bwd90[];
   const uint32_t base = (smem_u32(smem_bwd90) + 1023u) & ~1023u;
@@ -2760,36 +2797,13 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
     // D = rowsum(dO * O) of row 16 warp + (lane & 15), lanes r and r + 16
     // taking the two halves of its 16-byte chunks, from device memory while
     // the tiles load; it and lse log2(e) go to the scratch for the dK/dV
-    // launch (rows past S: 0 and +inf)
-    float d = 0.f;
-    {
-      const int s = r0 + 16 * warp + (lane & 15);
-      if (s < p.S) {
-        const int chunks = dh / 8, hc = chunks / 2;
-        const int n = lane < 16 ? hc : chunks - hc;  // hc, but at dh 120
-        const long long off = q_off + s * qs + (lane >> 4) * hc * 8;
-        const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.o) + off);
-        const uint4* d4 =
-            reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) + off);
-#pragma unroll 4
-        for (int c = 0; c < n; ++c) {
-          float ov[8], dv[8];
-          unpack16(o4[c], ov);
-          unpack16(d4[c], dv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) d = fmaf(ov[e], dv[e], d);
-        }
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 16);
-      if (lane < 16) {
-        const long long srow = (static_cast<long long>(b) * p.H + h) * p.s_pad + s;
-        p.delta[srow] = s < p.S ? p.lse[row + s] * kLog2e : INFINITY;
-        p.delta[static_cast<long long>(p.B) * p.H * p.s_pad + srow] = d;
-      }
-    }
-    // this thread's rows g and g + 8: D, lse in the log2 domain, the keys
-    // each sees
-    const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
+    // launch (rows past S: 0 and +inf).  Every read of lse, O and dO is
+    // issued before the first is used (read in turns, the dQ launch took
+    // 0.1409 ms against 0.1345 at stablelm-3b's step, H100, kernels/ab.py
+    // --sm90-bwd); this thread's rows g and g + 8 take lse in the log2
+    // domain and the keys each sees.
+    const int sr = r0 + 16 * warp + (lane & 15);
+    const float lse_s = sr < p.S ? p.lse[row + sr] * kLog2e : INFINITY;
     float lse2[2];
     int lo[2], hi[2];
 #pragma unroll
@@ -2798,11 +2812,41 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
       lse2[rr] = qi < p.S ? p.lse[row + qi] * kLog2e : INFINITY;
       row_keys(p, qi, &lo[rr], &hi[rr]);
     }
+    float d = 0.f;
+    if (sr < p.S) {
+      const int chunks = dh / 8, hc = chunks / 2;
+      const int n = lane < 16 ? hc : chunks - hc;  // hc, but at dh 120
+      const long long off = q_off + sr * qs + (lane >> 4) * hc * 8;
+      const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.o) + off);
+      const uint4* d4 =
+          reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) + off);
+      uint4 ov4[DH / 16], dv4[DH / 16];
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c)
+        if (c < n) ov4[c] = o4[c], dv4[c] = d4[c];
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c)
+        if (c < n) {
+          float ov[8], dv[8];
+          unpack16(ov4[c], ov);
+          unpack16(dv4[c], dv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d = fmaf(ov[e], dv[e], d);
+        }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 16);
+    if (lane < 16) {
+      const long long srow = (static_cast<long long>(b) * p.H + h) * p.s_pad + sr;
+      p.delta[srow] = lse_s;
+      p.delta[static_cast<long long>(p.B) * p.H * p.s_pad + srow] = d;
+    }
+    // this thread's rows g and g + 8: D
+    const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
     const float sl2 = p.scale * kLog2e;
     const uint32_t q_wg = sQ + wg * C::kSlab, do_wg = sDO + wg * C::kSlab;
-    float dq[64];
+    float dq[C::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < C::kAcc; ++i) dq[i] = 0.f;
 
     mbar_wait(bar_own, 0);
     uint32_t s = 0, ph = 0;
@@ -2814,8 +2858,8 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
         uint32_t st = ring + s * 2 * C::kTileBytes;
         asm volatile("" : "+r"(st));
         float sacc[32], dp[32];
-        wgmma_rows_n64(sacc, q_wg, C::kOwnSlab, st);                // S = Q K^T
-        wgmma_rows_n64(dp, do_wg, C::kOwnSlab, st + C::kTileBytes);  // dP = dO V^T
+        wgmma_rows_n64<DH>(sacc, q_wg, C::kOwnSlab, st);                // S = Q K^T
+        wgmma_rows_n64<DH>(dp, do_wg, C::kOwnSlab, st + C::kTileBytes);  // dP = dO V^T
         wgmma_wait<1>();
         fence_regs(sacc);
         // P = exp(S scale - lse); entry 4j + 2rr + e: row g + 8rr, key 8j + 2t + e
@@ -2835,8 +2879,7 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
         fence_regs(dp);
 #pragma unroll
         for (int j = 0; j < 32; ++j) sacc[j] *= dp[j] - d_row[(j >> 1) & 1];  // dS
-        wgmma_regs_n128<true>(dq, sacc, st);  // dQ += dS K: dS's bf16 remainder first,
-        wgmma_regs_n128(dq, sacc, st);        // then dS in bf16
+        wgmma_regs<DH, true>(dq, sacc, st);  // dQ += dS K: dS's bf16 remainder, then dS
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);
@@ -2845,12 +2888,13 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
 
     // dQ = scale * the sum in bf16, through this warpgroup's Q rows (its
     // products are done with them); TMA clips rows past S and columns past dh
-    stage_acc<false>(q_wg, C::kOwnSlab, dq, p.scale);
-    store_acc(&tm_dq, q_wg, C::kOwnSlab, 2, 64, wg, h, r0, b);
+    stage_acc<false, DH>(q_wg, C::kOwnSlab, dq, p.scale);
+    store_acc(&tm_dq, q_wg, C::kOwnSlab, C::kSlabs, 64, wg, h, r0, b);
   }
 }
 
-__global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
+template <int DH>
+__global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
@@ -2858,7 +2902,7 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
                                const __grid_constant__ CUtensorMap tm_dk,
                                const __grid_constant__ CUtensorMap tm_dv,
                                const __grid_constant__ CUtensorMap tm_part, const BwdParams p) {
-  using C = Sm90Bwd;
+  using C = Sm90Bwd<DH>;
   constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_bwd90[];
   const uint32_t base = (smem_u32(smem_bwd90) + 1023u) & ~1023u;
@@ -2932,9 +2976,9 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
     for (int rr = 0; rr < 2; ++rr) key_queries(p, k0 + 16 * warp + g + 8 * rr, &lo[rr], &hi[rr]);
     const float sl2 = p.scale * kLog2e;
     const uint32_t own = wg == 0 ? sK : sV;  // S^T = K Q^T, dP^T = V dO^T
-    float acc[64];
+    float acc[C::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
 
     mbar_wait(bar_own, 0);
     uint32_t s = 0, ph = 0, nx = 0;  // nx: the P^T exchanges so far
@@ -2951,7 +2995,7 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
         // this thread's 32 values of P^T in the exchange, as 8 float4
         const uint32_t xb = xch + (nx & 1) * C::kXBytes + (warp * 8 * 32 + lane) * 16;
         float x[32];
-        wgmma_rows_n64(x, own, C::kSlab, wg == 0 ? sq : sdo);
+        wgmma_rows_n64<DH>(x, own, C::kSlab, wg == 0 ? sq : sdo);
         wgmma_wait<0>();
         fence_regs(x);
         if (wg == 0) {
@@ -2972,8 +3016,10 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
             st_shared_v4(xb + j * 32 * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
           }
           named_bar_sync(1, 256);  // P^T is in the exchange
-          if (p.split) wgmma_regs_n128<true>(acc, x, sdo);  // P^T's remainder first
-          wgmma_regs_n128(acc, x, sdo);  // dV += P^T dO
+          if (p.split)
+            wgmma_regs<DH, true>(acc, x, sdo);  // dV += P^T dO: P^T's remainder, then P^T
+          else
+            wgmma_regs<DH>(acc, x, sdo);  // dV += P^T dO
         } else {
           named_bar_sync(1, 256);
           // dS^T = P^T (dP^T - D), D by query
@@ -2987,8 +3033,7 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
             x[4 * j + 2] = pt.z * (x[4 * j + 2] - d2.x);
             x[4 * j + 3] = pt.w * (x[4 * j + 3] - d2.y);
           }
-          wgmma_regs_n128<true>(acc, x, sq);  // dK += dS^T Q: dS^T's remainder first,
-          wgmma_regs_n128(acc, x, sq);        // then dS^T in bf16
+          wgmma_regs<DH, true>(acc, x, sq);  // dK += dS^T Q: dS^T's remainder, then dS^T
         }
         ++nx;
       }
@@ -3005,12 +3050,13 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1)
     named_bar_sync(1, 256);
     if (HS == 1) {
       const uint32_t tile = wg == 0 ? sV : sK;
-      stage_acc<false>(tile, C::kSlab, acc, wg == 0 ? 1.f : p.scale);
-      store_acc(wg == 0 ? &tm_dv : &tm_dk, tile, C::kSlab, 2, 64, wg, kvh, k0, b);
+      stage_acc<false, DH>(tile, C::kSlab, acc, wg == 0 ? 1.f : p.scale);
+      store_acc(wg == 0 ? &tm_dv : &tm_dk, tile, C::kSlab, C::kSlabs, 64, wg, kvh, k0, b);
     } else {
       const uint32_t tile = wg == 0 ? xch : sK;  // 32 KB each
-      stage_acc<true>(tile, C::kSlab, acc, 1.f);
-      store_acc(&tm_part, tile, C::kSlab, 4, 32, wg, kvh, k0, ((wg == 0 ? HS : 0) + hs) * p.B + b);
+      stage_acc<true, DH>(tile, C::kSlab, acc, 1.f);
+      store_acc(&tm_part, tile, C::kSlab, C::kF32Slabs, 32, wg, kvh, k0,
+                ((wg == 0 ? HS : 0) + hs) * p.B + b);
     }
   }
 }
@@ -3214,9 +3260,12 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
 
 // The sm90 backward: the dQ launch (which also writes lse log2(e) and D into
 // the delta scratch), the dK/dV launch and, with head_split > 1, the sum.
+// The tensor maps' extent and strides are the real head dim.
+template <int DH>
 int launch_bwd_sm90(const BwdParams& p, cudaStream_t stream) {
-  using C = Sm90Bwd;
-  const int dh = p.dh;  // 128, or 120 on the same instance
+  using C = Sm90Bwd<DH>;
+  const int dh = p.dh;  // DH, or 120 on the DH 128 instance
+  if (dh != DH && !(DH == 128 && dh == 120)) return static_cast<int>(cudaErrorInvalidValue);
   const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
   CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv, tpart{};
   int err = encode_map(&tq, p.q, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
@@ -3233,17 +3282,17 @@ int launch_bwd_sm90(const BwdParams& p, cudaStream_t stream) {
   if (err) return err;
   const long long q_tiles = (p.S + 127) / 128, kv_tiles = (p.S + C::kTile - 1) / C::kTile;
   if (kv_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = allow_smem<flash_bwd_dq_sm90_kernel>(C::kDqBytes);
+  cudaError_t e = allow_smem<flash_bwd_dq_sm90_kernel<DH>>(C::kDqBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_sm90_kernel<<<dim3(p.H, p.B, static_cast<unsigned>(q_tiles)), C::kThreads,
-                             C::kDqBytes, stream>>>(tq, tk, tv, tdo, tdq, p);
+  flash_bwd_dq_sm90_kernel<DH><<<dim3(p.H, p.B, static_cast<unsigned>(q_tiles)), C::kThreads,
+                                 C::kDqBytes, stream>>>(tq, tk, tv, tdo, tdq, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = allow_smem<flash_bwd_dkdv_sm90_kernel>(C::kKvBytes);
+  e = allow_smem<flash_bwd_dkdv_sm90_kernel<DH>>(C::kKvBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_sm90_kernel<<<dim3(p.K * p.head_split, p.B, static_cast<unsigned>(kv_tiles)),
-                               C::kThreads, C::kKvBytes, stream>>>(tq, tk, tv, tdo, tdk, tdv,
-                                                                   tpart, p);
+  flash_bwd_dkdv_sm90_kernel<DH>
+      <<<dim3(p.K * p.head_split, p.B, static_cast<unsigned>(kv_tiles)), C::kThreads,
+          C::kKvBytes, stream>>>(tq, tk, tv, tdo, tdk, tdv, tpart, p);
   return launch_dkdv_sum<__nv_bfloat16>(p, stream);
 }
 
@@ -3352,7 +3401,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 }
 
 // The sm90 backward body: as flash_attention_bwd, bfloat16 only (dtype 1),
-// head_dim 120 or 128, scale > 0; delta is fp32 scratch of 2 * B * H * s_pad
+// head_dim 80, 120 or 128, scale > 0; delta is fp32 scratch of 2 * B * H * s_pad
 // floats, s_pad = S rounded up to 128 (lse log2(e) and D, written by the dQ
 // launch for the dK/dV launch), 16-byte aligned.  Returns
 // cudaErrorInvalidValue on anything else, else the first launch error or
@@ -3364,8 +3413,8 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
                                         float scale, int head_dim, int dtype, int head_split,
                                         void* partial, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 || dtype != 1 ||
-      (head_dim != 120 && head_dim != 128) || !(scale > 0.f) || head_split < 1 ||
-      (H / K) % head_split || K * head_split > 65535 ||
+      (head_dim != 80 && head_dim != 120 && head_dim != 128) || !(scale > 0.f) ||
+      head_split < 1 || (H / K) % head_split || K * head_split > 65535 ||
       (head_split > 1 && (partial == nullptr || !aligned16(partial))))
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(delta),
@@ -3376,7 +3425,8 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
                     static_cast<float*>(delta), dq, dk, dv, B, S, H, K, causal, window,
                     chunk, scale, head_dim, head_split, static_cast<float*>(partial),
                     (S + 127) / 128 * 128, H / K > kSm90SplitGroup};
-  return launch_bwd_sm90(p, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 80 ? launch_bwd_sm90<80>(p, st) : launch_bwd_sm90<128>(p, st);
 }
 
 // The mma_tf32x3 body: float32 q, k, v and o, laid out as for

@@ -38,14 +38,15 @@ SDPA's bf16 call, by the profiler and by CUDA events.
 
 ``--sm90-bwd`` does it for the bf16 backward's sm90 body
 (``flash_attention_bwd_sm90``), on o and lse from the plain versions: at
-``SM90_BWD_CHECKS`` (dh 120 and 128, ragged S, MHA, GQA, MQA, causal,
+``SM90_BWD_CHECKS`` (dh 80, 120 and 128, ragged S, MHA, GQA, MQA, causal,
 window, chunk and no mask) dq, dk and dv as shares of the bf16 tolerance
 2e-2 (1 + |x|) against autograd of ``mha_ref`` in fp32, and whether two
-runs give the same bits; then at ``SM90_BWD_SHAPES`` (qwen2-vl-2b's train
-step, h2o-danube-3-4b's heads) its device time by kernel at every head
-split the group allows, in turns, beside the first source's mma_bf16 body
-(``flash_attention_bwd``, the pair kernels at ``bwd_head_split``'s split)
-and SDPA's bf16 backward.  It prints the ptxas lines of each variant's
+runs give the same bits; then at ``SM90_BWD_SHAPES`` (qwen2-vl-2b's and
+stablelm-3b's train steps, h2o-danube-3-4b's heads) its device time by
+kernel at every head split the group allows, in turns, beside the first
+source's mma_bf16 body (``flash_attention_bwd``: the pair kernels at
+``bwd_head_split``'s split, the 4-warp kernels at dh 80) and SDPA's bf16
+backward.  It prints the ptxas lines of each variant's
 sm90 backward kernels and exits non-zero on a failed check (after the
 timings).
 """
@@ -96,7 +97,7 @@ SM90_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 256)
 
 
 # --sm90-bwd: the checks, then the timed shapes
-SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (120, 128)
+SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128)
                    for B, S, H, K, kw in (
     (1, 200, 12, 2, dict(causal=True)),
     (2, 333, 8, 8, dict(causal=True)),
@@ -108,6 +109,7 @@ SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (120, 128)
     (4, 1024, 12, 2, dict(causal=True)))]
 SM90_BWD_SHAPES = {
     "qwen2-vl-2b": (4, 1024, 12, 2, 128, dict(causal=True)),
+    "stablelm-3b": (4, 1024, 32, 32, 80, dict(causal=True)),
     "h2o-danube-3-4b": (4, 512, 32, 8, 120, dict(causal=True)),
 }
 

@@ -38,17 +38,19 @@ FlashAttention-2 without atomics on the tensor cores, at every head dim of
 in one of three bodies (``select_bwd_body`` decides from the dtype, the
 head dim and the sign of the scale, and raises on the rest):
 
-* ``sm90``: bfloat16 at dh 120 and 128 (``SM90_BWD_HEAD_DIMS``: qwen2-vl-2b's
-  bf16 train step, h2o-danube-3-4b's heads) with a scale > 0: wgmma, TMA
-  and warp specialisation, P rounded to bf16 once for dV and dS as bf16
+* ``sm90``: bfloat16 at dh 80, 120 and 128 (``SM90_BWD_HEAD_DIMS``:
+  stablelm-3b's and qwen2-vl-2b's bf16 train steps, hubert-xlarge's and
+  h2o-danube-3-4b's heads) with a scale > 0: wgmma, TMA and warp
+  specialisation, compiled for dh 80 and 128 (120 on the 128 instance, TMA
+  zero-filling the columns past dh), P rounded to bf16 once for dV and dS as bf16
   hi + lo for dK and dQ (``ref.mha_grads_by_products`` with
   ``bf16_operands`` and ``ds_matmul=bf16_hilo`` models it), P as hi + lo
   too where a KV head has more than ``SM90_BWD_SPLIT_GROUP`` query heads;
   the dK/dV launch's CTAs take 64 keys (``SM90_BWD_KV_TILE``), one
   warpgroup accumulating dV, the other dK.
-* ``mma_bf16``: every other bfloat16 input (dh 16-80, 160, 256, a scale <=
+* ``mma_bf16``: every other bfloat16 input (dh 16-64, 160, 256, a scale <=
   0), mma.sync with fp32 accumulation, above dh 80 P and dS in hi + lo
-  bf16 products; the sm90 body's previous body, forced by
+  bf16 products; the sm90 body's previous body at dh 80-128, forced by
   ``body="mma_bf16"``.
 * ``mma_tf32x3``: float32 (the training path), every operand split into
   TF32 hi + lo and each product formed from three TF32 products, which
@@ -57,7 +59,8 @@ head dim and the sign of the scale, and raises on the rest):
 The mma bodies run 4 warps a CTA up to dh 80 and above it CTAs of 8 warps
 (120 padded to 128), two (four at 256) to each 16-row group splitting the
 forming of S and dP.  Its calls are counted in
-``flash_attention_bwd_cuda.launches`` (and ``launches_by_body``).
+``flash_attention_bwd_cuda.launches`` (and ``launches_by_body``, and
+``launches_by_head_dim`` each body's by head dim).
 Called outside that Function, ``flash_attention_cuda`` refuses inputs that
 require grad (its output has no ``grad_fn``).
 """
@@ -81,7 +84,7 @@ TF32_HEAD_DIMS = HEAD_DIMS
 # the backward: every head dim the forward takes
 BWD_HEAD_DIMS = HEAD_DIMS
 BWD_BODIES = ("mma_tf32x3", "mma_bf16", "sm90")
-SM90_BWD_HEAD_DIMS = (120, 128)
+SM90_BWD_HEAD_DIMS = (80, 120, 128)
 # the mma bodies' dK/dV CTAs: one a (tile of keys, KV head, batch), every
 # column of dK and dV, the tiles as csrc/flash_attention.cu cuts the keys
 # (BwdCfg up to dh 80, BwdPairCfg::kKvRows above)
@@ -138,14 +141,17 @@ def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int,
     H / K query heads over, on a card of ``sms`` SMs.  On the mma bodies:
     1 at head dims up to 80 (those kernels have no split: their registers
     are at ptxas's limit), else the fewest, doubling, that reach
-    ``BWD_FILL`` CTAs an SM while they divide the group.  On ``sm90``: the
-    smallest divisor of the group (any, 3 and 6 too) that reaches
-    ``SM90_BWD_FILL`` CTAs an SM, else the whole group.  recurrentgemma-9b's MQA step (B 4, S 512, 16
-    heads, one KV head, dh 256) has 16 x 4 = 64 CTAs of 32 keys, each
-    walking 16 heads, and the key tile at the diagonal's start sees 16
-    times the query tiles of the last: 16 splits, 1024 CTAs of one head;
-    stablelm-12b's heads (32 over 8 KV heads, dh 160) 256 CTAs of 4 heads,
-    split 4 ways."""
+    ``BWD_FILL`` CTAs an SM while they divide the group.  On ``sm90``, at
+    each of its head dims (80 too): the smallest divisor of the group (any,
+    3 and 6 too) that reaches ``SM90_BWD_FILL`` CTAs an SM, else the whole
+    group.  recurrentgemma-9b's MQA step (B 4, S 512, 16 heads, one KV
+    head, dh 256) has 16 x 4 = 64 CTAs of 32 keys, each walking 16 heads,
+    and the key tile at the diagonal's start sees 16 times the query tiles
+    of the last: 16 splits, 1024 CTAs of one head; stablelm-12b's heads (32
+    over 8 KV heads, dh 160) 256 CTAs of 4 heads, split 4 ways.  On sm90,
+    stablelm-3b's MHA step (B 4, S 1024, 32 heads, dh 80) has 16 x 32 x 4 =
+    2048 CTAs and nothing to split; a GQA 28 / 4 group at S 1000, batch 1,
+    16 x 4 = 64 CTAs, split 7 ways (448 CTAs)."""
     G, split = H // K, 1
     if body == "sm90":
         ctas = -(-S // SM90_BWD_KV_TILE) * K * B
@@ -159,6 +165,19 @@ def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int,
         split *= 2
     return split
 
+
+def check_head_split(H: int, K: int, dh: int, head_split: int,
+                     body: str) -> None:
+    """Raise unless the dK/dV launch of ``body`` takes ``head_split``: a
+    divisor of the H / K query heads of a KV head, and 1 on the mma bodies
+    at head dims up to 80 (their 4-warp kernels have no split).  The sm90
+    body splits at every head dim it takes."""
+    if head_split < 1 or (H // K) % head_split:
+        raise ValueError(f"head_split {head_split} does not divide the "
+                         f"{H // K} query heads of a KV head")
+    if body != "sm90" and dh <= 80 and head_split > 1:
+        raise ValueError(f"head_split {head_split}: the {body} body has no "
+                         f"split at head dim {dh} (at most 80)")
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -362,11 +381,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     if head_split is None:
         head_split = bwd_head_split(B, S, H, K, dh, multiprocessors(q.device),
                                     body)
-    if head_split < 1 or (H // K) % head_split or (dh <= 80
-                                                    and head_split > 1):
-        raise ValueError(f"head_split {head_split} does not divide the "
-                         f"{H // K} query heads of a KV head, or head dim "
-                         f"{dh} is at most 80 (no split there)")
+    check_head_split(H, K, dh, head_split, body)
     partial = (torch.empty((2, head_split, B, S, K, dh), dtype=torch.float32,
                            device=q.device) if head_split > 1 else None)
     with torch.cuda.device(q.device):
@@ -382,6 +397,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                            f"body): CUDA error {err}")
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.launches_by_body[body] += 1
+    by_dh = flash_attention_bwd_cuda.launches_by_head_dim[body]
+    by_dh[dh] = by_dh.get(dh, 0) + 1
     return dq, dk, dv
 
 
@@ -409,13 +426,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def reset_counts() -> None:
-    """Set the launch counts (forward and backward, total and by body;
-    the forward's also by head dim) to 0."""
+    """Set the launch counts (forward and backward, total, by body and by
+    body and head dim) to 0."""
     flash_attention_cuda.launches = 0
     flash_attention_cuda.launches_by_body = dict.fromkeys(BODIES, 0)
     flash_attention_cuda.launches_by_head_dim = {b: {} for b in BODIES}
     flash_attention_bwd_cuda.launches = 0
     flash_attention_bwd_cuda.launches_by_body = dict.fromkeys(BWD_BODIES, 0)
+    flash_attention_bwd_cuda.launches_by_head_dim = {b: {} for b in BWD_BODIES}
 
 
 reset_counts()

@@ -858,6 +858,8 @@ FLASH_BWD_CASES = [
     # mask, a ragged S past two 128-key tiles
     (1, 300, 12, 2, 128, dict(causal=True)),
     (2, 257, 4, 4, 128, dict(causal=False)),
+    # stablelm-3b's train step (bf16 on the sm90 body at dh 80)
+    (4, 1024, 32, 32, 80, dict(causal=True)),
 ]
 
 
@@ -916,17 +918,21 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, S, H, K, dh, kw):
     assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,H,K,dh,kw", [
-    (2, 300, 8, 1, 256, dict(causal=True, window=100)),
-    (1, 190, 8, 2, 128, dict(causal=True)),
-    (1, 130, 4, 2, 120, dict(causal=False))])
+@pytest.mark.parametrize("B,S,H,K,dh,kw,dtype", [
+    *((*case, dtype) for dtype in DTYPES for case in (
+        (2, 300, 8, 1, 256, dict(causal=True, window=100)),
+        (1, 190, 8, 2, 128, dict(causal=True)),
+        (1, 130, 4, 2, 120, dict(causal=False)))),
+    # bf16 only: at dh 80 the fp32 body (mma_tf32x3's 4-warp kernels) has
+    # no split
+    (1, 1000, 28, 4, 80, dict(causal=True), torch.bfloat16)])
 def test_flash_bwd_head_splits_agree(cuda, dtype, B, S, H, K, dh, kw):
     """The dK/dV launch with each KV head's query heads split over 1, 2
     and all of its group's CTAs (partial sums added in a fixed order by a
     third launch): each against autograd of ``mha_ref`` at the kernel
     tolerance, dq the same bits whatever the split, two calls the same
-    bits."""
+    bits.  At dh 80 only the sm90 body splits (bf16; a group of 7 takes
+    1 and 7)."""
     q, k, v, do, _, _ = _flash_bwd_inputs(cuda, B, S, H, K, dh, dtype)
     with torch.no_grad():
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
@@ -934,7 +940,7 @@ def test_flash_bwd_head_splits_agree(cuda, dtype, B, S, H, K, dh, kw):
     mha_ref(qf, kf, vf, **kw).backward(do.float())
     t = 2e-5 if dtype == torch.float32 else 2e-2
     runs = {}
-    for split in (1, 2, H // K):
+    for split in sorted({s for s in (1, 2, H // K) if (H // K) % s == 0}):
         got = flash_attention_bwd_cuda(q, k, v, out, do, lse, head_split=split,
                                        **kw)
         again = flash_attention_bwd_cuda(q, k, v, out, do, lse,
@@ -976,7 +982,8 @@ def test_flash_bwd_pair_body_matches_split_products(cuda, B, S, H, K, dh, kw,
     (1, 300, 12, 2, 128, dict(causal=True)),        # qwen2-vl-2b's group
     (2, 200, 12, 4, 120, dict(causal=True, window=70)),
     (1, 257, 6, 1, 128, dict(causal=True, chunk=96)),
-    (2, 190, 6, 2, 120, dict(causal=False))])
+    (2, 190, 6, 2, 120, dict(causal=False)),
+    (1, 300, 12, 2, 80, dict(causal=True, window=100))])
 def test_flash_bwd_sm90_head_splits_agree(cuda, B, S, H, K, dh, kw):
     """The sm90 body's dK/dV launch at every head split its group allows
     (any divisor: 3 and 6 too), on TMA-aligned bf16 inputs: each within
@@ -1051,8 +1058,8 @@ def test_flash_sm90_lse_matches_plain(cuda, B, S, H, K, dh, kw):
 ])
 def test_flash_sm90_training_matches_plain(cuda, B, S, H, K, dh, kw):
     """bf16 training at dh 80, 128 and 256 on TMA-aligned inputs: the sm90
-    forward (its log-sum-exp) and the backward (sm90 at dh 128, mma_bf16's
-    pair kernels at 256, its 4-warp kernels at 80) through
+    forward (its log-sum-exp) and the backward (sm90 at dh 80 and 128,
+    mma_bf16's pair kernels at 256) through
     ``ops.flash_attention``; dq, dk, dv against autograd of mha_ref in fp32
     on the same bf16 inputs, within 2e-2 (1 + |x|)."""
     g = torch.Generator(device=cuda).manual_seed(7)

@@ -622,7 +622,7 @@ def test_flash_bwd_body_by_dtype(dh, dtype, want):
     dims as views whose strides TMA cannot read, which the forward sends to
     its mma body (aligned ones take sm90, below).  The backward's choice
     does not look at strides (its wrapper makes every operand contiguous):
-    bf16 at dh 120 and 128 takes its sm90 body from any view."""
+    bf16 at dh 80, 120 and 128 takes its sm90 body from any view."""
     args = (fused(4, 2, dh, extra=1) if dtype == BF16
             and dh in flash.SM90_HEAD_DIMS else qkv(dh=dh, dtype=dtype))
     assert flash_body(*args) in ("mma", "mma_tf32x3", "fp32")
@@ -673,6 +673,49 @@ def test_flash_bwd_sm90_head_split_takes_any_divisor(B, S, H, K, dh, sms,
                for d in range(1, split) if (H // K) % d == 0)
 
 
+@pytest.mark.parametrize("B,S,H,K,dh,want,ctas", [
+    (1, 1000, 28, 4, 80, 7, 448),      # GQA 7:1: 16 x 4 = 64 CTAs, split 7
+    (4, 1024, 32, 32, 80, 1, 2048),    # stablelm-3b's step: 16 x 32 x 4
+])
+def test_flash_bwd_sm90_takes_its_own_head_split_at_dh_80(B, S, H, K, dh,
+                                                          want, ctas):
+    """At dh 80 the sm90 body's dK/dV launch takes the split that
+    ``bwd_head_split`` gives it on 132 SMs (the default call's), which the
+    mma bodies' 4-warp kernels at that head dim refuse."""
+    split = flash.bwd_head_split(B, S, H, K, dh, 132, "sm90")
+    assert split == want
+    assert -(-S // flash.SM90_BWD_KV_TILE) * K * split * B == ctas
+    flash.check_head_split(H, K, dh, split, "sm90")
+    if split > 1:
+        for body in ("mma_bf16", "mma_tf32x3"):
+            with pytest.raises(ValueError, match="no split"):
+                flash.check_head_split(H, K, dh, split, body)
+
+
+@pytest.mark.parametrize("H,K,dh,split,body,refusal", [
+    (28, 4, 80, 7, "sm90", None),
+    (28, 4, 80, 7, "mma_bf16", "no split"),
+    (28, 4, 80, 7, "mma_tf32x3", "no split"),
+    (8, 2, 64, 2, "mma_bf16", "no split"),
+    (28, 4, 80, 1, "mma_bf16", None),
+    (12, 2, 128, 6, "sm90", None),
+    (12, 2, 120, 3, "mma_bf16", None),
+    (16, 1, 256, 16, "mma_tf32x3", None),
+    (28, 4, 80, 3, "sm90", "does not divide"),
+    (12, 2, 128, 4, "mma_bf16", "does not divide"),
+    (28, 4, 80, 0, "sm90", "does not divide"),
+])
+def test_flash_bwd_head_split_validation(H, K, dh, split, body, refusal):
+    """``check_head_split``, which the backward wrapper applies before a
+    launch: a divisor of the group on every body; on the mma bodies, 1 at
+    head dims up to 80; the sm90 body splits at each of its head dims."""
+    if refusal is None:
+        flash.check_head_split(H, K, dh, split, body)
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            flash.check_head_split(H, K, dh, split, body)
+
+
 def test_flash_bwd_kv_slices_are_the_kernels():
     """The dK/dV launch's slices as csrc/flash_attention.cu cuts them:
     of the keys only (BwdCfg up to dh 80, BwdPairCfg::kKvRows above, 64
@@ -704,21 +747,23 @@ def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
     assert -(-S // flash.BWD_KV_TILE[dh]) * K * split * B == want_ctas
 
 
-@pytest.mark.parametrize("dh", [80, 256])
+@pytest.mark.parametrize("dh", [256])
 def test_flash_bwd_takes_the_sm90_forward_to_mma_bf16(dh):
-    """bf16 at dh 80 and 256, aligned: the forward takes the sm90 body,
-    which writes the log-sum-exp, and the backward mma_bf16 (the pair
-    kernels at 256): the body of bf16 training at these head dims."""
+    """bf16 at dh 256, aligned: the forward takes the sm90 body, which
+    writes the log-sum-exp, and the backward mma_bf16 (the pair kernels):
+    the body of bf16 training at this head dim."""
     q, k, v = qkv(dh=dh)
     assert flash.select_body(q, k, v) == "sm90"
     assert flash.select_bwd_body(q, k, v) == "mma_bf16"
 
 
-@pytest.mark.parametrize("dh", [120, 128])
+@pytest.mark.parametrize("dh", [80, 120, 128])
 def test_flash_bwd_takes_the_sm90_forward_to_sm90(dh):
-    """bf16 at dh 120 and 128, aligned (qwen2-vl-2b's bf16 train step,
-    h2o-danube-3-4b's heads): both ways on sm90, the backward's wgmma and
-    TMA body, with the pair kernels still forcible as its previous body."""
+    """bf16 at dh 80, 120 and 128, aligned (stablelm-3b's and qwen2-vl-2b's
+    bf16 train steps, hubert-xlarge's and h2o-danube-3-4b's heads): both
+    ways on sm90, the backward's wgmma and TMA body, with the mma_bf16
+    kernels (4 warps a CTA at 80, the pair kernels above) still forcible as
+    its previous body."""
     q, k, v = qkv(dh=dh)
     assert flash.select_body(q, k, v) == "sm90"
     assert flash.select_bwd_body(q, k, v) == "sm90"
@@ -729,13 +774,13 @@ def test_flash_bwd_takes_the_sm90_forward_to_sm90(dh):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("scale", [None, 0.1, 0.0, -0.1])
 def test_flash_bwd_sm90_only_bf16_at_120_128_scale_above_0(dh, dtype, scale):
-    """sm90 takes bf16 at dh 120 and 128 with a scale > 0 (its softmax
+    """sm90 takes bf16 at dh 80, 120 and 128 with a scale > 0 (its softmax
     exponent folds the scale, as the sm90 forward's does); bf16 at every
     other head dim or scale keeps mma_bf16, float32 mma_tf32x3."""
     takes = flash.bwd_bodies_for(*qkv(dh=dh, dtype=dtype), scale)
     if dtype == F32:
         assert takes == ("mma_tf32x3",)
-    elif dh in (120, 128) and (scale is None or scale > 0):
+    elif dh in (80, 120, 128) and (scale is None or scale > 0):
         assert takes == ("sm90", "mma_bf16")
     else:
         assert takes == ("mma_bf16",)
@@ -744,7 +789,9 @@ def test_flash_bwd_sm90_only_bf16_at_120_128_scale_above_0(dh, dtype, scale):
 @pytest.mark.parametrize("dh,dtype,body,scale", [
     (128, F32, "sm90", None),
     (128, F32, "mma_bf16", None),
-    (80, BF16, "sm90", None),
+    (64, BF16, "sm90", None),
+    (80, F32, "sm90", None),
+    (80, BF16, "sm90", 0.0),
     (256, BF16, "sm90", None),
     (128, BF16, "mma_tf32x3", None),
     (128, BF16, "sm90", -0.1),
@@ -774,12 +821,16 @@ def test_flash_bwd_forced_bodies_reach_the_device_check(body):
 
 def test_flash_bwd_counts_by_body_start_at_zero():
     """``reset_counts`` zeroes the backward's count of every body, sm90's
-    among them, in ``BWD_BODIES``' order."""
+    among them, in ``BWD_BODIES``' order, and empties its count by body and
+    head dim (``chip_smoke.py`` tells the sm90 body's dh-80 launches from
+    its dh-128 ones by it)."""
     flash.reset_counts()
     assert flash.BWD_BODIES == ("mma_tf32x3", "mma_bf16", "sm90")
     assert flash.flash_attention_bwd_cuda.launches == 0
     assert flash.flash_attention_bwd_cuda.launches_by_body == {
         "mma_tf32x3": 0, "mma_bf16": 0, "sm90": 0}
+    assert flash.flash_attention_bwd_cuda.launches_by_head_dim == {
+        "mma_tf32x3": {}, "mma_bf16": {}, "sm90": {}}
 
 
 @pytest.mark.parametrize("dh", [48, 96, 192, 512])

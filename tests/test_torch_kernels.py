@@ -345,6 +345,9 @@ def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
     (1, 300, 12, 2, 128, dict(causal=True, window=100)),
     (1, 300, 16, 4, 120, dict(causal=True, chunk=96)),
     (1, 300, 16, 1, 120, dict(causal=True)),           # MQA: hi + lo
+    (1, 1024, 32, 32, 80, dict(causal=True)),          # stablelm-3b's heads
+    (1, 300, 16, 16, 80, dict(causal=False)),          # hubert-xlarge's
+    (1, 300, 28, 4, 80, dict(causal=True, window=100)),  # GQA 7:1, a window
 ])
 def test_flash_bwd_sm90_bf16_products_hold_bf16_tolerance(B, S, H, K, dh,
                                                           kw, capsys):
@@ -353,8 +356,10 @@ def test_flash_bwd_sm90_bf16_products_hold_bf16_tolerance(B, S, H, K, dh,
     to bf16 once for dV = Pᵀ dO (one wgmma chain, as SDPA's backward rounds
     it) and dS as bf16 hi + lo for dK and dQ (two chains), against jax.grad
     of the JAX reference in fp32 on the same bf16-valued inputs at 2e-2 (1
-    + |x|).  Above ``SM90_BWD_SPLIT_GROUP`` query heads a KV head (MQA's 16
-    here) the body forms P as hi + lo too, and the model with it."""
+    + |x|), at dh 80, 120 and 128 (the body's products do not depend on the
+    head dim but for their length).  Above ``SM90_BWD_SPLIT_GROUP`` query
+    heads a KV head (MQA's 16 here) the body forms P as hi + lo too, and
+    the model with it."""
     rng = np.random.default_rng(7)
 
     def bf16_valued(shape):
