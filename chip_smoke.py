@@ -216,6 +216,18 @@ Phases, each printed as one JSON line:
    backwards at dh 80, 129 RMSNorm forwards and 65 cta_rows backwards a
    step.  Step ms, peak memory beside 16 B and 28 B a parameter, the
    loss-and-gradient call's peak, one more step profiled.
+14. (right after qwen2-7b's serve, on its weights) ``mesh``: the mesh
+   path at world size 1 over NCCL (``launch.mesh.make_debug_mesh``, a
+   (1, 1) ("data", "model") ``DeviceMesh``): qwen2-7b's first serve wave
+   again through the mesh steps on ``serve_shardings``' shards (the same
+   tokens, logits within 2e-2 (1 + |x|)); stablelm-3b at full width cut
+   to 2 layers, one bf16 (``TrainConfig()``, ZeRO-1, ``dots_no_batch``)
+   and one fp32 loss-and-gradient call and step through ``mesh=`` against
+   the plain ones (``TRAIN_CHECK_LIMITS``; fp32 parameters within 2 lr);
+   ``seq_sharded_decode_attention`` at qwen2-7b's decode shape against
+   ``mha_ref``, ``int8_psum`` against its quantize-dequantize and a
+   one-stage ``pp_forward`` against the stack; its launches (the wave's
+   plus the plain steps' own) go to the kernels line as ``mesh``.
 
 Every train phase before 12 runs ``remat_policy="none"``, as it did before
 the port had remat, so its counts, step times and peaks stay comparable;
@@ -257,7 +269,7 @@ leaf within 5e-2 in relative L2 norm).
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve (the two MoE configs and qwen2-vl-2b
 too), train-100m, train-mamba2, train-rgemma-3l, train-qwen2vl-bf16,
-train-qwen2vl-remat, train-stablelm3b-bf16, encode-hubert), the card's
+train-qwen2vl-remat, train-stablelm3b-bf16, encode-hubert, mesh), the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": {...}}`` last.  Any failed check exits non-zero; so does a
 machine without a card.
@@ -2612,7 +2624,7 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
     torch.cuda.reset_peak_memory_stats()
     for module in (flash, rms, lru, ssd):
         module.reset_counts()
-    prefill_ms, decode_s, outs = [], 0.0, []
+    prefill_ms, decode_ms, decode_s, outs, first = [], [], 0.0, [], None
     with torch.inference_mode():
         finite = torch.ones((), dtype=torch.bool, device=dev)
         while queue:
@@ -2627,14 +2639,21 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
             prefill_ms.append((t1 - t0) * 1e3)
             finite &= torch.isfinite(last).all()
             tok = torch.argmax(last, -1)[:, None].to(torch.int32)
-            new = []
+            new, seen = [], [last] if first is None else None
             for _ in range(max_new):
                 tok, logits, cache = dec(params, tok, cache)
                 finite &= torch.isfinite(logits).all()
                 new.append(tok)
+                if seen is not None:
+                    seen.append(logits)
             torch.cuda.synchronize()
-            decode_s += time.monotonic() - t1
+            decode_ms.append((time.monotonic() - t1) * 1e3)
+            decode_s += decode_ms[-1] / 1e3
             outs.append(torch.cat(new, 1).cpu())
+            if first is None:   # the first wave, for the mesh phase
+                first = dict(prompt=toks, tokens=outs[-1],
+                             logits=torch.stack(seen),
+                             prefill_ms=prefill_ms, decode_ms=decode_ms)
     launches = {name: fn.launches for name, fn in kernels.items()}
     by_body = {name: dict(fn.launches_by_body) for name, fn in kernels.items()}
     waves = len(outs)
@@ -2687,7 +2706,7 @@ def phase_serve(dev, gen, seed, arch: str, layers: int | None = None,
           f"serve {arch}: launches by body {by_body}, expected "
           f"{want_by_body}")
     return launches, by_body, (cfg, params, pre, dec,
-                               {"tokens": toks, **image}, max_len)
+                               {"tokens": toks, **image}, max_len), first
 
 
 def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
@@ -3934,6 +3953,300 @@ def phase_encode_hubert(dev, seed, batch: int = 1, seq: int = 32768,
     return launches, by_body
 
 
+# the mesh phase: the serve whose weights and first wave it takes, and the
+# train step it runs (stablelm-3b at full width cut to 2 layers)
+MESH_SERVE = "qwen2-7b"
+MESH_TRAIN_LAYERS = 2
+# the flash-decode check at qwen2-7b's decode shape: q (B, 1, H, dh) over
+# a cache of S slots (K heads), the first FILLED slots filled
+MESH_DECODE = dict(B=4, H=28, K=4, dh=128, S=544, filled=272)
+
+
+def phase_mesh(dev, seed, served, first):
+    """The port's mesh path on the card, in this process: NCCL at world
+    size 1 (``launch.mesh.make_debug_mesh``: a (1, 1) ("data", "model")
+    mesh on ``cuda``, an in-process store), the reference's
+    ``make_debug_mesh(1)``.
+
+    1. ``MESH_SERVE`` (qwen2-7b whole, bf16, the serve phase's weights)
+       serves the serve phase's first wave (batch 4, prompt 512, 32
+       greedy tokens) through ``make_prefill_step`` / ``make_decode_step``
+       with ``mesh=`` on the shards of ``serve_shardings``: its tokens
+       equal the serve phase's, its logits within 2e-2 (1 + |x|).
+    2. stablelm-3b at full width cut to ``MESH_TRAIN_LAYERS`` layers,
+       ``TrainConfig()`` (bf16, ``dots_no_batch``, ZeRO-1) and the same in
+       fp32: ``make_loss_and_grad`` and ``make_train_step`` with ``mesh=``
+       on ``train_shardings``' shards against the plain ones on the same
+       weights and batch (4 x 1024), within ``TRAIN_CHECK_LIMITS``; the fp32
+       step's parameters within 2 lr of the plain step's.
+    3. ``seq_sharded_decode_attention`` on CUDA tensors at qwen2-7b's decode
+       shape (``MESH_DECODE``) against ``mha_ref`` (bf16, 2e-2 (1 + |x|)),
+       ``int8_psum`` against its quantize-dequantize (exactly), and
+       ``pp_forward`` with one stage against the stack (fp32, 2e-4 of the
+       largest value).
+
+    Times (host clock, synchronised): first one all-reduce on each axis's
+    group, the communicators' set-up (``comm_warm_s``); the mesh wave
+    beside the serve phase's waves (its first one cold), each mesh step (a
+    loss-and-gradient call and a train step) beside the plain one before
+    it (cold), then each mesh step and plain step again (warm).  The
+    launch counts are zeroed before 1 and read after 2 (the
+    plain steps run before and after, the checks of 3 after): they must be
+    the wave's
+    (2L + 1 RMSNorms a position, L sm90 flash forwards at dh 128 in
+    prefill) plus the plain steps' own.  The process group is destroyed at
+    the end.  Returns (launches, launches by body) as a train phase does."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_cache, init_params, param_specs
+    from repro_torch.models.model import _make_ctx, _run_stack
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.compress import int8_psum
+    from repro_torch.parallel.flash_decode import seq_sharded_decode_attention
+    from repro_torch.parallel.pipeline import pp_forward, pp_stage_body
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.train.steps import (TrainConfig, make_decode_step,
+                                         make_loss_and_grad, make_prefill_step,
+                                         make_train_step, serve_shardings,
+                                         train_shardings)
+    t_phase = time.monotonic()
+    mesh = make_debug_mesh(device=dev)
+    init_s = time.monotonic() - t_phase
+    backend = dist.get_backend()
+    try:
+        # NCCL brings a communicator up at its first collective: one
+        # all-reduce on each axis's group here, timed apart, so that no
+        # timed step below pays for it
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for axis in mesh.mesh_dim_names:
+            dist.all_reduce(torch.zeros(1, device=dev),
+                            group=mesh.get_group(axis))
+        torch.cuda.synchronize()
+        comm_warm_s = time.monotonic() - t0
+        # ---- the plain steps (the reference; before the counted window)
+        cfg_t = dataclasses.replace(get_config("stablelm-3b"),
+                                    num_layers=MESH_TRAIN_LAYERS)
+        tcs = {"bfloat16": TrainConfig(),
+               "float32": TrainConfig(dtype=torch.float32)}
+        params = init_params(cfg_t, device=dev, dtype=torch.float32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(seed))
+        data = next(iter(SyntheticLM(cfg_t, batch=4, seq_len=1024,
+                                     seed=seed)))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        lr = torch.tensor(1e-3)
+        opt = init_opt_state(params)
+        _reset_launches()
+        plain = {}
+        for name, tc in tcs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, _, grads = make_loss_and_grad(cfg_t, tc)(params, batch)
+            new_p, _, m = make_train_step(cfg_t, tc)(params, opt, batch, lr)
+            torch.cuda.synchronize()
+            plain[name] = dict(loss=float(total), grads=grads, new=new_p,
+                               step_loss=float(m["loss"]),
+                               ms=(time.perf_counter() - t0) * 1e3)
+        plain_launches = (_count_launches(), _bf16_by_body())
+
+        # ---- the counted window: the mesh wave, then the mesh steps
+        cfg, w_params, _, _, _, max_len = served
+        prompt = first["prompt"]
+        B, max_new = prompt.shape[0], len(first["logits"]) - 1
+        cache = init_cache(cfg, B, max_len, torch.bfloat16, device=dev)
+        sh = serve_shardings(cfg, mesh, w_params, cache, B, max_len)
+        lp, lc = shard_tree(w_params, sh["params"]), shard_tree(cache,
+                                                                sh["cache"])
+        kw = dict(dtype=torch.bfloat16, mesh=mesh, batch=B, max_len=max_len)
+        pre, dec = make_prefill_step(cfg, **kw), make_decode_step(cfg, **kw)
+        _reset_launches()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            w0 = time.monotonic()
+            last, lc = pre(lp, {"tokens": prompt}, lc)
+            torch.cuda.synchronize()
+            w1 = time.monotonic()
+            seen, toks = [last], []
+            tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+            for _ in range(max_new):
+                tok, logits, lc = dec(lp, tok, lc)
+                seen.append(logits)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            w2 = time.monotonic()
+        del lp, lc, cache
+        seen, toks = torch.stack(seen), torch.cat(toks, 1).cpu()
+        want = first["logits"].float()
+        wave_err = float(((seen.float() - want).abs()
+                          / (1 + want.abs())).max())
+        wave_same = bool(torch.equal(toks, first["tokens"]))
+        del seen, want
+
+        tsh = train_shardings(cfg_t, mesh, param_specs(cfg_t), batch,
+                              zero1=True)
+        local = shard_tree({"p": params, "o": opt, "b": batch},
+                           {"p": tsh["params"], "o": tsh["opt"],
+                            "b": tsh["batch"]})
+        on_mesh = {}
+        for name, tc in tcs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, _, grads = make_loss_and_grad(cfg_t, tc, mesh=mesh)(
+                local["p"], local["b"])
+            new_p, _, m = make_train_step(cfg_t, tc, mesh=mesh)(
+                local["p"], local["o"], local["b"], lr)
+            torch.cuda.synchronize()
+            on_mesh[name] = dict(loss=float(total), grads=grads, new=new_p,
+                                 step_loss=float(m["loss"]),
+                                 ms=(time.perf_counter() - t0) * 1e3)
+        launches, by_body = _count_launches(), _bf16_by_body()
+        for name, tc in tcs.items():    # each step again, warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make_loss_and_grad(cfg_t, tc, mesh=mesh)(local["p"], local["b"])
+            make_train_step(cfg_t, tc, mesh=mesh)(local["p"], local["o"],
+                                                  local["b"], lr)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            make_loss_and_grad(cfg_t, tc)(params, batch)
+            make_train_step(cfg_t, tc)(params, opt, batch, lr)
+            torch.cuda.synchronize()
+            on_mesh[name]["ms_again"] = (t1 - t0) * 1e3
+            plain[name]["ms_again"] = (time.perf_counter() - t1) * 1e3
+        L = cfg.num_layers
+        wave_want = {"rmsnorm": ((2 * L + 1) * (1 + max_new), 0),
+                     "flash_attention": (L, 0), "rglru": (0, 0),
+                     "ssd": (0, 0)}
+        wave_by_body = {
+            "rmsnorm": {"one_read": (2 * L + 1) * (1 + max_new),
+                        "generic": 0},
+            "flash_attention": {"sm90": L, "mma": 0, "mma_tf32x3": 0,
+                                "fp32": 0},
+            "flash_attention_by_head_dim": {
+                "sm90": {cfg.resolved_head_dim: L}}}
+        want_launches = _summed(plain_launches[0], wave_want)
+        want_by_body = _summed(plain_launches[1], wave_by_body)
+
+        # ---- the steps against the plain ones
+        steps = {}
+        ok_steps = True
+        for name, tc in tcs.items():
+            a, b = on_mesh[name], plain[name]
+            limits = TRAIN_CHECK_LIMITS[tc.dtype]
+            pairs = list(zip(_leaves(a["grads"]), _leaves(b["grads"])))
+            if limits["grad_metric"] == "l2":
+                grad = max(float((x.float() - y.float()).norm()
+                                 / max(float(y.float().norm()), 1e-30))
+                           for x, y in pairs)
+            else:
+                grad = max(float((x - y).abs().max())
+                           / max(float(y.abs().max()), 1e-30)
+                           for x, y in pairs)
+            loss = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            step_loss = abs(a["step_loss"] - b["step_loss"]) / abs(
+                b["step_loss"])
+            param = max(float((x.float() - y.float()).abs().max())
+                        for x, y in zip(_leaves(a["new"]),
+                                        _leaves(b["new"])))
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in _leaves(a["new"]))
+            steps[name] = dict(loss_mesh=a["loss"], loss_plain=b["loss"],
+                               loss_rel_err=loss, step_loss_rel_err=step_loss,
+                               grad_metric=limits["grad_metric"],
+                               grad_rel_err=grad, loss_tol=limits["loss"],
+                               grad_tol=limits["grad"],
+                               param_max_abs_err=param,
+                               param_bound=2 * float(lr), finite=finite,
+                               ms_plain=b["ms"], ms_mesh=a["ms"],
+                               ms_mesh_again=a["ms_again"],
+                               ms_plain_again=b["ms_again"])
+            ok_steps &= (finite and loss < limits["loss"]
+                         and step_loss < limits["loss"]
+                         and grad < limits["grad"]
+                         and (tc.dtype != torch.float32
+                              or param <= 2 * float(lr)))
+        del on_mesh, plain, local, params, opt, grads, new_p
+
+        # ---- flash-decode, int8_psum, the one-stage pipeline
+        g = torch.Generator(device=dev).manual_seed(seed)
+        d = MESH_DECODE
+        bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+        q = torch.randn(d["B"], 1, d["H"], d["dh"], **bf)
+        k = torch.randn(d["B"], d["S"], d["K"], d["dh"], **bf)
+        v = torch.randn(d["B"], d["S"], d["K"], d["dh"], **bf)
+        slots = torch.arange(d["S"], device=dev, dtype=torch.int32)
+        k_pos = torch.where(slots < d["filled"], slots, -1)
+        t = d["filled"] - 1
+        got = seq_sharded_decode_attention(mesh, ("model",), q, k, v, k_pos,
+                                           t, causal=True)
+        ref = mha_ref(q, k, v, causal=True,
+                      q_positions=torch.full((d["B"], 1), t,
+                                             dtype=torch.int32, device=dev),
+                      k_positions=k_pos[None].expand(d["B"], d["S"]))
+        decode_err = float(((got.float() - ref.float()).abs()
+                            / (1 + ref.float().abs())).max())
+        x = torch.randn(4096, 2560, device=dev, generator=g)
+        scale = x.abs().max() / 127.0
+        qd = torch.clamp(torch.round(x / scale), -127, 127) * scale
+        psum_same = bool(torch.equal(int8_psum(x, mesh, "data"), qd))
+        mesh3 = init_device_mesh(mesh.device_type, (1, 1, 1),
+                                 mesh_dim_names=("pod", "data", "model"))
+        p32 = init_params(cfg_t, device=dev, dtype=torch.float32,
+                          generator=g)
+        xm = torch.randn(2, 2, 256, cfg_t.d_model, device=dev, generator=g)
+        pos = torch.arange(256, dtype=torch.int32, device=dev).expand(2, 256)
+        ctx = _make_ctx(cfg_t, pos, None, 0)
+        with torch.no_grad():
+            pp = pp_forward(mesh3, pp_stage_body(cfg_t, ctx, torch.float32),
+                            p32["blocks"], xm)
+            seq = torch.stack([_run_stack(p32, xm[i], cfg_t, ctx, None)[0]
+                               for i in range(xm.shape[0])])
+        pp_err = float((pp - seq).abs().max() / seq.abs().max())
+        del p32, xm, pp, seq, x, qd
+    finally:
+        dist.destroy_process_group()
+    emit("mesh", mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         backend=backend, world_size=1, init_s=init_s,
+         comm_warm_s=comm_warm_s,
+         serve=dict(arch=cfg.name, layers=cfg.num_layers, batch=B,
+                    prompt=prompt.shape[1], new_tokens=max_new,
+                    tokens_equal=wave_same, logits_err=wave_err,
+                    logits_tol=2e-2, prefill_ms_mesh=(w1 - w0) * 1e3,
+                    prefill_ms_plain_waves=first["prefill_ms"],
+                    decode_ms_mesh=(w2 - w1) * 1e3,
+                    decode_ms_plain_waves=first["decode_ms"],
+                    cache_spec=str(sh["cache_specs"]["blocks"][0]["k"])),
+         train=dict(arch=cfg_t.name, layers=cfg_t.num_layers,
+                    d_model=cfg_t.d_model, batch=4, seq=1024, zero1=True,
+                    remat_policy=tcs["bfloat16"].remat_policy, **steps),
+         flash_decode=dict(shape=d, max_abs_err_rel=decode_err, tol=2e-2),
+         int8_psum_equal=psum_same, pp_forward_rel_err=pp_err,
+         pp_tol=2e-4, launches={k: dict(forward=f, backward=b)
+                                for k, (f, b) in launches.items()},
+         launches_expected={k: dict(forward=f, backward=b)
+                            for k, (f, b) in want_launches.items()},
+         launches_by_body=by_body,
+         launches_by_body_expected=want_by_body,
+         seconds=time.monotonic() - t_phase)
+    check(wave_same and wave_err <= 2e-2,
+          f"mesh: {cfg.name} wave: tokens equal {wave_same}, logits "
+          f"{wave_err}")
+    check(ok_steps, f"mesh: {cfg_t.name} steps against the plain: {steps}")
+    check(decode_err <= 2e-2, f"mesh: flash_decode {decode_err}")
+    check(psum_same, "mesh: int8_psum differs from its quantize-dequantize")
+    check(pp_err <= 2e-4, f"mesh: pp_forward {pp_err}")
+    check(launches == want_launches and by_body == want_by_body,
+          f"mesh: launches {launches} by body {by_body}, expected "
+          f"{want_launches} / {want_by_body}")
+    return launches, by_body
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -4166,19 +4479,22 @@ def main() -> int:
     # after ssd_bodies, whose limit was set on the weights it draws
     phase_serve_check(dev, gen, "qwen2-vl-2b", layers=4, B=2, P=128)
     launches, by_body = {}, {}
+    train, train_by_body = {}, {}
     for arch, layers, reduced in SERVES:
         gc.collect()
         torch.cuda.empty_cache()
-        launches[arch], by_body[arch], served = phase_serve(
+        launches[arch], by_body[arch], served, first = phase_serve(
             dev, gen, args.seed, arch, layers, reduced)
         phase_profile(dev, *served)
-        del served          # free this model's weights before the next one
+        if arch == MESH_SERVE:  # on this serve's weights, while they last
+            train["mesh"], train_by_body["mesh"] = phase_mesh(
+                dev, args.seed, served, first)
+        del served, first   # free this model's weights before the next one
     gc.collect()
     torch.cuda.empty_cache()
     train_checks(dev, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    train, train_by_body = {}, {}
     for path, phase in (("train-100m", phase_train),
                         ("train-mamba2", phase_train_mamba2),
                         ("train-rgemma-3l", phase_train_rgemma_3l),

@@ -17,8 +17,20 @@ checkpoint.  The artifact is device-agnostic: restore puts the tensors on
 whatever device the caller names.
 
 The port's copy of the reference's manager: the same files, the same
-COMMIT protocol, GC and finalizer; leaves are torch tensors, and restore
-takes a device where the reference takes shardings (one card has no mesh).
+COMMIT protocol, GC and finalizer; leaves are torch tensors, restore puts
+them on a device and, given shardings, cuts this rank's shards from them.
+
+On a mesh (``mesh=``) the artifact stays the same mesh-agnostic one:
+``save(..., shardings=)`` gathers the full tensors leaf by leaf onto the
+host of the rank at the mesh's origin (global rank 0), and that rank
+alone writes through CannyFS (the step directory, every leaf, then COMMIT
+once).  The other ranks hold the save as pending; the next
+``wait_for_save`` (the next save, a restore, the end of a run) broadcasts
+the writer's outcome, so no rank can go on to restore or restart from a
+step whose COMMIT never landed.  On restore the writer picks the step and
+broadcasts it (the other ranks never list the directory that the
+writer's mount writes); every rank reads that step's files onto the host
+and moves its own shards to the device, whatever mesh saved it.
 """
 from __future__ import annotations
 
@@ -27,8 +39,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.core import CannyError, CannyFS, is_under, norm_path
 from repro_torch.core.durability import commit_marker_ok
+from repro_torch.parallel.sharding import (gather_tree_to_origin,
+                                           origin_rank, place_tree)
 
 # ledger kinds that cannot be a checkpoint write failure — a failed or
 # cancelled readdir-prefetch stat on the step dir must not condemn a save
@@ -61,20 +78,27 @@ class SaveResult:
 
 class TransactionalCheckpointManager:
     def __init__(self, fs: CannyFS, directory: str = "ckpt", *,
-                 keep: int = 3):
+                 keep: int = 3, mesh=None):
         self.fs = fs
         self.dir = norm_path(directory)
         self.keep = keep
+        self.mesh = mesh
+        self.writer = mesh is None or dist.get_rank() == origin_rank(mesh)
         self._lock = threading.Lock()
         self._finalizer: Optional[threading.Thread] = None
+        self._pending: Optional[SaveResult] = None
         self._results: list[SaveResult] = []
         # steps whose COMMIT this manager validated or wrote itself —
         # lets _gc use the validated list without re-reading markers
         self._committed_cache: set[int] = set()
-        with fs.detached():   # the ckpt root is not any transaction's output
-            if not fs.exists(self.dir):
-                fs.makedirs(self.dir)
-        self.rollback_uncommitted()
+        if self.writer:
+            with fs.detached():   # the root is not any transaction's output
+                if not fs.exists(self.dir):
+                    fs.makedirs(self.dir)
+            self.rollback_uncommitted()
+            fs.drain()
+        if mesh is not None:      # the others read the root after its repair
+            dist.barrier()
 
     # ------------------------------------------------------------------
 
@@ -162,15 +186,26 @@ class TransactionalCheckpointManager:
 
     # ------------------------------------------------------------------
 
-    def save(self, step: int, state: Any, *, block: bool = False) -> SaveResult:
+    def save(self, step: int, state: Any, *, block: bool = False,
+             shardings: Any = None) -> SaveResult:
         """Eagerly-ACKed checkpoint save.  Returns as soon as all writes are
         queued (device→host copy included); a background finalizer commits.
-        ``state`` is a tree of tensors (or numpy arrays) on any device.
+        ``state`` is a tree of tensors (or numpy arrays) on any device; on a
+        mesh, this rank's shards under ``shardings`` (every rank calls).
         """
         self.wait_for_save()          # one in-flight checkpoint at a time
         t0 = time.monotonic()
         d = self._step_dir(step)
         res = SaveResult(step=step, directory=d)
+        if shardings is not None:
+            state = gather_tree_to_origin(state, shardings, self.mesh)
+        if self.mesh is not None:
+            self._pending = res
+        if not self.writer:
+            res.ack_s = time.monotonic() - t0
+            if block:
+                self.wait_for_save()
+            return res
         manifest, leaves = flatten_for_save(state)
         under_d = self._under_dir(d)
 
@@ -270,6 +305,8 @@ class TransactionalCheckpointManager:
 
         if block:
             finalize()
+            if self.mesh is not None:
+                self.wait_for_save()
         else:
             self._finalizer = threading.Thread(target=finalize, daemon=True,
                                                name=f"ckpt-commit-{step}")
@@ -281,6 +318,25 @@ class TransactionalCheckpointManager:
         if t is not None:
             t.join()
             self._finalizer = None
+        res, self._pending = self._pending, None
+        if res is not None:          # on a mesh: the writer's outcome
+            ok = bool(self._from_writer(int(res.ok)))
+            if not self.writer:
+                res.ok = ok
+                res.error = None if ok else "the writer's save failed"
+                with self._lock:
+                    self._results.append(res)
+
+    def _from_writer(self, value: int) -> int:
+        """The writer's ``value`` on every rank of the mesh (as is without
+        one)."""
+        if self.mesh is None:
+            return value
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if self.mesh.device_type == "cuda" else torch.device("cpu")
+        t = torch.tensor([value], dtype=torch.int64, device=dev)
+        dist.broadcast(t, src=origin_rank(self.mesh))
+        return int(t.item())
 
     def _gc(self) -> None:
         # validated list via the committed-step cache: zero marker reads
@@ -298,20 +354,30 @@ class TransactionalCheckpointManager:
     # ------------------------------------------------------------------
 
     def restore(self, like: Any, *, step: Optional[int] = None,
-                device=None) -> tuple[int, Any]:
+                device=None, shardings: Any = None) -> tuple[int, Any]:
         """Restore the latest (or given) committed checkpoint into the
         structure of ``like`` (only its structure is read: a tree of meta
         tensors will do), as tensors on ``device`` (None: the CPU), in the
-        dtypes the manifest names."""
+        dtypes the manifest names.  ``shardings`` (a matching tree of
+        ``NamedSharding``, None for a leaf kept whole) reshards on restore:
+        the artifact is mesh-agnostic, so any mesh restores it; it is read
+        onto the host and only this rank's shards reach ``device``."""
         self.wait_for_save()
-        steps = self.list_steps()
-        if not steps:
+        chosen = -1
+        if self.writer:
+            steps = self.list_steps()
+            if steps:
+                chosen = steps[-1] if step is None else step
+        step = self._from_writer(chosen)
+        if step < 0:
             raise FileNotFoundError("no committed checkpoint found")
-        step = steps[-1] if step is None else step
         d = self._step_dir(step)
         manifest = parse_manifest(self.fs.read_file(f"{d}/{MANIFEST_FILE}"))
         blobs: dict[str, bytes] = {}
         for key in manifest["leaves"]:
             fname = key.replace("/", "__") + ".bin"
             blobs[key] = self.fs.read_file(f"{d}/{fname}")
-        return step, unflatten_from(manifest, blobs, like, device)
+        if shardings is None:
+            return step, unflatten_from(manifest, blobs, like, device)
+        return step, place_tree(unflatten_from(manifest, blobs, like),
+                                shardings, device)

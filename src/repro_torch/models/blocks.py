@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import WHOLE
 from repro_torch.kernels.rglru.ref import rglru_gates
 from repro_torch.kernels.ssd.ref import ssd_decode_step
 from .config import ATTN_KINDS, ModelConfig
@@ -197,7 +199,19 @@ def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
     """Attention output; a given cache is written in place: prefill
     (S > 1, t == 0) fills slots [0, S) and ``pos[:S] = arange(S)`` (a prompt
     longer than the ring cache keeps its last Sc tokens, each at slot
-    ``p % Sc``), decode writes slot ``t % Sc`` and ``pos[slot] = t``."""
+    ``p % Sc``), decode writes slot ``t % Sc`` and ``pos[slot] = t``.
+    On a ``model`` axis above 1 the block is tensor-parallel
+    (``_attn_tp``)."""
+    con = ctx.get("constrain", WHOLE)
+    if con.size > 1:
+        return _attn_tp(p, x, kind, ctx, cache)
+    return _attn_whole(p, x, kind, ctx, cache)
+
+
+def _attn_whole(p: dict, x: torch.Tensor, kind: str, ctx: dict,
+                cache: Optional[dict] = None):
+    """The block on whole heads: one device, or a block whose weights the
+    rules replicate."""
     cfg: ModelConfig = ctx["cfg"]
     B, S, D = x.shape
     H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -210,39 +224,200 @@ def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
         q = apply_rotary(q, ctx["cos"], ctx["sin"])
         k = apply_rotary(k, ctx["cos"], ctx["sin"])
 
+    out = _attend(q, k, v, ctx, cache, causal, window, chunk)
+    out = out.reshape(B, S, H * dh)
+    return dense(out, p["wo"])
+
+
+def _attend(q, k, v, ctx: dict, cache: Optional[dict], causal: bool,
+            window: int, chunk: int):
+    """Self-attention of q (B,S,Hx,dh) over k / v (B,S,Kx,dh), and the
+    cache's writes and decode read where there is one (its Kx heads)."""
+    B, S = q.shape[:2]
     if cache is None:  # full-sequence self-attention
         out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                    chunk=chunk)
     else:
         Sc = cache["k"].shape[1]
         t = ctx["t"]  # tokens already in the cache
+        _write_slots(cache, k, v, t, 0, Sc)
         if S > 1:      # prefill (t == 0)
-            pos = torch.arange(S, dtype=torch.int32, device=x.device)
-            if S <= Sc:
-                cache["k"][:, :S] = k
-                cache["v"][:, :S] = v
-                cache["pos"][:S] = pos
-            else:      # ring cache (sliding / chunked) shorter than the prompt
-                shift = S % Sc
-                cache["k"].copy_(torch.roll(k[:, S - Sc:], shift, dims=1))
-                cache["v"].copy_(torch.roll(v[:, S - Sc:], shift, dims=1))
-                cache["pos"].copy_(torch.roll(pos[S - Sc:], shift))
             out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                        chunk=chunk)
         else:          # decode one token at position t
-            slot = t % Sc
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
-            cache["pos"][slot] = t
-            q_pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+            q_pos = torch.full((B, 1), t, dtype=torch.int32, device=q.device)
             k_pos = cache["pos"][None].expand(B, Sc)
             out = kops.flash_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 causal=causal, window=window, chunk=chunk, q_positions=q_pos,
                 k_positions=k_pos)
+    return out
 
-    out = out.reshape(B, S, H * dh)
-    return dense(out, p["wo"])
+
+def cache_slots(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """The slots of a layer's KV ring: a window or chunk, or ``max_len``."""
+    if kind in ("attn_sliding", "attn_local"):
+        return min(cfg.window, max_len)
+    if kind == "attn_chunked":
+        return min(cfg.chunk_size, max_len)
+    return max_len
+
+
+def _write_slots(cache: dict, k, v, t: int, lo: int, Sc: int) -> None:
+    """Write the new tokens' k / v (B, S, K, dh) into the slots
+    [lo, lo + Sl) of a ring of Sc that ``cache`` holds (Sl its length; a
+    whole cache: lo 0, Sl = Sc).  Prefill (S > 1, t == 0) fills slots
+    [0, S) with positions 0..S-1, or, for a prompt longer than the ring,
+    its last Sc tokens each at slot ``p % Sc``; decode writes slot
+    ``t % Sc``."""
+    S, Sl = k.shape[1], cache["k"].shape[1]
+    dev = k.device
+    if S > 1:                                       # prefill (t == 0)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        if S <= Sc:
+            a, b = max(lo, 0), min(lo + Sl, S)
+            if a < b:
+                cache["k"][:, a - lo:b - lo] = k[:, a:b]
+                cache["v"][:, a - lo:b - lo] = v[:, a:b]
+                cache["pos"][a - lo:b - lo] = pos[a:b]
+        else:
+            shift = S % Sc
+            cache["k"].copy_(torch.roll(k[:, S - Sc:], shift,
+                                        dims=1)[:, lo:lo + Sl])
+            cache["v"].copy_(torch.roll(v[:, S - Sc:], shift,
+                                        dims=1)[:, lo:lo + Sl])
+            cache["pos"].copy_(torch.roll(pos[S - Sc:], shift)[lo:lo + Sl])
+    else:                                           # decode at position t
+        slot = t % Sc
+        if lo <= slot < lo + Sl:
+            cache["k"][:, slot - lo] = k[:, 0]
+            cache["v"][:, slot - lo] = v[:, 0]
+            cache["pos"][slot - lo] = t
+
+
+def _group_kv(k, v, q_heads: range, kv_lo: int, G: int):
+    """k / v heads from ``kv_lo`` on, so that the flash kernel's grouping
+    (query head i reads KV head i // (nq / nk)) gives each query head of
+    ``q_heads`` its own KV head (h // G): as they are where that holds,
+    else one KV head for each query head."""
+    want = [h // G - kv_lo for h in q_heads]
+    nq, nk = len(want), k.shape[2]
+    if nq % nk == 0 and want == [i // (nq // nk) for i in range(nq)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_tp(p: dict, x: torch.Tensor, kind: str, ctx: dict,
+             cache: Optional[dict] = None):
+    """Tensor-parallel attention (Megatron): wq / wk / wv column-parallel,
+    wo row-parallel, its partial sums summed over ``model``.
+
+    Rank r holds columns [r Cq, (r + 1) Cq) of wq and the same rows of wo.
+    It computes the query heads those columns touch and the KV heads they
+    read (h // G), gathering a projection's columns from the other ranks
+    where the reference's rule cuts a head (it shards wk / wv whenever
+    K·dh divides over ``model``, K = 2 on model 4 too: there each rank
+    holds half a KV head), and keeps its Cq columns of the output.  A
+    cache holds this rank's KV heads (K divides over ``model``), or all K
+    heads, split along the sequence over ``ctx["kv_seq_axes"]`` (decode by
+    ``parallel.flash_decode``) or whole."""
+    cfg: ModelConfig = ctx["cfg"]
+    con = ctx["constrain"]
+    H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G = H // K
+    if p["wo"].shape[-2] == H * dh:
+        raise NotImplementedError(
+            f"{cfg.name}: attention whose H·dh = {H * dh} does not divide "
+            f"over model={con.size} (the rules replicate it)")
+    causal, window, chunk, use_rope = _attn_geometry(cfg, kind)
+    r = con.index
+    h = con.enter(x)
+    B, S, _ = h.shape
+    kv_sharded = p["wk"].shape[-1] != K * dh
+    if kv_sharded:
+        wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    else:           # replicated weights feeding this rank's heads only
+        wk, wv = con.param(p["wk"]), con.param(p["wv"])
+        bk, bv = (None if p.get(n) is None else con.param(p[n])
+                  for n in ("bk", "bv"))
+    q = dense(h, p["wq"], p.get("bq"))
+    k = dense(h, wk, bk)
+    v = dense(h, wv, bv)
+    Cq = q.shape[-1]
+    c0, c1 = r * Cq, (r + 1) * Cq
+    hq = range(c0 // dh, -(-c1 // dh))
+    kv0, kv1 = hq[0] // G, hq[-1] // G + 1
+
+    def rope(t):
+        return apply_rotary(t, ctx["cos"], ctx["sin"]) if use_rope else t
+
+    full = {}
+
+    def whole(name, t, sharded):
+        if name not in full:
+            full[name] = con.gather_last(t) if sharded else t
+        return full[name]
+
+    def heads(name, t, lo, hi, sharded):
+        """Heads [lo, hi) of projection ``t`` (B, S, columns)."""
+        C = t.shape[-1]
+        if sharded and lo * dh == r * C and hi * dh == (r + 1) * C:
+            cols = t
+        else:
+            cols = whole(name, t, sharded)[..., lo * dh:hi * dh]
+        return cols.reshape(B, S, hi - lo, dh)
+
+    qh = rope(heads("q", q, hq[0], hq[-1] + 1, True))
+    all_kv = cache is not None and cache["k"].shape[2] == K
+    if all_kv:
+        # the cache holds every KV head: this rank writes its slots of them
+        k_all = rope(heads("k", k, 0, K, kv_sharded))
+        v_all = heads("v", v, 0, K, kv_sharded)
+        axes = ctx.get("kv_seq_axes") or ()
+        Sc = cache_slots(cfg, kind, ctx["max_len"]) if axes \
+            else cache["k"].shape[1]
+        idx, n = C.axes_index(ctx["mesh"], axes) if axes else (0, 1)
+        split = bool(axes) and Sc % n == 0 and cache["k"].shape[1] != Sc
+        t = ctx["t"]
+        _write_slots(cache, k_all, v_all, t, idx * cache["k"].shape[1]
+                     if split else 0, Sc)
+        if S == 1 and split:
+            # sequence-split cache -> distributed flash-decode on all heads
+            from repro_torch.parallel.flash_decode import (
+                seq_sharded_decode_attention)
+            q_all = rope(heads("q", q, 0, H, True))
+            out = seq_sharded_decode_attention(
+                ctx["mesh"], axes, q_all, cache["k"].to(q.dtype),
+                cache["v"].to(q.dtype), cache["pos"], t,
+                batch_axes=ctx.get("kv_batch_axes", ()), causal=causal,
+                window=window, chunk=chunk)
+            out = out.reshape(B, S, H * dh)[..., c0:c1]
+            return con.exit(dense(out, p["wo"]))
+        if S == 1:
+            kh, vh = _group_kv(cache["k"][:, :, kv0:kv1].to(q.dtype),
+                               cache["v"][:, :, kv0:kv1].to(q.dtype), hq,
+                               kv0, G)
+            Sc = cache["k"].shape[1]
+            out = kops.flash_attention(
+                qh, kh, vh, causal=causal, window=window, chunk=chunk,
+                q_positions=torch.full((B, 1), t, dtype=torch.int32,
+                                       device=x.device),
+                k_positions=cache["pos"][None].expand(B, Sc))
+        else:
+            kh, vh = _group_kv(k_all[:, :, kv0:kv1], v_all[:, :, kv0:kv1],
+                               hq, kv0, G)
+            out = kops.flash_attention(qh, kh, vh, causal=causal,
+                                       window=window, chunk=chunk)
+    else:
+        kh = rope(heads("k", k, kv0, kv1, kv_sharded))
+        vh = heads("v", v, kv0, kv1, kv_sharded)
+        if cache is None:
+            kh, vh = _group_kv(kh, vh, hq, kv0, G)
+        out = _attend(qh, kh, vh, ctx, cache, causal, window, chunk)
+    out = out.reshape(B, S, len(hq) * dh)
+    out = out[..., c0 - hq[0] * dh:c1 - hq[0] * dh]
+    return con.exit(dense(out, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -434,29 +609,49 @@ def ssd_forward(p: dict, x: torch.Tensor, ctx: dict,
 # block application (pre-norm residual layer)
 # ---------------------------------------------------------------------------
 
+def _ffn(h: torch.Tensor, p: dict, cfg: ModelConfig, con) -> torch.Tensor:
+    """The dense gated FFN: gate / up column-parallel, down row-parallel
+    on a ``model`` axis above 1."""
+    if con.size == 1:
+        return gated_mlp(h, p, cfg.act)
+    if p["gate"].shape[-1] == cfg.d_ff:
+        raise NotImplementedError(
+            f"{cfg.name}: an FFN whose d_ff = {cfg.d_ff} does not divide "
+            f"over model={con.size} (the rules replicate it)")
+    return con.exit(gated_mlp(con.enter(h), p, cfg.act))
+
+
 def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
                 cache: Optional[dict] = None):
     """One full layer: mixer + dense gated FFN or MoE (neither for
     mixer-only layers), pre-norm residuals.  Returns (x, aux_loss): the
     MoE's load-balance loss (fp32), the number 0.0 for a layer without one
-    (no tensor made on the card per layer)."""
+    (no tensor made on the card per layer).
+
+    ``ctx["constrain"]`` (``parallel.sharding.Constrainer``; none: one
+    device) holds the mesh's layout: attention and the FFN run tensor-parallel on a ``model``
+    axis above 1, the SSD mixer (replicated by the rules) whole on every
+    rank (the model's entry points refuse the blocks that tensor
+    parallelism does not cover yet, ``model._check_mesh``)."""
     cfg: ModelConfig = ctx["cfg"]
+    con = ctx.get("constrain", WHOLE)
     aux = 0.0
-    h = rmsnorm(x, p["norm1"], eps=cfg.norm_eps)
+    h = rmsnorm(x, con.norm_scale(p["norm1"]), eps=cfg.norm_eps)
     if kind in ATTN_KINDS:
         mixed = attn_forward(p["mixer"], h, kind, ctx, cache)
     elif kind == "rglru":
         mixed = rglru_forward(p["mixer"], h, ctx, cache)
     elif kind == "ssd":
-        mixed = ssd_forward(p["mixer"], h, ctx, cache)
+        mixed = con.replicated(
+            lambda a: ssd_forward(p["mixer"], a, ctx, cache), h)
     else:
         raise ValueError(kind)
     x = x + mixed
     if "moe" in p or "ffn" in p:
-        h = rmsnorm(x, p["norm2"], eps=cfg.norm_eps)
+        h = rmsnorm(x, con.norm_scale(p["norm2"]), eps=cfg.norm_eps)
         if "moe" in p:
             y, aux = moe_forward(p["moe"], h, ctx)
         else:
-            y = gated_mlp(h, p["ffn"], cfg.act)
+            y = _ffn(h, p["ffn"], cfg, con)
         x = x + y
     return x, aux

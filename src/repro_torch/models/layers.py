@@ -51,6 +51,36 @@ def unembed(x: torch.Tensor, table_or_head: torch.Tensor, *,
     return logits
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 0.0,
+              compute_dtype=torch.float32, vocab=None) -> torch.Tensor:
+    """Per-token CE (with z-loss) in fp32, as ``cross_entropy`` reduces it.
+
+    ``vocab``: the ``Constrainer`` of a mesh whose ``model`` ranks each hold
+    a contiguous slice of the vocabulary's logits (the vocabulary-parallel
+    head): the max, the sum of exponentials and the gold logit are then
+    reduced over ``model``, so the log-sum-exp (and the z-loss on it) is
+    the whole vocabulary's, and no rank holds (B, S, V)."""
+    logits = logits.to(compute_dtype)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    if vocab is not None:
+        m = vocab.max(m)
+    sumexp = torch.exp(logits - m).sum(dim=-1, dtype=torch.float32)
+    if vocab is not None:
+        sumexp = vocab.reduce(sumexp)
+    lse = torch.log(sumexp) + m[..., 0].float()
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    if vocab is not None:
+        ids = ids + vocab.index * logits.shape[-1]
+    gold = torch.where(ids == labels[..., None], logits, 0.0).sum(
+        dim=-1, dtype=torch.float32)
+    if vocab is not None:
+        gold = vocab.reduce(gold)
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return nll
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None, z_loss: float = 0.0,
                   compute_dtype=torch.float32):
@@ -62,16 +92,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     is taken by a masked reduction over the vocabulary, not a gather.
     compute_dtype=bfloat16 skips the fp32 copy of the (B,S,V) logits; the
     reductions still accumulate in fp32."""
-    logits = logits.to(compute_dtype)
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    sumexp = torch.exp(logits - m).sum(dim=-1, dtype=torch.float32)
-    lse = torch.log(sumexp) + m[..., 0].float()
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    gold = torch.where(vocab == labels[..., None], logits, 0.0).sum(
-        dim=-1, dtype=torch.float32)
-    nll = lse - gold
-    if z_loss:
-        nll = nll + z_loss * lse.square()
+    nll = token_nll(logits, labels, z_loss, compute_dtype)
     if mask is None:
         return nll.mean(), nll.numel()
     mask = mask.float()

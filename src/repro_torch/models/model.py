@@ -25,9 +25,11 @@ without MoE); prefill and decode discard it, as the reference does.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.parallel import wrap_remat
+from repro_torch.parallel.sharding import WHOLE
 from . import blocks
 from .config import ModelConfig
 from .layers import embed, rmsnorm, unembed
@@ -102,14 +104,6 @@ def param_specs(cfg: ModelConfig, *, dtype=torch.float32) -> dict:
 # cache
 # ---------------------------------------------------------------------------
 
-def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
-    if kind in ("attn_sliding", "attn_local"):
-        return min(cfg.window, max_len)
-    if kind == "attn_chunked":
-        return min(cfg.chunk_size, max_len)
-    return max_len
-
-
 def _init_block_cache(cfg: ModelConfig, kind: str, B: int, max_len: int,
                       dtype, device, lead: tuple) -> dict:
     if kind == "ssd":
@@ -129,7 +123,7 @@ def _init_block_cache(cfg: ModelConfig, kind: str, B: int, max_len: int,
             "h": torch.zeros(lead + (B, W), dtype=torch.float32,
                              device=device),
         }
-    Sc = _cache_len(cfg, kind, max_len)
+    Sc = blocks.cache_slots(cfg, kind, max_len)
     K, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros(lead + (B, Sc, K, dh), dtype=dtype, device=device),
@@ -156,9 +150,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _make_ctx(cfg: ModelConfig, positions: torch.Tensor,
-              positions3: torch.Tensor | None, t: int) -> dict:
+              positions3: torch.Tensor | None, t: int, constrain=None,
+              extra_ctx: dict | None = None) -> dict:
     """cos / sin of the positions: M-RoPE takes ``positions3`` (3, B, S),
-    or the text ids of ``positions`` where it is None."""
+    or the text ids of ``positions`` where it is None.  ``constrain``: the
+    mesh's ``Constrainer`` (none: one device); ``extra_ctx``: the serving
+    context of ``train.steps.serve_extra_ctx`` (the mesh, the cache's
+    sequence axes)."""
     dh = cfg.resolved_head_dim
     if cfg.pos_type == "mrope":
         p3 = positions3 if positions3 is not None else \
@@ -168,17 +166,51 @@ def _make_ctx(cfg: ModelConfig, positions: torch.Tensor,
         cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
     else:
         cos = sin = None
-    return {"cfg": cfg, "cos": cos, "sin": sin, "t": t}
+    ctx = {"cfg": cfg, "cos": cos, "sin": sin, "t": t,
+           "constrain": constrain or WHOLE}
+    if extra_ctx:
+        ctx.update(extra_ctx)
+    return ctx
 
 
-def _embed_inputs(params, batch, cfg: ModelConfig, dtype):
+def _embed_tokens(tokens, table, cfg: ModelConfig, dtype, con):
+    """The token embeddings.  A table split over ``model`` by vocabulary
+    rows: each rank looks up the tokens in its rows (zeros elsewhere) and
+    the partial embeddings are summed (reduce-scattered along the sequence
+    under ``dp_sp``)."""
+    if con.size == 1 or table.shape[0] == cfg.vocab_size:
+        return con.to_sequence_shard(embed(tokens, table, dtype))
+    rows = table.shape[0]
+    local = tokens - con.index * rows
+    hit = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), table)
+    return con.exit(x.masked_fill(~hit[..., None], 0).to(dtype))
+
+
+def _check_mesh(cfg: ModelConfig, con) -> None:
+    """Refuse, before any work, a model with blocks the mesh's layout does
+    not cover yet: under tensor parallelism the MoE experts, the RG-LRU
+    width and the audio frontend; under data parallelism the MoE block
+    (its capacity and load-balance loss are global-batch statistics)."""
+    if cfg.num_experts:
+        con.refuse_tp("MoE experts (expert parallelism)")
+        con.refuse_dp("the MoE block's capacity and load-balance loss")
+    if "rglru" in cfg._layer_kinds():
+        con.refuse_tp("the RG-LRU block's width")
+    if cfg.modality == "audio_stub":
+        con.refuse_tp("the audio frontend (frontend_proj)")
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig, dtype, con=WHOLE):
     """The token embeddings, or the stub frontends' inputs: the audio stub
     projects precomputed frame features (B, S, 512) to d_model; the vision
     stub scatters precomputed patch embeddings (B, n_img, D) over the
     positions where ``vision_mask`` (B, S) is True (early fusion)."""
     if cfg.modality == "audio_stub":
         return batch["features"].to(dtype) @ params["frontend_proj"].to(dtype)
-    x = embed(batch["tokens"], params["embed"], dtype)
+    if cfg.modality == "vision_stub" and "vision_embeds" in batch:
+        con.refuse_tp("the vision scatter (vision_embeds)")
+    x = _embed_tokens(batch["tokens"], params["embed"], cfg, dtype, con)
     if cfg.modality == "vision_stub" and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(dtype)            # (B, n_img, D)
         mask = batch["vision_mask"].bool()               # (B, S)
@@ -236,11 +268,25 @@ def _run_stack(params, x, cfg: ModelConfig, ctx, cache,
     return x, aux
 
 
-def _head(params, x, cfg: ModelConfig):
-    x = rmsnorm(x, params["final_norm"].to(x.dtype), eps=cfg.norm_eps)
+def _head(params, x, cfg: ModelConfig, con=WHOLE):
+    """The final norm and the logits; a table split over ``model`` by
+    vocabulary gives each rank its slice of the vocabulary's logits (the
+    vocabulary-parallel head: ``layers.token_nll(..., vocab=)`` reduces
+    them)."""
+    x = rmsnorm(x, con.norm_scale(params["final_norm"].to(x.dtype)),
+                eps=cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    rows = table.shape[0] if cfg.tie_embeddings else table.shape[1]
+    x = con.enter(x) if rows != cfg.vocab_size else con.gather_sequence(x)
     return unembed(x, table, tied=cfg.tie_embeddings,
                    softcap=cfg.logit_softcap)
+
+
+def _whole_vocab(logits, cfg: ModelConfig, con):
+    """Logits of every word: gathered over ``model`` from a split head."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return con.gather_last(logits)
 
 
 # ---------------------------------------------------------------------------
@@ -248,44 +294,59 @@ def _head(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
-                  remat_policy: str | None = None):
+                  remat_policy: str | None = None, constrain=None,
+                  extra_ctx: dict | None = None):
     """Full-sequence forward; returns (logits (B,S,V), aux_loss).
     ``remat_policy`` (one of ``parallel.POLICIES``) checkpoints each
-    superblock when grad mode is on."""
-    x = _embed_inputs(params, batch, cfg, dtype)
-    B, S = x.shape[:2]
+    superblock when grad mode is on.  On a mesh (``constrain``, the
+    ``Constrainer`` of ``parallel.activation_constrainer``) ``params`` and
+    ``batch`` are this rank's shards, and the logits are this rank's
+    vocabulary slice where the head is split."""
+    con = constrain or WHOLE
+    _check_mesh(cfg, con)
+    x = _embed_inputs(params, batch, cfg, dtype, con)
+    B, S = batch["tokens" if "tokens" in batch else "features"].shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0)
+    ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0, con,
+                    extra_ctx)
     x, aux = _run_stack(params, x, cfg, ctx, None, remat_policy)
-    return _head(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32,
-                                                  device=x.device)
+    return _head(params, x, cfg, con), torch.as_tensor(
+        aux, dtype=torch.float32, device=x.device)
 
 
-def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16):
+def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16,
+            constrain=None, extra_ctx: dict | None = None):
     """Process the prompt, fill the cache, return last-position logits only
     (never materializes (B,S,V))."""
-    x = _embed_inputs(params, batch, cfg, dtype)
+    con = constrain or WHOLE
+    _check_mesh(cfg, con)
+    x = _embed_inputs(params, batch, cfg, dtype, con)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0)
+    ctx = _make_ctx(cfg, positions, batch.get("positions3"), 0, con,
+                    extra_ctx)
     x, _ = _run_stack(params, x, cfg, ctx, cache)
     cache["t"] = S
-    logits = _head(params, x[:, -1:].contiguous(), cfg)
-    return logits[:, 0], cache
+    logits = _head(params, x[:, -1:].contiguous(), cfg, con)
+    return _whole_vocab(logits, cfg, con)[:, 0], cache
 
 
 def decode_step(params, tokens, cache, cfg: ModelConfig, *,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, constrain=None,
+                extra_ctx: dict | None = None):
     """One decode step: tokens (B,1) int -> (logits (B,V), cache)."""
-    x = embed(tokens, params["embed"], dtype)
+    con = constrain or WHOLE
+    _check_mesh(cfg, con)
+    x = _embed_tokens(tokens, params["embed"], cfg, dtype, con)
     B = x.shape[0]
     t = cache["t"]
     positions = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    ctx = _make_ctx(cfg, positions, None, t)     # text ids, as the reference
+    ctx = _make_ctx(cfg, positions, None, t, con,  # text ids, as the reference
+                    extra_ctx)
     x, _ = _run_stack(params, x, cfg, ctx, cache)
     cache["t"] = t + 1
-    logits = _head(params, x, cfg)
-    return logits[:, 0], cache
+    logits = _head(params, x, cfg, con)
+    return _whole_vocab(logits, cfg, con)[:, 0], cache

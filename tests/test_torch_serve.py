@@ -466,6 +466,13 @@ def test_port_imports_neither_jax_nor_repro():
     files += [ROOT / "examples" / name
               for name in ("serve_batch_torch.py", "train_lm_torch.py")]
     assert len(files) > 20
+    # the mesh slice's modules are among them
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "launch" / "mesh.py", port / "parallel" / "sharding.py",
+            port / "parallel" / "compress.py",
+            port / "parallel" / "flash_decode.py",
+            port / "parallel" / "pipeline.py",
+            port / "parallel" / "collectives.py"} <= set(files)
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert offenders == []
