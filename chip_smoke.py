@@ -13,8 +13,8 @@ Phases, each printed as one JSON line:
    fp32 mma_tf32x3 body (every head dim, 8 warps a CTA at 160 and 256), a
    kernel of the SSD mma, mma_tf32x3 or RG-LRU segmented bodies or a
    backward kernel (the scans' too; flash's pair kernels above dh 80 and
-   its bf16 sm90 backward at dh 80 and 128) spills, or ptxas ignored a
-   ``setmaxnreg`` (C7508).
+   its bf16 sm90 backward at dh 80, 128, 160 and 256) spills, or ptxas
+   ignored a ``setmaxnreg`` (C7508).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
@@ -89,10 +89,20 @@ Phases, each printed as one JSON line:
    k/v (4,512,1,256), window 2048) and at stablelm-12b's heads (q
    (4,512,32,160), k/v (4,512,8,160)): the mma_tf32x3 forward beside the
    FMA body, the pair backward by kernel, its head splits one by one, each
-   beside SDPA's fp32 call and the plain version,
-   and its bf16 kernels beside SDPA's bf16 backward and the plain version
+   beside SDPA's fp32 call and the plain version
    (``flash_rgemma_kernels``; ``ms_windows``: each profiler window's total
-   beside the median).  The mma body's chunk scan is also held, at one bf16 step of y
+   beside the median).  The bf16 backward at dh 256 and 160 on the sm90
+   body's column halves (``sm90_bwd_kernels``): at those two shapes
+   and at the train_4k steps of recurrentgemma-9b (q (1,4096,16,256), k/v
+   (1,4096,1,256), window 2048, biting) and stablelm-12b (q
+   (1,4096,32,160), k/v (1,4096,8,160)), against autograd of ``mha_ref``
+   in fp32, two runs bit for bit, every head split held, by kernel, beside
+   the pair kernels forced as its previous body and held to the same limit,
+   SDPA's bf16 backward (and where the window bites its ``is_causal``
+   call) and the plain one; then held at ragged S 1100 with windows that
+   bite.  The same function (``SM90_BWD_SHAPES``) times and holds the
+   sm90 backward at qwen2-vl-2b's and stablelm-3b's train shapes.
+   The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
    ``ms``,
@@ -228,13 +238,27 @@ Phases, each printed as one JSON line:
    ``mha_ref``, ``int8_psum`` against its quantize-dequantize and a
    one-stage ``pp_forward`` against the stack; its launches (the wave's
    plus the plain steps' own) go to the kernels line as ``mesh``.
+15. (after 9) ``train_rgemma_bf16``: recurrentgemma-9b at full width cut
+   to 3 layers (its first superblock), ``TrainConfig()`` (bf16,
+   ``dots_no_batch``), batch 1 x 4096 (``train_4k``'s sequence: the
+   window of 2048 bites), 10 steps: losses finite, the first batch's loss
+   falling; 2 sm90 flash forwards and 1 sm90 backward at dh 256 a step
+   (the sm90 backward's column halves), 4 RG-LRU forwards and 2 backwards
+   on the segmented bodies, 13 RMSNorm forwards and 7 cta_rows backwards.
+   Step ms, peak memory beside 16 B and 28 B a parameter, the
+   loss-and-gradient call's peak, one more step profiled.
+16. (after 13) ``train_stablelm12b_bf16``: stablelm-12b at full width cut
+   to 2 layers the same way: 4 flash forwards on the mma body (with its
+   log-sum-exp) and 2 sm90 backwards at dh 160 a step, 9 RMSNorm forwards
+   and 5 cta_rows backwards.
 
 Every train phase before 12 runs ``remat_policy="none"``, as it did before
 the port had remat, so its counts, step times and peaks stay comparable;
 ``train_check`` adds stablelm-3b at full width cut to 2 layers in bf16
-under ``dots_no_batch``, and ``kernels`` holds rmsnorm at rows of 2560 both
-ways, the sm90 forward with its lse and the bf16 backward at
-stablelm-3b's train shape (q, k, v (4, 1024, 32, 80)): the sm90 body's
+under ``dots_no_batch`` (and recurrentgemma-9b at its check width and 3
+layers the same way: the sm90 backward at dh 256), and ``kernels`` holds
+rmsnorm at rows of 2560 both ways, the sm90 forward with its lse and the
+bf16 backward at stablelm-3b's train shape (q, k, v (4, 1024, 32, 80)): the sm90 body's
 dh-80 instance (``Sm90Bwd<80>``), by kernel and two runs bit for bit,
 beside mma_bf16's 4-warp kernels forced as its previous body.
 
@@ -269,7 +293,8 @@ leaf within 5e-2 in relative L2 norm).
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve (the two MoE configs and qwen2-vl-2b
 too), train-100m, train-mamba2, train-rgemma-3l, train-qwen2vl-bf16,
-train-qwen2vl-remat, train-stablelm3b-bf16, encode-hubert, mesh), the card's
+train-qwen2vl-remat, train-stablelm3b-bf16, train-rgemma-bf16,
+train-stablelm12b-bf16, encode-hubert, mesh), the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": {...}}`` last.  Any failed check exits non-zero; so does a
 machine without a card.
@@ -623,8 +648,9 @@ def phase_env(build):
     # the backward kernels: flash's dQ and dK/dV at 4 compiled head dims up
     # to 80 (16, 32, 64, 80) and their pair kernels at 3 above (128 (120
     # too), 160, 256) x 2 dtypes (28), the bf16 sm90 body's dQ and dK/dV
-    # kernels at 80 and 128 (120 too) (4) and the sum of the dK/dV head
-    # split's partials (2); rmsnorm's warp_rows body (14: 4 type pairs x vectors a lane 1,
+    # kernels at 80, 128 (120 too), 160 and 256 (8) and the sum of the
+    # dK/dV head split's partials (2); rmsnorm's warp_rows body (14: 4 type
+    # pairs x vectors a lane 1,
     # 2, 4 and, for fp32 x, 8) and its dscale tree (2), its cta_rows body
     # (12: 2 scale types x vectors a lane 5-8 for fp32 x and 3-4 for bf16),
     # and the generic body (4 type pairs and 2 dscale sums)
@@ -635,7 +661,7 @@ def phase_env(build):
                "rmsnorm_bwd_rows_kernel", "rmsnorm_dscale_tree_kernel",
                "rmsnorm_bwd_cta_kernel"))}
     emit("env", backward_ptxas=bwd)
-    check(len(bwd) == 68 and all(
+    check(len(bwd) == 72 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in bwd.values()), f"a backward kernel spills: {bwd}")
     # the fp32 forward's mma_tf32x3 flash kernels, one a compiled head dim
@@ -1581,22 +1607,13 @@ def sm90_lse_kernels(dev, gen, cases, summary):
     """The sm90 body with its log-sum-exp, at ``SM90_LSE_CASES``: the lse
     against ``lse_ref`` within ``LSE_TOL``, O bit-equal to the call
     without lse, and (dq, dk, dv) of ``FlashAttentionFunction`` (the sm90
-    forward, the backward the inputs take: sm90 at dh 80, 120 and 128,
-    else mma_bf16) against autograd of mha_ref in fp32 on the same bf16 inputs
-    within 2e-2 (1 + |x|).  Then the sm90 device time with and without lse
-    at qwen2-7b's prefill shape and at qwen2-vl-2b's train shape, and there
-    the forward (with lse) and the backward (sm90, at every head split of
-    its dK/dV launch, beside the pair kernels forced as its previous body,
-    by kernel, and two runs bit for bit) beside SDPA's bf16 forward and
-    backward (whether SDPA's own gradient holds the tolerance:
-    ``library_ok``), the plain versions and their bounds; and the bf16
-    backward at dh 80 at stablelm-3b's train shape, the same way (sm90 by
-    kernel and two runs bit for bit, beside mma_bf16's 4-warp kernels
-    forced as its previous body)
-    (``summary["flash_attention_sm90_lse"]``,
-    ``summary["flash_attention_bwd_bf16"]`` and
-    ``summary["flash_attention_bwd_bf16_dh80"]``)."""
-    from repro_torch.device import multiprocessors
+    forward, the backward the inputs take: sm90 at ``SM90_BWD_HEAD_DIMS``,
+    else mma_bf16) against autograd of mha_ref in fp32 on the same bf16
+    inputs within 2e-2 (1 + |x|).  Then the sm90 device time with and
+    without lse at qwen2-7b's prefill shape and at qwen2-vl-2b's train
+    shape beside SDPA's bf16 forward, the plain version and the bound
+    (``summary["flash_attention_sm90_lse"]``); last the bf16 backward at
+    its train shapes (``sm90_bwd_kernels``)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
@@ -1670,152 +1687,7 @@ def sm90_lse_kernels(dev, gen, cases, summary):
         profiler_windows=window_counts(mark))
     emit("kernels", kernel="flash_attention_sm90_lse", timings=timings)
 
-    # the bf16 backward at qwen2-vl-2b's train shape, on the sm90 forward's
-    # o and lse: the sm90 body (its dK/dV launch at every head split the
-    # group of 6 allows) beside the pair kernels it replaced
-    # (body="mma_bf16"), SDPA's bf16 backward and the plain one
-    q, k, v, do, kw = inputs["qwen2-vl-2b"]
-    B, S, H, dh = q.shape
-    K = k.shape[2]
-    sms = multiprocessors(dev)
-    pos = torch.arange(S, device=dev)
-    pairs = int(attention_mask(pos, pos, **kw).sum())
-    with torch.no_grad():
-        out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-
-    def bwd(**force):
-        return lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
-            q, k, v, out, do, lse, **kw, **force)
-    kernel, previous = bwd(), bwd(body="mma_bf16")
-    fl = [t.float().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
-    del fl
-    # bytes: q, k, v, o, dO (bf16) and lse read, dq, dk, dv written; the
-    # five products of the visible pairs once each at the bf16 rate (the
-    # body forms seven: S and dP in each launch)
-    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
-                        + lse.nbytes, 5 * 2 * B * H * pairs * dh, bf16)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    plain_out = mha_ref(*leaves, **kw)
-    lib_out = F.scaled_dot_product_attention(
-        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
-    library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
-    got, again = kernel(), kernel()
-    errs = [compare(g, w, bf16) for g, w in zip(got, want)]
-    lib_errs = [compare(g, w, bf16) for g, w in zip(library(), want)]
-    splits = [d for d in range(1, H // K + 1) if (H // K) % d == 0]
-    mark = len(PROFILER_WINDOWS)
-    summary["flash_attention_bwd_bf16"] = dict(
-        name="flash_attention_bwd_bf16", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
-                 "gradient: JAX differentiates the jnp reference)",
-        counted_as=("flash_attention_bwd", "sm90", (120, 128)),
-        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
-              "on the sm90 forward's o and lse (the qwen2-vl-2b step)",
-        body=flash.select_bwd_body(q, k, v),
-        head_split=flash.bwd_head_split(B, S, H, K, dh, sms, "sm90"),
-        ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
-        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
-        head_split_ms={d: device_ms(bwd(head_split=d)) for d in splits},
-        previous_body="mma_bf16 (the pair kernels: mma.sync, P and dS in "
-                      "hi + lo bf16 products)",
-        previous_body_head_split=flash.bwd_head_split(B, S, H, K, dh, sms),
-        previous_body_ms=device_ms(previous),
-        previous_body_ms_windows=WINDOW_MS[-1],
-        previous_kernel_ms=kernel_breakdown(previous),
-        forward_ms=summary["flash_attention_sm90_lse"]["ms"],
-        plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
-        library="SDPA's bf16 backward", library_ms=device_ms(library),
-        library_ms_windows=WINDOW_MS[-1], library_event_ms=time_ms(library),
-        library_forward_ms=summary["flash_attention_sm90_lse"]["library_ms"],
-        bound_ms=t_bound, bound_by=by,
-        seven_products_bound_ms=7 * 2 * B * H * pairs * dh
-        / PEAK_OPS_PER_S[bf16] * 1e3,
-        pairs=pairs, tol=TOL[bf16],
-        max_abs_err=max(e for e, _ in errs),
-        deterministic=all(torch.equal(a, b) for a, b in zip(got, again)),
-        previous_max_abs_err=max(compare(g, w, bf16)[0]
-                                 for g, w in zip(previous(), want)),
-        library_max_abs_err=max(e for e, _ in lib_errs),
-        library_ok=all(ok for _, ok in lib_errs),
-        profiler_windows=window_counts(mark))
-    entry = summary["flash_attention_bwd_bf16"]
-    check(entry["body"] == "sm90" and all(ok for _, ok in errs)
-          and entry["deterministic"],
-          f"flash bf16 backward at {entry['shape']}: body {entry['body']}, "
-          f"max error {entry['max_abs_err']}, deterministic "
-          f"{entry['deterministic']}")
-    del got, again, want, leaves, plain_out, lib_out, library
-
-    # the bf16 backward at dh 80 at stablelm-3b's train step, on the sm90
-    # forward's o and lse: the sm90 body (Sm90Bwd<80>; MHA, nothing to
-    # split) beside mma_bf16's 4-warp kernels (BwdCfg) it replaced,
-    # SDPA's bf16 backward and the plain one
-    B, S, H, K, dh = STABLELM_TRAIN_ATTN
-    q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
-                               device=dev).to(bf16) for n in (H, K, K, H))
-    with torch.no_grad():
-        out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
-
-    def bwd80(**force):
-        return lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
-            q, k, v, out, do, lse, **force)
-    kernel, previous = bwd80(), bwd80(body="mma_bf16")
-    pos = torch.arange(S, device=dev)
-    pairs = int(attention_mask(pos, pos, causal=True).sum())
-    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
-                        + lse.nbytes, 5 * 2 * B * H * pairs * dh, bf16)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    fl = [t.float().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(mha_ref(*fl), fl, do.float())
-    del fl
-    plain_out = mha_ref(*leaves)
-    lib_out = F.scaled_dot_product_attention(
-        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
-    library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
-    got, again = kernel(), kernel()
-    errs = [compare(g, w, bf16) for g, w in zip(got, want)]
-    mark = len(PROFILER_WINDOWS)
-    summary["flash_attention_bwd_bf16_dh80"] = dh80 = dict(
-        name="flash_attention_bwd_bf16_dh80", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
-                 "gradient: JAX differentiates the jnp reference)",
-        counted_as=("flash_attention_bwd", "sm90", (80,)),
-        shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
-              "on the sm90 forward's o and lse (the stablelm-3b step)",
-        body=flash.select_bwd_body(q, k, v),
-        head_split=flash.bwd_head_split(B, S, H, K, dh, sms, "sm90"),
-        ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
-        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
-        previous_body="mma_bf16 (BwdCfg's 4-warp kernels: mma.sync, "
-                      "32-row streamed tiles)",
-        previous_body_ms=device_ms(previous),
-        previous_body_ms_windows=WINDOW_MS[-1],
-        previous_kernel_ms=kernel_breakdown(previous),
-        plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
-        library="SDPA's bf16 backward", library_ms=device_ms(library),
-        library_ms_windows=WINDOW_MS[-1], library_event_ms=time_ms(library),
-        bound_ms=t_bound, bound_by=by,
-        seven_products_bound_ms=7 * 2 * B * H * pairs * dh
-        / PEAK_OPS_PER_S[bf16] * 1e3,
-        pairs=pairs, tol=TOL[bf16],
-        max_abs_err=max(e for e, _ in errs),
-        deterministic=all(torch.equal(a, b) for a, b in zip(got, again)),
-        previous_max_abs_err=max(compare(g, w, bf16)[0]
-                                 for g, w in zip(previous(), want)),
-        library_max_abs_err=max(compare(g, w, bf16)[0]
-                                for g, w in zip(library(), want)),
-        profiler_windows=window_counts(mark))
-    check(dh80["body"] == "sm90" and all(ok for _, ok in errs)
-          and dh80["deterministic"],
-          f"flash bf16 backward at {dh80['shape']}: body {dh80['body']}, "
-          f"errors {[e for e, _ in errs]}, deterministic "
-          f"{dh80['deterministic']}")
-    del got, again, want, leaves, plain_out, lib_out, library
-    emit("kernels", kernel="flash_attention_bwd_bf16", timings={
-        entry["shape"]: entry, dh80["shape"]: dh80})
+    sm90_bwd_kernels(dev, gen, summary)
 
 
 # hubert-xlarge's encode (prefill_32k on one card): one layer's attention,
@@ -2075,22 +1947,20 @@ FLASH_WIDE_SHAPES = {
 
 
 def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
-    """(forward, backward, bf16 backward) timings of flash attention in
-    fp32 at one train shape whose bodies run 8 warps a CTA: the mma_tf32x3
-    forward with its log-sum-exp beside the FMA body it replaced
-    (``body="fp32"``), and the pair backward, by kernel,
-    each beside the plain version (``mha_ref``, its autograd) and SDPA's
-    fp32 call (TF32 off), by kernel; the dK/dV launch's head splits timed
-    one by one (``head_split_ms``); the bf16 backward's pair kernels on the
-    same values (the forward's mma body for o and lse) beside the plain
-    version's and SDPA's bf16 backward.  Bounds: bytes, or the products of
-    the visible pairs (five backward, two forward) each three TF32 products
-    at the TF32 rate (``fma_bound_ms``: once each at the fp32 FMA rate); in
-    bf16 the five products once each at the bf16 rate."""
+    """(forward, backward) timings of flash attention in fp32 at one train
+    shape whose bodies run 8 warps a CTA: the mma_tf32x3 forward with its
+    log-sum-exp beside the FMA body it replaced (``body="fp32"``), and the
+    pair backward, by kernel, each beside the plain version (``mha_ref``,
+    its autograd) and SDPA's fp32 call (TF32 off), by kernel; the dK/dV
+    launch's head splits timed one by one (``head_split_ms``).  Bounds:
+    bytes, or the products of the visible pairs (five backward, two
+    forward) each three TF32 products at the TF32 rate (``fma_bound_ms``:
+    once each at the fp32 FMA rate).  (The bf16 backward at these shapes:
+    ``sm90_bwd_kernels``.)"""
     from repro_torch.device import multiprocessors
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = torch.float32
     check(kw.get("window", 0) in (0,) or kw["window"] >= S,
           "SDPA's is_causal call stands for the mask only where the window "
           "does not bite")
@@ -2118,7 +1988,6 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
     want = torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
     kernel = lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
         q, k, v, out, do, lse, **kw)
-    delta = torch.empty(B, H, S, device=dev)
     splits = [s for s in (1, 2, 4, 8, 16) if (H // K) % s == 0]
     mark = len(PROFILER_WINDOWS)
     bwd = dict(
@@ -2147,63 +2016,7 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
           f"flash backward at {shape}: max error {bwd['max_abs_err']}")
     del plain_out, lib_out, leaves
 
-    # ---- the bf16 backward's pair kernels on the same values
-    qb, kb, vb, dob = (t.to(bf16) for t in (q, k, v, do))
-    with torch.no_grad():
-        ob, lseb = flash.flash_attention_cuda(qb, kb, vb, return_lse=True,
-                                              body="mma", **kw)
-    split = flash.bwd_head_split(B, S, H, K, dh, sms)
-    gb = [torch.empty_like(t) for t in (qb, kb, vb)]
-    partial = torch.empty((2, split, B, S, K, dh), device=dev) \
-        if split > 1 else None
-    bf16_entry = flash._bwd_entry("mma_bf16")
-
-    def bf16_kernel():
-        err = bf16_entry(
-            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ob.data_ptr(),
-            dob.data_ptr(), lseb.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in gb), B, S, H, K,
-            int(kw.get("causal", True)), kw.get("window", 0),
-            kw.get("chunk", 0), dh ** -0.5, dh, 1, split,
-            None if partial is None else partial.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"flash_attention_bwd bf16: CUDA error {err}")
-        return gb
-
-    leaves = [t.float().requires_grad_() for t in (qb, kb, vb)]
-    want_bf16 = torch.autograd.grad(mha_ref(*leaves, **kw), leaves,
-                                    dob.float())
-    errs = [compare(g, w, bf16) for g, w in zip(bf16_kernel(), want_bf16)]
-    check(all(ok for _, ok in errs), f"bf16 flash backward at {shape}: "
-          f"errors {[e for e, _ in errs]}")
-    # bytes: q, k, v, o, dO (bf16) and lse read, dq, dk, dv written; the
-    # five products of the visible pairs once each at the bf16 rate (P's
-    # and dS's hi + lo products are the body's cost, not the function's)
-    t_bound, by = bound(2 * (qb.nbytes + kb.nbytes + vb.nbytes)
-                        + 2 * qb.nbytes + lseb.nbytes,
-                        5 * 2 * B * H * pairs * dh, bf16)
-    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
-    plain_out = mha_ref(*leaves, **kw)
-    lib_out = F.scaled_dot_product_attention(
-        *(t.transpose(1, 2) for t in leaves), is_causal=True, enable_gqa=True)
-    library = _grad_ms(lib_out, leaves, dob.transpose(1, 2))
-    bwd["bf16"] = dict(ms=device_ms(bf16_kernel), ms_windows=WINDOW_MS[-1],
-                       event_ms=time_ms(bf16_kernel),
-                       kernel_ms=kernel_breakdown(bf16_kernel),
-                       plain_ms=device_ms(_grad_ms(plain_out, leaves, dob)),
-                       library="SDPA's bf16 backward",
-                       library_ms=device_ms(library),
-                       library_ms_windows=WINDOW_MS[-1],
-                       library_event_ms=time_ms(library),
-                       bound_ms=t_bound, bound_by=by,
-                       head_split=split, tol=TOL[bf16],
-                       max_abs_err=max(e for e, _ in errs),
-                       library_max_abs_err=max(
-                           compare(g, w, bf16)[0] for g, w in zip(
-                               library(), want_bf16)))
     bwd["profiler_windows"] = window_counts(mark)
-    del leaves, want_bf16, gb, qb, kb, vb, dob, ob, lseb, partial, \
-        plain_out, lib_out
 
     # ---- forward, with the log-sum-exp (the train path's call)
     n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes
@@ -2297,6 +2110,207 @@ def flash_split_timings(dev, gen):
                     q, k, v, o, do, lse, head_split=s))
                 for s in (1, 2, 4, 8, 16) if (H // K) % s == 0})
     return out
+
+
+# the bf16 backward on the sm90 body at the train shapes of its paths, by
+# kernels-line entry: (the head dims its launches are counted at, the
+# previous body forced beside it, its shapes, the first the entry's top).
+# dh 128: qwen2-vl-2b's step (batch 4 x 1024); dh 80: stablelm-3b's (MHA,
+# nothing to split); dh 256 and 160 (column halves): the timed shapes of
+# FLASH_WIDE_SHAPES and the train_4k steps (seq 4096,
+# src/repro/launch/specs.py) of recurrentgemma-9b (window 2048, biting) and
+# stablelm-12b, the first the shape of its train phase
+PAIR_KERNELS = ("mma_bf16 (the pair kernels: mma.sync, P and dS in hi + lo "
+                "bf16 products)")
+SM90_BWD_SHAPES = {
+    "flash_attention_bwd_bf16": ((120, 128), PAIR_KERNELS, {
+        "qwen2-vl-2b": (4, 1024, 12, 2, 128, dict(causal=True))}),
+    "flash_attention_bwd_bf16_dh80": ((80,), (
+        "mma_bf16 (BwdCfg's 4-warp kernels: mma.sync, 32-row streamed "
+        "tiles)"), {"stablelm-3b": (*STABLELM_TRAIN_ATTN, dict(causal=True))}),
+    "flash_attention_bwd_bf16_wide": ((160, 256), PAIR_KERNELS, {
+        "rgemma_train_4k": (1, 4096, 16, 1, 256, dict(causal=True,
+                                                      window=2048)),
+        "stablelm12b_train_4k": (1, 4096, 32, 8, 160, dict(causal=True)),
+        "rgemma": (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
+        "stablelm": (4, 512, 32, 8, 160, dict(causal=True))}),
+}
+# ragged S with a window that bites at dh 256 and 160, held only (dh 80 to
+# 128 are held ragged in SM90_LSE_CASES)
+SM90_WIDE_BWD_CHECKS = [(1, 1100, 16, 1, 256, dict(causal=True, window=700)),
+                        (1, 1100, 32, 8, 160, dict(causal=True, window=300))]
+
+
+def flash_bwd_bf16_ops(B: int, H: int, pairs: int, dh: int) -> int:
+    """Operations of the bf16 flash backward: ``flash_bwd_split_macs``'
+    five products once each (not three TF32 products), 2 a multiply-add."""
+    return 2 * flash_bwd_split_macs(B, H, pairs, dh) // 3
+
+
+def sm90_bwd_kernels(dev, gen, summary):
+    """The bf16 backward's sm90 body at ``SM90_BWD_SHAPES`` (``Sm90Bwd<80>``
+    to ``Sm90Bwd<256>``; at 160 and 256 column halves), on the forward's o
+    and lse (the body the train path runs there: sm90, mma at 160): dq, dk,
+    dv against autograd of ``mha_ref`` in fp32 within 2e-2 (1 + |x|), two
+    runs bit for bit, every head split of the dK/dV launch within the same
+    limit and dq the same bits at each, by kernel, beside the previous body
+    it replaced, forced (``body="mma_bf16"``) and held to the same limit,
+    SDPA's bf16 backward (a boolean ``attn_mask`` where the window bites:
+    SDPA then skips no tile, so ``library_causal_ms`` also times its
+    ``is_causal`` call, which skips tiles but visits ``library_causal_pairs``,
+    more pairs than the window leaves), the plain backward and the bound
+    (bytes, or ``flash_bwd_bf16_ops`` at the bf16 rate); and the forward
+    the train path runs there (with its log-sum-exp) beside SDPA's bf16
+    forward and its bound (``forward``); then held (not timed) at
+    ``SM90_WIDE_BWD_CHECKS``.  One kernels-line entry (``summary[name]``)
+    each: its first shape at the top, the others under ``shapes``."""
+    from repro_torch.device import multiprocessors
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    bf16 = torch.bfloat16
+    sms = multiprocessors(dev)
+
+    def inputs(B, S, H, K, dh, kw):
+        q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
+                                   device=dev).to(bf16) for n in (H, K, K, H))
+        with torch.no_grad():
+            out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True,
+                                                  **kw)
+        fl = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
+        return (q, k, v, do, out, lse), want
+
+    def errors(got, want):
+        """(max abs error, every gradient within the limit)."""
+        errs = [compare(g, w, bf16) for g, w in zip(got, want)]
+        return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+    def held(t, want, kw):
+        """(max abs error, within the limit, deterministic, split errors)
+        of the default call, and every head split agreeing."""
+        q, k, v, do, out, lse = t
+        G = q.shape[2] // k.shape[2]
+        got = flash.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        again = flash.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+        splits, unsplit = {}, None
+        for d in (d for d in range(1, G + 1) if G % d == 0):
+            gd = flash.flash_attention_bwd_cuda(q, k, v, out, do, lse,
+                                                head_split=d, **kw)
+            unsplit = gd if unsplit is None else unsplit
+            e, ok = errors(gd, want)
+            splits[d] = dict(max_abs_err=e,
+                             ok=ok and torch.equal(gd[0], unsplit[0]))
+        return (*errors(got, want),
+                all(torch.equal(a, b) for a, b in zip(got, again)), splits)
+
+    for name, (head_dims, previous_body, shapes) in SM90_BWD_SHAPES.items():
+        entries = {}
+        for label, (B, S, H, K, dh, kw) in shapes.items():
+            t, want = inputs(B, S, H, K, dh, kw)
+            q, k, v, do, out, lse = t
+            pos = torch.arange(S, device=dev)
+            mask = attention_mask(pos, pos, **kw)
+            pairs = int(mask.sum())
+            bites = 0 < kw.get("window", 0) < S
+            err, ok, same, splits = held(t, want, kw)
+
+            def bwd(**force):
+                return lambda: flash.flash_attention_bwd_cuda(  # noqa: E731
+                    q, k, v, out, do, lse, **kw, **force)
+            kernel, previous = bwd(), bwd(body="mma_bf16")
+            previous_err, previous_ok = errors(previous(), want)
+            leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+            plain_out = mha_ref(*leaves, **kw)
+            lt = [a.transpose(1, 2) for a in leaves]
+            sdpa_mask = dict(attn_mask=mask) if bites else dict(is_causal=True)
+            lib_out = F.scaled_dot_product_attention(*lt, enable_gqa=True,
+                                                     **sdpa_mask)
+            library = _grad_ms(lib_out, leaves, do.transpose(1, 2))
+            lib_err, lib_ok = errors(library(), want)
+            extra = {}
+            if bites:
+                causal_out = F.scaled_dot_product_attention(
+                    *lt, enable_gqa=True, is_causal=True)
+                extra = dict(
+                    library_causal="SDPA's bf16 backward, is_causal (no "
+                                   "window: more pairs, tiles skipped)",
+                    library_causal_ms=device_ms(_grad_ms(
+                        causal_out, leaves, do.transpose(1, 2))),
+                    library_causal_pairs=S * (S + 1) // 2)
+                del causal_out
+            t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes)
+                                + 2 * q.nbytes + lse.nbytes,
+                                flash_bwd_bf16_ops(B, H, pairs, dh), bf16)
+            mark = len(PROFILER_WINDOWS)
+            # the train path's forward at this shape (with its log-sum-exp),
+            # beside SDPA's bf16 forward and its bound
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            f_bound, f_by = bound(2 * q.nbytes + k.nbytes + v.nbytes
+                                  + lse.nbytes, 4 * B * H * dh * pairs, bf16)
+            forward = dict(
+                body=flash.select_body(q, k, v), with_lse=True,
+                ms=device_ms(lambda: flash.flash_attention_cuda(
+                    q, k, v, return_lse=True, **kw)),
+                plain_ms=device_ms(lambda: mha_ref(q, k, v, **kw)),
+                library="F.scaled_dot_product_attention bf16",
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, **sdpa_mask)),
+                bound_ms=f_bound, bound_by=f_by,
+                max_abs_err=compare(out, mha_ref(q, k, v, **kw), bf16)[0])
+            entries[label] = e = dict(
+                shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
+                      "causal" + (f" window={kw['window']}"
+                                  if kw.get("window") else "")
+                      + f", on the {forward['body']} forward's o and lse "
+                      f"(the {label} step)",
+                body=flash.select_bwd_body(q, k, v),
+                head_split=flash.bwd_head_split(B, S, H, K, dh, sms, "sm90"),
+                ms=device_ms(kernel), ms_windows=WINDOW_MS[-1],
+                event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+                head_split_ms={d: device_ms(bwd(head_split=d))
+                               for d in splits},
+                previous_body=previous_body,
+                previous_body_head_split=flash.bwd_head_split(B, S, H, K, dh,
+                                                              sms),
+                previous_body_ms=device_ms(previous),
+                previous_kernel_ms=kernel_breakdown(previous),
+                plain_ms=device_ms(_grad_ms(plain_out, leaves, do)),
+                library="SDPA's bf16 backward" + (
+                    ", the mask as a boolean attn_mask" if bites else ""),
+                library_ms=device_ms(library),
+                library_ms_windows=WINDOW_MS[-1], **extra,
+                bound_ms=t_bound, bound_by=by, pairs=pairs, tol=TOL[bf16],
+                max_abs_err=err, deterministic=same, head_splits_held=splits,
+                previous_max_abs_err=previous_err, previous_ok=previous_ok,
+                library_max_abs_err=lib_err, library_ok=lib_ok,
+                forward=forward, profiler_windows=window_counts(mark))
+            check(e["body"] == "sm90" and ok and same and previous_ok
+                  and all(x["ok"] for x in splits.values()),
+                  f"flash bf16 backward at {e['shape']}: body {e['body']}, "
+                  f"error {err}, deterministic {same}, head splits {splits}, "
+                  f"previous body's error {previous_err}")
+            del t, want, q, k, v, do, out, lse, leaves, lt, plain_out, \
+                lib_out, library, mask, qt, kt, vt
+        for B, S, H, K, dh, kw in (SM90_WIDE_BWD_CHECKS if 256 in head_dims
+                                   else ()):
+            t, want = inputs(B, S, H, K, dh, kw)
+            err, ok, same, splits = held(t, want, kw)
+            entries[f"ragged S {S}, dh {dh}, {kw}"] = dict(
+                max_abs_err=err, ok=ok, deterministic=same,
+                head_splits_held=splits)
+            check(ok and same and all(x["ok"] for x in splits.values()),
+                  f"flash bf16 backward at ragged S {S}, dh {dh}, {kw}: "
+                  f"error {err}, deterministic {same}, head splits {splits}")
+            del t, want
+        emit("kernels", kernel=name, timings=entries)
+        top = entries.pop(next(iter(shapes)))
+        summary[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:99 (its "
+                     "gradient: JAX differentiates the jnp reference)",
+            counted_as=("flash_attention_bwd", "sm90", head_dims), **top,
+            shapes=entries)
 
 
 def scan_backward_kernels(dev, gen, cases, summary):
@@ -2949,7 +2963,9 @@ def train_checks(dev, seed):
     log-sum-exp and the sm90 backward at dh 128), hubert-xlarge in
     fp32 (no causal mask, dh 80 on mma_tf32x3 both ways); and stablelm-3b
     at full width cut to 2 layers in bf16 under ``TrainConfig()``'s
-    ``dots_no_batch`` (the sm90 forward and backward at dh 80)."""
+    ``dots_no_batch`` (the sm90 forward and backward at dh 80), and
+    recurrentgemma-9b (``RGEMMA_CHECK_WIDTH``, 3 layers) the same way (the
+    sm90 forward and backward at dh 256)."""
     from repro_torch.configs import get_config
     from repro_torch.train.steps import TrainConfig
     ex = _lm_example()
@@ -2990,6 +3006,15 @@ def train_checks(dev, seed):
     phase_train_check(dev, seed, cfg, tc, 2, 256, want_flash=dict(
         forward={"sm90": {cfg.resolved_head_dim: 4}},
         backward={"sm90": 2}), arch=cfg.name,
+        remat_policy=tc.remat_policy)
+    # recurrentgemma-9b at RGEMMA_CHECK_WIDTH and 3 layers the same way: the
+    # sm90 forward at dh 256 (twice: the rerun) and the sm90 backward's
+    # column halves, the RG-LRU's fp32 gates
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3,
+                              **RGEMMA_CHECK_WIDTH)
+    phase_train_check(dev, seed, cfg, tc, 2, 256, want_flash=dict(
+        forward={"sm90": {cfg.resolved_head_dim: 2}},
+        backward={"sm90": 1}), arch=cfg.name, narrowed=RGEMMA_CHECK_WIDTH,
         remat_policy=tc.remat_policy)
 
 
@@ -3578,13 +3603,17 @@ def phase_train_qwen2vl_bf16(dev, seed, steps: int = 10, batch: int = 4,
     return launches, by_body
 
 
-def _bf16_by_body() -> dict:
+def _bf16_by_body(rglru: bool = False) -> dict:
     """The launches by body of the bf16 train phases that remat: RMSNorm
     and flash attention, each way, and flash attention by head dim, each
-    way."""
+    way; with ``rglru`` the RG-LRU's each way too."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as lru
     from repro_torch.kernels.rmsnorm import kernel as rms
-    return {"rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
+    return {**({"rglru": dict(lru.rglru_cuda.launches_by_body),
+                "rglru_bwd": dict(lru.rglru_bwd_cuda.launches_by_body)}
+               if rglru else {}),
+            "rmsnorm": dict(rms.rmsnorm_cuda.launches_by_body),
             "rmsnorm_bwd": dict(rms.rmsnorm_bwd_cuda.launches_by_body),
             "flash_attention": dict(
                 flash.flash_attention_cuda.launches_by_body),
@@ -3595,30 +3624,39 @@ def _bf16_by_body() -> dict:
 
 
 def _bf16_remat_launches(L: int, dh: int, steps: int, policy: str,
-                         bwd_body: str) -> tuple:
-    """(launches, launches by body) of ``steps`` bf16 steps of an
-    attention-only stack of L layers at head dim ``dh``: the backward
-    reruns each superblock's forward under every policy but ``none``, and
-    with it its kernels (opaque to the policy: their autograd Functions
-    launch through ctypes), so the forwards double: flash L → 2L, RMSNorm
-    2L + 1 → 4L + 1 (the final norm outside the stack); the backwards stay
-    L and 2L + 1.  The forwards on sm90 and one_read, the RMSNorm
-    backwards on cta_rows (rows past 1024 elements)."""
+                         bwd_body: str, fwd_body: str = "sm90",
+                         n_lru: int = 0) -> tuple:
+    """(launches, launches by body) of ``steps`` bf16 steps of a stack of L
+    layers, ``n_lru`` of them RG-LRU layers and the rest attention at head
+    dim ``dh``: the backward reruns each superblock's forward under every
+    policy but ``none``, and with it its kernels (opaque to the policy:
+    their autograd Functions launch through ctypes), so the forwards
+    double: flash A → 2A for A attention layers, the RG-LRU n_lru → 2
+    n_lru, RMSNorm 2L + 1 → 4L + 1 (the final norm outside the stack); the
+    backwards stay A, n_lru and 2L + 1.  The flash forwards on
+    ``fwd_body``, RMSNorm's on one_read, the RMSNorm backwards on cta_rows
+    (rows past 1024 elements), the RG-LRU on its segmented bodies (S >=
+    64; its gates stay fp32 in a bf16 step)."""
     again = 1 if policy == "none" else 2
-    fwd_flash, fwd_rms = again * L * steps, (again * 2 * L + 1) * steps
+    A = L - n_lru
+    fwd_flash, fwd_rms = again * A * steps, (again * 2 * L + 1) * steps
+    fwd_lru = again * n_lru * steps
     want = {"rmsnorm": (fwd_rms, (2 * L + 1) * steps),
-            "flash_attention": (fwd_flash, L * steps),
-            "rglru": (0, 0), "ssd": (0, 0)}
+            "flash_attention": (fwd_flash, A * steps),
+            "rglru": (fwd_lru, n_lru * steps), "ssd": (0, 0)}
     by_body = {
+        **({"rglru": {"segmented": fwd_lru, "serial": 0},
+            "rglru_bwd": {"segmented": n_lru * steps, "serial": 0}}
+           if n_lru else {}),
         "rmsnorm": {"one_read": fwd_rms, "generic": 0},
         "rmsnorm_bwd": {"warp_rows": 0, "cta_rows": (2 * L + 1) * steps,
                         "generic": 0},
-        "flash_attention": {"sm90": fwd_flash, "mma": 0, "mma_tf32x3": 0,
-                            "fp32": 0},
+        "flash_attention": {"sm90": 0, "mma": 0, "mma_tf32x3": 0, "fp32": 0,
+                            fwd_body: fwd_flash},
         "flash_attention_bwd": {"mma_tf32x3": 0, "mma_bf16": 0, "sm90": 0,
-                                bwd_body: L * steps},
-        "flash_attention_by_head_dim": {"sm90": {dh: fwd_flash}},
-        "flash_attention_bwd_by_head_dim": {bwd_body: {dh: L * steps}}}
+                                bwd_body: A * steps},
+        "flash_attention_by_head_dim": {fwd_body: {dh: fwd_flash}},
+        "flash_attention_bwd_by_head_dim": {bwd_body: {dh: A * steps}}}
     return want, by_body
 
 
@@ -3773,27 +3811,80 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
     parameters, MHA 32 / 32 at head dim 80, untied 50304-word vocabulary),
     under ``TrainConfig()``'s defaults: bf16 and the reference's remat
     policy ``dots_no_batch`` (each layer checkpointed, its products without
-    batch dims kept).  ``steps`` steps of ``make_train_step`` on
-    ``SyntheticLM`` batches, no checkpoint (one would hold 44.7 GB): every
-    loss finite, and the first batch's loss (``make_eval_step``) lower
-    after the steps than before them; a step launches 2L = 64 flash
-    forwards on the sm90 body at dh 80 (the backward reruns each layer's),
-    L = 32 flash backwards on sm90 at dh 80, 4L + 1 = 129 RMSNorm forwards on
-    one_read and 2L + 1 = 65 backwards on cta_rows.  Step ms, peak memory
-    beside ``train_bounds`` (16 B a parameter: 44.74 GB) and AdamW's 28 B a
-    parameter at the end of its functional update (78.27 GB), the peak of
-    one loss-and-gradient call alone before the steps (where remat acts),
-    one more step profiled by kernel family.  The phase grows the
-    allocator's segments in place (``expandable_segments``) and puts the
-    default back after: with fixed segments, AdamW's end failed for want
-    of 2.11 GiB with 5.58 GiB reserved but unallocated (PERF.md, PR 27)."""
+    batch dims kept), through ``_train_bf16``: a step launches 2L = 64
+    flash forwards on the sm90 body at dh 80 (the backward reruns each
+    layer's), L = 32 flash backwards on sm90 at dh 80, 4L + 1 = 129 RMSNorm
+    forwards on one_read and 2L + 1 = 65 backwards on cta_rows.  16 B a
+    parameter are 44.74 GB, AdamW's 28 B at the end of its functional update
+    78.27 GB."""
     from repro_torch.configs import get_config
+    return _train_bf16(dev, seed, "train_stablelm3b_bf16",
+                       get_config("stablelm-3b"), None, steps, batch, seq, lr)
+
+
+def phase_train_rgemma_bf16(dev, seed, steps: int = 10, batch: int = 1,
+                            seq: int = 4096, lr: float = 3e-4):
+    """recurrentgemma-9b at full width (d_model 4096, 16 heads of 256, MQA,
+    window 2048, RG-LRU width 4096, GeGLU 12288, tied vocabulary 256000)
+    cut to 3 layers, its first superblock (rglru, rglru, attn_local), under
+    ``TrainConfig()`` (bf16, ``dots_no_batch``), batch 1 x 4096 (the
+    reference's ``train_4k`` sequence, where the window bites), through
+    ``_train_bf16``: a step launches 2 flash forwards on sm90 at dh 256 and
+    1 backward on sm90 at dh 256 (column halves), 4 RG-LRU forwards and 2
+    backwards on the segmented bodies, 13 RMSNorm forwards on one_read and
+    7 backwards on cta_rows."""
+    from repro_torch.configs import get_config
+    return _train_bf16(
+        dev, seed, "train_rgemma_bf16",
+        dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3),
+        "num_layers 38 -> 3; global batch 256 -> 1 (38 layers at 28 B a "
+        "parameter, AdamW's end, are 238.7 GB)", steps, batch, seq, lr)
+
+
+def phase_train_stablelm12b_bf16(dev, seed, steps: int = 10, batch: int = 1,
+                                 seq: int = 4096, lr: float = 3e-4):
+    """stablelm-12b at full width (d_model 5120, GQA 32 / 8 at head dim
+    160, SwiGLU 13824, untied vocabulary 100352) cut to 2 layers, under
+    ``TrainConfig()`` (bf16, ``dots_no_batch``), batch 1 x 4096, through
+    ``_train_bf16``: a step launches 4 flash forwards on the mma body at dh
+    160 (with its log-sum-exp) and 2 backwards on sm90 at dh 160 (column
+    halves), 9 RMSNorm forwards on one_read and 5 backwards on cta_rows."""
+    from repro_torch.configs import get_config
+    return _train_bf16(
+        dev, seed, "train_stablelm12b_bf16",
+        dataclasses.replace(get_config("stablelm-12b"), num_layers=2),
+        "num_layers 40 -> 2; global batch 256 -> 1 (40 layers at 28 B a "
+        "parameter are 340.0 GB)", steps, batch, seq, lr)
+
+
+def _train_bf16(dev, seed, name: str, cfg, reduced, steps: int, batch: int,
+                seq: int, lr: float):
+    """``cfg`` at full width under ``TrainConfig()``'s defaults: bf16 and
+    the reference's remat policy ``dots_no_batch`` (each superblock
+    checkpointed, its products without batch dims kept).  ``steps`` steps
+    of ``make_train_step`` on ``SyntheticLM`` batches, no checkpoint: every
+    loss finite, and the first batch's loss (``make_eval_step``) lower after
+    the steps than before them; the launches a step, each way and by body
+    and head dim, those ``_bf16_remat_launches`` gives (the flash forward
+    on the body the forward's ``select_body`` takes at this head dim, every
+    flash backward on sm90).  Step ms (median of steps 3 on), peak memory
+    beside ``train_bounds`` (16 B a parameter) and AdamW's 28 B a parameter
+    at the end of its functional update, the peak of one loss-and-gradient
+    call alone before the steps (where remat acts), one more step profiled
+    by kernel family.  The phase grows the allocator's segments in place
+    (``expandable_segments``) and puts the default back after: with fixed
+    segments, stablelm-3b's AdamW end failed for want of 2.11 GiB with 5.58
+    GiB reserved but unallocated (PERF.md).  Emits line ``name``
+    (``reduced``: the cuts, or None)."""
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.models import init_params
     from repro_torch.optim import init_opt_state
     from repro_torch.train.steps import (TrainConfig, make_eval_step,
                                          make_loss_and_grad, make_train_step)
-    cfg, tc = get_config("stablelm-3b"), TrainConfig()
+    tc = TrainConfig()
+    kinds = cfg._layer_kinds()
+    L, n_lru, dh = len(kinds), kinds.count("rglru"), cfg.resolved_head_dim
     with _expandable_segments():
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3824,19 +3915,25 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(m["loss"]))
-        launches, by_body = _count_launches(), _bf16_by_body()
+        launches, by_body = _count_launches(), _bf16_by_body(rglru=n_lru > 0)
         peak = torch.cuda.max_memory_allocated()
         eval_after = float(evaluate(params, first)["loss"])
         b = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
         prof = _profiled(lambda: step(params, opt, b, torch.tensor(lr)),
-                         groups=BF16_GROUPS)
+                         groups={**BF16_GROUPS, **(
+                             {k: RGEMMA_GROUPS[k] for k in (
+                                 "rglru_forward", "rglru_backward")}
+                             if n_lru else {})})
+        fwd_body = flash.select_body(*(torch.empty(
+            (1, 1, n, dh), dtype=torch.bfloat16, device=dev) for n in (
+            cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)))
         del params, opt, b, first, m
-    L, dh = cfg.num_layers, cfg.resolved_head_dim
     want, want_by_body = _bf16_remat_launches(L, dh, steps, tc.remat_policy,
-                                              "sm90")
-    emit("train_stablelm3b_bf16", arch=cfg.name, layers=L, reduced=None,
+                                              "sm90", fwd_body, n_lru)
+    emit(name, arch=cfg.name, layers=L, layer_kinds=kinds, reduced=reduced,
          d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=dh,
-         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, window=cfg.window,
+         lru_width=cfg.resolved_lru_width if n_lru else None,
          vocab=cfg.vocab_size, params=cfg.param_count(), dtype="bfloat16",
          remat_policy=tc.remat_policy, batch=batch, seq=seq, steps=steps,
          lr=lr, losses=losses, first_batch_loss_before=eval_before,
@@ -3856,11 +3953,11 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
          launches_by_body=by_body, launches_by_body_expected=want_by_body)
     check(len(losses) == steps and all(math.isfinite(x) for x in losses)
           and eval_after < eval_before,
-          f"train_stablelm3b_bf16: losses {losses}, first batch's loss "
+          f"{name}: losses {losses}, first batch's loss "
           f"{eval_before} -> {eval_after}")
-    check(launches == want, f"train_stablelm3b_bf16: launches {launches}, "
+    check(launches == want, f"{name}: launches {launches}, "
           f"expected {want}")
-    check(by_body == want_by_body, f"train_stablelm3b_bf16: launches by "
+    check(by_body == want_by_body, f"{name}: launches by "
           f"body {by_body}, expected {want_by_body}")
     return launches, by_body
 
@@ -4498,10 +4595,13 @@ def main() -> int:
     for path, phase in (("train-100m", phase_train),
                         ("train-mamba2", phase_train_mamba2),
                         ("train-rgemma-3l", phase_train_rgemma_3l),
+                        ("train-rgemma-bf16", phase_train_rgemma_bf16),
                         ("train-qwen2vl-bf16", phase_train_qwen2vl_bf16),
                         ("train-qwen2vl-remat", phase_train_qwen2vl_remat),
                         ("train-stablelm3b-bf16",
                          phase_train_stablelm3b_bf16),
+                        ("train-stablelm12b-bf16",
+                         phase_train_stablelm12b_bf16),
                         ("encode-hubert", phase_encode_hubert)):
         train[path], train_by_body[path] = phase(dev, args.seed)
     for name, entry in summary.items():

@@ -2438,7 +2438,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// backward, sm90: bf16 at dh 80, 120 and 128 on wgmma and TMA, warp-specialised
+// backward, sm90: bf16 at dh 80, 120, 128, 160 and 256 on wgmma and TMA, warp-specialised
 // ---------------------------------------------------------------------------
 //
 // The gradient of the forward above (FlashAttention-2's backward, without
@@ -2457,6 +2457,42 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 // causal: five products of 524800 pairs x 80 over 128 heads 0.0543 ms, the
 // seven 0.0761.
 //
+// DH 160 and 256 (kHalves 2: recurrentgemma-9b's step at 256, MQA 16 : 1
+// with a window of 2048; stablelm-12b's at 160, GQA 32 : 8): a 64 x DH fp32
+// sum is 80 or 128 registers a thread, and a warpgroup also holds S and dP
+// (32 each) and dS's hi + lo (32): over the 168 ptxas allots.  So every sum is cut by columns into
+// two halves of kN = DH / 2 columns (128, or 80), each the size a warpgroup
+// holds at DH 128 or 80, and every tensor is read and written as two
+// half-width tensors: a tensor map a half, its base kN columns further and
+// its extent kN, so that each half is laid out as the DH-kN instance lays a
+// whole row (two 64-column slabs; at 160 TMA zero-fills columns 80-127 of
+// each half's second slab, and the N-80 products read columns 0-79 of the
+// half).  S and dP run over both halves (16 or 10 k16 steps).  The dQ
+// launch takes 64 query rows a CTA, both warpgroups on the same rows:
+// warpgroup 0 forms S and P, warpgroup 1 dP and dS = P (dP - D), P and dS
+// crossing through shared memory (two exchange buffers, one named barrier
+// each way), and each accumulates one column half of dQ.  (Each warpgroup
+// forming S and dP itself, as the forward's dh-256 instance splits O
+// (Sm90::kSplitO), took the dQ launch to 0.5458 ms against 0.4814 at
+// recurrentgemma-9b's train_4k step and 1.0367 against 0.9367 at
+// stablelm-12b's, though 0.0854 against 0.0887 and 0.1300 against 0.1417
+// at their batch 4 x 512: H100, kernels/ab.py --sm90-bwd.)  The dK/dV
+// launch keeps its roles (warpgroup 0 dV, warpgroup 1 dK) and gains a grid
+// axis of the two column halves: each CTA forms S^T and dP^T whole and
+// accumulates its half of dK and of dV.  That forms S and dP three times a
+// pair of tiles where DH 128 forms them twice (9 full-width products of the
+// five, against 7), and keeps every register where DH 128 / 80 holds it;
+// the sums' order is that of a whole-width body.  Shared memory: a 64-row
+// tile is 32 KB, so the rings take 2 stages (the dK/dV launch's own K and
+// V, two (Q, dO) stages and the exchange are 226 KB; the dQ launch's 225).
+// The timed shapes: q (4,512,16,256), k/v (4,512,1,256), causal (the
+// window of 2048 does not bite at S 512), 131328 pairs a head: five
+// products 0.0218 ms at the bf16 rate; q (4,512,32,160), k/v
+// (4,512,8,160), causal: 0.0272 ms; recurrentgemma-9b's train_4k step, q
+// (1,4096,16,256), k/v (1,4096,1,256), window 2048: 6292480 pairs a head,
+// 0.2606 ms; stablelm-12b's, q (1,4096,32,160), k/v (1,4096,8,160),
+// causal: 8390656 pairs a head, 0.4344 ms.
+//
 // Two launches, as the mma bodies run them, each a CTA of two consumer
 // warpgroups and one producer warp (288 threads), as the forward's.  One
 // thread of the producer issues every TMA load through a ring of kStages
@@ -2465,7 +2501,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 // (a producer warpgroup giving 144 of its 168 to the consumers spilled the
 // same 500-1000 bytes on the H100's nvcc 12.9, with the warpgroup index
 // proven warp-uniform, with __maxnreg__ and with -maxrregcount), so each
-// consumer warpgroup holds one 64 x DH fp32 accumulator.  Tiles are TMA
+// consumer warpgroup holds one 64 x kN fp32 accumulator.  Tiles are TMA
 // boxes of 64 rows x a 64-column (128-byte) slab, 128-byte swizzled, as the
 // forward's.  Every product is a bf16 wgmma chain with fp32 accumulation;
 // P goes to dV as one bf16 register operand, as SDPA rounds it, and dS to
@@ -2477,19 +2513,21 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 // lo too.  The two launches:
 //
 //   * dQ (flash_bwd_dq_sm90_kernel): one CTA a 128-row query tile of one
-//     head, late tiles first; each consumer warpgroup owns 64 rows, with Q
-//     and dO loaded once and 64-key K and V tiles streamed.  It computes D
+//     head (64 rows above DH 128, above), late tiles first; each consumer
+//     warpgroup owns 64 rows, with Q and dO loaded once and 64-key K and V
+//     tiles streamed.  It computes D
 //     = rowsum(dO O) of its rows from device memory and writes it, with
 //     lse log2(e), to the `delta` scratch (2, B, H, s_pad), rows past S
 //     too (D 0, lse +inf), so that the dK/dV launch loads both per query
 //     tile by one bulk copy each.  Per key tile: S = Q K^T and dP = dO V^T
 //     (m64n64k16, both operands K-major in shared memory), P and dS in
-//     registers, dQ += dS K (m64n128k16, or m64n80k16 at DH 80; dS the
+//     registers, dQ += dS K (m64n128k16, or m64n80k16 at kN 80; dS the
 //     register operand, K MN-major).  (64 rows a CTA with the roles split
 //     as in dK/dV below took 0.109 ms against 0.071 at qwen2-vl-2b's step:
 //     K and V stream twice as often, and an exchange a tile.)
 //   * dK/dV (flash_bwd_dkdv_sm90_kernel): one CTA a 64-key tile of one KV
-//     head (and a share of its group's query heads: head_split), early
+//     head (and a share of its group's query heads: head_split; and a
+//     column half of dK and dV above DH 128), early
 //     tiles first, K and V loaded once; Q, dO, lse and D stream in 64-query
 //     tiles over every query head of the share.  Warpgroup 0 forms S^T = K
 //     Q^T and P^T = exp(S^T scale - lse) and accumulates dV += P^T dO;
@@ -2508,7 +2546,7 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 // What bounds it: operations (0.0456 ms of the seven products against
 // 0.0121 ms of bytes at qwen2-vl-2b's step; 0.0761 against 0.0501 at
 // stablelm-3b's, whose MHA reads K and V once a query head).  The tile
-// geometry and shared-memory sizes are the same at both head dims.  What
+// geometry and shared-memory sizes are the same at DH 80 and 128.  What
 // holds it back is each consumer warpgroup's chain (products, waits,
 // exponentials, the P^T exchange, one after another; two warpgroups an SM):
 // at stablelm-3b's step (H100, kernels/ab.py --sm90-bwd, variants that
@@ -2524,33 +2562,54 @@ __global__ void __launch_bounds__(Sm90<DH>::kThreads, 1)
 
 template <int DH>
 struct Sm90Bwd {
-  static_assert(DH == 80 || DH == 128, "sm90 backward: dh 80 or 128 (120 on 128)");
+  static_assert(DH == 80 || DH == 128 || DH == 160 || DH == 256,
+                "sm90 backward: dh 80, 128 (120 on 128), 160 or 256");
+  static constexpr int kHalves = DH > 128 ? 2 : 1;  // column halves of a sum
+  static constexpr int kN = DH / kHalves;      // columns a warpgroup accumulates (80 or 128)
+  static constexpr int kHalfSteps = kN / 16;   // k16 steps of a half
   static constexpr int kKSteps = DH / 16;      // k16 steps of S and dP over the head dim
-  static constexpr int kAcc = DH / 2;          // fp32 registers a thread of a 64 x DH sum
-  static constexpr int kSlabs = (DH + 63) / 64;   // 64-column slabs of a bf16 row
-  static constexpr int kF32Slabs = (DH + 31) / 32;  // 32-column slabs of an fp32 row
+  static constexpr int kAcc = kN / 2;          // fp32 registers a thread of a 64 x kN sum
+  static constexpr int kSlabs = 2;             // 64-column slabs of a half's bf16 row
+  static constexpr int kF32Slabs = (kN + 31) / 32;  // 32-column slabs of a half's fp32 row
   static constexpr int kTile = 64;             // rows of a box, a warpgroup and a streamed tile
   static constexpr int kSlab = kTile * 128;    // bytes of a 64-row slab
-  static constexpr int kTileBytes = 2 * kSlab; // a 64-row tile of both slabs (16 KB)
+  // a 64-row tile of every slab of each half (16 KB; 32 KB at DH 160 / 256)
+  static constexpr int kTileBytes = kHalves * kSlabs * kSlab;
   // 3 stages: 0.1554 ms against 2's 0.1588 at qwen2-vl-2b's step (H100,
-  // kernels/ab.py --sm90-bwd); 4 at dh 80 moved nothing (above)
-  static constexpr int kStages = 3;
+  // kernels/ab.py --sm90-bwd); 4 at dh 80 moved nothing (above); 2 above
+  // DH 128, where 3 do not fit
+  static constexpr int kStages = kHalves == 1 ? 3 : 2;
   static constexpr int kThreads = 288;         // consumer warpgroups 0, 1; a producer warp
-  // dQ: own Q and dO of 128 rows (slabs of 128 rows), a ring of (K, V) tiles
-  static constexpr int kOwnSlab = 2 * kSlab;
-  static constexpr int kOwnBytes = 2 * kOwnSlab;
+  static constexpr int kXBytes = kTile * kTile * 4;  // an exchange buffer: 64 x 64 fp32
+  // dQ: own Q and dO of kDqRows rows (slabs of kDqRows rows: 64 each
+  // warpgroup's, or 64 both take), a ring of (K, V) tiles; above DH 128
+  // warpgroup 0 forms S and P, warpgroup 1 dP and dS, and P and dS cross
+  // through two exchange buffers
+  static constexpr int kDqRows = kHalves == 1 ? 128 : 64;
+  static constexpr int kOwnSlab = kDqRows * 128;
+  static constexpr int kOwnBytes = kHalves * kSlabs * kOwnSlab;
   static constexpr int kDqRing = 2 * kOwnBytes;
-  static constexpr int kDqBar = kDqRing + kStages * 2 * kTileBytes;
+  static constexpr int kDqX = kDqRing + kStages * 2 * kTileBytes;
+  static constexpr int kDqBar = kDqX + (kHalves == 2 ? 2 * kXBytes : 0);
   static constexpr int kDqBytes = kDqBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment
   // dK/dV: own K and V of 64 rows, a ring of (Q, dO) tiles, two P^T
-  // exchange buffers (64 x 64 fp32), a ring of (lse, D) rows
+  // exchange buffers, a ring of (lse, D) rows
   static constexpr int kKvRing = 2 * kTileBytes;
   static constexpr int kKvX = kKvRing + kStages * 2 * kTileBytes;
-  static constexpr int kXBytes = kTile * kTile * 4;
   static constexpr int kKvRows = kKvX + 2 * kXBytes;
   static constexpr int kKvBar = kKvRows + kStages * 2 * kTile * 4;
   static constexpr int kKvBytes = kKvBar + 8 * (1 + 2 * kStages) + 1024;
   static_assert(kKvBytes <= 232448 && kDqBytes <= 232448, "over the 227 KB a block may use");
+  // the f32 staging of a half's sum (head split) in the exchange or own K
+  static_assert(kF32Slabs * kSlab <= 2 * kXBytes, "an fp32 half over its staging");
+};
+
+// The tensor maps of the sm90 backward, one a column half of each tensor
+// ([0] only at DH 80 / 128): bf16 (B, S, heads, dh) as [half's columns,
+// heads, S, B], 64-row boxes of 64-column slabs; `part` the fp32 partial
+// sums (2, head_split, B, S, K, dh) as [columns, K, S, 2 head_split B].
+struct Sm90BwdMaps {
+  CUtensorMap q[2], k[2], v[2], dout[2], dq[2], dk[2], dv[2], part[2];
 };
 
 // `bytes` (a multiple of 16) from a 16-byte aligned global address into
@@ -2620,36 +2679,42 @@ __device__ __forceinline__ TileClass key_tile_class(const BwdParams& p, int k0, 
 }
 
 // D (64 x 64) = A B^T over the k16 steps that hold the head dim DH (8, or
-// 5 at DH 80: the zero-filled columns 80-127 are never read), as one commit
-// group: A rows at `a` (a tile of a_slab bytes a slab), B rows at `b` (64
-// rows), both K-major.
+// 5 at DH 80: the zero-filled columns 80-127 are never read; above DH 128
+// each half's, 8 or 5, half after half), as one commit group: A rows at
+// `a` (a tile of a_slab bytes a slab, a half's two slabs after the other's),
+// B rows at `b` (64 rows), both K-major.
 template <int DH>
 __device__ __forceinline__ void wgmma_rows_n64(float (&d)[32], uint32_t a, uint32_t a_slab,
                                                uint32_t b) {
+  using C = Sm90Bwd<DH>;
 #pragma unroll
   for (int j = 0; j < 32; ++j) d[j] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < Sm90Bwd<DH>::kKSteps; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_n64(d, desc_k_major(a + (kk / 4) * a_slab + off),
-                 desc_k_major(b + (kk / 4) * Sm90Bwd<DH>::kSlab + off));
+  for (int kk = 0; kk < C::kKSteps; ++kk) {
+    const int kh = kk % C::kHalfSteps;  // the step within its half
+    const int slab = C::kSlabs * (kk / C::kHalfSteps) + kh / 4;
+    const uint32_t off = (kh % 4) * 32;
+    wgmma_ss_n64(d, desc_k_major(a + slab * a_slab + off),
+                 desc_k_major(b + slab * C::kSlab + off));
   }
   wgmma_commit();
 }
 
-// D (64 x DH) += X B over 64 rows of B, one commit group to its end: X (64
+// D (64 x kN) += X B over 64 rows of B, one commit group to its end: X (64
 // x 64, an accumulator) in registers as bf16, the register A operand (k-step
 // kk covers columns [16kk, 16kk + 16), accumulator chunks 2kk and 2kk + 1),
-// B a 64-row tile MN-major (at DH 80 the wgmma's N is 80: columns 0-63 of
-// the first slab and 64-79 of the second).  With kSplit X goes as bf16 hi
+// B a 64-row tile's half MN-major (at kN 80 the wgmma's N is 80: columns
+// 0-63 of the half's first slab and 64-79 of its second).  With kSplit X goes as bf16 hi
 // + lo (pack_split_bf16): the chain of lo, then the chain of hi, into D, in
 // one group with one wait (two groups, one wait each, took 0.3471 ms
 // against 0.3402 at stablelm-3b's step and 0.1569 against 0.1534 at
 // qwen2-vl-2b's, the means of two turns, H100, kernels/ab.py --sm90-bwd;
 // the same products in the same order, so the same bits).
 template <int DH, bool kSplit = false>
-__device__ __forceinline__ void wgmma_regs(float (&d)[DH / 2], const float (&x)[32], uint32_t b) {
+__device__ __forceinline__ void wgmma_regs(float (&d)[Sm90Bwd<DH>::kAcc], const float (&x)[32],
+                                           uint32_t b) {
+  constexpr int N = Sm90Bwd<DH>::kN;
   uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
@@ -2666,27 +2731,28 @@ __device__ __forceinline__ void wgmma_regs(float (&d)[DH / 2], const float (&x)[
   if constexpr (kSplit) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<DH>(d, lo[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd<DH>::kSlab));
+      wgmma_pv<N>(d, lo[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd<DH>::kSlab));
   }
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_pv<DH>(d, hi[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd<DH>::kSlab));
+    wgmma_pv<N>(d, hi[kk], desc_mn_major(b + kk * 16 * 128, Sm90Bwd<DH>::kSlab));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(d);
 }
 
-// A 64 x DH accumulator out through shared memory: bf16 (times `scale`)
-// into a 64-row tile of 128-byte swizzled 64-column slabs at `tile`, `slab`
-// bytes apart, or fp32 into 32-column slabs with kF32, as a tensor map's
-// box lays them (at DH 80 the last slab's columns past 80 are left as they
-// are: the store clips them); every thread writes, under no condition.
-template <bool kF32, int DH>
-__device__ __forceinline__ void stage_acc(uint32_t tile, uint32_t slab, const float (&d)[DH / 2],
+// A 64 x N accumulator (a whole sum, or a column half of one) out through
+// shared memory: bf16 (times `scale`) into a 64-row tile of 128-byte
+// swizzled 64-column slabs at `tile`, `slab` bytes apart, or fp32 into
+// 32-column slabs with kF32, as a tensor map's box lays them (at N 80 the
+// last slab's columns past 80 are left as they are: the store clips them);
+// every thread writes, under no condition.
+template <bool kF32, int N>
+__device__ __forceinline__ void stage_acc(uint32_t tile, uint32_t slab, const float (&d)[N / 2],
                                           float scale) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int r = 16 * warp + g + 8 * rr;  // r % 8 == g
@@ -2715,6 +2781,40 @@ __device__ __forceinline__ void store_acc(const CUtensorMap* map, uint32_t tile,
   }
 }
 
+// P = exp(S scale - lse) of a 64 x 64 score tile in place, 0 where an edge
+// tile's mask hides the key: entry 4j + 2rr + e is row g + 8rr (lse in the
+// log2 domain lse2[rr], keys [lo[rr], hi[rr]] seen), key k0 + 8j + 2t + e.
+__device__ __forceinline__ void probs(float (&x)[32], const float (&lse2)[2], const int (&lo)[2],
+                                      const int (&hi)[2], int k0, int t, float sl2,
+                                      TileClass cls) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int klo = lo[rr] - k0 - 2 * t, khi = hi[rr] - k0 - 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = x[4 * j + 2 * rr + e];
+        const float pr = ex2(fmaf(v, sl2, -lse2[rr]));
+        v = cls == kEdge && (8 * j + e < klo || 8 * j + e > khi) ? 0.f : pr;
+      }
+  }
+}
+
+// this thread's 32 values to / from its 8 float4 exchange slots at xb
+__device__ __forceinline__ void put_x(uint32_t xb, const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    st_shared_v4(xb + j * 32 * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+__device__ __forceinline__ void get_x(uint32_t xb, float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 v = ld_shared_v4(xb + j * 32 * 16);
+    x[4 * j] = v.x, x[4 * j + 1] = v.y, x[4 * j + 2] = v.z, x[4 * j + 3] = v.w;
+  }
+}
+
 // Groups of more than this many query heads a KV head take P in hi + lo
 // bf16 products too (BwdParams::split): a key's dV sums that many times S
 // terms, and the plain model of one bf16 P (mha_grads_by_products with
@@ -2725,25 +2825,22 @@ constexpr int kSm90SplitGroup = 8;
 
 template <int DH>
 __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
-    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                             const __grid_constant__ CUtensorMap tm_k,
-                             const __grid_constant__ CUtensorMap tm_v,
-                             const __grid_constant__ CUtensorMap tm_do,
-                             const __grid_constant__ CUtensorMap tm_dq, const BwdParams p) {
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ Sm90BwdMaps m, const BwdParams p) {
   using C = Sm90Bwd<DH>;
-  constexpr int kStages = C::kStages;
+  constexpr int kStages = C::kStages, R = C::kDqRows;
   extern __shared__ uint8_t smem_bwd90[];
   const uint32_t base = (smem_u32(smem_bwd90) + 1023u) & ~1023u;
   const uint32_t sQ = base, sDO = base + C::kOwnBytes, ring = base + C::kDqRing;
+  const uint32_t xch = base + C::kDqX;  // [P, dS][warp][j][lane] float4 (kHalves 2)
   const uint32_t bar_own = base + C::kDqBar, bar_full = bar_own + 8,
                  bar_empty = bar_full + 8 * kStages;
   // late tiles first (the longest under a causal mask: the grid's slowest
   // axis is the tile)
-  const int n_q = (p.S + 127) / 128;
-  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.z)) * 128;
+  const int n_q = (p.S + R - 1) / R;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.z)) * R;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (p.H / p.K);
   int kv_lo, kv_hi;
-  kv_range(p, q0, 128, &kv_lo, &kv_hi);
+  kv_range(p, q0, R, &kv_lo, &kv_hi);
   const int kt0 = kv_lo / C::kTile;
   const int items = max(0, (kv_hi + C::kTile - 1) / C::kTile - kt0);
 
@@ -2765,13 +2862,15 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     if (threadIdx.x == 256) {
       mbar_expect_tx(bar_own, 2 * C::kOwnBytes);
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+      for (int hf = 0; hf < C::kHalves; ++hf)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint32_t off = c * C::kOwnSlab + r * C::kSlab;
-          tma_load_4d(sQ + off, &tm_q, bar_own, c * 64, h, q0 + r * 64, b);
-          tma_load_4d(sDO + off, &tm_do, bar_own, c * 64, h, q0 + r * 64, b);
-        }
+        for (int c = 0; c < C::kSlabs; ++c)
+#pragma unroll
+          for (int r = 0; r < R / 64; ++r) {
+            const uint32_t off = (C::kSlabs * hf + c) * C::kOwnSlab + r * C::kSlab;
+            tma_load_4d(sQ + off, &m.q[hf], bar_own, c * 64, h, q0 + r * 64, b);
+            tma_load_4d(sDO + off, &m.dout[hf], bar_own, c * 64, h, q0 + r * 64, b);
+          }
       uint32_t s = 0, ph = 0;  // the stage and its round's parity
       for (int i = 0; i < items; ++i) {
         const int k0 = (kt0 + i) * C::kTile;
@@ -2779,29 +2878,37 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
         const uint32_t full = bar_full + 8 * s, st = ring + s * 2 * C::kTileBytes;
         mbar_expect_tx(full, 2 * C::kTileBytes);
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          tma_load_4d(st + c * C::kSlab, &tm_k, full, c * 64, kvh, k0, b);
-          tma_load_4d(st + C::kTileBytes + c * C::kSlab, &tm_v, full, c * 64, kvh, k0, b);
-        }
+        for (int hf = 0; hf < C::kHalves; ++hf)
+#pragma unroll
+          for (int c = 0; c < C::kSlabs; ++c) {
+            const uint32_t off = (C::kSlabs * hf + c) * C::kSlab;
+            tma_load_4d(st + off, &m.k[hf], full, c * 64, kvh, k0, b);
+            tma_load_4d(st + C::kTileBytes + off, &m.v[hf], full, c * 64, kvh, k0, b);
+          }
         if (++s == kStages) s = 0, ph ^= 1;
       }
     }
   } else {
-    // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64)
+    // ---- consumers: warpgroup wg owns query rows [r0, r0 + 64) and dQ's
+    // column half `half` (kHalves 1: rows q0 + 64 wg, every column; 2: rows
+    // q0, columns [wg kN, wg kN + kN))
+    constexpr bool kSplitCols = C::kHalves == 2;
+    const int half = kSplitCols ? wg : 0;
     const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32 % 4, 0);
     const int lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4, r0 = q0 + 64 * wg, dh = p.dh;
+    const int g = lane / 4, t = lane % 4, r0 = q0 + (kSplitCols ? 0 : 64 * wg), dh = p.dh;
     const long long qs = static_cast<long long>(p.H) * dh;
     const long long q_off = (static_cast<long long>(b) * p.S * p.H + h) * dh;
     const long long row = (static_cast<long long>(b) * p.H + h) * p.S;
     // D = rowsum(dO * O) of row 16 warp + (lane & 15), lanes r and r + 16
     // taking the two halves of its 16-byte chunks, from device memory while
     // the tiles load; it and lse log2(e) go to the scratch for the dK/dV
-    // launch (rows past S: 0 and +inf).  Every read of lse, O and dO is
-    // issued before the first is used (read in turns, the dQ launch took
-    // 0.1409 ms against 0.1345 at stablelm-3b's step, H100, kernels/ab.py
-    // --sm90-bwd); this thread's rows g and g + 8 take lse in the log2
-    // domain and the keys each sees.
+    // launch (rows past S: 0 and +inf; with split columns warpgroup 0's, both
+    // holding the same rows).  The reads of lse, O and dO are issued before
+    // the first is used, 8 chunks of each at a time (read in turns, the dQ
+    // launch took 0.1409 ms against 0.1345 at stablelm-3b's step, H100,
+    // kernels/ab.py --sm90-bwd); this thread's rows g and g + 8 take lse in
+    // the log2 domain and the keys each sees.
     const int sr = r0 + 16 * warp + (lane & 15);
     const float lse_s = sr < p.S ? p.lse[row + sr] * kLog2e : INFINITY;
     float lse2[2];
@@ -2820,22 +2927,26 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
       const uint4* o4 = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.o) + off);
       const uint4* d4 =
           reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) + off);
-      uint4 ov4[DH / 16], dv4[DH / 16];
+      constexpr int kChunks = DH / 16, kPass = kChunks < 8 ? kChunks : 8;
 #pragma unroll
-      for (int c = 0; c < DH / 16; ++c)
-        if (c < n) ov4[c] = o4[c], dv4[c] = d4[c];
+      for (int c0 = 0; c0 < kChunks; c0 += kPass) {
+        uint4 ov4[kPass], dv4[kPass];
 #pragma unroll
-      for (int c = 0; c < DH / 16; ++c)
-        if (c < n) {
-          float ov[8], dv[8];
-          unpack16(ov4[c], ov);
-          unpack16(dv4[c], dv);
+        for (int c = 0; c < kPass; ++c)
+          if (c0 + c < n) ov4[c] = o4[c0 + c], dv4[c] = d4[c0 + c];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) d = fmaf(ov[e], dv[e], d);
-        }
+        for (int c = 0; c < kPass; ++c)
+          if (c0 + c < n) {
+            float ov[8], dv[8];
+            unpack16(ov4[c], ov);
+            unpack16(dv4[c], dv);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) d = fmaf(ov[e], dv[e], d);
+          }
+      }
     }
     d += __shfl_xor_sync(0xffffffffu, d, 16);
-    if (lane < 16) {
+    if (lane < 16 && (!kSplitCols || wg == 0)) {
       const long long srow = (static_cast<long long>(b) * p.H + h) * p.s_pad + sr;
       p.delta[srow] = lse_s;
       p.delta[static_cast<long long>(p.B) * p.H * p.s_pad + srow] = d;
@@ -2843,7 +2954,9 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     // this thread's rows g and g + 8: D
     const float d_row[2] = {__shfl_sync(0xffffffffu, d, g), __shfl_sync(0xffffffffu, d, g + 8)};
     const float sl2 = p.scale * kLog2e;
-    const uint32_t q_wg = sQ + wg * C::kSlab, do_wg = sDO + wg * C::kSlab;
+    const uint32_t q_wg = sQ + (kSplitCols ? 0 : wg * C::kSlab);
+    const uint32_t do_wg = sDO + (kSplitCols ? 0 : wg * C::kSlab);
+    const uint32_t half_off = half * C::kSlabs * C::kSlab;  // this half's slabs of a tile
     float dq[C::kAcc];
 #pragma unroll
     for (int i = 0; i < C::kAcc; ++i) dq[i] = 0.f;
@@ -2857,29 +2970,53 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
       if (cls != kHidden) {
         uint32_t st = ring + s * 2 * C::kTileBytes;
         asm volatile("" : "+r"(st));
-        float sacc[32], dp[32];
-        wgmma_rows_n64<DH>(sacc, q_wg, C::kOwnSlab, st);                // S = Q K^T
-        wgmma_rows_n64<DH>(dp, do_wg, C::kOwnSlab, st + C::kTileBytes);  // dP = dO V^T
-        wgmma_wait<1>();
-        fence_regs(sacc);
-        // P = exp(S scale - lse); entry 4j + 2rr + e: row g + 8rr, key 8j + 2t + e
+        if constexpr (kSplitCols) {
+          // warpgroup 0: S = Q K^T and P; warpgroup 1: dP = dO V^T and dS =
+          // P (dP - D), P handed over and dS back through the exchange (the
+          // two warpgroups' accumulators lay out the same elements, so each
+          // thread's 32 values go to its own 8 float4 slots), one named
+          // barrier each way; both then accumulate dS K at their half
+          float x[32];
+          wgmma_rows_n64<DH>(x, wg == 0 ? q_wg : do_wg, C::kOwnSlab,
+                             wg == 0 ? st : st + C::kTileBytes);
+          wgmma_wait<0>();
+          fence_regs(x);
+          const uint32_t xp = xch + (warp * 8 * 32 + lane) * 16, xs = xp + C::kXBytes;
+          if (wg == 0) {
+            probs(x, lse2, lo, hi, k0, t, sl2, cls);
+            put_x(xp, x);
+            named_bar_sync(1, 256);  // P is in the exchange
+            named_bar_sync(4, 256);  // dS is
+            get_x(xs, x);
+          } else {
+            named_bar_sync(1, 256);
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int klo = lo[rr] - k0 - 2 * t, khi = hi[rr] - k0 - 2 * t;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float& x = sacc[4 * j + 2 * rr + e];
-              const float pr = ex2(fmaf(x, sl2, -lse2[rr]));
-              x = cls == kEdge && (8 * j + e < klo || 8 * j + e > khi) ? 0.f : pr;
+            for (int j = 0; j < 8; ++j) {  // dS = P (dP - D), D by row
+              const float4 pt = ld_shared_v4(xp + j * 32 * 16);
+              x[4 * j] = pt.x * (x[4 * j] - d_row[0]);
+              x[4 * j + 1] = pt.y * (x[4 * j + 1] - d_row[0]);
+              x[4 * j + 2] = pt.z * (x[4 * j + 2] - d_row[1]);
+              x[4 * j + 3] = pt.w * (x[4 * j + 3] - d_row[1]);
             }
-        }
-        wgmma_wait<0>();
-        fence_regs(dp);
+            put_x(xs, x);
+            named_bar_sync(4, 256);
+          }
+          // dQ += dS K (this half's columns of K): dS's bf16 remainder, then dS
+          wgmma_regs<DH, true>(dq, x, st + half_off);
+        } else {
+          float sacc[32], dp[32];
+          wgmma_rows_n64<DH>(sacc, q_wg, C::kOwnSlab, st);                // S = Q K^T
+          wgmma_rows_n64<DH>(dp, do_wg, C::kOwnSlab, st + C::kTileBytes);  // dP = dO V^T
+          wgmma_wait<1>();
+          fence_regs(sacc);
+          probs(sacc, lse2, lo, hi, k0, t, sl2, cls);  // P = exp(S scale - lse)
+          wgmma_wait<0>();
+          fence_regs(dp);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) sacc[j] *= dp[j] - d_row[(j >> 1) & 1];  // dS
-        wgmma_regs<DH, true>(dq, sacc, st);  // dQ += dS K: dS's bf16 remainder, then dS
+          for (int j = 0; j < 32; ++j) sacc[j] *= dp[j] - d_row[(j >> 1) & 1];  // dS
+          // dQ += dS K (this half's columns of K): dS's bf16 remainder, then dS
+          wgmma_regs<DH, true>(dq, sacc, st + half_off);
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);
@@ -2887,21 +3024,55 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     }
 
     // dQ = scale * the sum in bf16, through this warpgroup's Q rows (its
-    // products are done with them); TMA clips rows past S and columns past dh
-    stage_acc<false, DH>(q_wg, C::kOwnSlab, dq, p.scale);
-    store_acc(&tm_dq, q_wg, C::kOwnSlab, C::kSlabs, 64, wg, h, r0, b);
+    // products are done with them; with split columns, through its half's
+    // slabs once both warpgroups are); TMA clips rows past S and columns
+    // past dh
+    if constexpr (kSplitCols) named_bar_sync(1, 256);
+    const uint32_t out = q_wg + half * C::kSlabs * C::kOwnSlab;
+    stage_acc<false, C::kN>(out, C::kOwnSlab, dq, p.scale);
+    store_acc(&m.dq[half], out, C::kOwnSlab, C::kSlabs, 64, wg, h, r0, b);
+  }
+}
+
+// P^T = exp(S^T scale - lse) of a 64-key x 64-query tile in place, 0 where
+// an edge tile's mask hides the pair: entry 4j + 2rr + e is key g + 8rr
+// (seeing queries [lo[rr], hi[rr]]), query q0 + 8j + 2t + e, whose lse
+// log2(e) is lse2[8j + 2t + e].
+__device__ __forceinline__ void probs_t(float (&x)[32], const float* lse2, const int (&lo)[2],
+                                        const int (&hi)[2], int q0, int t, float sl2,
+                                        TileClass cls) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = x[4 * j + 2 * rr + e];
+        const float pr = ex2(fmaf(v, sl2, -(e ? l2.y : l2.x)));
+        const int qc = q0 + 8 * j + 2 * t + e;
+        v = cls == kEdge && (qc < lo[rr] || qc > hi[rr]) ? 0.f : pr;
+      }
+  }
+}
+
+// dS^T = P^T (dP^T - D) in place of dP^T, P^T from this thread's 8 float4
+// exchange slots at xb, D by query (dd, as lse2 above).
+__device__ __forceinline__ void ds_t(float (&x)[32], uint32_t xb, const float* dd, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 pt = ld_shared_v4(xb + j * 32 * 16);
+    const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * t);
+    x[4 * j] = pt.x * (x[4 * j] - d2.x);
+    x[4 * j + 1] = pt.y * (x[4 * j + 1] - d2.y);
+    x[4 * j + 2] = pt.z * (x[4 * j + 2] - d2.x);
+    x[4 * j + 3] = pt.w * (x[4 * j + 3] - d2.y);
   }
 }
 
 template <int DH>
 __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
-    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
-                               const __grid_constant__ CUtensorMap tm_k,
-                               const __grid_constant__ CUtensorMap tm_v,
-                               const __grid_constant__ CUtensorMap tm_do,
-                               const __grid_constant__ CUtensorMap tm_dk,
-                               const __grid_constant__ CUtensorMap tm_dv,
-                               const __grid_constant__ CUtensorMap tm_part, const BwdParams p) {
+    flash_bwd_dkdv_sm90_kernel(const __grid_constant__ Sm90BwdMaps m, const BwdParams p) {
   using C = Sm90Bwd<DH>;
   constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_bwd90[];
@@ -2912,9 +3083,11 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
   const uint32_t bar_own = base + C::kKvBar, bar_full = bar_own + 8,
                  bar_empty = bar_full + 8 * kStages;
   // early key tiles first (the longest under a causal mask: the grid's
-  // slowest axis is the tile)
+  // slowest axis is the tile); the fastest axis the column half of dK and dV
+  // (kHalves 2), so that both halves of a tile run together
   const int k0 = blockIdx.z * C::kTile, b = blockIdx.y;
-  const int HS = p.head_split, kvh = blockIdx.x / HS, hs = blockIdx.x % HS;
+  const int half = blockIdx.x % C::kHalves, split = blockIdx.x / C::kHalves;
+  const int HS = p.head_split, kvh = split / HS, hs = split % HS;
   const int G = p.H / p.K / HS, h0 = (kvh * HS + hs) * G;
   int q_lo, q_hi;
   q_range(p, k0, C::kTile, &q_lo, &q_hi);
@@ -2937,10 +3110,13 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     if (threadIdx.x == 256) {
       mbar_expect_tx(bar_own, 2 * C::kTileBytes);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        tma_load_4d(sK + c * C::kSlab, &tm_k, bar_own, c * 64, kvh, k0, b);
-        tma_load_4d(sV + c * C::kSlab, &tm_v, bar_own, c * 64, kvh, k0, b);
-      }
+      for (int hf = 0; hf < C::kHalves; ++hf)
+#pragma unroll
+        for (int c = 0; c < C::kSlabs; ++c) {
+          const uint32_t off = (C::kSlabs * hf + c) * C::kSlab;
+          tma_load_4d(sK + off, &m.k[hf], bar_own, c * 64, kvh, k0, b);
+          tma_load_4d(sV + off, &m.v[hf], bar_own, c * 64, kvh, k0, b);
+        }
       // lse log2(e) of head h's rows, and its D n_rows further
       const float* lrow = p.delta + (static_cast<long long>(b) * p.H + h0) * p.s_pad;
       const long long n_rows = static_cast<long long>(p.B) * p.H * p.s_pad;
@@ -2952,11 +3128,14 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
           const uint32_t full = bar_full + 8 * s, st = ring + s * 2 * C::kTileBytes;
           mbar_expect_tx(full, 2 * C::kTileBytes + 2 * C::kTile * 4);
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            tma_load_4d(st + c * C::kSlab, &tm_q, full, c * 64, h, qt * C::kTile, b);
-            tma_load_4d(st + C::kTileBytes + c * C::kSlab, &tm_do, full, c * 64, h,
-                        qt * C::kTile, b);
-          }
+          for (int hf = 0; hf < C::kHalves; ++hf)
+#pragma unroll
+            for (int c = 0; c < C::kSlabs; ++c) {
+              const uint32_t off = (C::kSlabs * hf + c) * C::kSlab;
+              tma_load_4d(st + off, &m.q[hf], full, c * 64, h, qt * C::kTile, b);
+              tma_load_4d(st + C::kTileBytes + off, &m.dout[hf], full, c * 64, h,
+                          qt * C::kTile, b);
+            }
           const uint32_t sr = rows + s * 2 * C::kTile * 4;
           bulk_load(sr, lrow + qt * C::kTile, C::kTile * 4, full);
           bulk_load(sr + C::kTile * 4, lrow + n_rows + qt * C::kTile, C::kTile * 4, full);
@@ -2965,7 +3144,7 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     }
   } else {
     // ---- consumers: both warpgroups take the CTA's 64 keys; warpgroup 0
-    // accumulates dV, warpgroup 1 dK
+    // accumulates dV, warpgroup 1 dK (the CTA's column half of each)
     const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32 % 4, 0);
     const int lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
@@ -2976,6 +3155,7 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     for (int rr = 0; rr < 2; ++rr) key_queries(p, k0 + 16 * warp + g + 8 * rr, &lo[rr], &hi[rr]);
     const float sl2 = p.scale * kLog2e;
     const uint32_t own = wg == 0 ? sK : sV;  // S^T = K Q^T, dP^T = V dO^T
+    const uint32_t half_off = half * C::kSlabs * C::kSlab;  // this half's slabs of a tile
     float acc[C::kAcc];
 #pragma unroll
     for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
@@ -2994,46 +3174,24 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
         const uint32_t sdo = sq + C::kTileBytes;
         // this thread's 32 values of P^T in the exchange, as 8 float4
         const uint32_t xb = xch + (nx & 1) * C::kXBytes + (warp * 8 * 32 + lane) * 16;
+        const float* lse2 = srows + s * 2 * C::kTile;  // lse log2(e), then D, by query
         float x[32];
         wgmma_rows_n64<DH>(x, own, C::kSlab, wg == 0 ? sq : sdo);
         wgmma_wait<0>();
         fence_regs(x);
         if (wg == 0) {
-          // P^T = exp(S^T scale - lse); entry 4j + 2rr + e: key g + 8rr, query 8j + 2t + e
-          const float* lse2 = srows + s * 2 * C::kTile;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
-#pragma unroll
-            for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float& v = x[4 * j + 2 * rr + e];
-                const float pr = ex2(fmaf(v, sl2, -(e ? l2.y : l2.x)));
-                const int qc = q0 + 8 * j + 2 * t + e;
-                v = cls == kEdge && (qc < lo[rr] || qc > hi[rr]) ? 0.f : pr;
-              }
-            st_shared_v4(xb + j * 32 * 16, x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
-          }
+          probs_t(x, lse2, lo, hi, q0, t, sl2, cls);  // P^T = exp(S^T scale - lse)
+          put_x(xb, x);
           named_bar_sync(1, 256);  // P^T is in the exchange
-          if (p.split)
-            wgmma_regs<DH, true>(acc, x, sdo);  // dV += P^T dO: P^T's remainder, then P^T
+          if (p.split)  // dV += P^T dO: P^T's remainder, then P^T
+            wgmma_regs<DH, true>(acc, x, sdo + half_off);
           else
-            wgmma_regs<DH>(acc, x, sdo);  // dV += P^T dO
+            wgmma_regs<DH>(acc, x, sdo + half_off);  // dV += P^T dO
         } else {
           named_bar_sync(1, 256);
-          // dS^T = P^T (dP^T - D), D by query
-          const float* dd = srows + s * 2 * C::kTile + C::kTile;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 pt = ld_shared_v4(xb + j * 32 * 16);
-            const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + 2 * t);
-            x[4 * j] = pt.x * (x[4 * j] - d2.x);
-            x[4 * j + 1] = pt.y * (x[4 * j + 1] - d2.y);
-            x[4 * j + 2] = pt.z * (x[4 * j + 2] - d2.x);
-            x[4 * j + 3] = pt.w * (x[4 * j + 3] - d2.y);
-          }
-          wgmma_regs<DH, true>(acc, x, sq);  // dK += dS^T Q: dS^T's remainder, then dS^T
+          ds_t(x, xb, lse2 + C::kTile, t);  // dS^T = P^T (dP^T - D), D by query
+          // dK += dS^T Q: dS^T's remainder, then dS^T
+          wgmma_regs<DH, true>(acc, x, sq + half_off);
         }
         ++nx;
       }
@@ -3043,19 +3201,20 @@ __global__ void __launch_bounds__(Sm90Bwd<DH>::kThreads, 1)
     }
 
     // Both warpgroups are done with K, V and the exchange: dK (scaled) and
-    // dV leave through them and TMA stores, in bf16; or with head_split > 1
-    // unscaled in fp32 through this split's slice of `partial` (2, HS, B, S,
-    // K, dh), a third launch summing the slices.  TMA clips keys past S and
-    // columns past dh.
+    // dV (this CTA's column half of each) leave through them and TMA
+    // stores, in bf16; or with head_split > 1 unscaled in fp32 through this
+    // split's slice of `partial` (2, HS, B, S, K, dh), a third launch summing
+    // the slices.  TMA clips keys past S and columns past dh.
     named_bar_sync(1, 256);
     if (HS == 1) {
       const uint32_t tile = wg == 0 ? sV : sK;
-      stage_acc<false, DH>(tile, C::kSlab, acc, wg == 0 ? 1.f : p.scale);
-      store_acc(wg == 0 ? &tm_dv : &tm_dk, tile, C::kSlab, C::kSlabs, 64, wg, kvh, k0, b);
+      stage_acc<false, C::kN>(tile, C::kSlab, acc, wg == 0 ? 1.f : p.scale);
+      store_acc(wg == 0 ? &m.dv[half] : &m.dk[half], tile, C::kSlab, C::kSlabs, 64, wg, kvh, k0,
+                b);
     } else {
       const uint32_t tile = wg == 0 ? xch : sK;  // 32 KB each
-      stage_acc<true, DH>(tile, C::kSlab, acc, 1.f);
-      store_acc(&tm_part, tile, C::kSlab, C::kF32Slabs, 32, wg, kvh, k0,
+      stage_acc<true, C::kN>(tile, C::kSlab, acc, 1.f);
+      store_acc(&m.part[half], tile, C::kSlab, C::kF32Slabs, 32, wg, kvh, k0,
                 ((wg == 0 ? HS : 0) + hs) * p.B + b);
     }
   }
@@ -3260,39 +3419,53 @@ int launch_sm90(const Params& p, cudaStream_t stream) {
 
 // The sm90 backward: the dQ launch (which also writes lse log2(e) and D into
 // the delta scratch), the dK/dV launch and, with head_split > 1, the sum.
-// The tensor maps' extent and strides are the real head dim.
+// The tensor maps' strides are the real head dim; a half's map starts its
+// columns further, with its columns' extent (the real head dim at DH 80 /
+// 128).
 template <int DH>
 int launch_bwd_sm90(const BwdParams& p, cudaStream_t stream) {
   using C = Sm90Bwd<DH>;
   const int dh = p.dh;  // DH, or 120 on the DH 128 instance
   if (dh != DH && !(DH == 128 && dh == 120)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long qs = static_cast<long long>(p.H) * dh, ks = static_cast<long long>(p.K) * dh;
-  CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv, tpart{};
-  int err = encode_map(&tq, p.q, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
-  if (!err) err = encode_map(&tk, p.k, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
-  if (!err) err = encode_map(&tv, p.v, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
-  if (!err) err = encode_map(&tdo, p.dout, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
-  if (!err) err = encode_map(&tdq, p.dq, dh, p.H, p.S, p.B, dh, qs, qs * p.S, C::kTile);
-  if (!err) err = encode_map(&tdk, p.dk, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
-  if (!err) err = encode_map(&tdv, p.dv, dh, p.K, p.S, p.B, dh, ks, ks * p.S, C::kTile);
-  // partial (2, head_split, B, S, K, dh) fp32 as [dh, K, S, 2 head_split B]
-  if (!err && p.head_split > 1)
-    err = encode_map(&tpart, p.partial, dh, p.K, p.S, 2 * p.head_split * p.B, dh, ks, ks * p.S,
-                     C::kTile, true);
+  const long long ks = static_cast<long long>(p.K) * dh;
+  const int cols = dh / C::kHalves;  // a half's columns
+  Sm90BwdMaps m{};
+  int err = 0;
+  for (int hf = 0; hf < C::kHalves && !err; ++hf) {
+    const long long c0 = static_cast<long long>(hf) * cols;  // its first column
+    // a (B, S, heads, dh) bf16 tensor's half: its columns [c0, c0 + cols)
+    const auto half_map = [&](CUtensorMap* map, const void* t, int heads) {
+      const long long hs = static_cast<long long>(heads) * dh;
+      return encode_map(map, static_cast<const __nv_bfloat16*>(t) + c0, cols, heads, p.S, p.B,
+                        dh, hs, hs * p.S, C::kTile);
+    };
+    err = half_map(&m.q[hf], p.q, p.H);
+    if (!err) err = half_map(&m.k[hf], p.k, p.K);
+    if (!err) err = half_map(&m.v[hf], p.v, p.K);
+    if (!err) err = half_map(&m.dout[hf], p.dout, p.H);
+    if (!err) err = half_map(&m.dq[hf], p.dq, p.H);
+    if (!err) err = half_map(&m.dk[hf], p.dk, p.K);
+    if (!err) err = half_map(&m.dv[hf], p.dv, p.K);
+    // partial (2, head_split, B, S, K, dh) fp32 as [dh, K, S, 2 head_split B]
+    if (!err && p.head_split > 1)
+      err = encode_map(&m.part[hf], p.partial + c0, cols, p.K, p.S, 2 * p.head_split * p.B, dh,
+                       ks, ks * p.S, C::kTile, true);
+  }
   if (err) return err;
-  const long long q_tiles = (p.S + 127) / 128, kv_tiles = (p.S + C::kTile - 1) / C::kTile;
+  const long long q_tiles = (p.S + C::kDqRows - 1) / C::kDqRows,
+                  kv_tiles = (p.S + C::kTile - 1) / C::kTile;
   if (kv_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = allow_smem<flash_bwd_dq_sm90_kernel<DH>>(C::kDqBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dq_sm90_kernel<DH><<<dim3(p.H, p.B, static_cast<unsigned>(q_tiles)), C::kThreads,
-                                 C::kDqBytes, stream>>>(tq, tk, tv, tdo, tdq, p);
+                                 C::kDqBytes, stream>>>(m, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   e = allow_smem<flash_bwd_dkdv_sm90_kernel<DH>>(C::kKvBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_bwd_dkdv_sm90_kernel<DH>
-      <<<dim3(p.K * p.head_split, p.B, static_cast<unsigned>(kv_tiles)), C::kThreads,
-          C::kKvBytes, stream>>>(tq, tk, tv, tdo, tdk, tdv, tpart, p);
+      <<<dim3(p.K * p.head_split * C::kHalves, p.B, static_cast<unsigned>(kv_tiles)),
+         C::kThreads, C::kKvBytes, stream>>>(m, p);
   return launch_dkdv_sum<__nv_bfloat16>(p, stream);
 }
 
@@ -3401,7 +3574,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 }
 
 // The sm90 backward body: as flash_attention_bwd, bfloat16 only (dtype 1),
-// head_dim 80, 120 or 128, scale > 0; delta is fp32 scratch of 2 * B * H * s_pad
+// head_dim 80, 120, 128, 160 or 256, scale > 0; delta is fp32 scratch of 2 * B * H * s_pad
 // floats, s_pad = S rounded up to 128 (lse log2(e) and D, written by the dQ
 // launch for the dK/dV launch), 16-byte aligned.  Returns
 // cudaErrorInvalidValue on anything else, else the first launch error or
@@ -3412,9 +3585,12 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
                                         int H, int K, int causal, int window, int chunk,
                                         float scale, int head_dim, int dtype, int head_split,
                                         void* partial, void* stream) {
+  const int halves = head_dim > 128 ? 2 : 1;  // Sm90Bwd<head_dim>::kHalves
   if (B <= 0 || S <= 0 || K <= 0 || H % K || B > 65535 || H > 65535 || dtype != 1 ||
-      (head_dim != 80 && head_dim != 120 && head_dim != 128) || !(scale > 0.f) ||
-      head_split < 1 || (H / K) % head_split || K * head_split > 65535 ||
+      (head_dim != 80 && head_dim != 120 && head_dim != 128 && head_dim != 160 &&
+       head_dim != 256) ||
+      !(scale > 0.f) || head_split < 1 || (H / K) % head_split ||
+      K * head_split * halves > 65535 ||
       (head_split > 1 && (partial == nullptr || !aligned16(partial))))
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* ptr : {q, k, v, o, dout, static_cast<const void*>(delta),
@@ -3426,7 +3602,12 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
                     chunk, scale, head_dim, head_split, static_cast<float*>(partial),
                     (S + 127) / 128 * 128, H / K > kSm90SplitGroup};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return head_dim == 80 ? launch_bwd_sm90<80>(p, st) : launch_bwd_sm90<128>(p, st);
+  switch (head_dim) {
+    case 80: return launch_bwd_sm90<80>(p, st);
+    case 160: return launch_bwd_sm90<160>(p, st);
+    case 256: return launch_bwd_sm90<256>(p, st);
+    default: return launch_bwd_sm90<128>(p, st);  // 120 and 128
+  }
 }
 
 // The mma_tf32x3 body: float32 q, k, v and o, laid out as for

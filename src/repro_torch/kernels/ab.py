@@ -3,7 +3,7 @@ of the fp32 forward's mma_tf32x3 body; with ``--sm90``, of the bf16
 forward's sm90 body) on one card, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab [--forward | --sm90 | --sm90-bwd] \
-        [--shape 100m|rgemma|stablelm] A.cu B.cu [...]
+        [--shape 100m|rgemma|stablelm] [--only WORD ...] A.cu B.cu [...]
 
 Each argument is a copy of ``csrc/flash_attention.cu`` (edited by hand, for
 an A/B of one change).  Each is built with the port's nvcc flags into
@@ -38,17 +38,20 @@ SDPA's bf16 call, by the profiler and by CUDA events.
 
 ``--sm90-bwd`` does it for the bf16 backward's sm90 body
 (``flash_attention_bwd_sm90``), on o and lse from the plain versions: at
-``SM90_BWD_CHECKS`` (dh 80, 120 and 128, ragged S, MHA, GQA, MQA, causal,
-window, chunk and no mask) dq, dk and dv as shares of the bf16 tolerance
-2e-2 (1 + |x|) against autograd of ``mha_ref`` in fp32, and whether two
-runs give the same bits; then at ``SM90_BWD_SHAPES`` (qwen2-vl-2b's and
-stablelm-3b's train steps, h2o-danube-3-4b's heads) its device time by
-kernel at every head split the group allows, in turns, beside the first
-source's mma_bf16 body (``flash_attention_bwd``: the pair kernels at
-``bwd_head_split``'s split, the 4-warp kernels at dh 80) and SDPA's bf16
-backward.  It prints the ptxas lines of each variant's
-sm90 backward kernels and exits non-zero on a failed check (after the
-timings).
+``SM90_BWD_CHECKS`` (dh 80, 120, 128, 160 and 256, ragged S, MHA, GQA,
+MQA, causal, window, chunk and no mask) dq, dk and dv as shares of the
+bf16 tolerance 2e-2 (1 + |x|) against autograd of ``mha_ref`` in fp32,
+and whether two runs give the same bits; then at ``SM90_BWD_SHAPES``
+(qwen2-vl-2b's, stablelm-3b's, recurrentgemma-9b's and stablelm-12b's
+train steps, the last two also at batch 4 x 512, and h2o-danube-3-4b's
+heads) its device time by kernel at every head split the group allows, in
+turns, beside the first source's mma_bf16 body (``flash_attention_bwd``:
+the pair kernels at ``bwd_head_split``'s split, the 4-warp kernels at dh
+80) and SDPA's bf16 backward (with the mask as a boolean ``attn_mask``
+where a window bites).  ``--only WORD`` (repeatable) keeps the timed
+shapes whose label holds one of the words.  It prints the ptxas lines of
+each variant's sm90 backward kernels and exits non-zero on a failed check
+(after the timings).
 """
 from __future__ import annotations
 
@@ -96,8 +99,10 @@ SM90_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 256)
     (1, 700, 16, 1, dict(causal=False)))]
 
 
-# --sm90-bwd: the checks, then the timed shapes
-SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128)
+# --sm90-bwd: the checks (at dh 160 and 256 also recurrentgemma-9b's MQA
+# 16 : 1 with a window that bites, P in hi + lo, and stablelm-12b's GQA 32
+# : 8), then the timed shapes
+SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 160, 256)
                    for B, S, H, K, kw in (
     (1, 200, 12, 2, dict(causal=True)),
     (2, 333, 8, 8, dict(causal=True)),
@@ -106,11 +111,20 @@ SM90_BWD_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128)
     (1, 512, 12, 4, dict(causal=True, chunk=96)),
     (2, 190, 6, 2, dict(causal=False)),
     (4, 1024, 12, 2, dict(causal=True)),    # qwen2-vl-2b's step, two draws
-    (4, 1024, 12, 2, dict(causal=True)))]
+    (4, 1024, 12, 2, dict(causal=True)))] + [
+    (1, 1100, 16, 1, 256, dict(causal=True, window=700)),
+    (1, 1100, 32, 8, 160, dict(causal=True)),
+    (1, 1100, 16, 1, 160, dict(causal=True, window=700))]
 SM90_BWD_SHAPES = {
     "qwen2-vl-2b": (4, 1024, 12, 2, 128, dict(causal=True)),
     "stablelm-3b": (4, 1024, 32, 32, 80, dict(causal=True)),
     "h2o-danube-3-4b": (4, 512, 32, 8, 120, dict(causal=True)),
+    "recurrentgemma-9b 4x512": (4, 512, 16, 1, 256,
+                                dict(causal=True, window=2048)),
+    "stablelm-12b 4x512": (4, 512, 32, 8, 160, dict(causal=True)),
+    "recurrentgemma-9b train_4k": (1, 4096, 16, 1, 256,
+                                   dict(causal=True, window=2048)),
+    "stablelm-12b train_4k": (1, 4096, 32, 8, 160, dict(causal=True)),
 }
 
 
@@ -192,12 +206,17 @@ def _ms_by_kernel(fn, iters: int = 20) -> dict:
     return ms
 
 
-def _sdpa_mask(S: int, kw: dict) -> dict:
+def _sdpa_mask(S: int, kw: dict, dev=None) -> dict:
     """SDPA's is_causal stands for the mask where the window does not
-    bite (every shape of ``SHAPES``)."""
-    if not kw["causal"] or kw.get("chunk") or 0 < kw.get("window", 0) < S:
+    bite (every shape of ``SHAPES``); given ``dev``, any other causal mask
+    goes as a boolean ``attn_mask`` (S, S) on it."""
+    window = kw.get("window", 0)
+    if kw["causal"] and not kw.get("chunk") and not 0 < window < S:
+        return dict(is_causal=True, enable_gqa=True)
+    if dev is None:
         raise ValueError(f"no SDPA call for the mask {kw}")
-    return dict(is_causal=True, enable_gqa=True)
+    pos = torch.arange(S, device=dev)
+    return dict(attn_mask=attention_mask(pos, pos, **kw), enable_gqa=True)
 
 
 def main_forward(sources: list[str], shapes) -> None:
@@ -340,7 +359,7 @@ def main_sm90(sources: list[str]) -> None:
                   flush=True)
 
 
-def main_sm90_bwd(sources: list[str]) -> None:
+def main_sm90_bwd(sources: list[str], only: list[str] | None = None) -> None:
     from .flash_attention.ref import lse_ref
     fns = _build_variants(sources, sm90_bwd=True)
     dev = torch.device("cuda")
@@ -420,6 +439,8 @@ def main_sm90_bwd(sources: list[str]) -> None:
                 if not (share <= 1 and same):
                     failed.append((name, B, S, H, K, dh, kw, split))
     for label, (B, S, H, K, dh, kw) in SM90_BWD_SHAPES.items():
+        if only and not any(word in label for word in only):
+            continue
         t = setup(B, S, H, K, dh, kw, g)
         G = H // K
         res = {}
@@ -434,7 +455,7 @@ def main_sm90_bwd(sources: list[str]) -> None:
         mma = bind(next(iter(fns.values()))[1], t, kw, split, sm90=False)
         leaves = [x.clone().requires_grad_() for x in t[:3]]
         out = F.scaled_dot_product_attention(
-            *(x.transpose(1, 2) for x in leaves), **_sdpa_mask(S, kw))
+            *(x.transpose(1, 2) for x in leaves), **_sdpa_mask(S, kw, dev))
         dout = t[4].transpose(1, 2)
 
         def sdpa():
@@ -455,6 +476,7 @@ def main(argv: list[str]) -> None:
     ap.add_argument("--sm90", action="store_true")
     ap.add_argument("--sm90-bwd", action="store_true")
     ap.add_argument("--shape", choices=sorted(SHAPES), default="100m")
+    ap.add_argument("--only", action="append")
     ap.add_argument("sources", nargs="+")
     args = ap.parse_args(argv)
     if args.forward:
@@ -462,7 +484,7 @@ def main(argv: list[str]) -> None:
     if args.sm90:
         return main_sm90(args.sources)
     if args.sm90_bwd:
-        return main_sm90_bwd(args.sources)
+        return main_sm90_bwd(args.sources, args.only)
     fns = _build_variants(args.sources)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

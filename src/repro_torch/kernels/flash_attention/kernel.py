@@ -38,19 +38,25 @@ FlashAttention-2 without atomics on the tensor cores, at every head dim of
 in one of three bodies (``select_bwd_body`` decides from the dtype, the
 head dim and the sign of the scale, and raises on the rest):
 
-* ``sm90``: bfloat16 at dh 80, 120 and 128 (``SM90_BWD_HEAD_DIMS``:
-  stablelm-3b's and qwen2-vl-2b's bf16 train steps, hubert-xlarge's and
+* ``sm90``: bfloat16 at dh 80, 120, 128, 160 and 256
+  (``SM90_BWD_HEAD_DIMS``: stablelm-3b's, qwen2-vl-2b's, recurrentgemma-9b's
+  and stablelm-12b's bf16 train steps, hubert-xlarge's and
   h2o-danube-3-4b's heads) with a scale > 0: wgmma, TMA and warp
-  specialisation, compiled for dh 80 and 128 (120 on the 128 instance, TMA
-  zero-filling the columns past dh), P rounded to bf16 once for dV and dS as bf16
-  hi + lo for dK and dQ (``ref.mha_grads_by_products`` with
-  ``bf16_operands`` and ``ds_matmul=bf16_hilo`` models it), P as hi + lo
-  too where a KV head has more than ``SM90_BWD_SPLIT_GROUP`` query heads;
-  the dK/dV launch's CTAs take 64 keys (``SM90_BWD_KV_TILE``), one
-  warpgroup accumulating dV, the other dK.
-* ``mma_bf16``: every other bfloat16 input (dh 16-64, 160, 256, a scale <=
-  0), mma.sync with fp32 accumulation, above dh 80 P and dS in hi + lo
-  bf16 products; the sm90 body's previous body at dh 80-128, forced by
+  specialisation, compiled for dh 80, 128, 160 and 256 (120 on the 128
+  instance, TMA zero-filling the columns past dh), P rounded to bf16 once
+  for dV and dS as bf16 hi + lo for dK and dQ (``ref.mha_grads_by_products``
+  with ``bf16_operands`` and ``ds_matmul=bf16_hilo`` models it), P as hi +
+  lo too where a KV head has more than ``SM90_BWD_SPLIT_GROUP`` query
+  heads; the dK/dV launch's CTAs take 64 keys (``SM90_BWD_KV_TILE``), one
+  warpgroup accumulating dV, the other dK.  Above dh 128 every sum is cut
+  into two column halves (``sm90_bwd_halves``): the dQ launch's two
+  warpgroups take the same 64 query rows (one forming S and P, the other
+  dP and dS, handed across through shared memory), one half of dQ each,
+  and the dK/dV launch has a grid axis of the two halves, each CTA forming
+  S and dP whole and accumulating its half of dK and dV.
+* ``mma_bf16``: every other bfloat16 input (dh 16-64, a scale <= 0),
+  mma.sync with fp32 accumulation, above dh 80 P and dS in hi + lo bf16
+  products; the sm90 body's previous body at dh 80-256, forced by
   ``body="mma_bf16"``.
 * ``mma_tf32x3``: float32 (the training path), every operand split into
   TF32 hi + lo and each product formed from three TF32 products, which
@@ -84,12 +90,13 @@ TF32_HEAD_DIMS = HEAD_DIMS
 # the backward: every head dim the forward takes
 BWD_HEAD_DIMS = HEAD_DIMS
 BWD_BODIES = ("mma_tf32x3", "mma_bf16", "sm90")
-SM90_BWD_HEAD_DIMS = (80, 120, 128)
+SM90_BWD_HEAD_DIMS = (80, 120, 128, 160, 256)
 # the mma bodies' dK/dV CTAs: one a (tile of keys, KV head, batch), every
 # column of dK and dV, the tiles as csrc/flash_attention.cu cuts the keys
 # (BwdCfg up to dh 80, BwdPairCfg::kKvRows above)
 BWD_KV_TILE = {16: 64, 32: 64, 64: 64, 80: 64, 120: 64, 128: 64, 160: 64, 256: 32}
-# the sm90 body's: 64 keys, one warpgroup accumulating dV, one dK (Sm90Bwd)
+# the sm90 body's: 64 keys, one warpgroup accumulating dV, one dK (Sm90Bwd),
+# each CTA a column half of them above dh 128 (sm90_bwd_halves)
 SM90_BWD_KV_TILE = 64
 # above this many query heads a KV head the sm90 body forms P in hi + lo
 # bf16 products too (csrc/flash_attention.cu: kSm90SplitGroup)
@@ -104,6 +111,13 @@ BWD_FILL = 6
 # 2, h2o-danube-3-4b's heads (256) none, the fastest of each's splits on the
 # H100 (kernels/ab.py --sm90-bwd, PERF.md)
 SM90_BWD_FILL = 1.5
+
+
+def sm90_bwd_halves(dh: int) -> int:
+    """The column halves the sm90 backward cuts each 64 x dh sum into
+    (``Sm90Bwd::kHalves``): 2 above dh 128, where a whole one does not fit
+    a warpgroup's registers beside S and dP, else 1."""
+    return 2 if dh > 128 else 1
 
 
 def _entry(name: str):
@@ -144,17 +158,21 @@ def bwd_head_split(B: int, S: int, H: int, K: int, dh: int, sms: int,
     ``BWD_FILL`` CTAs an SM while they divide the group.  On ``sm90``, at
     each of its head dims (80 too): the smallest divisor of the group (any,
     3 and 6 too) that reaches ``SM90_BWD_FILL`` CTAs an SM, else the whole
-    group.  recurrentgemma-9b's MQA step (B 4, S 512, 16 heads, one KV
-    head, dh 256) has 16 x 4 = 64 CTAs of 32 keys, each walking 16 heads,
-    and the key tile at the diagonal's start sees 16 times the query tiles
-    of the last: 16 splits, 1024 CTAs of one head; stablelm-12b's heads (32
-    over 8 KV heads, dh 160) 256 CTAs of 4 heads, split 4 ways.  On sm90,
-    stablelm-3b's MHA step (B 4, S 1024, 32 heads, dh 80) has 16 x 32 x 4 =
-    2048 CTAs and nothing to split; a GQA 28 / 4 group at S 1000, batch 1,
-    16 x 4 = 64 CTAs, split 7 ways (448 CTAs)."""
+    group, the CTAs counted over both column halves above dh 128
+    (``sm90_bwd_halves``).  recurrentgemma-9b's MQA step (B 4, S 512, 16
+    heads, one KV head, dh 256) has, on the mma bodies, 16 x 4 = 64 CTAs of
+    32 keys, each walking 16 heads, and the key tile at the diagonal's start
+    sees 16 times the query tiles of the last: 16 splits, 1024 CTAs of one
+    head; stablelm-12b's heads (32 over 8 KV heads, dh 160) 256 CTAs of 4
+    heads, split 4 ways.  On sm90, stablelm-3b's MHA step (B 4, S 1024, 32
+    heads, dh 80) has 16 x 32 x 4 = 2048 CTAs and nothing to split; a GQA
+    28 / 4 group at S 1000, batch 1, 16 x 4 = 64 CTAs, split 7 ways (448
+    CTAs); recurrentgemma-9b's step 8 x 4 x 2 = 64 CTAs, split 4 ways, and
+    at its train_4k shape (B 1, S 4096) 64 x 2 = 128, split 2 ways;
+    stablelm-12b's 512 and 1024, none."""
     G, split = H // K, 1
     if body == "sm90":
-        ctas = -(-S // SM90_BWD_KV_TILE) * K * B
+        ctas = -(-S // SM90_BWD_KV_TILE) * K * B * sm90_bwd_halves(dh)
         return next(d for d in range(1, G + 1)
                     if G % d == 0 and (ctas * d >= SM90_BWD_FILL * sms
                                        or d == G))

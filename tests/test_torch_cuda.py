@@ -860,6 +860,11 @@ FLASH_BWD_CASES = [
     (2, 257, 4, 4, 128, dict(causal=False)),
     # stablelm-3b's train step (bf16 on the sm90 body at dh 80)
     (4, 1024, 32, 32, 80, dict(causal=True)),
+    # bf16 on the sm90 body's column halves: recurrentgemma-9b's MQA at dh
+    # 256 with a window that bites at a ragged S (P in hi + lo),
+    # stablelm-12b's GQA 32 : 8 at dh 160
+    (1, 1100, 16, 1, 256, dict(causal=True, window=700)),
+    (1, 300, 32, 8, 160, dict(causal=True)),
 ]
 
 
@@ -983,7 +988,10 @@ def test_flash_bwd_pair_body_matches_split_products(cuda, B, S, H, K, dh, kw,
     (2, 200, 12, 4, 120, dict(causal=True, window=70)),
     (1, 257, 6, 1, 128, dict(causal=True, chunk=96)),
     (2, 190, 6, 2, 120, dict(causal=False)),
-    (1, 300, 12, 2, 80, dict(causal=True, window=100))])
+    (1, 300, 12, 2, 80, dict(causal=True, window=100)),
+    # the column halves: MQA 16 : 1 at dh 256 (splits 1-16), GQA 4 at 160
+    (1, 300, 16, 1, 256, dict(causal=True, window=100)),
+    (2, 190, 8, 2, 160, dict(causal=True))])
 def test_flash_bwd_sm90_head_splits_agree(cuda, B, S, H, K, dh, kw):
     """The sm90 body's dK/dV launch at every head split its group allows
     (any divisor: 3 and 6 too), on TMA-aligned bf16 inputs: each within
@@ -1058,8 +1066,8 @@ def test_flash_sm90_lse_matches_plain(cuda, B, S, H, K, dh, kw):
 ])
 def test_flash_sm90_training_matches_plain(cuda, B, S, H, K, dh, kw):
     """bf16 training at dh 80, 128 and 256 on TMA-aligned inputs: the sm90
-    forward (its log-sum-exp) and the backward (sm90 at dh 80 and 128,
-    mma_bf16's pair kernels at 256) through
+    forward (its log-sum-exp) and the sm90 backward (column halves at 256)
+    through
     ``ops.flash_attention``; dq, dk, dv against autograd of mha_ref in fp32
     on the same bf16 inputs, within 2e-2 (1 + |x|)."""
     g = torch.Generator(device=cuda).manual_seed(7)

@@ -622,7 +622,8 @@ def test_flash_bwd_body_by_dtype(dh, dtype, want):
     dims as views whose strides TMA cannot read, which the forward sends to
     its mma body (aligned ones take sm90, below).  The backward's choice
     does not look at strides (its wrapper makes every operand contiguous):
-    bf16 at dh 80, 120 and 128 takes its sm90 body from any view."""
+    bf16 at dh 80, 120, 128, 160 and 256 takes its sm90 body from any
+    view."""
     args = (fused(4, 2, dh, extra=1) if dtype == BF16
             and dh in flash.SM90_HEAD_DIMS else qkv(dh=dh, dtype=dtype))
     assert flash_body(*args) in ("mma", "mma_tf32x3", "fp32")
@@ -658,16 +659,25 @@ def test_flash_bwd_head_split_fills_the_card(B, S, H, K, dh, sms, want):
     (2, 512, 12, 2, 128, 132, 6),    # 8 x 2 x 2 = 32 CTAs: 6 give 192
     (4, 1024, 12, 2, 128, 16, 1),    # a card of 16 SMs: 128 CTAs fill it
     (1, 512, 28, 4, 128, 132, 7),    # qwen2-7b's group of 7: 7 or nothing
+    # above dh 128 the column halves double the CTAs: recurrentgemma-9b's
+    # train_4k step, 64 key tiles x 1 KV head x 2 halves = 128 CTAs, split
+    # 2 (256); its batch 4 x 512, 8 x 4 x 2 = 64, split 4; stablelm-12b's
+    # train_4k step, 64 x 8 x 2 = 1024, and at 4 x 512, 512: none
+    (1, 4096, 16, 1, 256, 132, 2),
+    (4, 512, 16, 1, 256, 132, 4),
+    (1, 4096, 32, 8, 160, 132, 1),
+    (4, 512, 32, 8, 160, 132, 1),
 ])
 def test_flash_bwd_sm90_head_split_takes_any_divisor(B, S, H, K, dh, sms,
                                                      want):
-    """The sm90 body's dK/dV launch (64 keys a CTA) splits a KV head's
-    query heads by the smallest divisor of the group, any divisor, that
-    reaches ``SM90_BWD_FILL`` CTAs an SM, else by the whole group; the pair
-    kernels keep their doubling rule (above)."""
+    """The sm90 body's dK/dV launch (64 keys a CTA, one CTA a column half
+    of dK and dV above dh 128) splits a KV head's query heads by the
+    smallest divisor of the group, any divisor, that reaches
+    ``SM90_BWD_FILL`` CTAs an SM, else by the whole group; the pair kernels
+    keep their doubling rule (above)."""
     split = flash.bwd_head_split(B, S, H, K, dh, sms, "sm90")
     assert split == want and (H // K) % split == 0
-    ctas = -(-S // flash.SM90_BWD_KV_TILE) * K * B
+    ctas = -(-S // flash.SM90_BWD_KV_TILE) * K * B * flash.sm90_bwd_halves(dh)
     assert ctas * split >= flash.SM90_BWD_FILL * sms or split == H // K
     assert all(ctas * d < flash.SM90_BWD_FILL * sms
                for d in range(1, split) if (H // K) % d == 0)
@@ -718,12 +728,17 @@ def test_flash_bwd_head_split_validation(H, K, dh, split, body, refusal):
 
 def test_flash_bwd_kv_slices_are_the_kernels():
     """The dK/dV launch's slices as csrc/flash_attention.cu cuts them:
-    of the keys only (BwdCfg up to dh 80, BwdPairCfg::kKvRows above, 64
-    in the sm90 body), every CTA accumulating every column of dK and dV, so
-    that each full-width product is formed once a pair of tiles (7)."""
+    of the keys only on the mma bodies (BwdCfg up to dh 80,
+    BwdPairCfg::kKvRows above), every CTA accumulating every column of dK
+    and dV, so that each full-width product is formed once a pair of tiles
+    (7); 64 keys in the sm90 body, and above dh 128 a column half of dK
+    and dV a CTA (``Sm90Bwd::kHalves``), each CTA forming S and dP
+    whole."""
     assert set(flash.BWD_KV_TILE) == set(flash.HEAD_DIMS)
     assert all(t in (32, 64) for t in flash.BWD_KV_TILE.values())
     assert flash.SM90_BWD_KV_TILE == 64
+    assert [flash.sm90_bwd_halves(dh) for dh in flash.SM90_BWD_HEAD_DIMS] \
+        == [1, 1, 1, 2, 2]
 
 
 @pytest.mark.parametrize("dh,want", [(16, 64), (32, 64), (64, 64), (80, 64),
@@ -747,20 +762,23 @@ def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
     assert -(-S // flash.BWD_KV_TILE[dh]) * K * split * B == want_ctas
 
 
-@pytest.mark.parametrize("dh", [256])
-def test_flash_bwd_takes_the_sm90_forward_to_mma_bf16(dh):
-    """bf16 at dh 256, aligned: the forward takes the sm90 body, which
-    writes the log-sum-exp, and the backward mma_bf16 (the pair kernels):
-    the body of bf16 training at this head dim."""
-    q, k, v = qkv(dh=dh)
-    assert flash.select_body(q, k, v) == "sm90"
-    assert flash.select_bwd_body(q, k, v) == "mma_bf16"
+def test_flash_bwd_takes_the_mma_forward_to_sm90():
+    """bf16 at dh 160, aligned (stablelm-12b's bf16 train step): the
+    forward takes the mma body, which writes the log-sum-exp, and the
+    backward the sm90 body, column halves of each sum; mma_bf16 (the pair
+    kernels, the backward this step ran before the sm90 body took dh 160)
+    still takes the inputs when forced, as the previous body."""
+    q, k, v = qkv(dh=160)
+    assert flash.select_body(q, k, v) == "mma"
+    assert flash.select_bwd_body(q, k, v) == "sm90"
+    assert flash.bwd_bodies_for(q, k, v) == ("sm90", "mma_bf16")
 
 
-@pytest.mark.parametrize("dh", [80, 120, 128])
+@pytest.mark.parametrize("dh", [80, 120, 128, 256])
 def test_flash_bwd_takes_the_sm90_forward_to_sm90(dh):
-    """bf16 at dh 80, 120 and 128, aligned (stablelm-3b's and qwen2-vl-2b's
-    bf16 train steps, hubert-xlarge's and h2o-danube-3-4b's heads): both
+    """bf16 at dh 80, 120, 128 and 256, aligned (stablelm-3b's,
+    qwen2-vl-2b's and recurrentgemma-9b's bf16 train steps, hubert-xlarge's
+    and h2o-danube-3-4b's heads): both
     ways on sm90, the backward's wgmma and TMA body, with the mma_bf16
     kernels (4 warps a CTA at 80, the pair kernels above) still forcible as
     its previous body."""
@@ -774,13 +792,14 @@ def test_flash_bwd_takes_the_sm90_forward_to_sm90(dh):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("scale", [None, 0.1, 0.0, -0.1])
 def test_flash_bwd_sm90_only_bf16_at_120_128_scale_above_0(dh, dtype, scale):
-    """sm90 takes bf16 at dh 80, 120 and 128 with a scale > 0 (its softmax
-    exponent folds the scale, as the sm90 forward's does); bf16 at every
-    other head dim or scale keeps mma_bf16, float32 mma_tf32x3."""
+    """sm90 takes bf16 at dh 80, 120, 128, 160 and 256 with a scale > 0
+    (its softmax exponent folds the scale, as the sm90 forward's does);
+    bf16 at every other head dim (16, 32, 64) or scale keeps mma_bf16,
+    float32 mma_tf32x3."""
     takes = flash.bwd_bodies_for(*qkv(dh=dh, dtype=dtype), scale)
     if dtype == F32:
         assert takes == ("mma_tf32x3",)
-    elif dh in (80, 120, 128) and (scale is None or scale > 0):
+    elif dh in (80, 120, 128, 160, 256) and (scale is None or scale > 0):
         assert takes == ("sm90", "mma_bf16")
     else:
         assert takes == ("mma_bf16",)
@@ -792,7 +811,7 @@ def test_flash_bwd_sm90_only_bf16_at_120_128_scale_above_0(dh, dtype, scale):
     (64, BF16, "sm90", None),
     (80, F32, "sm90", None),
     (80, BF16, "sm90", 0.0),
-    (256, BF16, "sm90", None),
+    (256, BF16, "sm90", 0.0),
     (128, BF16, "mma_tf32x3", None),
     (128, BF16, "sm90", -0.1),
     (120, BF16, "sliced", None),

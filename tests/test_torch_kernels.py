@@ -348,6 +348,11 @@ def test_flash_bwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
     (1, 1024, 32, 32, 80, dict(causal=True)),          # stablelm-3b's heads
     (1, 300, 16, 16, 80, dict(causal=False)),          # hubert-xlarge's
     (1, 300, 28, 4, 80, dict(causal=True, window=100)),  # GQA 7:1, a window
+    # recurrentgemma-9b's heads: MQA 16 : 1 (P in hi + lo), a window that
+    # bites; dh 256 at GQA 4; stablelm-12b's heads, GQA 32 : 8 at dh 160
+    (1, 300, 16, 1, 256, dict(causal=True, window=100)),
+    (1, 300, 8, 2, 256, dict(causal=True)),
+    (1, 256, 32, 8, 160, dict(causal=True)),
 ])
 def test_flash_bwd_sm90_bf16_products_hold_bf16_tolerance(B, S, H, K, dh,
                                                           kw, capsys):
@@ -356,10 +361,13 @@ def test_flash_bwd_sm90_bf16_products_hold_bf16_tolerance(B, S, H, K, dh,
     to bf16 once for dV = Pᵀ dO (one wgmma chain, as SDPA's backward rounds
     it) and dS as bf16 hi + lo for dK and dQ (two chains), against jax.grad
     of the JAX reference in fp32 on the same bf16-valued inputs at 2e-2 (1
-    + |x|), at dh 80, 120 and 128 (the body's products do not depend on the
-    head dim but for their length).  Above ``SM90_BWD_SPLIT_GROUP`` query
-    heads a KV head (MQA's 16 here) the body forms P as hi + lo too, and
-    the model with it."""
+    + |x|), at dh 80, 120, 128, 160 and 256 (the body's products do not
+    depend on the head dim but for their length; above dh 128 it cuts each
+    sum into two column halves, which changes no sum's order: an element of
+    dQ, dK or dV sums the same products in the same order as a whole-width
+    body, and S and dP still run over the whole head dim).  Above
+    ``SM90_BWD_SPLIT_GROUP`` query heads a KV head (MQA's 16 here) the body
+    forms P as hi + lo too, and the model with it."""
     rng = np.random.default_rng(7)
 
     def bf16_valued(shape):

@@ -8,6 +8,7 @@ Tolerances: the train step's loss and gradients 2e-4 relative to each
 leaf's largest value (the JAX suite's decode-vs-forward bound), fp32;
 AdamW 1e-6 on identical gradients; the corpus bit for bit.
 """
+import dataclasses
 import json
 import runpy
 import sys
@@ -236,6 +237,123 @@ def test_train_step_loss_and_grads_match_jax(make_cfg):
         assert g_t.shape == g_j.shape, path
         assert _rel(g_t.numpy(), g_j) < REL, (jax.tree_util.keystr(path),
                                              _rel(g_t.numpy(), g_j))
+
+
+# the card's bf16 step against the CPU's (chip_smoke.py's
+# TRAIN_CHECK_LIMITS[bfloat16]): the loss relative, each gradient leaf in
+# relative L2 norm (single bf16 elements differ by whole bf16 steps
+# between two orders of summation)
+BF16_LOSS_REL, BF16_GRAD_L2 = 2e-2, 5e-2
+
+
+# the RG-LRU gates' gradients of a bf16 step lie 4-10% (relative L2) from
+# their fp32 values at the smoke width of 64, the JAX package's own as far
+# as the port's (weights PRNGKey(5) / (7) / (9) / (11), tokens rng 6 / 8 /
+# 10 / 12: the worst leaf, blocks' and rem's mixer a_param and a_gate_b,
+# read 0.080 / 0.088 / 0.075 / 0.069 in JAX, 0.074 / 0.099 / 0.073 / 0.076
+# in the port; the port's fp32 gradients match JAX's to 3.5e-6), so two
+# bf16 steps differ there by as much as the limit (0.050-0.061 the worst
+# leaf) and test_bf16_rglru_gradients_no_further_from_fp32_than_jax holds
+# the width of 64; at 256 the worst leaf of four draws read 0.035-0.039
+RGEMMA_BF16_WIDTH = dict(d_model=256, lru_width=256, d_ff=512)
+
+
+def _both_steps(cfg, seq, seeds, dtype):
+    """(loss, gradient leaves) of the JAX package's train step and of the
+    port's ``make_loss_and_grad`` under ``TrainConfig()`` at ``dtype`` (the
+    same cast, remat policy, z-loss and fp32 loss) on weights drawn from
+    ``PRNGKey(seeds[0])`` and bridged, tokens from ``seeds[1]``: JAX's
+    leaves as (path, fp32 array), the port's as fp32 tensors."""
+    from repro.train.steps import TrainConfig as JaxTrainConfig
+    cfg_j = _jax_cfg(cfg)
+    tc_j = dataclasses.replace(JaxTrainConfig(),
+                               dtype={torch.bfloat16: jnp.bfloat16,
+                                      torch.float32: jnp.float32}[dtype])
+    params_j = jax_init_params(jax.random.PRNGKey(seeds[0]), cfg_j)
+    params_t = params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                 device="cpu")
+    toks = np.random.default_rng(seeds[1]).integers(
+        0, cfg.vocab_size, (2, seq + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def loss_fn(p):
+        logits, aux = jax_forward_train(
+            p, jax.tree.map(jnp.asarray, batch), cfg_j, dtype=tc_j.dtype,
+            remat_policy=tc_j.remat_policy)
+        loss, _ = jax_cross_entropy(logits, jnp.asarray(batch["labels"]),
+                                    z_loss=tc_j.z_loss,
+                                    compute_dtype=tc_j.loss_dtype)
+        return loss + cfg_j.router_aux_coef * aux, loss
+
+    (total_j, _), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(
+        params_j)
+    tc = dataclasses.replace(TrainConfig(), dtype=dtype)
+    assert tc.remat_policy == "dots_no_batch"
+    total_t, _, grads_t = make_loss_and_grad(cfg, tc)(
+        params_t, {k: torch.from_numpy(v) for k, v in batch.items()})
+    leaves_j = [(path, np.asarray(g, np.float32)) for path, g in
+                jax.tree_util.tree_flatten_with_path(grads_j)[0]]
+    leaves_t = tree_leaves(grads_t)
+    assert len(leaves_t) == len(leaves_j)
+    return float(total_j), leaves_j, float(total_t), leaves_t
+
+
+def _rel_l2(x: np.ndarray, y: np.ndarray) -> float:
+    return float(np.linalg.norm(x - y) / max(float(np.linalg.norm(y)), 1e-30))
+
+
+@pytest.mark.parametrize("arch,seq,widened", [
+    ("recurrentgemma-9b", 64, RGEMMA_BF16_WIDTH),
+    ("stablelm-12b", 64, {})])
+def test_bf16_train_step_matches_jax(arch, seq, widened):
+    """The bf16 slice as a whole: the port's ``make_loss_and_grad`` under
+    ``TrainConfig()`` (bf16, ``dots_no_batch``) against the JAX package's
+    bf16 train step's loss and ``jax.value_and_grad`` (the same cast, remat
+    policy, z-loss and fp32 loss) on bridged weights, within the card's
+    bf16 limits.  recurrentgemma-9b's smoke config (5 layers: a superblock
+    and the remainder; its window of 16 biting at 64 tokens) at
+    ``RGEMMA_BF16_WIDTH``; stablelm-12b's (GQA 4 : 2 at head dim 16)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), **widened)
+    assert cfg.window in (0, 16) and seq > cfg.window
+    assert TrainConfig().dtype == torch.bfloat16
+    total_j, leaves_j, total_t, leaves_t = _both_steps(cfg, seq, (5, 6),
+                                                       torch.bfloat16)
+    assert abs(total_t - total_j) <= BF16_LOSS_REL * abs(total_j)
+    for (path, g_j), g_t in zip(leaves_j, leaves_t):
+        assert g_t.shape == g_j.shape and g_t.dtype == torch.float32, path
+        rel = _rel_l2(g_t.numpy(), g_j)
+        assert rel < BF16_GRAD_L2, (jax.tree_util.keystr(path), rel)
+
+
+# how much further from its own fp32 gradients the port's bf16 step may
+# lie than the JAX package's, by the worst leaf and by the mean over leaves
+BF16_GAP_RATIO = 1.25
+
+
+@pytest.mark.parametrize("seeds", [(5, 6), (7, 8)])
+def test_bf16_rglru_gradients_no_further_from_fp32_than_jax(seeds):
+    """recurrentgemma-9b's smoke config at its own width of 64, where the
+    two packages' bf16 gradients differ by about ``BF16_GRAD_L2`` (see
+    ``RGEMMA_BF16_WIDTH``): each package's bf16 step against its own fp32
+    step on the same bridged weights and tokens.  The port's fp32 gradients
+    match JAX's; its bf16 ones lie no further from them, by the worst leaf
+    and by the mean over leaves, than ``BF16_GAP_RATIO`` times JAX's bf16
+    ones from JAX's fp32 ones (1.13 and 1.03 the largest ratios read on
+    these seeds), so a port that rounded more than the reference (say, its
+    gates in bf16) fails here though the widened step passes."""
+    cfg = get_smoke_config("recurrentgemma-9b")
+    assert cfg.d_model == cfg.lru_width == 64 and 0 < cfg.window < 64
+    _, bf_j, _, bf_t = _both_steps(cfg, 64, seeds, torch.bfloat16)
+    _, fp_j, _, fp_t = _both_steps(cfg, 64, seeds, torch.float32)
+    for (path, g_j), g_t in zip(fp_j, fp_t):
+        assert _rel_l2(g_t.numpy(), g_j) < 1e-4, jax.tree_util.keystr(path)
+    gap_j = np.array([_rel_l2(b, f) for (_, b), (_, f) in zip(bf_j, fp_j)])
+    gap_t = np.array([_rel_l2(b.numpy(), f.numpy())
+                      for b, f in zip(bf_t, fp_t)])
+    assert gap_t.max() <= BF16_GAP_RATIO * gap_j.max(), (gap_t.max(),
+                                                          gap_j.max())
+    assert gap_t.mean() <= BF16_GAP_RATIO * gap_j.mean(), (gap_t.mean(),
+                                                           gap_j.mean())
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
