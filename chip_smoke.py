@@ -9,7 +9,8 @@ Phases, each printed as one JSON line:
    build of every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once, into ``build/repro_torch``), with ptxas's
    registers and spills (kept beside each library, so a library built
-   before is reported too).  Fails if the sm90 flash-attention body, its
+   before is reported too).  Fails if the sm90 flash-attention body (its
+   four instances: dh 80, 128, 160 and 256), its
    fp32 mma_tf32x3 body (every head dim, 8 warps a CTA at 160 and 256), a
    kernel of the SSD mma, mma_tf32x3 or RG-LRU segmented bodies or a
    backward kernel (the scans' too; flash's pair kernels above dh 80 and
@@ -19,8 +20,9 @@ Phases, each printed as one JSON line:
    at the JAX suite's own tolerances: fp32 2e-5 and bf16 2e-2, the RG-LRU
    scan 1e-4 fp32 / 2e-2 bf16, the SSD scan 2e-3 fp32 / 5e-2 bf16 (y and
    the final state).  Flash attention at every head dim of the config
-   registry, and the sm90 body (bf16, dh 80, 120, 128 and 256) at ragged S,
-   GQA 7:1, MQA 16:1, window and chunk edges, no causal mask, views of a
+   registry, and the sm90 body (bf16, dh 80, 120, 128, 160 and 256) at
+   ragged S, GQA 7:1, stablelm-12b's 32:8, MQA 16:1, window and chunk
+   edges, no causal mask, views of a
    fused projection and the MoE serves' prefill shapes (moonshot-v1-16b-a3b's
    MHA 16/16, llama4-scout-17b-a16e's GQA 40/8 with its chunk of 8192 and
    without), each at S 512 and a ragged 300; rmsnorm's one-read body at D
@@ -101,7 +103,10 @@ Phases, each printed as one JSON line:
    SDPA's bf16 backward (and where the window bites its ``is_causal``
    call) and the plain one; then held at ragged S 1100 with windows that
    bite.  The same function (``SM90_BWD_SHAPES``) times and holds the
-   sm90 backward at qwen2-vl-2b's and stablelm-3b's train shapes.
+   sm90 backward at qwen2-vl-2b's and stablelm-3b's train shapes, and
+   times the forward each shape's train path runs; the sm90 forward's
+   dh-160 instance (``Sm90<160>``) gets a kernels-line entry of its own,
+   ``flash_attention_sm90_dh160``, beside the mma body it replaced.
    The mma body's chunk scan is also held, at one bf16 step of y
    (2^-7), against its plain phase with the fp32 operands split as the
    kernel splits them (a scan that dropped the lo halves fails there).
@@ -248,9 +253,9 @@ Phases, each printed as one JSON line:
    Step ms, peak memory beside 16 B and 28 B a parameter, the
    loss-and-gradient call's peak, one more step profiled.
 16. (after 13) ``train_stablelm12b_bf16``: stablelm-12b at full width cut
-   to 2 layers the same way: 4 flash forwards on the mma body (with its
-   log-sum-exp) and 2 sm90 backwards at dh 160 a step, 9 RMSNorm forwards
-   and 5 cta_rows backwards.
+   to 2 layers the same way: 4 flash forwards on the sm90 body at dh 160
+   (with its log-sum-exp) and 2 sm90 backwards at dh 160 a step, 9 RMSNorm
+   forwards and 5 cta_rows backwards.
 
 Every train phase before 12 runs ``remat_policy="none"``, as it did before
 the port had remat, so its counts, step times and peaks stay comparable;
@@ -629,7 +634,8 @@ def phase_env(build):
          tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                    cudnn=torch.backends.cudnn.allow_tf32),
          built=sorted(built), build_s=build_s, ptxas=ptxas, sm90_ptxas=sm90)
-    check(len(sm90) == 3 and all(
+    # the sm90 forward's instances: dh 80, 128 (120 too), 160 and 256
+    check(len(sm90) == 4 and all(
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in sm90.values()), f"sm90 flash body spills: {sm90}")
     check("C7508" not in logs["flash_attention"],
@@ -801,8 +807,8 @@ def phase_kernels(dev, gen, seed):
         (1, 130, 4, 1, 256, dict(causal=False)),
     ]
     # the sm90 body (bf16, dh 128 and 256; dh 80 and 120 in
-    # modality_kernels): ragged S, GQA 7:1 and MQA 16:1, window and chunk
-    # edges inside tiles, no causal mask
+    # modality_kernels, dh 160 in SM90_LSE_CASES): ragged S, GQA 7:1 and
+    # MQA 16:1, window and chunk edges inside tiles, no causal mask
     sm90_cases = [
         (1, 200, 28, 4, 128, dict(causal=True)),
         (1, 1000, 28, 4, 128, dict(causal=True)),
@@ -1572,12 +1578,15 @@ def backward_kernels(dev, gen, cases, summary):
     scan_backward_kernels(dev, gen, cases, summary)
 
 
-# the sm90 body's cases with its log-sum-exp (bf16, dh 80, 120, 128 and
-# 256): the prefill shapes of qwen2-7b, recurrentgemma-9b,
+# the sm90 body's cases with its log-sum-exp (bf16, dh 80, 120, 128, 160
+# and 256): the prefill shapes of qwen2-7b, recurrentgemma-9b,
 # moonshot-v1-16b-a3b, llama4-scout-17b-a16e (chunk 8192), stablelm-3b and
 # h2o-danube-3-4b, hubert-xlarge's heads at S 2048 (no mask), S 300 (a
-# ragged last tile), window, chunk and no mask, and last qwen2-vl-2b's
-# train step (batch 4 x 1024)
+# ragged last tile), window, chunk and no mask, qwen2-vl-2b's train step
+# (batch 4 x 1024), and then the dh-160 instance's (Sm90<160>):
+# stablelm-12b's GQA 32:8 at its prefill shape, a ragged S, a window and a
+# chunk edge inside tiles, no mask, and (an eighth field, true) q, k and v
+# as views of one fused projection
 SM90_LSE_CASES = [
     ("stablelm-3b", 4, 512, 32, 32, 80, dict(causal=True)),
     ("hubert-xlarge", 1, 2048, 16, 16, 80, dict(causal=False)),
@@ -1597,6 +1606,12 @@ SM90_LSE_CASES = [
     ("no mask", 2, 300, 28, 4, 128, dict(causal=False)),
     ("no mask", 1, 200, 16, 1, 256, dict(causal=False)),
     ("qwen2-vl-2b", 4, 1024, 12, 2, 128, dict(causal=True)),
+    ("stablelm-12b", 4, 512, 32, 8, 160, dict(causal=True)),
+    ("ragged", 1, 300, 32, 8, 160, dict(causal=True)),
+    ("window", 1, 1000, 32, 8, 160, dict(causal=True, window=300)),
+    ("chunk", 1, 512, 32, 8, 160, dict(causal=True, chunk=96)),
+    ("no mask", 2, 300, 32, 8, 160, dict(causal=False)),
+    ("fused views", 2, 300, 32, 8, 160, dict(causal=True), True),
 ]
 # the lse's limit: the fp32 kernel tolerance, 2e-5 (1 + |lse|), against
 # the plain lse in fp32 from the same bf16 inputs
@@ -1604,36 +1619,55 @@ LSE_TOL = {torch.bfloat16: 2e-5}
 
 
 def sm90_lse_kernels(dev, gen, cases, summary):
-    """The sm90 body with its log-sum-exp, at ``SM90_LSE_CASES``: the lse
-    against ``lse_ref`` within ``LSE_TOL``, O bit-equal to the call
-    without lse, and (dq, dk, dv) of ``FlashAttentionFunction`` (the sm90
-    forward, the backward the inputs take: sm90 at ``SM90_BWD_HEAD_DIMS``,
-    else mma_bf16) against autograd of mha_ref in fp32 on the same bf16
-    inputs within 2e-2 (1 + |x|).  Then the sm90 device time with and
-    without lse at qwen2-7b's prefill shape and at qwen2-vl-2b's train
-    shape beside SDPA's bf16 forward, the plain version and the bound
-    (``summary["flash_attention_sm90_lse"]``); last the bf16 backward at
-    its train shapes (``sm90_bwd_kernels``)."""
+    """The sm90 body with its log-sum-exp, at ``SM90_LSE_CASES``: O against
+    ``mha_ref`` within 2e-2 (1 + |x|), the lse against ``lse_ref`` within
+    ``LSE_TOL``, O bit-equal to the call without lse, and (dq, dk, dv) of
+    ``FlashAttentionFunction`` (the sm90 forward, the backward the inputs
+    take: sm90 at ``SM90_BWD_HEAD_DIMS``, else mma_bf16) against autograd
+    of mha_ref in fp32 on the same bf16 inputs within 2e-2 (1 + |x|); a
+    case marked ``fused`` takes q, k and v
+    as views of one projection, and its gradient as the projection's.
+    Then the sm90 device time with and without lse at qwen2-7b's prefill
+    shape and at qwen2-vl-2b's train shape beside SDPA's bf16 forward, the
+    plain version and the bound (``summary["flash_attention_sm90_lse"]``);
+    last the bf16 backward at its train shapes (``sm90_bwd_kernels``)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                          lse_ref, mha_ref)
     bf16 = torch.bfloat16
     inputs = {}
-    for label, B, S, H, K, dh, kw in SM90_LSE_CASES:
-        q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
-                                   device=dev).to(bf16)
-                       for n in (H, K, K, H))
+
+    def lse_case(label, B, S, H, K, dh, kw, fused=False):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+        def heads(t):
+            return [x.unflatten(-1, (-1, dh))
+                    for x in t.split([H * dh, K * dh, K * dh], dim=-1)]
+        if fused:
+            qkv = randn(B, S, (H + 2 * K) * dh)
+            q, k, v = heads(qkv)
+            do = randn(B, S, H, dh)
+        else:
+            q, k, v, do = (randn(B, S, n, dh) for n in (H, K, K, H))
         with torch.no_grad():
             out, lse = flash.flash_attention_cuda(q, k, v, return_lse=True,
                                                   **kw)
             plain_o = flash.flash_attention_cuda(q, k, v, **kw)
         lse_err, lse_ok = compare(lse, lse_ref(q, k, **kw), bf16, LSE_TOL)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        ops.flash_attention(*leaves, **kw).backward(do)
+        if fused:
+            base = qkv.clone().requires_grad_()
+            ops.flash_attention(*heads(base), **kw).backward(do)
+            grads = heads(base.grad)
+        else:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ops.flash_attention(*leaves, **kw).backward(do)
+            grads = [t.grad for t in leaves]
         fl = [t.float().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(mha_ref(*fl, **kw), fl, do.float())
-        errs = [compare(t.grad, w, bf16) for t, w in zip(leaves, want)]
+        errs = [compare(t, w, bf16) for t, w in zip(grads, want)]
+        o_err, o_ok = compare(out, mha_ref(q, k, v, **kw), bf16)
         bwd_body = flash.select_bwd_body(q, k, v)
         cases.append(dict(
             kernel="flash_attention_sm90_lse", case=label,
@@ -1641,15 +1675,18 @@ def sm90_lse_kernels(dev, gen, cases, summary):
             dtype=str(bf16), B=B, S=S, H=H, K=K, dh=dh, **kw,
             lse_err=lse_err, lse_tol=LSE_TOL[bf16],
             o_bit_equal=torch.equal(out, plain_o),
+            o_err=o_err,
             max_abs_err=max(e for e, _ in errs), tol=TOL[bf16],
             ok=lse_ok and torch.equal(out, plain_o)
-            and all(ok for _, ok in errs)
+            and all(ok for _, ok in errs) and o_ok
             and flash.select_body(q, k, v) == "sm90"
             and bwd_body == ("sm90" if dh in flash.SM90_BWD_HEAD_DIMS
                              else "mma_bf16")))
         if label in ("qwen2-7b", "qwen2-vl-2b"):
             inputs[label] = (q, k, v, do, kw)
-        del leaves, fl, want
+
+    for case in SM90_LSE_CASES:
+        lse_case(*case)
     mark = len(PROFILER_WINDOWS)
     timings = {}
     for label, (q, k, v, do, kw) in inputs.items():
@@ -2150,7 +2187,7 @@ def flash_bwd_bf16_ops(B: int, H: int, pairs: int, dh: int) -> int:
 def sm90_bwd_kernels(dev, gen, summary):
     """The bf16 backward's sm90 body at ``SM90_BWD_SHAPES`` (``Sm90Bwd<80>``
     to ``Sm90Bwd<256>``; at 160 and 256 column halves), on the forward's o
-    and lse (the body the train path runs there: sm90, mma at 160): dq, dk,
+    and lse (the body the train path runs there: sm90): dq, dk,
     dv against autograd of ``mha_ref`` in fp32 within 2e-2 (1 + |x|), two
     runs bit for bit, every head split of the dK/dV launch within the same
     limit and dq the same bits at each, by kernel, beside the previous body
@@ -2160,15 +2197,24 @@ def sm90_bwd_kernels(dev, gen, summary):
     ``is_causal`` call, which skips tiles but visits ``library_causal_pairs``,
     more pairs than the window leaves), the plain backward and the bound
     (bytes, or ``flash_bwd_bf16_ops`` at the bf16 rate); and the forward
-    the train path runs there (with its log-sum-exp) beside SDPA's bf16
-    forward and its bound (``forward``); then held (not timed) at
+    the train path runs there (with its log-sum-exp), O held against
+    ``mha_ref`` within 2e-2 (1 + |x|) and its lse against ``lse_ref``
+    within ``LSE_TOL``, beside SDPA's bf16 forward and its bound, by the
+    profiler and CUDA events, above dh 128 also beside the mma body forced,
+    its previous body, whose O is held to the same limit (``forward``);
+    then held (not timed) at
     ``SM90_WIDE_BWD_CHECKS``.  One kernels-line entry (``summary[name]``)
-    each: its first shape at the top, the others under ``shapes``."""
+    each: its first shape at the top, the others under ``shapes``; and one
+    for the forward's dh-160 instance (``flash_attention_sm90_dh160``,
+    stablelm-12b's train_4k step at the top, batch 4 x 512 under
+    ``shapes``)."""
     from repro_torch.device import multiprocessors
     from repro_torch.kernels.flash_attention import kernel as flash
-    from repro_torch.kernels.flash_attention.ref import attention_mask, mha_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         lse_ref, mha_ref)
     bf16 = torch.bfloat16
     sms = multiprocessors(dev)
+    dh160 = []  # the forward's dh-160 timings, for its own entry
 
     def inputs(B, S, H, K, dh, kw):
         q, k, v, do = (torch.randn(B, S, n, dh, generator=gen,
@@ -2247,16 +2293,38 @@ def sm90_bwd_kernels(dev, gen, summary):
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
             f_bound, f_by = bound(2 * q.nbytes + k.nbytes + v.nbytes
                                   + lse.nbytes, 4 * B * H * dh * pairs, bf16)
+            fwd = lambda **force: flash.flash_attention_cuda(  # noqa: E731
+                q, k, v, return_lse=True, **kw, **force)
+            library_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, enable_gqa=True, **sdpa_mask)
+            want_o = mha_ref(q, k, v, **kw)
+            o_err, o_ok = compare(out, want_o, bf16)
+            lse_err, lse_ok = compare(lse, lse_ref(q, k, **kw), bf16, LSE_TOL)
             forward = dict(
-                body=flash.select_body(q, k, v), with_lse=True,
-                ms=device_ms(lambda: flash.flash_attention_cuda(
-                    q, k, v, return_lse=True, **kw)),
+                shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
+                      "causal" + (f" window={kw['window']}"
+                                  if kw.get("window") else "")
+                      + ", with lse", body=flash.select_body(q, k, v),
+                with_lse=True, ms=device_ms(fwd), event_ms=time_ms(fwd),
                 plain_ms=device_ms(lambda: mha_ref(q, k, v, **kw)),
                 library="F.scaled_dot_product_attention bf16",
-                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, enable_gqa=True, **sdpa_mask)),
-                bound_ms=f_bound, bound_by=f_by,
-                max_abs_err=compare(out, mha_ref(q, k, v, **kw), bf16)[0])
+                library_ms=device_ms(library_fwd),
+                library_event_ms=time_ms(library_fwd),
+                bound_ms=f_bound, bound_by=f_by, tol=TOL[bf16],
+                max_abs_err=o_err, ok=o_ok, lse_err=lse_err, lse_ok=lse_ok,
+                previous_ok=True)
+            if dh > 128:  # the mma body forced, the forward's previous body
+                previous_fwd_err, previous_fwd_ok = compare(
+                    fwd(body="mma")[0], want_o, bf16)
+                forward.update(
+                    previous_body="mma",
+                    previous_body_ms=device_ms(lambda: fwd(body="mma")),
+                    previous_body_event_ms=time_ms(lambda: fwd(body="mma")),
+                    previous_max_abs_err=previous_fwd_err,
+                    previous_ok=previous_fwd_ok)
+            del want_o
+            if dh == 160:
+                dh160.append(forward)
             entries[label] = e = dict(
                 shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 "
                       "causal" + (f" window={kw['window']}"
@@ -2289,8 +2357,14 @@ def sm90_bwd_kernels(dev, gen, summary):
                   f"flash bf16 backward at {e['shape']}: body {e['body']}, "
                   f"error {err}, deterministic {same}, head splits {splits}, "
                   f"previous body's error {previous_err}")
+            check(forward["ok"] and forward["lse_ok"]
+                  and forward["previous_ok"],
+                  f"flash bf16 forward at {forward['shape']}: body "
+                  f"{forward['body']}, O error {o_err}, lse error {lse_err}, "
+                  f"previous body's O error "
+                  f"{forward.get('previous_max_abs_err')}")
             del t, want, q, k, v, do, out, lse, leaves, lt, plain_out, \
-                lib_out, library, mask, qt, kt, vt
+                lib_out, library, mask, qt, kt, vt, fwd, library_fwd
         for B, S, H, K, dh, kw in (SM90_WIDE_BWD_CHECKS if 256 in head_dims
                                    else ()):
             t, want = inputs(B, S, H, K, dh, kw)
@@ -2311,6 +2385,14 @@ def sm90_bwd_kernels(dev, gen, summary):
                      "gradient: JAX differentiates the jnp reference)",
             counted_as=("flash_attention_bwd", "sm90", head_dims), **top,
             shapes=entries)
+    # the forward's dh-160 instance (Sm90<160>) at stablelm-12b's train_4k
+    # step and at batch 4 x 512, beside the mma body it replaced
+    summary["flash_attention_sm90_dh160"] = dict(
+        name="flash_attention_sm90_dh160", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        counted_as=("flash_attention", "sm90", (160,)), **dh160[0],
+        shapes=dh160[1:])
 
 
 def scan_backward_kernels(dev, gen, cases, summary):
@@ -3846,9 +3928,10 @@ def phase_train_stablelm12b_bf16(dev, seed, steps: int = 10, batch: int = 1,
     """stablelm-12b at full width (d_model 5120, GQA 32 / 8 at head dim
     160, SwiGLU 13824, untied vocabulary 100352) cut to 2 layers, under
     ``TrainConfig()`` (bf16, ``dots_no_batch``), batch 1 x 4096, through
-    ``_train_bf16``: a step launches 4 flash forwards on the mma body at dh
-    160 (with its log-sum-exp) and 2 backwards on sm90 at dh 160 (column
-    halves), 9 RMSNorm forwards on one_read and 5 backwards on cta_rows."""
+    ``_train_bf16``: a step launches 4 flash forwards on the sm90 body at
+    dh 160 (``Sm90<160>``, with its log-sum-exp; the backward reruns each
+    layer's) and 2 backwards on sm90 at dh 160 (column halves), 9 RMSNorm
+    forwards on one_read and 5 backwards on cta_rows."""
     from repro_torch.configs import get_config
     return _train_bf16(
         dev, seed, "train_stablelm12b_bf16",

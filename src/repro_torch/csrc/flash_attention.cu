@@ -23,8 +23,9 @@
 // Four bodies; the wrapper picks one from the dtype, the head dim and the
 // alignment of q, k and v (kernels/flash_attention/kernel.py:select_body):
 //
-//   * sm90 (bf16, dh 80, 120, 128 and 256, 16-byte aligned bases and
-//     strides, a scale > 0: the serving path and hubert-xlarge's encode).
+//   * sm90 (bf16, dh 80, 120, 128, 160 and 256, 16-byte aligned bases and
+//     strides, a scale > 0: the serving path, the bf16 train steps and
+//     hubert-xlarge's encode).
 //     Warp-specialised: one producer warp issues TMA loads and two consumer
 //     warpgroups run wgmma.  The CTAs are persistent, one an SM, and walk
 //     the query tiles (under a causal mask latest first, the longest; else
@@ -39,7 +40,8 @@
 //     column slab and the 128-byte swizzle that wgmma reads; TMA fills rows
 //     past S and columns past dh with zeros.  S = Q K^T is wgmma m64nBKk16
 //     with Q and K both K-major in shared memory, over the k16 steps that
-//     hold dh; O += P V is wgmma m64n128k16 (m64n80k16 at dh 80) with P in
+//     hold dh; O += P V is wgmma m64n128k16 (m64n80k16 at dh 80, m64n160k16
+//     at dh 160) with P in
 //     registers (the score accumulators, exponentiated and repacked to bf16
 //     in place: the accumulator layout is the register-A layout) and V
 //     MN-major in shared memory.  The softmax runs in the log2 domain on
@@ -53,9 +55,12 @@
 //     tiling: ptxas gives this kernel 168 a thread (see Sm90::kThreads), so
 //     at dh 80 and 128 each warpgroup owns 64 rows of a 128-row tile with
 //     BK 128 (dh 120 runs on the 128 body, its last 8 columns zero-filled),
-//     and at dh 256 the two warpgroups share 64 rows and split O's columns.
-//   * mma (bf16, dh 16, 32, 64 and 160, unaligned inputs, a scale <= 0):
-//     tensor cores through mma.sync m16n8k16.  A CTA of 4 warps owns a
+//     at dh 160 the same rows with BK 64 (all 160 of O's columns a
+//     warpgroup), and at dh 256 the two warpgroups share 64 rows and split
+//     O's columns.
+//   * mma (bf16 at dh 16, 32 and 64, unaligned inputs at any head dim, a
+//     scale <= 0; the sm90 body's previous body, forced): tensor cores
+//     through mma.sync m16n8k16.  A CTA of 4 warps owns a
 //     64-row query tile; each warp owns 16 rows.  Q, K and V tiles are
 //     staged in shared memory with 16-byte loads where the inputs allow
 //     (rows padded by 8 elements so the fragment loads are free of bank
@@ -79,8 +84,8 @@
 // pointer for it (Params::lse; serving passes null), and the backward
 // recomputes the probabilities from it (flash_attention_bwd, further down:
 // 4 warps a CTA up to dh 80, the pair kernels of 8 above; and for bf16 at
-// dh 80, 120 and 128, flash_attention_bwd_sm90: wgmma and TMA, after the
-// sm90 forward).  The sm90 body writes it in its epilogue, from one lane a row,
+// dh 80, 120, 128, 160 and 256, flash_attention_bwd_sm90: wgmma and TMA,
+// after the sm90 forward).  The sm90 body writes it in its epilogue, from one lane a row,
 // leaving O as it was.
 //
 // Head dims: the mma, mma_tf32x3 and fp32 bodies take every one the model
@@ -2013,6 +2018,26 @@ __device__ __forceinline__ void wgmma_rs_n80_mn(float (&d)[40], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 160, fp32) += A (64 x 16, bf16 in registers) * B (16 x 160); B
+// MN-major in shared memory: columns 0-63 and 64-127 in two 128-byte
+// swizzled slabs, 128-159 at the start of a third (the leading offset apart).
+__device__ __forceinline__ void wgmma_rs_n160_mn(float (&d)[80], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56),
+        WG_D8(64), WG_D8(72)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef WG_D8
 
 template <int BK>
@@ -2041,30 +2066,44 @@ __device__ __forceinline__ void wgmma_pv<80>(float (&d)[40], const uint32_t (&a)
                                              uint64_t db) {
   wgmma_rs_n80_mn(d, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<160>(float (&d)[80], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n160_mn(d, a, db);
+}
 
 // Tile geometry and shared-memory layout (bytes) of the sm90 body, compiled
-// for head dim DH (80, 128 or 256).  A row of Q, K, V or O is held as
+// for head dim DH (80, 128, 160 or 256).  A row of Q, K, V or O is held as
 // 64-column (128-byte) slabs; the tensor maps' extent is the real head dim,
 // so TMA zero-fills the columns past it and clips O's store there (dh 80:
-// columns 80-127 of the second slab; dh 120, on the DH 128 body: 120-127).
+// columns 80-127 of the second slab; dh 120, on the DH 128 body: 120-127;
+// dh 160: 160-191 of the third).
 //
 // dh 128: each consumer warpgroup owns 64 query rows and all of O's 128
 // columns (64 accumulator registers a thread), so a query tile is 128 rows.
 // dh 80: the same tiles, Q K^T over the 5 k16 steps that hold the 80
 // columns and P V at N 80 (40 accumulator registers a thread): no product
 // touches the zero-filled columns.
-// dh 256 (kSplitO): O's 256 columns would be 128 registers a thread, and
-// ptxas holds this kernel to 168 (see kThreads), so both warpgroups take the
-// same 64 rows and each owns 128 of O's columns; each computes the rows'
-// scores and softmax itself (the same numbers), which costs a second Q K^T
-// but keeps every register in place.
+// dh 160: the same 128-row tiles, each warpgroup owning 64 rows and all of
+// O's 160 columns (80 registers a thread), with 64-key tiles (kBK): S is
+// then 32 registers and P 16, where 128 keys (64 and 32) beside O's 80
+// would not fit the 168 ptxas allots.  Q K^T runs over the 10 k16 steps
+// that hold the 160 columns and P V at N 160, reading V MN-major across
+// two and a half slabs, so no product touches columns 160-191.  Shared
+// memory: Q 48 KB, two stages of K and V at 24 KB each, O 48 KB.
+// dh 256 (kSplitO): O's 256 columns would be 128 registers a thread, so
+// both warpgroups take the same 64 rows and each owns 128 of O's columns;
+// each computes the rows' scores and softmax itself (the same numbers),
+// which costs a second Q K^T but keeps every register in place.
 template <int DH>
 struct Sm90 {
   static constexpr bool kSplitO = DH == 256;
   static constexpr int kBQ = kSplitO ? 64 : 128;    // query rows of a tile
   static constexpr int kWGRows = kSplitO ? 0 : 64;  // row offset of warpgroup 1
   static constexpr int kOCols = kSplitO ? 128 : DH; // O columns a warpgroup owns
-  static constexpr int kBK = kSplitO ? 64 : 128;
+  // keys of a K / V tile: 64 where a warpgroup holds more than 128 columns
+  // of O (dh 160) or shares its rows (dh 256)
+  static constexpr int kBK = DH > 128 ? 64 : 128;
   static constexpr int kStages = 2;
   static constexpr int kKSteps = DH / 16;            // k16 steps of Q K^T
   static constexpr int kSlabs = (DH + 63) / 64;      // 64-column (128-byte) slabs of a row
@@ -2085,7 +2124,8 @@ struct Sm90 {
   // warpgroup (384 threads), with or without setmaxnreg moving registers
   // from the producer to the consumers, so one warp loads.
   static constexpr int kThreads = 288;
-  static_assert(DH == 80 || DH == 128 || DH == 256, "sm90 body: dh 80, 128 or 256");
+  static_assert(DH == 80 || DH == 128 || DH == 160 || DH == 256,
+                "sm90 body: dh 80, 128, 160 or 256");
   static_assert(kBytes <= 232448, "sm90 body: over the 227 KB a block may use");
 };
 
@@ -3503,7 +3543,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The sm90 body: bf16 q, k, v and o, laid out as for flash_attention_fwd,
-// head_dim 80, 120 (on the 128 body), 128 or 256; the bases of q, k and v
+// head_dim 80, 120 (on the 128 body), 128, 160 or 256; the bases of q, k and v
 // and their batch, sequence and head strides are multiples of 16 bytes
 // (TMA's rule); scale > 0.  lse: null, or (B,H,S) fp32 for each row's
 // log-sum-exp, as flash_attention_fwd writes it (O is the same with or
@@ -3530,6 +3570,7 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void
     case 80: return launch_sm90<80>(p, st);
     case 120:
     case 128: return launch_sm90<128>(p, st);
+    case 160: return launch_sm90<160>(p, st);
     case 256: return launch_sm90<256>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -28,13 +28,15 @@ beside SDPA's fp32 forward.
 
 ``--sm90`` does it for the bf16 forward's sm90 body
 (``flash_attention_fwd_sm90`` with the log-sum-exp) at each of its head
-dims (``SM90_CHECKS``: dh 80, 120, 128 and 256, ragged S, GQA, MHA and
-MQA, causal, window, chunk and no mask; o as a share of the bf16
+dims (``SM90_CHECKS``: dh 80, 120, 128, 160 and 256, ragged S, GQA, MHA
+and MQA, causal, window, chunk and no mask; o as a share of the bf16
 tolerance 2e-2 (1 + |o|), lse of 2e-5 (1 + |lse|), both against the plain
 versions in fp32; then hubert-xlarge's encode layer, q drawn at std 4, on
-its first and last 256 rows), then times it at ``SM90_SHAPES`` in turns
-beside the mma body of the first source (``flash_attention_fwd``) and
-SDPA's bf16 call, by the profiler and by CUDA events.
+its first and last 256 rows), then times it at ``SM90_SHAPES`` (those
+whose label holds a word of ``--only``, if given: ``--only stablelm-12b``
+takes its train_4k step and batch 4 x 512 at dh 160) in turns beside the
+mma body of the first source (``flash_attention_fwd``) and SDPA's bf16
+call, by the profiler and by CUDA events.
 
 ``--sm90-bwd`` does it for the bf16 backward's sm90 body
 (``flash_attention_bwd_sm90``), on o and lse from the plain versions: at
@@ -80,16 +82,19 @@ SHAPES = {
 
 
 # --sm90: hubert-xlarge's encode layer (no mask), then the causal prefill
-# at batch 4 x 512 of stablelm-3b, h2o-danube-3-4b, qwen2-7b and
-# recurrentgemma-9b (window 2048)
+# at batch 4 x 512 of stablelm-3b, h2o-danube-3-4b, qwen2-7b,
+# recurrentgemma-9b (window 2048) and stablelm-12b, and stablelm-12b's
+# train_4k step (1 x 4096)
 SM90_SHAPES = {
     "hubert-xlarge": (1, 32768, 16, 16, 80, dict(causal=False)),
     "stablelm-3b": (4, 512, 32, 32, 80, dict(causal=True)),
     "h2o-danube-3-4b": (4, 512, 32, 8, 120, dict(causal=True)),
     "qwen2-7b": (4, 512, 28, 4, 128, dict(causal=True)),
     "recurrentgemma-9b": (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
+    "stablelm-12b 4x512": (4, 512, 32, 8, 160, dict(causal=True)),
+    "stablelm-12b train_4k": (1, 4096, 32, 8, 160, dict(causal=True)),
 }
-SM90_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 256)
+SM90_CHECKS = [(B, S, H, K, dh, kw) for dh in (80, 120, 128, 160, 256)
                for B, S, H, K, kw in (
     (1, 200, 16, 16, dict(causal=True)),
     (1, 1000, 28, 4, dict(causal=True)),
@@ -291,7 +296,7 @@ def _share(got, want, tol: float) -> float:
                  .nan_to_num(nan=float("inf")).max())
 
 
-def main_sm90(sources: list[str]) -> None:
+def main_sm90(sources: list[str], only: list[str] | None = None) -> None:
     from .flash_attention.ref import lse_ref
     fns = _build_variants(sources, sm90=True)
     dev = torch.device("cuda")
@@ -323,6 +328,8 @@ def main_sm90(sources: list[str]) -> None:
                                   lse_share=_share(lse, want_lse, 2e-5))),
                   flush=True)
     for label, (B, S, H, K, dh, kw) in SM90_SHAPES.items():
+        if only and not any(word in label for word in only):
+            continue
         q = (torch.randn(B, S, H, dh, generator=g, device=dev)
              * (4.0 if S > 4096 else 1.0)).to(bf16)
         k, v = (torch.randn(B, S, K, dh, generator=g, device=dev).to(bf16)
@@ -482,7 +489,7 @@ def main(argv: list[str]) -> None:
     if args.forward:
         return main_forward(args.sources, SHAPES[args.shape])
     if args.sm90:
-        return main_sm90(args.sources)
+        return main_sm90(args.sources, args.only)
     if args.sm90_bwd:
         return main_sm90_bwd(args.sources, args.only)
     fns = _build_variants(args.sources)

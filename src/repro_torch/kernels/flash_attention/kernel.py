@@ -8,14 +8,19 @@ version is ``ref.mha_ref``.
 Four bodies, chosen by ``select_body`` from the dtype, the head dim and the
 layout of q, k and v (never by trying one and falling back):
 
-* ``sm90``: bf16 at dh 80, 120, 128 or 256 (``SM90_HEAD_DIMS``: the served
-  archs, hubert-xlarge's encode, stablelm-3b, h2o-danube-3-4b) with 16-byte
-  aligned bases and batch / sequence / head strides, as TMA needs, and a
-  softmax scale > 0: wgmma, TMA and warp specialisation (dh 80 and 120 on
-  tiles of 128 columns, TMA zero-filling the columns past dh).
-* ``mma``: every other bf16 input (dh 16, 32, 64 and 160, unaligned views,
-  a scale <= 0): mma.sync tiles; the sm90 body's previous body, forced by
-  ``body="mma"``.
+* ``sm90``: bf16 at dh 80, 120, 128, 160 or 256 (``SM90_HEAD_DIMS``: the
+  served archs, hubert-xlarge's encode, stablelm-3b, stablelm-12b,
+  h2o-danube-3-4b) with 16-byte aligned bases and batch / sequence / head
+  strides, as TMA needs, and a softmax scale > 0: wgmma, TMA and warp
+  specialisation.  Each of the two consumer warpgroups owns 64 rows of a
+  128-row query tile and all of O's columns, over 128-key tiles at dh 80,
+  120 and 128 and 64-key tiles at dh 160 (O's 160 columns are 80 registers
+  a thread); at dh 256 both take the same 64 rows and each owns half of
+  O's columns.  A row is held as 64-column slabs, TMA zero-filling the
+  columns past dh (dh 80, 120 and 160).
+* ``mma``: every other bf16 input (dh 16, 32 and 64, unaligned views at
+  any head dim, a scale <= 0): mma.sync tiles; the sm90 body's previous
+  body, forced by ``body="mma"``.
 * ``mma_tf32x3``: float32 at every head dim (``TF32_HEAD_DIMS``, the
   training path): FlashAttention-2 on mma.sync m16n8k8 TF32, Q·Kᵀ and P·V
   each three TF32 products from hi + lo splits by truncation
@@ -83,7 +88,7 @@ from .._grad import refuse_grad
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # every head dim of the config registry (120 is padded to 128 in the kernel)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128, 160, 256)
-SM90_HEAD_DIMS = (80, 120, 128, 256)
+SM90_HEAD_DIMS = (80, 120, 128, 160, 256)
 BODIES = ("sm90", "mma", "mma_tf32x3", "fp32")
 # the float32 head dims the mma_tf32x3 body takes (120 padded to 128): all
 TF32_HEAD_DIMS = HEAD_DIMS

@@ -150,10 +150,12 @@ def test_flash_kernel_reads_unaligned_inputs(cuda, dtype, dh):
                     **tol(dtype))
 
 
-# the sm90 body (bf16, dh 80, 120, 128 and 256): ragged S, GQA 7:1 and MQA
-# 16:1, window and chunk edges inside tiles, no causal mask; at dh 80 and
-# 120 (tiles of 128 columns, the columns past dh zero-filled) MHA (hubert-
-# xlarge, stablelm-3b) and GQA 4:1 (h2o-danube-3-4b) too
+# the sm90 body (bf16, dh 80, 120, 128, 160 and 256): ragged S, GQA 7:1 and
+# MQA 16:1, window and chunk edges inside tiles, no causal mask; at dh 80
+# and 120 (tiles of 128 columns, the columns past dh zero-filled) MHA
+# (hubert-xlarge, stablelm-3b) and GQA 4:1 (h2o-danube-3-4b) too; at dh 160
+# (Sm90<160>: 64-key tiles, three slabs a row, columns 160-191
+# zero-filled) stablelm-12b's GQA 32:8
 SM90_CASES = [
     (1, 200, 16, 16, 80, dict(causal=True)),
     (1, 1000, 28, 4, 80, dict(causal=True)),
@@ -175,6 +177,11 @@ SM90_CASES = [
     (1, 1000, 16, 1, 256, dict(causal=True, chunk=128)),
     (2, 300, 28, 4, 128, dict(causal=False)),
     (1, 200, 16, 1, 256, dict(causal=False)),
+    (1, 200, 32, 8, 160, dict(causal=True)),
+    (1, 1000, 32, 8, 160, dict(causal=True, window=300)),
+    (1, 512, 16, 4, 160, dict(causal=True, chunk=96)),
+    (2, 300, 16, 16, 160, dict(causal=False)),
+    (1, 700, 16, 1, 160, dict(causal=True)),
 ]
 
 
@@ -193,7 +200,7 @@ def test_flash_sm90_body_matches_plain(cuda, B, S, H, K, dh, kw):
 
 
 @pytest.mark.parametrize("H,K,dh", [(28, 4, 128), (16, 1, 256), (16, 16, 80),
-                                    (32, 8, 120)])
+                                    (32, 8, 120), (32, 8, 160)])
 def test_flash_sm90_reads_fused_projection_views(cuda, H, K, dh):
     """bf16 q/k/v as 16-byte aligned views of one fused projection: TMA
     reads them through their strides."""
@@ -210,6 +217,33 @@ def test_flash_sm90_reads_fused_projection_views(cuda, H, K, dh):
     assert_allclose(f32(got), f32(mha_ref(q, k, v)), **tol(torch.bfloat16))
 
 
+@pytest.mark.parametrize("B,S,H,K,kw", [
+    (1, 300, 32, 8, dict(causal=True)),
+    (1, 200, 8, 2, dict(causal=True, window=70)),
+    (2, 130, 4, 4, dict(causal=False)),
+])
+def test_flash_mma_body_forced_at_dh_160_matches_plain(cuda, B, S, H, K, kw):
+    """The mma body, the sm90 body's previous body at dh 160, still takes
+    aligned bf16 there when forced (``body="mma"``): O within 2e-2 (1 +
+    |o|) of mha_ref, its log-sum-exp within 2e-5 (1 + |lse|) of the plain
+    one, and the sm90 body's O within the same limit of it."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(B, S, n, 160, generator=g, device=cuda).bfloat16()
+               for n in (H, K, K))
+    before = dict(flash_attention_cuda.launches_by_body)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, body="mma",
+                                    **kw)
+    new = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = flash_attention_cuda.launches_by_body
+    assert {b: after[b] - before[b] for b in after} == {
+        "sm90": 1, "mma": 1, "mma_tf32x3": 0, "fp32": 0}
+    assert_allclose(f32(out), f32(mha_ref(q, k, v, **kw)),
+                    **tol(torch.bfloat16))
+    assert _within(lse, lse_ref(q, k, **kw), 2e-5)
+    assert _within(new, out, 2e-2)
+
+
 def test_flash_launches_count_by_body(cuda):
     """Each input takes the body its dtype, head dim and alignment pick."""
     def make(dh, dtype, offset=0):
@@ -219,6 +253,8 @@ def test_flash_launches_count_by_body(cuda):
     for q, body in [(make(128, torch.bfloat16), "sm90"),
                     (make(256, torch.bfloat16), "sm90"),
                     (make(80, torch.bfloat16), "sm90"),
+                    (make(160, torch.bfloat16), "sm90"),
+                    (make(160, torch.bfloat16, offset=1), "mma"),
                     (make(128, torch.float32), "mma_tf32x3"),
                     (make(64, torch.float32, offset=1), "mma_tf32x3"),
                     (make(256, torch.float32), "mma_tf32x3"),
@@ -1063,13 +1099,17 @@ def test_flash_sm90_lse_matches_plain(cuda, B, S, H, K, dh, kw):
     (2, 512, 16, 1, 256, dict(causal=True, window=2048)),
     (1, 1000, 16, 1, 256, dict(causal=True, window=300)),
     (1, 200, 16, 1, 256, dict(causal=False)),
+    (1, 1024, 32, 8, 160, dict(causal=True)),      # stablelm-12b's heads
+    (1, 300, 8, 2, 160, dict(causal=True, window=100)),
+    (1, 300, 8, 2, 160, dict(causal=True, chunk=96)),
+    (2, 200, 4, 4, 160, dict(causal=False)),
 ])
 def test_flash_sm90_training_matches_plain(cuda, B, S, H, K, dh, kw):
-    """bf16 training at dh 80, 128 and 256 on TMA-aligned inputs: the sm90
-    forward (its log-sum-exp) and the sm90 backward (column halves at 256)
-    through
-    ``ops.flash_attention``; dq, dk, dv against autograd of mha_ref in fp32
-    on the same bf16 inputs, within 2e-2 (1 + |x|)."""
+    """bf16 training at dh 80, 128, 160 and 256 on TMA-aligned inputs: the
+    sm90 forward (its log-sum-exp) and the sm90 backward (column halves at
+    160 and 256) through ``ops.flash_attention``; dq, dk, dv against
+    autograd of mha_ref in fp32 on the same bf16 inputs, within 2e-2
+    (1 + |x|)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = (torch.randn(B, S, n, dh, generator=g,
                                device=cuda).bfloat16() for n in (H, K, K, H))

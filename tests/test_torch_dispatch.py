@@ -44,9 +44,9 @@ def fused(H, K, dh, extra=0, dtype=BF16):
 # flash attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dh", [80, 120, 128, 256])
+@pytest.mark.parametrize("dh", [80, 120, 128, 160, 256])
 def test_flash_bf16_aligned_takes_sm90(dh):
-    assert flash.SM90_HEAD_DIMS == (80, 120, 128, 256)
+    assert flash.SM90_HEAD_DIMS == (80, 120, 128, 160, 256)
     assert flash_body(*qkv(dh=dh)) == "sm90"
 
 
@@ -66,6 +66,14 @@ def test_flash_fused_projection_views_take_sm90_at_dh_80(H, K):
     assert flash_body(q, k, v) == "sm90"
 
 
+@pytest.mark.parametrize("H,K", [(32, 8), (16, 1)])
+def test_flash_fused_projection_views_take_sm90_at_dh_160(H, K):
+    """stablelm-12b's GQA 32 : 8 layout (320-byte heads) and an MQA one."""
+    q, k, v = fused(H, K, 160)
+    assert not q.is_contiguous() and q.stride(1) == (H + 2 * K) * 160
+    assert flash_body(q, k, v) == "sm90"
+
+
 @pytest.mark.parametrize("H,K", [(16, 16), (32, 8)])
 def test_flash_fused_views_8_bytes_off_take_mma_at_dh_80(H, K):
     """A sequence stride of (H + 2K) 80 + 4 elements: 8 bytes off."""
@@ -74,7 +82,7 @@ def test_flash_fused_views_8_bytes_off_take_mma_at_dh_80(H, K):
     assert flash_body(q, k, v) == "mma"
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 160])
+@pytest.mark.parametrize("dh", [16, 32, 64])
 def test_flash_other_head_dims_take_mma(dh):
     assert flash_body(*qkv(dh=dh)) == "mma"
 
@@ -106,6 +114,7 @@ def test_flash_fp32_train_shapes_take_mma_tf32x3(B, S, H, K, dh):
 def test_flash_bf16_bodies_are_unchanged():
     assert flash.bodies_for(*qkv(dh=128)) == ("sm90", "mma")
     assert flash.bodies_for(*qkv(dh=80)) == ("sm90", "mma")
+    assert flash.bodies_for(*qkv(dh=160)) == ("sm90", "mma")
     assert flash.bodies_for(*qkv(dh=64)) == ("mma",)
 
 
@@ -763,22 +772,26 @@ def test_flash_bwd_dkdv_grid_on_the_pair_kernels(B, S, H, K, dh, want_ctas):
 
 
 def test_flash_bwd_takes_the_mma_forward_to_sm90():
-    """bf16 at dh 160, aligned (stablelm-12b's bf16 train step): the
-    forward takes the mma body, which writes the log-sum-exp, and the
-    backward the sm90 body, column halves of each sum; mma_bf16 (the pair
-    kernels, the backward this step ran before the sm90 body took dh 160)
-    still takes the inputs when forced, as the previous body."""
-    q, k, v = qkv(dh=160)
+    """bf16 at dh 160: aligned (stablelm-12b's bf16 train step), the mma
+    body (the forward this step ran before the sm90 body took dh 160)
+    still takes the inputs when forced, as the previous body; a view whose
+    strides TMA cannot read takes the mma forward, which writes the
+    log-sum-exp, and the sm90 backward, column halves of each sum, with
+    mma_bf16 (the pair kernels) forcible beside it."""
+    assert flash.bodies_for(*qkv(dh=160)) == ("sm90", "mma")
+    q, k, v = fused(32, 8, 160, extra=1)
+    assert q.stride(1) % 8
     assert flash.select_body(q, k, v) == "mma"
+    assert flash.bodies_for(q, k, v) == ("mma",)
     assert flash.select_bwd_body(q, k, v) == "sm90"
     assert flash.bwd_bodies_for(q, k, v) == ("sm90", "mma_bf16")
 
 
-@pytest.mark.parametrize("dh", [80, 120, 128, 256])
+@pytest.mark.parametrize("dh", [80, 120, 128, 160, 256])
 def test_flash_bwd_takes_the_sm90_forward_to_sm90(dh):
-    """bf16 at dh 80, 120, 128 and 256, aligned (stablelm-3b's,
-    qwen2-vl-2b's and recurrentgemma-9b's bf16 train steps, hubert-xlarge's
-    and h2o-danube-3-4b's heads): both
+    """bf16 at dh 80, 120, 128, 160 and 256, aligned (stablelm-3b's,
+    qwen2-vl-2b's, stablelm-12b's and recurrentgemma-9b's bf16 train steps,
+    hubert-xlarge's and h2o-danube-3-4b's heads): both
     ways on sm90, the backward's wgmma and TMA body, with the mma_bf16
     kernels (4 warps a CTA at 80, the pair kernels above) still forcible as
     its previous body."""

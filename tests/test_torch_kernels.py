@@ -444,6 +444,50 @@ def test_flash_fwd_split_products_hold_fp32_tolerance(B, S, H, K, dh, kw,
     assert share["tf32x3"] <= 1.0 < share["tf32"]
 
 
+@pytest.mark.parametrize("B,S,H,K,dh,kw", [
+    (1, 128, 32, 8, 160, dict(causal=True)),        # stablelm-12b's GQA 32 : 8
+    (1, 100, 8, 2, 160, dict(causal=True)),         # ragged S
+    (1, 192, 4, 1, 160, dict(causal=True, window=40)),
+    (1, 128, 8, 2, 160, dict(causal=True, chunk=48)),
+    (2, 128, 4, 4, 160, dict(causal=False)),
+])
+def test_flash_sm90_fwd_bf16_products_hold_bf16_tolerance(B, S, H, K, dh, kw,
+                                                          capsys):
+    """The bf16 forward's sm90 body at dh 160 in plain torch
+    (``mha_fwd_by_products`` with ``bf16_operands`` over 64-key tiles: Q·Kᵀ
+    of bf16 operands summed in fp32, the softmax online over the tiles in
+    fp32, P rounded to bf16 for P·V as the kernel packs it for its register
+    operand) against the JAX flash kernel in interpret mode (where its
+    64-row blocks divide S) and JAX's ``mha_ref`` on the same bf16 inputs
+    at 2e-2 (1 + |o|), and its log-sum-exp against a float64 evaluation at
+    2e-5 (1 + |lse|)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, dh)).astype(
+        np.float32)).bfloat16() for n in (H, K, K))
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (q, k, v))
+    want = [f32(jax_mha_ref(jq, jk, jv, **kw))]
+    if S % 64 == 0:     # the Pallas kernel's blocks divide S
+        want.append(f32(flash_attention_pallas(
+            jq, jk, jv, interpret=True, block_q=64, block_k=64, **kw)))
+    pos = torch.arange(S)
+    logits = torch.einsum("bqkgd,bskd->bkgqs",
+                          q.double().unflatten(2, (K, H // K)),
+                          k.double()) * dh ** -0.5
+    want_lse = torch.logsumexp(logits.masked_fill(
+        ~attention_mask(pos, pos, **kw), -torch.inf), -1).flatten(1, 2)
+    o, lse = mha_fwd_by_products(q, k, v, **kw, matmul=bf16_operands,
+                                 block=64)
+    share = dict(o=max(_share(o, w, 2e-2) for w in want),
+                 lse=_share(lse, want_lse, 2e-5))
+    with capsys.disabled():
+        print(f"\nflash sm90 forward's bf16 products at {(B, S, H, K, dh, kw)}"
+              f", shares of the tolerances: {share}")
+    for w in want:
+        assert_allclose(f32(o), w, rtol=2e-2, atol=2e-2)
+    assert share["lse"] <= 1.0
+
+
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=5),
                                 dict(causal=True, chunk=4)])
 def test_mha_ref_decode_positions_match_jax(kw):
