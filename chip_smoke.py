@@ -246,16 +246,29 @@ Phases, each printed as one JSON line:
 15. (after 9) ``train_rgemma_bf16``: recurrentgemma-9b at full width cut
    to 3 layers (its first superblock), ``TrainConfig()`` (bf16,
    ``dots_no_batch``), batch 1 x 4096 (``train_4k``'s sequence: the
-   window of 2048 bites), 10 steps: losses finite, the first batch's loss
+   window of 2048 bites), 5 steps: losses finite, the first batch's loss
    falling; 2 sm90 flash forwards and 1 sm90 backward at dh 256 a step
    (the sm90 backward's column halves), 4 RG-LRU forwards and 2 backwards
    on the segmented bodies, 13 RMSNorm forwards and 7 cta_rows backwards.
    Step ms, peak memory beside 16 B and 28 B a parameter, the
    loss-and-gradient call's peak, one more step profiled.
 16. (after 13) ``train_stablelm12b_bf16``: stablelm-12b at full width cut
-   to 2 layers the same way: 4 flash forwards on the sm90 body at dh 160
-   (with its log-sum-exp) and 2 sm90 backwards at dh 160 a step, 9 RMSNorm
-   forwards and 5 cta_rows backwards.
+   to 2 layers the same way (5 steps): 4 flash forwards on the sm90 body
+   at dh 160 (with its log-sum-exp) and 2 sm90 backwards at dh 160 a step,
+   9 RMSNorm forwards and 5 cta_rows backwards.
+17. (after the serves) ``mesh_blocks``: the blocks that the mesh runs
+   since the eleventh slice, at world size 1 over NCCL on a process group
+   of their own, each through ``mesh=`` against the plain call on the same
+   weights and inputs: moonshot-v1-16b-a3b at full width cut to 2 layers
+   (bf16 ``TrainConfig()``, 2 x 1024; the loss and gradients within
+   ``TRAIN_CHECK_LIMITS``, flipped routes counted, then 3 mesh steps whose
+   loss falls, step ms and peak memory beside 16 B a parameter),
+   recurrentgemma-9b's first superblock at full width (1 x 4096, through
+   the RG-LRU kernels both ways), hubert-xlarge's encode cut to 2 layers
+   (1 x 32768 frames) and a qwen2-vl-2b wave cut to 2 layers with an image
+   block (the same tokens, logits within 2e-2 (1 + |x|)); each part's mesh
+   launches, counted from 0 in its own window, equal its plain run's, and
+   join ``mesh``'s in the kernels line.
 
 Every train phase before 12 runs ``remat_policy="none"``, as it did before
 the port had remat, so its counts, step times and peaks stay comparable;
@@ -3904,7 +3917,7 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
                        get_config("stablelm-3b"), None, steps, batch, seq, lr)
 
 
-def phase_train_rgemma_bf16(dev, seed, steps: int = 10, batch: int = 1,
+def phase_train_rgemma_bf16(dev, seed, steps: int = 5, batch: int = 1,
                             seq: int = 4096, lr: float = 3e-4):
     """recurrentgemma-9b at full width (d_model 4096, 16 heads of 256, MQA,
     window 2048, RG-LRU width 4096, GeGLU 12288, tied vocabulary 256000)
@@ -3923,7 +3936,7 @@ def phase_train_rgemma_bf16(dev, seed, steps: int = 10, batch: int = 1,
         "parameter, AdamW's end, are 238.7 GB)", steps, batch, seq, lr)
 
 
-def phase_train_stablelm12b_bf16(dev, seed, steps: int = 10, batch: int = 1,
+def phase_train_stablelm12b_bf16(dev, seed, steps: int = 5, batch: int = 1,
                                  seq: int = 4096, lr: float = 3e-4):
     """stablelm-12b at full width (d_model 5120, GQA 32 / 8 at head dim
     160, SwiGLU 13824, untied vocabulary 100352) cut to 2 layers, under
@@ -4262,11 +4275,9 @@ def phase_mesh(dev, seed, served, first):
             w2 = time.monotonic()
         del lp, lc, cache
         seen, toks = torch.stack(seen), torch.cat(toks, 1).cpu()
-        want = first["logits"].float()
-        wave_err = float(((seen.float() - want).abs()
-                          / (1 + want.abs())).max())
+        wave_err = _wave_err(seen, first["logits"])
         wave_same = bool(torch.equal(toks, first["tokens"]))
-        del seen, want
+        del seen
 
         tsh = train_shardings(cfg_t, mesh, param_specs(cfg_t), batch,
                               zero1=True)
@@ -4319,15 +4330,7 @@ def phase_mesh(dev, seed, served, first):
         for name, tc in tcs.items():
             a, b = on_mesh[name], plain[name]
             limits = TRAIN_CHECK_LIMITS[tc.dtype]
-            pairs = list(zip(_leaves(a["grads"]), _leaves(b["grads"])))
-            if limits["grad_metric"] == "l2":
-                grad = max(float((x.float() - y.float()).norm()
-                                 / max(float(y.float().norm()), 1e-30))
-                           for x, y in pairs)
-            else:
-                grad = max(float((x - y).abs().max())
-                           / max(float(y.abs().max()), 1e-30)
-                           for x, y in pairs)
+            grad = _grad_rel(a["grads"], b["grads"], limits["grad_metric"])
             loss = abs(a["loss"] - b["loss"]) / abs(b["loss"])
             step_loss = abs(a["step_loss"] - b["step_loss"]) / abs(
                 b["step_loss"])
@@ -4425,6 +4428,322 @@ def phase_mesh(dev, seed, served, first):
           f"mesh: launches {launches} by body {by_body}, expected "
           f"{want_launches} / {want_by_body}")
     return launches, by_body
+
+
+# the mesh phase's blocks (``phase_mesh_blocks``): moonshot-v1-16b-a3b's
+# train step (layers, batch, seq, steps), recurrentgemma-9b's first
+# superblock (batch, seq), hubert-xlarge's encode (layers, frames) and
+# qwen2-vl-2b's wave with an image block (layers, batch, prompt, new tokens)
+MESH_MOE = dict(layers=2, batch=2, seq=1024, steps=3)
+MESH_RGEMMA = dict(batch=1, seq=4096)
+MESH_HUBERT = dict(layers=2, seq=32768)
+MESH_VL = dict(layers=2, batch=4, prompt=512, new=32)
+
+
+def _mesh_part(plain_fn, mesh_fn, rglru: bool = False):
+    """(plain result, mesh result, mesh launches, mesh launches by body,
+    plain launches, plain launches by body): each run with the counts set
+    to 0 just before it and read just after."""
+    out = []
+    for fn in (plain_fn, mesh_fn):
+        _reset_launches()
+        out.append((fn(), _count_launches(), _bf16_by_body(rglru=rglru)))
+    (p, pl, pb), (m, ml, mb) = out
+    return p, m, ml, mb, pl, pb
+
+
+def _grad_rel(a, b, metric: str) -> float:
+    """The largest relative error over the leaves of two gradient trees:
+    in L2 norm (``l2``) or of the largest element (``max``)."""
+    def one(x, y):
+        x, y = x.float(), y.float()
+        if metric == "l2":
+            return float((x - y).norm()) / max(float(y.norm()), 1e-30)
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+    return max(one(x, y) for x, y in zip(_leaves(a), _leaves(b))
+               if y.numel())
+
+
+def _wave_err(got, want) -> float:
+    want = want.float()
+    return float(((got.float() - want).abs() / (1 + want.abs())).max())
+
+
+def phase_mesh_blocks(dev, seed):
+    """The blocks that run on a mesh since the eleventh slice (expert
+    parallelism and the MoE over data ranks, the RG-LRU width, the audio
+    frontend and the vision scatter on ``model``), on the card at world
+    size 1 over NCCL (``launch.mesh.make_debug_mesh``, a (1, 1) ("data",
+    "model") mesh; its own process group, destroyed at the end), each
+    through the entry points with ``mesh=`` on the shards of
+    ``train_shardings`` / ``serve_shardings`` against the plain call on the
+    same weights and inputs:
+
+    a. moonshot-v1-16b-a3b at full width cut to 2 layers (64 experts,
+       top-6, 2 shared; 1.85 B parameters), ``TrainConfig()`` (bf16,
+       ``dots_no_batch``, ZeRO-1), batch 2 x 1024: ``make_loss_and_grad``
+       within ``TRAIN_CHECK_LIMITS[bfloat16]`` of the plain call, the
+       (token, layer) routes that flipped between them counted; then 3
+       mesh train steps on that batch, whose loss falls; step ms and peak
+       memory beside 16 B a parameter.
+    b. recurrentgemma-9b's first superblock at full width (rglru, rglru,
+       attn_local), bf16, 1 x 4096: the mesh loss-and-gradient against the
+       plain one, through the RG-LRU forward and backward kernels.
+    c. hubert-xlarge cut to 2 layers: ``make_encode_step`` of 1 x 32768
+       frames on the mesh against the plain encode, within 2e-2 (1 + |x|).
+    d. qwen2-vl-2b cut to 2 layers: one wave (batch 4, prompt 512 with a
+       16 x 16 image block, 32 greedy tokens) through the mesh's prefill
+       and decode steps against the plain wave: the same tokens, the
+       logits within 2e-2 (1 + |x|).
+
+    Each part's mesh launches, counted from 0 in its own window, equal the
+    plain run's, counted the same way, and are not zero for any kernel the
+    part runs (flash and RMSNorm each way in a and b, the RG-LRU each way
+    in b, flash and RMSNorm forwards in c and d).  Returns (launches,
+    launches by body) summed over the parts' mesh runs."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_cache, init_params, param_specs
+    from repro_torch.models.blocks import record_routes
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.sharding import batch_pspecs, shard_tree
+    from repro_torch.train.steps import (TrainConfig, make_decode_step,
+                                         make_encode_step, make_loss_and_grad,
+                                         make_prefill_step, make_train_step,
+                                         serve_shardings, train_shardings)
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_debug_mesh(device=dev)
+    tc = TrainConfig()
+    limits = TRAIN_CHECK_LIMITS[tc.dtype]
+    totals, parts, oks = None, {}, {}
+
+    def add(launches, by_body):
+        nonlocal totals
+        totals = (launches, by_body) if totals is None else (
+            _summed(totals[0], launches), _summed(totals[1], by_body))
+
+    def ran(launches, kernels, backward: bool):
+        return all(launches[k][0] > 0 and (not backward or launches[k][1] > 0)
+                   for k in kernels)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def train_data(cfg, batch, seq):
+        data = next(iter(SyntheticLM(cfg, batch=batch, seq_len=seq,
+                                     seed=seed)))
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+    def loss_and_grad_pair(cfg, batch, kernels):
+        """The plain and the mesh loss-and-gradient call on the same
+        weights and batch; the weights, the batch and their shards."""
+        params = init_params(cfg, device=dev, dtype=torch.float32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(seed))
+        sh = train_shardings(cfg, mesh, param_specs(cfg), batch, zero1=True)
+        local = shard_tree({"p": params, "b": batch},
+                           {"p": sh["params"], "b": sh["batch"]})
+        routes = {}
+
+        def run(name, fn):
+            def call():
+                with record_routes() as routes[name]:
+                    total, (_, aux), grads = fn()
+                return float(total), float(aux), grads
+            return lambda: synced(call)
+        (p, p_ms), (m, m_ms), ml, mb, pl, pb = _mesh_part(
+            run("plain", lambda: make_loss_and_grad(cfg, tc)(params, batch)),
+            run("mesh", lambda: make_loss_and_grad(cfg, tc, mesh=mesh)(
+                local["p"], local["b"])), rglru="rglru" in kernels)
+        add(ml, mb)
+        grad = _grad_rel(m[2], p[2], limits["grad_metric"])
+        loss = abs(m[0] - p[0]) / abs(p[0])
+        finite = all(bool(torch.isfinite(g).all()) for g in _leaves(m[2]))
+        res = dict(loss_mesh=m[0], loss_plain=p[0], aux_mesh=m[1],
+                   aux_plain=p[1], loss_rel_err=loss, loss_tol=limits["loss"],
+                   grad_metric=limits["grad_metric"], grad_rel_err=grad,
+                   grad_tol=limits["grad"], finite=finite, ms_plain=p_ms,
+                   ms_mesh=m_ms, launches=ml, launches_plain=pl,
+                   launches_by_body=mb, launches_by_body_plain=pb)
+        if routes["plain"]:
+            res.update(route_stats(
+                [(a[1], b[1]) for a, b in zip(routes["plain"],
+                                              routes["mesh"])],
+                routes["plain"] + routes["mesh"], cfg.experts_per_token))
+        ok = finite and loss < limits["loss"] and grad < limits["grad"] \
+            and ml == pl and mb == pb and ran(ml, kernels, True)
+        return res, ok, params, local, sh
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for axis in mesh.mesh_dim_names:    # the communicators, apart
+            dist.all_reduce(torch.zeros(1, device=dev),
+                            group=mesh.get_group(axis))
+        torch.cuda.synchronize()
+        comm_warm_s = time.monotonic() - t0
+
+        # ---- a. moonshot-v1-16b-a3b: EP / MoE over data, then 3 steps
+        m = MESH_MOE
+        cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                                  num_layers=m["layers"])
+        with _expandable_segments():
+            batch = train_data(cfg, m["batch"], m["seq"])
+            res, ok, params, local, sh = loss_and_grad_pair(
+                cfg, batch, ("rmsnorm", "flash_attention"))
+            del params
+            gc.collect()
+            opt = shard_tree(init_opt_state(local["p"]), sh["opt"])
+            step = make_train_step(cfg, tc, mesh=mesh)
+            lr = torch.tensor(1e-3)
+            prm, lb = local["p"], local["b"]
+            del local, batch
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            losses, step_ms = [], []
+            for _ in range(m["steps"]):
+                (prm, opt, met), ms = synced(
+                    lambda: step(prm, opt, lb, lr))
+                losses.append(float(met["loss"]))
+                step_ms.append(ms)
+            step_launches = _count_launches()
+            step_by_body = _bf16_by_body()
+            peak = torch.cuda.max_memory_allocated()
+            del prm, opt, lb, met
+        add(step_launches, step_by_body)
+        want = {k: tuple(m["steps"] * n for n in v)
+                for k, v in res["launches_plain"].items()}
+        falls = all(math.isfinite(x) for x in losses) and \
+            losses[-1] < losses[0]
+        parts["moonshot"] = dict(
+            arch=cfg.name, layers=cfg.num_layers,
+            reduced=f"num_layers 48 -> {cfg.num_layers}; global batch "
+                    f"-> {m['batch']} x {m['seq']} on one card",
+            params=cfg.param_count(), experts=cfg.num_experts,
+            top_k=cfg.experts_per_token, batch=m["batch"], seq=m["seq"],
+            **res, steps=m["steps"], step_losses=losses, step_ms=step_ms,
+            step_peak_mem_bytes=peak,
+            peak_mem_bound_bytes=16 * cfg.param_count(),
+            step_launches=step_launches, step_launches_expected=want)
+        oks["moonshot"] = ok and falls and step_launches == want
+
+        # ---- b. recurrentgemma-9b's first superblock: the RG-LRU width
+        m = MESH_RGEMMA
+        cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                                  num_layers=3)
+        batch = train_data(cfg, m["batch"], m["seq"])
+        res, ok, params, local, _ = loss_and_grad_pair(
+            cfg, batch, ("rmsnorm", "flash_attention", "rglru"))
+        del params, local, batch
+        parts["rgemma"] = dict(arch=cfg.name, layers=3,
+                               layer_kinds=cfg._layer_kinds(),
+                               reduced="num_layers 38 -> 3",
+                               params=cfg.param_count(), **res, **m)
+        oks["rgemma"] = ok
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- c. hubert-xlarge: the audio frontend on the mesh's encode
+        m = MESH_HUBERT
+        cfg = dataclasses.replace(get_config("hubert-xlarge"),
+                                  num_layers=m["layers"])
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=gen)
+        feats = {"features": torch.randn(1, m["seq"], 512, generator=gen,
+                                         device=dev).to(torch.bfloat16)}
+        sh = train_shardings(cfg, mesh, param_specs(cfg), feats)
+        lp, lf = shard_tree(params, sh["params"]), shard_tree(feats,
+                                                              sh["batch"])
+        (p, p_ms), (got, m_ms), ml, mb, pl, pb = _mesh_part(
+            lambda: synced(lambda: make_encode_step(cfg)(params, feats)),
+            lambda: synced(lambda: make_encode_step(cfg, mesh=mesh)(lp, lf)))
+        add(ml, mb)
+        err = _wave_err(got, p)
+        parts["hubert"] = dict(arch=cfg.name, layers=cfg.num_layers,
+                               reduced=f"num_layers 48 -> {cfg.num_layers}",
+                               frames=m["seq"], logits_shape=list(got.shape),
+                               logits_err=err, logits_tol=2e-2,
+                               ms_plain=p_ms, ms_mesh=m_ms, launches=ml,
+                               launches_plain=pl, launches_by_body=mb)
+        oks["hubert"] = err <= 2e-2 and ml == pl and mb == pb and \
+            ran(ml, ("rmsnorm", "flash_attention"), False)
+        del params, feats, lp, lf, p, got
+
+        # ---- d. qwen2-vl-2b: a wave whose prompts hold an image block
+        m = MESH_VL
+        cfg = dataclasses.replace(get_config("qwen2-vl-2b"),
+                                  num_layers=m["layers"])
+        B, P, max_len = m["batch"], m["prompt"], m["prompt"] + m["new"] + 8
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=gen)
+        prompt = {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
+                                          generator=gen, device=dev),
+                  **vision_prompt(cfg, B, P, *VISION_GRID["serve"], gen, dev,
+                                  torch.bfloat16)}
+        cache = init_cache(cfg, B, max_len, torch.bfloat16, device=dev)
+        sh = serve_shardings(cfg, mesh, params, cache, B, max_len)
+        lp = shard_tree(params, sh["params"])
+        lb = shard_tree(prompt, batch_pspecs(cfg, prompt, mesh), mesh)
+
+        def wave(pre, dec, prm, inputs, c):
+            with torch.inference_mode():
+                last, c = pre(prm, inputs, c)
+                seen, toks = [last], []
+                tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+                for _ in range(m["new"]):
+                    tok, logits, c = dec(prm, tok, c)
+                    seen.append(logits)
+                    toks.append(tok)
+            return torch.stack(seen), torch.cat(toks, 1)
+        kw = dict(dtype=torch.bfloat16)
+        mkw = dict(kw, mesh=mesh, batch=B, max_len=max_len)
+        (p, p_ms), (got, m_ms), ml, mb, pl, pb = _mesh_part(
+            lambda: synced(lambda: wave(
+                make_prefill_step(cfg, **kw), make_decode_step(cfg, **kw),
+                params, prompt, init_cache(cfg, B, max_len, torch.bfloat16,
+                                           device=dev))),
+            lambda: synced(lambda: wave(
+                make_prefill_step(cfg, **mkw), make_decode_step(cfg, **mkw),
+                lp, lb, shard_tree(cache, sh["cache"]))))
+        add(ml, mb)
+        err = _wave_err(got[0], p[0])
+        same = bool(torch.equal(got[1], p[1]))
+        parts["qwen2vl"] = dict(arch=cfg.name, layers=cfg.num_layers,
+                                reduced=f"num_layers 28 -> {cfg.num_layers}",
+                                batch=B, prompt=P, new_tokens=m["new"],
+                                image=dict(grid=VISION_GRID["serve"][0],
+                                           offset=VISION_GRID["serve"][1]),
+                                tokens_equal=same, logits_err=err,
+                                logits_tol=2e-2, ms_plain=p_ms, ms_mesh=m_ms,
+                                launches=ml, launches_plain=pl,
+                                launches_by_body=mb)
+        oks["qwen2vl"] = same and err <= 2e-2 and ml == pl and mb == pb \
+            and ran(ml, ("rmsnorm", "flash_attention"), False)
+        del params, lp, cache, prompt, lb, p, got
+    finally:
+        dist.destroy_process_group()
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).strip()
+    emit("mesh_blocks", card=smi, mesh=dict(zip(mesh.mesh_dim_names,
+                                                mesh.shape)),
+         world_size=1, comm_warm_s=comm_warm_s, **parts, ok=oks,
+         seconds=time.monotonic() - t_phase)
+    for name, good in oks.items():
+        check(good, f"mesh_blocks: {name}: {parts[name]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def _to(tree, dev):
@@ -4670,6 +4989,9 @@ def main() -> int:
             train["mesh"], train_by_body["mesh"] = phase_mesh(
                 dev, args.seed, served, first)
         del served, first   # free this model's weights before the next one
+    blocks = phase_mesh_blocks(dev, args.seed)
+    train["mesh"] = _summed(train["mesh"], blocks[0])
+    train_by_body["mesh"] = _summed(train_by_body["mesh"], blocks[1])
     gc.collect()
     torch.cuda.empty_cache()
     train_checks(dev, args.seed)

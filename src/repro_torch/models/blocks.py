@@ -201,11 +201,18 @@ def attn_forward(p: dict, x: torch.Tensor, kind: str, ctx: dict,
     longer than the ring cache keeps its last Sc tokens, each at slot
     ``p % Sc``), decode writes slot ``t % Sc`` and ``pos[slot] = t``.
     On a ``model`` axis above 1 the block is tensor-parallel
-    (``_attn_tp``)."""
+    (``_attn_tp``), or, where H·dh does not divide over ``model`` (the
+    rules' replicated weights), whole on every rank: through
+    ``con.replicated`` without a cache, through ``_attn_tp``'s all-heads
+    cache path with one (which may be split along the sequence)."""
     con = ctx.get("constrain", WHOLE)
-    if con.size > 1:
-        return _attn_tp(p, x, kind, ctx, cache)
-    return _attn_whole(p, x, kind, ctx, cache)
+    if con.size == 1:
+        return _attn_whole(p, x, kind, ctx, cache)
+    cfg: ModelConfig = ctx["cfg"]
+    if cache is None and \
+            p["wo"].shape[-2] == cfg.num_heads * cfg.resolved_head_dim:
+        return con.replicated(lambda a: _attn_whole(p, a, kind, ctx), x)
+    return _attn_tp(p, x, kind, ctx, cache)
 
 
 def _attn_whole(p: dict, x: torch.Tensor, kind: str, ctx: dict,
@@ -321,18 +328,18 @@ def _attn_tp(p: dict, x: torch.Tensor, kind: str, ctx: dict,
     holds half a KV head), and keeps its Cq columns of the output.  A
     cache holds this rank's KV heads (K divides over ``model``), or all K
     heads, split along the sequence over ``ctx["kv_seq_axes"]`` (decode by
-    ``parallel.flash_decode``) or whole."""
+    ``parallel.flash_decode``) or whole.
+
+    Weights that the rules replicate (serving only: a cache is given) give
+    every rank all H query heads and the whole output, no partial sum."""
     cfg: ModelConfig = ctx["cfg"]
     con = ctx["constrain"]
     H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     G = H // K
-    if p["wo"].shape[-2] == H * dh:
-        raise NotImplementedError(
-            f"{cfg.name}: attention whose H·dh = {H * dh} does not divide "
-            f"over model={con.size} (the rules replicate it)")
+    rep = p["wo"].shape[-2] == H * dh
     causal, window, chunk, use_rope = _attn_geometry(cfg, kind)
-    r = con.index
-    h = con.enter(x)
+    r = 0 if rep else con.index
+    h = x if rep else con.enter(x)
     B, S, _ = h.shape
     kv_sharded = p["wk"].shape[-1] != K * dh
     if kv_sharded:
@@ -368,7 +375,7 @@ def _attn_tp(p: dict, x: torch.Tensor, kind: str, ctx: dict,
             cols = whole(name, t, sharded)[..., lo * dh:hi * dh]
         return cols.reshape(B, S, hi - lo, dh)
 
-    qh = rope(heads("q", q, hq[0], hq[-1] + 1, True))
+    qh = rope(heads("q", q, hq[0], hq[-1] + 1, not rep))
     all_kv = cache is not None and cache["k"].shape[2] == K
     if all_kv:
         # the cache holds every KV head: this rank writes its slots of them
@@ -386,14 +393,14 @@ def _attn_tp(p: dict, x: torch.Tensor, kind: str, ctx: dict,
             # sequence-split cache -> distributed flash-decode on all heads
             from repro_torch.parallel.flash_decode import (
                 seq_sharded_decode_attention)
-            q_all = rope(heads("q", q, 0, H, True))
+            q_all = rope(heads("q", q, 0, H, not rep))
             out = seq_sharded_decode_attention(
                 ctx["mesh"], axes, q_all, cache["k"].to(q.dtype),
                 cache["v"].to(q.dtype), cache["pos"], t,
                 batch_axes=ctx.get("kv_batch_axes", ()), causal=causal,
                 window=window, chunk=chunk)
-            out = out.reshape(B, S, H * dh)[..., c0:c1]
-            return con.exit(dense(out, p["wo"]))
+            out = dense(out.reshape(B, S, H * dh)[..., c0:c1], p["wo"])
+            return out if rep else con.exit(out)
         if S == 1:
             kh, vh = _group_kv(cache["k"][:, :, kv0:kv1].to(q.dtype),
                                cache["v"][:, :, kv0:kv1].to(q.dtype), hq,
@@ -416,8 +423,8 @@ def _attn_tp(p: dict, x: torch.Tensor, kind: str, ctx: dict,
             kh, vh = _group_kv(kh, vh, hq, kv0, G)
         out = _attend(qh, kh, vh, ctx, cache, causal, window, chunk)
     out = out.reshape(B, S, len(hq) * dh)
-    out = out[..., c0 - hq[0] * dh:c1 - hq[0] * dh]
-    return con.exit(dense(out, p["wo"]))
+    out = dense(out[..., c0 - hq[0] * dh:c1 - hq[0] * dh], p["wo"])
+    return out if rep else con.exit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -484,16 +491,39 @@ def moe_forward(p: dict, x: torch.Tensor, ctx: dict):
     step).  ``torch.topk`` leaves the order of exactly tied probabilities
     unspecified where ``jax.lax.top_k`` takes the lower index first; random
     fp32 weights give no exact ties, and no tie-breaking is added here that
-    the reference lacks."""
+    the reference lacks.
+
+    On a mesh (``ctx["constrain"]``) the rows stay the dispatch groups, so
+    capacity and drops are a data shard's as they are the whole batch's;
+    the load-balance loss's two means run over the global batch (summed
+    over the data axes, each rank differentiating its own term).  Where
+    the rules split the experts over ``model`` (E divides), rank r holds
+    experts [r E/m, (r + 1) E/m): the router, the top-k and the slot
+    bookkeeping run on the whole row, the same on every ``model`` rank,
+    the experts' products on this rank's experts, the combine keeps the
+    (token, k) pairs routed here, and one ``con.exit`` sums them with the
+    column / row split shared expert; the aux loss's gradient is taken on
+    ``model`` rank 0 alone, so that it counts once.  Where they replicate
+    the experts every rank runs them all."""
     cfg: ModelConfig = ctx["cfg"]
-    B, S, D = x.shape
-    E, kk = cfg.num_experts, cfg.experts_per_token
+    con = ctx.get("constrain", WHOLE)
+    E, El = cfg.num_experts, p["w_gate"].shape[-3]
+    ep = El != E                      # experts split over ``model``
+    shared = p.get("shared")
+    shared_split = shared is not None and ep and \
+        shared["gate"].shape[-1] != cfg.shared_expert_dff
+    if ep:          # the whole row on every rank, its gradient summed
+        h, router = con.enter(x), con.param(p["router"])
+    else:           # the whole row, the same on every rank
+        h, router = con.gather_sequence(x), p["router"]
+    B, S, D = h.shape
+    kk = cfg.experts_per_token
     T = S * kk
     C = max(min(math.ceil(T * cfg.capacity_factor / E), T), 1)
-    dev = x.device
+    dev = h.device
 
     # the router in x's dtype, then fp32, as the reference computes it
-    probs = torch.softmax(dense(x, p["router"]).float(), dim=-1)  # (B,S,E)
+    probs = torch.softmax(dense(h, router).float(), dim=-1)       # (B,S,E)
     w, sel = torch.topk(probs, kk, dim=-1)                         # (B,S,k)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
     if _ROUTES is not None:
@@ -509,33 +539,45 @@ def moe_forward(p: dict, x: torch.Tensor, ctx: dict):
     ranks_sorted = (torch.arange(T, device=dev)[None]
                     - torch.gather(seg_start, 1, e_sorted))
     ranks = torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
-    keep = ranks < C
-    pos = torch.where(keep, ranks, C)                  # overflow -> slot C
+    # the pairs kept and routed to this rank's experts [e0, e0 + El)
+    e0 = con.index * El if ep else 0
+    here = (e_flat >= e0) & (e_flat < e0 + El)
+    kept = (ranks < C) & here
+    e_loc = torch.where(here, e_flat - e0, 0)
+    pos = torch.where(kept, ranks, C)                  # overflow -> slot C
 
-    # ---- dispatch: buf (B,E,C+1,D); slot C is the overflow trash slot.
-    # Pairs dropped into it share one index, which index_put_ writes in no
-    # set order on the card; the slot is never read, so y does not depend
-    # on it (and its gradient there is zero)
+    # ---- dispatch: buf (B,El,C+1,D); slot C is the trash slot of the
+    # pairs dropped or routed elsewhere.  They share one index, which
+    # index_put_ writes in no set order on the card; the slot is never
+    # read, so y does not depend on it (and its gradient there is zero)
     bidx = torch.arange(B, device=dev)[:, None].expand(B, T)
-    buf = x.new_zeros(B, E, C + 1, D)
-    buf.index_put_((bidx, e_flat, pos), x.repeat_interleave(kk, dim=1))
+    buf = h.new_zeros(B, El, C + 1, D)
+    buf.index_put_((bidx, e_loc, pos), h.repeat_interleave(kk, dim=1))
 
     y_e = expert_ffn(p, buf, cfg.act)
 
     # ---- combine
-    gathered = y_e[bidx, e_flat, pos]                              # (B,T,D)
-    wk = (w.reshape(B, T) * keep).to(x.dtype)
+    gathered = y_e[bidx, e_loc, pos]                               # (B,T,D)
+    wk = (w.reshape(B, T) * kept).to(h.dtype)
     y = (gathered * wk[..., None]).reshape(B, S, kk, D).sum(2)
 
-    if "shared" in p:
-        y = y + gated_mlp(x, p["shared"], cfg.act)
+    if shared_split:
+        y = con.exit(y + gated_mlp(h, shared, cfg.act))
+    else:
+        y = con.exit(y) if ep else con.to_sequence_shard(y)
+        if shared is not None:
+            y = y + _ffn(x, shared, cfg, con, cfg.shared_expert_dff)
 
     # ---- Switch-style load-balance aux loss (top-k picks distinct
-    # experts, so the one-hot of sel has no count above one per token)
+    # experts, so the one-hot of sel has no count above one per token),
+    # its means over the global batch
+    n = B * S * con.dp_size
     chosen = torch.zeros(B, S, E, device=dev).scatter_(2, sel, 1.0)
-    frac_tokens = chosen.mean((0, 1))
-    frac_probs = probs.mean((0, 1))
+    frac_tokens = con.dp_sum(chosen.sum((0, 1))) / n
+    frac_probs = con.dp_sum(probs.sum((0, 1))) / n
     aux = E * (frac_tokens * frac_probs).sum()
+    if ep and con.index:
+        aux = aux.detach()
     return y, aux
 
 
@@ -546,7 +588,16 @@ def moe_forward(p: dict, x: torch.Tensor, ctx: dict):
 def rglru_forward(p: dict, x: torch.Tensor, ctx: dict,
                   cache: Optional[dict] = None):
     """RG-LRU mixer output; a given cache (``conv`` (B,K-1,W), ``h`` (B,W)
-    fp32) is read as the carried state and written in place."""
+    fp32) is read as the carried state and written in place.  On a
+    ``model`` axis above 1 the width is split (``_rglru_tp``) where it
+    divides, else the block runs whole on every rank."""
+    con = ctx.get("constrain", WHOLE)
+    if con.size > 1 and p["in_x"].shape[-1] != ctx["cfg"].resolved_lru_width:
+        return _rglru_tp(p, x, ctx, cache)
+    return con.replicated(lambda a: _rglru_whole(p, a, cache), x)
+
+
+def _rglru_whole(p: dict, x: torch.Tensor, cache: Optional[dict] = None):
     xb = dense(x, p["in_x"])
     gate = act_fn("gelu")(dense(x, p["in_gate"]))
     conv_state = cache["conv"] if cache is not None else None
@@ -559,6 +610,44 @@ def rglru_forward(p: dict, x: torch.Tensor, ctx: dict,
         cache["h"].copy_(h_last)
     y = y.to(x.dtype) * gate
     return dense(y, p["out"])
+
+
+def _rglru_tp(p: dict, x: torch.Tensor, ctx: dict,
+              cache: Optional[dict] = None):
+    """The RG-LRU width split over ``model``: rank r holds channels
+    [r Wl, (r + 1) Wl) of W.  ``in_x`` / ``in_gate`` column-parallel,
+    ``out`` row-parallel; the conv taps, which the rules replicate, cut to
+    this rank's channels (their gradient summed over ``model``); the gates
+    block-diagonal on this rank's heads, or, where the heads do not divide
+    (the rules replicate the gate weights), computed on the gathered width
+    and cut to this rank's channels; the scan on (B, S, Wl).  The cache is
+    whole along W on every rank (``cache_pspecs``): this rank reads
+    its channels and writes back the whole width, gathered."""
+    con = ctx["constrain"]
+    h = con.enter(x)
+    xb = dense(h, p["in_x"])
+    gate = act_fn("gelu")(dense(h, p["in_gate"]))
+    Wl = xb.shape[-1]
+    cols = slice(con.index * Wl, (con.index + 1) * Wl)
+    conv_state = cache["conv"][..., cols] if cache is not None else None
+    xb, new_conv = causal_conv1d(xb, con.param(p["conv_w"])[cols],
+                                 con.param(p["conv_b"])[cols], conv_state)
+    if p["a_gate_w"].shape[-3] * p["a_gate_w"].shape[-1] == Wl:
+        log_a, gx = rglru_gates(xb, p)
+    else:
+        whole = {n: con.param(p[n]) for n in ("a_gate_w", "a_gate_b",
+                                              "x_gate_w", "x_gate_b")}
+        whole["a_param"] = con.gather_last(p["a_param"])
+        log_a, gx = (t[..., cols] for t in
+                     rglru_gates(con.gather_last(xb), whole))
+    h0 = cache["h"][:, cols].contiguous() if cache is not None else None
+    y, h_last = kops.rglru_scan(log_a, gx, h0)
+    if cache is not None:
+        mesh = con.mesh
+        cache["conv"].copy_(C.all_gather(new_conv, 2, mesh, ("model",)))
+        cache["h"].copy_(C.all_gather(h_last, 1, mesh, ("model",)))
+    y = y.to(x.dtype) * gate
+    return con.exit(dense(y, p["out"]))
 
 
 # ---------------------------------------------------------------------------
@@ -609,15 +698,16 @@ def ssd_forward(p: dict, x: torch.Tensor, ctx: dict,
 # block application (pre-norm residual layer)
 # ---------------------------------------------------------------------------
 
-def _ffn(h: torch.Tensor, p: dict, cfg: ModelConfig, con) -> torch.Tensor:
-    """The dense gated FFN: gate / up column-parallel, down row-parallel
-    on a ``model`` axis above 1."""
+def _ffn(h: torch.Tensor, p: dict, cfg: ModelConfig, con,
+         d_ff: int) -> torch.Tensor:
+    """A dense gated FFN of hidden width ``d_ff``: gate / up
+    column-parallel, down row-parallel on a ``model`` axis above 1, or
+    whole on every rank where ``d_ff`` does not divide (the rules'
+    replicated weights)."""
     if con.size == 1:
         return gated_mlp(h, p, cfg.act)
-    if p["gate"].shape[-1] == cfg.d_ff:
-        raise NotImplementedError(
-            f"{cfg.name}: an FFN whose d_ff = {cfg.d_ff} does not divide "
-            f"over model={con.size} (the rules replicate it)")
+    if p["gate"].shape[-1] == d_ff:
+        return con.replicated(lambda a: gated_mlp(a, p, cfg.act), h)
     return con.exit(gated_mlp(con.enter(h), p, cfg.act))
 
 
@@ -629,10 +719,11 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
     (no tensor made on the card per layer).
 
     ``ctx["constrain"]`` (``parallel.sharding.Constrainer``; none: one
-    device) holds the mesh's layout: attention and the FFN run tensor-parallel on a ``model``
-    axis above 1, the SSD mixer (replicated by the rules) whole on every
-    rank (the model's entry points refuse the blocks that tensor
-    parallelism does not cover yet, ``model._check_mesh``)."""
+    device) holds the mesh's layout, and each block runs the layout the
+    rules give its weights: on a ``model`` axis above 1 attention, the
+    FFN, the RG-LRU width and the MoE experts split where their widths
+    divide (the experts where E does), whole on every rank where the rules
+    replicate them, the SSD mixer (replicated) whole on every rank."""
     cfg: ModelConfig = ctx["cfg"]
     con = ctx.get("constrain", WHOLE)
     aux = 0.0
@@ -652,6 +743,6 @@ def apply_block(kind: str, p: dict, x: torch.Tensor, ctx: dict,
         if "moe" in p:
             y, aux = moe_forward(p["moe"], h, ctx)
         else:
-            y = _ffn(h, p["ffn"], cfg, con)
+            y = _ffn(h, p["ffn"], cfg, con, cfg.d_ff)
         x = x + y
     return x, aux

@@ -187,43 +187,46 @@ def _embed_tokens(tokens, table, cfg: ModelConfig, dtype, con):
     return con.exit(x.masked_fill(~hit[..., None], 0).to(dtype))
 
 
-def _check_mesh(cfg: ModelConfig, con) -> None:
-    """Refuse, before any work, a model with blocks the mesh's layout does
-    not cover yet: under tensor parallelism the MoE experts, the RG-LRU
-    width and the audio frontend; under data parallelism the MoE block
-    (its capacity and load-balance loss are global-batch statistics)."""
-    if cfg.num_experts:
-        con.refuse_tp("MoE experts (expert parallelism)")
-        con.refuse_dp("the MoE block's capacity and load-balance loss")
-    if "rglru" in cfg._layer_kinds():
-        con.refuse_tp("the RG-LRU block's width")
-    if cfg.modality == "audio_stub":
-        con.refuse_tp("the audio frontend (frontend_proj)")
-
-
 def _embed_inputs(params, batch, cfg: ModelConfig, dtype, con=WHOLE):
     """The token embeddings, or the stub frontends' inputs: the audio stub
-    projects precomputed frame features (B, S, 512) to d_model; the vision
-    stub scatters precomputed patch embeddings (B, n_img, D) over the
-    positions where ``vision_mask`` (B, S) is True (early fusion)."""
+    projects precomputed frame features (B, S, 512) to d_model
+    (``frontend_proj`` column-parallel where d_model divides over
+    ``model``, its output gathered); the vision stub scatters precomputed
+    patch embeddings (B, n_img, D) over the positions where
+    ``vision_mask`` (B, S) is True (early fusion).  Under ``dp_sp`` each
+    rank's stream is its positions of the row."""
     if cfg.modality == "audio_stub":
-        return batch["features"].to(dtype) @ params["frontend_proj"].to(dtype)
-    if cfg.modality == "vision_stub" and "vision_embeds" in batch:
-        con.refuse_tp("the vision scatter (vision_embeds)")
+        proj = params["frontend_proj"]
+        x = batch["features"].to(dtype) @ proj.to(dtype)
+        if proj.shape[-1] != cfg.d_model:
+            x = con.gather_last(x, partial=False)
+        return con.to_sequence_shard(x)
     x = _embed_tokens(batch["tokens"], params["embed"], cfg, dtype, con)
     if cfg.modality == "vision_stub" and "vision_embeds" in batch:
-        ve = batch["vision_embeds"].to(dtype)            # (B, n_img, D)
-        mask = batch["vision_mask"].bool()               # (B, S)
-        n_img = ve.shape[1]
-        # the j-th True position of each row is patch j's target; a row with
-        # fewer Trues than n_img sends its last patches to False positions,
-        # which keep their token embedding
-        idx = torch.argsort((~mask).to(torch.int8), dim=1,
-                            stable=True)[:, :n_img]      # (B, n_img)
-        rows = torch.arange(x.shape[0], device=x.device)[:, None]
-        keep = torch.gather(mask, 1, idx)[..., None]
-        x = x.index_put((rows, idx), torch.where(keep, ve, x[rows, idx]))
+        x = _scatter_patches(x, batch["vision_embeds"].to(dtype),
+                             batch["vision_mask"].bool(), con)
     return x
+
+
+def _scatter_patches(x, ve, mask, con=WHOLE):
+    """Patch j of each row (``ve`` (B, n_img, D)) in place of the j-th True
+    position of the whole row (``mask`` (B, S)); a row with fewer Trues
+    than n_img sends its last patches to False positions, which keep their
+    token embedding.  ``x`` holds positions [lo, lo + Sl) of the rows
+    (this rank's under ``dp_sp``, else all), and only the targets there
+    are written."""
+    B, S = mask.shape
+    idx = torch.argsort((~mask).to(torch.int8), dim=1,
+                        stable=True)[:, :ve.shape[1]]    # (B, n_img)
+    j = torch.arange(idx.shape[1], device=x.device).expand_as(idx)
+    src = torch.full((B, S), -1, dtype=torch.long, device=x.device)
+    src.scatter_(1, idx, torch.where(torch.gather(mask, 1, idx), j, -1))
+    Sl = x.shape[1]
+    lo = con.index * Sl if con.sp else 0
+    src = src[:, lo:lo + Sl]                               # (B, Sl)
+    patch = torch.gather(ve, 1, src.clamp(min=0)[..., None].expand(
+        B, Sl, ve.shape[-1]))
+    return torch.where((src >= 0)[..., None], patch, x)
 
 
 def _layer(tree, i: int):
@@ -303,7 +306,6 @@ def forward_train(params, batch, cfg: ModelConfig, *, dtype=torch.bfloat16,
     ``batch`` are this rank's shards, and the logits are this rank's
     vocabulary slice where the head is split."""
     con = constrain or WHOLE
-    _check_mesh(cfg, con)
     x = _embed_inputs(params, batch, cfg, dtype, con)
     B, S = batch["tokens" if "tokens" in batch else "features"].shape[:2]
     positions = batch.get("positions")
@@ -322,7 +324,6 @@ def prefill(params, batch, cache, cfg: ModelConfig, *, dtype=torch.bfloat16,
     """Process the prompt, fill the cache, return last-position logits only
     (never materializes (B,S,V))."""
     con = constrain or WHOLE
-    _check_mesh(cfg, con)
     x = _embed_inputs(params, batch, cfg, dtype, con)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -339,7 +340,6 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, *,
                 extra_ctx: dict | None = None):
     """One decode step: tokens (B,1) int -> (logits (B,V), cache)."""
     con = constrain or WHOLE
-    _check_mesh(cfg, con)
     x = _embed_tokens(tokens, params["embed"], cfg, dtype, con)
     B = x.shape[0]
     t = cache["t"]

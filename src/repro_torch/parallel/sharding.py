@@ -208,13 +208,20 @@ def _prod(mesh, axes) -> int:
 
 
 def batch_pspecs(cfg: ModelConfig, batch_shape: dict, mesh) -> dict:
+    """Each leaf's batch dim over the data axes where it divides.  The
+    batch dim is the leading one, as the reference's rule has it, except
+    for M-RoPE's ``positions3`` (3, B, S): the reference's rule reads its
+    3 as a batch, which GSPMD's global arrays tolerate, but the port hands
+    each rank its local rows, so those must be cut along B."""
     dp = dp_axes(mesh)
     out = {}
     for k, v in batch_shape.items():
         shape = _shape(v)
-        nb = shape[0] if shape else 1
-        lead = dp if nb % _prod(mesh, dp) == 0 else None
-        out[k] = P(lead, *([None] * (len(shape) - 1)))
+        bdim = 1 if k == "positions3" else 0
+        nb = shape[bdim] if len(shape) > bdim else 1
+        parts = [None] * max(len(shape), 1)
+        parts[bdim] = dp if nb % _prod(mesh, dp) == 0 else None
+        out[k] = P(*parts)
     return out
 
 
@@ -411,8 +418,9 @@ class Constrainer:
     parallelism): gathered before the column-parallel products,
     reduce-scattered after the row-parallel ones.
 
-    Without a mesh, or on a ``model`` axis of 1, every method is the
-    identity, so the one-device path runs the same operations as before."""
+    Without a mesh every method is the identity, and on a ``model`` axis
+    of 1 every one but ``dp_sum``, so the one-device path runs the same
+    operations as before."""
 
     def __init__(self, mesh=None, mode: str = "dp", exclude=()):
         if mode not in ("dp", "dp_sp"):
@@ -422,24 +430,10 @@ class Constrainer:
             if mesh is not None else ()
         self.size = _axis_size(mesh, "model") if mesh is not None else 1
         self.index = C.axis_index(mesh, "model") if mesh is not None else 0
-        self.dp_size = _prod(mesh, dp_axes(mesh)) if mesh is not None else 1
+        # the batch rows summed over the data axes are each rank's times this
+        # (every rank along them holds as many, a shard or the whole batch)
+        self.dp_size = _prod(mesh, self.dp) if mesh is not None else 1
         self.sp = mode == "dp_sp" and self.size > 1
-
-    # -- refusals ---------------------------------------------------------
-
-    def refuse_tp(self, what: str) -> None:
-        """A block that tensor parallelism does not cover yet."""
-        if self.size > 1:
-            raise NotImplementedError(
-                f"{what} under tensor parallelism (model={self.size}) is not "
-                "ported yet; run it on a mesh with model=1")
-
-    def refuse_dp(self, what: str) -> None:
-        if self.dp_size > 1:
-            raise NotImplementedError(
-                f"{what} needs global-batch statistics, which data "
-                f"parallelism (data ranks {self.dp_size}) does not compute "
-                "yet; run it on one data rank")
 
     # -- regions ----------------------------------------------------------
 
@@ -471,14 +465,24 @@ class Constrainer:
         replicated ``wk`` feeding this rank's heads)."""
         return C.copy_to(w, self.mesh, "model") if self.size > 1 else w
 
-    def gather_last(self, x):
-        """The full last dim from column shards; gradient summed."""
+    def gather_last(self, x, partial: bool = True):
+        """The full last dim from column shards; gradient summed over
+        ``model`` (``partial``: what consumes it is rank-specific) or this
+        rank's columns of it (what consumes it is the same on every rank)."""
         return C.gather_from(x, x.dim() - 1, self.mesh, "model",
-                             partial=True)
+                             partial=partial)
 
     def reduce(self, x):
         """A sum over ``model`` in the forward, identity backward."""
         return C.reduce_from(x, self.mesh, "model")
+
+    def dp_sum(self, x):
+        """A sum over the data axes whose gradient is this rank's own: each
+        rank differentiates only its term of a global-batch statistic (the
+        step sums the gradients over the data axes)."""
+        for a in self.dp:
+            x = C.reduce_from(x, self.mesh, a)
+        return x
 
     def max(self, x):
         """The largest over ``model`` (not differentiable)."""

@@ -59,7 +59,7 @@ from repro.train.steps import train_shardings as jax_train_shardings
 from repro_torch.checkpoint import TransactionalCheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import CannyFS, LocalBackend
-from repro_torch.models import forward_train, init_cache, param_specs
+from repro_torch.models import init_cache, param_specs
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.optim import init_opt_state
 from repro_torch.parallel import sharding as tsh
@@ -115,6 +115,24 @@ def test_param_and_batch_specs_match_jax(arch, kind):
             _jax_specs(jsh.batch_pspecs(cfg_j, bj, jm))
 
 
+def test_batch_specs_cut_positions3_along_its_batch():
+    """M-RoPE's ``positions3`` (3, B, S) is cut along B over the data
+    axes, where the reference's rule reads its 3 as the batch (GSPMD's
+    global arrays make that harmless; the port's ranks hold local rows);
+    every other leaf keeps the reference's spec."""
+    cfg_j, cfg_t = jax_smoke("qwen2-vl-2b"), get_smoke_config("qwen2-vl-2b")
+    jm, tm = _meshes("multipod")
+    shapes = {"tokens": (64, 8), "vision_mask": (64, 8),
+              "vision_embeds": (64, 4, 16), "positions3": (3, 64, 8)}
+    got = tsh.batch_pspecs(cfg_t, {k: torch.empty(v, device="meta")
+                                   for k, v in shapes.items()}, tm)
+    want = jsh.batch_pspecs(cfg_j, {k: jax.ShapeDtypeStruct(v, jnp.int32)
+                                    for k, v in shapes.items()}, jm)
+    assert tuple(got["positions3"]) == (None, ("pod", "data"), None)
+    for k in ("tokens", "vision_mask", "vision_embeds"):
+        assert tuple(got[k]) == tuple(want[k]), k
+
+
 @pytest.mark.parametrize("kind", sorted(MESHES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_cache_specs_match_jax(arch, kind):
@@ -134,45 +152,8 @@ def test_cache_specs_match_jax(arch, kind):
 
 
 # ---------------------------------------------------------------------------
-# refusals and the one-rank mesh, in process
+# the one-rank mesh, in process
 # ---------------------------------------------------------------------------
-
-class _TwoWayModel:
-    """A (1, 2) mesh's shape, seen from rank 0 (no process group: the
-    refusals come before any collective)."""
-    mesh_dim_names = ("data", "model")
-
-    def __init__(self, shape=(1, 2)):
-        self.shape = shape
-
-    def get_local_rank(self, axis):
-        return 0
-
-
-@pytest.mark.parametrize("arch,names,shape", [
-    ("moonshot-v1-16b-a3b", "MoE experts", (1, 2)),
-    ("recurrentgemma-9b", "RG-LRU", (1, 2)),
-    ("hubert-xlarge", "frontend_proj", (1, 2)),
-    ("qwen2-vl-2b", "vision scatter", (1, 2)),
-    ("moonshot-v1-16b-a3b", "MoE block", (2, 1)),
-])
-def test_mesh_refuses_uncovered_blocks(arch, names, shape):
-    """On a ``model`` axis above 1, the MoE experts, the RG-LRU width and
-    the modality frontends raise an error naming them; the MoE block also
-    on more than one data rank."""
-    cfg = get_smoke_config(arch)
-    con = tsh.activation_constrainer(_TwoWayModel(shape), "dp")
-    B, S = 2, 8
-    batch = {"tokens": torch.zeros(B, S, dtype=torch.long)}
-    if cfg.modality == "audio_stub":
-        batch = {"features": torch.zeros(B, S, 512)}
-    if cfg.modality == "vision_stub":
-        batch["vision_embeds"] = torch.zeros(B, 2, cfg.d_model)
-        batch["vision_mask"] = torch.zeros(B, S, dtype=torch.bool)
-    params = param_specs(cfg)
-    with pytest.raises(NotImplementedError, match=names):
-        forward_train(params, batch, cfg, dtype=torch.float32, constrain=con)
-
 
 def test_one_rank_meshes():
     """Without torchrun: one rank on an in-process store; the debug mesh is
@@ -697,6 +678,324 @@ def test_kv_heads_below_model_axis_serving_matches_jax(tmp_path, max_len,
                                       np.concatenate(want_toks, 1))
 
 
+# ---------------------------------------------------------------------------
+# the MoE, RG-LRU and modality blocks on a mesh
+# ---------------------------------------------------------------------------
+
+BLOCKS_BODY = """
+from repro_torch.models import init_cache, param_specs
+from repro_torch.models.bridge import params_from_numpy
+from repro_torch.optim import init_opt_state
+from repro_torch.parallel.sharding import batch_pspecs, gather_tree, shard_tree
+from repro_torch.train.steps import (TrainConfig, make_decode_step,
+                                     make_encode_step, make_loss_and_grad,
+                                     make_prefill_step, make_train_step,
+                                     serve_shardings, train_shardings)
+mesh = mesh_of(IN["mesh"])
+out = {}
+for name, job in IN["jobs"].items():
+    cfg = job["cfg"]
+    params = params_from_numpy(job["params"], device="cpu")
+    batch = {k: torch.from_numpy(v).long() if k in ("tokens", "labels")
+             else torch.from_numpy(v) for k, v in job["batch"].items()}
+    lb = shard_tree(batch, batch_pspecs(cfg, batch, mesh), mesh)
+    if job["kind"] == "train":
+        tc = TrainConfig(dtype=torch.float32, remat_policy="none",
+                         z_loss=0.0, activation_mode=job["mode"])
+        sh = train_shardings(cfg, mesh, param_specs(cfg), batch)
+        lp = shard_tree(params, sh["params"])
+        total, (_, aux), grads = make_loss_and_grad(cfg, tc, mesh=mesh)(lp,
+                                                                        lb)
+        _, _, m = make_train_step(cfg, tc, mesh=mesh)(
+            lp, shard_tree(init_opt_state(params), sh["opt"]), lb, 1e-3)
+        out[name] = dict(total=float(total), aux=float(aux),
+                         step_total=float(m["total_loss"]),
+                         grad_norm=float(m["grad_norm"]),
+                         grads=numpy(gather_tree(grads, sh["params"])),
+                         local={k: tuple(v.shape) for k, v in
+                                lp["blocks"][0]["mixer"].items()}
+                         | {k: tuple(v.shape) for k, v in
+                            lp["blocks"][0].get("moe", {}).items()
+                            if torch.is_tensor(v)})
+    elif job["kind"] == "encode":
+        sh = train_shardings(cfg, mesh, param_specs(cfg), batch)
+        logits = make_encode_step(cfg, dtype=torch.float32, mesh=mesh)(
+            shard_tree(params, sh["params"]), lb)
+        out[name] = dict(logits=logits.numpy(), local=tuple(
+            shard_tree(params, sh["params"])["frontend_proj"].shape))
+    else:                                   # prefill, then greedy decode
+        B, max_len = batch["tokens"].shape[0], job["max_len"]
+        cache = init_cache(cfg, B, max_len, torch.float32, device="cpu")
+        sh = serve_shardings(cfg, mesh, param_specs(cfg), cache, B, max_len)
+        lp, lc = shard_tree(params, sh["params"]), shard_tree(cache,
+                                                              sh["cache"])
+        kw = dict(dtype=torch.float32, mesh=mesh, batch=B, max_len=max_len)
+        last, lc = make_prefill_step(cfg, **kw)(lp, lb, lc)
+        logits, toks = [last.numpy()], []
+        tok = last.argmax(-1)[:, None].to(torch.int32)
+        dec = make_decode_step(cfg, **kw)
+        for _ in range(job["steps"]):
+            tok, lg, lc = dec(lp, tok, lc)
+            logits.append(lg.numpy())
+            toks.append(tok.numpy())
+        out[name] = dict(logits=np.stack(logits),
+                         tokens=np.concatenate(toks, 1),
+                         rows=(mesh.get_local_rank("data"),
+                               mesh.size(0)),
+                         cache=numpy(gather_tree(lc, sh["cache"])))
+emit(out)
+"""
+
+
+def _smoke(arch: str, **changes) -> dict:
+    """The smoke config of ``arch`` in both packages, with ``changes``."""
+    return {name: dataclasses.replace(fn(arch), **changes)
+            for name, fn in (("jax", jax_smoke), ("torch", get_smoke_config))}
+
+
+def _block_batch(cfg, seed: int = 1, B: int = 4, S: int = 32) -> dict:
+    """Tokens and labels, and for the vision stub patch embeddings over a
+    mask whose image positions span both halves of the sequence (row 0
+    twelve of them from 10 to 21, row 1 fewer Trues than patches) with
+    random 3-D positions; for the audio stub frame features."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.modality == "vision_stub":
+        n_img = 12
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, n_img, cfg.d_model)).astype(np.float32)
+        mask = np.zeros((B, S), bool)
+        mask[0, 10:22] = True
+        mask[1, [3, 15, 16, 30]] = True
+        mask[2:, 14:26] = True
+        batch["vision_mask"] = mask
+        batch["positions3"] = rng.integers(0, 2 * S, (3, B, S)).astype(
+            np.int32)
+    if cfg.modality == "audio_stub":
+        batch = {"features": rng.standard_normal((B, S, 512)).astype(
+            np.float32)}
+    return batch
+
+
+def _jax_params(cfg_j, seed: int = 0):
+    return jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(seed),
+                                                    cfg_j))
+
+
+def _jax_train_ref(cfg_j, params, batch) -> dict:
+    """The reference's loss (CE + router_aux_coef · aux), its aux and
+    ``jax.grad`` of the loss, on one device."""
+    def loss_fn(p):
+        logits, aux = jax_forward_train(p, batch, cfg_j, dtype=jnp.float32)
+        loss, _ = jax_cross_entropy(logits, batch["labels"], None)
+        return loss + cfg_j.router_aux_coef * aux, aux
+    (total, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        jax.tree.map(jnp.asarray, params))
+    return dict(total=float(total), aux=float(aux),
+                grads=jax.tree.map(np.asarray, grads))
+
+
+def _jax_serve_ref(cfg_j, params, tokens, max_len: int, steps: int) -> dict:
+    """Prefill and ``steps`` greedy decode steps of the reference, the
+    logits of each and the tokens, on one device."""
+    p = jax.tree.map(jnp.asarray, params)
+    cache = jax_init_cache(cfg_j, tokens.shape[0], max_len, jnp.float32)
+    last, cache = jax.jit(lambda p, b, c: jax_prefill(
+        p, b, c, cfg_j, dtype=jnp.float32))(
+            p, {"tokens": jnp.asarray(tokens)}, cache)
+    decode = jax.jit(lambda p, t, c: jax_decode_step(p, t, c, cfg_j,
+                                                     dtype=jnp.float32))
+    logits, toks = [np.asarray(last)], []
+    tok = jnp.argmax(last, -1).astype(jnp.int32)[:, None]
+    for _ in range(steps):
+        lg, cache = decode(p, tok, cache)
+        tok = jnp.argmax(lg, -1).astype(jnp.int32)[:, None]
+        logits.append(np.asarray(lg))
+        toks.append(np.asarray(tok))
+    return dict(logits=np.stack(logits), tokens=np.concatenate(toks, 1))
+
+
+@lru_cache(maxsize=None)
+def _case(kind: str, arch: str, changes: tuple = ()) -> tuple:
+    """(the ranks' job, the reference's result) of a train or serve job of
+    ``arch``'s smoke config with ``changes`` ((field, value) pairs)."""
+    cfgs = _smoke(arch, **dict(changes))
+    if kind == "train":
+        params = _jax_params(cfgs["jax"])
+        batch = _block_batch(cfgs["torch"])
+        return dict(kind="train", cfg=cfgs["torch"], params=params,
+                    batch=batch, mode="dp"), _jax_train_ref(cfgs["jax"],
+                                                            params, batch)
+    params, max_len, steps = _jax_params(cfgs["jax"], seed=1), 32, 4
+    tokens = _block_batch(cfgs["torch"], seed=2, S=16)["tokens"]
+    return dict(kind="serve", cfg=cfgs["torch"], params=params,
+                batch={"tokens": tokens}, max_len=max_len, steps=steps), \
+        _jax_serve_ref(cfgs["jax"], params, tokens, max_len, steps)
+
+
+def _assert_train_close(got: dict, ref: dict, names: tuple = ()):
+    """The loss 1e-4, the aux loss too, each gradient leaf 2e-4 relative
+    L2 of ``jax.grad``'s (the leaves named in ``names`` first, by path)
+    and the step's grad_norm 2e-4 of the norm of those gradients."""
+    assert abs(got["total"] - ref["total"]) < 1e-4, (got["total"],
+                                                      ref["total"])
+    assert abs(got["step_total"] - ref["total"]) < 1e-4
+    assert abs(got["aux"] - ref["aux"]) < 1e-4, (got["aux"], ref["aux"])
+    pairs = jax.tree_util.tree_flatten_with_path(ref["grads"])[0]
+    leaves = tree_leaves(got["grads"])
+    assert len(leaves) == len(pairs)
+    by_path = {jax.tree_util.keystr(path): (g, want)
+               for (path, want), g in zip(pairs, leaves)}
+    for name in names:
+        hits = [k for k in by_path if name in k]
+        assert hits, name
+        for k in hits:
+            g, want = by_path[k]
+            assert _rel_l2(g, want) < GRAD_REL, (k, _rel_l2(g, want))
+    for k, (g, want) in by_path.items():
+        assert g.shape == want.shape, k
+        assert _rel_l2(g, want) < GRAD_REL, (k, _rel_l2(g, want))
+    norm = np.sqrt(sum(float(np.square(np.asarray(w, np.float64)).sum())
+                       for _, w in by_path.values()))
+    assert abs(got["grad_norm"] - norm) < GRAD_REL * norm, (got["grad_norm"],
+                                                            norm)
+
+
+def _assert_serve_close(got: dict, ref: dict):
+    """Serving within 2e-4 of the largest logit, the same tokens: this
+    rank's rows of the reference's (the batch split over data)."""
+    i, n = got["rows"]
+    b = len(ref["tokens"]) // n
+    rows = slice(i * b, (i + 1) * b)
+    want = ref["logits"][:, rows]
+    scale = float(np.abs(want).max())
+    assert np.abs(got["logits"] - want).max() / scale < 2e-4
+    np.testing.assert_array_equal(got["tokens"], ref["tokens"][rows])
+
+
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e")
+MOE_GRADS = ("'router'", "'norm2'", "'shared'")
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
+def test_moe_train_step_matches_jax(tmp_path, mesh):
+    """The moonshot and llama4-scout smoke configs' loss-and-gradient and
+    train step (fp32, ZeRO-1) over data ranks and with their experts split
+    over ``model`` (8 / 4 experts, 4 / 2 a rank on model 2), against the
+    reference on one device: the loss and the aux loss (global-batch
+    means: the batch's rows split over data), every gradient leaf (the
+    router's, norm2's and the shared expert's named: the aux loss's
+    gradient counted once over data and model) and grad_norm.  On (2, 2)
+    moonshot also under ``dp_sp``, and served (prefill and 4 greedy decode
+    steps, the batch over data, the experts over model)."""
+    jobs, refs = {}, {}
+    for arch in MOE_ARCHS:
+        jobs[arch], refs[arch] = _case("train", arch)
+    if mesh == (2, 2):
+        jobs["dp_sp"] = dict(jobs[MOE_ARCHS[0]], mode="dp_sp")
+        refs["dp_sp"] = refs[MOE_ARCHS[0]]
+        jobs["serve"], serve_ref = _case("serve", MOE_ARCHS[0])
+    out = run_ranks(BLOCKS_BODY, int(np.prod(mesh)),
+                    dict(mesh=mesh, jobs=jobs), tmp_path)
+    for rank in out:
+        for name, ref in refs.items():
+            _assert_train_close(rank[name], ref, MOE_GRADS)
+        if mesh == (2, 2):
+            _assert_serve_close(rank["serve"], serve_ref)
+    for arch in MOE_ARCHS:
+        E = get_smoke_config(arch).num_experts
+        assert out[0][arch]["local"]["w_gate"][1] == E // mesh[1]
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+def test_rglru_width_split_matches_jax(tmp_path, mesh):
+    """recurrentgemma-9b's smoke config with its RG-LRU width (64, 4
+    heads) split over ``model``: the train step's loss and gradients, and
+    prefill + 4 greedy decode steps (the conv and h states written back
+    whole on every rank), against the reference on one device."""
+    train, train_ref = _case("train", "recurrentgemma-9b")
+    serve, serve_ref = _case("serve", "recurrentgemma-9b")
+    out = run_ranks(BLOCKS_BODY, int(np.prod(mesh)), dict(
+        mesh=mesh, jobs={"train": train, "serve": serve}), tmp_path)
+    for rank in out:
+        _assert_train_close(rank["train"], train_ref, ("'in_x'", "'conv_w'",
+                                                       "'a_param'"))
+        _assert_serve_close(rank["serve"], serve_ref)
+        assert rank["train"]["local"]["in_x"][-1] == 64 // mesh[1]
+        # the state whole on every rank: ranks agree on it
+        for a, b in zip(tree_leaves(rank["serve"]["cache"]),
+                        tree_leaves(out[0]["serve"]["cache"])):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_audio_frontend_split_encode_matches_jax(tmp_path):
+    """hubert-xlarge's smoke config through ``make_encode_step`` on (1, 2):
+    ``frontend_proj`` column-parallel and gathered, bidirectional
+    attention tensor-parallel; the logits within 2e-4 of the largest of the
+    reference's forward."""
+    cfgs = _smoke("hubert-xlarge")
+    params = _jax_params(cfgs["jax"])
+    batch = _block_batch(cfgs["torch"])
+    want, _ = jax_forward_train(jax.tree.map(jnp.asarray, params),
+                                {"features": jnp.asarray(batch["features"])},
+                                cfgs["jax"], dtype=jnp.float32)
+    want = np.asarray(want)
+    job = dict(kind="encode", cfg=cfgs["torch"], params=params, batch=batch)
+    out = run_ranks(BLOCKS_BODY, 2, dict(mesh=(1, 2), jobs={"enc": job}),
+                    tmp_path)
+    for rank in out:
+        assert rank["enc"]["local"] == (512, cfgs["torch"].d_model // 2)
+        assert np.abs(rank["enc"]["logits"] - want).max() / \
+            np.abs(want).max() < 2e-4
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+def test_vision_scatter_on_model_split_matches_jax(tmp_path, mesh):
+    """qwen2-vl-2b's smoke config with patch embeddings and 3-D positions
+    on (1, 2) and (2, 2) under ``dp`` and ``dp_sp``: every row's image
+    positions span both sequence shards (row 1 has fewer Trues than
+    patches), so under ``dp_sp`` each rank writes the patches whose
+    whole-row targets fall in its half; on (2, 2) each data rank holds its
+    rows of ``positions3`` (3, B, S) too.  The train step's loss and
+    gradients (the embedding's named) against the reference on one
+    device."""
+    job, ref = _case("train", "qwen2-vl-2b")
+    out = run_ranks(BLOCKS_BODY, int(np.prod(mesh)), dict(mesh=mesh, jobs={
+        "dp": job, "dp_sp": dict(job, mode="dp_sp")}), tmp_path)
+    for rank in out:
+        for mode in ("dp", "dp_sp"):
+            _assert_train_close(rank[mode], ref, ("'embed'",))
+
+
+def test_replicated_widths_match_jax(tmp_path):
+    """Widths that do not divide over ``model`` 2, which the rules
+    replicate: moonshot's smoke config with 3 experts, a 63-wide shared
+    expert and attention of H·dh = 45 (3 heads of 15, no rotary embedding
+    at an odd head dim) runs them whole on every rank (the train step, and
+    serving with every KV head in a cache split along the sequence);
+    recurrentgemma-9b's with 3 RG-LRU heads of 16 splits its width of 48
+    but not its gates, which it computes on the gathered width.  Against
+    the reference on one device."""
+    moe = (("num_experts", 3), ("shared_expert_dff", 63), ("num_heads", 3),
+           ("num_kv_heads", 3), ("head_dim", 15), ("pos_type", "none"))
+    lru = (("d_model", 48), ("num_heads", 3), ("lru_width", 48))
+    jobs, refs = {}, {}
+    jobs["moe"], refs["moe"] = _case("train", "moonshot-v1-16b-a3b", moe)
+    jobs["moe_serve"], refs["moe_serve"] = _case(
+        "serve", "moonshot-v1-16b-a3b", moe)
+    jobs["lru"], refs["lru"] = _case("train", "recurrentgemma-9b", lru)
+    out = run_ranks(BLOCKS_BODY, 2, dict(mesh=(1, 2), jobs=jobs), tmp_path)
+    for rank in out:
+        _assert_train_close(rank["moe"], refs["moe"], MOE_GRADS)
+        _assert_serve_close(rank["moe_serve"], refs["moe_serve"])
+        _assert_train_close(rank["lru"], refs["lru"], ("'a_gate_w'",))
+        assert rank["moe"]["local"]["w_gate"][1] == 3
+        assert rank["moe"]["local"]["wq"][-1] == 45
+        assert rank["lru"]["local"]["in_x"][-1] == 24
+        assert rank["lru"]["local"]["a_gate_w"][1] == 3
+
+
 CKPT_BODY = '''
 from repro_torch.checkpoint import TransactionalCheckpointManager
 from repro_torch.core import CannyFS, LocalBackend
@@ -747,20 +1046,24 @@ emit(dict(n1=n1, same1=same(got1["params"], local["params"])
           and same(got1["opt"], local["opt"]),
           n2=n2, same2=same(got2, local), ok=res.ok,
           commits=Counting.commits, writer=mgr.writer,
+          experts_local=local["params"]["blocks"][0].get("moe", {}).get(
+              "w_gate", torch.empty(0, 0)).shape[1],
           m_local=[tuple(t.shape) for t in tree_leaves(local["opt"]["m"])]))
 fs.close()
 '''
 
 
-@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1), (2, 2)])
 def test_checkpoint_reshards_across_meshes(tmp_path, mesh):
-    """A checkpoint saved on one rank restores on two; one saved on two
-    ranks (parameters split over ``model``, or moments over ``data`` by
-    ZeRO-1) restores on two and on one, the same tensors.  Only rank 0
-    writes, and COMMIT is created once."""
-    params = jax.tree.map(np.asarray, jax_init_params(
-        jax.random.PRNGKey(0), _narrow_qwen2()["jax"]))
-    cfg = _narrow_qwen2()["torch"]
+    """A checkpoint saved on one rank restores on the mesh's ranks; one
+    saved on them (parameters split over ``model``, moments over ``data``
+    by ZeRO-1; on (2, 2) moonshot's smoke config, its 8 experts 4 a
+    ``model`` rank) restores on them and on one rank, the same tensors.
+    Only rank 0 writes, and COMMIT is created once."""
+    cfgs = _smoke("moonshot-v1-16b-a3b") if mesh == (2, 2) else \
+        _narrow_qwen2()
+    params = _jax_params(cfgs["jax"])
+    cfg = cfgs["torch"]
     full = params_from_numpy(params, device="cpu")
     state = {"params": full, "opt": init_opt_state(full),
              "step": torch.tensor(1, dtype=torch.int32)}
@@ -771,16 +1074,19 @@ def test_checkpoint_reshards_across_meshes(tmp_path, mesh):
     assert mgr.save(1, state, block=True).ok
     fs.close()
 
-    out = run_ranks(CKPT_BODY, 2, dict(cfg=cfg, mesh=mesh, params=params,
+    n = int(np.prod(mesh))
+    out = run_ranks(CKPT_BODY, n, dict(cfg=cfg, mesh=mesh, params=params,
                                        dir=str(root)), tmp_path)
-    assert [r["writer"] for r in out] == [True, False]
+    assert [r["writer"] for r in out] == [True] + [False] * (n - 1)
     assert sum(r["commits"] for r in out) == 1
     for r in out:
         assert (r["n1"], r["n2"]) == (1, 2)
         assert r["same1"] and r["same2"] and r["ok"]
-    if mesh == (2, 1):      # ZeRO-1 split the moments over data
+    if mesh[0] > 1:         # ZeRO-1 split the moments over data
         assert out[0]["m_local"] != [tuple(t.shape) for t in
                                      tree_leaves(state["opt"]["m"])]
+    if mesh == (2, 2):      # the experts split over model
+        assert out[0]["experts_local"] == cfg.num_experts // 2
 
     fs = CannyFS(LocalBackend(str(root)), max_inflight=64, workers=4)
     pspec = param_specs(cfg)
