@@ -269,6 +269,19 @@ Phases, each printed as one JSON line:
    block (the same tokens, logits within 2e-2 (1 + |x|)); each part's mesh
    launches, counted from 0 in its own window, equal its plain run's, and
    join ``mesh``'s in the kernels line.
+18. (after the train and encode phases) ``dryrun``: ``launch/dryrun.py``
+   in processes of its own, no kernel launched: qwen2-7b x train_4k x
+   16x16 through the CLI (a 256-rank fake group, fake CUDA tensors, the
+   kernels' shape-only twins), then the cells of 15 and 16 at world size
+   1, each record's peak, step time and FLOPs beside what that phase
+   measured; ``model_flops`` must equal ``train_bounds``' and each twin's
+   launches the launches a step that phase counted; the SSD twins'
+   workspace sizes must equal the library's.
+
+The shapes the train and encode phases cut from (train_4k's 4096,
+prefill_32k's 32768) are ``launch/specs.py``'s ``SHAPES``, and every
+kernel's bound comes from its cost function in the package
+(``launch/roofline.py``'s constants and ``bound_ms``).
 
 Every train phase before 12 runs ``remat_policy="none"``, as it did before
 the port had remat, so its counts, step times and peaks stay comparable;
@@ -323,6 +336,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -335,10 +349,32 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
-                  torch.float32: 67e12,     # fp32 outside the tensor cores
-                  "tf32": 494.7e12}         # dense tensor-core TF32
+sys.path.insert(0, str(ROOT / "src"))
+# the card's constants and every kernel's bytes and operations come from
+# the package (launch/roofline.py, each kernels/<name>/kernel.py)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_bwd_cost, flash_attention_cost)
+from repro_torch.kernels.rglru.kernel import (  # noqa: E402
+    rglru_bwd_cost, rglru_cost)
+from repro_torch.kernels.rmsnorm.kernel import (  # noqa: E402
+    rmsnorm_bwd_cost, rmsnorm_cost)
+from repro_torch.kernels.ssd.kernel import (  # noqa: E402
+    ssd_bwd_cost, ssd_bwd_macs, ssd_bwd_split_macs, ssd_cost, ssd_macs,
+    ssd_split_macs)
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    bound_ms as bound, cost_bound_ms)
+from repro_torch.launch.specs import SHAPES  # noqa: E402
+
+# the reference's cells the train and encode phases cut from: train_4k's
+# sequence (its global batch of 256 cut to 1) and prefill_32k's
+TRAIN_4K = SHAPES["train_4k"].seq_len
+PREFILL_32K = SHAPES["prefill_32k"].seq_len
+
+HBM_BYTES_PER_S = roofline.HBM_BW
+PEAK_OPS_PER_S = {torch.bfloat16: roofline.PEAK_OPS_PER_S["bf16"],
+                  torch.float32: roofline.PEAK_OPS_PER_S["fp32"],
+                  "tf32": roofline.PEAK_OPS_PER_S["tf32"]}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RGLRU_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
@@ -513,60 +549,6 @@ def ptxas_functions(log: str) -> dict:
                 spills=lines[i + 1].strip(),
                 registers=lines[i + 2].split("info    : ")[-1])
     return out
-
-
-def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def ssd_macs(B, S, H, P, G, N, Q) -> int:
-    """Multiply-adds one SSD scan needs, all fp32: per (b, g, chunk) C·Bᵀ on
-    and below the diagonal; per (b, h, chunk) scores @ x on and below it and
-    Bᵀ @ x in full, and C @ state in every chunk but the first (its incoming
-    state is zero)."""
-    tri, n_chunks = Q * (Q + 1) // 2, -(-S // Q)
-    return B * (n_chunks * (G * tri * N + H * (tri * P + Q * N * P))
-                + (n_chunks - 1) * H * Q * N * P)
-
-
-def ssd_split_macs(B, S, H, P, G, N, Q) -> int:
-    """Multiply-adds the SSD scan's mma body needs on the bf16 tensor cores:
-    those of ``ssd_macs``, with every product that has an fp32 operand
-    (scores @ x, Bᵀ @ (w∘x), C @ state: all but C·Bᵀ) taken twice, once for
-    the operand's bf16 hi and once for its lo."""
-    cb = B * -(-S // Q) * G * (Q * (Q + 1) // 2) * N
-    return cb + 2 * (ssd_macs(B, S, H, P, G, N, Q) - cb)
-
-
-def ssd_bwd_macs(B, S, H, P, G, N, Q) -> int:
-    """Multiply-adds the SSD backward needs, all fp32: per (b, g, chunk)
-    C·Bᵀ on and below the diagonal (recomputed); per (b, h, chunk) dy·xᵀ,
-    the scores' transpose times dy, d(C·Bᵀ) times B and times C, on and
-    below it, and in full the chunk's local state, its E = Σ exp(cum) dy Cᵀ,
-    B·dSᵀ and x·dS; in every chunk but the first also W = dy·state_in, the
-    inter-chunk term of dC (the state entering the first is zero; d cum's
-    inter-chunk term dy·(C·state_inᵀ) is C·W, Q·N more, not counted)."""
-    tri, n_chunks, qnp = Q * (Q + 1) // 2, -(-S // Q), Q * N * P
-    return B * (n_chunks * (G * tri * N + H * (2 * tri * P + 2 * tri * N
-                                               + 4 * qnp))
-                + (n_chunks - 1) * H * qnp)
-
-
-def ssd_bwd_split_macs(B, S, H, P, G, N, Q) -> int:
-    """Multiply-adds the SSD backward's mma body needs on the TF32 tensor
-    cores: those of ``ssd_bwd_macs`` (all its products have an fp32
-    operand), each formed from three TF32 products (hi·hi, hi·lo, lo·hi)."""
-    return 3 * ssd_bwd_macs(B, S, H, P, G, N, Q)
-
-
-def flash_bwd_split_macs(B: int, H: int, pairs: int, dh: int) -> int:
-    """Multiply-adds the flash-attention backward's fp32 body needs on the
-    TF32 tensor cores: the five products of ``pairs`` (query, key) pairs x
-    dh a head (S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q),
-    each formed from three TF32 products (hi·hi, hi·lo, lo·hi)."""
-    return 3 * 5 * B * H * pairs * dh
 
 
 def prefill_bound_ms(cfg, batch: int, prompt: int) -> float:
@@ -775,8 +757,7 @@ def phase_kernels(dev, gen, seed):
                     (4 * 512, 1536), (4 * 512, 4096)):
         x, s = randn(rows, D, dtype=torch.bfloat16), \
             randn(D, dtype=torch.bfloat16)
-        t_bound, by = bound(2 * x.nbytes + s.nbytes, 4 * x.numel(),
-                            torch.float32)
+        t_bound, by = cost_bound_ms(rmsnorm_cost(rows, D, x.dtype, s.dtype))
         kernel = lambda: rmsnorm_cuda(x, s, eps=eps)  # noqa: E731
         library = lambda: F.rms_norm(x, (D,), s, eps)  # noqa: E731
         y = torch.empty_like(x)
@@ -898,8 +879,8 @@ def phase_kernels(dev, gen, seed):
             randn(B, S, K, dh, dtype=torch.bfloat16)
         pos = torch.arange(S, device=dev)
         pairs = int(attention_mask(pos, pos, **kw).sum())
-        t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
-                            4 * B * H * dh * pairs, torch.bfloat16)
+        t_bound, by = cost_bound_ms(flash_attention_cost(
+            B, S, H, K, dh, q.dtype, pairs))
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         kernel = lambda: flash_attention_cuda(q, k, v, **kw)  # noqa: E731
         # SDPA with is_causal: the window of 2048 covers all 512 keys
@@ -966,8 +947,7 @@ def phase_kernels(dev, gen, seed):
             randn(B, W, dtype=torch.float32)
         # bytes: la, gx and h0 read once, y and h_last written once; about 9
         # operations an element (2 exp, sqrt, max, sub, 3 mul, add)
-        t_bound, by = bound(la.nbytes + 2 * gx.nbytes + 2 * h0.nbytes,
-                            9 * gx.numel(), torch.float32)
+        t_bound, by = cost_bound_ms(rglru_cost(B, S, W, gx.dtype, h0=True))
         y, h_last = torch.empty_like(gx), torch.empty_like(h0)
         stream = torch.cuda.current_stream().cuda_stream
 
@@ -1100,10 +1080,7 @@ def phase_kernels(dev, gen, seed):
     # once; operations: the mma body's products on the bf16 tensor cores,
     # the split operands' twice.  The fp32 multiply-adds the function needs
     # on the FMA units (the fma body's way) are a bound of that body only.
-    n_bytes = (2 * x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes + 2 * 4 * H
-               + B * H * P * N * 4)
-    t_bound, by = bound(n_bytes, 2 * ssd_split_macs(B, S, H, P, G, N, Q),
-                        torch.bfloat16)
+    t_bound, by = cost_bound_ms(ssd_cost(B, S, H, P, G, N, Q, x.dtype))
     kernel = lambda: ssd_cuda(*args, chunk=Q)  # noqa: E731
     mark = len(PROFILER_WINDOWS)
     fma = lambda: ssd._entry("ssd_fwd")(  # noqa: E731
@@ -1182,10 +1159,9 @@ def ssd_fp32_kernels(dev, args, Q, cases, summary):
     del states, cum, states_in, want
     macs = ssd_macs(B, S, H, P, G, N, Q)
     # bytes: x, dt, Bm, Cm (A, D) read once, y and the fp32 state written once
-    n_bytes = 2 * x.nbytes + dt.nbytes + Bm.nbytes + Cm.nbytes + 2 * 4 * H \
-        + B * H * P * N * 4
-    t_bound, by = bound(n_bytes, 2 * 3 * macs, "tf32")
-    fma_bound, fma_by = bound(n_bytes, 2 * macs, f32)
+    cost = ssd_cost(B, S, H, P, G, N, Q, f32)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound, fma_by = bound(cost.bytes, cost.flops, f32)
     kernel = lambda: ssd.ssd_cuda(*args, chunk=Q)  # noqa: E731
     previous = lambda: ssd.ssd_cuda(*args, chunk=Q,  # noqa: E731
                                     body="fma")
@@ -1266,9 +1242,9 @@ def flash_fp32_kernels(dev, gen, cases, summary):
     q, k, v = randn(B, S, H, dh), randn(B, S, K, dh), randn(B, S, K, dh)
     pos = torch.arange(S, device=dev)
     pairs = int(attention_mask(pos, pos, causal=True).sum())
-    n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes + B * H * S * 4
-    t_bound, by = bound(n_bytes, 2 * 3 * 2 * B * H * pairs * dh, "tf32")
-    fma_bound, fma_by = bound(n_bytes, 2 * 2 * B * H * pairs * dh, f32)
+    cost = flash_attention_cost(B, S, H, K, dh, f32, pairs, lse=True)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound, fma_by = bound(cost.bytes, cost.flops, f32)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     kernel = lambda: flash.flash_attention_cuda(  # noqa: E731
         q, k, v, return_lse=True)
@@ -1407,7 +1383,7 @@ def backward_kernels(dev, gen, cases, summary):
     mark = len(PROFILER_WINDOWS)
     # bytes: x, dy and scale read once, dx and dscale written once; about
     # 10 operations an element
-    t_bound, by = bound(3 * x.nbytes + 2 * s.nbytes, 10 * x.numel(), f32)
+    t_bound, by = cost_bound_ms(rmsnorm_bwd_cost(rows, D, x.dtype, s.dtype))
     summary["rmsnorm_bwd"] = dict(
         name="rmsnorm_bwd", route="cuda",
         source="src/repro_torch/csrc/rmsnorm.cu",
@@ -1443,7 +1419,8 @@ def backward_kernels(dev, gen, cases, summary):
             x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             ds.data_ptr(), partial.data_ptr(), rows, D, 1e-6, 0, 0,
             rms.BWD_MAX_BLOCKS, torch.cuda.current_stream().cuda_stream)
-        t_bound, by = bound(3 * x.nbytes + 2 * s.nbytes, 10 * x.numel(), f32)
+        t_bound, by = cost_bound_ms(rmsnorm_bwd_cost(rows, D, x.dtype,
+                                                     s.dtype))
         body = rms.select_bwd_body(x, s, dy)
         check(body[0] == "cta_rows", f"rmsnorm_bwd ({rows}, {D}): {body}")
         summary["rmsnorm_bwd"][name] = dict(
@@ -1551,10 +1528,9 @@ def backward_kernels(dev, gen, cases, summary):
     # bytes: q, k, v, o, dO and lse read, dq, dk and dv written.  The same
     # five products once each at the fp32 FMA rate: fma_bound_ms, the bound
     # of PR 16's body
-    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
-                        + lse.nbytes, 2 * flash_bwd_split_macs(B, H, pairs, dh),
-                        "tf32")
-    fma_bound = 5 * 2 * B * H * pairs * dh / PEAK_OPS_PER_S[f32] * 1e3
+    cost = flash_attention_bwd_cost(B, S, H, K, dh, f32, pairs)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound = cost.flops / PEAK_OPS_PER_S[f32] * 1e3
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_out = mha_ref(*leaves)
     lib_out = F.scaled_dot_product_attention(
@@ -1714,8 +1690,8 @@ def sm90_lse_kernels(dev, gen, cases, summary):
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
-        t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes,
-                            4 * B * H * dh * pairs, bf16)
+        t_bound, by = cost_bound_ms(flash_attention_cost(
+            B, S, H, K, dh, q.dtype, pairs, lse=True))
         timings[label] = dict(
             shape=f"q ({B},{S},{H},{dh}) k/v ({B},{S},{K},{dh}) bf16 causal, "
                   "with lse", body=flash.select_body(q, k, v),
@@ -1748,7 +1724,7 @@ def sm90_lse_kernels(dev, gen, cases, summary):
 # at std 4 a few keys carry each row, |O| is O(1) (mean 0.24), and a kernel
 # that drops one 64-key tile of 512 or is 10% off fails (a CPU model of the
 # body read 0.25 of the limit there)
-HUBERT_ATTN = (1, 32768, 16, 16, 80)
+HUBERT_ATTN = (1, PREFILL_32K, 16, 16, 80)
 HUBERT_ROWS = 256
 HUBERT_Q_SCALE = 4.0
 # the sm90 body at dh 80 and 120 (tiles of 128 columns, the columns past dh
@@ -1894,8 +1870,8 @@ def modality_kernels(dev, gen, cases, summary):
         qt, kt, vt, is_causal=False)
     mma = lambda: flash.flash_attention_cuda(  # noqa: E731
         q, k, v, causal=False, body="mma")
-    t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
-                        4 * B * H * dh * S * S, bf16)
+    t_bound, by = cost_bound_ms(flash_attention_cost(
+        B, S, H, k.shape[2], dh, q.dtype, S * S))
     mark = len(PROFILER_WINDOWS)
     summary["flash_attention_bidir"] = dict(
         name="flash_attention_bidir", route="cuda",
@@ -1929,8 +1905,8 @@ def modality_kernels(dev, gen, cases, summary):
         q, k, v = (randn(B, S, n, dh, dtype=bf16) for n in (H, K, K))
         pos = torch.arange(S, device=dev)
         pairs = int(attention_mask(pos, pos, **kw).sum())
-        t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes,
-                            4 * B * H * dh * pairs, bf16)
+        t_bound, by = cost_bound_ms(flash_attention_cost(
+            B, S, H, K, dh, q.dtype, pairs))
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         kernel = lambda: flash.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
         mma = lambda: flash.flash_attention_cuda(  # noqa: E731
@@ -1966,8 +1942,8 @@ def modality_kernels(dev, gen, cases, summary):
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True)
-    t_bound, by = bound(2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes,
-                        4 * B * H * dh * pairs, bf16)
+    t_bound, by = cost_bound_ms(flash_attention_cost(
+        B, S, H, K, dh, q.dtype, pairs, lse=True))
     err, ok = compare(out, mha_ref(q, k, v), bf16)
     lse_err, lse_ok = compare(lse, lse_ref(q, k), bf16, LSE_TOL)
     mark = len(PROFILER_WINDOWS)
@@ -2028,9 +2004,8 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
     sms = multiprocessors(dev)
 
     # ---- backward
-    t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes) + 2 * q.nbytes
-                        + lse.nbytes, 2 * flash_bwd_split_macs(B, H, pairs, dh),
-                        "tf32")
+    bwd_cost = flash_attention_bwd_cost(B, S, H, K, dh, f32, pairs)
+    t_bound, by = cost_bound_ms(bwd_cost)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_out = mha_ref(*leaves, **kw)
     lib_out = F.scaled_dot_product_attention(
@@ -2059,7 +2034,7 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
         library_event_ms=time_ms(_grad_ms(lib_out, leaves,
                                           do.transpose(1, 2))),
         bound_ms=t_bound, bound_by=by,
-        fma_bound_ms=5 * 2 * B * H * pairs * dh / PEAK_OPS_PER_S[f32] * 1e3,
+        fma_bound_ms=bwd_cost.flops / PEAK_OPS_PER_S[f32] * 1e3,
         pairs=pairs, max_abs_err=max(compare(g, w, f32)[0]
                                      for g, w in zip(kernel(), want)))
     check(all(compare(g, w, f32)[1] for g, w in zip(kernel(), want)),
@@ -2069,9 +2044,9 @@ def flash_wide_timings(dev, gen, B, S, H, K, dh, kw, label):
     bwd["profiler_windows"] = window_counts(mark)
 
     # ---- forward, with the log-sum-exp (the train path's call)
-    n_bytes = 2 * q.nbytes + k.nbytes + v.nbytes + lse.nbytes
-    t_bound, by = bound(n_bytes, 2 * 3 * 2 * B * H * pairs * dh, "tf32")
-    fma_bound, fma_by = bound(n_bytes, 2 * 2 * B * H * pairs * dh, f32)
+    cost = flash_attention_cost(B, S, H, K, dh, f32, pairs, lse=True)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound, fma_by = bound(cost.bytes, cost.flops, f32)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     forward = lambda: flash.flash_attention_cuda(  # noqa: E731
         q, k, v, return_lse=True, **kw)
@@ -2179,9 +2154,10 @@ SM90_BWD_SHAPES = {
         "mma_bf16 (BwdCfg's 4-warp kernels: mma.sync, 32-row streamed "
         "tiles)"), {"stablelm-3b": (*STABLELM_TRAIN_ATTN, dict(causal=True))}),
     "flash_attention_bwd_bf16_wide": ((160, 256), PAIR_KERNELS, {
-        "rgemma_train_4k": (1, 4096, 16, 1, 256, dict(causal=True,
-                                                      window=2048)),
-        "stablelm12b_train_4k": (1, 4096, 32, 8, 160, dict(causal=True)),
+        "rgemma_train_4k": (1, TRAIN_4K, 16, 1, 256, dict(causal=True,
+                                                          window=2048)),
+        "stablelm12b_train_4k": (1, TRAIN_4K, 32, 8, 160,
+                                 dict(causal=True)),
         "rgemma": (4, 512, 16, 1, 256, dict(causal=True, window=2048)),
         "stablelm": (4, 512, 32, 8, 160, dict(causal=True))}),
 }
@@ -2189,12 +2165,6 @@ SM90_BWD_SHAPES = {
 # 128 are held ragged in SM90_LSE_CASES)
 SM90_WIDE_BWD_CHECKS = [(1, 1100, 16, 1, 256, dict(causal=True, window=700)),
                         (1, 1100, 32, 8, 160, dict(causal=True, window=300))]
-
-
-def flash_bwd_bf16_ops(B: int, H: int, pairs: int, dh: int) -> int:
-    """Operations of the bf16 flash backward: ``flash_bwd_split_macs``'
-    five products once each (not three TF32 products), 2 a multiply-add."""
-    return 2 * flash_bwd_split_macs(B, H, pairs, dh) // 3
 
 
 def sm90_bwd_kernels(dev, gen, summary):
@@ -2297,15 +2267,14 @@ def sm90_bwd_kernels(dev, gen, summary):
                         causal_out, leaves, do.transpose(1, 2))),
                     library_causal_pairs=S * (S + 1) // 2)
                 del causal_out
-            t_bound, by = bound(2 * (q.nbytes + k.nbytes + v.nbytes)
-                                + 2 * q.nbytes + lse.nbytes,
-                                flash_bwd_bf16_ops(B, H, pairs, dh), bf16)
+            t_bound, by = cost_bound_ms(flash_attention_bwd_cost(
+                B, S, H, K, dh, q.dtype, pairs))
             mark = len(PROFILER_WINDOWS)
             # the train path's forward at this shape (with its log-sum-exp),
             # beside SDPA's bf16 forward and its bound
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            f_bound, f_by = bound(2 * q.nbytes + k.nbytes + v.nbytes
-                                  + lse.nbytes, 4 * B * H * dh * pairs, bf16)
+            f_bound, f_by = cost_bound_ms(flash_attention_cost(
+                B, S, H, K, dh, q.dtype, pairs, lse=True))
             fwd = lambda **force: flash.flash_attention_cuda(  # noqa: E731
                 q, k, v, return_lse=True, **kw, **force)
             library_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2482,12 +2451,9 @@ def scan_backward_kernels(dev, gen, cases, summary):
     # written once; operations: the mma body's, ssd_bwd_split_macs on the
     # TF32 tensor cores; fma_bound_ms, ssd_bwd_macs on the fp32 FMA units,
     # bounds the fma body (the previous body)
-    n_bytes = 3 * x.nbytes + 2 * dt.nbytes + 2 * Bm.nbytes + 2 * Cm.nbytes \
-        + 4 * 4 * H
-    t_bound, by = bound(n_bytes, 2 * ssd_bwd_split_macs(B, S, H, P, G, N, Q),
-                        "tf32")
-    fma_bound, fma_by = bound(n_bytes, 2 * ssd_bwd_macs(B, S, H, P, G, N, Q),
-                              f32)
+    cost = ssd_bwd_cost(B, S, H, P, G, N, Q, x.dtype)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound, fma_by = bound(cost.bytes, cost.flops, f32)
     body = select_bwd_body(*args, dy, Q)
     check(body == "mma", f"ssd_bwd at the mamba2-130m step: body {body}")
     kernel = lambda: ssd_bwd_cuda(*args, dy, chunk=Q)  # noqa: E731
@@ -2561,7 +2527,7 @@ def scan_backward_kernels(dev, gen, cases, summary):
     gx, dy = randn(B, S, W), randn(B, S, W)
     # bytes: log_a, gx, dy read once, d log_a and d gx written once; about
     # 30 operations an element (recompute and reverse step)
-    t_bound, by = bound(5 * la.nbytes, 30 * la.numel(), f32)
+    t_bound, by = cost_bound_ms(rglru_bwd_cost(B, S, W, la.dtype))
     kernel = lambda: rglru_bwd_cuda(la, gx, dy)  # noqa: E731
     serial = lambda: rglru_bwd_cuda(la, gx, dy, body="serial")  # noqa: E731
     mark = len(PROFILER_WINDOWS)
@@ -3918,7 +3884,7 @@ def phase_train_stablelm3b_bf16(dev, seed, steps: int = 10, batch: int = 4,
 
 
 def phase_train_rgemma_bf16(dev, seed, steps: int = 5, batch: int = 1,
-                            seq: int = 4096, lr: float = 3e-4):
+                            seq: int = TRAIN_4K, lr: float = 3e-4):
     """recurrentgemma-9b at full width (d_model 4096, 16 heads of 256, MQA,
     window 2048, RG-LRU width 4096, GeGLU 12288, tied vocabulary 256000)
     cut to 3 layers, its first superblock (rglru, rglru, attn_local), under
@@ -3937,7 +3903,7 @@ def phase_train_rgemma_bf16(dev, seed, steps: int = 5, batch: int = 1,
 
 
 def phase_train_stablelm12b_bf16(dev, seed, steps: int = 5, batch: int = 1,
-                                 seq: int = 4096, lr: float = 3e-4):
+                                 seq: int = TRAIN_4K, lr: float = 3e-4):
     """stablelm-12b at full width (d_model 5120, GQA 32 / 8 at head dim
     160, SwiGLU 13824, untied vocabulary 100352) cut to 2 layers, under
     ``TrainConfig()`` (bf16, ``dots_no_batch``), batch 1 x 4096, through
@@ -3951,6 +3917,11 @@ def phase_train_stablelm12b_bf16(dev, seed, steps: int = 5, batch: int = 1,
         dataclasses.replace(get_config("stablelm-12b"), num_layers=2),
         "num_layers 40 -> 2; global batch 256 -> 1 (40 layers at 28 B a "
         "parameter are 340.0 GB)", steps, batch, seq, lr)
+
+
+# what the bf16 train phases measured, by phase: the dry-run phase's
+# predictions stand beside these
+MEASURED: dict[str, dict] = {}
 
 
 def _train_bf16(dev, seed, name: str, cfg, reduced, steps: int, batch: int,
@@ -4026,6 +3997,15 @@ def _train_bf16(dev, seed, name: str, cfg, reduced, steps: int, batch: int,
         del params, opt, b, first, m
     want, want_by_body = _bf16_remat_launches(L, dh, steps, tc.remat_policy,
                                               "sm90", fwd_body, n_lru)
+    # a step's launches by kernel, under the names the twins charge
+    per_step = {k + suffix: n / steps for k, fb in launches.items()
+                for suffix, n in zip(("", "_bwd"), fb) if n}
+    MEASURED[name] = dict(arch=cfg.name, layers=L, batch=batch, seq=seq,
+                          peak_mem_bytes=peak,
+                          step_ms_median=statistics.median(step_ms[2:]),
+                          model_flops=train_bounds(
+                              cfg, batch, seq, torch.bfloat16)["model_flops"],
+                          launches_a_step=per_step)
     emit(name, arch=cfg.name, layers=L, layer_kinds=kinds, reduced=reduced,
          d_model=cfg.d_model, d_ff=cfg.d_ff, head_dim=dh,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, window=cfg.window,
@@ -4058,7 +4038,7 @@ def _train_bf16(dev, seed, name: str, cfg, reduced, steps: int, batch: int,
     return launches, by_body
 
 
-def phase_encode_hubert(dev, seed, batch: int = 1, seq: int = 32768,
+def phase_encode_hubert(dev, seed, batch: int = 1, seq: int = PREFILL_32K,
                         repeats: int = 3):
     """hubert-xlarge at full width and depth (48 layers, bidirectional
     attention at head dim 80, GELU FFN, the audio stub frontend), bf16,
@@ -4435,8 +4415,8 @@ def phase_mesh(dev, seed, served, first):
 # superblock (batch, seq), hubert-xlarge's encode (layers, frames) and
 # qwen2-vl-2b's wave with an image block (layers, batch, prompt, new tokens)
 MESH_MOE = dict(layers=2, batch=2, seq=1024, steps=3)
-MESH_RGEMMA = dict(batch=1, seq=4096)
-MESH_HUBERT = dict(layers=2, seq=32768)
+MESH_RGEMMA = dict(batch=1, seq=TRAIN_4K)
+MESH_HUBERT = dict(layers=2, seq=PREFILL_32K)
 MESH_VL = dict(layers=2, batch=4, prompt=512, new=32)
 
 
@@ -4940,6 +4920,126 @@ def phase_profile(dev, cfg, params, pre, dec, prompt, max_len,
         emit("profile", arch=cfg.name, prefill=_profiled(run_prefill, **split),
              decode_steps=n_dec, decode=_profiled(run_decode, **split))
 
+# the dry-run phase: one production cell through the CLI (a 256-rank fake
+# group), then the bf16 train phases' cells at world size 1
+DRYRUN_CELL = ("qwen2-7b", "train_4k")
+DRYRUN_PHASES = (("train_rgemma_bf16", "recurrentgemma-9b"),
+                 ("train_stablelm12b_bf16", "stablelm-12b"))
+# the phases' cells at world size 1, as the reference's own mini dry-run
+# patches its mesh and shapes: a (1, 1) mesh over a fake group of one rank,
+# train_4k's batch 1, the phase's cut in depth
+DRYRUN_WS1 = """
+import json, sys
+import repro_torch.launch.dryrun as D
+from repro_torch.launch import specs as S
+from repro_torch.launch.mesh import make_debug_mesh
+D.start_fake_group(1)
+D.make_production_mesh = lambda multi_pod=False, device="cuda": \\
+    make_debug_mesh(1, device=device)
+cell = S.SHAPES["train_4k"]
+S.SHAPES["train_4k"] = S.ShapeCell(cell.name, cell.seq_len, 1, cell.step)
+for arch, layers in json.loads(sys.argv[1]):
+    rec = D.run_cell(arch, "train_4k", multi_pod=False, verbose=False,
+                     cfg_overrides={"num_layers": layers})
+    print("DRYRUN " + json.dumps(rec))
+"""
+
+
+def _dryrun(args: list, timeout: int = 300) -> tuple[str, float]:
+    """(stdout, seconds) of one dry-run process on this checkout."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"dryrun {args[:3]}: rc {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    return out.stdout, seconds
+
+
+def phase_dryrun():
+    """``launch/dryrun.py`` on this card's torch, in processes of its own
+    (this one holds an NCCL default group): (a) one production cell,
+    qwen2-7b x train_4k x 16x16, through the CLI (a 256-rank fake group,
+    fake CUDA tensors, the kernels' shape-only twins); (b) the cells the
+    bf16 train phases measured in this run, recurrentgemma-9b cut to 3
+    layers and stablelm-12b cut to 2 at train_4k's 1 x 4096, at world size
+    1.  For each of (b): the predicted per-device peak beside the phase's
+    ``peak_mem_bytes`` and their ratio (recorded, not gated), the roofline
+    ``step_time_s`` beside the measured step, ``model_flops`` beside
+    ``train_bounds``' (must be equal), the traced FLOPs over it, and each
+    twin's launches beside the launches a step the phase counted on the
+    card (must be equal: the traced path is the path the card ran).  Fails
+    on a status other than ok.  Then the SSD twins' workspace sizes
+    (``fwd_tf32_workspace_floats``, ``bwd_workspace_floats``, mirrors of
+    ``csrc/ssd.cu``'s) against the library's own host functions at
+    mamba2-130m's train and serve shapes (must be equal).  Launches no
+    kernel here."""
+    out_dir = ROOT / "build" / "dryrun_torch" / "smoke"
+    arch, shape = DRYRUN_CELL
+    _, cli_s = _dryrun(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                        "--shape", shape, "--single-pod-only", "--force",
+                        "--out", str(out_dir)])
+    cell = json.loads((out_dir / f"{arch}__{shape}__16x16.json").read_text())
+    check(cell["status"] == "ok", f"dryrun {arch} x {shape}: {cell}")
+    cells = [(a, MEASURED[name]["layers"]) for name, a in DRYRUN_PHASES]
+    stdout, ws1_s = _dryrun(["-c", DRYRUN_WS1, json.dumps(cells)])
+    recs = [json.loads(line[len("DRYRUN "):]) for line in stdout.splitlines()
+            if line.startswith("DRYRUN ")]
+    check(len(recs) == len(cells), f"dryrun at world size 1: {stdout}")
+    compared = {}
+    for (name, _), rec in zip(DRYRUN_PHASES, recs):
+        m = MEASURED[name]
+        check(rec["status"] == "ok", f"dryrun {name}: {rec}")
+        executed = rec["flops_per_device"] * rec["chips"]
+        compared[name] = dict(
+            arch=rec["arch"], layers=m["layers"], batch=m["batch"],
+            seq=m["seq"], status=rec["status"],
+            predicted_peak_bytes=rec["peak_memory_per_device"],
+            measured_peak_bytes=m["peak_mem_bytes"],
+            peak_ratio=rec["peak_memory_per_device"] / m["peak_mem_bytes"],
+            step_time_ms=rec["step_time_s"] * 1e3,
+            measured_step_ms=m["step_ms_median"],
+            bottleneck=rec["bottleneck"],
+            compute_ms=rec["compute_s"] * 1e3,
+            memory_ms=rec["memory_s"] * 1e3, model_flops=rec["model_flops"],
+            train_bounds_model_flops=m["model_flops"],
+            executed_over_model_flops=executed / rec["model_flops"],
+            kernels=rec["kernels"], measured_launches_a_step=m[
+                "launches_a_step"], trace_s=rec["trace_s"])
+        check(math.isclose(rec["model_flops"], m["model_flops"],
+                           rel_tol=1e-12),
+              f"dryrun {name}: model_flops {rec['model_flops']} against "
+              f"train_bounds' {m['model_flops']}")
+        twins = {k: v["launches"] for k, v in rec["kernels"].items()}
+        check(twins == m["launches_a_step"], f"dryrun {name}: the twins' "
+              f"launches {twins}, the card's a step {m['launches_a_step']}")
+    from repro_torch.kernels.ssd import kernel as ssd
+    workspaces = {}
+    # mamba2-130m's train step (8 x 1024) and serve wave (4 x 512)
+    for dims in ((8, 1024, 24, 64, 1, 128, 128),
+                 (4, 512, 24, 64, 1, 128, 128)):
+        mirror = dict(fwd_mma_tf32=ssd.fwd_tf32_workspace_floats(*dims),
+                      **{f"bwd_{b}": ssd.bwd_workspace_floats(b, *dims)
+                         for b in ssd.BWD_BODIES})
+        library = dict(fwd_mma_tf32=ssd._entry(
+            "ssd_fwd_mma_tf32_workspace_floats")(*dims),
+            bwd_mma=ssd._entry("ssd_bwd_mma_workspace_floats")(*dims),
+            bwd_fma=ssd._entry("ssd_bwd_workspace_floats")(*dims))
+        workspaces[str(dims)] = dict(mirror=mirror, library=library)
+        check(mirror == library, f"ssd workspace floats at {dims}: the "
+              f"twins' {mirror}, the library's {library}")
+    emit("dryrun", cell=dict(
+        arch=arch, shape=shape, mesh=cell["mesh"], status=cell["status"],
+        device=cell["device"], peak_memory_per_device=cell[
+            "peak_memory_per_device"], bottleneck=cell["bottleneck"],
+        compute_ms=cell["compute_s"] * 1e3, memory_ms=cell["memory_s"] * 1e3,
+        collective_ms=cell["collective_s"] * 1e3,
+        useful_flops_ratio=cell["useful_flops_ratio"],
+        trace_s=cell["trace_s"], kernels=cell["kernels"]),
+        cli_s=cli_s, world_size_1_s=ws1_s, seconds=cli_s + ws1_s,
+        world_size_1=compared, ssd_workspace_floats=workspaces)
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -4956,7 +5056,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing to run", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -5009,6 +5108,7 @@ def main() -> int:
                          phase_train_stablelm12b_bf16),
                         ("encode-hubert", phase_encode_hubert)):
         train[path], train_by_body[path] = phase(dev, args.seed)
+    phase_dryrun()
     for name, entry in summary.items():
         # one body of a kernel, at the head dims given if any: its launches
         if "counted_as" in entry:

@@ -1,6 +1,6 @@
-"""Data pipeline: the synthetic LM corpus and the eager prefetcher, as in
-the reference (numpy throughout, so the batches are bit-identical to the
-JAX package's for one seed).
+"""Data pipeline: the synthetic LM corpus, shards staged through CannyFS
+and the eager prefetcher, as in the reference (numpy throughout, so the
+batches are bit-identical to the JAX package's for one seed).
 
 The prefetcher applies the paper's pattern on the read side: a background
 worker races ahead of the consumer; ``next()`` waits only for the batch it
@@ -8,6 +8,7 @@ needs.
 """
 from __future__ import annotations
 
+import io
 import queue
 import threading
 from dataclasses import dataclass
@@ -15,6 +16,7 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 
+from repro_torch.core import CannyFS
 from repro_torch.models.config import ModelConfig
 
 
@@ -63,6 +65,53 @@ class SyntheticLM:
                               (3, self.batch, 1))
                 batch["positions3"] = pos
             yield batch
+
+
+# ---------------------------------------------------------------------------
+# CannyFS-staged shard reader (data staged from 'remote' storage)
+# ---------------------------------------------------------------------------
+
+def write_shards(fs: CannyFS, directory: str, it: Iterator[dict],
+                 n_shards: int) -> list[str]:
+    """Materialize n_shards batches as .npz-style shard files through the
+    eager engine (a staging job — the paper's archive-extraction shape)."""
+    fs.makedirs(directory)
+    paths = []
+    for i in range(n_shards):
+        batch = next(it)
+        buf = io.BytesIO()
+        np.savez(buf, **batch)
+        p = f"{directory}/shard_{i:05d}.npz"
+        fs.write_file(p, buf.getvalue())
+        paths.append(p)
+    return paths
+
+
+def read_shards(fs: CannyFS, directory: str,
+                chunk: int = 256 << 10) -> Iterator[dict]:
+    """readdir-prefetched shard sweep (the paper's traversal acceleration
+    applies: one readdir prefetches every shard's stat).
+
+    Each shard streams back in ``chunk``-byte sequential slices rather
+    than one whole-file read: the stat (warmed by the listing) bounds the
+    stream so the reader never runs past EOF, and the engine's read-ahead
+    plane pipelines speculative ``read_vec`` windows ahead of the
+    consumer — later chunks are served from pages already in flight."""
+    for name in fs.readdir(directory):
+        if not name.endswith(".npz"):
+            continue
+        p = f"{directory}/{name}"
+        remaining = fs.stat(p).size
+        pieces = []
+        with fs.open(p, "rb") as f:
+            while remaining > 0:
+                piece = f.read(min(chunk, remaining))
+                if not piece:
+                    break
+                pieces.append(piece)
+                remaining -= len(piece)
+        with np.load(io.BytesIO(b"".join(pieces))) as z:
+            yield {k: z[k] for k in z.files}
 
 
 # ---------------------------------------------------------------------------

@@ -78,12 +78,15 @@ require grad (its output has no ``grad_fn``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from ...device import multiprocessors
 from .. import _build
 from .._grad import refuse_grad
+from .._twin import H100_SMS, Cost, charge, count_launch, fake
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # every head dim of the config registry (120 is padded to 128 in the kernel)
@@ -241,6 +244,15 @@ def bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     first: bfloat16 takes ``sm90`` (dh in ``SM90_HEAD_DIMS``, TMA-aligned,
     scale > 0) and ``mma``; float32 takes ``mma_tf32x3`` (dh in
     ``TF32_HEAD_DIMS``) and ``fp32``.  Raises as ``select_body``."""
+    check_inputs(q, k, v)
+    return _bodies(q.dtype, q.shape[3], scale,
+                   lambda: _tma_ok(q) and _tma_ok(k) and _tma_ok(v))
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on what no body takes: another dtype, a head dim outside
+    ``HEAD_DIMS``, H not a multiple of K, Sq != Sk, a last dim that is not
+    contiguous, operands on two devices.  Reads no base address."""
     qs, ks = q.shape, k.shape
     if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError(f"expected q (B,S,H,dh), k/v (B,S,K,dh); got "
@@ -262,12 +274,92 @@ def bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_cuda operands must share one device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention_cuda needs a contiguous last dim")
+
+
+def _bodies(dtype: torch.dtype, dh: int, scale: float | None,
+            tma=None) -> tuple[str, ...]:
+    """``bodies_for`` from the dtype, head dim, scale and ``tma``, asked
+    last: a function that says whether TMA reads every operand (None for
+    fake tensors, which have no base: taken to)."""
     if dtype == torch.float32:
         return ("mma_tf32x3", "fp32") if dh in TF32_HEAD_DIMS else ("fp32",)
-    if (dh in SM90_HEAD_DIMS and (scale is None or scale > 0) and _tma_ok(q)
-            and _tma_ok(k) and _tma_ok(v)):
+    if (dh in SM90_HEAD_DIMS and (scale is None or scale > 0)
+            and (tma is None or tma())):
         return ("sm90", "mma")
     return ("mma",)
+
+
+def _bwd_bodies(dtype: torch.dtype, dh: int,
+                scale: float | None) -> tuple[str, ...]:
+    if dtype == torch.float32:
+        return ("mma_tf32x3",)
+    if dh in SM90_BWD_HEAD_DIMS and (scale is None or scale > 0):
+        return ("sm90", "mma_bf16")
+    return ("mma_bf16",)
+
+
+@functools.lru_cache(maxsize=256)
+def visible_pairs(S: int, causal: bool = True, window: int = 0,
+                  chunk: int = 0) -> int:
+    """The (query, key) pairs of one head that the mask lets attend at
+    self-attention length S: ``attention_mask(pos, pos, ...).sum()``
+    without forming the S x S mask."""
+    q = np.arange(S, dtype=np.int64)
+    lo = np.zeros(S, dtype=np.int64)
+    hi = q.copy() if causal else np.full(S, S - 1, dtype=np.int64)
+    if window:
+        lo = np.maximum(lo, q - window + 1)
+    if chunk:
+        lo = np.maximum(lo, q // chunk * chunk)
+        hi = np.minimum(hi, (q // chunk + 1) * chunk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_cost(B: int, S: int, H: int, K: int, dh: int,
+                         dtype: torch.dtype, pairs: int,
+                         lse: bool = False) -> Cost:
+    """One forward over ``pairs`` visible pairs a head: q, k and v read
+    once, O (and the lse, fp32) written once; the two products of the
+    visible pairs (S = Q Kᵀ, O = P V), on the bf16 tensor cores in bf16,
+    in fp32 as three TF32 products each (the mma_tf32x3 body)."""
+    e = dtype.itemsize
+    n_bytes = (2 * B * S * H + 2 * B * S * K) * dh * e \
+        + (B * H * S * 4 if lse else 0)
+    flops = 2 * 2 * B * H * pairs * dh
+    if dtype == torch.float32:
+        return Cost(n_bytes, 3 * flops, "tf32", flops)
+    return Cost(n_bytes, flops, "bf16", flops)
+
+
+def flash_bwd_split_macs(B: int, H: int, pairs: int, dh: int) -> int:
+    """Multiply-adds the flash-attention backward's fp32 body needs on the
+    TF32 tensor cores: the five products of ``pairs`` (query, key) pairs x
+    dh a head (S = Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dQ = dS K, dK = dSᵀ Q),
+    each formed from three TF32 products (hi·hi, hi·lo, lo·hi)."""
+    return 3 * 5 * B * H * pairs * dh
+
+
+def flash_bwd_bf16_ops(B: int, H: int, pairs: int, dh: int) -> int:
+    """Operations of the bf16 backward: the five products of
+    ``flash_bwd_split_macs`` once each on the bf16 tensor cores, 2 a
+    multiply-add."""
+    return 2 * flash_bwd_split_macs(B, H, pairs, dh) // 3
+
+
+def flash_attention_bwd_cost(B: int, S: int, H: int, K: int, dh: int,
+                             dtype: torch.dtype, pairs: int) -> Cost:
+    """One backward: q, k, v, O, dO and the lse read once, dq, dk and dv
+    written once; the five products of the visible pairs, in fp32 as three
+    TF32 products each (``flash_bwd_split_macs``), in bf16 once each
+    (``flash_bwd_bf16_ops``)."""
+    e = dtype.itemsize
+    q_bytes, kv_bytes = B * S * H * dh * e, B * S * K * dh * e
+    n_bytes = 2 * (q_bytes + 2 * kv_bytes) + 2 * q_bytes + B * H * S * 4
+    flops = flash_bwd_bf16_ops(B, H, pairs, dh)
+    if dtype == torch.float32:
+        return Cost(n_bytes, 2 * flash_bwd_split_macs(B, H, pairs, dh),
+                    "tf32", flops)
+    return Cost(n_bytes, flops, "bf16", flops)
 
 
 def select_bwd_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -288,11 +380,7 @@ def bwd_bodies_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do not count.  Raises on what no forward body takes (``select_body``:
     a head dim outside ``HEAD_DIMS`` among them)."""
     select_body(q, k, v, scale)
-    if q.dtype == torch.float32:
-        return ("mma_tf32x3",)
-    if q.shape[3] in SM90_BWD_HEAD_DIMS and (scale is None or scale > 0):
-        return ("sm90", "mma_bf16")
-    return ("mma_bf16",)
+    return _bwd_bodies(q.dtype, q.shape[3], scale)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -314,6 +402,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         raise ValueError(f"flash_attention_cuda takes CUDA tensors, got "
                          f"{q.device}")
+    if fake(q):
+        return _flash_twin(q, k, v, causal, window, chunk, scale, return_lse,
+                           body)
     takes = bodies_for(q, k, v, scale)
     body = takes[0] if body is None else body
     if body not in takes:
@@ -348,10 +439,40 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed ({body} "
                            f"body): CUDA error {err}")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.launches_by_body[body] += 1
-    by_dh = flash_attention_cuda.launches_by_head_dim[body]
+    _count(flash_attention_cuda, body, dh)
+    return (out, lse) if return_lse else out
+
+
+def _count(fn, body: str, dh: int) -> None:
+    count_launch(fn, body)
+    by_dh = fn.launches_by_head_dim[body]
     by_dh[dh] = by_dh.get(dh, 0) + 1
+
+
+def _check_body(body: str, takes: tuple, what: str, q) -> str:
+    picked = takes[0] if body is None else body
+    if picked not in takes:
+        raise ValueError(f"{what} {picked!r} does not take these inputs "
+                         f"({q.dtype}, head dim {q.shape[3]}: {takes})")
+    return picked
+
+
+def _flash_twin(q, k, v, causal, window, chunk, scale, return_lse, body):
+    """``flash_attention_cuda`` on fake tensors: O and the lse the launch
+    allocates, the cost of the visible pairs charged on the body the
+    shapes select (TMA taken to read every operand); nothing launched."""
+    check_inputs(q, k, v)
+    body = _check_body(body, _bodies(q.dtype, q.shape[3], scale), "body", q)
+    if window < 0 or chunk < 0:
+        raise ValueError("window and chunk must be >= 0")
+    B, S, H, dh = q.shape
+    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel():
+        charge("flash_attention", flash_attention_cost(
+            B, S, H, k.shape[2], dh, q.dtype,
+            visible_pairs(S, causal, window, chunk), return_lse), body)
     return (out, lse) if return_lse else out
 
 
@@ -371,12 +492,16 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     third that sums the dK / dV launch's partial sums in a fixed order
     where ``head_split`` (default ``bwd_head_split``'s for the body; a
     divisor of H / K) splits its heads, counted as one call; no atomics,
-    so two runs give the same bits."""
-    takes = bwd_bodies_for(q, k, v, scale)
-    body = takes[0] if body is None else body
-    if body not in takes:
-        raise ValueError(f"backward body {body!r} does not take these inputs "
-                         f"({q.dtype}, head dim {q.shape[3]}: {takes})")
+    so two runs give the same bits.  On fake tensors (``_twin``) the
+    outputs, D and the partial sums are allocated for ``H100_SMS`` SMs and
+    the cost charged; nothing launches."""
+    shape_only = fake(q)
+    if shape_only:
+        check_inputs(q, k, v)
+        takes = _bwd_bodies(q.dtype, q.shape[3], scale)
+    else:
+        takes = bwd_bodies_for(q, k, v, scale)
+    body = _check_body(body, takes, "backward body", q)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors, got "
                          f"{q.device}")
@@ -402,11 +527,17 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                         else (B, H, S), dtype=torch.float32, device=q.device)
     scale = scale if scale is not None else dh ** -0.5
     if head_split is None:
-        head_split = bwd_head_split(B, S, H, K, dh, multiprocessors(q.device),
-                                    body)
+        head_split = bwd_head_split(
+            B, S, H, K, dh,
+            H100_SMS if shape_only else multiprocessors(q.device), body)
     check_head_split(H, K, dh, head_split, body)
     partial = (torch.empty((2, head_split, B, S, K, dh), dtype=torch.float32,
                            device=q.device) if head_split > 1 else None)
+    if shape_only:
+        charge("flash_attention_bwd", flash_attention_bwd_cost(
+            B, S, H, K, dh, q.dtype, visible_pairs(S, causal, window, chunk)),
+            body)
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         err = _bwd_entry(body)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -418,10 +549,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     if err:
         raise RuntimeError(f"flash_attention backward launch failed ({body} "
                            f"body): CUDA error {err}")
-    flash_attention_bwd_cuda.launches += 1
-    flash_attention_bwd_cuda.launches_by_body[body] += 1
-    by_dh = flash_attention_bwd_cuda.launches_by_head_dim[body]
-    by_dh[dh] = by_dh.get(dh, 0) + 1
+    _count(flash_attention_bwd_cuda, body, dh)
     return dq, dk, dv
 
 
@@ -431,7 +559,11 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk, scale):
-        select_bwd_body(q, k, v, scale)   # raise before the forward runs
+        # raise before the forward runs (a fake q has no base to select by)
+        if fake(q):
+            check_inputs(q, k, v)
+        else:
+            select_bwd_body(q, k, v, scale)
         out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                         chunk=chunk, scale=scale,
                                         return_lse=True)

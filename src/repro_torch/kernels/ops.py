@@ -3,7 +3,14 @@
 Dispatch is by the tensor's device and nothing else: a CUDA tensor goes to
 the Hopper kernel (which launches or raises), a CPU tensor to the plain
 PyTorch version.  No environment switch routes the card to the plain
-versions.
+versions.  A fake CUDA tensor (the dry-run's ``FakeTensorMode``: shapes and
+dtypes, no data) goes the card's way too, and its wrapper takes its
+shape-only twin (``kernels/_twin.py``): the outputs the launch allocates,
+its cost charged to the dry-run's ``KernelCosts``, nothing launched and
+nothing added to the wrapper's launch counts.  That is shape
+inference for tensors that hold no data, not a fallback: a real CUDA
+tensor always launches or raises, and a CPU tensor, fake or not, goes to
+the plain version.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
 card, a call that needs a gradient (grad mode on and an input that requires

@@ -42,6 +42,7 @@ import torch
 
 from .. import _build
 from .._grad import refuse_grad
+from .._twin import Cost, charge, count_launch, fake
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("segmented", "serial")
@@ -97,6 +98,34 @@ def select_body(log_a: torch.Tensor, gx: torch.Tensor,
     return "segmented" if S >= MIN_SEGMENTED_STEPS else "serial"
 
 
+def rglru_cost(B: int, S: int, W: int, dtype: torch.dtype,
+               h0: bool = False) -> Cost:
+    """One forward: log_a, gx (and h0) read once, y and h_last (fp32)
+    written once; about 9 operations an element (2 exp, sqrt, max, sub, 3
+    mul, add), in fp32."""
+    n = B * S * W
+    return Cost(bytes=3 * n * dtype.itemsize + (1 + h0) * B * W * 4,
+                ops=9 * n, unit="fp32", flops=9 * n)
+
+
+def rglru_bwd_cost(B: int, S: int, W: int, dtype: torch.dtype) -> Cost:
+    """One backward: log_a, gx and dy read once, d log_a and d gx written
+    once; about 30 operations an element (the recompute and the reverse
+    step), in fp32."""
+    n = B * S * W
+    return Cost(bytes=5 * n * dtype.itemsize, ops=30 * n, unit="fp32",
+                flops=30 * n)
+
+
+def _saved_shape(body: str, B: int, S: int, W: int) -> tuple | None:
+    """The backward's workspace of saved states: the serial body's every 16
+    steps, the segmented body's at each 512-step window (none within
+    one window)."""
+    if body == "serial":
+        return (B, -(-S // BWD_SEGMENT_STEPS), W)
+    return (B, -(-S // BWD_WINDOW), W) if S > BWD_WINDOW else None
+
+
 def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
                h0: torch.Tensor | None = None, *, body: str | None = None):
     """log_a, gx (B,S,W) -> (y (B,S,W) in ``gx.dtype``, h_last (B,W) fp32).
@@ -119,6 +148,9 @@ def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
     h_last = torch.empty((B, W), dtype=torch.float32, device=gx.device)
     if B * W == 0:
         return y, h_last
+    if fake(gx):    # shape only (``_twin``): y and h_last, nothing launched
+        charge("rglru", rglru_cost(B, S, W, gx.dtype, h0 is not None), body)
+        return y, h_last
     args = (log_a.data_ptr(), gx.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
             h_last.data_ptr(), B, S, W)
@@ -129,8 +161,7 @@ def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor,
     if err:
         raise RuntimeError(f"rglru kernel launch failed ({body} body): CUDA "
                            f"error {err}")
-    rglru_cuda.launches += 1
-    rglru_cuda.launches_by_body[body] += 1
+    count_launch(rglru_cuda, body)
     return y, h_last
 
 
@@ -175,14 +206,12 @@ def rglru_bwd_cuda(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
     dla, dgx = torch.empty_like(log_a), torch.empty_like(gx)
     dh0 = None if h0 is None else torch.empty((B, W), dtype=torch.float32,
                                               device=gx.device)
-    # the workspace of saved states: the serial body's every 16 steps, the
-    # segmented body's at each 512-step window (none within one window)
-    if body == "serial":
-        saved = torch.empty((B, -(-S // BWD_SEGMENT_STEPS), W),
-                            dtype=torch.float32, device=gx.device)
-    else:
-        saved = (torch.empty((B, -(-S // BWD_WINDOW), W), dtype=torch.float32,
-                             device=gx.device) if S > BWD_WINDOW else None)
+    shape = _saved_shape(body, B, S, W)
+    saved = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=gx.device)
+    if fake(gx):    # shape only (``_twin``): nothing launched
+        charge("rglru_bwd", rglru_bwd_cost(B, S, W, gx.dtype), body)
+        return dla, dgx, dh0
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     name = "rglru_bwd_segmented" if body == "segmented" else "rglru_bwd"
     with torch.cuda.device(gx.device):
@@ -194,8 +223,7 @@ def rglru_bwd_cuda(log_a: torch.Tensor, gx: torch.Tensor, dy: torch.Tensor,
     if err:
         raise RuntimeError(f"rglru backward launch failed ({body} body): "
                            f"CUDA error {err}")
-    rglru_bwd_cuda.launches += 1
-    rglru_bwd_cuda.launches_by_body[body] += 1
+    count_launch(rglru_bwd_cuda, body)
     return dla, dgx, dh0
 
 

@@ -45,6 +45,7 @@ import torch
 from ...device import multiprocessors
 from .. import _build
 from .._grad import refuse_grad
+from .._twin import H100_SMS, Cost, charge, count_launch, fake
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("one_read", "generic")
@@ -126,14 +127,11 @@ def cta_grid(rows: int, sms: int, warps: int) -> tuple[int, int]:
     return per_cta, -(-rows // per_cta)
 
 
-def select_body(x: torch.Tensor, scale: torch.Tensor,
-                residual: torch.Tensor | None = None) -> tuple[str, int]:
-    """(body, vectors a lane) for these inputs: ``("one_read", n)`` with n
-    one of ``VECTORS_PER_LANE``, or ``("generic", 0)``.
-
-    A pure function of dtype, shape and base addresses, on any device.
-    Raises on what no body takes: another dtype, a scale that does not
-    match x's last dim, a residual unlike x, non-contiguous inputs."""
+def check_inputs(x: torch.Tensor, scale: torch.Tensor,
+                 residual: torch.Tensor | None = None) -> None:
+    """Raise on what no body takes: another dtype, a scale that does not
+    match x's last dim, a residual unlike x, non-contiguous inputs, operands
+    on two devices.  Reads no base address."""
     x_dtype, s_dtype = x.dtype, scale.dtype
     if x_dtype not in _DTYPES or s_dtype not in _DTYPES:
         raise TypeError(f"rmsnorm_cuda takes float32/bfloat16, got x "
@@ -152,16 +150,33 @@ def select_body(x: torch.Tensor, scale: torch.Tensor,
     if not (x.is_contiguous() and scale.is_contiguous()
             and (residual is None or residual.is_contiguous())):
         raise ValueError("rmsnorm_cuda takes contiguous tensors")
-    D = shape[-1]
+
+
+def body_for(D: int, x_dtype: torch.dtype,
+             s_dtype: torch.dtype) -> tuple[str, int]:
+    """(body, vectors a lane) of rows of D elements on 16-byte aligned
+    bases: ``select_body``'s choice from the shape and dtypes alone."""
     row_bytes = D * _SIZES[x_dtype]
     # 16-byte vectors of x, scale and the residual, at most 32 a lane
     if (D == 0 or row_bytes % 16 or D * _SIZES[s_dtype] % 16
-            or row_bytes > 16 * 32 * VECTORS_PER_LANE[-1]
-            or x.data_ptr() % 16 or scale.data_ptr() % 16
-            or (residual is not None and residual.data_ptr() % 16)):
+            or row_bytes > 16 * 32 * VECTORS_PER_LANE[-1]):
         return _GENERIC
     need = (row_bytes + 16 * 32 - 1) // (16 * 32)
     return "one_read", 1 << (need - 1).bit_length()
+
+
+def select_body(x: torch.Tensor, scale: torch.Tensor,
+                residual: torch.Tensor | None = None) -> tuple[str, int]:
+    """(body, vectors a lane) for these inputs: ``("one_read", n)`` with n
+    one of ``VECTORS_PER_LANE``, or ``("generic", 0)``.
+
+    A pure function of dtype, shape and base addresses, on any device.
+    Raises on what no body takes (``check_inputs``)."""
+    check_inputs(x, scale, residual)
+    if (x.data_ptr() % 16 or scale.data_ptr() % 16
+            or (residual is not None and residual.data_ptr() % 16)):
+        return _GENERIC
+    return body_for(x.shape[-1], x.dtype, scale.dtype)
 
 
 def select_bwd_body(x: torch.Tensor, scale: torch.Tensor,
@@ -174,24 +189,78 @@ def select_bwd_body(x: torch.Tensor, scale: torch.Tensor,
     A pure function of dtype, shape and base addresses, on any device.
     Raises on what the forward takes no body for, and on a dy unlike x."""
     body, vpl = select_body(x, scale)
+    _check_dy(x, dy)
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        return _GENERIC
+    return _bwd_body(body, vpl, x.shape[-1], x.dtype, scale.dtype,
+                     x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+
+
+def _check_dy(x: torch.Tensor, dy: torch.Tensor) -> None:
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
                          f"{x.dtype} {tuple(x.shape)}")
-    if not dy.is_contiguous() or dy.data_ptr() % 16:
-        return _GENERIC
+
+
+def _bwd_body(body: str, vpl: int, D: int, x_dtype, s_dtype,
+              aligned: bool = True) -> tuple[str, int]:
+    """The backward's body from the forward's (``body``, ``vpl``) for rows
+    of D elements: bases 16-byte aligned unless ``aligned`` is False."""
     if (body == "one_read"
-            and vpl * 16 // _SIZES[x.dtype] <= BWD_LANE_FLOATS):
+            and vpl * 16 // _SIZES[x_dtype] <= BWD_LANE_FLOATS):
         return "warp_rows", vpl
     # rows of 16-byte vectors of x, dy and scale past a warp's reach; the
     # forward's limits on one_read do not apply
-    D = x.shape[-1]
-    if (D * _SIZES[x.dtype] % 16 or D * _SIZES[scale.dtype] % 16
-            or x.data_ptr() % 16 or scale.data_ptr() % 16):
+    if D * _SIZES[x_dtype] % 16 or D * _SIZES[s_dtype] % 16 or not aligned:
         return _GENERIC
-    warps, vpl = cta_shape(D, x.dtype)
+    warps, vpl = cta_shape(D, x_dtype)
     if 1 < warps <= BWD_CTA_MAX_WARPS:
         return "cta_rows", vpl
     return _GENERIC
+
+
+def bwd_body_for(D: int, x_dtype: torch.dtype,
+                 s_dtype: torch.dtype) -> tuple[str, int]:
+    """``select_bwd_body``'s choice for rows of D elements on 16-byte
+    aligned, contiguous operands, from the shape and dtypes alone."""
+    return _bwd_body(*body_for(D, x_dtype, s_dtype), D, x_dtype, s_dtype)
+
+
+def rmsnorm_cost(rows: int, D: int, dtype: torch.dtype,
+                 scale_dtype: torch.dtype, residual: bool = False) -> Cost:
+    """One forward over (rows, D): x (and the residual) and scale read
+    once, y written once; about 4 operations an element (5 with the
+    residual's add), the statistics in fp32."""
+    n = rows * D
+    return Cost(bytes=(2 + residual) * n * _SIZES[dtype]
+                + D * _SIZES[scale_dtype],
+                ops=(4 + residual) * n, unit="fp32",
+                flops=(4 + residual) * n)
+
+
+def rmsnorm_bwd_cost(rows: int, D: int, dtype: torch.dtype,
+                     scale_dtype: torch.dtype) -> Cost:
+    """One backward over (rows, D): x, dy and scale read once, dx and
+    dscale written once; about 10 operations an element, in fp32."""
+    n = rows * D
+    return Cost(bytes=3 * n * _SIZES[dtype] + 2 * D * _SIZES[scale_dtype],
+                ops=10 * n, unit="fp32", flops=10 * n)
+
+
+def _partial_shape(body: str, rows: int, D: int, x_dtype,
+                   sms: int) -> tuple[tuple, torch.dtype, tuple]:
+    """(shape, dtype, the launch's grid arguments) of the backward's
+    partial sums of dscale on ``body`` over a card of ``sms`` SMs."""
+    if body == "warp_rows":
+        per_warp, ctas = bwd_grid(rows, sms)
+        return (ctas, D), torch.float64, (per_warp, ctas)
+    if body == "cta_rows":
+        warps = cta_shape(D, x_dtype)[0]
+        per_cta, ctas = cta_grid(rows, sms, warps)
+        return (ctas, D), torch.float64, (warps, per_cta, ctas)
+    blocks = min(rows, BWD_MAX_BLOCKS)
+    # each CTA's partial sums of dscale and their compensations
+    return (2, blocks, D), torch.float32, (blocks,)
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
@@ -206,6 +275,8 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
                 "call kernels.ops.rmsnorm, which differentiates it")
     if not x.is_cuda:
         raise ValueError(f"rmsnorm_cuda takes CUDA tensors, got {x.device}")
+    if fake(x):
+        return _rmsnorm_twin(x, scale, residual)
     body, vpl = select_body(x, scale, residual)
     y = torch.empty_like(x)
     D = x.shape[-1]
@@ -226,8 +297,21 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed ({body} body): "
                            f"CUDA error {err}")
-    rmsnorm_cuda.launches += 1
-    rmsnorm_cuda.launches_by_body[body] += 1
+    count_launch(rmsnorm_cuda, body)
+    return y
+
+
+def _rmsnorm_twin(x, scale, residual):
+    """``rmsnorm_cuda`` on fake tensors: y, and the cost charged on the
+    body the shapes select; nothing launched."""
+    check_inputs(x, scale, residual)
+    y = torch.empty_like(x)
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    if rows:
+        charge("rmsnorm", rmsnorm_cost(rows, D, x.dtype, scale.dtype,
+                                       residual is not None),
+               body_for(D, x.dtype, scale.dtype)[0])
     return y
 
 
@@ -244,28 +328,18 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"rmsnorm_bwd_cuda takes CUDA tensors, got "
                          f"{x.device}")
     dy = dy.contiguous()
+    if fake(x):
+        return _rmsnorm_bwd_twin(x, scale, dy)
     body, vpl = select_bwd_body(x, scale, dy)
     D = x.shape[-1]
     rows = x.numel() // D if D else 0
     if rows == 0:
         return torch.zeros_like(x), torch.zeros_like(scale)
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
-    if body == "warp_rows":
-        per_warp, ctas = bwd_grid(rows, multiprocessors(x.device))
-        # each CTA's partial row of dscale, in fp64
-        partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
-        tail = (vpl, per_warp, ctas)
-    elif body == "cta_rows":
-        warps = cta_shape(D, x.dtype)[0]
-        per_cta, ctas = cta_grid(rows, multiprocessors(x.device), warps)
-        partial = torch.empty((ctas, D), dtype=torch.float64, device=x.device)
-        tail = (vpl, warps, per_cta, ctas)
-    else:
-        blocks = min(rows, BWD_MAX_BLOCKS)
-        # each CTA's partial sums of dscale and their compensations
-        partial = torch.empty((2, blocks, D), dtype=torch.float32,
-                              device=x.device)
-        tail = (blocks,)
+    shape, dtype, grid = _partial_shape(body, rows, D, x.dtype,
+                                        multiprocessors(x.device))
+    partial = torch.empty(shape, dtype=dtype, device=x.device)
+    tail = (vpl, *grid) if body != "generic" else grid
     args = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dscale.data_ptr(), partial.data_ptr(), rows, D, eps,
             _DTYPES[x.dtype], _DTYPES[scale.dtype], *tail)
@@ -278,8 +352,26 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     if err:
         raise RuntimeError(f"rmsnorm backward launch failed ({body} body): "
                            f"CUDA error {err}")
-    rmsnorm_bwd_cuda.launches += 1
-    rmsnorm_bwd_cuda.launches_by_body[body] += 1
+    count_launch(rmsnorm_bwd_cuda, body)
+    return dx, dscale
+
+
+def _rmsnorm_bwd_twin(x, scale, dy):
+    """``rmsnorm_bwd_cuda`` on fake tensors: dx, dscale and the partial sums
+    the launch allocates (grids for ``H100_SMS``), the cost charged on the
+    body the shapes select; nothing launched."""
+    check_inputs(x, scale)
+    _check_dy(x, dy)
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return torch.zeros_like(x), torch.zeros_like(scale)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    body = bwd_body_for(D, x.dtype, scale.dtype)[0]
+    shape, dtype, _ = _partial_shape(body, rows, D, x.dtype, H100_SMS)
+    torch.empty(shape, dtype=dtype, device=x.device)
+    charge("rmsnorm_bwd", rmsnorm_bwd_cost(rows, D, x.dtype, scale.dtype),
+           body)
     return dx, dscale
 
 

@@ -52,6 +52,7 @@ import torch
 
 from .. import _build
 from .._grad import refuse_grad
+from .._twin import Cost, charge, count_launch, fake
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("mma", "mma_tf32x3", "fma")
@@ -140,6 +141,108 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def ssd_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds one SSD scan needs, all fp32: per (b, g, chunk) C·Bᵀ on
+    and below the diagonal; per (b, h, chunk) scores @ x on and below it and
+    Bᵀ @ x in full, and C @ state in every chunk but the first (its incoming
+    state is zero)."""
+    tri, n_chunks = Q * (Q + 1) // 2, -(-S // Q)
+    return B * (n_chunks * (G * tri * N + H * (tri * P + Q * N * P))
+                + (n_chunks - 1) * H * Q * N * P)
+
+
+def ssd_split_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds the SSD scan's mma body needs on the bf16 tensor cores:
+    those of ``ssd_macs``, with every product that has an fp32 operand
+    (scores @ x, Bᵀ @ (w∘x), C @ state: all but C·Bᵀ) taken twice, once for
+    the operand's bf16 hi and once for its lo."""
+    cb = B * -(-S // Q) * G * (Q * (Q + 1) // 2) * N
+    return cb + 2 * (ssd_macs(B, S, H, P, G, N, Q) - cb)
+
+
+def ssd_bwd_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds the SSD backward needs, all fp32: per (b, g, chunk)
+    C·Bᵀ on and below the diagonal (recomputed); per (b, h, chunk) dy·xᵀ,
+    the scores' transpose times dy, d(C·Bᵀ) times B and times C, on and
+    below it, and in full the chunk's local state, its E = Σ exp(cum) dy Cᵀ,
+    B·dSᵀ and x·dS; in every chunk but the first also W = dy·state_in, the
+    inter-chunk term of dC (the state entering the first is zero; d cum's
+    inter-chunk term dy·(C·state_inᵀ) is C·W, Q·N more, not counted)."""
+    tri, n_chunks, qnp = Q * (Q + 1) // 2, -(-S // Q), Q * N * P
+    return B * (n_chunks * (G * tri * N + H * (2 * tri * P + 2 * tri * N
+                                               + 4 * qnp))
+                + (n_chunks - 1) * H * qnp)
+
+
+def ssd_bwd_split_macs(B, S, H, P, G, N, Q) -> int:
+    """Multiply-adds the SSD backward's mma body needs on the TF32 tensor
+    cores: those of ``ssd_bwd_macs`` (all its products have an fp32
+    operand), each formed from three TF32 products (hi·hi, hi·lo, lo·hi)."""
+    return 3 * ssd_bwd_macs(B, S, H, P, G, N, Q)
+
+
+def ssd_cost(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
+             dtype: torch.dtype) -> Cost:
+    """One forward: x, dt (fp32), Bm, Cm, A and D read once, y and the fp32
+    state written once; the products of the body that takes ``dtype``: in
+    bf16 the mma body's on the bf16 tensor cores, the split operands' twice
+    (``ssd_split_macs``), in fp32 the mma_tf32x3 body's, three TF32 products
+    each (``ssd_macs``); 2 operations a multiply-add."""
+    e = dtype.itemsize
+    n_bytes = (2 * B * S * H * P + 2 * B * S * G * N) * e + B * S * H * 4 \
+        + 2 * 4 * H + B * H * P * N * 4
+    flops = 2 * ssd_macs(B, S, H, P, G, N, Q)
+    if dtype == torch.float32:
+        return Cost(n_bytes, 3 * flops, "tf32", flops)
+    return Cost(n_bytes, 2 * ssd_split_macs(B, S, H, P, G, N, Q), "bf16",
+                flops)
+
+
+def ssd_bwd_cost(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
+                 dtype: torch.dtype) -> Cost:
+    """One backward: x, dt, Bm, Cm, dy (A, D) read once, dx, ddt, dB, dC
+    (dA, dD) written once; the mma body's products on the TF32 tensor
+    cores (``ssd_bwd_split_macs``), 2 operations a multiply-add."""
+    e = dtype.itemsize
+    n_bytes = (3 * B * S * H * P + 4 * B * S * G * N) * e \
+        + 2 * B * S * H * 4 + 4 * 4 * H
+    return Cost(n_bytes, 2 * ssd_bwd_split_macs(B, S, H, P, G, N, Q), "tf32",
+                2 * ssd_bwd_macs(B, S, H, P, G, N, Q))
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def _round16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def fwd_tf32_workspace_floats(B, S, H, P, G, N, Q) -> int:
+    """Floats of the mma_tf32x3 body's workspace: ``csrc/ssd.cu``'s
+    ``fwd_workspace`` (the chunk states, cum, C·Bᵀ a (b, chunk, group))."""
+    nc = -(-S // Q)
+    cum = _round4(B * nc * H * P * N)
+    cb = _round4(cum + B * H * nc * Q)
+    return cb + B * nc * G * _round16(Q) * _round16(Q)
+
+
+def bwd_workspace_floats(body: str, B, S, H, P, G, N, Q) -> int:
+    """Floats of the backward's workspace on ``body``: ``csrc/ssd.cu``'s
+    ``ssd_bwd_workspace_floats`` (fma) and ``ssd_bwd_mma_workspace_floats``
+    (mma: the fma body's parts up to its scratch, then C·Bᵀ and its
+    transpose a (b, chunk, group))."""
+    nc, Qp = -(-S // Q), (Q + 3) & ~3
+    states = _round4(B * H * nc * Q)
+    parts = states + 2 * B * nc * H * P * N + B * H * P * N \
+        + 2 * B * S * H * N
+    scratch = _round4(parts + 2 * B * nc * H)
+    if body == "mma":
+        return scratch + B * nc * G * 2 * _round16(Q) * _round16(Q)
+    return scratch + B * nc * H * (3 * Qp * Qp + (Qp // 4) * Qp
+                                   + 2 * (N // 4) * Qp)
+
+
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
              chunk: int = 128, body: str | None = None):
@@ -168,6 +271,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if B * H == 0:
         return y, state
+    if fake(x):
+        return _ssd_twin(body, x, y, state, G, N, chunk)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if body == "fma":
@@ -207,8 +312,24 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             if err:
                 raise RuntimeError(f"ssd kernel launch failed ({body} body, "
                                    f"{name}): CUDA error {err}")
-    ssd_cuda.launches += 1
-    ssd_cuda.launches_by_body[body] += 1
+    count_launch(ssd_cuda, body)
+    return y, state
+
+
+def _ssd_twin(body, x, y, state, G, N, chunk):
+    """``ssd_cuda`` on fake tensors, past the outputs: the workspace
+    ``body`` allocates, the cost charged on ``body``; nothing launched."""
+    B, S, H, P = x.shape
+    f32, dev = torch.float32, x.device
+    if body == "mma_tf32x3":
+        torch.empty(fwd_tf32_workspace_floats(B, S, H, P, G, N, chunk),
+                    dtype=f32, device=dev)
+    elif body == "mma":
+        nc = -(-S // chunk)
+        states = torch.empty((B, nc, H, P, N), dtype=f32, device=dev)
+        cum = torch.empty((B, H, nc * chunk), dtype=f32, device=dev)
+        del states, cum
+    charge("ssd", ssd_cost(B, S, H, P, G, N, chunk, x.dtype), body)
     return y, state
 
 
@@ -284,7 +405,9 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f", N={Bm.shape[-1]}, chunk {chunk} (bodies: "
                          f"{BWD_BODIES})")
     entry = "ssd_bwd_mma" if body == "mma" else "ssd_bwd"
-    if body == "mma":   # it reads x, dy, Bm and Cm as 16-byte vectors
+    shape_only = fake(x)
+    if body == "mma" and not shape_only:
+        # it reads x, dy, Bm and Cm as 16-byte vectors
         x, Bm, Cm, dy = (_aligned(t) for t in (x, Bm, Cm, dy))
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
@@ -293,6 +416,13 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dx, dBm, dCm = (torch.empty_like(t) for t in (x, Bm, Cm))
     ddt = torch.empty((B, S, H), dtype=f32, device=x.device)
     dA, dD = (torch.empty(H, dtype=f32, device=x.device) for _ in range(2))
+    if shape_only:  # the workspace and the cost; no launch
+        torch.empty(bwd_workspace_floats(body, B, S, H, P, G, N, chunk),
+                    dtype=f32, device=x.device)
+        charge("ssd_bwd", ssd_bwd_cost(B, S, H, P, G, N, chunk, x.dtype),
+               body)
+        return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dBm, dCm,
+                dD.to(D.dtype))
     with torch.cuda.device(x.device):
         ws = torch.empty(_entry(entry + "_workspace_floats")(
             B, S, H, P, G, N, chunk), dtype=f32, device=x.device)
@@ -306,8 +436,7 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if err:
         raise RuntimeError(f"ssd backward launch failed ({body} body): CUDA "
                            f"error {err}")
-    ssd_bwd_cuda.launches += 1
-    ssd_bwd_cuda.launches_by_body[body] += 1
+    count_launch(ssd_bwd_cuda, body)
     return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dBm, dCm, dD.to(D.dtype))
 
 

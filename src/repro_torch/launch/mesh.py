@@ -22,9 +22,9 @@ from repro_torch.device import resolve_device
 def init_distributed(device="cuda") -> None:
     """The default process group, once: NCCL on ``cuda``, gloo on ``cpu``;
     from ``torchrun``'s environment where it is set, else world size 1."""
-    device = resolve_device(device)
     if dist.is_initialized():
         return
+    device = resolve_device(device)
     backend = "nccl" if device.type == "cuda" else "gloo"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         if device.type == "cuda":
@@ -35,8 +35,15 @@ def init_distributed(device="cuda") -> None:
                                 world_size=1)
 
 
+def _fake_group() -> bool:
+    """Whether the default group is a ``"fake"`` one (the dry-run's: ranks
+    that exist as numbers only, no card behind them)."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def _mesh(shape: tuple, axes: tuple, device):
-    device = resolve_device(device)
+    # over a fake group the mesh only names its device: no card is asked
+    device = torch.device(device) if _fake_group() else resolve_device(device)
     init_distributed(device)
     world = dist.get_world_size()
     if math.prod(shape) != world:

@@ -38,9 +38,11 @@ def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
         raise ValueError(f"mrope sections {sections} do not sum to {half}")
     inv = _inv_freq(head_dim, theta, positions3.device)
     freqs = positions3[..., None].float() * inv  # (3, ..., S, half)
-    band_src = torch.repeat_interleave(
-        torch.arange(3, device=positions3.device),
-        torch.as_tensor(sections, device=positions3.device))
+    # the coordinate of each band, built on the host: a repeat_interleave
+    # by a tensor of counts has a data-dependent length, which a trace on
+    # tensors that hold no data cannot follow
+    band_src = torch.tensor([i for i, n in enumerate(sections)
+                             for _ in range(n)], device=positions3.device)
     # band j takes coordinate band_src[j]: take_along_axis over the leading 3
     idx = band_src.view((1,) * (freqs.ndim - 1) + (half,))
     freqs = torch.gather(freqs, 0, idx.expand((1,) + freqs.shape[1:]))[0]

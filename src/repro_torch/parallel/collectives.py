@@ -74,12 +74,20 @@ def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM
     return x
 
 
+def _along(out: torch.Tensor, dim: int) -> torch.Tensor:
+    """A collective's result, gathered or scattered along its leading dim,
+    moved to ``dim`` and laid out whole: the kernels take contiguous rows
+    (RMSNorm) and a contiguous last dim (flash attention), and a view with
+    ``dim`` moved would give them neither."""
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
 def _gather_one(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
     n = axis_size(mesh, axis)
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _quiet(dist.all_gather_into_tensor, out, src, group=mesh.get_group(axis))
-    return out.movedim(0, dim)
+    return _along(out, dim)
 
 
 def all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
@@ -98,7 +106,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, mesh, axis: str
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
     _quiet(dist.reduce_scatter_tensor, out, src, group=mesh.get_group(axis))
-    return out.movedim(0, dim)
+    return _along(out, dim)
 
 
 def local_slice(x: torch.Tensor, dim: int, index: int, count: int

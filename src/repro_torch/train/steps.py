@@ -44,6 +44,11 @@ class TrainConfig:
     adamw: AdamWConfig = field(default_factory=AdamWConfig)
     zero1: bool = True
     pod_grad_compress: bool = False      # int8 cross-pod gradient sum
+    # the reference's scan over superblocks (False: unrolled, so XLA's cost
+    # analysis counts every layer); eager torch has no compiled scan, so
+    # the layer loop runs every layer under either value, and the dry-run
+    # counts every layer either way
+    scan_layers: bool = True
     loss_dtype: Any = torch.float32      # bfloat16: skip fp32 logits pass
 
     def __post_init__(self):

@@ -388,6 +388,22 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk):
     assert_allclose(f32(state), f32(want_state), rtol=t, atol=t)
 
 
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (8, 1024, 24, 64, 1, 128, 128), (2, 300, 4, 32, 2, 64, 64),
+    (1, 17, 8, 128, 1, 64, 16)])
+def test_ssd_twin_workspaces_are_the_librarys(cuda, B, S, H, P, G, N,
+                                              chunk):
+    """The workspace sizes the shape-only twins allocate (Python mirrors of
+    ``csrc/ssd.cu``) against the library's own ``*_workspace_floats``."""
+    shape = (B, S, H, P, G, N, chunk)
+    assert ssd.fwd_tf32_workspace_floats(*shape) == \
+        ssd._entry("ssd_fwd_mma_tf32_workspace_floats")(*shape)
+    for body, name in (("fma", "ssd_bwd_workspace_floats"),
+                       ("mma", "ssd_bwd_mma_workspace_floats")):
+        assert ssd.bwd_workspace_floats(body, *shape) == \
+            ssd._entry(name)(*shape)
+
+
 def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     args = list(_ssd_inputs(cuda, 1, 32, 4, 16, 1, 16, torch.float32))
     x, dt, A, Bm, Cm, D = args

@@ -10,6 +10,7 @@ AdamW 1e-6 on identical gradients; the corpus bit for bit.
 """
 import dataclasses
 import json
+import random
 import runpy
 import sys
 from pathlib import Path
@@ -21,8 +22,11 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
+import repro.core as jax_core
 from repro.data import Prefetcher as JaxPrefetcher
 from repro.data import SyntheticLM as JaxSyntheticLM
+from repro.data import read_shards as jax_read_shards
+from repro.data import write_shards as jax_write_shards
 from repro.models import cross_entropy as jax_cross_entropy
 from repro.models import forward_train as jax_forward_train
 from repro.models import init_params as jax_init_params
@@ -32,8 +36,9 @@ from repro.optim import constant as jax_constant
 from repro.optim import cosine_with_warmup as jax_cosine
 from repro.optim import init_opt_state as jax_init_opt_state
 from repro_torch.configs import ARCH_IDS, get_smoke_config
+import repro_torch.core as torch_core
 from repro_torch.core import CannyFS, InMemoryBackend
-from repro_torch.data import Prefetcher, SyntheticLM
+from repro_torch.data import Prefetcher, SyntheticLM, read_shards, write_shards
 from repro_torch.models import cross_entropy, forward_train, init_params
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.models.config import ModelConfig
@@ -50,7 +55,7 @@ REL = 2e-4
 ENGINE_FILES = ("backend", "durability", "engine", "errors", "executor",
                 "flags", "fusion", "namespace", "prefetch", "readahead",
                 "scheduler", "simclock", "tenancy", "fs", "transaction",
-                "faults")
+                "faults", "objectstore", "remote")
 
 sys.path.insert(0, str(ROOT / "examples"))
 from train_lm_torch import PRESETS, preset_config  # noqa: E402
@@ -467,6 +472,103 @@ def test_engine_copy_is_byte_identical(name):
     ours = ROOT / "src" / "repro_torch" / "core" / f"{name}.py"
     theirs = ROOT / "src" / "repro" / "core" / f"{name}.py"
     assert ours.read_bytes() == theirs.read_bytes()
+
+
+def _op_stream(backend, seed: int, n: int = 300) -> list:
+    """``n`` random StorageBackend calls on ``backend`` from ``seed``: what
+    each returned, or the name of the error it raised."""
+    rng = random.Random(seed)
+    dirs, files, out = ["/d0", "/d1", "/d0/e"], [], []
+    for d in dirs:
+        backend.mkdir(d)
+    for _ in range(n):
+        op = rng.choice(["create", "write_at", "write_vec", "read_at",
+                         "read_vec", "stat", "readdir", "rename", "unlink",
+                         "truncate", "remove_tree", "mkdir"])
+        path = rng.choice(files) if files and rng.random() < 0.8 else \
+            f"{rng.choice(dirs)}/f{rng.randrange(12)}"
+        try:
+            if op == "create":
+                backend.create(path)
+                files.append(path)
+                r = None
+            elif op == "write_at":
+                r = backend.write_at(path, rng.randrange(64),
+                                     rng.randbytes(rng.randrange(1, 200)))
+            elif op == "write_vec":
+                r = backend.write_vec(path, [
+                    (rng.randrange(256), rng.randbytes(rng.randrange(1, 64)))
+                    for _ in range(rng.randrange(1, 4))])
+            elif op == "read_at":
+                r = backend.read_at(path, rng.randrange(64),
+                                    rng.randrange(1, 128))
+            elif op == "read_vec":
+                r = backend.read_vec(path, [(0, 16), (rng.randrange(64), 32)])
+            elif op == "stat":
+                st = backend.stat(path)
+                r = (st.size, st.is_dir)
+            elif op == "readdir":
+                r = sorted(backend.readdir(rng.choice(dirs)))
+            elif op == "rename":
+                dst = f"{rng.choice(dirs)}/g{rng.randrange(12)}"
+                backend.rename(path, dst)
+                files.append(dst)
+                r = None
+            elif op == "unlink":
+                r = backend.unlink(path)
+            elif op == "truncate":
+                r = backend.truncate(path, rng.randrange(100))
+            elif op == "remove_tree":
+                r = backend.remove_tree(rng.choice(dirs[1:]))
+            else:
+                backend.mkdir(rng.choice(dirs))
+                r = None
+        except Exception as e:  # the same error on both packages' backends
+            r = type(e).__name__
+        out.append((op, r))
+    return out
+
+
+@pytest.mark.parametrize("name", ["ObjectStoreBackend",
+                                  "RemoteStreamBackend"])
+def test_remote_backends_match_the_jax_packages(name):
+    """The object store and the SFTP-like stream, exported from the port's
+    ``core``, on one seeded stream of calls: the same results, final state
+    and public-call count as the JAX package's."""
+    ours = getattr(torch_core, name)()
+    theirs = getattr(jax_core, name)()
+    assert _op_stream(ours, 7) == _op_stream(theirs, 7)
+    assert ours.snapshot() == theirs.snapshot()
+    assert ours.op_count == theirs.op_count > 200
+    assert ours.clock.now() == theirs.clock.now()
+
+
+def test_shards_round_trip_like_the_jax_packages():
+    """``write_shards`` -> ``read_shards`` through the port's CannyFS gives
+    the arrays the JAX package's pair gives through its own, from one
+    ``SyntheticLM`` seed (arrays, not bytes: an .npz's zip headers carry a
+    timestamp)."""
+    cfg = _lm("small", 1)
+    got = []
+    for fs_cls, writer, reader, corpus, jcfg in (
+            (CannyFS, write_shards, read_shards, SyntheticLM, cfg),
+            (jax_core.CannyFS, jax_write_shards, jax_read_shards,
+             JaxSyntheticLM, _jax_cfg(cfg))):
+        inner = (InMemoryBackend if fs_cls is CannyFS
+                 else jax_core.InMemoryBackend)()
+        fs = fs_cls(inner, echo_errors=False)
+        paths = writer(fs, "/shards", iter(corpus(jcfg, batch=3, seq_len=40,
+                                                  seed=4)), 5)
+        fs.drain()
+        got.append((paths, list(reader(fs, "/shards", chunk=1000))))
+        fs.close()
+    (paths, ours), (jpaths, theirs) = got
+    assert paths == jpaths and len(ours) == len(theirs) == 5
+    for a, b in zip(ours, theirs):
+        assert a.keys() == b.keys() == {"tokens", "labels"}
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 # ---------------------------------------------------------------------------
