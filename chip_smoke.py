@@ -277,6 +277,28 @@ Phases, each printed as one JSON line:
    measured; ``model_flops`` must equal ``train_bounds``' and each twin's
    launches the launches a step that phase counted; the SSD twins'
    workspace sizes must equal the library's.
+19. (after the serves) ``serve_mamba2_p128``: mamba2-130m at full width
+   and depth at ``MAMBA2_P128`` (12 heads of 128, states of 128, the
+   upstream module's chunk of 256, run at a tile of 128), built with
+   ``dataclasses.replace`` on the registry's config: one bf16 wave (batch
+   4, prompt 512, 32 new tokens) on the SSD mma body at head dim 128,
+   held against its fp32 wave (within ``SERVE_REL`` of ``forward_train``)
+   no further than 1.1 x the same wave with the fma body forced; its
+   launches counted as the serves' are.
+20. (after 8) ``train_mamba2_p128``: ``train_mamba2`` at ``MAMBA2_P128``,
+   batch 8 x 1024, 10 steps, one checkpoint: the loss falls, 24 SSD
+   launches a step each way, every forward on mma_tf32x3 and every
+   backward on mma (two slabs of P) at head dim 128; step ms, peak memory
+   and the SSD backward's device ms and share of a profiled step.  Before
+   it ``train_check`` holds the same config at 2 layers (batch 2 x 256)
+   against the CPU within the fp32 limits, and ``kernels`` holds the SSD
+   forward at P, N and chunk 128 and at chunk 256 (head dims 64 and 128)
+   on every body, the backward at (8,1024,12,128) chunk 128 and
+   (2,1000,12,128) chunk 256 with the final state's gradient on the mma
+   body (fp32 and bf16, twice: the same bits), and times the backward
+   there (``ssd_bwd_p128``, beside the fma body at chunk 64, the only body
+   that took P 128 before) and the fp32 forward at chunk 256
+   (``ssd_fwd_fp32_p128``, beside the fma body).
 
 The shapes the train and encode phases cut from (train_4k's 4096,
 prefill_32k's 32768) are ``launch/specs.py``'s ``SHAPES``, and every
@@ -323,7 +345,8 @@ leaf within 5e-2 in relative L2 norm).
 
 Then a ``kernels`` summary line (launches summed over the serve and train
 phases, and per path: each serve (the two MoE configs and qwen2-vl-2b
-too), train-100m, train-mamba2, train-rgemma-3l, train-qwen2vl-bf16,
+too, and serve-mamba2-p128), train-100m, train-mamba2, train-mamba2-p128,
+train-rgemma-3l, train-qwen2vl-bf16,
 train-qwen2vl-remat, train-stablelm3b-bf16, train-rgemma-bf16,
 train-stablelm12b-bf16, encode-hubert, mesh), the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
@@ -675,13 +698,15 @@ def phase_env(build):
         "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
         for f in tf32.values()), f"an mma_tf32x3 flash kernel spills: {tf32}")
     # the scans' backward kernels: the SSD's chunk states, reverse state
-    # pass, chunk gradients, group and parameter sums (8: two dtypes each
-    # but the two passes and the parameter sum), the mma body's chunk
-    # states and C B^T (ssd_state_mma_kernel and ssd_cb_kernel, which the
-    # fp32 forward's mma_tf32x3 body shares: 4 and 3, two dtypes for the
-    # backward, the forward's one at each x stride) and chunk gradients (4:
-    # two dtypes, at mamba2-130m's tile counts and at any) and the RG-LRU's
-    # serial and segmented bodies (2 dtypes each)
+    # pass, chunk gradients, parameter and slab sums (7: two dtypes each
+    # but the two passes and the two sums), its group sums (4: two dtypes
+    # x one or two slabs of P), the mma body's chunk states and C B^T
+    # (ssd_state_mma_kernel and ssd_cb_kernel, which the fp32 forward's
+    # mma_tf32x3 body shares: 6 and 3, two dtypes x one or two slabs for
+    # the backward, the forward's one at each x stride) and chunk gradients
+    # (6: two dtypes, at mamba2-130m's tile counts, at its P-128 variant's
+    # and at any) and the RG-LRU's serial and segmented bodies (2 dtypes
+    # each)
     scan_bwd = {name: f for src in ("ssd", "rglru")
                 for name, f in ptxas_functions(logs[src]).items()
                 if any(k in name for k in ("ssd_bwd_", "ssd_state_mma_kernel",
@@ -689,10 +714,12 @@ def phase_env(build):
                                            "rglru_bwd_kernel",
                                            "rglru_bwd_segmented_kernel"))}
     emit("env", scan_backward_ptxas=scan_bwd)
-    check(len(scan_bwd) == 23 and all(
-        "0 bytes spill stores, 0 bytes spill loads" in f["spills"]
-        for f in scan_bwd.values()),
-        f"a scan backward kernel spills: {scan_bwd}")
+    check(len(scan_bwd) == 30,
+          f"{len(scan_bwd)} scan backward kernels built, not 30: "
+          f"{sorted(scan_bwd)}")
+    check(all("0 bytes spill stores, 0 bytes spill loads" in f["spills"]
+              for f in scan_bwd.values()),
+          f"a scan backward kernel spills: {scan_bwd}")
     return smi
 
 
@@ -980,27 +1007,45 @@ def phase_kernels(dev, gen, seed):
     # ssd_chunked (S a multiple of the chunk) or ssd_sequential (ragged S),
     # on each body that takes the inputs (mma: bf16; mma_tf32x3: fp32;
     # fma: both)
-    for dtype in (torch.float32, torch.bfloat16):
-        for B, S, H, P, G, N, chunk in [(4, 512, 24, 64, 1, 128, 128),
-                                        (2, 1000, 24, 64, 1, 128, 128),
-                                        (2, 256, 8, 64, 2, 128, 64),
-                                        (1, 300, 4, 32, 2, 64, 64),
-                                        (1, 90, 3, 24, 3, 8, 20),
-                                        (1, 64, 2, 128, 1, 32, 32)]:
-            args = ssd_inputs(randn, B, S, H, P, G, N, dtype)
-            want_y, want_state = (ssd_chunked(*args, chunk=chunk)
-                                  if S % chunk == 0 else ssd_sequential(*args))
-            bodies = ssd.bodies_for(*args, chunk)
-            for body in bodies:
-                y, state = ssd_cuda(*args, chunk=chunk, body=body)
-                err_y, ok_y = compare(y, want_y, dtype, SSD_TOL)
-                err_s, ok_s = compare(state, want_state, dtype, SSD_TOL)
-                cases.append(dict(kernel="ssd", body=body,
-                                  selected=ssd_body(*args, chunk),
-                                  dtype=str(dtype), B=B, S=S, H=H, P=P, G=G,
-                                  N=N, chunk=chunk,
-                                  max_abs_err=max(err_y, err_s),
-                                  tol=SSD_TOL[dtype], ok=ok_y and ok_s))
+    def ssd_holds(draw, shapes, picks=False):
+        """Each shape on each body, fp32 and bf16; with ``picks`` the body
+        ``select_body`` picks must be the dtype's tensor-core body."""
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, S, H, P, G, N, chunk in shapes:
+                args = ssd_inputs(draw, B, S, H, P, G, N, dtype)
+                want_y, want_state = (
+                    ssd_chunked(*args, chunk=chunk) if S % chunk == 0
+                    else ssd_sequential(*args))
+                selected = ssd_body(*args, chunk)
+                for body in ssd.bodies_for(*args, chunk):
+                    y, state = ssd_cuda(*args, chunk=chunk, body=body)
+                    err_y, ok_y = compare(y, want_y, dtype, SSD_TOL)
+                    err_s, ok_s = compare(state, want_state, dtype, SSD_TOL)
+                    cases.append(dict(
+                        kernel="ssd", body=body, selected=selected,
+                        dtype=str(dtype), B=B, S=S, H=H, P=P, G=G, N=N,
+                        chunk=chunk, tile=ssd.ssd_tile(chunk),
+                        max_abs_err=max(err_y, err_s), tol=SSD_TOL[dtype],
+                        ok=ok_y and ok_s and (not picks or selected == (
+                            "mma_tf32x3" if dtype == f32 else "mma"))))
+
+    ssd_holds(randn, [(4, 512, 24, 64, 1, 128, 128),
+                      (2, 1000, 24, 64, 1, 128, 128),
+                      (2, 256, 8, 64, 2, 128, 64),
+                      (1, 300, 4, 32, 2, 64, 64),
+                      (1, 90, 3, 24, 3, 8, 20),
+                      (1, 64, 2, 128, 1, 32, 32)])
+    # head, state and chunk 128 (mamba2-130m at MAMBA2_P128's head dim), and
+    # its chunk of 256, run at a tile of 128 and held against the plain scan
+    # at 256 (ragged: the sequential scan), at head dims 128 and 64; from a
+    # generator of their own, so the later phases draw what they drew
+    # before these cases
+    g_p128 = torch.Generator(device=dev).manual_seed(seed + 7)
+    ssd_holds(lambda *shape, dtype: torch.randn(
+        shape, generator=g_p128, device=dev).to(dtype),
+        [(2, 512, 12, 128, 1, 128, 128), (2, 1024, 12, 128, 1, 128, 256),
+         (2, 1000, 12, 128, 1, 128, 256), (2, 1024, 24, 64, 1, 128, 256)],
+        picks=True)
     # fp32 at mamba2-130m's train shape (the body its train step runs:
     # mma_tf32x3, and the fma body forced, its previous one), drawn from a
     # generator of its own so the later phases draw what they drew before
@@ -2394,7 +2439,9 @@ def scan_backward_kernels(dev, gen, cases, summary):
     from repro_torch.kernels.rglru.kernel import \
         select_bwd_body as rglru_select_bwd
     from repro_torch.kernels.rglru.ref import rglru_bwd
-    from repro_torch.kernels.ssd.kernel import select_bwd_body, ssd_bwd_cuda
+    from repro_torch.kernels.ssd.kernel import (bwd_bodies_for, bwd_slabs,
+                                                select_bwd_body,
+                                                ssd_bwd_cuda, ssd_tile)
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
     f32 = torch.float32
 
@@ -2402,33 +2449,48 @@ def scan_backward_kernels(dev, gen, cases, summary):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # ---- SSD backward: mamba2-130m's train shape, a ragged last chunk,
-    # grouped B/C; with and without the final state's gradient
-    for dtype in (f32, torch.bfloat16):
-        for (B, S, H, P, G, N, Q), with_state in (
-                ((8, 1024, 24, 64, 1, 128, 128), False),
-                ((2, 1000, 24, 64, 1, 128, 128), True),
-                ((2, 200, 4, 16, 2, 16, 64), True)):
-            args = ssd_inputs(randn, B, S, H, P, G, N, dtype)
-            dy = randn(B, S, H, P, dtype=dtype)
-            ds = randn(B, H, P, N) if with_state else None
-            body = select_bwd_body(*args, dy, Q, ds)
-            got = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
-            again = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
-            fma = ssd_bwd_cuda(*args, dy, ds, chunk=Q, body="fma")
-            want = ssd_chunked_bwd(*args, dy, ds, chunk=Q)
-            errs = [compare(g, w, dtype, SSD_TOL) for g, w in zip(got, want)]
-            fma_errs = [compare(g, w, dtype, SSD_TOL) for g, w in zip(fma,
-                                                                     want)]
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            cases.append(dict(kernel="ssd_bwd", body=body, dtype=str(dtype),
-                              B=B, S=S, H=H, P=P, G=G, N=N, chunk=Q,
-                              d_state=with_state,
-                              max_abs_err=max(e for e, _ in errs),
-                              errs=[e for e, _ in errs],
-                              fma_errs=[e for e, _ in fma_errs],
-                              tol=SSD_TOL[dtype], deterministic=same,
-                              ok=all(ok for _, ok in errs + fma_errs) and same
-                              and body == "mma"))
+    # grouped B/C; with and without the final state's gradient; the fma
+    # body forced beside the mma body where its block fits
+    def ssd_bwd_holds(draw, shapes):
+        for dtype in (f32, torch.bfloat16):
+            for (B, S, H, P, G, N, Q), with_state in shapes:
+                args = ssd_inputs(draw, B, S, H, P, G, N, dtype)
+                dy = draw(B, S, H, P, dtype=dtype)
+                ds = draw(B, H, P, N, dtype=f32) if with_state else None
+                body = select_bwd_body(*args, dy, Q, ds)
+                got = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
+                again = ssd_bwd_cuda(*args, dy, ds, chunk=Q)
+                want = ssd_chunked_bwd(*args, dy, ds, chunk=Q)
+                errs = [compare(g, w, dtype, SSD_TOL)
+                        for g, w in zip(got, want)]
+                fma_errs = [compare(g, w, dtype, SSD_TOL) for g, w in zip(
+                    ssd_bwd_cuda(*args, dy, ds, chunk=Q, body="fma"), want)
+                ] if "fma" in bwd_bodies_for(*args, dy, Q, ds) else []
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                cases.append(dict(kernel="ssd_bwd", body=body,
+                                  dtype=str(dtype), B=B, S=S, H=H, P=P, G=G,
+                                  N=N, chunk=Q, tile=ssd_tile(Q),
+                                  slabs=bwd_slabs(P), d_state=with_state,
+                                  max_abs_err=max(e for e, _ in errs),
+                                  errs=[e for e, _ in errs],
+                                  fma_errs=[e for e, _ in fma_errs],
+                                  tol=SSD_TOL[dtype], deterministic=same,
+                                  ok=all(ok for _, ok in errs + fma_errs)
+                                  and same and body == "mma"))
+
+    ssd_bwd_holds(lambda *shape, dtype=f32: randn(*shape, dtype=dtype), (
+        ((8, 1024, 24, 64, 1, 128, 128), False),
+        ((2, 1000, 24, 64, 1, 128, 128), True),
+        ((2, 200, 4, 16, 2, 16, 64), True)))
+    # mamba2-130m at MAMBA2_P128: head dim 128 (two slabs of P, where the
+    # fma body's block does not fit) at chunk 128, and at its chunk of 256
+    # (a tile of 128; ragged, with the final state's gradient); from a
+    # generator of their own, so the later cases draw what they drew before
+    g_p128 = torch.Generator(device=dev).manual_seed(gen.initial_seed() + 7)
+    ssd_bwd_holds(lambda *shape, dtype=f32: torch.randn(
+        shape, generator=g_p128, device=dev).to(dtype), (
+        ((8, 1024, 12, 128, 1, 128, 128), False),
+        ((2, 1000, 12, 128, 1, 128, 256), True)))
     # through SSDFunction: ops.ssd_scan with inputs that require grad
     args = ssd_inputs(randn, 2, 300, 4, 16, 2, 16, f32)
     dy = randn(2, 300, 4, 16)
@@ -2482,6 +2544,8 @@ def scan_backward_kernels(dev, gen, cases, summary):
         profiler_windows=window_counts(mark))
     emit("kernels", kernel="ssd_bwd", timings={
         summary["ssd_bwd"]["shape"]: summary["ssd_bwd"]})
+    ssd_p128_kernels(dev, torch.Generator(device=dev).manual_seed(
+        gen.initial_seed() + 8), summary)
 
     # ---- RG-LRU backward: recurrentgemma-9b's shape, a short sequence
     # (serial), ragged ones of one, two and three 512-step windows
@@ -2550,6 +2614,110 @@ def scan_backward_kernels(dev, gen, cases, summary):
         profiler_windows=window_counts(mark))
     emit("kernels", kernel="rglru_bwd", timings={
         summary["rglru_bwd"]["shape"]: summary["rglru_bwd"]})
+
+
+def ssd_p128_kernels(dev, gen, summary):
+    """The SSD kernels at mamba2-130m's train step at ``MAMBA2_P128``'s
+    head dim (x, dy (8,1024,12,128) fp32, Bm/Cm (8,1024,1,128)), the
+    ``train_mamba2_p128`` path's, timed and held: the backward's mma body
+    (two slabs of P) at chunk 128 beside the fma body at chunk 64 (the only
+    body that took P 128 before: its block at a tile of 128 passes 227 KB),
+    the plain backward and its bounds (``ssd_bwd_split_macs`` at the TF32
+    rate, bytes; ``fma_bound_ms``: ``ssd_bwd_macs`` at the fp32 rate), and
+    at the path's chunk of 256 (a tile of 128); the fp32 forward at chunk
+    256 on its mma_tf32x3 body beside the fma body (its previous body), the
+    plain scan at 256 and its bounds.  Launches: the train_mamba2_p128
+    path's, on the body each row runs at head dim 128."""
+    from repro_torch.kernels.ssd.kernel import (bwd_slabs, select_body,
+                                                select_bwd_body,
+                                                ssd_bwd_cuda, ssd_cuda,
+                                                ssd_tile)
+    from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_chunked_bwd
+    f32 = torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, S, H, P, G, N = 8, 1024, 12, 128, 1, 128
+    args = ssd_inputs(randn, B, S, H, P, G, N, f32)
+    dy = randn(B, S, H, P)
+    shape = (f"x, dy ({B},{S},{H},{P}) fp32, dt ({B},{S},{H}), Bm/Cm "
+             f"({B},{S},{G},{N}) fp32")
+    Q, path_q = 128, MAMBA2_P128["ssm_chunk"]
+    cost = ssd_bwd_cost(B, S, H, P, G, N, Q, f32)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound, fma_by = bound(cost.bytes, cost.flops, f32)
+    body = select_bwd_body(*args, dy, Q)
+    check(body == "mma", f"ssd_bwd at head dim 128: body {body}")
+    kernel = lambda: ssd_bwd_cuda(*args, dy, chunk=Q)  # noqa: E731
+    at_256 = lambda: ssd_bwd_cuda(*args, dy, chunk=path_q)  # noqa: E731
+    previous = lambda: ssd_bwd_cuda(*args, dy, chunk=64,  # noqa: E731
+                                    body="fma")
+    want = ssd_chunked_bwd(*args, dy, chunk=Q)
+    mark = len(PROFILER_WINDOWS)
+    summary["ssd_bwd_p128"] = dict(
+        name="ssd_bwd_p128", route="cuda",
+        source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:71 (its gradient: JAX "
+                 "differentiates the jnp reference)",
+        shape=f"{shape}, chunk {Q} (mamba2-130m's step at head dim 128)",
+        counted_as=("ssd_bwd", "mma", (P,)), body=body, slabs=bwd_slabs(P),
+        ms=device_ms(kernel), event_ms=time_ms(kernel),
+        kernel_ms=kernel_breakdown(kernel),
+        chunk_256_ms=device_ms(at_256), chunk_256_tile=ssd_tile(path_q),
+        previous_body="fma at chunk 64",
+        previous_body_ms=device_ms(previous),
+        previous_body_event_ms=time_ms(previous),
+        previous_body_kernel_ms=kernel_breakdown(previous),
+        plain_ms=device_ms(lambda: ssd_chunked_bwd(*args, dy, chunk=Q),
+                           iters=5, warmup=1),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        fma_bound_ms=fma_bound, fma_bound_by=fma_by,
+        bwd_macs=ssd_bwd_macs(B, S, H, P, G, N, Q),
+        bwd_split_macs=ssd_bwd_split_macs(B, S, H, P, G, N, Q),
+        max_abs_err=max(compare(g, w, f32, SSD_TOL)[0]
+                        for g, w in zip(kernel(), want)),
+        chunk_256_max_abs_err=max(
+            compare(g, w, f32, SSD_TOL)[0] for g, w in zip(
+                at_256(), ssd_chunked_bwd(*args, dy, chunk=path_q))),
+        previous_body_max_abs_err=max(compare(g, w, f32, SSD_TOL)[0]
+                                      for g, w in zip(previous(), want)),
+        profiler_windows=window_counts(mark))
+    del want
+    emit("kernels", kernel="ssd_bwd_p128", timings={
+        summary["ssd_bwd_p128"]["shape"]: summary["ssd_bwd_p128"]})
+
+    cost = ssd_cost(B, S, H, P, G, N, path_q, f32)
+    t_bound, by = cost_bound_ms(cost)
+    fma_bound, fma_by = bound(cost.bytes, cost.flops, f32)
+    kernel = lambda: ssd_cuda(*args, chunk=path_q)  # noqa: E731
+    previous = lambda: ssd_cuda(*args, chunk=path_q,  # noqa: E731
+                                body="fma")
+    want = ssd_chunked(*args, chunk=path_q)
+    mark = len(PROFILER_WINDOWS)
+    summary["ssd_fwd_fp32_p128"] = dict(
+        name="ssd_fwd_fp32_p128", route="cuda",
+        source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:71",
+        shape=f"x ({B},{S},{H},{P}) fp32, dt ({B},{S},{H}), Bm/Cm "
+              f"({B},{S},{G},{N}) fp32, chunk {path_q} at a tile of "
+              f"{ssd_tile(path_q)} (mamba2-130m's step at MAMBA2_P128)",
+        counted_as=("ssd", "mma_tf32x3", (P,)),
+        body=select_body(*args, path_q), ms=device_ms(kernel),
+        event_ms=time_ms(kernel), kernel_ms=kernel_breakdown(kernel),
+        previous_body="fma", previous_body_ms=device_ms(previous),
+        previous_body_event_ms=time_ms(previous),
+        plain_ms=device_ms(lambda: ssd_chunked(*args, chunk=path_q),
+                           iters=5, warmup=1),
+        library_ms=None, bound_ms=t_bound, bound_by=by,
+        fma_bound_ms=fma_bound, fma_bound_by=fma_by,
+        macs=ssd_macs(B, S, H, P, G, N, path_q),
+        max_abs_err=max(compare(g, w, f32, SSD_TOL)[0]
+                        for g, w in zip(kernel(), want)),
+        profiler_windows=window_counts(mark))
+    emit("kernels", kernel="ssd_fwd_fp32_p128", timings={
+        summary["ssd_fwd_fp32_p128"]["shape"]:
+            summary["ssd_fwd_fp32_p128"]})
 
 
 def route_stats(pairs, records, k: int) -> dict:
@@ -2859,6 +3027,132 @@ def phase_ssd_bodies(dev, gen, batch: int = 4, prompt: int = 512):
     ssd.reset_counts()
 
 
+def phase_serve_mamba2_p128(dev, seed, batch: int = 4, prompt: int = 512,
+                            new: int = 32):
+    """mamba2-130m at ``MAMBA2_P128`` (full width and depth) served: one
+    bf16 wave (batch 4, a 512-token prompt, 32 greedy new tokens) through
+    ``make_prefill_step`` / ``make_decode_step``, its prefill on the SSD
+    mma body at head dim 128 and a tile of 128 (the chunk of 256); every
+    launch counted from 0 just before and read just after (24 SSD on the
+    mma body, 49 RMSNorm on one_read for the prefill and each decode
+    step).  Held against its fp32 wave as ``serve_check`` holds the served
+    archs: the same prompt and the bf16 wave's tokens through the fp32
+    weights and cache (prefill on the mma_tf32x3 body, then decode), whose
+    33 logit rows lie within ``SERVE_REL`` of ``forward_train``'s on the
+    same tokens; and the bf16 wave's rows against the fp32 wave's, no
+    further (relative to the largest fp32 logit) than 1.1 x the same bf16
+    wave with the SSD forward's fma body forced (its previous body) is,
+    both printed."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as lru
+    from repro_torch.kernels.rmsnorm import kernel as rms
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.models import (decode_step, forward_train, init_cache,
+                                    init_params, prefill)
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), **MAMBA2_P128)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    params = init_params(cfg, device=dev, dtype=torch.float32, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    max_len = prompt + new + 8
+    bf16 = torch.bfloat16
+    p16 = _cast(params, bf16)
+    pre, dec = make_prefill_step(cfg, dtype=bf16), make_decode_step(
+        cfg, dtype=bf16)
+    kernels = {"rmsnorm": rms.rmsnorm_cuda,
+               "flash_attention": flash.flash_attention_cuda,
+               "rglru": lru.rglru_cuda, "ssd": ssd.ssd_cuda}
+    with torch.inference_mode():
+        for module in (flash, rms, lru, ssd):
+            module.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        last, cache = pre(p16, {"tokens": toks},
+                          init_cache(cfg, batch, max_len, bf16, device=dev))
+        torch.cuda.synchronize()
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        rows, out = [last], []
+        tok = torch.argmax(last, -1)[:, None].to(torch.int32)
+        t0 = time.monotonic()
+        for _ in range(new):
+            out.append(tok)
+            tok, logits, cache = dec(p16, tok, cache)
+            rows.append(logits)
+        torch.cuda.synchronize()
+        decode_ms = (time.monotonic() - t0) * 1e3 / new
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        by_body = {name: dict(fn.launches_by_body)
+                   for name, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        waves = {"mma": torch.stack(rows).float()}
+        fed = torch.cat(out, 1)
+
+        def forced(p, dtype):
+            """The wave again on the same tokens (prefill, then the bf16
+            wave's tokens fed one by one): its 33 logit rows."""
+            got, cache = prefill(p, {"tokens": toks}, init_cache(
+                cfg, batch, max_len, dtype, device=dev), cfg, dtype=dtype)
+            got = [got]
+            for t in range(new):
+                logits, cache = decode_step(p, fed[:, t:t + 1], cache, cfg,
+                                            dtype=dtype)
+                got.append(logits)
+            return torch.stack(got).float()
+
+        ops.ssd_cuda = functools.partial(ssd.ssd_cuda, body="fma")
+        try:
+            waves["fma"] = forced(p16, bf16)
+        finally:
+            ops.ssd_cuda = ssd.ssd_cuda
+        before = dict(ssd.ssd_cuda.launches_by_body)
+        waves["fp32"] = forced(params, torch.float32)
+        fp32_body = {b: n - before[b]
+                     for b, n in ssd.ssd_cuda.launches_by_body.items()}
+        full, _ = forward_train(params, {"tokens": torch.cat([toks, fed], 1)},
+                                cfg, dtype=torch.float32)
+        full = full[:, prompt - 1:].transpose(0, 1).float()
+    scale = float(waves["fp32"].abs().max())
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / scale
+
+    errs = dict(fp32_vs_forward=rel(waves["fp32"], full),
+                mma_vs_fp32=rel(waves["mma"], waves["fp32"]),
+                fma_vs_fp32=rel(waves["fma"], waves["fp32"]),
+                mma_vs_fma=rel(waves["mma"], waves["fma"]))
+    finite = all(bool(torch.isfinite(w).all()) for w in waves.values())
+    L = cfg.num_layers
+    want = {"rmsnorm": (2 * L + 1) * (1 + new), "flash_attention": 0,
+            "rglru": 0, "ssd": L}
+    want_by_body = {"rmsnorm": {"one_read": want["rmsnorm"], "generic": 0},
+                    "ssd": {"mma": L, "mma_tf32x3": 0, "fma": 0}}
+    emit("serve_mamba2_p128", arch=cfg.name, variant=MAMBA2_P128, layers=L,
+         ssm_heads=cfg.ssm_heads, dtype="bfloat16", batch=batch,
+         prompt=prompt, new_tokens=new, prefill_ms=prefill_ms,
+         decode_ms_per_step=decode_ms, peak_mem_bytes=peak,
+         max_rel_err=errs, serve_bound=SERVE_REL,
+         bf16_bound=1.1 * errs["fma_vs_fp32"], finite=finite,
+         fp32_wave_ssd_by_body=fp32_body, launches=launches,
+         launches_expected=want, launches_by_body=by_body,
+         sample=fed[0, :10].tolist())
+    check(finite and errs["fp32_vs_forward"] < SERVE_REL
+          and errs["mma_vs_fp32"] <= 1.1 * errs["fma_vs_fp32"],
+          f"serve_mamba2_p128: rel errs {errs}, finite {finite}")
+    check(launches == want and {k: by_body[k] for k in want_by_body}
+          == want_by_body and fp32_body["mma_tf32x3"] == L,
+          f"serve_mamba2_p128: launches {launches} by body {by_body}, "
+          f"expected {want} {want_by_body}; fp32 wave {fp32_body}")
+    by_body["ssd_by_head_dim"] = {"mma": {cfg.ssm_head_dim: L}}
+    return launches, by_body
+
+
 def _lm_example():
     """The training example (``examples/train_lm_torch.py``): its presets,
     its engine mount and its step settings."""
@@ -3043,6 +3337,13 @@ def train_checks(dev, seed):
         phase_train_check(dev, seed, cfg, TrainConfig(
             dtype=torch.float32, remat_policy="none"), 2, 256, arch=arch,
             narrowed=narrowed)
+    # mamba2-130m at MAMBA2_P128 the same way: the SSD backward's two slabs
+    # of P, and its chunk of 256 at a tile of 128 both ways
+    cfg = dataclasses.replace(get_config("mamba2-130m"), num_layers=2,
+                              **MAMBA2_P128)
+    phase_train_check(dev, seed, cfg, TrainConfig(
+        dtype=torch.float32, remat_policy="none"), 2, 256, arch=cfg.name,
+        variant=MAMBA2_P128)
     for arch in ("qwen2-vl-2b", "hubert-xlarge"):
         cfg = dataclasses.replace(get_config(arch), num_layers=2)
         dh = cfg.resolved_head_dim
@@ -3328,7 +3629,9 @@ def train_bounds(cfg, batch: int, seq: int, dtype=torch.float32) -> dict:
                 peak_mem_bound_bytes=16 * cfg.param_count())
 
 
-def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
+def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25,
+                       variant: dict | None = None,
+                       phase: str = "train_mamba2"):
     """mamba2-130m at full width and depth (24 SSD layers, fp32) through the
     port's launcher, as a user runs it:
 
@@ -3336,13 +3639,16 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
             --batch 8 --seq 1024 --ckpt-every 25 --io-latency-ms 1
 
     in a directory under ``build/`` (removed at the end), its Trainer
-    recording each step's loss and time.  Every kernel count is reset just
-    before and read just after: 24 SSD launches a step each way and 2L + 1
-    = 49 RMSNorm launches (norm1 and the gated norm of each layer, the final
-    norm) each way.  The loss falls (the mean of the last 10 steps below
-    that of the first 10), every step is finite, the 4 checkpoints commit,
-    and a Trainer on the same directory restores the last step bit for
-    bit."""
+    recording each step's loss and time; ``variant`` (fields of the
+    config, the launcher's ``get_config`` patched to return them) trains
+    the registry's config with them replaced.  Every kernel count is reset
+    just before and read just after: 24 SSD launches a step each way and 2L
+    + 1 = 49 RMSNorm launches (norm1 and the gated norm of each layer, the
+    final norm) each way.  The loss falls (the mean of the last 10 steps,
+    or of the last half of fewer than 20, below that of as many first
+    ones), every step is finite, the ``steps / ckpt_every`` checkpoints
+    commit, and a Trainer on the same directory restores the last step bit
+    for bit."""
     import shutil
     import tempfile
 
@@ -3350,7 +3656,7 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
     from repro_torch.core import CannyFS, LocalBackend
     from repro_torch.launch import train as launcher
     from repro_torch.train.loop import LoopConfig, Trainer
-    cfg = get_config("mamba2-130m")
+    cfg = dataclasses.replace(get_config("mamba2-130m"), **(variant or {}))
     (ROOT / "build").mkdir(exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_mamba2_", dir=ROOT / "build")
     step_ms, losses, trainers = [], [], []
@@ -3378,6 +3684,8 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
             "--io-latency-ms", "1", "--remat", "none", "--workdir", workdir,
             "--device", str(dev)]
     launcher.Trainer = Recorded
+    if variant:
+        launcher.get_config = lambda arch: cfg
     try:
         gc.collect()
         torch.cuda.empty_cache()
@@ -3418,7 +3726,14 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
         del trainer, saved, second, trainers[:]
     finally:
         launcher.Trainer = Trainer
+        launcher.get_config = get_config
         shutil.rmtree(workdir, ignore_errors=True)
+    if variant:     # every SSD launch at the variant's head dim
+        by_body["ssd_by_head_dim"] = {
+            b: {cfg.ssm_head_dim: n} for b, n in by_body["ssd"].items() if n}
+        by_body["ssd_bwd_by_head_dim"] = {
+            b: {cfg.ssm_head_dim: n} for b, n in by_body["ssd_bwd"].items()
+            if n}
     L = cfg.num_layers
     want = {"rmsnorm": ((2 * L + 1) * steps,) * 2,
             "flash_attention": (0, 0), "rglru": (0, 0),
@@ -3430,13 +3745,17 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
                     "ssd_bwd": {"mma": L * steps, "fma": 0},
                     "rmsnorm_bwd": {"warp_rows": (L + 1) * steps,
                                     "cta_rows": L * steps, "generic": 0}}
-    warm = step_ms[5:]
-    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
-    emit("train_mamba2", arch=cfg.name, layers=L, d_model=cfg.d_model,
-         params=cfg.param_count(), dtype="float32", batch=8, seq=1024,
-         steps=steps, ckpt_every=ckpt_every, io_latency_ms=1.0,
-         wall_s=wall_s, loss_first=losses[0], loss_last=losses[-1],
-         loss_mean_first10=first, loss_mean_last10=last,
+    warm = step_ms[min(5, steps // 2):]
+    k = min(10, steps // 2)
+    first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+    emit(phase, arch=cfg.name, **({"variant": variant} if variant else {}),
+         layers=L, d_model=cfg.d_model, ssm_heads=cfg.ssm_heads,
+         ssm_head_dim=cfg.ssm_head_dim, ssm_state=cfg.ssm_state,
+         ssm_chunk=cfg.ssm_chunk, params=cfg.param_count(), dtype="float32",
+         batch=8, seq=1024, steps=steps, ckpt_every=ckpt_every,
+         io_latency_ms=1.0, wall_s=wall_s, loss_first=losses[0],
+         loss_last=losses[-1], **{f"loss_mean_first{k}": first,
+                                  f"loss_mean_last{k}": last},
          loss_every_10=losses[::10], ln_vocab=math.log(cfg.vocab_size),
          step_ms_median=statistics.median(warm), step_ms_min=min(warm),
          step_ms_max=max(warm), peak_mem_bytes=peak,
@@ -3453,20 +3772,38 @@ def phase_train_mamba2(dev, seed, steps: int = 100, ckpt_every: int = 25):
          launches_by_body=by_body, launches_by_body_expected=want_by_body)
     check(len(losses) == steps and all(math.isfinite(x) for x in losses)
           and last < first,
-          f"train_mamba2: {len(losses)} steps, loss mean {first} -> {last}")
-    check(launches == want, f"train_mamba2: launches {launches}, expected "
-          f"{want}")
+          f"{phase}: {len(losses)} steps, loss mean {first} -> {last}")
+    check(launches == want, f"{phase}: launches {launches}, expected {want}")
     check({k: by_body[k] for k in want_by_body} == want_by_body,
-          f"train_mamba2: launches by body {by_body}, expected "
-          f"{want_by_body}")
+          f"{phase}: launches by body {by_body}, expected {want_by_body}")
     want_saves = list(range(ckpt_every, steps + 1, ckpt_every))
     check([r.step for r in results] == want_saves
           and all(r.ok for r in results),
-          f"train_mamba2: checkpoints {[(r.step, r.ok) for r in results]}, "
+          f"{phase}: checkpoints {[(r.step, r.ok) for r in results]}, "
           f"expected steps {want_saves}")
-    check(identical, "train_mamba2: the restored step differs from the "
-          "saved one")
+    check(identical, f"{phase}: the restored step differs from the saved "
+          "one")
     return launches, by_body
+
+
+# mamba2-130m with 128-wide heads (12 over its d_inner of 1536), states of
+# 128 (its own) and the upstream Mamba-2 module's default chunk of 256
+# (mamba_ssm/modules/mamba2.py): the SSD backward's two slabs of P, and
+# every SSD kernel at a tile of 128 for the larger chunk
+MAMBA2_P128 = dict(ssm_head_dim=128, ssm_state=128, ssm_chunk=256)
+
+
+def phase_train_mamba2_p128(dev, seed, steps: int = 10,
+                            ckpt_every: int = 10):
+    """``phase_train_mamba2`` at ``MAMBA2_P128`` (the registry's config
+    with those fields replaced, full width and depth), batch 8 x 1024, 10
+    steps and one checkpoint through CannyFS: every loss finite and
+    falling, 24 SSD launches a step each way, every forward on mma_tf32x3
+    and every backward on mma at head dim 128, the restore bit for bit;
+    step ms, peak memory and the SSD backward's device ms and share of one
+    profiled step."""
+    return phase_train_mamba2(dev, seed, steps, ckpt_every,
+                              variant=MAMBA2_P128, phase="train_mamba2_p128")
 
 
 def phase_train_rgemma_3l(dev, seed, steps: int = 10, batch: int = 4,
@@ -4760,7 +5097,7 @@ MAMBA2_GROUPS = {
     "ssd_forward": ("ssd_state_mma_kernel<float,false",
                     "ssd_cb_kernel<float,false>", "ssd_chunk_scan_tf32_kernel"),
     "ssd_state_pass": ("ssd_state_pass_kernel",),
-    "ssd_backward": ("ssd_bwd_", "ssd_state_mma_kernel<float,true>",
+    "ssd_backward": ("ssd_bwd_", "ssd_state_mma_kernel<float,true",
                      "ssd_cb_kernel<float,true>"),
     "rmsnorm": ("rmsnorm",),
 }
@@ -5016,9 +5353,11 @@ def phase_dryrun():
               f"launches {twins}, the card's a step {m['launches_a_step']}")
     from repro_torch.kernels.ssd import kernel as ssd
     workspaces = {}
-    # mamba2-130m's train step (8 x 1024) and serve wave (4 x 512)
+    # mamba2-130m's train step (8 x 1024) and serve wave (4 x 512), and its
+    # train step at MAMBA2_P128 (the backward's two slabs; the tile of 128)
     for dims in ((8, 1024, 24, 64, 1, 128, 128),
-                 (4, 512, 24, 64, 1, 128, 128)):
+                 (4, 512, 24, 64, 1, 128, 128),
+                 (8, 1024, 12, 128, 1, 128, 128)):
         mirror = dict(fwd_mma_tf32=ssd.fwd_tf32_workspace_floats(*dims),
                       **{f"bwd_{b}": ssd.bwd_workspace_floats(b, *dims)
                          for b in ssd.BWD_BODIES})
@@ -5088,6 +5427,10 @@ def main() -> int:
             train["mesh"], train_by_body["mesh"] = phase_mesh(
                 dev, args.seed, served, first)
         del served, first   # free this model's weights before the next one
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["serve-mamba2-p128"], by_body["serve-mamba2-p128"] = \
+        phase_serve_mamba2_p128(dev, args.seed)
     blocks = phase_mesh_blocks(dev, args.seed)
     train["mesh"] = _summed(train["mesh"], blocks[0])
     train_by_body["mesh"] = _summed(train_by_body["mesh"], blocks[1])
@@ -5098,6 +5441,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for path, phase in (("train-100m", phase_train),
                         ("train-mamba2", phase_train_mamba2),
+                        ("train-mamba2-p128", phase_train_mamba2_p128),
                         ("train-rgemma-3l", phase_train_rgemma_3l),
                         ("train-rgemma-bf16", phase_train_rgemma_bf16),
                         ("train-qwen2vl-bf16", phase_train_qwen2vl_bf16),

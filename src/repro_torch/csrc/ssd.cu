@@ -10,7 +10,10 @@
 //   state    = exp(cum_{Q-1}) state_in + sum_j exp(cum_{Q-1} - cum_j) dt_j x_j B_j^T
 //
 // which is ssd_chunked (src/repro/kernels/ssd/ref.py), and returns y in x's
-// type and the fp32 state after the last token.
+// type and the fp32 state after the last token.  Every entry takes a chunk
+// Q of 16-128 tokens; the wrapper (kernels/ssd/kernel.py) runs a larger
+// chunk at a tile of 128, since the chunked scan computes the same function
+// at any chunk (only the order of its fp32 sums changes).
 //
 // Replaces the TPU kernel ssd_pallas (src/repro/kernels/ssd/kernel.py:71,
 // body _ssd_kernel).  Three bodies (mma_tf32x3 is described after the
@@ -139,17 +142,29 @@
 // ragged last chunk is padded with dt = x = B = C = dy = 0 and nothing is
 // written past S.  That is the fma body (entry ssd_bwd).
 //
-// The backward's mma body (entry ssd_bwd_mma; P up to 64, any N, chunk and
-// S, float32 and bfloat16 inputs): the same phases with every product on the
-// TF32 tensor cores, mma.sync m16n8k8, each fp32 operand split into hi + lo
-// and three products summed small terms first (3xTF32, the flash backward's
-// scheme, with truncating splits; ref.py:split_einsum and truncate_tf32
-// model it).  Launches 2, 3, 5 and 6 are the fma body's; 1 (chunk states
-// and E, a warp a 16-row strip of P) and 4 (chunk gradients) are its own,
-// and 1b forms C B^T once for a group's heads (mamba2-130m's 24 heads share
-// one group) into the workspace, where the fma body kept a 377 MB scratch
-// of every head's scores.  In launch 4 a warp owns a 16-token strip; the Q x
-// Q scores, d(C B^T) and R stay in its registers (see the kernel).  What
+// The backward's mma body (entry ssd_bwd_mma; any P and N, multiples of 8
+// up to 128, any chunk and S, float32 and bfloat16 inputs): the same phases
+// with every product on the TF32 tensor cores, mma.sync m16n8k8, each fp32
+// operand split into hi + lo and three products summed small terms first
+// (3xTF32, the flash backward's scheme, with truncating splits;
+// ref.py:split_einsum and truncate_tf32 model it).  Launches 2, 3, 5 and 6
+// are the fma body's; 1 (chunk states and E, a warp a 16-row strip of P) and
+// 4 (chunk gradients) are its own, and 1b forms C B^T once for a group's
+// heads (mamba2-130m's 24 heads share one group) into the workspace, where
+// the fma body kept a 377 MB scratch of every head's scores.  In launch 4 a
+// warp owns a 16-token strip; the Q x Q scores, d(C B^T) and R stay in its
+// registers (see the kernel).  P past 64 is cut into slabs of kMmaP = 64
+// columns (72-120: a ragged second slab, its columns past P zero), a grid
+// axis of launches 1 and 4 beside the chunk (slab fastest), so that each
+// slab's blocks keep P 64's shared memory and registers: at P = N = chunk =
+// 128 the fma body's chunk block would need 269 KB, above the 227 a block
+// may have.  What is indexed by p (the chunk states, E, dx) belongs to one
+// slab; what sums over p (d(C B^T), hence dB, dC, ddt and the dA / dD parts;
+// W, U's dot with x, <dS, state_in>) is linear in each slab's part, which the
+// slab writes to the workspace, and launches 5, 6 and 7 (ddt, only with two
+// slabs) add the parts in slab order: the same bits on a second call.  C B^T
+// does not depend on P and stays one launch 1b a group; what each slab
+// repeats is the products of d(C B^T) with B and C (N wide).  What
 // bounds it at mamba2-130m's train shape (x, dy (8,1024,24,64) fp32, chunk
 // 128): its products, 3 x ssd_bwd_macs = 38.4 G multiply-adds at the TF32
 // rate, 0.155 ms (chip_smoke.py:ssd_bwd_split_macs); measured, instruction
@@ -158,8 +173,8 @@
 // whose block holds the chunk's C, B, x and dy in fp32 (225 KB of shared
 // memory, one block of 8 warps an SM).  What the design does about it:
 // every tile load in flight at once (cp.async), compile-time shared-memory
-// strides and tile counts (a specialisation at N 128, P 64), C B^T a group,
-// and 3-operation splits.
+// strides and tile counts (a specialisation at N 128 with 64-column slabs:
+// P 64 and 128), C B^T a group, and 3-operation splits.
 //
 // * mma_tf32x3 (entry ssd_fwd_mma_tf32; float32, the training path's
 //   forward, every shape the fma body takes): chunk-parallel on the TF32
@@ -1079,11 +1094,13 @@ __host__ __device__ constexpr long long bwd_scratch_floats(int Qp, int N) {
 
 __host__ __device__ constexpr long long round4(long long v) { return (v + 3) & ~3LL; }
 
-// offsets (floats) of the workspace's parts
+// offsets (floats) of the workspace's parts; dBh, dCh and the dA / dD parts
+// once a slab of P (the mma body's; the fma body has one)
 struct BwdWorkspace {
   long long cum, states, dstates, final_state, dBh, dCh, parts, scratch, total;
 };
-__host__ __device__ inline BwdWorkspace bwd_workspace(int B, int S, int H, int P, int N, int Q) {
+__host__ __device__ inline BwdWorkspace bwd_workspace(int B, int S, int H, int P, int N, int Q,
+                                                      int slabs = 1) {
   const int nc = (S + Q - 1) / Q, Qp = (Q + 3) & ~3;
   BwdWorkspace w;
   w.cum = 0;
@@ -1091,9 +1108,9 @@ __host__ __device__ inline BwdWorkspace bwd_workspace(int B, int S, int H, int P
   w.dstates = w.states + static_cast<long long>(B) * nc * H * P * N;
   w.final_state = w.dstates + static_cast<long long>(B) * nc * H * P * N;
   w.dBh = w.final_state + static_cast<long long>(B) * H * P * N;
-  w.dCh = w.dBh + static_cast<long long>(B) * S * H * N;
-  w.parts = w.dCh + static_cast<long long>(B) * S * H * N;
-  w.scratch = round4(w.parts + 2LL * B * nc * H);
+  w.dCh = w.dBh + static_cast<long long>(slabs) * B * S * H * N;
+  w.parts = w.dCh + static_cast<long long>(slabs) * B * S * H * N;
+  w.scratch = round4(w.parts + 2LL * B * nc * H * slabs);
   w.total = w.scratch + static_cast<long long>(B) * nc * H * bwd_scratch_floats(Qp, N);
   return w;
 }
@@ -1535,12 +1552,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 }
 
 // Launch 5.  Thread: one (token, group, n) of dB and of dC: the group's
-// heads' parts summed in order, in the inputs' type.
-template <typename T>
+// heads' parts summed in order, each head's kSlabs slab parts (slab_floats
+// apart) in slab order, in the inputs' type.
+template <typename T, int kSlabs>
 __global__ void __launch_bounds__(kBwdThreads)
     ssd_bwd_group_kernel(const float* __restrict__ dBh, const float* __restrict__ dCh,
                          T* __restrict__ dBm, T* __restrict__ dCm, long long n_out, int H, int G,
-                         int N) {
+                         int N, long long slab_floats) {
   const long long e = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
   if (e >= n_out) return;
   const int hpg = H / G;
@@ -1549,16 +1567,20 @@ __global__ void __launch_bounds__(kBwdThreads)
   const long long base = (tok * H + static_cast<long long>(g) * hpg) * N + n;
   float sb = 0.f, sc = 0.f;
   for (int k = 0; k < hpg; ++k) {
-    sb += dBh[base + static_cast<long long>(k) * N];
-    sc += dCh[base + static_cast<long long>(k) * N];
+#pragma unroll
+    for (int s = 0; s < kSlabs; ++s) {
+      sb += dBh[base + static_cast<long long>(k) * N + s * slab_floats];
+      sc += dCh[base + static_cast<long long>(k) * N + s * slab_floats];
+    }
   }
   dBm[e] = from_f32<T>(sb);
   dCm[e] = from_f32<T>(sc);
 }
 
 // Launch 6.  Block (h, which): dA (which 0) or dD (which 1) of head h from the
-// chunks' parts (B * nc of them): lane k sums parts k, k + kBwdLanes, ... in
-// turn, then a pairwise tree over the lanes.
+// chunks' parts (B * nc of them, each chunk's slabs' in slab order after
+// one another with the mma body's slabs): lane k sums parts k, k +
+// kBwdLanes, ... in turn, then a pairwise tree over the lanes.
 __global__ void __launch_bounds__(kBwdLanes)
     ssd_bwd_param_kernel(const float* __restrict__ parts, float* __restrict__ dA,
                          float* __restrict__ dD, int n_chunks, int H) {
@@ -1573,11 +1595,23 @@ __global__ void __launch_bounds__(kBwdLanes)
   if (k == 0) (which == 0 ? dA : dD)[h] = out;
 }
 
+// Launch 7 of the mma body, with two slabs of P or more: thread e, ddt[e] as
+// the sum of the slabs' parts (n apart) in slab order.
+__global__ void __launch_bounds__(kBwdThreads)
+    ssd_bwd_slab_sum_kernel(const float* __restrict__ parts, float* __restrict__ out, long long n,
+                            int slabs) {
+  const long long e = static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (e >= n) return;
+  float v = parts[e];
+  for (int s = 1; s < slabs; ++s) v += parts[s * n + e];
+  out[e] = v;
+}
+
 // ---------------------------------------------------------------------------
 // backward, mma body: the products on the TF32 tensor cores (3xTF32)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaP = 64;             // the mma body's largest P (its dx accumulators)
+constexpr int kMmaP = 64;             // a slab of P: a block's columns (its dx accumulators)
 constexpr int kStrips = kMaxQ / 16;   // 16-token strips of a chunk: a warp each
 
 // Row strides (floats) of the tiles in shared memory: C and B (N columns)
@@ -1807,38 +1841,42 @@ __device__ __forceinline__ void mma_load_tile(float* dst, int ld, const T* src, 
   }
 }
 
-// The chunk's C, B (rows t, columns n), x and dy (rows t, columns p) into
-// shared memory as fp32 with row strides kLdN and kLdP (padding
-// rows and columns zero; for fp32 the caller waits for the cp.async copies),
-// and dt into dtv.  C and dy are skipped where cs and ys are null (the
-// forward's chunk states read neither); LP: x's and dy's row stride.
+// The chunk's C, B (rows t, columns n), x and dy (rows t, columns p of the
+// slab pb .. pb + ps - 1) into shared memory as fp32 with row strides kLdN
+// and LP (padding rows and columns zero; for fp32 the caller waits for the
+// cp.async copies), and dt into dtv.  C and dy are skipped where cs and ys
+// are null (the forward's chunk states read neither).
 template <typename T, int LP = kLdP>
 __device__ void mma_load_chunk(float* cs, float* bs, float* xs, float* ys, float* dtv,
                                const T* x, const T* dy, const T* Bm, const T* Cm,
                                const float* dt, int b, int h, int g, int s0, int rows, int S,
-                               int H, int P, int G, int N, int Q16) {
+                               int H, int P, int G, int N, int Q16, int pb, int ps) {
   const long long x_row = static_cast<long long>(H) * P, bc_row = static_cast<long long>(G) * N;
   const long long row0 = static_cast<long long>(b) * S + s0;
-  const long long xo = row0 * x_row + static_cast<long long>(h) * P;
+  const long long xo = row0 * x_row + static_cast<long long>(h) * P + pb;
   const long long bo = row0 * bc_row + static_cast<long long>(g) * N;
   if (cs != nullptr) mma_load_tile<T>(cs, kLdN, Cm + bo, bc_row, rows, N, Q16);
   mma_load_tile<T>(bs, kLdN, Bm + bo, bc_row, rows, N, Q16);
-  mma_load_tile<T>(xs, LP, x + xo, x_row, rows, P, Q16);
-  if (ys != nullptr) mma_load_tile<T>(ys, LP, dy + xo, x_row, rows, P, Q16);
+  mma_load_tile<T>(xs, LP, x + xo, x_row, rows, ps, Q16);
+  if (ys != nullptr) mma_load_tile<T>(ys, LP, dy + xo, x_row, rows, ps, Q16);
   const int t = threadIdx.x;
   if (t < kMaxQ) dtv[t] = t < rows ? dt[(row0 + t) * H + h] : 0.f;
 }
 
 // Launch 1 of the backward's mma body (kE) and of the forward's mma_tf32x3
-// body (!kE).  Block (c, h, b): cum (as ssd_bwd_state_kernel), the chunk's
-// local end state sum_t (w_t x_t) B_t^T into states and, for the backward,
-// E = sum_t (exp(cum_t) dy_t) C_t^T into dstates, (P x N) each: a warp a
-// (product, 16 rows of P) item, the 16 x N tile summed over the chunk's
-// tokens in one accumulator (A read down the token-major tiles).  Without
-// E the block holds only B and x (103 KB at chunk 128 and P 64: two blocks
-// an SM), and an item is half of N, so that the 8 warps have 8 items at P
-// 64.  LP: x's (and dy's) row stride in shared memory, kLdP for P up to 64.
-template <typename T, bool kE, int LP = kLdP>
+// body (!kE).  Block (c * slabs + si, h, b): cum (as ssd_bwd_state_kernel;
+// written by slab 0), the chunk's local end state sum_t (w_t x_t) B_t^T
+// into states and, for the backward, E = sum_t (exp(cum_t) dy_t) C_t^T into
+// dstates, the slab's rows of (P x N) each: a warp a (product, 16 rows of
+// P) item, the 16 x N tile summed over the chunk's tokens in one accumulator
+// (A read down the token-major tiles).  Without E the block holds only B
+// and x (103 KB at chunk 128 and P 64: two blocks an SM), and an item is
+// half of N, so that the 8 warps have 8 items at P 64.  LP: x's (and dy's)
+// row stride in shared memory, kLdP for a slab of up to 64 columns.
+// kSlabs: 1 (the whole of P in one block), or 2 slabs of kMmaP columns (P
+// past 64), fixed at compile time so that the one-slab kernel is the plain
+// one.
+template <typename T, bool kE, int LP = kLdP, int kSlabs = 1>
 __global__ void __launch_bounds__(kBwdThreads, kE ? 1 : 2)
     ssd_state_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                          const float* __restrict__ A, const T* __restrict__ Bm,
@@ -1846,7 +1884,9 @@ __global__ void __launch_bounds__(kBwdThreads, kE ? 1 : 2)
                          float* __restrict__ cum_out, float* __restrict__ states,
                          float* __restrict__ dstates, int S, int H, int P, int G, int N, int Q) {
   extern __shared__ float4 smem4[];
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int c = blockIdx.x / kSlabs, si = blockIdx.x - c * kSlabs, nc = gridDim.x / kSlabs;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int pb = si * kMmaP, ps = kSlabs > 1 ? min(P - pb, kMmaP) : P;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int gh = h / (H / G);
   const int Q16 = round16(Q);
@@ -1863,7 +1903,7 @@ __global__ void __launch_bounds__(kBwdThreads, kE ? 1 : 2)
   float* ev = wv + kMaxQ;   // exp(cum_t)
   double* cd = reinterpret_cast<double*>(ev + kMaxQ);
   mma_load_chunk<T, LP>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, gh, s0, rows, S, H, P, G,
-                        N, Q16);
+                        N, Q16, pb, ps);
   cp_async_wait_all();
   __syncthreads();
   if (tid < kMaxQ) cd[tid] = static_cast<double>(dtv[tid] * A[h]);
@@ -1882,11 +1922,12 @@ __global__ void __launch_bounds__(kBwdThreads, kE ? 1 : 2)
     wv[tid] = expf(total - cum[tid]) * dtv[tid];
     ev[tid] = expf(cum[tid]);
   }
-  if (tid < Q) cum_out[(static_cast<long long>(b) * H + h) * nc * Q + s0 + tid] = cum[tid];
+  if (si == 0 && tid < Q)
+    cum_out[(static_cast<long long>(b) * H + h) * nc * Q + s0 + tid] = cum[tid];
   __syncthreads();
 
-  const long long off = ((static_cast<long long>(b) * nc + c) * H + h) * P * N;
-  const int strips = round16(P) / 16, ntiles = N / 8;
+  const long long off = (((static_cast<long long>(b) * nc + c) * H + h) * P + pb) * N;
+  const int strips = round16(ps) / 16, ntiles = N / 8;
   // an item is (side, strip of P, part of N): the backward's parts are the
   // whole of N, the forward's halves of it
   constexpr int kParts = kE ? 1 : 2, NT = kMaxN / 8 / kParts;
@@ -1931,9 +1972,9 @@ __global__ void __launch_bounds__(kBwdThreads, kE ? 1 : 2)
     for (int nt = 0; nt < NT; ++nt) {
       if (nt < nts) {
         const int n = (nb + nt) * 8 + 2 * t;
-        if (p0 + g < P)
+        if (p0 + g < ps)
           store2(out + static_cast<long long>(p0 + g) * N + n, acc[nt][0], acc[nt][1]);
-        if (p0 + g + 8 < P)
+        if (p0 + g + 8 < ps)
           store2(out + static_cast<long long>(p0 + g + 8) * N + n, acc[nt][2], acc[nt][3]);
       }
     }
@@ -2020,10 +2061,17 @@ __global__ void __launch_bounds__(kBwdThreads)
 // below its diagonal (rsum), c_j the column sums of those tiles (csv), and
 // strip tau's diagonal tile of R in shared memory; every sum in a fixed
 // order.  Then as ssd_bwd_chunk_kernel: ddt, and the chunk's parts of dA
-// and dD.  NTN and NTP: N / 8 and P / 8 when known at compile time
-// (mamba2-130m's 16 and 8: every guard and k-loop bound then a constant),
-// else 0 (read from N and P).
-template <typename T, int NTN, int NTP>
+// and dD.  With slabs > 1 the block is (c * slabs + si, h, b) and takes
+// the slab's columns pb .. pb + ps - 1 of x, dy, dx and the rows of the
+// states: dx is its own, and what it writes of dC, dB (per head), ddt and
+// the dA / dD parts is the slab's part, each slab's in a region of its own
+// (ddt's in the workspace, which launch 7 adds up).  NTN and NTP: N / 8
+// and the slab's ps / 8 when known at compile time (N 128 with P 64 or 128,
+// mamba2-130m's and its 128-wide heads': every guard and k-loop bound then
+// a constant), else 0 (read from N and ps).  kSlabs: the slabs of P, 1 or
+// 2 at compile time (the one-slab kernel then the plain one), or 0 (read
+// from slabs).
+template <typename T, int NTN, int NTP, int kSlabs>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     ssd_bwd_chunk_mma_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                              const float* __restrict__ A, const T* __restrict__ Bm,
@@ -2033,15 +2081,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                              const float* __restrict__ cbw, T* __restrict__ dx,
                              float* __restrict__ ddt, float* __restrict__ dBh,
                              float* __restrict__ dCh, float* __restrict__ parts, int S, int H,
-                             int P, int G, int N, int Q) {
+                             int P, int G, int N, int Q, int slabs_in) {
   extern __shared__ float4 smem4[];
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
+  const int slabs = kSlabs > 0 ? kSlabs : slabs_in;
+  const int c = blockIdx.x / slabs, si = blockIdx.x - c * slabs, nc = gridDim.x / slabs;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int gh = h / (H / G);
   const int Q16 = round16(Q), ns = Q16 / 16;
   constexpr int LN = kLdN, LP = kLdP;
-  const int ntn = NTN > 0 ? NTN : N / 8, ntp = NTP > 0 ? NTP : P / 8;
-  const int Kn = 8 * ntn, Kp = 8 * ntp;  // N and P
+  // slab si's columns of P (one slab: P, at most kMmaP)
+  const int pb = si * kMmaP, ps = kSlabs == 1 ? P : min(P - pb, kMmaP);
+  const int ntn = NTN > 0 ? NTN : N / 8, ntp = NTP > 0 ? NTP : ps / 8;
+  const int Kn = 8 * ntn, Kp = 8 * ntp;  // N and the slab's width
+  // the slab's parts: dC and dB per head, ddt, dA and dD
+  const long long bsh = static_cast<long long>(gridDim.z) * S * H;
+  dCh += si * bsh * N;
+  dBh += si * bsh * N;
+  ddt += si * bsh;
   const int s0 = c * Q, rows = min(Q, S - s0);
   float* cs = reinterpret_cast<float*>(smem4);  // Q16 x LN: C (i, n)
   float* bs = cs + Q16 * LN;                     // Q16 x LN: B (j, n)
@@ -2065,14 +2122,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float* diag = slab;                   // kStrips x 16 x 16: R (j, i) of strip tiles (w, w)
 
   mma_load_chunk<T>(cs, bs, xs, ys, dtv, x, dy, Bm, Cm, dt, b, h, gh, s0, rows, S, H, P, G, N,
-                    Q16);
+                    Q16, pb, ps);
   const float* cb_in = cum_in + (static_cast<long long>(b) * H + h) * nc * Q + s0;
   if (tid < Q16) cum[tid] = cb_in[min(tid, Q - 1)];  // rows past Q: the chunk's total
   for (int e = tid; e < kStrips * kMaxQ; e += kBwdThreads) rsum[e] = 0.f;
   const long long blk = (static_cast<long long>(b) * nc + c) * H + h;
   const bool inter = c > 0;  // the state entering the first chunk is zero
-  const float* Sin = states + blk * P * N;
-  const float* dS = dstates + blk * P * N;
+  const float* Sin = states + (blk * P + pb) * N;
+  const float* dS = dstates + (blk * P + pb) * N;
   // C B^T of the chunk's group (launch 1b), and its transpose
   const float* cbm = cbw + ((static_cast<long long>(b) * nc + c) * G + gh) * cb_floats<true>(Q);
   const float* cbtm = cbm + Q16 * Q16;
@@ -2081,7 +2138,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float ip = 0.f;
   if (inter) {
 #pragma unroll 4
-    for (int e = tid; e < P * N / 4; e += kBwdThreads) {
+    for (int e = tid; e < ps * N / 4; e += kBwdThreads) {
       const float4 u = reinterpret_cast<const float4*>(dS)[e];
       const float4 v = reinterpret_cast<const float4*>(Sin)[e];
       ip = fmaf(u.x, v.x, ip);
@@ -2322,7 +2379,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       csv[r0] = cr[0];
       csv[r1] = cr[1];
     }
-    T* dxb = dx + tok0 * x_row + static_cast<long long>(h) * P;
+    T* dxb = dx + tok0 * x_row + static_cast<long long>(h) * P + pb;
 #pragma unroll
     for (int nt = 0; nt < kMmaP / 8; ++nt) {
       if (nt < ntp) {
@@ -2403,7 +2460,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const float da = da_r + suf[tid] + pre[tid] + state_term;
     ddt[(tok0 + tid) * H + h] = fmaf(a_h, da, ddt_part);
     da_term = dtv[tid] * da;
-    for (int p = 0; p < P; ++p) dd_term = fmaf(xs[tid * LP + p], ys[tid * LP + p], dd_term);
+    for (int p = 0; p < ps; ++p) dd_term = fmaf(xs[tid * LP + p], ys[tid * LP + p], dd_term);
   }
   if (tid < kMaxQ) {
     red[tid] = da_term;
@@ -2413,9 +2470,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const float dA_c = block_tree(red, kMaxQ);
   const float dD_c = block_tree(red2, kMaxQ);
   if (tid == 0) {
-    const long long n_parts = static_cast<long long>(gridDim.z) * nc * H;
-    parts[blk] = dA_c;
-    parts[n_parts + blk] = dD_c;
+    // part (b, c, slab): the param kernel sums them in that order
+    const long long n_parts = static_cast<long long>(gridDim.z) * gridDim.x * H;
+    const long long part = (static_cast<long long>(b) * gridDim.x + blockIdx.x) * H + h;
+    parts[part] = dA_c;
+    parts[n_parts + part] = dD_c;
   }
 }
 
@@ -2678,36 +2737,57 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm, con
       wsf + w.dstates, wsf + w.scratch, static_cast<T*>(dx), static_cast<float*>(ddt),
       wsf + w.dBh, wsf + w.dCh, wsf + w.parts, S, H, P, G, N, Q);
   const long long n_out = static_cast<long long>(B) * S * G * N;
-  ssd_bwd_group_kernel<T><<<static_cast<unsigned>((n_out + kBwdThreads - 1) / kBwdThreads),
-                            kBwdThreads, 0, stream>>>(wsf + w.dBh, wsf + w.dCh,
-                                                      static_cast<T*>(dBm), static_cast<T*>(dCm),
-                                                      n_out, H, G, N);
+  ssd_bwd_group_kernel<T, 1><<<static_cast<unsigned>((n_out + kBwdThreads - 1) / kBwdThreads),
+                               kBwdThreads, 0, stream>>>(
+      wsf + w.dBh, wsf + w.dCh, static_cast<T*>(dBm), static_cast<T*>(dCm), n_out, H, G, N, 0);
   ssd_bwd_param_kernel<<<dim3(H, 2), kBwdLanes, 0, stream>>>(
       wsf + w.parts, static_cast<float*>(dA), static_cast<float*>(dD), B * nc, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bwd_mma_shape_ok(int B, int S, int H, int P, int G, int N, int chunk) {
-  return shape_ok(B, S, H, P, G, N, chunk) && S > 0 && P <= kMmaP &&
+  return shape_ok(B, S, H, P, G, N, chunk) && S > 0 &&
          bwd_mma_smem_bytes(chunk) <= kBwdMaxSmemBytes;
 }
 
-// The mma body: launches 2, 3, 5 and 6 are the fma body's; 1, 1b (C B^T
-// per group) and 4 its own.  Its workspace is the fma body's with C B^T and
+// The mma body's slabs of P (kMmaP columns each), and its workspace: the fma
+// body's (with dBh, dCh and the dA / dD parts once a slab) with C B^T and
 // its transpose for each (b, chunk, group) in place of the chunk blocks'
-// scratch.
+// scratch, then with two slabs or more each slab's ddt (B * S * H).
+constexpr int bwd_slabs(int P) { return (P + kMmaP - 1) / kMmaP; }
+inline long long bwd_mma_ddt_offset(int B, int S, int H, int P, int G, int N, int Q) {
+  return bwd_workspace(B, S, H, P, N, Q, bwd_slabs(P)).scratch +
+         static_cast<long long>(B) * ((S + Q - 1) / Q) * G * cb_floats<true>(Q);
+}
+
+// The mma body: launches 2, 3, 5 and 6 are the fma body's (5 over the
+// slabs' parts); 1, 1b (C B^T per group), 4 and, with two slabs, 7 its own.
 template <typename T>
 int launch_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                    const void* D, const void* dy, const void* d_state, void* dx, void* ddt,
                    void* dA, void* dBm, void* dCm, void* dD, void* ws, int B, int S, int H, int P,
                    int G, int N, int Q, cudaStream_t stream) {
-  cudaError_t err = allow_smem<ssd_state_mma_kernel<T, true>>(kBwdMaxSmemBytes);
+  const int nc = (S + Q - 1) / Q, PN = P * N, slabs = bwd_slabs(P);
+  // the chunk-state and chunk-gradient kernels for these slabs; N 128 with
+  // slabs of 64 (P 64, mamba2-130m's, and P 128) with their tile counts at
+  // compile time
+  auto state_kernel = slabs == 1 ? ssd_state_mma_kernel<T, true, kLdP, 1>
+                                 : ssd_state_mma_kernel<T, true, kLdP, 2>;
+  auto chunk_kernel = N == 128 && P == 64    ? ssd_bwd_chunk_mma_kernel<T, 16, 8, 1>
+                      : N == 128 && P == 128 ? ssd_bwd_chunk_mma_kernel<T, 16, 8, 2>
+                                             : ssd_bwd_chunk_mma_kernel<T, 0, 0, 0>;
+  cudaError_t err = allow_smem<ssd_state_mma_kernel<T, true, kLdP, 1>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem<ssd_state_mma_kernel<T, true, kLdP, 2>>(kBwdMaxSmemBytes);
   if (err == cudaSuccess) err = allow_smem<ssd_cb_kernel<T, true>>(kBwdMaxSmemBytes);
-  if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 16, 8>>(kBwdMaxSmemBytes);
-  if (err == cudaSuccess) err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 0, 0>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 16, 8, 1>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 16, 8, 2>>(kBwdMaxSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem<ssd_bwd_chunk_mma_kernel<T, 0, 0, 0>>(kBwdMaxSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nc = (S + Q - 1) / Q, PN = P * N;
-  const BwdWorkspace w = bwd_workspace(B, S, H, P, N, Q);
+  const BwdWorkspace w = bwd_workspace(B, S, H, P, N, Q, slabs);
   float* wsf = static_cast<float*>(ws);
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bm);
@@ -2715,8 +2795,8 @@ int launch_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,
   const T* yt = static_cast<const T*>(dy);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
-  const dim3 chunks(nc, H, B), pass((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
-  ssd_state_mma_kernel<T, true><<<chunks, kBwdThreads, bwd_mma_state_smem_bytes(Q), stream>>>(
+  const dim3 chunks(nc * slabs, H, B), pass((PN / 4 + kPassThreads - 1) / kPassThreads, H, B);
+  state_kernel<<<chunks, kBwdThreads, bwd_mma_state_smem_bytes(Q), stream>>>(
       xt, dtf, Af, bt, ct, yt, wsf + w.cum, wsf + w.states, wsf + w.dstates, S, H, P, G, N, Q);
   ssd_cb_kernel<T, true><<<dim3(nc, G, B), kBwdThreads, 8 * round16(Q) * kLdN, stream>>>(
       bt, ct, wsf + w.scratch, S, G, N, Q);
@@ -2724,20 +2804,29 @@ int launch_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,
                                                            wsf + w.final_state, H, PN, Q, nc);
   ssd_bwd_state_pass_kernel<<<pass, kPassThreads, 0, stream>>>(
       wsf + w.dstates, wsf + w.cum, static_cast<const float*>(d_state), H, PN, Q, nc);
-  // N 128 and P 64 (mamba2-130m's) with their tile counts at compile time
-  auto chunk_kernel = N == 128 && P == 64 ? ssd_bwd_chunk_mma_kernel<T, 16, 8>
-                                          : ssd_bwd_chunk_mma_kernel<T, 0, 0>;
+  // one slab writes ddt itself; two or more their parts, which launch 7 adds
+  const long long bsh = static_cast<long long>(B) * S * H;
+  float* ddt_parts = slabs > 1 ? wsf + bwd_mma_ddt_offset(B, S, H, P, G, N, Q)
+                               : static_cast<float*>(ddt);
   chunk_kernel<<<chunks, kBwdThreads, bwd_mma_smem_bytes(Q), stream>>>(
       xt, dtf, Af, bt, ct, static_cast<const float*>(D), yt, wsf + w.cum, wsf + w.states,
-      wsf + w.dstates, wsf + w.scratch, static_cast<T*>(dx), static_cast<float*>(ddt),
-      wsf + w.dBh, wsf + w.dCh, wsf + w.parts, S, H, P, G, N, Q);
+      wsf + w.dstates, wsf + w.scratch, static_cast<T*>(dx), ddt_parts, wsf + w.dBh, wsf + w.dCh,
+      wsf + w.parts, S, H, P, G, N, Q, slabs);
   const long long n_out = static_cast<long long>(B) * S * G * N;
-  ssd_bwd_group_kernel<T><<<static_cast<unsigned>((n_out + kBwdThreads - 1) / kBwdThreads),
-                            kBwdThreads, 0, stream>>>(wsf + w.dBh, wsf + w.dCh,
-                                                      static_cast<T*>(dBm), static_cast<T*>(dCm),
-                                                      n_out, H, G, N);
+  const unsigned out_blocks = static_cast<unsigned>((n_out + kBwdThreads - 1) / kBwdThreads);
+  if (slabs == 1)
+    ssd_bwd_group_kernel<T, 1><<<out_blocks, kBwdThreads, 0, stream>>>(
+        wsf + w.dBh, wsf + w.dCh, static_cast<T*>(dBm), static_cast<T*>(dCm), n_out, H, G, N, 0);
+  else
+    ssd_bwd_group_kernel<T, 2><<<out_blocks, kBwdThreads, 0, stream>>>(
+        wsf + w.dBh, wsf + w.dCh, static_cast<T*>(dBm), static_cast<T*>(dCm), n_out, H, G, N,
+        bsh * N);
   ssd_bwd_param_kernel<<<dim3(H, 2), kBwdLanes, 0, stream>>>(
-      wsf + w.parts, static_cast<float*>(dA), static_cast<float*>(dD), B * nc, H);
+      wsf + w.parts, static_cast<float*>(dA), static_cast<float*>(dD), B * nc * slabs, H);
+  if (slabs > 1)
+    ssd_bwd_slab_sum_kernel<<<static_cast<unsigned>((bsh + kBwdThreads - 1) / kBwdThreads),
+                              kBwdThreads, 0, stream>>>(ddt_parts, static_cast<float*>(ddt), bsh,
+                                                        slabs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2839,15 +2928,16 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
   }
 }
 
-// The backward's mma body, on the inputs of ssd_bwd, with P at most 64 (a
-// chunk block of bwd_mma_smem_bytes: 225 KB at chunk 128); ws a
+// The backward's mma body, on the inputs of ssd_bwd at any P (slabs of 64
+// columns; a chunk block of bwd_mma_smem_bytes: 225 KB at chunk 128); ws a
 // float32 workspace of ssd_bwd_mma_workspace_floats(...) floats, 16-byte
 // aligned.  Returns cudaErrorInvalidValue on anything else, else
 // cudaGetLastError() after the last launch.
 extern "C" long long ssd_bwd_mma_workspace_floats(int B, int S, int H, int P, int G, int N,
                                                   int chunk) {
-  return bwd_workspace(B, S, H, P, N, chunk).scratch +
-         static_cast<long long>(B) * ((S + chunk - 1) / chunk) * G * cb_floats<true>(chunk);
+  const int slabs = bwd_slabs(P);
+  return bwd_mma_ddt_offset(B, S, H, P, G, N, chunk) +
+         (slabs > 1 ? static_cast<long long>(slabs) * B * S * H : 0LL);
 }
 
 extern "C" int ssd_bwd_mma(const void* x, const void* dt, const void* A, const void* Bm,

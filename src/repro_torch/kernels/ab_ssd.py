@@ -74,7 +74,10 @@ def _sass_opcodes(lib: Path) -> dict:
                            "-sass", str(lib)], capture_output=True,
                           text=True).stdout
     for block in re.split(r"\n\s*Function : ", sass):
-        if "ssd_bwd_chunk_mma_kernelIfLi16ELi8E" in block.split("\n")[0]:
+        # the one-slab kernel at those tile counts (before slabs: no
+        # third template argument)
+        if re.search(r"ssd_bwd_chunk_mma_kernelIfLi16ELi8E(Li1E)?E",
+                     block.split("\n")[0]):
             ops = collections.Counter(
                 m.group(1).split(".")[0] for m in re.finditer(
                     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"

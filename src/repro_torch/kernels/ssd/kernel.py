@@ -4,7 +4,11 @@ The kernel is ``csrc/ssd.cu``; it replaces the TPU kernel ``ssd_pallas`` at
 any S (the ragged last chunk is padded inside the kernel), computes
 ``ref.ssd_chunked``'s function and returns the fp32 state after the last
 token beside y.  Its plain versions are ``ref.ssd_chunked`` (and its three
-phases) and ``ref.ssd_sequential``.
+phases) and ``ref.ssd_sequential``.  It takes any chunk from 16 tokens and
+runs it at a tile of ``ssd_tile(chunk)`` = min(chunk, 128) tokens: the
+chunked scan computes the same function at any chunk (only the order of its
+fp32 sums changes), so a chunk past 128 (256, the upstream Mamba-2 module's
+default) launches the same kernels at 128.
 
 Three bodies, chosen by ``select_body`` from the dtype (never by trying one
 and falling back):
@@ -27,22 +31,25 @@ and falling back):
 each body's.
 
 The backward is a kernel too (``ssd_bwd_cuda``: dx, ddt, dA, dB, dC and dD
-of y and of the final state, computed in fp32 for both dtypes, six launches
-through a workspace this wrapper allocates; its plain version is
+of y and of the final state, computed in fp32 for both dtypes, six to eight
+launches through a workspace this wrapper allocates; its plain version is
 ``ref.ssd_chunked_bwd``), behind ``SSDFunction``, the
-``torch.autograd.Function`` whose forward is ``ssd_cuda``.  Two bodies,
-chosen by ``select_bwd_body`` from the shape (never by trying one and
-falling back):
+``torch.autograd.Function`` whose forward is ``ssd_cuda``.  Two bodies:
 
-* ``mma``: P up to 64 (mamba2-130m's train shape): the chunk states and
-  the chunk gradients on the TF32 tensor cores, every fp32 operand split
-  into hi + lo (3xTF32), the Q x Q scores kept in registers.
-* ``fma``: any other shape whose block fits (``bwd_smem_bytes``): the
-  products in fp32 on the FMA units, the scores through a device scratch.
+* ``mma`` (``select_bwd_body``'s, for every shape the forward takes): the
+  chunk states and the chunk gradients on the TF32 tensor cores, every fp32
+  operand split into hi + lo (3xTF32), the Q x Q scores kept in registers;
+  P past 64 in slabs of ``BWD_SLAB_P`` = 64 columns (``bwd_slabs``), a
+  block each, whose parts of the sums over P the kernel adds in slab order
+  (``ref.ssd_chunked_bwd(..., slab=64)`` models it).
+* ``fma``: the previous body, forced by ``body="fma"`` where its block fits
+  (``bwd_smem_bytes``): the products in fp32 on the FMA units, the scores
+  through a device scratch.
 
-``check_bwd_inputs`` refuses what neither takes.  ``ssd_bwd_cuda.launches``
-counts its calls and ``launches_by_body`` each body's.  Called outside that
-Function, ``ssd_cuda`` refuses inputs that require grad.
+``check_bwd_inputs`` refuses what the forward refuses.
+``ssd_bwd_cuda.launches`` counts its calls and ``launches_by_body`` each
+body's.  Called outside that Function, ``ssd_cuda`` refuses inputs that
+require grad.
 """
 from __future__ import annotations
 
@@ -58,9 +65,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = ("mma", "mma_tf32x3", "fma")
 BWD_BODIES = ("mma", "fma")
 # the backward's chunk blocks: csrc/ssd.cu's bwd_smem_floats, kBwdVecs,
-# kBwdThreads and kBwdMaxSmemBytes; the mma body's largest P (kMmaP)
+# kBwdThreads and kBwdMaxSmemBytes; the mma body's slab of P (kMmaP); the
+# largest chunk an entry point takes (kMaxQ)
 BWD_MAX_SMEM_BYTES = 232448
-BWD_MMA_MAX_P = 64
+BWD_SLAB_P = 64
+MAX_TILE = 128
+
+
+def ssd_tile(chunk: int) -> int:
+    """The tokens a chunk of the kernels holds for ``chunk``: the chunk
+    itself up to 128, else 128 (the same function, its sums in another
+    order)."""
+    return min(chunk, MAX_TILE)
+
+
+def bwd_slabs(P: int) -> int:
+    """The backward mma body's slabs of P: 64 columns each, the last ragged
+    (csrc/ssd.cu's bwd_slabs)."""
+    return -(-P // BWD_SLAB_P)
 
 
 def _entry(name: str):
@@ -92,8 +114,9 @@ def select_body(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     A pure function of dtype and shape, on any device.  Raises on what no
     body takes: shapes that do not agree, another dtype, G not dividing H,
-    P or N not a multiple of 8 up to 128, a chunk outside 16-128, batch or
-    heads above 65535, operands on two devices, non-contiguous x, Bm, Cm."""
+    P or N not a multiple of 8 up to 128, a chunk below 16 (any larger one
+    runs at the tile ``ssd_tile(chunk)``), batch or heads above 65535,
+    operands on two devices, non-contiguous x, Bm, Cm."""
     if x.ndim != 4 or Bm.ndim != 4 or Cm.shape != Bm.shape:
         raise ValueError(f"expected x (B,S,H,P) and Bm, Cm (B,S,G,N) of one "
                          f"shape; got {tuple(x.shape)}, {tuple(Bm.shape)}, "
@@ -115,8 +138,8 @@ def select_body(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for name, n in (("P", P), ("N", N)):
         if n % 8 or not 8 <= n <= 128:
             raise ValueError(f"{name}={n} must be a multiple of 8 up to 128")
-    if not 16 <= chunk <= 128:
-        raise ValueError(f"chunk {chunk} must lie in 16-128")
+    if chunk < 16:
+        raise ValueError(f"chunk {chunk} must be at least 16")
     if B > 65535 or H > 65535:
         raise ValueError("batch and heads are limited to 65535")
     for t in (dt, A, Bm, Cm, D):
@@ -142,10 +165,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_macs(B, S, H, P, G, N, Q) -> int:
-    """Multiply-adds one SSD scan needs, all fp32: per (b, g, chunk) C·Bᵀ on
-    and below the diagonal; per (b, h, chunk) scores @ x on and below it and
-    Bᵀ @ x in full, and C @ state in every chunk but the first (its incoming
-    state is zero)."""
+    """Multiply-adds one SSD scan needs, all fp32, at the tile the kernels
+    run for chunk Q (``ssd_tile``): per (b, g, tile) C·Bᵀ on and below the
+    diagonal; per (b, h, tile) scores @ x on and below it and Bᵀ @ x in
+    full, and C @ state in every tile but the first (its incoming state is
+    zero)."""
+    Q = ssd_tile(Q)
     tri, n_chunks = Q * (Q + 1) // 2, -(-S // Q)
     return B * (n_chunks * (G * tri * N + H * (tri * P + Q * N * P))
                 + (n_chunks - 1) * H * Q * N * P)
@@ -156,18 +181,24 @@ def ssd_split_macs(B, S, H, P, G, N, Q) -> int:
     those of ``ssd_macs``, with every product that has an fp32 operand
     (scores @ x, Bᵀ @ (w∘x), C @ state: all but C·Bᵀ) taken twice, once for
     the operand's bf16 hi and once for its lo."""
+    Q = ssd_tile(Q)
     cb = B * -(-S // Q) * G * (Q * (Q + 1) // 2) * N
     return cb + 2 * (ssd_macs(B, S, H, P, G, N, Q) - cb)
 
 
 def ssd_bwd_macs(B, S, H, P, G, N, Q) -> int:
-    """Multiply-adds the SSD backward needs, all fp32: per (b, g, chunk)
-    C·Bᵀ on and below the diagonal (recomputed); per (b, h, chunk) dy·xᵀ,
-    the scores' transpose times dy, d(C·Bᵀ) times B and times C, on and
-    below it, and in full the chunk's local state, its E = Σ exp(cum) dy Cᵀ,
-    B·dSᵀ and x·dS; in every chunk but the first also W = dy·state_in, the
-    inter-chunk term of dC (the state entering the first is zero; d cum's
-    inter-chunk term dy·(C·state_inᵀ) is C·W, Q·N more, not counted)."""
+    """Multiply-adds the SSD backward needs, all fp32, at the tile the
+    kernels run for chunk Q (``ssd_tile``; "chunk" below is a tile): per
+    (b, g, chunk) C·Bᵀ on and below the diagonal (recomputed); per (b, h,
+    chunk) dy·xᵀ, the scores' transpose times dy, d(C·Bᵀ) times B and
+    times C, on and below it, and in full the chunk's local state, its E =
+    Σ exp(cum) dy Cᵀ, B·dSᵀ and x·dS; in every chunk but the first also W
+    = dy·state_in, the inter-chunk term of dC (the state entering the first
+    is zero; d cum's inter-chunk term dy·(C·state_inᵀ) is C·W, Q·N more,
+    not counted).  The products of d(C·Bᵀ) with B and C that each slab of
+    P past the first repeats are not counted: the function needs them
+    once."""
+    Q = ssd_tile(Q)
     tri, n_chunks, qnp = Q * (Q + 1) // 2, -(-S // Q), Q * N * P
     return B * (n_chunks * (G * tri * N + H * (2 * tri * P + 2 * tri * N
                                                + 4 * qnp))
@@ -228,17 +259,22 @@ def fwd_tf32_workspace_floats(B, S, H, P, G, N, Q) -> int:
 
 
 def bwd_workspace_floats(body: str, B, S, H, P, G, N, Q) -> int:
-    """Floats of the backward's workspace on ``body``: ``csrc/ssd.cu``'s
+    """Floats of the backward's workspace on ``body`` at the tile Q (a
+    chunk the entry points take): ``csrc/ssd.cu``'s
     ``ssd_bwd_workspace_floats`` (fma) and ``ssd_bwd_mma_workspace_floats``
-    (mma: the fma body's parts up to its scratch, then C·Bᵀ and its
-    transpose a (b, chunk, group))."""
+    (mma: the fma body's parts up to its scratch, dB, dC and the dA / dD
+    parts once a slab of P, then C·Bᵀ and its transpose a (b, chunk,
+    group), then with two slabs each slab's ddt)."""
     nc, Qp = -(-S // Q), (Q + 3) & ~3
+    slabs = bwd_slabs(P) if body == "mma" else 1
     states = _round4(B * H * nc * Q)
     parts = states + 2 * B * nc * H * P * N + B * H * P * N \
-        + 2 * B * S * H * N
-    scratch = _round4(parts + 2 * B * nc * H)
+        + 2 * slabs * B * S * H * N
+    scratch = _round4(parts + 2 * B * nc * H * slabs)
     if body == "mma":
-        return scratch + B * nc * G * 2 * _round16(Q) * _round16(Q)
+        ddt_parts = slabs * B * S * H if slabs > 1 else 0
+        return scratch + B * nc * G * 2 * _round16(Q) * _round16(Q) \
+            + ddt_parts
     return scratch + B * nc * H * (3 * Qp * Qp + (Qp // 4) * Qp
                                    + 2 * (N // 4) * Qp)
 
@@ -250,7 +286,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (y (B,S,H,P) in ``x.dtype``, state (B,H,P,N) fp32 after the last token).
 
     x, Bm and Cm contiguous, all float32 or all bfloat16; dt, A and D any
-    float type (cast to float32 here).  Any S; chunk 16-128; P and N
+    float type (cast to float32 here).  Any S; a chunk of 16 or more, run
+    at the tile ``ssd_tile(chunk)`` (128 for any chunk past it); P and N
     multiples of 8 up to 128; G dividing H.  ``body`` (default: the one
     ``select_body`` picks) names one of ``bodies_for`` these inputs.
     Raises on anything else."""
@@ -266,6 +303,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"(bodies: {BODIES})")
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
+    chunk = ssd_tile(chunk)
     dt, A, D = (t.to(torch.float32).contiguous() for t in (dt, A, D))
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
@@ -318,7 +356,8 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def _ssd_twin(body, x, y, state, G, N, chunk):
     """``ssd_cuda`` on fake tensors, past the outputs: the workspace
-    ``body`` allocates, the cost charged on ``body``; nothing launched."""
+    ``body`` allocates at the tile ``chunk``, the cost charged on ``body``;
+    nothing launched."""
     B, S, H, P = x.shape
     f32, dev = torch.float32, x.device
     if body == "mma_tf32x3":
@@ -343,23 +382,34 @@ def bwd_smem_bytes(chunk: int, P: int, N: int) -> int:
 
 def select_bwd_body(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
                     d_state=None) -> str:
-    """The backward body for these inputs, one of ``BWD_BODIES``: ``mma``
-    where P <= ``BWD_MMA_MAX_P`` (its chunk block, with the strides of P 64
-    and N 128, fits 227 KB of shared memory at every chunk: 225 KB at
-    128), else ``fma`` (``check_bwd_inputs`` raises where that body's block
-    does not fit).  A pure function of dtype and shape, on any device."""
+    """The backward body for these inputs: ``mma`` for every shape the
+    forward takes (its chunk block, 64 columns of P a slab and N up to 128,
+    fits 227 KB of shared memory at every tile: 225 KB at 128).  Raises as
+    ``check_bwd_inputs``.  A pure function of dtype and shape, on any
+    device."""
     check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
-    return "mma" if x.shape[-1] <= BWD_MMA_MAX_P else "fma"
+    return "mma"
+
+
+def bwd_bodies_for(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
+                   d_state=None) -> tuple[str, ...]:
+    """The backward bodies that take these inputs, the one
+    ``select_bwd_body`` picks first: ``mma``, then ``fma`` where its chunk
+    block at the tile ``ssd_tile(chunk)`` fits 227 KB of shared memory
+    (``bwd_smem_bytes``; not at P = N = 128 with a tile of 128).  Raises as
+    ``check_bwd_inputs``."""
+    picked = select_bwd_body(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
+    fits = bwd_smem_bytes(ssd_tile(chunk), x.shape[-1],
+                          Bm.shape[-1]) <= BWD_MAX_SMEM_BYTES
+    return (picked, "fma") if fits else (picked,)
 
 
 def check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
                      d_state=None) -> None:
     """Check what the backward takes, on any device from dtype and shape.
 
-    Raises on what the forward takes no body for, on a dy unlike x or a d_state that is not
-    (B,H,P,N), on empty inputs, and on a chunk whose block would need more than
-    227 KB of shared memory on both bodies (P = 128 with N = 128 at chunk
-    128: ROADMAP.md Queue 2 item 3)."""
+    Raises on what the forward takes no body for, on a dy unlike x or a
+    d_state that is not (B,H,P,N), and on empty inputs."""
     select_body(x, dt, A, Bm, Cm, D, chunk)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} does not match x "
@@ -372,11 +422,6 @@ def check_bwd_inputs(x, dt, A, Bm, Cm, D, dy, chunk: int = 128,
                          f"got {tuple(d_state.shape)}")
     if B * S * H == 0:
         raise ValueError("the SSD backward takes B, S, H >= 1")
-    if bwd_smem_bytes(chunk, P, N) > BWD_MAX_SMEM_BYTES:
-        raise ValueError(f"chunk {chunk}, P={P}, N={N}: the backward's block "
-                         f"would need {bwd_smem_bytes(chunk, P, N)} bytes of "
-                         "shared memory, above 227 KB (ROADMAP.md Queue 2 "
-                         "item 3)")
 
 
 def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -387,23 +432,27 @@ def ssd_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``ssd_cuda``'s y and final state, given dy (like x) and ``d_state``
     (B,H,P,N) or None (the final state unused).
 
-    The inputs ``ssd_cuda`` takes, none empty, and the chunk's block within 227
-    KB of shared memory (``check_bwd_inputs``); computed in fp32 from either
-    dtype.  ``body`` (default: the one ``select_bwd_body`` picks) names the
-    body to run, ``fma`` or, where it takes the shape, ``mma``.  Every sum
-    has one owner and a fixed order: the same bits on every run on one
-    card."""
+    The inputs ``ssd_cuda`` takes, none empty (``check_bwd_inputs``), the
+    chunk run at the tile ``ssd_tile(chunk)`` as the forward runs it;
+    computed in fp32 from either dtype.  ``body`` (default: the one
+    ``select_bwd_body`` picks, ``mma``) names one of ``bwd_bodies_for``
+    these inputs.  Every sum has one owner and a fixed order: the same bits
+    on every run on one card."""
     if not x.is_cuda:
         raise ValueError(f"ssd_bwd_cuda takes CUDA tensors, got {x.device}")
     dy = dy.contiguous()
     if d_state is not None:
         d_state = d_state.to(torch.float32).contiguous()
-    picked = select_bwd_body(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
-    body = picked if body is None else body
-    if body not in BWD_BODIES or (body == "mma" and picked != "mma"):
-        raise ValueError(f"backward body {body!r} does not take P={x.shape[-1]}"
-                         f", N={Bm.shape[-1]}, chunk {chunk} (bodies: "
-                         f"{BWD_BODIES})")
+    takes = bwd_bodies_for(x, dt, A, Bm, Cm, D, dy, chunk, d_state)
+    body = takes[0] if body is None else body
+    chunk = ssd_tile(chunk)
+    if body not in takes:
+        raise ValueError(
+            f"backward body {body!r} does not take P={x.shape[-1]}, "
+            f"N={Bm.shape[-1]} at a tile of {chunk} (these take {takes}; the "
+            f"fma body's block would need "
+            f"{bwd_smem_bytes(chunk, x.shape[-1], Bm.shape[-1])} bytes of "
+            "shared memory, 227 KB at most)")
     entry = "ssd_bwd_mma" if body == "mma" else "ssd_bwd"
     shape_only = fake(x)
     if body == "mma" and not shape_only:

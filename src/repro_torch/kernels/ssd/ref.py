@@ -38,7 +38,8 @@ the gradient its outputs send to the state entering it), ``ssd_state_passing``
 and ``ssd_state_passing_bwd`` (the states entering the chunks, and the
 gradient of each chunk's local state, run in reverse), ``ssd_chunk_scan_bwd``
 (every gradient inside a chunk) and ``ssd_sum_ordered`` (dA and dD summed over
-the chunks in the kernel's fixed order).
+the chunks in the kernel's fixed order; ``ssd_sum_slabs`` over the chunks'
+slabs of P, where the kernel cuts P into slabs).
 """
 from __future__ import annotations
 
@@ -336,8 +337,17 @@ def ssd_sum_ordered(parts: torch.Tensor, threads: int = 256) -> torch.Tensor:
     return _tree(lanes, 0)
 
 
+def ssd_sum_slabs(parts: list[torch.Tensor]) -> torch.Tensor:
+    """Each slab of P's (B,nc,H) per-chunk parts -> (H,) in the backward
+    kernel's order: the parts of chunk c's slabs after one another (chunk
+    major, slab minor), then ``ssd_sum_ordered`` over them all."""
+    B, nc, H = parts[0].shape
+    return ssd_sum_ordered(torch.stack(parts, 2).reshape(B, nc * len(parts),
+                                                         H))
+
+
 def ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, d_state=None, *,
-                    chunk: int = 128, product=torch.einsum):
+                    chunk: int = 128, product=torch.einsum, slab=None):
     """The gradients (dx, ddt, dA, dBm, dCm, dD) of ``ssd_chunked``'s y and
     final state, given dy (like x) and ``d_state`` (B,H,P,N) or None (the
     final state unused), each in its input's dtype, computed in fp32.  Any S
@@ -345,7 +355,16 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, d_state=None, *,
     over each group's heads in order; dA and dD over the chunks by
     ``ssd_sum_ordered``.  ``product`` (an einsum of two operands) forms
     every product of two tensors: ``split_einsum`` with ``truncate_tf32``
-    models the mma body's 3xTF32 products."""
+    models the mma body's 3xTF32 products.
+
+    ``slab`` (None: the whole of P at once) cuts P into slabs of that many
+    columns, as the backward's mma body cuts it past 64 (``slab=64``): every
+    gradient inside the chunks is taken a slab at a time
+    (``ssd_chunk_scan_bwd`` on the slab's columns of x, dy and the states),
+    dx is the slabs' side by side, and what sums over P is each slab's part
+    added in the kernel's order: ddt over the slabs in turn, dB and dC each
+    head's slabs in turn within the group's heads in order, and dA and dD's
+    per-chunk parts by ``ssd_sum_slabs``."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
     states, cum = ssd_chunk_state(x, dt, A, Bm, chunk=chunk, product=product)
@@ -353,19 +372,27 @@ def ssd_chunked_bwd(x, dt, A, Bm, Cm, D, dy, d_state=None, *,
     dstates = ssd_state_passing_bwd(
         ssd_chunk_dstate(dy, Cm, cum, chunk=chunk, product=product), cum,
         d_state, chunk=chunk)
-    dx, ddt, dBh, dCh, dA_parts, dD_parts = ssd_chunk_scan_bwd(
-        x, dt, A, Bm, Cm, D, dy, cum, states_in, dstates, chunk=chunk,
-        product=product)
+    width = P if slab is None else slab
+    parts = [ssd_chunk_scan_bwd(
+        x[..., p:p + width], dt, A, Bm, Cm, D, dy[..., p:p + width], cum,
+        states_in[..., p:p + width, :], dstates[..., p:p + width, :],
+        chunk=chunk, product=product) for p in range(0, P, width)]
+    dx = torch.cat([part[0] for part in parts], -1)
+    ddt = parts[0][1]
+    for part in parts[1:]:
+        ddt = ddt + part[1]
 
-    def by_group(t):      # (B,S,H,N) -> (B,S,G,N), each group's heads in order
-        t = t.reshape(B, S, G, H // G, N)
+    def by_group(ts):    # each slab's (B,S,H,N) -> (B,S,G,N), in the order
+        t = torch.stack(ts, 3).reshape(B, S, G, H // G * len(ts), N)
         out = t[:, :, :, 0]
-        for k in range(1, H // G):
+        for k in range(1, t.shape[3]):
             out = out + t[:, :, :, k]
         return out
     return (dx.to(x.dtype), ddt.to(dt.dtype),
-            ssd_sum_ordered(dA_parts).to(A.dtype), by_group(dBh).to(Bm.dtype),
-            by_group(dCh).to(Cm.dtype), ssd_sum_ordered(dD_parts).to(D.dtype))
+            ssd_sum_slabs([part[4] for part in parts]).to(A.dtype),
+            by_group([part[2] for part in parts]).to(Bm.dtype),
+            by_group([part[3] for part in parts]).to(Cm.dtype),
+            ssd_sum_slabs([part[5] for part in parts]).to(D.dtype))
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm, D):

@@ -372,6 +372,8 @@ def _ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=4):
     (1, 37, 2, 16, 1, 16, 16),        # the smoke config, ragged
     (1, 90, 3, 24, 3, 8, 20),         # chunk not a multiple of 4
     (1, 64, 2, 128, 1, 32, 32),       # P 128: two blocks over the head dim
+    (1, 512, 2, 128, 1, 128, 256),    # chunk 256: a tile of 128
+    (2, 300, 4, 64, 1, 128, 256),     # chunk 256, ragged
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk):
     args = _ssd_inputs(cuda, B, S, H, P, G, N, dtype)
@@ -390,7 +392,8 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk):
 
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
     (8, 1024, 24, 64, 1, 128, 128), (2, 300, 4, 32, 2, 64, 64),
-    (1, 17, 8, 128, 1, 64, 16)])
+    (1, 17, 8, 128, 1, 64, 16), (8, 1024, 12, 128, 1, 128, 128),
+    (2, 1000, 12, 72, 2, 128, 128)])
 def test_ssd_twin_workspaces_are_the_librarys(cuda, B, S, H, P, G, N,
                                               chunk):
     """The workspace sizes the shape-only twins allocate (Python mirrors of
@@ -422,7 +425,7 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ssd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm,
                  Cm, D, chunk=16)
     with pytest.raises(ValueError, match="chunk"):
-        ssd_cuda(x, dt, A, Bm, Cm, D, chunk=256)
+        ssd_cuda(x, dt, A, Bm, Cm, D, chunk=8)
     with pytest.raises(TypeError, match="one dtype"):
         ssd_cuda(x, dt, A, Bm.bfloat16(), Cm, D, chunk=16)
 
@@ -434,6 +437,8 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     (1, 90, 3, 24, 3, 8, 20),         # chunk not a multiple of 16, N 8
     (1, 64, 2, 128, 1, 32, 32),       # P 128
     (1, 37, 2, 16, 1, 16, 16),        # the smoke config, ragged
+    (2, 512, 4, 128, 1, 128, 128),    # P, N and chunk 128
+    (2, 1000, 4, 128, 1, 128, 256),   # chunk 256, ragged: a tile of 128
 ])
 def test_ssd_mma_body_matches_plain(cuda, B, S, H, P, G, N, chunk):
     args = _ssd_inputs(cuda, B, S, H, P, G, N, torch.bfloat16)
@@ -508,6 +513,7 @@ def test_ssd_fma_body_forced_on_bf16_matches_mma(cuda):
     (1, 384, 2, 128, 1, 128, 128),    # P, N and chunk 128: the largest blocks
     (1, 130, 2, 120, 2, 24, 16),
     (1, 37, 2, 16, 1, 16, 16),        # the smoke config, ragged
+    (1, 512, 2, 128, 1, 128, 256),    # chunk 256: both bodies at a tile of 128
 ])
 def test_ssd_mma_tf32x3_body_matches_plain(cuda, B, S, H, P, G, N, chunk):
     """The fp32 forward on the TF32 tensor cores against the plain scan and
@@ -1149,6 +1155,18 @@ SSD_BWD_CASES = [
     (8, 1024, 24, 64, 1, 128, 128),   # mamba2-130m's train step
     (2, 1000, 24, 64, 1, 128, 128),   # a ragged last chunk
     (2, 200, 4, 16, 2, 16, 64),       # grouped B/C, ragged
+    (8, 1024, 12, 128, 1, 128, 128),  # its head dim 128: two slabs of P
+    (2, 1000, 12, 128, 1, 128, 256),  # and its chunk of 256: a tile of 128
+    (2, 300, 4, 72, 1, 128, 128),     # a ragged second slab (8 columns)
+    (1, 300, 4, 120, 2, 64, 64),
+]
+# where the fma body's block fits too (at P 128 with N 128 only up to a
+# tile of 64)
+SSD_BWD_FMA_CASES = SSD_BWD_CASES[:3] + [
+    (2, 1000, 12, 128, 1, 128, 64),   # head dim 128, chunk 64
+    (2, 1000, 24, 64, 1, 128, 256),   # chunk 256 at head dim 64
+    (2, 300, 4, 72, 1, 128, 128),
+    (1, 300, 4, 120, 2, 64, 64),
 ]
 
 
@@ -1188,7 +1206,7 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_BWD_CASES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_BWD_FMA_CASES)
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_bwd_mma_body_matches_fma_body(cuda, dtype, B, S, H, P, G, N,
                                            chunk, with_state):

@@ -433,10 +433,33 @@ def test_ssd_select_raises_on_what_no_body_takes(make, exc, match):
         ssd_body(*make())
 
 
-@pytest.mark.parametrize("chunk", [8, 256])
+@pytest.mark.parametrize("chunk", [8])
 def test_ssd_select_raises_on_a_chunk_outside_16_128(chunk):
+    """A chunk below 16 is refused; past 128 is taken, at a tile of 128
+    (``test_ssd_select_takes_a_chunk_past_128_at_a_tile_of_128``)."""
     with pytest.raises(ValueError, match="chunk"):
         ssd_body(*ssd_args(), chunk=chunk)
+
+
+@pytest.mark.parametrize("chunk,tile", [(256, 128), (129, 128), (512, 128),
+                                        (128, 128), (16, 16)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ssd_select_takes_a_chunk_past_128_at_a_tile_of_128(chunk, tile,
+                                                            dtype):
+    """Every chunk from 16 is taken by the body its dtype picks, forward and
+    backward, and runs at the tile ``ssd_tile`` gives (the chunk up to 128);
+    the twins' costs and workspaces charge that tile."""
+    args = ssd_args(dtype=dtype, P=128, N=128, H=12)
+    dy = torch.zeros_like(args[0])
+    assert ssd_body(*args, chunk=chunk) == ("mma" if dtype == BF16
+                                           else "mma_tf32x3")
+    assert ssd.select_bwd_body(*args, dy, chunk) == "mma"
+    assert ssd.ssd_tile(chunk) == tile
+    shape = (2, 512, 12, 128, 1, 128)
+    assert ssd.ssd_cost(*shape, chunk, dtype) == ssd.ssd_cost(*shape, tile,
+                                                               dtype)
+    assert ssd.ssd_bwd_cost(*shape, chunk, dtype) == ssd.ssd_bwd_cost(
+        *shape, tile, dtype)
 
 
 def test_ssd_counts_start_at_zero_by_body():
@@ -473,6 +496,8 @@ def test_ssd_bwd_block_fits_227_kb_at_mamba2s_shape():
     (2, 1000, 24, 64, 1, 128, 128, True),    # the chip_smoke.py cases
     (2, 200, 4, 16, 2, 16, 64, True),
     (2, 37, 4, 8, 1, 8, 16, False),
+    (8, 1024, 12, 128, 1, 128, 128, False),  # mamba2-130m at head dim 128
+    (2, 1000, 12, 128, 1, 128, 256, True),   # and its chunk of 256
 ])
 def test_ssd_bwd_takes_mma_where_its_tiles_fit(dtype, B, S, H, P, G, N,
                                               chunk, d_state):
@@ -485,16 +510,45 @@ def test_ssd_bwd_takes_mma_where_its_tiles_fit(dtype, B, S, H, P, G, N,
 @pytest.mark.parametrize("P,N,chunk", [(72, 128, 128), (128, 128, 64),
                                        (128, 64, 128), (96, 16, 32)])
 def test_ssd_bwd_takes_fma_where_the_mma_tiles_do_not_fit(P, N, chunk):
-    """Head dims past the mma body's 64 (its dx accumulators) take the fma
-    body where that body's block fits."""
+    """Head dims past 64, which took the fma body before the mma body cut
+    P into slabs of 64 columns, take the mma body; the fma body stays
+    forcible there, its block fitting."""
     args = ssd_args(S=256, P=P, N=N, dtype=F32)
+    dy = torch.zeros_like(args[0])
     assert ssd.bwd_smem_bytes(chunk, P, N) <= ssd.BWD_MAX_SMEM_BYTES
-    assert ssd.select_bwd_body(*args, torch.zeros_like(args[0]),
-                               chunk) == "fma"
+    assert ssd.select_bwd_body(*args, dy, chunk) == "mma"
+    assert ssd.bwd_bodies_for(*args, dy, chunk) == ("mma", "fma")
+
+
+@pytest.mark.parametrize("P,N,chunk", [(128, 128, 128), (128, 128, 256),
+                                       (120, 128, 128)])
+def test_ssd_bwd_fma_is_not_forcible_where_its_block_does_not_fit(P, N,
+                                                                  chunk):
+    """Where the fma body's block passes 227 KB (P 128 with N 128 at a tile
+    of 128: 269 KB) only the mma body takes the shape."""
+    args = ssd_args(S=256, P=P, N=N, H=12, dtype=F32)
+    dy = torch.zeros_like(args[0])
+    assert ssd.bwd_smem_bytes(ssd.ssd_tile(chunk), P, N) > \
+        ssd.BWD_MAX_SMEM_BYTES
+    assert ssd.bwd_bodies_for(*args, dy, chunk) == ("mma",)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128, 256])
+def test_ssd_bwd_check_takes_every_head_and_state_dim(chunk):
+    """The backward takes every shape the forward takes: P and N every
+    multiple of 8 up to 128 at chunks 16, 64, 128 and 256, each on the mma
+    body (P past 64 in slabs of 64 columns: ``bwd_slabs``)."""
+    for P in range(8, 129, 8):
+        for N in range(8, 129, 8):
+            args = ssd_args(B=1, S=32, H=2, P=P, N=N, dtype=F32)
+            dy = torch.zeros_like(args[0])
+            assert ssd.check_bwd_inputs(*args, dy, chunk,
+                                        torch.zeros(1, 2, P, N)) is None
+            assert ssd.select_bwd_body(*args, dy, chunk) == "mma"
+        assert ssd.bwd_slabs(P) == (1 if P <= 64 else 2)
 
 
 @pytest.mark.parametrize("make,match", [
-    (lambda a: (*a, torch.zeros_like(a[0]), 128, None), "227 KB"),
     (lambda a: (*a, torch.zeros_like(a[0], dtype=F32), 64, None), "dy"),
     (lambda a: (*a, torch.zeros_like(a[0]), 64, torch.zeros(2, 24, 128)),
      "d_state"),

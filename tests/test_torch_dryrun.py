@@ -433,6 +433,23 @@ def test_ssd_workspace_mirrors_csrc():
         scratch + B * nc * H * (3 * 128 * 128 + 32 * 128 + 2 * 32 * 128)
 
 
+def test_ssd_workspace_mirrors_csrc_with_two_slabs():
+    """The mma backward's workspace at mamba2-130m's train step with head
+    dim 128 (``csrc/ssd.cu``'s formulas by hand): dB, dC and the dA / dD
+    parts once a slab of P (two), then C·Bᵀ and its transpose, then each
+    slab's ddt; the fma body's is unchanged (one slab)."""
+    B, S, H, P, G, N, Q = 8, 1024, 12, 128, 1, 128, 128
+    nc = 8
+    assert ssd.bwd_slabs(P) == 2
+    head = B * H * nc * Q + 2 * B * nc * H * P * N + B * H * P * N
+    assert ssd.bwd_workspace_floats("mma", B, S, H, P, G, N, Q) == \
+        head + 2 * 2 * B * S * H * N + 2 * B * nc * H * 2 \
+        + B * nc * G * 2 * 128 * 128 + 2 * B * S * H
+    assert ssd.bwd_workspace_floats("fma", B, S, H, P, G, N, Q) == \
+        head + 2 * B * S * H * N + 2 * B * nc * H \
+        + B * nc * H * (3 * 128 * 128 + 32 * 128 + 2 * 32 * 128)
+
+
 @pytest.mark.parametrize("S,causal,window,chunk", [
     (96, True, 0, 0), (96, True, 40, 0), (96, False, 0, 0),
     (100, True, 0, 32), (130, False, 16, 0), (64, True, 100, 48)])

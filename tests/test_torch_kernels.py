@@ -50,13 +50,14 @@ from repro_torch.kernels.rmsnorm.kernel import (bwd_grid, cta_grid,
                                                 cta_shape, rmsnorm_cuda)
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_dscale_ordered,
                                              rmsnorm_ref)
-from repro_torch.kernels.ssd.kernel import ssd_cuda
+from repro_torch.kernels.ssd.kernel import BWD_SLAB_P, ssd_cuda
 from repro_torch.kernels.ssd.ref import (_tree, split_bf16, split_einsum,
                                          ssd_chunk_scan,
                                          ssd_chunk_state, ssd_chunked,
                                          ssd_chunked_bwd, ssd_decode_step,
                                          ssd_sequential, ssd_state_passing,
-                                         ssd_sum_ordered, truncate_tf32)
+                                         ssd_sum_ordered, ssd_sum_slabs,
+                                         truncate_tf32)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -674,11 +675,15 @@ def _ssd_tol(dtype):
     (1, 128, 2, 64, 1, 64, 64),
     (2, 256, 3, 64, 1, 128, 128),
     (1, 256, 4, 32, 2, 64, 128),      # grouped B/C
+    (1, 256, 1, 128, 1, 128, 128),    # P, N and chunk 128
+    (1, 512, 2, 64, 1, 128, 256),     # chunk 256: the kernels' tile is 128
+    (1, 512, 1, 128, 1, 128, 256),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_refs_match_jax(B, S, H, P, G, N, chunk, dtype):
-    """``test_ssd_sweep``'s shapes: both torch scans against JAX's scans and
-    ``ssd_pallas`` in interpret mode."""
+    """``test_ssd_sweep``'s shapes, and head and state dims of 128 at chunks
+    of 128 and 256: both torch scans against JAX's scans and ``ssd_pallas``
+    in interpret mode."""
     jax_args, torch_args = _ssd_both(_ssd_inputs(B, S, H, P, G, N), dtype)
     y_seq, state_seq = ssd_sequential(*torch_args)
     y_chk, state_chk = ssd_chunked(*torch_args, chunk=chunk)
@@ -693,6 +698,25 @@ def test_ssd_refs_match_jax(B, S, H, P, G, N, chunk, dtype):
     assert_allclose(f32(state_chk), f32(state_seq), rtol=1e-4, atol=1e-4)
     y_ops, state_ops = ops.ssd_scan(*torch_args, chunk=chunk)
     assert torch.equal(y_ops, y_chk) and torch.equal(state_ops, state_chk)
+
+
+@pytest.mark.parametrize("P", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunked_at_256_agrees_with_128(P, dtype):
+    """The premise of the kernels' tile of 128 for a chunk of 256: the
+    chunked scan computes one function at any chunk, so ``ssd_chunked`` at
+    chunk 256 and at 128 agree within the SSD tolerance (2e-3 fp32, 5e-2
+    bf16; y, and the final state at fp32's), as JAX's own scan at 256
+    agrees with both."""
+    jax_args, torch_args = _ssd_both(_ssd_inputs(2, 512, 2, P, 1, 128),
+                                     dtype)
+    y256, s256 = ssd_chunked(*torch_args, chunk=256)
+    y128, s128 = ssd_chunked(*torch_args, chunk=128)
+    assert_allclose(f32(y256), f32(y128), **_ssd_tol(dtype))
+    assert_allclose(f32(s256), f32(s128), **_ssd_tol("float32"))
+    want = jax_ssd_chunked(*jax_args, chunk=256)
+    for y in (y256, y128):
+        assert_allclose(f32(y), f32(want), **_ssd_tol(dtype))
 
 
 @pytest.mark.parametrize("S,chunk", [(50, 16), (37, 128)])
@@ -894,16 +918,24 @@ def _ssd_grad_inputs(B, S, H, P, G, N, seed=5):
     return arrays, dy, d_state
 
 
-@pytest.mark.parametrize("S", [256, 200])
+@pytest.mark.parametrize("S,P,N,chunk", [
+    pytest.param(256, 16, 16, 64, id="256"),
+    pytest.param(200, 16, 16, 64, id="200"),
+    pytest.param(256, 128, 128, 128, id="256-p128-n128-c128"),
+    pytest.param(512, 64, 128, 256, id="512-p64-n128-c256"),
+    pytest.param(512, 128, 128, 256, id="512-p128-n128-c256"),
+])
 @pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssd_bwd_ref_matches_jax_grad(S, G, dtype):
+def test_ssd_bwd_ref_matches_jax_grad(S, P, N, chunk, G, dtype):
     """dx, ddt, dA, dB, dC, dD of ``ssd_chunked_bwd`` against ``jax.grad`` of
     JAX's chunked scan (its sequential scan at the ragged S = 200, where the
     plain backward pads the last chunk as the kernel does) and against
     autograd of the port's own scan, at the SSD tolerances (2e-3 fp32, 5e-2
-    bf16); x, Bm, Cm and dy in ``dtype``, dt, A, D fp32."""
-    B, H, P, N, chunk = 2, 4, 16, 16, 64
+    bf16); x, Bm, Cm and dy in ``dtype``, dt, A, D fp32.  Past P 64 also
+    with the sums over P taken in the mma body's slabs of 64 columns
+    (``slab=BWD_SLAB_P``); at chunk 256 the chunk the JAX package runs."""
+    B, H = 2, 4
     arrays, dy, _ = _ssd_grad_inputs(B, S, H, P, G, N)
     jax_args, torch_args = _ssd_both(arrays, dtype)
     jdy, tdy = both(dy, dtype)
@@ -920,6 +952,11 @@ def test_ssd_bwd_ref_matches_jax_grad(S, G, dtype):
     for g, w, t in zip(got, want, torch_args):
         assert g.dtype == t.dtype and g.shape == t.shape
         assert_allclose(f32(g), f32(w), **_ssd_tol(dtype))
+    if P > BWD_SLAB_P:
+        by_slabs = ssd_chunked_bwd(*torch_args, tdy, chunk=chunk,
+                                   slab=BWD_SLAB_P)
+        for g, w in zip(by_slabs, want):
+            assert_allclose(f32(g), f32(w), **_ssd_tol(dtype))
     leaves = [t.clone().requires_grad_() for t in torch_args]
     y, _ = (ssd_chunked(*leaves, chunk=chunk) if S % chunk == 0
             else ssd_sequential(*leaves))
@@ -1041,6 +1078,51 @@ def test_ssd_bwd_dA_order_holds_2e_5_on_8192_terms(B, S, chunk):
     for row in terms.reshape(-1, H):
         running = running + row
     assert not np.all(np.abs(running - exact) <= 2e-5 * (1 + np.abs(exact)))
+
+
+def test_ssd_bwd_slab_order_holds_2e_5_on_8192_terms():
+    """The mma body's slabs of P: dA's and dD's per-chunk parts of two
+    slabs of 64 columns, interleaved chunk by chunk (``ssd_sum_slabs``),
+    hold 2e-5 against their float64 sums over B·S = 8192 tokens: dD of
+    ``ssd_chunked_bwd(..., slab=64)`` at P 128 against the float64 sum of
+    x·dy, and drifting terms of d(dt·A) (as
+    ``test_ssd_bwd_dA_order_holds_2e_5_on_8192_terms``) cut into two slabs'
+    parts, where a plain running sum over the parts misses."""
+    B, S, H, P, G, N, chunk = 8, 1024, 2, 128, 1, 16, 128
+    arrays, dy, _ = _ssd_grad_inputs(B, S, H, P, G, N, seed=0)
+    got = ssd_chunked_bwd(*(torch.from_numpy(a) for a in arrays),
+                          torch.from_numpy(dy), chunk=chunk,
+                          slab=BWD_SLAB_P)[5]
+    exact = (arrays[0].astype(np.float64) * dy).sum((0, 1, 3))
+    assert np.abs(exact).max() > 100
+    assert_allclose(f32(got), exact, rtol=2e-5, atol=2e-5)
+
+    rng = np.random.default_rng(2)
+    dt = np.logaddexp(0.0, rng.standard_normal((2, B, S, H)))
+    drift = np.where(np.arange(B * S).reshape(1, B, S, 1) < B * S // 2, 1.0,
+                     -1.0)
+    terms = (dt * (rng.standard_normal((2, B, S, H)) * 4 + drift)).astype(
+        np.float32)
+    exact = terms.astype(np.float64).sum((0, 1, 2))
+    parts = [_tree(torch.from_numpy(t).reshape(B, S // chunk, chunk, H), 2)
+             for t in terms]
+    got = ssd_sum_slabs(parts)
+    assert_allclose(f32(got), exact, rtol=2e-5, atol=2e-5)
+    running = np.zeros(H, np.float32)
+    for row in terms.transpose(1, 2, 0, 3).reshape(-1, H):
+        running = running + row
+    assert not np.all(np.abs(running - exact) <= 2e-5 * (1 + np.abs(exact)))
+
+
+def test_ssd_sum_slabs_interleaves_the_slabs_chunk_by_chunk():
+    parts = [torch.arange(2 * 300 * 2, dtype=torch.float32).reshape(2, 300, 2)
+             * (1 + s) for s in range(2)]
+    flat = torch.stack(parts, 2).reshape(1200, 2)
+    assert torch.equal(flat[:2], torch.stack([parts[0][0, 0],
+                                              parts[1][0, 0]]))
+    assert torch.equal(ssd_sum_slabs(parts),
+                       ssd_sum_ordered(flat.reshape(1, 1200, 2)))
+    assert torch.equal(ssd_sum_slabs(parts[:1]), ssd_sum_ordered(parts[0]))
 
 
 def test_ssd_sum_ordered_is_the_lanes_then_a_tree():

@@ -210,13 +210,33 @@ def _lm(preset: str, layers: int) -> ModelConfig:
 ], ids=["stablelm-3b-smoke", "small-2l", "100m-2l", "mamba2-130m-smoke",
         "recurrentgemma-9b-smoke"])
 def test_train_step_loss_and_grads_match_jax(make_cfg):
-    cfg = make_cfg()
+    _step_matches_jax(make_cfg(), 32)
+
+
+# mamba2-130m's smoke config with one head of 128 and states of 128: the
+# shape the card's SSD backward took only once it cut P into slabs, at
+# chunk 128 and at the upstream Mamba-2 module's 256 (which the card runs
+# at a tile of 128), over a whole chunk of tokens so both packages take
+# their chunked scans
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_train_step_matches_jax_at_head_dim_128(chunk):
+    cfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                              ssm_head_dim=128, ssm_state=128,
+                              ssm_chunk=chunk)
+    assert cfg.ssm_heads == 1
+    _step_matches_jax(cfg, chunk)
+
+
+def _step_matches_jax(cfg, seq: int):
+    """The port's fp32 loss and gradients of one batch (2 x ``seq``)
+    against ``jax.value_and_grad`` through the bridged weights, within
+    ``REL`` of each leaf's largest value."""
     cfg_j = _jax_cfg(cfg)
     params_j = jax_init_params(jax.random.PRNGKey(3), cfg_j)
     params_t = params_from_numpy(jax.tree.map(np.asarray, params_j),
                                  device="cpu")
     toks = np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (2, 33)).astype(np.int32)
+        0, cfg.vocab_size, (2, seq + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     def loss_fn(p):
